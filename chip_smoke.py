@@ -6,18 +6,30 @@
 1. Builds every CUDA source of the port (one nvcc per source, started
    together) into build/kernels/.
 2. Kernel phase: each hand-written kernel against its plain PyTorch
-   version on the card, at the serving prefill shape (fp32 and bf16)
-   and small edge cases, with its time, the plain version's time, the
-   least time the card could take (bound) and one PyTorch library call
-   computing the same function, timed as a yardstick only.
-3. Slice phase (the main path): a REST server on the card serving the
-   tutorial's LM (vocab 32000, d_model 512, 8 layers, 8 heads over 4 kv
-   heads, window 1024, random weights from seed 0), four concurrent
-   predicts of 1100-1500-token prompts, 32 greedy tokens each, sent
-   twice (cold, then warm). The kernel launch counts are zeroed just
-   before and read just after.
-   Each stream must equal the port's solo ``generate``; the prefill
-   logits through the kernel must agree with the dense path.
+   version on the card — the forward at the serving prefill shape, the
+   two backward kernels at the training shape (b 8, 2048 tokens, 8
+   heads over 4 kv heads, window 1024), fp32 and bf16, and small edge
+   cases — with its time, the plain version's time, the least time the
+   card could take (bound) and one PyTorch library call computing the
+   same function, timed as a yardstick only.
+3. Serving path: a REST server on the card serving the tutorial's LM
+   (vocab 32000, d_model 512, 8 layers, 8 heads over 4 kv heads, window
+   1024, random weights from seed 0), four concurrent predicts of
+   1100-1500-token prompts, 32 greedy tokens each, sent twice (cold,
+   then warm). Each stream must equal the port's solo ``generate``; the
+   prefill logits through the kernel must agree with the dense path.
+4. Training path: ``LanguageModel.fit`` of the same LM from
+   ``init_params(seed 0)`` on 64 windows of 2048 tokens of a
+   cyclic-successor stream, batch 16, 2 epochs, grad_accum 2, bf16
+   compute: the loss must be finite and fall, and each kernel must run
+   once per layer and micro-batch. In float32 one micro-step's
+   gradients through the kernels must match the dense path's. The
+   trained artifact is then served over REST and must answer with its
+   reloaded copy's ``generate``. A profiler window of 2 steps gives the
+   kernels' time per step and the card's idle share.
+
+The kernel launch counts are zeroed just before each path and read
+just after it.
 
 Earlier lines print the card (nvidia-smi name and power limit), the
 build time, the ``kernels`` JSON line and the phases' lines; the last
@@ -29,6 +41,7 @@ it, the script exits 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -48,6 +61,23 @@ LM_CONFIG = dict(vocab_size=32000, d_model=512, n_layers=8, n_heads=8,
                  rope_base=10000.0)
 PROMPT_LENS = (1100, 1234, 1367, 1500)
 NEW_TOKENS = 32
+# the training path: 64 windows of 2048 tokens, batch 16, 2 epochs,
+# grad_accum 2 -> 8 optimizer steps of 2 micro-batches
+TRAIN_WINDOWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_ACCUM = \
+    64, 2048, 16, 2, 2
+COUNTERS = {"flash_fwd": "FLASH_FWD_LAUNCHES",
+            "flash_bwd_dq": "FLASH_BWD_DQ_LAUNCHES",
+            "flash_bwd_dkv": "FLASH_BWD_DKV_LAUNCHES"}
+
+
+def _reset_launches(attn) -> None:
+    for counter in COUNTERS.values():
+        setattr(attn, counter, 0)
+
+
+def _launches(attn) -> dict:
+    return {name: getattr(attn, counter)
+            for name, counter in COUNTERS.items()}
 
 
 def _time_ms(torch, fn, iters: int = 20) -> float:
@@ -99,6 +129,8 @@ def kernel_phase(torch, log):
          torch.float32),
         ("offset-empty-rows", 1, 64, 64, 4, 4, 64, True, 16, 40,
          torch.bfloat16),
+        # the training path's shape and dtype
+        ("train", 8, 2048, 2048, 8, 4, 64, True, 1024, 0, torch.bfloat16),
     ]
     # (atol, rtol). float32: summation order only. bf16: both compute in
     # float32 and round o once, so they differ by at most one bf16 ulp of
@@ -154,7 +186,7 @@ def kernel_phase(torch, log):
                 "window": window, "kvOffset": offset, "maxAbsErr": err,
                 "atol": atol, "rtol": rtol, "tolUsed": excess,
                 "emptyRows": empty}
-        if name == "slice":
+        if name in ("slice", "train"):
             mask = _visible_mask(torch, sq, sk, causal, window, offset,
                                  q.device)
             pairs = int(mask.sum())
@@ -176,13 +208,154 @@ def kernel_phase(torch, log):
                 "bound_by": "operations" if op_ms >= byte_ms else "bytes",
                 "flops": flops, "bytes": nbytes, "visiblePairs": pairs,
             })
-            if dtype == torch.float32:
+            if name == "slice" and dtype == torch.float32:
                 entry = {k: line[k] for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by",
                     "library_ms")}
                 entry["max_abs_err"] = err
         log.append("kernel " + json.dumps(line))
     return entry
+
+
+def bwd_kernel_phase(torch, log):
+    """flash_bwd_dq and flash_bwd_dkv against flash_bwd_reference on the
+    card, each case in fp32 and bf16, on the forward kernel's own
+    (o, lse). Returns the kernels-line entries measured at the training
+    path's shape and dtype (bf16)."""
+    import torch.nn.functional as F
+
+    from learningorchestra_tpu_torch.ops import attention as attn
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    # (name, b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse)
+    cases = [
+        ("train", 8, 2048, 2048, 8, 4, 64, True, 1024, 0, False),
+        ("non-causal-ragged-d32", 2, 77, 201, 4, 2, 32, False, 0, 0, False),
+        ("mqa", 2, 130, 130, 8, 1, 64, True, 0, 0, False),
+        ("offset-empty-rows-dlse-d128", 2, 64, 64, 4, 4, 128, True, 16, 40,
+         True),
+    ]
+    # (atol as a share of the case's largest |g|, rtol). Kernel and plain
+    # version compute in float32 from the same inputs and (o, lse) and
+    # differ in summation order only; bf16 is held to the bound a bf16
+    # gradient would carry (rtol 1e-2, about one bf16 ulp)
+    tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
+    entries = {}
+    for (name, b, sq, sk, h, kvh, d, causal, window, offset,
+         with_dlse) in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            def rand(*shape):
+                return torch.randn(*shape, device="cuda", generator=gen) \
+                    .to(dtype)
+
+            q, k, v = rand(b, sq, h, d), rand(b, sk, kvh, d), \
+                rand(b, sk, kvh, d)
+            do = rand(b, sq, h, d)
+            dlse = torch.randn(b, sq, h, device="cuda", generator=gen) \
+                if with_dlse else None
+            scale = 1.0 / d ** 0.5
+            o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
+            delta = attn._bwd_delta(o, do, dlse)
+
+            def dq_kernel():
+                return attn._flash_bwd_dq_cuda(q, k, v, do, lse, delta,
+                                               causal, scale, window,
+                                               offset)
+
+            def dkv_kernel():
+                return attn._flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                causal, scale, window,
+                                                offset)
+
+            def plain():
+                return attn.flash_bwd_reference(
+                    q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
+                    window=window, kv_offset=offset)
+
+            got = (dq_kernel(), *dkv_kernel())
+            torch.cuda.synchronize()
+            want = plain()
+            rel_atol, rtol = tols[dtype]
+            errs, used = [], []
+            for g, w, part in zip(got, want, ("dq", "dk", "dv")):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"{name} {dtype}: {part} not "
+                                         f"finite")
+                atol = rel_atol * w.abs().max().item()
+                diff = (g - w).abs()
+                errs.append(diff.max().item())
+                # worst |g - w| / (atol + rtol |w|); <= 1 passes
+                used.append((diff / (atol + rtol * w.abs())).max().item())
+                if not used[-1] <= 1.0:
+                    raise AssertionError(
+                        f"flash_bwd {part} {name} {dtype}: exceeds atol "
+                        f"{atol} + rtol {rtol} |ref| by {used[-1]}x "
+                        f"(max abs err {errs[-1]})")
+            empty = int((lse == attn.NEG_INF).sum())
+            if offset and not (empty and bool(
+                    (got[0][lse == attn.NEG_INF] == 0).all())):
+                raise AssertionError(f"{name}: no empty rows, or empty "
+                                     f"rows with a non-zero dq")
+            dt = str(dtype).split(".")[-1]
+            line = {"case": name, "dtype": dt,
+                    "shape": [b, sq, sk, h, kvh, d], "causal": causal,
+                    "window": window, "kvOffset": offset, "dlse": with_dlse,
+                    "maxAbsErr": dict(zip(("dq", "dk", "dv"), errs)),
+                    "relAtol": rel_atol, "rtol": rtol,
+                    "tolUsed": dict(zip(("dq", "dk", "dv"), used)),
+                    "emptyRows": empty}
+            if name == "train":
+                pairs = int(_visible_mask(torch, sq, sk, causal, window,
+                                          offset, q.device).sum())
+                elt = q.element_size()
+                ins = (2 * q.numel() + k.numel() + v.numel()) * elt \
+                    + 2 * 4 * lse.numel()
+                plain_ms = _time_ms(torch, plain, iters=3)
+                # library yardstick: the backward of SDPA over the same
+                # mask, i.e. its forward+backward less its forward
+                mask = _visible_mask(torch, sq, sk, causal, window, offset,
+                                     q.device)
+                qt, kt, vt = (x.transpose(1, 2).contiguous()
+                              .requires_grad_() for x in (q, k, v))
+                dot = do.transpose(1, 2).contiguous()
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask, scale=scale,
+                        enable_gqa=True)
+
+                def sdpa_fwd_bwd():
+                    torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
+
+                with torch.no_grad():
+                    sdpa_fwd_ms = _time_ms(torch, sdpa)
+                library_ms = _time_ms(torch, sdpa_fwd_bwd) - sdpa_fwd_ms
+                for kernel, fn, flops, outs in (
+                        ("flash_bwd_dq", dq_kernel, 6.0, q.numel()),
+                        ("flash_bwd_dkv", dkv_kernel, 8.0,
+                         k.numel() + v.numel())):
+                    flops *= d * pairs * h * b
+                    nbytes = ins + 4 * outs
+                    op_ms = flops / PEAK_FLOPS[dt] * 1e3
+                    byte_ms = nbytes / PEAK_BYTES * 1e3
+                    ms = _time_ms(torch, fn)
+                    line[kernel] = {
+                        "ms": ms, "bound_ms": max(op_ms, byte_ms),
+                        "bound_by": "operations" if op_ms >= byte_ms
+                        else "bytes", "flops": flops, "bytes": nbytes}
+                    if dtype == torch.bfloat16:
+                        err = errs[0] if kernel == "flash_bwd_dq" \
+                            else max(errs[1:])
+                        entries[kernel] = {
+                            "ms": ms, "plain_ms": plain_ms,
+                            "bound_ms": max(op_ms, byte_ms),
+                            "bound_by": line[kernel]["bound_by"],
+                            "library_ms": library_ms, "max_abs_err": err,
+                            "dtype": dt}
+                line.update(plain_ms=plain_ms, library_ms=library_ms,
+                            sdpaForwardMs=sdpa_fwd_ms, visiblePairs=pairs)
+            log.append("kernel " + json.dumps(line))
+    return entries
 
 
 def _http(base, method, path, body=None):
@@ -199,7 +372,7 @@ def _http(base, method, path, body=None):
 
 def slice_phase(torch, log, home):
     """REST create -> 4 concurrent predicts -> stats -> delete. Returns
-    the flash_fwd launches of the main path."""
+    the kernel launches of the serving path."""
     import numpy as np
 
     from learningorchestra_tpu_torch.config import Config
@@ -222,7 +395,7 @@ def slice_phase(torch, log, home):
     server = RestServer(port=0, context=ctx).start()
     rounds = []
     try:
-        attn.FLASH_FWD_LAUNCHES = 0
+        _reset_launches(attn)
         status, body = _http(server.base_url, "POST", "/serve/lm", {
             "type": "lm", "maxSlots": 4, "cacheLen": 2048,
             "temperature": 0.0})
@@ -254,7 +427,7 @@ def slice_phase(torch, log, home):
             if status != 200:
                 raise AssertionError(f"stats: {status} {stats}")
             rounds.append((name, out, walls, wall, stats))
-        launches = attn.FLASH_FWD_LAUNCHES
+        launches = _launches(attn)
         status, deleted = _http(server.base_url, "DELETE", "/serve/lm")
         if status != 200 or deleted.get("deleted") is not True:
             raise AssertionError(f"delete: {status} {deleted}")
@@ -262,11 +435,13 @@ def slice_phase(torch, log, home):
         server.stop()
 
     need = LM_CONFIG["n_layers"] * len(prompts) * len(rounds)
-    if launches < need:
-        raise AssertionError(f"flash_fwd launched {launches} times on the "
-                             f"main path; {len(prompts) * len(rounds)} "
-                             f"prefills of {LM_CONFIG['n_layers']} layers "
-                             f"need {need}")
+    if launches["flash_fwd"] < need:
+        raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} "
+                             f"times on the serving path; "
+                             f"{len(prompts) * len(rounds)} prefills of "
+                             f"{LM_CONFIG['n_layers']} layers need {need}")
+    if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
+        raise AssertionError(f"serving ran a backward kernel: {launches}")
     solos = [lm.generate([p], max_new_tokens=NEW_TOKENS)[0][len(p):]
              for p in prompts]
     report = []
@@ -315,7 +490,7 @@ def slice_phase(torch, log, home):
         raise AssertionError(f"flash vs dot prefill logits: {logit_err}")
     log.append("slice " + json.dumps({
         "prompts": list(PROMPT_LENS), "newTokens": NEW_TOKENS,
-        "flashLaunches": launches, "tokensEqualSolo": True,
+        "launches": launches, "tokensEqualSolo": True,
         "prefillLogitsMaxAbsErrVsDot": logit_err, "rounds": report}))
     return launches
 
@@ -370,6 +545,176 @@ def _decode_profile(torch, lm, prompts, steps: int = 8):
             "topHostMs": top(events, "self_cpu_time_total")}
 
 
+def _successor_windows(np, n: int, seq: int, seed: int):
+    """``n`` windows of ``seq`` tokens of the stream where id t is
+    followed by t % 63 + 1; each window starts at an id drawn from
+    ``seed``."""
+    start = np.random.default_rng(seed).integers(1, 64, size=n)
+    return ((start[:, None] - 1 + np.arange(seq)[None, :]) % 63 + 1) \
+        .astype(np.int32)
+
+
+def train_phase(torch, log, home):
+    """fit on the card -> checks -> a profiled 2-step window -> float32
+    kernel-vs-dense gradients -> save, serve over REST, predict. Returns
+    the kernel launches of the training path."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime.data import MASK_KEY
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    state = weights.params_from_flax(weights.init_params(LM_CONFIG, seed=0))
+    x = _successor_windows(np, TRAIN_WINDOWS, TRAIN_SEQ, seed=0)
+    lm = LanguageModel(**LM_CONFIG, device="cuda")
+    lm.set_params(state)
+    if lm._get_engine()._compute_dtype != torch.bfloat16:
+        raise AssertionError("the training path must compute in bf16")
+    steps = TRAIN_EPOCHS * TRAIN_WINDOWS // TRAIN_BATCH
+    micro = steps * TRAIN_ACCUM
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(attn)
+    t0 = time.monotonic()
+    hist = lm.fit(x, batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                  grad_accum=TRAIN_ACCUM).history
+    fit_s = time.monotonic() - t0
+    launches = _launches(attn)
+    peak_bytes = torch.cuda.max_memory_allocated()
+    losses = hist["loss"]
+    if not all(np.isfinite(losses)) or len(losses) != TRAIN_EPOCHS:
+        raise AssertionError(f"training losses {losses}")
+    if not losses[1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    need = LM_CONFIG["n_layers"] * micro
+    if any(n != need for n in launches.values()):
+        raise AssertionError(f"kernel launches during fit {launches}; "
+                             f"{micro} micro-batches of "
+                             f"{LM_CONFIG['n_layers']} layers need {need} "
+                             f"of each")
+    # steady-state step time: the second epoch, after first use
+    step_ms = hist["epochSeconds"][1] / (steps // TRAIN_EPOCHS) * 1e3
+    tokens_per_s = TRAIN_WINDOWS * TRAIN_SEQ / hist["epochSeconds"][1]
+
+    # a profiled window of 2 optimizer steps; the params are restored
+    # after it, so the artifact holds exactly the fit's 8 steps
+    eng = lm._get_engine()
+    params = lm._master_params()
+    saved = {k: p.detach().clone() for k, p in params.items()}
+    tstate = eng.init_state(params)
+    batches = [eng._to_device(b, lm.device) for b in
+               lm._batcher(x[:3 * TRAIN_BATCH], TRAIN_BATCH).epoch(0)]
+    eng._train_step_body(tstate, batches[0], 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.monotonic()
+        for batch in batches[1:]:
+            eng._train_step_body(tstate, batch, 0)
+        torch.cuda.synchronize()
+        window_ms = (time.monotonic() - w0) * 1e3
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(saved[k])
+    del saved, tstate, batches
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    per_step = {name: sum(e.self_device_time_total for e in kernels
+                          if f"{name}_kernel" in e.key) / 2e3
+                for name in COUNTERS}
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+
+    # float32: one micro-step of 2 windows through the kernels against
+    # the same step on the dense path (plain autograd)
+    os.environ["LO_COMPUTE_DTYPE"] = "float32"
+    grads = {}
+    for impl in ("flash", "dot"):
+        model = LanguageModel(**LM_CONFIG, attention=impl, device="cuda")
+        model.set_params(state)
+        feng = model._get_engine()
+        if feng._compute_dtype != torch.float32:
+            raise AssertionError("the gradient check must run in float32")
+        batch = feng._to_device(
+            {"x": x[:2], MASK_KEY: np.ones(2, np.float32)}, model.device)
+        before = _launches(attn)
+        g, _ = feng._micro_grads(model._master_params(), batch, 0)
+        ran = {k: _launches(attn)[k] - before[k] for k in COUNTERS}
+        want_ran = LM_CONFIG["n_layers"] if impl == "flash" else 0
+        if any(n != want_ran for n in ran.values()):
+            raise AssertionError(f"{impl} gradient step launched {ran}")
+        grads[impl] = g
+        del model, feng, batch
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    rel = {k: ((grads["flash"][k] - grads["dot"][k]).norm()
+               / grads["dot"][k].norm().clamp_min(1e-30)).item()
+           for k in grads["dot"]}
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= 1e-4:
+        raise AssertionError(f"kernel vs dense gradient of {worst}: "
+                             f"relative L2 error {rel[worst]}")
+    del grads
+
+    # the trained artifact, reloaded and served over REST
+    ctx = ServiceContext(Config(home=home), device="cuda")
+    ctx.artifacts.save(lm, "trained", "train/tensorflow")
+    loaded = ctx.artifacts.load("trained")
+    if loaded.history != lm.history:
+        raise AssertionError("the artifact lost the training history")
+    prompt = [int(t) for t in x[0, :256]]
+    server = RestServer(port=0, context=ctx).start()
+    try:
+        status, body = _http(server.base_url, "POST", "/serve/trained", {
+            "type": "lm", "maxSlots": 2, "cacheLen": 512,
+            "temperature": 0.0})
+        if status != 201:
+            raise AssertionError(f"create: {status} {body}")
+        status, out = _http(server.base_url, "POST",
+                            "/serve/trained/predict",
+                            {"prompt": prompt, "maxNewTokens": NEW_TOKENS})
+        if status != 200:
+            raise AssertionError(f"predict: {status} {out}")
+        _http(server.base_url, "DELETE", "/serve/trained")
+    finally:
+        server.stop()
+    want = [int(t) for t in loaded.generate(
+        [prompt], max_new_tokens=NEW_TOKENS)[0][len(prompt):]]
+    if out["tokens"] != want:
+        raise AssertionError(f"served tokens {out['tokens']} differ from "
+                             f"the reloaded model's generate {want}")
+    follows = sum(t == p % 63 + 1 for p, t in
+                  zip([prompt[-1]] + want[:-1], want)) / len(want)
+    log.append("train " + json.dumps({
+        "config": LM_CONFIG, "windows": TRAIN_WINDOWS, "seq": TRAIN_SEQ,
+        "batch": TRAIN_BATCH, "epochs": TRAIN_EPOCHS,
+        "gradAccum": TRAIN_ACCUM, "optimizerSteps": steps,
+        "microBatches": micro, "computeDtype": "bfloat16",
+        "history": hist, "fitSeconds": fit_s, "launches": launches,
+        "stepMs": step_ms, "trainTokensPerSec": tokens_per_s,
+        "maxMemoryAllocatedBytes": peak_bytes,
+        "profile": {"steps": 2, "windowMs": window_ms,
+                    "deviceBusyMs": busy_ms,
+                    "idleShare": 1.0 - busy_ms / window_ms,
+                    "kernelMsPerStep": per_step,
+                    "topKernelsMsPerStep": [
+                        [e.key[:80], e.self_device_time_total / 2e3,
+                         e.count / 2] for e in top]},
+        "f32GradRelL2VsDot": {"max": rel[worst], "worst": worst},
+        "servedTokensEqualGenerate": True,
+        "servedSuccessorShare": follows}))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -401,20 +746,32 @@ def main() -> int:
 
     log: list = []
     try:
-        entry = kernel_phase(torch, log)
+        entries = {"flash_fwd": kernel_phase(torch, log)}
+        entries.update(bwd_kernel_phase(torch, log))
         with tempfile.TemporaryDirectory() as home:
-            launches = slice_phase(torch, log, home)
+            served = slice_phase(torch, log, home)
+        with tempfile.TemporaryDirectory() as home:
+            trained = train_phase(torch, log, home)
     except BaseException:
         for line in log:
             print(line)
         traceback.print_exc()
         return 1
-    entry.update({
-        "name": "flash_fwd", "route": "cuda",
-        "source": "learningorchestra_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "learningorchestra_tpu/ops/attention.py:188",
-        "launches": launches})
-    print(json.dumps({"kernels": [entry]}))
+    replaces = {"flash_fwd": 188, "flash_bwd_dq": 338, "flash_bwd_dkv": 402}
+    kernels = []
+    for name, entry in entries.items():
+        entry.update({
+            "name": name, "route": "cuda",
+            "source": f"learningorchestra_tpu_torch/csrc/{name}.cu",
+            "replaces": f"learningorchestra_tpu/ops/attention.py:"
+                        f"{replaces[name]}",
+            # the forward's main path is serving, the backward's training
+            "launches": served[name] if name == "flash_fwd"
+            else trained[name],
+            "launchesByPath": {"serve": served[name],
+                               "train": trained[name]}})
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels}))
     for line in log:
         print(line)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
-"""Configuration of the PyTorch port: the fields the serving slice reads.
+"""Configuration of the PyTorch port: the fields its serving and training
+slices read.
 
 Environment variables keep the JAX package's names (``LO_HOME``,
-``LO_SERVE_MAX_BATCH``, ``LO_SERVE_QUEUE``, ``LO_REQUEST_TIMEOUT``). The
+``LO_SERVE_MAX_BATCH``, ``LO_SERVE_QUEUE``, ``LO_REQUEST_TIMEOUT``,
+``LO_COMPUTE_DTYPE``). The
 device is chosen in code only (``device=`` or ``--device``). A
 :class:`Config` is an object the caller creates and passes down; there
 is no process-wide singleton.
@@ -36,6 +38,12 @@ class Config:
             "LO_REQUEST_TIMEOUT", "0")))
     # torch device the models run on; "cpu" only when asked for
     device: str = "cuda"
+    # training: the batch size when fit() is given none, and the dtype
+    # the forward and backward compute in over float32 master params
+    default_batch_size: int = 128
+    compute_dtype: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_COMPUTE_DTYPE",
+                                               "bfloat16"))
 
     @property
     def artifacts_dir(self) -> str:

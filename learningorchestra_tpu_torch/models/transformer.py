@@ -1,9 +1,11 @@
 """Decoder-only transformer LM of the PyTorch port.
 
 Counterpart of :mod:`learningorchestra_tpu.models.transformer` for the
-serving path: rotary position embeddings (half-split rotation), RMSNorm
-as flax computes it, grouped-query attention with an optional sliding
-window, a gated-SiLU MLP without bias, and :class:`LanguageModel` with
+serving and training paths: rotary position embeddings (half-split
+rotation), RMSNorm as flax computes it, grouped-query attention with an
+optional sliding window, a gated-SiLU MLP without bias, dropout, the
+next-token loss (with the chunked lm-head form), and
+:class:`LanguageModel` with ``fit``/``evaluate``/``predict``,
 ``generate`` and the continuous-batching serve functions.
 
 Module and parameter names follow the flax tree (``layer_0.attn.q_proj``
@@ -17,15 +19,21 @@ from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
-from learningorchestra_tpu_torch.config import resolve_device
+from learningorchestra_tpu_torch.config import Config, resolve_device
+from learningorchestra_tpu_torch.models import weights as weights_lib
+from learningorchestra_tpu_torch.models.neural import (
+    History, build_optimizer, validation_tail_count)
 from learningorchestra_tpu_torch.ops import attention as attn_ops
+from learningorchestra_tpu_torch.runtime import data as data_lib
+from learningorchestra_tpu_torch.runtime import engine as engine_lib
 
 ATTENTION_IMPLS = ("dot", "flash")
 NEG_INF = attn_ops.NEG_INF
@@ -73,7 +81,9 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # ----------------------------------------------------------------------
 class RMSNorm(nn.Module):
     """flax ``nn.RMSNorm``: x * rsqrt(mean(x^2) + 1e-6) * scale over the
-    last axis (``torch.nn.RMSNorm`` defaults to another epsilon)."""
+    last axis (``torch.nn.RMSNorm`` defaults to another epsilon). As in
+    flax, the statistics and the product run in float32 whatever x's
+    dtype, and the result takes the dtype of x and scale."""
 
     def __init__(self, dim: int, eps: float = 1e-6):
         super().__init__()
@@ -81,8 +91,19 @@ class RMSNorm(nn.Module):
         self.scale = nn.Parameter(torch.ones(dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        ms = torch.mean(x * x, dim=-1, keepdim=True)
-        return x * (torch.rsqrt(ms + self.eps) * self.scale.to(x.dtype))
+        xf = x.float()
+        ms = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * (torch.rsqrt(ms + self.eps) * self.scale.float())
+        return y.to(torch.promote_types(x.dtype, self.scale.dtype))
+
+
+def _dropout(x: torch.Tensor, rate: float,
+             generator: torch.Generator) -> torch.Tensor:
+    """flax ``nn.Dropout``: keep with probability 1 - rate, scaled by
+    1 / (1 - rate), from the step's own generator."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, 0.0)
 
 
 def _dispatch_attention(q, k, v, *, impl: str, causal: bool,
@@ -224,8 +245,9 @@ class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, head_dim: int,
                  d_ff: int, attention: str, causal: bool,
                  n_kv_heads: int = 0, window: int = 0,
-                 rope_base: float = 10000.0):
+                 rope_base: float = 10000.0, dropout: float = 0.0):
         super().__init__()
+        self.dropout = dropout
         self.attn_norm = RMSNorm(d_model)
         self.attn = Attention(d_model, n_heads, head_dim, attention, causal,
                               n_kv_heads=n_kv_heads, window=window,
@@ -233,10 +255,28 @@ class Block(nn.Module):
         self.mlp_norm = RMSNorm(d_model)
         self.mlp = MLP(d_model, d_ff)
 
-    def forward(self, x, cache=None, decode_pos=None, pad_offset=None):
-        x = x + self.attn(self.attn_norm(x), cache=cache,
-                          decode_pos=decode_pos, pad_offset=pad_offset)
-        return x + self.mlp(self.mlp_norm(x))
+    def forward(self, x, cache=None, decode_pos=None, pad_offset=None,
+                train: bool = False, generator=None):
+        h = self.attn(self.attn_norm(x), cache=cache,
+                      decode_pos=decode_pos, pad_offset=pad_offset)
+        if self.dropout and train:
+            h = _dropout(h, self.dropout, generator)
+        x = x + h
+        h = self.mlp(self.mlp_norm(x))
+        if self.dropout and train:
+            h = _dropout(h, self.dropout, generator)
+        return x + h
+
+
+class FusedHeadOut(NamedTuple):
+    """Training output of the chunked lm-head path: the final hidden
+    states and the lm_head weight, so the loss projects and scores a
+    chunk of tokens at a time and the (tokens, vocab) logits never
+    exist at once. ``kernel`` is ``lm_head.weight``, (vocab, d_model)
+    (the transpose of the JAX package's (d_model, vocab) kernel)."""
+    hidden: torch.Tensor    # (b, s, d) final-norm output
+    kernel: torch.Tensor    # (vocab, d) lm_head weight
+    aux: torch.Tensor       # MoE load-balance scalar (zero: dense MLP)
 
 
 class TransformerLM(nn.Module):
@@ -245,7 +285,8 @@ class TransformerLM(nn.Module):
     def __init__(self, vocab_size: int, d_model: int = 256,
                  n_layers: int = 4, n_heads: int = 4, n_kv_heads: int = 0,
                  d_ff: int = 0, attention: str = "dot", causal: bool = True,
-                 sliding_window: int = 0, rope_base: float = 10000.0):
+                 sliding_window: int = 0, rope_base: float = 10000.0,
+                 dropout: float = 0.0):
         super().__init__()
         if attention not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention impl: {attention!r}")
@@ -257,18 +298,117 @@ class TransformerLM(nn.Module):
             self.add_module(f"layer_{i}", Block(
                 d_model, n_heads, head_dim, d_ff, attention, causal,
                 n_kv_heads=n_kv_heads, window=sliding_window,
-                rope_base=rope_base))
+                rope_base=rope_base, dropout=dropout))
         self.final_norm = RMSNorm(d_model)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False)
 
     def forward(self, tokens, cache: Optional[Cache] = None,
-                decode_pos=None, pad_offset=None):
+                decode_pos=None, pad_offset=None, train: bool = False,
+                generator: Optional[torch.Generator] = None,
+                fused_head: bool = False):
+        """Logits (b, s, vocab) in the params' dtype. The train forward
+        (``train``) applies dropout from ``generator``; with
+        ``fused_head`` it returns :class:`FusedHeadOut` instead of
+        logits, for the chunked loss."""
         x = self.embed(tokens)
         for i in range(self.n_layers):
             x = getattr(self, f"layer_{i}")(
                 x, cache=None if cache is None else cache[i],
-                decode_pos=decode_pos, pad_offset=pad_offset)
-        return self.lm_head(self.final_norm(x))
+                decode_pos=decode_pos, pad_offset=pad_offset, train=train,
+                generator=generator)
+        x = self.final_norm(x)
+        if train and fused_head:
+            return FusedHeadOut(hidden=x, kernel=self.lm_head.weight,
+                                aux=torch.zeros((), dtype=torch.float32,
+                                                device=x.device))
+        return self.lm_head(x)
+
+
+# ----------------------------------------------------------------------
+# losses over (outputs, batch, weights)
+# ----------------------------------------------------------------------
+def _token_targets(batch, weights):
+    tgt = batch["x"].long()[:, 1:]
+    tok_mask = (tgt != 0).float()
+    if weights is not None:
+        tok_mask = tok_mask * weights.float()[:, None]
+    return tgt, tok_mask
+
+
+def _head_chunk_sums(h_c, kernel, t_c, m_c):
+    """Masked cross-entropy and correct-prediction sums of one chunk of
+    tokens: bf16 (or f32) inputs, float32 logits, as the JAX einsum with
+    ``preferred_element_type=float32`` gives them."""
+    lg = h_c.float() @ kernel.float().t()
+    lse = torch.logsumexp(lg, dim=-1)
+    correct = lg.gather(1, t_c[:, None])[:, 0]
+    ok = (lg.argmax(dim=-1) == t_c).float()
+    return ((lse - correct) * m_c).sum(), (ok * m_c).sum()
+
+
+def _fused_head_loss(out: FusedHeadOut, batch, weights, chunk: int,
+                     aux_coef: float):
+    """Chunked vocab projection + softmax cross-entropy: ``chunk`` tokens
+    at a time under ``torch.utils.checkpoint``, so one (chunk, vocab)
+    float32 logits tile lives at once and the backward recomputes it.
+    Accuracy comes out of the same pass as a loss metric."""
+    tgt, tok_mask = _token_targets(batch, weights)
+    hs = out.hidden[:, :-1]
+    b, sm1, d = hs.shape
+    t_total = b * sm1
+    chunk = max(1, min(chunk, t_total))
+    hs = hs.reshape(t_total, d)
+    tg = tgt.reshape(t_total)
+    mk = tok_mask.reshape(t_total)
+    kernel = out.kernel.to(hs.dtype)
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hs.device)
+    ok_sum = torch.zeros((), dtype=torch.float32, device=hs.device)
+    for start in range(0, t_total, chunk):
+        end = start + chunk
+        lsum, osum = torch.utils.checkpoint.checkpoint(
+            _head_chunk_sums, hs[start:end], kernel, tg[start:end],
+            mk[start:end], use_reentrant=False)
+        loss_sum = loss_sum + lsum
+        ok_sum = ok_sum + osum.detach()
+    total = mk.sum().clamp_min(1e-9)
+    loss = loss_sum / total + aux_coef * out.aux.float()
+    return loss, {"accuracy": (ok_sum, total)}
+
+
+def next_token_loss(aux_coef: float = 0.01, head_chunk: int = 1024):
+    """Causal LM loss: predict token t+1 from the prefix up to t; padding
+    tokens (id 0) and padded tail samples are masked out. On
+    :class:`FusedHeadOut` the projection and cross-entropy run chunked
+    (``head_chunk`` tokens at a time) and the loss also returns
+    ``{"accuracy": (sum, count)}``; on ``(logits, aux)`` it is the mean
+    cross-entropy of the float32 logits."""
+
+    def loss_fn(outputs, batch, weights):
+        if isinstance(outputs, FusedHeadOut):
+            return _fused_head_loss(outputs, batch, weights, head_chunk,
+                                    aux_coef)
+        logits, aux = outputs
+        tgt, tok_mask = _token_targets(batch, weights)
+        lg = logits[:, :-1].float()
+        per_tok = F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
+                                  tgt.reshape(-1), reduction="none")
+        total = tok_mask.sum().clamp_min(1e-9)
+        loss = (per_tok.reshape(tgt.shape) * tok_mask).sum() / total
+        return loss + aux_coef * aux.float()
+
+    return loss_fn
+
+
+def token_accuracy(outputs, batch, weights):
+    """(correct next-token predictions, counted tokens) on full logits."""
+    if isinstance(outputs, FusedHeadOut):
+        raise RuntimeError(
+            "token_accuracy on FusedHeadOut — use the accuracy the fused "
+            "loss emits (the engine skips same-named metric fns)")
+    logits, _ = outputs
+    tgt, tok_mask = _token_targets(batch, weights)
+    pred = logits[:, :-1].float().argmax(dim=-1)
+    return ((pred == tgt).float() * tok_mask).sum(), tok_mask.sum()
 
 
 # ----------------------------------------------------------------------
@@ -286,13 +426,16 @@ def _position_generator(seed: int, pos: int,
 
 
 class LanguageModel:
-    """LM artifact with the JAX package's configuration keys.
+    """Trainable LM artifact with the JAX package's configuration keys
+    and method surface (``compile``, ``fit``, ``evaluate``, ``predict``,
+    ``generate``).
 
-    Covers the serving slice: dense MLP, GQA, sliding window, RoPE.
-    Options of the JAX model that this package does not run yet (MoE,
-    LoRA, fused projections, ring/Ulysses attention) raise at
-    construction. Weights come in through :meth:`set_params` (see
-    :mod:`.weights`). ``attention="auto"`` resolves to ``flash``."""
+    Covers dense MLP, GQA, sliding window, RoPE and dropout. Options of
+    the JAX model that this package does not run yet (MoE, LoRA, fused
+    projections, ring/Ulysses attention) raise at construction. Weights
+    come in through :meth:`set_params` (see :mod:`.weights`), or from
+    ``weights.init_params(seed)`` at the first ``fit``; they stay
+    float32 and trainable. ``attention="auto"`` resolves to ``flash``."""
 
     _CONFIG_KEYS = ("vocab_size", "d_model", "n_layers", "n_heads",
                     "n_kv_heads", "d_ff", "max_len", "attention",
@@ -352,6 +495,12 @@ class LanguageModel:
                                  f"ported to the PyTorch package yet")
         self.device = resolve_device(device)
         self.module: Optional[TransformerLM] = None
+        self.optimizer_spec: Dict[str, Any] = {"kind": "adamw",
+                                               "learning_rate": 3e-4}
+        self.history: List[Dict[str, Any]] = []
+        self.seed = 0
+        self._engine: Optional[engine_lib.Engine] = None
+        self._accum = engine_lib.default_grad_accum()
 
     # ------------------------------------------------------------------
     def _resolved_attention(self) -> str:
@@ -362,17 +511,31 @@ class LanguageModel:
         # the crossover is measured there
         return "flash"
 
+    def _head_chunk(self) -> int:
+        """Tokens per chunk of the fused lm-head loss (0 = full logits):
+        fused when the vocab is large enough that the (tokens, vocab)
+        float32 logits dominate the step's memory."""
+        if self.head_chunk is not None:
+            return max(0, int(self.head_chunk))
+        return 1024 if self.vocab_size >= 8192 else 0
+
     def set_params(self, state_dict) -> None:
-        """Build the module on the model's device and load weights."""
+        """Build the module on the model's device and load weights: the
+        float32 master params that ``fit`` trains in place and serving
+        reads (under ``inference_mode``)."""
         module = TransformerLM(
             self.vocab_size, d_model=self.d_model, n_layers=self.n_layers,
             n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
             d_ff=self.d_ff, attention=self._resolved_attention(),
             causal=True, sliding_window=self.sliding_window,
-            rope_base=self.rope_base)
+            rope_base=self.rope_base, dropout=self.dropout)
         module.load_state_dict(state_dict)
-        module.requires_grad_(False)
-        self.module = module.to(self.device).eval()
+        self.module = module.to(self.device)
+
+    def num_params(self) -> int:
+        if self.module is None:
+            return 0
+        return sum(p.numel() for p in self.module.parameters())
 
     @property
     def params(self):
@@ -382,6 +545,143 @@ class LanguageModel:
         if self.module is None:
             raise RuntimeError(f"{self.name} has no weights yet — call "
                                f"set_params first")
+
+    # ------------------------------------------------------------------
+    # training (runtime/engine.py)
+    # ------------------------------------------------------------------
+    def compile(self, optimizer: Any = "adamw", loss: Any = None,
+                metrics: Any = None, **_: Any) -> None:
+        if isinstance(optimizer, str):
+            self.optimizer_spec = {"kind": optimizer}
+        elif isinstance(optimizer, dict):
+            self.optimizer_spec = dict(optimizer)
+        elif hasattr(optimizer, "spec"):
+            self.optimizer_spec = dict(optimizer.spec)
+        else:
+            raise TypeError(f"unsupported optimizer: {optimizer!r}")
+        self._engine = None
+
+    def _apply_fn(self, params, batch, train: bool, rng: Optional[int]):
+        generator = None
+        if train and self.dropout and rng is not None:
+            generator = torch.Generator(device=self.device)
+            generator.manual_seed(rng)
+        out = torch.func.functional_call(
+            self.module, params, (batch["x"],),
+            {"train": train, "generator": generator,
+             "fused_head": bool(self._head_chunk())})
+        if isinstance(out, FusedHeadOut):
+            return out
+        return out, torch.zeros((), dtype=torch.float32, device=out.device)
+
+    def _get_engine(self) -> engine_lib.Engine:
+        if self._engine is None:
+            dtype = torch.bfloat16 if Config().compute_dtype == "bfloat16" \
+                else torch.float32
+            self._engine = engine_lib.Engine(
+                apply_fn=self._apply_fn,
+                loss_fn=next_token_loss(
+                    self.aux_coef, head_chunk=self._head_chunk() or 1024),
+                optimizer=build_optimizer(self.optimizer_spec),
+                metrics={"accuracy": token_accuracy},
+                compute_dtype=dtype,
+                predict_transform=lambda outputs: outputs[0],
+                grad_accum=self._accum)
+        return self._engine
+
+    def _set_grad_accum(self, grad_accum: Optional[int]) -> None:
+        """Fit-time microbatch override (env default LO_GRAD_ACCUM); an
+        effective change rebuilds the engine."""
+        self._accum, changed = engine_lib.resolve_grad_accum(
+            grad_accum, self._accum)
+        if changed:
+            self._engine = None
+
+    def _coerce_tokens(self, x) -> np.ndarray:
+        """(n, seq) int32 windows of ``x``: a flat corpus is cut into
+        non-overlapping windows, longer rows to ``max_len``. Ids outside
+        ``[0, vocab)`` raise here, before anything reaches the card,
+        where an out-of-range embedding index is a device-side assert
+        (the JAX package's gather gives NaN rows for them instead)."""
+        if hasattr(x, "to_numpy"):
+            x = x.to_numpy()
+        x = np.asarray(x)
+        if x.ndim == 1:  # flat corpus -> non-overlapping windows
+            seq = min(self.max_len, max(2, len(x) // 2))
+            n = len(x) // seq
+            x = x[:n * seq].reshape(n, seq)
+        if x.ndim != 2 or x.size == 0:
+            raise ValueError(f"tokens must be a non-empty (n, seq) array, "
+                             f"got shape {x.shape}")
+        if x.shape[1] > self.max_len:
+            x = x[:, :self.max_len]
+        if not np.issubdtype(x.dtype, np.integer) and \
+                not np.array_equal(x, np.round(x)):
+            raise ValueError("token ids must be integers")
+        if x.min() < 0 or x.max() >= self.vocab_size:
+            raise ValueError(f"token ids must be in [0, {self.vocab_size})"
+                             f", got [{x.min()}, {x.max()}]")
+        return x.astype(np.int32)
+
+    def _batcher(self, x, batch_size: Optional[int],
+                 shuffle: bool = False) -> data_lib.ArrayBatcher:
+        return data_lib.ArrayBatcher(
+            {"x": self._coerce_tokens(x)},
+            batch_size or Config().default_batch_size,
+            shuffle=shuffle, seed=self.seed)
+
+    def _master_params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.module.named_parameters())
+
+    def fit(self, x=None, y=None, batch_size: Optional[int] = None,
+            epochs: int = 1, shuffle: bool = True, checkpointer=None,
+            log_fn=None, grad_accum: Optional[int] = None,
+            validation_split: float = 0.0, **_: Any) -> History:
+        """Next-token training on ``x`` (token windows, or a flat corpus
+        cut into windows); one optimizer step per batch of
+        ``batch_size`` windows, split into ``grad_accum`` micro-batches.
+        Appends the epoch records to :attr:`history`."""
+        if checkpointer is not None:
+            raise NotImplementedError(
+                "checkpointer= is not yet ported to the PyTorch package")
+        self._set_grad_accum(grad_accum)
+        val_x = None
+        if validation_split:
+            x = self._coerce_tokens(x)
+            n_val = validation_tail_count(len(x), validation_split)
+            val_x = x[-n_val:]
+            x = x[:-n_val]
+        batcher = self._batcher(x, batch_size, shuffle=shuffle)
+        if self.module is None:
+            config = {k: getattr(self, k) for k in self._CONFIG_KEYS}
+            self.set_params(weights_lib.params_from_flax(
+                weights_lib.init_params(config, self.seed)))
+        eng = self._get_engine()
+        state = eng.init_state(self._master_params())
+        state, history = eng.fit(state, batcher, epochs=epochs,
+                                 seed=self.seed, log_fn=log_fn)
+        if val_x is not None:
+            val = eng.evaluate(state.params, self._batcher(val_x,
+                                                           batch_size))
+            if not history:
+                history.append({})
+            for k, v in val.items():
+                history[-1][f"val_{k}"] = v
+        self.history.extend(history)
+        return History(history)
+
+    def evaluate(self, x=None, y=None, batch_size: Optional[int] = None,
+                 **_: Any) -> Dict[str, float]:
+        self._require_built()
+        return self._get_engine().evaluate(self._master_params(),
+                                           self._batcher(x, batch_size))
+
+    def predict(self, x=None, batch_size: Optional[int] = None,
+                **_: Any) -> np.ndarray:
+        """Next-token logits (n, seq, vocab), float32."""
+        self._require_built()
+        return self._get_engine().predict(self._master_params(),
+                                          self._batcher(x, batch_size))
 
     def _new_cache(self, b: int, cache_len: int) -> Cache:
         kv = self.n_kv_heads or self.n_heads
@@ -581,7 +881,9 @@ class LanguageModel:
     # ------------------------------------------------------------------
     def __lo_save__(self, path: str) -> None:
         config = {k: getattr(self, k) for k in self._CONFIG_KEYS}
-        config.update(name=self.name, built=self.module is not None)
+        config.update(name=self.name, optimizer_spec=self.optimizer_spec,
+                      seed=self.seed, history=self.history,
+                      built=self.module is not None)
         with open(os.path.join(path, "config.json"), "w") as f:
             json.dump(config, f)
         if self.module is not None:
@@ -596,6 +898,11 @@ class LanguageModel:
         model = cls(**{k: config[k] for k in cls._CONFIG_KEYS
                        if k in config},
                     name=config["name"], device=device)
+        # artifacts written before training was ported lack these three
+        model.optimizer_spec = config.get("optimizer_spec",
+                                          model.optimizer_spec)
+        model.seed = config.get("seed", model.seed)
+        model.history = config.get("history", model.history)
         if config["built"]:
             state = torch.load(os.path.join(path, "weights.pt"),
                                map_location="cpu", weights_only=True)

@@ -15,6 +15,10 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
+# standard deviation of a unit normal cut at +-2 (flax/jax
+# ``variance_scaling(..., "truncated_normal")``)
+_TRUNCATED_STD = 0.87962566103423978
+
 
 def _flatten(tree, prefix=()):
     for key, value in tree.items():
@@ -74,8 +78,11 @@ def params_to_flax(state_dict) -> Dict[str, Any]:
 def init_params(config: Dict[str, Any], seed: int) -> Dict[str, Any]:
     """A full random flax-layout tree for a ``LanguageModel`` config
     (its ``vocab_size``, ``d_model``, ``n_layers``, ``n_heads``,
-    ``n_kv_heads``, ``d_ff``), made with numpy from ``seed``: kernels
-    and the embedding drawn N(0, 1/fan_in), norm scales at one."""
+    ``n_kv_heads``, ``d_ff``), made with numpy from ``seed`` with flax's
+    initializers: Dense kernels from ``lecun_normal`` (a normal cut at
+    two standard deviations and rescaled to variance 1/fan_in), the
+    embedding from ``default_embed_init`` (a plain normal, variance
+    1/d_model), norm scales at one."""
     rng = np.random.default_rng(seed)
     vocab = int(config["vocab_size"])
     d = int(config["d_model"])
@@ -89,7 +96,15 @@ def init_params(config: Dict[str, Any], seed: int) -> Dict[str, Any]:
                 / np.float32(np.sqrt(fan_in)))
 
     def dense(fan_in: int, fan_out: int):
-        return {"kernel": normal(fan_in, (fan_in, fan_out))}
+        # truncated to [-2, 2] by redrawing what falls outside, then
+        # scaled by 1/0.8796..., the standard deviation of that cut
+        x = rng.standard_normal((fan_in, fan_out), dtype=np.float32)
+        out = np.abs(x) > 2.0
+        while out.any():
+            x[out] = rng.standard_normal(int(out.sum()), dtype=np.float32)
+            out = np.abs(x) > 2.0
+        return {"kernel": x * np.float32(
+            1.0 / np.sqrt(fan_in) / _TRUNCATED_STD)}
 
     def ones():
         return {"scale": np.ones((d,), np.float32)}

@@ -4,12 +4,15 @@ Counterpart of :mod:`learningorchestra_tpu.ops.attention`, in the same
 ``(batch, seq, heads, head_dim)`` layout with ``k``/``v`` at ``kv``
 heads, ``kv | heads``.
 
-- :func:`flash_attention` / :func:`flash_attention_with_lse` run the
-  hand-written CUDA kernel ``csrc/flash_fwd.cu`` (the port of the TPU
-  ``_fwd_kernel``) on a CUDA tensor, and its plain PyTorch version
-  :func:`flash_attention_reference` on a CPU tensor. A CUDA tensor never
-  falls back to the plain version: the kernel launches or the call
-  raises. Only the forward exists in this package so far.
+- :func:`flash_attention` / :func:`flash_attention_with_lse` are
+  differentiable (:class:`_FlashAttention`). On a CUDA tensor the
+  forward runs the hand-written kernel ``csrc/flash_fwd.cu`` (the port
+  of the TPU ``_fwd_kernel``) and the backward ``csrc/flash_bwd_dq.cu``
+  and ``csrc/flash_bwd_dkv.cu`` (``_bwd_dq_kernel``,
+  ``_bwd_dkv_kernel``); on a CPU tensor they run their plain PyTorch
+  versions :func:`flash_attention_reference` and
+  :func:`flash_bwd_reference`. A CUDA tensor never falls back to a
+  plain version: the kernel launches or the call raises.
 - :func:`full_attention_reference` is the ``dot`` implementation.
 - :func:`decode_attention` is the serving plane's single-token op, left
   as plain tensor ops exactly as the JAX package left it.
@@ -24,8 +27,10 @@ import torch
 
 NEG_INF = -1e30
 
-# launches of the flash_fwd kernel (CPU calls never count)
+# launches of each kernel (CPU calls never count)
 FLASH_FWD_LAUNCHES = 0
+FLASH_BWD_DQ_LAUNCHES = 0
+FLASH_BWD_DKV_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -48,6 +53,26 @@ def _check_args(q, k, v, causal: bool, window: int) -> None:
         raise ValueError(f"window must be >= 0, got {window}")
 
 
+def _visible(sq: int, sk: int, causal: bool, window: int, offset: int,
+             device) -> torch.Tensor:
+    """``(sq, sk)`` bool: key ``col`` is visible to query ``row``."""
+    row = torch.arange(sq, device=device)[:, None]
+    col = torch.arange(sk, device=device)[None, :]
+    valid = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        valid = valid & (row >= col + offset)
+    if window > 0:
+        valid = valid & (col + offset > row - window)
+    return valid
+
+
+def _by_group(x: torch.Tensor, kvh: int) -> torch.Tensor:
+    """Per-row ``(b, sq, h)`` -> ``(b, kvh, group, sq, 1)``, the layout
+    of the grouped scores."""
+    b, sq, h = x.shape
+    return x.reshape(b, sq, kvh, h // kvh).permute(0, 2, 3, 1)[..., None]
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = False,
                               scale: Optional[float] = None,
@@ -66,13 +91,7 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
         scale = 1.0 / (d ** 0.5)
     qg = q.float().reshape(b, sq, kvh, group, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
-    row = torch.arange(sq, device=q.device)[:, None]
-    col = torch.arange(sk, device=q.device)[None, :]
-    valid = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
-    if causal:
-        valid = valid & (row >= col + kv_offset)
-    if window > 0:
-        valid = valid & (col + kv_offset > row - window)
+    valid = _visible(sq, sk, causal, window, kv_offset, q.device)
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
@@ -85,36 +104,107 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
             lse.permute(0, 3, 1, 2).reshape(b, sq, h))
 
 
+def _bwd_delta(o: torch.Tensor, do: torch.Tensor,
+               dlse: Optional[torch.Tensor]) -> torch.Tensor:
+    """``rowsum(dO * O) - dlse`` in float32, ``(b, sq, h)``: the one
+    backward quantity outside the kernels. ``o`` is the forward's saved
+    output in its own dtype. ``dlse`` (the gradient on the lse output)
+    adds ``dlse * p`` to ``ds``, which is ``delta - dlse`` in place of
+    ``delta``."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    if dlse is not None:
+        delta = delta - dlse.float()
+    return delta
+
+
+def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, lse: torch.Tensor,
+                        do: torch.Tensor,
+                        dlse: Optional[torch.Tensor] = None, *,
+                        causal: bool = False,
+                        scale: Optional[float] = None, window: int = 0,
+                        kv_offset: int = 0,
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of both backward kernels: float32 ``(dq, dk, dv)``
+    of ``flash_attention_with_lse`` at its saved ``(o, lse)`` for the
+    upstream gradients ``do`` (and ``dlse``), by the kernels'
+    recurrence run densely: ``p = exp(s - lse)`` on visible pairs,
+    ``ds = p * (dO.v - delta) * scale``, ``dq = ds k``, ``dk = ds^T q``
+    and ``dv = p^T dO``, with dk and dv summed over each kv head's
+    group of query heads. Masked pairs are zeroed before the exp, so a
+    row with no visible key (``lse = NEG_INF``) gives zeros, not NaN."""
+    _check_args(q, k, v, causal, window)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    group = h // kvh
+    if scale is None:
+        scale = 1.0 / (d ** 0.5)
+    qg = q.float().reshape(b, sq, kvh, group, d)
+    dog = do.float().reshape(b, sq, kvh, group, d)
+    kf, vf = k.float(), v.float()
+    valid = _visible(sq, sk, causal, window, kv_offset, q.device)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    p = torch.exp(torch.where(valid, s - _by_group(lse.float(), kvh),
+                              NEG_INF))
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    ds = p * (dp - _by_group(_bwd_delta(o, do, dlse), kvh)) * scale
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, h, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    return dq, dk, dv
+
+
+def _check_cuda(kernel: str, tensors, dtype=None) -> None:
+    """Every tensor on the first one's device, in ``dtype`` (default:
+    the first one's), contiguous."""
+    first_name, first = tensors[0]
+    dtype = dtype or first.dtype
+    for name, t in tensors:
+        if t.device != first.device:
+            raise ValueError(f"{name} is on {t.device}, {first_name} on "
+                             f"{first.device}")
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}, expected "
+                            f"{dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel} needs contiguous tensors; {name} "
+                             f"is not")
+
+
+def _check_shape(kernel: str, q, k) -> None:
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"{kernel} takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    b, _, h, d = q.shape
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"{kernel} takes head_dim <= {_MAX_HEAD_DIM}, "
+                         f"got {d}")
+    if b * h > 65535:
+        raise ValueError(f"{kernel} takes batch * heads <= 65535, got "
+                         f"{b * h}")
+
+
+def _kernel(source: str, argtypes):
+    """The C entry point ``lo_<source>`` of a built kernel source."""
+    from learningorchestra_tpu_torch.ops import _build
+
+    fn = getattr(_build.load(source), f"lo_{source}")
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+    return fn
+
+
 def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, window: int,
                     offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
     global FLASH_FWD_LAUNCHES
-    from learningorchestra_tpu_torch.ops import _build
-
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device != q.device:
-            raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype != q.dtype:
-            raise TypeError(f"{name} is {t.dtype}, q is {q.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"flash_fwd needs contiguous tensors; {name} "
-                             f"is not")
-    if q.dtype not in _DTYPE_CODES:
-        raise TypeError(f"flash_fwd takes float32 or bfloat16, got "
-                        f"{q.dtype}")
+    _check_cuda("flash_fwd", (("q", q), ("k", k), ("v", v)))
+    _check_shape("flash_fwd", q, k)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"flash_fwd takes head_dim <= {_MAX_HEAD_DIM}, "
-                         f"got {d}")
-    if b * h > 65535:
-        raise ValueError(f"flash_fwd takes batch * heads <= 65535, got "
-                         f"{b * h}")
-    fn = _build.load("flash_fwd").lo_flash_fwd
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_float] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+    fn = _kernel("flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                 + [ctypes.c_float] + [ctypes.c_int] * 4
+                 + [ctypes.c_void_p])
     o = torch.empty_like(q)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -129,19 +219,137 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, window: int,
     return o, lse
 
 
-def _flash_fwd(q, k, v, causal: bool, scale: Optional[float], window: int,
-               offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    _check_args(q, k, v, causal, window)
-    if scale is None:
-        scale = 1.0 / (q.shape[-1] ** 0.5)
+def _bwd_inputs(kernel: str, q, k, v, do, lse, delta) -> None:
+    _check_cuda(kernel, (("q", q), ("k", k), ("v", v), ("do", do)))
+    _check_cuda(kernel, (("lse", lse), ("delta", delta)),
+                dtype=torch.float32)
+    _check_shape(kernel, q, k)
+    if do.shape != q.shape or lse.shape != q.shape[:3] \
+            or delta.shape != q.shape[:3] or lse.device != q.device:
+        raise ValueError(f"{kernel}: do {tuple(do.shape)}, lse "
+                         f"{tuple(lse.shape)}, delta {tuple(delta.shape)} "
+                         f"do not match q {tuple(q.shape)} on {q.device}")
+
+
+def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
+                       scale: float, window: int,
+                       offset: int) -> torch.Tensor:
+    """float32 dq (b, sq, h, d) from the flash_bwd_dq kernel."""
+    global FLASH_BWD_DQ_LAUNCHES
+    _bwd_inputs("flash_bwd_dq", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    fn = _kernel("flash_bwd_dq", [ctypes.c_void_p] * 7
+                 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq,
+                 sk, h, kvh, d, float(scale), int(bool(causal)),
+                 int(window), int(offset), _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
+    FLASH_BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
+                        scale: float, window: int, offset: int,
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 (dk, dv), each (b, sk, kvh, d), from the flash_bwd_dkv
+    kernel."""
+    global FLASH_BWD_DKV_LAUNCHES
+    _bwd_inputs("flash_bwd_dkv", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    fn = _kernel("flash_bwd_dkv", [ctypes.c_void_p] * 8
+                 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, sq, sk, h, kvh, d, float(scale),
+                 int(bool(causal)), int(window), int(offset),
+                 _DTYPE_CODES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {err}")
+    FLASH_BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def _on_device(kernel: str, q) -> bool:
+    """True for a CUDA tensor (the kernel runs), False for a CPU one
+    (the plain version runs); any other device raises."""
     if q.device.type == "cpu":
+        return False
+    if q.device.type != "cuda":
+        raise ValueError(f"{kernel} runs on cuda or cpu tensors, got "
+                         f"{q.device}")
+    return True
+
+
+def _flash_fwd(q, k, v, causal: bool, scale: float, window: int,
+               offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    if not _on_device("flash attention", q):
         return flash_attention_reference(q, k, v, causal=causal,
                                          scale=scale, window=window,
                                          kv_offset=offset)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash attention runs on cuda or cpu tensors, "
-                         f"got {q.device}")
     return _flash_fwd_cuda(q, k, v, causal, scale, window, offset)
+
+
+def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float,
+               window: int, offset: int):
+    if not _on_device("flash attention backward", q):
+        return flash_bwd_reference(q, k, v, o, lse, do, dlse,
+                                   causal=causal, scale=scale,
+                                   window=window, kv_offset=offset)
+    do = do.contiguous()
+    delta = _bwd_delta(o, do, dlse)
+    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, window,
+                            offset)
+    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
+                                 window, offset)
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``(o, lse)`` of flash attention with its backward: the port of
+    the JAX package's ``custom_vjp`` pair ``_flash`` / ``_flash_lse``.
+    Forward saves q, k, v and the forward's own ``(o, lse)``; backward
+    computes ``delta`` from that saved ``o`` and runs the two backward
+    kernels (plain version on the CPU). Gradients come back in the
+    inputs' dtypes, as the JAX backward casts them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, offset):
+        o, lse = _flash_fwd(q, k, v, causal, scale, window, offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, window, offset)
+        ctx.set_materialize_grads(False)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do is None:
+            do = torch.zeros_like(o)
+        dq, dk, dv = _flash_bwd(q, k, v, o, lse, do, dlse, *ctx.args)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
+def _flash(q, k, v, causal: bool, scale: Optional[float], window: int,
+           offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    _check_args(q, k, v, causal, window)
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    return _FlashAttention.apply(q, k, v, bool(causal), float(scale),
+                                 int(window), int(offset))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -150,11 +358,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Fused attention over ``(b, s, h, d)`` tensors, GQA-native: ``k``
     and ``v`` may carry fewer heads than ``q`` (``kv | h``) and are never
     repeated to ``h`` heads. ``window=W`` (requires ``causal``) lets
-    query p attend keys in ``[p-W+1, p]``."""
+    query p attend keys in ``[p-W+1, p]``. Differentiable."""
     if window and not causal:
         raise ValueError("window requires causal=True (banded causal "
                          "attention)")
-    return _flash_fwd(q, k, v, causal, scale, window, 0)[0]
+    return _flash(q, k, v, causal, scale, window, 0)[0]
 
 
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
@@ -164,14 +372,15 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out (b, sq, h, d), lse (b, sq, h))``: the blockwise form ring
     attention merges across devices. ``kv_offset`` shifts key positions
-    (``col + kv_offset``)."""
+    (``col + kv_offset``). Differentiable in both outputs: the gradient
+    on ``lse`` flows through the backward kernels' ``delta``."""
     h = q.shape[2]
     if k.shape[2] != h:
         raise ValueError(
             f"flash_attention_with_lse needs equal head counts "
             f"(q has {h}, k/v have {k.shape[2]}) — repeat K/V to "
             f"full heads first; grouped GQA is flash_attention only")
-    return _flash_fwd(q, k, v, causal, scale, window, kv_offset)
+    return _flash(q, k, v, causal, scale, window, kv_offset)
 
 
 def full_attention_reference(q: torch.Tensor, k: torch.Tensor,

@@ -3,10 +3,12 @@
 The same numpy inputs go through the JAX flash kernel (Pallas, in
 interpret mode on the CPU, as tests/test_ops.py runs it) and through the
 port's ops, which on CPU tensors run the kernel's plain version.
-Tolerance: atol/rtol 2e-5 in float32, as tests/test_ops.py uses for the
-kernel against its oracle (the two sum in different orders).
+Tolerance: atol/rtol 2e-5 in float32 for values and atol 5e-5, rtol
+5e-4 for gradients, as tests/test_ops.py uses for the kernel against its
+oracle (the two sum in different orders).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ from learningorchestra_tpu_torch.ops import attention as attn
 torch.set_num_threads(2)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=5e-5, rtol=5e-4)
 
 
 def _qkv(seed, b, sq, sk, h, kvh, d):
@@ -77,6 +80,103 @@ def test_flash_with_lse_matches_jax(causal, window, kv_offset):
         assert np.all(got_o.numpy()[empty] == 0.0)
 
 
+def _upstream(seed, b, sq, h, d):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, sq, h, d), dtype=np.float32),
+            rng.standard_normal((b, sq, h), dtype=np.float32))
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kvh,causal,window", [
+    (2, 32, 32, 4, 4, False, 0),     # MHA, full
+    (2, 32, 32, 4, 4, True, 0),      # MHA, causal
+    (2, 40, 56, 4, 2, False, 0),     # GQA 4/2, ragged sk
+    (1, 48, 48, 4, 1, True, 0),      # MQA 4/1
+    (2, 48, 48, 4, 2, True, 16),     # GQA + sliding window
+])
+def test_flash_gradients_match_jax(b, sq, sk, h, kvh, causal, window):
+    """The port's backward (plain version on the CPU) against jax.grad
+    through the Pallas VJP (_bwd_dq_kernel / _bwd_dkv_kernel in
+    interpret mode, blocks 8/16)."""
+    q, k, v = _qkv(10, b, sq, sk, h, kvh, 16)
+    go, _ = _upstream(11, b, sq, h, 16)
+
+    def jax_loss(q, k, v):
+        o = jax_attn.flash_attention(q, k, v, causal=causal, window=window,
+                                     block_q=8, block_k=16)
+        return jnp.sum(o * go)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    o = attn.flash_attention(tq, tk, tv, causal=causal, window=window)
+    got = torch.autograd.grad((o * torch.from_numpy(go)).sum(),
+                              (tq, tk, tv))
+    for a, w in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal,window,kv_offset", [
+    (False, 0, 0),
+    (True, 8, 0),
+    (True, 4, 20),    # rows before the keys: lse -1e30, no visible key
+])
+def test_flash_with_lse_gradients_match_jax(causal, window, kv_offset):
+    """A loss on both outputs: the lse gradient (dlse) enters the
+    backward through ``delta - dlse``."""
+    q, k, v = _qkv(12, 2, 32, 32, 2, 2, 16)
+    go, gl = _upstream(13, 2, 32, 2, 16)
+
+    def jax_loss(q, k, v):
+        o, lse = jax_attn.flash_attention_with_lse(
+            q, k, v, causal=causal, window=window, kv_offset=kv_offset,
+            block_q=8, block_k=16)
+        return jnp.sum(o * go) + jnp.sum(lse * gl)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(*_j(q, k, v))
+    tq, tk, tv = (t.requires_grad_() for t in _t(q, k, v))
+    o, lse = attn.flash_attention_with_lse(tq, tk, tv, causal=causal,
+                                           window=window,
+                                           kv_offset=kv_offset)
+    if kv_offset:
+        assert bool((lse == attn.NEG_INF).any())
+    loss = (o * torch.from_numpy(go)).sum() \
+        + (lse * torch.from_numpy(gl)).sum()
+    got = torch.autograd.grad(loss, (tq, tk, tv))
+    for a, w in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("h,kvh,causal,window,kv_offset,with_dlse", [
+    (4, 2, True, 8, 0, False),
+    (4, 1, False, 0, 0, False),
+    (2, 2, True, 4, 20, True),
+])
+def test_flash_bwd_reference_matches_autograd(h, kvh, causal, window,
+                                              kv_offset, with_dlse):
+    """The plain backward against autograd of the plain forward: the
+    same function, by the kernels' recurrence. Rows with no visible key
+    give zeros, not NaN."""
+    q, k, v = _t(*_qkv(14, 2, 24, 24, h, kvh, 8))
+    go, gl = _t(*_upstream(15, 2, 24, h, 8))
+    for t in (q, k, v):
+        t.requires_grad_()
+    o, lse = attn.flash_attention_reference(q, k, v, causal=causal,
+                                            window=window,
+                                            kv_offset=kv_offset)
+    loss = (o * go).sum()
+    if with_dlse:
+        loss = loss + (torch.where(lse > attn.NEG_INF, lse, 0.0) * gl).sum()
+    want = torch.autograd.grad(loss, (q, k, v))
+    got = attn.flash_bwd_reference(q.detach(), k.detach(), v.detach(),
+                                   o.detach(), lse.detach(), go,
+                                   gl if with_dlse else None,
+                                   causal=causal, window=window,
+                                   kv_offset=kv_offset)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, w, atol=1e-5, rtol=1e-5)
+
+
 def test_flash_matches_dense_reference():
     q, k, v = _qkv(2, 2, 40, 40, 4, 4, 16)
     got = attn.flash_attention(*_t(q, k, v), causal=True, window=8)
@@ -104,11 +204,14 @@ def test_decode_attention_matches_jax(window, padded):
 
 
 def test_cpu_tensors_never_launch_the_kernel():
-    before = attn.FLASH_FWD_LAUNCHES
-    q, k, v = _qkv(4, 1, 16, 16, 2, 1, 8)
-    attn.flash_attention(*_t(q, k, v), causal=True)
-    attn.flash_attention_with_lse(*_t(q, q, q), causal=True)
-    assert attn.FLASH_FWD_LAUNCHES == before
+    counters = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
+                "FLASH_BWD_DKV_LAUNCHES")
+    before = [getattr(attn, c) for c in counters]
+    q, k, v = (t.requires_grad_() for t in _t(*_qkv(4, 1, 16, 16, 2, 1, 8)))
+    o = attn.flash_attention(q, k, v, causal=True)
+    o2, lse = attn.flash_attention_with_lse(q, q, q, causal=True)
+    torch.autograd.grad(o.sum() + o2.sum() + lse.sum(), (q, k, v))
+    assert [getattr(attn, c) for c in counters] == before
 
 
 def test_flash_rejects_bad_arguments():

@@ -53,3 +53,107 @@ def test_kernel_matches_plain_version_on_card(dtype, atol, rtol):
                                    rtol=rtol)
         if lse is not None:
             torch.testing.assert_close(lse, rlse, atol=2e-5, rtol=2e-5)
+
+
+# (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse): the forward's
+# edge cases — GQA with a window, non-causal ragged sk, MQA at d 128, and
+# a kv_offset that leaves rows with no visible key under a dlse term
+_BWD_CASES = [(1, 200, 200, 8, 4, 64, True, 64, 0, False),
+              (2, 40, 56, 4, 2, 16, False, 0, 0, False),
+              (1, 130, 130, 4, 1, 128, True, 0, 0, False),
+              (2, 48, 48, 2, 2, 32, True, 8, 30, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rel_atol,rtol", [
+    (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-3, 1e-2)])
+def test_backward_kernels_match_plain_version_on_card(dtype, rel_atol,
+                                                      rtol):
+    """flash_bwd_dq and flash_bwd_dkv against flash_bwd_reference on the
+    same inputs. Both compute in float32 from the same q/k/v/dO values
+    and the forward kernel's (o, lse); they differ in summation order
+    only, so the tolerance scales with the case's largest gradient (atol
+    rel_atol * max |g|) plus rtol. bf16 is held to the bound a bf16
+    gradient would carry (rtol 1e-2, about one bf16 ulp)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    rng = np.random.default_rng(7)
+    for b, sq, sk, h, kvh, d, causal, window, offset, with_dlse in \
+            _BWD_CASES:
+        q, k, v = (torch.from_numpy(a).cuda().to(dtype)
+                   for a in _qkv(8, b, sq, sk, h, kvh, d))
+        do = torch.from_numpy(rng.standard_normal(
+            (b, sq, h, d), dtype=np.float32)).cuda().to(dtype)
+        dlse = torch.from_numpy(rng.standard_normal(
+            (b, sq, h), dtype=np.float32)).cuda() if with_dlse else None
+        scale = 1.0 / d ** 0.5
+        o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
+        delta = attn._bwd_delta(o, do, dlse)
+        before = (attn.FLASH_BWD_DQ_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES)
+        dq = attn._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal,
+                                     scale, window, offset)
+        dk, dv = attn._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
+                                          scale, window, offset)
+        torch.cuda.synchronize()
+        assert (attn.FLASH_BWD_DQ_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES) \
+            == (before[0] + 1, before[1] + 1)
+        want = attn.flash_bwd_reference(q, k, v, o, lse, do, dlse,
+                                        causal=causal, scale=scale,
+                                        window=window, kv_offset=offset)
+        for got, ref in zip((dq, dk, dv), want):
+            assert bool(torch.isfinite(got).all())
+            torch.testing.assert_close(
+                got, ref, rtol=rtol,
+                atol=rel_atol * ref.abs().max().item())
+        if offset:
+            empty = lse == attn.NEG_INF
+            assert bool(empty.any())
+            assert bool((dq[empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_flash_attention_gradients_on_card():
+    """Autograd through flash_attention on a CUDA tensor runs both
+    backward kernels and gives the plain path's gradients."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q, k, v = (torch.from_numpy(a).cuda().requires_grad_()
+               for a in _qkv(9, 2, 96, 96, 4, 2, 32))
+    go = torch.from_numpy(np.random.default_rng(10).standard_normal(
+        (2, 96, 4, 32), dtype=np.float32)).cuda()
+    before = attn.FLASH_BWD_DKV_LAUNCHES
+    o = attn.flash_attention(q, k, v, causal=True, window=40)
+    got = torch.autograd.grad((o * go).sum(), (q, k, v))
+    assert attn.FLASH_BWD_DKV_LAUNCHES == before + 1
+    ro, _ = attn.flash_attention_reference(q, k, v, causal=True, window=40)
+    want = torch.autograd.grad((ro * go).sum(), (q, k, v))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_fit_on_card_runs_the_kernels(monkeypatch):
+    """A small bf16 fit on the card: every layer of every micro-batch
+    runs the three kernels, and the loss is finite and falls."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+
+    monkeypatch.setenv("LO_COMPUTE_DTYPE", "bfloat16")
+    start = np.random.default_rng(11).integers(1, 64, size=16)
+    x = ((start[:, None] + np.arange(128)[None, :]) % 63 + 1) \
+        .astype(np.int32)
+    lm = LanguageModel(vocab_size=64, d_model=64, n_layers=2, n_heads=4,
+                       n_kv_heads=2, max_len=128, sliding_window=32,
+                       device="cuda")
+    lm.compile({"kind": "adamw", "learning_rate": 1e-2})
+    counters = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
+                "FLASH_BWD_DKV_LAUNCHES")
+    before = [getattr(attn, c) for c in counters]
+    loss = lm.fit(x, batch_size=8, epochs=3, shuffle=False,
+                  grad_accum=2).history["loss"]
+    # 2 layers x 3 epochs x 2 steps x 2 micro-batches
+    assert [getattr(attn, c) - b for c, b in zip(counters, before)] == \
+        [24, 24, 24]
+    assert np.isfinite(loss).all() and loss[-1] < loss[0]
