@@ -6,12 +6,18 @@
 1. Builds every CUDA source of the port (one nvcc per source, started
    together) into build/kernels/.
 2. Kernel phase: each hand-written kernel against its plain PyTorch
-   version on the card — the forward at the serving prefill shape, the
-   two backward kernels at the training shape (b 8, 2048 tokens, 8
-   heads over 4 kv heads, window 1024), fp32 and bf16, and small edge
-   cases — with its time, the plain version's time, the least time the
-   card could take (bound) and one PyTorch library call computing the
-   same function, timed as a yardstick only.
+   version on the card — the forward at the serving prefill and the
+   training shape, the backward kernels at the training shape (b 8,
+   2048 tokens, 8 heads over 4 kv heads, window 1024), fp32 and bf16,
+   and small edge cases — with its time, the plain version's time, the
+   least time the card could take (bound) and one PyTorch library call
+   computing the same function, timed as a yardstick only. float32
+   takes the CUDA-core kernels (flash_fwd, flash_bwd_dkv), bf16 the
+   tensor-core ones (flash_fwd_sm90, flash_bwd_dkv_sm90); dq has one
+   kernel. Each bf16 case of the tensor-core route is held twice more:
+   to the derived bound of bf16 P and dS against the float32 plain
+   version, and tightly against the plain version with P and dS split
+   into bf16 hi + lo as the kernels split them.
 3. Serving path: a REST server on the card serving the tutorial's LM
    (vocab 32000, d_model 512, 8 layers, 8 heads over 4 kv heads, window
    1024, random weights from seed 0), four concurrent predicts of
@@ -21,9 +27,11 @@
 4. Training path: ``LanguageModel.fit`` of the same LM from
    ``init_params(seed 0)`` on 64 windows of 2048 tokens of a
    cyclic-successor stream, batch 16, 2 epochs, grad_accum 2, bf16
-   compute: the loss must be finite and fall, and each kernel must run
-   once per layer and micro-batch. In float32 one micro-step's
-   gradients through the kernels must match the dense path's. The
+   compute: the loss must be finite, fall, and stay within 1% of the
+   CUDA-core kernels' epoch losses, and the forward, dq and dK/dV must
+   run once per layer and micro-batch, the forward and dK/dV on the
+   tensor-core route. In float32 one micro-step's gradients through the
+   CUDA-core kernels must match the dense path's. The
    trained artifact is then served over REST and must answer with its
    reloaded copy's ``generate``. A profiler window of 2 steps gives the
    kernels' time per step and the card's idle share.
@@ -66,8 +74,16 @@ NEW_TOKENS = 32
 TRAIN_WINDOWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_ACCUM = \
     64, 2048, 16, 2, 2
 COUNTERS = {"flash_fwd": "FLASH_FWD_LAUNCHES",
+            "flash_fwd_sm90": "FLASH_FWD_SM90_LAUNCHES",
             "flash_bwd_dq": "FLASH_BWD_DQ_LAUNCHES",
-            "flash_bwd_dkv": "FLASH_BWD_DKV_LAUNCHES"}
+            "flash_bwd_dkv": "FLASH_BWD_DKV_LAUNCHES",
+            "flash_bwd_dkv_sm90": "FLASH_BWD_DKV_SM90_LAUNCHES"}
+# the forward's and dK/dV's counters count both routes; a CUDA-core
+# kernel's own launches are those less its tensor-core counterpart's
+ROUTES = {"flash_fwd": "flash_fwd_sm90", "flash_bwd_dkv": "flash_bwd_dkv_sm90"}
+# epoch losses of the train phase's fit through the CUDA-core kernels
+# (bf16; PERF.md), which the tensor-core route must stay within 1% of
+CUDA_CORE_LOSSES = (8.82798957824707, 3.2666094303131104)
 
 
 def _reset_launches(attn) -> None:
@@ -76,8 +92,12 @@ def _reset_launches(attn) -> None:
 
 
 def _launches(attn) -> dict:
-    return {name: getattr(attn, counter)
-            for name, counter in COUNTERS.items()}
+    """Launches of each kernel (one per CUDA source) since the reset."""
+    count = {name: getattr(attn, counter)
+             for name, counter in COUNTERS.items()}
+    for op, sm90 in ROUTES.items():
+        count[op] -= count[sm90]
+    return count
 
 
 def _time_ms(torch, fn, iters: int = 20) -> float:
@@ -105,38 +125,91 @@ def _visible_mask(torch, sq, sk, causal, window, offset, device):
     return mask
 
 
+def _split_fwd(torch, attn, q, k, v, causal, scale, window, offset):
+    """The plain forward with the weights exp(s - m) split into bf16 hi
+    + lo before the product with v, as flash_fwd_sm90 multiplies them,
+    and each element's bound term sum_j p_j |v_j| / l. float32, (b, sq,
+    h, d) each."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    valid = attn._visible(sq, sk, causal, window, offset, q.device)
+    s = torch.where(valid, s, attn.NEG_INF)
+    e = torch.where(valid, torch.exp(s - s.amax(dim=-1, keepdim=True)), 0.0)
+    del s
+    l = e.sum(dim=-1, keepdim=True)
+    inv = torch.where(l > 0, 1.0 / l, 0.0).permute(0, 3, 1, 2, 4)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", attn._bf16_split(e), v.float())
+    w = torch.einsum("bhgqk,bkhd->bqhgd", e, v.float().abs())
+    return (o * inv).reshape(b, sq, h, d), (w * inv).reshape(b, sq, h, d)
+
+
+def _split_bwd(torch, attn, q, k, v, o, lse, do, dlse, causal, scale,
+               window, offset):
+    """flash_bwd_reference's dK and dV with P and dS split into bf16 hi
+    + lo before the products, as flash_bwd_dkv_sm90 multiplies them, and
+    each element's bound terms sum |ds| |q| and sum p |dO|. float32."""
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    qg = q.float().reshape(b, sq, kvh, h // kvh, d)
+    dog = do.float().reshape(b, sq, kvh, h // kvh, d)
+    valid = attn._visible(sq, sk, causal, window, offset, q.device)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    p = torch.exp(torch.where(valid, s - attn._by_group(lse.float(), kvh),
+                              attn.NEG_INF))
+    del s
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - attn._by_group(attn._bwd_delta(o, do, dlse), kvh)) \
+        * scale
+    del dp
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", attn._bf16_split(ds), qg)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", attn._bf16_split(p), dog)
+    bk = torch.einsum("bhgqk,bqhgd->bkhd", ds.abs(), qg.abs())
+    bv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog.abs())
+    return dk, dv, bk, bv
+
+
 def kernel_phase(torch, log):
-    """flash_fwd against flash_attention_reference on the card. Returns
-    the kernels-line entry measured at the slice's fp32 shape."""
+    """flash_fwd (CUDA cores: float32) and flash_fwd_sm90 (tensor cores:
+    bf16) against flash_attention_reference on the card. Returns the
+    kernels-line entries: flash_fwd at the slice's fp32 shape (its main
+    path, serving), with its fp32 training-shape numbers beside them, and
+    flash_fwd_sm90 at the training path's bf16 shape."""
     import torch.nn.functional as F
 
     from learningorchestra_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    f32, bf16 = torch.float32, torch.bfloat16
     # (name, b, sq, sk, h, kvh, d, causal, window, kv_offset, dtype)
     cases = [
-        ("slice", 1, 1536, 1536, 8, 4, 64, True, 1024, 0, torch.float32),
-        ("slice", 1, 1536, 1536, 8, 4, 64, True, 1024, 0, torch.bfloat16),
+        ("slice", 1, 1536, 1536, 8, 4, 64, True, 1024, 0, f32),
+        ("slice", 1, 1536, 1536, 8, 4, 64, True, 1024, 0, bf16),
         # a main-path prompt length: the last q tile is ragged
-        ("prefill-1500", 1, 1500, 1500, 8, 4, 64, True, 1024, 0,
-         torch.float32),
-        ("prefill-1500", 1, 1500, 1500, 8, 4, 64, True, 1024, 0,
-         torch.bfloat16),
-        ("non-causal", 2, 96, 96, 4, 2, 64, False, 0, 0, torch.float32),
-        ("mqa", 2, 130, 130, 8, 1, 64, True, 0, 0, torch.float32),
-        ("ragged-sk", 2, 77, 201, 4, 2, 32, False, 0, 0, torch.float32),
-        ("offset-empty-rows", 2, 64, 64, 4, 4, 128, True, 16, 40,
-         torch.float32),
-        ("offset-empty-rows", 1, 64, 64, 4, 4, 64, True, 16, 40,
-         torch.bfloat16),
-        # the training path's shape and dtype
-        ("train", 8, 2048, 2048, 8, 4, 64, True, 1024, 0, torch.bfloat16),
+        ("prefill-1500", 1, 1500, 1500, 8, 4, 64, True, 1024, 0, f32),
+        ("prefill-1500", 1, 1500, 1500, 8, 4, 64, True, 1024, 0, bf16),
+        ("non-causal", 2, 96, 96, 4, 2, 64, False, 0, 0, f32),
+        ("non-causal", 2, 96, 96, 4, 2, 64, False, 0, 0, bf16),
+        ("mqa", 2, 130, 130, 8, 1, 64, True, 0, 0, f32),
+        ("mqa", 2, 130, 130, 8, 1, 64, True, 0, 0, bf16),
+        ("ragged-sk", 2, 77, 201, 4, 2, 32, False, 0, 0, f32),
+        ("ragged-sk", 2, 77, 201, 4, 2, 32, False, 0, 0, bf16),
+        ("offset-empty-rows", 2, 64, 64, 4, 4, 128, True, 16, 40, f32),
+        ("offset-empty-rows", 2, 64, 64, 4, 4, 128, True, 16, 40, bf16),
+        ("offset-empty-rows", 1, 64, 64, 4, 4, 64, True, 16, 40, bf16),
+        # the training path's shape: bf16 is its dtype, fp32 the
+        # CUDA-core kernel's number at the same work
+        ("train", 8, 2048, 2048, 8, 4, 64, True, 1024, 0, bf16),
+        ("train", 8, 2048, 2048, 8, 4, 64, True, 1024, 0, f32),
     ]
-    # (atol, rtol). float32: summation order only. bf16: both compute in
-    # float32 and round o once, so they differ by at most one bf16 ulp of
-    # |o| (<= 2**-7 |o|, under rtol) plus the float32 error (under atol)
-    tols = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-4, 1e-2)}
-    entry = None
+    # (atol, rtol). float32: summation order only. bf16: o is rounded
+    # once from float32 by kernel and plain version alike, so they differ
+    # by at most one bf16 ulp of |o| (<= 2**-7 |o|, under rtol) plus the
+    # float32 error (under atol); the tensor-core kernel adds its bf16
+    # hi + lo split of P, about 2**-16 of the product
+    tols = {f32: (2e-5, 2e-5), bf16: (1e-4, 1e-2)}
+    entries = {}
     for (name, b, sq, sk, h, kvh, d, causal, window, offset,
          dtype) in cases:
         def rand(*shape):
@@ -145,6 +218,8 @@ def kernel_phase(torch, log):
 
         q, k, v = rand(b, sq, h, d), rand(b, sk, kvh, d), rand(b, sk, kvh, d)
         with_lse = h == kvh
+        sm90 = attn._tensor_core_route(q)
+        scale = 1.0 / d ** 0.5
 
         def kernel():
             if with_lse:
@@ -157,8 +232,13 @@ def kernel_phase(torch, log):
             return attn.flash_attention_reference(
                 q, k, v, causal=causal, window=window, kv_offset=offset)
 
+        routed = attn.FLASH_FWD_SM90_LAUNCHES
         o, lse = kernel()
         torch.cuda.synchronize()
+        if (attn.FLASH_FWD_SM90_LAUNCHES - routed == 1) != sm90 \
+                or sm90 != (dtype == bf16):
+            raise AssertionError(f"flash_fwd {name} {dtype}: took the "
+                                 f"wrong route")
         ro, rlse = plain()
         diff = (o.float() - ro.float()).abs()
         err = diff.max().item()
@@ -169,6 +249,31 @@ def kernel_phase(torch, log):
             raise AssertionError(f"flash_fwd {name} {dtype}: |o - ro| "
                                  f"exceeds atol {atol} + rtol {rtol} |ro| "
                                  f"by {excess}x (max abs err {err})")
+        line = {"case": name, "dtype": str(dtype).split(".")[-1],
+                "kernel": "flash_fwd_sm90" if sm90 else "flash_fwd",
+                "shape": [b, sq, sk, h, kvh, d], "causal": causal,
+                "window": window, "kvOffset": offset, "maxAbsErr": err,
+                "atol": atol, "rtol": rtol, "tolUsed": excess}
+        if sm90:
+            # (a) against the float32 plain version at the derived bound
+            # of bf16 P, 2**-8 sum p |v| / l, plus o's own rounding (one
+            # bf16 ulp, <= 2**-7 |ro|); (b) against the plain version
+            # with P split as the kernel splits it: float32 order (2**-14
+            # of the bound term) plus o's rounding
+            eo, w = _split_fwd(torch, attn, q, k, v, causal, scale, window,
+                               offset)
+            used_a = (diff / (2.0 ** -8 * w + 2.0 ** -7 * ro.float().abs()
+                              + 1e-5)).max().item()
+            eo = eo.to(dtype).float()
+            used_b = ((o.float() - eo).abs()
+                      / (2.0 ** -14 * w + 2.0 ** -7 * eo.abs() + 1e-6)) \
+                .max().item()
+            del eo, w
+            if not (used_a <= 1.0 and used_b <= 1.0):
+                raise AssertionError(
+                    f"flash_fwd_sm90 {name}: bound used {used_a}x, "
+                    f"split emulation tolerance used {used_b}x")
+            line.update(derivedBoundUsed=used_a, splitEmulationUsed=used_b)
         empty = 0
         if lse is not None:
             # rows with no visible key carry exactly NEG_INF in both
@@ -176,16 +281,14 @@ def kernel_phase(torch, log):
             if not torch.equal(seen, lse != attn.NEG_INF):
                 raise AssertionError(f"flash_fwd {name}: empty rows differ")
             lse_err = (lse - rlse)[seen].abs().max().item()
-            if not lse_err <= 1e-4:
+            if not lse_err <= (2e-5 if sm90 else 1e-4):
                 raise AssertionError(f"flash_fwd {name}: lse err {lse_err}")
             empty = int((~seen).sum())
-            if offset and not empty:
-                raise AssertionError(f"{name}: the case has no empty rows")
-        line = {"case": name, "dtype": str(dtype).split(".")[-1],
-                "shape": [b, sq, sk, h, kvh, d], "causal": causal,
-                "window": window, "kvOffset": offset, "maxAbsErr": err,
-                "atol": atol, "rtol": rtol, "tolUsed": excess,
-                "emptyRows": empty}
+            if offset and not (empty and bool((o[~seen] == 0).all())):
+                raise AssertionError(f"{name}: no empty rows, or empty "
+                                     f"rows with a non-zero o")
+            line["lseMaxAbsErr"] = lse_err
+        line["emptyRows"] = empty
         if name in ("slice", "train"):
             mask = _visible_mask(torch, sq, sk, causal, window, offset,
                                  q.device)
@@ -197,7 +300,6 @@ def kernel_phase(torch, log):
             op_ms = flops / PEAK_FLOPS[dt] * 1e3
             byte_ms = nbytes / PEAK_BYTES * 1e3
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            scale = 1.0 / d ** 0.5
             line.update({
                 "ms": _time_ms(torch, lambda: kernel()),
                 "plain_ms": _time_ms(torch, plain, iters=5),
@@ -208,20 +310,38 @@ def kernel_phase(torch, log):
                 "bound_by": "operations" if op_ms >= byte_ms else "bytes",
                 "flops": flops, "bytes": nbytes, "visiblePairs": pairs,
             })
-            if name == "slice" and dtype == torch.float32:
-                entry = {k: line[k] for k in (
-                    "ms", "plain_ms", "bound_ms", "bound_by",
-                    "library_ms")}
-                entry["max_abs_err"] = err
+            if sm90:
+                # the CUDA-core kernel on the same bf16 inputs, for the
+                # comparison within one run
+                line["cudaCoreMs"] = _time_ms(
+                    torch, lambda: attn._flash_fwd_cuda(
+                        q, k, v, causal, scale, window, offset))
+            del mask, qt, kt, vt
+            picked = {k: line[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+            picked["max_abs_err"] = err
+            if name == "slice" and dtype == f32:
+                entries.setdefault("flash_fwd", {}).update(picked)
+            elif name == "train" and dtype == f32:
+                entries.setdefault("flash_fwd", {})["trainShapeFloat32"] = \
+                    picked
+            elif name == "train":
+                entries["flash_fwd_sm90"] = dict(
+                    picked, dtype=dt, cudaCoreMs=line["cudaCoreMs"],
+                    derivedBoundUsed=line["derivedBoundUsed"],
+                    splitEmulationUsed=line["splitEmulationUsed"])
         log.append("kernel " + json.dumps(line))
-    return entry
+        del q, k, v, o, lse, ro, rlse, diff
+    return entries
 
 
 def bwd_kernel_phase(torch, log):
-    """flash_bwd_dq and flash_bwd_dkv against flash_bwd_reference on the
-    card, each case in fp32 and bf16, on the forward kernel's own
-    (o, lse). Returns the kernels-line entries measured at the training
-    path's shape and dtype (bf16)."""
+    """flash_bwd_dq, and flash_bwd_dkv (float32) or flash_bwd_dkv_sm90
+    (bf16), against flash_bwd_reference on the card, each case in fp32
+    and bf16, on the forward kernel's own (o, lse). Returns the
+    kernels-line entries measured at the training path's shape: dq and
+    the tensor-core dK/dV in bf16 (the path's dtype), the CUDA-core dK/dV
+    in float32 (its route)."""
     import torch.nn.functional as F
 
     from learningorchestra_tpu_torch.ops import attention as attn
@@ -238,7 +358,11 @@ def bwd_kernel_phase(torch, log):
     # (atol as a share of the case's largest |g|, rtol). Kernel and plain
     # version compute in float32 from the same inputs and (o, lse) and
     # differ in summation order only; bf16 is held to the bound a bf16
-    # gradient would carry (rtol 1e-2, about one bf16 ulp)
+    # gradient would carry (rtol 1e-2, about one bf16 ulp). The
+    # tensor-core dK/dV is held twice more: (a) to the derived bound of
+    # bf16 P and dS, 2**-8 sum p |dO| and 2**-8 sum |ds| |q|, and (b) to
+    # the float32 tolerance against the plain version with P and dS split
+    # into bf16 hi + lo as the kernel splits them
     tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
     entries = {}
     for (name, b, sq, sk, h, kvh, d, causal, window, offset,
@@ -256,6 +380,9 @@ def bwd_kernel_phase(torch, log):
             scale = 1.0 / d ** 0.5
             o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
             delta = attn._bwd_delta(o, do, dlse)
+            sm90 = attn._tensor_core_route(q)
+            dkv = attn._flash_bwd_dkv_sm90 if sm90 \
+                else attn._flash_bwd_dkv_cuda
 
             def dq_kernel():
                 return attn._flash_bwd_dq_cuda(q, k, v, do, lse, delta,
@@ -263,17 +390,21 @@ def bwd_kernel_phase(torch, log):
                                                offset)
 
             def dkv_kernel():
-                return attn._flash_bwd_dkv_cuda(q, k, v, do, lse, delta,
-                                                causal, scale, window,
-                                                offset)
+                return dkv(q, k, v, do, lse, delta, causal, scale, window,
+                           offset)
 
             def plain():
                 return attn.flash_bwd_reference(
                     q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
                     window=window, kv_offset=offset)
 
+            routed = attn.FLASH_BWD_DKV_SM90_LAUNCHES
             got = (dq_kernel(), *dkv_kernel())
             torch.cuda.synchronize()
+            if (attn.FLASH_BWD_DKV_SM90_LAUNCHES - routed == 1) != sm90 \
+                    or sm90 != (dtype == torch.bfloat16):
+                raise AssertionError(f"flash_bwd_dkv {name} {dtype}: took "
+                                     f"the wrong route")
             want = plain()
             rel_atol, rtol = tols[dtype]
             errs, used = [], []
@@ -298,12 +429,37 @@ def bwd_kernel_phase(torch, log):
                                      f"rows with a non-zero dq")
             dt = str(dtype).split(".")[-1]
             line = {"case": name, "dtype": dt,
+                    "dkvKernel": "flash_bwd_dkv_sm90" if sm90
+                    else "flash_bwd_dkv",
                     "shape": [b, sq, sk, h, kvh, d], "causal": causal,
                     "window": window, "kvOffset": offset, "dlse": with_dlse,
                     "maxAbsErr": dict(zip(("dq", "dk", "dv"), errs)),
                     "relAtol": rel_atol, "rtol": rtol,
                     "tolUsed": dict(zip(("dq", "dk", "dv"), used)),
                     "emptyRows": empty}
+            if sm90:
+                ek, ev, bk, bv = _split_bwd(torch, attn, q, k, v, o, lse, do,
+                                            dlse, causal, scale, window,
+                                            offset)
+                checks = {}
+                for part, g, w, e, bound in (("dk", got[1], want[1], ek, bk),
+                                             ("dv", got[2], want[2], ev, bv)):
+                    floor = 1e-4 * w.abs().max().item()
+                    checks[part] = (
+                        ((g - w).abs() / (2.0 ** -8 * bound + floor))
+                        .max().item(),
+                        ((g - e).abs() / (floor + 1e-4 * e.abs()))
+                        .max().item())
+                del ek, ev, bk, bv
+                if not all(a <= 1.0 and e <= 1.0
+                           for a, e in checks.values()):
+                    raise AssertionError(f"flash_bwd_dkv_sm90 {name}: (bound "
+                                         f"used, split emulation used) "
+                                         f"{checks}")
+                line["derivedBoundUsed"] = {
+                    k: c[0] for k, c in checks.items()}
+                line["splitEmulationUsed"] = {
+                    k: c[1] for k, c in checks.items()}
             if name == "train":
                 pairs = int(_visible_mask(torch, sq, sk, causal, window,
                                           offset, q.device).sum())
@@ -330,9 +486,10 @@ def bwd_kernel_phase(torch, log):
                 with torch.no_grad():
                     sdpa_fwd_ms = _time_ms(torch, sdpa)
                 library_ms = _time_ms(torch, sdpa_fwd_bwd) - sdpa_fwd_ms
+                dkv_name = "flash_bwd_dkv_sm90" if sm90 else "flash_bwd_dkv"
                 for kernel, fn, flops, outs in (
                         ("flash_bwd_dq", dq_kernel, 6.0, q.numel()),
-                        ("flash_bwd_dkv", dkv_kernel, 8.0,
+                        (dkv_name, dkv_kernel, 8.0,
                          k.numel() + v.numel())):
                     flops *= d * pairs * h * b
                     nbytes = ins + 4 * outs
@@ -343,7 +500,10 @@ def bwd_kernel_phase(torch, log):
                         "ms": ms, "bound_ms": max(op_ms, byte_ms),
                         "bound_by": "operations" if op_ms >= byte_ms
                         else "bytes", "flops": flops, "bytes": nbytes}
-                    if dtype == torch.bfloat16:
+                    # each kernel's numbers in its main path's dtype: bf16
+                    # for dq and the tensor-core dK/dV, float32 for the
+                    # CUDA-core dK/dV
+                    if sm90 or kernel == "flash_bwd_dkv":
                         err = errs[0] if kernel == "flash_bwd_dq" \
                             else max(errs[1:])
                         entries[kernel] = {
@@ -352,9 +512,22 @@ def bwd_kernel_phase(torch, log):
                             "bound_by": line[kernel]["bound_by"],
                             "library_ms": library_ms, "max_abs_err": err,
                             "dtype": dt}
+                if sm90:
+                    # the CUDA-core dK/dV on the same bf16 inputs, for the
+                    # comparison within one run
+                    line["cudaCoreDkvMs"] = _time_ms(
+                        torch, lambda: attn._flash_bwd_dkv_cuda(
+                            q, k, v, do, lse, delta, causal, scale, window,
+                            offset))
+                    entries["flash_bwd_dkv_sm90"].update(
+                        cudaCoreMs=line["cudaCoreDkvMs"],
+                        derivedBoundUsed=line["derivedBoundUsed"],
+                        splitEmulationUsed=line["splitEmulationUsed"])
                 line.update(plain_ms=plain_ms, library_ms=library_ms,
                             sdpaForwardMs=sdpa_fwd_ms, visiblePairs=pairs)
+                del mask, qt, kt, vt, dot
             log.append("kernel " + json.dumps(line))
+            del q, k, v, do, o, lse, delta, got, want
     return entries
 
 
@@ -440,8 +613,9 @@ def slice_phase(torch, log, home):
                              f"times on the serving path; "
                              f"{len(prompts) * len(rounds)} prefills of "
                              f"{LM_CONFIG['n_layers']} layers need {need}")
-    if launches["flash_bwd_dq"] or launches["flash_bwd_dkv"]:
-        raise AssertionError(f"serving ran a backward kernel: {launches}")
+    if any(n for k, n in launches.items() if k != "flash_fwd"):
+        raise AssertionError(f"serving (float32) ran a backward or a "
+                             f"tensor-core kernel: {launches}")
     solos = [lm.generate([p], max_new_tokens=NEW_TOKENS)[0][len(p):]
              for p in prompts]
     report = []
@@ -595,12 +769,18 @@ def train_phase(torch, log, home):
         raise AssertionError(f"training losses {losses}")
     if not losses[1] < losses[0]:
         raise AssertionError(f"the loss did not fall: {losses}")
+    if not all(abs(a - b) <= 0.01 * b
+               for a, b in zip(losses, CUDA_CORE_LOSSES)):
+        raise AssertionError(f"epoch losses {losses} are not within 1% of "
+                             f"the CUDA-core kernels' {CUDA_CORE_LOSSES}")
+    # bf16: the forward and dK/dV take the tensor-core route, every time
     need = LM_CONFIG["n_layers"] * micro
-    if any(n != need for n in launches.values()):
+    want = {"flash_fwd": 0, "flash_fwd_sm90": need, "flash_bwd_dq": need,
+            "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": need}
+    if launches != want:
         raise AssertionError(f"kernel launches during fit {launches}; "
                              f"{micro} micro-batches of "
-                             f"{LM_CONFIG['n_layers']} layers need {need} "
-                             f"of each")
+                             f"{LM_CONFIG['n_layers']} layers need {want}")
     # steady-state step time: the second epoch, after first use
     step_ms = hist["epochSeconds"][1] / (steps // TRAIN_EPOCHS) * 1e3
     tokens_per_s = TRAIN_WINDOWS * TRAIN_SEQ / hist["epochSeconds"][1]
@@ -635,10 +815,12 @@ def train_phase(torch, log, home):
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
 
-    # float32: one micro-step of 2 windows through the kernels against
-    # the same step on the dense path (plain autograd)
+    # float32: one micro-step of 2 windows through the kernels (the
+    # CUDA-core route) against the same step on the dense path (plain
+    # autograd)
     os.environ["LO_COMPUTE_DTYPE"] = "float32"
     grads = {}
+    f32_launches = None
     for impl in ("flash", "dot"):
         model = LanguageModel(**LM_CONFIG, attention=impl, device="cuda")
         model.set_params(state)
@@ -650,9 +832,13 @@ def train_phase(torch, log, home):
         before = _launches(attn)
         g, _ = feng._micro_grads(model._master_params(), batch, 0)
         ran = {k: _launches(attn)[k] - before[k] for k in COUNTERS}
-        want_ran = LM_CONFIG["n_layers"] if impl == "flash" else 0
-        if any(n != want_ran for n in ran.values()):
+        n = LM_CONFIG["n_layers"] if impl == "flash" else 0
+        want_ran = {"flash_fwd": n, "flash_fwd_sm90": 0, "flash_bwd_dq": n,
+                    "flash_bwd_dkv": n, "flash_bwd_dkv_sm90": 0}
+        if ran != want_ran:
             raise AssertionError(f"{impl} gradient step launched {ran}")
+        if impl == "flash":
+            f32_launches = ran
         grads[impl] = g
         del model, feng, batch
     os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
@@ -710,9 +896,10 @@ def train_phase(torch, log, home):
                         [e.key[:80], e.self_device_time_total / 2e3,
                          e.count / 2] for e in top]},
         "f32GradRelL2VsDot": {"max": rel[worst], "worst": worst},
+        "f32GradLaunches": f32_launches,
         "servedTokensEqualGenerate": True,
         "servedSuccessorShare": follows}))
-    return launches
+    return launches, f32_launches
 
 
 def main() -> int:
@@ -741,35 +928,48 @@ def main() -> int:
           f"(sources {_build.sources()})", flush=True)
     for name, text in _build.BUILD_LOG.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "smem" in line:
                 print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
 
     log: list = []
     try:
-        entries = {"flash_fwd": kernel_phase(torch, log)}
+        entries = kernel_phase(torch, log)
         entries.update(bwd_kernel_phase(torch, log))
         with tempfile.TemporaryDirectory() as home:
             served = slice_phase(torch, log, home)
         with tempfile.TemporaryDirectory() as home:
-            trained = train_phase(torch, log, home)
+            trained, f32_grad = train_phase(torch, log, home)
+        # each kernel's main path: serving (float32) for the CUDA-core
+        # forward, the bf16 fit for dq and the tensor-core kernels, the
+        # float32 gradient step for the CUDA-core dK/dV
+        paths = {"serve": served, "train": trained,
+                 "trainFloat32Grad": f32_grad}
+        main_path = {"flash_fwd": "serve", "flash_fwd_sm90": "train",
+                     "flash_bwd_dq": "train", "flash_bwd_dkv":
+                     "trainFloat32Grad", "flash_bwd_dkv_sm90": "train"}
+        missing = [name for name in COUNTERS
+                   if name not in entries or not paths[main_path[name]][name]]
+        if missing:
+            raise AssertionError(f"kernels never measured or never launched "
+                                 f"on their path: {missing}")
     except BaseException:
         for line in log:
             print(line)
         traceback.print_exc()
         return 1
-    replaces = {"flash_fwd": 188, "flash_bwd_dq": 338, "flash_bwd_dkv": 402}
+    replaces = {"flash_fwd": 188, "flash_fwd_sm90": 188, "flash_bwd_dq": 338,
+                "flash_bwd_dkv": 402, "flash_bwd_dkv_sm90": 402}
     kernels = []
-    for name, entry in entries.items():
+    for name in COUNTERS:
+        entry = entries[name]
         entry.update({
             "name": name, "route": "cuda",
             "source": f"learningorchestra_tpu_torch/csrc/{name}.cu",
             "replaces": f"learningorchestra_tpu/ops/attention.py:"
                         f"{replaces[name]}",
-            # the forward's main path is serving, the backward's training
-            "launches": served[name] if name == "flash_fwd"
-            else trained[name],
-            "launchesByPath": {"serve": served[name],
-                               "train": trained[name]}})
+            "launches": paths[main_path[name]][name],
+            "mainPath": main_path[name],
+            "launchesByPath": {p: c[name] for p, c in paths.items()}})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     for line in log:

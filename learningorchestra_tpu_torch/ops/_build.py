@@ -2,8 +2,9 @@
 
 Each source compiles with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` (beside the package),
-named by a hash of the source and the flags so an edited source never
-loads a stale library, and is loaded with :mod:`ctypes`. A source that
+named by a hash of the source, every header under ``csrc/`` and the
+flags so an edited source or header never loads a stale library, and is
+loaded with :mod:`ctypes`. A source that
 does not include PyTorch's headers builds in seconds; binding through
 ``torch.utils.cpp_extension`` would take minutes per build.
 
@@ -49,10 +50,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(
-        src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:

@@ -6,13 +6,18 @@ heads, ``kv | heads``.
 
 - :func:`flash_attention` / :func:`flash_attention_with_lse` are
   differentiable (:class:`_FlashAttention`). On a CUDA tensor the
-  forward runs the hand-written kernel ``csrc/flash_fwd.cu`` (the port
-  of the TPU ``_fwd_kernel``) and the backward ``csrc/flash_bwd_dq.cu``
-  and ``csrc/flash_bwd_dkv.cu`` (``_bwd_dq_kernel``,
-  ``_bwd_dkv_kernel``); on a CPU tensor they run their plain PyTorch
-  versions :func:`flash_attention_reference` and
-  :func:`flash_bwd_reference`. A CUDA tensor never falls back to a
-  plain version: the kernel launches or the call raises.
+  forward runs a hand-written port of the TPU ``_fwd_kernel`` and the
+  backward ports of ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel``; on a
+  CPU tensor they run their plain PyTorch versions
+  :func:`flash_attention_reference` and :func:`flash_bwd_reference`. A
+  CUDA tensor never falls back to a plain version or to another route:
+  the kernel launches or the call raises.
+- Two routes, picked by :func:`_tensor_core_route` alone: bf16 with a
+  head_dim that is a multiple of 8 up to 128 takes the tensor-core
+  kernels ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``
+  (wgmma + TMA); every other CUDA input takes the CUDA-core kernels
+  ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_dkv.cu``. dQ runs
+  ``csrc/flash_bwd_dq.cu`` on both.
 - :func:`full_attention_reference` is the ``dot`` implementation.
 - :func:`decode_attention` is the serving plane's single-token op, left
   as plain tensor ops exactly as the JAX package left it.
@@ -27,10 +32,13 @@ import torch
 
 NEG_INF = -1e30
 
-# launches of each kernel (CPU calls never count)
+# launches of each kernel (CPU calls never count): the forward and dK/dV
+# counters count both routes, the *_SM90 ones the tensor-core route only
 FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
+FLASH_FWD_SM90_LAUNCHES = 0
+FLASH_BWD_DKV_SM90_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -219,6 +227,60 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, window: int,
     return o, lse
 
 
+def _tensor_core_route(q) -> bool:
+    """True when a CUDA tensor takes the tensor-core kernels
+    (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``): bf16
+    with a head_dim that is a multiple of 8 up to 128, since TMA needs
+    16-byte strides. Every other CUDA input takes the CUDA-core kernels;
+    a CPU tensor never gets here (it runs the plain version)."""
+    d = q.shape[-1]
+    return (q.device.type == "cuda" and q.dtype == torch.bfloat16
+            and d % 8 == 0 and d <= _MAX_HEAD_DIM)
+
+
+def _bf16_split(x: torch.Tensor) -> torch.Tensor:
+    """float32 ``x`` as the tensor-core kernels multiply it: bf16 ``hi``
+    plus bf16 ``lo = x - hi``, within about 2^-16 |x| of x (bf16 alone
+    keeps 2^-8). The kernels do this to P and dS; the plain versions
+    do not, and chip_smoke.py emulates it to hold the kernels tightly."""
+    hi = x.to(torch.bfloat16).float()
+    return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _check_tma(kernel: str, tensors) -> None:
+    """TMA reads from 16-byte aligned bases."""
+    for name, t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel} needs 16-byte aligned tensors; "
+                             f"{name} is not")
+
+
+def _flash_fwd_sm90(q, k, v, causal: bool, scale: float, window: int,
+                    offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    global FLASH_FWD_LAUNCHES, FLASH_FWD_SM90_LAUNCHES
+    tensors = (("q", q), ("k", k), ("v", v))
+    _check_cuda("flash_fwd_sm90", tensors)
+    _check_shape("flash_fwd_sm90", q, k)
+    _check_tma("flash_fwd_sm90", tensors)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    fn = _kernel("flash_fwd_sm90", [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    o = torch.empty_like(q)
+    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), b, sq, sk, h, kvh, d, float(scale),
+                 int(bool(causal)), int(window), int(offset), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_sm90 launch failed: CUDA error {err}")
+    FLASH_FWD_LAUNCHES += 1
+    FLASH_FWD_SM90_LAUNCHES += 1
+    return o, lse
+
+
 def _bwd_inputs(kernel: str, q, k, v, do, lse, delta) -> None:
     _check_cuda(kernel, (("q", q), ("k", k), ("v", v), ("do", do)))
     _check_cuda(kernel, (("lse", lse), ("delta", delta)),
@@ -282,6 +344,48 @@ def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
     return dk, dv
 
 
+def _by_head(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Per-row ``(b, sq, h)`` float32 -> contiguous ``(b, h, rows)``,
+    zero past ``sq``: one head's rows side by side, as the tensor-core
+    dK/dV kernel copies them."""
+    b, sq, h = x.shape
+    out = x.new_zeros((b, h, rows))
+    out[:, :, :sq] = x.transpose(1, 2)
+    return out
+
+
+def _flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal: bool,
+                        scale: float, window: int, offset: int,
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 (dk, dv), each (b, sk, kvh, d), from the tensor-core
+    flash_bwd_dkv_sm90 kernel."""
+    global FLASH_BWD_DKV_LAUNCHES, FLASH_BWD_DKV_SM90_LAUNCHES
+    _bwd_inputs("flash_bwd_dkv_sm90", q, k, v, do, lse, delta)
+    _check_tma("flash_bwd_dkv_sm90",
+               (("q", q), ("k", k), ("v", v), ("do", do)))
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    rows = -(-sq // 64) * 64  # the kernel's q tile
+    lse_t, delta_t = _by_head(lse, rows), _by_head(delta, rows)
+    fn = _kernel("flash_bwd_dkv_sm90", [ctypes.c_void_p] * 8
+                 + [ctypes.c_int] * 7 + [ctypes.c_float]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse_t.data_ptr(), delta_t.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, sq, sk, h, kvh, d, rows, float(scale),
+                 int(bool(causal)), int(window), int(offset), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv_sm90 launch failed: CUDA error "
+                           f"{err}")
+    FLASH_BWD_DKV_LAUNCHES += 1
+    FLASH_BWD_DKV_SM90_LAUNCHES += 1
+    return dk, dv
+
+
 def _on_device(kernel: str, q) -> bool:
     """True for a CUDA tensor (the kernel runs), False for a CPU one
     (the plain version runs); any other device raises."""
@@ -299,6 +403,8 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, window: int,
         return flash_attention_reference(q, k, v, causal=causal,
                                          scale=scale, window=window,
                                          kv_offset=offset)
+    if _tensor_core_route(q):
+        return _flash_fwd_sm90(q, k, v, causal, scale, window, offset)
     return _flash_fwd_cuda(q, k, v, causal, scale, window, offset)
 
 
@@ -312,8 +418,9 @@ def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float,
     delta = _bwd_delta(o, do, dlse)
     dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, window,
                             offset)
-    dk, dv = _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale,
-                                 window, offset)
+    dkv = _flash_bwd_dkv_sm90 if _tensor_core_route(q) \
+        else _flash_bwd_dkv_cuda
+    dk, dv = dkv(q, k, v, do, lse, delta, causal, scale, window, offset)
     return dq, dk, dv
 
 

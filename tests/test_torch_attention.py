@@ -8,6 +8,8 @@ Tolerance: atol/rtol 2e-5 in float32 for values and atol 5e-5, rtol
 oracle (the two sum in different orders).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -226,3 +228,77 @@ def test_flash_rejects_bad_arguments():
     kq = _t(*_qkv(5, 1, 8, 8, 2, 1, 8))
     with pytest.raises(ValueError, match="equal head counts"):
         attn.flash_attention_with_lse(*kq)
+
+
+@pytest.mark.parametrize("device,dtype,d,route", [
+    ("cuda", torch.bfloat16, 64, True),
+    ("cuda", torch.bfloat16, 8, True),
+    ("cuda", torch.bfloat16, 128, True),
+    ("cuda", torch.bfloat16, 20, False),     # not a multiple of 8
+    ("cuda", torch.bfloat16, 136, False),    # above 128
+    ("cuda", torch.float32, 64, False),
+    ("cpu", torch.bfloat16, 64, False),
+])
+def test_tensor_core_route_predicate(device, dtype, d, route):
+    """bf16 with a head_dim that is a multiple of 8 up to 128 on a CUDA
+    tensor takes the tensor-core kernels; everything else does not."""
+    q = types.SimpleNamespace(device=torch.device(device), dtype=dtype,
+                              shape=(2, 16, 4, d))
+    assert attn._tensor_core_route(q) is route
+
+
+def test_cpu_calls_never_reach_the_route_predicate(monkeypatch):
+    def refuse(q):
+        raise AssertionError("a CPU tensor reached the route predicate")
+
+    monkeypatch.setattr(attn, "_tensor_core_route", refuse)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (t.to(dtype).requires_grad_()
+                   for t in _t(*_qkv(16, 1, 16, 16, 2, 1, 16)))
+        o = attn.flash_attention(q, k, v, causal=True)
+        torch.autograd.grad(o.float().sum(), (q, k, v))
+
+
+def _dense_parts(seed):
+    """float32 forward and backward of causal windowed attention at a
+    small shape, with the products the tensor-core kernels round: the
+    unnormalised weights e of o = e.v / l, p of dV = p^T.dO and ds of
+    dK = ds^T.q."""
+    q, k, v = _t(*_qkv(seed, 2, 48, 48, 2, 2, 16))
+    do, _ = _t(*_upstream(seed + 1, 2, 48, 2, 16))
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / 4.0
+    visible = attn._visible(48, 48, True, 12, 0, "cpu")
+    m = torch.where(visible, s, attn.NEG_INF).amax(-1, keepdim=True)
+    e = torch.where(visible, torch.exp(s - m), 0.0)
+    l = e.sum(-1, keepdim=True)
+    p = e / l
+    o = torch.einsum("bhqk,bkhd->bhqd", p, v)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    delta = (do * o.transpose(1, 2)).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta) / 4.0
+    dot = do.transpose(1, 2)
+    return {
+        # (weights, the operand they multiply, its layout, divisor)
+        "o": (e, v.transpose(1, 2), "bhqk,bhkd->bhqd", l),
+        "dv": (p, dot, "bhqk,bhqd->bhkd", 1.0),
+        "dk": (ds, q.transpose(1, 2), "bhqk,bhqd->bhkd", 1.0),
+    }
+
+
+@pytest.mark.parametrize("part", ["o", "dv", "dk"])
+def test_bf16_weights_stay_within_the_stated_bound(part):
+    """The bound PERF.md and the kernels' notes state: rounding the
+    weights w (p, or ds) of a product to bf16 moves each output element
+    by at most 2^-8 sum |w| |x| (bf16's unit roundoff), and the
+    tensor-core kernels' hi + lo split by at most 2^-16 of it. A float32
+    sum of 48 terms adds at most 48 * 2^-24 of the same sum."""
+    w, x, eq, div = _dense_parts(17)[part]
+    exact = torch.einsum(eq, w, x) / div
+    scale = torch.einsum(eq, w.abs(), x.abs()) / div
+    f32 = 48 * 2.0 ** -24 * scale
+    single = (torch.einsum(eq, w.bfloat16().float(), x) / div - exact).abs()
+    split = (torch.einsum(eq, attn._bf16_split(w), x) / div - exact).abs()
+    assert bool((single <= 2.0 ** -8 * scale + f32).all())
+    assert bool((split <= 2.0 ** -16 * scale + f32).all())
+    # the single rounding does exceed the split's bound: the split matters
+    assert bool((single > 2.0 ** -16 * scale + f32).any())

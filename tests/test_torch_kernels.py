@@ -157,3 +157,79 @@ def test_fit_on_card_runs_the_kernels(monkeypatch):
     assert [getattr(attn, c) - b for c, b in zip(counters, before)] == \
         [24, 24, 24]
     assert np.isfinite(loss).all() and loss[-1] < loss[0]
+
+
+# (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse) in bf16 on the
+# tensor-core route: non-causal, MQA, ragged sk at d 32, a kv_offset that
+# leaves rows with no visible key at d 128, and head dims that do not
+# fill the kernels' 64-column boxes (8, 72)
+_SM90_CASES = [(2, 96, 96, 4, 2, 64, False, 0, 0, False),
+               (2, 130, 130, 8, 1, 64, True, 0, 0, False),
+               (2, 77, 201, 4, 2, 32, False, 0, 0, False),
+               (2, 64, 64, 4, 4, 128, True, 16, 40, True),
+               (1, 150, 150, 4, 2, 8, True, 32, 0, False),
+               (1, 150, 150, 4, 4, 72, True, 0, 0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _SM90_CASES)
+def test_tensor_core_route_on_card(case):
+    """bf16 through the tensor-core kernels (flash_fwd_sm90,
+    flash_bwd_dkv_sm90) against the plain versions. They split P and dS
+    into bf16 hi + lo (about 2^-16 of each), so o meets the CUDA-core
+    kernel's bf16 tolerance (one bf16 ulp of |o| plus float32 order) and
+    dK/dV the float32 summation-order tolerance (1e-4 max |g| + 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    b, sq, sk, h, kvh, d, causal, window, offset, with_dlse = case
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+               for a in _qkv(13, b, sq, sk, h, kvh, d))
+    do = torch.from_numpy(rng.standard_normal(
+        (b, sq, h, d), dtype=np.float32)).cuda().to(torch.bfloat16)
+    dlse = torch.from_numpy(rng.standard_normal(
+        (b, sq, h), dtype=np.float32)).cuda() if with_dlse else None
+    assert attn._tensor_core_route(q)
+    scale = 1.0 / d ** 0.5
+    before = (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES)
+    o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
+    delta = attn._bwd_delta(o, do, dlse)
+    dk, dv = attn._flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal,
+                                      scale, window, offset)
+    torch.cuda.synchronize()
+    assert (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES) \
+        == (before[0] + 1, before[1] + 1)
+    ro, rlse = attn.flash_attention_reference(
+        q, k, v, causal=causal, scale=scale, window=window, kv_offset=offset)
+    torch.testing.assert_close(o.float(), ro.float(), atol=1e-4, rtol=1e-2)
+    seen = rlse != attn.NEG_INF
+    assert torch.equal(seen, lse != attn.NEG_INF)
+    torch.testing.assert_close(lse[seen], rlse[seen], atol=2e-5, rtol=2e-5)
+    if offset:
+        assert bool((~seen).any()) and bool((o[~seen] == 0).all())
+    _, wk, wv = attn.flash_bwd_reference(q, k, v, o, lse, do, dlse,
+                                         causal=causal, scale=scale,
+                                         window=window, kv_offset=offset)
+    for got, ref in ((dk, wk), (dv, wv)):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-4 * ref.abs().max().item())
+
+
+@pytest.mark.cuda
+def test_float32_keeps_the_cuda_core_route_on_card():
+    """float32 (and a head_dim off the multiple of 8) never reaches the
+    tensor-core kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    before = (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES,
+              attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES)
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 20)):
+        q, k, v = (torch.from_numpy(a).cuda().to(dtype).requires_grad_()
+                   for a in _qkv(14, 1, 80, 80, 4, 2, d))
+        o = attn.flash_attention(q, k, v, causal=True)
+        torch.autograd.grad(o.float().sum(), (q, k, v))
+    torch.cuda.synchronize()
+    assert (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES,
+            attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES) \
+        == (before[0], before[1], before[2] + 2, before[3] + 2)
