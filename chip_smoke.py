@@ -12,12 +12,12 @@
    and small edge cases — with its time, the plain version's time, the
    least time the card could take (bound) and one PyTorch library call
    computing the same function, timed as a yardstick only. float32
-   takes the CUDA-core kernels (flash_fwd, flash_bwd_dkv), bf16 the
-   tensor-core ones (flash_fwd_sm90, flash_bwd_dkv_sm90); dq has one
-   kernel. Each bf16 case of the tensor-core route is held twice more:
-   to the derived bound of bf16 P and dS against the float32 plain
-   version, and tightly against the plain version with P and dS split
-   into bf16 hi + lo as the kernels split them.
+   takes the CUDA-core kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv),
+   bf16 the tensor-core ones (flash_fwd_sm90, flash_bwd_dq_sm90,
+   flash_bwd_dkv_sm90). Each bf16 case of the tensor-core route is held
+   twice more: to the derived bound of bf16 P and dS against the
+   float32 plain version, and tightly against the plain version with P
+   and dS split into bf16 hi + lo as the kernels split them.
 3. Serving path: a REST server on the card serving the tutorial's LM
    (vocab 32000, d_model 512, 8 layers, 8 heads over 4 kv heads, window
    1024, random weights from seed 0), four concurrent predicts of
@@ -29,8 +29,8 @@
    cyclic-successor stream, batch 16, 2 epochs, grad_accum 2, bf16
    compute: the loss must be finite, fall, and stay within 1% of the
    CUDA-core kernels' epoch losses, and the forward, dq and dK/dV must
-   run once per layer and micro-batch, the forward and dK/dV on the
-   tensor-core route. In float32 one micro-step's gradients through the
+   run once per layer and micro-batch, all three on the tensor-core
+   route. In float32 one micro-step's gradients through the
    CUDA-core kernels must match the dense path's. The
    trained artifact is then served over REST and must answer with its
    reloaded copy's ``generate``. A profiler window of 2 steps gives the
@@ -40,7 +40,9 @@ The kernel launch counts are zeroed just before each path and read
 just after it.
 
 Earlier lines print the card (nvidia-smi name and power limit), the
-build time, the ``kernels`` JSON line and the phases' lines; the last
+build time, ptxas's registers and spill bytes of every kernel variant
+(a tensor-core variant that spills fails the run), the ``kernels`` JSON
+line and the phases' lines; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises and
 the exit code is not 0. Without a card, or without the package beside
 it, the script exits 2 and prints no result.
@@ -50,6 +52,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -76,11 +79,13 @@ TRAIN_WINDOWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_ACCUM = \
 COUNTERS = {"flash_fwd": "FLASH_FWD_LAUNCHES",
             "flash_fwd_sm90": "FLASH_FWD_SM90_LAUNCHES",
             "flash_bwd_dq": "FLASH_BWD_DQ_LAUNCHES",
+            "flash_bwd_dq_sm90": "FLASH_BWD_DQ_SM90_LAUNCHES",
             "flash_bwd_dkv": "FLASH_BWD_DKV_LAUNCHES",
             "flash_bwd_dkv_sm90": "FLASH_BWD_DKV_SM90_LAUNCHES"}
-# the forward's and dK/dV's counters count both routes; a CUDA-core
+# the forward's, dq's and dK/dV's counters count both routes; a CUDA-core
 # kernel's own launches are those less its tensor-core counterpart's
-ROUTES = {"flash_fwd": "flash_fwd_sm90", "flash_bwd_dkv": "flash_bwd_dkv_sm90"}
+ROUTES = {"flash_fwd": "flash_fwd_sm90", "flash_bwd_dq": "flash_bwd_dq_sm90",
+          "flash_bwd_dkv": "flash_bwd_dkv_sm90"}
 # epoch losses of the train phase's fit through the CUDA-core kernels
 # (bf16; PERF.md), which the tensor-core route must stay within 1% of
 CUDA_CORE_LOSSES = (8.82798957824707, 3.2666094303131104)
@@ -98,6 +103,33 @@ def _launches(attn) -> dict:
     for op, sm90 in ROUTES.items():
         count[op] -= count[sm90]
     return count
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_bwd_dq_sm90_kernel<1,128>`` from ptxas's mangled name."""
+    m = re.search(r"(?<=\d)(flash_\w*?_kernel)I(.+?)EEv", mangled)
+    if not m:
+        return mangled
+    args = [n or ("bf16" if bf else "float") for n, bf, _ in
+            re.findall(r"Li(\d+)E|(13__nv_bfloat16)|(f)", m.group(2))]
+    return f"{m.group(1)}<{','.join(args)}>"
+
+
+def _ptxas_report(log: str) -> list:
+    """Registers and spill bytes of each kernel variant in ``nvcc
+    -Xptxas=-v`` output."""
+    out = []
+    for line in log.splitlines():
+        m = re.search(r"entry function '(\S+)'", line)
+        if m:
+            out.append({"kernel": _kernel_name(m.group(1))})
+        elif out and (m := re.search(
+                r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)):
+            out[-1].update(spillStores=int(m.group(1)),
+                           spillLoads=int(m.group(2)))
+        elif out and (m := re.search(r"Used (\d+) registers", line)):
+            out[-1]["registers"] = int(m.group(1))
+    return out
 
 
 def _time_ms(torch, fn, iters: int = 20) -> float:
@@ -147,9 +179,10 @@ def _split_fwd(torch, attn, q, k, v, causal, scale, window, offset):
 
 def _split_bwd(torch, attn, q, k, v, o, lse, do, dlse, causal, scale,
                window, offset):
-    """flash_bwd_reference's dK and dV with P and dS split into bf16 hi
-    + lo before the products, as flash_bwd_dkv_sm90 multiplies them, and
-    each element's bound terms sum |ds| |q| and sum p |dO|. float32."""
+    """flash_bwd_reference's dQ, dK and dV with P and dS split into bf16
+    hi + lo before the products, as flash_bwd_dq_sm90 and
+    flash_bwd_dkv_sm90 multiply them, and each element's bound terms
+    sum |ds| |k|, sum |ds| |q| and sum p |dO|. float32."""
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     qg = q.float().reshape(b, sq, kvh, h // kvh, d)
@@ -163,11 +196,17 @@ def _split_bwd(torch, attn, q, k, v, o, lse, do, dlse, causal, scale,
     ds = p * (dp - attn._by_group(attn._bwd_delta(o, do, dlse), kvh)) \
         * scale
     del dp
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", attn._bf16_split(ds), qg)
+    ds_split = attn._bf16_split(ds)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds_split, k.float()) \
+        .reshape(b, sq, h, d)
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds_split, qg)
+    del ds_split
     dv = torch.einsum("bhgqk,bqhgd->bkhd", attn._bf16_split(p), dog)
+    bq = torch.einsum("bhgqk,bkhd->bqhgd", ds.abs(), k.float().abs()) \
+        .reshape(b, sq, h, d)
     bk = torch.einsum("bhgqk,bqhgd->bkhd", ds.abs(), qg.abs())
     bv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog.abs())
-    return dk, dv, bk, bv
+    return dq, dk, dv, bq, bk, bv
 
 
 def kernel_phase(torch, log):
@@ -336,12 +375,12 @@ def kernel_phase(torch, log):
 
 
 def bwd_kernel_phase(torch, log):
-    """flash_bwd_dq, and flash_bwd_dkv (float32) or flash_bwd_dkv_sm90
-    (bf16), against flash_bwd_reference on the card, each case in fp32
-    and bf16, on the forward kernel's own (o, lse). Returns the
-    kernels-line entries measured at the training path's shape: dq and
-    the tensor-core dK/dV in bf16 (the path's dtype), the CUDA-core dK/dV
-    in float32 (its route)."""
+    """flash_bwd_dq and flash_bwd_dkv (float32) or flash_bwd_dq_sm90 and
+    flash_bwd_dkv_sm90 (bf16) against flash_bwd_reference on the card,
+    each case in fp32 and bf16, on the forward kernel's own (o, lse).
+    Returns the kernels-line entries measured at the training path's
+    shape: the tensor-core kernels in bf16 (the path's dtype), the
+    CUDA-core ones in float32 (their route)."""
     import torch.nn.functional as F
 
     from learningorchestra_tpu_torch.ops import attention as attn
@@ -359,10 +398,11 @@ def bwd_kernel_phase(torch, log):
     # version compute in float32 from the same inputs and (o, lse) and
     # differ in summation order only; bf16 is held to the bound a bf16
     # gradient would carry (rtol 1e-2, about one bf16 ulp). The
-    # tensor-core dK/dV is held twice more: (a) to the derived bound of
-    # bf16 P and dS, 2**-8 sum p |dO| and 2**-8 sum |ds| |q|, and (b) to
-    # the float32 tolerance against the plain version with P and dS split
-    # into bf16 hi + lo as the kernel splits them
+    # tensor-core dQ and dK/dV are held twice more: (a) to the derived
+    # bound of bf16 P and dS, 2**-8 sum |ds| |k|, 2**-8 sum |ds| |q| and
+    # 2**-8 sum p |dO|, and (b) to the float32 tolerance against the plain
+    # version with P and dS split into bf16 hi + lo as the kernels split
+    # them
     tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
     entries = {}
     for (name, b, sq, sk, h, kvh, d, causal, window, offset,
@@ -381,13 +421,16 @@ def bwd_kernel_phase(torch, log):
             o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
             delta = attn._bwd_delta(o, do, dlse)
             sm90 = attn._tensor_core_route(q)
-            dkv = attn._flash_bwd_dkv_sm90 if sm90 \
-                else attn._flash_bwd_dkv_cuda
+            if sm90:
+                dq, dkv = attn._flash_bwd_dq_sm90, attn._flash_bwd_dkv_sm90
+            else:
+                dq, dkv = attn._flash_bwd_dq_cuda, attn._flash_bwd_dkv_cuda
+            dq_name, dkv_name = (f"{n}_sm90" if sm90 else n for n in (
+                "flash_bwd_dq", "flash_bwd_dkv"))
 
             def dq_kernel():
-                return attn._flash_bwd_dq_cuda(q, k, v, do, lse, delta,
-                                               causal, scale, window,
-                                               offset)
+                return dq(q, k, v, do, lse, delta, causal, scale, window,
+                          offset)
 
             def dkv_kernel():
                 return dkv(q, k, v, do, lse, delta, causal, scale, window,
@@ -398,13 +441,17 @@ def bwd_kernel_phase(torch, log):
                     q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
                     window=window, kv_offset=offset)
 
-            routed = attn.FLASH_BWD_DKV_SM90_LAUNCHES
+            routed = (attn.FLASH_BWD_DQ_SM90_LAUNCHES,
+                      attn.FLASH_BWD_DKV_SM90_LAUNCHES)
             got = (dq_kernel(), *dkv_kernel())
             torch.cuda.synchronize()
-            if (attn.FLASH_BWD_DKV_SM90_LAUNCHES - routed == 1) != sm90 \
+            ran = (attn.FLASH_BWD_DQ_SM90_LAUNCHES - routed[0],
+                   attn.FLASH_BWD_DKV_SM90_LAUNCHES - routed[1])
+            if ran != ((1, 1) if sm90 else (0, 0)) \
                     or sm90 != (dtype == torch.bfloat16):
-                raise AssertionError(f"flash_bwd_dkv {name} {dtype}: took "
-                                     f"the wrong route")
+                raise AssertionError(f"flash_bwd {name} {dtype}: dq and "
+                                     f"dkv took the wrong route (tensor-core "
+                                     f"launches {ran})")
             want = plain()
             rel_atol, rtol = tols[dtype]
             errs, used = [], []
@@ -428,9 +475,8 @@ def bwd_kernel_phase(torch, log):
                 raise AssertionError(f"{name}: no empty rows, or empty "
                                      f"rows with a non-zero dq")
             dt = str(dtype).split(".")[-1]
-            line = {"case": name, "dtype": dt,
-                    "dkvKernel": "flash_bwd_dkv_sm90" if sm90
-                    else "flash_bwd_dkv",
+            line = {"case": name, "dtype": dt, "dqKernel": dq_name,
+                    "dkvKernel": dkv_name,
                     "shape": [b, sq, sk, h, kvh, d], "causal": causal,
                     "window": window, "kvOffset": offset, "dlse": with_dlse,
                     "maxAbsErr": dict(zip(("dq", "dk", "dv"), errs)),
@@ -438,22 +484,21 @@ def bwd_kernel_phase(torch, log):
                     "tolUsed": dict(zip(("dq", "dk", "dv"), used)),
                     "emptyRows": empty}
             if sm90:
-                ek, ev, bk, bv = _split_bwd(torch, attn, q, k, v, o, lse, do,
-                                            dlse, causal, scale, window,
-                                            offset)
+                split = _split_bwd(torch, attn, q, k, v, o, lse, do, dlse,
+                                   causal, scale, window, offset)
                 checks = {}
-                for part, g, w, e, bound in (("dk", got[1], want[1], ek, bk),
-                                             ("dv", got[2], want[2], ev, bv)):
+                for part, g, w, e, bound in zip(("dq", "dk", "dv"), got,
+                                                want, split[:3], split[3:]):
                     floor = 1e-4 * w.abs().max().item()
                     checks[part] = (
                         ((g - w).abs() / (2.0 ** -8 * bound + floor))
                         .max().item(),
                         ((g - e).abs() / (floor + 1e-4 * e.abs()))
                         .max().item())
-                del ek, ev, bk, bv
+                del split
                 if not all(a <= 1.0 and e <= 1.0
                            for a, e in checks.values()):
-                    raise AssertionError(f"flash_bwd_dkv_sm90 {name}: (bound "
+                    raise AssertionError(f"flash_bwd sm90 {name}: (bound "
                                          f"used, split emulation used) "
                                          f"{checks}")
                 line["derivedBoundUsed"] = {
@@ -486,43 +531,56 @@ def bwd_kernel_phase(torch, log):
                 with torch.no_grad():
                     sdpa_fwd_ms = _time_ms(torch, sdpa)
                 library_ms = _time_ms(torch, sdpa_fwd_bwd) - sdpa_fwd_ms
-                dkv_name = "flash_bwd_dkv_sm90" if sm90 else "flash_bwd_dkv"
-                for kernel, fn, flops, outs in (
-                        ("flash_bwd_dq", dq_kernel, 6.0, q.numel()),
-                        (dkv_name, dkv_kernel, 8.0,
-                         k.numel() + v.numel())):
-                    flops *= d * pairs * h * b
+                # each kernel in its main path's dtype (bf16 for the
+                # tensor-core ones, float32 for the CUDA-core ones): its
+                # launch, the function's FLOP per visible pair and
+                # head-dim column (and the tensor-core kernel's with its
+                # hi + lo split), output elements, the CUDA-core kernel
+                # on the same inputs, the gradients it writes
+                for (kernel, fn, per_pair, split_pair, outs, cuda_core,
+                     parts) in (
+                        (dq_name, dq_kernel, 6.0, 8.0, q.numel(),
+                         attn._flash_bwd_dq_cuda, ("dq",)),
+                        (dkv_name, dkv_kernel, 8.0, 12.0,
+                         k.numel() + v.numel(), attn._flash_bwd_dkv_cuda,
+                         ("dk", "dv"))):
+                    flops = per_pair * d * pairs * h * b
                     nbytes = ins + 4 * outs
                     op_ms = flops / PEAK_FLOPS[dt] * 1e3
                     byte_ms = nbytes / PEAK_BYTES * 1e3
                     ms = _time_ms(torch, fn)
-                    line[kernel] = {
+                    part = {
                         "ms": ms, "bound_ms": max(op_ms, byte_ms),
                         "bound_by": "operations" if op_ms >= byte_ms
                         else "bytes", "flops": flops, "bytes": nbytes}
-                    # each kernel's numbers in its main path's dtype: bf16
-                    # for dq and the tensor-core dK/dV, float32 for the
-                    # CUDA-core dK/dV
-                    if sm90 or kernel == "flash_bwd_dkv":
-                        err = errs[0] if kernel == "flash_bwd_dq" \
-                            else max(errs[1:])
-                        entries[kernel] = {
-                            "ms": ms, "plain_ms": plain_ms,
-                            "bound_ms": max(op_ms, byte_ms),
-                            "bound_by": line[kernel]["bound_by"],
-                            "library_ms": library_ms, "max_abs_err": err,
-                            "dtype": dt}
-                if sm90:
-                    # the CUDA-core dK/dV on the same bf16 inputs, for the
-                    # comparison within one run
-                    line["cudaCoreDkvMs"] = _time_ms(
-                        torch, lambda: attn._flash_bwd_dkv_cuda(
-                            q, k, v, do, lse, delta, causal, scale, window,
-                            offset))
-                    entries["flash_bwd_dkv_sm90"].update(
-                        cudaCoreMs=line["cudaCoreDkvMs"],
-                        derivedBoundUsed=line["derivedBoundUsed"],
-                        splitEmulationUsed=line["splitEmulationUsed"])
+                    entries[kernel] = dict(
+                        ms=ms, plain_ms=plain_ms, bound_ms=part["bound_ms"],
+                        bound_by=part["bound_by"], library_ms=library_ms,
+                        max_abs_err=max(e for e, p in zip(
+                            errs, ("dq", "dk", "dv")) if p in parts),
+                        dtype=dt)
+                    if sm90:
+                        # the bound at the work the split runs, and the
+                        # CUDA-core kernel on the same bf16 inputs, for
+                        # the comparison within one run
+                        part["boundSplitMs"] = split_pair * d * pairs * h \
+                            * b / PEAK_FLOPS[dt] * 1e3
+                        cuda_core_ms = _time_ms(
+                            torch, lambda: cuda_core(
+                                q, k, v, do, lse, delta, causal, scale,
+                                window, offset))
+                        line["cudaCoreDqMs" if parts == ("dq",)
+                             else "cudaCoreDkvMs"] = cuda_core_ms
+                        entries[kernel].update(
+                            boundSplitMs=part["boundSplitMs"],
+                            cudaCoreMs=cuda_core_ms,
+                            derivedBoundUsed={
+                                p: line["derivedBoundUsed"][p]
+                                for p in parts},
+                            splitEmulationUsed={
+                                p: line["splitEmulationUsed"][p]
+                                for p in parts})
+                    line[kernel] = part
                 line.update(plain_ms=plain_ms, library_ms=library_ms,
                             sdpaForwardMs=sdpa_fwd_ms, visiblePairs=pairs)
                 del mask, qt, kt, vt, dot
@@ -773,10 +831,12 @@ def train_phase(torch, log, home):
                for a, b in zip(losses, CUDA_CORE_LOSSES)):
         raise AssertionError(f"epoch losses {losses} are not within 1% of "
                              f"the CUDA-core kernels' {CUDA_CORE_LOSSES}")
-    # bf16: the forward and dK/dV take the tensor-core route, every time
+    # bf16: the forward, dq and dK/dV take the tensor-core route, every
+    # time
     need = LM_CONFIG["n_layers"] * micro
-    want = {"flash_fwd": 0, "flash_fwd_sm90": need, "flash_bwd_dq": need,
-            "flash_bwd_dkv": 0, "flash_bwd_dkv_sm90": need}
+    want = {"flash_fwd": 0, "flash_fwd_sm90": need, "flash_bwd_dq": 0,
+            "flash_bwd_dq_sm90": need, "flash_bwd_dkv": 0,
+            "flash_bwd_dkv_sm90": need}
     if launches != want:
         raise AssertionError(f"kernel launches during fit {launches}; "
                              f"{micro} micro-batches of "
@@ -834,7 +894,8 @@ def train_phase(torch, log, home):
         ran = {k: _launches(attn)[k] - before[k] for k in COUNTERS}
         n = LM_CONFIG["n_layers"] if impl == "flash" else 0
         want_ran = {"flash_fwd": n, "flash_fwd_sm90": 0, "flash_bwd_dq": n,
-                    "flash_bwd_dkv": n, "flash_bwd_dkv_sm90": 0}
+                    "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": n,
+                    "flash_bwd_dkv_sm90": 0}
         if ran != want_ran:
             raise AssertionError(f"{impl} gradient step launched {ran}")
         if impl == "flash":
@@ -926,10 +987,16 @@ def main() -> int:
     _build.build()
     print(f"kernel build seconds: {time.monotonic() - t0:.3f} "
           f"(sources {_build.sources()})", flush=True)
-    for name, text in _build.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"ptxas {name}: {line.strip()}", file=sys.stderr)
+    ptxas = {name: _ptxas_report(text)
+             for name, text in sorted(_build.BUILD_LOG.items())}
+    print("ptxas " + json.dumps(ptxas), flush=True)
+    spilled = [v for name, variants in ptxas.items() if name.endswith("_sm90")
+               for v in variants if v.get("spillStores", 1)
+               or v.get("spillLoads", 1)]
+    if spilled:
+        print(f"chip_smoke: tensor-core variants spill (or ptxas did not "
+              f"report): {spilled}", file=sys.stderr)
+        return 1
 
     log: list = []
     try:
@@ -940,13 +1007,15 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as home:
             trained, f32_grad = train_phase(torch, log, home)
         # each kernel's main path: serving (float32) for the CUDA-core
-        # forward, the bf16 fit for dq and the tensor-core kernels, the
-        # float32 gradient step for the CUDA-core dK/dV
+        # forward, the bf16 fit for the tensor-core kernels, the float32
+        # gradient step for the CUDA-core dq and dK/dV
         paths = {"serve": served, "train": trained,
                  "trainFloat32Grad": f32_grad}
         main_path = {"flash_fwd": "serve", "flash_fwd_sm90": "train",
-                     "flash_bwd_dq": "train", "flash_bwd_dkv":
-                     "trainFloat32Grad", "flash_bwd_dkv_sm90": "train"}
+                     "flash_bwd_dq": "trainFloat32Grad",
+                     "flash_bwd_dq_sm90": "train",
+                     "flash_bwd_dkv": "trainFloat32Grad",
+                     "flash_bwd_dkv_sm90": "train"}
         missing = [name for name in COUNTERS
                    if name not in entries or not paths[main_path[name]][name]]
         if missing:
@@ -958,7 +1027,8 @@ def main() -> int:
         traceback.print_exc()
         return 1
     replaces = {"flash_fwd": 188, "flash_fwd_sm90": 188, "flash_bwd_dq": 338,
-                "flash_bwd_dkv": 402, "flash_bwd_dkv_sm90": 402}
+                "flash_bwd_dq_sm90": 338, "flash_bwd_dkv": 402,
+                "flash_bwd_dkv_sm90": 402}
     kernels = []
     for name in COUNTERS:
         entry = entries[name]

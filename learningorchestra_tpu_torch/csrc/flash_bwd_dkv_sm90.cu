@@ -219,7 +219,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                   kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_acc(st);
     fence_acc(dpt);
 
@@ -277,7 +277,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_rs<1>(acc_k[bx], ds_lo[kk], b_q);
       }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int bx = 0; bx < NB; ++bx) {
       fence_acc(acc_k[bx]);

@@ -192,7 +192,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                     kk > 0);
     }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
     fence_acc(sc[0]);
     fence_acc(sc[1]);
 
@@ -273,7 +273,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         wgmma_rs<1>(acc[bx], p_lo[kk], b);
       }
     wgmma_commit();
-    wgmma_wait_all();
+    wgmma_wait<0>();
 #pragma unroll
     for (int bx = 0; bx < NB; ++bx) fence_acc(acc[bx]);
 #pragma unroll

@@ -1,14 +1,15 @@
 // Hopper (sm_90a) building blocks shared by the tensor-core kernels
-// (flash_fwd_sm90.cu, flash_bwd_dkv_sm90.cu): shared-memory mbarriers,
-// TMA loads, warpgroup MMA (wgmma) on bf16 tiles, and the host-side
-// TMA map of a (batch, seq, heads, head_dim) bf16 tensor.
+// (flash_fwd_sm90.cu, flash_bwd_dq_sm90.cu, flash_bwd_dkv_sm90.cu):
+// shared-memory mbarriers, TMA loads, warpgroup MMA (wgmma) on bf16
+// tiles, and the host-side TMA map of a (batch, seq, heads, head_dim)
+// bf16 tensor.
 //
 // Every bf16 tile lives in shared memory as TMA writes it with 128-byte
 // swizzle: boxes of 64 head-dim columns (128 bytes) by `rows` rows, each
 // box `rows * 128` bytes and 1024-byte aligned; head_dim 128 takes two
 // boxes. One layout serves both operand orders of wgmma: read along
 // head_dim it is K-major (Q.K^T and friends), read along the rows it is
-// MN-major with the transpose flag (P.V, P^T.dO, dS^T.Q).
+// MN-major with the transpose flag (P.V, dS.K, P^T.dO, dS^T.Q).
 //
 // Only m64n64k16 with f32 accumulators is used. Accumulator fragment of
 // a warpgroup thread t (warp w = t / 32, lane l = t % 32), for column
@@ -140,8 +141,10 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+// returns once at most N committed groups are still in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // keeps the compiler from moving accumulator reads or writes across an

@@ -14,10 +14,10 @@ heads, ``kv | heads``.
   the kernel launches or the call raises.
 - Two routes, picked by :func:`_tensor_core_route` alone: bf16 with a
   head_dim that is a multiple of 8 up to 128 takes the tensor-core
-  kernels ``csrc/flash_fwd_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``
-  (wgmma + TMA); every other CUDA input takes the CUDA-core kernels
-  ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd_dkv.cu``. dQ runs
-  ``csrc/flash_bwd_dq.cu`` on both.
+  kernels ``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu`` and
+  ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma + TMA); every other CUDA input
+  takes the CUDA-core kernels ``csrc/flash_fwd.cu``,
+  ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu``.
 - :func:`full_attention_reference` is the ``dot`` implementation.
 - :func:`decode_attention` is the serving plane's single-token op, left
   as plain tensor ops exactly as the JAX package left it.
@@ -32,12 +32,14 @@ import torch
 
 NEG_INF = -1e30
 
-# launches of each kernel (CPU calls never count): the forward and dK/dV
-# counters count both routes, the *_SM90 ones the tensor-core route only
+# launches of each kernel (CPU calls never count): the forward, dQ and
+# dK/dV counters count both routes, the *_SM90 ones the tensor-core route
+# only
 FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
 FLASH_FWD_SM90_LAUNCHES = 0
+FLASH_BWD_DQ_SM90_LAUNCHES = 0
 FLASH_BWD_DKV_SM90_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -229,10 +231,10 @@ def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, window: int,
 
 def _tensor_core_route(q) -> bool:
     """True when a CUDA tensor takes the tensor-core kernels
-    (``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dkv_sm90.cu``): bf16
-    with a head_dim that is a multiple of 8 up to 128, since TMA needs
-    16-byte strides. Every other CUDA input takes the CUDA-core kernels;
-    a CPU tensor never gets here (it runs the plain version)."""
+    (``csrc/flash_*_sm90.cu``): bf16 with a head_dim that is a multiple
+    of 8 up to 128, since TMA needs 16-byte strides. Every other CUDA
+    input takes the CUDA-core kernels; a CPU tensor never gets here (it
+    runs the plain version)."""
     d = q.shape[-1]
     return (q.device.type == "cuda" and q.dtype == torch.bfloat16
             and d % 8 == 0 and d <= _MAX_HEAD_DIM)
@@ -248,8 +250,11 @@ def _bf16_split(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_tma(kernel: str, tensors) -> None:
-    """TMA reads from 16-byte aligned bases."""
+    """The tensor-core kernels read bf16 through TMA, from 16-byte
+    aligned bases."""
     for name, t in tensors:
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{kernel} takes bfloat16; {name} is {t.dtype}")
         if t.data_ptr() % 16:
             raise ValueError(f"{kernel} needs 16-byte aligned tensors; "
                              f"{name} is not")
@@ -314,6 +319,35 @@ def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
     FLASH_BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def _flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal: bool,
+                       scale: float, window: int,
+                       offset: int) -> torch.Tensor:
+    """float32 dq (b, sq, h, d) from the tensor-core flash_bwd_dq_sm90
+    kernel."""
+    global FLASH_BWD_DQ_LAUNCHES, FLASH_BWD_DQ_SM90_LAUNCHES
+    _bwd_inputs("flash_bwd_dq_sm90", q, k, v, do, lse, delta)
+    _check_tma("flash_bwd_dq_sm90",
+               (("q", q), ("k", k), ("v", v), ("do", do)))
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    fn = _kernel("flash_bwd_dq_sm90", [ctypes.c_void_p] * 7
+                 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq,
+                 sk, h, kvh, d, float(scale), int(bool(causal)),
+                 int(window), int(offset), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq_sm90 launch failed: CUDA error "
+                           f"{err}")
+    FLASH_BWD_DQ_LAUNCHES += 1
+    FLASH_BWD_DQ_SM90_LAUNCHES += 1
     return dq
 
 
@@ -416,11 +450,13 @@ def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float,
                                    window=window, kv_offset=offset)
     do = do.contiguous()
     delta = _bwd_delta(o, do, dlse)
-    dq = _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, window,
-                            offset)
-    dkv = _flash_bwd_dkv_sm90 if _tensor_core_route(q) \
-        else _flash_bwd_dkv_cuda
-    dk, dv = dkv(q, k, v, do, lse, delta, causal, scale, window, offset)
+    if _tensor_core_route(q):
+        dq_fn, dkv_fn = _flash_bwd_dq_sm90, _flash_bwd_dkv_sm90
+    else:
+        dq_fn, dkv_fn = _flash_bwd_dq_cuda, _flash_bwd_dkv_cuda
+    args = (q, k, v, do, lse, delta, causal, scale, window, offset)
+    dq = dq_fn(*args)
+    dk, dv = dkv_fn(*args)
     return dq, dk, dv
 
 

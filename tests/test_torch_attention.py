@@ -207,7 +207,8 @@ def test_decode_attention_matches_jax(window, padded):
 
 def test_cpu_tensors_never_launch_the_kernel():
     counters = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
-                "FLASH_BWD_DKV_LAUNCHES")
+                "FLASH_BWD_DKV_LAUNCHES", "FLASH_FWD_SM90_LAUNCHES",
+                "FLASH_BWD_DQ_SM90_LAUNCHES", "FLASH_BWD_DKV_SM90_LAUNCHES")
     before = [getattr(attn, c) for c in counters]
     q, k, v = (t.requires_grad_() for t in _t(*_qkv(4, 1, 16, 16, 2, 1, 8)))
     o = attn.flash_attention(q, k, v, causal=True)
@@ -259,11 +260,65 @@ def test_cpu_calls_never_reach_the_route_predicate(monkeypatch):
         torch.autograd.grad(o.float().sum(), (q, k, v))
 
 
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 128, "sm90"),
+    (torch.float32, 64, "cuda"),
+    (torch.bfloat16, 20, "cuda"),   # not a multiple of 8
+])
+def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
+    """On a card, _flash_bwd sends dQ and dK/dV down the same route:
+    bf16 with head_dim % 8 == 0 to the tensor-core kernels, float32 or
+    any other head_dim to the CUDA-core ones. The launches are stubbed
+    and the tensors claim a CUDA device to the route predicate."""
+    real_route = attn._tensor_core_route
+    ran = []
+
+    def stub(name, outs):
+        def launch(q, k, v, do, lse, delta, *args):
+            ran.append(name)
+            if outs == 1:
+                return torch.zeros(q.shape)
+            return torch.zeros(k.shape), torch.zeros(v.shape)
+        return launch
+
+    monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
+    monkeypatch.setattr(attn, "_tensor_core_route", lambda q: real_route(
+        types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
+                              shape=q.shape)))
+    for name, outs in (("_flash_bwd_dq_sm90", 1), ("_flash_bwd_dq_cuda", 1),
+                       ("_flash_bwd_dkv_sm90", 2),
+                       ("_flash_bwd_dkv_cuda", 2)):
+        monkeypatch.setattr(attn, name, stub(name, outs))
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(18, 1, 16, 16, 4, 2, d)))
+    o = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[:3])
+    dq, dk, dv = attn._flash_bwd(q, k, v, o, lse, torch.ones_like(q), None,
+                                 True, 0.125, 0, 0)
+    assert ran == [f"_flash_bwd_dq_{route}", f"_flash_bwd_dkv_{route}"]
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("wrapper", ["_flash_fwd_sm90", "_flash_bwd_dq_sm90",
+                                     "_flash_bwd_dkv_sm90"])
+def test_tensor_core_wrappers_refuse_other_dtypes(wrapper):
+    """A tensor-core kernel reads bf16 through TMA: its wrapper raises on
+    float32 before any build or launch, whatever the caller routed."""
+    q, k, v = _t(*_qkv(19, 1, 16, 16, 2, 1, 16))
+    lse = torch.zeros(q.shape[:3])
+    args = (q, k, v) if wrapper == "_flash_fwd_sm90" \
+        else (q, k, v, torch.ones_like(q), lse, lse)
+    before = attn.FLASH_BWD_DQ_SM90_LAUNCHES
+    with pytest.raises(TypeError, match="takes bfloat16"):
+        getattr(attn, wrapper)(*args, True, 0.25, 0, 0)
+    assert attn.FLASH_BWD_DQ_SM90_LAUNCHES == before
+
+
 def _dense_parts(seed):
     """float32 forward and backward of causal windowed attention at a
     small shape, with the products the tensor-core kernels round: the
-    unnormalised weights e of o = e.v / l, p of dV = p^T.dO and ds of
-    dK = ds^T.q."""
+    unnormalised weights e of o = e.v / l, p of dV = p^T.dO, and ds of
+    dK = ds^T.q and of dQ = ds.k."""
     q, k, v = _t(*_qkv(seed, 2, 48, 48, 2, 2, 16))
     do, _ = _t(*_upstream(seed + 1, 2, 48, 2, 16))
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) / 4.0
@@ -282,10 +337,11 @@ def _dense_parts(seed):
         "o": (e, v.transpose(1, 2), "bhqk,bhkd->bhqd", l),
         "dv": (p, dot, "bhqk,bhqd->bhkd", 1.0),
         "dk": (ds, q.transpose(1, 2), "bhqk,bhqd->bhkd", 1.0),
+        "dq": (ds, k.transpose(1, 2), "bhqk,bhkd->bhqd", 1.0),
     }
 
 
-@pytest.mark.parametrize("part", ["o", "dv", "dk"])
+@pytest.mark.parametrize("part", ["o", "dv", "dk", "dq"])
 def test_bf16_weights_stay_within_the_stated_bound(part):
     """The bound PERF.md and the kernels' notes state: rounding the
     weights w (p, or ds) of a product to bf16 moves each output element

@@ -175,10 +175,11 @@ _SM90_CASES = [(2, 96, 96, 4, 2, 64, False, 0, 0, False),
 @pytest.mark.parametrize("case", _SM90_CASES)
 def test_tensor_core_route_on_card(case):
     """bf16 through the tensor-core kernels (flash_fwd_sm90,
-    flash_bwd_dkv_sm90) against the plain versions. They split P and dS
-    into bf16 hi + lo (about 2^-16 of each), so o meets the CUDA-core
-    kernel's bf16 tolerance (one bf16 ulp of |o| plus float32 order) and
-    dK/dV the float32 summation-order tolerance (1e-4 max |g| + 1e-4)."""
+    flash_bwd_dq_sm90, flash_bwd_dkv_sm90) against the plain versions.
+    They split P and dS into bf16 hi + lo (about 2^-16 of each), so o
+    meets the CUDA-core kernel's bf16 tolerance (one bf16 ulp of |o| plus
+    float32 order) and dQ, dK and dV the float32 summation-order
+    tolerance (1e-4 max |g| + 1e-4). Rows with no visible key get dQ 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     b, sq, sk, h, kvh, d, causal, window, offset, with_dlse = case
@@ -191,14 +192,18 @@ def test_tensor_core_route_on_card(case):
         (b, sq, h), dtype=np.float32)).cuda() if with_dlse else None
     assert attn._tensor_core_route(q)
     scale = 1.0 / d ** 0.5
-    before = (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES)
+    counters = ("FLASH_FWD_SM90_LAUNCHES", "FLASH_BWD_DQ_SM90_LAUNCHES",
+                "FLASH_BWD_DKV_SM90_LAUNCHES")
+    before = [getattr(attn, c) for c in counters]
     o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
     delta = attn._bwd_delta(o, do, dlse)
+    dq = attn._flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal, scale,
+                                 window, offset)
     dk, dv = attn._flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal,
                                       scale, window, offset)
     torch.cuda.synchronize()
-    assert (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES) \
-        == (before[0] + 1, before[1] + 1)
+    assert [getattr(attn, c) - n for c, n in zip(counters, before)] \
+        == [1, 1, 1]
     ro, rlse = attn.flash_attention_reference(
         q, k, v, causal=causal, scale=scale, window=window, kv_offset=offset)
     torch.testing.assert_close(o.float(), ro.float(), atol=1e-4, rtol=1e-2)
@@ -207,13 +212,15 @@ def test_tensor_core_route_on_card(case):
     torch.testing.assert_close(lse[seen], rlse[seen], atol=2e-5, rtol=2e-5)
     if offset:
         assert bool((~seen).any()) and bool((o[~seen] == 0).all())
-    _, wk, wv = attn.flash_bwd_reference(q, k, v, o, lse, do, dlse,
-                                         causal=causal, scale=scale,
-                                         window=window, kv_offset=offset)
-    for got, ref in ((dk, wk), (dv, wv)):
+    want = attn.flash_bwd_reference(q, k, v, o, lse, do, dlse,
+                                    causal=causal, scale=scale,
+                                    window=window, kv_offset=offset)
+    for got, ref in zip((dq, dk, dv), want):
         assert bool(torch.isfinite(got).all())
         torch.testing.assert_close(got, ref, rtol=1e-4,
                                    atol=1e-4 * ref.abs().max().item())
+    if offset:
+        assert bool((dq[~seen] == 0).all())
 
 
 @pytest.mark.cuda
@@ -224,6 +231,7 @@ def test_float32_keeps_the_cuda_core_route_on_card():
         pytest.skip("needs an NVIDIA card")
     before = (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES,
               attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES)
+    dq_before = (attn.FLASH_BWD_DQ_SM90_LAUNCHES, attn.FLASH_BWD_DQ_LAUNCHES)
     for dtype, d in ((torch.float32, 64), (torch.bfloat16, 20)):
         q, k, v = (torch.from_numpy(a).cuda().to(dtype).requires_grad_()
                    for a in _qkv(14, 1, 80, 80, 4, 2, d))
@@ -233,3 +241,5 @@ def test_float32_keeps_the_cuda_core_route_on_card():
     assert (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES,
             attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES) \
         == (before[0], before[1], before[2] + 2, before[3] + 2)
+    assert (attn.FLASH_BWD_DQ_SM90_LAUNCHES, attn.FLASH_BWD_DQ_LAUNCHES) \
+        == (dq_before[0], dq_before[1] + 2)
