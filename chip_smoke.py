@@ -11,13 +11,18 @@
    2048 tokens, 8 heads over 4 kv heads, window 1024), fp32 and bf16,
    and small edge cases — with its time, the plain version's time, the
    least time the card could take (bound) and one PyTorch library call
-   computing the same function, timed as a yardstick only. float32
-   takes the CUDA-core kernels (flash_fwd, flash_bwd_dq, flash_bwd_dkv),
-   bf16 the tensor-core ones (flash_fwd_sm90, flash_bwd_dq_sm90,
-   flash_bwd_dkv_sm90). Each bf16 case of the tensor-core route is held
-   twice more: to the derived bound of bf16 P and dS against the
-   float32 plain version, and tightly against the plain version with P
-   and dS split into bf16 hi + lo as the kernels split them.
+   computing the same function, timed as a yardstick only. The
+   float32 forward takes the CUDA-core flash_fwd, the float32 backward
+   the split-TF32 tensor-core flash_bwd_dq_tf32x3 and
+   flash_bwd_dkv_tf32x3, bf16 the wgmma tensor-core kernels
+   (flash_fwd_sm90, flash_bwd_dq_sm90, flash_bwd_dkv_sm90), and a
+   head_dim that is not a multiple of 8 (the d-12 case, both dtypes) the
+   CUDA-core flash_bwd_dq and flash_bwd_dkv. Each bf16 case of the
+   tensor-core route is held twice more: to the derived bound of bf16 P
+   and dS against the float32 plain version, and tightly against the
+   plain version with P and dS split into bf16 hi + lo as the kernels
+   split them; each float32 case of the split-TF32 route against the
+   plain version that splits every product 3xTF32 as the kernels do.
 3. Serving path: a REST server on the card serving the tutorial's LM
    (vocab 32000, d_model 512, 8 layers, 8 heads over 4 kv heads, window
    1024, random weights from seed 0), four concurrent predicts of
@@ -30,18 +35,24 @@
    compute: the loss must be finite, fall, and stay within 1% of the
    CUDA-core kernels' epoch losses, and the forward, dq and dK/dV must
    run once per layer and micro-batch, all three on the tensor-core
-   route. In float32 one micro-step's gradients through the
-   CUDA-core kernels must match the dense path's. The
-   trained artifact is then served over REST and must answer with its
-   reloaded copy's ``generate``. A profiler window of 2 steps gives the
-   kernels' time per step and the card's idle share.
+   route. A profiler window of 2 steps gives the kernels' time per step
+   and the card's idle share. A float32 window of the same fit (2
+   optimizer steps of 16 windows, grad_accum 2) runs the split-TF32
+   backward kernels and reports its own step time and profile (the
+   ``trainFloat32`` line). In float32 one micro-step's gradients
+   through the kernels must match the dense path's, for the tutorial LM
+   (split-TF32 backward) and for a small LM with head_dim 12 (d_model
+   96, 8 heads: the CUDA-core backward). The trained artifact is then
+   served over REST and must answer with its reloaded copy's
+   ``generate``.
 
 The kernel launch counts are zeroed just before each path and read
 just after it.
 
 Earlier lines print the card (nvidia-smi name and power limit), the
 build time, ptxas's registers and spill bytes of every kernel variant
-(a tensor-core variant that spills fails the run), the ``kernels`` JSON
+(a tensor-core variant, sm90 or tf32x3, that spills fails the run),
+the ``kernels`` JSON
 line and the phases' lines; the last
 line is ``{"ok": true, "device": {...}}``. Any failed check raises and
 the exit code is not 0. Without a card, or without the package beside
@@ -64,14 +75,17 @@ import urllib.request
 
 PREFIX = "/api/learningOrchestra/v1"
 # H100 SXM peaks (NVIDIA data sheet, dense): float32 outside the tensor
-# cores, bf16 on the tensor cores, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# cores, bf16 and TF32 on the tensor cores, HBM3 bandwidth
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "tf32": 495e12}
 PEAK_BYTES = 3.35e12
 LM_CONFIG = dict(vocab_size=32000, d_model=512, n_layers=8, n_heads=8,
                  n_kv_heads=4, d_ff=0, max_len=2048, sliding_window=1024,
                  rope_base=10000.0)
 PROMPT_LENS = (1100, 1234, 1367, 1500)
 NEW_TOKENS = 32
+# a small LM whose head_dim (96 / 8 = 12) is not a multiple of 8: its
+# float32 backward runs the CUDA-core kernels
+D12_CONFIG = dict(LM_CONFIG, d_model=96, n_layers=2)
 # the training path: 64 windows of 2048 tokens, batch 16, 2 epochs,
 # grad_accum 2 -> 8 optimizer steps of 2 micro-batches
 TRAIN_WINDOWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_ACCUM = \
@@ -81,11 +95,14 @@ COUNTERS = {"flash_fwd": "FLASH_FWD_LAUNCHES",
             "flash_bwd_dq": "FLASH_BWD_DQ_LAUNCHES",
             "flash_bwd_dq_sm90": "FLASH_BWD_DQ_SM90_LAUNCHES",
             "flash_bwd_dkv": "FLASH_BWD_DKV_LAUNCHES",
-            "flash_bwd_dkv_sm90": "FLASH_BWD_DKV_SM90_LAUNCHES"}
-# the forward's, dq's and dK/dV's counters count both routes; a CUDA-core
-# kernel's own launches are those less its tensor-core counterpart's
-ROUTES = {"flash_fwd": "flash_fwd_sm90", "flash_bwd_dq": "flash_bwd_dq_sm90",
-          "flash_bwd_dkv": "flash_bwd_dkv_sm90"}
+            "flash_bwd_dkv_sm90": "FLASH_BWD_DKV_SM90_LAUNCHES",
+            "flash_bwd_dq_tf32x3": "FLASH_BWD_DQ_TF32X3_LAUNCHES",
+            "flash_bwd_dkv_tf32x3": "FLASH_BWD_DKV_TF32X3_LAUNCHES"}
+# the forward's, dq's and dK/dV's counters count every route; a CUDA-core
+# kernel's own launches are those less its tensor-core counterparts'
+ROUTES = {"flash_fwd": ("flash_fwd_sm90",),
+          "flash_bwd_dq": ("flash_bwd_dq_sm90", "flash_bwd_dq_tf32x3"),
+          "flash_bwd_dkv": ("flash_bwd_dkv_sm90", "flash_bwd_dkv_tf32x3")}
 # epoch losses of the train phase's fit through the CUDA-core kernels
 # (bf16; PERF.md), which the tensor-core route must stay within 1% of
 CUDA_CORE_LOSSES = (8.82798957824707, 3.2666094303131104)
@@ -100,8 +117,8 @@ def _launches(attn) -> dict:
     """Launches of each kernel (one per CUDA source) since the reset."""
     count = {name: getattr(attn, counter)
              for name, counter in COUNTERS.items()}
-    for op, sm90 in ROUTES.items():
-        count[op] -= count[sm90]
+    for op, routed in ROUTES.items():
+        count[op] -= sum(count[r] for r in routed)
     return count
 
 
@@ -375,12 +392,15 @@ def kernel_phase(torch, log):
 
 
 def bwd_kernel_phase(torch, log):
-    """flash_bwd_dq and flash_bwd_dkv (float32) or flash_bwd_dq_sm90 and
-    flash_bwd_dkv_sm90 (bf16) against flash_bwd_reference on the card,
-    each case in fp32 and bf16, on the forward kernel's own (o, lse).
-    Returns the kernels-line entries measured at the training path's
-    shape: the tensor-core kernels in bf16 (the path's dtype), the
-    CUDA-core ones in float32 (their route)."""
+    """The backward kernels against flash_bwd_reference on the card, each
+    case in fp32 and bf16, on the forward kernel's own (o, lse), by route
+    (:func:`_bwd_route`): flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 (bf16),
+    flash_bwd_dq_tf32x3 and flash_bwd_dkv_tf32x3 (float32), flash_bwd_dq
+    and flash_bwd_dkv (a head_dim that is not a multiple of 8). Returns
+    the kernels-line entries: the tensor-core kernels at the training
+    path's shape in its dtype (bf16 for the fit, float32 for the float32
+    fit), the CUDA-core ones in float32 at the d-12 LM's shape, their
+    main path."""
     import torch.nn.functional as F
 
     from learningorchestra_tpu_torch.ops import attention as attn
@@ -393,17 +413,25 @@ def bwd_kernel_phase(torch, log):
         ("mqa", 2, 130, 130, 8, 1, 64, True, 0, 0, False),
         ("offset-empty-rows-dlse-d128", 2, 64, 64, 4, 4, 128, True, 16, 40,
          True),
+        # the d-12 LM's float32 micro-step (2 windows of 2048): a head_dim
+        # off the multiple of 8 keeps the CUDA-core kernels in both dtypes
+        ("lm-d12", 2, 2048, 2048, 8, 4, 12, True, 1024, 0, False),
     ]
     # (atol as a share of the case's largest |g|, rtol). Kernel and plain
     # version compute in float32 from the same inputs and (o, lse) and
     # differ in summation order only; bf16 is held to the bound a bf16
     # gradient would carry (rtol 1e-2, about one bf16 ulp). The
-    # tensor-core dQ and dK/dV are held twice more: (a) to the derived
-    # bound of bf16 P and dS, 2**-8 sum |ds| |k|, 2**-8 sum |ds| |q| and
-    # 2**-8 sum p |dO|, and (b) to the float32 tolerance against the plain
-    # version with P and dS split into bf16 hi + lo as the kernels split
-    # them
+    # tensor-core dQ and dK/dV are held twice more: sm90 (a) to the
+    # derived bound of bf16 P and dS, 2**-8 sum |ds| |k|, 2**-8 sum |ds|
+    # |q| and 2**-8 sum p |dO|, and (b) to the float32 tolerance against
+    # the plain version with P and dS split into bf16 hi + lo as the
+    # kernels split them; tf32x3 to the float32 tolerance against the
+    # plain version that splits every product 3xTF32 as the kernels do
     tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
+    tensor_core = {"sm90": ("FLASH_BWD_DQ_SM90_LAUNCHES",
+                            "FLASH_BWD_DKV_SM90_LAUNCHES"),
+                   "tf32x3": ("FLASH_BWD_DQ_TF32X3_LAUNCHES",
+                              "FLASH_BWD_DKV_TF32X3_LAUNCHES")}
     entries = {}
     for (name, b, sq, sk, h, kvh, d, causal, window, offset,
          with_dlse) in cases:
@@ -420,12 +448,13 @@ def bwd_kernel_phase(torch, log):
             scale = 1.0 / d ** 0.5
             o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
             delta = attn._bwd_delta(o, do, dlse)
-            sm90 = attn._tensor_core_route(q)
-            if sm90:
-                dq, dkv = attn._flash_bwd_dq_sm90, attn._flash_bwd_dkv_sm90
-            else:
-                dq, dkv = attn._flash_bwd_dq_cuda, attn._flash_bwd_dkv_cuda
-            dq_name, dkv_name = (f"{n}_sm90" if sm90 else n for n in (
+            route = attn._bwd_route(q)
+            want_route = "cuda" if d % 8 else (
+                "sm90" if dtype == torch.bfloat16 else "tf32x3")
+            suffix = "" if route == "cuda" else f"_{route}"
+            dq = getattr(attn, f"_flash_bwd_dq_{route}")
+            dkv = getattr(attn, f"_flash_bwd_dkv_{route}")
+            dq_name, dkv_name = (f"{n}{suffix}" for n in (
                 "flash_bwd_dq", "flash_bwd_dkv"))
 
             def dq_kernel():
@@ -436,22 +465,24 @@ def bwd_kernel_phase(torch, log):
                 return dkv(q, k, v, do, lse, delta, causal, scale, window,
                            offset)
 
-            def plain():
+            def plain(split=False):
                 return attn.flash_bwd_reference(
                     q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
-                    window=window, kv_offset=offset)
+                    window=window, kv_offset=offset, tf32x3=split)
 
-            routed = (attn.FLASH_BWD_DQ_SM90_LAUNCHES,
-                      attn.FLASH_BWD_DKV_SM90_LAUNCHES)
+            counters = [c for pair in tensor_core.values() for c in pair]
+            before = [getattr(attn, c) for c in counters]
             got = (dq_kernel(), *dkv_kernel())
             torch.cuda.synchronize()
-            ran = (attn.FLASH_BWD_DQ_SM90_LAUNCHES - routed[0],
-                   attn.FLASH_BWD_DKV_SM90_LAUNCHES - routed[1])
-            if ran != ((1, 1) if sm90 else (0, 0)) \
-                    or sm90 != (dtype == torch.bfloat16):
+            ran = dict(zip(counters, (getattr(attn, c) - n
+                                      for c, n in zip(counters, before))))
+            want_ran = {c: int(r == route) for r, pair in tensor_core.items()
+                        for c in pair}
+            if ran != want_ran or route != want_route:
                 raise AssertionError(f"flash_bwd {name} {dtype}: dq and "
-                                     f"dkv took the wrong route (tensor-core "
-                                     f"launches {ran})")
+                                     f"dkv took the {route} route, want "
+                                     f"{want_route} (tensor-core launches "
+                                     f"{ran})")
             want = plain()
             rel_atol, rtol = tols[dtype]
             errs, used = [], []
@@ -475,15 +506,15 @@ def bwd_kernel_phase(torch, log):
                 raise AssertionError(f"{name}: no empty rows, or empty "
                                      f"rows with a non-zero dq")
             dt = str(dtype).split(".")[-1]
-            line = {"case": name, "dtype": dt, "dqKernel": dq_name,
-                    "dkvKernel": dkv_name,
+            line = {"case": name, "dtype": dt, "route": route,
+                    "dqKernel": dq_name, "dkvKernel": dkv_name,
                     "shape": [b, sq, sk, h, kvh, d], "causal": causal,
                     "window": window, "kvOffset": offset, "dlse": with_dlse,
                     "maxAbsErr": dict(zip(("dq", "dk", "dv"), errs)),
                     "relAtol": rel_atol, "rtol": rtol,
                     "tolUsed": dict(zip(("dq", "dk", "dv"), used)),
                     "emptyRows": empty}
-            if sm90:
+            if route == "sm90":
                 split = _split_bwd(torch, attn, q, k, v, o, lse, do, dlse,
                                    causal, scale, window, offset)
                 checks = {}
@@ -505,7 +536,20 @@ def bwd_kernel_phase(torch, log):
                     k: c[0] for k, c in checks.items()}
                 line["splitEmulationUsed"] = {
                     k: c[1] for k, c in checks.items()}
-            if name == "train":
+            elif route == "tf32x3":
+                checks = {}
+                for part, g, w, e in zip(("dq", "dk", "dv"), got, want,
+                                         plain(split=True)):
+                    floor = 1e-4 * w.abs().max().item()
+                    checks[part] = ((g - e).abs()
+                                    / (floor + 1e-4 * e.abs())).max().item()
+                if not all(e <= 1.0 for e in checks.values()):
+                    raise AssertionError(f"flash_bwd tf32x3 {name}: split "
+                                         f"emulation used {checks}")
+                line["splitEmulationUsed"] = checks
+            timed = name == "train" or (name == "lm-d12"
+                                        and dtype == torch.float32)
+            if timed:
                 pairs = int(_visible_mask(torch, sq, sk, causal, window,
                                           offset, q.device).sum())
                 elt = q.element_size()
@@ -531,55 +575,66 @@ def bwd_kernel_phase(torch, log):
                 with torch.no_grad():
                     sdpa_fwd_ms = _time_ms(torch, sdpa)
                 library_ms = _time_ms(torch, sdpa_fwd_bwd) - sdpa_fwd_ms
-                # each kernel in its main path's dtype (bf16 for the
-                # tensor-core ones, float32 for the CUDA-core ones): its
-                # launch, the function's FLOP per visible pair and
-                # head-dim column (and the tensor-core kernel's with its
-                # hi + lo split), output elements, the CUDA-core kernel
-                # on the same inputs, the gradients it writes
-                for (kernel, fn, per_pair, split_pair, outs, cuda_core,
+                # each kernel in its main path's dtype: its launch, the
+                # function's FLOP per visible pair and head-dim column
+                # (and the tensor-core kernel's with its split: bf16 hi
+                # + lo on two of three products, 3xTF32 on every
+                # product), output elements, the CUDA-core kernel on the
+                # same inputs, the gradients it writes
+                for (kernel, fn, per_pair, bf16_pair, outs, cuda_core,
                      parts) in (
                         (dq_name, dq_kernel, 6.0, 8.0, q.numel(),
                          attn._flash_bwd_dq_cuda, ("dq",)),
                         (dkv_name, dkv_kernel, 8.0, 12.0,
                          k.numel() + v.numel(), attn._flash_bwd_dkv_cuda,
                          ("dk", "dv"))):
-                    flops = per_pair * d * pairs * h * b
+                    work = per_pair * d * pairs * h * b
                     nbytes = ins + 4 * outs
-                    op_ms = flops / PEAK_FLOPS[dt] * 1e3
                     byte_ms = nbytes / PEAK_BYTES * 1e3
+                    # the least time: float32 at the CUDA cores' rate, or
+                    # on the tensor cores at the split's work, whichever
+                    # is less (3xTF32 is the float32 route's least)
+                    fp32_ms = work / PEAK_FLOPS["float32"] * 1e3
+                    split_ms = {
+                        "sm90": bf16_pair / per_pair * work
+                        / PEAK_FLOPS["bfloat16"] * 1e3,
+                        "tf32x3": 3 * work / PEAK_FLOPS["tf32"] * 1e3,
+                        "cuda": None}[route]
+                    op_ms = {"sm90": work / PEAK_FLOPS["bfloat16"] * 1e3,
+                             "tf32x3": split_ms, "cuda": fp32_ms}[route]
                     ms = _time_ms(torch, fn)
                     part = {
                         "ms": ms, "bound_ms": max(op_ms, byte_ms),
                         "bound_by": "operations" if op_ms >= byte_ms
-                        else "bytes", "flops": flops, "bytes": nbytes}
+                        else "bytes", "flops": work, "bytes": nbytes,
+                        "boundFloat32Ms": fp32_ms}
                     entries[kernel] = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=part["bound_ms"],
                         bound_by=part["bound_by"], library_ms=library_ms,
                         max_abs_err=max(e for e, p in zip(
                             errs, ("dq", "dk", "dv")) if p in parts),
-                        dtype=dt)
-                    if sm90:
+                        dtype=dt, boundFloat32Ms=fp32_ms,
+                        shape=[b, sq, sk, h, kvh, d])
+                    if route != "cuda":
                         # the bound at the work the split runs, and the
-                        # CUDA-core kernel on the same bf16 inputs, for
-                        # the comparison within one run
-                        part["boundSplitMs"] = split_pair * d * pairs * h \
-                            * b / PEAK_FLOPS[dt] * 1e3
+                        # CUDA-core kernel on the same inputs, for the
+                        # comparison within one run
+                        part["boundSplitMs"] = split_ms
                         cuda_core_ms = _time_ms(
                             torch, lambda: cuda_core(
                                 q, k, v, do, lse, delta, causal, scale,
-                                window, offset))
+                                window, offset), iters=5)
                         line["cudaCoreDqMs" if parts == ("dq",)
                              else "cudaCoreDkvMs"] = cuda_core_ms
                         entries[kernel].update(
-                            boundSplitMs=part["boundSplitMs"],
-                            cudaCoreMs=cuda_core_ms,
-                            derivedBoundUsed={
-                                p: line["derivedBoundUsed"][p]
-                                for p in parts},
+                            boundSplitMs=split_ms, cudaCoreMs=cuda_core_ms,
                             splitEmulationUsed={
                                 p: line["splitEmulationUsed"][p]
                                 for p in parts})
+                        if route == "sm90":
+                            entries[kernel]["derivedBoundUsed"] = {
+                                p: line["derivedBoundUsed"][p]
+                                for p in parts}
                     line[kernel] = part
                 line.update(plain_ms=plain_ms, library_ms=library_ms,
                             sdpaForwardMs=sdpa_fwd_ms, visiblePairs=pairs)
@@ -786,10 +841,104 @@ def _successor_windows(np, n: int, seq: int, seed: int):
         .astype(np.int32)
 
 
+def _float32_fit_window(torch, lm, x, log) -> dict:
+    """The fit of the train phase in float32 (``LO_COMPUTE_DTYPE``): one
+    optimizer step of first use, 2 timed steps (host clock to a
+    synchronize), then the same 2 batches again under the profiler, each
+    step of TRAIN_BATCH windows at grad_accum TRAIN_ACCUM. The params are restored after it,
+    so the artifact holds exactly the bf16 fit's steps. Logs the
+    ``trainFloat32`` line and returns the kernel launches of the 2 timed
+    steps."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import numpy as np
+
+    from learningorchestra_tpu_torch.ops import attention as attn
+
+    os.environ["LO_COMPUTE_DTYPE"] = "float32"
+    lm._engine = None
+    try:
+        eng = lm._get_engine()
+        if eng._compute_dtype != torch.float32 or \
+                eng._grad_accum != TRAIN_ACCUM:
+            raise AssertionError("the float32 window must run the fit's "
+                                 "float32 engine at its grad_accum")
+        params = lm._master_params()
+        saved = {k: p.detach().clone() for k, p in params.items()}
+        tstate = eng.init_state(params)
+        batches = [eng._to_device(b, lm.device) for b in
+                   lm._batcher(x[:3 * TRAIN_BATCH], TRAIN_BATCH).epoch(0)]
+        eng._train_step_body(tstate, batches[0], 0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(attn)
+        t0 = time.monotonic()
+        losses = [eng._train_step_body(tstate, batch, 0)["loss"]
+                  for batch in batches[1:3]]
+        torch.cuda.synchronize()
+        step_ms = (time.monotonic() - t0) / 2 * 1e3
+        launches = _launches(attn)
+        peak_bytes = torch.cuda.max_memory_allocated()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            w0 = time.monotonic()
+            for batch in batches[1:3]:
+                eng._train_step_body(tstate, batch, 0)
+            torch.cuda.synchronize()
+            window_ms = (time.monotonic() - w0) * 1e3
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(saved[k])
+        losses = [float(s) / float(c) for s, c in losses]
+        del saved, tstate, batches
+    finally:
+        os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+        lm._engine = None
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"float32 window losses {losses}")
+    need = LM_CONFIG["n_layers"] * TRAIN_ACCUM * 2
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_fwd=need, flash_bwd_dq_tf32x3=need,
+                flash_bwd_dkv_tf32x3=need)
+    if launches != want:
+        raise AssertionError(f"kernel launches in the float32 window "
+                             f"{launches}; 2 steps of {TRAIN_ACCUM} "
+                             f"micro-batches of {LM_CONFIG['n_layers']} "
+                             f"layers need {want}")
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    per_step = {name: sum(e.self_device_time_total for e in kernels
+                          if f"{name}_kernel" in e.key) / 2e3
+                for name in COUNTERS}
+    top = sorted(kernels, key=lambda e: e.self_device_time_total,
+                 reverse=True)[:10]
+    log.append("trainFloat32 " + json.dumps({
+        "computeDtype": "float32", "optimizerSteps": 2,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "gradAccum": TRAIN_ACCUM,
+        "stepMs": step_ms,
+        "trainTokensPerSec": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+        "losses": losses, "launches": launches,
+        "launchesPerStep": {k: n / 2 for k, n in launches.items() if n},
+        "maxMemoryAllocatedBytes": peak_bytes,
+        "profile": {"steps": 2, "windowMs": window_ms,
+                    "deviceBusyMs": busy_ms,
+                    "idleShare": 1.0 - busy_ms / window_ms,
+                    "kernelMsPerStep": {k: v for k, v in per_step.items()
+                                        if v},
+                    "topKernelsMsPerStep": [
+                        [e.key[:80], e.self_device_time_total / 2e3,
+                         e.count / 2] for e in top]}}))
+    return launches
+
+
 def train_phase(torch, log, home):
-    """fit on the card -> checks -> a profiled 2-step window -> float32
-    kernel-vs-dense gradients -> save, serve over REST, predict. Returns
-    the kernel launches of the training path."""
+    """fit on the card -> checks -> a profiled 2-step window -> a float32
+    window of the same fit -> float32 kernel-vs-dense gradients -> save,
+    serve over REST, predict. Returns the kernel launches of each path
+    it drove: the bf16 fit, the float32 fit window and the two float32
+    gradient steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -834,9 +983,9 @@ def train_phase(torch, log, home):
     # bf16: the forward, dq and dK/dV take the tensor-core route, every
     # time
     need = LM_CONFIG["n_layers"] * micro
-    want = {"flash_fwd": 0, "flash_fwd_sm90": need, "flash_bwd_dq": 0,
-            "flash_bwd_dq_sm90": need, "flash_bwd_dkv": 0,
-            "flash_bwd_dkv_sm90": need}
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_fwd_sm90=need, flash_bwd_dq_sm90=need,
+                flash_bwd_dkv_sm90=need)
     if launches != want:
         raise AssertionError(f"kernel launches during fit {launches}; "
                              f"{micro} micro-batches of "
@@ -875,42 +1024,53 @@ def train_phase(torch, log, home):
     top = sorted(kernels, key=lambda e: e.self_device_time_total,
                  reverse=True)[:10]
 
-    # float32: one micro-step of 2 windows through the kernels (the
-    # CUDA-core route) against the same step on the dense path (plain
-    # autograd)
+    f32_fit = _float32_fit_window(torch, lm, x, log)
+
+    # float32: one micro-step of 2 windows through the kernels against the
+    # same step on the dense path (plain autograd), for the tutorial LM
+    # (head_dim 64: the split-TF32 backward) and the d-12 LM (the
+    # CUDA-core backward)
     os.environ["LO_COMPUTE_DTYPE"] = "float32"
-    grads = {}
-    f32_launches = None
-    for impl in ("flash", "dot"):
-        model = LanguageModel(**LM_CONFIG, attention=impl, device="cuda")
-        model.set_params(state)
-        feng = model._get_engine()
-        if feng._compute_dtype != torch.float32:
-            raise AssertionError("the gradient check must run in float32")
-        batch = feng._to_device(
-            {"x": x[:2], MASK_KEY: np.ones(2, np.float32)}, model.device)
-        before = _launches(attn)
-        g, _ = feng._micro_grads(model._master_params(), batch, 0)
-        ran = {k: _launches(attn)[k] - before[k] for k in COUNTERS}
-        n = LM_CONFIG["n_layers"] if impl == "flash" else 0
-        want_ran = {"flash_fwd": n, "flash_fwd_sm90": 0, "flash_bwd_dq": n,
-                    "flash_bwd_dq_sm90": 0, "flash_bwd_dkv": n,
-                    "flash_bwd_dkv_sm90": 0}
-        if ran != want_ran:
-            raise AssertionError(f"{impl} gradient step launched {ran}")
-        if impl == "flash":
-            f32_launches = ran
-        grads[impl] = g
-        del model, feng, batch
+    f32_grad = {}
+    for path, config, bwd in (("trainFloat32Grad", LM_CONFIG, "tf32x3"),
+                              ("trainFloat32GradD12", D12_CONFIG, "cuda")):
+        init = state if config is LM_CONFIG else weights.params_from_flax(
+            weights.init_params(config, seed=0))
+        grads = {}
+        for impl in ("flash", "dot"):
+            model = LanguageModel(**config, attention=impl, device="cuda")
+            model.set_params(init)
+            feng = model._get_engine()
+            if feng._compute_dtype != torch.float32:
+                raise AssertionError("the gradient check must run in "
+                                     "float32")
+            batch = feng._to_device(
+                {"x": x[:2], MASK_KEY: np.ones(2, np.float32)}, model.device)
+            _reset_launches(attn)
+            g, _ = feng._micro_grads(model._master_params(), batch, 0)
+            ran = _launches(attn)
+            n = config["n_layers"] if impl == "flash" else 0
+            want_ran = dict.fromkeys(COUNTERS, 0)
+            want_ran["flash_fwd"] = n
+            for op in ("flash_bwd_dq", "flash_bwd_dkv"):
+                want_ran[op if bwd == "cuda" else f"{op}_{bwd}"] = n
+            if ran != want_ran:
+                raise AssertionError(f"{path} {impl} gradient step launched "
+                                     f"{ran}, want {want_ran}")
+            if impl == "flash":
+                f32_grad[path] = {"launches": ran}
+            grads[impl] = g
+            del model, feng, batch
+        rel = {k: ((grads["flash"][k] - grads["dot"][k]).norm()
+                   / grads["dot"][k].norm().clamp_min(1e-30)).item()
+               for k in grads["dot"]}
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= 1e-4:
+            raise AssertionError(f"{path}: kernel vs dense gradient of "
+                                 f"{worst}: relative L2 error {rel[worst]}")
+        f32_grad[path]["relL2VsDot"] = {"max": rel[worst], "worst": worst}
+        del grads
     os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
-    rel = {k: ((grads["flash"][k] - grads["dot"][k]).norm()
-               / grads["dot"][k].norm().clamp_min(1e-30)).item()
-           for k in grads["dot"]}
-    worst = max(rel, key=rel.get)
-    if not rel[worst] <= 1e-4:
-        raise AssertionError(f"kernel vs dense gradient of {worst}: "
-                             f"relative L2 error {rel[worst]}")
-    del grads
 
     # the trained artifact, reloaded and served over REST
     ctx = ServiceContext(Config(home=home), device="cuda")
@@ -956,11 +1116,13 @@ def train_phase(torch, log, home):
                     "topKernelsMsPerStep": [
                         [e.key[:80], e.self_device_time_total / 2e3,
                          e.count / 2] for e in top]},
-        "f32GradRelL2VsDot": {"max": rel[worst], "worst": worst},
-        "f32GradLaunches": f32_launches,
+        "f32GradRelL2VsDot": f32_grad["trainFloat32Grad"]["relL2VsDot"],
+        "f32GradLaunches": f32_grad["trainFloat32Grad"]["launches"],
+        "f32GradD12": f32_grad["trainFloat32GradD12"],
         "servedTokensEqualGenerate": True,
         "servedSuccessorShare": follows}))
-    return launches, f32_launches
+    return {"train": launches, "trainFloat32": f32_fit,
+            **{path: c["launches"] for path, c in f32_grad.items()}}
 
 
 def main() -> int:
@@ -990,7 +1152,8 @@ def main() -> int:
     ptxas = {name: _ptxas_report(text)
              for name, text in sorted(_build.BUILD_LOG.items())}
     print("ptxas " + json.dumps(ptxas), flush=True)
-    spilled = [v for name, variants in ptxas.items() if name.endswith("_sm90")
+    spilled = [v for name, variants in ptxas.items()
+               if name.endswith(("_sm90", "_tf32x3"))
                for v in variants if v.get("spillStores", 1)
                or v.get("spillLoads", 1)]
     if spilled:
@@ -1005,17 +1168,18 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as home:
             served = slice_phase(torch, log, home)
         with tempfile.TemporaryDirectory() as home:
-            trained, f32_grad = train_phase(torch, log, home)
+            paths = {"serve": served, **train_phase(torch, log, home)}
         # each kernel's main path: serving (float32) for the CUDA-core
-        # forward, the bf16 fit for the tensor-core kernels, the float32
-        # gradient step for the CUDA-core dq and dK/dV
-        paths = {"serve": served, "train": trained,
-                 "trainFloat32Grad": f32_grad}
+        # forward, the bf16 fit for the wgmma kernels, the float32 fit for
+        # the split-TF32 ones, the d-12 LM's float32 gradient step for the
+        # CUDA-core dq and dK/dV
         main_path = {"flash_fwd": "serve", "flash_fwd_sm90": "train",
-                     "flash_bwd_dq": "trainFloat32Grad",
+                     "flash_bwd_dq": "trainFloat32GradD12",
                      "flash_bwd_dq_sm90": "train",
-                     "flash_bwd_dkv": "trainFloat32Grad",
-                     "flash_bwd_dkv_sm90": "train"}
+                     "flash_bwd_dkv": "trainFloat32GradD12",
+                     "flash_bwd_dkv_sm90": "train",
+                     "flash_bwd_dq_tf32x3": "trainFloat32",
+                     "flash_bwd_dkv_tf32x3": "trainFloat32"}
         missing = [name for name in COUNTERS
                    if name not in entries or not paths[main_path[name]][name]]
         if missing:
@@ -1028,7 +1192,8 @@ def main() -> int:
         return 1
     replaces = {"flash_fwd": 188, "flash_fwd_sm90": 188, "flash_bwd_dq": 338,
                 "flash_bwd_dq_sm90": 338, "flash_bwd_dkv": 402,
-                "flash_bwd_dkv_sm90": 402}
+                "flash_bwd_dkv_sm90": 402, "flash_bwd_dq_tf32x3": 338,
+                "flash_bwd_dkv_tf32x3": 402}
     kernels = []
     for name in COUNTERS:
         entry = entries[name]

@@ -477,6 +477,14 @@ class LanguageModel:
         self.dropout = float(dropout)
         self.aux_coef = float(aux_coef)
         self.head_chunk = head_chunk
+        if remat not in (None, "none", "dots", "full"):
+            raise ValueError(f"unknown remat policy {remat!r} "
+                             f"(none|dots|full)")
+        if remat in ("dots", "full"):
+            # recomputation needs the dropout generator replayed, which
+            # torch.utils.checkpoint does not do
+            raise ValueError(f"remat={remat!r} is not yet ported to the "
+                             f"PyTorch package (none only)")
         self.remat = remat
         self.fused_proj = bool(fused_proj)
         self.lora_rank = int(lora_rank)
@@ -603,8 +611,8 @@ class LanguageModel:
         ``[0, vocab)`` raise here, before anything reaches the card,
         where an out-of-range embedding index is a device-side assert
         (the JAX package's gather gives NaN rows for them instead)."""
-        if hasattr(x, "to_numpy"):
-            x = x.to_numpy()
+        if hasattr(x, "to_numpy"):  # a catalog DataFrame: no _id column
+            x = data_lib.dataframe_to_arrays(x)["x"]
         x = np.asarray(x)
         if x.ndim == 1:  # flat corpus -> non-overlapping windows
             seq = min(self.max_len, max(2, len(x) // 2))

@@ -12,11 +12,15 @@ heads, ``kv | heads``.
   :func:`flash_attention_reference` and :func:`flash_bwd_reference`. A
   CUDA tensor never falls back to a plain version or to another route:
   the kernel launches or the call raises.
-- Two routes, picked by :func:`_tensor_core_route` alone: bf16 with a
-  head_dim that is a multiple of 8 up to 128 takes the tensor-core
-  kernels ``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu`` and
-  ``csrc/flash_bwd_dkv_sm90.cu`` (wgmma + TMA); every other CUDA input
-  takes the CUDA-core kernels ``csrc/flash_fwd.cu``,
+- Routes. The forward is picked by :func:`_tensor_core_route`: bf16
+  with a head_dim that is a multiple of 8 up to 128 takes the
+  tensor-core kernel ``csrc/flash_fwd_sm90.cu`` (wgmma + TMA), every
+  other CUDA input the CUDA-core ``csrc/flash_fwd.cu``. The backward is
+  picked by :func:`_bwd_route`: the same bf16 inputs take
+  ``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``,
+  float32 with such a head_dim takes the split-TF32 tensor-core kernels
+  ``csrc/flash_bwd_dq_tf32x3.cu`` and ``csrc/flash_bwd_dkv_tf32x3.cu``
+  (mma.sync + cp.async), and every other head_dim the CUDA-core
   ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu``.
 - :func:`full_attention_reference` is the ``dot`` implementation.
 - :func:`decode_attention` is the serving plane's single-token op, left
@@ -33,14 +37,16 @@ import torch
 NEG_INF = -1e30
 
 # launches of each kernel (CPU calls never count): the forward, dQ and
-# dK/dV counters count both routes, the *_SM90 ones the tensor-core route
-# only
+# dK/dV counters count every route, the *_SM90 and *_TF32X3 ones their
+# tensor-core route only
 FLASH_FWD_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
 FLASH_FWD_SM90_LAUNCHES = 0
 FLASH_BWD_DQ_SM90_LAUNCHES = 0
 FLASH_BWD_DKV_SM90_LAUNCHES = 0
+FLASH_BWD_DQ_TF32X3_LAUNCHES = 0
+FLASH_BWD_DKV_TF32X3_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -133,7 +139,7 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         dlse: Optional[torch.Tensor] = None, *,
                         causal: bool = False,
                         scale: Optional[float] = None, window: int = 0,
-                        kv_offset: int = 0,
+                        kv_offset: int = 0, tf32x3: bool = False,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of both backward kernels: float32 ``(dq, dk, dv)``
     of ``flash_attention_with_lse`` at its saved ``(o, lse)`` for the
@@ -142,25 +148,28 @@ def flash_bwd_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``ds = p * (dO.v - delta) * scale``, ``dq = ds k``, ``dk = ds^T q``
     and ``dv = p^T dO``, with dk and dv summed over each kv head's
     group of query heads. Masked pairs are zeroed before the exp, so a
-    row with no visible key (``lse = NEG_INF``) gives zeros, not NaN."""
+    row with no visible key (``lse = NEG_INF``) gives zeros, not NaN.
+    With ``tf32x3`` every product is split as the tf32x3 kernels split
+    it (:func:`_tf32x3_einsum`)."""
     _check_args(q, k, v, causal, window)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     group = h // kvh
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    mm = _tf32x3_einsum if tf32x3 else torch.einsum
     qg = q.float().reshape(b, sq, kvh, group, d)
     dog = do.float().reshape(b, sq, kvh, group, d)
     kf, vf = k.float(), v.float()
     valid = _visible(sq, sk, causal, window, kv_offset, q.device)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kf) * scale
+    s = mm("bqhgd,bkhd->bhgqk", qg, kf) * scale
     p = torch.exp(torch.where(valid, s - _by_group(lse.float(), kvh),
                               NEG_INF))
-    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, vf)
+    dp = mm("bqhgd,bkhd->bhgqk", dog, vf)
     ds = p * (dp - _by_group(_bwd_delta(o, do, dlse), kvh)) * scale
-    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, h, d)
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, qg)
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dq = mm("bhgqk,bkhd->bqhgd", ds, kf).reshape(b, sq, h, d)
+    dk = mm("bhgqk,bqhgd->bkhd", ds, qg)
+    dv = mm("bhgqk,bqhgd->bkhd", p, dog)
     return dq, dk, dv
 
 
@@ -233,8 +242,8 @@ def _tensor_core_route(q) -> bool:
     """True when a CUDA tensor takes the tensor-core kernels
     (``csrc/flash_*_sm90.cu``): bf16 with a head_dim that is a multiple
     of 8 up to 128, since TMA needs 16-byte strides. Every other CUDA
-    input takes the CUDA-core kernels; a CPU tensor never gets here (it
-    runs the plain version)."""
+    input takes the CUDA-core forward, and the backward of :func:`_bwd_route`;
+    a CPU tensor never gets here (it runs the plain version)."""
     d = q.shape[-1]
     return (q.device.type == "cuda" and q.dtype == torch.bfloat16
             and d % 8 == 0 and d <= _MAX_HEAD_DIM)
@@ -247,6 +256,50 @@ def _bf16_split(x: torch.Tensor) -> torch.Tensor:
     do not, and chip_smoke.py emulates it to hold the kernels tightly."""
     hi = x.to(torch.bfloat16).float()
     return hi + (x - hi).to(torch.bfloat16).float()
+
+
+def _bwd_route(q) -> str:
+    """The backward kernels a CUDA tensor takes: ``"sm90"`` (bf16 on the
+    tensor-core route, :func:`_tensor_core_route`), ``"tf32x3"`` (float32
+    with a head_dim that is a multiple of 8 up to 128: split-TF32 tensor
+    cores; cp.async copies 16 bytes) or ``"cuda"`` (every other head_dim,
+    CUDA cores). A CPU tensor never gets here (it runs the plain
+    version)."""
+    if _tensor_core_route(q):
+        return "sm90"
+    d = q.shape[-1]
+    if (q.device.type == "cuda" and q.dtype == torch.float32
+            and d % 8 == 0 and d <= _MAX_HEAD_DIM):
+        return "tf32x3"
+    return "cuda"
+
+
+def _tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 ``x`` as the tf32x3 kernels cut it: ``hi`` is ``x``
+    rounded to TF32 as ``cvt.rna.tf32.f32`` rounds (to nearest, ties away
+    from zero, 10 explicit mantissa bits), ``lo`` is ``x - hi`` rounded
+    the same way; ``hi + lo`` is within 2^-22 |x| of x. Done on the int32
+    view: adding half of the 13 dropped bits to the magnitude and
+    clearing them rounds the magnitude half up, whatever the sign. inf
+    and NaN pass through."""
+    def rna(y):
+        bits = (y.view(torch.int32) + 0x1000) & -0x2000
+        return torch.where(torch.isfinite(y), bits.view(torch.float32), y)
+
+    x = x.float().contiguous()
+    hi = rna(x)
+    return hi, rna(x - hi)
+
+
+def _tf32x3_einsum(eq: str, x: torch.Tensor,
+                   y: torch.Tensor) -> torch.Tensor:
+    """``einsum(eq, x, y)`` as the tf32x3 kernels multiply: both operands
+    split by :func:`_tf32_split` and summed as x_lo.y_hi + x_hi.y_lo +
+    x_hi.y_hi (x_lo.y_lo dropped), in float32."""
+    x_hi, x_lo = _tf32_split(x)
+    y_hi, y_lo = _tf32_split(y)
+    return (torch.einsum(eq, x_lo, y_hi) + torch.einsum(eq, x_hi, y_lo)
+            + torch.einsum(eq, x_hi, y_hi))
 
 
 def _check_tma(kernel: str, tensors) -> None:
@@ -420,6 +473,79 @@ def _flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal: bool,
     return dk, dv
 
 
+def _check_tf32x3(kernel: str, q, tensors) -> None:
+    """The split-TF32 kernels read float32 rows with 16-byte cp.async
+    copies: float32, head_dim a multiple of 8, 16-byte aligned bases."""
+    for name, t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{kernel} takes float32; {name} is {t.dtype}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{kernel} needs 16-byte aligned tensors; "
+                             f"{name} is not")
+    if q.shape[-1] % 8:
+        raise ValueError(f"{kernel} takes a head_dim that is a multiple of "
+                         f"8, got {q.shape[-1]}")
+
+
+def _flash_bwd_dq_tf32x3(q, k, v, do, lse, delta, causal: bool,
+                         scale: float, window: int,
+                         offset: int) -> torch.Tensor:
+    """float32 dq (b, sq, h, d) from the split-TF32 tensor-core
+    flash_bwd_dq_tf32x3 kernel."""
+    global FLASH_BWD_DQ_LAUNCHES, FLASH_BWD_DQ_TF32X3_LAUNCHES
+    tensors = (("q", q), ("k", k), ("v", v), ("do", do))
+    _check_tf32x3("flash_bwd_dq_tf32x3", q, tensors)
+    _bwd_inputs("flash_bwd_dq_tf32x3", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    fn = _kernel("flash_bwd_dq_tf32x3", [ctypes.c_void_p] * 7
+                 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq,
+                 sk, h, kvh, d, float(scale), int(bool(causal)),
+                 int(window), int(offset), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dq_tf32x3 launch failed: CUDA error "
+                           f"{err}")
+    FLASH_BWD_DQ_LAUNCHES += 1
+    FLASH_BWD_DQ_TF32X3_LAUNCHES += 1
+    return dq
+
+
+def _flash_bwd_dkv_tf32x3(q, k, v, do, lse, delta, causal: bool,
+                          scale: float, window: int, offset: int,
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """float32 (dk, dv), each (b, sk, kvh, d), from the split-TF32
+    tensor-core flash_bwd_dkv_tf32x3 kernel."""
+    global FLASH_BWD_DKV_LAUNCHES, FLASH_BWD_DKV_TF32X3_LAUNCHES
+    tensors = (("q", q), ("k", k), ("v", v), ("do", do))
+    _check_tf32x3("flash_bwd_dkv_tf32x3", q, tensors)
+    _bwd_inputs("flash_bwd_dkv_tf32x3", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    fn = _kernel("flash_bwd_dkv_tf32x3", [ctypes.c_void_p] * 8
+                 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                 dv.data_ptr(), b, sq, sk, h, kvh, d, float(scale),
+                 int(bool(causal)), int(window), int(offset), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_bwd_dkv_tf32x3 launch failed: CUDA error "
+                           f"{err}")
+    FLASH_BWD_DKV_LAUNCHES += 1
+    FLASH_BWD_DKV_TF32X3_LAUNCHES += 1
+    return dk, dv
+
+
 def _on_device(kernel: str, q) -> bool:
     """True for a CUDA tensor (the kernel runs), False for a CPU one
     (the plain version runs); any other device raises."""
@@ -450,8 +576,11 @@ def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float,
                                    window=window, kv_offset=offset)
     do = do.contiguous()
     delta = _bwd_delta(o, do, dlse)
-    if _tensor_core_route(q):
+    route = _bwd_route(q)
+    if route == "sm90":
         dq_fn, dkv_fn = _flash_bwd_dq_sm90, _flash_bwd_dkv_sm90
+    elif route == "tf32x3":
+        dq_fn, dkv_fn = _flash_bwd_dq_tf32x3, _flash_bwd_dkv_tf32x3
     else:
         dq_fn, dkv_fn = _flash_bwd_dq_cuda, _flash_bwd_dkv_cuda
     args = (q, k, v, do, lse, delta, causal, scale, window, offset)

@@ -5,12 +5,12 @@ fixed-shape batches whose ragged tail is zero-padded and masked with a
 per-sample 0/1 weight column (``MASK_KEY``), so losses and metrics stay
 exact. The engine moves each batch to the card itself; there is no
 prefetch thread and no data-parallel padding (the port trains on one
-card).
+card). :func:`dataframe_to_arrays` is the catalog DataFrame feed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -67,3 +67,35 @@ class ArrayBatcher:
                 mask[-pad:] = 0.0
             batch[MASK_KEY] = mask
             yield batch
+
+
+def dataframe_to_arrays(df, feature_columns: Optional[Sequence[str]] = None,
+                        label_column: Optional[str] = None,
+                        dtype=np.float32) -> Dict[str, np.ndarray]:
+    """A catalog DataFrame as an x/(y) array feed, as the JAX package's
+    ``runtime.data.dataframe_to_arrays`` makes it: the ``_id`` column is
+    dropped, non-numeric columns are factorized (label-encoded) and the
+    rest coerced to numbers (unparseable values become 0)."""
+    import pandas as pd
+
+    if feature_columns is None:
+        feature_columns = [c for c in df.columns
+                           if c != label_column and c != "_id"]
+    cols = []
+    for c in feature_columns:
+        s = df[c]
+        if s.dtype == object or str(s.dtype).startswith("str"):
+            codes, _ = pd.factorize(s)
+            cols.append(codes.astype(dtype))
+        else:
+            cols.append(
+                pd.to_numeric(s, errors="coerce").fillna(0).to_numpy(dtype))
+    out = {"x": np.stack(cols, axis=1) if cols else np.zeros((len(df), 0))}
+    if label_column is not None:
+        y = df[label_column]
+        if y.dtype == object or str(y.dtype).startswith("str"):
+            codes, _ = pd.factorize(y)
+            out["y"] = codes.astype(np.int32)
+        else:
+            out["y"] = y.to_numpy()
+    return out

@@ -1,0 +1,175 @@
+#!/usr/bin/env python3
+"""Tile sweep of the split-TF32 (3xTF32) float32 backward kernels on one
+NVIDIA card.
+
+    python3 scripts/tf32x3_tile_sweep.py
+
+Builds variants of ``learningorchestra_tpu_torch/csrc/flash_bwd_dkv_tf32x3.cu``
+and ``flash_bwd_dq_tf32x3.cu`` that differ only in the rows of the
+streamed tile at head_dim <= 64 (dK/dV: q rows per stage, ``kM``; dQ:
+keys per stage, ``kN``) and in the blocks per SM ptxas is told to fit
+(``kMinBlocks`` in ``__launch_bounds__``, which caps the registers),
+each from a
+text-substituted copy under ``build/variants/`` (the sources in the
+package are not touched). Each variant is checked against
+``flash_bwd_reference`` at the float32 tolerance (it fails the run
+outside it) and timed with CUDA events at the training path's shape (b 8,
+2048 tokens, 8 heads over 4 kv heads, d 64, causal, window 1024), in
+turns (every variant, then every variant again in reverse order). Prints
+the card's name and power limit, ptxas's registers and spills per
+variant, and one JSON line per kernel. Needs a card and nvcc; exits 2
+without a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import json
+import os
+import re
+import subprocess
+import sys
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+# kernel -> (the lines of the source that set the tile rows and the
+# blocks per SM, their text with {rows} and {blocks}, variants of (name,
+# rows at d <= 64, minimum blocks per SM at d <= 64)); the package's own
+# is the first of each
+KERNELS = {
+    "flash_bwd_dkv_tf32x3": (
+        ("static constexpr int kM = 32;",
+         "static constexpr int kMinBlocks = 1;"),
+        ("static constexpr int kM = DMAX == 128 ? 32 : {rows};",
+         "static constexpr int kMinBlocks = DMAX == 128 ? 1 : {blocks};"),
+        [("m32", 32, 1), ("m64", 64, 1), ("m16b3", 16, 3)]),
+    "flash_bwd_dq_tf32x3": (
+        ("static constexpr int kN = 32;",
+         "static constexpr int kMinBlocks = 1;"),
+        ("static constexpr int kN = DMAX == 128 ? 32 : {rows};",
+         "static constexpr int kMinBlocks = DMAX == 128 ? 1 : {blocks};"),
+        [("n32", 32, 1), ("n64", 64, 1), ("n16b3", 16, 3)]),
+}
+SHAPE = (8, 2048, 8, 4, 64, True, 1024)
+
+
+def _build_variants(_build) -> dict:
+    out_dir = _build.BUILD_DIR.parent / "variants"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for kernel, (lines, templates, variants) in KERNELS.items():
+        src = (_build.CSRC / f"{kernel}.cu").read_text()
+        if not all(line in src for line in lines):
+            raise RuntimeError(f"{kernel}: the tile lines have changed")
+        for name, rows, blocks in variants:
+            text = src
+            for line, template in zip(lines, templates):
+                text = text.replace(line, template.format(rows=rows,
+                                                          blocks=blocks))
+            cu = out_dir / f"{kernel}_{name}.cu"
+            cu.write_text(text)
+            cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
+                   "-o", str(out_dir / f"{kernel}_{name}.so"), str(cu)]
+            procs[(kernel, name)] = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+    fns = {}
+    for (kernel, name), proc in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"{kernel} {name}: nvcc exited "
+                               f"{proc.returncode}\n{err}")
+        # ptxas reports the d 32, 64 and 128 instances; keep the d 64 one
+        log = out + err
+        report = log[log.index("kernelILi64E"):]
+        regs = re.search(r"Used (\d+) registers", report).group(1)
+        spills = re.search(r"(\d+) bytes spill stores", report).group(1)
+        print(f"ptxas {kernel} {name}: d 64 registers {regs}, spill "
+              f"stores {spills}", flush=True)
+        fn = getattr(ctypes.CDLL(str(out_dir / f"{kernel}_{name}.so")),
+                     f"lo_{kernel}")
+        fn.restype = ctypes.c_int
+        outs = 2 if "dkv" in kernel else 1
+        fn.argtypes = [ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 6 \
+            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        fns[(kernel, name)] = fn
+    return fns
+
+
+def _time_ms(torch, fn, iters: int = 20) -> float:
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("tf32x3_tile_sweep: no CUDA device", file=sys.stderr)
+        return 2
+    from learningorchestra_tpu_torch.ops import _build
+    from learningorchestra_tpu_torch.ops import attention as attn
+
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60)
+    print(f"device: {smi.stdout.strip()}", flush=True)
+    fns = _build_variants(_build)
+    b, s, h, kvh, d, causal, window = SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    q, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, kvh, d, device="cuda", generator=gen)
+            for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    o, lse = attn._flash_fwd(q, k, v, causal, scale, window, 0)
+    delta = attn._bwd_delta(o, do, None)
+    want = attn.flash_bwd_reference(q, k, v, o, lse, do, None,
+                                    causal=causal, scale=scale,
+                                    window=window)
+    stream = torch.cuda.current_stream().cuda_stream
+    for kernel, (_, _, variants) in KERNELS.items():
+        dkv = "dkv" in kernel
+        outs = [torch.empty_like(k), torch.empty_like(v)] if dkv \
+            else [torch.empty_like(q)]
+
+        def run(fn):
+            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                     lse.data_ptr(), delta.data_ptr(),
+                     *(t.data_ptr() for t in outs), b, s, s, h, kvh, d,
+                     scale, int(causal), window, 0, stream)
+            if err:
+                raise RuntimeError(f"{kernel}: CUDA error {err}")
+
+        names = [name for name, _, _ in variants]
+        for name in names:
+            run(fns[(kernel, name)])
+            torch.cuda.synchronize()
+            for got, ref in zip(outs, want[1:] if dkv else want[:1]):
+                torch.testing.assert_close(
+                    got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+        times = {name: [] for name in names}
+        for order in (names, names[::-1]):
+            for name in order:
+                times[name].append(_time_ms(
+                    torch, lambda: run(fns[(kernel, name)])))
+        print(json.dumps({"kernel": kernel, "shape": list(SHAPE),
+                          "ms": times,
+                          "meanMs": {n: sum(t) / len(t)
+                                     for n, t in times.items()}}),
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

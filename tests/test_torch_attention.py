@@ -208,7 +208,9 @@ def test_decode_attention_matches_jax(window, padded):
 def test_cpu_tensors_never_launch_the_kernel():
     counters = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
                 "FLASH_BWD_DKV_LAUNCHES", "FLASH_FWD_SM90_LAUNCHES",
-                "FLASH_BWD_DQ_SM90_LAUNCHES", "FLASH_BWD_DKV_SM90_LAUNCHES")
+                "FLASH_BWD_DQ_SM90_LAUNCHES", "FLASH_BWD_DKV_SM90_LAUNCHES",
+                "FLASH_BWD_DQ_TF32X3_LAUNCHES",
+                "FLASH_BWD_DKV_TF32X3_LAUNCHES")
     before = [getattr(attn, c) for c in counters]
     q, k, v = (t.requires_grad_() for t in _t(*_qkv(4, 1, 16, 16, 2, 1, 8)))
     o = attn.flash_attention(q, k, v, causal=True)
@@ -263,15 +265,17 @@ def test_cpu_calls_never_reach_the_route_predicate(monkeypatch):
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "sm90"),
     (torch.bfloat16, 128, "sm90"),
-    (torch.float32, 64, "cuda"),
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 36, "cuda"),    # not a multiple of 8
     (torch.bfloat16, 20, "cuda"),   # not a multiple of 8
 ])
 def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
     """On a card, _flash_bwd sends dQ and dK/dV down the same route:
-    bf16 with head_dim % 8 == 0 to the tensor-core kernels, float32 or
-    any other head_dim to the CUDA-core ones. The launches are stubbed
-    and the tensors claim a CUDA device to the route predicate."""
-    real_route = attn._tensor_core_route
+    bf16 with head_dim % 8 == 0 to the wgmma kernels, float32 with such
+    a head_dim to the split-TF32 ones, any other head_dim to the
+    CUDA-core ones. The launches are stubbed and the tensors claim a
+    CUDA device to the route predicate."""
+    real_route = attn._bwd_route
     ran = []
 
     def stub(name, outs):
@@ -283,12 +287,14 @@ def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
         return launch
 
     monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
-    monkeypatch.setattr(attn, "_tensor_core_route", lambda q: real_route(
+    monkeypatch.setattr(attn, "_bwd_route", lambda q: real_route(
         types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
                               shape=q.shape)))
     for name, outs in (("_flash_bwd_dq_sm90", 1), ("_flash_bwd_dq_cuda", 1),
+                       ("_flash_bwd_dq_tf32x3", 1),
                        ("_flash_bwd_dkv_sm90", 2),
-                       ("_flash_bwd_dkv_cuda", 2)):
+                       ("_flash_bwd_dkv_cuda", 2),
+                       ("_flash_bwd_dkv_tf32x3", 2)):
         monkeypatch.setattr(attn, name, stub(name, outs))
     q, k, v = (t.to(dtype) for t in _t(*_qkv(18, 1, 16, 16, 4, 2, d)))
     o = torch.zeros_like(q)

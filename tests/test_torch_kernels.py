@@ -226,20 +226,82 @@ def test_tensor_core_route_on_card(case):
 @pytest.mark.cuda
 def test_float32_keeps_the_cuda_core_route_on_card():
     """float32 (and a head_dim off the multiple of 8) never reaches the
-    tensor-core kernels."""
+    wgmma kernels: the forward stays on the CUDA cores, the float32
+    backward at d 64 takes the split-TF32 kernels and the bf16 backward
+    at d 20 the CUDA-core ones."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
-    before = (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES,
-              attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES)
-    dq_before = (attn.FLASH_BWD_DQ_SM90_LAUNCHES, attn.FLASH_BWD_DQ_LAUNCHES)
+    counters = ("FLASH_FWD_SM90_LAUNCHES", "FLASH_BWD_DQ_SM90_LAUNCHES",
+                "FLASH_BWD_DKV_SM90_LAUNCHES", "FLASH_FWD_LAUNCHES",
+                "FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DKV_LAUNCHES",
+                "FLASH_BWD_DQ_TF32X3_LAUNCHES",
+                "FLASH_BWD_DKV_TF32X3_LAUNCHES")
+    before = [getattr(attn, c) for c in counters]
     for dtype, d in ((torch.float32, 64), (torch.bfloat16, 20)):
         q, k, v = (torch.from_numpy(a).cuda().to(dtype).requires_grad_()
                    for a in _qkv(14, 1, 80, 80, 4, 2, d))
         o = attn.flash_attention(q, k, v, causal=True)
         torch.autograd.grad(o.float().sum(), (q, k, v))
     torch.cuda.synchronize()
-    assert (attn.FLASH_FWD_SM90_LAUNCHES, attn.FLASH_BWD_DKV_SM90_LAUNCHES,
-            attn.FLASH_FWD_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES) \
-        == (before[0], before[1], before[2] + 2, before[3] + 2)
-    assert (attn.FLASH_BWD_DQ_SM90_LAUNCHES, attn.FLASH_BWD_DQ_LAUNCHES) \
-        == (dq_before[0], dq_before[1] + 2)
+    assert [getattr(attn, c) - n for c, n in zip(counters, before)] == \
+        [0, 0, 0, 2, 2, 2, 1, 1]
+
+
+# (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse) in float32 on
+# the split-TF32 route: chip_smoke's training shape and edge cases —
+# non-causal ragged sk at d 32, MQA, a kv_offset that leaves rows with no
+# visible key under a dlse term at d 128, a head_dim of 72
+_TF32X3_CASES = [(8, 2048, 2048, 8, 4, 64, True, 1024, 0, False),
+                 (2, 77, 201, 4, 2, 32, False, 0, 0, False),
+                 (2, 130, 130, 8, 1, 64, True, 0, 0, False),
+                 (2, 64, 64, 4, 4, 128, True, 16, 40, True),
+                 (1, 150, 150, 4, 4, 72, True, 0, 0, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _TF32X3_CASES)
+def test_tf32x3_backward_on_card(case):
+    """flash_bwd_dq_tf32x3 and flash_bwd_dkv_tf32x3 against the float32
+    plain version and against the plain version that splits every
+    product 3xTF32 as the kernels do, each at the float32 tolerance (1e-4
+    max |g| + 1e-4 |g|): the split departs by about 2^-22 of sum |x||y|.
+    Rows with no visible key get dQ 0; the same inputs give the same
+    bits twice (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    b, sq, sk, h, kvh, d, causal, window, offset, with_dlse = case
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(a).cuda()
+               for a in _qkv(16, b, sq, sk, h, kvh, d))
+    do = torch.from_numpy(rng.standard_normal(
+        (b, sq, h, d), dtype=np.float32)).cuda()
+    dlse = torch.from_numpy(rng.standard_normal(
+        (b, sq, h), dtype=np.float32)).cuda() if with_dlse else None
+    assert attn._bwd_route(q) == "tf32x3"
+    scale = 1.0 / d ** 0.5
+    o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
+    delta = attn._bwd_delta(o, do, dlse)
+    args = (q, k, v, do, lse, delta, causal, scale, window, offset)
+    counters = ("FLASH_BWD_DQ_TF32X3_LAUNCHES",
+                "FLASH_BWD_DKV_TF32X3_LAUNCHES")
+    before = [getattr(attn, c) for c in counters]
+    dq = attn._flash_bwd_dq_tf32x3(*args)
+    dk, dv = attn._flash_bwd_dkv_tf32x3(*args)
+    torch.cuda.synchronize()
+    assert [getattr(attn, c) - n for c, n in zip(counters, before)] == [1, 1]
+    for split in (False, True):
+        want = attn.flash_bwd_reference(q, k, v, o, lse, do, dlse,
+                                        causal=causal, scale=scale,
+                                        window=window, kv_offset=offset,
+                                        tf32x3=split)
+        for got, ref in zip((dq, dk, dv), want):
+            assert bool(torch.isfinite(got).all())
+            torch.testing.assert_close(got, ref, rtol=1e-4,
+                                       atol=1e-4 * ref.abs().max().item())
+        del want
+    if offset:
+        empty = lse == attn.NEG_INF
+        assert bool(empty.any()) and bool((dq[empty] == 0).all())
+    again = (attn._flash_bwd_dq_tf32x3(*args),
+             *attn._flash_bwd_dkv_tf32x3(*args))
+    assert all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))

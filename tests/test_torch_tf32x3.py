@@ -1,0 +1,174 @@
+"""The float32 tensor-core (split TF32, 3xTF32) backward route of the
+PyTorch port on the CPU: the plain split that emulates ``cvt.rna.tf32``,
+the plain backward with every product split as the kernels split it
+against the JAX package's Pallas backward (interpret mode, as
+tests/test_ops.py runs it), the route predicate, and the wrappers'
+refusals. The kernels themselves run only on a card
+(tests/test_torch_kernels.py, chip_smoke.py).
+
+Tolerance: atol 5e-5, rtol 5e-4 on gradients, as tests/test_ops.py holds
+the Pallas kernel against its oracle; the split departs from float32
+products by about 2^-22 of sum |x| |y|, far below it.
+"""
+
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from learningorchestra_tpu.ops import attention as jax_attn
+from learningorchestra_tpu_torch.ops import attention as attn
+
+torch.set_num_threads(2)
+
+GRAD_TOL = dict(atol=5e-5, rtol=5e-4)
+
+
+def _bits(*patterns):
+    return torch.tensor(np.array(patterns, np.uint32).view(np.float32))
+
+
+def _hex(t):
+    return [hex(int(b)) for b in t.numpy().view(np.uint32)]
+
+
+def test_tf32_split_rounds_to_nearest_ties_away():
+    """hi keeps 10 explicit mantissa bits, rounded to nearest with ties
+    away from zero (cvt.rna): 1 + 2^-11 is a tie between 1 (even) and
+    1 + 2^-10 and goes away from zero, in both signs."""
+    x = _bits(0x3F801000,   # 1 + 2^-11: tie -> 1 + 2^-10
+              0xBF801000,   # its negative -> -(1 + 2^-10)
+              0x3F800FFF,   # just below the tie -> 1
+              0x3F803000,   # 1 + 3 * 2^-11: tie -> 1 + 2^-9
+              0x3F802001,   # just above 1 + 2^-10 -> 1 + 2^-10
+              0x40490FDB)   # pi: 0xFDB < 0x1000 -> 0x40490000
+    hi, lo = attn._tf32_split(x)
+    assert _hex(hi) == ["0x3f802000", "0xbf802000", "0x3f800000",
+                        "0x3f804000", "0x3f802000", "0x40490000"]
+    assert bool((((hi + lo) - x).abs() <= 2.0 ** -22 * x.abs()).all())
+    special = torch.tensor([float("inf"), -float("inf"), 0.0, -0.0])
+    hi, lo = attn._tf32_split(special)
+    # lo of an infinity is inf - inf, NaN, as the kernels' x - hi is
+    assert torch.equal(hi, special) and bool((lo[2:] == 0).all())
+    hi, _ = attn._tf32_split(torch.tensor([float("nan")]))
+    assert bool(torch.isnan(hi).all())
+
+
+def test_tf32_split_keeps_ten_mantissa_bits_and_hi_lo_within_bound():
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        4096, dtype=np.float32) * np.float32(10.0) ** np.random.default_rng(
+            1).integers(-6, 6, 4096).astype(np.float32))
+    hi, lo = attn._tf32_split(x)
+    for part in (hi, lo):
+        assert bool(((part.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((hi - x).abs() <= 2.0 ** -11 * x.abs()).all())
+    # within 2^-22 |x|, so within the 2^-21 |x| a split must keep
+    assert bool((((hi + lo) - x).abs() <= 2.0 ** -22 * x.abs()).all())
+    assert bool((((hi + lo) - x).abs() <= 2.0 ** -21 * x.abs()).all())
+
+
+def test_tf32x3_einsum_is_float32_accurate():
+    """Three TF32 products: the split product departs from the float32
+    one by about 2^-22 sum |x||y|, where one TF32 product departs by about
+    2^-11 of it."""
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.standard_normal((16, 64), dtype=np.float32))
+    y = torch.from_numpy(rng.standard_normal((64, 8), dtype=np.float32))
+    exact = torch.einsum("ik,kj->ij", x.double(), y.double())
+    bound = torch.einsum("ik,kj->ij", x.abs().double(), y.abs().double())
+    split = attn._tf32x3_einsum("ik,kj->ij", x, y).double()
+    single = torch.einsum("ik,kj->ij", attn._tf32_split(x)[0],
+                          attn._tf32_split(y)[0]).double()
+    f32 = 64 * 2.0 ** -24 * bound
+    assert bool(((split - exact).abs() <= 2.0 ** -21 * bound + f32).all())
+    assert bool(((single - exact).abs() > 2.0 ** -21 * bound + f32).any())
+
+
+def _inputs(seed, b, sq, sk, h, kvh, d):
+    rng = np.random.default_rng(seed)
+    return tuple(rng.standard_normal(shape, dtype=np.float32) for shape in (
+        (b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d), (b, sq, h, d),
+        (b, sq, h)))
+
+
+# (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse)
+@pytest.mark.parametrize("case", [
+    (2, 48, 48, 4, 2, 16, True, 16, 0, False),    # causal + window, GQA
+    (1, 40, 40, 4, 1, 16, True, 0, 0, False),     # MQA
+    (2, 32, 32, 2, 2, 16, True, 4, 20, True),     # offset: empty rows, dlse
+    (2, 40, 56, 4, 2, 16, False, 0, 0, False),    # ragged sk
+    (1, 32, 32, 2, 2, 128, True, 0, 0, False),    # d 128
+])
+def test_split_backward_matches_jax(case):
+    """flash_bwd_reference with every product split 3xTF32, as the tf32x3
+    kernels multiply, against jax.grad through the Pallas backward
+    (_bwd_dq_kernel / _bwd_dkv_kernel in interpret mode)."""
+    b, sq, sk, h, kvh, d, causal, window, offset, with_dlse = case
+    q, k, v, go, gl = _inputs(20, b, sq, sk, h, kvh, d)
+
+    def jax_loss(q, k, v):
+        if h == kvh:
+            o, lse = jax_attn.flash_attention_with_lse(
+                q, k, v, causal=causal, window=window, kv_offset=offset,
+                block_q=8, block_k=16)
+            return jnp.sum(o * go) + (jnp.sum(lse * gl) if with_dlse
+                                      else 0.0)
+        o = jax_attn.flash_attention(q, k, v, causal=causal, window=window,
+                                     block_q=8, block_k=16)
+        return jnp.sum(o * go)
+
+    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv, tgo, tgl = (torch.from_numpy(a) for a in (q, k, v, go, gl))
+    o, lse = attn.flash_attention_reference(tq, tk, tv, causal=causal,
+                                            window=window, kv_offset=offset)
+    if offset:
+        assert bool((lse == attn.NEG_INF).any())
+    got = attn.flash_bwd_reference(tq, tk, tv, o, lse, tgo,
+                                   tgl if with_dlse else None,
+                                   causal=causal, window=window,
+                                   kv_offset=offset, tf32x3=True)
+    for a, w in zip(got, want):
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **GRAD_TOL)
+    if offset:
+        assert bool((got[0][lse == attn.NEG_INF] == 0).all())
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 8, "tf32x3"),
+    (torch.float32, 128, "tf32x3"),
+    (torch.float32, 36, "cuda"),      # not a multiple of 8
+    (torch.float32, 136, "cuda"),     # above 128
+    (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 36, "cuda"),
+])
+def test_backward_route_predicate(dtype, d, route):
+    q = types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
+                              shape=(2, 16, 4, d))
+    assert attn._bwd_route(q) == route
+
+
+@pytest.mark.parametrize("wrapper", ["_flash_bwd_dq_tf32x3",
+                                     "_flash_bwd_dkv_tf32x3"])
+def test_tf32x3_wrappers_refuse_what_the_kernels_do_not_take(wrapper):
+    """bf16 tensors and a head_dim off the multiple of 8 raise before any
+    build or launch, whatever the caller routed."""
+    fn = getattr(attn, wrapper)
+    before = (attn.FLASH_BWD_DQ_TF32X3_LAUNCHES,
+              attn.FLASH_BWD_DKV_TF32X3_LAUNCHES)
+    for dtype, d, error, match in ((torch.bfloat16, 16, TypeError,
+                                    "takes float32"),
+                                   (torch.float32, 12, ValueError,
+                                    "multiple of 8")):
+        q, k, v, do, lse = (torch.from_numpy(a) for a in
+                            _inputs(21, 1, 16, 16, 2, 1, d))
+        q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
+        with pytest.raises(error, match=match):
+            fn(q, k, v, do, lse, lse, True, 0.25, 0, 0)
+    assert (attn.FLASH_BWD_DQ_TF32X3_LAUNCHES,
+            attn.FLASH_BWD_DKV_TF32X3_LAUNCHES) == before

@@ -393,3 +393,48 @@ def test_trained_artifact_config_matches_jax(tree, tmp_path,
     for key, value in lm.params.items():
         torch.testing.assert_close(loaded.params[key], value, atol=0,
                                    rtol=0)
+
+
+def test_dataframe_tokens_match_jax():
+    """A catalog-style frame (an ``_id`` column, two integer token
+    columns and a string column) gives the same token windows through the
+    port's ``_coerce_tokens`` as through the JAX one: ``_id`` dropped,
+    the string column factorized."""
+    pd = pytest.importorskip("pandas")
+    frame = pd.DataFrame({"_id": [1, 2, 3, 4],
+                          "t0": [5, 6, 7, 8], "t1": [9, 10, 11, 12],
+                          "word": ["a", "b", "a", "c"]})
+    want = jax_tlm.LanguageModel(**CFG)._coerce_tokens(frame)
+    got = tlm.LanguageModel(**CFG, device="cpu")._coerce_tokens(frame)
+    assert got.dtype == np.int32
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:, :2], [[5, 9], [6, 10], [7, 11],
+                                               [8, 12]])
+
+
+def test_dataframe_to_arrays_matches_jax():
+    pd = pytest.importorskip("pandas")
+    frame = pd.DataFrame({"_id": [1, 2, 3], "x": ["1.5", "oops", "3"],
+                          "c": ["u", "v", "u"], "y": ["no", "yes", "no"]})
+    want = jax_data.dataframe_to_arrays(frame, label_column="y")
+    got = data.dataframe_to_arrays(frame, label_column="y")
+    assert set(got) == set(want) == {"x", "y"}
+    for key in want:
+        assert got[key].dtype == want[key].dtype
+        np.testing.assert_array_equal(got[key], want[key])
+
+
+def test_unknown_remat_raises_in_both_packages():
+    with pytest.raises(ValueError, match="unknown remat policy"):
+        jax_tlm.LanguageModel(**CFG, remat="bogus")._resolved_remat()
+    with pytest.raises(ValueError, match=r"unknown remat policy 'bogus' "
+                                         r"\(none\|dots\|full\)"):
+        tlm.LanguageModel(**CFG, remat="bogus", device="cpu")
+
+
+@pytest.mark.parametrize("remat", ["dots", "full"])
+def test_remat_policies_are_refused_until_ported(remat):
+    with pytest.raises(ValueError, match="not yet ported"):
+        tlm.LanguageModel(**CFG, remat=remat, device="cpu")
+    for ok in (None, "none"):
+        assert tlm.LanguageModel(**CFG, remat=ok, device="cpu").remat == ok
