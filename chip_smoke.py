@@ -9,26 +9,29 @@
    version on the card — the forward at the serving prefill and the
    training shape, the backward kernels at the training shape (b 8,
    2048 tokens, 8 heads over 4 kv heads, window 1024), fp32 and bf16,
-   and small edge cases — with its time, the plain version's time, the
+   the CUDA-core kernels at the d-12 LM's shape, and small edge cases —
+   with its time, the plain version's time, the
    least time the card could take (bound) and one PyTorch library call
-   computing the same function, timed as a yardstick only. The
-   float32 forward takes the CUDA-core flash_fwd, the float32 backward
-   the split-TF32 tensor-core flash_bwd_dq_tf32x3 and
-   flash_bwd_dkv_tf32x3, bf16 the wgmma tensor-core kernels
-   (flash_fwd_sm90, flash_bwd_dq_sm90, flash_bwd_dkv_sm90), and a
-   head_dim that is not a multiple of 8 (the d-12 case, both dtypes) the
-   CUDA-core flash_bwd_dq and flash_bwd_dkv. Each bf16 case of the
-   tensor-core route is held twice more: to the derived bound of bf16 P
-   and dS against the float32 plain version, and tightly against the
-   plain version with P and dS split into bf16 hi + lo as the kernels
-   split them; each float32 case of the split-TF32 route against the
-   plain version that splits every product 3xTF32 as the kernels do.
+   computing the same function, timed as a yardstick only. float32
+   takes the split-TF32 tensor-core kernels (flash_fwd_tf32x3,
+   flash_bwd_dq_tf32x3, flash_bwd_dkv_tf32x3), bf16 the wgmma
+   tensor-core kernels (flash_fwd_sm90, flash_bwd_dq_sm90,
+   flash_bwd_dkv_sm90), and a head_dim that is not a multiple of 8 (the
+   d-12 cases, both dtypes) the CUDA-core flash_fwd, flash_bwd_dq and
+   flash_bwd_dkv. Each bf16 case of the tensor-core route is held twice
+   more: to the derived bound of bf16 P and dS against the float32 plain
+   version, and tightly against the plain version with P and dS split
+   into bf16 hi + lo as the kernels split them; each float32 case of the
+   split-TF32 route against the plain version that splits every product
+   3xTF32 as the kernels do. The float32 forward and the bf16 forward
+   are also timed beside the CUDA-core forward on the same inputs.
 3. Serving path: a REST server on the card serving the tutorial's LM
    (vocab 32000, d_model 512, 8 layers, 8 heads over 4 kv heads, window
    1024, random weights from seed 0), four concurrent predicts of
    1100-1500-token prompts, 32 greedy tokens each, sent twice (cold,
-   then warm). Each stream must equal the port's solo ``generate``; the
-   prefill logits through the kernel must agree with the dense path.
+   then warm), float32: every prefill layer runs flash_fwd_tf32x3 and
+   nothing else. Each stream must equal the port's solo ``generate``;
+   the prefill logits through the kernel must agree with the dense path.
 4. Training path: ``LanguageModel.fit`` of the same LM from
    ``init_params(seed 0)`` on 64 windows of 2048 tokens of a
    cyclic-successor stream, batch 16, 2 epochs, grad_accum 2, bf16
@@ -38,11 +41,11 @@
    route. A profiler window of 2 steps gives the kernels' time per step
    and the card's idle share. A float32 window of the same fit (2
    optimizer steps of 16 windows, grad_accum 2) runs the split-TF32
-   backward kernels and reports its own step time and profile (the
+   kernels and reports its own step time and profile (the
    ``trainFloat32`` line). In float32 one micro-step's gradients
    through the kernels must match the dense path's, for the tutorial LM
-   (split-TF32 backward) and for a small LM with head_dim 12 (d_model
-   96, 8 heads: the CUDA-core backward). The trained artifact is then
+   (split-TF32 kernels) and for a small LM with head_dim 12 (d_model
+   96, 8 heads: the CUDA-core kernels). The trained artifact is then
    served over REST and must answer with its reloaded copy's
    ``generate``.
 
@@ -84,7 +87,7 @@ LM_CONFIG = dict(vocab_size=32000, d_model=512, n_layers=8, n_heads=8,
 PROMPT_LENS = (1100, 1234, 1367, 1500)
 NEW_TOKENS = 32
 # a small LM whose head_dim (96 / 8 = 12) is not a multiple of 8: its
-# float32 backward runs the CUDA-core kernels
+# float32 forward and backward run the CUDA-core kernels
 D12_CONFIG = dict(LM_CONFIG, d_model=96, n_layers=2)
 # the training path: 64 windows of 2048 tokens, batch 16, 2 epochs,
 # grad_accum 2 -> 8 optimizer steps of 2 micro-batches
@@ -97,10 +100,11 @@ COUNTERS = {"flash_fwd": "FLASH_FWD_LAUNCHES",
             "flash_bwd_dkv": "FLASH_BWD_DKV_LAUNCHES",
             "flash_bwd_dkv_sm90": "FLASH_BWD_DKV_SM90_LAUNCHES",
             "flash_bwd_dq_tf32x3": "FLASH_BWD_DQ_TF32X3_LAUNCHES",
-            "flash_bwd_dkv_tf32x3": "FLASH_BWD_DKV_TF32X3_LAUNCHES"}
+            "flash_bwd_dkv_tf32x3": "FLASH_BWD_DKV_TF32X3_LAUNCHES",
+            "flash_fwd_tf32x3": "FLASH_FWD_TF32X3_LAUNCHES"}
 # the forward's, dq's and dK/dV's counters count every route; a CUDA-core
 # kernel's own launches are those less its tensor-core counterparts'
-ROUTES = {"flash_fwd": ("flash_fwd_sm90",),
+ROUTES = {"flash_fwd": ("flash_fwd_sm90", "flash_fwd_tf32x3"),
           "flash_bwd_dq": ("flash_bwd_dq_sm90", "flash_bwd_dq_tf32x3"),
           "flash_bwd_dkv": ("flash_bwd_dkv_sm90", "flash_bwd_dkv_tf32x3")}
 # epoch losses of the train phase's fit through the CUDA-core kernels
@@ -227,11 +231,14 @@ def _split_bwd(torch, attn, q, k, v, o, lse, do, dlse, causal, scale,
 
 
 def kernel_phase(torch, log):
-    """flash_fwd (CUDA cores: float32) and flash_fwd_sm90 (tensor cores:
-    bf16) against flash_attention_reference on the card. Returns the
-    kernels-line entries: flash_fwd at the slice's fp32 shape (its main
-    path, serving), with its fp32 training-shape numbers beside them, and
-    flash_fwd_sm90 at the training path's bf16 shape."""
+    """The forward kernels against flash_attention_reference on the card,
+    by route (:func:`_route`): flash_fwd_tf32x3 (float32, split-TF32
+    tensor cores), flash_fwd_sm90 (bf16, wgmma tensor cores) and flash_fwd
+    (CUDA cores: a head_dim off the multiple of 8). Returns the
+    kernels-line entries: flash_fwd_tf32x3 at the slice's shape (its main
+    path, serving) with its training-shape numbers beside them,
+    flash_fwd_sm90 at the training path's bf16 shape, flash_fwd at the
+    d-12 LM's float32 shape."""
     import torch.nn.functional as F
 
     from learningorchestra_tpu_torch.ops import attention as attn
@@ -254,17 +261,30 @@ def kernel_phase(torch, log):
         ("offset-empty-rows", 2, 64, 64, 4, 4, 128, True, 16, 40, f32),
         ("offset-empty-rows", 2, 64, 64, 4, 4, 128, True, 16, 40, bf16),
         ("offset-empty-rows", 1, 64, 64, 4, 4, 64, True, 16, 40, bf16),
-        # the training path's shape: bf16 is its dtype, fp32 the
-        # CUDA-core kernel's number at the same work
+        ("offset-empty-rows", 1, 64, 64, 4, 4, 64, True, 16, 40, f32),
+        # the training path's shape: bf16 is its dtype, float32 the
+        # float32 fit's
         ("train", 8, 2048, 2048, 8, 4, 64, True, 1024, 0, bf16),
         ("train", 8, 2048, 2048, 8, 4, 64, True, 1024, 0, f32),
+        # the d-12 LM's micro-step (2 windows of 2048): a head_dim off the
+        # multiple of 8 keeps the CUDA-core forward in both dtypes
+        ("lm-d12", 2, 2048, 2048, 8, 4, 12, True, 1024, 0, f32),
+        ("lm-d12", 2, 2048, 2048, 8, 4, 12, True, 1024, 0, bf16),
     ]
-    # (atol, rtol). float32: summation order only. bf16: o is rounded
-    # once from float32 by kernel and plain version alike, so they differ
-    # by at most one bf16 ulp of |o| (<= 2**-7 |o|, under rtol) plus the
-    # float32 error (under atol); the tensor-core kernel adds its bf16
-    # hi + lo split of P, about 2**-16 of the product
+    # (atol, rtol). float32: summation order only (the split-TF32 route's
+    # products depart from float32 ones by about 2**-22 of sum |x||y|).
+    # bf16: o is rounded once from float32 by kernel and plain version
+    # alike, so they differ by at most one bf16 ulp of |o| (<= 2**-7 |o|,
+    # under rtol) plus the float32 error (under atol); the tensor-core
+    # kernel adds its bf16 hi + lo split of P, about 2**-16 of the product
     tols = {f32: (2e-5, 2e-5), bf16: (1e-4, 1e-2)}
+    kernel_of = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3",
+                 "cuda": "flash_fwd"}
+    # the counter each route adds one to; FLASH_FWD_LAUNCHES counts every
+    # route's launches, so every call adds one there
+    routed = {"sm90": "FLASH_FWD_SM90_LAUNCHES",
+              "tf32x3": "FLASH_FWD_TF32X3_LAUNCHES",
+              "cuda": "FLASH_FWD_LAUNCHES"}
     entries = {}
     for (name, b, sq, sk, h, kvh, d, causal, window, offset,
          dtype) in cases:
@@ -274,7 +294,10 @@ def kernel_phase(torch, log):
 
         q, k, v = rand(b, sq, h, d), rand(b, sk, kvh, d), rand(b, sk, kvh, d)
         with_lse = h == kvh
-        sm90 = attn._tensor_core_route(q)
+        route = attn._route(q)
+        want_route = "cuda" if d % 8 else (
+            "sm90" if dtype == bf16 else "tf32x3")
+        sm90 = route == "sm90"
         scale = 1.0 / d ** 0.5
 
         def kernel():
@@ -284,17 +307,20 @@ def kernel_phase(torch, log):
             return attn.flash_attention(q, k, v, causal=causal,
                                         window=window), None
 
-        def plain():
+        def plain(split=False):
             return attn.flash_attention_reference(
-                q, k, v, causal=causal, window=window, kv_offset=offset)
+                q, k, v, causal=causal, window=window, kv_offset=offset,
+                tf32x3=split)
 
-        routed = attn.FLASH_FWD_SM90_LAUNCHES
+        before = {r: getattr(attn, c) for r, c in routed.items()}
         o, lse = kernel()
         torch.cuda.synchronize()
-        if (attn.FLASH_FWD_SM90_LAUNCHES - routed == 1) != sm90 \
-                or sm90 != (dtype == bf16):
+        ran = {r: getattr(attn, c) - before[r] for r, c in routed.items()}
+        want_ran = {r: int(r in (route, "cuda")) for r in routed}
+        if route != want_route or ran != want_ran:
             raise AssertionError(f"flash_fwd {name} {dtype}: took the "
-                                 f"wrong route")
+                                 f"{route} route, want {want_route} "
+                                 f"(launches {ran})")
         ro, rlse = plain()
         diff = (o.float() - ro.float()).abs()
         err = diff.max().item()
@@ -306,7 +332,7 @@ def kernel_phase(torch, log):
                                  f"exceeds atol {atol} + rtol {rtol} |ro| "
                                  f"by {excess}x (max abs err {err})")
         line = {"case": name, "dtype": str(dtype).split(".")[-1],
-                "kernel": "flash_fwd_sm90" if sm90 else "flash_fwd",
+                "kernel": kernel_of[route],
                 "shape": [b, sq, sk, h, kvh, d], "causal": causal,
                 "window": window, "kvOffset": offset, "maxAbsErr": err,
                 "atol": atol, "rtol": rtol, "tolUsed": excess}
@@ -330,6 +356,20 @@ def kernel_phase(torch, log):
                     f"flash_fwd_sm90 {name}: bound used {used_a}x, "
                     f"split emulation tolerance used {used_b}x")
             line.update(derivedBoundUsed=used_a, splitEmulationUsed=used_b)
+        elif route == "tf32x3":
+            # against the plain version that splits both products 3xTF32
+            # as the kernel does, at the float32 tolerance
+            eo, e_lse = plain(split=True)
+            used = ((o - eo).abs() / (atol + rtol * eo.abs())).max().item()
+            seen = e_lse != attn.NEG_INF
+            lse_used = ((lse - e_lse)[seen].abs().max().item() / 1e-4
+                        if lse is not None else 0.0)
+            del eo, e_lse
+            if not (used <= 1.0 and lse_used <= 1.0):
+                raise AssertionError(
+                    f"flash_fwd_tf32x3 {name}: split emulation tolerance "
+                    f"used {used}x (lse {lse_used}x)")
+            line["splitEmulationUsed"] = used
         empty = 0
         if lse is not None:
             # rows with no visible key carry exactly NEG_INF in both
@@ -345,7 +385,7 @@ def kernel_phase(torch, log):
                                      f"rows with a non-zero o")
             line["lseMaxAbsErr"] = lse_err
         line["emptyRows"] = empty
-        if name in ("slice", "train"):
+        if name in ("slice", "train") or (name == "lm-d12" and dtype == f32):
             mask = _visible_mask(torch, sq, sk, causal, window, offset,
                                  q.device)
             pairs = int(mask.sum())
@@ -353,7 +393,12 @@ def kernel_phase(torch, log):
             nbytes = (2 * q.numel() + k.numel() + v.numel()) \
                 * q.element_size() + 4 * b * sq * h
             dt = line["dtype"]
-            op_ms = flops / PEAK_FLOPS[dt] * 1e3
+            # the least time on the route's units: bf16 tensor cores,
+            # float32 as three TF32 products, or float32 FMAs
+            fp32_ms = flops / PEAK_FLOPS["float32"] * 1e3
+            op_ms = {"sm90": flops / PEAK_FLOPS["bfloat16"] * 1e3,
+                     "tf32x3": 3 * flops / PEAK_FLOPS["tf32"] * 1e3,
+                     "cuda": fp32_ms}[route]
             byte_ms = nbytes / PEAK_BYTES * 1e3
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             line.update({
@@ -364,28 +409,34 @@ def kernel_phase(torch, log):
                     enable_gqa=True)),
                 "bound_ms": max(op_ms, byte_ms),
                 "bound_by": "operations" if op_ms >= byte_ms else "bytes",
+                "boundFloat32Ms": fp32_ms,
                 "flops": flops, "bytes": nbytes, "visiblePairs": pairs,
             })
-            if sm90:
-                # the CUDA-core kernel on the same bf16 inputs, for the
+            if route != "cuda":
+                # the CUDA-core kernel on the same inputs, for the
                 # comparison within one run
                 line["cudaCoreMs"] = _time_ms(
                     torch, lambda: attn._flash_fwd_cuda(
                         q, k, v, causal, scale, window, offset))
             del mask, qt, kt, vt
             picked = {k: line[k] for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
-            picked["max_abs_err"] = err
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                "boundFloat32Ms")}
+            picked.update(max_abs_err=err, dtype=dt,
+                          shape=[b, sq, sk, h, kvh, d])
+            for key in ("cudaCoreMs", "derivedBoundUsed",
+                        "splitEmulationUsed"):
+                if key in line:
+                    picked[key] = line[key]
             if name == "slice" and dtype == f32:
-                entries.setdefault("flash_fwd", {}).update(picked)
+                entries.setdefault("flash_fwd_tf32x3", {}).update(picked)
             elif name == "train" and dtype == f32:
-                entries.setdefault("flash_fwd", {})["trainShapeFloat32"] = \
-                    picked
+                entries.setdefault("flash_fwd_tf32x3", {})[
+                    "trainShapeFloat32"] = picked
             elif name == "train":
-                entries["flash_fwd_sm90"] = dict(
-                    picked, dtype=dt, cudaCoreMs=line["cudaCoreMs"],
-                    derivedBoundUsed=line["derivedBoundUsed"],
-                    splitEmulationUsed=line["splitEmulationUsed"])
+                entries["flash_fwd_sm90"] = picked
+            elif name == "lm-d12":
+                entries["flash_fwd"] = picked
         log.append("kernel " + json.dumps(line))
         del q, k, v, o, lse, ro, rlse, diff
     return entries
@@ -394,7 +445,7 @@ def kernel_phase(torch, log):
 def bwd_kernel_phase(torch, log):
     """The backward kernels against flash_bwd_reference on the card, each
     case in fp32 and bf16, on the forward kernel's own (o, lse), by route
-    (:func:`_bwd_route`): flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 (bf16),
+    (:func:`_route`): flash_bwd_dq_sm90 and flash_bwd_dkv_sm90 (bf16),
     flash_bwd_dq_tf32x3 and flash_bwd_dkv_tf32x3 (float32), flash_bwd_dq
     and flash_bwd_dkv (a head_dim that is not a multiple of 8). Returns
     the kernels-line entries: the tensor-core kernels at the training
@@ -448,7 +499,7 @@ def bwd_kernel_phase(torch, log):
             scale = 1.0 / d ** 0.5
             o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
             delta = attn._bwd_delta(o, do, dlse)
-            route = attn._bwd_route(q)
+            route = attn._route(q)
             want_route = "cuda" if d % 8 else (
                 "sm90" if dtype == torch.bfloat16 else "tf32x3")
             suffix = "" if route == "cuda" else f"_{route}"
@@ -721,14 +772,15 @@ def slice_phase(torch, log, home):
         server.stop()
 
     need = LM_CONFIG["n_layers"] * len(prompts) * len(rounds)
-    if launches["flash_fwd"] < need:
-        raise AssertionError(f"flash_fwd launched {launches['flash_fwd']} "
-                             f"times on the serving path; "
-                             f"{len(prompts) * len(rounds)} prefills of "
-                             f"{LM_CONFIG['n_layers']} layers need {need}")
-    if any(n for k, n in launches.items() if k != "flash_fwd"):
-        raise AssertionError(f"serving (float32) ran a backward or a "
-                             f"tensor-core kernel: {launches}")
+    if launches["flash_fwd_tf32x3"] < need:
+        raise AssertionError(f"flash_fwd_tf32x3 launched "
+                             f"{launches['flash_fwd_tf32x3']} times on the "
+                             f"serving path; {len(prompts) * len(rounds)} "
+                             f"prefills of {LM_CONFIG['n_layers']} layers "
+                             f"need {need}")
+    if any(n for k, n in launches.items() if k != "flash_fwd_tf32x3"):
+        raise AssertionError(f"serving (float32) ran a kernel other than "
+                             f"flash_fwd_tf32x3: {launches}")
     solos = [lm.generate([p], max_new_tokens=NEW_TOKENS)[0][len(p):]
              for p in prompts]
     report = []
@@ -899,7 +951,7 @@ def _float32_fit_window(torch, lm, x, log) -> dict:
         raise AssertionError(f"float32 window losses {losses}")
     need = LM_CONFIG["n_layers"] * TRAIN_ACCUM * 2
     want = dict.fromkeys(COUNTERS, 0)
-    want.update(flash_fwd=need, flash_bwd_dq_tf32x3=need,
+    want.update(flash_fwd_tf32x3=need, flash_bwd_dq_tf32x3=need,
                 flash_bwd_dkv_tf32x3=need)
     if launches != want:
         raise AssertionError(f"kernel launches in the float32 window "
@@ -1028,12 +1080,12 @@ def train_phase(torch, log, home):
 
     # float32: one micro-step of 2 windows through the kernels against the
     # same step on the dense path (plain autograd), for the tutorial LM
-    # (head_dim 64: the split-TF32 backward) and the d-12 LM (the
-    # CUDA-core backward)
+    # (head_dim 64: the split-TF32 kernels) and the d-12 LM (the
+    # CUDA-core kernels)
     os.environ["LO_COMPUTE_DTYPE"] = "float32"
     f32_grad = {}
-    for path, config, bwd in (("trainFloat32Grad", LM_CONFIG, "tf32x3"),
-                              ("trainFloat32GradD12", D12_CONFIG, "cuda")):
+    for path, config, route in (("trainFloat32Grad", LM_CONFIG, "tf32x3"),
+                                ("trainFloat32GradD12", D12_CONFIG, "cuda")):
         init = state if config is LM_CONFIG else weights.params_from_flax(
             weights.init_params(config, seed=0))
         grads = {}
@@ -1051,9 +1103,8 @@ def train_phase(torch, log, home):
             ran = _launches(attn)
             n = config["n_layers"] if impl == "flash" else 0
             want_ran = dict.fromkeys(COUNTERS, 0)
-            want_ran["flash_fwd"] = n
-            for op in ("flash_bwd_dq", "flash_bwd_dkv"):
-                want_ran[op if bwd == "cuda" else f"{op}_{bwd}"] = n
+            for op in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+                want_ran[op if route == "cuda" else f"{op}_{route}"] = n
             if ran != want_ran:
                 raise AssertionError(f"{path} {impl} gradient step launched "
                                      f"{ran}, want {want_ran}")
@@ -1169,11 +1220,13 @@ def main() -> int:
             served = slice_phase(torch, log, home)
         with tempfile.TemporaryDirectory() as home:
             paths = {"serve": served, **train_phase(torch, log, home)}
-        # each kernel's main path: serving (float32) for the CUDA-core
+        # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
-        # the split-TF32 ones, the d-12 LM's float32 gradient step for the
-        # CUDA-core dq and dK/dV
-        main_path = {"flash_fwd": "serve", "flash_fwd_sm90": "train",
+        # the split-TF32 backward, the d-12 LM's float32 gradient step for
+        # the CUDA-core kernels
+        main_path = {"flash_fwd": "trainFloat32GradD12",
+                     "flash_fwd_sm90": "train",
+                     "flash_fwd_tf32x3": "serve",
                      "flash_bwd_dq": "trainFloat32GradD12",
                      "flash_bwd_dq_sm90": "train",
                      "flash_bwd_dkv": "trainFloat32GradD12",
@@ -1193,7 +1246,7 @@ def main() -> int:
     replaces = {"flash_fwd": 188, "flash_fwd_sm90": 188, "flash_bwd_dq": 338,
                 "flash_bwd_dq_sm90": 338, "flash_bwd_dkv": 402,
                 "flash_bwd_dkv_sm90": 402, "flash_bwd_dq_tf32x3": 338,
-                "flash_bwd_dkv_tf32x3": 402}
+                "flash_bwd_dkv_tf32x3": 402, "flash_fwd_tf32x3": 188}
     kernels = []
     for name in COUNTERS:
         entry = entries[name]

@@ -1,20 +1,21 @@
 // Flash-attention forward for Hopper (sm_90a), hand-written CUDA C++.
 //
 // Replaces: learningorchestra_tpu/ops/attention.py `_fwd_kernel` (the
-// Pallas TPU kernel launched by `_fwd_pallas`). Same function: the
+// Pallas TPU kernel launched by `_fwd_pallas`) for a head_dim that is not
+// a multiple of 8, float32 and bf16 (flash_fwd_tf32x3.cu takes float32 and
+// flash_fwd_sm90.cu bf16 at the other head dims). Same function: the
 // exact softmax attention output O plus a per-row log-sum-exp, with
 // causal masking (row >= col + offset), a sliding window
 // (col + offset > row - window), a ragged key edge (col < sk) and
 // grouped-query heads (query head i reads kv head i / (h / kvh)). A row
 // that sees no key gets o = 0 and lse = -1e30.
 //
-// Bound on an H100 SXM at the serving prefill shape (b 1, sq = sk =
-// 1536, h 8, kvh 4, d 64, causal, window 1024): about 1.05 M visible
-// (q, k) pairs per head, so 4 * d * pairs * h = 2.15 GFLOP per call
-// against about 9.4 MB of fp32 inputs and outputs. That is compute
-// bound: 2.15 GFLOP at the 67 TFLOP/s fp32 rate is 32 us, the bytes at
-// 3.35 TB/s take 3 us (in bf16 the tensor-core rate of 989 TFLOP/s
-// would give 2 us).
+// Bound on an H100 SXM at the shape of a head_dim-12 LM's micro-step (b
+// 2, sq = sk = 2048, h 8, kvh 4, d 12, causal, window 1024): 1,573,376
+// visible (q, k) pairs per head, so 4 * d * pairs * b * h = 1.21 GFLOP
+// per call against about 4.9 MB of fp32 inputs and outputs. That is
+// compute bound: 1.21 GFLOP at the 67 TFLOP/s fp32 rate is 18 us, the
+// bytes at 3.35 TB/s take 1.4 us.
 //
 // What the design does about it. This first version runs both products
 // on the CUDA cores in fp32 FMAs, for fp32 and bf16 inputs alike, so the

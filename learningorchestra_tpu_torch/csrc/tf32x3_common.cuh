@@ -1,7 +1,7 @@
 // Building blocks shared by the float32 tensor-core kernels
-// (flash_bwd_dq_tf32x3.cu, flash_bwd_dkv_tf32x3.cu): split TF32 products
-// on warp-level mma.sync, hi and lo planes of a tile, and cp.async tile
-// loads.
+// (flash_fwd_tf32x3.cu, flash_bwd_dq_tf32x3.cu, flash_bwd_dkv_tf32x3.cu):
+// split TF32 products on warp-level mma.sync, hi and lo planes of a tile,
+// and cp.async tile loads.
 //
 // Split TF32 (3xTF32). A float32 x is cut into hi = tf32(x) and lo =
 // tf32(x - hi), tf32 being cvt.rna (round to nearest, ties away from

@@ -12,15 +12,14 @@ heads, ``kv | heads``.
   :func:`flash_attention_reference` and :func:`flash_bwd_reference`. A
   CUDA tensor never falls back to a plain version or to another route:
   the kernel launches or the call raises.
-- Routes. The forward is picked by :func:`_tensor_core_route`: bf16
-  with a head_dim that is a multiple of 8 up to 128 takes the
-  tensor-core kernel ``csrc/flash_fwd_sm90.cu`` (wgmma + TMA), every
-  other CUDA input the CUDA-core ``csrc/flash_fwd.cu``. The backward is
-  picked by :func:`_bwd_route`: the same bf16 inputs take
-  ``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``,
-  float32 with such a head_dim takes the split-TF32 tensor-core kernels
-  ``csrc/flash_bwd_dq_tf32x3.cu`` and ``csrc/flash_bwd_dkv_tf32x3.cu``
-  (mma.sync + cp.async), and every other head_dim the CUDA-core
+- Routes, forward and backward alike, by :func:`_route`: bf16 with a
+  head_dim that is a multiple of 8 up to 128 takes the wgmma + TMA
+  tensor-core kernels ``csrc/flash_fwd_sm90.cu``,
+  ``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``;
+  float32 with such a head_dim the split-TF32 tensor-core kernels
+  (mma.sync + cp.async) ``csrc/flash_fwd_tf32x3.cu``,
+  ``csrc/flash_bwd_dq_tf32x3.cu`` and ``csrc/flash_bwd_dkv_tf32x3.cu``;
+  every other head_dim the CUDA-core ``csrc/flash_fwd.cu``,
   ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu``.
 - :func:`full_attention_reference` is the ``dot`` implementation.
 - :func:`decode_attention` is the serving plane's single-token op, left
@@ -47,6 +46,7 @@ FLASH_BWD_DQ_SM90_LAUNCHES = 0
 FLASH_BWD_DKV_SM90_LAUNCHES = 0
 FLASH_BWD_DQ_TF32X3_LAUNCHES = 0
 FLASH_BWD_DKV_TF32X3_LAUNCHES = 0
+FLASH_FWD_TF32X3_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_HEAD_DIM = 128
@@ -93,27 +93,31 @@ def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
                               v: torch.Tensor, *, causal: bool = False,
                               scale: Optional[float] = None,
                               window: int = 0, kv_offset: int = 0,
+                              tf32x3: bool = False,
                               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the flash kernel: ``(o, lse)`` with the kernel's
     masking. Key ``col`` is visible to query ``row`` when ``col < sk``,
     ``row >= col + kv_offset`` (causal) and ``col + kv_offset > row -
     window`` (window > 0). A row with no visible key gets ``o = 0`` and
-    ``lse = NEG_INF``. Computed in float32; ``o`` in q's dtype."""
+    ``lse = NEG_INF``. Computed in float32; ``o`` in q's dtype. With
+    ``tf32x3`` both products are split as the tf32x3 forward splits them
+    (:func:`_tf32x3_einsum`)."""
     _check_args(q, k, v, causal, window)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     group = h // kvh
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    mm = _tf32x3_einsum if tf32x3 else torch.einsum
     qg = q.float().reshape(b, sq, kvh, group, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
+    s = mm("bqhgd,bkhd->bhgqk", qg, k.float()) * scale
     valid = _visible(sq, sk, causal, window, kv_offset, q.device)
     s = torch.where(valid, s, NEG_INF)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(valid, torch.exp(s - m), 0.0)
     l = p.sum(dim=-1, keepdim=True)
     safe_l = torch.where(l > 0, l, 1.0)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float()) \
+    o = mm("bhgqk,bkhd->bqhgd", p, v.float()) \
         / safe_l.permute(0, 3, 1, 2, 4)
     lse = torch.where(l > 0, m + torch.log(safe_l), NEG_INF)[..., 0]
     return (o.reshape(b, sq, h, d).to(q.dtype),
@@ -242,8 +246,8 @@ def _tensor_core_route(q) -> bool:
     """True when a CUDA tensor takes the tensor-core kernels
     (``csrc/flash_*_sm90.cu``): bf16 with a head_dim that is a multiple
     of 8 up to 128, since TMA needs 16-byte strides. Every other CUDA
-    input takes the CUDA-core forward, and the backward of :func:`_bwd_route`;
-    a CPU tensor never gets here (it runs the plain version)."""
+    input takes the route :func:`_route` gives it; a CPU tensor never
+    gets here (it runs the plain version)."""
     d = q.shape[-1]
     return (q.device.type == "cuda" and q.dtype == torch.bfloat16
             and d % 8 == 0 and d <= _MAX_HEAD_DIM)
@@ -258,13 +262,13 @@ def _bf16_split(x: torch.Tensor) -> torch.Tensor:
     return hi + (x - hi).to(torch.bfloat16).float()
 
 
-def _bwd_route(q) -> str:
-    """The backward kernels a CUDA tensor takes: ``"sm90"`` (bf16 on the
-    tensor-core route, :func:`_tensor_core_route`), ``"tf32x3"`` (float32
-    with a head_dim that is a multiple of 8 up to 128: split-TF32 tensor
-    cores; cp.async copies 16 bytes) or ``"cuda"`` (every other head_dim,
-    CUDA cores). A CPU tensor never gets here (it runs the plain
-    version)."""
+def _route(q) -> str:
+    """The kernels a CUDA tensor takes, the forward and the backward
+    alike: ``"sm90"`` (bf16 on the tensor-core route,
+    :func:`_tensor_core_route`), ``"tf32x3"`` (float32 with a head_dim
+    that is a multiple of 8 up to 128: split-TF32 tensor cores; cp.async
+    copies 16 bytes) or ``"cuda"`` (every other head_dim, CUDA cores). A
+    CPU tensor never gets here (it runs the plain version)."""
     if _tensor_core_route(q):
         return "sm90"
     d = q.shape[-1]
@@ -487,6 +491,35 @@ def _check_tf32x3(kernel: str, q, tensors) -> None:
                          f"8, got {q.shape[-1]}")
 
 
+def _flash_fwd_tf32x3(q, k, v, causal: bool, scale: float, window: int,
+                      offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` from the split-TF32 tensor-core flash_fwd_tf32x3
+    kernel: float32 o (b, sq, h, d) and lse (b, sq, h)."""
+    global FLASH_FWD_LAUNCHES, FLASH_FWD_TF32X3_LAUNCHES
+    tensors = (("q", q), ("k", k), ("v", v))
+    _check_tf32x3("flash_fwd_tf32x3", q, tensors)
+    _check_cuda("flash_fwd_tf32x3", tensors)
+    _check_shape("flash_fwd_tf32x3", q, k)
+    b, sq, h, d = q.shape
+    sk, kvh = k.shape[1], k.shape[2]
+    fn = _kernel("flash_fwd_tf32x3", [ctypes.c_void_p] * 5
+                 + [ctypes.c_int] * 6 + [ctypes.c_float]
+                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    o = torch.empty_like(q)
+    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), b, sq, sk, h, kvh, d, float(scale),
+                 int(bool(causal)), int(window), int(offset), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd_tf32x3 launch failed: CUDA error "
+                           f"{err}")
+    FLASH_FWD_LAUNCHES += 1
+    FLASH_FWD_TF32X3_LAUNCHES += 1
+    return o, lse
+
+
 def _flash_bwd_dq_tf32x3(q, k, v, do, lse, delta, causal: bool,
                          scale: float, window: int,
                          offset: int) -> torch.Tensor:
@@ -563,9 +596,9 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, window: int,
         return flash_attention_reference(q, k, v, causal=causal,
                                          scale=scale, window=window,
                                          kv_offset=offset)
-    if _tensor_core_route(q):
-        return _flash_fwd_sm90(q, k, v, causal, scale, window, offset)
-    return _flash_fwd_cuda(q, k, v, causal, scale, window, offset)
+    fwd = {"sm90": _flash_fwd_sm90, "tf32x3": _flash_fwd_tf32x3,
+           "cuda": _flash_fwd_cuda}[_route(q)]
+    return fwd(q, k, v, causal, scale, window, offset)
 
 
 def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float,
@@ -576,7 +609,7 @@ def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float,
                                    window=window, kv_offset=offset)
     do = do.contiguous()
     delta = _bwd_delta(o, do, dlse)
-    route = _bwd_route(q)
+    route = _route(q)
     if route == "sm90":
         dq_fn, dkv_fn = _flash_bwd_dq_sm90, _flash_bwd_dkv_sm90
     elif route == "tf32x3":

@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""Tile sweep of the split-TF32 (3xTF32) float32 backward kernels on one
-NVIDIA card.
+"""Tile sweep of the split-TF32 (3xTF32) float32 attention kernels on
+one NVIDIA card.
 
-    python3 scripts/tf32x3_tile_sweep.py
+    python3 scripts/tf32x3_tile_sweep.py [kernel ...]
 
-Builds variants of ``learningorchestra_tpu_torch/csrc/flash_bwd_dkv_tf32x3.cu``
-and ``flash_bwd_dq_tf32x3.cu`` that differ only in the rows of the
-streamed tile at head_dim <= 64 (dK/dV: q rows per stage, ``kM``; dQ:
-keys per stage, ``kN``) and in the blocks per SM ptxas is told to fit
+Builds variants of ``learningorchestra_tpu_torch/csrc/flash_fwd_tf32x3.cu``,
+``flash_bwd_dkv_tf32x3.cu`` and ``flash_bwd_dq_tf32x3.cu`` (all three,
+or the ones named) that differ only in the rows of the streamed tile at
+head_dim <= 64 (forward and dQ: keys per stage, ``kN``; dK/dV: q rows
+per stage, ``kM``) and in the blocks per SM ptxas is told to fit
 (``kMinBlocks`` in ``__launch_bounds__``, which caps the registers),
-each from a
-text-substituted copy under ``build/variants/`` (the sources in the
-package are not touched). Each variant is checked against
-``flash_bwd_reference`` at the float32 tolerance (it fails the run
-outside it) and timed with CUDA events at the training path's shape (b 8,
-2048 tokens, 8 heads over 4 kv heads, d 64, causal, window 1024), in
-turns (every variant, then every variant again in reverse order). Prints
-the card's name and power limit, ptxas's registers and spills per
-variant, and one JSON line per kernel. Needs a card and nvcc; exits 2
-without a card.
+each from a text-substituted copy under ``build/variants/`` (the sources
+in the package are not touched). Each variant is checked against its
+plain version (``flash_attention_reference``, ``flash_bwd_reference``)
+at the float32 tolerance (it fails the run outside it) and timed with
+CUDA events, in turns (every variant, then every variant again in
+reverse order): the backward kernels at the training path's shape (b 8,
+2048 tokens, 8 heads over 4 kv heads, d 64, causal, window 1024), the
+forward at that shape and at the serving prefill's (b 1, 1536 tokens).
+Prints the card's name and power limit, ptxas's registers and spills
+per variant, and one JSON line per kernel and shape. Needs a card and
+nvcc; exits 2 without a card.
 """
 
 from __future__ import annotations
@@ -35,30 +37,47 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 # kernel -> (the lines of the source that set the tile rows and the
 # blocks per SM, their text with {rows} and {blocks}, variants of (name,
-# rows at d <= 64, minimum blocks per SM at d <= 64)); the package's own
+# rows at d <= 64, minimum blocks per SM at d <= 64), the shapes (b, s,
+# h, kvh, d, causal, window) it is timed at); the package's own variant
 # is the first of each
+# pointer arguments of each entry point: q, k, v (and dO, lse, delta in
+# the backward), then the outputs (o and lse, dq, or dk and dv)
+POINTERS = {"flash_fwd_tf32x3": 5, "flash_bwd_dq_tf32x3": 7,
+            "flash_bwd_dkv_tf32x3": 8}
+TRAIN_SHAPE = (8, 2048, 8, 4, 64, True, 1024)
+SERVE_SHAPE = (1, 1536, 8, 4, 64, True, 1024)
 KERNELS = {
+    "flash_fwd_tf32x3": (
+        ("static constexpr int kN = 32;",
+         "static constexpr int kMinBlocks = DMAX == 128 ? 1 : 3;"),
+        ("static constexpr int kN = DMAX == 128 ? 32 : {rows};",
+         "static constexpr int kMinBlocks = DMAX == 128 ? 1 : {blocks};"),
+        [("n32b3", 32, 3), ("n32", 32, 1), ("n64", 64, 1), ("n16", 16, 1),
+         ("n32b2", 32, 2), ("n16b3", 16, 3)],
+        (TRAIN_SHAPE, SERVE_SHAPE)),
     "flash_bwd_dkv_tf32x3": (
         ("static constexpr int kM = 32;",
          "static constexpr int kMinBlocks = 1;"),
         ("static constexpr int kM = DMAX == 128 ? 32 : {rows};",
          "static constexpr int kMinBlocks = DMAX == 128 ? 1 : {blocks};"),
-        [("m32", 32, 1), ("m64", 64, 1), ("m16b3", 16, 3)]),
+        [("m32", 32, 1), ("m64", 64, 1), ("m16b3", 16, 3)],
+        (TRAIN_SHAPE,)),
     "flash_bwd_dq_tf32x3": (
         ("static constexpr int kN = 32;",
          "static constexpr int kMinBlocks = 1;"),
         ("static constexpr int kN = DMAX == 128 ? 32 : {rows};",
          "static constexpr int kMinBlocks = DMAX == 128 ? 1 : {blocks};"),
-        [("n32", 32, 1), ("n64", 64, 1), ("n16b3", 16, 3)]),
+        [("n32", 32, 1), ("n64", 64, 1), ("n16b3", 16, 3)],
+        (TRAIN_SHAPE,)),
 }
-SHAPE = (8, 2048, 8, 4, 64, True, 1024)
 
 
-def _build_variants(_build) -> dict:
+def _build_variants(_build, kernels) -> dict:
     out_dir = _build.BUILD_DIR.parent / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for kernel, (lines, templates, variants) in KERNELS.items():
+    for kernel in kernels:
+        lines, templates, variants, _ = KERNELS[kernel]
         src = (_build.CSRC / f"{kernel}.cu").read_text()
         if not all(line in src for line in lines):
             raise RuntimeError(f"{kernel}: the tile lines have changed")
@@ -90,8 +109,8 @@ def _build_variants(_build) -> dict:
         fn = getattr(ctypes.CDLL(str(out_dir / f"{kernel}_{name}.so")),
                      f"lo_{kernel}")
         fn.restype = ctypes.c_int
-        outs = 2 if "dkv" in kernel else 1
-        fn.argtypes = [ctypes.c_void_p] * (6 + outs) + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * POINTERS[kernel] \
+            + [ctypes.c_int] * 6 \
             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fns[(kernel, name)] = fn
     return fns
@@ -111,6 +130,54 @@ def _time_ms(torch, fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _runner(torch, attn, kernel, shape, gen):
+    """(run(fn), check()) for one kernel at one shape: run launches a
+    variant's entry point on fresh inputs into its outputs, check holds
+    the outputs to the plain version at the float32 tolerance."""
+    b, s, h, kvh, d, causal, window = shape
+    q, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+             for _ in range(2))
+    k, v = (torch.randn(b, s, kvh, d, device="cuda", generator=gen)
+            for _ in range(2))
+    scale = 1.0 / d ** 0.5
+    stream = torch.cuda.current_stream().cuda_stream
+    dims = (b, s, s, h, kvh, d, scale, int(causal), window, 0, stream)
+    if kernel == "flash_fwd_tf32x3":
+        outs = [torch.empty_like(q), torch.empty(b, s, h, device="cuda")]
+        ins = (q, k, v)
+        ro, rlse = attn.flash_attention_reference(
+            q, k, v, causal=causal, scale=scale, window=window)
+
+        def check():
+            torch.testing.assert_close(outs[0], ro, atol=2e-5, rtol=2e-5)
+            torch.testing.assert_close(outs[1], rlse, atol=1e-4, rtol=0)
+    else:
+        # the forward kernel's (o, lse): contiguous, as the entry points
+        # read them
+        o, lse = attn._flash_fwd(q, k, v, causal, scale, window, 0)
+        delta = attn._bwd_delta(o, do, None)
+        ins = (q, k, v, do, lse, delta)
+        want = attn.flash_bwd_reference(q, k, v, o, lse, do, None,
+                                        causal=causal, scale=scale,
+                                        window=window)
+        dkv = "dkv" in kernel
+        outs = [torch.empty_like(k), torch.empty_like(v)] if dkv \
+            else [torch.empty_like(q)]
+        refs = want[1:] if dkv else want[:1]
+
+        def check():
+            for got, ref in zip(outs, refs):
+                torch.testing.assert_close(
+                    got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
+
+    def run(fn):
+        err = fn(*(t.data_ptr() for t in (*ins, *outs)), *dims)
+        if err:
+            raise RuntimeError(f"{kernel}: CUDA error {err}")
+
+    return run, check
+
+
 def main() -> int:
     import torch
 
@@ -120,54 +187,37 @@ def main() -> int:
     from learningorchestra_tpu_torch.ops import _build
     from learningorchestra_tpu_torch.ops import attention as attn
 
+    kernels = sys.argv[1:] or list(KERNELS)
+    unknown = [k for k in kernels if k not in KERNELS]
+    if unknown:
+        print(f"tf32x3_tile_sweep: unknown kernels {unknown}; known: "
+              f"{list(KERNELS)}", file=sys.stderr)
+        return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
     print(f"device: {smi.stdout.strip()}", flush=True)
-    fns = _build_variants(_build)
-    b, s, h, kvh, d, causal, window = SHAPE
+    fns = _build_variants(_build, kernels)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    q, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
-             for _ in range(2))
-    k, v = (torch.randn(b, s, kvh, d, device="cuda", generator=gen)
-            for _ in range(2))
-    scale = 1.0 / d ** 0.5
-    o, lse = attn._flash_fwd(q, k, v, causal, scale, window, 0)
-    delta = attn._bwd_delta(o, do, None)
-    want = attn.flash_bwd_reference(q, k, v, o, lse, do, None,
-                                    causal=causal, scale=scale,
-                                    window=window)
-    stream = torch.cuda.current_stream().cuda_stream
-    for kernel, (_, _, variants) in KERNELS.items():
-        dkv = "dkv" in kernel
-        outs = [torch.empty_like(k), torch.empty_like(v)] if dkv \
-            else [torch.empty_like(q)]
-
-        def run(fn):
-            err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                     lse.data_ptr(), delta.data_ptr(),
-                     *(t.data_ptr() for t in outs), b, s, s, h, kvh, d,
-                     scale, int(causal), window, 0, stream)
-            if err:
-                raise RuntimeError(f"{kernel}: CUDA error {err}")
-
+    for kernel in kernels:
+        _, _, variants, shapes = KERNELS[kernel]
         names = [name for name, _, _ in variants]
-        for name in names:
-            run(fns[(kernel, name)])
-            torch.cuda.synchronize()
-            for got, ref in zip(outs, want[1:] if dkv else want[:1]):
-                torch.testing.assert_close(
-                    got, ref, rtol=1e-4, atol=1e-4 * ref.abs().max().item())
-        times = {name: [] for name in names}
-        for order in (names, names[::-1]):
-            for name in order:
-                times[name].append(_time_ms(
-                    torch, lambda: run(fns[(kernel, name)])))
-        print(json.dumps({"kernel": kernel, "shape": list(SHAPE),
-                          "ms": times,
-                          "meanMs": {n: sum(t) / len(t)
-                                     for n, t in times.items()}}),
-              flush=True)
+        for shape in shapes:
+            run, check = _runner(torch, attn, kernel, shape, gen)
+            for name in names:
+                run(fns[(kernel, name)])
+                torch.cuda.synchronize()
+                check()
+            times = {name: [] for name in names}
+            for order in (names, names[::-1]):
+                for name in order:
+                    times[name].append(_time_ms(
+                        torch, lambda: run(fns[(kernel, name)])))
+            print(json.dumps({"kernel": kernel, "shape": list(shape),
+                              "ms": times,
+                              "meanMs": {n: sum(t) / len(t)
+                                         for n, t in times.items()}}),
+                  flush=True)
     return 0
 
 

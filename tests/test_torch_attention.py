@@ -210,7 +210,7 @@ def test_cpu_tensors_never_launch_the_kernel():
                 "FLASH_BWD_DKV_LAUNCHES", "FLASH_FWD_SM90_LAUNCHES",
                 "FLASH_BWD_DQ_SM90_LAUNCHES", "FLASH_BWD_DKV_SM90_LAUNCHES",
                 "FLASH_BWD_DQ_TF32X3_LAUNCHES",
-                "FLASH_BWD_DKV_TF32X3_LAUNCHES")
+                "FLASH_BWD_DKV_TF32X3_LAUNCHES", "FLASH_FWD_TF32X3_LAUNCHES")
     before = [getattr(attn, c) for c in counters]
     q, k, v = (t.requires_grad_() for t in _t(*_qkv(4, 1, 16, 16, 2, 1, 8)))
     o = attn.flash_attention(q, k, v, causal=True)
@@ -275,7 +275,7 @@ def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
     a head_dim to the split-TF32 ones, any other head_dim to the
     CUDA-core ones. The launches are stubbed and the tensors claim a
     CUDA device to the route predicate."""
-    real_route = attn._bwd_route
+    real_route = attn._route
     ran = []
 
     def stub(name, outs):
@@ -287,7 +287,7 @@ def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
         return launch
 
     monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
-    monkeypatch.setattr(attn, "_bwd_route", lambda q: real_route(
+    monkeypatch.setattr(attn, "_route", lambda q: real_route(
         types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
                               shape=q.shape)))
     for name, outs in (("_flash_bwd_dq_sm90", 1), ("_flash_bwd_dq_cuda", 1),

@@ -226,25 +226,26 @@ def test_tensor_core_route_on_card(case):
 @pytest.mark.cuda
 def test_float32_keeps_the_cuda_core_route_on_card():
     """float32 (and a head_dim off the multiple of 8) never reaches the
-    wgmma kernels: the forward stays on the CUDA cores, the float32
-    backward at d 64 takes the split-TF32 kernels and the bf16 backward
-    at d 20 the CUDA-core ones."""
+    wgmma kernels: float32 at d 64 takes the split-TF32 forward and
+    backward, and a head_dim off the multiple of 8 (float32 at d 12, bf16
+    at d 20) the CUDA-core forward and backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     counters = ("FLASH_FWD_SM90_LAUNCHES", "FLASH_BWD_DQ_SM90_LAUNCHES",
                 "FLASH_BWD_DKV_SM90_LAUNCHES", "FLASH_FWD_LAUNCHES",
                 "FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DKV_LAUNCHES",
                 "FLASH_BWD_DQ_TF32X3_LAUNCHES",
-                "FLASH_BWD_DKV_TF32X3_LAUNCHES")
+                "FLASH_BWD_DKV_TF32X3_LAUNCHES", "FLASH_FWD_TF32X3_LAUNCHES")
     before = [getattr(attn, c) for c in counters]
-    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 20)):
+    for dtype, d in ((torch.float32, 64), (torch.float32, 12),
+                     (torch.bfloat16, 20)):
         q, k, v = (torch.from_numpy(a).cuda().to(dtype).requires_grad_()
                    for a in _qkv(14, 1, 80, 80, 4, 2, d))
         o = attn.flash_attention(q, k, v, causal=True)
         torch.autograd.grad(o.float().sum(), (q, k, v))
     torch.cuda.synchronize()
     assert [getattr(attn, c) - n for c, n in zip(counters, before)] == \
-        [0, 0, 0, 2, 2, 2, 1, 1]
+        [0, 0, 0, 3, 3, 3, 1, 1, 1]
 
 
 # (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse) in float32 on
@@ -277,7 +278,7 @@ def test_tf32x3_backward_on_card(case):
         (b, sq, h, d), dtype=np.float32)).cuda()
     dlse = torch.from_numpy(rng.standard_normal(
         (b, sq, h), dtype=np.float32)).cuda() if with_dlse else None
-    assert attn._bwd_route(q) == "tf32x3"
+    assert attn._route(q) == "tf32x3"
     scale = 1.0 / d ** 0.5
     o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
     delta = attn._bwd_delta(o, do, dlse)
@@ -305,3 +306,41 @@ def test_tf32x3_backward_on_card(case):
     again = (attn._flash_bwd_dq_tf32x3(*args),
              *attn._flash_bwd_dkv_tf32x3(*args))
     assert all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _TF32X3_CASES)
+def test_tf32x3_forward_on_card(case):
+    """flash_fwd_tf32x3 against the float32 plain version and against the
+    plain version that splits both products 3xTF32 as the kernel does,
+    each at the float32 tolerance (o: atol 2e-5 + rtol 2e-5; lse on rows
+    that see a key: the same): the split departs by about 2^-22 of sum
+    |x||y|. Rows with no visible key get exactly o = 0 and lse = NEG_INF;
+    the same inputs give the same bits twice (no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    b, sq, sk, h, kvh, d, causal, window, offset, _ = case
+    q, k, v = (torch.from_numpy(a).cuda()
+               for a in _qkv(17, b, sq, sk, h, kvh, d))
+    assert attn._route(q) == "tf32x3"
+    scale = 1.0 / d ** 0.5
+    args = (q, k, v, causal, scale, window, offset)
+    before = attn.FLASH_FWD_TF32X3_LAUNCHES
+    o, lse = attn._flash_fwd(*args)
+    torch.cuda.synchronize()
+    assert attn.FLASH_FWD_TF32X3_LAUNCHES == before + 1
+    for split in (False, True):
+        ro, rlse = attn.flash_attention_reference(
+            q, k, v, causal=causal, scale=scale, window=window,
+            kv_offset=offset, tf32x3=split)
+        seen = rlse != attn.NEG_INF
+        assert torch.equal(seen, lse != attn.NEG_INF)
+        torch.testing.assert_close(o, ro, atol=2e-5, rtol=2e-5)
+        torch.testing.assert_close(lse[seen], rlse[seen], atol=2e-5,
+                                   rtol=2e-5)
+        del ro, rlse
+    if offset:
+        assert bool((~seen).any()) and bool((o[~seen] == 0).all())
+        assert bool((lse[~seen] == attn.NEG_INF).all())
+    again = attn._flash_fwd(*args)
+    assert torch.equal(again[0], o) and torch.equal(again[1], lse)

@@ -1,14 +1,15 @@
-"""The float32 tensor-core (split TF32, 3xTF32) backward route of the
-PyTorch port on the CPU: the plain split that emulates ``cvt.rna.tf32``,
-the plain backward with every product split as the kernels split it
-against the JAX package's Pallas backward (interpret mode, as
-tests/test_ops.py runs it), the route predicate, and the wrappers'
-refusals. The kernels themselves run only on a card
+"""The float32 tensor-core (split TF32, 3xTF32) route of the PyTorch
+port on the CPU: the plain split that emulates ``cvt.rna.tf32``, the
+plain forward and backward with every product split as the kernels split
+it against the JAX package's Pallas forward and backward (interpret
+mode, as tests/test_ops.py runs them), the route predicate, and the
+wrappers' refusals. The kernels themselves run only on a card
 (tests/test_torch_kernels.py, chip_smoke.py).
 
-Tolerance: atol 5e-5, rtol 5e-4 on gradients, as tests/test_ops.py holds
-the Pallas kernel against its oracle; the split departs from float32
-products by about 2^-22 of sum |x| |y|, far below it.
+Tolerance: atol 2e-5, rtol 2e-5 on the forward and atol 5e-5, rtol 5e-4
+on gradients, as tests/test_ops.py holds the Pallas kernel against its
+float32 oracle; the split departs from float32 products by about 2^-22
+of sum |x| |y|, far below it.
 """
 
 import types
@@ -24,6 +25,7 @@ from learningorchestra_tpu_torch.ops import attention as attn
 
 torch.set_num_threads(2)
 
+TOL = dict(atol=2e-5, rtol=2e-5)
 GRAD_TOL = dict(atol=5e-5, rtol=5e-4)
 
 
@@ -95,13 +97,51 @@ def _inputs(seed, b, sq, sk, h, kvh, d):
 
 
 # (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse)
-@pytest.mark.parametrize("case", [
+_SPLIT_CASES = [
     (2, 48, 48, 4, 2, 16, True, 16, 0, False),    # causal + window, GQA
     (1, 40, 40, 4, 1, 16, True, 0, 0, False),     # MQA
     (2, 32, 32, 2, 2, 16, True, 4, 20, True),     # offset: empty rows, dlse
     (2, 40, 56, 4, 2, 16, False, 0, 0, False),    # ragged sk
     (1, 32, 32, 2, 2, 128, True, 0, 0, False),    # d 128
-])
+]
+
+
+@pytest.mark.parametrize("case", _SPLIT_CASES)
+def test_split_forward_matches_jax(case):
+    """flash_attention_reference with both products split 3xTF32, as the
+    tf32x3 forward multiplies, against the Pallas forward (_fwd_kernel
+    in interpret mode). Rows with no visible key get exactly o = 0 and
+    lse = NEG_INF in both."""
+    b, sq, sk, h, kvh, d, causal, window, offset, _ = case
+    q, k, v, _, _ = _inputs(22, b, sq, sk, h, kvh, d)
+    jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
+    got = attn.flash_attention_reference(
+        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        window=window, kv_offset=offset, tf32x3=True)
+    if h == kvh:
+        want = jax_attn.flash_attention_with_lse(
+            jq, jk, jv, causal=causal, window=window, kv_offset=offset,
+            block_q=8, block_k=16)
+    else:
+        want = (jax_attn.flash_attention(jq, jk, jv, causal=causal,
+                                         window=window, block_q=8,
+                                         block_k=16), None)
+    for a, w in zip(got, want):
+        if w is None:
+            continue
+        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
+    o, lse = got
+    if offset:
+        empty = lse == attn.NEG_INF
+        assert bool(empty.any())
+        assert np.array_equal(np.asarray(want[1]) == attn.NEG_INF,
+                              empty.numpy())
+        assert bool((o[empty] == 0).all())
+        assert bool((np.asarray(want[0])[empty.numpy()] == 0).all())
+
+
+@pytest.mark.parametrize("case", _SPLIT_CASES)
 def test_split_backward_matches_jax(case):
     """flash_bwd_reference with every product split 3xTF32, as the tf32x3
     kernels multiply, against jax.grad through the Pallas backward
@@ -150,7 +190,61 @@ def test_split_backward_matches_jax(case):
 def test_backward_route_predicate(dtype, d, route):
     q = types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
                               shape=(2, 16, 4, d))
-    assert attn._bwd_route(q) == route
+    assert attn._route(q) == route
+
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.float32, 64, "tf32x3"),
+    (torch.float32, 128, "tf32x3"),
+    (torch.float32, 12, "cuda"),      # not a multiple of 8
+    (torch.float32, 136, "cuda"),     # above 128
+    (torch.bfloat16, 64, "sm90"),
+    (torch.bfloat16, 12, "cuda"),
+])
+def test_forward_takes_the_backward_route(monkeypatch, dtype, d, route):
+    """On a card, _flash_fwd launches the forward of the route the
+    backward takes: float32 with head_dim % 8 == 0 (<= 128) the
+    split-TF32 kernel, bf16 with such a head_dim the wgmma kernel, any
+    other head_dim the CUDA-core kernel. The launches are stubbed and the
+    tensors claim a CUDA device to the route predicate."""
+    real_route = attn._route
+    ran = []
+
+    def stub(name):
+        def launch(q, k, v, *args):
+            ran.append(name)
+            return torch.zeros(q.shape), torch.zeros(q.shape[:3])
+        return launch
+
+    monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
+    monkeypatch.setattr(attn, "_route", lambda q: real_route(
+        types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
+                              shape=q.shape)))
+    for name in ("_flash_fwd_sm90", "_flash_fwd_tf32x3", "_flash_fwd_cuda"):
+        monkeypatch.setattr(attn, name, stub(name))
+    q, k, v, _, _ = (torch.from_numpy(a) for a in
+                     _inputs(23, 1, 16, 16, 4, 2, d))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    o, lse = attn._flash_fwd(q, k, v, True, 0.125, 0, 0)
+    assert ran == [f"_flash_fwd_{route}"]
+    assert o.shape == q.shape and lse.shape == q.shape[:3]
+
+
+def test_tf32x3_forward_refuses_what_the_kernel_does_not_take():
+    """bf16 tensors and a head_dim off the multiple of 8 raise before any
+    build or launch, whatever the caller routed."""
+    before = (attn.FLASH_FWD_LAUNCHES, attn.FLASH_FWD_TF32X3_LAUNCHES)
+    for dtype, d, error, match in ((torch.bfloat16, 16, TypeError,
+                                    "takes float32"),
+                                   (torch.float32, 12, ValueError,
+                                    "multiple of 8")):
+        q, k, v, _, _ = (torch.from_numpy(a) for a in
+                         _inputs(24, 1, 16, 16, 2, 1, d))
+        q, k, v = (t.to(dtype) for t in (q, k, v))
+        with pytest.raises(error, match=match):
+            attn._flash_fwd_tf32x3(q, k, v, True, 0.25, 0, 0)
+    assert (attn.FLASH_FWD_LAUNCHES,
+            attn.FLASH_FWD_TF32X3_LAUNCHES) == before
 
 
 @pytest.mark.parametrize("wrapper", ["_flash_bwd_dq_tf32x3",
