@@ -1,20 +1,22 @@
-// Flash-attention backward, dK and dV, for float32 on Hopper's tensor
-// cores (sm_90a) as split TF32 (3xTF32): warp-level mma.sync, cp.async
-// double-buffered tiles, hand-written CUDA C++.
+// Flash-attention backward, dK and dV, on Hopper's tensor cores
+// (sm_90a) as split TF32 (3xTF32), for float32 and bf16 inputs: warp-level
+// mma.sync, cp.async double-buffered tiles, hand-written CUDA C++.
 //
 // Replaces: learningorchestra_tpu/ops/attention.py `_bwd_dkv_kernel` (the
 // second Pallas TPU kernel of `_bwd_pallas`) for float32 q/k/v/dO whose
-// head_dim is a multiple of 8 up to 128; flash_bwd_dkv.cu keeps every
-// other head_dim. Same function: with the forward's saved log-sum-exp
-// `lse` and `delta = rowsum(dO * O) - dlse`, for every visible (row, col)
-// pair
+// head_dim is a multiple of 8 up to 128, and for float32 or bf16 at every
+// other head_dim up to 128 (bf16 at a multiple of 8 takes
+// flash_bwd_dkv_sm90.cu). Same function: with the forward's saved
+// log-sum-exp `lse` and `delta = rowsum(dO * O) - dlse`, for every
+// visible (row, col) pair
 //   p  = exp(q.k * scale - lse),  dp = dO.v,
 //   ds = p * (dp - delta) * scale,
 //   dV[col] += p * dO[row],  dK[col] += ds * q[row],
 // summed over every query head of the kv head's group, under the
 // forward's masks (causal row >= col + offset, window col + offset > row
 // - window, ragged sq and sk). Masked pairs are zeroed before the exp,
-// which overflows on a row with no visible key (lse = -1e30).
+// which overflows on a row with no visible key (lse = -1e30). dK and dV
+// are float32 in both.
 //
 // Bound on an H100 SXM at the training shape (b 8, sq = sk = 2048, h 8,
 // kvh 4, d 64, causal, window 1024): 1,573,376 visible pairs per query
@@ -22,7 +24,9 @@
 // about 135 MB of float32 inputs and outputs. Bound by operations: 0.770
 // ms at the 67 TFLOP/s float32 rate of the CUDA cores; as three TF32
 // products (24 * d * pairs = 154.7 GFLOP) 0.313 ms at the 495 TFLOP/s
-// TF32 tensor-core rate. The bytes take 0.04 ms at 3.35 TB/s.
+// TF32 tensor-core rate. The bytes take 0.04 ms at 3.35 TB/s. bf16 inputs
+// run 12 * d TF32 FLOP per pair (K.Q^T and V.dO^T one product each,
+// P^T.dO and dS^T.Q two).
 //
 // Design. The CUDA-core kernel (flash_bwd_dkv.cu) reads one operand of
 // every FMA from shared memory and loads tiles synchronously; here every
@@ -40,24 +44,35 @@
 //   registers, then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T fed
 //   straight from the accumulators as A fragments (the permuted k order
 //   of tf32x3_common.cuh) and dO, Q read from the same row-major tiles.
-// - Every product is 3xTF32. A split costs several ALU instructions
-//   (two cvt.rna and a subtraction, and cvt.rna.tf32 is not a single
-//   instruction on sm_90), so the streamed Q and dO, which all four warps
-//   read as B
-//   operands, are split once per tile into hi and lo planes in shared
-//   memory; the resident K and V are split as their A fragments are read
-//   (once per 8 columns, reused across the tile's rows). On the card the
-//   planes were faster than splitting Q and dO at every read (PERF.md).
+// - Every product is 3xTF32 for float32 inputs. A split costs several ALU
+//   instructions (two cvt.rna and a subtraction, and cvt.rna.tf32 is not
+//   a single instruction on sm_90), so the streamed Q and dO, which all
+//   four warps read as B operands, are split once per tile into hi and lo
+//   planes in shared memory; the resident K and V are split as their A
+//   fragments are read (once per 8 columns, reused across the tile's
+//   rows). On the card the planes were faster than splitting Q and dO at
+//   every read (PERF.md). bf16 tiles need no split: they stay bf16 in
+//   shared memory, are widened at the fragment read, exactly, and their
+//   lo terms drop out (mma_inputs, mma_mixed), so the planes and their
+//   shared memory go.
+// - Any head_dim up to 128: variants 16, 32, 64 and 128 columns wide (the
+//   smallest that holds d), columns past d zero-filled, so every loop
+//   runs over the variant's full width. Float32 rows at d % 4 == 0 with
+//   16-byte aligned bases load in 16-byte cp.async chunks (the wide
+//   variants); any other row in the widest granule that fits, or element
+//   by element (load_rows_any). dK and dV are stored as float2 only where
+//   both columns lie before d and the address is 8-byte aligned.
 // - Masks only on tiles that cross an edge (causal diagonal, window,
 //   ragged sq or sk) of what the warp's keys are seen from; exp2 with
-//   scale * log2(e) folded in. Columns past d are zero-filled, so every
-//   loop runs over the variant's full width.
+//   scale * log2(e) folded in.
 // - dK and dV sum in float32 registers across the whole group and are
 //   written once: no atomics, the same bits on every run.
 // - Tiles: 32 q rows per stage (M), 2 blocks of 4 warps per SM at d 64;
-//   64-row and 16-row stages were slower (scripts/tf32x3_tile_sweep.py).
-//   Registers: dK and dV take d / 2 each per thread and S^T, dP^T M / 2
-//   each; ptxas reports no spills.
+//   64-row and 16-row stages were slower there. At width 16 (the d-12
+//   LM's 256 blocks) 64-row stages were about 9% faster than 32-row ones
+//   (scripts/tf32x3_tile_sweep.py, PERF.md). Registers: dK and dV take
+//   d / 2 each per thread and S^T, dP^T M / 2 each; ptxas reports no
+//   spills.
 
 #include "tf32x3_common.cuh"
 
@@ -70,44 +85,54 @@ constexpr int kThreads = 128;
 
 constexpr float kLog2e = 1.4426950408889634f;
 
-template <int DMAX>
+template <typename T, int DMAX>
 struct Tile {
-  static constexpr int kM = 32;        // q rows per stage
+  // q rows per stage: 64 at width 16, where 32 leaves the few warps of
+  // the grid short of work between syncs
+  static constexpr int kM = DMAX == 16 ? 64 : 32;
   static constexpr int kMinBlocks = 1;  // per SM
-  static constexpr int kP = DMAX + 4;  // row pitch, floats
+  // row pitch, elements: 16 bytes past the width
+  static constexpr int kP = DMAX + 16 / static_cast<int>(sizeof(T));
   static constexpr int kKV = kBlockN * kP;  // K or V
   static constexpr int kQ = kM * kP;        // Q or dO: a stage, or a plane
-  // K, V; Q and dO stages; their hi and lo planes; lse and delta stages
+  // hi and lo planes of Q and dO: float32 inputs only
+  static constexpr bool kPlanes = !kExact<T>;
+  // K, V; Q and dO stages; their planes; lse and delta stages
   static constexpr size_t kBytes =
-      sizeof(float) * (2 * kKV + 8 * kQ + 4 * kM);
+      sizeof(T) * (2 * kKV + 4 * kQ) +
+      sizeof(float) * ((kPlanes ? 4 * kQ : 0) + 4 * kM);
 };
 
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
-    flash_bwd_dkv_tf32x3_kernel(const float* __restrict__ q,
-                                const float* __restrict__ k,
-                                const float* __restrict__ v,
-                                const float* __restrict__ dout,
+// kWide: float32 rows at d % 4 == 0 from 16-byte aligned bases (16-byte
+// loads, float2 stores); `gran` is the other variants' load granule
+template <typename T, int DMAX, bool kWide>
+__global__ void __launch_bounds__(kThreads, Tile<T, DMAX>::kMinBlocks)
+    flash_bwd_dkv_tf32x3_kernel(const T* __restrict__ q,
+                                const T* __restrict__ k,
+                                const T* __restrict__ v,
+                                const T* __restrict__ dout,
                                 const float* __restrict__ lse,
                                 const float* __restrict__ delta,
                                 float* __restrict__ dk,
                                 float* __restrict__ dv, int sq, int sk, int h,
                                 int kvh, int d, float scale, int causal,
-                                int window, int offset) {
-  using T = Tile<DMAX>;
-  constexpr int M = T::kM, P = T::kP;
+                                int window, int offset, int gran) {
+  using Tl = Tile<T, DMAX>;
+  constexpr int M = Tl::kM, P = Tl::kP;
   constexpr int NT = M / 8;     // 8-row n-tiles of S^T per q tile
   constexpr int DT = DMAX / 8;  // 8-column tiles of head_dim
+  constexpr int kPlane = Tl::kPlanes ? Tl::kQ : 0;
   extern __shared__ float4 smem4[];
-  float* sK = reinterpret_cast<float*>(smem4);
-  float* sV = sK + T::kKV;
-  float* sQ = sV + T::kKV;       // + stage * kQ
-  float* sDO = sQ + 2 * T::kQ;   // + stage * kQ
-  float* sQh = sDO + 2 * T::kQ;  // the current tile split: Q hi, Q lo,
-  float* sQl = sQh + T::kQ;      // dO hi, dO lo
-  float* sDh = sQl + T::kQ;
-  float* sDl = sDh + T::kQ;
-  float* sL = sDl + T::kQ;       // + stage * M
+  T* sK = reinterpret_cast<T*>(smem4);
+  T* sV = sK + Tl::kKV;
+  T* sQ = sV + Tl::kKV;          // + stage * kQ
+  T* sDO = sQ + 2 * Tl::kQ;      // + stage * kQ
+  // the current tile split (float32 inputs): Q hi, Q lo, dO hi, dO lo
+  float* sQh = reinterpret_cast<float*>(sDO + 2 * Tl::kQ);
+  float* sQl = sQh + kPlane;
+  float* sDh = sQl + kPlane;
+  float* sDl = sDh + kPlane;
+  float* sL = sDl + kPlane;      // + stage * M
   float* sD = sL + 2 * M;        // + stage * M
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -137,10 +162,10 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
     const int hq = kvi * group + tile / n_rows;
     const int row0 = start + (tile % n_rows) * M;
     const int64_t q_off = (int64_t)bi * sq * q_stride + (int64_t)hq * d;
-    load_rows<M, DMAX, kThreads>(sQ + s * T::kQ, q + q_off, q_stride, row0,
-                                 sq, d, P);
-    load_rows<M, DMAX, kThreads>(sDO + s * T::kQ, dout + q_off, q_stride,
-                                 row0, sq, d, P);
+    load_tile<M, DMAX, kThreads, kWide>(sQ + s * Tl::kQ, q + q_off, q_stride,
+                                        row0, sq, d, P, gran);
+    load_tile<M, DMAX, kThreads, kWide>(sDO + s * Tl::kQ, dout + q_off,
+                                        q_stride, row0, sq, d, P, gran);
     if (threadIdx.x < M) {
       const int row = row0 + threadIdx.x;
       const bool ok = row < sq;
@@ -150,10 +175,10 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
     }
   };
 
-  load_rows<kBlockN, DMAX, kThreads>(sK, k + kv_off, kv_stride, kv0, sk, d,
-                                     P);
-  load_rows<kBlockN, DMAX, kThreads>(sV, v + kv_off, kv_stride, kv0, sk, d,
-                                     P);
+  load_tile<kBlockN, DMAX, kThreads, kWide>(sK, k + kv_off, kv_stride, kv0,
+                                            sk, d, P, gran);
+  load_tile<kBlockN, DMAX, kThreads, kWide>(sV, v + kv_off, kv_stride, kv0,
+                                            sk, d, P, gran);
   if (n_tiles > 0) issue(0);
   cp_async_commit();
 
@@ -162,8 +187,8 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
   const int col_a = kv0 + key;
   const int w_col0 = kv0 + 16 * warp;  // the warp's keys: w_col0 .. + 15
   const float scale_log2 = scale * kLog2e;
-  const float* kw = sK + key * P + t;
-  const float* vw = sV + key * P + t;
+  const T* kw = sK + key * P + t;
+  const T* vw = sV + key * P + t;
 
   float acc_k[DT][4], acc_v[DT][4];
 #pragma unroll
@@ -180,9 +205,13 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
     const int row0 = start + (tile % n_rows) * M;
     const float* tl = sL + s * M;
     const float* td = sD + s * M;
-    split_tile<T::kQ, kThreads>(sQ + s * T::kQ, sQh, sQl);
-    split_tile<T::kQ, kThreads>(sDO + s * T::kQ, sDh, sDl);
-    __syncthreads();
+    const T* tq = sQ + s * Tl::kQ;
+    const T* tdo = sDO + s * Tl::kQ;
+    if constexpr (Tl::kPlanes) {
+      split_tile<Tl::kQ, kThreads>(tq, sQh, sQl);
+      split_tile<Tl::kQ, kThreads>(tdo, sDh, sDl);
+      __syncthreads();
+    }
 
     // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x M rows per warp
     float st[NT][4], dpt[NT][4];
@@ -198,10 +227,16 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
       for (int j = 0; j < NT; ++j) {
         const int o = (8 * j + g) * P + c + t;
         uint32_t b_hi[2], b_lo[2];
-        load_b_planes(sQh, sQl, o, o + 4, b_hi, b_lo);
-        mma3(st[j], ka_hi, ka_lo, b_hi, b_lo);
-        load_b_planes(sDh, sDl, o, o + 4, b_hi, b_lo);
-        mma3(dpt[j], va_hi, va_lo, b_hi, b_lo);
+        if constexpr (Tl::kPlanes)
+          load_b_planes(sQh, sQl, o, o + 4, b_hi, b_lo);
+        else
+          load_b(tq[o], tq[o + 4], b_hi, b_lo);
+        mma_inputs<T>(st[j], ka_hi, ka_lo, b_hi, b_lo);
+        if constexpr (Tl::kPlanes)
+          load_b_planes(sDh, sDl, o, o + 4, b_hi, b_lo);
+        else
+          load_b(tdo[o], tdo[o + 4], b_hi, b_lo);
+        mma_inputs<T>(dpt[j], va_hi, va_lo, b_hi, b_lo);
       }
     }
 
@@ -242,13 +277,19 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
 #pragma unroll
       for (int n = 0; n < DT; ++n) {
         uint32_t b_hi[2], b_lo[2];
-        load_b_planes(sDh, sDl, o + 8 * n, o + P + 8 * n, b_hi, b_lo);
-        mma3(acc_v[n], p_hi, p_lo, b_hi, b_lo);
-        load_b_planes(sQh, sQl, o + 8 * n, o + P + 8 * n, b_hi, b_lo);
-        mma3(acc_k[n], ds_hi, ds_lo, b_hi, b_lo);
+        if constexpr (Tl::kPlanes)
+          load_b_planes(sDh, sDl, o + 8 * n, o + P + 8 * n, b_hi, b_lo);
+        else
+          load_b(tdo[o + 8 * n], tdo[o + P + 8 * n], b_hi, b_lo);
+        mma_mixed<T>(acc_v[n], p_hi, p_lo, b_hi, b_lo);
+        if constexpr (Tl::kPlanes)
+          load_b_planes(sQh, sQl, o + 8 * n, o + P + 8 * n, b_hi, b_lo);
+        else
+          load_b(tq[o + 8 * n], tq[o + P + 8 * n], b_hi, b_lo);
+        mma_mixed<T>(acc_k[n], ds_hi, ds_lo, b_hi, b_lo);
       }
     }
-    __syncthreads();  // the planes are read; the next tile may refill them
+    __syncthreads();  // the tile is read; the next issue may refill it
   }
 
   // C layout: acc[n][2 r + i] is key col_a + 8 r, column 8 n + 2 t + i;
@@ -261,65 +302,103 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
       const int c = 8 * n + 2 * t;
-      if (c < d) {
-        *reinterpret_cast<float2*>(dk + off + c) =
-            make_float2(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
-        *reinterpret_cast<float2*>(dv + off + c) =
-            make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+      if constexpr (kWide) {
+        if (c < d) {
+          *reinterpret_cast<float2*>(dk + off + c) =
+              make_float2(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
+          *reinterpret_cast<float2*>(dv + off + c) =
+              make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
+        }
+      } else {
+        store_pair(dk + off, c, d, acc_k[n][2 * r], acc_k[n][2 * r + 1]);
+        store_pair(dv + off, c, d, acc_v[n][2 * r], acc_v[n][2 * r + 1]);
       }
     }
   }
 }
 
-template <int DMAX>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* dout, const float* lse, const float* delta,
-                   float* dk, float* dv, int b, int sq, int sk, int h,
-                   int kvh, int d, float scale, int causal, int window,
-                   int offset, cudaStream_t stream) {
-  constexpr size_t smem = Tile<DMAX>::kBytes;
-  auto kernel = flash_bwd_dkv_tf32x3_kernel<DMAX>;
+template <typename T, int DMAX, bool kWide>
+cudaError_t launch(const T* q, const T* k, const T* v, const T* dout,
+                   const float* lse, const float* delta, float* dk,
+                   float* dv, int b, int sq, int sk, int h, int kvh, int d,
+                   float scale, int causal, int window, int offset, int gran,
+                   cudaStream_t stream) {
+  constexpr size_t smem = Tile<T, DMAX>::kBytes;
+  auto kernel = flash_bwd_dkv_tf32x3_kernel<T, DMAX, kWide>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sk + kBlockN - 1) / kBlockN, b * kvh);
   kernel<<<grid, kThreads, smem, stream>>>(q, k, v, dout, lse, delta, dk, dv,
                                            sq, sk, h, kvh, d, scale, causal,
-                                           window, offset);
+                                           window, offset, gran);
   return cudaGetLastError();
+}
+
+// the variant whose width (16, 32, 64 or 128 columns) is the smallest
+// that holds d
+template <typename T, bool kWide>
+cudaError_t dispatch(const void* q, const void* k, const void* v,
+                     const void* dout, const void* lse, const void* delta,
+                     void* dk, void* dv, int b, int sq, int sk, int h,
+                     int kvh, int d, float scale, int causal, int window,
+                     int offset, int gran, cudaStream_t s) {
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tdo = static_cast<const T*>(dout);
+  const float* fl = static_cast<const float*>(lse);
+  const float* fd = static_cast<const float*>(delta);
+  float* odk = static_cast<float*>(dk);
+  float* odv = static_cast<float*>(dv);
+  if (d <= 16)
+    return launch<T, 16, kWide>(tq, tk, tv, tdo, fl, fd, odk, odv, b, sq, sk,
+                                h, kvh, d, scale, causal, window, offset,
+                                gran, s);
+  if (d <= 32)
+    return launch<T, 32, kWide>(tq, tk, tv, tdo, fl, fd, odk, odv, b, sq, sk,
+                                h, kvh, d, scale, causal, window, offset,
+                                gran, s);
+  if (d <= 64)
+    return launch<T, 64, kWide>(tq, tk, tv, tdo, fl, fd, odk, odv, b, sq, sk,
+                                h, kvh, d, scale, causal, window, offset,
+                                gran, s);
+  return launch<T, 128, kWide>(tq, tk, tv, tdo, fl, fd, odk, odv, b, sq, sk,
+                               h, kvh, d, scale, causal, window, offset, gran,
+                               s);
 }
 
 }  // namespace
 
-// q and dout (b, sq, h, d), k and v (b, sk, kvh, d): contiguous float32,
-// d a multiple of 8 up to 128, 16-byte aligned bases; lse and delta (b,
-// sq, h) float32; dk and dv (b, sk, kvh, d) float32, every element
-// written. Launches on `stream` and returns cudaGetLastError().
+// q and dout (b, sq, h, d), k and v (b, sk, kvh, d): contiguous, float32
+// (dtype 0) or bf16 (dtype 1), 1 <= d <= 128, any base aligned to the
+// element; lse and delta (b, sq, h) float32; dk and dv (b, sk, kvh, d)
+// float32, every element written. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int lo_flash_bwd_dkv_tf32x3(const void* q, const void* k,
                                        const void* v, const void* dout,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int b, int sq,
                                        int sk, int h, int kvh, int d,
                                        float scale, int causal, int window,
-                                       int offset, void* stream) {
+                                       int offset, int dtype, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || h < 1 || kvh < 1 || h % kvh != 0 ||
-      d < 8 || d > 128 || d % 8 != 0 || (int64_t)b * kvh > 65535)
+      d < 1 || d > 128 || (dtype != 0 && dtype != 1) ||
+      (int64_t)b * kvh > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fq = static_cast<const float*>(q);
-  const float* fk = static_cast<const float*>(k);
-  const float* fv = static_cast<const float*>(v);
-  const float* fdo = static_cast<const float*>(dout);
-  const float* fl = static_cast<const float*>(lse);
-  const float* fd = static_cast<const float*>(delta);
-  float* odk = static_cast<float*>(dk);
-  float* odv = static_cast<float*>(dv);
-  if (d <= 32)
-    return (int)launch<32>(fq, fk, fv, fdo, fl, fd, odk, odv, b, sq, sk, h,
-                           kvh, d, scale, causal, window, offset, s);
-  if (d <= 64)
-    return (int)launch<64>(fq, fk, fv, fdo, fl, fd, odk, odv, b, sq, sk, h,
-                           kvh, d, scale, causal, window, offset, s);
-  return (int)launch<128>(fq, fk, fv, fdo, fl, fd, odk, odv, b, sq, sk, h,
-                          kvh, d, scale, causal, window, offset, s);
+  const void* bases[] = {q, k, v, dout};
+  const int gran = granule(d * (dtype == 1 ? 2 : 4), bases, 4);
+  if (dtype == 1)
+    return (int)dispatch<__nv_bfloat16, false>(q, k, v, dout, lse, delta, dk,
+                                               dv, b, sq, sk, h, kvh, d,
+                                               scale, causal, window, offset,
+                                               gran, s);
+  if (gran == 16)
+    return (int)dispatch<float, true>(q, k, v, dout, lse, delta, dk, dv, b,
+                                      sq, sk, h, kvh, d, scale, causal,
+                                      window, offset, gran, s);
+  return (int)dispatch<float, false>(q, k, v, dout, lse, delta, dk, dv, b, sq,
+                                     sk, h, kvh, d, scale, causal, window,
+                                     offset, gran, s);
 }

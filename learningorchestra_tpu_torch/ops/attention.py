@@ -12,15 +12,17 @@ heads, ``kv | heads``.
   :func:`flash_attention_reference` and :func:`flash_bwd_reference`. A
   CUDA tensor never falls back to a plain version or to another route:
   the kernel launches or the call raises.
-- Routes, forward and backward alike, by :func:`_route`: bf16 with a
-  head_dim that is a multiple of 8 up to 128 takes the wgmma + TMA
-  tensor-core kernels ``csrc/flash_fwd_sm90.cu``,
-  ``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``;
-  float32 with such a head_dim the split-TF32 tensor-core kernels
-  (mma.sync + cp.async) ``csrc/flash_fwd_tf32x3.cu``,
-  ``csrc/flash_bwd_dq_tf32x3.cu`` and ``csrc/flash_bwd_dkv_tf32x3.cu``;
-  every other head_dim the CUDA-core ``csrc/flash_fwd.cu``,
-  ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu``.
+- Routes, one per pass, by :func:`_route`: bf16 with a head_dim that
+  is a multiple of 8 up to 128 takes the wgmma + TMA tensor-core kernels
+  ``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu`` and
+  ``csrc/flash_bwd_dkv_sm90.cu``; float32 with such a head_dim the
+  split-TF32 tensor-core kernels (mma.sync + cp.async)
+  ``csrc/flash_fwd_tf32x3.cu``, ``csrc/flash_bwd_dq_tf32x3.cu`` and
+  ``csrc/flash_bwd_dkv_tf32x3.cu``. Every other head_dim up to 128 runs
+  its forward on the CUDA-core ``csrc/flash_fwd.cu`` and its backward on
+  the split-TF32 dQ and dK/dV kernels, in either dtype. The CUDA-core
+  ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` have no route:
+  they stay as the comparison the tensor-core kernels are timed against.
 - :func:`full_attention_reference` is the ``dot`` implementation.
 - :func:`decode_attention` is the serving plane's single-token op, left
   as plain tensor ops exactly as the JAX package left it.
@@ -262,18 +264,34 @@ def _bf16_split(x: torch.Tensor) -> torch.Tensor:
     return hi + (x - hi).to(torch.bfloat16).float()
 
 
-def _route(q) -> str:
-    """The kernels a CUDA tensor takes, the forward and the backward
-    alike: ``"sm90"`` (bf16 on the tensor-core route,
-    :func:`_tensor_core_route`), ``"tf32x3"`` (float32 with a head_dim
-    that is a multiple of 8 up to 128: split-TF32 tensor cores; cp.async
-    copies 16 bytes) or ``"cuda"`` (every other head_dim, CUDA cores). A
-    CPU tensor never gets here (it runs the plain version)."""
+def _route(q, backward: bool = False) -> str:
+    """The kernels a CUDA tensor takes in one pass, the forward or the
+    backward (dQ and dK/dV together):
+
+    ===============================  ==========  ===========
+    q (dtype, head_dim d)            forward     backward
+    ===============================  ==========  ===========
+    bf16, d % 8 == 0, d <= 128       ``sm90``    ``sm90``
+    float32, d % 8 == 0, d <= 128    ``tf32x3``  ``tf32x3``
+    float32 or bf16, other d <= 128  ``cuda``    ``tf32x3``
+    anything else                    ``cuda``    ``cuda``
+    ===============================  ==========  ===========
+
+    ``sm90``: wgmma tensor cores (:func:`_tensor_core_route`).
+    ``tf32x3``: split-TF32 mma.sync tensor cores; the forward reads
+    float32 rows in 16-byte copies, the backward kernels zero-fill any
+    head_dim to their variant's width and take bf16 too. ``cuda``: the
+    CUDA-core forward, whose wrapper refuses what it does not take; in
+    the backward, no kernel takes the input and :func:`_flash_bwd`
+    raises. A CPU tensor never gets here (it runs the plain version)."""
     if _tensor_core_route(q):
         return "sm90"
     d = q.shape[-1]
-    if (q.device.type == "cuda" and q.dtype == torch.float32
-            and d % 8 == 0 and d <= _MAX_HEAD_DIM):
+    if q.device.type != "cuda" or d > _MAX_HEAD_DIM:
+        return "cuda"
+    if q.dtype == torch.float32 and d % 8 == 0:
+        return "tf32x3"
+    if backward and q.dtype in _DTYPE_CODES:
         return "tf32x3"
     return "cuda"
 
@@ -358,7 +376,9 @@ def _bwd_inputs(kernel: str, q, k, v, do, lse, delta) -> None:
 def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
                        scale: float, window: int,
                        offset: int) -> torch.Tensor:
-    """float32 dq (b, sq, h, d) from the flash_bwd_dq kernel."""
+    """float32 dq (b, sq, h, d) from the CUDA-core flash_bwd_dq kernel.
+    No route takes it (:func:`_route`): it is the comparison the
+    tensor-core dQ kernels are timed against."""
     global FLASH_BWD_DQ_LAUNCHES
     _bwd_inputs("flash_bwd_dq", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
@@ -411,8 +431,9 @@ def _flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal: bool,
 def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
                         scale: float, window: int, offset: int,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float32 (dk, dv), each (b, sk, kvh, d), from the flash_bwd_dkv
-    kernel."""
+    """float32 (dk, dv), each (b, sk, kvh, d), from the CUDA-core
+    flash_bwd_dkv kernel. No route takes it (:func:`_route`): it is the
+    comparison the tensor-core dK/dV kernels are timed against."""
     global FLASH_BWD_DKV_LAUNCHES
     _bwd_inputs("flash_bwd_dkv", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
@@ -477,9 +498,11 @@ def _flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal: bool,
     return dk, dv
 
 
-def _check_tf32x3(kernel: str, q, tensors) -> None:
-    """The split-TF32 kernels read float32 rows with 16-byte cp.async
-    copies: float32, head_dim a multiple of 8, 16-byte aligned bases."""
+def _check_fwd_tf32x3(kernel: str, q, tensors) -> None:
+    """The split-TF32 forward reads float32 rows with 16-byte cp.async
+    copies: float32, head_dim a multiple of 8, 16-byte aligned bases.
+    (The backward kernels take float32 or bf16 at any head_dim up to
+    128, which :func:`_check_shape` holds them to.)"""
     for name, t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{kernel} takes float32; {name} is {t.dtype}")
@@ -497,7 +520,7 @@ def _flash_fwd_tf32x3(q, k, v, causal: bool, scale: float, window: int,
     kernel: float32 o (b, sq, h, d) and lse (b, sq, h)."""
     global FLASH_FWD_LAUNCHES, FLASH_FWD_TF32X3_LAUNCHES
     tensors = (("q", q), ("k", k), ("v", v))
-    _check_tf32x3("flash_fwd_tf32x3", q, tensors)
+    _check_fwd_tf32x3("flash_fwd_tf32x3", q, tensors)
     _check_cuda("flash_fwd_tf32x3", tensors)
     _check_shape("flash_fwd_tf32x3", q, k)
     b, sq, h, d = q.shape
@@ -524,23 +547,22 @@ def _flash_bwd_dq_tf32x3(q, k, v, do, lse, delta, causal: bool,
                          scale: float, window: int,
                          offset: int) -> torch.Tensor:
     """float32 dq (b, sq, h, d) from the split-TF32 tensor-core
-    flash_bwd_dq_tf32x3 kernel."""
+    flash_bwd_dq_tf32x3 kernel: float32 or bf16 inputs, any head_dim up
+    to 128."""
     global FLASH_BWD_DQ_LAUNCHES, FLASH_BWD_DQ_TF32X3_LAUNCHES
-    tensors = (("q", q), ("k", k), ("v", v), ("do", do))
-    _check_tf32x3("flash_bwd_dq_tf32x3", q, tensors)
     _bwd_inputs("flash_bwd_dq_tf32x3", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     fn = _kernel("flash_bwd_dq_tf32x3", [ctypes.c_void_p] * 7
                  + [ctypes.c_int] * 6 + [ctypes.c_float]
-                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq,
                  sk, h, kvh, d, float(scale), int(bool(causal)),
-                 int(window), int(offset), stream)
+                 int(window), int(offset), _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq_tf32x3 launch failed: CUDA error "
                            f"{err}")
@@ -553,16 +575,15 @@ def _flash_bwd_dkv_tf32x3(q, k, v, do, lse, delta, causal: bool,
                           scale: float, window: int, offset: int,
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32 (dk, dv), each (b, sk, kvh, d), from the split-TF32
-    tensor-core flash_bwd_dkv_tf32x3 kernel."""
+    tensor-core flash_bwd_dkv_tf32x3 kernel: float32 or bf16 inputs, any
+    head_dim up to 128."""
     global FLASH_BWD_DKV_LAUNCHES, FLASH_BWD_DKV_TF32X3_LAUNCHES
-    tensors = (("q", q), ("k", k), ("v", v), ("do", do))
-    _check_tf32x3("flash_bwd_dkv_tf32x3", q, tensors)
     _bwd_inputs("flash_bwd_dkv_tf32x3", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     fn = _kernel("flash_bwd_dkv_tf32x3", [ctypes.c_void_p] * 8
                  + [ctypes.c_int] * 6 + [ctypes.c_float]
-                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
     dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
     with torch.cuda.device(q.device):
@@ -570,7 +591,8 @@ def _flash_bwd_dkv_tf32x3(q, k, v, do, lse, delta, causal: bool,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                  dv.data_ptr(), b, sq, sk, h, kvh, d, float(scale),
-                 int(bool(causal)), int(window), int(offset), stream)
+                 int(bool(causal)), int(window), int(offset),
+                 _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv_tf32x3 launch failed: CUDA error "
                            f"{err}")
@@ -609,13 +631,15 @@ def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float,
                                    window=window, kv_offset=offset)
     do = do.contiguous()
     delta = _bwd_delta(o, do, dlse)
-    route = _route(q)
+    route = _route(q, backward=True)
     if route == "sm90":
         dq_fn, dkv_fn = _flash_bwd_dq_sm90, _flash_bwd_dkv_sm90
     elif route == "tf32x3":
         dq_fn, dkv_fn = _flash_bwd_dq_tf32x3, _flash_bwd_dkv_tf32x3
     else:
-        dq_fn, dkv_fn = _flash_bwd_dq_cuda, _flash_bwd_dkv_cuda
+        raise ValueError(f"flash attention backward takes float32 or "
+                         f"bfloat16 with head_dim <= {_MAX_HEAD_DIM}, got "
+                         f"{q.dtype} at head_dim {q.shape[-1]}")
     args = (q, k, v, do, lse, delta, causal, scale, window, offset)
     dq = dq_fn(*args)
     dk, dv = dkv_fn(*args)

@@ -10,14 +10,18 @@ or the ones named) that differ only in the rows of the streamed tile at
 head_dim <= 64 (forward and dQ: keys per stage, ``kN``; dK/dV: q rows
 per stage, ``kM``) and in the blocks per SM ptxas is told to fit
 (``kMinBlocks`` in ``__launch_bounds__``, which caps the registers),
-each from a text-substituted copy under ``build/variants/`` (the sources
+and, for the backward kernels, one ``narrow`` variant that sends
+float32 rows at d % 4 == 0 through the any-width loads and pair stores
+(``kWide`` false) instead of the 16-byte path, each from a text-substituted copy under ``build/variants/`` (the sources
 in the package are not touched). Each variant is checked against its
 plain version (``flash_attention_reference``, ``flash_bwd_reference``)
 at the float32 tolerance (it fails the run outside it) and timed with
 CUDA events, in turns (every variant, then every variant again in
 reverse order): the backward kernels at the training path's shape (b 8,
-2048 tokens, 8 heads over 4 kv heads, d 64, causal, window 1024), the
-forward at that shape and at the serving prefill's (b 1, 1536 tokens).
+2048 tokens, 8 heads over 4 kv heads, d 64, causal, window 1024) and at
+the d-12 LM's (b 2, d 12: the width-16 variants), the forward at the
+training shape and at the serving prefill's (b 1, 1536 tokens), all in
+float32.
 Prints the card's name and power limit, ptxas's registers and spills
 per variant, and one JSON line per kernel and shape. Needs a card and
 nvcc; exits 2 without a card.
@@ -37,15 +41,19 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 
 # kernel -> (the lines of the source that set the tile rows and the
 # blocks per SM, their text with {rows} and {blocks}, variants of (name,
-# rows at d <= 64, minimum blocks per SM at d <= 64), the shapes (b, s,
-# h, kvh, d, causal, window) it is timed at); the package's own variant
-# is the first of each
+# rows at d <= 64, minimum blocks per SM at d <= 64[, further text
+# replacements]), the shapes (b, s, h, kvh, d, causal, window) it is
+# timed at); the package's own variant is the first of each
 # pointer arguments of each entry point: q, k, v (and dO, lse, delta in
 # the backward), then the outputs (o and lse, dq, or dk and dv)
 POINTERS = {"flash_fwd_tf32x3": 5, "flash_bwd_dq_tf32x3": 7,
             "flash_bwd_dkv_tf32x3": 8}
 TRAIN_SHAPE = (8, 2048, 8, 4, 64, True, 1024)
 SERVE_SHAPE = (1, 1536, 8, 4, 64, True, 1024)
+# the d-12 LM's micro-step: the backward's width-16 variants
+D12_SHAPE = (2, 2048, 8, 4, 12, True, 1024)
+# the backward entries' float32 launch without the 16-byte path
+NARROW = {"dispatch<float, true>": "dispatch<float, false>"}
 KERNELS = {
     "flash_fwd_tf32x3": (
         ("static constexpr int kN = 32;",
@@ -56,19 +64,23 @@ KERNELS = {
          ("n32b2", 32, 2), ("n16b3", 16, 3)],
         (TRAIN_SHAPE, SERVE_SHAPE)),
     "flash_bwd_dkv_tf32x3": (
-        ("static constexpr int kM = 32;",
+        ("static constexpr int kM = DMAX == 16 ? 64 : 32;",
          "static constexpr int kMinBlocks = 1;"),
         ("static constexpr int kM = DMAX == 128 ? 32 : {rows};",
          "static constexpr int kMinBlocks = DMAX == 128 ? 1 : {blocks};"),
-        [("m32", 32, 1), ("m64", 64, 1), ("m16b3", 16, 3)],
-        (TRAIN_SHAPE,)),
+        # the package's own: 64 rows at width 16, else 32
+        [("m64at16", "DMAX == 16 ? 64 : 32", 1),
+         ("narrow", "DMAX == 16 ? 64 : 32", 1, NARROW), ("m32", 32, 1),
+         ("m64", 64, 1), ("m16b3", 16, 3), ("m16", 16, 1)],
+        (TRAIN_SHAPE, D12_SHAPE)),
     "flash_bwd_dq_tf32x3": (
         ("static constexpr int kN = 32;",
          "static constexpr int kMinBlocks = 1;"),
         ("static constexpr int kN = DMAX == 128 ? 32 : {rows};",
          "static constexpr int kMinBlocks = DMAX == 128 ? 1 : {blocks};"),
-        [("n32", 32, 1), ("n64", 64, 1), ("n16b3", 16, 3)],
-        (TRAIN_SHAPE,)),
+        [("n32", 32, 1), ("narrow", 32, 1, NARROW), ("n64", 64, 1),
+         ("n16b3", 16, 3), ("n16", 16, 1)],
+        (TRAIN_SHAPE, D12_SHAPE)),
 }
 
 
@@ -81,11 +93,15 @@ def _build_variants(_build, kernels) -> dict:
         src = (_build.CSRC / f"{kernel}.cu").read_text()
         if not all(line in src for line in lines):
             raise RuntimeError(f"{kernel}: the tile lines have changed")
-        for name, rows, blocks in variants:
+        for name, rows, blocks, *extra in variants:
             text = src
             for line, template in zip(lines, templates):
                 text = text.replace(line, template.format(rows=rows,
                                                           blocks=blocks))
+            for old, new in (extra[0] if extra else {}).items():
+                if old not in text:
+                    raise RuntimeError(f"{kernel} {name}: no {old!r}")
+                text = text.replace(old, new)
             cu = out_dir / f"{kernel}_{name}.cu"
             cu.write_text(text)
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, f"-I{_build.CSRC}",
@@ -99,9 +115,14 @@ def _build_variants(_build, kernels) -> dict:
         if proc.returncode != 0:
             raise RuntimeError(f"{kernel} {name}: nvcc exited "
                                f"{proc.returncode}\n{err}")
-        # ptxas reports the d 32, 64 and 128 instances; keep the d 64 one
+        # ptxas reports every instance; keep the float32 d 64 one (the
+        # backward kernels' is the wide one, template <float, 64, true>,
+        # or the narrow variant's <float, 64, false>)
         log = out + err
-        report = log[log.index("kernelILi64E"):]
+        report = log[log.index(
+            "kernelILi64E" if kernel == "flash_fwd_tf32x3"
+            else "kernelIfLi64ELb0E" if name == "narrow"
+            else "kernelIfLi64ELb1E"):]
         regs = re.search(r"Used (\d+) registers", report).group(1)
         spills = re.search(r"(\d+) bytes spill stores", report).group(1)
         print(f"ptxas {kernel} {name}: d 64 registers {regs}, spill "
@@ -109,9 +130,11 @@ def _build_variants(_build, kernels) -> dict:
         fn = getattr(ctypes.CDLL(str(out_dir / f"{kernel}_{name}.so")),
                      f"lo_{kernel}")
         fn.restype = ctypes.c_int
+        # the backward entry points take a dtype code after the offset
         fn.argtypes = [ctypes.c_void_p] * POINTERS[kernel] \
-            + [ctypes.c_int] * 6 \
-            + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 6 + [ctypes.c_float] \
+            + [ctypes.c_int] * (3 if kernel == "flash_fwd_tf32x3" else 4) \
+            + [ctypes.c_void_p]
         fns[(kernel, name)] = fn
     return fns
 
@@ -142,6 +165,8 @@ def _runner(torch, attn, kernel, shape, gen):
     scale = 1.0 / d ** 0.5
     stream = torch.cuda.current_stream().cuda_stream
     dims = (b, s, s, h, kvh, d, scale, int(causal), window, 0, stream)
+    if kernel != "flash_fwd_tf32x3":
+        dims = dims[:-1] + (0, stream)  # dtype code 0: float32
     if kernel == "flash_fwd_tf32x3":
         outs = [torch.empty_like(q), torch.empty(b, s, h, device="cuda")]
         ins = (q, k, v)
@@ -201,7 +226,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(3)
     for kernel in kernels:
         _, _, variants, shapes = KERNELS[kernel]
-        names = [name for name, _, _ in variants]
+        names = [name for name, *_ in variants]
         for shape in shapes:
             run, check = _runner(torch, attn, kernel, shape, gen)
             for name in names:

@@ -266,15 +266,22 @@ def test_cpu_calls_never_reach_the_route_predicate(monkeypatch):
     (torch.bfloat16, 64, "sm90"),
     (torch.bfloat16, 128, "sm90"),
     (torch.float32, 64, "tf32x3"),
-    (torch.float32, 36, "cuda"),    # not a multiple of 8
-    (torch.bfloat16, 20, "cuda"),   # not a multiple of 8
+    (torch.float32, 36, "tf32x3"),    # not a multiple of 8
+    (torch.bfloat16, 20, "tf32x3"),   # not a multiple of 8
+    # the forward route test's (dtype, d) pairs (tests/test_torch_tf32x3
+    # .py), where the forward takes the CUDA-core kernel at d 12 and 13
+    (torch.float32, 128, "tf32x3"),
+    (torch.float32, 12, "tf32x3"),
+    (torch.float32, 13, "tf32x3"),
+    (torch.bfloat16, 12, "tf32x3"),
+    (torch.bfloat16, 13, "tf32x3"),
 ])
 def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
     """On a card, _flash_bwd sends dQ and dK/dV down the same route:
-    bf16 with head_dim % 8 == 0 to the wgmma kernels, float32 with such
-    a head_dim to the split-TF32 ones, any other head_dim to the
-    CUDA-core ones. The launches are stubbed and the tensors claim a
-    CUDA device to the route predicate."""
+    bf16 with head_dim % 8 == 0 to the wgmma kernels, every other
+    float32 or bf16 head_dim up to 128 to the split-TF32 ones, never to
+    the CUDA-core kernels. The launches are stubbed and the tensors
+    claim a CUDA device to the route predicate."""
     real_route = attn._route
     ran = []
 
@@ -287,9 +294,9 @@ def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
         return launch
 
     monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
-    monkeypatch.setattr(attn, "_route", lambda q: real_route(
+    monkeypatch.setattr(attn, "_route", lambda q, backward=False: real_route(
         types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
-                              shape=q.shape)))
+                              shape=q.shape), backward))
     for name, outs in (("_flash_bwd_dq_sm90", 1), ("_flash_bwd_dq_cuda", 1),
                        ("_flash_bwd_dq_tf32x3", 1),
                        ("_flash_bwd_dkv_sm90", 2),
@@ -303,6 +310,33 @@ def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
                                  True, 0.125, 0, 0)
     assert ran == [f"_flash_bwd_dq_{route}", f"_flash_bwd_dkv_{route}"]
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 136),
+                                     (torch.float16, 36)])
+def test_backward_raises_where_no_kernel_takes_the_input(monkeypatch, dtype,
+                                                         d):
+    """On a card, a head_dim above 128 or a float16 tensor has no
+    backward kernel: _flash_bwd raises before any wrapper is called,
+    and never falls back to the plain version."""
+    real_route = attn._route
+    ran = []
+    monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
+    monkeypatch.setattr(attn, "_route", lambda q, backward=False: real_route(
+        types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
+                              shape=q.shape), backward))
+    for name in ("_flash_bwd_dq_sm90", "_flash_bwd_dq_cuda",
+                 "_flash_bwd_dq_tf32x3", "_flash_bwd_dkv_sm90",
+                 "_flash_bwd_dkv_cuda", "_flash_bwd_dkv_tf32x3",
+                 "flash_bwd_reference"):
+        monkeypatch.setattr(attn, name,
+                            lambda *a, _name=name, **kw: ran.append(_name))
+    q, k, v = (t.to(dtype) for t in _t(*_qkv(18, 1, 16, 16, 4, 2, d)))
+    lse = torch.zeros(q.shape[:3])
+    with pytest.raises(ValueError, match="head_dim <= 128"):
+        attn._flash_bwd(q, k, v, torch.zeros_like(q), lse,
+                        torch.ones_like(q), None, True, 0.125, 0, 0)
+    assert ran == []
 
 
 @pytest.mark.parametrize("wrapper", ["_flash_fwd_sm90", "_flash_bwd_dq_sm90",

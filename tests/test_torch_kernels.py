@@ -228,7 +228,7 @@ def test_float32_keeps_the_cuda_core_route_on_card():
     """float32 (and a head_dim off the multiple of 8) never reaches the
     wgmma kernels: float32 at d 64 takes the split-TF32 forward and
     backward, and a head_dim off the multiple of 8 (float32 at d 12, bf16
-    at d 20) the CUDA-core forward and backward."""
+    at d 20) the CUDA-core forward and the split-TF32 backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     counters = ("FLASH_FWD_SM90_LAUNCHES", "FLASH_BWD_DQ_SM90_LAUNCHES",
@@ -245,40 +245,52 @@ def test_float32_keeps_the_cuda_core_route_on_card():
         torch.autograd.grad(o.float().sum(), (q, k, v))
     torch.cuda.synchronize()
     assert [getattr(attn, c) - n for c, n in zip(counters, before)] == \
-        [0, 0, 0, 3, 3, 3, 1, 1, 1]
+        [0, 0, 0, 3, 3, 3, 3, 3, 1]
 
 
-# (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse) in float32 on
-# the split-TF32 route: chip_smoke's training shape and edge cases —
+# (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse) on the
+# split-TF32 route: chip_smoke's training shape and edge cases —
 # non-causal ragged sk at d 32, MQA, a kv_offset that leaves rows with no
-# visible key under a dlse term at d 128, a head_dim of 72
+# visible key under a dlse term at d 128, a head_dim of 72 — and head
+# dims off the multiple of 8, which only the backward takes: the d-12
+# LM's shape at 2 x 256 tokens, an odd d 13 (a bf16 row of odd length)
+# with ragged sq and sk under a dlse term, d 36 (a multiple of 4, between
+# widths) with GQA, causal and a window
 _TF32X3_CASES = [(8, 2048, 2048, 8, 4, 64, True, 1024, 0, False),
                  (2, 77, 201, 4, 2, 32, False, 0, 0, False),
                  (2, 130, 130, 8, 1, 64, True, 0, 0, False),
                  (2, 64, 64, 4, 4, 128, True, 16, 40, True),
-                 (1, 150, 150, 4, 4, 72, True, 0, 0, False)]
+                 (1, 150, 150, 4, 4, 72, True, 0, 0, False),
+                 (2, 256, 256, 8, 4, 12, True, 1024, 0, False),
+                 (2, 75, 131, 4, 4, 13, False, 0, 0, True),
+                 (2, 160, 160, 8, 2, 36, True, 48, 0, False)]
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", _TF32X3_CASES)
-def test_tf32x3_backward_on_card(case):
+def test_tf32x3_backward_on_card(case, dtype):
     """flash_bwd_dq_tf32x3 and flash_bwd_dkv_tf32x3 against the float32
     plain version and against the plain version that splits every
     product 3xTF32 as the kernels do, each at the float32 tolerance (1e-4
-    max |g| + 1e-4 |g|): the split departs by about 2^-22 of sum |x||y|.
-    Rows with no visible key get dQ 0; the same inputs give the same
-    bits twice (no atomics)."""
+    max |g| + 1e-4 |g|): the split departs by about 2^-22 of sum |x||y|,
+    and bf16 inputs are exact in TF32 (their lo terms are 0), so bf16 is
+    held to the same. Rows with no visible key get dQ 0; the same inputs
+    give the same bits twice (no atomics)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     b, sq, sk, h, kvh, d, causal, window, offset, with_dlse = case
     rng = np.random.default_rng(15)
-    q, k, v = (torch.from_numpy(a).cuda()
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype)
                for a in _qkv(16, b, sq, sk, h, kvh, d))
     do = torch.from_numpy(rng.standard_normal(
-        (b, sq, h, d), dtype=np.float32)).cuda()
+        (b, sq, h, d), dtype=np.float32)).cuda().to(dtype)
     dlse = torch.from_numpy(rng.standard_normal(
         (b, sq, h), dtype=np.float32)).cuda() if with_dlse else None
-    assert attn._route(q) == "tf32x3"
+    # bf16 at a multiple of 8 routes to the wgmma kernels; the split-TF32
+    # ones still take it when called
+    assert attn._route(q, backward=True) == (
+        "sm90" if dtype == torch.bfloat16 and d % 8 == 0 else "tf32x3")
     scale = 1.0 / d ** 0.5
     o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
     delta = attn._bwd_delta(o, do, dlse)
@@ -309,7 +321,7 @@ def test_tf32x3_backward_on_card(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", _TF32X3_CASES)
+@pytest.mark.parametrize("case", [c for c in _TF32X3_CASES if c[5] % 8 == 0])
 def test_tf32x3_forward_on_card(case):
     """flash_fwd_tf32x3 against the float32 plain version and against the
     plain version that splits both products 3xTF32 as the kernel does,

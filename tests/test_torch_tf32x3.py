@@ -1,15 +1,20 @@
-"""The float32 tensor-core (split TF32, 3xTF32) route of the PyTorch
-port on the CPU: the plain split that emulates ``cvt.rna.tf32``, the
-plain forward and backward with every product split as the kernels split
-it against the JAX package's Pallas forward and backward (interpret
-mode, as tests/test_ops.py runs them), the route predicate, and the
-wrappers' refusals. The kernels themselves run only on a card
-(tests/test_torch_kernels.py, chip_smoke.py).
+"""The split-TF32 (3xTF32) tensor-core route of the PyTorch port on the
+CPU: the plain split that emulates ``cvt.rna.tf32`` (and leaves a bf16
+value whole), the plain forward and backward with every product split
+as the kernels split it against the JAX package's Pallas forward and
+backward (interpret mode, as tests/test_ops.py runs them; JAX pads the
+head_dim to 128, the kernels to their variant's width), the route
+predicate of each pass, and the wrappers' refusals. The kernels
+themselves run only on a card (tests/test_torch_kernels.py,
+chip_smoke.py).
 
 Tolerance: atol 2e-5, rtol 2e-5 on the forward and atol 5e-5, rtol 5e-4
 on gradients, as tests/test_ops.py holds the Pallas kernel against its
 float32 oracle; the split departs from float32 products by about 2^-22
-of sum |x| |y|, far below it.
+of sum |x| |y|, far below it. A bf16 case's inputs are bf16 values,
+which JAX gets as the same values in float32: its gradients keep the
+float32 tolerance, and its forward o, rounded to bf16 once, half a bf16
+ulp more (rtol 2^-8).
 """
 
 import types
@@ -27,6 +32,7 @@ torch.set_num_threads(2)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 GRAD_TOL = dict(atol=5e-5, rtol=5e-4)
+BF16_O_TOL = dict(atol=2e-5, rtol=2.0 ** -8)
 
 
 def _bits(*patterns):
@@ -72,6 +78,23 @@ def test_tf32_split_keeps_ten_mantissa_bits_and_hi_lo_within_bound():
     assert bool((((hi + lo) - x).abs() <= 2.0 ** -21 * x.abs()).all())
 
 
+def test_tf32_split_leaves_every_bf16_value_whole():
+    """Every finite bf16 value (all 65,536 bit patterns but inf and NaN)
+    is exact in TF32: hi is the value itself and lo is 0, bit for bit.
+    The tf32x3 backward kernels drop the lo terms of bf16 inputs on
+    this."""
+    bits = np.arange(1 << 16, dtype=np.uint32) << 16
+    x = torch.from_numpy(bits.view(np.float32))
+    x = x[torch.isfinite(x)]
+    # less the 256 patterns with an all-ones exponent (inf and NaN)
+    assert x.numel() == (1 << 16) - (1 << 8)
+    assert torch.equal(x.bfloat16().float(), x)
+    hi, lo = attn._tf32_split(x.bfloat16())
+    assert torch.equal(hi.view(torch.int32), x.view(torch.int32))
+    assert torch.equal(lo.view(torch.int32), torch.zeros_like(
+        x.view(torch.int32)))
+
+
 def test_tf32x3_einsum_is_float32_accurate():
     """Three TF32 products: the split product departs from the float32
     one by about 2^-22 sum |x||y|, where one TF32 product departs by about
@@ -89,20 +112,30 @@ def test_tf32x3_einsum_is_float32_accurate():
     assert bool(((single - exact).abs() > 2.0 ** -21 * bound + f32).any())
 
 
-def _inputs(seed, b, sq, sk, h, kvh, d):
+def _inputs(seed, b, sq, sk, h, kvh, d, dtype=torch.float32):
+    """q, k, v, dO and dlse from numpy; in bf16 the first four are
+    rounded to bf16 values (still float32 arrays: JAX gets them so)."""
     rng = np.random.default_rng(seed)
-    return tuple(rng.standard_normal(shape, dtype=np.float32) for shape in (
+    out = [rng.standard_normal(shape, dtype=np.float32) for shape in (
         (b, sq, h, d), (b, sk, kvh, d), (b, sk, kvh, d), (b, sq, h, d),
-        (b, sq, h)))
+        (b, sq, h))]
+    if dtype == torch.bfloat16:
+        out[:4] = [torch.from_numpy(a).bfloat16().float().numpy()
+                   for a in out[:4]]
+    return tuple(out)
 
 
-# (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse)
+# (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse, dtype)
 _SPLIT_CASES = [
-    (2, 48, 48, 4, 2, 16, True, 16, 0, False),    # causal + window, GQA
-    (1, 40, 40, 4, 1, 16, True, 0, 0, False),     # MQA
-    (2, 32, 32, 2, 2, 16, True, 4, 20, True),     # offset: empty rows, dlse
-    (2, 40, 56, 4, 2, 16, False, 0, 0, False),    # ragged sk
-    (1, 32, 32, 2, 2, 128, True, 0, 0, False),    # d 128
+    (2, 48, 48, 4, 2, 16, True, 16, 0, False, torch.float32),  # GQA, window
+    (1, 40, 40, 4, 1, 16, True, 0, 0, False, torch.float32),   # MQA
+    (2, 32, 32, 2, 2, 16, True, 4, 20, True, torch.float32),   # empty rows
+    (2, 40, 56, 4, 2, 16, False, 0, 0, False, torch.float32),  # ragged sk
+    (1, 32, 32, 2, 2, 128, True, 0, 0, False, torch.float32),  # d 128
+    # head dims off the multiple of 8: d 12 (the d-12 LM's) in bf16, GQA,
+    # causal + window; d 13 (odd) with ragged sq and sk and a dlse term
+    (2, 48, 48, 4, 2, 12, True, 16, 0, False, torch.bfloat16),
+    (2, 24, 40, 2, 2, 13, False, 0, 0, True, torch.float32),
 ]
 
 
@@ -112,11 +145,11 @@ def test_split_forward_matches_jax(case):
     tf32x3 forward multiplies, against the Pallas forward (_fwd_kernel
     in interpret mode). Rows with no visible key get exactly o = 0 and
     lse = NEG_INF in both."""
-    b, sq, sk, h, kvh, d, causal, window, offset, _ = case
-    q, k, v, _, _ = _inputs(22, b, sq, sk, h, kvh, d)
+    b, sq, sk, h, kvh, d, causal, window, offset, _, dtype = case
+    q, k, v, _, _ = _inputs(22, b, sq, sk, h, kvh, d, dtype)
     jq, jk, jv = (jnp.asarray(a) for a in (q, k, v))
     got = attn.flash_attention_reference(
-        *(torch.from_numpy(a) for a in (q, k, v)), causal=causal,
+        *(torch.from_numpy(a).to(dtype) for a in (q, k, v)), causal=causal,
         window=window, kv_offset=offset, tf32x3=True)
     if h == kvh:
         want = jax_attn.flash_attention_with_lse(
@@ -126,11 +159,13 @@ def test_split_forward_matches_jax(case):
         want = (jax_attn.flash_attention(jq, jk, jv, causal=causal,
                                          window=window, block_q=8,
                                          block_k=16), None)
-    for a, w in zip(got, want):
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    for a, w, tol in zip(got, want, (
+            TOL if dtype == torch.float32 else BF16_O_TOL, TOL)):
         if w is None:
             continue
-        assert a.dtype == torch.float32 and bool(torch.isfinite(a).all())
-        np.testing.assert_allclose(a.numpy(), np.asarray(w), **TOL)
+        assert bool(torch.isfinite(a).all())
+        np.testing.assert_allclose(a.float().numpy(), np.asarray(w), **tol)
     o, lse = got
     if offset:
         empty = lse == attn.NEG_INF
@@ -145,9 +180,11 @@ def test_split_forward_matches_jax(case):
 def test_split_backward_matches_jax(case):
     """flash_bwd_reference with every product split 3xTF32, as the tf32x3
     kernels multiply, against jax.grad through the Pallas backward
-    (_bwd_dq_kernel / _bwd_dkv_kernel in interpret mode)."""
-    b, sq, sk, h, kvh, d, causal, window, offset, with_dlse = case
-    q, k, v, go, gl = _inputs(20, b, sq, sk, h, kvh, d)
+    (_bwd_dq_kernel / _bwd_dkv_kernel in interpret mode). A bf16 case
+    feeds bf16 q, k, v and dO, with o from the float32 forward of the
+    same values so that delta is the oracle's."""
+    b, sq, sk, h, kvh, d, causal, window, offset, with_dlse, dtype = case
+    q, k, v, go, gl = _inputs(20, b, sq, sk, h, kvh, d, dtype)
 
     def jax_loss(q, k, v):
         if h == kvh:
@@ -167,6 +204,7 @@ def test_split_backward_matches_jax(case):
                                             window=window, kv_offset=offset)
     if offset:
         assert bool((lse == attn.NEG_INF).any())
+    tq, tk, tv, tgo = (t.to(dtype) for t in (tq, tk, tv, tgo))
     got = attn.flash_bwd_reference(tq, tk, tv, o, lse, tgo,
                                    tgl if with_dlse else None,
                                    causal=causal, window=window,
@@ -182,15 +220,23 @@ def test_split_backward_matches_jax(case):
     (torch.float32, 64, "tf32x3"),
     (torch.float32, 8, "tf32x3"),
     (torch.float32, 128, "tf32x3"),
-    (torch.float32, 36, "cuda"),      # not a multiple of 8
-    (torch.float32, 136, "cuda"),     # above 128
+    (torch.float32, 36, "tf32x3"),    # a multiple of 4, not of 8
+    (torch.float32, 136, "cuda"),     # above 128: the wrapper refuses it
     (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 36, "cuda"),
+    (torch.bfloat16, 36, "tf32x3"),
+    (torch.float32, 12, "tf32x3"),    # the d-12 LM's head_dim
+    (torch.float32, 13, "tf32x3"),    # odd
+    (torch.bfloat16, 12, "tf32x3"),
+    (torch.bfloat16, 13, "tf32x3"),
+    (torch.float16, 36, "cuda"),      # no kernel takes float16
 ])
 def test_backward_route_predicate(dtype, d, route):
+    """The backward's route: bf16 at a head_dim that is a multiple of 8
+    (<= 128) the wgmma kernels, every other float32 or bf16 head_dim up
+    to 128 the split-TF32 ones."""
     q = types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
                               shape=(2, 16, 4, d))
-    assert attn._route(q) == route
+    assert attn._route(q, backward=True) == route
 
 
 @pytest.mark.parametrize("dtype,d,route", [
@@ -202,11 +248,14 @@ def test_backward_route_predicate(dtype, d, route):
     (torch.bfloat16, 12, "cuda"),
 ])
 def test_forward_takes_the_backward_route(monkeypatch, dtype, d, route):
-    """On a card, _flash_fwd launches the forward of the route the
-    backward takes: float32 with head_dim % 8 == 0 (<= 128) the
-    split-TF32 kernel, bf16 with such a head_dim the wgmma kernel, any
-    other head_dim the CUDA-core kernel. The launches are stubbed and the
-    tensors claim a CUDA device to the route predicate."""
+    """On a card, _flash_fwd launches the forward of its own route:
+    float32 with head_dim % 8 == 0 (<= 128) the split-TF32 kernel, bf16
+    with such a head_dim the wgmma kernel (the backward's route there
+    too), any other head_dim the CUDA-core kernel, whose backward runs
+    on the split-TF32 kernels (tests/test_torch_attention.py
+    test_backward_routes_dq_and_dkv_together, at these (dtype, d) too).
+    The launches are stubbed and the tensors claim a CUDA device to the
+    route predicate."""
     real_route = attn._route
     ran = []
 
@@ -217,9 +266,9 @@ def test_forward_takes_the_backward_route(monkeypatch, dtype, d, route):
         return launch
 
     monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
-    monkeypatch.setattr(attn, "_route", lambda q: real_route(
+    monkeypatch.setattr(attn, "_route", lambda q, backward=False: real_route(
         types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
-                              shape=q.shape)))
+                              shape=q.shape), backward))
     for name in ("_flash_fwd_sm90", "_flash_fwd_tf32x3", "_flash_fwd_cuda"):
         monkeypatch.setattr(attn, name, stub(name))
     q, k, v, _, _ = (torch.from_numpy(a) for a in
@@ -250,15 +299,16 @@ def test_tf32x3_forward_refuses_what_the_kernel_does_not_take():
 @pytest.mark.parametrize("wrapper", ["_flash_bwd_dq_tf32x3",
                                      "_flash_bwd_dkv_tf32x3"])
 def test_tf32x3_wrappers_refuse_what_the_kernels_do_not_take(wrapper):
-    """bf16 tensors and a head_dim off the multiple of 8 raise before any
-    build or launch, whatever the caller routed."""
+    """The split-TF32 backward kernels take float32 or bf16 at any
+    head_dim up to 128: float16 tensors and a head_dim of 136 raise
+    before any build or launch, whatever the caller routed."""
     fn = getattr(attn, wrapper)
     before = (attn.FLASH_BWD_DQ_TF32X3_LAUNCHES,
               attn.FLASH_BWD_DKV_TF32X3_LAUNCHES)
-    for dtype, d, error, match in ((torch.bfloat16, 16, TypeError,
-                                    "takes float32"),
-                                   (torch.float32, 12, ValueError,
-                                    "multiple of 8")):
+    for dtype, d, error, match in ((torch.float16, 16, TypeError,
+                                    "takes float32 or bfloat16"),
+                                   (torch.float32, 136, ValueError,
+                                    "head_dim <= 128")):
         q, k, v, do, lse = (torch.from_numpy(a) for a in
                             _inputs(21, 1, 16, 16, 2, 1, d))
         q, k, v, do = (t.to(dtype) for t in (q, k, v, do))
