@@ -9,27 +9,21 @@
    version on the card — the forward at the serving prefill and the
    training shape, the backward kernels at the training shape (b 8,
    2048 tokens, 8 heads over 4 kv heads, window 1024), fp32 and bf16,
-   every kernel at the d-12 LM's shape, and small edge cases (the
-   backward also at head dims 13 and 36) — with its time, the plain
+   every kernel at the d-12 LM's shape in both dtypes, and small edge
+   cases (also at head dims 13 and 36) — with its time, the plain
    version's time, the least time the card could take (bound) and one
    PyTorch library call computing the same function, timed as a
-   yardstick only. float32 at a head_dim that is a multiple of 8 takes
-   the split-TF32 tensor-core kernels (flash_fwd_tf32x3,
-   flash_bwd_dq_tf32x3, flash_bwd_dkv_tf32x3), bf16 at such a head_dim
-   the wgmma tensor-core kernels (flash_fwd_sm90, flash_bwd_dq_sm90,
-   flash_bwd_dkv_sm90); any other head_dim (the d-12 cases, both
-   dtypes) runs its forward on the CUDA-core flash_fwd and its backward
-   on the split-TF32 dq and dK/dV kernels. The CUDA-core flash_bwd_dq
-   and flash_bwd_dkv have no route: they are held at the d-12 shape and
-   timed beside the tensor-core backward on the same inputs. Each bf16
-   case of the wgmma route is held twice more: to the derived bound of
-   bf16 P and dS against the float32 plain version, and tightly against
-   the plain version with P and dS split into bf16 hi + lo as the
-   kernels split them; each case of the split-TF32 route, float32 or
-   bf16, against the plain version that splits every product 3xTF32 as
-   the kernels do, at the float32 tolerance. The float32 forward and
-   the bf16 forward are also timed beside the CUDA-core forward on the
-   same inputs.
+   yardstick only. bf16 at a head_dim that is a multiple of 8 takes the
+   wgmma tensor-core kernels (flash_fwd_sm90, flash_bwd_dq_sm90,
+   flash_bwd_dkv_sm90); every other float32 or bf16 head_dim the
+   split-TF32 tensor-core kernels (flash_fwd_tf32x3,
+   flash_bwd_dq_tf32x3, flash_bwd_dkv_tf32x3). Each bf16 case of the
+   wgmma route is held twice more: to the derived bound of bf16 P and dS
+   against the float32 plain version, and tightly against the plain
+   version with P and dS split into bf16 hi + lo as the kernels split
+   them; each case of the split-TF32 route, float32 or bf16, against the
+   plain version that splits every product 3xTF32 as the kernels do, at
+   the float32 tolerance (a bf16 o within one bf16 ulp).
 3. Serving path: a REST server on the card serving the tutorial's LM
    (vocab 32000, d_model 512, 8 layers, 8 heads over 4 kv heads, window
    1024, random weights from seed 0), four concurrent predicts of
@@ -41,7 +35,7 @@
    ``init_params(seed 0)`` on 64 windows of 2048 tokens of a
    cyclic-successor stream, batch 16, 2 epochs, grad_accum 2, bf16
    compute: the loss must be finite, fall, and stay within 1% of the
-   CUDA-core kernels' epoch losses, and the forward, dq and dK/dV must
+   first (CUDA-core) kernels' epoch losses, and the forward, dq and dK/dV must
    run once per layer and micro-batch, all three on the tensor-core
    route. A profiler window of 2 steps gives the kernels' time per step
    and the card's idle share. A float32 window of the same fit (2
@@ -50,14 +44,13 @@
    ``trainFloat32`` line). In float32 one micro-step's gradients
    through the kernels must match the dense path's, for the tutorial LM
    (split-TF32 kernels) and for a small LM with head_dim 12 (d_model
-   96, 8 heads: the CUDA-core forward and the split-TF32 backward); the
-   same small LM takes one bf16 micro-step through the same kernels.
+   96, 8 heads: the split-TF32 kernels' width-16 variants); the same
+   small LM takes one bf16 micro-step through the same kernels.
    The trained artifact is then served over REST and must answer with
    its reloaded copy's ``generate``.
 
 The kernel launch counts are zeroed just before each path and read
-just after it; the backward kernel phase's own launches stand in for a
-path for the two CUDA-core backward kernels, which no route takes.
+just after it.
 
 Earlier lines print the card (nvidia-smi name and power limit), the
 build time, ptxas's registers and spill bytes of every kernel variant
@@ -93,29 +86,24 @@ LM_CONFIG = dict(vocab_size=32000, d_model=512, n_layers=8, n_heads=8,
                  rope_base=10000.0)
 PROMPT_LENS = (1100, 1234, 1367, 1500)
 NEW_TOKENS = 32
-# a small LM whose head_dim (96 / 8 = 12) is not a multiple of 8: its
-# forward runs the CUDA-core kernel, its backward the split-TF32 ones
+# a small LM whose head_dim (96 / 8 = 12) is not a multiple of 8: both
+# passes run the split-TF32 kernels' width-16 variants, in either dtype
 D12_CONFIG = dict(LM_CONFIG, d_model=96, n_layers=2)
 # the training path: 64 windows of 2048 tokens, batch 16, 2 epochs,
 # grad_accum 2 -> 8 optimizer steps of 2 micro-batches
 TRAIN_WINDOWS, TRAIN_SEQ, TRAIN_BATCH, TRAIN_EPOCHS, TRAIN_ACCUM = \
     64, 2048, 16, 2, 2
-COUNTERS = {"flash_fwd": "FLASH_FWD_LAUNCHES",
-            "flash_fwd_sm90": "FLASH_FWD_SM90_LAUNCHES",
-            "flash_bwd_dq": "FLASH_BWD_DQ_LAUNCHES",
+# each kernel (one per CUDA source) and the counter its wrapper adds one
+# to at each launch
+COUNTERS = {"flash_fwd_sm90": "FLASH_FWD_SM90_LAUNCHES",
             "flash_bwd_dq_sm90": "FLASH_BWD_DQ_SM90_LAUNCHES",
-            "flash_bwd_dkv": "FLASH_BWD_DKV_LAUNCHES",
             "flash_bwd_dkv_sm90": "FLASH_BWD_DKV_SM90_LAUNCHES",
+            "flash_fwd_tf32x3": "FLASH_FWD_TF32X3_LAUNCHES",
             "flash_bwd_dq_tf32x3": "FLASH_BWD_DQ_TF32X3_LAUNCHES",
-            "flash_bwd_dkv_tf32x3": "FLASH_BWD_DKV_TF32X3_LAUNCHES",
-            "flash_fwd_tf32x3": "FLASH_FWD_TF32X3_LAUNCHES"}
-# the forward's, dq's and dK/dV's counters count every route; a CUDA-core
-# kernel's own launches are those less its tensor-core counterparts'
-ROUTES = {"flash_fwd": ("flash_fwd_sm90", "flash_fwd_tf32x3"),
-          "flash_bwd_dq": ("flash_bwd_dq_sm90", "flash_bwd_dq_tf32x3"),
-          "flash_bwd_dkv": ("flash_bwd_dkv_sm90", "flash_bwd_dkv_tf32x3")}
-# epoch losses of the train phase's fit through the CUDA-core kernels
-# (bf16; PERF.md), which the tensor-core route must stay within 1% of
+            "flash_bwd_dkv_tf32x3": "FLASH_BWD_DKV_TF32X3_LAUNCHES"}
+# epoch losses of the train phase's fit through the first, CUDA-core
+# kernels (bf16; PERF.md), which the tensor-core route must stay within
+# 1% of
 CUDA_CORE_LOSSES = (8.82798957824707, 3.2666094303131104)
 
 
@@ -126,11 +114,8 @@ def _reset_launches(attn) -> None:
 
 def _launches(attn) -> dict:
     """Launches of each kernel (one per CUDA source) since the reset."""
-    count = {name: getattr(attn, counter)
-             for name, counter in COUNTERS.items()}
-    for op, routed in ROUTES.items():
-        count[op] -= sum(count[r] for r in routed)
-    return count
+    return {name: getattr(attn, counter)
+            for name, counter in COUNTERS.items()}
 
 
 def _kernel_name(mangled: str) -> str:
@@ -241,13 +226,12 @@ def _split_bwd(torch, attn, q, k, v, o, lse, do, dlse, causal, scale,
 
 def kernel_phase(torch, log):
     """The forward kernels against flash_attention_reference on the card,
-    by route (:func:`_route`): flash_fwd_tf32x3 (float32, split-TF32
-    tensor cores), flash_fwd_sm90 (bf16, wgmma tensor cores) and flash_fwd
-    (CUDA cores: a head_dim off the multiple of 8). Returns the
+    by route (:func:`_route`): flash_fwd_sm90 (bf16 at a head_dim that is
+    a multiple of 8, wgmma tensor cores) and flash_fwd_tf32x3 (every
+    other float32 or bf16 head_dim, split-TF32 tensor cores). Returns the
     kernels-line entries: flash_fwd_tf32x3 at the slice's shape (its main
-    path, serving) with its training-shape numbers beside them,
-    flash_fwd_sm90 at the training path's bf16 shape, flash_fwd at the
-    d-12 LM's float32 shape."""
+    path, serving) with its training-shape and d-12 numbers nested,
+    flash_fwd_sm90 at the training path's bf16 shape."""
     import torch.nn.functional as F
 
     from learningorchestra_tpu_torch.ops import attention as attn
@@ -275,25 +259,32 @@ def kernel_phase(torch, log):
         # float32 fit's
         ("train", 8, 2048, 2048, 8, 4, 64, True, 1024, 0, bf16),
         ("train", 8, 2048, 2048, 8, 4, 64, True, 1024, 0, f32),
-        # the d-12 LM's micro-step (2 windows of 2048): a head_dim off the
-        # multiple of 8 keeps the CUDA-core forward in both dtypes
+        # the d-12 LM's micro-step (2 windows of 2048): the split-TF32
+        # kernel's width-16 variant in both dtypes
         ("lm-d12", 2, 2048, 2048, 8, 4, 12, True, 1024, 0, f32),
         ("lm-d12", 2, 2048, 2048, 8, 4, 12, True, 1024, 0, bf16),
+        # an odd head_dim (a bf16 row of odd length loads element by
+        # element; o's last pair is a single column) with ragged sq and
+        # sk, and a kv_offset that leaves rows with no visible key; every
+        # head its own kv head, so o and lse are compared on every head
+        ("ragged-offset-empty-rows-d13", 2, 75, 131, 4, 4, 13, True, 16,
+         40, f32),
+        ("ragged-offset-empty-rows-d13", 2, 75, 131, 4, 4, 13, True, 16,
+         40, bf16),
+        # a multiple of 4 but not of 8, between the kernels' widths, GQA
+        ("gqa-window-d36", 2, 160, 160, 8, 2, 36, True, 48, 0, f32),
+        ("gqa-window-d36", 2, 160, 160, 8, 2, 36, True, 48, 0, bf16),
     ]
     # (atol, rtol). float32: summation order only (the split-TF32 route's
     # products depart from float32 ones by about 2**-22 of sum |x||y|).
     # bf16: o is rounded once from float32 by kernel and plain version
     # alike, so they differ by at most one bf16 ulp of |o| (<= 2**-7 |o|,
-    # under rtol) plus the float32 error (under atol); the tensor-core
-    # kernel adds its bf16 hi + lo split of P, about 2**-16 of the product
+    # under rtol) plus the float32 error (under atol); the wgmma kernel
+    # adds its bf16 hi + lo split of P, about 2**-16 of the product
     tols = {f32: (2e-5, 2e-5), bf16: (1e-4, 1e-2)}
-    kernel_of = {"sm90": "flash_fwd_sm90", "tf32x3": "flash_fwd_tf32x3",
-                 "cuda": "flash_fwd"}
-    # the counter each route adds one to; FLASH_FWD_LAUNCHES counts every
-    # route's launches, so every call adds one there
+    # the counter each route's wrapper adds one to
     routed = {"sm90": "FLASH_FWD_SM90_LAUNCHES",
-              "tf32x3": "FLASH_FWD_TF32X3_LAUNCHES",
-              "cuda": "FLASH_FWD_LAUNCHES"}
+              "tf32x3": "FLASH_FWD_TF32X3_LAUNCHES"}
     entries = {}
     for (name, b, sq, sk, h, kvh, d, causal, window, offset,
          dtype) in cases:
@@ -304,8 +295,7 @@ def kernel_phase(torch, log):
         q, k, v = rand(b, sq, h, d), rand(b, sk, kvh, d), rand(b, sk, kvh, d)
         with_lse = h == kvh
         route = attn._route(q)
-        want_route = "cuda" if d % 8 else (
-            "sm90" if dtype == bf16 else "tf32x3")
+        want_route = "sm90" if dtype == bf16 and d % 8 == 0 else "tf32x3"
         sm90 = route == "sm90"
         scale = 1.0 / d ** 0.5
 
@@ -325,8 +315,8 @@ def kernel_phase(torch, log):
         o, lse = kernel()
         torch.cuda.synchronize()
         ran = {r: getattr(attn, c) - before[r] for r, c in routed.items()}
-        want_ran = {r: int(r in (route, "cuda")) for r in routed}
-        if route != want_route or ran != want_ran:
+        if route != want_route or ran != {r: int(r == route)
+                                          for r in routed}:
             raise AssertionError(f"flash_fwd {name} {dtype}: took the "
                                  f"{route} route, want {want_route} "
                                  f"(launches {ran})")
@@ -341,7 +331,7 @@ def kernel_phase(torch, log):
                                  f"exceeds atol {atol} + rtol {rtol} |ro| "
                                  f"by {excess}x (max abs err {err})")
         line = {"case": name, "dtype": str(dtype).split(".")[-1],
-                "kernel": kernel_of[route],
+                "kernel": f"flash_fwd_{route}",
                 "shape": [b, sq, sk, h, kvh, d], "causal": causal,
                 "window": window, "kvOffset": offset, "maxAbsErr": err,
                 "atol": atol, "rtol": rtol, "tolUsed": excess}
@@ -365,19 +355,20 @@ def kernel_phase(torch, log):
                     f"flash_fwd_sm90 {name}: bound used {used_a}x, "
                     f"split emulation tolerance used {used_b}x")
             line.update(derivedBoundUsed=used_a, splitEmulationUsed=used_b)
-        elif route == "tf32x3":
+        else:
             # against the plain version that splits both products 3xTF32
-            # as the kernel does, at the float32 tolerance
+            # as the kernel does, at the same tolerance
             eo, e_lse = plain(split=True)
-            used = ((o - eo).abs() / (atol + rtol * eo.abs())).max().item()
+            used = ((o.float() - eo.float()).abs()
+                    / (atol + rtol * eo.float().abs())).max().item()
             seen = e_lse != attn.NEG_INF
             lse_used = ((lse - e_lse)[seen].abs().max().item() / 1e-4
                         if lse is not None else 0.0)
             del eo, e_lse
             if not (used <= 1.0 and lse_used <= 1.0):
                 raise AssertionError(
-                    f"flash_fwd_tf32x3 {name}: split emulation tolerance "
-                    f"used {used}x (lse {lse_used}x)")
+                    f"flash_fwd_tf32x3 {name} {dtype}: split emulation "
+                    f"tolerance used {used}x (lse {lse_used}x)")
             line["splitEmulationUsed"] = used
         empty = 0
         if lse is not None:
@@ -394,7 +385,7 @@ def kernel_phase(torch, log):
                                      f"rows with a non-zero o")
             line["lseMaxAbsErr"] = lse_err
         line["emptyRows"] = empty
-        if name in ("slice", "train") or (name == "lm-d12" and dtype == f32):
+        if name in ("slice", "train", "lm-d12"):
             mask = _visible_mask(torch, sq, sk, causal, window, offset,
                                  q.device)
             pairs = int(mask.sum())
@@ -404,10 +395,16 @@ def kernel_phase(torch, log):
             dt = line["dtype"]
             # the least time for the function on these inputs, whatever
             # the route: bf16 inputs at the card's bf16 rate, float32 ones
-            # as three TF32 products; float32 FMAs beside it
+            # as three TF32 products; float32 FMAs beside it, and the
+            # split work the route runs (wgmma: P split hi + lo, 6 d FLOP
+            # per pair in bf16; split TF32: 12 d in float32, 6 d in bf16,
+            # whose Q.K^T is one product and P.V two, at the TF32 rate)
             fp32_ms = flops / PEAK_FLOPS["float32"] * 1e3
             op_ms = (flops / PEAK_FLOPS["bfloat16"] if dtype != f32
                      else 3 * flops / PEAK_FLOPS["tf32"]) * 1e3
+            split_ms = (1.5 * flops / PEAK_FLOPS["bfloat16"] if sm90
+                        else (3 if dtype == f32 else 1.5) * flops
+                        / PEAK_FLOPS["tf32"]) * 1e3
             byte_ms = nbytes / PEAK_BYTES * 1e3
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             line.update({
@@ -418,25 +415,17 @@ def kernel_phase(torch, log):
                     enable_gqa=True)),
                 "bound_ms": max(op_ms, byte_ms),
                 "bound_by": "operations" if op_ms >= byte_ms else "bytes",
-                "boundFloat32Ms": fp32_ms,
+                "boundFloat32Ms": fp32_ms, "boundSplitMs": split_ms,
                 "flops": flops, "bytes": nbytes, "visiblePairs": pairs,
             })
-            if route != "cuda":
-                # the CUDA-core kernel on the same inputs, for the
-                # comparison within one run
-                line["cudaCoreMs"] = _time_ms(
-                    torch, lambda: attn._flash_fwd_cuda(
-                        q, k, v, causal, scale, window, offset))
             del mask, qt, kt, vt
             picked = {k: line[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "boundFloat32Ms")}
+                "boundFloat32Ms", "boundSplitMs", "splitEmulationUsed")}
             picked.update(max_abs_err=err, dtype=dt,
                           shape=[b, sq, sk, h, kvh, d])
-            for key in ("cudaCoreMs", "derivedBoundUsed",
-                        "splitEmulationUsed"):
-                if key in line:
-                    picked[key] = line[key]
+            if "derivedBoundUsed" in line:
+                picked["derivedBoundUsed"] = line["derivedBoundUsed"]
             if name == "slice" and dtype == f32:
                 entries.setdefault("flash_fwd_tf32x3", {}).update(picked)
             elif name == "train" and dtype == f32:
@@ -445,7 +434,10 @@ def kernel_phase(torch, log):
             elif name == "train":
                 entries["flash_fwd_sm90"] = picked
             elif name == "lm-d12":
-                entries["flash_fwd"] = picked
+                # nested, so that the serving shape's figures stay the
+                # entry's own
+                entries.setdefault("flash_fwd_tf32x3", {})[
+                    "d12Float32" if dtype == f32 else "d12Bfloat16"] = picked
         log.append("kernel " + json.dumps(line))
         del q, k, v, o, lse, ro, rlse, diff
     return entries
@@ -457,18 +449,13 @@ def bwd_kernel_phase(torch, log):
     backward's route (:func:`_route`): flash_bwd_dq_sm90 and
     flash_bwd_dkv_sm90 (bf16 at a head_dim that is a multiple of 8),
     flash_bwd_dq_tf32x3 and flash_bwd_dkv_tf32x3 (every other head_dim,
-    float32 or bf16). The CUDA-core flash_bwd_dq and flash_bwd_dkv have
-    no route: they are held to the same plain version at the d-12 LM's
-    shape in both dtypes and timed beside the tensor-core kernels.
-    Returns the kernels-line entries (the tensor-core kernels at the
-    training path's shape in its dtype, bf16 for the fit and float32 for
-    the float32 fit, with the tf32x3 kernels' d-12 figures nested; the
-    CUDA-core ones at the d-12 shape) and the phase's launches."""
+    float32 or bf16). Returns the kernels-line entries: each kernel at
+    the training path's shape in its dtype, bf16 for the fit and float32
+    for the float32 fit, with the tf32x3 kernels' d-12 figures nested."""
     import torch.nn.functional as F
 
     from learningorchestra_tpu_torch.ops import attention as attn
 
-    _reset_launches(attn)
     gen = torch.Generator(device="cuda").manual_seed(1)
     # (name, b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse)
     cases = [
@@ -496,13 +483,13 @@ def bwd_kernel_phase(torch, log):
     # tf32x3 in both dtypes (a bf16 input is exact in TF32) to the
     # float32 tolerance against the float32 plain version and against
     # the plain version that splits every product 3xTF32 as the kernels
-    # do. sm90 and the CUDA-core kernels hold bf16 to the bound a bf16
-    # gradient would carry (rtol 1e-2, about one bf16 ulp).
+    # do. sm90 holds bf16 to the bound a bf16 gradient would carry
+    # (rtol 1e-2, about one bf16 ulp).
     tols = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-3, 1e-2)}
-    tensor_core = {"sm90": ("FLASH_BWD_DQ_SM90_LAUNCHES",
-                            "FLASH_BWD_DKV_SM90_LAUNCHES"),
-                   "tf32x3": ("FLASH_BWD_DQ_TF32X3_LAUNCHES",
-                              "FLASH_BWD_DKV_TF32X3_LAUNCHES")}
+    routed = {"sm90": ("FLASH_BWD_DQ_SM90_LAUNCHES",
+                       "FLASH_BWD_DKV_SM90_LAUNCHES"),
+              "tf32x3": ("FLASH_BWD_DQ_TF32X3_LAUNCHES",
+                         "FLASH_BWD_DKV_TF32X3_LAUNCHES")}
     entries = {}
     for (name, b, sq, sk, h, kvh, d, causal, window, offset,
          with_dlse) in cases:
@@ -519,7 +506,7 @@ def bwd_kernel_phase(torch, log):
             scale = 1.0 / d ** 0.5
             o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
             delta = attn._bwd_delta(o, do, dlse)
-            route = attn._route(q, backward=True)
+            route = attn._route(q)
             want_route = "sm90" if dtype == torch.bfloat16 and d % 8 == 0 \
                 else "tf32x3"
             dq = getattr(attn, f"_flash_bwd_dq_{route}")
@@ -539,13 +526,13 @@ def bwd_kernel_phase(torch, log):
                     q, k, v, o, lse, do, dlse, causal=causal, scale=scale,
                     window=window, kv_offset=offset, tf32x3=split)
 
-            counters = [c for pair in tensor_core.values() for c in pair]
+            counters = [c for pair in routed.values() for c in pair]
             before = [getattr(attn, c) for c in counters]
             got = (dq_kernel(), *dkv_kernel())
             torch.cuda.synchronize()
             ran = dict(zip(counters, (getattr(attn, c) - n
                                       for c, n in zip(counters, before))))
-            want_ran = {c: int(r == route) for r, pair in tensor_core.items()
+            want_ran = {c: int(r == route) for r, pair in routed.items()
                         for c in pair}
             if ran != want_ran or route != want_route:
                 raise AssertionError(f"flash_bwd {name} {dtype}: dq and "
@@ -553,32 +540,25 @@ def bwd_kernel_phase(torch, log):
                                      f"{want_route} (tensor-core launches "
                                      f"{ran})")
             want = plain()
-
-            def held(outs, rel_atol, rtol, who):
-                """Each of dq, dk, dv finite and within atol (rel_atol of
-                the case's largest |g|) + rtol |g| of the float32 plain
-                version: (max abs errors, tolerance used)."""
-                errs, used = [], []
-                for g, w, part in zip(outs, want, ("dq", "dk", "dv")):
-                    if not bool(torch.isfinite(g).all()):
-                        raise AssertionError(f"{who} {name} {dtype}: {part} "
-                                             f"not finite")
-                    atol = rel_atol * w.abs().max().item()
-                    diff = (g - w).abs()
-                    errs.append(diff.max().item())
-                    # worst |g - w| / (atol + rtol |w|); <= 1 passes
-                    used.append((diff / (atol + rtol * w.abs())).max()
-                                .item())
-                    if not used[-1] <= 1.0:
-                        raise AssertionError(
-                            f"{who} {part} {name} {dtype}: exceeds atol "
-                            f"{atol} + rtol {rtol} |ref| by {used[-1]}x "
-                            f"(max abs err {errs[-1]})")
-                return errs, used
-
             rel_atol, rtol = tols[torch.float32 if route == "tf32x3"
                                   else dtype]
-            errs, used = held(got, rel_atol, rtol, "flash_bwd")
+            # each of dq, dk, dv finite and within atol (rel_atol of the
+            # case's largest |g|) + rtol |g| of the float32 plain version
+            errs, used = [], []
+            for g, w, part in zip(got, want, ("dq", "dk", "dv")):
+                if not bool(torch.isfinite(g).all()):
+                    raise AssertionError(f"flash_bwd {name} {dtype}: {part} "
+                                         f"not finite")
+                atol = rel_atol * w.abs().max().item()
+                diff = (g - w).abs()
+                errs.append(diff.max().item())
+                # worst |g - w| / (atol + rtol |w|); <= 1 passes
+                used.append((diff / (atol + rtol * w.abs())).max().item())
+                if not used[-1] <= 1.0:
+                    raise AssertionError(
+                        f"flash_bwd {part} {name} {dtype}: exceeds atol "
+                        f"{atol} + rtol {rtol} |ref| by {used[-1]}x (max "
+                        f"abs err {errs[-1]})")
             empty = int((lse == attn.NEG_INF).sum())
             if offset and not (empty and bool(
                     (got[0][lse == attn.NEG_INF] == 0).all())):
@@ -627,16 +607,6 @@ def bwd_kernel_phase(torch, log):
                                          f"emulation used {checks}")
                 line["splitEmulationUsed"] = checks
             d12 = name == "lm-d12"
-            if d12:
-                # the CUDA-core pair, which no route takes, on the same
-                # inputs at its own tolerance in each dtype
-                cuda_errs, cuda_used = held(
-                    (attn._flash_bwd_dq_cuda(*args),
-                     *attn._flash_bwd_dkv_cuda(*args)),
-                    *tols[dtype], "flash_bwd CUDA cores")
-                line["cudaCore"] = {
-                    "maxAbsErr": dict(zip(("dq", "dk", "dv"), cuda_errs)),
-                    "tolUsed": dict(zip(("dq", "dk", "dv"), cuda_used))}
             if name == "train" or d12:
                 pairs = int(_visible_mask(torch, sq, sk, causal, window,
                                           offset, q.device).sum())
@@ -668,21 +638,18 @@ def bwd_kernel_phase(torch, log):
                 # the tensor cores (P and dS split hi + lo, each input
                 # whole: 1 + 1 + 2 products for dq, 1 + 1 + 2 + 2 for
                 # dK/dV, whether as bf16 on wgmma or as TF32), output
-                # elements, the CUDA-core kernel, the gradients it writes
-                for (kernel, fn, per_pair, bf16_pair, outs, cuda_core,
-                     cuda_name, parts) in (
-                        (dq_name, dq_kernel, 6.0, 8.0, q.numel(),
-                         attn._flash_bwd_dq_cuda, "flash_bwd_dq", ("dq",)),
+                # elements, the gradients it writes
+                for kernel, fn, per_pair, bf16_pair, outs, parts in (
+                        (dq_name, dq_kernel, 6.0, 8.0, q.numel(), ("dq",)),
                         (dkv_name, dkv_kernel, 8.0, 12.0,
-                         k.numel() + v.numel(), attn._flash_bwd_dkv_cuda,
-                         "flash_bwd_dkv", ("dk", "dv"))):
+                         k.numel() + v.numel(), ("dk", "dv"))):
                     work = per_pair * d * pairs * h * b
                     nbytes = ins + 4 * outs
                     byte_ms = nbytes / PEAK_BYTES * 1e3
                     # the least time for the function on these inputs:
                     # bf16 inputs at the card's bf16 rate, float32 ones
-                    # as 3xTF32, on every route (the CUDA-core kernels'
-                    # entries too); beside it, the split work the route
+                    # as 3xTF32, on every route; beside it, the split
+                    # work the route
                     # runs (bf16 P and dS split hi + lo on wgmma, 3xTF32
                     # for float32 inputs, the reduced split for bf16
                     # inputs at the TF32 rate) and float32 at the CUDA
@@ -698,25 +665,18 @@ def bwd_kernel_phase(torch, log):
                              if dtype == torch.float32
                              else work / PEAK_FLOPS["bfloat16"]) * 1e3
                     ms = _time_ms(torch, fn)
-                    # the CUDA-core kernel on the same inputs, for the
-                    # comparison within one run
-                    cuda_core_ms = _time_ms(
-                        torch, lambda: cuda_core(*args), iters=5)
                     part = {
                         "ms": ms, "bound_ms": max(op_ms, byte_ms),
                         "bound_by": "operations" if op_ms >= byte_ms
                         else "bytes", "flops": work, "bytes": nbytes,
-                        "boundFloat32Ms": fp32_ms, "boundSplitMs": split_ms,
-                        "cudaCoreMs": cuda_core_ms}
-                    line["cudaCoreDqMs" if parts == ("dq",)
-                         else "cudaCoreDkvMs"] = cuda_core_ms
+                        "boundFloat32Ms": fp32_ms, "boundSplitMs": split_ms}
                     figures = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=part["bound_ms"],
                         bound_by=part["bound_by"], library_ms=library_ms,
                         max_abs_err=max(e for e, p in zip(
                             errs, ("dq", "dk", "dv")) if p in parts),
                         dtype=dt, boundFloat32Ms=fp32_ms,
-                        boundSplitMs=split_ms, cudaCoreMs=cuda_core_ms,
+                        boundSplitMs=split_ms,
                         shape=[b, sq, sk, h, kvh, d],
                         splitEmulationUsed={
                             p: line["splitEmulationUsed"][p]
@@ -730,22 +690,6 @@ def bwd_kernel_phase(torch, log):
                         nest = "d12Float32" if dtype == torch.float32 \
                             else "d12Bfloat16"
                         entries.setdefault(kernel, {})[nest] = figures
-                        # the CUDA-core kernel's own entry: float32 at
-                        # this shape, its bf16 figures nested
-                        core = dict(
-                            ms=cuda_core_ms, plain_ms=plain_ms,
-                            bound_ms=part["bound_ms"],
-                            bound_by=part["bound_by"], library_ms=library_ms,
-                            max_abs_err=max(e for e, p in zip(
-                                cuda_errs, ("dq", "dk", "dv"))
-                                if p in parts),
-                            dtype=dt, boundFloat32Ms=fp32_ms,
-                            shape=[b, sq, sk, h, kvh, d])
-                        if dtype == torch.float32:
-                            entries.setdefault(cuda_name, {}).update(core)
-                        else:
-                            entries.setdefault(cuda_name, {})[
-                                "d12Bfloat16"] = core
                     else:
                         entries.setdefault(kernel, {}).update(figures)
                     line[kernel] = part
@@ -754,7 +698,7 @@ def bwd_kernel_phase(torch, log):
                 del mask, qt, kt, vt, dot
             log.append("kernel " + json.dumps(line))
             del q, k, v, do, o, lse, delta, got, want
-    return entries, _launches(attn)
+    return entries
 
 
 def _http(base, method, path, body=None):
@@ -1140,24 +1084,19 @@ def train_phase(torch, log, home):
 
     f32_fit = _float32_fit_window(torch, lm, x, log)
 
-    # one micro-step of 2 windows through the kernels against the same
-    # step on the dense path (plain autograd): in float32 for the tutorial
-    # LM (head_dim 64: the split-TF32 kernels) and the d-12 LM (the
-    # CUDA-core forward, the split-TF32 backward), each within 1e-4; in
-    # bf16 for the d-12 LM (the same kernels), finite, its error against
-    # the bf16 dense path recorded only (the kernel phase holds the
-    # kernels' numbers)
+    # one micro-step of 2 windows through the split-TF32 kernels, one
+    # launch of each per layer, against the same step on the dense path
+    # (plain autograd): in float32 for the tutorial LM (head_dim 64) and
+    # the d-12 LM (the width-16 variants), each within 1e-4; in bf16 for
+    # the d-12 LM, finite, its error against the bf16 dense path recorded
+    # only (the kernel phase holds the kernels' numbers)
+    kernels = ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3",
+               "flash_bwd_dkv_tf32x3")
     f32_grad = {}
-    for path, config, dtype, kernels, limit in (
-            ("trainFloat32Grad", LM_CONFIG, "float32",
-             ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3",
-              "flash_bwd_dkv_tf32x3"), 1e-4),
-            ("trainFloat32GradD12", D12_CONFIG, "float32",
-             ("flash_fwd", "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3"),
-             1e-4),
-            ("trainBf16GradD12", D12_CONFIG, "bfloat16",
-             ("flash_fwd", "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3"),
-             None)):
+    for path, config, dtype, limit in (
+            ("trainFloat32Grad", LM_CONFIG, "float32", 1e-4),
+            ("trainFloat32GradD12", D12_CONFIG, "float32", 1e-4),
+            ("trainBf16GradD12", D12_CONFIG, "bfloat16", None)):
         os.environ["LO_COMPUTE_DTYPE"] = dtype
         init = state if config is LM_CONFIG else weights.params_from_flax(
             weights.init_params(config, seed=0))
@@ -1290,31 +1229,22 @@ def main() -> int:
     log: list = []
     try:
         entries = kernel_phase(torch, log)
-        bwd_entries, bwd_launches = bwd_kernel_phase(torch, log)
-        entries.update(bwd_entries)
+        entries.update(bwd_kernel_phase(torch, log))
         with tempfile.TemporaryDirectory() as home:
             served = slice_phase(torch, log, home)
         with tempfile.TemporaryDirectory() as home:
             paths = {"serve": served, **train_phase(torch, log, home)}
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
-        # the split-TF32 backward, the d-12 LM's float32 gradient step for
-        # the CUDA-core forward. No route takes the CUDA-core dq and dK/dV
-        # (None): the backward kernel phase must have launched them, as
-        # the comparison it holds and times
-        main_path = {"flash_fwd": "trainFloat32GradD12",
-                     "flash_fwd_sm90": "train",
-                     "flash_fwd_tf32x3": "serve",
-                     "flash_bwd_dq": None,
+        # the split-TF32 backward
+        main_path = {"flash_fwd_sm90": "train",
                      "flash_bwd_dq_sm90": "train",
-                     "flash_bwd_dkv": None,
                      "flash_bwd_dkv_sm90": "train",
+                     "flash_fwd_tf32x3": "serve",
                      "flash_bwd_dq_tf32x3": "trainFloat32",
                      "flash_bwd_dkv_tf32x3": "trainFloat32"}
         missing = [name for name, path in main_path.items()
-                   if name not in entries
-                   or not (paths[path][name] if path else
-                           bwd_launches[name])]
+                   if name not in entries or not paths[path][name]]
         if missing:
             raise AssertionError(f"kernels never measured or never launched "
                                  f"on their path: {missing}")
@@ -1323,27 +1253,23 @@ def main() -> int:
             print(line)
         traceback.print_exc()
         return 1
-    replaces = {"flash_fwd": 188, "flash_fwd_sm90": 188, "flash_bwd_dq": 338,
-                "flash_bwd_dq_sm90": 338, "flash_bwd_dkv": 402,
-                "flash_bwd_dkv_sm90": 402, "flash_bwd_dq_tf32x3": 338,
-                "flash_bwd_dkv_tf32x3": 402, "flash_fwd_tf32x3": 188}
+    # the line of each TPU kernel (learningorchestra_tpu/ops/attention.py)
+    replaces = {"fwd": 188, "bwd_dq": 338, "bwd_dkv": 402}
     kernels = []
     for name in COUNTERS:
+        op, tensor_core_route = name[len("flash_"):].rsplit("_", 1)
         entry = entries[name]
         path = main_path[name]
+        # route: the kernel's language (CUDA C++, no Triton);
+        # tensorCoreRoute: the port's route that launches it (_route)
         entry.update({
             "name": name, "route": "cuda",
+            "tensorCoreRoute": tensor_core_route,
             "source": f"learningorchestra_tpu_torch/csrc/{name}.cu",
             "replaces": f"learningorchestra_tpu/ops/attention.py:"
-                        f"{replaces[name]}",
-            "launches": paths[path][name] if path else None,
-            "mainPath": path,
-            "launchesByPath": {p: c[name] for p, c in paths.items()},
-            "bwdKernelPhaseLaunches": bwd_launches[name]})
-        if path is None:
-            entry["comparisonOnly"] = ("no route takes this kernel; it is "
-                                       "held and timed beside the "
-                                       "tensor-core kernels")
+                        f"{replaces[op]}",
+            "launches": paths[path][name], "mainPath": path,
+            "launchesByPath": {p: c[name] for p, c in paths.items()}})
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     for line in log:

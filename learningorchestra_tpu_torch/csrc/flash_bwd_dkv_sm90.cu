@@ -4,8 +4,8 @@
 //
 // Replaces: learningorchestra_tpu/ops/attention.py `_bwd_dkv_kernel` (the
 // second Pallas TPU kernel of `_bwd_pallas`) for bf16 q/k/v/dO whose
-// head_dim is a multiple of 8 up to 128; flash_bwd_dkv.cu keeps every
-// other input. Same function: with the forward's saved log-sum-exp `lse`
+// head_dim is a multiple of 8 up to 128; flash_bwd_dkv_tf32x3.cu takes
+// every other float32 or bf16 input. Same function: with the forward's saved log-sum-exp `lse`
 // and `delta = rowsum(dO * O) - dlse`, for every visible (row, col) pair
 //   p  = exp(q.k * scale - lse),  dp = dO.v,
 //   ds = p * (dp - delta) * scale,

@@ -28,9 +28,8 @@
 // run 12 * d TF32 FLOP per pair (K.Q^T and V.dO^T one product each,
 // P^T.dO and dS^T.Q two).
 //
-// Design. The CUDA-core kernel (flash_bwd_dkv.cu) reads one operand of
-// every FMA from shared memory and loads tiles synchronously; here every
-// product runs on the tensor cores, and loads overlap the products.
+// Design. Every product runs on the tensor cores, and loads overlap the
+// products.
 // - One block per (batch * kv head, 64-key tile), four warps of 16 keys.
 //   K and V stay resident in shared memory; the block walks every query
 //   head of the group and, for each, only the q tiles whose rows see the

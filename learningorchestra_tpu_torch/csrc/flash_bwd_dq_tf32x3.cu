@@ -26,9 +26,8 @@
 // tensor-core rate. The bytes take 0.04 ms at 3.35 TB/s. bf16 inputs run
 // 8 * d TF32 FLOP per pair (Q.K^T and dO.V^T one product each, dS.K two).
 //
-// Design. The CUDA-core kernel (flash_bwd_dq.cu) reads one operand of
-// every FMA from shared memory and loads tiles synchronously; here every
-// product runs on the tensor cores, and loads overlap the products.
+// Design. Every product runs on the tensor cores, and loads overlap the
+// products.
 // - One block per (batch * head, 64-row q tile), four warps of 16 rows.
 //   Q and dO stay resident in shared memory and each thread keeps the lse
 //   and delta of its two rows in registers; the block walks only the kv

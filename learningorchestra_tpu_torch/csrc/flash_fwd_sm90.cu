@@ -4,8 +4,8 @@
 //
 // Replaces: learningorchestra_tpu/ops/attention.py `_fwd_kernel` (the
 // Pallas TPU kernel launched by `_fwd_pallas`) for bf16 q/k/v whose
-// head_dim is a multiple of 8 up to 128; flash_fwd.cu keeps every other
-// input (float32, other head dims). Same function: the softmax attention
+// head_dim is a multiple of 8 up to 128; flash_fwd_tf32x3.cu takes every
+// other float32 or bf16 input. Same function: the softmax attention
 // output O (bf16) and the per-row log-sum-exp (f32), with causal masking
 // (row >= col + offset), a sliding window (col + offset > row - window),
 // a ragged key edge (col < sk) and grouped-query heads (query head i
@@ -42,7 +42,8 @@
 // the float32 product by up to 2^-8 * sum_j p_j |v_j| / l per element of
 // o; the split costs half again the tensor work (6 d FLOP per pair, not
 // 4) and keeps o within one bf16 ulp plus float32 summation order of the
-// plain version, the tolerance the CUDA-core kernel meets.
+// plain version, the tolerance a float32 kernel meets once its o is
+// rounded to bf16.
 
 #include "sm90_common.cuh"
 

@@ -1,16 +1,16 @@
-// Flash-attention forward for float32 on Hopper's tensor cores (sm_90a)
-// as split TF32 (3xTF32): warp-level mma.sync, cp.async double-buffered
-// tiles, hand-written CUDA C++.
+// Flash-attention forward on Hopper's tensor cores (sm_90a) as split
+// TF32 (3xTF32), for float32 and bf16 inputs: warp-level mma.sync,
+// cp.async double-buffered tiles, hand-written CUDA C++.
 //
 // Replaces: learningorchestra_tpu/ops/attention.py `_fwd_kernel` (the
-// Pallas TPU kernel launched by `_fwd_pallas`) for float32 q/k/v whose
-// head_dim is a multiple of 8 up to 128; flash_fwd.cu keeps every other
-// head_dim and flash_fwd_sm90.cu bf16. Same function: the exact softmax
-// attention output O plus a per-row log-sum-exp, with causal masking
-// (row >= col + offset), a sliding window (col + offset > row - window),
-// a ragged key edge (col < sk) and grouped-query heads (query head i
-// reads kv head i / (h / kvh)). A row that sees no key gets o = 0 and
-// lse = -1e30, exactly.
+// Pallas TPU kernel launched by `_fwd_pallas`) for float32 q/k/v at any
+// head_dim up to 128, and for bf16 at every head_dim up to 128 that is
+// not a multiple of 8 (bf16 at a multiple of 8 takes flash_fwd_sm90.cu).
+// Same function: the exact softmax attention output O (in q's dtype)
+// plus a per-row log-sum-exp, with causal masking (row >= col + offset),
+// a sliding window (col + offset > row - window), a ragged key edge (col
+// < sk) and grouped-query heads (query head i reads kv head i / (h /
+// kvh)). A row that sees no key gets o = 0 and lse = -1e30, exactly.
 //
 // Bound on an H100 SXM. Training shape (b 8, sq = sk = 2048, h 8, kvh 4,
 // d 64, causal, window 1024): 1,573,376 visible pairs per head over b *
@@ -20,13 +20,13 @@
 // * pairs = 77.3 GFLOP) 0.156 ms at the 495 TFLOP/s TF32 tensor-core
 // rate. The bytes take 0.025 ms at 3.35 TB/s. The serving prefill shape
 // (b 1, 1536 tokens) is a tenth of that work: 0.032 ms fp32, 0.013 ms
-// 3xTF32.
+// 3xTF32. bf16 inputs run 6 * d TF32 FLOP per pair (Q.K^T one product, P.V
+// two), and their bound is 4 * d FLOP per pair at the 989 TFLOP/s bf16
+// rate.
 //
-// Design. flash_fwd.cu runs both products as float32 FMAs on the CUDA
-// cores with one operand of each read from shared memory, and loads its
-// tiles synchronously; here every product runs on the tensor cores, and
-// loads overlap the products. The structure is that of
-// flash_bwd_dq_tf32x3.cu less dO, dP and delta, plus the online softmax.
+// Design. Every product runs on the tensor cores, and loads overlap the
+// products. The structure is that of flash_bwd_dq_tf32x3.cu less dO, dP
+// and delta, plus the online softmax.
 // - One block per (batch * head, 64-row q tile), four warps of 16 rows.
 //   Q stays resident in shared memory; the block walks only the kv band
 //   its rows can see.
@@ -43,22 +43,38 @@
 // - O += P.V with P fed straight from the S accumulators as A fragments
 //   (the permuted k order of tf32x3_common.cuh) and V read from its
 //   row-major tile in that order.
-// - Every product is 3xTF32; each operand is split as its fragment is
-//   read, which keeps one float32 copy of each tile in shared memory.
+// - Every product is 3xTF32 for float32 inputs; each operand is split as
+//   its fragment is read, which keeps one float32 copy of each tile in
+//   shared memory. bf16 tiles stay bf16 in shared memory and are widened
+//   at the fragment read, exactly: Q.K^T is one product (mma_inputs) and
+//   P.V two (mma_mixed: P is float32 and split, V exact).
+// - Any head_dim up to 128: variants 16, 32, 64 and 128 columns wide (the
+//   smallest that holds d), columns past d and rows past sq or sk
+//   zero-filled, so every loop runs over the variant's full width and no
+//   NaN reaches a product; rows past sq are never written. Float32 rows at
+//   d % 4 == 0 from 16-byte aligned bases load in 16-byte cp.async chunks
+//   and store float2 pairs (kWide: the float32 code of the d % 8 route,
+//   operation for operation); any other row loads in the widest granule
+//   that fits, or element by element (load_rows_any), and stores a pair
+//   only where both columns lie before d and the address is aligned
+//   (store_pair), since at odd d a pair would cross into the next head's
+//   row.
 // - Masks only on tiles that cross an edge (causal diagonal, window,
 //   ragged sq or sk) of what the warp's rows see. A masked element gets
 //   p = 0 explicitly, so a row that has seen no key keeps m = -1e30, l =
-//   0 and o = 0. Columns past d and rows past sq or sk are zero-filled,
-//   so every loop runs over the variant's full width and no NaN reaches a
-//   product; rows past sq are never written.
+//   0 and o = 0.
 // - O and lse are written once from registers: no atomics, the same bits
 //   on every run.
 // - Tiles: 32 keys per stage (N), registers capped for 3 blocks per SM at
 //   d <= 64. At the training shape 32 keys at 3 blocks beat 64 keys by 5%
 //   and 32 keys at the uncapped 2 blocks by 10%; at the serving shape (192
 //   blocks, under two waves) 64 keys are 5% faster and the cap does not
-//   matter (scripts/tf32x3_tile_sweep.py). Registers: O takes d / 2 per
-//   thread and S N / 2; ptxas must report no spills.
+//   matter. At width 16 (the d-12 LM's 512 blocks, float32 and bf16) 32
+//   keys beat 64 by 4-11% and 16 by 15-16%, and a cap of 2, 3 or 4 blocks
+//   gives the same time within 1%: the variant needs 127 registers
+//   (float32) or 107 (bf16), which fit 4 blocks uncapped
+//   (scripts/tf32x3_tile_sweep.py). Registers: O takes d / 2 per thread
+//   and S N / 2; ptxas must report no spills.
 
 #include "tf32x3_common.cuh"
 
@@ -73,34 +89,35 @@ constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;
 
-template <int DMAX>
+template <typename T, int DMAX>
 struct Tile {
   static constexpr int kN = 32;  // keys per stage
   // blocks per SM ptxas must fit (a register cap) at d <= 64
   static constexpr int kMinBlocks = DMAX == 128 ? 1 : 3;
-  static constexpr int kP = DMAX + 4;  // row pitch, floats
+  // row pitch, elements: 16 bytes past the width
+  static constexpr int kP = DMAX + 16 / static_cast<int>(sizeof(T));
   static constexpr int kQ = kBlockM * kP;  // Q
   static constexpr int kKV = kN * kP;      // K or V, one stage
-  static constexpr size_t kBytes = sizeof(float) * (kQ + 4 * kKV);
+  static constexpr size_t kBytes = sizeof(T) * (kQ + 4 * kKV);
 };
 
-template <int DMAX>
-__global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
-    flash_fwd_tf32x3_kernel(const float* __restrict__ q,
-                            const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            float* __restrict__ o, float* __restrict__ lse,
-                            int sq, int sk, int h, int kvh, int d,
-                            float scale, int causal, int window,
-                            int offset) {
-  using T = Tile<DMAX>;
-  constexpr int N = T::kN, P = T::kP;
+// kWide: float32 rows at d % 4 == 0 from 16-byte aligned bases (16-byte
+// loads, float2 stores); `gran` is the other variants' load granule
+template <typename T, int DMAX, bool kWide>
+__global__ void __launch_bounds__(kThreads, Tile<T, DMAX>::kMinBlocks)
+    flash_fwd_tf32x3_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                            const T* __restrict__ v, T* __restrict__ o,
+                            float* __restrict__ lse, int sq, int sk, int h,
+                            int kvh, int d, float scale, int causal,
+                            int window, int offset, int gran) {
+  using Tl = Tile<T, DMAX>;
+  constexpr int N = Tl::kN, P = Tl::kP;
   constexpr int NT = N / 8;     // 8-key n-tiles of S per kv tile
   constexpr int DT = DMAX / 8;  // 8-column tiles of head_dim
   extern __shared__ float4 smem4[];
-  float* sQ = reinterpret_cast<float*>(smem4);
-  float* sK = sQ + T::kQ;       // + stage * kKV
-  float* sV = sK + 2 * T::kKV;  // + stage * kKV
+  T* sQ = reinterpret_cast<T*>(smem4);
+  T* sK = sQ + Tl::kQ;        // + stage * kKV
+  T* sV = sK + 2 * Tl::kKV;   // + stage * kKV
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
@@ -126,14 +143,14 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
   auto issue = [&](int tile) {
     const int s = tile % 2;
     const int kv0 = start + tile * N;
-    load_rows<N, DMAX, kThreads>(sK + s * T::kKV, k + kv_off, kv_stride, kv0,
-                                 sk, d, P);
-    load_rows<N, DMAX, kThreads>(sV + s * T::kKV, v + kv_off, kv_stride, kv0,
-                                 sk, d, P);
+    load_tile<N, DMAX, kThreads, kWide>(sK + s * Tl::kKV, k + kv_off,
+                                        kv_stride, kv0, sk, d, P, gran);
+    load_tile<N, DMAX, kThreads, kWide>(sV + s * Tl::kKV, v + kv_off,
+                                        kv_stride, kv0, sk, d, P, gran);
   };
 
-  load_rows<kBlockM, DMAX, kThreads>(sQ, q + q_off, q_stride, row0, sq, d,
-                                     P);
+  load_tile<kBlockM, DMAX, kThreads, kWide>(sQ, q + q_off, q_stride, row0,
+                                            sq, d, P, gran);
   if (n_tiles > 0) issue(0);
   cp_async_commit();
 
@@ -142,7 +159,7 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
   const int row_a = row0 + rr;
   const int w_row0 = row0 + 16 * warp;  // the warp's rows: w_row0 .. + 15
   const float scale_log2 = scale * kLog2e;
-  const float* qw = sQ + rr * P + t;
+  const T* qw = sQ + rr * P + t;
 
   // running max (log2 units, the whole row's) and this lane's share of
   // the running sum, per row
@@ -160,8 +177,8 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
     __syncthreads();
     const int s = tile % 2;
     const int kv0 = start + tile * N;
-    const float* tk = sK + s * T::kKV;
-    const float* tv = sV + s * T::kKV;
+    const T* tk = sK + s * Tl::kKV;
+    const T* tv = sV + s * Tl::kKV;
 
     // S = Q.K^T: 16 rows x N keys per warp
     float st[NT][4];
@@ -174,10 +191,10 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
       load_a(qw + c, P, qa_hi, qa_lo);
 #pragma unroll
       for (int j = 0; j < NT; ++j) {
-        const float* kr = tk + (8 * j + g) * P + c + t;
+        const T* kr = tk + (8 * j + g) * P + c + t;
         uint32_t b_hi[2], b_lo[2];
         load_b(kr[0], kr[4], b_hi, b_lo);
-        mma3(st[j], qa_hi, qa_lo, b_hi, b_lo);
+        mma_inputs<T>(st[j], qa_hi, qa_lo, b_hi, b_lo);
       }
     }
 
@@ -242,12 +259,12 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
     for (int j = 0; j < NT; ++j) {
       uint32_t p_hi[4], p_lo[4];
       c_to_a(st[j], p_hi, p_lo);
-      const float* v0 = tv + (8 * j + 2 * t) * P + g;
+      const T* v0 = tv + (8 * j + 2 * t) * P + g;
 #pragma unroll
       for (int n = 0; n < DT; ++n) {
         uint32_t b_hi[2], b_lo[2];
         load_b(v0[8 * n], v0[P + 8 * n], b_hi, b_lo);
-        mma3(acc[n], p_hi, p_lo, b_hi, b_lo);
+        mma_mixed<T>(acc[n], p_hi, p_lo, b_hi, b_lo);
       }
     }
     __syncthreads();  // the stage is read; the next issue may refill it
@@ -263,13 +280,17 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
     if (row >= sq) continue;
     const bool seen = l[r] > 0.f;
     const float inv = seen ? 1.f / l[r] : 0.f;
-    float* orow = o + q_off + (int64_t)row * q_stride;
+    T* orow = o + q_off + (int64_t)row * q_stride;
 #pragma unroll
     for (int n = 0; n < DT; ++n) {
       const int c = 8 * n + 2 * t;
-      if (c < d)
-        *reinterpret_cast<float2*>(orow + c) =
-            make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      if constexpr (kWide) {
+        if (c < d)
+          *reinterpret_cast<float2*>(orow + c) =
+              make_float2(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      } else {
+        store_pair(orow, c, d, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+      }
     }
     if (t == 0)
       lse[((int64_t)bi * sq + row) * h + hi] =
@@ -277,48 +298,73 @@ __global__ void __launch_bounds__(kThreads, Tile<DMAX>::kMinBlocks)
   }
 }
 
-template <int DMAX>
-cudaError_t launch(const float* q, const float* k, const float* v, float* o,
-                   float* lse, int b, int sq, int sk, int h, int kvh, int d,
-                   float scale, int causal, int window, int offset,
+template <typename T, int DMAX, bool kWide>
+cudaError_t launch(const T* q, const T* k, const T* v, T* o, float* lse,
+                   int b, int sq, int sk, int h, int kvh, int d, float scale,
+                   int causal, int window, int offset, int gran,
                    cudaStream_t stream) {
-  constexpr size_t smem = Tile<DMAX>::kBytes;
-  auto kernel = flash_fwd_tf32x3_kernel<DMAX>;
+  constexpr size_t smem = Tile<T, DMAX>::kBytes;
+  auto kernel = flash_fwd_tf32x3_kernel<T, DMAX, kWide>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((sq + kBlockM - 1) / kBlockM, b * h);
   kernel<<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, sq, sk, h, kvh,
-                                           d, scale, causal, window, offset);
+                                           d, scale, causal, window, offset,
+                                           gran);
   return cudaGetLastError();
+}
+
+// the variant whose width (16, 32, 64 or 128 columns) is the smallest
+// that holds d
+template <typename T, bool kWide>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
+                     void* lse, int b, int sq, int sk, int h, int kvh, int d,
+                     float scale, int causal, int window, int offset,
+                     int gran, cudaStream_t s) {
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  T* to = static_cast<T*>(o);
+  float* fl = static_cast<float*>(lse);
+  if (d <= 16)
+    return launch<T, 16, kWide>(tq, tk, tv, to, fl, b, sq, sk, h, kvh, d,
+                                scale, causal, window, offset, gran, s);
+  if (d <= 32)
+    return launch<T, 32, kWide>(tq, tk, tv, to, fl, b, sq, sk, h, kvh, d,
+                                scale, causal, window, offset, gran, s);
+  if (d <= 64)
+    return launch<T, 64, kWide>(tq, tk, tv, to, fl, b, sq, sk, h, kvh, d,
+                                scale, causal, window, offset, gran, s);
+  return launch<T, 128, kWide>(tq, tk, tv, to, fl, b, sq, sk, h, kvh, d,
+                               scale, causal, window, offset, gran, s);
 }
 
 }  // namespace
 
-// q (b, sq, h, d), k and v (b, sk, kvh, d), o like q: contiguous float32,
-// d a multiple of 8 up to 128, 16-byte aligned bases; lse (b, sq, h)
-// float32, every element of o and lse written. Launches on `stream` and
-// returns cudaGetLastError().
+// q (b, sq, h, d), k and v (b, sk, kvh, d), o like q: contiguous, float32
+// (dtype 0) or bf16 (dtype 1), 1 <= d <= 128, any base aligned to the
+// element; lse (b, sq, h) float32, every element of o and lse written.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int lo_flash_fwd_tf32x3(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int b,
                                    int sq, int sk, int h, int kvh, int d,
                                    float scale, int causal, int window,
-                                   int offset, void* stream) {
+                                   int offset, int dtype, void* stream) {
   if (b < 1 || sq < 1 || sk < 1 || h < 1 || kvh < 1 || h % kvh != 0 ||
-      d < 8 || d > 128 || d % 8 != 0 || (int64_t)b * h > 65535)
+      d < 1 || d > 128 || (dtype != 0 && dtype != 1) ||
+      (int64_t)b * h > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* fq = static_cast<const float*>(q);
-  const float* fk = static_cast<const float*>(k);
-  const float* fv = static_cast<const float*>(v);
-  float* fo = static_cast<float*>(o);
-  float* fl = static_cast<float*>(lse);
-  if (d <= 32)
-    return (int)launch<32>(fq, fk, fv, fo, fl, b, sq, sk, h, kvh, d, scale,
-                           causal, window, offset, s);
-  if (d <= 64)
-    return (int)launch<64>(fq, fk, fv, fo, fl, b, sq, sk, h, kvh, d, scale,
-                           causal, window, offset, s);
-  return (int)launch<128>(fq, fk, fv, fo, fl, b, sq, sk, h, kvh, d, scale,
-                          causal, window, offset, s);
+  const void* bases[] = {q, k, v};
+  const int gran = granule(d * (dtype == 1 ? 2 : 4), bases, 3);
+  if (dtype == 1)
+    return (int)dispatch<__nv_bfloat16, false>(q, k, v, o, lse, b, sq, sk, h,
+                                               kvh, d, scale, causal, window,
+                                               offset, gran, s);
+  if (gran == 16)
+    return (int)dispatch<float, true>(q, k, v, o, lse, b, sq, sk, h, kvh, d,
+                                      scale, causal, window, offset, gran, s);
+  return (int)dispatch<float, false>(q, k, v, o, lse, b, sq, sk, h, kvh, d,
+                                     scale, causal, window, offset, gran, s);
 }

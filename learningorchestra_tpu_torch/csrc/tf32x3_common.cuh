@@ -14,8 +14,8 @@
 //
 // bf16 inputs. A bf16 value is exact in TF32 (8 significant bits against
 // 11, the same exponent range): widened to float it is its own hi and its
-// lo is 0. The backward kernels are templates on the input type T (float
-// or __nv_bfloat16); for bf16 the lo terms of an input drop out at compile
+// lo is 0. The kernels are templates on the input type T (float or
+// __nv_bfloat16); for bf16 the lo terms of an input drop out at compile
 // time: a product of two inputs (Q.K^T, dO.V^T) is one mma_tf32, a product
 // of a float32 intermediate (P, dS; split hi + lo) and an input two
 // (mma_inputs, mma_mixed). Widening at the fragment read is a shift.
@@ -351,6 +351,22 @@ __device__ __forceinline__ void store_pair(float* row, int c, int d, float x0,
   } else {
     p[0] = x0;
     if (c + 1 < d) p[1] = x1;
+  }
+}
+
+// store_pair for a bf16 output row (the forward's o in q's dtype): each
+// value rounded to nearest even, as torch rounds float32 to bf16; one
+// __nv_bfloat162 where both columns lie before d and the address is
+// 4-byte aligned, else scalars
+__device__ __forceinline__ void store_pair(__nv_bfloat16* row, int c, int d,
+                                           float x0, float x1) {
+  if (c >= d) return;
+  __nv_bfloat16* p = row + c;
+  if (c + 1 < d && (reinterpret_cast<uintptr_t>(p) & 3) == 0) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+  } else {
+    p[0] = __float2bfloat16_rn(x0);
+    if (c + 1 < d) p[1] = __float2bfloat16_rn(x1);
   }
 }
 

@@ -516,7 +516,11 @@ class LanguageModel:
             return self.attention
         # the JAX package's dot-below-1024 crossover was measured on a
         # v5e; on the card the kernel serves every prefill length until
-        # the crossover is measured there
+        # the crossover is measured there. No flash kernel takes a
+        # head_dim above MAX_HEAD_DIM (the JAX package's Pallas kernels
+        # pad any head_dim), so such a model runs dot
+        if self.d_model // self.n_heads > attn_ops.MAX_HEAD_DIM:
+            return "dot"
         return "flash"
 
     def _head_chunk(self) -> int:

@@ -12,17 +12,14 @@ heads, ``kv | heads``.
   :func:`flash_attention_reference` and :func:`flash_bwd_reference`. A
   CUDA tensor never falls back to a plain version or to another route:
   the kernel launches or the call raises.
-- Routes, one per pass, by :func:`_route`: bf16 with a head_dim that
-  is a multiple of 8 up to 128 takes the wgmma + TMA tensor-core kernels
-  ``csrc/flash_fwd_sm90.cu``, ``csrc/flash_bwd_dq_sm90.cu`` and
-  ``csrc/flash_bwd_dkv_sm90.cu``; float32 with such a head_dim the
-  split-TF32 tensor-core kernels (mma.sync + cp.async)
-  ``csrc/flash_fwd_tf32x3.cu``, ``csrc/flash_bwd_dq_tf32x3.cu`` and
-  ``csrc/flash_bwd_dkv_tf32x3.cu``. Every other head_dim up to 128 runs
-  its forward on the CUDA-core ``csrc/flash_fwd.cu`` and its backward on
-  the split-TF32 dQ and dK/dV kernels, in either dtype. The CUDA-core
-  ``csrc/flash_bwd_dq.cu`` and ``csrc/flash_bwd_dkv.cu`` have no route:
-  they stay as the comparison the tensor-core kernels are timed against.
+- Two routes, the same for both passes, by :func:`_route`: bf16 with a
+  head_dim that is a multiple of 8 up to 128 takes the wgmma + TMA
+  tensor-core kernels ``csrc/flash_fwd_sm90.cu``,
+  ``csrc/flash_bwd_dq_sm90.cu`` and ``csrc/flash_bwd_dkv_sm90.cu``;
+  every other float32 or bf16 head_dim up to 128 the split-TF32
+  tensor-core kernels (mma.sync + cp.async) ``csrc/flash_fwd_tf32x3.cu``,
+  ``csrc/flash_bwd_dq_tf32x3.cu`` and ``csrc/flash_bwd_dkv_tf32x3.cu``.
+  Any other input raises before a build or launch.
 - :func:`full_attention_reference` is the ``dot`` implementation.
 - :func:`decode_attention` is the serving plane's single-token op, left
   as plain tensor ops exactly as the JAX package left it.
@@ -37,12 +34,8 @@ import torch
 
 NEG_INF = -1e30
 
-# launches of each kernel (CPU calls never count): the forward, dQ and
-# dK/dV counters count every route, the *_SM90 and *_TF32X3 ones their
-# tensor-core route only
-FLASH_FWD_LAUNCHES = 0
-FLASH_BWD_DQ_LAUNCHES = 0
-FLASH_BWD_DKV_LAUNCHES = 0
+# launches of each kernel, one counter per CUDA source (CPU calls never
+# count)
 FLASH_FWD_SM90_LAUNCHES = 0
 FLASH_BWD_DQ_SM90_LAUNCHES = 0
 FLASH_BWD_DKV_SM90_LAUNCHES = 0
@@ -51,7 +44,8 @@ FLASH_BWD_DKV_TF32X3_LAUNCHES = 0
 FLASH_FWD_TF32X3_LAUNCHES = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_HEAD_DIM = 128
+# the widest head_dim any flash kernel takes
+MAX_HEAD_DIM = 128
 
 
 def _check_args(q, k, v, causal: bool, window: int) -> None:
@@ -201,8 +195,8 @@ def _check_shape(kernel: str, q, k) -> None:
         raise TypeError(f"{kernel} takes float32 or bfloat16, got "
                         f"{q.dtype}")
     b, _, h, d = q.shape
-    if d > _MAX_HEAD_DIM:
-        raise ValueError(f"{kernel} takes head_dim <= {_MAX_HEAD_DIM}, "
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"{kernel} takes head_dim <= {MAX_HEAD_DIM}, "
                          f"got {d}")
     if b * h > 65535:
         raise ValueError(f"{kernel} takes batch * heads <= 65535, got "
@@ -220,39 +214,13 @@ def _kernel(source: str, argtypes):
     return fn
 
 
-def _flash_fwd_cuda(q, k, v, causal: bool, scale: float, window: int,
-                    offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    global FLASH_FWD_LAUNCHES
-    _check_cuda("flash_fwd", (("q", q), ("k", k), ("v", v)))
-    _check_shape("flash_fwd", q, k)
-    b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    fn = _kernel("flash_fwd", [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                 + [ctypes.c_float] + [ctypes.c_int] * 4
-                 + [ctypes.c_void_p])
-    o = torch.empty_like(q)
-    lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, sq, sk, h, kvh, d, float(scale),
-                 int(bool(causal)), int(window), int(offset),
-                 _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd launch failed: CUDA error {err}")
-    FLASH_FWD_LAUNCHES += 1
-    return o, lse
-
-
 def _tensor_core_route(q) -> bool:
-    """True when a CUDA tensor takes the tensor-core kernels
+    """True when a CUDA tensor takes the wgmma tensor-core kernels
     (``csrc/flash_*_sm90.cu``): bf16 with a head_dim that is a multiple
-    of 8 up to 128, since TMA needs 16-byte strides. Every other CUDA
-    input takes the route :func:`_route` gives it; a CPU tensor never
-    gets here (it runs the plain version)."""
+    of 8 up to 128, since TMA needs 16-byte strides."""
     d = q.shape[-1]
     return (q.device.type == "cuda" and q.dtype == torch.bfloat16
-            and d % 8 == 0 and d <= _MAX_HEAD_DIM)
+            and d % 8 == 0 and d <= MAX_HEAD_DIM)
 
 
 def _bf16_split(x: torch.Tensor) -> torch.Tensor:
@@ -264,36 +232,28 @@ def _bf16_split(x: torch.Tensor) -> torch.Tensor:
     return hi + (x - hi).to(torch.bfloat16).float()
 
 
-def _route(q, backward: bool = False) -> str:
-    """The kernels a CUDA tensor takes in one pass, the forward or the
-    backward (dQ and dK/dV together):
+def _route(q) -> str:
+    """The kernels a CUDA tensor takes, the same in the forward and the
+    backward (dQ and dK/dV):
 
-    ===============================  ==========  ===========
-    q (dtype, head_dim d)            forward     backward
-    ===============================  ==========  ===========
-    bf16, d % 8 == 0, d <= 128       ``sm90``    ``sm90``
-    float32, d % 8 == 0, d <= 128    ``tf32x3``  ``tf32x3``
-    float32 or bf16, other d <= 128  ``cuda``    ``tf32x3``
-    anything else                    ``cuda``    ``cuda``
-    ===============================  ==========  ===========
+    ===================================  ==========
+    q (dtype, head_dim d)                route
+    ===================================  ==========
+    bf16, d % 8 == 0, d <= 128           ``sm90``
+    float32 or bf16, any other d <= 128  ``tf32x3``
+    ===================================  ==========
 
     ``sm90``: wgmma tensor cores (:func:`_tensor_core_route`).
-    ``tf32x3``: split-TF32 mma.sync tensor cores; the forward reads
-    float32 rows in 16-byte copies, the backward kernels zero-fill any
-    head_dim to their variant's width and take bf16 too. ``cuda``: the
-    CUDA-core forward, whose wrapper refuses what it does not take; in
-    the backward, no kernel takes the input and :func:`_flash_bwd`
-    raises. A CPU tensor never gets here (it runs the plain version)."""
-    if _tensor_core_route(q):
-        return "sm90"
-    d = q.shape[-1]
-    if q.device.type != "cuda" or d > _MAX_HEAD_DIM:
-        return "cuda"
-    if q.dtype == torch.float32 and d % 8 == 0:
-        return "tf32x3"
-    if backward and q.dtype in _DTYPE_CODES:
-        return "tf32x3"
-    return "cuda"
+    ``tf32x3``: split-TF32 mma.sync tensor cores, which zero-fill any
+    head_dim to their variant's width. Anything else (float16, a
+    head_dim above 128) no kernel takes: raises ValueError, before any
+    build or launch. A CPU tensor never gets here (it runs the plain
+    version)."""
+    if q.dtype not in _DTYPE_CODES or q.shape[-1] > MAX_HEAD_DIM:
+        raise ValueError(f"flash attention takes float32 or bfloat16 with "
+                         f"head_dim <= {MAX_HEAD_DIM}, got {q.dtype} at "
+                         f"head_dim {q.shape[-1]}")
+    return "sm90" if _tensor_core_route(q) else "tf32x3"
 
 
 def _tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -325,8 +285,8 @@ def _tf32x3_einsum(eq: str, x: torch.Tensor,
 
 
 def _check_tma(kernel: str, tensors) -> None:
-    """The tensor-core kernels read bf16 through TMA, from 16-byte
-    aligned bases."""
+    """The wgmma kernels read bf16 through TMA, from 16-byte aligned
+    bases."""
     for name, t in tensors:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{kernel} takes bfloat16; {name} is {t.dtype}")
@@ -337,7 +297,7 @@ def _check_tma(kernel: str, tensors) -> None:
 
 def _flash_fwd_sm90(q, k, v, causal: bool, scale: float, window: int,
                     offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    global FLASH_FWD_LAUNCHES, FLASH_FWD_SM90_LAUNCHES
+    global FLASH_FWD_SM90_LAUNCHES
     tensors = (("q", q), ("k", k), ("v", v))
     _check_cuda("flash_fwd_sm90", tensors)
     _check_shape("flash_fwd_sm90", q, k)
@@ -356,7 +316,6 @@ def _flash_fwd_sm90(q, k, v, causal: bool, scale: float, window: int,
                  int(bool(causal)), int(window), int(offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd_sm90 launch failed: CUDA error {err}")
-    FLASH_FWD_LAUNCHES += 1
     FLASH_FWD_SM90_LAUNCHES += 1
     return o, lse
 
@@ -373,38 +332,12 @@ def _bwd_inputs(kernel: str, q, k, v, do, lse, delta) -> None:
                          f"do not match q {tuple(q.shape)} on {q.device}")
 
 
-def _flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal: bool,
-                       scale: float, window: int,
-                       offset: int) -> torch.Tensor:
-    """float32 dq (b, sq, h, d) from the CUDA-core flash_bwd_dq kernel.
-    No route takes it (:func:`_route`): it is the comparison the
-    tensor-core dQ kernels are timed against."""
-    global FLASH_BWD_DQ_LAUNCHES
-    _bwd_inputs("flash_bwd_dq", q, k, v, do, lse, delta)
-    b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    fn = _kernel("flash_bwd_dq", [ctypes.c_void_p] * 7
-                 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq,
-                 sk, h, kvh, d, float(scale), int(bool(causal)),
-                 int(window), int(offset), _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_dq launch failed: CUDA error {err}")
-    FLASH_BWD_DQ_LAUNCHES += 1
-    return dq
-
-
 def _flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal: bool,
                        scale: float, window: int,
                        offset: int) -> torch.Tensor:
     """float32 dq (b, sq, h, d) from the tensor-core flash_bwd_dq_sm90
     kernel."""
-    global FLASH_BWD_DQ_LAUNCHES, FLASH_BWD_DQ_SM90_LAUNCHES
+    global FLASH_BWD_DQ_SM90_LAUNCHES
     _bwd_inputs("flash_bwd_dq_sm90", q, k, v, do, lse, delta)
     _check_tma("flash_bwd_dq_sm90",
                (("q", q), ("k", k), ("v", v), ("do", do)))
@@ -423,37 +356,8 @@ def _flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq_sm90 launch failed: CUDA error "
                            f"{err}")
-    FLASH_BWD_DQ_LAUNCHES += 1
     FLASH_BWD_DQ_SM90_LAUNCHES += 1
     return dq
-
-
-def _flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal: bool,
-                        scale: float, window: int, offset: int,
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """float32 (dk, dv), each (b, sk, kvh, d), from the CUDA-core
-    flash_bwd_dkv kernel. No route takes it (:func:`_route`): it is the
-    comparison the tensor-core dK/dV kernels are timed against."""
-    global FLASH_BWD_DKV_LAUNCHES
-    _bwd_inputs("flash_bwd_dkv", q, k, v, do, lse, delta)
-    b, sq, h, d = q.shape
-    sk, kvh = k.shape[1], k.shape[2]
-    fn = _kernel("flash_bwd_dkv", [ctypes.c_void_p] * 8
-                 + [ctypes.c_int] * 6 + [ctypes.c_float]
-                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-    dk = torch.empty(k.shape, dtype=torch.float32, device=k.device)
-    dv = torch.empty(v.shape, dtype=torch.float32, device=v.device)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, sq, sk, h, kvh, d, float(scale),
-                 int(bool(causal)), int(window), int(offset),
-                 _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(f"flash_bwd_dkv launch failed: CUDA error {err}")
-    FLASH_BWD_DKV_LAUNCHES += 1
-    return dk, dv
 
 
 def _by_head(x: torch.Tensor, rows: int) -> torch.Tensor:
@@ -471,7 +375,7 @@ def _flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal: bool,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32 (dk, dv), each (b, sk, kvh, d), from the tensor-core
     flash_bwd_dkv_sm90 kernel."""
-    global FLASH_BWD_DKV_LAUNCHES, FLASH_BWD_DKV_SM90_LAUNCHES
+    global FLASH_BWD_DKV_SM90_LAUNCHES
     _bwd_inputs("flash_bwd_dkv_sm90", q, k, v, do, lse, delta)
     _check_tma("flash_bwd_dkv_sm90",
                (("q", q), ("k", k), ("v", v), ("do", do)))
@@ -493,52 +397,34 @@ def _flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv_sm90 launch failed: CUDA error "
                            f"{err}")
-    FLASH_BWD_DKV_LAUNCHES += 1
     FLASH_BWD_DKV_SM90_LAUNCHES += 1
     return dk, dv
-
-
-def _check_fwd_tf32x3(kernel: str, q, tensors) -> None:
-    """The split-TF32 forward reads float32 rows with 16-byte cp.async
-    copies: float32, head_dim a multiple of 8, 16-byte aligned bases.
-    (The backward kernels take float32 or bf16 at any head_dim up to
-    128, which :func:`_check_shape` holds them to.)"""
-    for name, t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"{kernel} takes float32; {name} is {t.dtype}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{kernel} needs 16-byte aligned tensors; "
-                             f"{name} is not")
-    if q.shape[-1] % 8:
-        raise ValueError(f"{kernel} takes a head_dim that is a multiple of "
-                         f"8, got {q.shape[-1]}")
 
 
 def _flash_fwd_tf32x3(q, k, v, causal: bool, scale: float, window: int,
                       offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(o, lse)`` from the split-TF32 tensor-core flash_fwd_tf32x3
-    kernel: float32 o (b, sq, h, d) and lse (b, sq, h)."""
-    global FLASH_FWD_LAUNCHES, FLASH_FWD_TF32X3_LAUNCHES
-    tensors = (("q", q), ("k", k), ("v", v))
-    _check_fwd_tf32x3("flash_fwd_tf32x3", q, tensors)
-    _check_cuda("flash_fwd_tf32x3", tensors)
+    kernel: float32 or bf16 inputs, any head_dim up to 128; o (b, sq, h,
+    d) in q's dtype and float32 lse (b, sq, h)."""
+    global FLASH_FWD_TF32X3_LAUNCHES
+    _check_cuda("flash_fwd_tf32x3", (("q", q), ("k", k), ("v", v)))
     _check_shape("flash_fwd_tf32x3", q, k)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
     fn = _kernel("flash_fwd_tf32x3", [ctypes.c_void_p] * 5
                  + [ctypes.c_int] * 6 + [ctypes.c_float]
-                 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
     o = torch.empty_like(q)
     lse = torch.empty((b, sq, h), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), b, sq, sk, h, kvh, d, float(scale),
-                 int(bool(causal)), int(window), int(offset), stream)
+                 int(bool(causal)), int(window), int(offset),
+                 _DTYPE_CODES[q.dtype], stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd_tf32x3 launch failed: CUDA error "
                            f"{err}")
-    FLASH_FWD_LAUNCHES += 1
     FLASH_FWD_TF32X3_LAUNCHES += 1
     return o, lse
 
@@ -549,7 +435,7 @@ def _flash_bwd_dq_tf32x3(q, k, v, do, lse, delta, causal: bool,
     """float32 dq (b, sq, h, d) from the split-TF32 tensor-core
     flash_bwd_dq_tf32x3 kernel: float32 or bf16 inputs, any head_dim up
     to 128."""
-    global FLASH_BWD_DQ_LAUNCHES, FLASH_BWD_DQ_TF32X3_LAUNCHES
+    global FLASH_BWD_DQ_TF32X3_LAUNCHES
     _bwd_inputs("flash_bwd_dq_tf32x3", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -566,7 +452,6 @@ def _flash_bwd_dq_tf32x3(q, k, v, do, lse, delta, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq_tf32x3 launch failed: CUDA error "
                            f"{err}")
-    FLASH_BWD_DQ_LAUNCHES += 1
     FLASH_BWD_DQ_TF32X3_LAUNCHES += 1
     return dq
 
@@ -577,7 +462,7 @@ def _flash_bwd_dkv_tf32x3(q, k, v, do, lse, delta, causal: bool,
     """float32 (dk, dv), each (b, sk, kvh, d), from the split-TF32
     tensor-core flash_bwd_dkv_tf32x3 kernel: float32 or bf16 inputs, any
     head_dim up to 128."""
-    global FLASH_BWD_DKV_LAUNCHES, FLASH_BWD_DKV_TF32X3_LAUNCHES
+    global FLASH_BWD_DKV_TF32X3_LAUNCHES
     _bwd_inputs("flash_bwd_dkv_tf32x3", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -596,7 +481,6 @@ def _flash_bwd_dkv_tf32x3(q, k, v, do, lse, delta, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv_tf32x3 launch failed: CUDA error "
                            f"{err}")
-    FLASH_BWD_DKV_LAUNCHES += 1
     FLASH_BWD_DKV_TF32X3_LAUNCHES += 1
     return dk, dv
 
@@ -618,8 +502,7 @@ def _flash_fwd(q, k, v, causal: bool, scale: float, window: int,
         return flash_attention_reference(q, k, v, causal=causal,
                                          scale=scale, window=window,
                                          kv_offset=offset)
-    fwd = {"sm90": _flash_fwd_sm90, "tf32x3": _flash_fwd_tf32x3,
-           "cuda": _flash_fwd_cuda}[_route(q)]
+    fwd = {"sm90": _flash_fwd_sm90, "tf32x3": _flash_fwd_tf32x3}[_route(q)]
     return fwd(q, k, v, causal, scale, window, offset)
 
 
@@ -629,17 +512,11 @@ def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float,
         return flash_bwd_reference(q, k, v, o, lse, do, dlse,
                                    causal=causal, scale=scale,
                                    window=window, kv_offset=offset)
+    dq_fn, dkv_fn = {
+        "sm90": (_flash_bwd_dq_sm90, _flash_bwd_dkv_sm90),
+        "tf32x3": (_flash_bwd_dq_tf32x3, _flash_bwd_dkv_tf32x3)}[_route(q)]
     do = do.contiguous()
     delta = _bwd_delta(o, do, dlse)
-    route = _route(q, backward=True)
-    if route == "sm90":
-        dq_fn, dkv_fn = _flash_bwd_dq_sm90, _flash_bwd_dkv_sm90
-    elif route == "tf32x3":
-        dq_fn, dkv_fn = _flash_bwd_dq_tf32x3, _flash_bwd_dkv_tf32x3
-    else:
-        raise ValueError(f"flash attention backward takes float32 or "
-                         f"bfloat16 with head_dim <= {_MAX_HEAD_DIM}, got "
-                         f"{q.dtype} at head_dim {q.shape[-1]}")
     args = (q, k, v, do, lse, delta, causal, scale, window, offset)
     dq = dq_fn(*args)
     dk, dv = dkv_fn(*args)

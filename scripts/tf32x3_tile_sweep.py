@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Tile sweep of the split-TF32 (3xTF32) float32 attention kernels on
-one NVIDIA card.
+"""Tile sweep of the split-TF32 (3xTF32) attention kernels on one
+NVIDIA card.
 
     python3 scripts/tf32x3_tile_sweep.py [kernel ...]
 
@@ -10,20 +10,23 @@ or the ones named) that differ only in the rows of the streamed tile at
 head_dim <= 64 (forward and dQ: keys per stage, ``kN``; dK/dV: q rows
 per stage, ``kM``) and in the blocks per SM ptxas is told to fit
 (``kMinBlocks`` in ``__launch_bounds__``, which caps the registers),
-and, for the backward kernels, one ``narrow`` variant that sends
-float32 rows at d % 4 == 0 through the any-width loads and pair stores
-(``kWide`` false) instead of the 16-byte path, each from a text-substituted copy under ``build/variants/`` (the sources
-in the package are not touched). Each variant is checked against its
-plain version (``flash_attention_reference``, ``flash_bwd_reference``)
-at the float32 tolerance (it fails the run outside it) and timed with
-CUDA events, in turns (every variant, then every variant again in
-reverse order): the backward kernels at the training path's shape (b 8,
-2048 tokens, 8 heads over 4 kv heads, d 64, causal, window 1024) and at
-the d-12 LM's (b 2, d 12: the width-16 variants), the forward at the
-training shape and at the serving prefill's (b 1, 1536 tokens), all in
-float32.
+and one ``narrow`` variant that sends float32 rows at d % 4 == 0
+through the any-width loads and pair stores (``kWide`` false) instead
+of the 16-byte path, each from a text-substituted copy under
+``build/variants/`` (the sources in the package are not touched). Each
+variant is checked against its plain version
+(``flash_attention_reference``, ``flash_bwd_reference``) at the
+float32 tolerance (bf16 o: one bf16 ulp; it fails the run outside it)
+and timed with CUDA events, in turns (every variant, then every variant
+again in reverse order): the backward kernels at the training path's
+shape (b 8, 2048 tokens, 8 heads over 4 kv heads, d 64, causal, window
+1024) and at the d-12 LM's (b 2, d 12: the width-16 variants) in
+float32, the forward at the training shape and at the serving
+prefill's (b 1, 1536 tokens) in float32 and at the d-12 LM's in
+float32 and bf16.
 Prints the card's name and power limit, ptxas's registers and spills
-per variant, and one JSON line per kernel and shape. Needs a card and
+per variant (the float32 d-64 instance, and the width-16 float32 and
+bf16 ones), and one JSON line per kernel and shape. Needs a card and
 nvcc; exits 2 without a card.
 """
 
@@ -42,27 +45,34 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
 # kernel -> (the lines of the source that set the tile rows and the
 # blocks per SM, their text with {rows} and {blocks}, variants of (name,
 # rows at d <= 64, minimum blocks per SM at d <= 64[, further text
-# replacements]), the shapes (b, s, h, kvh, d, causal, window) it is
-# timed at); the package's own variant is the first of each
+# replacements]), the shapes (b, s, h, kvh, d, causal, window, dtype) it
+# is timed at); the package's own variant is the first of each
 # pointer arguments of each entry point: q, k, v (and dO, lse, delta in
 # the backward), then the outputs (o and lse, dq, or dk and dv)
 POINTERS = {"flash_fwd_tf32x3": 5, "flash_bwd_dq_tf32x3": 7,
             "flash_bwd_dkv_tf32x3": 8}
-TRAIN_SHAPE = (8, 2048, 8, 4, 64, True, 1024)
-SERVE_SHAPE = (1, 1536, 8, 4, 64, True, 1024)
-# the d-12 LM's micro-step: the backward's width-16 variants
-D12_SHAPE = (2, 2048, 8, 4, 12, True, 1024)
-# the backward entries' float32 launch without the 16-byte path
+TRAIN_SHAPE = (8, 2048, 8, 4, 64, True, 1024, "float32")
+SERVE_SHAPE = (1, 1536, 8, 4, 64, True, 1024, "float32")
+# the d-12 LM's micro-step: the width-16 variants
+D12_SHAPE = (2, 2048, 8, 4, 12, True, 1024, "float32")
+D12_BF16_SHAPE = D12_SHAPE[:-1] + ("bfloat16",)
+# the entries' float32 launch without the 16-byte path
 NARROW = {"dispatch<float, true>": "dispatch<float, false>"}
+# ptxas's instances reported per variant: float32 at width 64 (the wide
+# one, or the narrow variant's) and the width-16 float32 and bf16 ones
+INSTANCES = {"d64": "kernelIfLi64ELb1E", "d64narrow": "kernelIfLi64ELb0E",
+             "w16": "kernelIfLi16ELb1E", "w16narrow": "kernelIfLi16ELb0E",
+             "w16bf16": "kernelI13__nv_bfloat16Li16ELb0E"}
 KERNELS = {
     "flash_fwd_tf32x3": (
         ("static constexpr int kN = 32;",
          "static constexpr int kMinBlocks = DMAX == 128 ? 1 : 3;"),
         ("static constexpr int kN = DMAX == 128 ? 32 : {rows};",
          "static constexpr int kMinBlocks = DMAX == 128 ? 1 : {blocks};"),
-        [("n32b3", 32, 3), ("n32", 32, 1), ("n64", 64, 1), ("n16", 16, 1),
-         ("n32b2", 32, 2), ("n16b3", 16, 3)],
-        (TRAIN_SHAPE, SERVE_SHAPE)),
+        [("n32b3", 32, 3), ("narrow", 32, 3, NARROW), ("n32", 32, 1),
+         ("n64", 64, 1), ("n64b3", 64, 3), ("n16", 16, 1), ("n32b2", 32, 2),
+         ("n32b4", 32, 4), ("n16b3", 16, 3)],
+        (TRAIN_SHAPE, SERVE_SHAPE, D12_SHAPE, D12_BF16_SHAPE)),
     "flash_bwd_dkv_tf32x3": (
         ("static constexpr int kM = DMAX == 16 ? 64 : 32;",
          "static constexpr int kMinBlocks = 1;"),
@@ -116,25 +126,27 @@ def _build_variants(_build, kernels) -> dict:
             raise RuntimeError(f"{kernel} {name}: nvcc exited "
                                f"{proc.returncode}\n{err}")
         # ptxas reports every instance; keep the float32 d 64 one (the
-        # backward kernels' is the wide one, template <float, 64, true>,
-        # or the narrow variant's <float, 64, false>)
+        # wide one, template <float, 64, true>, or the narrow variant's
+        # <float, 64, false>) and the width-16 ones
         log = out + err
-        report = log[log.index(
-            "kernelILi64E" if kernel == "flash_fwd_tf32x3"
-            else "kernelIfLi64ELb0E" if name == "narrow"
-            else "kernelIfLi64ELb1E"):]
-        regs = re.search(r"Used (\d+) registers", report).group(1)
-        spills = re.search(r"(\d+) bytes spill stores", report).group(1)
-        print(f"ptxas {kernel} {name}: d 64 registers {regs}, spill "
-              f"stores {spills}", flush=True)
+        narrow = "narrow" if name == "narrow" else ""
+        keys = ("d64" + narrow, "w16" + narrow, "w16bf16")
+        report = {}
+        for key in keys:
+            tail = log[log.index(INSTANCES[key]):]
+            report[key] = {
+                "registers": int(re.search(r"Used (\d+) registers",
+                                           tail).group(1)),
+                "spillStores": int(re.search(r"(\d+) bytes spill stores",
+                                             tail).group(1))}
+        print(f"ptxas {kernel} {name}: {json.dumps(report)}", flush=True)
         fn = getattr(ctypes.CDLL(str(out_dir / f"{kernel}_{name}.so")),
                      f"lo_{kernel}")
         fn.restype = ctypes.c_int
-        # the backward entry points take a dtype code after the offset
+        # every entry point takes a dtype code after the offset
         fn.argtypes = [ctypes.c_void_p] * POINTERS[kernel] \
             + [ctypes.c_int] * 6 + [ctypes.c_float] \
-            + [ctypes.c_int] * (3 if kernel == "flash_fwd_tf32x3" else 4) \
-            + [ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fns[(kernel, name)] = fn
     return fns
 
@@ -156,25 +168,28 @@ def _time_ms(torch, fn, iters: int = 20) -> float:
 def _runner(torch, attn, kernel, shape, gen):
     """(run(fn), check()) for one kernel at one shape: run launches a
     variant's entry point on fresh inputs into its outputs, check holds
-    the outputs to the plain version at the float32 tolerance."""
-    b, s, h, kvh, d, causal, window = shape
+    the outputs to the plain version at the float32 tolerance (a bf16 o
+    within one bf16 ulp)."""
+    b, s, h, kvh, d, causal, window, dtype = shape
+    dtype = getattr(torch, dtype)
     q, do = (torch.randn(b, s, h, d, device="cuda", generator=gen)
-             for _ in range(2))
+             .to(dtype) for _ in range(2))
     k, v = (torch.randn(b, s, kvh, d, device="cuda", generator=gen)
-            for _ in range(2))
+            .to(dtype) for _ in range(2))
     scale = 1.0 / d ** 0.5
     stream = torch.cuda.current_stream().cuda_stream
-    dims = (b, s, s, h, kvh, d, scale, int(causal), window, 0, stream)
-    if kernel != "flash_fwd_tf32x3":
-        dims = dims[:-1] + (0, stream)  # dtype code 0: float32
+    dims = (b, s, s, h, kvh, d, scale, int(causal), window, 0,
+            attn._DTYPE_CODES[dtype], stream)
     if kernel == "flash_fwd_tf32x3":
         outs = [torch.empty_like(q), torch.empty(b, s, h, device="cuda")]
         ins = (q, k, v)
         ro, rlse = attn.flash_attention_reference(
             q, k, v, causal=causal, scale=scale, window=window)
+        tol = dict(atol=2e-5, rtol=2e-5) if dtype == torch.float32 \
+            else dict(atol=1e-4, rtol=1e-2)
 
         def check():
-            torch.testing.assert_close(outs[0], ro, atol=2e-5, rtol=2e-5)
+            torch.testing.assert_close(outs[0].float(), ro.float(), **tol)
             torch.testing.assert_close(outs[1], rlse, atol=1e-4, rtol=0)
     else:
         # the forward kernel's (o, lse): contiguous, as the entry points

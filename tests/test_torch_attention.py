@@ -206,8 +206,7 @@ def test_decode_attention_matches_jax(window, padded):
 
 
 def test_cpu_tensors_never_launch_the_kernel():
-    counters = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
-                "FLASH_BWD_DKV_LAUNCHES", "FLASH_FWD_SM90_LAUNCHES",
+    counters = ("FLASH_FWD_SM90_LAUNCHES",
                 "FLASH_BWD_DQ_SM90_LAUNCHES", "FLASH_BWD_DKV_SM90_LAUNCHES",
                 "FLASH_BWD_DQ_TF32X3_LAUNCHES",
                 "FLASH_BWD_DKV_TF32X3_LAUNCHES", "FLASH_FWD_TF32X3_LAUNCHES")
@@ -269,7 +268,7 @@ def test_cpu_calls_never_reach_the_route_predicate(monkeypatch):
     (torch.float32, 36, "tf32x3"),    # not a multiple of 8
     (torch.bfloat16, 20, "tf32x3"),   # not a multiple of 8
     # the forward route test's (dtype, d) pairs (tests/test_torch_tf32x3
-    # .py), where the forward takes the CUDA-core kernel at d 12 and 13
+    # .py)
     (torch.float32, 128, "tf32x3"),
     (torch.float32, 12, "tf32x3"),
     (torch.float32, 13, "tf32x3"),
@@ -279,9 +278,9 @@ def test_cpu_calls_never_reach_the_route_predicate(monkeypatch):
 def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
     """On a card, _flash_bwd sends dQ and dK/dV down the same route:
     bf16 with head_dim % 8 == 0 to the wgmma kernels, every other
-    float32 or bf16 head_dim up to 128 to the split-TF32 ones, never to
-    the CUDA-core kernels. The launches are stubbed and the tensors
-    claim a CUDA device to the route predicate."""
+    float32 or bf16 head_dim up to 128 to the split-TF32 ones. The
+    launches are stubbed and the tensors claim a CUDA device to the
+    route predicate."""
     real_route = attn._route
     ran = []
 
@@ -294,13 +293,12 @@ def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
         return launch
 
     monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
-    monkeypatch.setattr(attn, "_route", lambda q, backward=False: real_route(
+    monkeypatch.setattr(attn, "_route", lambda q: real_route(
         types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
-                              shape=q.shape), backward))
-    for name, outs in (("_flash_bwd_dq_sm90", 1), ("_flash_bwd_dq_cuda", 1),
+                              shape=q.shape)))
+    for name, outs in (("_flash_bwd_dq_sm90", 1),
                        ("_flash_bwd_dq_tf32x3", 1),
                        ("_flash_bwd_dkv_sm90", 2),
-                       ("_flash_bwd_dkv_cuda", 2),
                        ("_flash_bwd_dkv_tf32x3", 2)):
         monkeypatch.setattr(attn, name, stub(name, outs))
     q, k, v = (t.to(dtype) for t in _t(*_qkv(18, 1, 16, 16, 4, 2, d)))
@@ -322,12 +320,11 @@ def test_backward_raises_where_no_kernel_takes_the_input(monkeypatch, dtype,
     real_route = attn._route
     ran = []
     monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
-    monkeypatch.setattr(attn, "_route", lambda q, backward=False: real_route(
+    monkeypatch.setattr(attn, "_route", lambda q: real_route(
         types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
-                              shape=q.shape), backward))
-    for name in ("_flash_bwd_dq_sm90", "_flash_bwd_dq_cuda",
-                 "_flash_bwd_dq_tf32x3", "_flash_bwd_dkv_sm90",
-                 "_flash_bwd_dkv_cuda", "_flash_bwd_dkv_tf32x3",
+                              shape=q.shape)))
+    for name in ("_flash_bwd_dq_sm90", "_flash_bwd_dq_tf32x3",
+                 "_flash_bwd_dkv_sm90", "_flash_bwd_dkv_tf32x3",
                  "flash_bwd_reference"):
         monkeypatch.setattr(attn, name,
                             lambda *a, _name=name, **kw: ran.append(_name))
@@ -337,6 +334,16 @@ def test_backward_raises_where_no_kernel_takes_the_input(monkeypatch, dtype,
         attn._flash_bwd(q, k, v, torch.zeros_like(q), lse,
                         torch.ones_like(q), None, True, 0.125, 0, 0)
     assert ran == []
+
+
+def test_the_port_builds_only_the_six_tensor_core_sources():
+    """Every CUDA source of the port is a tensor-core kernel: the wgmma
+    and the split-TF32 forward, dQ and dK/dV, nothing else."""
+    from learningorchestra_tpu_torch.ops import _build
+
+    assert _build.sources() == sorted(
+        f"flash_{op}_{route}" for op in ("fwd", "bwd_dq", "bwd_dkv")
+        for route in ("sm90", "tf32x3"))
 
 
 @pytest.mark.parametrize("wrapper", ["_flash_fwd_sm90", "_flash_bwd_dq_sm90",

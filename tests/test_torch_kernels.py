@@ -13,6 +13,18 @@ import torch
 from learningorchestra_tpu_torch.ops import attention as attn
 
 
+# each wrapper's launch counter, by pass: the forward, dQ and dK/dV each
+# have a wgmma (sm90) and a split-TF32 (tf32x3) kernel
+FWD = ("FLASH_FWD_SM90_LAUNCHES", "FLASH_FWD_TF32X3_LAUNCHES")
+DQ = ("FLASH_BWD_DQ_SM90_LAUNCHES", "FLASH_BWD_DQ_TF32X3_LAUNCHES")
+DKV = ("FLASH_BWD_DKV_SM90_LAUNCHES", "FLASH_BWD_DKV_TF32X3_LAUNCHES")
+
+
+def _launched(counters) -> int:
+    """Launches of one pass's kernels, on either route."""
+    return sum(getattr(attn, c) for c in counters)
+
+
 def _qkv(seed, b, sq, sk, h, kvh, d):
     rng = np.random.default_rng(seed)
     return (rng.standard_normal((b, sq, h, d), dtype=np.float32),
@@ -37,7 +49,7 @@ def test_kernel_matches_plain_version_on_card(dtype, atol, rtol):
     for b, sq, sk, h, kvh, d, causal, window, offset in cases:
         q, k, v = (torch.from_numpy(a).cuda().to(dtype)
                    for a in _qkv(6, b, sq, sk, h, kvh, d))
-        before = attn.FLASH_FWD_LAUNCHES
+        before = _launched(FWD)
         if h == kvh:
             o, lse = attn.flash_attention_with_lse(
                 q, k, v, causal=causal, window=window, kv_offset=offset)
@@ -45,7 +57,7 @@ def test_kernel_matches_plain_version_on_card(dtype, atol, rtol):
             o = attn.flash_attention(q, k, v, causal=causal, window=window)
             lse = None
         torch.cuda.synchronize()
-        assert attn.FLASH_FWD_LAUNCHES == before + 1
+        assert _launched(FWD) == before + 1
         ro, rlse = attn.flash_attention_reference(
             q, k, v, causal=causal, window=window,
             kv_offset=offset if lse is not None else 0)
@@ -69,12 +81,13 @@ _BWD_CASES = [(1, 200, 200, 8, 4, 64, True, 64, 0, False),
     (torch.float32, 1e-4, 1e-4), (torch.bfloat16, 1e-3, 1e-2)])
 def test_backward_kernels_match_plain_version_on_card(dtype, rel_atol,
                                                       rtol):
-    """flash_bwd_dq and flash_bwd_dkv against flash_bwd_reference on the
-    same inputs. Both compute in float32 from the same q/k/v/dO values
-    and the forward kernel's (o, lse); they differ in summation order
-    only, so the tolerance scales with the case's largest gradient (atol
-    rel_atol * max |g|) plus rtol. bf16 is held to the bound a bf16
-    gradient would carry (rtol 1e-2, about one bf16 ulp)."""
+    """The backward kernels of the input's route (_flash_bwd) against
+    flash_bwd_reference on the same inputs. Both compute in float32 from
+    the same q/k/v/dO values and the forward kernel's (o, lse); they
+    differ in summation order only, so the tolerance scales with the
+    case's largest gradient (atol rel_atol * max |g|) plus rtol. bf16 is
+    held to the bound a bf16 gradient would carry (rtol 1e-2, about one
+    bf16 ulp)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     rng = np.random.default_rng(7)
@@ -88,15 +101,12 @@ def test_backward_kernels_match_plain_version_on_card(dtype, rel_atol,
             (b, sq, h), dtype=np.float32)).cuda() if with_dlse else None
         scale = 1.0 / d ** 0.5
         o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
-        delta = attn._bwd_delta(o, do, dlse)
-        before = (attn.FLASH_BWD_DQ_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES)
-        dq = attn._flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal,
+        before = (_launched(DQ), _launched(DKV))
+        dq, dk, dv = attn._flash_bwd(q, k, v, o, lse, do, dlse, causal,
                                      scale, window, offset)
-        dk, dv = attn._flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal,
-                                          scale, window, offset)
         torch.cuda.synchronize()
-        assert (attn.FLASH_BWD_DQ_LAUNCHES, attn.FLASH_BWD_DKV_LAUNCHES) \
-            == (before[0] + 1, before[1] + 1)
+        assert (_launched(DQ), _launched(DKV)) == (before[0] + 1,
+                                                   before[1] + 1)
         want = attn.flash_bwd_reference(q, k, v, o, lse, do, dlse,
                                         causal=causal, scale=scale,
                                         window=window, kv_offset=offset)
@@ -121,10 +131,10 @@ def test_flash_attention_gradients_on_card():
                for a in _qkv(9, 2, 96, 96, 4, 2, 32))
     go = torch.from_numpy(np.random.default_rng(10).standard_normal(
         (2, 96, 4, 32), dtype=np.float32)).cuda()
-    before = attn.FLASH_BWD_DKV_LAUNCHES
+    before = _launched(DKV)
     o = attn.flash_attention(q, k, v, causal=True, window=40)
     got = torch.autograd.grad((o * go).sum(), (q, k, v))
-    assert attn.FLASH_BWD_DKV_LAUNCHES == before + 1
+    assert _launched(DKV) == before + 1
     ro, _ = attn.flash_attention_reference(q, k, v, causal=True, window=40)
     want = torch.autograd.grad((ro * go).sum(), (q, k, v))
     for a, b in zip(got, want):
@@ -148,13 +158,11 @@ def test_fit_on_card_runs_the_kernels(monkeypatch):
                        n_kv_heads=2, max_len=128, sliding_window=32,
                        device="cuda")
     lm.compile({"kind": "adamw", "learning_rate": 1e-2})
-    counters = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
-                "FLASH_BWD_DKV_LAUNCHES")
-    before = [getattr(attn, c) for c in counters]
+    before = [_launched(c) for c in (FWD, DQ, DKV)]
     loss = lm.fit(x, batch_size=8, epochs=3, shuffle=False,
                   grad_accum=2).history["loss"]
     # 2 layers x 3 epochs x 2 steps x 2 micro-batches
-    assert [getattr(attn, c) - b for c, b in zip(counters, before)] == \
+    assert [_launched(c) - b for c, b in zip((FWD, DQ, DKV), before)] == \
         [24, 24, 24]
     assert np.isfinite(loss).all() and loss[-1] < loss[0]
 
@@ -177,7 +185,7 @@ def test_tensor_core_route_on_card(case):
     """bf16 through the tensor-core kernels (flash_fwd_sm90,
     flash_bwd_dq_sm90, flash_bwd_dkv_sm90) against the plain versions.
     They split P and dS into bf16 hi + lo (about 2^-16 of each), so o
-    meets the CUDA-core kernel's bf16 tolerance (one bf16 ulp of |o| plus
+    meets the bf16 tolerance of a float32 o rounded to bf16 (one ulp plus
     float32 order) and dQ, dK and dV the float32 summation-order
     tolerance (1e-4 max |g| + 1e-4). Rows with no visible key get dQ 0."""
     if not torch.cuda.is_available():
@@ -224,18 +232,16 @@ def test_tensor_core_route_on_card(case):
 
 
 @pytest.mark.cuda
-def test_float32_keeps_the_cuda_core_route_on_card():
+def test_float32_and_odd_head_dims_take_the_split_tf32_route_on_card():
     """float32 (and a head_dim off the multiple of 8) never reaches the
-    wgmma kernels: float32 at d 64 takes the split-TF32 forward and
-    backward, and a head_dim off the multiple of 8 (float32 at d 12, bf16
-    at d 20) the CUDA-core forward and the split-TF32 backward."""
+    wgmma kernels: float32 at d 64 and d 12 and bf16 at d 20 take the
+    split-TF32 forward (flash_fwd_tf32x3) and backward."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     counters = ("FLASH_FWD_SM90_LAUNCHES", "FLASH_BWD_DQ_SM90_LAUNCHES",
-                "FLASH_BWD_DKV_SM90_LAUNCHES", "FLASH_FWD_LAUNCHES",
-                "FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DKV_LAUNCHES",
+                "FLASH_BWD_DKV_SM90_LAUNCHES", "FLASH_FWD_TF32X3_LAUNCHES",
                 "FLASH_BWD_DQ_TF32X3_LAUNCHES",
-                "FLASH_BWD_DKV_TF32X3_LAUNCHES", "FLASH_FWD_TF32X3_LAUNCHES")
+                "FLASH_BWD_DKV_TF32X3_LAUNCHES")
     before = [getattr(attn, c) for c in counters]
     for dtype, d in ((torch.float32, 64), (torch.float32, 12),
                      (torch.bfloat16, 20)):
@@ -245,16 +251,17 @@ def test_float32_keeps_the_cuda_core_route_on_card():
         torch.autograd.grad(o.float().sum(), (q, k, v))
     torch.cuda.synchronize()
     assert [getattr(attn, c) - n for c, n in zip(counters, before)] == \
-        [0, 0, 0, 3, 3, 3, 3, 3, 1]
+        [0, 0, 0, 3, 3, 3]
 
 
 # (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse) on the
 # split-TF32 route: chip_smoke's training shape and edge cases —
 # non-causal ragged sk at d 32, MQA, a kv_offset that leaves rows with no
 # visible key under a dlse term at d 128, a head_dim of 72 — and head
-# dims off the multiple of 8, which only the backward takes: the d-12
-# LM's shape at 2 x 256 tokens, an odd d 13 (a bf16 row of odd length)
-# with ragged sq and sk under a dlse term, d 36 (a multiple of 4, between
+# dims off the multiple of 8: the d-12 LM's shape at 2 x 256 tokens, an
+# odd d 13 (a bf16 row of odd length) with ragged sq and sk under a dlse
+# term and every head its own kv head (an o pair stored past column d
+# would land in the next head's row), d 36 (a multiple of 4, between
 # widths) with GQA, causal and a window
 _TF32X3_CASES = [(8, 2048, 2048, 8, 4, 64, True, 1024, 0, False),
                  (2, 77, 201, 4, 2, 32, False, 0, 0, False),
@@ -289,7 +296,7 @@ def test_tf32x3_backward_on_card(case, dtype):
         (b, sq, h), dtype=np.float32)).cuda() if with_dlse else None
     # bf16 at a multiple of 8 routes to the wgmma kernels; the split-TF32
     # ones still take it when called
-    assert attn._route(q, backward=True) == (
+    assert attn._route(q) == (
         "sm90" if dtype == torch.bfloat16 and d % 8 == 0 else "tf32x3")
     scale = 1.0 / d ** 0.5
     o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
@@ -320,39 +327,84 @@ def test_tf32x3_backward_on_card(case, dtype):
     assert all(torch.equal(a, g) for a, g in zip(again, (dq, dk, dv)))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("case", [c for c in _TF32X3_CASES if c[5] % 8 == 0])
-def test_tf32x3_forward_on_card(case):
-    """flash_fwd_tf32x3 against the float32 plain version and against the
-    plain version that splits both products 3xTF32 as the kernel does,
-    each at the float32 tolerance (o: atol 2e-5 + rtol 2e-5; lse on rows
-    that see a key: the same): the split departs by about 2^-22 of sum
-    |x||y|. Rows with no visible key get exactly o = 0 and lse = NEG_INF;
-    the same inputs give the same bits twice (no atomics)."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card")
-    b, sq, sk, h, kvh, d, causal, window, offset, _ = case
-    q, k, v = (torch.from_numpy(a).cuda()
-               for a in _qkv(17, b, sq, sk, h, kvh, d))
-    assert attn._route(q) == "tf32x3"
-    scale = 1.0 / d ** 0.5
-    args = (q, k, v, causal, scale, window, offset)
-    before = attn.FLASH_FWD_TF32X3_LAUNCHES
-    o, lse = attn._flash_fwd(*args)
-    torch.cuda.synchronize()
-    assert attn.FLASH_FWD_TF32X3_LAUNCHES == before + 1
+def _held_forward(o, lse, q, k, v, causal, scale, window, offset):
+    """o and lse of the split-TF32 forward against the float32 plain
+    version and against the plain version that splits both products
+    3xTF32 as the kernel does. float32 o at atol 2e-5 + rtol 2e-5 (the
+    split departs by about 2^-22 of sum |x||y|); bf16 o, rounded once
+    from float32 by kernel and plain version alike, within one bf16 ulp
+    (atol 1e-4 + rtol 1e-2); lse on rows that see a key at atol 2e-5 +
+    rtol 2e-5. Rows with no visible key get exactly o = 0 and lse =
+    NEG_INF."""
+    tol = dict(atol=2e-5, rtol=2e-5) if q.dtype == torch.float32 \
+        else dict(atol=1e-4, rtol=1e-2)
     for split in (False, True):
         ro, rlse = attn.flash_attention_reference(
             q, k, v, causal=causal, scale=scale, window=window,
             kv_offset=offset, tf32x3=split)
         seen = rlse != attn.NEG_INF
-        assert torch.equal(seen, lse != attn.NEG_INF)
-        torch.testing.assert_close(o, ro, atol=2e-5, rtol=2e-5)
+        assert o.dtype == q.dtype and torch.equal(seen, lse != attn.NEG_INF)
+        torch.testing.assert_close(o.float(), ro.float(), **tol)
         torch.testing.assert_close(lse[seen], rlse[seen], atol=2e-5,
                                    rtol=2e-5)
         del ro, rlse
+    assert bool((o[~seen] == 0).all())
+    assert bool((lse[~seen] == attn.NEG_INF).all())
+    return seen
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", _TF32X3_CASES)
+def test_tf32x3_forward_on_card(case, dtype):
+    """flash_fwd_tf32x3 against the plain versions (_held_forward), in
+    float32 and in bf16, at every head_dim of the cases (bf16 at a
+    multiple of 8 routes to the wgmma kernel; the split-TF32 one still
+    takes it when called). The same inputs give the same bits twice (no
+    atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    b, sq, sk, h, kvh, d, causal, window, offset, _ = case
+    q, k, v = (torch.from_numpy(a).cuda().to(dtype)
+               for a in _qkv(17, b, sq, sk, h, kvh, d))
+    assert attn._route(q) == (
+        "sm90" if dtype == torch.bfloat16 and d % 8 == 0 else "tf32x3")
+    scale = 1.0 / d ** 0.5
+    args = (q, k, v, causal, scale, window, offset)
+    before = attn.FLASH_FWD_TF32X3_LAUNCHES
+    o, lse = attn._flash_fwd_tf32x3(*args)
+    torch.cuda.synchronize()
+    assert attn.FLASH_FWD_TF32X3_LAUNCHES == before + 1
+    seen = _held_forward(o, lse, *args)
     if offset:
-        assert bool((~seen).any()) and bool((o[~seen] == 0).all())
-        assert bool((lse[~seen] == attn.NEG_INF).all())
-    again = attn._flash_fwd(*args)
+        assert bool((~seen).any())
+    again = attn._flash_fwd_tf32x3(*args)
     assert torch.equal(again[0], o) and torch.equal(again[1], lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 12),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 13),
+                                     (torch.bfloat16, 36)])
+def test_tf32x3_forward_at_a_misaligned_base_on_card(dtype, d):
+    """q, k and v sliced one element into their storage: contiguous, so
+    the wrapper takes them, but 4 (float32) or 2 (bf16) bytes off the
+    16-byte boundary, so the kernel loads them in a narrower granule
+    (or element by element) and still meets _held_forward."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    b, sq, sk, h, kvh = 2, 150, 150, 4, 2
+
+    def shifted(a):
+        flat = torch.zeros(a.size + 1, dtype=dtype, device="cuda")
+        flat[1:] = torch.from_numpy(a).cuda().reshape(-1).to(dtype)
+        return flat[1:].view(a.shape)
+
+    q, k, v = (shifted(a) for a in _qkv(18, b, sq, sk, h, kvh, d))
+    assert q.is_contiguous() and q.data_ptr() % 16
+    scale = 1.0 / d ** 0.5
+    args = (q, k, v, True, scale, 64, 0)
+    o, lse = attn._flash_fwd_tf32x3(*args)
+    torch.cuda.synchronize()
+    _held_forward(o, lse, *args)

@@ -4,7 +4,7 @@ value whole), the plain forward and backward with every product split
 as the kernels split it against the JAX package's Pallas forward and
 backward (interpret mode, as tests/test_ops.py runs them; JAX pads the
 head_dim to 128, the kernels to their variant's width), the route
-predicate of each pass, and the wrappers' refusals. The kernels
+predicate, the same for both passes, and the wrappers' refusals. The kernels
 themselves run only on a card (tests/test_torch_kernels.py,
 chip_smoke.py).
 
@@ -136,6 +136,8 @@ _SPLIT_CASES = [
     # causal + window; d 13 (odd) with ragged sq and sk and a dlse term
     (2, 48, 48, 4, 2, 12, True, 16, 0, False, torch.bfloat16),
     (2, 24, 40, 2, 2, 13, False, 0, 0, True, torch.float32),
+    # d 13 in bf16 (a bf16 row of odd length) with rows that see no key
+    (2, 32, 32, 2, 2, 13, True, 4, 20, True, torch.bfloat16),
 ]
 
 
@@ -221,79 +223,92 @@ def test_split_backward_matches_jax(case):
     (torch.float32, 8, "tf32x3"),
     (torch.float32, 128, "tf32x3"),
     (torch.float32, 36, "tf32x3"),    # a multiple of 4, not of 8
-    (torch.float32, 136, "cuda"),     # above 128: the wrapper refuses it
+    (torch.float32, 136, None),       # above 128: no kernel takes it
     (torch.bfloat16, 64, "sm90"),
     (torch.bfloat16, 36, "tf32x3"),
     (torch.float32, 12, "tf32x3"),    # the d-12 LM's head_dim
     (torch.float32, 13, "tf32x3"),    # odd
     (torch.bfloat16, 12, "tf32x3"),
     (torch.bfloat16, 13, "tf32x3"),
-    (torch.float16, 36, "cuda"),      # no kernel takes float16
+    (torch.float16, 36, None),        # no kernel takes float16
 ])
 def test_backward_route_predicate(dtype, d, route):
-    """The backward's route: bf16 at a head_dim that is a multiple of 8
-    (<= 128) the wgmma kernels, every other float32 or bf16 head_dim up
-    to 128 the split-TF32 ones."""
+    """The route of both passes: bf16 at a head_dim that is a multiple
+    of 8 (<= 128) the wgmma kernels, every other float32 or bf16
+    head_dim up to 128 the split-TF32 ones; anything else raises."""
     q = types.SimpleNamespace(device=torch.device("cuda"), dtype=dtype,
                               shape=(2, 16, 4, d))
-    assert attn._route(q, backward=True) == route
+    if route is None:
+        with pytest.raises(ValueError, match="head_dim <= 128"):
+            attn._route(q)
+    else:
+        assert attn._route(q) == route
 
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.float32, 64, "tf32x3"),
     (torch.float32, 128, "tf32x3"),
-    (torch.float32, 12, "cuda"),      # not a multiple of 8
-    (torch.float32, 136, "cuda"),     # above 128
+    (torch.float32, 12, "tf32x3"),    # not a multiple of 8
+    (torch.float32, 136, None),       # above 128: no kernel takes it
     (torch.bfloat16, 64, "sm90"),
-    (torch.bfloat16, 12, "cuda"),
+    (torch.bfloat16, 12, "tf32x3"),
+    (torch.bfloat16, 13, "tf32x3"),   # a bf16 row of odd length
+    (torch.float32, 36, "tf32x3"),    # a multiple of 4, between widths
+    (torch.float16, 36, None),        # no kernel takes float16
 ])
 def test_forward_takes_the_backward_route(monkeypatch, dtype, d, route):
-    """On a card, _flash_fwd launches the forward of its own route:
-    float32 with head_dim % 8 == 0 (<= 128) the split-TF32 kernel, bf16
-    with such a head_dim the wgmma kernel (the backward's route there
-    too), any other head_dim the CUDA-core kernel, whose backward runs
-    on the split-TF32 kernels (tests/test_torch_attention.py
-    test_backward_routes_dq_and_dkv_together, at these (dtype, d) too).
+    """On a card, _flash_fwd launches the forward of the route the
+    backward takes (tests/test_torch_attention.py
+    test_backward_routes_dq_and_dkv_together, at these (dtype, d) too):
+    bf16 with head_dim % 8 == 0 (<= 128) the wgmma kernel, every other
+    float32 or bf16 head_dim up to 128 the split-TF32 kernel. Input no
+    kernel takes raises before any wrapper, or the plain version, runs.
     The launches are stubbed and the tensors claim a CUDA device to the
     route predicate."""
     real_route = attn._route
     ran = []
 
     def stub(name):
-        def launch(q, k, v, *args):
+        def launch(q, k, v, *args, **kwargs):
             ran.append(name)
             return torch.zeros(q.shape), torch.zeros(q.shape[:3])
         return launch
 
     monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
-    monkeypatch.setattr(attn, "_route", lambda q, backward=False: real_route(
+    monkeypatch.setattr(attn, "_route", lambda q: real_route(
         types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
-                              shape=q.shape), backward))
-    for name in ("_flash_fwd_sm90", "_flash_fwd_tf32x3", "_flash_fwd_cuda"):
+                              shape=q.shape)))
+    for name in ("_flash_fwd_sm90", "_flash_fwd_tf32x3",
+                 "flash_attention_reference"):
         monkeypatch.setattr(attn, name, stub(name))
     q, k, v, _, _ = (torch.from_numpy(a) for a in
                      _inputs(23, 1, 16, 16, 4, 2, d))
     q, k, v = (t.to(dtype) for t in (q, k, v))
+    if route is None:
+        with pytest.raises(ValueError, match="head_dim <= 128"):
+            attn._flash_fwd(q, k, v, True, 0.125, 0, 0)
+        assert ran == []
+        return
     o, lse = attn._flash_fwd(q, k, v, True, 0.125, 0, 0)
     assert ran == [f"_flash_fwd_{route}"]
     assert o.shape == q.shape and lse.shape == q.shape[:3]
 
 
 def test_tf32x3_forward_refuses_what_the_kernel_does_not_take():
-    """bf16 tensors and a head_dim off the multiple of 8 raise before any
-    build or launch, whatever the caller routed."""
-    before = (attn.FLASH_FWD_LAUNCHES, attn.FLASH_FWD_TF32X3_LAUNCHES)
-    for dtype, d, error, match in ((torch.bfloat16, 16, TypeError,
-                                    "takes float32"),
-                                   (torch.float32, 12, ValueError,
-                                    "multiple of 8")):
+    """The split-TF32 forward takes float32 or bf16 at any head_dim up
+    to 128: float16 tensors and a head_dim of 136 raise before any build
+    or launch, whatever the caller routed."""
+    before = attn.FLASH_FWD_TF32X3_LAUNCHES
+    for dtype, d, error, match in ((torch.float16, 16, TypeError,
+                                    "takes float32 or bfloat16"),
+                                   (torch.float32, 136, ValueError,
+                                    "head_dim <= 128")):
         q, k, v, _, _ = (torch.from_numpy(a) for a in
                          _inputs(24, 1, 16, 16, 2, 1, d))
         q, k, v = (t.to(dtype) for t in (q, k, v))
         with pytest.raises(error, match=match):
             attn._flash_fwd_tf32x3(q, k, v, True, 0.25, 0, 0)
-    assert (attn.FLASH_FWD_LAUNCHES,
-            attn.FLASH_FWD_TF32X3_LAUNCHES) == before
+    assert attn.FLASH_FWD_TF32X3_LAUNCHES == before
 
 
 @pytest.mark.parametrize("wrapper", ["_flash_bwd_dq_tf32x3",

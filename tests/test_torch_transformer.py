@@ -22,6 +22,7 @@ from learningorchestra_tpu_torch.catalog import ArtifactStore
 from learningorchestra_tpu_torch.models import transformer as tlm
 from learningorchestra_tpu_torch.models import weights
 from learningorchestra_tpu_torch.models.transformer import LanguageModel
+from learningorchestra_tpu_torch.runtime import data as data_lib
 
 # tiny shapes: two intra-op threads are as fast as all cores and leave
 # the rest to the other test workers
@@ -185,3 +186,87 @@ def test_unported_options_raise():
                    {"fused_proj": True}, {"attention": "ring"}):
         with pytest.raises(ValueError, match="not ported"):
             LanguageModel(**{**CFG, **kwargs}, device="cpu")
+
+
+@pytest.mark.parametrize("d_model,n_heads,want", [(1024, 4, "dot"),
+                                                   (256, 4, "flash")])
+def test_auto_attention_takes_flash_only_where_a_kernel_does(d_model,
+                                                             n_heads, want):
+    """``attention="auto"`` gives ``flash`` where a flash kernel takes
+    the head_dim (<= 128) and ``dot`` above it (head_dim 256 here), as
+    the JAX package runs such a model (its Pallas kernels pad any
+    head_dim)."""
+    lm = LanguageModel(vocab_size=97, d_model=d_model, n_layers=1,
+                       n_heads=n_heads, attention="auto", device="cpu")
+    assert lm._resolved_attention() == want
+
+
+def test_auto_attention_at_head_dim_256_matches_jax():
+    """An ``auto`` model with head_dim 256 (2 layers, d_model 256, 1
+    head) gives the JAX ``auto`` model's logits from the same weights."""
+    cfg = dict(vocab_size=97, d_model=256, n_layers=2, n_heads=1,
+               max_len=64)
+    tree = weights.init_params(cfg, seed=1)
+    jax_lm = JaxLanguageModel(**cfg, attention="auto")
+    jax_lm.params = jax.tree_util.tree_map(jnp.asarray, tree)
+    lm = LanguageModel(**cfg, attention="auto", device="cpu")
+    lm.set_params(weights.params_from_flax(tree))
+    assert lm._resolved_attention() == "dot"
+    tokens = _tokens(12, (2, 40))
+    want, _ = jax_lm.module.apply({"params": jax_lm.params},
+                                  jnp.asarray(tokens), train=False)
+    got = lm.module(torch.from_numpy(tokens).long())
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_head_dim_12_lm_matches_jax():
+    """A head_dim-12 LM (d_model 48, 4 heads over 2 kv heads, 2 layers,
+    window 16: the head_dim the split-TF32 kernels zero-fill to 16 on the
+    card) on ``flash`` against the JAX LM on ``dot``: logits at the
+    file's atol 1e-4; loss and every gradient at the training tests'
+    float32 tolerances (loss rtol 1e-5; gradients atol 1e-6, rtol
+    1e-5), with a padded sample masked out of the loss."""
+    cfg = dict(vocab_size=97, d_model=48, n_layers=2, n_heads=4,
+               n_kv_heads=2, max_len=64, sliding_window=16)
+    tree = weights.init_params(cfg, seed=2)
+    jax_lm = JaxLanguageModel(**cfg, attention="dot")
+    jax_lm.params = jax.tree_util.tree_map(jnp.asarray, tree)
+    lm = LanguageModel(**cfg, attention="flash", device="cpu")
+    lm.set_params(weights.params_from_flax(tree))
+    x = _tokens(13, (4, 40))
+    x[0, 30:] = 0
+    mask = np.array([1, 1, 1, 0], np.float32)
+
+    want_logits, _ = jax_lm.module.apply({"params": jax_lm.params},
+                                         jnp.asarray(x), train=False)
+    got_logits = lm.module(torch.from_numpy(x).long())
+    np.testing.assert_allclose(got_logits.detach().numpy(),
+                               np.asarray(want_logits), atol=1e-4,
+                               rtol=1e-4)
+
+    jax_loss_fn = jax_tlm.next_token_loss(0.01, head_chunk=1024)
+    jbatch = {"x": jnp.asarray(x)}
+
+    def jax_loss(params):
+        out = jax_lm.module.apply({"params": params}, jbatch["x"],
+                                  train=True)
+        res = jax_loss_fn(out, jbatch, jnp.asarray(mask))
+        return res[0] if isinstance(res, tuple) else res
+
+    want_loss, want_grads = jax.value_and_grad(jax_loss)(jax_lm.params)
+    params = dict(lm.module.named_parameters())
+    batch = {"x": torch.from_numpy(x),
+             data_lib.MASK_KEY: torch.from_numpy(mask)}
+    out = lm._apply_fn(params, batch, True, None)
+    loss = tlm.next_token_loss(0.01, head_chunk=1024)(
+        out, batch, batch[data_lib.MASK_KEY])
+    grads = torch.autograd.grad(loss, list(params.values()))
+    np.testing.assert_allclose(loss.item(), float(want_loss), rtol=1e-5)
+    got_tree = weights.params_to_flax(dict(zip(params, grads)))
+    assert jax.tree_util.tree_structure(got_tree) == \
+        jax.tree_util.tree_structure(want_grads)
+    for a, b in zip(jax.tree_util.tree_leaves(got_tree),
+                    jax.tree_util.tree_leaves(want_grads)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6,
+                                   rtol=1e-5)
