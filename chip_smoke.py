@@ -48,6 +48,22 @@
    small LM takes one bf16 micro-step through the same kernels.
    The trained artifact is then served over REST and must answer with
    its reloaded copy's ``generate``.
+5. Pipeline path: the tutorial's LM workflow over HTTP only, on a
+   RestServer whose context is on the card, bf16 compute: the train
+   phase's 64 windows as a CSV through ``POST /dataset/csv`` (the first
+   page must hold the metadata document and the first window, ``$corpus``
+   the windows exactly), ``POST /model/tensorflow`` of the tutorial LM
+   through the JAX package's module path, ``POST /train/tensorflow``
+   ``fit`` (its epoch losses must equal the train phase's, with 8 layers
+   x 16 micro-batches of each wgmma kernel and nothing else),
+   ``evaluate`` (within 1e-6 relative of the train phase's model),
+   ``generate`` of 32 tokens after 1100 (equal to the reloaded
+   artifact's solo ``generate``; its float32 prefill on
+   flash_fwd_tf32x3) and ``POST /serve`` of the trained artifact (the
+   same tokens). A fit with ``"checkpoint": true`` must get 406 and
+   leave no collection; a fit on a missing ``$`` reference must end
+   with ``finished`` false and an exception document. Clients poll
+   every 0.25 s, as the JAX package's client does.
 
 The kernel launch counts are zeroed just before each path and read
 just after it.
@@ -991,12 +1007,14 @@ def _float32_fit_window(torch, lm, x, log) -> dict:
     return launches
 
 
-def train_phase(torch, log, home):
+def train_phase(torch, log, home, yard):
     """fit on the card -> checks -> a profiled 2-step window -> a float32
     window of the same fit -> kernel-vs-dense gradients -> save, serve
     over REST, predict. Returns the kernel launches of each path it
     drove: the bf16 fit, the float32 fit window, the two float32
-    gradient steps and the d-12 LM's bf16 gradient step."""
+    gradient steps and the d-12 LM's bf16 gradient step. Leaves the
+    fit's windows, epoch losses and trained model in ``yard``, the
+    pipeline phase's yardstick."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1165,6 +1183,7 @@ def train_phase(torch, log, home):
                              f"the reloaded model's generate {want}")
     follows = sum(t == p % 63 + 1 for p, t in
                   zip([prompt[-1]] + want[:-1], want)) / len(want)
+    yard.update(x=x, losses=list(losses), lm=lm)
     log.append("train " + json.dumps({
         "config": LM_CONFIG, "windows": TRAIN_WINDOWS, "seq": TRAIN_SEQ,
         "batch": TRAIN_BATCH, "epochs": TRAIN_EPOCHS,
@@ -1188,6 +1207,217 @@ def train_phase(torch, log, home):
         "servedSuccessorShare": follows}))
     return {"train": launches, "trainFloat32": f32_fit,
             **{path: c["launches"] for path, c in f32_grad.items()}}
+
+
+def _poll(base, path, timeout: float = 600.0,
+          interval: float = 0.25) -> dict:
+    """Polls ``path`` every ``interval`` seconds (the JAX client's
+    default) until ``finished``; the metadata document then. A job that
+    records an exception fails the phase with its document."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        status, body = _http(base, "GET", path + "?limit=1")
+        if status != 200:
+            raise AssertionError(f"GET {path}: {status} {body}")
+        if body["metadata"]["finished"]:
+            return body["metadata"]
+        if body["metadata"].get("status") == "deadLettered":
+            failed = _http(base, "GET", path)[1]["result"][-1]
+            raise AssertionError(f"job {path} failed: {failed}")
+        time.sleep(interval)
+    raise AssertionError(f"{path} did not finish in {timeout} s")
+
+
+def pipeline_phase(torch, log, home, yard):
+    """The tutorial's LM workflow over HTTP against a RestServer on the
+    card, held against the train phase: ingest the train phase's 64
+    windows as a CSV, create the LM through the JAX package's module
+    path, fit it (8 optimizer steps, bf16), evaluate, generate, serve
+    the trained artifact, and check that refused and failed requests
+    are recorded. Returns the kernel launches of the REST fit, evaluate
+    and generate."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.catalog.store import Table
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime.data import dataframe_to_arrays
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    # the train phase's float32 windows changed it; a REST model builds
+    # its engine from it
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    x = yard["x"]
+    csv_path = os.path.join(home, "corpus.csv")
+    with open(csv_path, "w") as f:
+        f.write(",".join(f"t{i}" for i in range(x.shape[1])) + "\n")
+        for row in x:
+            f.write(",".join(map(str, row.tolist())) + "\n")
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    steps = TRAIN_EPOCHS * TRAIN_WINDOWS // TRAIN_BATCH
+    launches = {}
+
+    def post(path, body, want=201):
+        status, out = _http(base, "POST", path, body)
+        if status != want:
+            raise AssertionError(f"POST {path}: {status} {out}")
+        return out
+
+    job_seconds = {}
+
+    def job(verb, name, parent, method, params):
+        """POST a job and poll it to ``finished``; (seconds, GET body,
+        launches). The job's own seconds (queue wait + run, from its
+        execution document) go to ``job_seconds``."""
+        _reset_launches(attn)
+        t0 = time.monotonic()
+        post(f"/{verb}/tensorflow", {"name": name, "modelName": parent,
+                                     "method": method,
+                                     "methodParameters": params})
+        _poll(base, f"/{verb}/tensorflow/{name}")
+        wall = time.monotonic() - t0
+        ran = _launches(attn)
+        record_job(name)
+        status, body = _http(base, "GET", f"/{verb}/tensorflow/{name}")
+        return wall, body, ran
+
+    def record_job(name):
+        done = ctx.catalog.get_documents(name)[-1]
+        job_seconds[name] = done["queueWaitSeconds"] + done["elapsedSeconds"]
+
+    def result(body):
+        return next(d["result"] for d in body["result"] if "result" in d)
+
+    phase_t0 = time.monotonic()
+    try:
+        t0 = time.monotonic()
+        post("/dataset/csv", {"datasetName": "corpus",
+                              "datasetURI": csv_path})
+        meta = _poll(base, "/dataset/csv/corpus")
+        ingest_s = time.monotonic() - t0
+        record_job("corpus")
+        if meta["rows"] != TRAIN_WINDOWS or len(meta["fields"]) != TRAIN_SEQ:
+            raise AssertionError(f"ingested metadata {meta}")
+        status, page = _http(base, "GET",
+                             "/dataset/csv/corpus?skip=0&limit=2")
+        head, first = page["result"]
+        if status != 200 or head["_id"] != 0 or first["_id"] != 1 or \
+                [first[f"t{i}"] for i in range(TRAIN_SEQ)] != x[0].tolist():
+            raise AssertionError("the first page is not the metadata "
+                                 "document and the first window")
+        t0 = time.monotonic()
+        table = ctx.params.resolve_value("$corpus")
+        feed = dataframe_to_arrays(table)["x"]
+        host = {"tableReadAndFeedSeconds": time.monotonic() - t0}
+        if not isinstance(table, Table) or not np.array_equal(feed, x):
+            raise AssertionError("$corpus does not give the windows")
+
+        t0 = time.monotonic()
+        post("/model/tensorflow", {
+            "modelName": "lm", "modulePath": "learningorchestra_tpu.models",
+            "class": "LanguageModel", "classParameters": LM_CONFIG})
+        _poll(base, "/model/tensorflow/lm")
+        create_s = time.monotonic() - t0
+        record_job("lm")
+
+        fit_s, body, launches["pipelineFit"] = job(
+            "train", "lm_t", "lm", "fit", {
+                "x": "$corpus", "batch_size": TRAIN_BATCH,
+                "epochs": TRAIN_EPOCHS, "grad_accum": TRAIN_ACCUM})
+        records = [d["epochRecord"] for d in body["result"]
+                   if "epochRecord" in d]
+        losses = [r["loss"] for r in records]
+        if not body["metadata"]["finished"] or len(records) != TRAIN_EPOCHS:
+            raise AssertionError(f"fit documents {body['result']}")
+        if losses != yard["losses"]:
+            raise AssertionError(f"REST fit losses {losses} differ from the "
+                                 f"train phase's {yard['losses']}")
+        need = LM_CONFIG["n_layers"] * steps * TRAIN_ACCUM
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update(flash_fwd_sm90=need, flash_bwd_dq_sm90=need,
+                    flash_bwd_dkv_sm90=need)
+        if launches["pipelineFit"] != want:
+            raise AssertionError(f"REST fit launched "
+                                 f"{launches['pipelineFit']}, want {want}")
+        epoch_s = [r["epochSeconds"] for r in records]
+
+        eval_s, body, launches["pipelineEvaluate"] = job(
+            "evaluate", "lm_ev", "lm_t", "evaluate",
+            {"x": "$corpus", "batch_size": TRAIN_BATCH})
+        evaluated = result(body)
+        direct = yard["lm"].evaluate(x, batch_size=TRAIN_BATCH)
+        if set(evaluated) != set(direct) or not all(
+                abs(evaluated[k] - direct[k]) <= 1e-6 * abs(direct[k])
+                for k in direct):
+            raise AssertionError(f"REST evaluate {evaluated} differs from "
+                                 f"the trained model's {direct}")
+
+        prompt = [int(t) for t in x[1, :PROMPT_LENS[0]]]
+        gen_s, body, launches["pipelineGenerate"] = job(
+            "predict", "lm_gen", "lm_t", "generate",
+            {"prompt": [prompt], "max_new_tokens": NEW_TOKENS})
+        tokens = result(body)[0][len(prompt):]
+        t0 = time.monotonic()
+        trained = ctx.artifacts.load("lm_t")
+        host["trainedArtifactLoadSeconds"] = time.monotonic() - t0
+        solo = trained.generate(
+            [prompt], max_new_tokens=NEW_TOKENS)[0][len(prompt):].tolist()
+        if tokens != solo or len(tokens) != NEW_TOKENS:
+            raise AssertionError(f"REST generate {tokens} differs from the "
+                                 f"reloaded artifact's {solo}")
+        ran = launches["pipelineGenerate"]
+        if ran["flash_fwd_tf32x3"] < LM_CONFIG["n_layers"] or any(
+                n for k, n in ran.items() if k != "flash_fwd_tf32x3"):
+            raise AssertionError(f"the generate prefill launched {ran}")
+
+        post("/serve/lm_t", {"type": "lm", "maxSlots": 2,
+                             "cacheLen": TRAIN_SEQ, "temperature": 0.0})
+        served = post("/serve/lm_t/predict",
+                      {"prompt": prompt, "maxNewTokens": NEW_TOKENS}, 200)
+        _http(base, "DELETE", "/serve/lm_t")
+        if served["tokens"] != tokens:
+            raise AssertionError(f"served tokens {served['tokens']} differ "
+                                 f"from the REST generate's {tokens}")
+
+        refused = post("/train/tensorflow", {
+            "name": "lm_ck", "modelName": "lm", "method": "fit",
+            "methodParameters": {"x": "$corpus", "checkpoint": True}}, 406)
+        if _http(base, "GET", "/train/tensorflow/lm_ck")[0] != 404:
+            raise AssertionError("a refused fit left a collection")
+        post("/train/tensorflow", {"name": "lm_bad", "modelName": "lm",
+                                   "method": "fit",
+                                   "methodParameters": {"x": "$ghost"}})
+        ctx.jobs.wait("lm_bad", timeout=600)
+        status, bad = _http(base, "GET", "/train/tensorflow/lm_bad")
+        if bad["metadata"]["finished"] or not bad["result"][-1].get(
+                "exception"):
+            raise AssertionError(f"the failed fit was not recorded: {bad}")
+    finally:
+        server.stop()
+    per_step = {k: n / steps for k, n in launches["pipelineFit"].items() if n}
+    log.append("pipeline " + json.dumps({
+        "phaseSeconds": time.monotonic() - phase_t0, "pollSeconds": 0.25,
+        "ingestSeconds": ingest_s, "ingestRows": TRAIN_WINDOWS,
+        "ingestColumns": TRAIN_SEQ, "modelCreateSeconds": create_s,
+        "fitWallSeconds": fit_s, "fitEpochSeconds": epoch_s,
+        "jobSeconds": job_seconds,
+        "jobPlaneOverheadSeconds": job_seconds["lm_t"] - sum(epoch_s),
+        "hostSeconds": host,
+        "losses": losses, "lossesEqualTrainPhase": True,
+        "stepMsEpoch2": epoch_s[1] / (steps // TRAIN_EPOCHS) * 1e3,
+        "trainTokensPerSecEpoch2": TRAIN_WINDOWS * TRAIN_SEQ / epoch_s[1],
+        "launchesPerStep": per_step,
+        "evaluateSeconds": eval_s, "evaluate": evaluated,
+        "evaluateDirect": direct,
+        "generateSeconds": gen_s, "generatePrompt": len(prompt),
+        "generateTokensEqualSolo": True, "servedTokensEqual": True,
+        "launches": launches, "refusedCheckpoint": refused["result"],
+        "failedJobException": bad["result"][-1]["exception"]}))
+    return launches
 
 
 def main() -> int:
@@ -1232,8 +1462,12 @@ def main() -> int:
         entries.update(bwd_kernel_phase(torch, log))
         with tempfile.TemporaryDirectory() as home:
             served = slice_phase(torch, log, home)
+        yard: dict = {}
         with tempfile.TemporaryDirectory() as home:
-            paths = {"serve": served, **train_phase(torch, log, home)}
+            paths = {"serve": served, **train_phase(torch, log, home, yard)}
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(pipeline_phase(torch, log, home, yard))
+        del yard
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
         # the split-TF32 backward

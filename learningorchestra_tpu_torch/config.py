@@ -1,9 +1,9 @@
 """Configuration of the PyTorch port: the fields its serving and training
-slices read.
+slices and its pipeline services read.
 
-Environment variables keep the JAX package's names (``LO_HOME``,
-``LO_SERVE_MAX_BATCH``, ``LO_SERVE_QUEUE``, ``LO_REQUEST_TIMEOUT``,
-``LO_COMPUTE_DTYPE``). The
+Environment variables keep the JAX package's names and defaults
+(``LO_HOME``, ``LO_SERVE_MAX_BATCH``, ``LO_SERVE_QUEUE``,
+``LO_REQUEST_TIMEOUT``, ``LO_COMPUTE_DTYPE``, ``LO_MAX_WORKERS``). The
 device is chosen in code only (``device=`` or ``--device``). A
 :class:`Config` is an object the caller creates and passes down; there
 is no process-wide singleton.
@@ -25,6 +25,9 @@ class Config:
     home: str = dataclasses.field(
         default_factory=lambda: os.environ.get(
             "LO_HOME", os.path.join(os.getcwd(), ".lo_store")))
+    # worker threads of the job manager
+    max_workers: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get("LO_MAX_WORKERS", "8")))
     # default slot count of an LM serving session (maxSlots)
     serve_max_batch: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get(
@@ -48,6 +51,14 @@ class Config:
     @property
     def artifacts_dir(self) -> str:
         return os.path.join(self.home, "artifacts")
+
+    @property
+    def datasets_dir(self) -> str:
+        return os.path.join(self.home, "datasets")
+
+    @property
+    def catalog_path(self) -> str:
+        return os.path.join(self.home, "catalog.sqlite")
 
 
 def resolve_device(device) -> torch.device:

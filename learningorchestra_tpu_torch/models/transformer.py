@@ -615,7 +615,7 @@ class LanguageModel:
         ``[0, vocab)`` raise here, before anything reaches the card,
         where an out-of-range embedding index is a device-side assert
         (the JAX package's gather gives NaN rows for them instead)."""
-        if hasattr(x, "to_numpy"):  # a catalog DataFrame: no _id column
+        if hasattr(x, "to_numpy"):  # a catalog Table: no _id column
             x = data_lib.dataframe_to_arrays(x)["x"]
         x = np.asarray(x)
         if x.ndim == 1:  # flat corpus -> non-overlapping windows
@@ -781,13 +781,18 @@ class LanguageModel:
     def generate(self, prompt, max_new_tokens: int = 32,
                  temperature: float = 0.0, seed: int = 0,
                  top_k: Optional[int] = None,
-                 top_p: Optional[float] = None) -> np.ndarray:
+                 top_p: Optional[float] = None,
+                 num_beams: int = 1) -> np.ndarray:
         """Greedy or sampled continuation with an incremental KV cache:
         the prompt runs once (prefill), then one single-position forward
         per new token. ``top_k``/``top_p`` apply only when
         ``temperature > 0``. Unequal-length prompts (list of lists) are
         left-padded with id 0 and the leading pads stay in the output.
-        Returns (b, s + new) int32 tokens."""
+        Beam search (``num_beams`` above 1) is not ported yet. Returns
+        (b, s + new) int32 tokens."""
+        if num_beams != 1:
+            raise ValueError(f"num_beams={num_beams!r} (beam search) is not "
+                             f"yet ported to the PyTorch package")
         self._require_built()
         if temperature <= 0:
             top_k = top_p = None

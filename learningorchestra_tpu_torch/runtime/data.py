@@ -5,7 +5,7 @@ fixed-shape batches whose ragged tail is zero-padded and masked with a
 per-sample 0/1 weight column (``MASK_KEY``), so losses and metrics stay
 exact. The engine moves each batch to the card itself; there is no
 prefetch thread and no data-parallel padding (the port trains on one
-card). :func:`dataframe_to_arrays` is the catalog DataFrame feed.
+card). :func:`dataframe_to_arrays` is the catalog table feed.
 """
 
 from __future__ import annotations
@@ -69,33 +69,49 @@ class ArrayBatcher:
             yield batch
 
 
+def _factorize(values: np.ndarray) -> np.ndarray:
+    """Integer codes in order of first appearance; a missing value
+    (None or NaN) is -1, as ``pandas.factorize`` gives them."""
+    codes = np.empty(len(values), np.int64)
+    seen: Dict = {}
+    for i, v in enumerate(values.tolist()):
+        if v is None or (isinstance(v, float) and v != v):
+            codes[i] = -1
+        else:
+            codes[i] = seen.setdefault(v, len(seen))
+    return codes
+
+
+def _is_text(values: np.ndarray) -> bool:
+    return values.dtype.kind in "OUS"
+
+
 def dataframe_to_arrays(df, feature_columns: Optional[Sequence[str]] = None,
                         label_column: Optional[str] = None,
                         dtype=np.float32) -> Dict[str, np.ndarray]:
-    """A catalog DataFrame as an x/(y) array feed, as the JAX package's
-    ``runtime.data.dataframe_to_arrays`` makes it: the ``_id`` column is
-    dropped, non-numeric columns are factorized (label-encoded) and the
-    rest coerced to numbers (unparseable values become 0)."""
-    import pandas as pd
+    """A catalog table as an x/(y) array feed, as the JAX package's
+    ``runtime.data.dataframe_to_arrays`` makes it from a DataFrame: the
+    ``_id`` column is dropped, text columns are factorized (label
+    codes in order of first appearance, -1 for a missing value) and the
+    rest cast to numbers with nulls as 0.
 
+    ``df`` is a :class:`~learningorchestra_tpu_torch.catalog.store.Table`
+    or anything with ``.columns`` whose items are column arrays (a
+    pandas DataFrame works, but pandas is not needed)."""
     if feature_columns is None:
         feature_columns = [c for c in df.columns
                            if c != label_column and c != "_id"]
     cols = []
     for c in feature_columns:
-        s = df[c]
-        if s.dtype == object or str(s.dtype).startswith("str"):
-            codes, _ = pd.factorize(s)
-            cols.append(codes.astype(dtype))
+        values = np.asarray(df[c])
+        if _is_text(values):
+            cols.append(_factorize(values).astype(dtype))
         else:
-            cols.append(
-                pd.to_numeric(s, errors="coerce").fillna(0).to_numpy(dtype))
+            if values.dtype.kind == "f":
+                values = np.where(np.isnan(values), 0, values)
+            cols.append(values.astype(dtype))
     out = {"x": np.stack(cols, axis=1) if cols else np.zeros((len(df), 0))}
     if label_column is not None:
-        y = df[label_column]
-        if y.dtype == object or str(y.dtype).startswith("str"):
-            codes, _ = pd.factorize(y)
-            out["y"] = codes.astype(np.int32)
-        else:
-            out["y"] = y.to_numpy()
+        y = np.asarray(df[label_column])
+        out["y"] = _factorize(y).astype(np.int32) if _is_text(y) else y
     return out

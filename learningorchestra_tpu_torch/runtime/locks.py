@@ -1,4 +1,4 @@
-"""Named, ranked locks (the serving rows of the JAX package's
+"""Named, ranked locks (the serving and job rows of the JAX package's
 ``runtime/locks.py`` hierarchy).
 
 :data:`HIERARCHY` ranks every named lock of the port: a thread acquires
@@ -18,8 +18,10 @@ __all__ = ["HIERARCHY", "make_lock", "make_condition"]
 # name -> rank; LOWER rank = acquired FIRST (outermost). Same ranks as
 # the JAX package.
 HIERARCHY: Dict[str, int] = {
+    "jobs.manager": 30,            # job registry
     "serving.manager": 50,         # session registry
     "serving.session": 60,         # per-session request cv
+    "scheduler.fair": 80,          # the card lease's FIFO queue
     "serving.latency": 100,        # per-session latency ring
 }
 

@@ -1,10 +1,16 @@
 """Synchronous request validation with the reference's status codes
-(the serving subset of the JAX package's ``services/validators.py``;
-messages are kept word for word so 406 bodies match)."""
+(the serving and pipeline parts of the JAX package's
+``services/validators.py``; messages are kept word for word so 406
+bodies match)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import importlib
+import inspect
+from typing import Any, Dict, Optional, Sequence
+
+from learningorchestra_tpu_torch.catalog import documents as D
+from learningorchestra_tpu_torch.catalog.artifacts import _NAME_RE
 
 HTTP_SUCCESS = 200
 HTTP_CREATED = 201
@@ -114,3 +120,136 @@ def valid_sampling(body: Dict[str, Any]):
         top_p = None
     return float(temperature), top_k, (None if top_p is None
                                        else float(top_p))
+
+
+NOT_PORTED = "is not yet ported to the PyTorch package"
+
+
+def not_ported(what: str) -> HttpError:
+    """The 406 for a request the JAX package takes and the port does not
+    run yet."""
+    return HttpError(HTTP_NOT_ACCEPTABLE,
+                     f"{MESSAGE_INVALID_FIELD}: {what} {NOT_PORTED}")
+
+
+# module paths a request may name, each to the port's module that takes
+# its place; the JAX package's path maps by name and is never imported
+PORT_MODULES = {
+    "learningorchestra_tpu_torch.models": "learningorchestra_tpu_torch.models",
+    "learningorchestra_tpu.models": "learningorchestra_tpu_torch.models",
+}
+# keyword arguments the services supply themselves, never the request
+_SERVICE_KWARGS = ("device",)
+
+
+def resolve_module(module_path: str):
+    """The port's module for ``module_path`` (a key of
+    :data:`PORT_MODULES`), or None."""
+    target = PORT_MODULES.get(module_path) \
+        if isinstance(module_path, str) else None
+    return None if target is None else importlib.import_module(target)
+
+
+class RequestValidator:
+    """Reflection checks of a request against the port's classes, with
+    the JAX package's status codes and messages."""
+
+    def __init__(self, context: "ServiceContext"):  # noqa: F821
+        self._ctx = context
+
+    # -- names ----------------------------------------------------------
+    def safe_name(self, name: Any) -> str:
+        if not isinstance(name, str) or not _NAME_RE.match(name) \
+                or ".." in name or "/" in name or "\\" in name:
+            raise HttpError(HTTP_NOT_ACCEPTABLE,
+                            f"{MESSAGE_INVALID_NAME}: {name!r}")
+        return name
+
+    def not_duplicate(self, name: str) -> None:
+        if self._ctx.catalog.exists(name):
+            raise HttpError(HTTP_CONFLICT,
+                            f"{MESSAGE_DUPLICATE_FILE}: {name}")
+
+    def existing(self, name: str) -> Dict[str, Any]:
+        meta = self._ctx.catalog.get_metadata(name)
+        if meta is None:
+            raise HttpError(HTTP_NOT_FOUND,
+                            f"{MESSAGE_NONEXISTENT_FILE}: {name}")
+        return meta
+
+    def existing_finished(self, name: str) -> Dict[str, Any]:
+        """A parent must exist and be finished before a job that reads
+        it is accepted."""
+        meta = self._ctx.catalog.get_metadata(name)
+        if meta is None:
+            raise HttpError(HTTP_NOT_ACCEPTABLE,
+                            f"{MESSAGE_NONEXISTENT_FILE}: {name}")
+        if not meta.get(D.FINISHED_FIELD, False):
+            raise HttpError(HTTP_NOT_ACCEPTABLE,
+                            f"{MESSAGE_UNFINISHED_PARENT}: {name}")
+        return meta
+
+    def required_fields(self, body: Dict[str, Any],
+                        fields: Sequence[str]) -> None:
+        for f in fields:
+            if f not in body:
+                raise HttpError(HTTP_NOT_ACCEPTABLE,
+                                f"{MESSAGE_MISSING_FIELD}: {f}")
+
+    # -- reflection targets --------------------------------------------
+    def valid_module(self, module_path: str):
+        module = resolve_module(module_path)
+        if module is None:
+            raise HttpError(
+                HTTP_NOT_ACCEPTABLE,
+                f"{MESSAGE_INVALID_MODULE_PATH}: {module_path!r} "
+                f"{NOT_PORTED} (module paths: {', '.join(PORT_MODULES)})")
+        return module
+
+    def valid_class(self, module_path: str, class_name: str):
+        module = self.valid_module(module_path)
+        cls = getattr(module, class_name, None)
+        if cls is None:
+            raise HttpError(HTTP_NOT_ACCEPTABLE,
+                            f"{MESSAGE_INVALID_CLASS}: {class_name}")
+        return cls
+
+    def valid_class_parameters(self, cls,
+                               parameters: Dict[str, Any]) -> None:
+        """The request's keywords against ``cls.__init__``; ``$``/``#``
+        values are checked by name only."""
+        self._check_kwargs(cls.__init__, parameters, skip_first=True,
+                           message=MESSAGE_INVALID_CLASS_PARAMETER)
+
+    def valid_method(self, target, method_name: str):
+        method = getattr(target, method_name, None)
+        if method is None or not callable(method):
+            raise HttpError(HTTP_NOT_ACCEPTABLE,
+                            f"{MESSAGE_INVALID_METHOD}: {method_name}")
+        return method
+
+    def valid_method_parameters(self, target, method_name: str,
+                                parameters: Dict[str, Any]) -> None:
+        self._check_kwargs(getattr(target, method_name), parameters,
+                           skip_first=False,
+                           message=MESSAGE_INVALID_METHOD_PARAMETER)
+
+    def _check_kwargs(self, fn, parameters: Optional[Dict[str, Any]],
+                      skip_first: bool, message: str) -> None:
+        if not parameters:
+            return
+        try:
+            sig = inspect.signature(fn)
+        except (TypeError, ValueError):
+            return  # a callable implemented in C: accepted unchecked
+        names = [n for n in sig.parameters if n not in _SERVICE_KWARGS]
+        if skip_first and names and names[0] in ("self", "cls"):
+            names = names[1:]
+        if any(p.kind is inspect.Parameter.VAR_KEYWORD
+               for p in sig.parameters.values()):
+            return
+        for key in parameters:
+            if key not in names:
+                raise HttpError(
+                    HTTP_NOT_ACCEPTABLE,
+                    f"{message}: {key} (accepted: {', '.join(names)})")

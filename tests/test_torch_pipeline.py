@@ -1,0 +1,426 @@
+"""The PyTorch port's REST pipeline (dataset -> model -> train ->
+evaluate -> predict -> serve) on the CPU, held against the port's
+direct calls and against the JAX package.
+
+- Validation: the same bad requests through both packages' ``Api`` give
+  equal status codes and bodies (the JAX preflight does not answer any
+  of them).
+- A REST pipeline in the port gives the losses, evaluate document and
+  tokens of the same calls made directly on a ``LanguageModel``.
+- With the stored model carrying a JAX weight tree, the REST fit's
+  losses equal the JAX package's direct fit of that tree (float32, the
+  tolerance of ``tests/test_torch_training.py::test_fit_matches_jax``).
+- A failed job leaves ``finished`` false and an execution document with
+  JAX's keys; what the port does not run yet answers 406 at submit and
+  leaves no collection; the pipeline runs with pandas, pyarrow and dill
+  unimportable.
+
+The model is small (vocab 64, d_model 32, 2 layers, windows of 32
+tokens of a cyclic-successor stream); both packages compute in float32.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+import urllib.error
+import urllib.request
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from learningorchestra_tpu import config as jax_config
+from learningorchestra_tpu.models import transformer as jax_tlm
+from learningorchestra_tpu_torch.config import Config
+from learningorchestra_tpu_torch.models import weights
+from learningorchestra_tpu_torch.models.transformer import LanguageModel
+from learningorchestra_tpu_torch.services.context import ServiceContext
+from learningorchestra_tpu_torch.services.server import Api, RestServer
+
+torch.set_num_threads(2)
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PREFIX = "/api/learningOrchestra/v1"
+CFG = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
+           max_len=32, sliding_window=16)
+SEQ = 32
+MODEL_BODY = {"modelName": "lm", "modulePath": "learningorchestra_tpu.models",
+              "class": "LanguageModel", "classParameters": CFG}
+
+
+def _stream(n: int, seed: int) -> np.ndarray:
+    """``n`` windows of the stream where t is followed by t % 63 + 1."""
+    start = np.random.default_rng(seed).integers(1, 64, size=n)
+    return ((start[:, None] + np.arange(SEQ)[None, :]) % 63 + 1) \
+        .astype(np.int32)
+
+
+def _write_csv(path, x) -> str:
+    with open(path, "w") as f:
+        f.write(",".join(f"t{i}" for i in range(x.shape[1])) + "\n")
+        for row in x:
+            f.write(",".join(str(int(t)) for t in row) + "\n")
+    return str(path)
+
+
+def _call(api, method, path, body=None, params=None):
+    return api.dispatch(method, PREFIX + path, params or {}, body)[:2]
+
+
+def _wait(api, path, timeout=300.0):
+    """Polls ``finished``; the metadata and documents once it flips."""
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        status, body = _call(api, "GET", path)
+        assert status == 200, body
+        if body["metadata"]["finished"]:
+            return body
+        if any(d.get("exception") for d in body["result"]):
+            raise AssertionError(f"job failed: {body['result'][-1]}")
+        time.sleep(0.02)
+    raise AssertionError(f"timeout polling {path}")
+
+
+@pytest.fixture()
+def float32(monkeypatch):
+    monkeypatch.setenv("LO_COMPUTE_DTYPE", "float32")
+    jax_config.reset_config()
+    yield
+    jax_config.reset_config()
+
+
+@pytest.fixture(scope="module")
+def corpus(tmp_path_factory):
+    x = _stream(32, seed=4)
+    return x, _write_csv(tmp_path_factory.mktemp("corpus") / "c.csv", x)
+
+
+def _port_api(root, name="port_home") -> Api:
+    return Api(ServiceContext(Config(home=str(root / name)), device="cpu"))
+
+
+# ----------------------------------------------------------------------
+# validation parity
+# ----------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def both(tmp_path_factory, corpus):
+    """The JAX and the port ``Api``, each with dataset ``corpus`` and a
+    finished model ``lm``."""
+    root = tmp_path_factory.mktemp("both")
+    jax_config.set_config(jax_config.Config(home=str(root / "jax_home")))
+    from learningorchestra_tpu.services.server import Api as JaxApi
+
+    apis = (JaxApi(), _port_api(root))
+    try:
+        for api in apis:
+            assert _call(api, "POST", "/dataset/csv", {
+                "datasetName": "corpus", "datasetURI": corpus[1]})[0] == 201
+            assert _call(api, "POST", "/model/tensorflow",
+                         MODEL_BODY)[0] == 201
+        for api in apis:
+            _wait(api, "/dataset/csv/corpus")
+            _wait(api, "/model/tensorflow/lm")
+        yield apis
+    finally:
+        for api in apis:
+            api.ctx.close()
+        jax_config.reset_config()
+
+
+def _model(**changes):
+    body = dict(MODEL_BODY, modelName="lm2")
+    body.update(changes)
+    return {k: v for k, v in body.items() if v is not None}
+
+
+def _run(name="r", model="lm", method="fit", params=None, **changes):
+    body = {"name": name, "modelName": model, "method": method,
+            "methodParameters": {} if params is None else params}
+    body.update(changes)
+    return {k: v for k, v in body.items() if v is not None}
+
+
+BAD_REQUESTS = {
+    "missing field": ("POST", "/model/tensorflow", _model(modelName=None)),
+    "duplicate": ("POST", "/model/tensorflow", _model(modelName="lm")),
+    "unsafe name": ("POST", "/model/tensorflow", _model(modelName="../x")),
+    "unknown class": ("POST", "/model/tensorflow", _model(**{
+        "class": "NoSuchModel"})),
+    "bad class kwarg": ("POST", "/model/tensorflow", _model(
+        classParameters=dict(CFG, bogus=1))),
+    "nonexistent parent": ("POST", "/train/tensorflow", _run(model="ghost")),
+    "unknown method": ("POST", "/train/tensorflow", _run(method="bogus")),
+    "bad generate kwarg": ("POST", "/predict/tensorflow", _run(
+        method="generate", params={"prompt": [[1, 2]], "beams": 2})),
+    "missing methodParameters": ("POST", "/evaluate/tensorflow", {
+        "name": "r", "modelName": "lm", "method": "evaluate"}),
+    "duplicate execution": ("POST", "/train/tensorflow", _run(
+        name="corpus")),
+    "GET a missing name": ("GET", "/train/tensorflow/ghost", None),
+    "DELETE a missing name": ("DELETE", "/model/tensorflow/ghost", None),
+    "PATCH without a name": ("PATCH", "/model/tensorflow", {}),
+    "PATCH a dataset": ("PATCH", "/dataset/csv/corpus", {}),
+    "POST with a name": ("POST", "/model/tensorflow/lm", {}),
+    "unknown dataset tool": ("POST", "/dataset/xml", {
+        "datasetName": "d2", "datasetURI": "x.csv"}),
+    "unknown service": ("GET", "/nosuch/tool", None),
+    "unsupported verb": ("PUT", "/model/tensorflow", {}),
+}
+
+
+@pytest.mark.parametrize("case", list(BAD_REQUESTS))
+def test_bad_requests_answer_as_jax(both, case):
+    method, path, body = BAD_REQUESTS[case]
+    got, want = (_call(api, method, path, body) for api in both[::-1])
+    assert got == want
+    assert got[0] in (404, 405, 406, 409)
+    for api in both:
+        for name in ("lm2", "r", "d2"):
+            assert not api.ctx.catalog.exists(name)
+
+
+def test_failed_job_is_recorded_as_jax(both):
+    """A fit on a nonexistent ``$`` reference: ``finished`` stays false
+    and the execution document has JAX's keys and exception."""
+    docs = []
+    for api in both:
+        assert _call(api, "POST", "/train/tensorflow", _run(
+            name="bad", params={"x": "$ghost"}))[0] == 201
+        api.ctx.jobs.wait("bad", timeout=60)
+        status, body = _call(api, "GET", "/train/tensorflow/bad")
+        assert status == 200 and body["metadata"]["finished"] is False
+        assert body["metadata"]["status"] == "deadLettered"
+        docs.append(body["result"][-1])
+    want, got = docs
+    assert set(got) == set(want)
+    assert got["exception"] == want["exception"] == \
+        "KeyError('unknown artifact: ghost')"
+    assert got["errorKind"] == want["errorKind"] == "permanent"
+
+
+# ----------------------------------------------------------------------
+# what is not ported yet
+# ----------------------------------------------------------------------
+NOT_PORTED = {
+    "checkpoint": ("POST", "/train/tensorflow", _run(
+        params={"x": "$corpus", "checkpoint": True})),
+    "num_beams": ("POST", "/predict/tensorflow", _run(
+        method="generate", params={"prompt": [[1, 2]], "num_beams": 2})),
+    "timeout": ("POST", "/train/tensorflow", _run(timeout=5)),
+    "sliceDevices": ("POST", "/train/tensorflow", _run(sliceDevices=2)),
+    "healthPolicy": ("POST", "/train/tensorflow", _run(
+        healthPolicy={"maxRollbacks": 1})),
+    "hash in a method parameter": ("POST", "/train/tensorflow", _run(
+        params={"x": "$corpus", "epochs": "#2"})),
+    "hash in a class parameter": ("POST", "/model/tensorflow", _model(
+        classParameters=dict(CFG, d_model="#32"))),
+    "tensorflow.keras": ("POST", "/model/tensorflow", _model(
+        modulePath="tensorflow.keras.models", **{"class": "Sequential"})),
+    "sklearn": ("POST", "/model/scikitlearn", _model(
+        modulePath="sklearn.linear_model",
+        **{"class": "LogisticRegression"}, classParameters={})),
+    "a submodule of the mapped path": ("POST", "/model/tensorflow", _model(
+        modulePath="learningorchestra_tpu.models.neural")),
+    "an importable module": ("POST", "/model/tensorflow", _model(
+        modulePath="numpy", **{"class": "ndarray"})),
+    "http": ("POST", "/dataset/csv", {"datasetName": "d2",
+                                      "datasetURI": "http://h/x.csv"}),
+    "https": ("POST", "/dataset/csv", {"datasetName": "d2",
+                                       "datasetURI": "https://h/x.csv"}),
+    "dataset/generic": ("POST", "/dataset/generic", {
+        "datasetName": "d2", "datasetURI": "x.bin"}),
+    "cancel": ("DELETE", "/model/tensorflow/lm/run", None),
+    "migrate": ("POST", "/train/tensorflow/lm/migrate", {}),
+}
+
+
+@pytest.mark.parametrize("case", list(NOT_PORTED))
+def test_unported_requests_are_refused_at_submit(both, case):
+    method, path, body = NOT_PORTED[case]
+    port = both[1]
+    status, answer = _call(port, method, path, body)
+    assert status == 406
+    assert "is not yet ported to the PyTorch package" in answer["result"]
+    for name in ("lm2", "r", "d2"):
+        assert _call(port, "GET", f"/train/tensorflow/{name}")[0] == 404
+    assert port.ctx.catalog.get_metadata("lm")["finished"]
+
+
+def test_other_services_stay_unrouted(both):
+    port = both[1]
+    for path in ("/explore/histogram", "/transform/projection",
+                 "/function/python", "/builder/sparkml", "/observe/lm",
+                 "/observability/trace", "/profile"):
+        assert _call(port, "GET", path) == (404, {"result": "unknown route"})
+    for path in ("/health", "/metrics"):
+        assert port.dispatch("GET", path, {}, None)[0] == 404
+
+
+# ----------------------------------------------------------------------
+# the pipeline
+# ----------------------------------------------------------------------
+def _http(srv, method, path, body=None):
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(srv.base_url + PREFIX + path, data=data,
+                                 method=method)
+    req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as err:
+        return err.code, json.loads(err.read())
+
+
+def _result(api, path):
+    return [d["result"] for d in _wait(api, path)["result"]
+            if "result" in d][0]
+
+
+def test_rest_pipeline_equals_direct_calls(tmp_path, corpus, float32):
+    """Over HTTP: ingest, create, fit (shuffled, grad_accum 2), evaluate,
+    predict, generate and serve give what the same calls on a
+    ``LanguageModel`` give."""
+    x, path = corpus
+    srv = RestServer(port=0, context=ServiceContext(
+        Config(home=str(tmp_path / "home")), device="cpu")).start()
+    api = srv.api
+    try:
+        assert _http(srv, "POST", "/dataset/csv", {
+            "datasetName": "corpus", "datasetURI": "file://" + path}) == (
+            201, {"result": PREFIX + "/dataset/csv/corpus"})
+        _wait(api, "/dataset/csv/corpus")
+        assert _http(srv, "POST", "/model/tensorflow", MODEL_BODY)[0] == 201
+        _wait(api, "/model/tensorflow/lm")
+        fit = {"x": "$corpus", "batch_size": 8, "epochs": 2,
+               "grad_accum": 2}
+        assert _http(srv, "POST", "/train/tensorflow", _run(
+            name="lm_t", params=fit))[0] == 201
+        docs = _wait(api, "/train/tensorflow/lm_t")["result"]
+        records = [d["epochRecord"] for d in docs if "epochRecord" in d]
+        for verb, name, method, params in (
+                ("evaluate", "ev", "evaluate", {"x": "$corpus",
+                                                "batch_size": 8}),
+                ("predict", "logits", "predict", {"x": "$corpus",
+                                                  "batch_size": 16}),
+                ("predict", "gen", "generate", {
+                    "prompt": x[:2, :5].tolist(), "max_new_tokens": 6})):
+            assert _http(srv, "POST", f"/{verb}/tensorflow", _run(
+                name=name, model="lm_t", method=method,
+                params=params))[0] == 201
+        evaluated = _result(api, "/evaluate/tensorflow/ev")
+        logits = np.asarray(_result(api, "/predict/tensorflow/logits"))
+        generated = _result(api, "/predict/tensorflow/gen")
+        assert _http(srv, "POST", "/serve/lm_t", {
+            "type": "lm", "maxSlots": 2, "cacheLen": 32})[0] == 201
+        status, served = _http(srv, "POST", "/serve/lm_t/predict", {
+            "prompt": x[0, :5].tolist(), "maxNewTokens": 6})
+        assert status == 200
+    finally:
+        srv.stop()
+
+    lm = LanguageModel(**CFG, device="cpu")
+    hist = lm.fit(x, batch_size=8, epochs=2, grad_accum=2).history
+    assert [r["loss"] for r in records] == hist["loss"]
+    assert [r["accuracy"] for r in records] == hist["accuracy"]
+    assert hist["loss"][1] < hist["loss"][0]
+    assert evaluated == lm.evaluate(x, batch_size=8)
+    np.testing.assert_allclose(logits, lm.predict(x, batch_size=16),
+                               rtol=0, atol=1e-6)
+    want = lm.generate(x[:2, :5], max_new_tokens=6)
+    assert generated == want.tolist()
+    assert served["tokens"] == want[0, 5:].tolist()
+
+
+def test_rest_fit_of_a_jax_tree_matches_jax(tmp_path, corpus, float32):
+    """The stored model carries ``params_from_flax`` of a JAX tree: the
+    REST fit's losses equal the JAX package's direct fit of that tree,
+    and the trained artifact's weights JAX's."""
+    x, path = corpus
+    tree = weights.init_params(CFG, seed=2)
+    api = _port_api(tmp_path)
+    try:
+        _call(api, "POST", "/dataset/csv", {"datasetName": "corpus",
+                                            "datasetURI": path})
+        _call(api, "POST", "/model/tensorflow", MODEL_BODY)
+        _wait(api, "/dataset/csv/corpus")
+        _wait(api, "/model/tensorflow/lm")
+        seeded = LanguageModel(**CFG, device="cpu")
+        seeded.set_params(weights.params_from_flax(tree))
+        api.ctx.artifacts.save(seeded, "lm", "model/tensorflow")
+        assert _call(api, "POST", "/train/tensorflow", _run(
+            name="lm_t", params={"x": "$corpus", "batch_size": 16,
+                                 "epochs": 2, "shuffle": False}))[0] == 201
+        docs = _wait(api, "/train/tensorflow/lm_t")["result"]
+        trained = api.ctx.artifacts.load("lm_t")
+    finally:
+        api.ctx.close()
+    got = [d["epochRecord"] for d in docs if "epochRecord" in d]
+    jlm = jax_tlm.LanguageModel(**CFG)
+    jlm.params = jax.tree_util.tree_map(jnp.asarray, tree)
+    want = jlm.fit(x, batch_size=16, epochs=2, shuffle=False).history
+    for key in ("loss", "accuracy"):
+        np.testing.assert_allclose([r[key] for r in got], want[key],
+                                   rtol=1e-5)
+    for a, b in zip(jax.tree_util.tree_leaves(
+            weights.params_to_flax(trained.params)),
+            jax.tree_util.tree_leaves(jlm.params)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6,
+                                   rtol=0)
+
+
+_BLOCKED = """
+import sys, time
+for mod in ("pandas", "pyarrow", "dill", "msgpack", "jax",
+            "learningorchestra_tpu"):
+    sys.modules[mod] = None
+import numpy as np
+from learningorchestra_tpu_torch.config import Config
+from learningorchestra_tpu_torch.services.context import ServiceContext
+from learningorchestra_tpu_torch.services.server import Api
+
+home, path = sys.argv[1], sys.argv[2]
+api = Api(ServiceContext(Config(home=home), device="cpu"))
+P = "/api/learningOrchestra/v1"
+def call(method, route, body=None):
+    return api.dispatch(method, P + route, {}, body)[:2]
+def wait(route):
+    for _ in range(3000):
+        meta = call("GET", route)[1]["metadata"]
+        if meta["finished"]:
+            return
+        time.sleep(0.02)
+    raise SystemExit("timeout " + route)
+CFG = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, max_len=32)
+call("POST", "/dataset/csv", {"datasetName": "c", "datasetURI": path})
+call("POST", "/model/tensorflow", {"modelName": "m", "modulePath":
+     "learningorchestra_tpu.models", "class": "LanguageModel",
+     "classParameters": CFG})
+wait("/dataset/csv/c"); wait("/model/tensorflow/m")
+for verb, name, parent, method, params in (
+        ("train", "t", "m", "fit", {"x": "$c", "batch_size": 16}),
+        ("evaluate", "e", "t", "evaluate", {"x": "$c", "batch_size": 16}),
+        ("predict", "g", "t", "generate", {"prompt": [[1, 2, 3]],
+                                           "max_new_tokens": 3})):
+    call("POST", "/" + verb + "/tensorflow", {"name": name, "modelName":
+         parent, "method": method, "methodParameters": params})
+    wait("/" + verb + "/tensorflow/" + name)
+print(call("GET", "/predict/tensorflow/g")[1]["result"][1]["result"])
+api.ctx.close()
+"""
+
+
+def test_pipeline_runs_without_pandas_pyarrow_or_dill(tmp_path, corpus):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=ROOT, LO_COMPUTE_DTYPE="float32")
+    out = subprocess.run(
+        [sys.executable, "-c", _BLOCKED, str(tmp_path / "home"),
+         corpus[1]], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    tokens = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(tokens) == 1 and tokens[0][:3] == [1, 2, 3] and \
+        len(tokens[0]) == 6
