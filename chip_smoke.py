@@ -54,16 +54,37 @@
    page must hold the metadata document and the first window, ``$corpus``
    the windows exactly), ``POST /model/tensorflow`` of the tutorial LM
    through the JAX package's module path, ``POST /train/tensorflow``
-   ``fit`` (its epoch losses must equal the train phase's, with 8 layers
-   x 16 micro-batches of each wgmma kernel and nothing else),
-   ``evaluate`` (within 1e-6 relative of the train phase's model),
-   ``generate`` of 32 tokens after 1100 (equal to the reloaded
+   ``fit`` with the tutorial's ``"checkpoint": true`` (its epoch losses
+   must equal the train phase's, with 8 layers x 16 micro-batches of each
+   wgmma kernel and nothing else, and a verified step dir after each
+   epoch), ``evaluate`` (within 1e-6 relative of the train phase's
+   model), ``generate`` of 32 tokens after 1100 (equal to the reloaded
    artifact's solo ``generate``; its float32 prefill on
    flash_fwd_tf32x3) and ``POST /serve`` of the trained artifact (the
-   same tokens). A fit with ``"checkpoint": true`` must get 406 and
-   leave no collection; a fit on a missing ``$`` reference must end
-   with ``finished`` false and an exception document. Clients poll
-   every 0.25 s, as the JAX package's client does.
+   same tokens). Resume: a 1-epoch checkpointed fit PATCHed to 2 epochs
+   restores its step and trains epoch 2 with the uninterrupted fit's loss
+   bit for bit (params and evaluate equal too); again after one byte of
+   the newest step is flipped (the step goes to the quarantine and the
+   run restores the one before); DELETE removes the checkpoint dir. LoRA:
+   a second corpus, ``enable_lora`` rank 16 on the trained LM, a 2-epoch
+   fit of the adapters alone (8 layers x 8 steps of each wgmma kernel,
+   the base bit-identical, every adapter moved, the loss falling),
+   ``merge_lora`` (float32 evaluate within 1e-5 relative of the adapted
+   model's) and the tutorial's sampled ``generate`` (equal to the merged
+   artifact's solo ``generate``). ``num_beams`` 2 must get 406 and leave
+   no collection; a fit on a missing ``$`` reference must end with
+   ``finished`` false and an exception document. Clients poll every 0.25
+   s, as the JAX package's client does.
+6. Classifier path: the tutorial's TextClassifier (vocab 20000, d_model
+   256, 4 layers, 8 heads over 4, head_dim 32) with ``attention="flash"``
+   in bf16: a 3-epoch fit of 1024 rows of 512 tokens (lengths 64-512,
+   padded; the label is whether a marker id appears) at batch 128, 4
+   layers x 24 steps of each wgmma kernel (non-causal) and nothing else;
+   the loss falls, ``predict`` rows sum to 1, the artifact round-trips;
+   one float32 gradient micro-step through the split-TF32 kernels within
+   1e-4 per-tensor relative L2 of the dense path; ``POST /model`` of the
+   tutorial's body answers 201 and finishes. The kernel phase measures
+   the three wgmma kernels at this shape (b 128, 512 tokens, bf16).
 
 The kernel launch counts are zeroed just before each path and read
 just after it.
@@ -83,6 +104,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -117,6 +139,17 @@ COUNTERS = {"flash_fwd_sm90": "FLASH_FWD_SM90_LAUNCHES",
             "flash_fwd_tf32x3": "FLASH_FWD_TF32X3_LAUNCHES",
             "flash_bwd_dq_tf32x3": "FLASH_BWD_DQ_TF32X3_LAUNCHES",
             "flash_bwd_dkv_tf32x3": "FLASH_BWD_DKV_TF32X3_LAUNCHES"}
+# the tutorial's LoRA fine-tune: rank 16 on a second corpus of 64 windows,
+# batch 16, 2 epochs (8 optimizer steps, no accumulation)
+LORA_RANK, LORA_BATCH, LORA_EPOCHS = 16, 16, 2
+# the tutorial's sampled generate on the merged model
+TUTORIAL_GENERATE = {"prompt": [[101, 2023, 2003]], "max_new_tokens": 64,
+                     "temperature": 0.8, "top_p": 0.9}
+# the tutorial's TextClassifier (head_dim 32: the sm90 kernels, non-causal)
+CLF_CONFIG = dict(vocab_size=20000, n_classes=2, d_model=256, n_layers=4,
+                  n_heads=8, n_kv_heads=4, max_len=512)
+# 1024 rows of 512 tokens, batch 128, 3 epochs -> 24 optimizer steps
+CLF_ROWS, CLF_SEQ, CLF_BATCH, CLF_EPOCHS = 1024, 512, 128, 3
 # epoch losses of the train phase's fit through the first, CUDA-core
 # kernels (bf16; PERF.md), which the tensor-core route must stay within
 # 1% of
@@ -290,6 +323,9 @@ def kernel_phase(torch, log):
         # a multiple of 4 but not of 8, between the kernels' widths, GQA
         ("gqa-window-d36", 2, 160, 160, 8, 2, 36, True, 48, 0, f32),
         ("gqa-window-d36", 2, 160, 160, 8, 2, 36, True, 48, 0, bf16),
+        # the classifier's fit: a batch of 128 rows of 512 tokens, 8
+        # heads over 4 at head_dim 32, bidirectional
+        ("classifier", 128, 512, 512, 8, 4, 32, False, 0, 0, bf16),
     ]
     # (atol, rtol). float32: summation order only (the split-TF32 route's
     # products depart from float32 ones by about 2**-22 of sum |x||y|).
@@ -401,7 +437,7 @@ def kernel_phase(torch, log):
                                      f"rows with a non-zero o")
             line["lseMaxAbsErr"] = lse_err
         line["emptyRows"] = empty
-        if name in ("slice", "train", "lm-d12"):
+        if name in ("slice", "train", "lm-d12", "classifier"):
             mask = _visible_mask(torch, sq, sk, causal, window, offset,
                                  q.device)
             pairs = int(mask.sum())
@@ -448,7 +484,12 @@ def kernel_phase(torch, log):
                 entries.setdefault("flash_fwd_tf32x3", {})[
                     "trainShapeFloat32"] = picked
             elif name == "train":
-                entries["flash_fwd_sm90"] = picked
+                entries.setdefault("flash_fwd_sm90", {}).update(picked)
+            elif name == "classifier":
+                # nested, so that the training shape's figures stay the
+                # entry's own
+                entries.setdefault("flash_fwd_sm90", {})[
+                    "classifierShape"] = picked
             elif name == "lm-d12":
                 # nested, so that the serving shape's figures stay the
                 # entry's own
@@ -488,6 +529,9 @@ def bwd_kernel_phase(torch, log):
         ("ragged-dlse-d13", 2, 75, 131, 4, 4, 13, False, 0, 0, True),
         # a multiple of 4 but not of 8, between the kernels' widths, GQA
         ("gqa-window-d36", 2, 160, 160, 8, 2, 36, True, 48, 0, False),
+        # the classifier's fit (b 128, 512 tokens, d 32, bidirectional);
+        # measured in bf16, its dtype
+        ("classifier", 128, 512, 512, 8, 4, 32, False, 0, 0, False),
     ]
     # (atol as a share of the case's largest |g|, rtol). Kernel and plain
     # version compute in float32 from the same inputs and (o, lse) and
@@ -622,8 +666,13 @@ def bwd_kernel_phase(torch, log):
                     raise AssertionError(f"flash_bwd tf32x3 {name}: split "
                                          f"emulation used {checks}")
                 line["splitEmulationUsed"] = checks
-            d12 = name == "lm-d12"
-            if name == "train" or d12:
+            # figures nested under the entry, so that the training
+            # shape's stay its own
+            nest = {"lm-d12": "d12Float32" if dtype == torch.float32
+                    else "d12Bfloat16",
+                    "classifier": "classifierShape"}.get(name)
+            if name == "train" or name == "lm-d12" or (
+                    name == "classifier" and dtype == torch.bfloat16):
                 pairs = int(_visible_mask(torch, sq, sk, causal, window,
                                           offset, q.device).sum())
                 elt = q.element_size()
@@ -700,11 +749,7 @@ def bwd_kernel_phase(torch, log):
                     if route == "sm90":
                         figures["derivedBoundUsed"] = {
                             p: line["derivedBoundUsed"][p] for p in parts}
-                    if d12:
-                        # nested, so that the training shape's figures
-                        # stay the entry's own
-                        nest = "d12Float32" if dtype == torch.float32 \
-                            else "d12Bfloat16"
+                    if nest:
                         entries.setdefault(kernel, {})[nest] = figures
                     else:
                         entries.setdefault(kernel, {}).update(figures)
@@ -913,6 +958,31 @@ def _successor_windows(np, n: int, seq: int, seed: int):
     start = np.random.default_rng(seed).integers(1, 64, size=n)
     return ((start[:, None] - 1 + np.arange(seq)[None, :]) % 63 + 1) \
         .astype(np.int32)
+
+
+def _domain_windows(np, n: int, seq: int, seed: int):
+    """``n`` windows of ``seq`` tokens of a second stream, where id t is
+    followed by (t + 6) % 97 + 1; each window starts at an id drawn from
+    ``seed``."""
+    start = np.random.default_rng(seed).integers(1, 98, size=n)
+    return ((start[:, None] - 1 + 7 * np.arange(seq)[None, :]) % 97 + 1) \
+        .astype(np.int32)
+
+
+def _marker_rows(np, n: int, seq: int, vocab: int, seed: int):
+    """``n`` rows of ``seq`` tokens drawn from [2, vocab) with lengths
+    64..seq padded with 0, and labels: whether the marker id 1 appears
+    anywhere in the row (a task only bidirectional attention into the
+    pool can see; tests/test_transformer.py's classifier task)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(2, vocab, size=(n, seq)).astype(np.int32)
+    lengths = rng.integers(64, seq + 1, size=n)
+    y = rng.integers(0, 2, size=n).astype(np.int32)
+    pos = (rng.random(n) * lengths).astype(np.int64)
+    rows = np.arange(n)[y == 1]
+    x[rows, pos[y == 1]] = 1
+    x[np.arange(seq)[None, :] >= lengths[:, None]] = 0
+    return x, y
 
 
 def _float32_fit_window(torch, lm, x, log) -> dict:
@@ -1270,14 +1340,21 @@ def pipeline_phase(torch, log, home, yard):
     job_seconds = {}
 
     def job(verb, name, parent, method, params):
-        """POST a job and poll it to ``finished``; (seconds, GET body,
-        launches). The job's own seconds (queue wait + run, from its
-        execution document) go to ``job_seconds``."""
+        """POST a job (or, with ``parent`` None, PATCH the execution
+        ``name`` with new parameters) and poll it to ``finished``;
+        (seconds, GET body, launches). The job's own seconds (queue wait
+        + run, from its execution document) go to ``job_seconds``."""
         _reset_launches(attn)
         t0 = time.monotonic()
-        post(f"/{verb}/tensorflow", {"name": name, "modelName": parent,
-                                     "method": method,
-                                     "methodParameters": params})
+        if parent is None:
+            status, out = _http(base, "PATCH", f"/{verb}/tensorflow/{name}",
+                                {"methodParameters": params})
+            if status != 200:
+                raise AssertionError(f"PATCH {name}: {status} {out}")
+        else:
+            post(f"/{verb}/tensorflow", {"name": name, "modelName": parent,
+                                         "method": method,
+                                         "methodParameters": params})
         _poll(base, f"/{verb}/tensorflow/{name}")
         wall = time.monotonic() - t0
         ran = _launches(attn)
@@ -1286,7 +1363,13 @@ def pipeline_phase(torch, log, home, yard):
         return wall, body, ran
 
     def record_job(name):
-        done = ctx.catalog.get_documents(name)[-1]
+        # the job marks the collection finished, then appends its
+        # execution document
+        for _ in range(400):
+            done = ctx.catalog.get_documents(name)[-1]
+            if "queueWaitSeconds" in done:
+                break
+            time.sleep(0.025)
         job_seconds[name] = done["queueWaitSeconds"] + done["elapsedSeconds"]
 
     def result(body):
@@ -1324,10 +1407,12 @@ def pipeline_phase(torch, log, home, yard):
         create_s = time.monotonic() - t0
         record_job("lm")
 
+        # the tutorial's body: checkpointed after each epoch
+        fit_params = {"x": "$corpus", "batch_size": TRAIN_BATCH,
+                      "epochs": TRAIN_EPOCHS, "grad_accum": TRAIN_ACCUM,
+                      "checkpoint": True}
         fit_s, body, launches["pipelineFit"] = job(
-            "train", "lm_t", "lm", "fit", {
-                "x": "$corpus", "batch_size": TRAIN_BATCH,
-                "epochs": TRAIN_EPOCHS, "grad_accum": TRAIN_ACCUM})
+            "train", "lm_t", "lm", "fit", fit_params)
         records = [d["epochRecord"] for d in body["result"]
                    if "epochRecord" in d]
         losses = [r["loss"] for r in records]
@@ -1383,11 +1468,17 @@ def pipeline_phase(torch, log, home, yard):
             raise AssertionError(f"served tokens {served['tokens']} differ "
                                  f"from the REST generate's {tokens}")
 
-        refused = post("/train/tensorflow", {
-            "name": "lm_ck", "modelName": "lm", "method": "fit",
-            "methodParameters": {"x": "$corpus", "checkpoint": True}}, 406)
-        if _http(base, "GET", "/train/tensorflow/lm_ck")[0] != 404:
-            raise AssertionError("a refused fit left a collection")
+        checkpoints = _checkpoint_checks(ctx, "lm_t", steps)
+        resume = _resume_checks(ctx, job, base, fit_params, losses, trained,
+                                x, steps, launches)
+        lora = _lora_checks(torch, ctx, job, post, base, home, trained,
+                            launches)
+
+        refused = post("/predict/tensorflow", {
+            "name": "lm_beam", "modelName": "lm_t", "method": "generate",
+            "methodParameters": {"prompt": [[1, 2]], "num_beams": 2}}, 406)
+        if _http(base, "GET", "/predict/tensorflow/lm_beam")[0] != 404:
+            raise AssertionError("a refused request left a collection")
         post("/train/tensorflow", {"name": "lm_bad", "modelName": "lm",
                                    "method": "fit",
                                    "methodParameters": {"x": "$ghost"}})
@@ -1415,9 +1506,311 @@ def pipeline_phase(torch, log, home, yard):
         "evaluateDirect": direct,
         "generateSeconds": gen_s, "generatePrompt": len(prompt),
         "generateTokensEqualSolo": True, "servedTokensEqual": True,
-        "launches": launches, "refusedCheckpoint": refused["result"],
+        "launches": launches, "checkpoints": checkpoints,
+        "resume": resume, "lora": lora, "refusedBeams": refused["result"],
         "failedJobException": bad["result"][-1]["exception"]}))
+    shutil.rmtree(ctx.config.checkpoints_dir, ignore_errors=True)
     return launches
+
+
+def _checkpoint_checks(ctx, name: str, steps: int) -> dict:
+    """The checkpointed REST fit of ``name`` committed a verified step
+    dir after each epoch; its commit seconds and bytes."""
+    from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
+
+    ck_dir = os.path.join(ctx.config.checkpoints_dir, name)
+    saved = sorted(int(n) for n in os.listdir(ck_dir) if n.isdigit())
+    want = [steps // TRAIN_EPOCHS * (e + 1) for e in range(TRAIN_EPOCHS)]
+    ck = Checkpointer(ck_dir)
+    if saved != want or ck.latest_step() != steps:
+        raise AssertionError(f"{name} committed steps {saved}, want {want}")
+    t0 = time.monotonic()
+    for step in saved:
+        ck.saved_metadata(step)  # re-hashed: raises when corrupt
+    verify_s = time.monotonic() - t0
+    meta = ctx.catalog.get_metadata(name)
+    commits = meta["checkpointCommits"]
+    if [c["step"] for c in commits] != want:
+        raise AssertionError(f"{name} commits {commits}")
+    return {"steps": saved, "checkpointSaveSeconds": [
+        c["seconds"] for c in commits], "bytesPerStep": [
+        c["bytes"] for c in commits], "verifySecondsAllSteps": verify_s,
+        "checkpointCommitSeconds": meta["checkpointCommitSeconds"]}
+
+
+def _resume_checks(ctx, job, base, fit_params, losses, trained, x,
+                   steps: int, launches: dict) -> dict:
+    """A fit of 1 epoch, then PATCHed to 2, resumes from its step and
+    trains the second epoch exactly as the uninterrupted fit did; again
+    after the newest step's payload is bit-flipped (it goes to the
+    quarantine and the run restores the step before it). DELETE takes
+    the checkpoint dir away."""
+    import torch
+
+    ck_dir = os.path.join(ctx.config.checkpoints_dir, "lm_rs")
+    per_epoch = steps // TRAIN_EPOCHS
+    need = dict.fromkeys(COUNTERS, 0)
+    need.update(dict.fromkeys(
+        ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"),
+        LM_CONFIG["n_layers"] * per_epoch * TRAIN_ACCUM))
+    out = {}
+    _, _, ran = job("train", "lm_rs", "lm", "fit",
+                    dict(fit_params, epochs=1))
+    first = [d["epochRecord"]["loss"] for d in ctx.catalog.get_documents(
+        "lm_rs") if "epochRecord" in d]
+    if first != losses[:1] or ran != need:
+        raise AssertionError(f"lm_rs epoch 1: {first} {ran}")
+    for case in ("pipelineResume", "pipelineResumeQuarantined"):
+        if case == "pipelineResumeQuarantined":
+            # one byte of the newest step's payload flipped, same size
+            payload = os.path.join(ck_dir, str(steps), "checkpoint.msgpack")
+            with open(payload, "r+b") as f:
+                f.seek(os.path.getsize(payload) // 2)
+                byte = f.read(1)
+                f.seek(-1, os.SEEK_CUR)
+                f.write(bytes([byte[0] ^ 0xFF]))
+        n_docs = len(ctx.catalog.get_documents("lm_rs"))
+        wall, _, launches[case] = job("train", "lm_rs", None, "fit",
+                                      dict(fit_params, epochs=2))
+        records = [d["epochRecord"] for d in
+                   ctx.catalog.get_documents("lm_rs")[n_docs:]
+                   if "epochRecord" in d]
+        got = [r["loss"] for r in records]
+        if got != losses[1:] or [r["epoch"] for r in records] != [1]:
+            raise AssertionError(f"{case}: resumed epochs {records}, want "
+                                 f"the uninterrupted fit's {losses[1:]}")
+        if launches[case] != need:
+            raise AssertionError(f"{case} launched {launches[case]}, want "
+                                 f"{need}")
+        meta = ctx.catalog.get_metadata("lm_rs")
+        out[case] = {"wallSeconds": wall, "losses": got,
+                     "epochSeconds": records[0]["epochSeconds"],
+                     "stepMs": records[0]["epochSeconds"] / per_epoch * 1e3,
+                     "checkpointRestores": meta["checkpointRestores"],
+                     "checkpointSaveSeconds": [
+                         c["seconds"] for c in meta["checkpointCommits"]]}
+        if case == "pipelineResume":
+            resumed = ctx.artifacts.load("lm_rs")
+            same = all(torch.equal(resumed.params[k], trained.params[k])
+                       for k in trained.params)
+            ev_r = resumed.evaluate(x, batch_size=TRAIN_BATCH)
+            ev_t = trained.evaluate(x, batch_size=TRAIN_BATCH)
+            if not same or ev_r != ev_t:
+                raise AssertionError(f"the resumed artifact differs from the "
+                                     f"uninterrupted one: params equal "
+                                     f"{same}, evaluate {ev_r} vs {ev_t}")
+            out[case].update(paramsEqual=same, evaluate=ev_r)
+            del resumed
+        else:
+            quarantined = os.listdir(os.path.join(ck_dir, ".quarantine"))
+            restored = [r["step"] for r in meta["checkpointRestores"]]
+            if not any(q.startswith(f"{steps}-") for q in quarantined) or \
+                    restored != [per_epoch]:
+                raise AssertionError(f"quarantine {quarantined}, restored "
+                                     f"{restored}")
+            out[case]["quarantine"] = quarantined
+    status, _ = _http(base, "DELETE", "/train/tensorflow/lm_rs")
+    if status != 200 or os.path.exists(ck_dir):
+        raise AssertionError("DELETE left the checkpoint dir of lm_rs")
+    out["deleteRemovedCheckpointDir"] = True
+    return out
+
+
+def _lora_checks(torch, ctx, job, post, base, home, trained,
+                 launches) -> dict:
+    """The tutorial's LoRA workflow over REST: ingest a second corpus,
+    enable_lora, fit the adapters alone, merge_lora, then the tutorial's
+    sampled generate on the merged model."""
+    import numpy as np
+
+    dx = _domain_windows(np, TRAIN_WINDOWS, TRAIN_SEQ, seed=1)
+    csv_path = os.path.join(home, "domain.csv")
+    with open(csv_path, "w") as f:
+        f.write(",".join(f"t{i}" for i in range(dx.shape[1])) + "\n")
+        for row in dx:
+            f.write(",".join(map(str, row.tolist())) + "\n")
+    post("/dataset/csv", {"datasetName": "domain_corpus",
+                          "datasetURI": csv_path})
+    _poll(base, "/dataset/csv/domain_corpus")
+    out = {}
+    out["enableSeconds"], _, launches["loraEnable"] = job(
+        "train", "lm_lora", "lm_t", "enable_lora", {"rank": LORA_RANK})
+    out["fitWallSeconds"], body, launches["loraFit"] = job(
+        "train", "lm_ft", "lm_lora", "fit", {
+            "x": "$domain_corpus", "epochs": LORA_EPOCHS,
+            "batch_size": LORA_BATCH})
+    records = [d["epochRecord"] for d in body["result"]
+               if "epochRecord" in d]
+    losses = [r["loss"] for r in records]
+    steps = LORA_EPOCHS * TRAIN_WINDOWS // LORA_BATCH
+    if len(losses) != LORA_EPOCHS or not losses[-1] < losses[0]:
+        raise AssertionError(f"the fine-tune's loss did not fall: {losses}")
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(dict.fromkeys(
+        ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"),
+        LM_CONFIG["n_layers"] * steps))
+    if launches["loraFit"] != want:
+        raise AssertionError(f"the fine-tune launched {launches['loraFit']}"
+                             f", want {want}")
+    out["mergeSeconds"], _, launches["loraMerge"] = job(
+        "train", "lm_merged", "lm_ft", "merge_lora", {})
+    lora = ctx.artifacts.load("lm_lora")
+    tuned = ctx.artifacts.load("lm_ft")
+    base_equal = all(torch.equal(tuned.params[k], trained.params[k])
+                     for k in trained.params)
+    adapters = [k for k in tuned.params if ".lora_" in k]
+    moved = all(not torch.equal(tuned.params[k], lora.params[k])
+                for k in adapters)
+    if not base_equal or len(adapters) != 8 * LM_CONFIG["n_layers"] or \
+            not moved:
+        raise AssertionError(f"base weights equal {base_equal}, adapters "
+                             f"{len(adapters)}, all moved {moved}")
+    del lora
+    merged = ctx.artifacts.load("lm_merged")
+    if any(".lora_" in k for k in merged.params):
+        raise AssertionError("merge_lora left adapters")
+    evals = {}
+    for dtype in ("float32", "bfloat16"):
+        os.environ["LO_COMPUTE_DTYPE"] = dtype
+        for name, model in (("adapted", tuned), ("merged", merged)):
+            model._engine = None
+            evals[f"{name}{dtype.capitalize()}"] = model.evaluate(
+                dx, batch_size=8)
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    rel = abs(evals["mergedFloat32"]["loss"] - evals["adaptedFloat32"][
+        "loss"]) / abs(evals["adaptedFloat32"]["loss"])
+    if not rel <= 1e-5:
+        raise AssertionError(f"merged vs adapted float32 evaluate: relative "
+                             f"{rel} ({evals})")
+    out["generateSeconds"], body, launches["loraGenerate"] = job(
+        "predict", "lm_gen2", "lm_merged", "generate", TUTORIAL_GENERATE)
+    tokens = next(d["result"] for d in body["result"] if "result" in d)
+    solo = merged.generate(**TUTORIAL_GENERATE).tolist()
+    if tokens != solo:
+        raise AssertionError(f"sampled REST generate {tokens} differs from "
+                             f"the reloaded merged model's {solo}")
+    step_ms = records[-1]["epochSeconds"] / (steps // LORA_EPOCHS) * 1e3
+    out.update(losses=losses, epochSeconds=[r["epochSeconds"]
+                                            for r in records],
+               stepMsEpoch2=step_ms, baseEqual=True, adaptersMoved=True,
+               evaluate=evals, mergedVsAdaptedRelFloat32=rel,
+               generateTokensEqualSolo=True, generateTokens=len(solo[0]))
+    return out
+
+
+def classifier_phase(torch, log, home):
+    """The tutorial's TextClassifier on the card in bf16 with
+    ``attention="flash"``: a 3-epoch fit of 1024 rows of 512 tokens
+    (the non-causal sm90 kernels at head_dim 32, 4 layers x 24 steps of
+    each and nothing else), evaluate, predict (probability rows that sum
+    to 1), the artifact's round trip, one float32 gradient micro-step
+    through the split-TF32 kernels against the dense path, and ``POST
+    /model`` of the tutorial's body. Returns the kernel launches of the
+    fit and of the gradient step."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models.encoder import TextClassifier
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime.data import MASK_KEY
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    x, y = _marker_rows(np, CLF_ROWS, CLF_SEQ, CLF_CONFIG["vocab_size"],
+                        seed=0)
+    clf = TextClassifier(**CLF_CONFIG, attention="flash", device="cuda")
+    steps = CLF_EPOCHS * CLF_ROWS // CLF_BATCH
+    _reset_launches(attn)
+    t0 = time.monotonic()
+    hist = clf.fit(x, y, batch_size=CLF_BATCH, epochs=CLF_EPOCHS).history
+    fit_s = time.monotonic() - t0
+    launches = _launches(attn)
+    losses = hist["loss"]
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(dict.fromkeys(
+        ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"),
+        CLF_CONFIG["n_layers"] * steps))
+    if launches != want:
+        raise AssertionError(f"the classifier's fit launched {launches}, "
+                             f"want {want}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"the classifier's loss did not fall: {losses}")
+    evaluated = clf.evaluate(x, y, batch_size=CLF_BATCH)
+    probs = clf.predict(x, batch_size=CLF_BATCH)
+    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    if probs.shape != (CLF_ROWS, 2) or not row_err <= 1e-5:
+        raise AssertionError(f"predict rows: shape {probs.shape}, max |sum "
+                             f"- 1| {row_err}")
+    ctx = ServiceContext(Config(home=home), device="cuda")
+    ctx.artifacts.save(clf, "clf_t", "train/tensorflow")
+    loaded = ctx.artifacts.load("clf_t")
+    if not np.array_equal(loaded.predict(x, batch_size=CLF_BATCH), probs):
+        raise AssertionError("the reloaded classifier predicts otherwise")
+
+    # float32: one micro-step of 8 rows through the split-TF32 kernels
+    # (non-causal, head_dim 32) against the dense path
+    os.environ["LO_COMPUTE_DTYPE"] = "float32"
+    state = {k: t.detach().cpu() for k, t in clf.params.items()}
+    grads, grad_launches = {}, {}
+    for impl in ("flash", "dot"):
+        model = TextClassifier(**CLF_CONFIG, attention=impl, device="cuda")
+        model.set_params(state)
+        eng = model._get_engine()
+        batch = eng._to_device({"x": x[:8], "y": y[:8],
+                                MASK_KEY: np.ones(8, np.float32)},
+                               model.device)
+        _reset_launches(attn)
+        grads[impl], _ = eng._micro_grads(
+            dict(model.module.named_parameters()), batch, 0)
+        grad_launches[impl] = _launches(attn)
+        del model, eng
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    want_f32 = dict.fromkeys(COUNTERS, 0)
+    want_f32.update(dict.fromkeys(
+        ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3", "flash_bwd_dkv_tf32x3"),
+        CLF_CONFIG["n_layers"]))
+    if grad_launches != {"flash": want_f32,
+                         "dot": dict.fromkeys(COUNTERS, 0)}:
+        raise AssertionError(f"the float32 gradient step launched "
+                             f"{grad_launches}")
+    rel = {k: ((grads["flash"][k] - grads["dot"][k]).norm()
+               / grads["dot"][k].norm().clamp_min(1e-30)).item()
+           for k in grads["dot"]}
+    worst = max(rel, key=rel.get)
+    if not rel[worst] <= 1e-4:
+        raise AssertionError(f"classifier float32 gradient of {worst}: "
+                             f"relative L2 {rel[worst]} against dot")
+
+    server = RestServer(port=0, context=ctx).start()
+    try:
+        body = {"modelName": "clf", "modulePath":
+                "learningorchestra_tpu.models", "class": "TextClassifier",
+                "classParameters": CLF_CONFIG}
+        status, out = _http(server.base_url, "POST", "/model/tensorflow",
+                            body)
+        if status != 201:
+            raise AssertionError(f"POST /model TextClassifier: {status} "
+                                 f"{out}")
+        _poll(server.base_url, "/model/tensorflow/clf")
+    finally:
+        server.stop()
+        ctx.close()
+    log.append("classifier " + json.dumps({
+        "config": CLF_CONFIG, "attention": "flash", "rows": CLF_ROWS,
+        "seq": CLF_SEQ, "batch": CLF_BATCH, "epochs": CLF_EPOCHS,
+        "optimizerSteps": steps, "computeDtype": "bfloat16",
+        "history": hist, "fitSeconds": fit_s, "launches": launches,
+        "stepMsEpoch3": hist["epochSeconds"][-1] / (steps // CLF_EPOCHS)
+        * 1e3,
+        "tokensPerSecEpoch3": CLF_ROWS * CLF_SEQ / hist["epochSeconds"][-1],
+        "evaluate": evaluated, "predictRowSumMaxErr": row_err,
+        "artifactRoundTripEqual": True,
+        "f32GradRelL2VsDot": {"max": rel[worst], "worst": worst},
+        "f32GradLaunches": grad_launches["flash"],
+        "restModelCreated": True}))
+    return {"classifierFit": launches,
+            "classifierFloat32Grad": grad_launches["flash"]}
 
 
 def main() -> int:
@@ -1468,6 +1861,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as home:
             paths.update(pipeline_phase(torch, log, home, yard))
         del yard
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(classifier_phase(torch, log, home))
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
         # the split-TF32 backward

@@ -3,9 +3,14 @@
 The layout of the JAX package's store (``<root>/<service>/<tool>/<name>``
 with a ``meta.json``) and its native protocol: an object with
 ``__lo_save__(dir)`` and a classmethod ``__lo_load__(dir, device)``. The
-port's ``LanguageModel`` writes ``config.json`` and a ``torch.save``d
-``state_dict``. Only classes of this package load; reading the JAX
-package's flax-msgpack weights is not ported yet.
+port's ``LanguageModel`` and ``TextClassifier`` write what the JAX
+package's write: ``config.json`` and ``weights.msgpack``, the flax tree
+as ``flax.serialization`` packs it (through the port's own codec). So a
+native artifact of either package loads in the other: the JAX package's
+``learningorchestra_tpu.models.transformer`` ``LanguageModel`` and
+``TextClassifier`` map by name to the port's classes
+(:data:`JAX_NATIVE_CLASSES`); any other JAX class raises "not yet
+ported".
 
 Results of evaluate, predict and generate are stored without pickle
 (the JAX package's ``dill`` fallback is not ported):
@@ -31,6 +36,15 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 _PACKAGE = "learningorchestra_tpu_torch"
+# native classes of the JAX package that the port loads, each to the
+# port's (module, class); the JAX module is never imported
+JAX_NATIVE_CLASSES = {
+    ("learningorchestra_tpu.models.transformer", "LanguageModel"):
+        ("learningorchestra_tpu_torch.models.transformer", "LanguageModel"),
+    ("learningorchestra_tpu.models.transformer", "TextClassifier"):
+        ("learningorchestra_tpu_torch.models.encoder", "TextClassifier"),
+}
+_JAX_PACKAGE = "learningorchestra_tpu"
 _NAME_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._ -]*$")
 # the JSON stand-in for an array leaf of a stored result
 _LEAF_KEY = "__npy__"
@@ -181,13 +195,22 @@ class ArtifactStore:
     @staticmethod
     def _native_class(meta: Dict[str, Any], label: str):
         module_name = meta.get("module", "")
+        class_name = meta.get("class", "")
+        mapped = JAX_NATIVE_CLASSES.get((module_name, class_name))
+        if mapped is not None:
+            module_name, class_name = mapped
+        elif module_name == _JAX_PACKAGE or \
+                module_name.startswith(_JAX_PACKAGE + "."):
+            raise ValueError(
+                f"artifact {label}: class {module_name}.{class_name} of the "
+                f"JAX package is not yet ported to the PyTorch package")
         if not (module_name == _PACKAGE
                 or module_name.startswith(_PACKAGE + ".")):
             raise ValueError(
                 f"artifact {label} was not written by the PyTorch package "
                 f"(kind {meta.get('kind')!r}, module {module_name!r})")
         cls = importlib.import_module(module_name)
-        for part in meta["class"].split("."):
+        for part in class_name.split("."):
             cls = getattr(cls, part)
         return cls
 

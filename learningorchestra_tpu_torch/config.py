@@ -3,7 +3,8 @@ slices and its pipeline services read.
 
 Environment variables keep the JAX package's names and defaults
 (``LO_HOME``, ``LO_SERVE_MAX_BATCH``, ``LO_SERVE_QUEUE``,
-``LO_REQUEST_TIMEOUT``, ``LO_COMPUTE_DTYPE``, ``LO_MAX_WORKERS``). The
+``LO_REQUEST_TIMEOUT``, ``LO_COMPUTE_DTYPE``, ``LO_MAX_WORKERS``,
+``LO_CKPT_QUARANTINE_KEEP``). The
 device is chosen in code only (``device=`` or ``--device``). A
 :class:`Config` is an object the caller creates and passes down; there
 is no process-wide singleton.
@@ -47,6 +48,11 @@ class Config:
     compute_dtype: str = dataclasses.field(
         default_factory=lambda: os.environ.get("LO_COMPUTE_DTYPE",
                                                "bfloat16"))
+    # newest quarantined (corrupt) checkpoint step dirs kept as
+    # evidence; older ones are deleted
+    ckpt_quarantine_keep: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_CKPT_QUARANTINE_KEEP", "4")))
 
     @property
     def artifacts_dir(self) -> str:
@@ -55,6 +61,10 @@ class Config:
     @property
     def datasets_dir(self) -> str:
         return os.path.join(self.home, "datasets")
+
+    @property
+    def checkpoints_dir(self) -> str:
+        return os.path.join(self.home, "checkpoints")
 
     @property
     def catalog_path(self) -> str:

@@ -65,7 +65,10 @@
 //   ragged sq or sk) of what the warp's keys are seen from; exp2 with
 //   scale * log2(e) folded in.
 // - dK and dV sum in float32 registers across the whole group and are
-//   written once: no atomics, the same bits on every run.
+//   written once: no atomics, the same bits on every run. At d <= 64 dK
+//   adds each k-step's products on the CUDA cores (mma_mixed_add: its
+//   sum cancels, and the tensor cores' accumulation drifts); at width
+//   128 the registers are full, and dV's sum does not cancel.
 // - Tiles: 32 q rows per stage (M), 2 blocks of 4 warps per SM at d 64;
 //   64-row and 16-row stages were slower there. At width 16 (the d-12
 //   LM's 256 blocks) 64-row stages were about 9% faster than 32-row ones
@@ -118,6 +121,9 @@ __global__ void __launch_bounds__(kThreads, Tile<T, DMAX>::kMinBlocks)
                                 int window, int offset, int gran) {
   using Tl = Tile<T, DMAX>;
   constexpr int M = Tl::kM, P = Tl::kP;
+  // dK sums each k-step from zero and adds it on the CUDA cores
+  // (mma_mixed_add) where the registers allow; at width 128 they do not
+  constexpr bool kFlushK = DMAX <= 64;
   constexpr int NT = M / 8;     // 8-row n-tiles of S^T per q tile
   constexpr int DT = DMAX / 8;  // 8-column tiles of head_dim
   constexpr int kPlane = Tl::kPlanes ? Tl::kQ : 0;
@@ -285,7 +291,10 @@ __global__ void __launch_bounds__(kThreads, Tile<T, DMAX>::kMinBlocks)
           load_b_planes(sQh, sQl, o + 8 * n, o + P + 8 * n, b_hi, b_lo);
         else
           load_b(tq[o + 8 * n], tq[o + P + 8 * n], b_hi, b_lo);
-        mma_mixed<T>(acc_k[n], ds_hi, ds_lo, b_hi, b_lo);
+        if constexpr (kFlushK)
+          mma_mixed_add<T>(acc_k[n], ds_hi, ds_lo, b_hi, b_lo);
+        else
+          mma_mixed<T>(acc_k[n], ds_hi, ds_lo, b_hi, b_lo);
       }
     }
     __syncthreads();  // the tile is read; the next issue may refill it

@@ -59,8 +59,10 @@
 // - Masks only on tiles that cross an edge (causal diagonal, window,
 //   ragged sq or sk) of what the warp's rows see; exp2 with scale *
 //   log2(e) folded in.
-// - dQ sums in float32 registers over the band and is written once: no
-//   atomics, the same bits on every run.
+// - dQ sums in float32 registers over the band (each k-step's products
+//   from zero, added on the CUDA cores: mma_mixed_add, whose note in
+//   tf32x3_common.cuh says why) and is written once: no atomics, the
+//   same bits on every run.
 // - Tiles: 32 keys per stage (N); 64- and 16-key stages were no faster
 //   (scripts/tf32x3_tile_sweep.py). Registers: dQ takes d / 2 per thread
 //   and S, dP N / 2 each; ptxas reports no spills.
@@ -236,7 +238,7 @@ __global__ void __launch_bounds__(kThreads, Tile<T, DMAX>::kMinBlocks)
       for (int n = 0; n < DT; ++n) {
         uint32_t b_hi[2], b_lo[2];
         load_b(k0[8 * n], k0[P + 8 * n], b_hi, b_lo);
-        mma_mixed<T>(acc[n], ds_hi, ds_lo, b_hi, b_lo);
+        mma_mixed_add<T>(acc[n], ds_hi, ds_lo, b_hi, b_lo);
       }
     }
     __syncthreads();  // the stage is read; the next issue may refill it

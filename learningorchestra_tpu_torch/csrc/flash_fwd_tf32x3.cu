@@ -65,16 +65,19 @@
 //   0 and o = 0.
 // - O and lse are written once from registers: no atomics, the same bits
 //   on every run.
-// - Tiles: 32 keys per stage (N), registers capped for 3 blocks per SM at
-//   d <= 64. At the training shape 32 keys at 3 blocks beat 64 keys by 5%
-//   and 32 keys at the uncapped 2 blocks by 10%; at the serving shape (192
-//   blocks, under two waves) 64 keys are 5% faster and the cap does not
-//   matter. At width 16 (the d-12 LM's 512 blocks, float32 and bf16) 32
-//   keys beat 64 by 4-11% and 16 by 15-16%, and a cap of 2, 3 or 4 blocks
-//   gives the same time within 1%: the variant needs 127 registers
-//   (float32) or 107 (bf16), which fit 4 blocks uncapped
-//   (scripts/tf32x3_tile_sweep.py). Registers: O takes d / 2 per thread
-//   and S N / 2; ptxas must report no spills.
+// - O sums each k-step's products from zero and adds them on the CUDA
+//   cores (mma_mixed_add, tf32x3_common.cuh): the tensor cores'
+//   accumulation drifts over a long row, and the backward's delta =
+//   rowsum(dO * O) carries that drift into every dS.
+// - Tiles: 64 keys per stage (N) at d <= 64, 32 at width 128, with no
+//   register cap (one block per SM ptxas must fit): with O's k-steps
+//   summed on the CUDA cores, 32 keys capped for 3 blocks per SM spilled
+//   at d 64. Against the earlier 32 keys at 3 blocks (O carried in the
+//   accumulator), 64 keys keep the training shape within 2% and take 8%
+//   off the serving shape (192 blocks, under two waves); at width 16 (the
+//   d-12 LM's 512 blocks) they are 0-5% either way (float32 faster, bf16
+//   slower) (scripts/tf32x3_tile_sweep.py, PERF.md). Registers: O takes
+//   d / 2 per thread and S N / 2; ptxas must report no spills.
 
 #include "tf32x3_common.cuh"
 
@@ -91,9 +94,9 @@ constexpr float kNegInf = -1e30f;
 
 template <typename T, int DMAX>
 struct Tile {
-  static constexpr int kN = 32;  // keys per stage
-  // blocks per SM ptxas must fit (a register cap) at d <= 64
-  static constexpr int kMinBlocks = DMAX == 128 ? 1 : 3;
+  static constexpr int kN = DMAX == 128 ? 32 : 64;  // keys per stage
+  // blocks per SM ptxas must fit (a register cap)
+  static constexpr int kMinBlocks = 1;
   // row pitch, elements: 16 bytes past the width
   static constexpr int kP = DMAX + 16 / static_cast<int>(sizeof(T));
   static constexpr int kQ = kBlockM * kP;  // Q
@@ -264,7 +267,7 @@ __global__ void __launch_bounds__(kThreads, Tile<T, DMAX>::kMinBlocks)
       for (int n = 0; n < DT; ++n) {
         uint32_t b_hi[2], b_lo[2];
         load_b(v0[8 * n], v0[P + 8 * n], b_hi, b_lo);
-        mma_mixed<T>(acc[n], p_hi, p_lo, b_hi, b_lo);
+        mma_mixed_add<T>(acc[n], p_hi, p_lo, b_hi, b_lo);
       }
     }
     __syncthreads();  // the stage is read; the next issue may refill it

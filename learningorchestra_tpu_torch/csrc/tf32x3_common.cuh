@@ -118,6 +118,40 @@ __device__ __forceinline__ void mma_mixed(float (&c)[4],
   }
 }
 
+// acc += a.b as mma_mixed computes it, but summed in a fresh fragment
+// (from zero) and added to acc on the CUDA cores. The tensor cores do
+// not round their float32 accumulation to nearest: each mma.sync leaves
+// an error biased toward zero of about an ulp of its accumulator, so a
+// sum carried in one accumulator over a long run of k-steps drifts in
+// proportion to its length, where round-to-nearest errors grow as its
+// square root. That matters where a sum cancels: dQ = dS.K and dK =
+// dS^T.Q, since each row of dS sums to zero, and O, whose drift reaches
+// every dS through delta = rowsum(dO * O). On an H100 (PERF.md), at 2048
+// keys, d 32 and inputs with a common mean, dq carried in the accumulator
+// was 36 times further from the float32 plain version than the 3xTF32
+// emulation, and a classifier's float32 weight gradient read 7e-4
+// against the dense path; summed here, dq came within 2.3 times of the
+// emulation and the gradient to 2.3e-5. dV (weights that do not cancel)
+// and dK at width 128 (no registers to spare) stay in the accumulator.
+template <typename T>
+__device__ __forceinline__ void mma_mixed_add(float (&acc)[4],
+                                              const uint32_t (&a_hi)[4],
+                                              const uint32_t (&a_lo)[4],
+                                              const uint32_t (&b_hi)[2],
+                                              const uint32_t (&b_lo)[2]) {
+  float c[4];
+  // the first product starts from zero (no registers to clear)
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(c[0]), "=f"(c[1]), "=f"(c[2]), "=f"(c[3])
+      : "r"(a_lo[0]), "r"(a_lo[1]), "r"(a_lo[2]), "r"(a_lo[3]),
+        "r"(b_hi[0]), "r"(b_hi[1]), "f"(0.f));
+  if constexpr (!kExact<T>) mma_tf32(c, a_hi, b_lo);
+  mma_tf32(c, a_hi, b_hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] += c[e];
+}
+
 // a bf16 value as a TF32 operand: widened to float, exactly
 __device__ __forceinline__ uint32_t tf32_of(__nv_bfloat16 x) {
   return static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;

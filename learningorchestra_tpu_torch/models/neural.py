@@ -16,6 +16,11 @@ formulas and defaults kept where ``torch.optim`` differs:
   ``rho``, then ``trace`` momentum after the learning rate;
 - ``adagrad``: the squared-gradient sum starts at 0.1, ``rsqrt(sum +
   1e-7)``.
+
+:class:`FrozenBaseOptimizer` is the JAX package's LoRA optimizer
+(``optax.multi_transform`` of the update rule over ``lora_*`` leaves and
+``set_to_zero`` over the rest): only the adapters get updates and
+optimizer state.
 """
 
 from __future__ import annotations
@@ -104,8 +109,36 @@ class Optimizer:
             p.add_(u.to(p.dtype))
 
 
-def build_optimizer(spec: Dict[str, Any]) -> Optimizer:
-    return Optimizer(spec)
+def is_adapter(name: str) -> bool:
+    """Whether a param (``layer_0.attn.q_proj.lora_a``) is a LoRA
+    adapter, the only leaves a fine-tune trains."""
+    return name.rsplit(".", 1)[-1].startswith("lora_")
+
+
+class FrozenBaseOptimizer:
+    """An :class:`Optimizer` over the adapters alone: frozen params get
+    neither updates nor optimizer state (and the model gives them no
+    gradients). The weight-decay mask stays the update rule's own."""
+
+    def __init__(self, base: Optimizer):
+        self.base = base
+        self.spec = base.spec
+
+    def init(self, params: Params) -> Dict[str, Any]:
+        return self.base.init({k: p for k, p in params.items()
+                               if is_adapter(k)})
+
+    def update(self, params: Params, grads: Params,
+               state: Dict[str, Any]) -> None:
+        self.base.update({k: p for k, p in params.items()
+                          if is_adapter(k)}, grads, state)
+
+
+def build_optimizer(spec: Dict[str, Any], frozen_base: bool = False):
+    """The update rule of ``spec``; with ``frozen_base`` over the LoRA
+    adapters only."""
+    opt = Optimizer(spec)
+    return FrozenBaseOptimizer(opt) if frozen_base else opt
 
 
 def validation_tail_count(n: int, split: float) -> int:

@@ -4,9 +4,12 @@ Counterpart of :mod:`learningorchestra_tpu.models.transformer` for the
 serving and training paths: rotary position embeddings (half-split
 rotation), RMSNorm as flax computes it, grouped-query attention with an
 optional sliding window, a gated-SiLU MLP without bias, dropout, the
-next-token loss (with the chunked lm-head form), and
-:class:`LanguageModel` with ``fit``/``evaluate``/``predict``,
-``generate`` and the continuous-batching serve functions.
+next-token loss (with the chunked lm-head form), LoRA adapters on the
+attention projections, and :class:`LanguageModel` with
+``fit``/``evaluate``/``predict``, ``generate``, ``enable_lora`` /
+``merge_lora`` and the continuous-batching serve functions. The
+bidirectional encoder and :class:`TextClassifier` live in
+:mod:`.encoder`.
 
 Module and parameter names follow the flax tree (``layer_0.attn.q_proj``
 for ``layer_0/attn/q_proj``) so :mod:`.weights` maps one onto the other.
@@ -30,8 +33,9 @@ from torch import nn
 from learningorchestra_tpu_torch.config import Config, resolve_device
 from learningorchestra_tpu_torch.models import weights as weights_lib
 from learningorchestra_tpu_torch.models.neural import (
-    History, build_optimizer, validation_tail_count)
+    History, build_optimizer, is_adapter, validation_tail_count)
 from learningorchestra_tpu_torch.ops import attention as attn_ops
+from learningorchestra_tpu_torch.runtime import checkpoint as ckpt_lib
 from learningorchestra_tpu_torch.runtime import data as data_lib
 from learningorchestra_tpu_torch.runtime import engine as engine_lib
 
@@ -129,6 +133,41 @@ def _dispatch_attention(q, k, v, *, impl: str, causal: bool,
                                              kv_valid=kv_valid)
 
 
+class LoRALinear(nn.Linear):
+    """A bias-free linear with an additive low-rank adapter, the JAX
+    package's ``_LoRADense``: y = xW + (xA)B·α/r, with A ``(in, r)`` and
+    B ``(r, out)`` cast to x's dtype and the scale rounded to it. B
+    starts at zero, so an adapter leaves the base model's output as it
+    was."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int,
+                 alpha: float):
+        super().__init__(in_features, out_features, bias=False)
+        self.rank = rank
+        self.alpha = alpha
+        self.lora_a = nn.Parameter(torch.zeros(in_features, rank))
+        self.lora_b = nn.Parameter(torch.zeros(rank, out_features))
+        self._scales: Dict[torch.dtype, float] = {}
+
+    def _scale(self, dtype: torch.dtype) -> float:
+        if dtype not in self._scales:
+            self._scales[dtype] = float(torch.tensor(
+                self.alpha / self.rank).to(dtype))
+        return self._scales[dtype]
+
+    def forward(self, x):
+        y = F.linear(x, self.weight)
+        low = (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
+        return y + low * self._scale(x.dtype)
+
+
+def _linear(d_in: int, d_out: int, lora_rank: int,
+            lora_alpha: float) -> nn.Linear:
+    if lora_rank > 0:
+        return LoRALinear(d_in, d_out, lora_rank, lora_alpha)
+    return nn.Linear(d_in, d_out, bias=False)
+
+
 class Attention(nn.Module):
     """Multi-head attention with grouped-query KV heads (``n_kv_heads <
     n_heads``; 1 is MQA). Three branches, as in the JAX module: a
@@ -139,7 +178,8 @@ class Attention(nn.Module):
 
     def __init__(self, d_model: int, n_heads: int, head_dim: int,
                  impl: str, causal: bool, n_kv_heads: int = 0,
-                 window: int = 0, rope_base: float = 10000.0):
+                 window: int = 0, rope_base: float = 10000.0,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.n_heads = n_heads
         self.kv_heads = n_kv_heads or n_heads
@@ -152,12 +192,11 @@ class Attention(nn.Module):
         self.window = window
         self.rope_base = rope_base
         proj = n_heads * head_dim
-        self.q_proj = nn.Linear(d_model, proj, bias=False)
-        self.k_proj = nn.Linear(d_model, self.kv_heads * head_dim,
-                                bias=False)
-        self.v_proj = nn.Linear(d_model, self.kv_heads * head_dim,
-                                bias=False)
-        self.o_proj = nn.Linear(proj, d_model, bias=False)
+        kv_proj = self.kv_heads * head_dim
+        self.q_proj = _linear(d_model, proj, lora_rank, lora_alpha)
+        self.k_proj = _linear(d_model, kv_proj, lora_rank, lora_alpha)
+        self.v_proj = _linear(d_model, kv_proj, lora_rank, lora_alpha)
+        self.o_proj = _linear(proj, d_model, lora_rank, lora_alpha)
 
     def _angles(self, rel: torch.Tensor):
         freqs = _rope_freqs(self.head_dim, self.rope_base, rel.device)
@@ -245,13 +284,15 @@ class Block(nn.Module):
     def __init__(self, d_model: int, n_heads: int, head_dim: int,
                  d_ff: int, attention: str, causal: bool,
                  n_kv_heads: int = 0, window: int = 0,
-                 rope_base: float = 10000.0, dropout: float = 0.0):
+                 rope_base: float = 10000.0, dropout: float = 0.0,
+                 lora_rank: int = 0, lora_alpha: float = 16.0):
         super().__init__()
         self.dropout = dropout
         self.attn_norm = RMSNorm(d_model)
         self.attn = Attention(d_model, n_heads, head_dim, attention, causal,
                               n_kv_heads=n_kv_heads, window=window,
-                              rope_base=rope_base)
+                              rope_base=rope_base, lora_rank=lora_rank,
+                              lora_alpha=lora_alpha)
         self.mlp_norm = RMSNorm(d_model)
         self.mlp = MLP(d_model, d_ff)
 
@@ -286,7 +327,8 @@ class TransformerLM(nn.Module):
                  n_layers: int = 4, n_heads: int = 4, n_kv_heads: int = 0,
                  d_ff: int = 0, attention: str = "dot", causal: bool = True,
                  sliding_window: int = 0, rope_base: float = 10000.0,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, lora_rank: int = 0,
+                 lora_alpha: float = 16.0):
         super().__init__()
         if attention not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention impl: {attention!r}")
@@ -298,7 +340,8 @@ class TransformerLM(nn.Module):
             self.add_module(f"layer_{i}", Block(
                 d_model, n_heads, head_dim, d_ff, attention, causal,
                 n_kv_heads=n_kv_heads, window=sliding_window,
-                rope_base=rope_base, dropout=dropout))
+                rope_base=rope_base, dropout=dropout, lora_rank=lora_rank,
+                lora_alpha=lora_alpha))
         self.final_norm = RMSNorm(d_model)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False)
 
@@ -430,12 +473,14 @@ class LanguageModel:
     and method surface (``compile``, ``fit``, ``evaluate``, ``predict``,
     ``generate``).
 
-    Covers dense MLP, GQA, sliding window, RoPE and dropout. Options of
-    the JAX model that this package does not run yet (MoE, LoRA, fused
-    projections, ring/Ulysses attention) raise at construction. Weights
-    come in through :meth:`set_params` (see :mod:`.weights`), or from
+    Covers dense MLP, GQA, sliding window, RoPE, dropout and LoRA
+    adapters on the attention projections (``lora_rank``; a model with
+    adapters trains them alone, its base frozen). Options of the JAX
+    model that this package does not run yet (MoE, fused projections,
+    remat, ring/Ulysses attention) raise at construction. Weights come
+    in through :meth:`set_params` (see :mod:`.weights`), or from
     ``weights.init_params(seed)`` at the first ``fit``; they stay
-    float32 and trainable. ``attention="auto"`` resolves to ``flash``."""
+    float32. ``attention="auto"`` resolves to ``flash``."""
 
     _CONFIG_KEYS = ("vocab_size", "d_model", "n_layers", "n_heads",
                     "n_kv_heads", "d_ff", "max_len", "attention",
@@ -489,6 +534,8 @@ class LanguageModel:
         self.fused_proj = bool(fused_proj)
         self.lora_rank = int(lora_rank)
         self.lora_alpha = float(lora_alpha)
+        if self.lora_rank < 0:
+            raise ValueError(f"lora_rank must be >= 0, got {lora_rank}")
         self.sliding_window = int(sliding_window)
         if self.sliding_window < 0:
             raise ValueError(
@@ -496,11 +543,10 @@ class LanguageModel:
         self.rope_base = float(rope_base)
         if self.rope_base <= 1.0:
             raise ValueError(f"rope_base must be > 1, got {rope_base}")
-        for key, off in (("n_experts", 0), ("fused_proj", False),
-                         ("lora_rank", 0)):
+        for key, off in (("n_experts", 0), ("fused_proj", False)):
             if getattr(self, key) != off:
-                raise ValueError(f"{key}={getattr(self, key)!r} is not "
-                                 f"ported to the PyTorch package yet")
+                raise ValueError(f"{key}={getattr(self, key)!r} is not yet "
+                                 f"ported to the PyTorch package")
         self.device = resolve_device(device)
         self.module: Optional[TransformerLM] = None
         self.optimizer_spec: Dict[str, Any] = {"kind": "adamw",
@@ -531,18 +577,26 @@ class LanguageModel:
             return max(0, int(self.head_chunk))
         return 1024 if self.vocab_size >= 8192 else 0
 
+    def _new_module(self) -> TransformerLM:
+        """The module on the meta device (no memory, no init)."""
+        with torch.device("meta"):
+            return TransformerLM(
+                self.vocab_size, d_model=self.d_model,
+                n_layers=self.n_layers, n_heads=self.n_heads,
+                n_kv_heads=self.n_kv_heads, d_ff=self.d_ff,
+                attention=self._resolved_attention(), causal=True,
+                sliding_window=self.sliding_window,
+                rope_base=self.rope_base, dropout=self.dropout,
+                lora_rank=self.lora_rank, lora_alpha=self.lora_alpha)
+
     def set_params(self, state_dict) -> None:
-        """Build the module on the model's device and load weights: the
-        float32 master params that ``fit`` trains in place and serving
-        reads (under ``inference_mode``)."""
-        module = TransformerLM(
-            self.vocab_size, d_model=self.d_model, n_layers=self.n_layers,
-            n_heads=self.n_heads, n_kv_heads=self.n_kv_heads,
-            d_ff=self.d_ff, attention=self._resolved_attention(),
-            causal=True, sliding_window=self.sliding_window,
-            rope_base=self.rope_base, dropout=self.dropout)
-        module.load_state_dict(state_dict)
-        self.module = module.to(self.device)
+        """Build the module on the model's device and load (copy)
+        weights: the float32 master params that ``fit`` trains in place
+        and serving reads (under ``inference_mode``). With adapters,
+        only they stay trainable (``requires_grad``)."""
+        self.module = load_module(self._new_module(), state_dict,
+                                  self.device,
+                                  frozen_base=self.lora_rank > 0)
 
     def num_params(self) -> int:
         if self.module is None:
@@ -594,11 +648,12 @@ class LanguageModel:
                 apply_fn=self._apply_fn,
                 loss_fn=next_token_loss(
                     self.aux_coef, head_chunk=self._head_chunk() or 1024),
-                optimizer=build_optimizer(self.optimizer_spec),
+                optimizer=build_optimizer(self.optimizer_spec,
+                                          frozen_base=self.lora_rank > 0),
                 metrics={"accuracy": token_accuracy},
                 compute_dtype=dtype,
                 predict_transform=lambda outputs: outputs[0],
-                grad_accum=self._accum)
+                grad_accum=self._accum, param_layout=FLAX_LAYOUT)
         return self._engine
 
     def _set_grad_accum(self, grad_accum: Optional[int]) -> None:
@@ -652,10 +707,10 @@ class LanguageModel:
         """Next-token training on ``x`` (token windows, or a flat corpus
         cut into windows); one optimizer step per batch of
         ``batch_size`` windows, split into ``grad_accum`` micro-batches.
-        Appends the epoch records to :attr:`history`."""
-        if checkpointer is not None:
-            raise NotImplementedError(
-                "checkpointer= is not yet ported to the PyTorch package")
+        With a ``checkpointer`` (:class:`~learningorchestra_tpu_torch.
+        runtime.checkpoint.Checkpointer`) the fit resumes from its newest
+        verified step, ``epochs`` being the total, and saves after every
+        epoch. Appends the epoch records to :attr:`history`."""
         self._set_grad_accum(grad_accum)
         val_x = None
         if validation_split:
@@ -671,7 +726,8 @@ class LanguageModel:
         eng = self._get_engine()
         state = eng.init_state(self._master_params())
         state, history = eng.fit(state, batcher, epochs=epochs,
-                                 seed=self.seed, log_fn=log_fn)
+                                 seed=self.seed, checkpointer=checkpointer,
+                                 log_fn=log_fn)
         if val_x is not None:
             val = eng.evaluate(state.params, self._batcher(val_x,
                                                            batch_size))
@@ -694,6 +750,65 @@ class LanguageModel:
         self._require_built()
         return self._get_engine().predict(self._master_params(),
                                           self._batcher(x, batch_size))
+
+    # ------------------------------------------------------------------
+    # LoRA
+    # ------------------------------------------------------------------
+    def enable_lora(self, rank: int, alpha: float = 16.0) -> None:
+        """Attach fresh rank-``rank`` adapters to a trained model: the
+        base weights keep their values (B starts at zero, so predictions
+        are unchanged at step 0) and later ``fit`` calls train only the
+        adapters. Any missing leaf other than an adapter raises."""
+        if self.lora_rank > 0:
+            raise RuntimeError(
+                f"model already has LoRA adapters (rank {self.lora_rank}); "
+                f"merge_lora() first")
+        if int(rank) <= 0:
+            raise ValueError(f"rank must be >= 1, got {rank}")
+        self._require_built()
+        old = self.module.state_dict()
+        self.lora_rank = int(rank)
+        self.lora_alpha = float(alpha)
+        config = {k: getattr(self, k) for k in self._CONFIG_KEYS}
+        fresh = weights_lib.lora_adapters(config, self.seed, self.lora_rank)
+        state = {}
+        for key in self._new_module().state_dict():
+            if key in old:
+                state[key] = old[key]
+            elif is_adapter(key):
+                state[key] = fresh[key]
+            else:
+                path = "/".join(weights_lib.flax_path(key)[0])
+                raise ValueError(
+                    f"enable_lora: trained params have no leaf at "
+                    f"{path!r}; refusing to re-initialize a base weight")
+        self.set_params(state)
+        self._engine = None
+
+    def merge_lora(self) -> None:
+        """Fold the adapters into the base kernels (W += A·B·α/r, in
+        float32 on the host) and drop them: a plain model that computes
+        what the adapted one did."""
+        if self.lora_rank <= 0:
+            raise RuntimeError("model has no LoRA adapters to merge")
+        self._require_built()
+        scale = self.lora_alpha / self.lora_rank
+        state = {k: t.detach().cpu() for k, t in
+                 self.module.state_dict().items()}
+        merged = {}
+        for key, t in state.items():
+            if is_adapter(key):
+                continue
+            if key.endswith(".weight") and \
+                    key[:-len("weight")] + "lora_a" in state:
+                base = key[:-len("weight")]
+                kernel = t.numpy().T + state[base + "lora_a"].numpy() @ \
+                    state[base + "lora_b"].numpy() * scale
+                t = torch.from_numpy(np.ascontiguousarray(kernel.T))
+            merged[key] = t
+        self.lora_rank = 0
+        self.set_params(merged)
+        self._engine = None
 
     def _new_cache(self, b: int, cache_len: int) -> Cache:
         kv = self.n_kv_heads or self.n_heads
@@ -897,31 +1012,75 @@ class LanguageModel:
     # artifact-store native protocol (catalog/artifacts.py)
     # ------------------------------------------------------------------
     def __lo_save__(self, path: str) -> None:
-        config = {k: getattr(self, k) for k in self._CONFIG_KEYS}
-        config.update(name=self.name, optimizer_spec=self.optimizer_spec,
-                      seed=self.seed, history=self.history,
-                      built=self.module is not None)
-        with open(os.path.join(path, "config.json"), "w") as f:
-            json.dump(config, f)
-        if self.module is not None:
-            state = {k: t.detach().cpu()
-                     for k, t in self.module.state_dict().items()}
-            torch.save(state, os.path.join(path, "weights.pt"))
+        save_native(self, path)
 
     @classmethod
     def __lo_load__(cls, path: str, device="cuda") -> "LanguageModel":
-        with open(os.path.join(path, "config.json")) as f:
-            config = json.load(f)
-        model = cls(**{k: config[k] for k in cls._CONFIG_KEYS
-                       if k in config},
-                    name=config["name"], device=device)
-        # artifacts written before training was ported lack these three
-        model.optimizer_spec = config.get("optimizer_spec",
-                                          model.optimizer_spec)
-        model.seed = config.get("seed", model.seed)
-        model.history = config.get("history", model.history)
-        if config["built"]:
-            state = torch.load(os.path.join(path, "weights.pt"),
-                               map_location="cpu", weights_only=True)
-            model.set_params(state)
+        return load_native(cls, path, device)
+
+
+# ----------------------------------------------------------------------
+# weights in the flax layout, and artifacts (catalog/artifacts.py)
+# ----------------------------------------------------------------------
+# the engine's checkpoint layout: params (and optimizer slots) as flax
+# trees
+FLAX_LAYOUT = (weights_lib.params_to_flax, weights_lib.flax_path)
+
+
+def load_module(module: nn.Module, state_dict, device,
+                frozen_base: bool = False) -> nn.Module:
+    """``module`` (built on the meta device) on ``device`` with a copy of
+    ``state_dict``; with ``frozen_base`` only LoRA adapters keep
+    ``requires_grad``."""
+    module = module.to_empty(device=device)
+    module.load_state_dict(state_dict)
+    if frozen_base:
+        for name, p in module.named_parameters():
+            p.requires_grad_(is_adapter(name))
+    return module
+
+
+def save_native(model, path: str) -> None:
+    """``config.json`` and, once built, ``weights.msgpack``: the flax
+    tree ``{"params": ...}`` as ``flax.serialization.to_bytes`` writes
+    it, which the JAX package's ``__lo_load__`` reads."""
+    config = {k: getattr(model, k) for k in model._CONFIG_KEYS}
+    config.update(name=model.name, optimizer_spec=model.optimizer_spec,
+                  seed=model.seed, history=model.history,
+                  built=model.module is not None)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(config, f)
+    if model.module is not None:
+        ckpt_lib.save_pytree(
+            {"params": weights_lib.params_to_flax(model.module.state_dict())},
+            os.path.join(path, "weights.msgpack"))
+
+
+def load_native(cls, path: str, device):
+    """The model of a ``config.json`` and its weights: the flax tree of
+    ``weights.msgpack`` (keys must match the model's), or the
+    ``torch.save``d ``state_dict`` of a ``weights.pt`` that the port
+    wrote before it wrote msgpack. Config values the port does not run
+    raise here, as they do at construction."""
+    with open(os.path.join(path, "config.json")) as f:
+        config = json.load(f)
+    model = cls(**{k: config[k] for k in cls._CONFIG_KEYS if k in config},
+                name=config["name"], device=device)
+    # artifacts written before training was ported lack these three
+    model.optimizer_spec = config.get("optimizer_spec",
+                                      model.optimizer_spec)
+    model.seed = config.get("seed", model.seed)
+    model.history = config.get("history", model.history)
+    if not config["built"]:
         return model
+    msgpack_path = os.path.join(path, "weights.msgpack")
+    if os.path.exists(msgpack_path):
+        target = {"params": weights_lib.params_to_flax(
+            model._new_module().state_dict(), leaf=lambda t, _: t)}
+        tree = ckpt_lib.load_pytree(msgpack_path, target)["params"]
+        state = weights_lib.params_from_flax(tree)
+    else:
+        state = torch.load(os.path.join(path, "weights.pt"),
+                           map_location="cpu", weights_only=True)
+    model.set_params(state)
+    return model

@@ -5,12 +5,14 @@ The flax tree of ``LanguageModel.params`` (nested dicts of arrays) and
 the port's module share their names: ``layer_0/attn/q_proj/kernel`` is
 ``layer_0.attn.q_proj.weight``. A flax ``kernel`` is ``(in, out)`` and a
 ``torch.nn.Linear.weight`` is ``(out, in)``, so kernels are transposed;
-``embed/embedding`` and the norms' ``scale`` carry over as they are.
+``embed/embedding``, the norms' ``scale``, a Dense ``bias`` (the
+classifier's ``cls_head``) and the LoRA adapters ``lora_a`` ``(in,
+rank)`` and ``lora_b`` ``(rank, out)`` carry over as they are.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,60 +31,115 @@ def _flatten(tree, prefix=()):
             yield path, value
 
 
+_AS_IS = ("scale", "bias", "lora_a", "lora_b")
+
+
+def flax_path(key: str) -> Tuple[Tuple[str, ...], bool]:
+    """The flax path of ``state_dict`` key ``key`` and whether its value
+    is stored transposed there."""
+    *mods, name = key.split(".")
+    if name in _AS_IS:
+        return tuple(mods) + (name,), False
+    if name == "weight" and mods and mods[-1] == "embed":
+        return tuple(mods) + ("embedding",), False
+    if name == "weight":
+        return tuple(mods) + ("kernel",), True
+    raise ValueError(f"unexpected parameter {key}")
+
+
 def params_from_flax(tree) -> Dict[str, torch.Tensor]:
-    """The port's ``state_dict`` for a flax ``LanguageModel.params``
-    tree given as nested dicts of numpy (or array-like) values."""
+    """The port's ``state_dict`` for a flax ``LanguageModel.params`` (or
+    ``TextClassifier.params``) tree given as nested dicts of numpy (or
+    array-like, or torch) values."""
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(tree):
         *mods, leaf = path
-        arr = np.asarray(value)
         if leaf == "kernel":
-            if arr.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: expected a 2-D kernel,"
-                                 f" got shape {arr.shape}")
-            name, arr = "weight", arr.T
+            name = "weight"
         elif leaf == "embedding":
             name = "weight"
-        elif leaf == "scale":
-            name = "scale"
+        elif leaf in _AS_IS:
+            name = leaf
         else:
             raise ValueError(f"parameter {'/'.join(path)} has no "
                              f"counterpart in the PyTorch package yet")
-        out[".".join(mods + [name])] = torch.from_numpy(
-            np.ascontiguousarray(arr))
+        t = value if isinstance(value, torch.Tensor) else \
+            torch.from_numpy(np.array(value))
+        if leaf == "kernel":
+            if t.ndim != 2:
+                raise ValueError(f"{'/'.join(path)}: expected a 2-D kernel,"
+                                 f" got shape {tuple(t.shape)}")
+            t = t.t()
+        out[".".join(mods + [name])] = t.contiguous()
     return out
 
 
-def params_to_flax(state_dict) -> Dict[str, Any]:
-    """Inverse of :func:`params_from_flax`: nested dicts of numpy
-    arrays in the flax layout."""
+def _host(tensor: torch.Tensor, transposed: bool) -> np.ndarray:
+    arr = tensor.detach().cpu().numpy()
+    return np.ascontiguousarray(arr.T) if transposed else arr
+
+
+def params_to_flax(state_dict, leaf: Optional[Callable] = None
+                   ) -> Dict[str, Any]:
+    """Inverse of :func:`params_from_flax`: nested dicts in the flax
+    layout, of numpy arrays (or of ``leaf(tensor, transposed)``)."""
+    leaf = leaf or _host
     tree: Dict[str, Any] = {}
     for key, tensor in state_dict.items():
-        *mods, name = key.split(".")
-        arr = tensor.detach().cpu().numpy()
-        if name == "scale":
-            leaf = "scale"
-        elif name == "weight" and mods[-1] == "embed":
-            leaf = "embedding"
-        elif name == "weight":
-            leaf, arr = "kernel", np.ascontiguousarray(arr.T)
-        else:
-            raise ValueError(f"unexpected parameter {key}")
+        path, transposed = flax_path(key)
         node = tree
-        for mod in mods:
+        for mod in path[:-1]:
             node = node.setdefault(mod, {})
-        node[leaf] = arr
+        node[path[-1]] = leaf(tensor, transposed)
     return tree
+
+
+def _lecun_normal(rng, fan_in: int, fan_out: int) -> np.ndarray:
+    """flax's ``lecun_normal``: a normal truncated to [-2, 2] by
+    redrawing what falls outside, scaled by 1/0.8796..., the standard
+    deviation of that cut, to variance 1/fan_in."""
+    x = rng.standard_normal((fan_in, fan_out), dtype=np.float32)
+    out = np.abs(x) > 2.0
+    while out.any():
+        x[out] = rng.standard_normal(int(out.sum()), dtype=np.float32)
+        out = np.abs(x) > 2.0
+    return x * np.float32(1.0 / np.sqrt(fan_in) / _TRUNCATED_STD)
+
+
+def lora_adapters(config: Dict[str, Any], seed: int,
+                  rank: int) -> Dict[str, torch.Tensor]:
+    """Fresh rank-``rank`` adapters of every attention projection, as
+    ``state_dict`` entries: ``lora_a`` from ``lecun_normal``, ``lora_b``
+    at zero (so the adapted model starts as the base), drawn with numpy
+    from ``seed``."""
+    rng = np.random.default_rng([seed, 1])
+    d = int(config["d_model"])
+    heads = int(config["n_heads"])
+    kv = int(config.get("n_kv_heads") or 0) or heads
+    hd = d // heads
+    widths = {"q_proj": (d, heads * hd), "k_proj": (d, kv * hd),
+              "v_proj": (d, kv * hd), "o_proj": (heads * hd, d)}
+    out: Dict[str, torch.Tensor] = {}
+    for i in range(int(config["n_layers"])):
+        for proj, (fan_in, fan_out) in widths.items():
+            key = f"layer_{i}.attn.{proj}"
+            out[f"{key}.lora_a"] = torch.from_numpy(
+                _lecun_normal(rng, fan_in, rank))
+            out[f"{key}.lora_b"] = torch.zeros(rank, fan_out)
+    return out
 
 
 def init_params(config: Dict[str, Any], seed: int) -> Dict[str, Any]:
     """A full random flax-layout tree for a ``LanguageModel`` config
     (its ``vocab_size``, ``d_model``, ``n_layers``, ``n_heads``,
-    ``n_kv_heads``, ``d_ff``), made with numpy from ``seed`` with flax's
+    ``n_kv_heads``, ``d_ff``, ``lora_rank``) or, where the config has
+    ``n_classes``, a ``TextClassifier``'s (a ``cls_head`` with bias in
+    place of ``lm_head``), made with numpy from ``seed`` with flax's
     initializers: Dense kernels from ``lecun_normal`` (a normal cut at
     two standard deviations and rescaled to variance 1/fan_in), the
     embedding from ``default_embed_init`` (a plain normal, variance
-    1/d_model), norm scales at one."""
+    1/d_model), norm scales at one, biases at zero; adapters as
+    :func:`lora_adapters` makes them."""
     rng = np.random.default_rng(seed)
     vocab = int(config["vocab_size"])
     d = int(config["d_model"])
@@ -96,15 +153,7 @@ def init_params(config: Dict[str, Any], seed: int) -> Dict[str, Any]:
                 / np.float32(np.sqrt(fan_in)))
 
     def dense(fan_in: int, fan_out: int):
-        # truncated to [-2, 2] by redrawing what falls outside, then
-        # scaled by 1/0.8796..., the standard deviation of that cut
-        x = rng.standard_normal((fan_in, fan_out), dtype=np.float32)
-        out = np.abs(x) > 2.0
-        while out.any():
-            x[out] = rng.standard_normal(int(out.sum()), dtype=np.float32)
-            out = np.abs(x) > 2.0
-        return {"kernel": x * np.float32(
-            1.0 / np.sqrt(fan_in) / _TRUNCATED_STD)}
+        return {"kernel": _lecun_normal(rng, fan_in, fan_out)}
 
     def ones():
         return {"scale": np.ones((d,), np.float32)}
@@ -122,5 +171,18 @@ def init_params(config: Dict[str, Any], seed: int) -> Dict[str, Any]:
                     "down_proj": dense(d_ff, d)},
         }
     tree["final_norm"] = ones()
+    if "n_classes" in config:
+        n_classes = int(config["n_classes"])
+        tree["cls_head"] = dict(dense(d, n_classes),
+                                bias=np.zeros((n_classes,), np.float32))
+        return tree
     tree["lm_head"] = dense(d, vocab)
+    rank = int(config.get("lora_rank") or 0)
+    if rank > 0:
+        for key, value in lora_adapters(config, seed, rank).items():
+            path, _ = flax_path(key)
+            node = tree
+            for mod in path[:-1]:
+                node = node[mod]
+            node[path[-1]] = value.numpy()
     return tree

@@ -14,6 +14,20 @@ and ``loss_fn(outputs, batch, weights) -> loss`` (or ``(loss,
 {metric: (sum, count)})`` for metrics the loss already computed), as in
 the JAX package. ``rng`` is an integer seed for the step's random draws
 (dropout), derived from the fit's seed, the step and the micro-batch.
+Only params with ``requires_grad`` get gradients (a LoRA fine-tune
+freezes its base weights).
+
+With a checkpointer, ``fit`` follows the JAX package's per-step path:
+it restores the newest verified step before training, treats
+``epochs`` as the total budget on a real resume (the epochs done come
+from the checkpointer's ``progress.json`` when it describes the restored
+step, else from the step count), and saves the train state after every
+epoch. The saved form is ``{"step", "params", "opt_state"}`` with the
+params (and every per-param optimizer slot) in the model's layout
+(``param_layout``: the flax tree for the port's models). Because the
+shuffle is ``default_rng(seed + epoch)``, dropout draws from ``(seed,
+step, micro)`` and the optimizer's count is saved, a resumed fit equals
+an uninterrupted one bit for bit.
 """
 
 from __future__ import annotations
@@ -21,6 +35,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -66,6 +81,42 @@ def _total(weights: Optional[torch.Tensor]) -> torch.Tensor:
     return weights.sum().float()
 
 
+def _weighted_mean(values: torch.Tensor,
+                   weights: Optional[torch.Tensor]) -> torch.Tensor:
+    values = values.float()
+    if weights is None:
+        return values.mean()
+    weights = weights.float()
+    return (values * weights).sum() / weights.sum().clamp_min(1e-9)
+
+
+def sparse_softmax_loss(outputs, batch, weights):
+    """Softmax cross-entropy of float32 logits against integer labels
+    ``batch["y"]``, the weighted mean over samples."""
+    losses = torch.nn.functional.cross_entropy(
+        outputs.float(), batch["y"].long(), reduction="none")
+    return _weighted_mean(losses, weights)
+
+
+def accuracy_metric(outputs, batch, weights):
+    """(correct, count): argmax of a multi-class head, or a single
+    logit thresholded at 0, against ``batch["y"]``."""
+    logits = outputs.float()
+    y = batch["y"]
+    if logits.ndim >= 2 and logits.shape[-1] > 1:
+        pred = logits.argmax(dim=-1).float()
+    else:
+        if logits.ndim == y.ndim + 1:
+            logits = logits[..., 0]
+        pred = (logits > 0).float()
+    correct = (pred == y.float()).float()
+    if weights is None:
+        return correct.sum(), torch.tensor(float(correct.numel()),
+                                           device=correct.device)
+    w = weights.float()
+    return (correct * w).sum(), w.sum()
+
+
 def _step_seed(seed: int, step: int, micro: int) -> int:
     """The random stream of one micro-batch of one step: the port's
     counterpart of ``fold_in(fold_in(PRNGKey(seed), step), micro)``."""
@@ -84,7 +135,13 @@ class Engine:
                  metrics: Optional[Dict[str, Callable]] = None,
                  compute_dtype: torch.dtype = torch.bfloat16,
                  predict_transform: Optional[Callable] = None,
-                 grad_accum: int = 1):
+                 grad_accum: int = 1,
+                 param_layout: Optional[Tuple[Callable, Callable]] = None):
+        """``param_layout`` is ``(to_tree(params, leaf), path(name))``:
+        the saved layout of a dict of params (``leaf(tensor,
+        transposed)`` makes each value) and the saved path of one
+        param with whether it is stored transposed; by default the
+        params are saved by name as they are."""
         self._apply_fn = apply_fn
         self._loss_fn = loss_fn
         self._optimizer = optimizer
@@ -92,6 +149,7 @@ class Engine:
         self._compute_dtype = compute_dtype
         self._predict_transform = predict_transform
         self._grad_accum = max(1, int(grad_accum))
+        self._layout = param_layout
 
     def init_state(self, params: Params) -> TrainState:
         return TrainState(step=0, params=params,
@@ -135,11 +193,12 @@ class Engine:
     def _micro_grads(self, params: Params, batch, rng: int,
                      ) -> Tuple[Params, Metrics]:
         """Gradients and metric sums for one (micro)batch."""
+        names = [k for k, p in params.items() if p.requires_grad]
         with torch.enable_grad():
             loss, outputs, extra = self._loss(self._cast(params), batch,
                                               True, rng)
-            grads = torch.autograd.grad(loss, list(params.values()))
-        return (dict(zip(params, grads)),
+            grads = torch.autograd.grad(loss, [params[k] for k in names])
+        return (dict(zip(names, grads)),
                 self._metric_sums(loss, outputs, extra, batch))
 
     def _accum_grads(self, params: Params, batch, seed: int, step: int,
@@ -186,14 +245,111 @@ class Engine:
         return metrics
 
     # ------------------------------------------------------------------
+    # checkpoints
+    # ------------------------------------------------------------------
+    def _tree(self, params: Params, leaf: Callable) -> Any:
+        if self._layout is None:
+            return {k: leaf(v, False) for k, v in params.items()}
+        return self._layout[0](params, leaf)
+
+    def _saved_form(self, state: TrainState, leaf: Callable) -> Dict[str, Any]:
+        """``{"step", "params", "opt_state"}`` in the saved layout; an
+        optimizer slot keyed by param names takes the params' layout."""
+        opt = {}
+        for key, value in state.opt_state.items():
+            if isinstance(value, dict):
+                opt[key] = self._tree(value, leaf)
+            else:
+                opt[key] = np.int64(value)
+        return {"step": np.int64(state.step),
+                "params": self._tree(state.params, leaf),
+                "opt_state": opt}
+
+    def _save_checkpoint(self, checkpointer, state: TrainState,
+                         epoch: int) -> None:
+        saved = self._saved_form(
+            state, lambda t, transposed: (t.detach().t() if transposed
+                                          else t.detach()))
+        checkpointer.save(int(state.step), saved)
+        # the sidecar names the step it describes: resume trusts it only
+        # when that step is the one restored
+        if hasattr(checkpointer, "save_meta"):
+            checkpointer.save_meta({"step": int(state.step),
+                                    "epochs_done": epoch + 1})
+
+    def _load_saved(self, state: TrainState, raw: Dict[str, Any]) -> None:
+        """Copies a restored saved form into ``state`` in place."""
+
+        def fill(live: Params, tree: Any) -> None:
+            for name, t in live.items():
+                if self._layout is None:
+                    path, transposed = (name,), False
+                else:
+                    path, transposed = self._layout[1](name)
+                node = tree
+                for part in path:
+                    node = node[part]
+                value = node.T if transposed else node
+                with warnings.catch_warnings():
+                    # the codec's arrays view the file's bytes (read-only)
+                    warnings.simplefilter("ignore", UserWarning)
+                    src = torch.as_tensor(value) if not isinstance(
+                        value, torch.Tensor) else value
+                with torch.no_grad():
+                    t.copy_(src)
+
+        fill(state.params, raw["params"])
+        for key, value in state.opt_state.items():
+            if isinstance(value, dict):
+                fill(value, raw["opt_state"][key])
+            else:
+                state.opt_state[key] = int(raw["opt_state"][key])
+        state.step = int(raw["step"])
+
+    def _maybe_restore(self, state: TrainState, checkpointer) -> bool:
+        """Restores the newest verified checkpoint into ``state``; True
+        on a real resume. A checkpoint of another layout raises: the
+        JAX package's params-only migration is not ported."""
+        if checkpointer is None or checkpointer.latest_step() is None:
+            return False
+        target = self._saved_form(state, lambda t, transposed: torch.empty(
+            tuple(t.shape[::-1]) if transposed else tuple(t.shape),
+            device="meta"))
+        try:
+            raw = checkpointer.restore(target)
+        except (ValueError, KeyError, TypeError) as exc:
+            raise ValueError(
+                f"the checkpoint's state layout differs from the live "
+                f"train state ({type(exc).__name__}: {exc}); resuming its "
+                f"params alone (the params-only migration) is not yet "
+                f"ported to the PyTorch package") from exc
+        if raw is None:
+            return False
+        self._load_saved(state, raw)
+        return True
+
+    # ------------------------------------------------------------------
     def fit(self, state: TrainState, batcher: ArrayBatcher,
-            epochs: int = 1, seed: int = 0,
+            epochs: int = 1, seed: int = 0, checkpointer=None,
             log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
             ) -> Tuple[TrainState, List[Dict[str, Any]]]:
-        """Train ``epochs`` over ``batcher`` one step per batch."""
+        """Train ``epochs`` over ``batcher`` one step per batch (the
+        total budget on a resume from ``checkpointer``)."""
         device = next(iter(state.params.values())).device
         history: List[Dict[str, Any]] = []
-        for epoch in range(epochs):
+        start_epoch = 0
+        if self._maybe_restore(state, checkpointer):
+            meta = (checkpointer.load_meta()
+                    if hasattr(checkpointer, "load_meta") else None)
+            if meta and "epochs_done" in meta and \
+                    int(meta.get("step", -1)) == state.step:
+                start_epoch = min(epochs, int(meta["epochs_done"]))
+            else:
+                start_epoch = min(
+                    epochs, state.step // max(1, batcher.steps_per_epoch))
+            if start_epoch >= epochs:
+                return state, []
+        for epoch in range(start_epoch, epochs):
             t0 = time.perf_counter()
             sums: Dict[str, torch.Tensor] = {}
             counts: Dict[str, torch.Tensor] = {}
@@ -212,8 +368,13 @@ class Engine:
                           samplesPerSecond=round(batcher.num_samples / dt,
                                                  2))
             history.append(record)
+            if checkpointer is not None:
+                self._save_checkpoint(checkpointer, state, epoch)
             if log_fn is not None:
                 log_fn(record)
+        if checkpointer is not None and \
+                hasattr(checkpointer, "wait_until_finished"):
+            checkpointer.wait_until_finished()
         return state, history
 
     @torch.inference_mode()

@@ -12,19 +12,32 @@ and predict the method's result, with a JSON view of it appended as a
 streams each epoch's record into the job's documents. PATCH re-runs a
 finished execution with new parameters.
 
+``"checkpoint": true`` in a train execution's ``methodParameters``
+checkpoints the fit after every epoch under
+``<home>/checkpoints/<name>`` (:class:`~learningorchestra_tpu_torch.
+runtime.checkpoint.Checkpointer`); a PATCH re-run of the same execution
+resumes from its newest verified step, and DELETE removes the directory.
+The commits' seconds go to the metadata as ``checkpointCommitSeconds``
+(their sum, the JAX package's key) and ``checkpointCommits`` (each
+commit's step, seconds and bytes), a resume's as ``checkpointRestores``
+(step and seconds).
+
 Refused with 406 before any document exists, because the port does not
-run them yet: the method parameter ``checkpoint``, ``#`` expressions,
-and the body fields ``timeout``, ``sliceDevices`` and ``healthPolicy``.
+run them yet: ``#`` expressions, ``num_beams`` other than 1, and the
+body fields ``timeout``, ``sliceDevices`` and ``healthPolicy``.
 """
 
 from __future__ import annotations
 
 import inspect
+import os
+import shutil
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
 from learningorchestra_tpu_torch.catalog import documents as D
+from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
 from learningorchestra_tpu_torch.services import validators as V
 from learningorchestra_tpu_torch.services.params import \
     refuse_hash_expressions
@@ -47,9 +60,6 @@ def _refuse_unported(body: Dict[str, Any],
     for field in _UNPORTED_FIELDS:
         if body.get(field) is not None:
             raise V.not_ported(f"the {field} field")
-    if method_parameters.get("checkpoint"):
-        # the port's fit would train with no checkpoint and finish
-        raise V.not_ported("checkpoint (fit checkpoints and resume)")
     if method_parameters.get("num_beams", 1) != 1:
         # generate would take the request and raise in the job
         raise V.not_ported("num_beams other than 1 (beam search)")
@@ -137,6 +147,10 @@ class ExecutionService:
         meta = self._validator.existing(name)
         self._ctx.catalog.delete_collection(name)
         self._ctx.artifacts.delete(name, meta.get(D.TYPE_FIELD))
+        # a stale checkpoint dir would make a later execution of this
+        # name resume from the deleted run
+        shutil.rmtree(checkpoint_dir_for(self._ctx, name),
+                      ignore_errors=True)
         return V.HTTP_SUCCESS, {"result": f"deleted {name}"}
 
     # ------------------------------------------------------------------
@@ -147,8 +161,20 @@ class ExecutionService:
             parent_type = self._ctx.params.artifact_type(parent_name)
             instance = self._ctx.artifacts.load(parent_name, parent_type)
             treated = self._ctx.params.treat(method_parameters)
+            ckpt = _prepare_checkpointer(self._ctx, name, type_string,
+                                         treated)
             _inject_epoch_log(self._ctx, name, instance, method, treated)
-            result = getattr(instance, method)(**treated)
+            try:
+                result = getattr(instance, method)(**treated)
+            finally:
+                if ckpt is not None:
+                    ckpt.close()
+            if ckpt is not None and (ckpt.commits or ckpt.restores):
+                self._ctx.catalog.update_metadata(name, {
+                    "checkpointCommitSeconds": sum(
+                        c["seconds"] for c in ckpt.commits),
+                    "checkpointCommits": ckpt.commits,
+                    "checkpointRestores": ckpt.restores})
             if type_string.startswith(_INSTANCE_RESULT_PREFIXES):
                 result = instance  # the fitted object is the artifact
             self._ctx.artifacts.save(result, name, type_string)
@@ -159,6 +185,25 @@ class ExecutionService:
 
         self._ctx.jobs.submit(name, run, description=description,
                               parameters=method_parameters, needs_card=True)
+
+
+def checkpoint_dir_for(ctx, name: str) -> str:
+    return os.path.join(ctx.config.checkpoints_dir, name)
+
+
+def _prepare_checkpointer(ctx, name: str, type_string: str,
+                          treated: Dict[str, Any]):
+    """``"checkpoint": true`` in a train execution's parameters becomes
+    a :class:`Checkpointer` under the execution's name, passed to the
+    method as ``checkpointer``; the engine restores before training, so
+    a PATCH re-run resumes. Train executions only: the trials of a tune
+    would collide in one directory."""
+    enabled = treated.pop("checkpoint", False)
+    if not type_string.startswith("train/") or not enabled:
+        return None
+    ckpt = Checkpointer(checkpoint_dir_for(ctx, name))
+    treated["checkpointer"] = ckpt
+    return ckpt
 
 
 def _inject_epoch_log(ctx, name: str, instance: Any, method: str,

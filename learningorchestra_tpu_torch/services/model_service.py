@@ -7,9 +7,11 @@ JAX package's ``services/model_service.py`` does.
 thread; a job then resolves the ``$`` parameters and builds the
 instance on the context's device (``device=ctx.device`` for a class
 that takes a device, as the port's models do and the JAX ones do not).
-``PATCH`` rebuilds it with new ``classParameters``. The JAX package's
-preflight analysis is not ported, so the metadata carries no
-``analysis`` field.
+``PATCH`` rebuilds it with new ``classParameters``. Constructor options
+the JAX models take and the port does not run yet (MoE, fused
+projections, remat, ring and Ulysses attention) answer 406 "not yet
+ported" before any document exists. The JAX package's preflight
+analysis is not ported, so the metadata carries no ``analysis`` field.
 """
 
 from __future__ import annotations
@@ -27,6 +29,29 @@ DESCRIPTION_FIELD = "description"
 MODULE_PATH_FIELD = "modulePath"
 CLASS_FIELD = "class"
 CLASS_PARAMETERS_FIELD = "classParameters"
+
+# constructor options of the JAX package's models that the port does not
+# run yet: class -> (keyword, refused value, what the 406 names)
+_UNPORTED_OPTIONS = {
+    "LanguageModel": (
+        ("n_experts", lambda v: v not in (0, None), "n_experts other than "
+                                                    "0 (MoE)"),
+        ("fused_proj", bool, "fused_proj (fused projections)"),
+        ("remat", lambda v: v in ("dots", "full"), "remat 'dots' and "
+                                                   "'full'"),
+        ("attention", lambda v: v in ("ring", "ulysses"),
+         "ring and Ulysses attention")),
+}
+
+
+def _refuse_unported_options(cls, parameters: Dict[str, Any]) -> None:
+    for key, refused, what in _UNPORTED_OPTIONS.get(
+            getattr(cls, "__name__", ""), ()):
+        value = parameters.get(key)
+        if isinstance(value, str) and value.startswith("$"):
+            continue  # resolved in the job
+        if key in parameters and refused(value):
+            raise V.not_ported(what)
 
 
 class ModelService:
@@ -48,6 +73,7 @@ class ModelService:
         cls = self._validator.valid_class(module_path, class_name)
         self._validator.valid_class_parameters(cls, class_parameters)
         refuse_hash_expressions(class_parameters)
+        _refuse_unported_options(cls, class_parameters)
         type_string = D.normalize_type(f"model/{tool}")
         self._ctx.catalog.create_collection(name, type_string, {
             D.MODULE_PATH_FIELD: module_path,
@@ -69,6 +95,7 @@ class ModelService:
             meta[D.MODULE_PATH_FIELD], meta[D.CLASS_FIELD])
         self._validator.valid_class_parameters(cls, class_parameters)
         refuse_hash_expressions(class_parameters)
+        _refuse_unported_options(cls, class_parameters)
         self._ctx.catalog.update_metadata(
             name, {D.CLASS_PARAMETERS_FIELD: class_parameters,
                    D.FINISHED_FIELD: False})

@@ -140,6 +140,15 @@ PORT_MODULES = {
 }
 # keyword arguments the services supply themselves, never the request
 _SERVICE_KWARGS = ("device",)
+# classes of learningorchestra_tpu.models and public methods of its
+# models that the port does not have yet: a static copy, since the port
+# never imports the JAX package
+JAX_ONLY_CLASSES = ("NeuralModel", "GridSearch", "RandomSearch")
+JAX_ONLY_METHODS = {
+    "LanguageModel": ("set_mesh", "serve_fns_paged", "serve_cache_paged",
+                      "serve_fns_spec", "serve_fns_draft"),
+    "TextClassifier": ("set_mesh",),
+}
 
 
 def resolve_module(module_path: str):
@@ -209,6 +218,10 @@ class RequestValidator:
     def valid_class(self, module_path: str, class_name: str):
         module = self.valid_module(module_path)
         cls = getattr(module, class_name, None)
+        if cls is None and class_name in JAX_ONLY_CLASSES:
+            raise HttpError(HTTP_NOT_ACCEPTABLE,
+                            f"{MESSAGE_INVALID_CLASS}: {class_name} "
+                            f"{NOT_PORTED}")
         if cls is None:
             raise HttpError(HTTP_NOT_ACCEPTABLE,
                             f"{MESSAGE_INVALID_CLASS}: {class_name}")
@@ -223,6 +236,11 @@ class RequestValidator:
 
     def valid_method(self, target, method_name: str):
         method = getattr(target, method_name, None)
+        if method is None and method_name in JAX_ONLY_METHODS.get(
+                getattr(target, "__name__", ""), ()):
+            raise HttpError(HTTP_NOT_ACCEPTABLE,
+                            f"{MESSAGE_INVALID_METHOD}: {method_name} "
+                            f"{NOT_PORTED}")
         if method is None or not callable(method):
             raise HttpError(HTTP_NOT_ACCEPTABLE,
                             f"{MESSAGE_INVALID_METHOD}: {method_name}")

@@ -65,13 +65,13 @@ INSTANCES = {"d64": "kernelIfLi64ELb1E", "d64narrow": "kernelIfLi64ELb0E",
              "w16bf16": "kernelI13__nv_bfloat16Li16ELb0E"}
 KERNELS = {
     "flash_fwd_tf32x3": (
-        ("static constexpr int kN = 32;",
-         "static constexpr int kMinBlocks = DMAX == 128 ? 1 : 3;"),
+        ("static constexpr int kN = DMAX == 128 ? 32 : 64;",
+         "static constexpr int kMinBlocks = 1;"),
         ("static constexpr int kN = DMAX == 128 ? 32 : {rows};",
          "static constexpr int kMinBlocks = DMAX == 128 ? 1 : {blocks};"),
-        [("n32b3", 32, 3), ("narrow", 32, 3, NARROW), ("n32", 32, 1),
-         ("n64", 64, 1), ("n64b3", 64, 3), ("n16", 16, 1), ("n32b2", 32, 2),
-         ("n32b4", 32, 4), ("n16b3", 16, 3)],
+        [("n64", 64, 1), ("narrow", 64, 1, NARROW), ("n32", 32, 1),
+         ("n64b2", 64, 2), ("n32b3", 32, 3), ("n16", 16, 1), ("n32b2", 32, 2),
+         ("n16b3", 16, 3)],
         (TRAIN_SHAPE, SERVE_SHAPE, D12_SHAPE, D12_BF16_SHAPE)),
     "flash_bwd_dkv_tf32x3": (
         ("static constexpr int kM = DMAX == 16 ? 64 : 32;",

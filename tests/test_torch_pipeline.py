@@ -206,8 +206,22 @@ def test_failed_job_is_recorded_as_jax(both):
 # what is not ported yet
 # ----------------------------------------------------------------------
 NOT_PORTED = {
-    "checkpoint": ("POST", "/train/tensorflow", _run(
-        params={"x": "$corpus", "checkpoint": True})),
+    "n_experts": ("POST", "/model/tensorflow", _model(
+        classParameters=dict(CFG, n_experts=4))),
+    "fused_proj": ("POST", "/model/tensorflow", _model(
+        classParameters=dict(CFG, fused_proj=True))),
+    "remat dots": ("POST", "/model/tensorflow", _model(
+        classParameters=dict(CFG, remat="dots"))),
+    "remat full": ("POST", "/model/tensorflow", _model(
+        classParameters=dict(CFG, remat="full"))),
+    "NeuralModel": ("POST", "/model/tensorflow", _model(
+        **{"class": "NeuralModel"}, classParameters={})),
+    "GridSearch": ("POST", "/model/tensorflow", _model(
+        **{"class": "GridSearch"}, classParameters={})),
+    "RandomSearch": ("POST", "/model/tensorflow", _model(
+        **{"class": "RandomSearch"}, classParameters={})),
+    "a JAX method": ("POST", "/train/tensorflow", _run(
+        method="serve_fns_paged")),
     "num_beams": ("POST", "/predict/tensorflow", _run(
         method="generate", params={"prompt": [[1, 2]], "num_beams": 2})),
     "timeout": ("POST", "/train/tensorflow", _run(timeout=5)),

@@ -35,6 +35,7 @@ from learningorchestra_tpu_torch.catalog import ArtifactStore
 from learningorchestra_tpu_torch.models import neural, weights
 from learningorchestra_tpu_torch.models import transformer as tlm
 from learningorchestra_tpu_torch.runtime import data, engine
+from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
 
 # tiny shapes: two intra-op threads are as fast as all cores and leave
 # the rest to the other test workers
@@ -353,13 +354,20 @@ def test_fit_from_scratch_shuffled_with_validation(compute_dtype):
     assert hist["loss"][1] < hist["loss"][0]
 
 
-def test_fit_rejects_bad_input(tree):
+def test_fit_rejects_bad_input(tree, tmp_path):
     lm = _port_lm(tree)
     for bad in (np.full((2, 8), 64), np.full((2, 8), -1)):
         with pytest.raises(ValueError, match=r"in \[0, 64\)"):
             lm.fit(bad, batch_size=2)
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        lm.fit(_stream(2), batch_size=2, checkpointer=object())
+    # a checkpoint of another model's layout: resuming its params alone
+    # (the JAX package's params-only migration) is not ported
+    other = tlm.LanguageModel(**{**CFG, "d_model": 16}, device="cpu")
+    other.fit(_stream(2), batch_size=2,
+              checkpointer=Checkpointer(str(tmp_path / "ck")))
+    with pytest.raises(ValueError, match="params-only migration.*not yet "
+                                         "ported"):
+        lm.fit(_stream(2), batch_size=2,
+               checkpointer=Checkpointer(str(tmp_path / "ck")))
     with pytest.raises(ValueError, match="validation_split"):
         lm.fit(_stream(4), batch_size=2, validation_split=1.5)
 
