@@ -31,6 +31,17 @@
    then warm), float32: every prefill layer runs flash_fwd_tf32x3 and
    nothing else. Each stream must equal the port's solo ``generate``;
    the prefill logits through the kernel must agree with the dense path.
+   Paged path (the ``paged`` line): the same prompts through ``kv:
+   "paged"`` (16-token pages, the pool at the slot cache's bytes: 513
+   pages) must give the slot session's and solo ``generate``'s tokens
+   with 8 flash_fwd_tf32x3 launches a prefill; the 1500-token prompt
+   again is a prefix hit with no launch, a prompt sharing 1024 tokens
+   reuses 64 pages; 16 streams of 64-448 prompt tokens decode at once on
+   the same 513 pages; int8 KV with int8 weights must stamp a drift of at
+   most 0.05, fp8 weights are measured (and degrade at create where their
+   drift is over it), and a drift max of 1e-9 must degrade a session to
+   exact, which then answers the exact tokens; a profiled paged decode
+   step beside the serving phase's slot one.
 4. Training path: ``LanguageModel.fit`` of the same LM from
    ``init_params(seed 0)`` on 64 windows of 2048 tokens of a
    cyclic-successor stream, batch 16, 2 epochs, grad_accum 2, bf16
@@ -774,9 +785,72 @@ def _http(base, method, path, body=None):
         return err.code, json.loads(err.read())
 
 
-def slice_phase(torch, log, home):
+def _predict_round(base, model: str, prompts, new: int = NEW_TOKENS):
+    """``len(prompts)`` concurrent greedy predicts of ``new`` tokens on
+    session ``model``: ``(results, client walls, round wall)``, each
+    result ``(status, body)``."""
+    out = [None] * len(prompts)
+    walls = [0.0] * len(prompts)
+
+    def client(i):
+        c0 = time.monotonic()
+        out[i] = _http(base, "POST", f"/serve/{model}/predict",
+                       {"prompt": prompts[i], "maxNewTokens": new})
+        walls[i] = time.monotonic() - c0
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    return out, walls, time.monotonic() - t0
+
+
+def _round_tokens(name: str, out, new: int = NEW_TOKENS) -> list:
+    """The tokens of a round's results; raises on a failed predict or a
+    token outside the vocabulary."""
+    tokens = []
+    for i, result in enumerate(out):
+        if result is None or result[0] != 200:
+            raise AssertionError(f"{name} predict {i}: {result}")
+        got = result[1]["tokens"]
+        if len(got) != new or not all(
+                0 < t < LM_CONFIG["vocab_size"] for t in got):
+            raise AssertionError(f"{name} predict {i}: bad tokens {got}")
+        tokens.append(got)
+    return tokens
+
+
+def _round_rates(out, walls, new: int = NEW_TOKENS) -> dict:
+    """Decode tokens/s of a round (every stream's tokens after the first
+    over the longest decode) and its TTFT as each client saw it: the
+    request's wall less the decode after the first token."""
+    decode_s = max(r[1]["decodeSeconds"] for r in out)
+    ttft_ms = sorted((w - r[1]["decodeSeconds"]) * 1e3
+                     for w, r in zip(walls, out))
+    return {"clientTtftMs": {"p50": ttft_ms[(len(ttft_ms) - 1) // 2],
+                             "max": ttft_ms[-1], "all": ttft_ms},
+            "maxDecodeSeconds": decode_s,
+            "decodeTokensPerSec": len(out) * (new - 1) / decode_s}
+
+
+def _diverges(name: str, tokens, want) -> None:
+    for i, (got, ref) in enumerate(zip(tokens, want)):
+        ref = [int(t) for t in ref]
+        if got != ref:
+            first = next(j for j, (a, b) in enumerate(zip(got, ref))
+                         if a != b)
+            raise AssertionError(f"{name} predict {i} diverges from "
+                                 f"solo generate at token {first}")
+
+
+def slice_phase(torch, log, home, yard):
     """REST create -> 4 concurrent predicts -> stats -> delete. Returns
-    the kernel launches of the serving path."""
+    the kernel launches of the serving path; leaves the prompts, the
+    solo ``generate`` tokens and the slot session's tokens in ``yard``
+    for the paged phase."""
     import numpy as np
 
     from learningorchestra_tpu_torch.config import Config
@@ -808,25 +882,8 @@ def slice_phase(torch, log, home):
         # round 1 pays first use on the session's worker thread (library
         # handles, first launches); round 2 sends the same requests warm
         for name in ("cold", "warm"):
-            out = [None] * len(prompts)
-            walls = [0.0] * len(prompts)
-
-            def client(i):
-                c0 = time.monotonic()
-                out[i] = _http(server.base_url, "POST",
-                               "/serve/lm/predict",
-                               {"prompt": prompts[i],
-                                "maxNewTokens": NEW_TOKENS})
-                walls[i] = time.monotonic() - c0
-
-            t0 = time.monotonic()
-            threads = [threading.Thread(target=client, args=(i,))
-                       for i in range(len(prompts))]
-            for t in threads:
-                t.start()
-            for t in threads:
-                t.join(timeout=600)
-            wall = time.monotonic() - t0
+            out, walls, wall = _predict_round(server.base_url, "lm",
+                                              prompts)
             status, stats = _http(server.base_url, "GET", "/serve/lm")
             if status != 200:
                 raise AssertionError(f"stats: {status} {stats}")
@@ -852,34 +909,15 @@ def slice_phase(torch, log, home):
              for p in prompts]
     report = []
     for name, out, walls, wall, stats in rounds:
-        for i, (result, solo) in enumerate(zip(out, solos)):
-            if result is None or result[0] != 200:
-                raise AssertionError(f"{name} predict {i}: {result}")
-            tokens = result[1]["tokens"]
-            if len(tokens) != NEW_TOKENS or not all(
-                    0 < t < LM_CONFIG["vocab_size"] for t in tokens):
-                raise AssertionError(f"{name} predict {i}: bad tokens "
-                                     f"{tokens}")
-            want = [int(t) for t in solo]
-            if tokens != want:
-                first = next(j for j, (a, b) in enumerate(zip(tokens, want))
-                             if a != b)
-                raise AssertionError(f"{name} predict {i} diverges from "
-                                     f"solo generate at token {first}")
-        decode_s = max(r[1]["decodeSeconds"] for r in out)
-        # this round's own TTFT as each client saw it: its request's wall
-        # less the decode after the first token (session stats pool the
-        # TTFT of every round)
-        ttft_ms = sorted((w - r[1]["decodeSeconds"]) * 1e3
-                         for w, r in zip(walls, out))
+        tokens = _round_tokens(name, out)
+        _diverges(name, tokens, solos)
+        # this round's own TTFT (session stats pool every round's)
         report.append({
-            "round": name, "wallSeconds": wall,
-            "clientTtftMs": {"p50": ttft_ms[(len(ttft_ms) - 1) // 2],
-                             "max": ttft_ms[-1], "all": ttft_ms},
-            "maxDecodeSeconds": decode_s,
-            "decodeTokensPerSec": len(out) * (NEW_TOKENS - 1) / decode_s,
+            "round": name, "wallSeconds": wall, **_round_rates(out, walls),
             "statsSoFar": {k: stats[k] for k in (
                 "ttft", "roles", "perf", "tokensTotal")}})
+    yard.update(prompts=prompts, solos=[[int(t) for t in x] for x in solos],
+                slotTokens=tokens)
     report.append(_decode_profile(torch, lm, prompts))
     # the prefill logits through the kernel against the dense path
     dense = LanguageModel(**LM_CONFIG, attention="dot", device="cuda")
@@ -901,29 +939,253 @@ def slice_phase(torch, log, home):
     return launches
 
 
-def _decode_profile(torch, lm, prompts, steps: int = 8):
-    """Where a warm decode step's time goes: ``steps`` slot steps of 4
-    filled slots under ``torch.profiler``, with the host wall per step
-    and the top operators by device and by host time."""
+# the paged phase: a pool of 16-token pages at the slot session's bytes
+# (4 slots x 2048 rows + the trash page = 513 pages), and 16 streams of
+# 64-448 prompt tokens on it
+PAGE_LEN, PAGED_STREAMS, PAGED_PROMPTS = 16, 16, (64, 448)
+# the prompt that shares the 1367-token prompt's first 64 pages
+SHARED_PREFIX = 1024
+
+
+def _create(base, model: str, body: dict) -> dict:
+    status, resp = _http(base, "POST", f"/serve/{model}", body)
+    if status != 201:
+        raise AssertionError(f"create {body}: {status} {resp}")
+    return resp
+
+
+def _agreement(tokens, want) -> dict:
+    """Greedy agreement of a round with the exact session's: streams
+    equal in full, tokens equal in place, and each stream's first
+    differing position (None where it never differs)."""
+    first = [next((j for j, (a, b) in enumerate(zip(got, ref)) if a != b),
+                  None) for got, ref in zip(tokens, want)]
+    same = sum(a == b for got, ref in zip(tokens, want)
+               for a, b in zip(got, ref))
+    return {"streamsEqual": sum(f is None for f in first),
+            "tokensEqualFrac": same / sum(len(t) for t in want),
+            "firstDiff": first}
+
+
+def paged_phase(torch, log, home, serve_yard):
+    """Paged and quantized LM serving over REST on the card, float32 (every
+    prefill on flash_fwd_tf32x3). (a) ``kv: "paged"`` with the slot
+    session's shape (4 slots, cacheLen 2048, 16-token pages, the pool
+    sized to the slot cache's bytes): the serving phase's 4 prompts
+    (after a first-use round of other prompts) must give the slot
+    session's and solo ``generate``'s tokens, 8 forward launches a
+    prefill. (b) The 1500-token prompt again is an exact prefix hit (no
+    launch, the same tokens); a prompt sharing the 1367-token prompt's
+    first 1024 tokens reuses its 64 pages and runs its prefill. (c) 16
+    slots on the same 513 pages: 16 prompts of 64-448 tokens all decode
+    at once (the slot session at these bytes holds 4), each equal to
+    solo. (d) int8 KV with int8 weights, and fp8 weights: drift stamped
+    at create (int8 within 0.05), bytes per token, greedy agreement with
+    (a), and with LO_SERVE_DRIFT_MAX at 1e-9 a session that degrades to
+    exact and answers (a)'s tokens. Returns the launches of (a) and of
+    the exact hit as paths "paged" and "pagedPrefixHit"."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    t0 = time.monotonic()
+    state = weights.params_from_flax(weights.init_params(LM_CONFIG, seed=0))
+    lm = LanguageModel(**LM_CONFIG, device="cuda")
+    lm.set_params(state)
+    ctx = ServiceContext(Config(home=home), device="cuda")
+    ctx.artifacts.save(lm, "lm", "train/tensorflow")
+    prompts, solos = serve_yard["prompts"], serve_yard["solos"]
+    vocab = LM_CONFIG["vocab_size"]
+    rng = np.random.default_rng(1)
+    first_use = [[int(t) for t in rng.integers(1, vocab, size=n)]
+                 for n in PROMPT_LENS]
+    shared = prompts[2][:SHARED_PREFIX] + [
+        int(t) for t in rng.integers(1, vocab, size=476)]
+    many = [[int(t) for t in rng.integers(1, vocab, size=n)]
+            for n in rng.integers(PAGED_PROMPTS[0], PAGED_PROMPTS[1] + 1,
+                                  size=PAGED_STREAMS)]
+
+    def solo(p):
+        return [int(t) for t in
+                lm.generate([p], max_new_tokens=NEW_TOKENS)[0][len(p):]]
+
+    shared_solo, many_solo = solo(shared), [solo(p) for p in many]
+    paged = {"type": "lm", "kv": "paged", "maxSlots": 4, "cacheLen": 2048,
+             "pageLen": PAGE_LEN, "temperature": 0.0}
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    report: dict = {"prompts": list(PROMPT_LENS), "newTokens": NEW_TOKENS}
+    try:
+        # (a) paged against slot and solo
+        resp = _create(base, "lm", paged)
+        if resp["kv"]["pagesTotal"] != 4 * 2048 // PAGE_LEN or \
+                resp["kv"]["dtype"] != "bf16":
+            raise AssertionError(f"paged pool: {resp['kv']}")
+        exact_bpt = resp["kv"]["bytesPerToken"]
+        _round_tokens("paged first use", _predict_round(base, "lm",
+                                                        first_use)[0])
+        _reset_launches(attn)
+        out, walls, wall = _predict_round(base, "lm", prompts)
+        launches = _launches(attn)
+        exact = _round_tokens("paged", out)
+        _diverges("paged", exact, solos)
+        if exact != serve_yard["slotTokens"]:
+            raise AssertionError("paged tokens differ from the slot "
+                                 "session's")
+        need = LM_CONFIG["n_layers"] * len(prompts)
+        if launches["flash_fwd_tf32x3"] != need or any(
+                n for k, n in launches.items() if k != "flash_fwd_tf32x3"):
+            raise AssertionError(f"paged prefills launched {launches}; "
+                                 f"{need} flash_fwd_tf32x3 expected")
+        report["a"] = {"launches": launches, "tokensEqualSolo": True,
+                       "tokensEqualSlot": True, "wallSeconds": wall,
+                       "bytesPerToken": exact_bpt,
+                       **_round_rates(out, walls)}
+
+        # (b) an exact prefix hit, then a shared prefix
+        _reset_launches(attn)
+        out, walls, _ = _predict_round(base, "lm", prompts[3:])
+        hit_launches = _launches(attn)
+        _diverges("prefix hit", _round_tokens("prefix hit", out),
+                  solos[3:])
+        hit_ttft = _round_rates(out, walls)["clientTtftMs"]["p50"]
+        if any(hit_launches.values()):
+            raise AssertionError(f"an exact prefix hit launched "
+                                 f"{hit_launches}")
+        before = _http(base, "GET", "/serve/lm")[1]["kv"]["prefix"]
+        _reset_launches(attn)
+        out, _, _ = _predict_round(base, "lm", [shared])
+        shared_launches = _launches(attn)
+        _diverges("shared prefix", _round_tokens("shared prefix", out),
+                  [shared_solo])
+        prefix = _http(base, "GET", "/serve/lm")[1]["kv"]["prefix"]
+        reused = prefix["pagesReused"] - before["pagesReused"]
+        if prefix["hitsPartial"] != before["hitsPartial"] + 1 or \
+                reused != SHARED_PREFIX // PAGE_LEN or \
+                shared_launches["flash_fwd_tf32x3"] != LM_CONFIG["n_layers"]:
+            raise AssertionError(f"shared prefix: {reused} pages reused, "
+                                 f"{prefix}, {shared_launches}")
+        report["b"] = {"exactHitLaunches": hit_launches,
+                       "exactHitTtftMs": hit_ttft,
+                       "sharedPagesReused": reused,
+                       "sharedLaunches": shared_launches, "prefix": prefix}
+        _http(base, "DELETE", "/serve/lm")
+
+        # (c) 16 streams on the same bytes
+        resp = _create(base, "lm", dict(paged, maxSlots=PAGED_STREAMS,
+                                        pages=4 * 2048 // PAGE_LEN + 1))
+        _round_tokens("16 streams first use", _predict_round(
+            base, "lm", first_use[:1])[0])
+        out, walls, wall = _predict_round(base, "lm", many)
+        _diverges("16 streams", _round_tokens("16 streams", out), many_solo)
+        stats = _http(base, "GET", "/serve/lm")[1]
+        if stats["peakActiveSlots"] != PAGED_STREAMS:
+            raise AssertionError(f"16 streams: at most "
+                                 f"{stats['peakActiveSlots']} decoded at "
+                                 f"once")
+        report["c"] = {"streams": PAGED_STREAMS,
+                       "promptLens": [len(p) for p in many],
+                       "peakActiveSlots": stats["peakActiveSlots"],
+                       "pagesTotal": stats["kv"]["pagesTotal"],
+                       "tokensEqualSolo": True, "wallSeconds": wall,
+                       **_round_rates(out, walls)}
+        _http(base, "DELETE", "/serve/lm")
+
+        # (d) quantized sessions; the gate off (max 0) measures fp8 as it
+        # serves, 1e-9 forces a breach
+        report["d"] = {}
+        for name, extra, drift_max in (
+                ("int8", {"kvDtype": "int8", "weights": "int8"}, None),
+                ("fp8", {"weights": "fp8"}, None),
+                ("fp8Ungated", {"weights": "fp8"}, 0.0),
+                ("forcedBreach", {"kvDtype": "int8", "weights": "int8"},
+                 1e-9)):
+            default_max = ctx.config.serve_drift_max
+            if drift_max is not None:
+                ctx.config.serve_drift_max = drift_max
+            try:
+                resp = _create(base, "lm", dict(paged, **extra))
+            finally:
+                ctx.config.serve_drift_max = default_max
+            _round_tokens(f"{name} first use",
+                          _predict_round(base, "lm", first_use)[0])
+            out, walls, _ = _predict_round(base, "lm", prompts)
+            tokens = _round_tokens(name, out)
+            row = {"drift": resp.get("drift"), "quant": resp["quant"],
+                   "kv": {k: resp["kv"][k] for k in ("dtype",
+                                                     "bytesPerToken")},
+                   "exactBytesPerToken": exact_bpt,
+                   "weights": resp["weights"],
+                   "agreement": _agreement(tokens, exact),
+                   **_round_rates(out, walls)}
+            degraded = resp["quant"]["degrades"] > 0
+            if name == "int8" and (degraded or not resp["drift"]["value"]
+                                   <= 0.05):
+                raise AssertionError(f"int8 session drift: {row}")
+            if name == "forcedBreach" and not degraded:
+                raise AssertionError(f"a drift max of 1e-9 did not "
+                                     f"degrade: {row}")
+            if degraded:
+                if resp["kv"]["dtype"] != "bf16" or \
+                        resp["weights"]["dtype"] != "bf16":
+                    raise AssertionError(f"{name} degraded to {row}")
+                _diverges(f"{name} (degraded)", tokens, solos)
+            report["d"][name] = row
+            _http(base, "DELETE", "/serve/lm")
+    finally:
+        server.stop()
+    report["decodeProfile"] = _decode_profile(torch, lm, prompts, paged=True)
+    report["seconds"] = time.monotonic() - t0
+    log.append("paged " + json.dumps(report))
+    return {"paged": launches, "pagedPrefixHit": hit_launches}
+
+
+def _decode_profile(torch, lm, prompts, paged: bool = False,
+                    steps: int = 8):
+    """Where a warm decode step's time goes: ``steps`` steps of 4 filled
+    slots (``paged``: 4 streams over a pool of 16-token pages, each
+    stream's 128 pages gathered) under ``torch.profiler``, with the host
+    wall per step and the top operators by device and by host time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     import numpy as np
 
-    step, prefill_for, join = lm.serve_fns(4, 2048, 0.0)
-    cache = lm.serve_cache(4, 2048)
+    if paged:
+        pages = 2048 // PAGE_LEN
+        step, prefill_for, join_paged, _, _ = lm.serve_fns_paged(
+            4, 2048, PAGE_LEN, 4 * pages + 1, 0.0)
+        cache = lm.serve_cache_paged(4 * pages + 1, PAGE_LEN)
+        tables = 1 + torch.arange(4 * pages, device="cuda").reshape(4, pages)
+    else:
+        step, prefill_for, join = lm.serve_fns(4, 2048, 0.0)
+        cache = lm.serve_cache(4, 2048)
     col = np.zeros(4, np.int64)
     tok = np.zeros((4, 1), np.int64)
     for slot, prompt in enumerate(prompts):
         tokens = torch.tensor([prompt], device="cuda")
-        nxt, pcache = prefill_for(len(prompt))(tokens, 0)
-        join(cache, pcache, slot)
+        if paged:
+            nxt, _, pcache = prefill_for(len(prompt))(tokens, 0)
+            join_paged(cache, pcache,
+                       tables[slot, :-(-len(prompt) // PAGE_LEN)], 0)
+        else:
+            nxt, pcache = prefill_for(len(prompt))(tokens, 0)
+            join(cache, pcache, slot)
         tok[slot, 0], col[slot] = int(nxt[0]), len(prompt)
     seeds = np.zeros(4, np.int64)
 
     def run(n):
         for _ in range(n):
-            nxt = step(cache, tok, col, seeds).cpu().numpy()
+            if paged:
+                nxt = step(cache, tok, col, tables, seeds).cpu().numpy()
+            else:
+                nxt = step(cache, tok, col, seeds).cpu().numpy()
             tok[:, 0] = nxt
             col[:] += 1
 
@@ -942,7 +1204,8 @@ def _decode_profile(torch, lm, prompts, steps: int = 8):
         return [[e.key[:80], round(getattr(e, attr) / steps / 1e3, 4),
                  e.count / steps] for e in rows[:10]]
 
-    return {"round": "decodeProfile", "steps": steps,
+    return {"round": "pagedDecodeProfile" if paged else "decodeProfile",
+            "steps": steps,
             "hostWallMsPerStep": wall_ms,
             "deviceBusyMsPerStep": sum(
                 e.self_device_time_total for e in kernels) / steps / 1e3,
@@ -1853,11 +2116,16 @@ def main() -> int:
     try:
         entries = kernel_phase(torch, log)
         entries.update(bwd_kernel_phase(torch, log))
+        serve_yard: dict = {}
         with tempfile.TemporaryDirectory() as home:
-            served = slice_phase(torch, log, home)
+            served = slice_phase(torch, log, home, serve_yard)
+        with tempfile.TemporaryDirectory() as home:
+            paged = paged_phase(torch, log, home, serve_yard)
+        del serve_yard
         yard: dict = {}
         with tempfile.TemporaryDirectory() as home:
-            paths = {"serve": served, **train_phase(torch, log, home, yard)}
+            paths = {"serve": served, **paged,
+                     **train_phase(torch, log, home, yard)}
         with tempfile.TemporaryDirectory() as home:
             paths.update(pipeline_phase(torch, log, home, yard))
         del yard

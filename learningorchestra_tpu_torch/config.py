@@ -4,7 +4,11 @@ slices and its pipeline services read.
 Environment variables keep the JAX package's names and defaults
 (``LO_HOME``, ``LO_SERVE_MAX_BATCH``, ``LO_SERVE_QUEUE``,
 ``LO_REQUEST_TIMEOUT``, ``LO_COMPUTE_DTYPE``, ``LO_MAX_WORKERS``,
-``LO_CKPT_QUARANTINE_KEEP``). The
+``LO_CKPT_QUARANTINE_KEEP``, ``LO_FAULT_INJECT`` and the paged and
+quantized serving knobs ``LO_SERVE_KV``, ``LO_SERVE_PAGE_LEN``,
+``LO_SERVE_PAGES``, ``LO_SERVE_TENANT_WEIGHTS``, ``LO_SERVE_KV_DTYPE``,
+``LO_SERVE_WEIGHTS``, ``LO_SERVE_DRIFT_MAX``, ``LO_SERVE_DRIFT_EVERY``).
+The
 device is chosen in code only (``device=`` or ``--device``). A
 :class:`Config` is an object the caller creates and passes down; there
 is no process-wide singleton.
@@ -53,6 +57,42 @@ class Config:
     ckpt_quarantine_keep: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get(
             "LO_CKPT_QUARANTINE_KEEP", "4")))
+    # fault injection, site[:count[:mode[:arg]]] (services/faults.py)
+    fault_inject: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_FAULT_INJECT", ""))
+    # LM session KV layout: "slot" (slots x cacheLen per session) or
+    # "paged" (one shared pool of page_len-token pages, handed out per
+    # stream on demand, with prefix reuse and tenant quotas)
+    serve_kv: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_SERVE_KV", "slot"))
+    # tokens per KV page
+    serve_page_len: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_SERVE_PAGE_LEN", "16")))
+    # pages per paged session; 0 = the slot cache's bytes (slots x
+    # cacheLen / pageLen, plus the trash page)
+    serve_pages: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get("LO_SERVE_PAGES", "0")))
+    # weighted-fair tenant shares of the page budget ("a:3,b:1";
+    # unlisted tenants weigh 1)
+    serve_tenant_weights: str = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_SERVE_TENANT_WEIGHTS", ""))
+    # paged KV dtype: "bf16" (the model's exact dtype) or "int8"; and the
+    # serving-weight dtype: "bf16" (exact), "int8" or "fp8"
+    serve_kv_dtype: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_SERVE_KV_DTYPE", "bf16"))
+    serve_weights: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_SERVE_WEIGHTS", "bf16"))
+    # quality gate of quantized sessions: the largest quantized-vs-exact
+    # drift before the session degrades to exact, probed at create and
+    # every serve_drift_every decode steps
+    serve_drift_max: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SERVE_DRIFT_MAX", "0.05")))
+    serve_drift_every: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_SERVE_DRIFT_EVERY", "256")))
 
     @property
     def artifacts_dir(self) -> str:

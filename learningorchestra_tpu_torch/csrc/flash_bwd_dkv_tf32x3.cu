@@ -64,11 +64,26 @@
 // - Masks only on tiles that cross an edge (causal diagonal, window,
 //   ragged sq or sk) of what the warp's keys are seen from; exp2 with
 //   scale * log2(e) folded in.
-// - dK and dV sum in float32 registers across the whole group and are
-//   written once: no atomics, the same bits on every run. At d <= 64 dK
-//   adds each k-step's products on the CUDA cores (mma_mixed_add: its
-//   sum cancels, and the tensor cores' accumulation drifts); at width
-//   128 the registers are full, and dV's sum does not cancel.
+// - No long sum rides in the tensor cores' accumulator, whose float32
+//   additions are not rounded to nearest and drift with the length of
+//   the run (tf32x3_common.cuh, mma_mixed_add). dK sums the whole group in
+//   float32 registers, each k-step's products added on the CUDA cores
+//   (mma_mixed_add), up to width 64; dV the same up to width 32. Where
+//   that does not fit, the accumulator sums a run of kRun q tiles from
+//   zero (8 at width 64, 4 at 128), and each thread then adds its
+//   partial on the CUDA cores into its own elements of dk and dv in
+//   device memory, which the first run stores. That master costs no
+//   registers and no shared memory, and stays in L2 (16 or 64 KB a
+//   block). Why not otherwise: dV's fresh fragment at width 64 (float32)
+//   took ptxas to 255 registers and spills, and 24-row stages that fit
+//   were 19% slower (scripts/tf32x3_tile_sweep.py); a master in shared
+//   memory would cost the width-64 variant its second block per SM, and
+//   the width-128 one does not fit beside its 198.5 KB of tiles (227 KB a
+//   block). On an H100 (PERF.md, section 6) at 2048 keys the runs keep dV
+//   within 1.45x of the 3xTF32 emulation at d 64 and dK, dV within 1.6x
+//   at d 128, where the whole group in the accumulator was 17x. Each
+//   element has one owner thread, so there are no atomics, and every run
+//   gives the same bits.
 // - Tiles: 32 q rows per stage (M), 2 blocks of 4 warps per SM at d 64;
 //   64-row and 16-row stages were slower there. At width 16 (the d-12
 //   LM's 256 blocks) 64-row stages were about 9% faster than 32-row ones
@@ -105,6 +120,30 @@ struct Tile {
       sizeof(float) * ((kPlanes ? 4 * kQ : 0) + 4 * kM);
 };
 
+// row[c], row[c + 1] <- (add ? themselves + : ) x0, x1, the columns
+// before d only: one float2 in the wide variants (c < d implies c + 1 <
+// d, 8-byte aligned), else store_pair's access
+template <bool kWide>
+__device__ __forceinline__ void put_pair(float* row, int c, int d, float x0,
+                                         float x1, bool add) {
+  if (c >= d) return;
+  if constexpr (kWide) {
+    float2* p = reinterpret_cast<float2*>(row + c);
+    if (add) {
+      const float2 old = *p;
+      x0 += old.x;
+      x1 += old.y;
+    }
+    *p = make_float2(x0, x1);
+  } else {
+    if (add) {
+      x0 += row[c];
+      if (c + 1 < d) x1 += row[c + 1];
+    }
+    store_pair(row, c, d, x0, x1);
+  }
+}
+
 // kWide: float32 rows at d % 4 == 0 from 16-byte aligned bases (16-byte
 // loads, float2 stores); `gran` is the other variants' load granule
 template <typename T, int DMAX, bool kWide>
@@ -121,9 +160,14 @@ __global__ void __launch_bounds__(kThreads, Tile<T, DMAX>::kMinBlocks)
                                 int window, int offset, int gran) {
   using Tl = Tile<T, DMAX>;
   constexpr int M = Tl::kM, P = Tl::kP;
-  // dK sums each k-step from zero and adds it on the CUDA cores
-  // (mma_mixed_add) where the registers allow; at width 128 they do not
-  constexpr bool kFlushK = DMAX <= 64;
+  // How each sum avoids a long run in the tensor cores' accumulator
+  // (header): dK adds each k-step's products to its registers on the
+  // CUDA cores (mma_mixed_add) up to width 64, dV up to width 32; beyond,
+  // the accumulator sums a run of kRun q tiles from zero, which is then
+  // added to the master in device memory
+  constexpr bool kStepK = DMAX <= 64;
+  constexpr bool kStepV = DMAX <= 32;
+  constexpr int kRun = DMAX == 128 ? 4 : 8;
   constexpr int NT = M / 8;     // 8-row n-tiles of S^T per q tile
   constexpr int DT = DMAX / 8;  // 8-column tiles of head_dim
   constexpr int kPlane = Tl::kPlanes ? Tl::kQ : 0;
@@ -201,128 +245,158 @@ __global__ void __launch_bounds__(kThreads, Tile<T, DMAX>::kMinBlocks)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (tile + 1 < n_tiles) issue(tile + 1);
-    cp_async_commit();
-    cp_async_wait<1>();  // this tile's copies (and K, V) have landed
-    __syncthreads();
-    const int s = tile % 2;
-    const int row0 = start + (tile % n_rows) * M;
-    const float* tl = sL + s * M;
-    const float* td = sD + s * M;
-    const T* tq = sQ + s * Tl::kQ;
-    const T* tdo = sDO + s * Tl::kQ;
-    if constexpr (Tl::kPlanes) {
-      split_tile<Tl::kQ, kThreads>(tq, sQh, sQl);
-      split_tile<Tl::kQ, kThreads>(tdo, sDh, sDl);
-      __syncthreads();
-    }
-
-    // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x M rows per warp
-    float st[NT][4], dpt[NT][4];
+  // dk (with_k) and dv (with_v) <- (add ? themselves + : ) the
+  // accumulators, and the written accumulators <- 0. C layout:
+  // acc[n][2 r + i] is key col_a + 8 r, column 8 n + 2 t + i; each
+  // element has this one thread as its owner
+  auto write_out = [&](bool with_k, bool with_v, bool add) {
 #pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-    for (int c = 0; c < DMAX; c += 8) {
-      uint32_t ka_hi[4], ka_lo[4], va_hi[4], va_lo[4];
-      load_a(kw + c, P, ka_hi, ka_lo);
-      load_a(vw + c, P, va_hi, va_lo);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int o = (8 * j + g) * P + c + t;
-        uint32_t b_hi[2], b_lo[2];
-        if constexpr (Tl::kPlanes)
-          load_b_planes(sQh, sQl, o, o + 4, b_hi, b_lo);
-        else
-          load_b(tq[o], tq[o + 4], b_hi, b_lo);
-        mma_inputs<T>(st[j], ka_hi, ka_lo, b_hi, b_lo);
-        if constexpr (Tl::kPlanes)
-          load_b_planes(sDh, sDl, o, o + 4, b_hi, b_lo);
-        else
-          load_b(tdo[o], tdo[o + 4], b_hi, b_lo);
-        mma_inputs<T>(dpt[j], va_hi, va_lo, b_hi, b_lo);
-      }
-    }
-
-    // P^T and dS^T in place: element e is key col_a + 8 (e / 2), q row
-    // row0 + 8 j + 2 t + e % 2; the mask only where the tile crosses an
-    // edge of what the warp's keys are seen from (exp2 with scale *
-    // log2(e) folded in)
-    bool edge = row0 + M > sq || w_col0 + 15 >= sk;
-    if (causal) edge = edge || row0 < w_col0 + 15 + offset;
-    if (window > 0) edge = edge || w_col0 + offset <= row0 + M - 1 - window;
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int rr = 8 * j + 2 * t + (e & 1);
-        bool ok = true;
-        if (edge) {
-          const int row = row0 + rr;
-          const int col = col_a + 8 * (e >> 1);
-          ok = row < sq && col < sk;
-          if (causal) ok = ok && row >= col + offset;
-          if (window > 0) ok = ok && col + offset > row - window;
-        }
-        const float p =
-            ok ? exp2f(fmaf(st[j][e], scale_log2, -tl[rr] * kLog2e)) : 0.f;
-        st[j][e] = p;
-        dpt[j][e] = ok ? p * (dpt[j][e] - td[rr]) * scale : 0.f;
-      }
-
-    // dV += P^T.dO and dK += dS^T.Q: k-step j runs over q rows 8 j ..
-    // 8 j + 7 in the permuted order, so B takes rows 8 j + 2 t (+ 1)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) {
-      uint32_t p_hi[4], p_lo[4], ds_hi[4], ds_lo[4];
-      c_to_a(st[j], p_hi, p_lo);
-      c_to_a(dpt[j], ds_hi, ds_lo);
-      const int o = (8 * j + 2 * t) * P + g;
+    for (int r = 0; r < 2; ++r) {
+      const int col = col_a + 8 * r;
+      if (col >= sk) continue;
+      const int64_t off = kv_off + (int64_t)col * kv_stride;
 #pragma unroll
       for (int n = 0; n < DT; ++n) {
-        uint32_t b_hi[2], b_lo[2];
-        if constexpr (Tl::kPlanes)
-          load_b_planes(sDh, sDl, o + 8 * n, o + P + 8 * n, b_hi, b_lo);
-        else
-          load_b(tdo[o + 8 * n], tdo[o + P + 8 * n], b_hi, b_lo);
-        mma_mixed<T>(acc_v[n], p_hi, p_lo, b_hi, b_lo);
-        if constexpr (Tl::kPlanes)
-          load_b_planes(sQh, sQl, o + 8 * n, o + P + 8 * n, b_hi, b_lo);
-        else
-          load_b(tq[o + 8 * n], tq[o + P + 8 * n], b_hi, b_lo);
-        if constexpr (kFlushK)
-          mma_mixed_add<T>(acc_k[n], ds_hi, ds_lo, b_hi, b_lo);
-        else
-          mma_mixed<T>(acc_k[n], ds_hi, ds_lo, b_hi, b_lo);
+        const int c = 8 * n + 2 * t;
+        if (with_k)
+          put_pair<kWide>(dk + off, c, d, acc_k[n][2 * r],
+                          acc_k[n][2 * r + 1], add);
+        if (with_v)
+          put_pair<kWide>(dv + off, c, d, acc_v[n][2 * r],
+                          acc_v[n][2 * r + 1], add);
       }
     }
-    __syncthreads();  // the tile is read; the next issue may refill it
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (with_k) acc_k[n][e] = 0.f;
+        if (with_v) acc_v[n][e] = 0.f;
+      }
+  };
+
+  // runs of kRun q tiles where a sum rides the accumulator; one run of
+  // every tile where neither does
+  const int run = kStepK && kStepV ? max(n_tiles, 1) : kRun;
+  for (int tile0 = 0; tile0 < n_tiles; tile0 += run) {
+    const int tile_end = min(tile0 + run, n_tiles);
+    for (int tile = tile0; tile < tile_end; ++tile) {
+      if (tile + 1 < n_tiles) issue(tile + 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // this tile's copies (and K, V) have landed
+      __syncthreads();
+      const int s = tile % 2;
+      const int row0 = start + (tile % n_rows) * M;
+      const float* tl = sL + s * M;
+      const float* td = sD + s * M;
+      const T* tq = sQ + s * Tl::kQ;
+      const T* tdo = sDO + s * Tl::kQ;
+      if constexpr (Tl::kPlanes) {
+        split_tile<Tl::kQ, kThreads>(tq, sQh, sQl);
+        split_tile<Tl::kQ, kThreads>(tdo, sDh, sDl);
+        __syncthreads();
+      }
+
+      // S^T = K.Q^T and dP^T = V.dO^T: 16 keys x M rows per warp
+      float st[NT][4], dpt[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+      for (int c = 0; c < DMAX; c += 8) {
+        uint32_t ka_hi[4], ka_lo[4], va_hi[4], va_lo[4];
+        load_a(kw + c, P, ka_hi, ka_lo);
+        load_a(vw + c, P, va_hi, va_lo);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int o = (8 * j + g) * P + c + t;
+          uint32_t b_hi[2], b_lo[2];
+          if constexpr (Tl::kPlanes)
+            load_b_planes(sQh, sQl, o, o + 4, b_hi, b_lo);
+          else
+            load_b(tq[o], tq[o + 4], b_hi, b_lo);
+          mma_inputs<T>(st[j], ka_hi, ka_lo, b_hi, b_lo);
+          if constexpr (Tl::kPlanes)
+            load_b_planes(sDh, sDl, o, o + 4, b_hi, b_lo);
+          else
+            load_b(tdo[o], tdo[o + 4], b_hi, b_lo);
+          mma_inputs<T>(dpt[j], va_hi, va_lo, b_hi, b_lo);
+        }
+      }
+
+      // P^T and dS^T in place: element e is key col_a + 8 (e / 2), q row
+      // row0 + 8 j + 2 t + e % 2; the mask only where the tile crosses an
+      // edge of what the warp's keys are seen from (exp2 with scale *
+      // log2(e) folded in)
+      bool edge = row0 + M > sq || w_col0 + 15 >= sk;
+      if (causal) edge = edge || row0 < w_col0 + 15 + offset;
+      if (window > 0) edge = edge || w_col0 + offset <= row0 + M - 1 - window;
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = 8 * j + 2 * t + (e & 1);
+          bool ok = true;
+          if (edge) {
+            const int row = row0 + rr;
+            const int col = col_a + 8 * (e >> 1);
+            ok = row < sq && col < sk;
+            if (causal) ok = ok && row >= col + offset;
+            if (window > 0) ok = ok && col + offset > row - window;
+          }
+          const float p =
+              ok ? exp2f(fmaf(st[j][e], scale_log2, -tl[rr] * kLog2e)) : 0.f;
+          st[j][e] = p;
+          dpt[j][e] = ok ? p * (dpt[j][e] - td[rr]) * scale : 0.f;
+        }
+
+      // dV += P^T.dO, then dK += dS^T.Q: k-step j runs over q rows 8 j ..
+      // 8 j + 7 in the permuted order, so B takes rows 8 j + 2 t (+ 1).
+      // One A fragment at a time (P^T's, then dS^T's) keeps the registers
+      // for mma_mixed_add's fresh fragment at width 64
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        uint32_t a_hi[4], a_lo[4];
+        const int o = (8 * j + 2 * t) * P + g;
+        c_to_a(st[j], a_hi, a_lo);
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+          uint32_t b_hi[2], b_lo[2];
+          if constexpr (Tl::kPlanes)
+            load_b_planes(sDh, sDl, o + 8 * n, o + P + 8 * n, b_hi, b_lo);
+          else
+            load_b(tdo[o + 8 * n], tdo[o + P + 8 * n], b_hi, b_lo);
+          if constexpr (kStepV)
+            mma_mixed_add<T>(acc_v[n], a_hi, a_lo, b_hi, b_lo);
+          else
+            mma_mixed<T>(acc_v[n], a_hi, a_lo, b_hi, b_lo);
+        }
+        c_to_a(dpt[j], a_hi, a_lo);
+#pragma unroll
+        for (int n = 0; n < DT; ++n) {
+          uint32_t b_hi[2], b_lo[2];
+          if constexpr (Tl::kPlanes)
+            load_b_planes(sQh, sQl, o + 8 * n, o + P + 8 * n, b_hi, b_lo);
+          else
+            load_b(tq[o + 8 * n], tq[o + P + 8 * n], b_hi, b_lo);
+          if constexpr (kStepK)
+            mma_mixed_add<T>(acc_k[n], a_hi, a_lo, b_hi, b_lo);
+          else
+            mma_mixed<T>(acc_k[n], a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+      __syncthreads();  // the tile is read; the next issue may refill it
+    }
+    // the run's partials into the master (the first run stores them)
+    if constexpr (!kStepK || !kStepV) write_out(!kStepK, !kStepV, tile0 > 0);
   }
 
-  // C layout: acc[n][2 r + i] is key col_a + 8 r, column 8 n + 2 t + i;
-  // every element of the tile's valid keys is written once
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int col = col_a + 8 * r;
-    if (col >= sk) continue;
-    const int64_t off = kv_off + (int64_t)col * kv_stride;
-#pragma unroll
-    for (int n = 0; n < DT; ++n) {
-      const int c = 8 * n + 2 * t;
-      if constexpr (kWide) {
-        if (c < d) {
-          *reinterpret_cast<float2*>(dk + off + c) =
-              make_float2(acc_k[n][2 * r], acc_k[n][2 * r + 1]);
-          *reinterpret_cast<float2*>(dv + off + c) =
-              make_float2(acc_v[n][2 * r], acc_v[n][2 * r + 1]);
-        }
-      } else {
-        store_pair(dk + off, c, d, acc_k[n][2 * r], acc_k[n][2 * r + 1]);
-        store_pair(dv + off, c, d, acc_v[n][2 * r], acc_v[n][2 * r + 1]);
-      }
-    }
-  }
+  // the sums kept in registers, written once; zeros where no q row sees
+  // the tile's keys
+  if (n_tiles == 0)
+    write_out(true, true, false);
+  else if constexpr (kStepK || kStepV)
+    write_out(kStepK, kStepV, false);
 }
 
 template <typename T, int DMAX, bool kWide>

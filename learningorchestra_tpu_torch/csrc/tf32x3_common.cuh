@@ -131,8 +131,12 @@ __device__ __forceinline__ void mma_mixed(float (&c)[4],
 // was 36 times further from the float32 plain version than the 3xTF32
 // emulation, and a classifier's float32 weight gradient read 7e-4
 // against the dense path; summed here, dq came within 2.3 times of the
-// emulation and the gradient to 2.3e-5. dV (weights that do not cancel)
-// and dK at width 128 (no registers to spare) stay in the accumulator.
+// emulation and the gradient to 2.3e-5. dV's sum does not cancel but
+// drifts the same way (2.9e-5 at 2048 keys), so it is summed here too.
+// Where the dK/dV kernel has no registers for the fresh fragment (dV at
+// width 64, dK and dV at 128), its accumulator sums a short run of q
+// tiles and the long sum runs on the CUDA cores in device memory
+// (flash_bwd_dkv_tf32x3.cu).
 template <typename T>
 __device__ __forceinline__ void mma_mixed_add(float (&acc)[4],
                                               const uint32_t (&a_hi)[4],

@@ -7,9 +7,10 @@ optional sliding window, a gated-SiLU MLP without bias, dropout, the
 next-token loss (with the chunked lm-head form), LoRA adapters on the
 attention projections, and :class:`LanguageModel` with
 ``fit``/``evaluate``/``predict``, ``generate``, ``enable_lora`` /
-``merge_lora`` and the continuous-batching serve functions. The
-bidirectional encoder and :class:`TextClassifier` live in
-:mod:`.encoder`.
+``merge_lora`` and the continuous-batching serve functions over a slot
+cache or a shared page pool, with quantized serving weights
+(:func:`serving_module`). The bidirectional encoder and
+:class:`TextClassifier` live in :mod:`.encoder`.
 
 Module and parameter names follow the flax tree (``layer_0.attn.q_proj``
 for ``layer_0/attn/q_proj``) so :mod:`.weights` maps one onto the other.
@@ -20,6 +21,7 @@ new cache; writing in place saves a copy of the whole cache per token).
 
 from __future__ import annotations
 
+import copy
 import json
 import os
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
@@ -155,10 +157,12 @@ class LoRALinear(nn.Linear):
                 self.alpha / self.rank).to(dtype))
         return self._scales[dtype]
 
-    def forward(self, x):
-        y = F.linear(x, self.weight)
+    def adapter(self, x):
         low = (x @ self.lora_a.to(x.dtype)) @ self.lora_b.to(x.dtype)
-        return y + low * self._scale(x.dtype)
+        return low * self._scale(x.dtype)
+
+    def forward(self, x):
+        return F.linear(x, self.weight) + self.adapter(x)
 
 
 def _linear(d_in: int, d_out: int, lora_rank: int,
@@ -203,7 +207,8 @@ class Attention(nn.Module):
         ang = rel.to(torch.float32)[..., None] * freqs
         return torch.cos(ang), torch.sin(ang)
 
-    def forward(self, x, cache=None, decode_pos=None, pad_offset=None):
+    def forward(self, x, cache=None, decode_pos=None, pad_offset=None,
+                block_tables=None):
         b, s, _ = x.shape
         hd = self.head_dim
         q = self.q_proj(x).view(b, s, self.n_heads, hd)
@@ -215,9 +220,10 @@ class Attention(nn.Module):
                 raise ValueError(
                     "multi-position decode (speculative verify) needs the "
                     "paged KV path, which is not yet ported")
-            ck, cv = cache
-            if isinstance(decode_pos, int) and pad_offset is None:
+            if isinstance(decode_pos, int) and pad_offset is None and \
+                    block_tables is None:
                 # one position for the whole batch
+                ck, cv = cache
                 cos, sin = self._angles(torch.full(
                     (1,), decode_pos, device=x.device))
                 c, si = cos[:, None, None, :], sin[:, None, None, :]
@@ -225,6 +231,8 @@ class Attention(nn.Module):
                 ck[:, decode_pos] = k[:, 0]
                 cv[:, decode_pos] = v[:, 0]
                 col = torch.full((b,), decode_pos, device=x.device)
+                o = attn_ops.decode_attention(q, ck, cv, col,
+                                              window=self.window)
             else:
                 # every row at its own position; the arithmetic is the
                 # scalar branch's, row by row, so a slot's output
@@ -235,12 +243,17 @@ class Attention(nn.Module):
                 cos, sin = self._angles(rel)
                 c, si = cos[:, None, None, :], sin[:, None, None, :]
                 q, k = _rotate(q, c, si), _rotate(k, c, si)
-                rows = torch.arange(b, device=x.device)
-                ck[rows, col] = k[:, 0]
-                cv[rows, col] = v[:, 0]
-            o = attn_ops.decode_attention(q, ck, cv, col,
-                                          pad_offset=pad_offset,
-                                          window=self.window)
+                if block_tables is not None:
+                    o = self._paged_decode(q, k, v, cache, block_tables,
+                                           col, pad_offset)
+                else:
+                    ck, cv = cache
+                    rows = torch.arange(b, device=x.device)
+                    ck[rows, col] = k[:, 0]
+                    cv[rows, col] = v[:, 0]
+                    o = attn_ops.decode_attention(q, ck, cv, col,
+                                                  pad_offset=pad_offset,
+                                                  window=self.window)
         else:
             kv_valid = None
             if pad_offset is None:
@@ -264,6 +277,32 @@ class Attention(nn.Module):
                                     causal=self.causal, window=self.window,
                                     kv_valid=kv_valid)
         return self.o_proj(o.reshape(b, s, self.n_heads * hd))
+
+
+    def _paged_decode(self, q, k, v, pool, block_tables, col, pad_offset):
+        """The serving step over the shared page pool: ``pool`` is this
+        layer's ``(k, v)`` pages, or ``(k, v, k_scale, v_scale)`` for int8
+        pages. Rope, the written rows, the reduction and the mask are the
+        slot branch's; only the storage addressing differs. The gather
+        width is ``block_tables.shape[1]``."""
+        page_len = pool[0].shape[1]
+        if len(pool) == 4:
+            kp, vp, ks, vs = pool
+            attn_ops.quantized_paged_append_token(
+                kp, ks, k[:, 0], block_tables, col, page_len)
+            attn_ops.quantized_paged_append_token(
+                vp, vs, v[:, 0], block_tables, col, page_len)
+            return attn_ops.quantized_paged_decode_attention(
+                q, kp, ks, vp, vs, block_tables, col,
+                pad_offset=pad_offset, window=self.window)
+        kp, vp = pool
+        attn_ops.paged_append_token(kp, k[:, 0], block_tables, col,
+                                    page_len)
+        attn_ops.paged_append_token(vp, v[:, 0], block_tables, col,
+                                    page_len)
+        return attn_ops.paged_decode_attention(
+            q, kp, vp, block_tables, col, pad_offset=pad_offset,
+            window=self.window)
 
 
 class MLP(nn.Module):
@@ -297,9 +336,10 @@ class Block(nn.Module):
         self.mlp = MLP(d_model, d_ff)
 
     def forward(self, x, cache=None, decode_pos=None, pad_offset=None,
-                train: bool = False, generator=None):
+                train: bool = False, generator=None, block_tables=None):
         h = self.attn(self.attn_norm(x), cache=cache,
-                      decode_pos=decode_pos, pad_offset=pad_offset)
+                      decode_pos=decode_pos, pad_offset=pad_offset,
+                      block_tables=block_tables)
         if self.dropout and train:
             h = _dropout(h, self.dropout, generator)
         x = x + h
@@ -348,23 +388,143 @@ class TransformerLM(nn.Module):
     def forward(self, tokens, cache: Optional[Cache] = None,
                 decode_pos=None, pad_offset=None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                fused_head: bool = False):
+                fused_head: bool = False, block_tables=None):
         """Logits (b, s, vocab) in the params' dtype. The train forward
         (``train``) applies dropout from ``generator``; with
         ``fused_head`` it returns :class:`FusedHeadOut` instead of
-        logits, for the chunked loss."""
+        logits, for the chunked loss. With ``block_tables`` (a serving
+        decode step) ``cache`` is the shared page pool of
+        :meth:`LanguageModel.serve_cache_paged`."""
         x = self.embed(tokens)
         for i in range(self.n_layers):
             x = getattr(self, f"layer_{i}")(
                 x, cache=None if cache is None else cache[i],
                 decode_pos=decode_pos, pad_offset=pad_offset, train=train,
-                generator=generator)
+                generator=generator, block_tables=block_tables)
         x = self.final_norm(x)
         if train and fused_head:
             return FusedHeadOut(hidden=x, kernel=self.lm_head.weight,
                                 aux=torch.zeros((), dtype=torch.float32,
                                                 device=x.device))
         return self.lm_head(x)
+
+
+# ----------------------------------------------------------------------
+# quantized serving weights
+# ----------------------------------------------------------------------
+# A serving session may narrow its copy of the matmul weights: every
+# ``kernel`` and ``embedding`` leaf of the flax tree with ndim >= 2, per
+# output channel (the flax leaf's last axis), as int8 with scale amax /
+# 127 or float8_e4m3fn with scale amax / 448. Norm scales and LoRA
+# adapters stay as they are. The master params are untouched; the serving
+# module dequantizes each layer's weights inside that layer's forward.
+
+_FP8_MAX = 448.0  # float8_e4m3fn's largest finite value
+
+
+def _channel_axis(key: str, t: torch.Tensor) -> Optional[int]:
+    """The axis of ``state_dict`` value ``t`` that is the flax leaf's last
+    (output-channel) axis, or None when the leaf stays exact."""
+    path, transposed = weights_lib.flax_path(key)
+    if path[-1] not in ("kernel", "embedding") or t.ndim < 2:
+        return None
+    return 0 if transposed else t.ndim - 1
+
+
+def _quantize_leaf(t: torch.Tensor, axis: int, dtype: str) -> Dict[str, Any]:
+    f = t.detach().float()
+    others = tuple(i for i in range(f.ndim) if i != axis)
+    amax = f.abs().amax(dim=others, keepdim=True)
+    top = 127.0 if dtype == "int8" else _FP8_MAX
+    scale = torch.clamp(amax / top, min=attn_ops._QUANT_EPS)
+    if dtype == "int8":
+        q = torch.clamp(torch.round(f / scale), -127, 127).to(torch.int8)
+    else:
+        q = (f / scale).to(torch.float8_e4m3fn)
+    return {"qvalue": q, "qscale": scale, "qlike": t.dtype}
+
+
+def quantize_serving_params(params: Dict[str, torch.Tensor],
+                            dtype: str) -> Dict[str, Any]:
+    """The serving copy of a ``state_dict``: ``"bf16"`` (the exact path)
+    returns ``params`` itself; ``"int8"`` or ``"fp8"`` replace each
+    quantized leaf by ``{"qvalue", "qscale", "qlike"}`` (the scale keeps
+    the channel axis, size 1 on the others, so ``qvalue * qscale``
+    dequantizes)."""
+    if dtype in (None, "", "bf16"):
+        return params
+    if dtype not in ("int8", "fp8"):
+        raise ValueError(
+            f"unknown serving weight dtype {dtype!r} (bf16|int8|fp8)")
+    out: Dict[str, Any] = {}
+    for key, t in params.items():
+        axis = _channel_axis(key, t)
+        out[key] = t if axis is None else _quantize_leaf(t, axis, dtype)
+    return out
+
+
+def _dequantize_leaf(leaf: Dict[str, Any]) -> torch.Tensor:
+    return (leaf["qvalue"].float() * leaf["qscale"]).to(leaf["qlike"])
+
+
+def dequantize_serving_params(tree: Dict[str, Any]
+                              ) -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`quantize_serving_params` (exact leaves pass
+    through)."""
+    return {k: _dequantize_leaf(v) if isinstance(v, dict) else v
+            for k, v in tree.items()}
+
+
+class _QuantLinear(nn.Module):
+    """A bias-free linear whose weight is kept quantized and dequantized
+    at each call (plus the LoRA adapter of the layer it replaces)."""
+
+    def __init__(self, base: nn.Linear, leaf: Dict[str, Any]):
+        super().__init__()
+        self.leaf = leaf
+        self.adapter = base.adapter if isinstance(base, LoRALinear) else None
+
+    def forward(self, x):
+        y = F.linear(x, _dequantize_leaf(self.leaf))
+        return y if self.adapter is None else y + self.adapter(x)
+
+
+class _QuantEmbedding(nn.Module):
+    """An embedding whose table is kept quantized: the looked-up rows are
+    dequantized (the scale is per column)."""
+
+    def __init__(self, leaf: Dict[str, Any]):
+        super().__init__()
+        self.leaf = leaf
+
+    def forward(self, tokens):
+        leaf = self.leaf
+        rows = leaf["qvalue"][tokens].float() * leaf["qscale"][0]
+        return rows.to(leaf["qlike"])
+
+
+def serving_module(module: nn.Module, dtype: str) -> nn.Module:
+    """The module a serving session runs: ``module`` itself for ``"bf16"``
+    (the model's exact dtype), else a copy that shares the exact leaves
+    and holds the matmul weights quantized (:func:`quantize_serving_params`),
+    each layer dequantizing its own inside its forward."""
+    if dtype in (None, "", "bf16"):
+        return module
+    leaves = quantize_serving_params(module.state_dict(), dtype)
+
+    def copy_of(mod: nn.Module, prefix: str) -> nn.Module:
+        leaf = leaves.get(prefix + "weight")
+        if isinstance(leaf, dict):
+            if isinstance(mod, nn.Embedding):
+                return _QuantEmbedding(leaf)
+            return _QuantLinear(mod, leaf)
+        new = copy.copy(mod)
+        new.__dict__["_modules"] = {
+            name: copy_of(child, f"{prefix}{name}.")
+            for name, child in mod._modules.items()}
+        return new
+
+    return copy_of(module, "")
 
 
 # ----------------------------------------------------------------------
@@ -950,9 +1110,11 @@ class LanguageModel:
     # ------------------------------------------------------------------
     def serve_fns(self, slots: int, cache_len: int, temperature: float,
                   top_k: Optional[int] = None,
-                  top_p: Optional[float] = None):
+                  top_p: Optional[float] = None, module=None):
         """Continuous-batching functions for a serving session:
-        ``(step, prefill_for, join)``.
+        ``(step, prefill_for, join)``, over ``module`` (the model's own by
+        default; a session with quantized weights passes its
+        :func:`serving_module`).
 
         - ``step(cache, tok (slots, 1), col (slots,), seeds (slots,))``
           (host arrays) advances every slot one token: row i attends
@@ -968,28 +1130,23 @@ class LanguageModel:
           session cache at ``slot``, in place.
         """
         self._require_built()
-        module, dev, sample = self.module, self.device, self._sample
+        module = self.module if module is None else module
+        dev = self.device
         temperature = float(temperature)
+        step_sample = self._step_sampler(temperature, top_k, top_p)
 
         def step(cache, tok, col, seeds):
             col_t = torch.from_numpy(np.asarray(col, np.int64)).to(dev)
             tok_t = torch.from_numpy(np.asarray(tok, np.int64)).to(dev)
             with torch.inference_mode():
                 logits = module(tok_t, cache=cache, decode_pos=col_t)[:, 0]
-                if temperature <= 0:
-                    return sample(logits, temperature, None, None, 0, 0)
-                return torch.cat([
-                    sample(logits[i:i + 1], temperature, top_k, top_p,
-                           int(seeds[i]), int(col[i]) + 1)
-                    for i in range(logits.shape[0])])
+                return step_sample(logits, col, seeds)
 
         def prefill_for(s: int):
             def prefill(tokens, seed: int):
-                pcache = self._new_cache(1, cache_len)
-                with torch.inference_mode():
-                    logits = module(tokens, cache=pcache)
-                    nxt = sample(logits[:, -1], temperature, top_k, top_p,
-                                 seed, s)
+                nxt, _, pcache = self._prefill(module, tokens, seed,
+                                               cache_len, temperature,
+                                               top_k, top_p)
                 return nxt, pcache
 
             return prefill
@@ -1003,10 +1160,159 @@ class LanguageModel:
 
         return step, prefill_for, join
 
+    def _step_sampler(self, temperature: float, top_k: Optional[int],
+                      top_p: Optional[float]):
+        """``sample(logits (slots, vocab), col, seeds)``: the next token of
+        every row, row i drawn from its request's stream at position
+        ``col[i] + 1`` (argmax when greedy)."""
+        sample = self._sample
+
+        def step_sample(logits, col, seeds):
+            if temperature <= 0:
+                return sample(logits, temperature, None, None, 0, 0)
+            return torch.cat([
+                sample(logits[i:i + 1], temperature, top_k, top_p,
+                       int(seeds[i]), int(col[i]) + 1)
+                for i in range(logits.shape[0])])
+
+        return step_sample
+
+    def _prefill(self, module, tokens, seed: int, rows: int,
+                 temperature: float, top_k, top_p):
+        """Batch-1 prefill of ``tokens`` (1, s) into a fresh (1, rows)
+        cache: ``(next (1,), last logits (1, vocab), cache)``, the next
+        token sampled at position s from the request's stream."""
+        pcache = self._new_cache(1, rows)
+        with torch.inference_mode():
+            last = module(tokens, cache=pcache)[:, -1]
+            nxt = self._sample(last, temperature, top_k, top_p, seed,
+                               tokens.shape[1])
+        return nxt, last, pcache
+
     def serve_cache(self, slots: int, cache_len: int) -> Cache:
         """Zero-initialized per-layer KV cache for a serving session."""
         self._require_built()
         return self._new_cache(slots, cache_len)
+
+    def serve_fns_paged(self, slots: int, cache_len: int, page_len: int,
+                        n_pages: int, temperature: float,
+                        top_k: Optional[int] = None,
+                        top_p: Optional[float] = None,
+                        kv_dtype: str = "bf16", module=None):
+        """Paged-KV counterpart of :meth:`serve_fns`: the per-layer cache
+        is one shared pool (:meth:`serve_cache_paged`) and each stream
+        owns an ordered page list, its block-table row. Returns ``(step,
+        prefill_for, join_paged, copy_page, sample_first)``:
+
+        - ``step(pool, tok, col, block_tables, seeds)``: one decode step
+          over the pool; ``tok``, ``col`` and ``seeds`` are host arrays
+          as in :meth:`serve_fns`, ``block_tables`` a ``(slots, width)``
+          long tensor on the model's device. The gather width is
+          ``width``: the session slices its tables to the page bucket of
+          the longest live stream. Rope, mask and sampling schedule are
+          the slot step's.
+        - ``prefill_for(s)`` -> ``prefill(tokens (1, s), seed) -> (next
+          (1,), last_logits (1, vocab), pcache)``; the prefix cache keeps
+          ``last_logits`` so an exact-prompt hit samples its first token
+          without the prefill.
+        - ``join_paged(pool, pcache, page_ids, start_row)`` writes the
+          prefill's rows ``[start_row, ...)`` into ``page_ids`` (a long
+          tensor on the device), in place; shared prefix pages are not
+          in ``page_ids``.
+        - ``copy_page(pool, src, dst)`` clones one page (a prefix hit's
+          partial tail page is copied on write).
+        - ``sample_first(logits (vocab,), seed, pos)`` is the prefill's
+          sampling epilogue alone: the token at ``pos`` from the
+          request's stream, the same draw the prefill would make.
+
+        ``kv_dtype="int8"`` pools hold int8 values and per-page-per-head
+        scales; the same five functions serve them.
+        """
+        self._require_built()
+        module = self.module if module is None else module
+        temperature = float(temperature)
+        step_sample = self._step_sampler(temperature, top_k, top_p)
+        kv_quant = kv_dtype == "int8"
+        dev = self.device
+
+        def step(pool, tok, col, block_tables, seeds):
+            col_t = torch.from_numpy(np.asarray(col, np.int64)).to(dev)
+            tok_t = torch.from_numpy(np.asarray(tok, np.int64)).to(dev)
+            with torch.inference_mode():
+                logits = module(tok_t, cache=pool, decode_pos=col_t,
+                                block_tables=block_tables)[:, 0]
+                return step_sample(logits, col, seeds)
+
+        def prefill_for(s: int):
+            # the prompt's pages only: the rows past s stay zero
+            rows = -(-s // page_len) * page_len
+
+            def prefill(tokens, seed: int):
+                return self._prefill(module, tokens, seed, rows,
+                                     temperature, top_k, top_p)
+
+            return prefill
+
+        def join_paged(pool, pcache, page_ids, start_row: int):
+            with torch.inference_mode():
+                for layer, (pk, pv) in zip(pool, pcache):
+                    if kv_quant:
+                        kp, vp, ks, vs = layer
+                        attn_ops.quantized_paged_prefill_write(
+                            kp, ks, pk[0], page_ids, start_row)
+                        attn_ops.quantized_paged_prefill_write(
+                            vp, vs, pv[0], page_ids, start_row)
+                    else:
+                        kp, vp = layer
+                        attn_ops.paged_prefill_write(kp, pk[0], page_ids,
+                                                     start_row)
+                        attn_ops.paged_prefill_write(vp, pv[0], page_ids,
+                                                     start_row)
+            return pool
+
+        def copy_page(pool, src: int, dst: int):
+            with torch.inference_mode():
+                for layer in pool:
+                    for t in layer:
+                        t[dst].copy_(t[src])
+            return pool
+
+        def sample_first(logits, seed: int, pos: int):
+            with torch.inference_mode():
+                return self._sample(logits[None], temperature, top_k,
+                                    top_p, seed, pos)[0]
+
+        return step, prefill_for, join_paged, copy_page, sample_first
+
+    def serve_cache_paged(self, n_pages: int, page_len: int,
+                          kv_dtype: str = "bf16") -> List[Tuple]:
+        """Zero-initialized shared KV page pool: per layer ``(k, v)``, each
+        ``(n_pages, page_len, kv_heads, head_dim)`` in the model's dtype,
+        or under ``kv_dtype="int8"`` ``(k, v, k_scale, v_scale)`` with
+        int8 pages and ``(n_pages, kv_heads)`` float32 scales (zero scales
+        dequantize to exact zeros)."""
+        self._require_built()
+        kv = self.n_kv_heads or self.n_heads
+        shape = (n_pages, page_len, kv, self.d_model // self.n_heads)
+        dev = self.device
+
+        def zeros(shp, dtype):
+            return torch.zeros(shp, dtype=dtype, device=dev)
+
+        if kv_dtype == "int8":
+            return [(zeros(shape, torch.int8), zeros(shape, torch.int8),
+                     zeros((n_pages, kv), torch.float32),
+                     zeros((n_pages, kv), torch.float32))
+                    for _ in range(self.n_layers)]
+        dtype = self.module.embed.weight.dtype
+        return [(zeros(shape, dtype), zeros(shape, dtype))
+                for _ in range(self.n_layers)]
+
+    def serving_module(self, weights: str = "bf16") -> nn.Module:
+        """The module a serving session with ``weights`` runs
+        (:func:`serving_module`)."""
+        self._require_built()
+        return serving_module(self.module, weights)
 
     # ------------------------------------------------------------------
     # artifact-store native protocol (catalog/artifacts.py)

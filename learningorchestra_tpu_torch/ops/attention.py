@@ -22,7 +22,9 @@ heads, ``kv | heads``.
   Any other input raises before a build or launch.
 - :func:`full_attention_reference` is the ``dot`` implementation.
 - :func:`decode_attention` is the serving plane's single-token op, left
-  as plain tensor ops exactly as the JAX package left it.
+  as plain tensor ops exactly as the JAX package left it, and so are
+  the paged KV ops around it (:func:`paged_decode_attention`, the page
+  writes, and the int8 pages of :func:`quantize_kv_pages`).
 """
 
 from __future__ import annotations
@@ -657,3 +659,180 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(scores, dim=-1)
     o = torch.einsum("bqhgk,bkhd->bqhgd", p, v_cache.float())
     return o.reshape(b, s, h, d).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged KV (vLLM layout): a shared (pages, page_len, kv, d) pool per layer
+# and a block table per stream. Plain tensor ops, as in the JAX package:
+# the gathered pages go through decode_attention's reduction, so masked
+# positions contribute exact zeros and a paged stream follows the slot
+# path's arithmetic.
+
+
+def paged_decode_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor,
+                           block_tables: torch.Tensor, col: torch.Tensor, *,
+                           pad_offset: Optional[torch.Tensor] = None,
+                           window: int = 0, scale: Optional[float] = None,
+                           max_pages: int = 0) -> torch.Tensor:
+    """:func:`decode_attention` over a paged KV pool.
+
+    ``k_pool``/``v_pool`` are ``(pages, page_len, kv_heads, d)``;
+    ``block_tables`` (``(b, n_pages)`` int) maps each row's logical cache
+    onto pool pages. The pages are gathered into the contiguous ``(b,
+    n_pages * page_len, kv, d)`` layout and fed through
+    :func:`decode_attention`. ``max_pages > 0`` clamps the gather to the
+    first ``max_pages`` table columns: every masked term past the highest
+    live ``col`` is an exact zero, so short streams need not gather long
+    streams' pages."""
+    if max_pages and max_pages < block_tables.shape[1]:
+        block_tables = block_tables[:, :max_pages]
+    b, n_pages = block_tables.shape
+    page_len, kv, d = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
+    k = k_pool[block_tables].reshape(b, n_pages * page_len, kv, d)
+    v = v_pool[block_tables].reshape(b, n_pages * page_len, kv, d)
+    return decode_attention(q, k, v, col, pad_offset=pad_offset,
+                            window=window, scale=scale)
+
+
+def checked_pool_cast(pool: torch.Tensor,
+                      values: torch.Tensor) -> torch.Tensor:
+    """``values`` in ``pool.dtype``, refusing raw floats into an integer
+    (quantized) pool: a bare cast would truncate activations to garbage
+    with no scale. The quantized writes scale first and never come
+    here."""
+    if not pool.dtype.is_floating_point and values.dtype.is_floating_point:
+        raise TypeError(
+            f"raw write of {values.dtype} values into a quantized "
+            f"{pool.dtype} KV pool — use the quantized_* ops, which "
+            f"scale per page/head before narrowing")
+    return values.to(pool.dtype)
+
+
+def paged_append_token(pool: torch.Tensor, new: torch.Tensor,
+                       block_tables: torch.Tensor, pos: torch.Tensor,
+                       page_len: int) -> torch.Tensor:
+    """Scatter one decode step's K (or V) rows ``new`` (``(b, kv, d)``)
+    into their pages, in place: row ``i`` lands at
+    ``pool[block_tables[i, pos[i] // page_len], pos[i] % page_len]``.
+    Returns ``pool``."""
+    rows = torch.arange(new.shape[0], device=new.device)
+    page = block_tables[rows, pos // page_len]
+    pool[page, pos % page_len] = checked_pool_cast(pool, new)
+    return pool
+
+
+def paged_prefill_write(pool: torch.Tensor, kv_rows: torch.Tensor,
+                        page_ids: torch.Tensor,
+                        start_row: int) -> torch.Tensor:
+    """Write a prefill's prompt K (or V) rows into pages, in place: rows
+    ``[start_row, start_row + n * page_len)`` of ``kv_rows`` (``(L, kv,
+    d)``) as ``n = len(page_ids)`` page chunks to ``pool[page_ids]``.
+    Shared prefix pages are not in ``page_ids`` and are never rewritten.
+    Returns ``pool``."""
+    n = page_ids.shape[0]
+    page_len = pool.shape[1]
+    chunk = kv_rows[start_row:start_row + n * page_len]
+    chunk = chunk.reshape((n, page_len) + tuple(kv_rows.shape[1:]))
+    pool[page_ids] = checked_pool_cast(pool, chunk)
+    return pool
+
+
+# ---------------------------------------------------------------------------
+# Quantized paged KV: int8 pages and a (pages, kv) float32 scale pool, one
+# symmetric scale per page per KV head. Dequantization runs in the bounded
+# gather, so only the gathered working set exists in float, and the
+# dequantized rows go through decode_attention's reduction.
+
+_QUANT_EPS = 1e-8
+
+
+def quantize_kv_pages(pages: torch.Tensor, eps: float = _QUANT_EPS
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization of ``(n, page_len, kv, d)`` pages:
+    ``(q int8, scales (n, kv) float32)`` with ``scale = max(amax / 127,
+    eps)`` over each page's ``(page_len, d)`` plane per KV head. It
+    divides by the scale and rounds half to even, as the JAX package
+    does, so both give the same int8 values; all-zero pages round-trip
+    to exact zeros."""
+    f = pages.float()
+    amax = f.abs().amax(dim=(1, 3))
+    scales = torch.clamp(amax / 127.0, min=eps)
+    scaled = f / scales[:, None, :, None]
+    q = torch.clamp(torch.round(scaled), -127, 127).to(torch.int8)
+    return q, scales
+
+
+def dequantize_kv_pages(q: torch.Tensor,
+                        scales: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`quantize_kv_pages`: float32 pages."""
+    return q.float() * scales[:, None, :, None]
+
+
+def quantized_paged_prefill_write(pool: torch.Tensor, scales: torch.Tensor,
+                                  kv_rows: torch.Tensor,
+                                  page_ids: torch.Tensor, start_row: int
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`paged_prefill_write` into an int8 pool: the page chunks are
+    quantized and their values and scales written to ``page_ids``, in
+    place. Rows past the prompt are exact zeros (the prefill cache starts
+    at zero), so a partial last page's scale reflects its live rows."""
+    n = page_ids.shape[0]
+    page_len = pool.shape[1]
+    chunk = kv_rows[start_row:start_row + n * page_len]
+    chunk = chunk.reshape((n, page_len) + tuple(kv_rows.shape[1:]))
+    q, s = quantize_kv_pages(chunk)
+    pool[page_ids] = q
+    scales[page_ids] = s
+    return pool, scales
+
+
+def quantized_paged_append_token(pool: torch.Tensor, scales: torch.Tensor,
+                                 new: torch.Tensor,
+                                 block_tables: torch.Tensor,
+                                 pos: torch.Tensor, page_len: int
+                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`paged_append_token` into an int8 pool, requantizing the
+    touched page in place: each stream's page is dequantized, masked to
+    its live rows (``row < pos % page_len``: a reused page may carry a
+    previous stream's rows), given the new row and quantized again. Rows
+    of retired streams all point at the trash page 0, which is never read
+    unmasked, so which duplicate write wins there does not matter."""
+    rows = torch.arange(new.shape[0], device=new.device)
+    page = block_tables[rows, pos // page_len]
+    slot = pos % page_len
+    cur = dequantize_kv_pages(pool[page], scales[page])
+    live = torch.arange(page_len, device=new.device)[None, :, None, None] \
+        < slot[:, None, None, None]
+    cur = torch.where(live, cur, 0.0)
+    cur[rows, slot] = new.float()
+    q, s = quantize_kv_pages(cur)
+    pool[page] = q
+    scales[page] = s
+    return pool, scales
+
+
+def quantized_paged_decode_attention(
+        q: torch.Tensor, k_pool: torch.Tensor, k_scales: torch.Tensor,
+        v_pool: torch.Tensor, v_scales: torch.Tensor,
+        block_tables: torch.Tensor, col: torch.Tensor, *,
+        pad_offset: Optional[torch.Tensor] = None, window: int = 0,
+        scale: Optional[float] = None, max_pages: int = 0) -> torch.Tensor:
+    """:func:`paged_decode_attention` over int8 pools: pages and their
+    scales are gathered together, multiplied out into the ``(b, width *
+    page_len, kv, d)`` float32 working set and fed through
+    :func:`decode_attention`. No pool-sized float copy exists."""
+    if max_pages and max_pages < block_tables.shape[1]:
+        block_tables = block_tables[:, :max_pages]
+    b, n_pages = block_tables.shape
+    page_len, kv, d = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
+
+    def gather(pool, pool_scales):
+        deq = pool[block_tables].float() * \
+            pool_scales[block_tables][:, :, None, :, None]
+        return deq.reshape(b, n_pages * page_len, kv, d)
+
+    return decode_attention(q, gather(k_pool, k_scales),
+                            gather(v_pool, v_scales), col,
+                            pad_offset=pad_offset, window=window,
+                            scale=scale)

@@ -1,5 +1,5 @@
-"""Named, ranked locks (the serving and job rows of the JAX package's
-``runtime/locks.py`` hierarchy).
+"""Named, ranked locks (the serving, job and fault-injection rows of the
+JAX package's ``runtime/locks.py`` hierarchy).
 
 :data:`HIERARCHY` ranks every named lock of the port: a thread acquires
 a lock only while every lock it holds has a strictly lower rank. The
@@ -21,8 +21,12 @@ HIERARCHY: Dict[str, int] = {
     "jobs.manager": 30,            # job registry
     "serving.manager": 50,         # session registry
     "serving.session": 60,         # per-session request cv
+    "serving.prefix": 75,          # prefix-cache index; eviction
+                                   # decrefs the pool under it
     "scheduler.fair": 80,          # the card lease's FIFO queue
+    "serving.kvpool": 90,          # paged-KV free list / refcounts
     "serving.latency": 100,        # per-session latency ring
+    "faults.spec": 360,            # fault-injection budget (leaf)
 }
 
 

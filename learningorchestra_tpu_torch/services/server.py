@@ -209,6 +209,13 @@ class _Handler(BaseHTTPRequestHandler):
         self._respond("DELETE")
 
 
+class _HTTPServer(ThreadingHTTPServer):
+    # connections the kernel holds before accept: a paged session serves
+    # tens of concurrent predicts, and past the socketserver default of
+    # 5 a client's connect waits out its SYN retry (a second)
+    request_queue_size = 128
+
+
 class RestServer:
     """Owns the HTTP server and its ServiceContext."""
 
@@ -217,7 +224,7 @@ class RestServer:
                  context: Optional[ServiceContext] = None):
         self.api = Api(context, device=device)
         handler = type("BoundHandler", (_Handler,), {"api": self.api})
-        self.httpd = ThreadingHTTPServer((host, port), handler)
+        self.httpd = _HTTPServer((host, port), handler)
         self._thread: Optional[threading.Thread] = None
 
     @property

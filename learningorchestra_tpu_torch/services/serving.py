@@ -1,5 +1,5 @@
-"""Resident LM serving with slot continuous batching (the slot session
-of the JAX package's ``services/serving.py``).
+"""Resident LM serving with continuous batching (the slot and paged
+sessions of the JAX package's ``services/serving.py``).
 
 :class:`LMServingSession` keeps a fitted language model and a fixed slot
 KV cache on the card. Every worker iteration admits queued requests into
@@ -9,10 +9,20 @@ retires finished requests. Per-slot position and sampling-stream
 bookkeeping replays the schedule ``LanguageModel.generate`` uses, so a
 slot's greedy tokens equal a solo decode of the same request.
 
-Admission control: a full queue rejects with 429, a closed session with
-503. Not ported yet: the paged, quantized, disaggregated and
+:class:`PagedLMServingSession` (``kv: "paged"``) runs the same loop over
+one shared pool of KV pages: :class:`PagedKVPool` (refcounted pages,
+page 0 the trash page, per-tenant charges), :class:`PrefixCache` (prompt
+pages shared between requests, a full hit skips the prefill), weighted-
+fair tenant quotas, int8 KV pages (``kvDtype``), int8 or fp8 serving
+weights (``weights``) under a drift gate, and the degrade ladder
+(quantized -> exact -> slot). ``"bf16"`` in ``kvDtype`` and ``weights``
+means exact: the model's own dtype.
+
+Admission control: a full queue or an unfunded request rejects with
+429, a closed session with 503. Not ported yet: the disaggregated and
 speculative sessions, bucketed classifier serving, the serving lease
-(one card has no slice to share), and the observability hooks.
+(one card has no slice to share), and the observability hooks (X-ray
+claims, histograms, per-tenant objectives, incident bundles).
 """
 
 from __future__ import annotations
@@ -20,19 +30,22 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Any, Deque, Dict, List, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from learningorchestra_tpu_torch.ops import attention as attn_ops
 from learningorchestra_tpu_torch.runtime import locks
+from learningorchestra_tpu_torch.services import faults
 from learningorchestra_tpu_torch.services import validators as V
 
 _IDLE_TICK_SECONDS = 0.05
 
-# create-body fields of JAX serving sessions this package does not run
-_UNPORTED_FIELDS = ("pageLen", "pages", "disagg", "draft", "specK",
-                    "prefillDevices", "sliceDevices")
+# create-body fields of JAX serving sessions this package does not run:
+# disaggregated and speculative serving, and slices of a mesh
+_UNPORTED_FIELDS = ("disagg", "draft", "specK", "prefillDevices",
+                    "sliceDevices")
 
 
 class LatencyTracker:
@@ -201,7 +214,7 @@ class LMServingSession(_SessionBase):
 
     def __init__(self, name: str, ctx, model, slots: int, cache_len: int,
                  temperature: float, top_k: Optional[int],
-                 top_p: Optional[float]):
+                 top_p: Optional[float], weights_dtype: str = "bf16"):
         super().__init__(name, ctx)
         self._model = model
         self.slots = int(slots)
@@ -209,18 +222,22 @@ class LMServingSession(_SessionBase):
         self.temperature = float(temperature)
         self.top_k = top_k
         self.top_p = top_p
-        self._step, self._prefill_for, self._join = model.serve_fns(
-            self.slots, self.cache_len, self.temperature, top_k, top_p)
-        self._cache = model.serve_cache(self.slots, self.cache_len)
-        self._param_bytes = int(sum(
-            p.numel() * p.element_size()
-            for p in model.module.parameters()))
+        # the module the session runs: the model's own for "bf16" (its
+        # exact dtype), else a copy with quantized matmul weights that
+        # each layer dequantizes in its forward; the master params stay
+        # untouched
+        self.weights_dtype = str(weights_dtype or "bf16")
+        self._serve_module = model.serving_module(self.weights_dtype)
+        self._param_bytes = _weight_bytes(self._serve_module)
+        self._init_decode_path()
         self.tokens_total = 0
         # decode goodput: every step advances ALL slots, only active
         # ones emit a useful token
         self.decode_steps = 0
         self.decode_tokens_total = 0
         self._decode_seconds = 0.0
+        # the most streams one decode step has advanced
+        self.peak_active = 0
         self._role_latency: Dict[str, LatencyTracker] = {}
         self._ttft = LatencyTracker()
         # host-side slot state (the device state is the KV cache)
@@ -231,6 +248,16 @@ class LMServingSession(_SessionBase):
         self._slot_out: List[List[int]] = [[] for _ in range(self.slots)]
         self._slot_left = np.zeros((self.slots,), np.int64)
         self._slot_t0 = [0.0] * self.slots
+
+    def _init_decode_path(self) -> None:
+        """The slot cache and the functions over it (the paged session
+        puts its page pool here instead)."""
+        self._step, self._prefill_for, self._join = \
+            self._model.serve_fns(self.slots, self.cache_len,
+                                  self.temperature, self.top_k, self.top_p,
+                                  module=self._serve_module)
+        self._cache = self._model.serve_cache(self.slots, self.cache_len)
+        self._cache_bytes = _tensor_bytes(self._cache)
 
     def _have_work(self) -> bool:
         return bool(self._queue) or any(
@@ -314,6 +341,16 @@ class LMServingSession(_SessionBase):
         })
         self._slot_out[slot] = []
 
+    def _pop_next(self) -> _Request:
+        """The next queued request (the caller holds ``self._cv``): FIFO
+        here; the paged session picks weighted-fair by tenant."""
+        return self._queue.popleft()
+
+    def _run_step(self) -> torch.Tensor:
+        """One continuous-batch step: every slot's next token, on the
+        device."""
+        return self._step(self._cache, self._tok, self._col, self._seeds)
+
     def _admit_loop(self) -> bool:
         admitted = False
         while True:
@@ -322,7 +359,7 @@ class LMServingSession(_SessionBase):
                         if r is None]
                 if not free or not self._queue:
                     break
-                req = self._queue.popleft()
+                req = self._pop_next()
             try:
                 self._admit(free[0], req)
                 admitted = True
@@ -338,11 +375,11 @@ class LMServingSession(_SessionBase):
 
     def _decode_round(self, active: List[int]) -> None:
         step_t0 = time.monotonic()
-        nxt = self._step(self._cache, self._tok, self._col,
-                         self._seeds).cpu().numpy()  # device sync
+        nxt = self._run_step().cpu().numpy()  # device sync
         self._decode_seconds += time.monotonic() - step_t0
         self.decode_steps += 1
         self.decode_tokens_total += len(active)
+        self.peak_active = max(self.peak_active, len(active))
         for slot in active:
             tok = int(nxt[slot])
             self._slot_out[slot].append(tok)
@@ -385,10 +422,11 @@ class LMServingSession(_SessionBase):
         out.update({
             "slots": self.slots,
             "activeSlots": len(self._active_slots()),
+            "peakActiveSlots": self.peak_active,
             "cacheLen": self.cache_len,
             "tokensTotal": self.tokens_total,
             "temperature": self.temperature,
-            "weights": {"dtype": "bf16",
+            "weights": {"dtype": self.weights_dtype,
                         "bytes": self._param_bytes},
             "ttft": self._ttft.snapshot(),
             "roles": {r: t.snapshot() for r, t in
@@ -397,11 +435,823 @@ class LMServingSession(_SessionBase):
         return out
 
 
+def _tensor_bytes(cache) -> int:
+    """Bytes of a KV cache or page pool (a list of per-layer tuples)."""
+    return int(sum(t.numel() * t.element_size()
+                   for layer in cache for t in layer))
+
+
+def _weight_bytes(module) -> int:
+    """Bytes of the weights a serving module keeps: its parameters, and
+    the values and scales of its quantized leaves."""
+    total = 0
+    for mod in module.modules():
+        leaf = getattr(mod, "leaf", None)
+        if isinstance(leaf, dict):
+            total += sum(leaf[k].numel() * leaf[k].element_size()
+                         for k in ("qvalue", "qscale"))
+        total += sum(p.numel() * p.element_size()
+                     for p in mod.parameters(recurse=False))
+    return int(total)
+
+
+class PoolExhausted(Exception):
+    """Not enough free KV pages for an allocation (the session turns
+    this into a 429 after trying prefix-cache eviction)."""
+
+
+def parse_tenant_weights(spec: str) -> Dict[str, float]:
+    """``LO_SERVE_TENANT_WEIGHTS="gold:3,free:1"`` -> weight map.
+    Unlisted tenants weigh 1; malformed entries are skipped."""
+    out: Dict[str, float] = {}
+    for part in str(spec or "").split(","):
+        part = part.strip()
+        if not part:
+            continue
+        name, _, w = part.partition(":")
+        try:
+            out[name.strip()] = max(float(w), 0.0) if w else 1.0
+        except ValueError:
+            continue
+    return out
+
+
+class PagedKVPool:
+    """Host-side allocator over the shared device KV page pool.
+
+    Page 0 is the trash page: the paged decode appends every lane's
+    token KV unconditionally, so idle and retired lanes' block tables
+    point at page 0, which is never handed out (what lands there is
+    masked to an exact zero by the attention). Pages are refcounted:
+    prefix-cache hits share prompt pages across streams and a page
+    returns to the free list when its last reference drops. Every
+    reference a tenant's stream holds counts against that tenant, so
+    sharing cannot game the weighted-fair quota. The ``kv_page_alloc``
+    fault site fires in :meth:`alloc`.
+
+    Allocation is the worker thread's alone; ``stats`` may be read from
+    REST threads, hence the lock.
+    """
+
+    def __init__(self, n_pages: int, page_len: int, dtype: str = "bf16",
+                 config=None):
+        if n_pages < 2:
+            raise ValueError(f"n_pages must be >= 2, got {n_pages}")
+        self.n_pages = int(n_pages)
+        self.page_len = int(page_len)
+        # value dtype of the device pool ("bf16" = the model's own, or
+        # "int8" with a parallel scale pool)
+        self.dtype = str(dtype or "bf16")
+        self._config = config
+        self._lock = locks.make_lock("serving.kvpool")
+        self._free: Deque[int] = collections.deque(range(1, self.n_pages))
+        self._refs: Dict[int, int] = {}
+        self._tenant_pages: Dict[str, int] = {}
+        self.alloc_total = 0
+        self.alloc_failures = 0
+        self.freed_total = 0
+
+    @property
+    def usable(self) -> int:
+        return self.n_pages - 1  # page 0 is the trash page
+
+    def free_count(self) -> int:
+        with self._lock:
+            return len(self._free)
+
+    def alloc(self, n: int, tenant: Optional[str] = None) -> List[int]:
+        """Take ``n`` pages off the free list (refcount 1 each). Raises
+        :class:`PoolExhausted` (the pool never over-commits) or
+        :class:`faults.InjectedFault` (site ``kv_page_alloc``)."""
+        faults.maybe_inject("kv_page_alloc", self._config)
+        with self._lock:
+            if n > len(self._free):
+                self.alloc_failures += 1
+                raise PoolExhausted(
+                    f"need {n} KV pages, {len(self._free)} free "
+                    f"of {self.usable}")
+            pages = [self._free.popleft() for _ in range(n)]
+            for p in pages:
+                self._refs[p] = 1
+            self.alloc_total += n
+            if tenant is not None:
+                self._charge(tenant, n)
+        return pages
+
+    def incref(self, pages: List[int],
+               tenant: Optional[str] = None) -> None:
+        with self._lock:
+            for p in pages:
+                self._refs[p] += 1
+            if tenant is not None:
+                self._charge(tenant, len(pages))
+
+    def decref(self, pages: List[int],
+               tenant: Optional[str] = None) -> None:
+        with self._lock:
+            for p in pages:
+                c = self._refs.get(p, 0) - 1
+                if c <= 0:
+                    self._refs.pop(p, None)
+                    self._free.append(p)
+                    self.freed_total += 1
+                else:
+                    self._refs[p] = c
+            if tenant is not None:
+                self._charge(tenant, -len(pages))
+
+    def _charge(self, tenant: str, n: int) -> None:
+        cur = self._tenant_pages.get(tenant, 0) + n
+        if cur <= 0:
+            self._tenant_pages.pop(tenant, None)
+        else:
+            self._tenant_pages[tenant] = cur
+
+    def tenant_pages(self, tenant: str) -> int:
+        with self._lock:
+            return self._tenant_pages.get(tenant, 0)
+
+    def tenants(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._tenant_pages)
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "dtype": self.dtype,
+                "pageLen": self.page_len,
+                "pagesTotal": self.usable,
+                "pagesFree": len(self._free),
+                "pagesShared": sum(
+                    1 for c in self._refs.values() if c > 1),
+                "allocTotal": self.alloc_total,
+                "allocFailures": self.alloc_failures,
+                "freedTotal": self.freed_total,
+            }
+
+
+class PrefixCache:
+    """Page-granular prompt-prefix cache over the refcounted pool.
+
+    - A full hit (the exact prompt seen before) skips the prefill: the
+      entry holds the prompt's full pages (shared read-only: a full
+      page's positions are never written after the prefill), its
+      partially filled tail page and the prefill's final logit row. The
+      new stream increfs the full pages, copies the tail page (its
+      donor's decode rows past the prompt are position-masked until
+      overwritten) and samples its first token from the cached logits
+      under its own stream, the draw the prefill would have made.
+    - A partial hit (the longest cached run of full pages that prefixes
+      the prompt) still runs the prefill, but the shared pages are
+      increfed and the page write starts after them. Prefill KV at a
+      position depends only on the tokens at or before it.
+
+    Entries hold their own page references, so a donor's retirement
+    never invalidates one; LRU entries are evicted under pool pressure
+    before the session answers 429. Every mutation runs under the
+    ``serving.prefix`` lock, below the pool's.
+    """
+
+    def __init__(self, pool: PagedKVPool, page_len: int,
+                 max_entries: int = 64):
+        self._pool = pool
+        self._page_len = int(page_len)
+        self._max = int(max_entries)
+        self._lock = locks.make_lock("serving.prefix")
+        # prompt tuple -> {fullPages, tailPage, logits, held}
+        self._entries: "collections.OrderedDict" = \
+            collections.OrderedDict()
+        self._chains: Dict[Tuple[int, ...], Tuple[int, ...]] = {}
+        self.hits_full = 0
+        self.hits_partial = 0
+        self.pages_reused = 0
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def lookup_full(self, prompt: List[int]) -> Optional[Dict[str, Any]]:
+        with self._lock:
+            entry = self._entries.get(tuple(prompt))
+            if entry is not None:
+                self._entries.move_to_end(tuple(prompt))
+                self.hits_full += 1
+                self.pages_reused += len(entry["fullPages"])
+            return entry
+
+    def lookup_partial(
+            self, prompt: List[int]) -> Tuple[Optional[List[int]], int]:
+        """Longest cached chain of full pages prefixing ``prompt`` ->
+        (pages, n_pages); (None, 0) on a miss. No references are taken
+        here: the caller increfs once it commits to the admission."""
+        pl = self._page_len
+        with self._lock:
+            for k in range(len(prompt) // pl, 0, -1):
+                key = self._chains.get(tuple(prompt[:k * pl]))
+                if key is None:
+                    continue
+                entry = self._entries.get(key)
+                if entry is None or len(entry["fullPages"]) < k:
+                    continue
+                self._entries.move_to_end(key)
+                self.hits_partial += 1
+                self.pages_reused += k
+                return list(entry["fullPages"][:k]), k
+            return None, 0
+
+    def insert(self, prompt: List[int], full_pages: List[int],
+               tail_page: Optional[int], logits: torch.Tensor) -> None:
+        key = tuple(prompt)
+        with self._lock:
+            if key in self._entries:
+                self._entries.move_to_end(key)
+                return
+            held = list(full_pages)
+            if tail_page is not None:
+                held.append(tail_page)
+            self._pool.incref(held)  # the cache's own hold, no tenant
+            self._entries[key] = {
+                "fullPages": list(full_pages), "tailPage": tail_page,
+                "logits": logits, "held": held}
+            pl = self._page_len
+            for k in range(1, len(full_pages) + 1):
+                self._chains[key[:k * pl]] = key
+            while len(self._entries) > self._max:
+                self._evict_one_locked()
+
+    def _evict_one_locked(self) -> bool:
+        if not self._entries:
+            return False
+        key, entry = self._entries.popitem(last=False)
+        pl = self._page_len
+        for k in range(1, len(entry["fullPages"]) + 1):
+            if self._chains.get(key[:k * pl]) == key:
+                del self._chains[key[:k * pl]]
+        self._pool.decref(entry["held"])
+        return True
+
+    def evict_one(self) -> bool:
+        """Drop the LRU entry and release its page references. False
+        when the cache is already empty."""
+        with self._lock:
+            return self._evict_one_locked()
+
+    def stats(self) -> Dict[str, Any]:
+        with self._lock:
+            return {"entries": len(self._entries),
+                    "hitsFull": self.hits_full,
+                    "hitsPartial": self.hits_partial,
+                    "pagesReused": self.pages_reused}
+
+
+class PagedLMServingSession(LMServingSession):
+    """Paged-KV continuous batcher (``kv: "paged"``).
+
+    The same iteration loop and token streams as the slot session, but
+    the per-layer KV cache is one shared ``(pages, page_len, kv, d)``
+    pool and each stream owns exactly ``ceil((prompt + maxNew) /
+    page_len)`` pages through its block-table row, so concurrency is
+    bounded by actual token demand, not ``slots x cacheLen``. The block
+    tables live on the card and change only at admission and
+    retirement. On top of the pool: prompt prefix caching
+    (:class:`PrefixCache`) and weighted-fair per-tenant quotas over the
+    page budget, with per-tenant latency trackers.
+
+    Quantized sessions (``kvDtype: "int8"``, ``weights: "int8"|"fp8"``)
+    measure their drift against the exact path at create and every
+    ``serve_drift_every`` steps. The degrade ladder: a latched
+    ``kv_quant`` fault or a drift breach rebuilds the session over exact
+    pages and weights; a latched ``kv_page_alloc`` fault rebuilds it over
+    the slot cache. In-flight streams fail with 503 either way.
+    """
+
+    _DEGRADE_AFTER = 3
+    _MAX_TENANT_SERIES = 32
+
+    def __init__(self, name: str, ctx, model, slots: int, cache_len: int,
+                 temperature: float, top_k: Optional[int],
+                 top_p: Optional[float], page_len: int, n_pages: int,
+                 tenant_weights: Optional[Dict[str, float]] = None,
+                 kv_dtype: str = "bf16", weights_dtype: str = "bf16"):
+        # read by _init_decode_path, which the base __init__ calls
+        self.page_len = int(page_len)
+        self.n_pages = int(n_pages)
+        self.kv_dtype = str(kv_dtype or "bf16")
+        self._tenant_weights = dict(tenant_weights or {})
+        self._tenant_latency: Dict[str, LatencyTracker] = {}
+        self._tenant_requests: Dict[str, int] = {}
+        self._adhoc_tenants: set = set()
+        # drift gate state (quantized sessions): the last measured
+        # quantized-vs-exact drift, its parts, and the probe countdown
+        self._last_drift: Optional[float] = None
+        self._drift_parts: Dict[str, float] = {}
+        self._drift_probes = 0
+        self.quant_degrades = 0
+        super().__init__(name, ctx, model, slots, cache_len, temperature,
+                         top_k, top_p, weights_dtype=weights_dtype)
+        # a quantized session measures its drift before it serves: a bad
+        # quantization degrades at create, not in a user's stream
+        self._maybe_probe_drift()
+
+    def _init_decode_path(self) -> None:
+        if self.cache_len % self.page_len:
+            raise ValueError(
+                f"cacheLen={self.cache_len} must be a multiple of "
+                f"pageLen={self.page_len}")
+        model = self._model
+        (self._pstep, self._pprefill_for, self._pjoin, self._copy_page,
+         self._sample_first) = model.serve_fns_paged(
+            self.slots, self.cache_len, self.page_len, self.n_pages,
+            self.temperature, self.top_k, self.top_p,
+            kv_dtype=self.kv_dtype, module=self._serve_module)
+        self._pool = model.serve_cache_paged(self.n_pages, self.page_len,
+                                             kv_dtype=self.kv_dtype)
+        self._cache_bytes = _tensor_bytes(self._pool)
+        self.pool = PagedKVPool(self.n_pages, self.page_len,
+                                dtype=self.kv_dtype,
+                                config=self._ctx.config)
+        self.prefix = PrefixCache(self.pool, self.page_len)
+        self._pages_per_slot = self.cache_len // self.page_len
+        # block tables: the host copy, and the device copy the step reads
+        # (written at admission and retirement only)
+        self._bt = np.zeros((self.slots, self._pages_per_slot), np.int64)
+        self._bt_dev = torch.zeros((self.slots, self._pages_per_slot),
+                                   dtype=torch.long,
+                                   device=self._model.device)
+        self._slot_pages: List[List[int]] = [[] for _ in range(self.slots)]
+        self._slot_tenant: List[Optional[str]] = [None] * self.slots
+        self._alloc_fault_streak = 0
+        self._quant_fault_streak = 0
+        self._degraded = False
+        self.prefills_skipped = 0
+        self._steps_since_probe = 0
+
+    def _set_table(self, slot: int, row: List[int]) -> None:
+        self._bt[slot, :] = 0
+        self._bt[slot, :len(row)] = row
+        self._bt_dev[slot] = torch.from_numpy(self._bt[slot]).to(
+            self._bt_dev.device)
+
+    # -- tenants -------------------------------------------------------
+    @staticmethod
+    def _tenant_of(payload: Dict[str, Any]) -> str:
+        return str(payload.get("tenant") or "default")
+
+    def _weight(self, tenant: str) -> float:
+        return max(1e-6, float(self._tenant_weights.get(tenant, 1.0)))
+
+    def _tenant_series(self, tenant: str) -> str:
+        """Bounded cardinality for a client-controlled field: tenants
+        named in ``LO_SERVE_TENANT_WEIGHTS`` and the first
+        ``_MAX_TENANT_SERIES`` other names get their own latency series;
+        the rest share ``other``. Quotas keep the raw tenant."""
+        if tenant in self._tenant_weights or \
+                tenant in self._adhoc_tenants:
+            return tenant
+        if len(self._adhoc_tenants) < self._MAX_TENANT_SERIES:
+            self._adhoc_tenants.add(tenant)
+            return tenant
+        return "other"
+
+    def validate_request(self, payload: Dict[str, Any]) -> None:
+        super().validate_request(payload)
+        tenant = payload.get("tenant")
+        if tenant is not None and (
+                not isinstance(tenant, str) or not tenant
+                or len(tenant) > 64):
+            raise V.HttpError(
+                V.HTTP_NOT_ACCEPTABLE,
+                f"{V.MESSAGE_INVALID_FIELD}: tenant must be a "
+                f"non-empty string of <= 64 chars")
+
+    def submit(self, payload: Dict[str, Any],
+               timeout: Optional[float] = None) -> Dict[str, Any]:
+        tenant = self._tenant_of(payload)
+        t0 = time.monotonic()
+        result = super().submit(payload, timeout=timeout)
+        # REST threads share the tenant series
+        with self._cv:
+            series = self._tenant_series(tenant)
+            tracker = self._tenant_latency.get(series)
+            if tracker is None:
+                tracker = self._tenant_latency[series] = LatencyTracker()
+            self._tenant_requests[series] = \
+                self._tenant_requests.get(series, 0) + 1
+        tracker.record(time.monotonic() - t0)
+        return result
+
+    def _quota_check(self, tenant: str, need: int) -> None:
+        """Weighted-fair admission over the page budget: with more than
+        one live tenant, each may hold at most ``usable * w_t / sum(w)``
+        pages, so an abusive tenant exhausts its own quota (429) and
+        cannot starve another. A sole tenant may use the whole pool."""
+        live = set(self.pool.tenants())
+        live.add(tenant)
+        if len(live) < 2:
+            return
+        total_w = sum(self._weight(t) for t in live)
+        quota = int(self.pool.usable * self._weight(tenant) / total_w)
+        used = self.pool.tenant_pages(tenant)
+        if used + need > quota:
+            self.rejected_total += 1
+            raise V.HttpError(
+                V.HTTP_TOO_MANY_REQUESTS,
+                f"tenant {tenant!r} over its weighted page quota "
+                f"({used}+{need} > {quota} of {self.pool.usable} "
+                f"pages) — retry with backoff")
+
+    def _pop_next(self) -> _Request:
+        # weighted-fair pick: the queued request whose tenant holds the
+        # fewest pages per unit weight goes first (FIFO within a tenant)
+        if self._degraded or len(self._queue) <= 1:
+            return self._queue.popleft()
+        best_i = 0
+        best_key: Optional[Tuple[float, int]] = None
+        for i, req in enumerate(self._queue):
+            tenant = self._tenant_of(req.payload)
+            k = (self.pool.tenant_pages(tenant) / self._weight(tenant), i)
+            if best_key is None or k < best_key:
+                best_i, best_key = i, k
+        req = self._queue[best_i]
+        del self._queue[best_i]
+        return req
+
+    # -- paged admission -----------------------------------------------
+    def _alloc_pages(self, need: int, tenant: str) -> List[int]:
+        try:
+            pages = self.pool.alloc(need, tenant)
+            self._alloc_fault_streak = 0
+            return pages
+        except faults.InjectedFault as exc:
+            self._alloc_fault_streak += 1
+            if self._alloc_fault_streak >= self._DEGRADE_AFTER:
+                self._degrade_to_slot()
+            self.rejected_total += 1
+            raise V.HttpError(
+                V.HTTP_TOO_MANY_REQUESTS,
+                f"KV page allocation failed ({exc}) — retry with "
+                f"backoff")
+        except PoolExhausted as exc:
+            # prefix-cache holds are the reclaimable tier: drop LRU
+            # entries before rejecting
+            while self.prefix.evict_one():
+                try:
+                    pages = self.pool.alloc(need, tenant)
+                    self._alloc_fault_streak = 0
+                    return pages
+                except PoolExhausted as retry_exc:
+                    exc = retry_exc
+            self.rejected_total += 1
+            raise V.HttpError(
+                V.HTTP_TOO_MANY_REQUESTS,
+                f"KV page pool exhausted ({exc}) — retry with "
+                f"backoff")
+
+    def _admit(self, slot: int, req: _Request) -> None:
+        if self._degraded:
+            return super()._admit(slot, req)
+        self._install(slot, self._prepare(req))
+
+    def _prepare(self, req: _Request) -> Dict[str, Any]:
+        """Funding and prefill compute of one admission, without
+        touching the pool tensors: quota check, prefix lookup and page
+        pins, page allocation, the prefill forward. Returns the record
+        :meth:`_install` consumes. On any failure every page reference
+        this admission took is released before the error propagates."""
+        if self.kv_dtype == "int8":
+            # the quantized plane's fault site: a transient fault is a
+            # retryable 429; a latched one walks the degrade ladder back
+            # to exact pages and weights
+            try:
+                faults.maybe_inject("kv_quant", self._ctx.config)
+                self._quant_fault_streak = 0
+            except faults.InjectedFault as exc:
+                self._quant_fault_streak += 1
+                if self._quant_fault_streak >= self._DEGRADE_AFTER:
+                    self._degrade_to_exact(
+                        f"kv_quant fault latched ({exc})")
+                self.rejected_total += 1
+                raise V.HttpError(
+                    V.HTTP_TOO_MANY_REQUESTS,
+                    f"quantized KV path fault ({exc}) — retry with "
+                    f"backoff")
+        admit_t0 = time.monotonic()
+        payload = req.payload
+        prompt = list(payload["prompt"])
+        new = int(payload.get("maxNewTokens") or 32)
+        seed = int(payload.get("seed", 0))
+        tenant = self._tenant_of(payload)
+        keep = self.cache_len - new
+        if len(prompt) > keep:
+            prompt = prompt[-keep:]
+        s = len(prompt)
+        pl = self.page_len
+        # exactly the tokens this request can touch
+        total_pages = -(-(s + new) // pl)
+
+        entry = self.prefix.lookup_full(prompt)
+        if entry is not None:
+            shared = list(entry["fullPages"])
+            donor_tail = entry["tailPage"]
+        else:
+            shared, _ = self.prefix.lookup_partial(prompt)
+            shared = shared or []
+            donor_tail = None
+        n_shared = len(shared)
+        # pin the looked-up pages before quota and allocation: under
+        # pressure _alloc_pages evicts prefix entries, maybe the one
+        # backing this admission, and its pages must not come back as
+        # fresh ones. The donor tail pin lasts until the copy and is
+        # not charged to the tenant
+        if shared:
+            self.pool.incref(shared, tenant)
+        if donor_tail is not None:
+            self.pool.incref([donor_tail])
+        fresh: List[int] = []
+        try:
+            self._quota_check(tenant, total_pages - n_shared)
+            fresh = self._alloc_pages(total_pages - n_shared, tenant)
+            row = shared + fresh
+            rec: Dict[str, Any] = {
+                "req": req, "s": s, "new": new, "seed": seed,
+                "tenant": tenant, "row": row, "fresh": fresh,
+                "nShared": n_shared, "donorTail": donor_tail,
+                "donorLogits": None, "admitT0": admit_t0, "first": None,
+                "pcache": None, "writePages": [], "insert": None}
+            if entry is not None:
+                # full hit: no prefill; the tail copy and the first
+                # token's draw run in _install
+                rec["donorLogits"] = entry["logits"]
+                self.prefills_skipped += 1
+            else:
+                tokens = torch.tensor([prompt], dtype=torch.long,
+                                      device=self._model.device)
+                nxt, last_logits, pcache = self._pprefill_for(s)(tokens,
+                                                                 seed)
+                n_prefill_pages = -(-s // pl)
+                rec["writePages"] = row[n_shared:n_prefill_pages]
+                rec["pcache"] = pcache
+                rec["first"] = int(nxt[0])
+                n_full = s // pl
+                tail_page = row[n_full] if s % pl else None
+                rec["insert"] = (prompt, row[:n_full], tail_page,
+                                 last_logits[0])
+            return rec
+        except BaseException:
+            # quota reject, allocation failure or a prefill error:
+            # release every reference this admission took, or the pool
+            # shrinks and the tenant's charge stays
+            if shared or fresh:
+                self.pool.decref(shared + fresh, tenant)
+            if donor_tail is not None:
+                self.pool.decref([donor_tail])
+            raise
+
+    def _install(self, slot: int, rec: Dict[str, Any]) -> None:
+        """Pool writes of an admission (the prefill's pages, or the
+        tail-page copy of a full hit), the prefix insert, and the slot's
+        state."""
+        req = rec["req"]
+        row, tenant = rec["row"], rec["tenant"]
+        try:
+            if rec["donorLogits"] is not None:
+                if rec["donorTail"] is not None:
+                    self._copy_page(self._pool, rec["donorTail"],
+                                    rec["fresh"][0])
+                first = int(self._sample_first(rec["donorLogits"],
+                                               rec["seed"], rec["s"]))
+            else:
+                if rec["writePages"]:
+                    self._pjoin(self._pool, rec["pcache"],
+                                torch.tensor(rec["writePages"],
+                                             dtype=torch.long,
+                                             device=self._model.device),
+                                rec["nShared"] * self.page_len)
+                first = rec["first"]
+                if rec["insert"] is not None:
+                    # shareable only once its pages are written
+                    self.prefix.insert(*rec["insert"])
+        except BaseException:
+            self.pool.decref(row, tenant)
+            if rec["donorTail"] is not None:
+                self.pool.decref([rec["donorTail"]])
+            raise
+        if rec["donorTail"] is not None:
+            self.pool.decref([rec["donorTail"]])
+        now = time.monotonic()
+        self._record_role("prefill", now - rec["admitT0"])
+        self._ttft.record(now - req.queued_at)
+        self._slot_req[slot] = req
+        self._slot_out[slot] = [first]
+        self._slot_left[slot] = rec["new"] - 1
+        self._slot_t0[slot] = now
+        self._tok[slot, 0] = first
+        self._col[slot] = rec["s"]
+        self._seeds[slot] = rec["seed"]
+        self._set_table(slot, row)
+        self._slot_pages[slot] = row
+        self._slot_tenant[slot] = tenant
+        self.tokens_total += 1
+        if self._slot_left[slot] <= 0:
+            self._retire(slot)
+
+    def _retire(self, slot: int) -> None:
+        if not self._degraded:
+            pages = self._slot_pages[slot]
+            if pages:
+                self.pool.decref(pages, self._slot_tenant[slot])
+            self._slot_pages[slot] = []
+            self._slot_tenant[slot] = None
+            if self._bt[slot].any():
+                self._set_table(slot, [])  # lane appends go to page 0
+        super()._retire(slot)
+
+    def _gather_width(self) -> int:
+        """Pages each step gathers: the power-of-2 bucket that covers
+        the longest live stream, so short streams never read long
+        streams' pages."""
+        need = 1
+        for slot in range(self.slots):
+            if self._slot_req[slot] is not None:
+                need = max(need, int(self._col[slot]) // self.page_len + 1)
+        width = 1
+        while width < need:
+            width *= 2
+        return min(width, self._pages_per_slot)
+
+    def _run_step(self) -> torch.Tensor:
+        if self._degraded:
+            return super()._run_step()
+        # the periodic quality gate, before the step: a breach degrades
+        # here and the step runs on the rebuilt exact path
+        self._steps_since_probe += 1
+        if self._steps_since_probe >= max(
+                1, int(self._ctx.config.serve_drift_every)):
+            self._maybe_probe_drift()
+        width = self._gather_width()
+        return self._pstep(self._pool, self._tok, self._col,
+                           self._bt_dev[:, :width], self._seeds)
+
+    # -- degrade ladder ------------------------------------------------
+    def _fail_streams(self, why: str) -> None:
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            self._slot_req[slot] = None
+            self._slot_out[slot] = []
+            self._slot_pages[slot] = []
+            self._slot_tenant[slot] = None
+            if req is not None:
+                req.fail(V.HttpError(V.HTTP_UNAVAILABLE, why))
+        self._tok[:] = 0
+        self._col[:] = 0
+        self._seeds[:] = 0
+        self._slot_left[:] = 0
+
+    def _degrade_to_slot(self) -> None:
+        """Latched ``kv_page_alloc``: fail the in-flight paged streams,
+        drop the pool, and serve every later request on the slot cache
+        (one rung down the ladder, never an outage)."""
+        if self._degraded:
+            return
+        self._degraded = True
+        self._fail_streams("session degraded to the slot KV path "
+                           "mid-stream (kv_page_alloc latched) — retry")
+        self._pool = None  # free the pool before the slot cache
+        LMServingSession._init_decode_path(self)
+
+    def _degrade_to_exact(self, reason: str) -> None:
+        """Latched ``kv_quant`` fault or drift breach: rebuild the same
+        paged machinery over exact pages and weights (the model's own
+        dtype). In-flight quantized streams fail with a retryable 503 and
+        the pool, prefix cache and block tables start anew."""
+        if self.kv_dtype == "bf16" and self.weights_dtype == "bf16":
+            return
+        self._fail_streams(f"session degraded to exact serving "
+                           f"mid-stream ({reason}) — retry")
+        self.kv_dtype = "bf16"
+        self._pool = None  # free the int8 pool before the exact one
+        if self.weights_dtype != "bf16":
+            self.weights_dtype = "bf16"
+            self._serve_module = self._model.serving_module("bf16")
+            self._param_bytes = _weight_bytes(self._serve_module)
+        PagedLMServingSession._init_decode_path(self)
+        self.quant_degrades += 1
+
+    # -- quantization quality gate -------------------------------------
+    def _maybe_probe_drift(self) -> None:
+        """Measure quantized-vs-exact drift and degrade on a breach.
+        A no-op for exact sessions."""
+        self._steps_since_probe = 0
+        if self._degraded or (self.kv_dtype == "bf16"
+                              and self.weights_dtype == "bf16"):
+            return
+        drift, parts = self._measure_drift()
+        self._last_drift = drift
+        self._drift_parts = parts
+        self._drift_probes += 1
+        limit = float(self._ctx.config.serve_drift_max or 0.0)
+        if limit > 0 and drift > limit:
+            self._degrade_to_exact(f"probe drift {drift:.4f} > "
+                                   f"LO_SERVE_DRIFT_MAX={limit:g}")
+
+    def _measure_drift(self) -> Tuple[float, Dict[str, float]]:
+        """Relative L1 drift, quantized against exact, per part:
+
+        - ``kv``: one paged decode-attention step over a held random KV
+          probe, int8 pages with the dequantizing gather against the
+          exact pages (no session state is touched);
+        - ``weights``: the final logit row of a held probe prompt through
+          the session's module against the model's own.
+
+        The probes come from a fixed seed, so repeated probes measure the
+        quantization, not sampling noise."""
+        parts: Dict[str, float] = {}
+        rng = np.random.default_rng(0)
+        dev = self._model.device
+
+        def rel(a, b):
+            a, b = a.float(), b.float()
+            return float((a - b).abs().mean() / (a.abs().mean() + 1e-9))
+
+        with torch.inference_mode():
+            if self.kv_dtype == "int8":
+                _, pl, kv, d = self._pool[0][0].shape
+                heads = int(self._model.n_heads)
+                n_probe = 4
+
+                def normal(*shape):
+                    return torch.from_numpy(rng.normal(size=shape).astype(
+                        np.float32)).to(dev)
+
+                kp, vp = normal(n_probe, pl, kv, d), normal(n_probe, pl,
+                                                            kv, d)
+                bt = torch.arange(n_probe, device=dev)[None, :]
+                col = torch.tensor([n_probe * pl - 1], device=dev)
+                q = normal(1, 1, heads, d)
+                exact = attn_ops.paged_decode_attention(q, kp, vp, bt, col)
+                kq, ks = attn_ops.quantize_kv_pages(kp)
+                vq, vs = attn_ops.quantize_kv_pages(vp)
+                quant = attn_ops.quantized_paged_decode_attention(
+                    q, kq, ks, vq, vs, bt, col)
+                parts["kv"] = rel(exact, quant)
+            if self.weights_dtype != "bf16":
+                probe_len = max(1, min(8, self.cache_len - 1))
+                prompt = torch.from_numpy(rng.integers(
+                    1, int(self._model.vocab_size),
+                    size=(1, probe_len))).to(dev)
+                exact = self._model.module(prompt)[:, -1]
+                quant = self._serve_module(prompt)[:, -1]
+                parts["weights"] = rel(exact, quant)
+        drift = max(parts.values()) if parts else 0.0
+        return drift, parts
+
+    def stats(self) -> Dict[str, Any]:
+        out = super().stats()
+        with self._cv:
+            latency = dict(self._tenant_latency)
+            requests = dict(self._tenant_requests)
+        tenants: Dict[str, Any] = {}
+        for t in sorted(set(self.pool.tenants()) | set(latency)):
+            tracker = latency.get(t)
+            tenants[t] = {
+                "weight": self._weight(t),
+                "pages": self.pool.tenant_pages(t),
+                "requests": requests.get(t, 0),
+                "latency": tracker.snapshot() if tracker else
+                {"count": 0, "p50Ms": 0.0, "p99Ms": 0.0},
+            }
+        kv = self.pool.stats()
+        kv["mode"] = "slot-degraded" if self._degraded else "paged"
+        # bytes resident per token of KV capacity (int8 pages with their
+        # scales, or the exact pool)
+        denom = (self.slots * self.cache_len if self._degraded
+                 else self.n_pages * self.page_len)
+        kv["bytesPerToken"] = round(
+            self._cache_bytes / float(max(1, denom)), 3)
+        prefix = self.prefix.stats()
+        prefix["prefillsSkipped"] = self.prefills_skipped
+        kv["prefix"] = prefix
+        kv["tenants"] = tenants
+        out["kv"] = kv
+        out["quant"] = {"degrades": self.quant_degrades,
+                        "kv": self.kv_dtype,
+                        "weights": self.weights_dtype}
+        if self._last_drift is not None:
+            out["drift"] = {
+                "value": round(self._last_drift, 6),
+                "parts": {k: round(v, 6)
+                          for k, v in self._drift_parts.items()},
+                "probes": self._drift_probes,
+                "max": float(self._ctx.config.serve_drift_max or 0.0),
+            }
+        return out
+
+
 def _not_ported(what: str) -> V.HttpError:
     return V.HttpError(
         V.HTTP_NOT_ACCEPTABLE,
         f"{V.MESSAGE_INVALID_FIELD}: {what} is not yet ported to the "
-        f"PyTorch serving plane (slot KV with bf16 weights only)")
+        f"PyTorch serving plane (slot and paged LM sessions only)")
 
 
 class ServingManager:
@@ -466,27 +1316,51 @@ class ServingManager:
         temperature, top_k, top_p = V.valid_sampling(body)
         if top_k is not None and top_k >= instance.vocab_size:
             top_k = None
-        kv_mode = str(body.get("kv") or "slot")
+        unported = [f for f in _UNPORTED_FIELDS if body.get(f) is not None]
+        if unported:
+            raise _not_ported(", ".join(unported))
+        cfg = self._ctx.config
+        kv_mode = str(body.get("kv") or cfg.serve_kv or "slot")
         if kv_mode not in ("slot", "paged"):
             raise V.HttpError(
                 V.HTTP_NOT_ACCEPTABLE,
                 f"{V.MESSAGE_INVALID_FIELD}: kv must be 'slot' or "
                 f"'paged', got {kv_mode!r}")
+        # "bf16" means exact: the model's own dtype
         kv_dtype = V.valid_choice(body.get("kvDtype"), "kvDtype",
-                                  ("bf16", "int8"), default="bf16")
+                                  ("bf16", "int8"),
+                                  default=str(cfg.serve_kv_dtype or "bf16"))
         weights = V.valid_choice(body.get("weights"), "weights",
-                                 ("bf16", "int8", "fp8"), default="bf16")
-        if kv_mode != "slot":
-            raise _not_ported(f"kv={kv_mode!r}")
-        if kv_dtype != "bf16":
-            raise _not_ported(f"kvDtype={kv_dtype!r}")
-        if weights != "bf16":
-            raise _not_ported(f"weights={weights!r}")
-        unported = [f for f in _UNPORTED_FIELDS if body.get(f) is not None]
-        if unported:
-            raise _not_ported(", ".join(unported))
+                                 ("bf16", "int8", "fp8"),
+                                 default=str(cfg.serve_weights or "bf16"))
+        if kv_mode != "paged" and kv_dtype != "bf16" and \
+                body.get("kvDtype") is not None:
+            raise V.HttpError(
+                V.HTTP_NOT_ACCEPTABLE,
+                f"{V.MESSAGE_INVALID_FIELD}: kvDtype={kv_dtype!r} "
+                f"needs the paged KV path (kv='paged') — the slot "
+                f"cache is bf16-only")
+        if kv_mode == "paged":
+            page_len = V.valid_positive_int(
+                body.get("pageLen"), "pageLen",
+                default=int(cfg.serve_page_len))
+            # block tables hold whole pages
+            cache_len = max(page_len, (cache_len // page_len) * page_len)
+            pages_per = cache_len // page_len
+            # 0 = the slot cache's bytes (slots x pages per stream) plus
+            # the trash page
+            n_pages = V.valid_positive_int(
+                body.get("pages"), "pages",
+                default=int(cfg.serve_pages) or slots * pages_per + 1)
+            n_pages = max(n_pages, pages_per + 1)
+            return PagedLMServingSession(
+                model_name, self._ctx, instance, slots, cache_len,
+                temperature, top_k, top_p, page_len, n_pages,
+                parse_tenant_weights(cfg.serve_tenant_weights),
+                kv_dtype=kv_dtype, weights_dtype=weights)
         return LMServingSession(model_name, self._ctx, instance, slots,
-                                cache_len, temperature, top_k, top_p)
+                                cache_len, temperature, top_k, top_p,
+                                weights_dtype=weights)
 
     def predict(self, model_name: str,
                 body: Dict[str, Any]) -> Dict[str, Any]:

@@ -145,8 +145,7 @@ _SERVICE_KWARGS = ("device",)
 # never imports the JAX package
 JAX_ONLY_CLASSES = ("NeuralModel", "GridSearch", "RandomSearch")
 JAX_ONLY_METHODS = {
-    "LanguageModel": ("set_mesh", "serve_fns_paged", "serve_cache_paged",
-                      "serve_fns_spec", "serve_fns_draft"),
+    "LanguageModel": ("set_mesh", "serve_fns_spec", "serve_fns_draft"),
     "TextClassifier": ("set_mesh",),
 }
 

@@ -3,8 +3,9 @@
 
     python3 scripts/tf32x3_accuracy.py [--root DIR] [--classifier]
 
-For random inputs (b 4, 8 heads over 4, head_dim 32, non-causal) at 64,
-512 and 2048 keys, with a mean of 0 and of 3 (a common component, as the
+For random inputs (b 4, 8 heads over 4, non-causal) at head_dim 32 with
+64, 512 and 2048 keys, and at head_dim 64 and 128 (the widest variants)
+with 2048 keys, with a mean of 0 and of 3 (a common component, as the
 activations of a trained model carry), prints the relative L2 error of
 o, dq, dk and dv from ``flash_fwd_tf32x3``, ``flash_bwd_dq_tf32x3`` and
 ``flash_bwd_dkv_tf32x3`` against the float32 plain version, beside the
@@ -12,8 +13,8 @@ error of the kernels' own 3xTF32 emulation (``tf32x3=True``). An error
 that grows in proportion to the keys, where the emulation's grows as
 their square root, is the tensor cores' float32 accumulation drifting.
 It then times the three kernels at the float32 training, serving and
-classifier shapes and the d-12 shapes. With ``--classifier`` it trains
-``chip_smoke.py``'s TextClassifier (bf16, 3 epochs) and, in float32,
+classifier shapes, the d-12 shapes and at d 128 (b 2, 2048 tokens).
+With ``--classifier`` it trains ``chip_smoke.py``'s TextClassifier (bf16, 3 epochs) and, in float32,
 holds one gradient micro-step of each pairing of the forward and the
 backward (kernel or emulation) against the dense path, before and after
 training.
@@ -64,9 +65,12 @@ def main() -> int:
         return ((a.double() - b.double()).norm() / b.double().norm()).item()
 
     rows = []
-    for sk in (64, 512, 2048):
+    # head_dim 32 at three key counts; 64 and 128 (the widest variants,
+    # where the registers run out) at the longest
+    cases = [(32, sk) for sk in (64, 512, 2048)] + [(64, 2048), (128, 2048)]
+    for d, sk in cases:
         for mean in (0.0, 3.0):
-            b, h, kvh, d = 4, 8, 4, 32
+            b, h, kvh = 4, 8, 4
 
             def rand(*shape, mean=mean):
                 return torch.randn(*shape, device="cuda",
@@ -90,7 +94,8 @@ def main() -> int:
             emul = (emul_o,) + attn.flash_bwd_reference(
                 q, k, v, emul_o, emul_lse, do, causal=False, scale=scale,
                 tf32x3=True)
-            rows.append({"keys": sk, "mean": mean, "relL2VsFloat32": {
+            rows.append({"headDim": d, "keys": sk, "mean": mean,
+                         "relL2VsFloat32": {
                 "kernel": dict(zip(("o", "dq", "dk", "dv"),
                                    (rel(x, y) for x, y in zip(kernel,
                                                               plain)))),
@@ -104,6 +109,8 @@ def main() -> int:
               "classifierFloat32": (128, 512, 8, 4, 32, False, 0,
                                     torch.float32),
               "d12Float32": (2, 2048, 8, 4, 12, True, 1024, torch.float32),
+              "d128Float32": (2, 2048, 8, 4, 128, True, 1024,
+                              torch.float32),
               "d12Bfloat16": (2, 2048, 8, 4, 12, True, 1024,
                               torch.bfloat16)}
     times = {}

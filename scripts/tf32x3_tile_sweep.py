@@ -10,7 +10,9 @@ or the ones named) that differ only in the rows of the streamed tile at
 head_dim <= 64 (forward and dQ: keys per stage, ``kN``; dK/dV: q rows
 per stage, ``kM``) and in the blocks per SM ptxas is told to fit
 (``kMinBlocks`` in ``__launch_bounds__``, which caps the registers),
-and one ``narrow`` variant that sends float32 rows at d % 4 == 0
+variants of how the dK/dV kernel keeps dV's and dK's long sums off the
+tensor cores' accumulator (dV per k-step at width 64; runs of 1, 4, 8 or
+16 q tiles), and one ``narrow`` variant that sends float32 rows at d % 4 == 0
 through the any-width loads and pair stores (``kWide`` false) instead
 of the 16-byte path, each from a text-substituted copy under
 ``build/variants/`` (the sources in the package are not touched). Each
@@ -21,12 +23,12 @@ and timed with CUDA events, in turns (every variant, then every variant
 again in reverse order): the backward kernels at the training path's
 shape (b 8, 2048 tokens, 8 heads over 4 kv heads, d 64, causal, window
 1024) and at the d-12 LM's (b 2, d 12: the width-16 variants) in
-float32, the forward at the training shape and at the serving
+float32, the dK/dV kernel also at d 128 (b 2), the forward at the training shape and at the serving
 prefill's (b 1, 1536 tokens) in float32 and at the d-12 LM's in
 float32 and bf16.
 Prints the card's name and power limit, ptxas's registers and spills
-per variant (the float32 d-64 instance, and the width-16 float32 and
-bf16 ones), and one JSON line per kernel and shape. Needs a card and
+per variant (the float32 d-64 and d-128 instances, and the width-16
+float32 and bf16 ones), and one JSON line per kernel and shape. Needs a card and
 nvcc; exits 2 without a card.
 """
 
@@ -58,9 +60,16 @@ D12_SHAPE = (2, 2048, 8, 4, 12, True, 1024, "float32")
 D12_BF16_SHAPE = D12_SHAPE[:-1] + ("bfloat16",)
 # the entries' float32 launch without the 16-byte path
 NARROW = {"dispatch<float, true>": "dispatch<float, false>"}
+# the dK/dV kernel's accumulation: dV summed per k-step on the CUDA cores
+# up to width 64 (the package stops at 32), and the run length
+STEP_V64 = {"kStepV = DMAX <= 32;": "kStepV = DMAX <= 64;"}
+RUN = "kRun = DMAX == 128 ? 4 : 8;"
+# the widest variant (d 128) at the training path's sequence
+D128_SHAPE = (2, 2048, 8, 4, 128, True, 1024, "float32")
 # ptxas's instances reported per variant: float32 at width 64 (the wide
 # one, or the narrow variant's) and the width-16 float32 and bf16 ones
 INSTANCES = {"d64": "kernelIfLi64ELb1E", "d64narrow": "kernelIfLi64ELb0E",
+             "d128": "kernelIfLi128ELb1E",
              "w16": "kernelIfLi16ELb1E", "w16narrow": "kernelIfLi16ELb0E",
              "w16bf16": "kernelI13__nv_bfloat16Li16ELb0E"}
 KERNELS = {
@@ -81,8 +90,18 @@ KERNELS = {
         # the package's own: 64 rows at width 16, else 32
         [("m64at16", "DMAX == 16 ? 64 : 32", 1),
          ("narrow", "DMAX == 16 ? 64 : 32", 1, NARROW), ("m32", 32, 1),
-         ("m64", 64, 1), ("m16b3", 16, 3), ("m16", 16, 1)],
-        (TRAIN_SHAPE, D12_SHAPE)),
+         ("m64", 64, 1), ("m16b3", 16, 3), ("m16", 16, 1),
+         # how dV and dK keep their long sums off the accumulator:
+         # dV's fresh fragment at width 64 (32 or 24 rows a stage), and
+         # the runs of q tiles summed there before their add to memory
+         ("stepV64", "DMAX == 16 ? 64 : 32", 1, STEP_V64),
+         ("stepV64m24", "DMAX == 16 ? 64 : 24", 1, STEP_V64),
+         ("run4", "DMAX == 16 ? 64 : 32", 1, {RUN: "kRun = 4;"}),
+         ("run16", "DMAX == 16 ? 64 : 32", 1,
+          {RUN: "kRun = DMAX == 128 ? 4 : 16;"}),
+         ("run1at128", "DMAX == 16 ? 64 : 32", 1,
+          {RUN: "kRun = DMAX == 128 ? 1 : 8;"})],
+        (TRAIN_SHAPE, D12_SHAPE, D128_SHAPE)),
     "flash_bwd_dq_tf32x3": (
         ("static constexpr int kN = 32;",
          "static constexpr int kMinBlocks = 1;"),
@@ -130,7 +149,8 @@ def _build_variants(_build, kernels) -> dict:
         # <float, 64, false>) and the width-16 ones
         log = out + err
         narrow = "narrow" if name == "narrow" else ""
-        keys = ("d64" + narrow, "w16" + narrow, "w16bf16")
+        keys = ("d64" + narrow, "w16" + narrow, "w16bf16") + \
+            (() if narrow else ("d128",))
         report = {}
         for key in keys:
             tail = log[log.index(INSTANCES[key]):]

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing every module of
-``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer and
-the encoder among them) loads neither JAX, flax nor any module of the
+``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer, the
+encoder and the fault injector among them) loads neither JAX, flax nor any module of the
 JAX package, nor pandas, pyarrow, dill or msgpack (the card's machine
 has none of them), and ``chip_smoke.py`` refuses to run without a
 card."""
@@ -52,14 +52,16 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_new_modules_are_among_those_probed():
-    """The msgpack codec, the checkpointer and the encoder are imported
-    by the probe above (none of them may import msgpack or flax)."""
+    """The msgpack codec, the checkpointer, the encoder and the fault
+    injector are imported by the probe above (none of them may import
+    msgpack, flax or the JAX package's copy of itself)."""
     names = {m.name for m in pkgutil.walk_packages(
         learningorchestra_tpu_torch.__path__,
         learningorchestra_tpu_torch.__name__ + ".")}
     assert {"learningorchestra_tpu_torch.runtime.serialization",
             "learningorchestra_tpu_torch.runtime.checkpoint",
-            "learningorchestra_tpu_torch.models.encoder"} <= names
+            "learningorchestra_tpu_torch.models.encoder",
+            "learningorchestra_tpu_torch.services.faults"} <= names
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -221,7 +221,7 @@ NOT_PORTED = {
     "RandomSearch": ("POST", "/model/tensorflow", _model(
         **{"class": "RandomSearch"}, classParameters={})),
     "a JAX method": ("POST", "/train/tensorflow", _run(
-        method="serve_fns_paged")),
+        method="serve_fns_spec")),
     "num_beams": ("POST", "/predict/tensorflow", _run(
         method="generate", params={"prompt": [[1, 2]], "num_beams": 2})),
     "timeout": ("POST", "/train/tensorflow", _run(timeout=5)),

@@ -180,6 +180,7 @@ def test_error_bodies_match_jax(server, jax_api):
         ("POST", "/serve/slm", {"temperature": "hot"}),     # 406
         ("POST", "/serve/slm", {"kv": "ring"}),             # 406
         ("POST", "/serve/slm", {"weights": "int4"}),        # 406
+        ("POST", "/serve/slm", {"kvDtype": "int8"}),        # 406 slot
         ("POST", "/serve/slm/predict", {"prompt": [1]}),    # 404 session
         ("GET", "/serve/slm", None),                        # 404 session
         ("DELETE", "/serve/slm", None),                     # 404 session
@@ -208,7 +209,7 @@ def test_error_bodies_match_jax(server, jax_api):
 
 
 def test_unported_session_options_are_refused(server):
-    for body in ({"kv": "paged"}, {"kvDtype": "int8"}, {"weights": "fp8"},
+    for body in ({"specK": 4}, {"prefillDevices": 2}, {"sliceDevices": 2},
                  {"type": "predict"}, {"disagg": True}, {"draft": "d"}):
         status, reply = _call(server, "POST", "/serve/slm", body)
         assert status == 406, body
