@@ -82,8 +82,8 @@
    the base bit-identical, every adapter moved, the loss falling),
    ``merge_lora`` (float32 evaluate within 1e-5 relative of the adapted
    model's) and the tutorial's sampled ``generate`` (equal to the merged
-   artifact's solo ``generate``). ``num_beams`` 2 must get 406 and leave
-   no collection; a fit on a missing ``$`` reference must end with
+   artifact's solo ``generate``). A ``timeout`` field must get 406 and
+   leave no collection; a fit on a missing ``$`` reference must end with
    ``finished`` false and an exception document. Clients poll every 0.25
    s, as the JAX package's client does.
 6. Classifier path: the tutorial's TextClassifier (vocab 20000, d_model
@@ -96,6 +96,24 @@
    1e-4 per-tensor relative L2 of the dense path; ``POST /model`` of the
    tutorial's body answers 201 and finishes. The kernel phase measures
    the three wgmma kernels at this shape (b 128, 512 tokens, bf16).
+7. LM options path (the ``lmOptions`` line, after the pipeline): the
+   tutorial LM with a mixture of experts (Mixtral-8x7B's router: 8
+   experts, 2 a token; the JAX package's GELU experts, capacity factor
+   1.25) from ``init_params(seed 0)``, created and fitted over REST in
+   bf16 on the train phase's windows (8 layers x 16 micro-batches of each
+   wgmma kernel and nothing else, the loss falling, a positive
+   load-balance term, one step repeated from one state bit-identical),
+   its float32 gradient micro-step through the split-TF32 kernels within
+   1e-4 of the dense path; remat ``none``/``dots``/``full`` on the dense
+   LM under dropout 0.1 (equal first losses, falling peak memory, the
+   forward relaunched by the recompute, float32 gradients within 1e-4);
+   fused projections against their split trees (float32 logits within
+   1e-4, one fit step); beam search over REST (1 beam equals greedy, 4
+   beams score at least greedy's log-prob); the trained MoE LM on a slot
+   and a paged session (8 forward launches a prefill; agreement with
+   solo recorded: capacity makes lanes compete, as in the JAX package);
+   and a retired paged lane whose column lies past the step's page
+   slice, which must append to the trash page without a device assert.
 
 The kernel launch counts are zeroed just before each path and read
 just after it.
@@ -112,6 +130,7 @@ it, the script exits 2 and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
@@ -1204,14 +1223,20 @@ def _decode_profile(torch, lm, prompts, paged: bool = False,
         return [[e.key[:80], round(getattr(e, attr) / steps / 1e3, 4),
                  e.count / steps] for e in rows[:10]]
 
-    return {"round": "pagedDecodeProfile" if paged else "decodeProfile",
-            "steps": steps,
-            "hostWallMsPerStep": wall_ms,
-            "deviceBusyMsPerStep": sum(
-                e.self_device_time_total for e in kernels) / steps / 1e3,
-            "kernelLaunchesPerStep": sum(e.count for e in kernels) / steps,
-            "topKernelsMs": top(kernels, "self_device_time_total"),
-            "topHostMs": top(events, "self_cpu_time_total")}
+    report = {"round": "pagedDecodeProfile" if paged else "decodeProfile",
+              "steps": steps,
+              "hostWallMsPerStep": wall_ms,
+              "deviceBusyMsPerStep": sum(
+                  e.self_device_time_total for e in kernels) / steps / 1e3,
+              "kernelLaunchesPerStep": sum(e.count for e in kernels) / steps,
+              "topKernelsMs": top(kernels, "self_device_time_total"),
+              "topHostMs": top(events, "self_cpu_time_total")}
+    # a dropped profile leaves some 220,000 objects in reference cycles:
+    # collect them here, or a generation-2 collection lands in a later
+    # timed round (0.34 s of the paged phase's 16-stream TTFT on the card)
+    del prof, events, kernels
+    gc.collect()
+    return report
 
 
 def _successor_windows(np, n: int, seq: int, seed: int):
@@ -1319,8 +1344,11 @@ def _float32_fit_window(torch, lm, x, log) -> dict:
     per_step = {name: sum(e.self_device_time_total for e in kernels
                           if f"{name}_kernel" in e.key) / 2e3
                 for name in COUNTERS}
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
+    top = [[e.key[:80], e.self_device_time_total / 2e3, e.count / 2]
+           for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                           reverse=True)[:10]]
+    del prof, kernels
+    gc.collect()  # the profile's cycles (see _decode_profile)
     log.append("trainFloat32 " + json.dumps({
         "computeDtype": "float32", "optimizerSteps": 2,
         "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "gradAccum": TRAIN_ACCUM,
@@ -1334,10 +1362,107 @@ def _float32_fit_window(torch, lm, x, log) -> dict:
                     "idleShare": 1.0 - busy_ms / window_ms,
                     "kernelMsPerStep": {k: v for k, v in per_step.items()
                                         if v},
-                    "topKernelsMsPerStep": [
-                        [e.key[:80], e.self_device_time_total / 2e3,
-                         e.count / 2] for e in top]}}))
+                    "topKernelsMsPerStep": top}}))
     return launches
+
+
+def _profiled_window(torch, lm, x) -> dict:
+    """A profiler window of 2 optimizer steps of ``lm``'s fit engine on
+    the first windows of ``x`` (after one step of first use): wall,
+    device busy time, idle share and kernel time per step. The params
+    are restored after it."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = lm._get_engine()
+    params = lm._master_params()
+    saved = {k: p.detach().clone() for k, p in params.items()}
+    tstate = eng.init_state(params)
+    batches = [eng._to_device(b, lm.device) for b in
+               lm._batcher(x[:3 * TRAIN_BATCH], TRAIN_BATCH).epoch(0)]
+    eng._train_step_body(tstate, batches[0], 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.monotonic()
+        for batch in batches[1:]:
+            eng._train_step_body(tstate, batch, 0)
+        torch.cuda.synchronize()
+        window_ms = (time.monotonic() - w0) * 1e3
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(saved[k])
+    del saved, tstate, batches
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    per_step = {name: sum(e.self_device_time_total for e in kernels
+                          if f"{name}_kernel" in e.key) / 2e3
+                for name in COUNTERS}
+    top = [[e.key[:80], e.self_device_time_total / 2e3, e.count / 2]
+           for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                           reverse=True)[:10]]
+    del prof, kernels
+    gc.collect()  # the profile's cycles (see _decode_profile)
+    return {"steps": 2, "windowMs": window_ms, "deviceBusyMs": busy_ms,
+            "idleShare": 1.0 - busy_ms / window_ms,
+            "kernelMsPerStep": per_step, "topKernelsMsPerStep": top}
+
+
+def _grads_vs_dot(torch, path, config, init, dtype, limit, x) -> dict:
+    """One micro-step of ``x`` in ``dtype`` through the split-TF32
+    kernels (one launch of each per layer) against the same step on the
+    dense path (plain autograd), both from ``init``: the launches and the
+    worst per-tensor relative L2 error, which must be within ``limit``
+    (None records it only)."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime.data import MASK_KEY
+
+    kernels = ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3",
+               "flash_bwd_dkv_tf32x3")
+    os.environ["LO_COMPUTE_DTYPE"] = dtype
+    out, grads = {}, {}
+    try:
+        for impl in ("flash", "dot"):
+            model = LanguageModel(**config, attention=impl, device="cuda")
+            model.set_params(init)
+            feng = model._get_engine()
+            if feng._compute_dtype != getattr(torch, dtype):
+                raise AssertionError(f"the gradient check must run in "
+                                     f"{dtype}")
+            batch = feng._to_device(
+                {"x": x, MASK_KEY: np.ones(len(x), np.float32)},
+                model.device)
+            _reset_launches(attn)
+            g, _ = feng._micro_grads(model._master_params(), batch, 0)
+            ran = _launches(attn)
+            want_ran = dict.fromkeys(COUNTERS, 0)
+            if impl == "flash":
+                want_ran.update(dict.fromkeys(kernels, config["n_layers"]))
+            if ran != want_ran:
+                raise AssertionError(f"{path} {impl} gradient step launched "
+                                     f"{ran}, want {want_ran}")
+            if not all(bool(torch.isfinite(t).all()) for t in g.values()):
+                raise AssertionError(f"{path} {impl}: gradients not finite")
+            if impl == "flash":
+                out["launches"] = ran
+            grads[impl] = g
+            del model, feng, batch
+    finally:
+        os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    rel = {k: ((grads["flash"][k].float() - grads["dot"][k].float())
+               .norm() / grads["dot"][k].float().norm().clamp_min(1e-30))
+           .item() for k in grads["dot"]}
+    worst = max(rel, key=rel.get)
+    if limit is not None and not rel[worst] <= limit:
+        raise AssertionError(f"{path}: kernel vs dense gradient of "
+                             f"{worst}: relative L2 error {rel[worst]}")
+    out["relL2VsDot"] = {"max": rel[worst], "worst": worst}
+    return out
 
 
 def train_phase(torch, log, home, yard):
@@ -1348,9 +1473,6 @@ def train_phase(torch, log, home, yard):
     gradient steps and the d-12 LM's bf16 gradient step. Leaves the
     fit's windows, epoch losses and trained model in ``yard``, the
     pipeline phase's yardstick."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     import numpy as np
 
     from learningorchestra_tpu_torch.config import Config
@@ -1358,7 +1480,6 @@ def train_phase(torch, log, home, yard):
     from learningorchestra_tpu_torch.models.transformer import \
         LanguageModel
     from learningorchestra_tpu_torch.ops import attention as attn
-    from learningorchestra_tpu_torch.runtime.data import MASK_KEY
     from learningorchestra_tpu_torch.services.context import ServiceContext
     from learningorchestra_tpu_torch.services.server import RestServer
 
@@ -1405,33 +1526,7 @@ def train_phase(torch, log, home, yard):
 
     # a profiled window of 2 optimizer steps; the params are restored
     # after it, so the artifact holds exactly the fit's 8 steps
-    eng = lm._get_engine()
-    params = lm._master_params()
-    saved = {k: p.detach().clone() for k, p in params.items()}
-    tstate = eng.init_state(params)
-    batches = [eng._to_device(b, lm.device) for b in
-               lm._batcher(x[:3 * TRAIN_BATCH], TRAIN_BATCH).epoch(0)]
-    eng._train_step_body(tstate, batches[0], 0)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        w0 = time.monotonic()
-        for batch in batches[1:]:
-            eng._train_step_body(tstate, batch, 0)
-        torch.cuda.synchronize()
-        window_ms = (time.monotonic() - w0) * 1e3
-    with torch.no_grad():
-        for k, p in params.items():
-            p.copy_(saved[k])
-    del saved, tstate, batches
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    per_step = {name: sum(e.self_device_time_total for e in kernels
-                          if f"{name}_kernel" in e.key) / 2e3
-                for name in COUNTERS}
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)[:10]
+    window = _profiled_window(torch, lm, x)
 
     f32_fit = _float32_fit_window(torch, lm, x, log)
 
@@ -1441,51 +1536,15 @@ def train_phase(torch, log, home, yard):
     # the d-12 LM (the width-16 variants), each within 1e-4; in bf16 for
     # the d-12 LM, finite, its error against the bf16 dense path recorded
     # only (the kernel phase holds the kernels' numbers)
-    kernels = ("flash_fwd_tf32x3", "flash_bwd_dq_tf32x3",
-               "flash_bwd_dkv_tf32x3")
     f32_grad = {}
     for path, config, dtype, limit in (
             ("trainFloat32Grad", LM_CONFIG, "float32", 1e-4),
             ("trainFloat32GradD12", D12_CONFIG, "float32", 1e-4),
             ("trainBf16GradD12", D12_CONFIG, "bfloat16", None)):
-        os.environ["LO_COMPUTE_DTYPE"] = dtype
         init = state if config is LM_CONFIG else weights.params_from_flax(
             weights.init_params(config, seed=0))
-        grads = {}
-        for impl in ("flash", "dot"):
-            model = LanguageModel(**config, attention=impl, device="cuda")
-            model.set_params(init)
-            feng = model._get_engine()
-            if feng._compute_dtype != getattr(torch, dtype):
-                raise AssertionError(f"the gradient check must run in "
-                                     f"{dtype}")
-            batch = feng._to_device(
-                {"x": x[:2], MASK_KEY: np.ones(2, np.float32)}, model.device)
-            _reset_launches(attn)
-            g, _ = feng._micro_grads(model._master_params(), batch, 0)
-            ran = _launches(attn)
-            want_ran = dict.fromkeys(COUNTERS, 0)
-            if impl == "flash":
-                want_ran.update(dict.fromkeys(kernels, config["n_layers"]))
-            if ran != want_ran:
-                raise AssertionError(f"{path} {impl} gradient step launched "
-                                     f"{ran}, want {want_ran}")
-            if not all(bool(torch.isfinite(t).all()) for t in g.values()):
-                raise AssertionError(f"{path} {impl}: gradients not finite")
-            if impl == "flash":
-                f32_grad[path] = {"launches": ran}
-            grads[impl] = g
-            del model, feng, batch
-        rel = {k: ((grads["flash"][k].float() - grads["dot"][k].float())
-                   .norm() / grads["dot"][k].float().norm().clamp_min(1e-30))
-               .item() for k in grads["dot"]}
-        worst = max(rel, key=rel.get)
-        if limit is not None and not rel[worst] <= limit:
-            raise AssertionError(f"{path}: kernel vs dense gradient of "
-                                 f"{worst}: relative L2 error {rel[worst]}")
-        f32_grad[path]["relL2VsDot"] = {"max": rel[worst], "worst": worst}
-        del grads
-    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+        f32_grad[path] = _grads_vs_dot(torch, path, config, init, dtype,
+                                       limit, x[:2])
 
     # the trained artifact, reloaded and served over REST
     ctx = ServiceContext(Config(home=home), device="cuda")
@@ -1525,13 +1584,7 @@ def train_phase(torch, log, home, yard):
         "history": hist, "fitSeconds": fit_s, "launches": launches,
         "stepMs": step_ms, "trainTokensPerSec": tokens_per_s,
         "maxMemoryAllocatedBytes": peak_bytes,
-        "profile": {"steps": 2, "windowMs": window_ms,
-                    "deviceBusyMs": busy_ms,
-                    "idleShare": 1.0 - busy_ms / window_ms,
-                    "kernelMsPerStep": per_step,
-                    "topKernelsMsPerStep": [
-                        [e.key[:80], e.self_device_time_total / 2e3,
-                         e.count / 2] for e in top]},
+        "profile": window,
         "f32GradRelL2VsDot": f32_grad["trainFloat32Grad"]["relL2VsDot"],
         "f32GradLaunches": f32_grad["trainFloat32Grad"]["launches"],
         "f32GradD12": f32_grad["trainFloat32GradD12"],
@@ -1738,9 +1791,9 @@ def pipeline_phase(torch, log, home, yard):
                             launches)
 
         refused = post("/predict/tensorflow", {
-            "name": "lm_beam", "modelName": "lm_t", "method": "generate",
-            "methodParameters": {"prompt": [[1, 2]], "num_beams": 2}}, 406)
-        if _http(base, "GET", "/predict/tensorflow/lm_beam")[0] != 404:
+            "name": "lm_timeout", "modelName": "lm_t", "method": "generate",
+            "methodParameters": {"prompt": [[1, 2]]}, "timeout": 60}, 406)
+        if _http(base, "GET", "/predict/tensorflow/lm_timeout")[0] != 404:
             raise AssertionError("a refused request left a collection")
         post("/train/tensorflow", {"name": "lm_bad", "modelName": "lm",
                                    "method": "fit",
@@ -1770,7 +1823,7 @@ def pipeline_phase(torch, log, home, yard):
         "generateSeconds": gen_s, "generatePrompt": len(prompt),
         "generateTokensEqualSolo": True, "servedTokensEqual": True,
         "launches": launches, "checkpoints": checkpoints,
-        "resume": resume, "lora": lora, "refusedBeams": refused["result"],
+        "resume": resume, "lora": lora, "refusedTimeout": refused["result"],
         "failedJobException": bad["result"][-1]["exception"]}))
     shutil.rmtree(ctx.config.checkpoints_dir, ignore_errors=True)
     return launches
@@ -1961,6 +2014,476 @@ def _lora_checks(torch, ctx, job, post, base, home, trained,
     return out
 
 
+# the LM options phase: the tutorial LM with Mixtral-8x7B's router (8
+# experts, 2 a token) over the JAX package's ungated GELU experts
+MOE_CONFIG = dict(LM_CONFIG, n_experts=8, moe_k=2)
+BEAM_PROMPT, BEAMS = 1024, 4
+REMAT_DROPOUT = 0.1
+
+
+def _moe_rest_fit(torch, base, ctx, x, post) -> dict:
+    """(a) The MoE LM created and fitted over REST; the job's launches,
+    losses and epoch seconds."""
+    from learningorchestra_tpu_torch.ops import attention as attn
+
+    ctx.artifacts.save({"tokens": x}, "corpus", "function/python")
+    post("/model/tensorflow", {
+        "modelName": "moe", "modulePath": "learningorchestra_tpu.models",
+        "class": "LanguageModel", "classParameters": MOE_CONFIG})
+    _poll(base, "/model/tensorflow/moe")
+    _reset_launches(attn)
+    t0 = time.monotonic()
+    post("/train/tensorflow", {
+        "name": "moe_t", "modelName": "moe", "method": "fit",
+        "methodParameters": {"x": "$corpus.tokens",
+                             "batch_size": TRAIN_BATCH,
+                             "epochs": TRAIN_EPOCHS,
+                             "grad_accum": TRAIN_ACCUM}})
+    _poll(base, "/train/tensorflow/moe_t")
+    wall = time.monotonic() - t0
+    launches = _launches(attn)
+    records = [d["epochRecord"] for d in ctx.catalog.get_documents("moe_t")
+               if "epochRecord" in d]
+    return {"launches": launches, "wallSeconds": wall,
+            "losses": [r["loss"] for r in records],
+            "epochSeconds": [r["epochSeconds"] for r in records]}
+
+
+def _moe_checks(torch, lm, x) -> dict:
+    """(a) The trained MoE LM's load-balance term and dropped copies per
+    layer on one micro-batch of the fit's shape (bf16), and one optimizer
+    step run twice from one state: the params must come out bit for
+    bit the same."""
+    eng = lm._get_engine()
+    params = lm._master_params()
+    micro = torch.from_numpy(x[:TRAIN_BATCH // TRAIN_ACCUM]).to(
+        lm.device).long()
+    blocks = [getattr(lm.module, f"layer_{i}").moe
+              for i in range(MOE_CONFIG["n_layers"])]
+    for moe in blocks:
+        moe.stats = {}
+    with torch.inference_mode():
+        _, aux = torch.func.functional_call(
+            lm.module, eng._cast(params), (micro,), {"return_aux": True})
+    dropped = [moe.stats["dropped"] / moe.stats["copies"] for moe in blocks]
+    for moe in blocks:
+        moe.stats = None
+    aux = float(aux)
+    if not aux > 0:
+        raise AssertionError(f"MoE load-balance term {aux}")
+    saved = {k: p.detach().clone() for k, p in params.items()}
+    batch = eng._to_device(next(iter(lm._batcher(
+        x[:TRAIN_BATCH], TRAIN_BATCH).epoch(0))), lm.device)
+    after = []
+    for _ in range(2):
+        with torch.no_grad():
+            for k, p in params.items():
+                p.copy_(saved[k])
+        eng._train_step_body(eng.init_state(params), batch, 0)
+        after.append({k: p.detach().clone() for k, p in params.items()})
+    with torch.no_grad():
+        for k, p in params.items():
+            p.copy_(saved[k])
+    apart = [k for k in params
+             if not torch.equal(after[0][k], after[1][k])]
+    if apart:
+        raise AssertionError(f"a repeated MoE step moved {len(apart)} "
+                             f"tensors differently: {apart[:4]}")
+    del saved, after
+    return {"auxSum": aux, "droppedCopyShareByLayer": dropped,
+            "repeatStepBitIdentical": True}
+
+
+def _remat_checks(torch, state, x) -> tuple:
+    """(c) 2 bf16 steps of the dense tutorial fit with dropout under each
+    remat policy from one state, then one float32 micro-step's gradients
+    under each against no remat. Returns (report, launches by path)."""
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+
+    config = dict(LM_CONFIG, dropout=REMAT_DROPOUT)
+    need = LM_CONFIG["n_layers"] * TRAIN_ACCUM * 2
+    report, paths, grads = {}, {}, {}
+    for policy in ("none", "dots", "full"):
+        lm = LanguageModel(**config, remat=policy, device="cuda")
+        lm.set_params(state)
+        lm._set_grad_accum(TRAIN_ACCUM)
+        eng = lm._get_engine()
+        tstate = eng.init_state(lm._master_params())
+        batches = [eng._to_device(b, lm.device) for b in
+                   lm._batcher(x[:2 * TRAIN_BATCH], TRAIN_BATCH).epoch(0)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_launches(attn)
+        step_ms, losses = [], []
+        for batch in batches:
+            t0 = time.monotonic()
+            s, c = eng._train_step_body(tstate, batch, 0)["loss"]
+            torch.cuda.synchronize()
+            step_ms.append((time.monotonic() - t0) * 1e3)
+            losses.append(float(s) / float(c))
+        ran = _launches(attn)
+        fwd = need * (1 if policy == "none" else 2)
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update(flash_fwd_sm90=fwd, flash_bwd_dq_sm90=need,
+                    flash_bwd_dkv_sm90=need)
+        if ran != want:
+            raise AssertionError(f"remat {policy}: launches {ran}, want "
+                                 f"{want} (the recompute relaunches the "
+                                 f"forward)")
+        report[policy] = {"stepMs": step_ms, "losses": losses,
+                          "maxMemoryAllocatedBytes":
+                              torch.cuda.max_memory_allocated()}
+        paths[f"lmOptionsRemat{policy.capitalize()}"] = ran
+        del lm, eng, tstate, batches
+        # one float32 micro-step of 2 windows, dropout on
+        os.environ["LO_COMPUTE_DTYPE"] = "float32"
+        try:
+            lm = LanguageModel(**config, remat=policy, device="cuda")
+            lm.set_params(state)
+            eng = lm._get_engine()
+            g, _ = eng._micro_grads(lm._master_params(), eng._to_device(
+                {"x": x[:2]}, lm.device), 0)
+            grads[policy] = g
+            del lm, eng
+        finally:
+            os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    first = {p: r["losses"][0] for p, r in report.items()}
+    if len(set(first.values())) != 1:
+        raise AssertionError(f"the first step's loss differs by remat "
+                             f"policy: {first}")
+    peaks = [report[p]["maxMemoryAllocatedBytes"]
+             for p in ("none", "dots", "full")]
+    if not peaks[0] > peaks[1] > peaks[2]:
+        raise AssertionError(f"peak memory none/dots/full {peaks} does not "
+                             f"fall")
+    for policy in ("dots", "full"):
+        rel = {k: ((grads[policy][k] - grads["none"][k]).norm()
+                   / grads["none"][k].norm().clamp_min(1e-30)).item()
+               for k in grads["none"]}
+        worst = max(rel, key=rel.get)
+        if not rel[worst] <= 1e-4:
+            raise AssertionError(f"remat {policy} float32 gradient of "
+                                 f"{worst}: relative L2 {rel[worst]}")
+        report[policy]["f32GradRelL2VsNone"] = {"max": rel[worst],
+                                                "worst": worst}
+    return report, paths
+
+
+def _fuse_tree(tree, qkv: bool):
+    """The fused layout of a split flax tree: gate/up concatenated into
+    ``gate_up`` and, with ``qkv``, q/k/v into ``qkv_proj``."""
+    import numpy as np
+
+    out = dict(tree)
+    for name, layer in tree.items():
+        if not name.startswith("layer_"):
+            continue
+        layer = dict(layer)
+        if qkv:
+            attn = dict(layer["attn"])
+            attn["qkv_proj"] = {"kernel": np.concatenate(
+                [attn.pop(p)["kernel"]
+                 for p in ("q_proj", "k_proj", "v_proj")], axis=1)}
+            layer["attn"] = attn
+        mlp = dict(layer["mlp"])
+        mlp["gate_up"] = {"kernel": np.concatenate(
+            [mlp.pop("gate")["kernel"], mlp.pop("up_proj")["kernel"]],
+            axis=1)}
+        layer["mlp"] = mlp
+        out[name] = layer
+    return out
+
+
+def _fused_checks(torch, x) -> tuple:
+    """(d) The dense tutorial LM with fused projections (GQA: gate_up
+    only) and its 8-kv-head variant (qkv_proj too), each built from its
+    split tree's weights: float32 logits of a 1024-token window against
+    the split model's, and one bf16 fit step."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+
+    report, paths = {}, {}
+    window = torch.from_numpy(x[:1, :BEAM_PROMPT]).to("cuda").long()
+    for name, config, qkv in (("gqa", LM_CONFIG, False),
+                              ("mha", dict(LM_CONFIG, n_kv_heads=8), True)):
+        tree = weights.init_params(config, seed=0)
+        split = LanguageModel(**config, device="cuda")
+        split.set_params(weights.params_from_flax(tree))
+        fused = LanguageModel(**config, fused_proj=True, device="cuda")
+        fused.set_params(weights.params_from_flax(_fuse_tree(tree, qkv)))
+        keys = set(fused.params)
+        if ("layer_0.attn.qkv_proj.weight" in keys) != qkv or \
+                "layer_0.mlp.gate_up.weight" not in keys:
+            raise AssertionError(f"fused {name} tree: {sorted(keys)[:8]}")
+        with torch.inference_mode():
+            got, want = fused.module(window), split.module(window)
+        err = (got - want).abs().max().item()
+        if not bool(torch.isfinite(got).all()) or not err <= 1e-4:
+            raise AssertionError(f"fused {name} logits vs split: {err}")
+        del split
+        _reset_launches(attn)
+        hist = fused.fit(x[:TRAIN_BATCH], batch_size=TRAIN_BATCH, epochs=1,
+                         grad_accum=TRAIN_ACCUM, shuffle=False).history
+        ran = _launches(attn)
+        need = config["n_layers"] * TRAIN_ACCUM
+        want_ran = dict.fromkeys(COUNTERS, 0)
+        want_ran.update(flash_fwd_sm90=need, flash_bwd_dq_sm90=need,
+                        flash_bwd_dkv_sm90=need)
+        if ran != want_ran or not np.isfinite(hist["loss"][0]):
+            raise AssertionError(f"fused {name} fit step: {ran} "
+                                 f"{hist['loss']}")
+        report[name] = {"logitsMaxAbsErrVsSplit": err,
+                        "fitStepLoss": hist["loss"][0],
+                        "fitStepSeconds": hist["epochSeconds"][0]}
+        paths[f"lmOptionsFused{name.capitalize()}Fit"] = ran
+        del fused
+    return report, paths
+
+
+def _seq_logprob(torch, lm, seq, prompt_len: int) -> float:
+    """The model's summed log-prob of ``seq``'s continuation, token 0
+    masked (float32), as beam search ranks it."""
+    from learningorchestra_tpu_torch.models.transformer import NEG_INF
+
+    tokens = torch.tensor([seq], device=lm.device)
+    with torch.inference_mode():
+        logits = lm.module(tokens)[0].float()
+        logits[:, 0] = NEG_INF
+        lp = torch.log_softmax(logits, dim=-1)
+        pos = torch.arange(prompt_len, len(seq), device=lm.device)
+        return float(lp[pos - 1, tokens[0, pos]].double().sum())
+
+
+def _moe_serving(torch, base, ctx, lm, post) -> tuple:
+    """(f) The trained MoE LM on a fresh slot and a fresh paged session,
+    float32: the serving phase's 4 prompts sent one after another (each
+    step's batch fixed by the order), then all 4 at once for the rates.
+    (g) The lane overrun of a retired stream on a paged session."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services.serving import (
+        PagedLMServingSession, _Request)
+
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, LM_CONFIG["vocab_size"],
+                                             size=n)]
+               for n in PROMPT_LENS]
+    solos = [[int(t) for t in lm.generate(
+        [p], max_new_tokens=NEW_TOKENS)[0][len(p):]] for p in prompts]
+    report, paths, tokens = {}, {}, {}
+    for kind, extra in (("slot", {}),
+                        ("paged", {"kv": "paged", "pageLen": PAGE_LEN})):
+        post("/serve/moe_t", dict({"type": "lm", "maxSlots": 4,
+                                   "cacheLen": 2048, "temperature": 0.0},
+                                  **extra))
+        _reset_launches(attn)
+        out = [_http(base, "POST", "/serve/moe_t/predict",
+                     {"prompt": p, "maxNewTokens": NEW_TOKENS})
+               for p in prompts]
+        ran = _launches(attn)
+        tokens[kind] = _round_tokens(f"moe {kind}", out, NEW_TOKENS)
+        want = dict.fromkeys(COUNTERS, 0)
+        want["flash_fwd_tf32x3"] = LM_CONFIG["n_layers"] * len(prompts)
+        if ran != want:
+            raise AssertionError(f"MoE {kind} prefills launched {ran}, "
+                                 f"want {want}")
+        paths[f"lmOptionsMoe{kind.capitalize()}"] = ran
+        out, walls, wall = _predict_round(base, "moe_t", prompts,
+                                          NEW_TOKENS)
+        _round_tokens(f"moe {kind} concurrent", out, NEW_TOKENS)
+        report[kind] = {"concurrent": {
+                            "wallSeconds": wall,
+                            **_round_rates(out, walls, NEW_TOKENS)},
+                        "sequentialVsSolo": _agreement(tokens[kind], solos)}
+        status, _ = _http(base, "DELETE", "/serve/moe_t")
+        if status != 200:
+            raise AssertionError(f"delete MoE {kind} session: {status}")
+    report["pagedVsSlot"] = _agreement(tokens["paged"], tokens["slot"])
+
+    # (g) a long stream retires past its first page while only a short
+    # one lives: the next steps gather one page, and the retired lane's
+    # column (kept, as the JAX session keeps it) lies past that slice
+    sess = PagedLMServingSession(
+        "lane", ctx, lm, slots=4, cache_len=2048, temperature=0.0,
+        top_k=None, top_p=None, page_len=PAGE_LEN,
+        n_pages=4 * 2048 // PAGE_LEN + 1)
+    long_req = _Request({"prompt": prompts[0][:PAGE_LEN + 4],
+                         "maxNewTokens": 3})
+    short_req = _Request({"prompt": prompts[1][:3], "maxNewTokens": 8})
+    sess._queue.extend([long_req, short_req])
+    overruns = 0
+    while sess._queue or sess._active_slots():
+        if sess._active_slots() == [1]:
+            overruns += int(sess._col[0]) // PAGE_LEN >= sess._gather_width()
+        sess._serve_once()
+    torch.cuda.synchronize()
+    if not overruns or long_req.error or short_req.error or \
+            [len(r.result["tokens"]) for r in (long_req, short_req)] != [3, 8]:
+        raise AssertionError(f"lane overrun: {overruns} overrunning steps, "
+                             f"errors {long_req.error} {short_req.error}")
+    report["laneOverrun"] = {"overrunSteps": overruns, "error": None}
+    return report, paths
+
+
+def lm_options_phase(torch, log, home, yard):
+    """The LanguageModel's options on the card (the ``lmOptions`` line).
+    (a) The MoE tutorial LM (8 experts, k 2) created and fitted over REST
+    in bf16 on the train phase's windows: the loss falls, the
+    load-balance term is positive, 8 layers x 16 micro-batches of each
+    wgmma kernel and nothing else, and one step repeated from one state
+    gives the same bits; step time, idle share over 2 profiled steps,
+    dropped copies per layer, peak memory. (b) Its float32 gradient
+    micro-step through the split-TF32 kernels against the dense path
+    (1e-4 relative L2 per tensor). (c) Remat none/dots/full under dropout
+    0.1 on the dense LM: equal first-step losses, falling peak memory,
+    the forward launched twice under remat, float32 gradients within
+    1e-4 of no remat. (d) Fused projections, GQA and 8 kv heads, against
+    their split trees. (e) Beam search (1 and 4 beams, 32 tokens after
+    1024) over REST on the trained MoE LM: 1 beam equals greedy, 4 beams
+    score at least greedy's log-prob. (f, g) MoE serving on the slot and
+    paged sessions, and the paged lane overrun. Returns the launches of
+    each path."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    x = yard["x"]
+    phase_t0 = time.monotonic()
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    paths, report = {}, {"config": MOE_CONFIG}
+
+    def post(path, body, want=201):
+        status, out = _http(base, "POST", path, body)
+        if status != want:
+            raise AssertionError(f"POST {path}: {status} {out}")
+        return out
+
+    try:
+        # (a) the MoE fit over REST
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fit = _moe_rest_fit(torch, base, ctx, x, post)
+        peak = torch.cuda.max_memory_allocated()
+        losses = fit["losses"]
+        steps = TRAIN_EPOCHS * TRAIN_WINDOWS // TRAIN_BATCH
+        need = LM_CONFIG["n_layers"] * steps * TRAIN_ACCUM
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update(flash_fwd_sm90=need, flash_bwd_dq_sm90=need,
+                    flash_bwd_dkv_sm90=need)
+        if fit["launches"] != want:
+            raise AssertionError(f"MoE fit launched {fit['launches']}, "
+                                 f"want {want}")
+        if len(losses) != TRAIN_EPOCHS or not all(np.isfinite(losses)) or \
+                not losses[1] < losses[0]:
+            raise AssertionError(f"MoE fit losses {losses}")
+        paths["lmOptionsMoeFit"] = fit["launches"]
+        trained = ctx.artifacts.load("moe_t")
+        trained._set_grad_accum(TRAIN_ACCUM)
+        epoch2 = fit["epochSeconds"][1]
+        report["moeFit"] = {
+            "windows": TRAIN_WINDOWS, "seq": TRAIN_SEQ,
+            "batch": TRAIN_BATCH, "gradAccum": TRAIN_ACCUM,
+            "epochs": TRAIN_EPOCHS, "computeDtype": "bfloat16",
+            "losses": losses, "epochSeconds": fit["epochSeconds"],
+            "jobWallSeconds": fit["wallSeconds"],
+            "stepMs": epoch2 / (steps // TRAIN_EPOCHS) * 1e3,
+            "trainTokensPerSec": TRAIN_WINDOWS * TRAIN_SEQ / epoch2,
+            "maxMemoryAllocatedBytes": peak,
+            **_moe_checks(torch, trained, x),
+            "profile": _profiled_window(torch, trained, x)}
+
+        # (b) the float32 gradient micro-step, kernels against dense
+        init = weights.params_from_flax(weights.init_params(MOE_CONFIG,
+                                                            seed=0))
+        grad = _grads_vs_dot(torch, "lmOptionsMoeFloat32Grad", MOE_CONFIG,
+                             init, "float32", 1e-4, x[:2])
+        paths["lmOptionsMoeFloat32Grad"] = grad["launches"]
+        report["moeFloat32GradRelL2VsDot"] = grad["relL2VsDot"]
+        del init
+
+        # (c) remat, (d) fused projections
+        state = weights.params_from_flax(weights.init_params(LM_CONFIG,
+                                                             seed=0))
+        report["remat"], ran = _remat_checks(torch, state, x)
+        paths.update(ran)
+        del state
+        report["fused"], ran = _fused_checks(torch, x)
+        paths.update(ran)
+
+        # (e) beam search over REST on the trained MoE LM, float32
+        prompt = [int(t) for t in x[2, :BEAM_PROMPT]]
+        beams = {}
+        for n in (1, BEAMS):
+            _reset_launches(attn)
+            post("/predict/tensorflow", {
+                "name": f"moe_beam{n}", "modelName": "moe_t",
+                "method": "generate", "methodParameters": {
+                    "prompt": [prompt], "max_new_tokens": NEW_TOKENS,
+                    "num_beams": n}})
+            _poll(base, f"/predict/tensorflow/moe_beam{n}")
+            ran = _launches(attn)
+            want = dict.fromkeys(COUNTERS, 0)
+            want["flash_fwd_tf32x3"] = LM_CONFIG["n_layers"]
+            if ran != want:
+                raise AssertionError(f"beam {n} launched {ran}, want {want}")
+            paths[f"lmOptionsBeam{n}"] = ran
+            seq = next(d["result"] for d in ctx.catalog.get_documents(
+                f"moe_beam{n}") if "result" in d)[0]
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            trained.generate([prompt], max_new_tokens=NEW_TOKENS,
+                             num_beams=n)
+            torch.cuda.synchronize()
+            beams[n] = {"tokens": seq[len(prompt):],
+                        "logProb": _seq_logprob(torch, trained, seq,
+                                                len(prompt)),
+                        "msPerToken": (time.monotonic() - t0) * 1e3
+                        / NEW_TOKENS}
+        greedy = [int(t) for t in trained.generate(
+            [prompt], max_new_tokens=NEW_TOKENS)[0][len(prompt):]]
+        if beams[1]["tokens"] != greedy:
+            raise AssertionError("1 beam differs from greedy generate")
+        # the two sums come from one float32 forward each; beam search
+        # ranked them on its decode steps' logits
+        if not beams[BEAMS]["logProb"] >= beams[1]["logProb"] - 1e-4 * abs(
+                beams[1]["logProb"]):
+            raise AssertionError(f"{BEAMS} beams scored "
+                                 f"{beams[BEAMS]['logProb']}, below greedy's "
+                                 f"{beams[1]['logProb']}")
+        report["beam"] = {
+            "prompt": BEAM_PROMPT, "newTokens": NEW_TOKENS,
+            "beam1EqualsGreedy": True,
+            **{f"beams{n}": {k: v for k, v in b.items() if k != "tokens"}
+               for n, b in beams.items()},
+            "beamTokensEqualGreedy": beams[BEAMS]["tokens"] == greedy}
+
+        # (f) MoE serving, (g) the lane overrun
+        served, ran = _moe_serving(torch, base, ctx, trained, post)
+        report["serving"] = served
+        paths.update(ran)
+    finally:
+        server.stop()
+        os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    report["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("lmOptions " + json.dumps(report))
+    return paths
+
+
 def classifier_phase(torch, log, home):
     """The tutorial's TextClassifier on the card in bf16 with
     ``attention="flash"``: a 3-epoch fit of 1024 rows of 512 tokens
@@ -2128,6 +2651,8 @@ def main() -> int:
                      **train_phase(torch, log, home, yard)}
         with tempfile.TemporaryDirectory() as home:
             paths.update(pipeline_phase(torch, log, home, yard))
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(lm_options_phase(torch, log, home, yard))
         del yard
         with tempfile.TemporaryDirectory() as home:
             paths.update(classifier_phase(torch, log, home))

@@ -54,8 +54,8 @@ class TransformerEncoder(nn.Module):
                 generator: Optional[torch.Generator] = None):
         x = self.embed(tokens)
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(x, train=train,
-                                            generator=generator)
+            x, _ = getattr(self, f"layer_{i}")(x, train=train,
+                                               generator=generator)
         x = self.final_norm(x)
         mask = (tokens != 0).float()[..., None]
         pooled = (x * mask).sum(dim=1) / mask.sum(dim=1).clamp_min(1e-9)

@@ -3,13 +3,15 @@
 Counterpart of :mod:`learningorchestra_tpu.models.transformer` for the
 serving and training paths: rotary position embeddings (half-split
 rotation), RMSNorm as flax computes it, grouped-query attention with an
-optional sliding window, a gated-SiLU MLP without bias, dropout, the
-next-token loss (with the chunked lm-head form), LoRA adapters on the
-attention projections, and :class:`LanguageModel` with
-``fit``/``evaluate``/``predict``, ``generate``, ``enable_lora`` /
-``merge_lora`` and the continuous-batching serve functions over a slot
-cache or a shared page pool, with quantized serving weights
-(:func:`serving_module`). The bidirectional encoder and
+optional sliding window, a gated-SiLU MLP without bias or a mixture of
+experts (:mod:`..parallel.moe`), fused projections, dropout, per-block
+rematerialization, the next-token loss (with the chunked lm-head form
+and the MoE load-balance term), LoRA adapters on the attention
+projections, and :class:`LanguageModel` with
+``fit``/``evaluate``/``predict``, ``generate`` (greedy, sampled or beam
+search), ``enable_lora`` / ``merge_lora`` and the continuous-batching
+serve functions over a slot cache or a shared page pool, with quantized
+serving weights (:func:`serving_module`). The bidirectional encoder and
 :class:`TextClassifier` live in :mod:`.encoder`.
 
 Module and parameter names follow the flax tree (``layer_0.attn.q_proj``
@@ -37,6 +39,7 @@ from learningorchestra_tpu_torch.models import weights as weights_lib
 from learningorchestra_tpu_torch.models.neural import (
     History, build_optimizer, is_adapter, validation_tail_count)
 from learningorchestra_tpu_torch.ops import attention as attn_ops
+from learningorchestra_tpu_torch.parallel import moe as moe_lib
 from learningorchestra_tpu_torch.runtime import checkpoint as ckpt_lib
 from learningorchestra_tpu_torch.runtime import data as data_lib
 from learningorchestra_tpu_torch.runtime import engine as engine_lib
@@ -183,7 +186,8 @@ class Attention(nn.Module):
     def __init__(self, d_model: int, n_heads: int, head_dim: int,
                  impl: str, causal: bool, n_kv_heads: int = 0,
                  window: int = 0, rope_base: float = 10000.0,
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 fused_qkv: bool = False):
         super().__init__()
         self.n_heads = n_heads
         self.kv_heads = n_kv_heads or n_heads
@@ -197,9 +201,16 @@ class Attention(nn.Module):
         self.rope_base = rope_base
         proj = n_heads * head_dim
         kv_proj = self.kv_heads * head_dim
-        self.q_proj = _linear(d_model, proj, lora_rank, lora_alpha)
-        self.k_proj = _linear(d_model, kv_proj, lora_rank, lora_alpha)
-        self.v_proj = _linear(d_model, kv_proj, lora_rank, lora_alpha)
+        # one (d, 3·proj) product for q, k and v: MHA only, as in the JAX
+        # module (under GQA the three widths differ)
+        self.fused_qkv = fused_qkv and self.kv_heads == n_heads
+        if self.fused_qkv:
+            self.qkv_proj = _linear(d_model, 3 * proj, lora_rank,
+                                    lora_alpha)
+        else:
+            self.q_proj = _linear(d_model, proj, lora_rank, lora_alpha)
+            self.k_proj = _linear(d_model, kv_proj, lora_rank, lora_alpha)
+            self.v_proj = _linear(d_model, kv_proj, lora_rank, lora_alpha)
         self.o_proj = _linear(proj, d_model, lora_rank, lora_alpha)
 
     def _angles(self, rel: torch.Tensor):
@@ -211,9 +222,16 @@ class Attention(nn.Module):
                 block_tables=None):
         b, s, _ = x.shape
         hd = self.head_dim
-        q = self.q_proj(x).view(b, s, self.n_heads, hd)
-        k = self.k_proj(x).view(b, s, self.kv_heads, hd)
-        v = self.v_proj(x).view(b, s, self.kv_heads, hd)
+        if self.fused_qkv:
+            q, k, v = self.qkv_proj(x).chunk(3, dim=-1)
+            # column slices of one product; rope copies q and k, and the
+            # kernels take v's rows contiguous
+            v = v.contiguous()
+        else:
+            q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
+        q = q.reshape(b, s, self.n_heads, hd)
+        k = k.reshape(b, s, self.kv_heads, hd)
+        v = v.reshape(b, s, self.kv_heads, hd)
 
         if decode_pos is not None:
             if s != 1:
@@ -307,33 +325,81 @@ class Attention(nn.Module):
 
 class MLP(nn.Module):
     """Gated SiLU, no bias (flax names ``gate``, ``up_proj``,
-    ``down_proj``)."""
+    ``down_proj``; ``gate_up`` for the fused ``(d, 2·d_ff)`` product)."""
 
-    def __init__(self, d_model: int, d_ff: int):
+    def __init__(self, d_model: int, d_ff: int, fused_gate_up: bool = False):
         super().__init__()
-        self.gate = nn.Linear(d_model, d_ff, bias=False)
-        self.up_proj = nn.Linear(d_model, d_ff, bias=False)
+        self.fused_gate_up = fused_gate_up
+        if fused_gate_up:
+            self.gate_up = nn.Linear(d_model, 2 * d_ff, bias=False)
+        else:
+            self.gate = nn.Linear(d_model, d_ff, bias=False)
+            self.up_proj = nn.Linear(d_model, d_ff, bias=False)
         self.down_proj = nn.Linear(d_ff, d_model, bias=False)
 
     def forward(self, x):
-        return self.down_proj(F.silu(self.gate(x)) * self.up_proj(x))
+        if self.fused_gate_up:
+            gate, up = self.gate_up(x).chunk(2, dim=-1)
+        else:
+            gate, up = self.gate(x), self.up_proj(x)
+        return self.down_proj(F.silu(gate) * up)
+
+
+class Experts(nn.Module):
+    """The stacked expert weights, at flax's ``moe/experts/{wi,wo}``:
+    ``wi`` ``(n_experts, d_model, d_ff)``, ``wo`` ``(n_experts, d_ff,
+    d_model)``, in the flax layout (not transposed)."""
+
+    def __init__(self, n_experts: int, d_model: int, d_ff: int):
+        super().__init__()
+        self.wi = nn.Parameter(torch.empty(n_experts, d_model, d_ff))
+        self.wo = nn.Parameter(torch.empty(n_experts, d_ff, d_model))
+
+
+class MoE(nn.Module):
+    """The mixture-of-experts feed-forward (:func:`moe_lib.moe_layer`,
+    sparse route): router ``gate`` ``(d_model, n_experts)`` and
+    :class:`Experts`. ``stats``, when set to a dict, collects the dropped
+    and total copies of every call (a host sync each; off by default)."""
+
+    def __init__(self, d_model: int, n_experts: int, d_ff: int, k: int):
+        super().__init__()
+        self.k = k
+        self.gate = nn.Parameter(torch.empty(d_model, n_experts))
+        self.experts = Experts(n_experts, d_model, d_ff)
+        self.stats: Optional[Dict[str, int]] = None
+
+    def forward(self, x):
+        params = {"gate": self.gate,
+                  "experts": {"wi": self.experts.wi,
+                              "wo": self.experts.wo}}
+        return moe_lib.moe_layer(params, x, k=self.k, stats=self.stats)
 
 
 class Block(nn.Module):
+    """Pre-norm residual block: attention, then the gated MLP or, with
+    ``n_experts``, the mixture of experts. Returns ``(x, aux)``, ``aux``
+    the MoE load-balance loss or None for the MLP."""
+
     def __init__(self, d_model: int, n_heads: int, head_dim: int,
                  d_ff: int, attention: str, causal: bool,
                  n_kv_heads: int = 0, window: int = 0,
                  rope_base: float = 10000.0, dropout: float = 0.0,
-                 lora_rank: int = 0, lora_alpha: float = 16.0):
+                 lora_rank: int = 0, lora_alpha: float = 16.0,
+                 n_experts: int = 0, moe_k: int = 2,
+                 fused_proj: bool = False):
         super().__init__()
         self.dropout = dropout
         self.attn_norm = RMSNorm(d_model)
         self.attn = Attention(d_model, n_heads, head_dim, attention, causal,
                               n_kv_heads=n_kv_heads, window=window,
                               rope_base=rope_base, lora_rank=lora_rank,
-                              lora_alpha=lora_alpha)
+                              lora_alpha=lora_alpha, fused_qkv=fused_proj)
         self.mlp_norm = RMSNorm(d_model)
-        self.mlp = MLP(d_model, d_ff)
+        if n_experts > 0:
+            self.moe = MoE(d_model, n_experts, d_ff, moe_k)
+        else:
+            self.mlp = MLP(d_model, d_ff, fused_gate_up=fused_proj)
 
     def forward(self, x, cache=None, decode_pos=None, pad_offset=None,
                 train: bool = False, generator=None, block_tables=None):
@@ -343,10 +409,57 @@ class Block(nn.Module):
         if self.dropout and train:
             h = _dropout(h, self.dropout, generator)
         x = x + h
-        h = self.mlp(self.mlp_norm(x))
+        aux = None
+        if hasattr(self, "moe"):
+            h, aux = self.moe(self.mlp_norm(x))
+        else:
+            h = self.mlp(self.mlp_norm(x))
         if self.dropout and train:
             h = _dropout(h, self.dropout, generator)
-        return x + h
+        return x + h, aux
+
+
+# torch.utils.checkpoint policies of the JAX package's remat options:
+# "dots" keeps the outputs of the 2-D products (the projections; the
+# batched expert and attention products are recomputed, as
+# dots_with_no_batch_dims_saveable keeps no batch-dim dot), "full"
+# keeps nothing but the block's input
+_SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMAT_POLICIES = ("none", "dots", "full")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _SAVED_DOTS:
+        return torch.utils.checkpoint.CheckpointPolicy.MUST_SAVE
+    return torch.utils.checkpoint.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        _dots_policy)
+
+
+def _remat_block(block: Block, x: torch.Tensor, policy: str,
+                 generator: Optional[torch.Generator]):
+    """``block(x, train=True)`` under ``torch.utils.checkpoint``: the
+    backward recomputes what ``policy`` does not keep. The recompute
+    runs on the weights this forward saw (the caller's compute-dtype
+    copies, bound by ``functional_call``, not the module's own) and
+    replays the dropout masks: the explicit generator's state is
+    restored to what it was when the block first ran (checkpoint
+    replays only the global RNG)."""
+    weights = dict(block.named_parameters())
+    state = None if generator is None else generator.get_state()
+
+    def run(h):
+        if state is not None:
+            generator.set_state(state)
+        return torch.func.functional_call(
+            block, weights, (h,), {"train": True, "generator": generator})
+
+    extra = {"context_fn": _dots_contexts} if policy == "dots" else {}
+    return torch.utils.checkpoint.checkpoint(
+        run, x, use_reentrant=False, preserve_rng_state=False, **extra)
 
 
 class FusedHeadOut(NamedTuple):
@@ -368,7 +481,8 @@ class TransformerLM(nn.Module):
                  d_ff: int = 0, attention: str = "dot", causal: bool = True,
                  sliding_window: int = 0, rope_base: float = 10000.0,
                  dropout: float = 0.0, lora_rank: int = 0,
-                 lora_alpha: float = 16.0):
+                 lora_alpha: float = 16.0, n_experts: int = 0,
+                 moe_k: int = 2, fused_proj: bool = False):
         super().__init__()
         if attention not in ATTENTION_IMPLS:
             raise ValueError(f"unknown attention impl: {attention!r}")
@@ -381,32 +495,50 @@ class TransformerLM(nn.Module):
                 d_model, n_heads, head_dim, d_ff, attention, causal,
                 n_kv_heads=n_kv_heads, window=sliding_window,
                 rope_base=rope_base, dropout=dropout, lora_rank=lora_rank,
-                lora_alpha=lora_alpha))
+                lora_alpha=lora_alpha, n_experts=n_experts, moe_k=moe_k,
+                fused_proj=fused_proj))
         self.final_norm = RMSNorm(d_model)
         self.lm_head = nn.Linear(d_model, vocab_size, bias=False)
 
     def forward(self, tokens, cache: Optional[Cache] = None,
                 decode_pos=None, pad_offset=None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                fused_head: bool = False, block_tables=None):
-        """Logits (b, s, vocab) in the params' dtype. The train forward
-        (``train``) applies dropout from ``generator``; with
-        ``fused_head`` it returns :class:`FusedHeadOut` instead of
-        logits, for the chunked loss. With ``block_tables`` (a serving
-        decode step) ``cache`` is the shared page pool of
-        :meth:`LanguageModel.serve_cache_paged`."""
+                fused_head: bool = False, block_tables=None,
+                remat: str = "none", return_aux: bool = False):
+        """Logits (b, s, vocab) in the params' dtype, or ``(logits,
+        aux)`` with ``return_aux`` (``aux`` the summed MoE load-balance
+        loss, zero for the MLP). The train forward (``train``) applies
+        dropout from ``generator`` and, under autograd, the ``remat``
+        policy per block; with ``fused_head`` it returns
+        :class:`FusedHeadOut` instead of logits, for the chunked loss.
+        With ``block_tables`` (a serving decode step) ``cache`` is the
+        shared page pool of :meth:`LanguageModel.serve_cache_paged`."""
+        if remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {remat!r} "
+                             f"(none|dots|full)")
+        remat_on = remat != "none" and train and decode_pos is None and \
+            cache is None and torch.is_grad_enabled()
         x = self.embed(tokens)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
+            if train or return_aux else None
         for i in range(self.n_layers):
-            x = getattr(self, f"layer_{i}")(
-                x, cache=None if cache is None else cache[i],
-                decode_pos=decode_pos, pad_offset=pad_offset, train=train,
-                generator=generator, block_tables=block_tables)
+            block = getattr(self, f"layer_{i}")
+            if remat_on:
+                x, aux = _remat_block(block, x, remat, generator)
+            else:
+                x, aux = block(
+                    x, cache=None if cache is None else cache[i],
+                    decode_pos=decode_pos, pad_offset=pad_offset,
+                    train=train, generator=generator,
+                    block_tables=block_tables)
+            if aux is not None and aux_total is not None:
+                aux_total = aux_total + aux
         x = self.final_norm(x)
         if train and fused_head:
             return FusedHeadOut(hidden=x, kernel=self.lm_head.weight,
-                                aux=torch.zeros((), dtype=torch.float32,
-                                                device=x.device))
-        return self.lm_head(x)
+                                aux=aux_total)
+        logits = self.lm_head(x)
+        return (logits, aux_total) if return_aux else logits
 
 
 # ----------------------------------------------------------------------
@@ -633,12 +765,16 @@ class LanguageModel:
     and method surface (``compile``, ``fit``, ``evaluate``, ``predict``,
     ``generate``).
 
-    Covers dense MLP, GQA, sliding window, RoPE, dropout and LoRA
+    Covers the gated MLP or a mixture of experts (``n_experts``,
+    ``moe_k``, ``aux_coef``), GQA, sliding window, RoPE, dropout, fused
+    projections (``fused_proj``), per-block rematerialization under
+    training (``remat`` ``"dots"``/``"full"``), beam search, and LoRA
     adapters on the attention projections (``lora_rank``; a model with
-    adapters trains them alone, its base frozen). Options of the JAX
-    model that this package does not run yet (MoE, fused projections,
-    remat, ring/Ulysses attention) raise at construction. Weights come
-    in through :meth:`set_params` (see :mod:`.weights`), or from
+    adapters trains them alone, its base frozen). Ring and Ulysses
+    attention raise at construction. ``LO_LM_HEAD_CHUNK``,
+    ``LO_TLM_REMAT`` and ``LO_TLM_FUSED_PROJ`` override ``head_chunk``,
+    ``remat`` and ``fused_proj`` as in the JAX package. Weights come in
+    through :meth:`set_params` (see :mod:`.weights`), or from
     ``weights.init_params(seed)`` at the first ``fit``; they stay
     float32. ``attention="auto"`` resolves to ``flash``."""
 
@@ -682,14 +818,9 @@ class LanguageModel:
         self.dropout = float(dropout)
         self.aux_coef = float(aux_coef)
         self.head_chunk = head_chunk
-        if remat not in (None, "none", "dots", "full"):
+        if remat not in (None,) + REMAT_POLICIES:
             raise ValueError(f"unknown remat policy {remat!r} "
                              f"(none|dots|full)")
-        if remat in ("dots", "full"):
-            # recomputation needs the dropout generator replayed, which
-            # torch.utils.checkpoint does not do
-            raise ValueError(f"remat={remat!r} is not yet ported to the "
-                             f"PyTorch package (none only)")
         self.remat = remat
         self.fused_proj = bool(fused_proj)
         self.lora_rank = int(lora_rank)
@@ -703,10 +834,6 @@ class LanguageModel:
         self.rope_base = float(rope_base)
         if self.rope_base <= 1.0:
             raise ValueError(f"rope_base must be > 1, got {rope_base}")
-        for key, off in (("n_experts", 0), ("fused_proj", False)):
-            if getattr(self, key) != off:
-                raise ValueError(f"{key}={getattr(self, key)!r} is not yet "
-                                 f"ported to the PyTorch package")
         self.device = resolve_device(device)
         self.module: Optional[TransformerLM] = None
         self.optimizer_spec: Dict[str, Any] = {"kind": "adamw",
@@ -732,10 +859,46 @@ class LanguageModel:
     def _head_chunk(self) -> int:
         """Tokens per chunk of the fused lm-head loss (0 = full logits):
         fused when the vocab is large enough that the (tokens, vocab)
-        float32 logits dominate the step's memory."""
+        float32 logits dominate the step's memory. ``LO_LM_HEAD_CHUNK``
+        overrides (0 disables, N sets tokens per chunk)."""
+        env = os.environ.get("LO_LM_HEAD_CHUNK")
+        if env is not None:
+            return max(0, int(env))
         if self.head_chunk is not None:
             return max(0, int(self.head_chunk))
         return 1024 if self.vocab_size >= 8192 else 0
+
+    def _resolved_remat(self) -> str:
+        """The remat policy of a training forward: ``LO_TLM_REMAT``, else
+        the constructor's, else ``"none"``."""
+        value = os.environ.get("LO_TLM_REMAT") or self.remat or "none"
+        if value not in REMAT_POLICIES:
+            raise ValueError(
+                f"unknown remat policy {value!r} (none|dots|full)")
+        return value
+
+    def _resolved_fused_proj(self) -> bool:
+        """``LO_TLM_FUSED_PROJ`` (1/true/yes or 0/false/no; unset or
+        empty takes the constructor's value). Anything else raises, so a
+        typo never measures the wrong path."""
+        env = os.environ.get("LO_TLM_FUSED_PROJ")
+        if not env:
+            return self.fused_proj
+        value = env.strip().lower()
+        if value in ("1", "true", "yes"):
+            return True
+        if value in ("0", "false", "no"):
+            return False
+        raise ValueError(
+            f"LO_TLM_FUSED_PROJ={env!r} (want 1/true/yes or "
+            f"0/false/no)")
+
+    def _config(self) -> Dict[str, Any]:
+        """The configuration keys, ``fused_proj`` resolved: what decides
+        the parameter tree (:func:`weights.init_params`)."""
+        config = {k: getattr(self, k) for k in self._CONFIG_KEYS}
+        config["fused_proj"] = self._resolved_fused_proj()
+        return config
 
     def _new_module(self) -> TransformerLM:
         """The module on the meta device (no memory, no init)."""
@@ -747,7 +910,9 @@ class LanguageModel:
                 attention=self._resolved_attention(), causal=True,
                 sliding_window=self.sliding_window,
                 rope_base=self.rope_base, dropout=self.dropout,
-                lora_rank=self.lora_rank, lora_alpha=self.lora_alpha)
+                lora_rank=self.lora_rank, lora_alpha=self.lora_alpha,
+                n_experts=self.n_experts, moe_k=self.moe_k,
+                fused_proj=self._resolved_fused_proj())
 
     def set_params(self, state_dict) -> None:
         """Build the module on the model's device and load (copy)
@@ -792,13 +957,12 @@ class LanguageModel:
         if train and self.dropout and rng is not None:
             generator = torch.Generator(device=self.device)
             generator.manual_seed(rng)
-        out = torch.func.functional_call(
+        return torch.func.functional_call(
             self.module, params, (batch["x"],),
             {"train": train, "generator": generator,
-             "fused_head": bool(self._head_chunk())})
-        if isinstance(out, FusedHeadOut):
-            return out
-        return out, torch.zeros((), dtype=torch.float32, device=out.device)
+             "fused_head": bool(self._head_chunk()),
+             "remat": self._resolved_remat() if train else "none",
+             "return_aux": True})
 
     def _get_engine(self) -> engine_lib.Engine:
         if self._engine is None:
@@ -880,9 +1044,8 @@ class LanguageModel:
             x = x[:-n_val]
         batcher = self._batcher(x, batch_size, shuffle=shuffle)
         if self.module is None:
-            config = {k: getattr(self, k) for k in self._CONFIG_KEYS}
             self.set_params(weights_lib.params_from_flax(
-                weights_lib.init_params(config, self.seed)))
+                weights_lib.init_params(self._config(), self.seed)))
         eng = self._get_engine()
         state = eng.init_state(self._master_params())
         state, history = eng.fit(state, batcher, epochs=epochs,
@@ -929,8 +1092,8 @@ class LanguageModel:
         old = self.module.state_dict()
         self.lora_rank = int(rank)
         self.lora_alpha = float(alpha)
-        config = {k: getattr(self, k) for k in self._CONFIG_KEYS}
-        fresh = weights_lib.lora_adapters(config, self.seed, self.lora_rank)
+        fresh = weights_lib.lora_adapters(self._config(), self.seed,
+                                          self.lora_rank)
         state = {}
         for key in self._new_module().state_dict():
             if key in old:
@@ -1063,12 +1226,27 @@ class LanguageModel:
         per new token. ``top_k``/``top_p`` apply only when
         ``temperature > 0``. Unequal-length prompts (list of lists) are
         left-padded with id 0 and the leading pads stay in the output.
-        Beam search (``num_beams`` above 1) is not ported yet. Returns
+        ``num_beams`` above 1 runs deterministic beam search
+        (:meth:`_beam_search`): greedy only, equal-length prompts. Returns
         (b, s + new) int32 tokens."""
-        if num_beams != 1:
-            raise ValueError(f"num_beams={num_beams!r} (beam search) is not "
-                             f"yet ported to the PyTorch package")
         self._require_built()
+        if num_beams > 1:
+            if temperature > 0:
+                raise ValueError(
+                    "beam search is deterministic — use temperature=0 "
+                    "(sampling and beams don't compose)")
+            if top_k is not None or top_p is not None:
+                raise ValueError(
+                    "beam search is deterministic — top_k/top_p "
+                    "sampling filters don't compose with num_beams>1")
+            if num_beams >= self.vocab_size:
+                # token 0 is pad-masked, so vocab-1 real candidates
+                raise ValueError(
+                    f"num_beams={num_beams} exceeds the "
+                    f"{self.vocab_size - 1} non-pad vocabulary "
+                    f"candidates")
+            return self._beam_search(prompt, max_new_tokens,
+                                     int(num_beams))
         if temperature <= 0:
             top_k = top_p = None
         if top_k is not None:
@@ -1104,6 +1282,59 @@ class LanguageModel:
                 buf[:, pos] = self._sample(logits[:, 0], temperature,
                                            top_k, top_p, seed, pos)
         return buf.cpu().numpy().astype(np.int32)
+
+    def _beam_search(self, prompt, max_new_tokens: int,
+                     num_beams: int) -> np.ndarray:
+        """Deterministic beam search over the KV cache, as the JAX
+        package runs it: the prompt prefills once per sample, the cache
+        repeats to ``b·beams`` rows, and every step scores each (beam,
+        token) candidate by its summed log-prob (token 0 masked), keeps
+        the top ``num_beams`` (ties to the lower flat index, as
+        ``lax.top_k``), and reorders the tokens and the cache by each
+        survivor's parent. All beams have one length, so the raw sum
+        ranks them. Returns the best beam per sample, (b, s + new)."""
+        prompt, b, s, total, pad = self._prep_prompt(prompt,
+                                                     max_new_tokens)
+        if pad is not None:
+            raise ValueError(
+                "beam search requires equal-length prompts (pass one "
+                "prompt at a time, or use num_beams=1 which "
+                "left-pads)")
+        if total <= s:
+            return prompt
+        n, vocab, dev = num_beams, self.vocab_size, self.device
+
+        def logp_of(logits):
+            lg = logits.float().clone()
+            lg[..., 0] = NEG_INF  # the pad token
+            return torch.log_softmax(lg, dim=-1)
+
+        buf = torch.zeros((b, n, total), dtype=torch.long, device=dev)
+        buf[:, :, :s] = torch.from_numpy(prompt).to(dev)[:, None, :]
+        cache = self._new_cache(b, total)
+        with torch.inference_mode():
+            logits = self.module(buf[:, 0, :s], cache=cache)
+            scores, toks = moe_lib.stable_top_k(logp_of(logits[:, -1]), n)
+            buf[:, :, s] = toks
+            cache = [(k.repeat_interleave(n, dim=0),
+                      v.repeat_interleave(n, dim=0)) for k, v in cache]
+            base = torch.arange(b, device=dev)[:, None] * n
+            for pos in range(s + 1, total):
+                tok = buf[:, :, pos - 1].reshape(b * n, 1)
+                lg = self.module(tok, cache=cache, decode_pos=pos - 1)
+                cand = scores[..., None] + \
+                    logp_of(lg[:, 0]).reshape(b, n, vocab)
+                scores, flat = moe_lib.stable_top_k(
+                    cand.reshape(b, n * vocab), n)
+                parent = flat // vocab
+                buf = torch.gather(
+                    buf, 1, parent[..., None].expand(b, n, total)).clone()
+                buf[:, :, pos] = flat % vocab
+                rows = (base + parent).reshape(-1)
+                cache = [(k[rows], v[rows]) for k, v in cache]
+            best = torch.argmax(scores, dim=1)
+            out = buf[torch.arange(b, device=dev), best]
+        return out.cpu().numpy().astype(np.int32)
 
     # ------------------------------------------------------------------
     # resident serving (services/serving.py)

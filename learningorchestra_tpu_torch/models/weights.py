@@ -6,8 +6,14 @@ the port's module share their names: ``layer_0/attn/q_proj/kernel`` is
 ``layer_0.attn.q_proj.weight``. A flax ``kernel`` is ``(in, out)`` and a
 ``torch.nn.Linear.weight`` is ``(out, in)``, so kernels are transposed;
 ``embed/embedding``, the norms' ``scale``, a Dense ``bias`` (the
-classifier's ``cls_head``) and the LoRA adapters ``lora_a`` ``(in,
-rank)`` and ``lora_b`` ``(rank, out)`` carry over as they are.
+classifier's ``cls_head``), the LoRA adapters ``lora_a`` ``(in, rank)``
+and ``lora_b`` ``(rank, out)``, and the mixture of experts' raw
+parameters ``moe/gate`` ``(d_model, n_experts)`` and
+``moe/experts/{wi,wo}`` carry over as they are. The MoE router
+``layer_0.moe.gate`` is a parameter of its own and the MLP's
+``layer_0.mlp.gate.weight`` a Dense kernel, so the two never meet. The
+fused projections ``attn/qkv_proj`` and ``mlp/gate_up`` are Dense
+kernels like the others.
 """
 
 from __future__ import annotations
@@ -31,7 +37,9 @@ def _flatten(tree, prefix=()):
             yield path, value
 
 
-_AS_IS = ("scale", "bias", "lora_a", "lora_b")
+# leaves stored as they are; "gate", "wi" and "wo" are the MoE's raw
+# parameters (a Dense kernel's leaf is always "kernel")
+_AS_IS = ("scale", "bias", "lora_a", "lora_b", "gate", "wi", "wo")
 
 
 def flax_path(key: str) -> Tuple[Tuple[str, ...], bool]:
@@ -117,8 +125,11 @@ def lora_adapters(config: Dict[str, Any], seed: int,
     heads = int(config["n_heads"])
     kv = int(config.get("n_kv_heads") or 0) or heads
     hd = d // heads
-    widths = {"q_proj": (d, heads * hd), "k_proj": (d, kv * hd),
-              "v_proj": (d, kv * hd), "o_proj": (heads * hd, d)}
+    if config.get("fused_proj") and kv == heads:
+        widths = {"qkv_proj": (d, 3 * heads * hd), "o_proj": (heads * hd, d)}
+    else:
+        widths = {"q_proj": (d, heads * hd), "k_proj": (d, kv * hd),
+                  "v_proj": (d, kv * hd), "o_proj": (heads * hd, d)}
     out: Dict[str, torch.Tensor] = {}
     for i in range(int(config["n_layers"])):
         for proj, (fan_in, fan_out) in widths.items():
@@ -132,14 +143,17 @@ def lora_adapters(config: Dict[str, Any], seed: int,
 def init_params(config: Dict[str, Any], seed: int) -> Dict[str, Any]:
     """A full random flax-layout tree for a ``LanguageModel`` config
     (its ``vocab_size``, ``d_model``, ``n_layers``, ``n_heads``,
-    ``n_kv_heads``, ``d_ff``, ``lora_rank``) or, where the config has
+    ``n_kv_heads``, ``d_ff``, ``n_experts``, ``fused_proj``,
+    ``lora_rank``) or, where the config has
     ``n_classes``, a ``TextClassifier``'s (a ``cls_head`` with bias in
     place of ``lm_head``), made with numpy from ``seed`` with flax's
     initializers: Dense kernels from ``lecun_normal`` (a normal cut at
     two standard deviations and rescaled to variance 1/fan_in), the
     embedding from ``default_embed_init`` (a plain normal, variance
-    1/d_model), norm scales at one, biases at zero; adapters as
-    :func:`lora_adapters` makes them."""
+    1/d_model), norm scales at one, biases at zero, the MoE's router and
+    experts from ``normal(1/sqrt(fan_in))``; adapters as
+    :func:`lora_adapters` makes them. Under ``fused_proj`` the MLP has
+    ``gate_up`` and, without GQA, the attention ``qkv_proj``."""
     rng = np.random.default_rng(seed)
     vocab = int(config["vocab_size"])
     d = int(config["d_model"])
@@ -158,18 +172,34 @@ def init_params(config: Dict[str, Any], seed: int) -> Dict[str, Any]:
     def ones():
         return {"scale": np.ones((d,), np.float32)}
 
+    experts = int(config.get("n_experts") or 0)
+    fused = bool(config.get("fused_proj"))
+
+    def attn():
+        if fused and kv == heads:
+            return {"qkv_proj": dense(d, 3 * heads * hd),
+                    "o_proj": dense(heads * hd, d)}
+        return {"q_proj": dense(d, heads * hd), "k_proj": dense(d, kv * hd),
+                "v_proj": dense(d, kv * hd), "o_proj": dense(heads * hd, d)}
+
+    def ffn():
+        if experts > 0:
+            return "moe", {"gate": normal(d, (d, experts)),
+                           "experts": {"wi": normal(d, (experts, d, d_ff)),
+                                       "wo": normal(d_ff,
+                                                    (experts, d_ff, d))}}
+        if fused:
+            return "mlp", {"gate_up": dense(d, 2 * d_ff),
+                           "down_proj": dense(d_ff, d)}
+        return "mlp", {"gate": dense(d, d_ff), "up_proj": dense(d, d_ff),
+                       "down_proj": dense(d_ff, d)}
+
     tree: Dict[str, Any] = {"embed": {"embedding": normal(d, (vocab, d))}}
     for i in range(int(config["n_layers"])):
-        tree[f"layer_{i}"] = {
-            "attn_norm": ones(),
-            "attn": {"q_proj": dense(d, heads * hd),
-                     "k_proj": dense(d, kv * hd),
-                     "v_proj": dense(d, kv * hd),
-                     "o_proj": dense(heads * hd, d)},
-            "mlp_norm": ones(),
-            "mlp": {"gate": dense(d, d_ff), "up_proj": dense(d, d_ff),
-                    "down_proj": dense(d_ff, d)},
-        }
+        layer = {"attn_norm": ones(), "attn": attn(), "mlp_norm": ones()}
+        name, value = ffn()
+        layer[name] = value
+        tree[f"layer_{i}"] = layer
     tree["final_norm"] = ones()
     if "n_classes" in config:
         n_classes = int(config["n_classes"])

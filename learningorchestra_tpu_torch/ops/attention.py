@@ -715,11 +715,23 @@ def paged_append_token(pool: torch.Tensor, new: torch.Tensor,
     """Scatter one decode step's K (or V) rows ``new`` (``(b, kv, d)``)
     into their pages, in place: row ``i`` lands at
     ``pool[block_tables[i, pos[i] // page_len], pos[i] % page_len]``.
-    Returns ``pool``."""
+    Returns ``pool``.
+
+    The page column is clamped into the table's width, as the JAX
+    package's gather clamps it: a retired lane keeps its position while
+    the session slices the tables to the live streams' width, and its
+    row (all trash page 0) then lands in page 0 instead of indexing
+    past the slice (a device-side assert on the card)."""
     rows = torch.arange(new.shape[0], device=new.device)
-    page = block_tables[rows, pos // page_len]
+    page = block_tables[rows, _page_column(pos, page_len, block_tables)]
     pool[page, pos % page_len] = checked_pool_cast(pool, new)
     return pool
+
+
+def _page_column(pos: torch.Tensor, page_len: int,
+                 block_tables: torch.Tensor) -> torch.Tensor:
+    """``pos // page_len`` clamped into ``block_tables``' columns."""
+    return torch.clamp(pos // page_len, max=block_tables.shape[1] - 1)
 
 
 def paged_prefill_write(pool: torch.Tensor, kv_rows: torch.Tensor,
@@ -797,9 +809,10 @@ def quantized_paged_append_token(pool: torch.Tensor, scales: torch.Tensor,
     its live rows (``row < pos % page_len``: a reused page may carry a
     previous stream's rows), given the new row and quantized again. Rows
     of retired streams all point at the trash page 0, which is never read
-    unmasked, so which duplicate write wins there does not matter."""
+    unmasked, so which duplicate write wins there does not matter; the
+    page column is clamped as in :func:`paged_append_token`."""
     rows = torch.arange(new.shape[0], device=new.device)
-    page = block_tables[rows, pos // page_len]
+    page = block_tables[rows, _page_column(pos, page_len, block_tables)]
     slot = pos % page_len
     cur = dequantize_kv_pages(pool[page], scales[page])
     live = torch.arange(page_len, device=new.device)[None, :, None, None] \

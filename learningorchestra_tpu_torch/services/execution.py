@@ -23,8 +23,8 @@ commit's step, seconds and bytes), a resume's as ``checkpointRestores``
 (step and seconds).
 
 Refused with 406 before any document exists, because the port does not
-run them yet: ``#`` expressions, ``num_beams`` other than 1, and the
-body fields ``timeout``, ``sliceDevices`` and ``healthPolicy``.
+run them yet: ``#`` expressions and the body fields ``timeout``,
+``sliceDevices`` and ``healthPolicy``.
 """
 
 from __future__ import annotations
@@ -60,9 +60,6 @@ def _refuse_unported(body: Dict[str, Any],
     for field in _UNPORTED_FIELDS:
         if body.get(field) is not None:
             raise V.not_ported(f"the {field} field")
-    if method_parameters.get("num_beams", 1) != 1:
-        # generate would take the request and raise in the job
-        raise V.not_ported("num_beams other than 1 (beam search)")
     refuse_hash_expressions(method_parameters)
 
 

@@ -8,9 +8,8 @@ thread; a job then resolves the ``$`` parameters and builds the
 instance on the context's device (``device=ctx.device`` for a class
 that takes a device, as the port's models do and the JAX ones do not).
 ``PATCH`` rebuilds it with new ``classParameters``. Constructor options
-the JAX models take and the port does not run yet (MoE, fused
-projections, remat, ring and Ulysses attention) answer 406 "not yet
-ported" before any document exists. The JAX package's preflight
+the JAX models take and the port does not run yet (ring and Ulysses
+attention) answer 406 "not yet ported" before any document exists. The JAX package's preflight
 analysis is not ported, so the metadata carries no ``analysis`` field.
 """
 
@@ -34,13 +33,8 @@ CLASS_PARAMETERS_FIELD = "classParameters"
 # run yet: class -> (keyword, refused value, what the 406 names)
 _UNPORTED_OPTIONS = {
     "LanguageModel": (
-        ("n_experts", lambda v: v not in (0, None), "n_experts other than "
-                                                    "0 (MoE)"),
-        ("fused_proj", bool, "fused_proj (fused projections)"),
-        ("remat", lambda v: v in ("dots", "full"), "remat 'dots' and "
-                                                   "'full'"),
         ("attention", lambda v: v in ("ring", "ulysses"),
-         "ring and Ulysses attention")),
+         "ring and Ulysses attention"),),
 }
 
 

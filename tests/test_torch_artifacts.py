@@ -173,10 +173,18 @@ def test_unported_jax_classes_and_options_raise(tmp_path):
                                          "not yet ported"):
         store.load("nm")
     # a JAX LanguageModel whose config the port does not run
-    fused = jax_tlm.LanguageModel(**dict(LM, fused_proj=True))
-    JaxArtifactStore(str(tmp_path)).save(fused, "fused", "model/tensorflow")
-    with pytest.raises(ValueError, match="fused_proj=True is not yet ported"):
-        store.load("fused")
+    ring = jax_tlm.LanguageModel(**dict(LM, attention="ring"))
+    JaxArtifactStore(str(tmp_path)).save(ring, "ring", "model/tensorflow")
+    with pytest.raises(ValueError, match="attention='ring' is not ported"):
+        store.load("ring")
+    # MoE and fused projections run: their JAX artifacts load
+    for name, option in (("moe", {"n_experts": 4}),
+                         ("fused", {"fused_proj": True})):
+        jax_model = jax_tlm.LanguageModel(**dict(LM, **option))
+        JaxArtifactStore(str(tmp_path)).save(jax_model, name,
+                                             "model/tensorflow")
+        loaded = store.load(name)
+        assert all(getattr(loaded, k) == v for k, v in option.items())
     # weights.msgpack whose keys do not match the model's
     jax_model, _, _ = _models("lm")
     JaxArtifactStore(str(tmp_path)).save(jax_model, "lm", "model/tensorflow")

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from learningorchestra_tpu import config as jax_config
+from learningorchestra_tpu import native as jax_native
 from learningorchestra_tpu.runtime import checkpoint as jax_ckpt
 from learningorchestra_tpu_torch.config import Config
 from learningorchestra_tpu_torch.models import weights
@@ -414,6 +415,8 @@ def _rest_run(api, ckpt_root, csv, seeded):
                             "class": "LanguageModel",
                             "classParameters": CFG})):
         assert _call(api, "POST", route, body)[0] == 201
+    # a GET while the JAX ingest writes can answer 500
+    api.ctx.jobs.wait("corpus", timeout=300)
     _wait(api, "/dataset/csv/corpus")
     _wait(api, "/model/tensorflow/lm")
     api.ctx.artifacts.save(seeded, "lm", "model/tensorflow")
@@ -442,7 +445,11 @@ def _rest_run(api, ckpt_root, csv, seeded):
     return seen
 
 
-def test_rest_checkpoint_patch_resume_and_delete_as_jax(tmp_path, float32):
+def test_rest_checkpoint_patch_resume_and_delete_as_jax(tmp_path, float32,
+                                                        monkeypatch):
+    # the JAX ingest takes its pyarrow reader, the port's reference (its
+    # native parser builds into one cache shared by every process)
+    monkeypatch.setattr(jax_native, "available", lambda: False)
     x = _stream(32, seed=4)
     csv = _write_csv(tmp_path / "c.csv", x)
     # a one-device JAX mesh: on the 8-device CPU test mesh the JAX

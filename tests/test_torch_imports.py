@@ -1,9 +1,9 @@
 """The PyTorch port stands alone: importing every module of
 ``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer, the
-encoder and the fault injector among them) loads neither JAX, flax nor any module of the
-JAX package, nor pandas, pyarrow, dill or msgpack (the card's machine
-has none of them), and ``chip_smoke.py`` refuses to run without a
-card."""
+encoder, the fault injector and the mixture of experts among them) loads
+neither JAX, flax nor any module of the JAX package, nor pandas,
+pyarrow, dill or msgpack (the card's machine has none of them), and
+``chip_smoke.py`` refuses to run without a card."""
 
 import os
 import pkgutil
@@ -52,16 +52,19 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_new_modules_are_among_those_probed():
-    """The msgpack codec, the checkpointer, the encoder and the fault
-    injector are imported by the probe above (none of them may import
-    msgpack, flax or the JAX package's copy of itself)."""
+    """The msgpack codec, the checkpointer, the encoder, the fault
+    injector and the mixture of experts are imported by the probe above
+    (none of them may import msgpack, flax or the JAX package's copy of
+    itself)."""
     names = {m.name for m in pkgutil.walk_packages(
         learningorchestra_tpu_torch.__path__,
         learningorchestra_tpu_torch.__name__ + ".")}
     assert {"learningorchestra_tpu_torch.runtime.serialization",
             "learningorchestra_tpu_torch.runtime.checkpoint",
             "learningorchestra_tpu_torch.models.encoder",
-            "learningorchestra_tpu_torch.services.faults"} <= names
+            "learningorchestra_tpu_torch.services.faults",
+            "learningorchestra_tpu_torch.parallel",
+            "learningorchestra_tpu_torch.parallel.moe"} <= names
 
 
 def test_chip_smoke_fails_without_a_card():

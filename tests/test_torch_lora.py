@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from learningorchestra_tpu import config as jax_config
+from learningorchestra_tpu import native as jax_native
 from learningorchestra_tpu.models import transformer as jax_tlm
 from learningorchestra_tpu_torch.catalog import ArtifactStore
 from learningorchestra_tpu_torch.config import Config
@@ -295,6 +296,8 @@ def _lora_pipeline(api, csv, seeded, graft):
     assert _call(api, "POST", "/model/tensorflow", {
         "modelName": "lm", "modulePath": "learningorchestra_tpu.models",
         "class": "LanguageModel", "classParameters": CFG})[0] == 201
+    # a GET while the JAX ingest writes can answer 500
+    api.ctx.jobs.wait("corpus", timeout=300)
     _wait(api, "/dataset/csv/corpus")
     _wait(api, "/model/tensorflow/lm")
     api.ctx.artifacts.save(seeded, "lm", "model/tensorflow")
@@ -316,7 +319,10 @@ def _lora_pipeline(api, csv, seeded, graft):
     return out
 
 
-def test_rest_lora_workflow_as_jax(tmp_path, float32):
+def test_rest_lora_workflow_as_jax(tmp_path, float32, monkeypatch):
+    # the JAX ingest takes its pyarrow reader, the port's reference (its
+    # native parser builds into one cache shared by every process)
+    monkeypatch.setattr(jax_native, "available", lambda: False)
     x = _stream(32, seed=10)
     csv = tmp_path / "c.csv"
     with open(csv, "w") as f:

@@ -142,6 +142,51 @@ def test_paged_serving_bit_identical_to_solo_decode(api):
     assert _call(api, "DELETE", "/serve/slm")[0] == 200
 
 
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_retired_lane_past_the_live_width_appends_to_the_trash_page(
+        api, kv_dtype):
+    """A long stream retires past its first page while only a short
+    stream lives: the next step slices the block tables to the short
+    stream's one page, and the retired lane, which keeps its column as
+    the JAX session's does, appends into the trash page (the column
+    clamped into the slice, as the JAX gather clamps it). Driven on the
+    session's own loop without its thread, so the order is fixed."""
+    from learningorchestra_tpu_torch.services.serving import (
+        PagedLMServingSession, _Request)
+
+    lm = api.ctx.artifacts.load("slm")
+    sess = PagedLMServingSession(
+        "lane", api.ctx, lm, slots=4, cache_len=32, temperature=0.0,
+        top_k=None, top_p=None, page_len=8, n_pages=4 * 4 + 1,
+        kv_dtype=kv_dtype)
+    assert not sess._degraded
+    rng = np.random.default_rng(9)
+    long_req = _Request({"prompt": _prompt(rng, 10), "maxNewTokens": 3})
+    short_req = _Request({"prompt": _prompt(rng, 3), "maxNewTokens": 8})
+    sess._queue.extend([long_req, short_req])
+    overruns = 0
+    while sess._queue or sess._active_slots():
+        if sess._active_slots() == [1]:
+            # the retired lane's page column lies past the step's slice
+            overruns += int(sess._col[0]) // sess.page_len >= \
+                sess._gather_width()
+        sess._serve_once()
+    assert overruns
+    for req in (long_req, short_req):
+        assert req.error is None
+    trash = [int(p) for p in sess._bt[0]]
+    assert trash == [0] * len(trash)
+    if kv_dtype == "int8":
+        assert [len(r.result["tokens"]) for r in (long_req, short_req)] \
+            == [3, 8]
+        return
+    for req in (long_req, short_req):
+        prompt = req.payload["prompt"]
+        assert req.result["tokens"] == _solo(
+            lm, prompt, req.payload["maxNewTokens"], 0, temperature=0.0,
+            top_k=None)
+
+
 def test_paged_greedy_tokens_match_jax_paged_session(api, tree, tmp_path):
     """Greedy paged streams of the port equal the JAX package's paged
     session's for the same weights and prompts."""

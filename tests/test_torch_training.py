@@ -441,8 +441,23 @@ def test_unknown_remat_raises_in_both_packages():
 
 
 @pytest.mark.parametrize("remat", ["dots", "full"])
-def test_remat_policies_are_refused_until_ported(remat):
-    with pytest.raises(ValueError, match="not yet ported"):
-        tlm.LanguageModel(**CFG, remat=remat, device="cpu")
-    for ok in (None, "none"):
+def test_remat_policies_match_no_remat(tree, compute_dtype, remat):
+    """A 2-epoch fit under each remat policy gives the no-remat fit's
+    losses and params bit for bit, with dropout on (the recompute
+    replays each block's dropout masks), and the JAX package's remat fit
+    of the same tree without dropout."""
+    for ok in (None, "none", remat):
         assert tlm.LanguageModel(**CFG, remat=ok, device="cpu").remat == ok
+    x = _stream(32, seed=12)
+    plain = _port_lm(tree, dropout=0.1, attention="flash")
+    want = plain.fit(x, batch_size=16, epochs=2, shuffle=False).history
+    lm = _port_lm(tree, dropout=0.1, attention="flash", remat=remat)
+    got = lm.fit(x, batch_size=16, epochs=2, shuffle=False).history
+    assert got["loss"] == want["loss"]
+    for key, value in plain.params.items():
+        assert torch.equal(lm.params[key], value), key
+    jax_hist = _jax_lm(tree, attention="dot", remat=remat).fit(
+        x, batch_size=16, epochs=1, shuffle=False).history
+    got = _port_lm(tree, attention="flash", remat=remat).fit(
+        x, batch_size=16, epochs=1, shuffle=False).history
+    np.testing.assert_allclose(got["loss"], jax_hist["loss"], rtol=1e-5)

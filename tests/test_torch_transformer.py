@@ -182,12 +182,16 @@ def test_artifact_round_trip(tree, tmp_path):
 
 
 def test_unported_options_raise():
-    for kwargs in ({"n_experts": 4}, {"fused_proj": True},
-                   {"attention": "ring"}):
+    for kwargs in ({"attention": "ring"}, {"attention": "ulysses"}):
         with pytest.raises(ValueError, match="not (yet )?ported"):
             LanguageModel(**{**CFG, **kwargs}, device="cpu")
-    # LoRA is ported: the adapters' rank is taken
+    # LoRA, MoE and fused projections are ported: their options are taken
     assert LanguageModel(**CFG, lora_rank=8, device="cpu").lora_rank == 8
+    moe = LanguageModel(**CFG, n_experts=4, moe_k=1, device="cpu")
+    assert (moe.n_experts, moe.moe_k) == (4, 1)
+    assert "layer_0.moe.gate" in moe._new_module().state_dict()
+    fused = LanguageModel(**CFG, fused_proj=True, device="cpu")
+    assert "layer_0.mlp.gate_up.weight" in fused._new_module().state_dict()
 
 
 @pytest.mark.parametrize("d_model,n_heads,want", [(1024, 4, "dot"),
