@@ -114,6 +114,32 @@
    solo recorded: capacity makes lanes compete, as in the JAX package);
    and a retired paged lane whose column lies past the step's page
    slice, which must append to the trash page without a device assert.
+8. Serving plane (the ``servingPlane`` line, last): the train phase's LM
+   served in float32 with speculative decoding, disaggregated prefill and
+   decode, and the classifier phase's TextClassifier bucketed. A draft
+   LM (vocab 32000, d_model 256, 2 layers, 4 heads over 2, window 1024)
+   is fitted in bf16 on the train phase's windows (the sm90 kernels,
+   2 layers x steps of each, nothing else) until its loss is below the
+   target's epoch 2 or for 8 steps. Prompts of 1100-1500 successor
+   tokens and one of 1200 random ids, 32 greedy tokens each, 4 slots,
+   16-token pages: (a) the target as its own draft, specK 4, every
+   stream equal to solo ``generate`` (acceptance against its
+   end-of-stream bound recorded); (b) ``disagg: true`` with the small
+   draft, every stream equal to solo, mode colocated, a handoff a
+   request, an empty queue, the roles prefill/decode/draft, exactly 8
+   flash_fwd_tf32x3 launches a target prefill and 2 a draft prefill and
+   none in a verify or propose step, the pool back to the prefix cache's
+   holds after delete (TTFT, decode tokens/s against a plain paged
+   session and the draft's ms a round recorded); (c) the
+   ``kv_page_handoff`` fault: one 429 without a leaked page, and latched,
+   three 429s, a collapse to fused serving whose tokens equal solo; (d)
+   two streams decoding while two 1500-token prompts arrive, fused and
+   disaggregated: the gaps between their tokens recorded, every token
+   equal to solo; (e) int8 KV with the self-draft: every request 200,
+   agreement recorded; (f) ``type: "predict"`` of the classifier: bursts
+   of 1, 3 and 5 rows in buckets 1, 4 and 8 and three concurrent
+   clients, each row within 1e-5 of a direct ``predict`` of its padded
+   bucket, 4 layers x predict calls of flash_fwd_sm90 and nothing else.
 
 The kernel launch counts are zeroed just before each path and read
 just after it.
@@ -132,6 +158,7 @@ from __future__ import annotations
 
 import gc
 import json
+import math
 import os
 import re
 import shutil
@@ -2484,7 +2511,7 @@ def lm_options_phase(torch, log, home, yard):
     return paths
 
 
-def classifier_phase(torch, log, home):
+def classifier_phase(torch, log, home, yard):
     """The tutorial's TextClassifier on the card in bf16 with
     ``attention="flash"``: a 3-epoch fit of 1024 rows of 512 tokens
     (the non-causal sm90 kernels at head_dim 32, 4 layers x 24 steps of
@@ -2492,7 +2519,8 @@ def classifier_phase(torch, log, home):
     to 1), the artifact's round trip, one float32 gradient micro-step
     through the split-TF32 kernels against the dense path, and ``POST
     /model`` of the tutorial's body. Returns the kernel launches of the
-    fit and of the gradient step."""
+    fit and of the gradient step; leaves the classifier and its rows in
+    ``yard`` for the serving plane's bucketed phase."""
     import numpy as np
 
     from learningorchestra_tpu_torch.config import Config
@@ -2582,6 +2610,7 @@ def classifier_phase(torch, log, home):
     finally:
         server.stop()
         ctx.close()
+    yard.update(clf=clf, clfRows=x)
     log.append("classifier " + json.dumps({
         "config": CLF_CONFIG, "attention": "flash", "rows": CLF_ROWS,
         "seq": CLF_SEQ, "batch": CLF_BATCH, "epochs": CLF_EPOCHS,
@@ -2597,6 +2626,460 @@ def classifier_phase(torch, log, home):
         "restModelCreated": True}))
     return {"classifierFit": launches,
             "classifierFloat32Grad": grad_launches["flash"]}
+
+# the serving plane's draft: a small LM with the tutorial LM's vocabulary
+# and context (head_dim 64), fitted in the phase in bf16 on the train
+# phase's windows
+DRAFT_CONFIG = dict(vocab_size=32000, d_model=256, n_layers=2, n_heads=4,
+                    n_kv_heads=2, d_ff=0, max_len=2048, sliding_window=1024,
+                    rope_base=10000.0)
+DRAFT_LR, DRAFT_BATCH, DRAFT_MAX_STEPS = 1e-3, 16, 8
+SPEC_K = 4
+# the prompt of random ids, off the successor pattern
+OFF_PATTERN_PROMPT = 1200
+# decode cadence under a burst: two in-flight streams of 64 tokens after
+# 256-token prompts, and two 1500-token prompts arriving mid-stream
+CADENCE_PROMPT, CADENCE_NEW, BURST_PROMPT = 256, 64, 1500
+# rows a bucketed predict burst sends, one burst after another, then the
+# rows of three concurrent clients
+BUCKET_BURSTS, BUCKET_CLIENTS = ((1, 1), (3, 4), (5, 8)), (2, 3, 3)
+
+
+def _distinct_windows(x, n: int, skip=()) -> list:
+    """Indices of ``n`` windows of ``x`` with pairwise distinct first ids
+    (and none of ``skip``'s): the successor stream repeats every 63 ids,
+    so two windows share a prefix exactly when they start alike."""
+    seen = {int(x[i, 0]) for i in skip}
+    out = []
+    for i in range(len(x)):
+        if int(x[i, 0]) not in seen:
+            seen.add(int(x[i, 0]))
+            out.append(i)
+        if len(out) == n:
+            return out
+    raise AssertionError(f"fewer than {n} distinct windows")
+
+
+def _fit_draft(x, target_loss: float):
+    """The draft LM from ``init_params(DRAFT_CONFIG, 0)``, fitted in bf16
+    an epoch (4 steps of 16 windows) at a time until its epoch loss is
+    below ``target_loss`` or it has taken DRAFT_MAX_STEPS steps. Returns
+    the model, its epoch losses and the launches of its fit."""
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    draft = LanguageModel(**DRAFT_CONFIG, device="cuda")
+    draft.set_params(weights.params_from_flax(
+        weights.init_params(DRAFT_CONFIG, seed=0)))
+    draft.compile({"kind": "adamw", "learning_rate": DRAFT_LR})
+    per_epoch = len(x) // DRAFT_BATCH
+    losses = []
+    _reset_launches(attn)
+    while len(losses) * per_epoch < DRAFT_MAX_STEPS:
+        hist = draft.fit(x, batch_size=DRAFT_BATCH, epochs=1,
+                         grad_accum=1).history
+        losses.append(hist["loss"][0])
+        if losses[-1] < target_loss:
+            break
+    launches = _launches(attn)
+    steps = len(losses) * per_epoch
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(dict.fromkeys(
+        ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"),
+        DRAFT_CONFIG["n_layers"] * steps))
+    if launches != want or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"the draft's fit launched {launches} (want "
+                             f"{want}), losses {losses}")
+    return draft, losses, steps, launches
+
+
+def _spec_expectation(news, k: int) -> float:
+    """Accepted drafts per verify step if every draft were accepted: a
+    stream of ``n`` tokens takes its first from the prefill and the rest
+    in ceil((n - 1) / (k + 1)) rounds, the last one clamped at its end."""
+    rounds = [-(-(n - 1) // (k + 1)) for n in news]
+    return sum(n - 1 - r for n, r in zip(news, rounds)) / sum(rounds)
+
+
+def _timed_calls(torch, session, names) -> dict:
+    """Wraps each of ``session``'s step functions named in ``names`` to
+    record its milliseconds, the card synchronized at its end (the
+    session reads each result to the host right after anyway). Returns
+    the lists it fills, by name."""
+    times = {}
+    for name in names:
+        inner = getattr(session, name)
+        times[name] = []
+
+        def timed(*args, _inner=inner, _into=times[name]):
+            t = time.monotonic()
+            out = _inner(*args)
+            torch.cuda.synchronize()
+            _into.append((time.monotonic() - t) * 1e3)
+            return out
+
+        setattr(session, name, timed)
+    return times
+
+
+# the report's key of each timed step function
+_CALL_KEYS = {"_verify": "verifyMsP50", "_draft_propose": "proposeMsP50",
+              "_pstep": "stepMsP50"}
+
+
+def _prefix_held(session) -> int:
+    """Page references the session's prefix cache holds itself: an idle
+    pool has all its pages free but these."""
+    with session.prefix._lock:
+        return sum(len(e["held"]) for e in session.prefix._entries.values())
+
+
+def _p50(values) -> float:
+    values = sorted(values)
+    return values[(len(values) - 1) // 2]
+
+
+def _cadence(base, ctx, body, streams, burst, want) -> dict:
+    """Two streams decode CADENCE_NEW tokens while two 1500-token prompts
+    arrive, on a fresh session of ``body``. The decode rounds are timed
+    on the session's own thread; returns the in-flight streams' largest
+    and median gap between rounds that gave them a token."""
+    session_name = "lm"
+    _create(base, session_name, body)
+    session = ctx.serving._sessions[session_name]
+    times = {len(p): [] for p in streams}
+    inner = session._decode_round
+
+    def timed(active):
+        lens = [len(session._slot_req[s].payload["prompt"]) for s in active]
+        inner(active)
+        now = time.monotonic()
+        for n in lens:
+            if n in times:
+                times[n].append(now)
+
+    session._decode_round = timed
+    out = [None] * 4
+    prompts = list(streams) + list(burst)
+    news = [CADENCE_NEW] * len(streams) + [1] * len(burst)
+
+    def client(i):
+        out[i] = _http(base, "POST", f"/serve/{session_name}/predict",
+                       {"prompt": prompts[i], "maxNewTokens": news[i]})
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(4)]
+    for t in threads[:2]:
+        t.start()
+    deadline = time.monotonic() + 120
+    while min(len(v) for v in times.values()) < 8:
+        if time.monotonic() > deadline:
+            raise AssertionError("cadence: the streams never decoded")
+        time.sleep(0.002)
+    burst_at = time.monotonic()
+    for t in threads[2:]:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    _http(base, "DELETE", f"/serve/{session_name}")
+    for i, result in enumerate(out):
+        if result is None or result[0] != 200:
+            raise AssertionError(f"cadence predict {i}: {result}")
+        if result[1]["tokens"] != want[i]:
+            raise AssertionError(f"cadence predict {i} differs from solo")
+    gaps = sorted((b - a) * 1e3 for v in times.values()
+                  for a, b in zip(v, v[1:]) if b > burst_at)
+    return {"mode": "disagg" if body.get("disagg") else "fused",
+            "roundsAfterBurst": len(gaps),
+            "maxGapMs": gaps[-1], "p50GapMs": gaps[(len(gaps) - 1) // 2],
+            "tokensEqualSolo": True}
+
+
+def serving_plane_phase(torch, log, home, yard):
+    """Speculative decoding, disaggregated prefill/decode and bucketed
+    predict over REST on the card (the ``servingPlane`` line). The
+    target is the train phase's LM, served in float32 (prefills on
+    flash_fwd_tf32x3); the draft a 2-layer LM of width 256 fitted here in
+    bf16 (the sm90 kernels). Prompts: 1100/1234/1367/1500 tokens of the
+    successor windows, where the draft mostly agrees with the target,
+    and 1200 random ids, where it mostly does not; 32 greedy tokens each
+    on ``maxSlots`` 4, 16-token pages. (a) The target as its own draft,
+    specK 4: every stream equals solo; acceptance recorded against its
+    end-of-stream bound. (b) disagg + spec with the small draft: every
+    stream equals solo, mode colocated, one handoff a request, an empty
+    handoff queue, roles {prefill, decode, draft}, 8 flash_fwd_tf32x3
+    launches a target prefill and 2 a draft prefill and none in any
+    verify or propose step, the pool back to the prefix cache's holds
+    after delete; TTFT, decode tokens/s against a plain paged session and
+    the draft's ms a round recorded. (c) ``kv_page_handoff:1``: one 429,
+    no page leaked, the retry 200; latched: three 429s, ``mode``
+    fused-degraded, later requests equal solo, the pool drained. (d) Two
+    streams decoding while two 1500-token prompts arrive, fused and
+    disaggregated: the largest and median gap between their tokens,
+    tokens equal solo. (e) int8 KV with the self-draft: every request
+    200, agreement with the exact tokens recorded. (f) The classifier
+    phase's TextClassifier as ``type: "predict"``: bursts of 1, 3 and 5
+    rows in buckets 1, 4 and 8, then 3 concurrent clients; every row
+    within 1e-5 of a direct ``predict`` of its padded bucket, 4 layers x
+    predict calls of flash_fwd_sm90 and nothing else. Returns the launches
+    of the draft's fit, of (b)'s measured round and of (f)."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services import faults
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    t0 = time.monotonic()
+    x, target = yard["x"], yard["lm"]
+    draft, draft_losses, draft_steps, fit_launches = _fit_draft(
+        x, yard["losses"][1])
+    report: dict = {
+        "draftConfig": DRAFT_CONFIG, "specK": SPEC_K,
+        "draftFit": {"steps": draft_steps, "losses": draft_losses,
+                     "targetEpoch2Loss": yard["losses"][1],
+                     "belowTarget": draft_losses[-1] < yard["losses"][1],
+                     "learningRate": DRAFT_LR, "launches": fit_launches}}
+    ctx = ServiceContext(Config(home=home), device="cuda")
+    ctx.artifacts.save(target, "lm", "train/tensorflow")
+    ctx.artifacts.save(draft, "draft", "train/tensorflow")
+    rng = np.random.default_rng(3)
+    measured = _distinct_windows(x, len(PROMPT_LENS))
+    warm = _distinct_windows(x, len(PROMPT_LENS), skip=measured)
+    prompts = [[int(t) for t in x[i, :n]]
+               for i, n in zip(measured, PROMPT_LENS)]
+    prompts.append([int(t) for t in rng.integers(
+        1, LM_CONFIG["vocab_size"], size=OFF_PATTERN_PROMPT)])
+    first_use = [[int(t) for t in x[i, 7:7 + n]]
+                 for i, n in zip(warm, PROMPT_LENS)]
+
+    def solo(p, new=NEW_TOKENS):
+        return [int(t) for t in
+                target.generate([p], max_new_tokens=new)[0][len(p):]]
+
+    solos = [solo(p) for p in prompts]
+    draft_solos = [[int(t) for t in draft.generate(
+        [p], max_new_tokens=NEW_TOKENS)[0][len(p):]] for p in prompts]
+    report["draftVsTargetSolo"] = _agreement(draft_solos, solos)
+    paged = {"type": "lm", "kv": "paged", "maxSlots": 4, "cacheLen": 2048,
+             "pageLen": PAGE_LEN, "temperature": 0.0}
+    spec_bound = _spec_expectation([NEW_TOKENS] * len(prompts), SPEC_K)
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    try:
+        # (a) the target as its own draft
+        _create(base, "lm", dict(paged, draft="lm", specK=SPEC_K))
+        calls = _timed_calls(torch, ctx.serving._sessions["lm"],
+                             ("_verify", "_draft_propose"))
+        out, walls, wall = _predict_round(base, "lm", prompts)
+        _diverges("self-draft spec", _round_tokens("self-draft spec", out),
+                  solos)
+        stats = _http(base, "GET", "/serve/lm")[1]
+        per_step = stats["spec"]["acceptedTokensPerStep"]
+        report["a"] = {"tokensEqualSolo": True, "spec": stats["spec"],
+                       **{_CALL_KEYS[k]: _p50(v) for k, v in calls.items()},
+                       "fullAcceptanceBound": spec_bound,
+                       "shortfallBeyondClamp": spec_bound - per_step,
+                       "wallSeconds": wall, **_round_rates(out, walls)}
+        _http(base, "DELETE", "/serve/lm")
+
+        # (b) a plain paged session, then disagg + spec with the draft,
+        # each after a first-use round
+        rates = {}
+        for name, extra in (("paged", {}),
+                            ("disaggSpec", {"disagg": True,
+                                            "draft": "draft",
+                                            "specK": SPEC_K})):
+            resp = _create(base, "lm", dict(paged, **extra))
+            session = ctx.serving._sessions["lm"]
+            _round_tokens(f"{name} first use",
+                          _predict_round(base, "lm", first_use)[0])
+            calls = _timed_calls(torch, session, (
+                "_verify", "_draft_propose") if extra else ("_pstep",))
+            _reset_launches(attn)
+            out, walls, wall = _predict_round(base, "lm", prompts)
+            launches = _launches(attn)
+            _diverges(name, _round_tokens(name, out), solos)
+            stats = _http(base, "GET", "/serve/lm")[1]
+            rates[name] = {"wallSeconds": wall, **_round_rates(out, walls),
+                           **{_CALL_KEYS[k]: _p50(v)
+                              for k, v in calls.items()}}
+            _http(base, "DELETE", "/serve/lm")
+            held = _prefix_held(session)
+            free = session.pool.free_count()
+            if free != resp["kv"]["pagesTotal"] - held:
+                raise AssertionError(f"{name}: {free} pages free after "
+                                     f"delete, the prefix cache holds "
+                                     f"{held} of {resp['kv']['pagesTotal']}")
+        n_req = len(prompts) + len(first_use)
+        disagg = stats["disagg"]
+        per_request = LM_CONFIG["n_layers"] + DRAFT_CONFIG["n_layers"]
+        want = dict.fromkeys(COUNTERS, 0)
+        want["flash_fwd_tf32x3"] = per_request * len(prompts)
+        if disagg["mode"] != "colocated" or \
+                disagg["handoffsTotal"] != n_req or \
+                disagg["handoffQueue"] != 0 or \
+                set(stats["roles"]) != {"prefill", "decode", "draft"}:
+            raise AssertionError(f"disagg stats: {disagg}, roles "
+                                 f"{sorted(stats['roles'])}")
+        if launches != want:
+            raise AssertionError(f"disagg + spec launched {launches}, want "
+                                 f"{want} ({LM_CONFIG['n_layers']} a target "
+                                 f"prefill, {DRAFT_CONFIG['n_layers']} a "
+                                 f"draft prefill, none in verify or "
+                                 f"propose)")
+        report["b"] = {
+            "launches": launches, "tokensEqualSolo": True,
+            "disagg": disagg, "spec": stats["spec"],
+            "draftMsPerRound": stats["roles"]["draft"],
+            "fullAcceptanceBound": spec_bound, **rates}
+
+        # (c) the handoff fault, transient then latched
+        report["c"] = {}
+        for spec, sends in (("kv_page_handoff:1", 1),
+                            ("kv_page_handoff:100", 3)):
+            ctx.config.fault_inject = spec
+            faults.reset()
+            try:
+                resp = _create(base, "lm", dict(paged, disagg=True))
+                session = ctx.serving._sessions["lm"]
+                total = resp["kv"]["pagesTotal"]
+                for _ in range(sends):
+                    status, body = _http(base, "POST", "/serve/lm/predict",
+                                         {"prompt": prompts[0],
+                                          "maxNewTokens": NEW_TOKENS})
+                    if status != 429 or session.pool.free_count() != total:
+                        raise AssertionError(
+                            f"{spec}: {status} {body}, "
+                            f"{session.pool.free_count()} of {total} free")
+                if sends == 3:
+                    deadline = time.monotonic() + 30
+                    while session.disagg_mode != "fused-degraded":
+                        if time.monotonic() > deadline:
+                            raise AssertionError("the latched handoff "
+                                                 "fault never collapsed")
+                        time.sleep(0.01)
+                out, _, _ = _predict_round(base, "lm", prompts[:2])
+                _diverges(spec, _round_tokens(spec, out), solos[:2])
+                stats = _http(base, "GET", "/serve/lm")[1]
+                _http(base, "DELETE", "/serve/lm")
+                if session.pool.free_count() != \
+                        total - _prefix_held(session):
+                    raise AssertionError(f"{spec}: the pool leaked")
+                want_mode = "fused-degraded" if sends == 3 else "colocated"
+                if stats["disagg"]["mode"] != want_mode:
+                    raise AssertionError(f"{spec}: {stats['disagg']}")
+                report["c"][spec] = {"rejected": sends,
+                                     "disagg": stats["disagg"],
+                                     "poolLeakFree": True,
+                                     "tokensEqualSolo": True}
+            finally:
+                ctx.config.fault_inject = ""
+                faults.reset()
+
+        # (d) decode cadence under a burst, fused then disaggregated
+        # two lengths: the round timer tells the streams apart by them
+        streams = [[int(t) for t in x[i, :CADENCE_PROMPT - PAGE_LEN * j]]
+                   for j, i in enumerate(measured[:2])]
+        burst = [[int(t) for t in x[i, 13:13 + BURST_PROMPT]]
+                 for i in warm[:2]]
+        want_c = [solo(p, CADENCE_NEW) for p in streams] + \
+            [solo(p, 1) for p in burst]
+        report["d"] = [_cadence(base, ctx, dict(paged, **extra),
+                                streams, burst, want_c)
+                       for extra in ({}, {"disagg": True})]
+
+        # (e) int8 KV pages with the self-draft
+        _create(base, "lm", dict(paged, kvDtype="int8", draft="lm",
+                                 specK=SPEC_K))
+        out, walls, _ = _predict_round(base, "lm", prompts)
+        tokens = _round_tokens("int8 spec", out)
+        stats = _http(base, "GET", "/serve/lm")[1]
+        report["e"] = {"agreement": _agreement(tokens, solos),
+                       "spec": stats["spec"], "kv": stats["kv"]["dtype"],
+                       "drift": stats.get("drift"),
+                       **_round_rates(out, walls)}
+        _http(base, "DELETE", "/serve/lm")
+
+        # (f) the classifier, bucketed
+        os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+        ctx.artifacts.save(yard["clf"], "clf", "train/tensorflow")
+        clf_x = yard["clfRows"]
+        _create(base, "clf", {"type": "predict"})
+        sent = []
+        _reset_launches(attn)
+        offset = 0
+        for n, bucket in BUCKET_BURSTS:
+            rows = clf_x[offset:offset + n]
+            offset += n
+            status, body = _http(base, "POST", "/serve/clf/predict",
+                                 {"x": rows.tolist()})
+            if status != 200 or body["bucket"] != bucket:
+                raise AssertionError(f"bucketed {n} rows: {status} "
+                                     f"{body.get('bucket')}")
+            sent.append((rows, body))
+        out = [None] * len(BUCKET_CLIENTS)
+        chunks = []
+        for n in BUCKET_CLIENTS:
+            chunks.append(clf_x[offset:offset + n])
+            offset += n
+
+        def client(i):
+            out[i] = _http(base, "POST", "/serve/clf/predict",
+                           {"x": chunks[i].tolist()})
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(chunks))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        for rows, result in zip(chunks, out):
+            if result is None or result[0] != 200:
+                raise AssertionError(f"concurrent bucketed: {result}")
+            sent.append((rows, result[1]))
+        stats = _http(base, "GET", "/serve/clf")[1]
+        clf_launches = _launches(attn)
+        want = dict.fromkeys(COUNTERS, 0)
+        want["flash_fwd_sm90"] = CLF_CONFIG["n_layers"] * \
+            stats["predictsTotal"]
+        if clf_launches != want:
+            raise AssertionError(f"bucketed predict launched {clf_launches}"
+                                 f", want {want}")
+        _http(base, "DELETE", "/serve/clf")
+        served = ctx.artifacts.load("clf")
+    finally:
+        server.stop()
+        ctx.close()
+    err, err_alone = 0.0, 0.0
+    for rows, body in sent:
+        n, bucket = len(rows), body["bucket"]
+        got = np.asarray(body["predictions"], np.float32)
+        if got.shape != (n, CLF_CONFIG["n_classes"]):
+            raise AssertionError(f"bucketed answer shape {got.shape}")
+        padded = np.concatenate([rows] + [rows[:1]] * (bucket - n))
+        direct = served.predict(padded, batch_size=bucket)[:n]
+        err = max(err, float(np.abs(got - direct).max()))
+        err_alone = max(err_alone, float(np.abs(
+            got - served.predict(rows, batch_size=n)).max()))
+    if not err <= 1e-5:
+        raise AssertionError(f"bucketed rows differ from a direct predict "
+                             f"by {err}")
+    report["f"] = {"buckets": [b["bucket"] for _, b in sent],
+                   "maxAbsErrVsDirect": err,
+                   "maxAbsErrVsUnpaddedPredict": err_alone,
+                   "launches": clf_launches, "stats": {
+                       k: stats[k] for k in ("predictsTotal", "rowsTotal",
+                                             "batchFill", "perf")}}
+    report["seconds"] = time.monotonic() - t0
+    log.append("servingPlane " + json.dumps(report))
+    return {"servingPlaneDraftFit": fit_launches,
+            "servingPlaneDisaggSpec": report["b"]["launches"],
+            "servingPlanePredict": clf_launches}
 
 
 def main() -> int:
@@ -2653,9 +3136,11 @@ def main() -> int:
             paths.update(pipeline_phase(torch, log, home, yard))
         with tempfile.TemporaryDirectory() as home:
             paths.update(lm_options_phase(torch, log, home, yard))
-        del yard
         with tempfile.TemporaryDirectory() as home:
-            paths.update(classifier_phase(torch, log, home))
+            paths.update(classifier_phase(torch, log, home, yard))
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(serving_plane_phase(torch, log, home, yard))
+        del yard
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
         # the split-TF32 backward

@@ -7,9 +7,10 @@ Environment variables keep the JAX package's names and defaults
 ``LO_CKPT_QUARANTINE_KEEP``, ``LO_FAULT_INJECT`` and the paged and
 quantized serving knobs ``LO_SERVE_KV``, ``LO_SERVE_PAGE_LEN``,
 ``LO_SERVE_PAGES``, ``LO_SERVE_TENANT_WEIGHTS``, ``LO_SERVE_KV_DTYPE``,
-``LO_SERVE_WEIGHTS``, ``LO_SERVE_DRIFT_MAX``, ``LO_SERVE_DRIFT_EVERY``).
-The
-device is chosen in code only (``device=`` or ``--device``). A
+``LO_SERVE_WEIGHTS``, ``LO_SERVE_DRIFT_MAX``, ``LO_SERVE_DRIFT_EVERY``,
+the bucketed ``LO_SERVE_BUCKETS`` and ``LO_SERVE_MAX_WAIT_MS``, and the
+disaggregated and speculative ``LO_SERVE_DISAGG``, ``LO_SERVE_DRAFT`` and
+``LO_SERVE_SPEC_K``). The device is chosen in code only (``device=`` or ``--device``). A
 :class:`Config` is an object the caller creates and passes down; there
 is no process-wide singleton.
 """
@@ -37,6 +38,11 @@ class Config:
     serve_max_batch: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get(
             "LO_SERVE_MAX_BATCH", "8")))
+    # batch-size buckets of a predict session ("1,2,4,..."): a burst of
+    # n rows pads to the smallest bucket >= n
+    serve_buckets: str = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_SERVE_BUCKETS", "1,2,4,8,16,32,64"))
     # bounded request queue per serving session; full -> 429
     serve_queue_depth: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get("LO_SERVE_QUEUE", "64")))
@@ -44,6 +50,11 @@ class Config:
     request_timeout_seconds: float = dataclasses.field(
         default_factory=lambda: float(os.environ.get(
             "LO_REQUEST_TIMEOUT", "0")))
+    # how long a predict session waits for more rows before it serves
+    # a partial bucket (milliseconds)
+    serve_max_wait_ms: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SERVE_MAX_WAIT_MS", "2")))
     # torch device the models run on; "cpu" only when asked for
     device: str = "cuda"
     # training: the batch size when fit() is given none, and the dtype
@@ -93,6 +104,18 @@ class Config:
     serve_drift_every: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get(
             "LO_SERVE_DRIFT_EVERY", "256")))
+    # paged LM sessions as a prefill worker and a decode worker that
+    # hand KV pages over by reference ("1" = the default; per-session
+    # field "disagg")
+    serve_disagg: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_SERVE_DISAGG", "0"))
+    # the draft model of speculative decoding ("" = none) and the greedy
+    # tokens it proposes a round (per-session "draft", "specK")
+    serve_draft: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_SERVE_DRAFT", ""))
+    serve_spec_k: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_SERVE_SPEC_K", "4")))
 
     @property
     def artifacts_dir(self) -> str:

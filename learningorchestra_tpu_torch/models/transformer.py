@@ -177,11 +177,12 @@ def _linear(d_in: int, d_out: int, lora_rank: int,
 
 class Attention(nn.Module):
     """Multi-head attention with grouped-query KV heads (``n_kv_heads <
-    n_heads``; 1 is MQA). Three branches, as in the JAX module: a
+    n_heads``; 1 is MQA). Four branches, as in the JAX module: a
     prefill over the whole sequence, a single-token step at one scalar
-    position for the whole batch (solo ``generate``), and a per-row
-    step where every row sits at its own position (the serving slots,
-    or a left-padded batch)."""
+    position for the whole batch (solo ``generate``), a per-row step
+    where every row sits at its own position (the serving slots, or a
+    left-padded batch), and the speculative verify step, several
+    positions per row over the page pool."""
 
     def __init__(self, d_model: int, n_heads: int, head_dim: int,
                  impl: str, causal: bool, n_kv_heads: int = 0,
@@ -219,7 +220,7 @@ class Attention(nn.Module):
         return torch.cos(ang), torch.sin(ang)
 
     def forward(self, x, cache=None, decode_pos=None, pad_offset=None,
-                block_tables=None):
+                block_tables=None, verify_limit=None):
         b, s, _ = x.shape
         hd = self.head_dim
         if self.fused_qkv:
@@ -233,11 +234,25 @@ class Attention(nn.Module):
         k = k.reshape(b, s, self.kv_heads, hd)
         v = v.reshape(b, s, self.kv_heads, hd)
 
-        if decode_pos is not None:
-            if s != 1:
+        if decode_pos is not None and s > 1:
+            # the speculative verify step: s consecutive positions per
+            # row (the last accepted token and the drafts), query j at
+            # col + j, over the page pool
+            if block_tables is None:
                 raise ValueError(
-                    "multi-position decode (speculative verify) needs the "
-                    "paged KV path, which is not yet ported")
+                    "multi-position decode (speculative verify) requires "
+                    "the paged KV path (block_tables)")
+            col = decode_pos
+            rel = col if pad_offset is None else col - pad_offset
+            # position by position, so each row's angles are the
+            # single-step branch's bits
+            angles = [self._angles(rel + j) for j in range(s)]
+            c = torch.stack([a[0] for a in angles], dim=1)[:, :, None, :]
+            si = torch.stack([a[1] for a in angles], dim=1)[:, :, None, :]
+            q, k = _rotate(q, c, si), _rotate(k, c, si)
+            o = self._paged_verify(q, k, v, cache, block_tables, col,
+                                   pad_offset, verify_limit)
+        elif decode_pos is not None:
             if isinstance(decode_pos, int) and pad_offset is None and \
                     block_tables is None:
                 # one position for the whole batch
@@ -296,6 +311,30 @@ class Attention(nn.Module):
                                     kv_valid=kv_valid)
         return self.o_proj(o.reshape(b, s, self.n_heads * hd))
 
+
+    def _paged_verify(self, q, k, v, pool, block_tables, col, pad_offset,
+                      limit):
+        """:meth:`_paged_decode` for the verify step's ``s`` positions:
+        the rows append in order (past ``limit`` to trash page 0) and
+        each query position runs the one-token reduction."""
+        page_len = pool[0].shape[1]
+        if len(pool) == 4:
+            kp, vp, ks, vs = pool
+            attn_ops.quantized_paged_append_tokens(
+                kp, ks, k, block_tables, col, page_len, limit=limit)
+            attn_ops.quantized_paged_append_tokens(
+                vp, vs, v, block_tables, col, page_len, limit=limit)
+            return attn_ops.quantized_paged_verify_attention(
+                q, kp, ks, vp, vs, block_tables, col,
+                pad_offset=pad_offset, window=self.window)
+        kp, vp = pool
+        attn_ops.paged_append_tokens(kp, k, block_tables, col, page_len,
+                                     limit=limit)
+        attn_ops.paged_append_tokens(vp, v, block_tables, col, page_len,
+                                     limit=limit)
+        return attn_ops.paged_verify_attention(
+            q, kp, vp, block_tables, col, pad_offset=pad_offset,
+            window=self.window)
 
     def _paged_decode(self, q, k, v, pool, block_tables, col, pad_offset):
         """The serving step over the shared page pool: ``pool`` is this
@@ -402,10 +441,11 @@ class Block(nn.Module):
             self.mlp = MLP(d_model, d_ff, fused_gate_up=fused_proj)
 
     def forward(self, x, cache=None, decode_pos=None, pad_offset=None,
-                train: bool = False, generator=None, block_tables=None):
+                train: bool = False, generator=None, block_tables=None,
+                verify_limit=None):
         h = self.attn(self.attn_norm(x), cache=cache,
                       decode_pos=decode_pos, pad_offset=pad_offset,
-                      block_tables=block_tables)
+                      block_tables=block_tables, verify_limit=verify_limit)
         if self.dropout and train:
             h = _dropout(h, self.dropout, generator)
         x = x + h
@@ -504,7 +544,8 @@ class TransformerLM(nn.Module):
                 decode_pos=None, pad_offset=None, train: bool = False,
                 generator: Optional[torch.Generator] = None,
                 fused_head: bool = False, block_tables=None,
-                remat: str = "none", return_aux: bool = False):
+                remat: str = "none", return_aux: bool = False,
+                verify_limit=None):
         """Logits (b, s, vocab) in the params' dtype, or ``(logits,
         aux)`` with ``return_aux`` (``aux`` the summed MoE load-balance
         loss, zero for the MLP). The train forward (``train``) applies
@@ -512,7 +553,9 @@ class TransformerLM(nn.Module):
         policy per block; with ``fused_head`` it returns
         :class:`FusedHeadOut` instead of logits, for the chunked loss.
         With ``block_tables`` (a serving decode step) ``cache`` is the
-        shared page pool of :meth:`LanguageModel.serve_cache_paged`."""
+        shared page pool of :meth:`LanguageModel.serve_cache_paged`; with
+        more than one token there, the step is a speculative verify
+        (``verify_limit`` each stream's last funded position)."""
         if remat not in REMAT_POLICIES:
             raise ValueError(f"unknown remat policy {remat!r} "
                              f"(none|dots|full)")
@@ -530,7 +573,7 @@ class TransformerLM(nn.Module):
                     x, cache=None if cache is None else cache[i],
                     decode_pos=decode_pos, pad_offset=pad_offset,
                     train=train, generator=generator,
-                    block_tables=block_tables)
+                    block_tables=block_tables, verify_limit=verify_limit)
             if aux is not None and aux_total is not None:
                 aux_total = aux_total + aux
         x = self.final_norm(x)
@@ -749,6 +792,21 @@ def token_accuracy(outputs, batch, weights):
 # ----------------------------------------------------------------------
 # sampling schedule
 # ----------------------------------------------------------------------
+_MASK64 = (1 << 64) - 1
+
+
+def _stream_seed(seed: int, pos: int, stream: int) -> int:
+    """A 64-bit generator seed for ``(seed, pos, stream)``, mixed by
+    splitmix64's finalizer so every bit depends on all three: the CPU
+    generator (mt19937) keeps only the low 32 bits of its seed, the
+    card's (Philox) all 64."""
+    x = ((int(seed) % 2 ** 32) << 32) | (int(pos) % 2 ** 32)
+    x = (x + (int(stream) + 1) * 0x9E3779B97F4A7C15) & _MASK64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return x ^ (x >> 31)
+
+
 def _position_generator(seed: int, pos: int,
                         device: torch.device) -> torch.Generator:
     """The random stream for the token written at buffer position
@@ -756,7 +814,18 @@ def _position_generator(seed: int, pos: int,
     ``fold_in(key, pos)``. Solo ``generate`` and a serving slot draw
     from the same stream at the same position."""
     g = torch.Generator(device=device)
-    g.manual_seed(((int(seed) % 2 ** 32) << 31) | int(pos))
+    g.manual_seed(_stream_seed(seed, pos, 0))
+    return g
+
+
+def _acceptance_generator(seed: int, pos: int,
+                          device: torch.device) -> torch.Generator:
+    """The speculative verify's own stream at ``(seed, pos)``: the
+    acceptance uniform, then the residual draw. Independent of
+    :func:`_position_generator`'s stream, which keeps the solo
+    schedule's draw for the bonus token."""
+    g = torch.Generator(device=device)
+    g.manual_seed(_stream_seed(seed, pos, 1))
     return g
 
 
@@ -1538,6 +1607,137 @@ class LanguageModel:
         dtype = self.module.embed.weight.dtype
         return [(zeros(shape, dtype), zeros(shape, dtype))
                 for _ in range(self.n_layers)]
+
+    def serve_fns_spec(self, slots: int, cache_len: int, page_len: int,
+                       n_pages: int, spec_k: int, temperature: float,
+                       top_k: Optional[int] = None,
+                       top_p: Optional[float] = None,
+                       kv_dtype: str = "bf16", module=None):
+        """The speculative verify step of a paged session: one forward of
+        this (target) model over the last accepted token and ``spec_k``
+        draft tokens per stream, exact acceptance of a prefix of the
+        drafts, and the correction or bonus token: up to ``spec_k + 1``
+        tokens a stream.
+
+        ``verify(pool, tok (slots, 1), drafts (slots, k), col (slots,),
+        seeds (slots,), block_tables, limit (slots,))`` gives
+        ``(emitted (slots, k + 1), n_acc (slots,))`` on the device; a
+        stream's tokens are ``emitted[:n_acc + 1]``, at positions ``col +
+        1 .. col + n_acc + 1``. ``tok``, ``col``, ``seeds`` and ``limit``
+        are host arrays as in :meth:`serve_fns_paged`; ``drafts`` a host
+        array or a device tensor. ``limit`` is each stream's last funded
+        position: its appends past it go to trash page 0.
+
+        The drafts are the draft model's greedy picks, a one-hot
+        proposal, so the accept probability ``min(1, p/q)`` is
+        ``p(draft)`` under this model's filtered distribution and the
+        residual is that distribution without the draft token: every
+        emitted position is distributed as a solo draw. Greedy sessions
+        accept a draft iff it is the argmax, which gives solo decode's
+        tokens. The acceptance uniform and the residual draw come from
+        :func:`_acceptance_generator` at the position they decide; the
+        bonus token after ``k`` accepted drafts is the solo schedule's
+        draw at ``col + k + 1``. Rejected drafts leave KV rows past the
+        new ``col``, masked until the next window overwrites them.
+        ``slots``, ``cache_len``, ``page_len``, ``n_pages`` and
+        ``kv_dtype`` keep the JAX package's signature: the step takes its
+        shapes and the pool's dtype from its inputs."""
+        self._require_built()
+        module = self.module if module is None else module
+        temperature = float(temperature)
+        dev = self.device
+        filter_logits, sample = self._filter_logits, self._sample
+
+        def host(a):
+            if torch.is_tensor(a):
+                return a.to(dev, torch.long)
+            return torch.from_numpy(np.asarray(a, np.int64)).to(dev)
+
+        def sampled_choices(logits, drafts, col, seeds):
+            """(accept (slots, k) bool, corr (slots, k + 1))."""
+            filt = filter_logits(logits, temperature, top_k, top_p)
+            probs = torch.softmax(filt, dim=-1)
+            drafts_h = drafts.cpu().numpy()
+            accept = torch.zeros((filt.shape[0], spec_k), dtype=torch.bool,
+                                 device=dev)
+            corr = torch.zeros((filt.shape[0], spec_k + 1),
+                               dtype=torch.long, device=dev)
+            for i in range(filt.shape[0]):
+                for j in range(spec_k):
+                    d = int(drafts_h[i, j])
+                    g = _acceptance_generator(int(seeds[i]),
+                                              int(col[i]) + j + 1, dev)
+                    u = torch.rand((), device=dev, generator=g)
+                    accept[i, j] = u < probs[i, j, d]
+                    resid = filt[i, j].clone()
+                    resid[d] = NEG_INF
+                    noise = torch.rand(resid.shape, device=dev, generator=g)
+                    corr[i, j] = torch.argmax(
+                        resid - torch.log(-torch.log(noise)))
+                corr[i, spec_k] = sample(
+                    logits[i:i + 1, spec_k], temperature, top_k, top_p,
+                    int(seeds[i]), int(col[i]) + spec_k + 1)[0]
+            return accept, corr
+
+        def verify(pool, tok, drafts, col, seeds, block_tables, limit):
+            drafts = host(drafts)
+            with torch.inference_mode():
+                toks = torch.cat([host(tok), drafts], dim=1)
+                logits = module(toks, cache=pool, decode_pos=host(col),
+                                block_tables=block_tables,
+                                verify_limit=host(limit))
+                # logits[:, i] scores position col + i + 1, where draft i
+                # (or the correction after a rejection) lands
+                if temperature <= 0:
+                    corr = torch.argmax(
+                        filter_logits(logits, temperature), dim=-1)
+                    accept = drafts == corr[:, :spec_k]
+                else:
+                    accept, corr = sampled_choices(logits, drafts, col,
+                                                   seeds)
+                n_acc = torch.cumprod(accept.long(), dim=1).sum(dim=1)
+                padded = torch.cat([drafts, torch.zeros_like(drafts[:, :1])],
+                                   dim=1)
+                idx = torch.arange(spec_k + 1, device=dev)[None, :]
+                emitted = torch.where(
+                    idx < n_acc[:, None], padded,
+                    torch.where(idx == n_acc[:, None], corr,
+                                torch.zeros_like(corr)))
+            return emitted, n_acc
+
+        return verify
+
+    def serve_fns_draft(self, slots: int, cache_len: int, spec_k: int,
+                        module=None):
+        """The draft side of speculative decoding: ``propose(cache, tok
+        (slots, 1), col (slots,))`` extends every slot greedily by
+        ``spec_k`` tokens over this (draft) model's slot cache (its
+        prompt KV comes through :meth:`serve_fns`' prefill and join) and
+        gives them as a ``(slots, spec_k)`` device tensor. It runs
+        ``spec_k + 1`` forwards: the last appends draft k's KV row, so
+        the next window attends a whole prefix whatever was accepted.
+        Positions past the cache (a window at the end of a stream, whose
+        tokens the session discards) write its last row. ``slots`` keeps
+        the JAX package's signature."""
+        self._require_built()
+        module = self.module if module is None else module
+        dev = self.device
+
+        def propose(cache, tok, col):
+            tok_t = torch.from_numpy(np.asarray(tok, np.int64)).to(dev)
+            col_t = torch.from_numpy(np.asarray(col, np.int64)).to(dev)
+            drafts = []
+            with torch.inference_mode():
+                for j in range(spec_k + 1):
+                    pos = torch.clamp(col_t + j, max=cache_len - 1)
+                    logits = module(tok_t, cache=cache, decode_pos=pos)
+                    tok_t = torch.argmax(
+                        self._filter_logits(logits[:, 0], 0.0), dim=-1,
+                        keepdim=True)
+                    drafts.append(tok_t)
+            return torch.cat(drafts[:spec_k], dim=1)
+
+        return propose
 
     def serving_module(self, weights: str = "bf16") -> nn.Module:
         """The module a serving session with ``weights`` runs

@@ -24,7 +24,9 @@ heads, ``kv | heads``.
 - :func:`decode_attention` is the serving plane's single-token op, left
   as plain tensor ops exactly as the JAX package left it, and so are
   the paged KV ops around it (:func:`paged_decode_attention`, the page
-  writes, and the int8 pages of :func:`quantize_kv_pages`).
+  writes, the int8 pages of :func:`quantize_kv_pages`, and the
+  speculative verify step's multi-position :func:`paged_append_tokens`
+  and :func:`paged_verify_attention` with their int8 forms).
 """
 
 from __future__ import annotations
@@ -34,16 +36,26 @@ from typing import Optional, Tuple
 
 import torch
 
+from learningorchestra_tpu_torch.runtime import locks
+
 NEG_INF = -1e30
 
 # launches of each kernel, one counter per CUDA source (CPU calls never
-# count)
+# count), added to under a lock: a disaggregated session launches from
+# two threads
 FLASH_FWD_SM90_LAUNCHES = 0
 FLASH_BWD_DQ_SM90_LAUNCHES = 0
 FLASH_BWD_DKV_SM90_LAUNCHES = 0
 FLASH_BWD_DQ_TF32X3_LAUNCHES = 0
 FLASH_BWD_DKV_TF32X3_LAUNCHES = 0
 FLASH_FWD_TF32X3_LAUNCHES = 0
+_LAUNCH_LOCK = locks.make_lock("attention.launches")
+
+
+def _count_launch(counter: str) -> None:
+    with _LAUNCH_LOCK:
+        globals()[counter] += 1
+
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the widest head_dim any flash kernel takes
@@ -299,7 +311,6 @@ def _check_tma(kernel: str, tensors) -> None:
 
 def _flash_fwd_sm90(q, k, v, causal: bool, scale: float, window: int,
                     offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    global FLASH_FWD_SM90_LAUNCHES
     tensors = (("q", q), ("k", k), ("v", v))
     _check_cuda("flash_fwd_sm90", tensors)
     _check_shape("flash_fwd_sm90", q, k)
@@ -318,7 +329,7 @@ def _flash_fwd_sm90(q, k, v, causal: bool, scale: float, window: int,
                  int(bool(causal)), int(window), int(offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_fwd_sm90 launch failed: CUDA error {err}")
-    FLASH_FWD_SM90_LAUNCHES += 1
+    _count_launch("FLASH_FWD_SM90_LAUNCHES")
     return o, lse
 
 
@@ -339,7 +350,6 @@ def _flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal: bool,
                        offset: int) -> torch.Tensor:
     """float32 dq (b, sq, h, d) from the tensor-core flash_bwd_dq_sm90
     kernel."""
-    global FLASH_BWD_DQ_SM90_LAUNCHES
     _bwd_inputs("flash_bwd_dq_sm90", q, k, v, do, lse, delta)
     _check_tma("flash_bwd_dq_sm90",
                (("q", q), ("k", k), ("v", v), ("do", do)))
@@ -358,7 +368,7 @@ def _flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq_sm90 launch failed: CUDA error "
                            f"{err}")
-    FLASH_BWD_DQ_SM90_LAUNCHES += 1
+    _count_launch("FLASH_BWD_DQ_SM90_LAUNCHES")
     return dq
 
 
@@ -377,7 +387,6 @@ def _flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal: bool,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32 (dk, dv), each (b, sk, kvh, d), from the tensor-core
     flash_bwd_dkv_sm90 kernel."""
-    global FLASH_BWD_DKV_SM90_LAUNCHES
     _bwd_inputs("flash_bwd_dkv_sm90", q, k, v, do, lse, delta)
     _check_tma("flash_bwd_dkv_sm90",
                (("q", q), ("k", k), ("v", v), ("do", do)))
@@ -399,7 +408,7 @@ def _flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv_sm90 launch failed: CUDA error "
                            f"{err}")
-    FLASH_BWD_DKV_SM90_LAUNCHES += 1
+    _count_launch("FLASH_BWD_DKV_SM90_LAUNCHES")
     return dk, dv
 
 
@@ -408,7 +417,6 @@ def _flash_fwd_tf32x3(q, k, v, causal: bool, scale: float, window: int,
     """``(o, lse)`` from the split-TF32 tensor-core flash_fwd_tf32x3
     kernel: float32 or bf16 inputs, any head_dim up to 128; o (b, sq, h,
     d) in q's dtype and float32 lse (b, sq, h)."""
-    global FLASH_FWD_TF32X3_LAUNCHES
     _check_cuda("flash_fwd_tf32x3", (("q", q), ("k", k), ("v", v)))
     _check_shape("flash_fwd_tf32x3", q, k)
     b, sq, h, d = q.shape
@@ -427,7 +435,7 @@ def _flash_fwd_tf32x3(q, k, v, causal: bool, scale: float, window: int,
     if err != 0:
         raise RuntimeError(f"flash_fwd_tf32x3 launch failed: CUDA error "
                            f"{err}")
-    FLASH_FWD_TF32X3_LAUNCHES += 1
+    _count_launch("FLASH_FWD_TF32X3_LAUNCHES")
     return o, lse
 
 
@@ -437,7 +445,6 @@ def _flash_bwd_dq_tf32x3(q, k, v, do, lse, delta, causal: bool,
     """float32 dq (b, sq, h, d) from the split-TF32 tensor-core
     flash_bwd_dq_tf32x3 kernel: float32 or bf16 inputs, any head_dim up
     to 128."""
-    global FLASH_BWD_DQ_TF32X3_LAUNCHES
     _bwd_inputs("flash_bwd_dq_tf32x3", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -454,7 +461,7 @@ def _flash_bwd_dq_tf32x3(q, k, v, do, lse, delta, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq_tf32x3 launch failed: CUDA error "
                            f"{err}")
-    FLASH_BWD_DQ_TF32X3_LAUNCHES += 1
+    _count_launch("FLASH_BWD_DQ_TF32X3_LAUNCHES")
     return dq
 
 
@@ -464,7 +471,6 @@ def _flash_bwd_dkv_tf32x3(q, k, v, do, lse, delta, causal: bool,
     """float32 (dk, dv), each (b, sk, kvh, d), from the split-TF32
     tensor-core flash_bwd_dkv_tf32x3 kernel: float32 or bf16 inputs, any
     head_dim up to 128."""
-    global FLASH_BWD_DKV_TF32X3_LAUNCHES
     _bwd_inputs("flash_bwd_dkv_tf32x3", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
@@ -483,7 +489,7 @@ def _flash_bwd_dkv_tf32x3(q, k, v, do, lse, delta, causal: bool,
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv_tf32x3 launch failed: CUDA error "
                            f"{err}")
-    FLASH_BWD_DKV_TF32X3_LAUNCHES += 1
+    _count_launch("FLASH_BWD_DKV_TF32X3_LAUNCHES")
     return dk, dv
 
 
@@ -837,15 +843,129 @@ def quantized_paged_decode_attention(
     :func:`decode_attention`. No pool-sized float copy exists."""
     if max_pages and max_pages < block_tables.shape[1]:
         block_tables = block_tables[:, :max_pages]
-    b, n_pages = block_tables.shape
-    page_len, kv, d = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
-
-    def gather(pool, pool_scales):
-        deq = pool[block_tables].float() * \
-            pool_scales[block_tables][:, :, None, :, None]
-        return deq.reshape(b, n_pages * page_len, kv, d)
-
-    return decode_attention(q, gather(k_pool, k_scales),
-                            gather(v_pool, v_scales), col,
+    return decode_attention(q, _dequantized_pages(k_pool, k_scales,
+                                                  block_tables),
+                            _dequantized_pages(v_pool, v_scales,
+                                               block_tables), col,
                             pad_offset=pad_offset, window=window,
                             scale=scale)
+
+
+def _dequantized_pages(pool: torch.Tensor, scales: torch.Tensor,
+                       block_tables: torch.Tensor) -> torch.Tensor:
+    """The pages of ``block_tables`` (``(b, n)``) and their scales,
+    gathered together and multiplied out: ``(b, n * page_len, kv, d)``
+    float32."""
+    b, n_pages = block_tables.shape
+    page_len, kv, d = pool.shape[1], pool.shape[2], pool.shape[3]
+    deq = pool[block_tables].float() * \
+        scales[block_tables][:, :, None, :, None]
+    return deq.reshape(b, n_pages * page_len, kv, d)
+
+
+# ---------------------------------------------------------------------------
+# Speculative-decode verify: k + 1 positions per paged step (the last
+# accepted token and k drafts). The appends are the sequential one-token
+# writes, in order, and each query position runs decode_attention's
+# reduction at its own ``col + j`` over pages gathered once: positions
+# past a query's col are masked as an unwritten row would be, so query j
+# cannot see drafts j + 1..k, and rejected drafts need no rollback (their
+# rows sit past the new col until the next window overwrites them).
+
+
+def _window_pages(block_tables: torch.Tensor, p: torch.Tensor,
+                  page_len: int, limit: Optional[torch.Tensor]
+                  ) -> torch.Tensor:
+    """The page position ``p`` of each row lands in: its block-table
+    column clamped into the table's width, and trash page 0 past
+    ``limit``."""
+    rows = torch.arange(block_tables.shape[0], device=block_tables.device)
+    page = block_tables[rows, _page_column(p, page_len, block_tables)]
+    if limit is not None:
+        page = torch.where(p <= limit, page, torch.zeros_like(page))
+    return page
+
+
+def paged_append_tokens(pool: torch.Tensor, new: torch.Tensor,
+                        block_tables: torch.Tensor, pos: torch.Tensor,
+                        page_len: int,
+                        limit: Optional[torch.Tensor] = None
+                        ) -> torch.Tensor:
+    """Scatter ``s`` consecutive positions' K (or V) rows, in place:
+    ``new`` is ``(b, s, kv, d)`` and row ``i``'s position ``j`` lands
+    where :func:`paged_append_token` at ``pos[i] + j`` would put it.
+    ``limit`` (``(b,)``) is each stream's last funded position: writes
+    past it go to trash page 0, so a window near the end of a stream's
+    pages neither writes another stream's pages nor leaves its table
+    row. Returns ``pool``."""
+    for j in range(new.shape[1]):
+        p = pos + j
+        page = _window_pages(block_tables, p, page_len, limit)
+        pool[page, p % page_len] = checked_pool_cast(pool, new[:, j])
+    return pool
+
+
+def _verify_reduction(q, k, v, col, pad_offset, window, scale):
+    """:func:`decode_attention` for each of ``q``'s ``s`` positions, query
+    ``j`` at ``col + j``, over one gathered ``k``/``v``."""
+    outs = [decode_attention(q[:, j:j + 1], k, v, col + j,
+                             pad_offset=pad_offset, window=window,
+                             scale=scale)
+            for j in range(q.shape[1])]
+    return torch.cat(outs, dim=1)
+
+
+def paged_verify_attention(q: torch.Tensor, k_pool: torch.Tensor,
+                           v_pool: torch.Tensor,
+                           block_tables: torch.Tensor, col: torch.Tensor, *,
+                           pad_offset: Optional[torch.Tensor] = None,
+                           window: int = 0, scale: Optional[float] = None,
+                           max_pages: int = 0) -> torch.Tensor:
+    """:func:`paged_decode_attention` for ``s`` query positions at once:
+    ``q`` is ``(b, s, n_heads, d)`` and query ``j`` attends ``[0, col +
+    j]``. The pages are gathered once and each position runs the
+    single-token reduction, so position ``j``'s output is a sequential
+    step's at ``col + j``."""
+    if max_pages and max_pages < block_tables.shape[1]:
+        block_tables = block_tables[:, :max_pages]
+    b, n_pages = block_tables.shape
+    page_len, kv, d = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
+    k = k_pool[block_tables].reshape(b, n_pages * page_len, kv, d)
+    v = v_pool[block_tables].reshape(b, n_pages * page_len, kv, d)
+    return _verify_reduction(q, k, v, col, pad_offset, window, scale)
+
+
+def quantized_paged_append_tokens(pool: torch.Tensor, scales: torch.Tensor,
+                                  new: torch.Tensor,
+                                  block_tables: torch.Tensor,
+                                  pos: torch.Tensor, page_len: int,
+                                  limit: Optional[torch.Tensor] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`paged_append_tokens` into an int8 pool: the ``s`` rows are
+    appended one after another through
+    :func:`quantized_paged_append_token` (each append requantizes its
+    page against the live rows, as the one-token path does), writes past
+    ``limit`` to trash page 0."""
+    for j in range(new.shape[1]):
+        p = pos + j
+        page = _window_pages(block_tables, p, page_len, limit)
+        # a one-column table whose only column is the resolved page
+        quantized_paged_append_token(pool, scales, new[:, j], page[:, None],
+                                     p % page_len, page_len)
+    return pool, scales
+
+
+def quantized_paged_verify_attention(
+        q: torch.Tensor, k_pool: torch.Tensor, k_scales: torch.Tensor,
+        v_pool: torch.Tensor, v_scales: torch.Tensor,
+        block_tables: torch.Tensor, col: torch.Tensor, *,
+        pad_offset: Optional[torch.Tensor] = None, window: int = 0,
+        scale: Optional[float] = None, max_pages: int = 0) -> torch.Tensor:
+    """:func:`paged_verify_attention` over int8 pools: one dequantizing
+    gather shared by all ``s`` query positions."""
+    if max_pages and max_pages < block_tables.shape[1]:
+        block_tables = block_tables[:, :max_pages]
+    return _verify_reduction(
+        q, _dequantized_pages(k_pool, k_scales, block_tables),
+        _dequantized_pages(v_pool, v_scales, block_tables), col,
+        pad_offset, window, scale)

@@ -21,12 +21,16 @@ HIERARCHY: Dict[str, int] = {
     "jobs.manager": 30,            # job registry
     "serving.manager": 50,         # session registry
     "serving.session": 60,         # per-session request cv
+    "serving.handoff": 65,         # disagg prefill -> decode ready
+                                   # queue (popped under it, pages
+                                   # released after)
     "serving.prefix": 75,          # prefix-cache index; eviction
                                    # decrefs the pool under it
     "scheduler.fair": 80,          # the card lease's FIFO queue
     "serving.kvpool": 90,          # paged-KV free list / refcounts
     "serving.latency": 100,        # per-session latency ring
     "faults.spec": 360,            # fault-injection budget (leaf)
+    "attention.launches": 370,     # the kernels' launch counters (leaf)
 }
 
 

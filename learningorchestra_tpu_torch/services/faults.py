@@ -11,11 +11,15 @@ comma-separated:
   the session to the slot KV path;
 - ``"kv_quant:100"`` — every admission into an int8-paged session raises:
   429s, then the session rebuilds over exact pages and weights;
+- ``"kv_page_handoff:1"`` — the next publish of a disaggregated
+  session's prefill record raises: a 429 with every page reference
+  restored; three in a row collapse the session to fused serving;
 - ``"kv_page_alloc:3:latency:0.5"`` — three allocations sleep 0.5 s
   (default 0.1) and then proceed.
 
-The port fires ``kv_page_alloc`` (inside :meth:`PagedKVPool.alloc`) and
-``kv_quant`` (at admission into an int8-paged session). The other sites
+The port fires ``kv_page_alloc`` (inside :meth:`PagedKVPool.alloc`),
+``kv_quant`` (at admission into an int8-paged session) and
+``kv_page_handoff`` (at the publish of a handoff record). The other sites
 of the JAX package, and its ``hang``, ``nan`` and ``corrupt`` modes, are
 not ported yet: a spec that names them parses and never fires.
 """

@@ -18,10 +18,22 @@ weights (``weights``) under a drift gate, and the degrade ladder
 (quantized -> exact -> slot). ``"bf16"`` in ``kvDtype`` and ``weights``
 means exact: the model's own dtype.
 
+Speculative decoding (``draft``, ``specK``): a small draft model
+proposes ``specK`` greedy tokens a round over its own slot cache and the
+target verifies them in one paged step with exact acceptance, so a
+greedy stream still equals solo decode. :class:`DisaggLMServingSession`
+(``disagg: true``) splits admission off to a prefill worker thread that
+funds the pages, runs the prefill and publishes a handoff record; the
+decode worker adopts it into a free slot by reference count. On one card
+both workers share it (``mode: "colocated"``). :class:`BucketServingSession`
+(``type: "predict"``) micro-batches the rows of concurrent requests
+into the smallest bucket that holds them and serves each burst with one
+``predict`` call.
+
 Admission control: a full queue or an unfunded request rejects with
-429, a closed session with 503. Not ported yet: the disaggregated and
-speculative sessions, bucketed classifier serving, the serving lease
-(one card has no slice to share), and the observability hooks (X-ray
+429, a closed session with 503. Not ported yet: the serving lease and
+``sliceDevices`` (one card has no slice of a mesh to share, so the split
+disaggregated mode is not either), and the observability hooks (X-ray
 claims, histograms, per-tenant objectives, incident bundles).
 """
 
@@ -41,11 +53,6 @@ from learningorchestra_tpu_torch.services import faults
 from learningorchestra_tpu_torch.services import validators as V
 
 _IDLE_TICK_SECONDS = 0.05
-
-# create-body fields of JAX serving sessions this package does not run:
-# disaggregated and speculative serving, and slices of a mesh
-_UNPORTED_FIELDS = ("disagg", "draft", "specK", "prefillDevices",
-                    "sliceDevices")
 
 
 class LatencyTracker:
@@ -722,7 +729,14 @@ class PagedLMServingSession(LMServingSession):
     ``serve_drift_every`` steps. The degrade ladder: a latched
     ``kv_quant`` fault or a drift breach rebuilds the session over exact
     pages and weights; a latched ``kv_page_alloc`` fault rebuilds it over
-    the slot cache. In-flight streams fail with 503 either way.
+    the slot cache, and speculation ends there (the slot cache has no
+    verify step). In-flight streams fail with 503 either way.
+
+    With a draft model every decode round is speculative
+    (:meth:`_spec_round`): the draft proposes ``spec_k`` greedy tokens a
+    stream over its own slot cache, in its own dtype, and the target
+    scores them in one verify step with exact acceptance, landing 1 to
+    ``spec_k + 1`` tokens a stream.
     """
 
     _DEGRADE_AFTER = 3
@@ -732,8 +746,15 @@ class PagedLMServingSession(LMServingSession):
                  temperature: float, top_k: Optional[int],
                  top_p: Optional[float], page_len: int, n_pages: int,
                  tenant_weights: Optional[Dict[str, float]] = None,
-                 kv_dtype: str = "bf16", weights_dtype: str = "bf16"):
+                 kv_dtype: str = "bf16", weights_dtype: str = "bf16",
+                 draft_model=None, draft_name: str = "", spec_k: int = 4):
         # read by _init_decode_path, which the base __init__ calls
+        self._draft = draft_model
+        self._draft_name = str(draft_name or "")
+        self._spec_k = max(1, int(spec_k or 4))
+        self.spec_steps = 0
+        self.spec_slot_steps = 0
+        self.spec_accepted_total = 0
         self.page_len = int(page_len)
         self.n_pages = int(n_pages)
         self.kv_dtype = str(kv_dtype or "bf16")
@@ -749,6 +770,8 @@ class PagedLMServingSession(LMServingSession):
         self.quant_degrades = 0
         super().__init__(name, ctx, model, slots, cache_len, temperature,
                          top_k, top_p, weights_dtype=weights_dtype)
+        if self._draft is not None:
+            self._init_spec_state()
         # a quantized session measures its drift before it serves: a bad
         # quantization degrades at create, not in a user's stream
         self._maybe_probe_drift()
@@ -766,6 +789,14 @@ class PagedLMServingSession(LMServingSession):
             kv_dtype=self.kv_dtype, module=self._serve_module)
         self._pool = model.serve_cache_paged(self.n_pages, self.page_len,
                                              kv_dtype=self.kv_dtype)
+        # the verify step over this pool (rebuilt with it on a degrade to
+        # exact pages)
+        self._verify = None
+        if self._draft is not None:
+            self._verify = model.serve_fns_spec(
+                self.slots, self.cache_len, self.page_len, self.n_pages,
+                self._spec_k, self.temperature, self.top_k, self.top_p,
+                kv_dtype=self.kv_dtype, module=self._serve_module)
         self._cache_bytes = _tensor_bytes(self._pool)
         self.pool = PagedKVPool(self.n_pages, self.page_len,
                                 dtype=self.kv_dtype,
@@ -785,6 +816,45 @@ class PagedLMServingSession(LMServingSession):
         self._degraded = False
         self.prefills_skipped = 0
         self._steps_since_probe = 0
+
+    # -- speculative decoding ------------------------------------------
+    def _spec_on(self) -> bool:
+        return self._draft is not None and not self._degraded
+
+    def _init_spec_state(self) -> None:
+        """The draft's side: its prefill and join (the draft shares the
+        target's admission), its propose step and its slot cache. The
+        draft serves exact, in its own dtype, over a slot cache: it is
+        small, and a one-hot proposal keeps acceptance exact."""
+        draft = self._draft
+        _, self._draft_prefill_for, self._draft_join = draft.serve_fns(
+            self.slots, self.cache_len, 0.0, None, None)
+        self._draft_propose = draft.serve_fns_draft(
+            self.slots, self.cache_len, self._spec_k)
+        self._draft_cache = draft.serve_cache(self.slots, self.cache_len)
+
+    def _release_spec_state(self) -> None:
+        """Drop the draft and its cache (a degrade to slot, or close)."""
+        self._draft = None
+        self._draft_cache = None
+        self._verify = None
+
+    def close(self) -> None:
+        super().close()
+        self._release_spec_state()
+
+    # -- disaggregation hooks (the disaggregated session overrides) -----
+    def _publishes(self) -> bool:
+        """Whether :meth:`_prepare` publishes a handoff record (the
+        ``kv_page_handoff`` fault site and the publish hold). A fused
+        session installs on the same thread: nothing to publish."""
+        return False
+
+    def _note_handoff_fault(self) -> None:
+        """An injected ``kv_page_handoff`` fault was seen."""
+
+    def _note_handoff_ok(self) -> None:
+        """A publish passed the fault site."""
 
     def _set_table(self, slot: int, row: List[int]) -> None:
         self._bt[slot, :] = 0
@@ -914,10 +984,14 @@ class PagedLMServingSession(LMServingSession):
 
     def _prepare(self, req: _Request) -> Dict[str, Any]:
         """Funding and prefill compute of one admission, without
-        touching the pool tensors: quota check, prefix lookup and page
-        pins, page allocation, the prefill forward. Returns the record
-        :meth:`_install` consumes. On any failure every page reference
-        this admission took is released before the error propagates."""
+        touching the pool tensors or the draft cache: quota check, prefix
+        lookup and page pins, page allocation, the prefill forward and,
+        with a draft, the draft's prefill. Returns the record
+        :meth:`_install` consumes. The disaggregated session runs this on
+        its prefill worker and publishes the record with an extra
+        reference on its pages (:meth:`_publishes`). On any failure every
+        page reference this admission took is released before the error
+        propagates."""
         if self.kv_dtype == "int8":
             # the quantized plane's fault site: a transient fault is a
             # retryable 429; a latched one walks the degrade ladder back
@@ -968,6 +1042,8 @@ class PagedLMServingSession(LMServingSession):
         if donor_tail is not None:
             self.pool.incref([donor_tail])
         fresh: List[int] = []
+        published = False
+        row: List[int] = []
         try:
             self._quota_check(tenant, total_pages - n_shared)
             fresh = self._alloc_pages(total_pages - n_shared, tenant)
@@ -977,15 +1053,16 @@ class PagedLMServingSession(LMServingSession):
                 "tenant": tenant, "row": row, "fresh": fresh,
                 "nShared": n_shared, "donorTail": donor_tail,
                 "donorLogits": None, "admitT0": admit_t0, "first": None,
-                "pcache": None, "writePages": [], "insert": None}
+                "pcache": None, "dpcache": None, "writePages": [],
+                "insert": None, "published": False}
+            tokens = torch.tensor([prompt], dtype=torch.long,
+                                  device=self._model.device)
             if entry is not None:
                 # full hit: no prefill; the tail copy and the first
                 # token's draw run in _install
                 rec["donorLogits"] = entry["logits"]
                 self.prefills_skipped += 1
             else:
-                tokens = torch.tensor([prompt], dtype=torch.long,
-                                      device=self._model.device)
                 nxt, last_logits, pcache = self._pprefill_for(s)(tokens,
                                                                  seed)
                 n_prefill_pages = -(-s // pl)
@@ -996,11 +1073,38 @@ class PagedLMServingSession(LMServingSession):
                 tail_page = row[n_full] if s % pl else None
                 rec["insert"] = (prompt, row[:n_full], tail_page,
                                  last_logits[0])
+            if self._spec_on():
+                # the draft's prompt KV, from its own prefill; it joins
+                # the draft cache in _install (the decode thread's alone)
+                _, rec["dpcache"] = self._draft_prefill_for(s)(tokens, seed)
+            if self._publishes():
+                # the handoff: its fault site, then the publish hold that
+                # keeps every page alive until the decode worker adopts
+                # the record (or a drain releases it)
+                faults.maybe_inject("kv_page_handoff", self._ctx.config)
+                self._note_handoff_ok()
+                self.pool.incref(row)
+                published = rec["published"] = True
             return rec
+        except faults.InjectedFault as exc:
+            # only kv_page_handoff arrives here (allocation faults are
+            # HttpErrors by now): a retryable 429, every reference back
+            self._note_handoff_fault()
+            if shared or fresh:
+                self.pool.decref(shared + fresh, tenant)
+            if donor_tail is not None:
+                self.pool.decref([donor_tail])
+            self.rejected_total += 1
+            raise V.HttpError(
+                V.HTTP_TOO_MANY_REQUESTS,
+                f"KV page handoff failed ({exc}) — retry with "
+                f"backoff") from None
         except BaseException:
             # quota reject, allocation failure or a prefill error:
             # release every reference this admission took, or the pool
             # shrinks and the tenant's charge stays
+            if published:
+                self.pool.decref(row)
             if shared or fresh:
                 self.pool.decref(shared + fresh, tenant)
             if donor_tail is not None:
@@ -1009,8 +1113,10 @@ class PagedLMServingSession(LMServingSession):
 
     def _install(self, slot: int, rec: Dict[str, Any]) -> None:
         """Pool writes of an admission (the prefill's pages, or the
-        tail-page copy of a full hit), the prefix insert, and the slot's
-        state."""
+        tail-page copy of a full hit), the draft cache's join, the prefix
+        insert, and the slot's state. Only the thread that writes the
+        pool (the decode worker) calls this; an adopted record's publish
+        hold is released here."""
         req = rec["req"]
         row, tenant = rec["row"], rec["tenant"]
         try:
@@ -1031,13 +1137,21 @@ class PagedLMServingSession(LMServingSession):
                 if rec["insert"] is not None:
                     # shareable only once its pages are written
                     self.prefix.insert(*rec["insert"])
+            if rec["dpcache"] is not None and self._spec_on():
+                self._draft_cache = self._draft_join(
+                    self._draft_cache, rec["dpcache"], slot)
         except BaseException:
+            if rec["published"]:
+                self.pool.decref(row)
             self.pool.decref(row, tenant)
             if rec["donorTail"] is not None:
                 self.pool.decref([rec["donorTail"]])
             raise
         if rec["donorTail"] is not None:
             self.pool.decref([rec["donorTail"]])
+        if rec["published"]:
+            # adopted: the stream's references own the pages now
+            self.pool.decref(row)
         now = time.monotonic()
         self._record_role("prefill", now - rec["admitT0"])
         self._ttft.record(now - req.queued_at)
@@ -1066,14 +1180,16 @@ class PagedLMServingSession(LMServingSession):
                 self._set_table(slot, [])  # lane appends go to page 0
         super()._retire(slot)
 
-    def _gather_width(self) -> int:
+    def _gather_width(self, extra: int = 0) -> int:
         """Pages each step gathers: the power-of-2 bucket that covers
         the longest live stream, so short streams never read long
-        streams' pages."""
+        streams' pages. ``extra`` widens it for a verify window, which
+        appends up to ``extra`` tokens past each stream's col."""
         need = 1
         for slot in range(self.slots):
             if self._slot_req[slot] is not None:
-                need = max(need, int(self._col[slot]) // self.page_len + 1)
+                need = max(need, (int(self._col[slot]) + extra)
+                           // self.page_len + 1)
         width = 1
         while width < need:
             width *= 2
@@ -1091,6 +1207,55 @@ class PagedLMServingSession(LMServingSession):
         width = self._gather_width()
         return self._pstep(self._pool, self._tok, self._col,
                            self._bt_dev[:, :width], self._seeds)
+
+    def _decode_round(self, active: List[int]) -> None:
+        if self._spec_on():
+            return self._spec_round(active)
+        return super()._decode_round(active)
+
+    def _spec_round(self, active: List[int]) -> None:
+        """One speculative iteration: the draft proposes ``spec_k``
+        greedy tokens a stream, the target scores the window in one
+        verify step, and exact acceptance keeps a prefix, so each round
+        lands 1 to ``spec_k + 1`` tokens a stream."""
+        draft_t0 = time.monotonic()
+        drafts = self._draft_propose(self._draft_cache, self._tok,
+                                     self._col)
+        drafts = drafts.cpu().numpy()  # device sync: the draft's time
+        self._record_role("draft", time.monotonic() - draft_t0)
+        # the last funded position of each stream: the verify's appends
+        # past it go to trash page 0, and the clamp below drops the
+        # tokens scored there
+        limit = np.zeros((self.slots,), np.int64)
+        for slot in range(self.slots):
+            limit[slot] = max(
+                0, len(self._slot_pages[slot]) * self.page_len - 1)
+        width = self._gather_width(extra=self._spec_k)
+        emitted, n_acc = self._verify(
+            self._pool, self._tok, drafts, self._col, self._seeds,
+            self._bt_dev[:, :width], limit)
+        emitted = emitted.cpu().numpy()
+        n_acc = n_acc.cpu().numpy()
+        self._decode_seconds += time.monotonic() - draft_t0
+        self.decode_steps += 1
+        self.spec_steps += 1
+        self.spec_slot_steps += len(active)
+        self.peak_active = max(self.peak_active, len(active))
+        for slot in active:
+            take = max(1, min(int(n_acc[slot]) + 1,
+                              int(self._slot_left[slot]),
+                              self.cache_len - 1 - int(self._col[slot])))
+            toks = [int(t) for t in emitted[slot, :take]]
+            self._slot_out[slot].extend(toks)
+            self._slot_left[slot] -= take
+            self.tokens_total += take
+            self.decode_tokens_total += take
+            self.spec_accepted_total += take - 1
+            self._tok[slot, 0] = toks[-1]
+            self._col[slot] += take
+            if self._slot_left[slot] <= 0 or \
+                    self._col[slot] >= self.cache_len - 1:
+                self._retire(slot)
 
     # -- degrade ladder ------------------------------------------------
     def _fail_streams(self, why: str) -> None:
@@ -1114,6 +1279,8 @@ class PagedLMServingSession(LMServingSession):
         if self._degraded:
             return
         self._degraded = True
+        # the slot cache has no verify step: speculation ends here
+        self._release_spec_state()
         self._fail_streams("session degraded to the slot KV path "
                            "mid-stream (kv_page_alloc latched) — retry")
         self._pool = None  # free the pool before the slot cache
@@ -1244,6 +1411,414 @@ class PagedLMServingSession(LMServingSession):
                 "probes": self._drift_probes,
                 "max": float(self._ctx.config.serve_drift_max or 0.0),
             }
+        if self._draft_name:
+            out["spec"] = {
+                "draft": self._draft_name,
+                "specK": self._spec_k,
+                "steps": self.spec_steps,
+                "acceptedTokensPerStep": round(
+                    self.spec_accepted_total /
+                    max(1, self.spec_slot_steps), 4),
+                "acceptedTokensTotal": self.spec_accepted_total,
+                "active": self._spec_on(),
+            }
+        return out
+
+    def perf_stats(self) -> Dict[str, Any]:
+        out = super().perf_stats()
+        if out and self._draft_name and self.spec_slot_steps:
+            out["acceptedTokensPerStep"] = round(
+                self.spec_accepted_total / self.spec_slot_steps, 4)
+        return out
+
+
+class DisaggLMServingSession(PagedLMServingSession):
+    """Disaggregated prefill and decode (``disagg: true``, or
+    ``LO_SERVE_DISAGG=1``).
+
+    A prefill worker thread pops admitted prompts off the queue, runs
+    :meth:`_prepare` (quota, page funding, the prefill forward and the
+    draft's) and publishes the record, its pages held by an extra
+    reference, on a ready queue. The decode worker (the session thread)
+    adopts records into free slots between decode rounds
+    (:meth:`_install`), so a burst of long prompts does not stall the
+    token streams in flight. Pages are handed over by reference count,
+    never copied.
+
+    On one card both workers share the device (``mode: "colocated"``)
+    and issue to its one default stream, in the order they run; a record
+    is published after its prefill's first token reached the host, so
+    its KV rows are complete before the decode worker reads them. The
+    GIL interleaves the two threads: they overlap only while one waits
+    on the card. The JAX package's split mode, each worker on its own
+    slice of a mesh, needs a second card.
+
+    Thread contract: only the decode thread writes the pool tensors and
+    the draft cache. The prefill worker touches the refcounts (the pool
+    and the prefix cache lock themselves) and runs prefills into fresh
+    caches. A degrade it triggers is only requested (``_degrade_pending``)
+    and runs on the decode thread. A latched ``kv_page_handoff`` fault
+    collapses the session to fused serving (``mode:
+    "fused-degraded"``): in-flight streams fail with a retryable 503,
+    published records are drained with every page reference restored,
+    and later requests serve through the inherited fused loop.
+    """
+
+    def __init__(self, name: str, ctx, model, slots: int, cache_len: int,
+                 temperature: float, top_k: Optional[int],
+                 top_p: Optional[float], page_len: int, n_pages: int,
+                 tenant_weights: Optional[Dict[str, float]] = None,
+                 kv_dtype: str = "bf16", weights_dtype: str = "bf16",
+                 draft_model=None, draft_name: str = "", spec_k: int = 4):
+        self._ready: Deque[Dict[str, Any]] = collections.deque()
+        self._handoff_cv = locks.make_condition("serving.handoff")
+        self._degrade_pending: Optional[Tuple[str, str]] = None
+        self._handoff_fault_streak = 0
+        self.handoffs_total = 0
+        self.disagg_mode = "colocated"
+        super().__init__(name, ctx, model, slots, cache_len, temperature,
+                         top_k, top_p, page_len, n_pages, tenant_weights,
+                         kv_dtype=kv_dtype, weights_dtype=weights_dtype,
+                         draft_model=draft_model, draft_name=draft_name,
+                         spec_k=spec_k)
+        self._prefill_thread = threading.Thread(
+            target=self._prefill_run, name=f"serving-{name}-prefill",
+            daemon=True)
+
+    def start(self) -> None:
+        super().start()
+        self._prefill_thread.start()
+
+    # -- mode ----------------------------------------------------------
+    def _fused(self) -> bool:
+        return self._degraded or self.disagg_mode == "fused-degraded"
+
+    def _publishes(self) -> bool:
+        return not self._fused()
+
+    def _note_handoff_fault(self) -> None:
+        self._handoff_fault_streak += 1
+        if self._handoff_fault_streak >= self._DEGRADE_AFTER and \
+                self._degrade_pending is None and not self._fused():
+            self._degrade_pending = ("fused",
+                                     "kv_page_handoff fault latched")
+
+    def _note_handoff_ok(self) -> None:
+        self._handoff_fault_streak = 0
+
+    # -- prefill worker ------------------------------------------------
+    def _prefill_run(self) -> None:
+        while True:
+            with self._cv:
+                if self._closed or self._fused():
+                    break
+                req = None
+                if self._degrade_pending is None and self._queue and \
+                        len(self._ready) < self.slots:
+                    # backpressure: at most `slots` records in flight, so
+                    # a prompt flood cannot fund pages faster than decode
+                    # retires them
+                    req = self._pop_next()
+                if req is None:
+                    self._cv.wait(timeout=_IDLE_TICK_SECONDS)
+            if req is None:
+                continue
+            try:
+                rec = self._prepare(req)
+            except V.HttpError as exc:
+                req.fail(exc)
+                continue
+            except Exception as exc:  # noqa: BLE001
+                req.fail(V.HttpError(V.HTTP_UNAVAILABLE,
+                                     f"prefill failed: {exc}"))
+                continue
+            with self._handoff_cv:
+                # the mode is written under this lock by
+                # _collapse_to_fused, so no record slips in after the
+                # drain
+                publish = not self._fused()
+                if publish:
+                    self._ready.append(rec)
+                    self.handoffs_total += 1
+            if not publish:
+                self._discard_record(rec, V.HttpError(
+                    V.HTTP_UNAVAILABLE,
+                    "session collapsed to fused prefill+decode — retry"))
+                continue
+            with self._cv:
+                self._cv.notify_all()
+
+    # -- decode worker -------------------------------------------------
+    def _have_work(self) -> bool:
+        if self._fused():
+            return super()._have_work()
+        return (bool(self._ready) or self._degrade_pending is not None
+                or any(r is not None for r in self._slot_req))
+
+    def _serve_once(self) -> bool:
+        pending = self._degrade_pending
+        if pending is not None:
+            self._degrade_pending = None
+            kind, reason = pending
+            if kind == "exact":
+                PagedLMServingSession._degrade_to_exact(self, reason)
+            else:
+                if not self._fused():
+                    self._collapse_to_fused(reason)
+                if kind == "slot":
+                    PagedLMServingSession._degrade_to_slot(self)
+        if self._fused():
+            return super()._serve_once()
+        did = self._adopt_ready()
+        active = self._active_slots()
+        if not active:
+            return did
+        self._decode_round(active)
+        return True
+
+    def _adopt_ready(self) -> bool:
+        """Move published records into free slots (decode thread). The
+        adoption releases the publish hold: from here the stream owns its
+        pages as a fused admission does."""
+        did = False
+        while True:
+            with self._handoff_cv:
+                if not self._ready:
+                    break
+                rec = self._ready.popleft()
+            free = [i for i, r in enumerate(self._slot_req) if r is None]
+            if not free:
+                with self._handoff_cv:
+                    self._ready.appendleft(rec)
+                break
+            try:
+                self._install(free[0], rec)
+                did = True
+            except V.HttpError as exc:
+                rec["req"].fail(exc)
+            except Exception as exc:  # noqa: BLE001
+                rec["req"].fail(V.HttpError(
+                    V.HTTP_UNAVAILABLE, f"prefill install failed: {exc}"))
+        return did
+
+    # -- degrade -------------------------------------------------------
+    def _degrade_to_slot(self) -> None:
+        if threading.current_thread() is self._prefill_thread:
+            if self._degrade_pending is None:
+                self._degrade_pending = ("slot", "kv_page_alloc latched")
+            return
+        if not self._fused():
+            self._collapse_to_fused("kv_page_alloc latched")
+        super()._degrade_to_slot()
+
+    def _degrade_to_exact(self, reason: str) -> None:
+        if threading.current_thread() is self._prefill_thread:
+            # the rebuild swaps the pool: decode-thread work; the
+            # prefill worker pauses until it lands
+            if self._degrade_pending is None:
+                self._degrade_pending = ("exact", reason)
+            return
+        super()._degrade_to_exact(reason)
+
+    def _collapse_to_fused(self, reason: str) -> None:
+        """Stop disaggregating (a latched handoff fault, or a slot
+        degrade beneath it). Decode thread only."""
+        with self._handoff_cv:
+            if self.disagg_mode == "fused-degraded":
+                return
+            self.disagg_mode = "fused-degraded"
+        for slot in range(self.slots):
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            pages = self._slot_pages[slot]
+            if pages:
+                self.pool.decref(pages, self._slot_tenant[slot])
+            self._slot_req[slot] = None
+            self._slot_out[slot] = []
+            self._slot_left[slot] = 0
+            self._slot_pages[slot] = []
+            self._slot_tenant[slot] = None
+            self._set_table(slot, [])
+            req.fail(V.HttpError(
+                V.HTTP_UNAVAILABLE,
+                f"session collapsed to fused prefill+decode mid-stream "
+                f"({reason}) — retry"))
+        self._drain_ready(V.HttpError(
+            V.HTTP_UNAVAILABLE, f"prefill worker degraded ({reason}) — "
+            f"retry"))
+
+    def _drain_ready(self, error: V.HttpError) -> None:
+        while True:
+            with self._handoff_cv:
+                if not self._ready:
+                    return
+                rec = self._ready.popleft()
+            self._discard_record(rec, error)
+
+    def _discard_record(self, rec: Dict[str, Any],
+                        error: V.HttpError) -> None:
+        """Release every page reference a published record owns (the
+        publish hold and the stream's) and fail its request: the free
+        count comes back to where an admit and retire would leave it."""
+        if rec["published"]:
+            self.pool.decref(rec["row"])
+        if rec["row"]:
+            self.pool.decref(rec["row"], rec["tenant"])
+        if rec["donorTail"] is not None:
+            self.pool.decref([rec["donorTail"]])
+        rec["req"].fail(error)
+
+    def close(self) -> None:
+        super().close()
+        if self._prefill_thread.is_alive():
+            with self._cv:
+                self._cv.notify_all()
+            self._prefill_thread.join(timeout=30.0)
+        self._drain_ready(V.HttpError(
+            V.HTTP_UNAVAILABLE, f"serving session {self.name} was deleted"))
+
+    def stats(self) -> Dict[str, Any]:
+        out = super().stats()
+        with self._handoff_cv:
+            qlen = len(self._ready)
+        out["disagg"] = {
+            "mode": self.disagg_mode,
+            "handoffsTotal": self.handoffs_total,
+            "handoffQueue": qlen,
+            "handoffFaultStreak": self._handoff_fault_streak,
+        }
+        return out
+
+
+class BucketServingSession(_SessionBase):
+    """Shape-bucketed micro-batcher for ``predict`` models (``type:
+    "predict"``, the default for an artifact without ``serve_fns``, such
+    as a fitted ``TextClassifier``).
+
+    Queued requests gather for up to ``serve_max_wait_ms`` (or until the
+    largest bucket fills); their stacked rows pad with row 0 to the
+    smallest bucket that holds them, and one ``predict`` call with the
+    bucket as its batch size serves the burst in one forward. Each
+    request gets its own rows back, and the bucket."""
+
+    kind = "predict"
+
+    def __init__(self, name: str, ctx, instance):
+        super().__init__(name, ctx)
+        self._instance = instance
+        buckets = sorted({int(b) for b in
+                          str(ctx.config.serve_buckets).split(",") if b})
+        self.buckets = [b for b in buckets if b > 0] or [1]
+        self._max_wait = float(ctx.config.serve_max_wait_ms) / 1e3
+        self.predicts_total = 0
+        self.rows_total = 0
+        self._last_fill: Optional[float] = None
+        # fill-weighted goodput: useful rows against padded bucket rows,
+        # and the time spent producing them
+        self._predict_seconds = 0.0
+        self._fill_bucket_sum = 0
+
+    def validate_request(self, payload: Dict[str, Any]) -> None:
+        x = payload.get("x")
+        if not isinstance(x, (list, tuple)) or not x:
+            raise V.HttpError(
+                V.HTTP_NOT_ACCEPTABLE,
+                f"{V.MESSAGE_INVALID_FIELD}: x must be a non-empty "
+                f"list of feature rows")
+
+    def _bucket_for(self, n: int) -> int:
+        for b in self.buckets:
+            if b >= n:
+                return b
+        return self.buckets[-1]
+
+    def _gather(self) -> List[_Request]:
+        """The next burst: the first request opens the window, which
+        closes after ``serve_max_wait_ms`` or once the largest bucket is
+        full."""
+        limit = self.buckets[-1]
+        batch: List[_Request] = []
+        rows = 0
+        deadline = None
+        with self._cv:
+            while True:
+                while self._queue and rows < limit:
+                    req = self._queue.popleft()
+                    batch.append(req)
+                    rows += len(req.payload["x"])
+                if not batch or rows >= limit:
+                    return batch
+                if deadline is None:
+                    deadline = time.monotonic() + self._max_wait
+                remaining = deadline - time.monotonic()
+                if remaining <= 0:
+                    return batch
+                self._cv.wait(timeout=remaining)
+                if not self._queue:
+                    return batch
+
+    def _serve_once(self) -> bool:
+        batch = self._gather()
+        if not batch:
+            return False
+        try:
+            stacked = np.concatenate(
+                [np.asarray(r.payload["x"]) for r in batch], axis=0)
+        except ValueError as exc:
+            for req in batch:
+                req.fail(V.HttpError(
+                    V.HTTP_NOT_ACCEPTABLE,
+                    f"{V.MESSAGE_INVALID_FIELD}: rows do not stack "
+                    f"({exc})"))
+            return True
+        n = stacked.shape[0]
+        bucket = self._bucket_for(n)
+        if bucket > n:
+            # pad with row 0 to the bucket; the pad rows' outputs are
+            # never returned
+            pad = np.repeat(stacked[:1], bucket - n, axis=0)
+            stacked = np.concatenate([stacked, pad], axis=0)
+        predict_t0 = time.monotonic()
+        try:
+            out = np.asarray(self._instance.predict(
+                stacked, batch_size=stacked.shape[0]))
+        except Exception as exc:  # noqa: BLE001
+            for req in batch:
+                req.fail(V.HttpError(V.HTTP_UNAVAILABLE,
+                                     f"predict failed: {exc}"))
+            return True
+        self._predict_seconds += time.monotonic() - predict_t0
+        self.predicts_total += 1
+        self.rows_total += n
+        self._last_fill = round(n / bucket, 4)
+        self._fill_bucket_sum += bucket
+        offset = 0
+        for req in batch:
+            k = len(req.payload["x"])
+            req.finish({"predictions": out[offset:offset + k].tolist(),
+                        "bucket": bucket})
+            offset += k
+        return True
+
+    def _batch_fill(self) -> Optional[float]:
+        return self._last_fill
+
+    def perf_stats(self) -> Dict[str, Any]:
+        if not self.predicts_total or self._predict_seconds <= 0:
+            return {}
+        return {
+            "predictsTotal": self.predicts_total,
+            "rowsPerSec": round(self.rows_total / self._predict_seconds, 2),
+            "goodputFrac": round(
+                self.rows_total / max(1, self._fill_bucket_sum), 4),
+        }
+
+    def stats(self) -> Dict[str, Any]:
+        out = super().stats()
+        out.update({"buckets": self.buckets,
+                    "predictsTotal": self.predicts_total,
+                    "rowsTotal": self.rows_total})
         return out
 
 
@@ -1251,7 +1826,8 @@ def _not_ported(what: str) -> V.HttpError:
     return V.HttpError(
         V.HTTP_NOT_ACCEPTABLE,
         f"{V.MESSAGE_INVALID_FIELD}: {what} is not yet ported to the "
-        f"PyTorch serving plane (slot and paged LM sessions only)")
+        f"PyTorch serving plane (one card has no slice of a mesh to "
+        f"lease)")
 
 
 class ServingManager:
@@ -1300,8 +1876,15 @@ class ServingManager:
                 V.HTTP_NOT_ACCEPTABLE,
                 f"{V.MESSAGE_INVALID_FIELD}: type must be 'lm' or "
                 f"'predict', got {kind!r}")
+        if body.get("sliceDevices") is not None:
+            raise _not_ported("sliceDevices")
         if kind == "predict":
-            raise _not_ported("type 'predict' (bucketed serving)")
+            if not hasattr(instance, "predict"):
+                raise V.HttpError(
+                    V.HTTP_NOT_ACCEPTABLE,
+                    f"{V.MESSAGE_INVALID_FIELD}: {model_name} has no "
+                    f"predict method")
+            return BucketServingSession(model_name, self._ctx, instance)
         if not hasattr(instance, "serve_fns"):
             raise V.HttpError(
                 V.HTTP_NOT_ACCEPTABLE,
@@ -1316,9 +1899,6 @@ class ServingManager:
         temperature, top_k, top_p = V.valid_sampling(body)
         if top_k is not None and top_k >= instance.vocab_size:
             top_k = None
-        unported = [f for f in _UNPORTED_FIELDS if body.get(f) is not None]
-        if unported:
-            raise _not_ported(", ".join(unported))
         cfg = self._ctx.config
         kv_mode = str(body.get("kv") or cfg.serve_kv or "slot")
         if kv_mode not in ("slot", "paged"):
@@ -1353,14 +1933,90 @@ class ServingManager:
                 body.get("pages"), "pages",
                 default=int(cfg.serve_pages) or slots * pages_per + 1)
             n_pages = max(n_pages, pages_per + 1)
-            return PagedLMServingSession(
+            disagg = self._want_disagg(body)
+            draft_model, draft_name, spec_k = self._load_draft(
+                body, instance, cache_len)
+            session_cls = PagedLMServingSession
+            if disagg:
+                # validated as the JAX package validates it; one card has
+                # no second slice to give the prefill worker
+                V.valid_slice_devices(body.get("prefillDevices"))
+                session_cls = DisaggLMServingSession
+            return session_cls(
                 model_name, self._ctx, instance, slots, cache_len,
                 temperature, top_k, top_p, page_len, n_pages,
                 parse_tenant_weights(cfg.serve_tenant_weights),
-                kv_dtype=kv_dtype, weights_dtype=weights)
+                kv_dtype=kv_dtype, weights_dtype=weights,
+                draft_model=draft_model, draft_name=draft_name,
+                spec_k=spec_k)
+        if body.get("disagg") or body.get("draft"):
+            raise V.HttpError(
+                V.HTTP_NOT_ACCEPTABLE,
+                f"{V.MESSAGE_INVALID_FIELD}: disagg/draft need the paged "
+                f"KV path (kv='paged') — the slot cache has no page "
+                f"handoff or verify step")
         return LMServingSession(model_name, self._ctx, instance, slots,
                                 cache_len, temperature, top_k, top_p,
                                 weights_dtype=weights)
+
+    def _want_disagg(self, body: Dict[str, Any]) -> bool:
+        """The request's ``disagg`` (a JSON bool), else
+        ``LO_SERVE_DISAGG``."""
+        raw = body.get("disagg")
+        if raw is None:
+            return str(self._ctx.config.serve_disagg or "0").strip() \
+                .lower() in ("1", "true", "yes", "on")
+        if not isinstance(raw, bool):
+            raise V.HttpError(
+                V.HTTP_NOT_ACCEPTABLE,
+                f"{V.MESSAGE_INVALID_FIELD}: disagg must be a "
+                f"boolean, got {raw!r}")
+        return raw
+
+    def _load_draft(self, body: Dict[str, Any], instance: Any,
+                    cache_len: int):
+        """The draft model of speculative decoding (the request's
+        ``draft``, else ``LO_SERVE_DRAFT``): a fitted LM artifact with
+        the target's vocabulary whose ``max_len`` covers the session's
+        cache. Returns ``(draft or None, draft_name, spec_k)``."""
+        cfg = self._ctx.config
+        raw = body.get("draft")
+        if raw is None:
+            raw = str(cfg.serve_draft or "")
+        if not raw:
+            return None, "", 4
+        if not isinstance(raw, str):
+            raise V.HttpError(
+                V.HTTP_NOT_ACCEPTABLE,
+                f"{V.MESSAGE_INVALID_FIELD}: draft must be a model "
+                f"name string, got {raw!r}")
+        spec_k = V.valid_positive_int(
+            body.get("specK"), "specK", default=int(cfg.serve_spec_k or 4))
+        type_string = self._ctx.params.artifact_type(raw)
+        if type_string is None:
+            raise V.HttpError(
+                V.HTTP_NOT_FOUND,
+                f"{V.MESSAGE_NONEXISTENT_FILE}: draft model {raw}")
+        draft = self._ctx.artifacts.load(raw, type_string)
+        if not hasattr(draft, "serve_fns_draft"):
+            raise V.HttpError(
+                V.HTTP_NOT_ACCEPTABLE,
+                f"{V.MESSAGE_INVALID_FIELD}: draft {raw} is not a "
+                f"language model (no propose support)")
+        if int(draft.vocab_size) != int(instance.vocab_size):
+            raise V.HttpError(
+                V.HTTP_NOT_ACCEPTABLE,
+                f"{V.MESSAGE_INVALID_FIELD}: draft vocab "
+                f"({draft.vocab_size}) must match the target's "
+                f"({instance.vocab_size}) — acceptance sampling "
+                f"compares their distributions token-for-token")
+        if int(draft.max_len) < int(cache_len):
+            raise V.HttpError(
+                V.HTTP_NOT_ACCEPTABLE,
+                f"{V.MESSAGE_INVALID_FIELD}: draft maxLen "
+                f"({draft.max_len}) must cover cacheLen "
+                f"({cache_len})")
+        return draft, raw, spec_k
 
     def predict(self, model_name: str,
                 body: Dict[str, Any]) -> Dict[str, Any]:

@@ -122,6 +122,44 @@ def valid_sampling(body: Dict[str, Any]):
                                        else float(top_p))
 
 
+def valid_slice_devices(value: Any):
+    """A device-footprint field (``prefillDevices`` of a disaggregated
+    session), checked as the JAX package checks ``sliceDevices``: a
+    positive integer count, a ``{"min": m, "max": M}`` bounds object, or
+    None. Returns the normalized int or dict. On one card the value
+    places nothing."""
+    if value is None:
+        return None
+    if isinstance(value, dict):
+        unknown = set(value) - {"min", "max"}
+        if unknown:
+            raise HttpError(
+                HTTP_NOT_ACCEPTABLE,
+                f"{MESSAGE_INVALID_FIELD}: sliceDevices has unknown "
+                f"keys {sorted(unknown)} (want {{'min', 'max'}})")
+        lo, hi = value.get("min"), value.get("max")
+        for name, bound in (("min", lo), ("max", hi)):
+            if isinstance(bound, bool) or not isinstance(bound, int) \
+                    or bound <= 0:
+                raise HttpError(
+                    HTTP_NOT_ACCEPTABLE,
+                    f"{MESSAGE_INVALID_FIELD}: sliceDevices.{name} must "
+                    f"be a positive integer device count, got {bound!r}")
+        if lo > hi:
+            raise HttpError(
+                HTTP_NOT_ACCEPTABLE,
+                f"{MESSAGE_INVALID_FIELD}: sliceDevices.min ({lo}) must "
+                f"not exceed sliceDevices.max ({hi})")
+        return {"min": int(lo), "max": int(hi)}
+    if isinstance(value, bool) or not isinstance(value, int) or value <= 0:
+        raise HttpError(
+            HTTP_NOT_ACCEPTABLE,
+            f"{MESSAGE_INVALID_FIELD}: sliceDevices must be a positive "
+            f"integer device count or {{'min', 'max'}} bounds object, "
+            f"got {value!r}")
+    return int(value)
+
+
 NOT_PORTED = "is not yet ported to the PyTorch package"
 
 
@@ -145,7 +183,7 @@ _SERVICE_KWARGS = ("device",)
 # never imports the JAX package
 JAX_ONLY_CLASSES = ("NeuralModel", "GridSearch", "RandomSearch")
 JAX_ONLY_METHODS = {
-    "LanguageModel": ("set_mesh", "serve_fns_spec", "serve_fns_draft"),
+    "LanguageModel": ("set_mesh",),
     "TextClassifier": ("set_mesh",),
 }
 

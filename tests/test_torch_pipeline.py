@@ -221,7 +221,7 @@ NOT_PORTED = {
     "RandomSearch": ("POST", "/model/tensorflow", _model(
         **{"class": "RandomSearch"}, classParameters={})),
     "a JAX method": ("POST", "/train/tensorflow", _run(
-        method="serve_fns_spec")),
+        method="set_mesh")),
     "timeout": ("POST", "/train/tensorflow", _run(timeout=5)),
     "sliceDevices": ("POST", "/train/tensorflow", _run(sliceDevices=2)),
     "healthPolicy": ("POST", "/train/tensorflow", _run(
