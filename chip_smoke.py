@@ -140,9 +140,42 @@
    of 1, 3 and 5 rows in buckets 1, 4 and 8 and three concurrent
    clients, each row within 1e-5 of a direct ``predict`` of its padded
    bucket, 4 layers x predict calls of flash_fwd_sm90 and nothing else.
+9. The keras path (the ``neural`` line, after the serving plane):
+   ``NeuralModel`` at the published widths with data from seeds, bf16.
+   (a) The tutorial's MNIST CNN (``docs/TUTORIAL.md`` workflow 2: conv
+   32 3x3, max pool, dense 128, dense 10) fitted directly on 60000 rows
+   of 784 pixels (class templates plus noise), batch 256, 2 epochs: the
+   loss falls, accuracy well above chance; step ms, samples/s and a
+   profiled window's idle share; one float32 step on the card within
+   1e-4 (loss and each gradient's relative L2) of the same step on the
+   CPU. (b) Workflow 2 over HTTP: pixels and labels of 1024 rows as two
+   CSVs, ``/model``, ``/train`` with ``"checkpoint": true`` (its epoch
+   losses within 1e-5 relative of a direct fit's on the same rows, bit
+   equality recorded), ``/evaluate``, ``/predict`` (rows sum to 1), and
+   a 1-epoch fit PATCHed to 2 that restores its step and trains epoch 2
+   as the uninterrupted fit does. (c) Workflow 3's LSTM (embedding
+   20000/128, lstm 128, dense 2) on 25000 rows of 200 ids, batch 128, 1
+   epoch: the loss falls; the RNN route and the kernels it ran; float32
+   steps of ``gru`` and ``bidirectional_lstm`` bodies within 1e-4 of the
+   CPU. (d) ResNet-50 (1000 classes, 224x224x3, a softmax output
+   activation as keras's), batch 64, 8 steps: a
+   finite loss, every batch statistic moved, ``predict`` rows summing to
+   1; step ms, images/s, peak memory. (e) The tune route: a
+   ``GridSearch`` over (b)'s CNN (``learning_rate`` 1e-3/3e-4 x
+   ``batch_size`` 128/256, 1 epoch) through ``/model`` and ``/tune``: 4
+   trials and a refit, ``sweepFusion`` in the metadata, each trial's card
+   memory freed before the next starts (what is live at a trial's start
+   varies by at most 1 MiB) and its peak flat across trials of one batch
+   size (within 10%); then
+   a ``RandomSearch`` of 2 points over the tutorial TextClassifier
+   (flash, bf16) on 1024 rows of 512 tokens: each sm90 kernel launched
+   exactly 4 layers x the optimizer steps of the trials and the refit,
+   the forward once more a layer for each evaluate batch, nothing else.
 
 The kernel launch counts are zeroed just before each path and read
-just after it.
+just after it. ``python3 chip_smoke.py --only neural`` builds the
+kernels and runs that phase alone (to iterate on it), printing its line
+and no result line.
 
 Earlier lines print the card (nvidia-smi name and power limit), the
 build time, ptxas's registers and spill bytes of every kernel variant
@@ -3082,6 +3115,495 @@ def serving_plane_phase(torch, log, home, yard):
             "servingPlanePredict": clf_launches}
 
 
+# ----------------------------------------------------------------------
+# the keras path: NeuralModel (the tutorial's CNN and LSTM, ResNet-50)
+# and the sweeps
+# ----------------------------------------------------------------------
+# docs/TUTORIAL.md workflow 2 (MNIST CNN) and workflow 3 (IMDb LSTM)
+TUTORIAL_CNN = [
+    {"kind": "reshape", "shape": [28, 28, 1]},
+    {"kind": "conv2d", "filters": 32, "kernel": [3, 3],
+     "activation": "relu"},
+    {"kind": "maxpool2d"},
+    {"kind": "flatten"},
+    {"kind": "dense", "units": 128, "activation": "relu"},
+    {"kind": "dense", "units": 10, "activation": "softmax"}]
+TUTORIAL_LSTM = [{"kind": "embedding", "vocab": 20000, "dim": 128},
+                 {"kind": "lstm", "units": 128},
+                 {"kind": "dense", "units": 2, "activation": "softmax"}]
+# MNIST's and IMDb's published shapes; data from seeds
+MNIST_ROWS, MNIST_BATCH, MNIST_EPOCHS = 60000, 256, 2
+IMDB_ROWS, IMDB_SEQ, IMDB_VOCAB, IMDB_BATCH = 25000, 200, 20000, 128
+# the REST workflow's rows (two CSVs), its fit and the sweep over it
+REST_ROWS, REST_EPOCHS = 1024, 2
+SWEEP_GRID = {"learning_rate": [1e-3, 3e-4], "batch_size": [128, 256]}
+CLF_SWEEP_GRID = {"learning_rate": [3e-4, 1e-3, 3e-3]}
+# ResNet-50 (1000 classes, 224x224x3): 2 epochs of 4 steps at batch 64
+RESNET_BATCH, RESNET_STEPS = 64, 8
+
+
+def _mnist_like(np, n: int, seed: int):
+    """``n`` rows of 784 pixels and labels: one of 10 fixed class
+    templates (seed 1234) mixed with noise, quantized to k/256 (exact in
+    a CSV of 8 decimals)."""
+    templates = np.random.default_rng(1234).random((10, 784))
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 10, n).astype(np.int32)
+    x = 0.6 * templates[y] + 0.4 * rng.random((n, 784))
+    return (np.floor(x * 256) / 256).astype(np.float32), y
+
+
+def _imdb_like(np, n: int, seed: int):
+    """``n`` rows of 200 token ids in [1, 20000) and labels: whether an
+    id below 1000 is among the last 10 (a task the LSTM's last state
+    sees)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(1, IMDB_VOCAB, size=(n, IMDB_SEQ)).astype(np.int32)
+    y = (x[:, -10:] < 1000).any(axis=1).astype(np.int32)
+    return x, y
+
+
+def _rel_l2(torch, got, want) -> float:
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).norm() / want.norm().clamp_min(1e-30))
+
+
+def _f32_step_vs_cpu(torch, body, x, y) -> dict:
+    """One float32 micro-step of ``body`` from its seed-0 init on the card
+    and on the CPU: the loss and each gradient's relative L2. (An init's
+    loss and gradients are O(1); a fitted model's nearly cancel.)"""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+    from learningorchestra_tpu_torch.runtime.data import MASK_KEY
+
+    os.environ["LO_COMPUTE_DTYPE"] = "float32"
+    out, params = {}, None
+    try:
+        for device in ("cuda", "cpu"):
+            model = NeuralModel(body, device=device)
+            if params is None:
+                model._build_params(model._coerce_x(x))
+                params = {k: v.detach().cpu()
+                          for k, v in model.params.items()}
+            else:
+                model.set_params(params, input_shape=x.shape[1:])
+            eng = model._get_engine()
+            batch = eng._to_device(
+                {"x": model._coerce_x(x), "y": y.astype(np.int64),
+                 MASK_KEY: np.ones(len(x), np.float32)}, model.device)
+            grads, _, metrics = eng._micro_step(model.params,
+                                                model.model_state, batch, 0)
+            s, c = metrics["loss"]
+            out[device] = (float(s) / float(c), grads)
+    finally:
+        os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    rel = {k: _rel_l2(torch, g, out["cpu"][1][k])
+           for k, g in out["cuda"][1].items()}
+    worst = max(rel, key=rel.get)
+    loss_rel = abs(out["cuda"][0] - out["cpu"][0]) / abs(out["cpu"][0])
+    if not (rel[worst] <= 1e-4 and loss_rel <= 1e-4):
+        raise AssertionError(f"float32 step on the card vs the CPU: loss "
+                             f"{loss_rel}, gradient of {worst} {rel[worst]}")
+    return {"lossRel": loss_rel, "gradRelL2Max": rel[worst], "worst": worst}
+
+
+def _profile_fit(torch, model, x, y, batch: int, steps: int = 3) -> dict:
+    """A profiler window of ``steps`` optimizer steps of ``model``'s fit
+    engine (after one warm step): wall, device busy time, idle share and
+    the top kernels. Params and batch statistics are restored after."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = model._get_engine()
+    live = {**model.params, **model.model_state}
+    saved = {k: t.detach().clone() for k, t in live.items()}
+    tstate = eng.init_state(model.params, model.model_state)
+    batches = [eng._to_device(b, model.device) for b in model._batcher(
+        x[:(steps + 1) * batch], y[:(steps + 1) * batch], batch).epoch(0)]
+    eng._train_step_body(tstate, batches[0], 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        w0 = time.monotonic()
+        for b in batches[1:]:
+            eng._train_step_body(tstate, b, 0)
+        torch.cuda.synchronize()
+        window_ms = (time.monotonic() - w0) * 1e3
+    with torch.no_grad():
+        for k, t in live.items():
+            t.copy_(saved[k])
+    del saved, tstate, batches
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = [[e.key[:80], e.self_device_time_total / 1e3 / steps,
+            e.count / steps]
+           for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                           reverse=True)[:8]]
+    names = sorted({e.key[:60] for e in kernels})
+    del prof, kernels
+    gc.collect()
+    return {"steps": steps, "windowMs": window_ms, "deviceBusyMs": busy_ms,
+            "idleShare": 1.0 - busy_ms / window_ms,
+            "stepMs": window_ms / steps, "topKernelsMsPerStep": top,
+            "kernelNames": names}
+
+
+def _write_csv(np, path, header, x, fmt) -> None:
+    np.savetxt(path, x, fmt=fmt, delimiter=",", header=",".join(header),
+               comments="")
+
+
+def neural_phase(torch, log, home, yard):
+    """The keras path on the card (the ``neural`` line): (a) the
+    tutorial's CNN fitted directly on 60000 MNIST-shaped rows (batch 256,
+    2 epochs, bf16): the loss falls, accuracy well above chance, step
+    time, samples/s and the idle share of a profiled window, and one
+    float32 step on the card within 1e-4 of the CPU's; (b) workflow 2
+    over HTTP: two CSVs of 1024 rows through ``POST /dataset/csv``,
+    ``/model``, ``/train`` with ``"checkpoint": true`` (epoch losses equal
+    to a direct fit's on the same rows), ``/evaluate``, ``/predict``
+    (rows sum to 1) and a PATCH resume that trains epoch 2 as the
+    uninterrupted fit does; (c) workflow 3's LSTM fitted directly on
+    25000 rows of 200 ids (batch 128, 1 epoch, bf16): the loss falls, the
+    RNN route and its kernels, and float32 steps of ``gru`` and
+    ``bidirectional_lstm`` bodies against the CPU; (d) ResNet-50 (1000
+    classes, 224x224x3) in bf16, batch 64, 8 steps: finite loss,
+    batch statistics that move, ``predict`` rows that sum to 1, step
+    time, images/s and peak memory; (e) the tune route: a GridSearch over
+    (b)'s CNN (4 points and a refit, per-trial peak memory) and a
+    RandomSearch of 2 points over the classifier phase's TextClassifier
+    (flash, bf16) on 1024 rows of 512 tokens, whose sm90 launches must be
+    exactly 4 layers x (optimizer steps of the trials and the refit),
+    plus one forward a layer for each evaluate batch. Returns each
+    path's kernel launches."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import sequential_module as seq
+    from learningorchestra_tpu_torch.models import sweep as sweep_lib
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    phase_t0 = time.monotonic()
+    paths, out = {}, {}
+    zero = dict.fromkeys(COUNTERS, 0)
+
+    # (a) the tutorial CNN, direct
+    x, y = _mnist_like(np, MNIST_ROWS, seed=0)
+    cnn = NeuralModel(TUTORIAL_CNN, device="cuda")
+    _reset_launches(attn)
+    t0 = time.monotonic()
+    hist = cnn.fit(x, y, batch_size=MNIST_BATCH,
+                   epochs=MNIST_EPOCHS).history
+    fit_s = time.monotonic() - t0
+    paths["neuralCnn"] = _launches(attn)
+    evaluated = cnn.evaluate(x[:10000], y[:10000], batch_size=1024)
+    if not (hist["loss"][1] < hist["loss"][0] and
+            evaluated["accuracy"] > 0.5 and paths["neuralCnn"] == zero):
+        raise AssertionError(f"the CNN fit: {hist}, evaluate {evaluated}, "
+                             f"launches {paths['neuralCnn']}")
+    steps = -(-MNIST_ROWS // MNIST_BATCH)
+    out["cnn"] = {
+        "rows": MNIST_ROWS, "batch": MNIST_BATCH, "epochs": MNIST_EPOCHS,
+        "params": cnn.num_params(), "history": hist, "fitSeconds": fit_s,
+        "evaluate": evaluated,
+        "stepMsEpoch2": hist["epochSeconds"][-1] / steps * 1e3,
+        "samplesPerSecEpoch2": hist["samplesPerSecond"][-1],
+        "profile": _profile_fit(torch, cnn, x, y, MNIST_BATCH),
+        "f32StepVsCpu": _f32_step_vs_cpu(torch, TUTORIAL_CNN,
+                                         x[:MNIST_BATCH], y[:MNIST_BATCH])}
+    del out["cnn"]["profile"]["kernelNames"]
+    del cnn, x, y
+    gc.collect()
+
+    # (b) workflow 2 over HTTP, and (e) the tune route on its server
+    rx, ry = _mnist_like(np, REST_ROWS, seed=1)
+    pix_csv = os.path.join(home, "pixels.csv")
+    lab_csv = os.path.join(home, "labels.csv")
+    _write_csv(np, pix_csv, [f"p{i}" for i in range(784)], rx, "%.8f")
+    _write_csv(np, lab_csv, ["label"], ry[:, None], "%d")
+    direct = NeuralModel(TUTORIAL_CNN, device="cuda")
+    want = direct.fit(rx, ry, batch_size=MNIST_BATCH,
+                      epochs=REST_EPOCHS).history["loss"]
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    trial_mem = []
+    real_trial = sweep_lib.GridSearch._run_trial
+
+    def measured_trial(self, combo, *args, **kwargs):
+        # what is live as a trial starts (the sweep collects each trial's
+        # model after it), and the trial's own peak above that
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        result = real_trial(self, combo, *args, **kwargs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        trial_mem.append({"params": combo, "beforeBytes": before,
+                          "peakBytes": peak, "trialPeakBytes": peak - before})
+        return result
+
+    def post(path, body, status=201):
+        got, answer = _http(base, "POST", path, body)
+        if got != status:
+            raise AssertionError(f"POST {path}: {got} {answer}")
+        return answer
+
+    def run(verb, name, parent, method, params):
+        post(f"/{verb}/tensorflow", {"name": name, "modelName": parent,
+                                     "method": method,
+                                     "methodParameters": params})
+        return _poll(base, f"/{verb}/tensorflow/{name}")
+
+    def docs(verb, name):
+        return _http(base, "GET", f"/{verb}/tensorflow/{name}")[1]["result"]
+
+    def model(name, cls, params):
+        post("/model/tensorflow", {"modelName": name, "modulePath":
+                                   "learningorchestra_tpu.models",
+                                   "class": cls, "classParameters": params})
+        _poll(base, f"/model/tensorflow/{name}")
+
+    sweep_lib.GridSearch._run_trial = measured_trial
+    try:
+        t0 = time.monotonic()
+        for name, path in (("pixels", pix_csv), ("labels", lab_csv)):
+            post("/dataset/csv", {"datasetName": name, "datasetURI": path})
+            _poll(base, f"/dataset/csv/{name}")
+        ingest_s = time.monotonic() - t0
+        model("cnn", "NeuralModel", {"layer_configs": TUTORIAL_CNN})
+        fit = {"x": "$pixels", "y": "$labels", "epochs": REST_EPOCHS,
+               "batch_size": MNIST_BATCH, "checkpoint": True}
+        _reset_launches(attn)
+        t0 = time.monotonic()
+        meta = run("train", "cnn_t", "cnn", "fit", fit)
+        train_s = time.monotonic() - t0
+        paths["neuralRest"] = _launches(attn)
+        got = [d["epochRecord"]["loss"] for d in docs("train", "cnn_t")
+               if "epochRecord" in d]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if len(got) != REST_EPOCHS or not rel <= 1e-5 or \
+                len(meta.get("checkpointCommits", [])) != REST_EPOCHS:
+            raise AssertionError(f"REST fit losses {got} against the "
+                                 f"direct fit's {want}; metadata {meta}")
+        run("evaluate", "cnn_e", "cnn_t", "evaluate",
+            {"x": "$pixels", "y": "$labels", "batch_size": MNIST_BATCH})
+        ev = next(d["result"] for d in docs("evaluate", "cnn_e")
+                  if "result" in d)
+        run("predict", "cnn_p", "cnn_t", "predict",
+            {"x": "$pixels", "batch_size": MNIST_BATCH})
+        probs = np.asarray(ctx.artifacts.load("cnn_p"))
+        row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+        if probs.shape != (REST_ROWS, 10) or not row_err <= 1e-5:
+            raise AssertionError(f"predict: shape {probs.shape}, max |sum "
+                                 f"- 1| {row_err}")
+        # resume: 1 epoch, then PATCHed to 2 from its checkpoint
+        run("train", "cnn_r", "cnn", "fit", dict(fit, epochs=1))
+        status, answer = _http(base, "PATCH", "/train/tensorflow/cnn_r",
+                               {"methodParameters": fit})
+        if status != 200:
+            raise AssertionError(f"PATCH cnn_r: {status} {answer}")
+        meta_r = _poll(base, "/train/tensorflow/cnn_r")
+        resumed = [d["epochRecord"]["loss"] for d in docs("train", "cnn_r")
+                   if "epochRecord" in d]
+        resume_rel = abs(resumed[-1] - got[-1]) / abs(got[-1])
+        if not resume_rel <= 1e-5 or not meta_r.get("checkpointRestores"):
+            raise AssertionError(f"the resumed epoch 2 lost {resumed[-1]}, "
+                                 f"the uninterrupted {got[-1]}; {meta_r}")
+        out["rest"] = {
+            "rows": REST_ROWS, "ingestSeconds": ingest_s,
+            "trainJobSeconds": train_s, "losses": got, "directLosses": want,
+            "bitEqualToDirect": got == want, "maxRelToDirect": rel,
+            "checkpointCommits": len(meta["checkpointCommits"]),
+            "evaluate": ev, "predictRowSumMaxErr": row_err,
+            "resumedEpoch2Loss": resumed[-1],
+            "resumedBitEqual": resumed[-1] == got[-1],
+            "restoredStep": meta_r["checkpointRestores"][-1]["step"]}
+
+        # (e) the GridSearch over $cnn through /model and /tune
+        model("sweep", "GridSearch", {"estimator": "$cnn",
+                                      "param_grid": SWEEP_GRID})
+        _reset_launches(attn)
+        t0 = time.monotonic()
+        meta_s = run("tune", "sweep_t", "sweep", "fit",
+                     {"x": "$pixels", "y": "$labels", "epochs": 1})
+        sweep_s = time.monotonic() - t0
+        paths["neuralGridSearch"] = _launches(attn)
+        swept = ctx.artifacts.load("sweep_t")
+        points = len(swept.cv_results_["params"])
+        if points != 4 or swept.best_estimator_ is None or \
+                swept.best_params_ not in swept.cv_results_["params"] or \
+                meta_s.get("sweepFusion", {}).get("fusedTrials") != 0 or \
+                paths["neuralGridSearch"] != zero:
+            raise AssertionError(f"the grid sweep: {swept.cv_results_}, "
+                                 f"metadata {meta_s}")
+        grid_mem = list(trial_mem)
+        befores = [m["beforeBytes"] for m in grid_mem]
+        leaked = max(befores) - min(befores)
+        by_batch = {}
+        for m in grid_mem:
+            by_batch.setdefault(m["params"]["batch_size"], []).append(
+                m["trialPeakBytes"])
+        spread = max(max(v) / min(v) - 1 for v in by_batch.values())
+        if leaked > 1 << 20 or spread > 0.1:
+            raise AssertionError(f"trial memory not flat: {grid_mem}")
+
+        # (e) a RandomSearch over the tutorial TextClassifier (flash)
+        cx, cy = _marker_rows(np, CLF_ROWS, CLF_SEQ,
+                              CLF_CONFIG["vocab_size"], seed=0)
+        tok_csv = os.path.join(home, "clf_rows.csv")
+        _write_csv(np, tok_csv, [f"t{i}" for i in range(CLF_SEQ)], cx, "%d")
+        _write_csv(np, os.path.join(home, "clf_labels.csv"), ["label"],
+                   cy[:, None], "%d")
+        for name in ("clf_rows", "clf_labels"):
+            post("/dataset/csv", {"datasetName": name, "datasetURI":
+                                  os.path.join(home, f"{name}.csv")})
+            _poll(base, f"/dataset/csv/{name}")
+        model("clf", "TextClassifier", dict(CLF_CONFIG, attention="flash"))
+        model("rsweep", "RandomSearch", {"estimator": "$clf", "param_grid":
+                                         CLF_SWEEP_GRID, "n_iter": 2})
+        _reset_launches(attn)
+        t0 = time.monotonic()
+        meta_rs = run("tune", "rsweep_t", "rsweep", "fit",
+                      {"x": "$clf_rows", "y": "$clf_labels", "epochs": 1,
+                       "batch_size": CLF_BATCH})
+        rsweep_s = time.monotonic() - t0
+        paths["neuralRandomSearch"] = _launches(attn)
+        rswept = ctx.artifacts.load("rsweep_t")
+        n_val = int(CLF_ROWS * 0.2)
+        trial_steps = -(-(CLF_ROWS - n_val) // CLF_BATCH)
+        eval_batches = -(-n_val // CLF_BATCH)
+        refit_steps = -(-CLF_ROWS // CLF_BATCH)
+        layers = CLF_CONFIG["n_layers"]
+        optimizer_steps = 2 * trial_steps + refit_steps
+        want_rs = dict(zero)
+        want_rs.update(dict.fromkeys(
+            ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"),
+            layers * optimizer_steps))
+        want_rs["flash_fwd_sm90"] = layers * (optimizer_steps +
+                                              2 * eval_batches)
+        if paths["neuralRandomSearch"] != want_rs or \
+                len(rswept.cv_results_["params"]) != 2:
+            raise AssertionError(f"the classifier sweep launched "
+                                 f"{paths['neuralRandomSearch']}, want "
+                                 f"{want_rs}; {rswept.cv_results_}")
+        out["tune"] = {
+            "gridSearch": {
+                "grid": SWEEP_GRID, "epochs": 1, "seconds": sweep_s,
+                "cvResults": swept.cv_results_,
+                "bestParams": swept.best_params_,
+                "bestScore": swept.best_score_,
+                "sweepFusion": meta_s["sweepFusion"],
+                "trialMemory": grid_mem, "leakedBytes": leaked,
+                "peakSpreadSameBatch": spread},
+            "randomSearch": {
+                "grid": CLF_SWEEP_GRID, "nIter": 2, "seconds": rsweep_s,
+                "cvResults": rswept.cv_results_,
+                "bestParams": rswept.best_params_,
+                "sweepFusion": meta_rs["sweepFusion"],
+                "launches": paths["neuralRandomSearch"],
+                "trialMemory": trial_mem[len(grid_mem):],
+                "launchFormula": f"bwd = {layers} layers x (2 trials x "
+                                 f"{trial_steps} + refit {refit_steps}) "
+                                 f"steps = {layers * optimizer_steps}; "
+                                 f"fwd = that + {layers} x 2 trials x "
+                                 f"{eval_batches} evaluate batches = "
+                                 f"{want_rs['flash_fwd_sm90']}"}}
+    finally:
+        sweep_lib.GridSearch._run_trial = real_trial
+        server.stop()
+        ctx.close()
+    del direct, swept, rswept
+    gc.collect()
+
+    # (c) workflow 3's LSTM, direct
+    ix, iy = _imdb_like(np, IMDB_ROWS, seed=0)
+    lstm = NeuralModel(TUTORIAL_LSTM, device="cuda")
+    lstm._build_params(lstm._coerce_x(ix[:1]))
+    last = (ix[-1024:], iy[-1024:])
+    before = lstm.evaluate(*last, batch_size=1024)["loss"]
+    _reset_launches(attn)
+    hist = lstm.fit(ix, iy, batch_size=IMDB_BATCH, epochs=1).history
+    paths["neuralLstm"] = _launches(attn)
+    after = lstm.evaluate(*last, batch_size=1024)["loss"]
+    if not (np.isfinite(hist["loss"][0]) and after < before and
+            paths["neuralLstm"] == zero):
+        raise AssertionError(f"the LSTM fit: the last rows' loss {before} "
+                             f"-> {after}, {hist}")
+    prof = _profile_fit(torch, lstm, ix, iy, IMDB_BATCH)
+    rnn_kernels = [k for k in prof.pop("kernelNames")
+                   if any(w in k for w in ("RNN", "LSTM", "GRU", "rnn"))]
+    small = (ix[:32], iy[:32])
+    f32 = {}
+    for name, body in (("gru", [TUTORIAL_LSTM[0],
+                                {"kind": "gru", "units": 128},
+                                TUTORIAL_LSTM[2]]),
+                       ("bidirectional_lstm", [
+                           TUTORIAL_LSTM[0],
+                           {"kind": "bidirectional_lstm", "units": 128},
+                           TUTORIAL_LSTM[2]])):
+        f32[name] = _f32_step_vs_cpu(torch, body, *small)
+    out["lstm"] = {
+        "rows": IMDB_ROWS, "seq": IMDB_SEQ, "batch": IMDB_BATCH,
+        "route": seq.rnn_route("lstm"), "routeKernels": rnn_kernels,
+        "history": hist, "lastRowsLossBeforeAfter": [before, after],
+        "samplesPerSec": hist["samplesPerSecond"][0],
+        "stepMs": hist["epochSeconds"][0] / -(-IMDB_ROWS // IMDB_BATCH)
+        * 1e3, "profile": prof, "f32StepVsCpu": f32}
+    if not rnn_kernels:
+        raise AssertionError("the LSTM's profile shows no RNN kernel")
+    del lstm, ix, iy
+    gc.collect()
+
+    # (d) ResNet-50
+    rng = np.random.default_rng(0)
+    images = RESNET_BATCH * RESNET_STEPS // 2
+    rx = rng.standard_normal((images, 224, 224, 3), dtype=np.float32)
+    ry = rng.integers(0, 1000, images).astype(np.int32)
+    net = NeuralModel([{"kind": "resnet50"},
+                       {"kind": "activation", "fn": "softmax"}],
+                      device="cuda")
+    net._build_params(rx[:1])
+    stats0 = {k: v.clone() for k, v in net.model_state.items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches(attn)
+    hist = net.fit(rx, ry, batch_size=RESNET_BATCH, epochs=2,
+                   shuffle=False).history
+    paths["neuralResnet"] = _launches(attn)
+    peak = torch.cuda.max_memory_allocated()
+    moved = sum(not torch.equal(v, stats0[k])
+                for k, v in net.model_state.items())
+    probs = net.predict(rx[:RESNET_BATCH], batch_size=RESNET_BATCH)
+    row_err = float(np.abs(probs.sum(axis=1) - 1.0).max())
+    if not (all(np.isfinite(hist["loss"])) and moved == len(stats0) and
+            probs.shape == (RESNET_BATCH, 1000) and row_err <= 1e-5 and
+            paths["neuralResnet"] == zero):
+        raise AssertionError(f"ResNet-50: {hist}, {moved} of {len(stats0)} "
+                             f"statistics moved, predict {probs.shape} "
+                             f"{row_err}")
+    step_ms = hist["epochSeconds"][-1] / (RESNET_STEPS // 2) * 1e3
+    out["resnet50"] = {
+        "batch": RESNET_BATCH, "steps": RESNET_STEPS, "params":
+        net.num_params(), "history": hist, "stepMsEpoch2": step_ms,
+        "imagesPerSecEpoch2": RESNET_BATCH / step_ms * 1e3,
+        "peakBytes": peak, "statsMoved": moved,
+        "predictRowSumMaxErr": row_err}
+    del net, rx
+    gc.collect()
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("neural " + json.dumps(out))
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -3119,6 +3641,23 @@ def main() -> int:
         return 1
 
     log: list = []
+    if "--only" in sys.argv:
+        # iteration aid: the build, then the named self-contained phases
+        # alone; no kernels line and no result line
+        phases = {"neural": neural_phase}
+        try:
+            for name in sys.argv[sys.argv.index("--only") + 1].split(","):
+                with tempfile.TemporaryDirectory() as home:
+                    launched = phases[name](torch, log, home, {})
+                print(f"{name} launches " + json.dumps(launched))
+        except BaseException:
+            for line in log:
+                print(line)
+            traceback.print_exc()
+            return 1
+        for line in log:
+            print(line)
+        return 0
     try:
         entries = kernel_phase(torch, log)
         entries.update(bwd_kernel_phase(torch, log))
@@ -3141,6 +3680,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as home:
             paths.update(serving_plane_phase(torch, log, home, yard))
         del yard
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(neural_phase(torch, log, home, {}))
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
         # the split-TF32 backward

@@ -3,12 +3,13 @@
 The layout of the JAX package's store (``<root>/<service>/<tool>/<name>``
 with a ``meta.json``) and its native protocol: an object with
 ``__lo_save__(dir)`` and a classmethod ``__lo_load__(dir, device)``. The
-port's ``LanguageModel`` and ``TextClassifier`` write what the JAX
-package's write: ``config.json`` and ``weights.msgpack``, the flax tree
-as ``flax.serialization`` packs it (through the port's own codec). So a
-native artifact of either package loads in the other: the JAX package's
-``learningorchestra_tpu.models.transformer`` ``LanguageModel`` and
-``TextClassifier`` map by name to the port's classes
+port's ``LanguageModel``, ``TextClassifier``, ``NeuralModel`` and
+sweeps write what the JAX package's write: ``config.json`` and
+``weights.msgpack``, the flax tree as ``flax.serialization`` packs it
+(through the port's own codec; a sweep nests its estimators' dirs). So
+a native artifact of either package loads in the other: the JAX
+package's ``LanguageModel``, ``TextClassifier``, ``NeuralModel``,
+``GridSearch`` and ``RandomSearch`` map by name to the port's classes
 (:data:`JAX_NATIVE_CLASSES`); any other JAX class raises "not yet
 ported".
 
@@ -43,6 +44,12 @@ JAX_NATIVE_CLASSES = {
         ("learningorchestra_tpu_torch.models.transformer", "LanguageModel"),
     ("learningorchestra_tpu.models.transformer", "TextClassifier"):
         ("learningorchestra_tpu_torch.models.encoder", "TextClassifier"),
+    ("learningorchestra_tpu.models.neural", "NeuralModel"):
+        ("learningorchestra_tpu_torch.models.neural", "NeuralModel"),
+    ("learningorchestra_tpu.models.sweep", "GridSearch"):
+        ("learningorchestra_tpu_torch.models.sweep", "GridSearch"),
+    ("learningorchestra_tpu.models.sweep", "RandomSearch"):
+        ("learningorchestra_tpu_torch.models.sweep", "RandomSearch"),
 }
 _JAX_PACKAGE = "learningorchestra_tpu"
 _NAME_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._ -]*$")

@@ -193,6 +193,8 @@ class TextClassifier:
     def _batcher(self, x, y=None, batch_size=None, shuffle=False):
         arrays = {"x": self._coerce(x)}
         if y is not None:
+            if hasattr(y, "to_numpy"):  # a catalog Table from the $ DSL
+                y = y.to_numpy()
             arrays["y"] = np.asarray(y).astype(np.int32).reshape(-1)
         return data_lib.ArrayBatcher(
             arrays, batch_size or Config().default_batch_size,

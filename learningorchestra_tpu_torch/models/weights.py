@@ -14,6 +14,13 @@ parameters ``moe/gate`` ``(d_model, n_experts)`` and
 ``layer_0.mlp.gate.weight`` a Dense kernel, so the two never meet. The
 fused projections ``attn/qkv_proj`` and ``mlp/gate_up`` are Dense
 kernels like the others.
+
+A ``NeuralModel``'s tree (``sequential=True``) maps by name alone: its
+module (:mod:`.sequential_module`) keeps flax's leaf names and layouts
+(Dense and conv kernels, the recurrent cells' gate kernels, batch
+norm's ``scale``/``bias``), so ``dense_0/kernel`` is ``dense_0.kernel``
+as it is. The ``batch_stats`` collection maps the same way onto the
+module's buffers (``batchnorm_1/mean`` is ``batchnorm_1.mean``).
 """
 
 from __future__ import annotations
@@ -55,10 +62,20 @@ def flax_path(key: str) -> Tuple[Tuple[str, ...], bool]:
     raise ValueError(f"unexpected parameter {key}")
 
 
-def params_from_flax(tree) -> Dict[str, torch.Tensor]:
+def _as_tensor(value) -> torch.Tensor:
+    return value if isinstance(value, torch.Tensor) else \
+        torch.from_numpy(np.array(value))
+
+
+def params_from_flax(tree, sequential: bool = False
+                     ) -> Dict[str, torch.Tensor]:
     """The port's ``state_dict`` for a flax ``LanguageModel.params`` (or
     ``TextClassifier.params``) tree given as nested dicts of numpy (or
-    array-like, or torch) values."""
+    array-like, or torch) values; with ``sequential`` a
+    ``NeuralModel``'s ``params`` or ``batch_stats`` tree, by name."""
+    if sequential:
+        return {".".join(path): _as_tensor(value).contiguous()
+                for path, value in _flatten(tree)}
     out: Dict[str, torch.Tensor] = {}
     for path, value in _flatten(tree):
         *mods, leaf = path
@@ -71,8 +88,7 @@ def params_from_flax(tree) -> Dict[str, torch.Tensor]:
         else:
             raise ValueError(f"parameter {'/'.join(path)} has no "
                              f"counterpart in the PyTorch package yet")
-        t = value if isinstance(value, torch.Tensor) else \
-            torch.from_numpy(np.array(value))
+        t = _as_tensor(value)
         if leaf == "kernel":
             if t.ndim != 2:
                 raise ValueError(f"{'/'.join(path)}: expected a 2-D kernel,"
@@ -87,14 +103,20 @@ def _host(tensor: torch.Tensor, transposed: bool) -> np.ndarray:
     return np.ascontiguousarray(arr.T) if transposed else arr
 
 
-def params_to_flax(state_dict, leaf: Optional[Callable] = None
-                   ) -> Dict[str, Any]:
+def sequential_path(key: str) -> Tuple[Tuple[str, ...], bool]:
+    """:func:`flax_path` of a ``NeuralModel`` module's key."""
+    return tuple(key.split(".")), False
+
+
+def params_to_flax(state_dict, leaf: Optional[Callable] = None,
+                   sequential: bool = False) -> Dict[str, Any]:
     """Inverse of :func:`params_from_flax`: nested dicts in the flax
     layout, of numpy arrays (or of ``leaf(tensor, transposed)``)."""
     leaf = leaf or _host
+    to_path = sequential_path if sequential else flax_path
     tree: Dict[str, Any] = {}
     for key, tensor in state_dict.items():
-        path, transposed = flax_path(key)
+        path, transposed = to_path(key)
         node = tree
         for mod in path[:-1]:
             node = node.setdefault(mod, {})

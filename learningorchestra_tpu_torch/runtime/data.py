@@ -21,13 +21,15 @@ class ArrayBatcher:
     """Batches a dict of host numpy arrays into fixed-shape minibatches.
 
     The final ragged batch is zero-padded; ``MASK_KEY`` carries 1.0 for
-    real samples and 0.0 for padding. With ``shuffle`` every epoch draws
-    its order from ``np.random.default_rng(seed + epoch)``, the order the
-    JAX package's per-step feed uses.
+    real samples (or their ``sample_weight``, keras's per-sample loss
+    and metric weights) and 0.0 for padding. With ``shuffle`` every
+    epoch draws its order from ``np.random.default_rng(seed + epoch)``,
+    the order the JAX package's per-step feed uses.
     """
 
     def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int, *,
-                 shuffle: bool = False, seed: int = 0):
+                 shuffle: bool = False, seed: int = 0,
+                 sample_weight: Optional[np.ndarray] = None):
         if not arrays:
             raise ValueError("empty feed")
         sizes = {k: len(v) for k, v in arrays.items()}
@@ -37,6 +39,15 @@ class ArrayBatcher:
             raise ValueError(f"batch_size must be >= 1, got {batch_size}")
         self._arrays = {k: np.asarray(v) for k, v in arrays.items()}
         self.num_samples = next(iter(sizes.values()))
+        self._sample_weight = None
+        if sample_weight is not None:
+            sample_weight = np.asarray(sample_weight,
+                                       np.float32).reshape(-1)
+            if len(sample_weight) != self.num_samples:
+                raise ValueError(
+                    f"sample_weight has {len(sample_weight)} entries "
+                    f"for {self.num_samples} samples")
+            self._sample_weight = sample_weight
         self.batch_size = int(batch_size)
         self._shuffle = shuffle
         self._seed = seed
@@ -62,9 +73,9 @@ class ArrayBatcher:
                     take = np.concatenate(
                         [take, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
                 batch[key] = take
-            mask = np.ones((bs,), np.float32)
-            if pad:
-                mask[-pad:] = 0.0
+            mask = np.zeros((bs,), np.float32)
+            mask[:len(idx)] = 1.0 if self._sample_weight is None \
+                else self._sample_weight[idx]
             batch[MASK_KEY] = mask
             yield batch
 

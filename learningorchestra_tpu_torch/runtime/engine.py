@@ -12,7 +12,13 @@ ends.
 The model supplies ``apply_fn(params, batch, train, rng) -> outputs``
 and ``loss_fn(outputs, batch, weights) -> loss`` (or ``(loss,
 {metric: (sum, count)})`` for metrics the loss already computed), as in
-the JAX package. ``rng`` is an integer seed for the step's random draws
+the JAX package. A ``stateful`` engine carries a mutable model state
+beside the params (batch norm's ``batch_stats``: a dict of float32
+tensors, never differentiated) and calls ``apply_fn(params,
+model_state, batch, train, rng) -> (outputs, new_model_state)``, as
+the JAX engine always does; a training step threads the state through
+its micro-batches and writes the last one into the train state in
+place. ``rng`` is an integer seed for the step's random draws
 (dropout), derived from the fit's seed, the step and the micro-batch.
 Only params with ``requires_grad`` get gradients (a LoRA fine-tune
 freezes its base weights).
@@ -24,7 +30,9 @@ from the checkpointer's ``progress.json`` when it describes the restored
 step, else from the step count), and saves the train state after every
 epoch. The saved form is ``{"step", "params", "opt_state"}`` with the
 params (and every per-param optimizer slot) in the model's layout
-(``param_layout``: the flax tree for the port's models). Because the
+(``param_layout``: the flax tree for the port's models); a stateful
+engine adds ``"model_state"`` as the JAX engine saves it (``{}``, or
+``{"batch_stats": ...}`` nested by the state's dotted names). Because the
 shuffle is ``default_rng(seed + epoch)``, dropout draws from ``(seed,
 step, micro)`` and the optimizer's count is saved, a resumed fit equals
 an uninterrupted one bit for bit.
@@ -53,6 +61,8 @@ class TrainState:
     # float32 master params, updated in place by the optimizer
     params: Params
     opt_state: Dict[str, Any]
+    # a stateful model's mutable state (batch statistics), float32
+    model_state: Params = dataclasses.field(default_factory=dict)
 
 
 def default_grad_accum() -> int:
@@ -98,9 +108,31 @@ def sparse_softmax_loss(outputs, batch, weights):
     return _weighted_mean(losses, weights)
 
 
-def accuracy_metric(outputs, batch, weights):
-    """(correct, count): argmax of a multi-class head, or a single
-    logit thresholded at 0, against ``batch["y"]``."""
+def sigmoid_binary_loss(outputs, batch, weights):
+    """optax's ``sigmoid_binary_cross_entropy`` of float32 logits (a
+    trailing unit axis dropped) against 0/1 labels, the weighted mean."""
+    labels = batch["y"].float()
+    logits = outputs.float()
+    if logits.ndim == labels.ndim + 1 and logits.shape[-1] == 1:
+        logits = logits[..., 0]
+    losses = torch.nn.functional.binary_cross_entropy_with_logits(
+        logits, labels, reduction="none")
+    return _weighted_mean(losses, weights)
+
+
+def mse_loss(outputs, batch, weights):
+    """Each sample's mean squared error, the weighted mean."""
+    preds = outputs.float()
+    y = batch["y"].float()
+    if preds.ndim == y.ndim + 1 and preds.shape[-1] == 1:
+        preds = preds[..., 0]
+    losses = torch.square(preds - y).reshape(preds.shape[0], -1).mean(-1)
+    return _weighted_mean(losses, weights)
+
+
+def _hard_predictions(outputs, batch):
+    """(pred, y) as float32 class ids: argmax of a multi-class head, a
+    single logit thresholded at 0."""
     logits = outputs.float()
     y = batch["y"]
     if logits.ndim >= 2 and logits.shape[-1] > 1:
@@ -109,12 +141,58 @@ def accuracy_metric(outputs, batch, weights):
         if logits.ndim == y.ndim + 1:
             logits = logits[..., 0]
         pred = (logits > 0).float()
-    correct = (pred == y.float()).float()
+    return pred, y.float()
+
+
+def accuracy_metric(outputs, batch, weights):
+    """(correct, count): argmax of a multi-class head, or a single
+    logit thresholded at 0, against ``batch["y"]``."""
+    pred, y = _hard_predictions(outputs, batch)
+    correct = (pred == y).float()
     if weights is None:
         return correct.sum(), torch.tensor(float(correct.numel()),
                                            device=correct.device)
     w = weights.float()
     return (correct * w).sum(), w.sum()
+
+
+def _require_binary_head(outputs, metric: str) -> None:
+    if outputs.ndim >= 2 and outputs.shape[-1] > 2:
+        raise ValueError(
+            f"metric {metric!r} is binary (positive = class 1); the "
+            f"model head has {outputs.shape[-1]} classes — use "
+            f"'accuracy' or a custom metric for multi-class")
+
+
+def precision_metric(outputs, batch, weights):
+    """(true positives, predicted positives), positive = class 1."""
+    _require_binary_head(outputs, "precision")
+    pred, y = _hard_predictions(outputs, batch)
+    w = torch.ones_like(pred) if weights is None else weights.float()
+    pred_pos = (pred == 1.0).float() * w
+    return (pred_pos * (y == 1.0).float()).sum(), pred_pos.sum()
+
+
+def recall_metric(outputs, batch, weights):
+    """(true positives, actual positives), positive = class 1."""
+    _require_binary_head(outputs, "recall")
+    pred, y = _hard_predictions(outputs, batch)
+    w = torch.ones_like(pred) if weights is None else weights.float()
+    actual_pos = (y == 1.0).float() * w
+    return (actual_pos * (pred == 1.0).float()).sum(), actual_pos.sum()
+
+
+def _nest(flat: Params, leaf: Callable) -> Dict[str, Any]:
+    """A dict keyed by dotted names as nested dicts of ``leaf(tensor,
+    False)``."""
+    tree: Dict[str, Any] = {}
+    for name, t in flat.items():
+        *mods, last = name.split(".")
+        node = tree
+        for mod in mods:
+            node = node.setdefault(mod, {})
+        node[last] = leaf(t, False)
+    return tree
 
 
 def _step_seed(seed: int, step: int, micro: int) -> int:
@@ -136,7 +214,8 @@ class Engine:
                  compute_dtype: torch.dtype = torch.bfloat16,
                  predict_transform: Optional[Callable] = None,
                  grad_accum: int = 1,
-                 param_layout: Optional[Tuple[Callable, Callable]] = None):
+                 param_layout: Optional[Tuple[Callable, Callable]] = None,
+                 stateful: bool = False):
         """``param_layout`` is ``(to_tree(params, leaf), path(name))``:
         the saved layout of a dict of params (``leaf(tensor,
         transposed)`` makes each value) and the saved path of one
@@ -150,10 +229,13 @@ class Engine:
         self._predict_transform = predict_transform
         self._grad_accum = max(1, int(grad_accum))
         self._layout = param_layout
+        self._stateful = stateful
 
-    def init_state(self, params: Params) -> TrainState:
+    def init_state(self, params: Params,
+                   model_state: Optional[Params] = None) -> TrainState:
         return TrainState(step=0, params=params,
-                          opt_state=self._optimizer.init(params))
+                          opt_state=self._optimizer.init(params),
+                          model_state=dict(model_state or {}))
 
     def _cast(self, params: Params) -> Params:
         """The compute-dtype copy of the master params. Autograd carries
@@ -168,15 +250,25 @@ class Engine:
                 for k, v in batch.items()}
 
     # ------------------------------------------------------------------
+    def _apply(self, params: Params, model_state: Optional[Params], batch,
+               train: bool, rng: Optional[int]):
+        """``(outputs, new_model_state)``."""
+        if self._stateful:
+            return self._apply_fn(params, model_state or {}, batch, train,
+                                  rng)
+        return self._apply_fn(params, batch, train, rng), model_state
+
     def _loss(self, params: Params, batch, train: bool,
-              rng: Optional[int]):
-        """``(loss, outputs, extra)``: a loss_fn may return ``(loss,
-        {metric: (sum, count)})`` to emit metrics it already computed
-        (the fused lm-head loss computes accuracy in its chunked pass)."""
-        outputs = self._apply_fn(params, batch, train, rng)
+              rng: Optional[int], model_state: Optional[Params] = None):
+        """``(loss, outputs, extra, new_model_state)``: a loss_fn may
+        return ``(loss, {metric: (sum, count)})`` to emit metrics it
+        already computed (the fused lm-head loss computes accuracy in
+        its chunked pass)."""
+        outputs, new_state = self._apply(params, model_state, batch, train,
+                                         rng)
         res = self._loss_fn(outputs, batch, batch.get(MASK_KEY))
         loss, extra = res if isinstance(res, tuple) else (res, {})
-        return loss.float(), outputs, extra
+        return loss.float(), outputs, extra, new_state
 
     @torch.no_grad()
     def _metric_sums(self, loss, outputs, extra, batch) -> Metrics:
@@ -190,24 +282,39 @@ class Engine:
                 metrics[name] = fn(outputs, batch, weights)
         return metrics
 
-    def _micro_grads(self, params: Params, batch, rng: int,
-                     ) -> Tuple[Params, Metrics]:
-        """Gradients and metric sums for one (micro)batch."""
+    def _micro_step(self, params: Params, model_state: Params, batch,
+                    rng: int) -> Tuple[Params, Params, Metrics]:
+        """Gradients, the new model state and metric sums for one
+        (micro)batch."""
         names = [k for k, p in params.items() if p.requires_grad]
         with torch.enable_grad():
-            loss, outputs, extra = self._loss(self._cast(params), batch,
-                                              True, rng)
+            loss, outputs, extra, new_state = self._loss(
+                self._cast(params), batch, True, rng, model_state)
             grads = torch.autograd.grad(loss, [params[k] for k in names])
-        return (dict(zip(names, grads)),
+        return (dict(zip(names, grads)), new_state,
                 self._metric_sums(loss, outputs, extra, batch))
+
+    def _micro_grads(self, params: Params, batch, rng: int,
+                     ) -> Tuple[Params, Metrics]:
+        """Gradients and metric sums for one (micro)batch of a stateless
+        model."""
+        grads, _, metrics = self._micro_step(params, {}, batch, rng)
+        return grads, metrics
 
     def _accum_grads(self, params: Params, batch, seed: int, step: int,
                      ) -> Tuple[Params, Metrics]:
+        """:meth:`_accum_step` of a stateless model."""
+        grads, _, metrics = self._accum_step(params, {}, batch, seed, step)
+        return grads, metrics
+
+    def _accum_step(self, params: Params, model_state: Params, batch,
+                    seed: int, step: int) -> Tuple[Params, Params, Metrics]:
         """Sequential micro-batch gradient accumulation: each micro
         gradient is the gradient of that micro's weighted-mean loss, so
         it is weighted by the micro's weight total and the sum
         normalized by the grand total — the single-batch step for any
-        mask (a micro of padding only adds nothing)."""
+        mask (a micro of padding only adds nothing). The model state
+        passes from each micro to the next."""
         accum = self._grad_accum
         b = batch["x"].shape[0]
         if b % accum:
@@ -218,8 +325,8 @@ class Engine:
         sums: Metrics = {}
         for i in range(accum):
             micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-            grads, metrics = self._micro_grads(params, micro,
-                                               _step_seed(seed, step, i))
+            grads, model_state, metrics = self._micro_step(
+                params, model_state, micro, _step_seed(seed, step, i))
             w = metrics["loss"][1].float()
             for k, g in grads.items():
                 g = g.float() * w
@@ -229,18 +336,22 @@ class Engine:
                     s, c = sums[k][0] + s, sums[k][1] + c
                 sums[k] = (s, c)
         w_total = sums["loss"][1].float().clamp_min(1e-9)
-        return {k: g / w_total for k, g in g_sum.items()}, sums
+        return {k: g / w_total for k, g in g_sum.items()}, model_state, sums
 
     def _train_step_body(self, state: TrainState, batch,
                          seed: int) -> Metrics:
         """One optimizer step on ``batch``; ``state`` changes in place."""
         if self._grad_accum > 1:
-            grads, metrics = self._accum_grads(state.params, batch, seed,
-                                               state.step)
+            grads, new_state, metrics = self._accum_step(
+                state.params, state.model_state, batch, seed, state.step)
         else:
-            grads, metrics = self._micro_grads(
-                state.params, batch, _step_seed(seed, state.step, 0))
+            grads, new_state, metrics = self._micro_step(
+                state.params, state.model_state, batch,
+                _step_seed(seed, state.step, 0))
         self._optimizer.update(state.params, grads, state.opt_state)
+        with torch.no_grad():
+            for k, v in (new_state or {}).items():
+                state.model_state[k].copy_(v)
         state.step += 1
         return metrics
 
@@ -261,9 +372,12 @@ class Engine:
                 opt[key] = self._tree(value, leaf)
             else:
                 opt[key] = np.int64(value)
-        return {"step": np.int64(state.step),
-                "params": self._tree(state.params, leaf),
-                "opt_state": opt}
+        saved = {"step": np.int64(state.step),
+                 "params": self._tree(state.params, leaf),
+                 "opt_state": opt}
+        if self._stateful:
+            saved["model_state"] = _nest(state.model_state, leaf)
+        return saved
 
     def _save_checkpoint(self, checkpointer, state: TrainState,
                          epoch: int) -> None:
@@ -299,6 +413,13 @@ class Engine:
                     t.copy_(src)
 
         fill(state.params, raw["params"])
+        if self._stateful:
+            for name, t in state.model_state.items():
+                node = raw["model_state"]
+                for part in name.split("."):
+                    node = node[part]
+                with torch.no_grad():
+                    t.copy_(torch.as_tensor(np.array(node)))
         for key, value in state.opt_state.items():
             if isinstance(value, dict):
                 fill(value, raw["opt_state"][key])
@@ -378,15 +499,16 @@ class Engine:
         return state, history
 
     @torch.inference_mode()
-    def evaluate(self, params: Params,
-                 batcher: ArrayBatcher) -> Dict[str, float]:
+    def evaluate(self, params: Params, batcher: ArrayBatcher,
+                 model_state: Optional[Params] = None) -> Dict[str, float]:
         device = next(iter(params.values())).device
         cast = self._cast(params)
         sums: Dict[str, Any] = {}
         counts: Dict[str, Any] = {}
         for batch in batcher.epoch(0):
             batch = self._to_device(batch, device)
-            loss, outputs, extra = self._loss(cast, batch, False, None)
+            loss, outputs, extra, _ = self._loss(cast, batch, False, None,
+                                                 model_state)
             metrics = self._metric_sums(loss, outputs, extra, batch)
             for k, (s, c) in metrics.items():
                 sums[k] = sums.get(k, 0) + s
@@ -395,15 +517,17 @@ class Engine:
                 for k in sums}
 
     @torch.inference_mode()
-    def predict(self, params: Params, batcher: ArrayBatcher) -> np.ndarray:
+    def predict(self, params: Params, batcher: ArrayBatcher,
+                model_state: Optional[Params] = None) -> np.ndarray:
         """Outputs for every sample, float32 on the host (padding
         dropped)."""
         device = next(iter(params.values())).device
         cast = self._cast(params)
         outs = []
         for batch in batcher.epoch(0):
-            outputs = self._apply_fn(cast, self._to_device(batch, device),
-                                     False, None)
+            outputs, _ = self._apply(cast, model_state,
+                                     self._to_device(batch, device), False,
+                                     None)
             if self._predict_transform is not None:
                 outputs = self._predict_transform(outputs)
             outs.append(to_host(outputs.float()))

@@ -20,7 +20,10 @@ resumes from its newest verified step, and DELETE removes the directory.
 The commits' seconds go to the metadata as ``checkpointCommitSeconds``
 (their sum, the JAX package's key) and ``checkpointCommits`` (each
 commit's step, seconds and bytes), a resume's as ``checkpointRestores``
-(step and seconds).
+(step and seconds). A tune of a ``GridSearch``/``RandomSearch`` records
+``sweepFusion`` (the sweep's ``fusion_info_``) and, where points
+failed, ``trialErrors`` on its metadata; ``"checkpoint": true`` is
+ignored there, as in the JAX package.
 
 Refused with 406 before any document exists, because the port does not
 run them yet: ``#`` expressions and the body fields ``timeout``,
@@ -175,6 +178,7 @@ class ExecutionService:
             if type_string.startswith(_INSTANCE_RESULT_PREFIXES):
                 result = instance  # the fitted object is the artifact
             self._ctx.artifacts.save(result, name, type_string)
+            _record_sweep_fusion(self._ctx, name, result)
             summary = summarize_result(result)
             if summary is not None:
                 self._ctx.catalog.append_document(name, {"result": summary})
@@ -182,6 +186,20 @@ class ExecutionService:
 
         self._ctx.jobs.submit(name, run, description=description,
                               parameters=method_parameters, needs_card=True)
+
+
+def _record_sweep_fusion(ctx, name: str, result: Any) -> None:
+    """A finished sweep's ``fusion_info_`` as ``sweepFusion`` and its
+    failed points' errors as ``trialErrors`` on the job's metadata."""
+    updates: Dict[str, Any] = {}
+    info = getattr(result, "fusion_info_", None)
+    if info:
+        updates["sweepFusion"] = dict(info)
+    errors = (getattr(result, "cv_results_", None) or {}).get("error")
+    if errors:
+        updates["trialErrors"] = [e for e in errors if e]
+    if updates:
+        ctx.catalog.update_metadata(name, updates)
 
 
 def checkpoint_dir_for(ctx, name: str) -> str:

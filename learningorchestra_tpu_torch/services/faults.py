@@ -14,12 +14,16 @@ comma-separated:
 - ``"kv_page_handoff:1"`` — the next publish of a disaggregated
   session's prefill record raises: a 429 with every page reference
   restored; three in a row collapse the session to fused serving;
+- ``"sweep_trial:1"`` — the next trial of a ``GridSearch`` or
+  ``RandomSearch`` raises at its start: the sweep records the point's
+  error and goes on (``trialErrors`` in the tune's metadata);
 - ``"kv_page_alloc:3:latency:0.5"`` — three allocations sleep 0.5 s
   (default 0.1) and then proceed.
 
 The port fires ``kv_page_alloc`` (inside :meth:`PagedKVPool.alloc`),
-``kv_quant`` (at admission into an int8-paged session) and
-``kv_page_handoff`` (at the publish of a handoff record). The other sites
+``kv_quant`` (at admission into an int8-paged session),
+``kv_page_handoff`` (at the publish of a handoff record) and
+``sweep_trial`` (at the start of each sweep trial). The other sites
 of the JAX package, and its ``hang``, ``nan`` and ``corrupt`` modes, are
 not ported yet: a spec that names them parses and never fires.
 """

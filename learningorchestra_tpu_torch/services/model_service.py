@@ -9,8 +9,10 @@ instance on the context's device (``device=ctx.device`` for a class
 that takes a device, as the port's models do and the JAX ones do not).
 ``PATCH`` rebuilds it with new ``classParameters``. Constructor options
 the JAX models take and the port does not run yet (ring and Ulysses
-attention) answer 406 "not yet ported" before any document exists. The JAX package's preflight
-analysis is not ported, so the metadata carries no ``analysis`` field.
+attention) answer 406 "not yet ported" before any document exists, as
+does an unknown ``scoring`` of a ``GridSearch``/``RandomSearch`` (in
+the JAX package's words). The JAX package's preflight analysis is not
+ported, so the metadata carries no ``analysis`` field.
 """
 
 from __future__ import annotations
@@ -36,6 +38,14 @@ _UNPORTED_OPTIONS = {
         ("attention", lambda v: v in ("ring", "ulysses"),
          "ring and Ulysses attention"),),
 }
+
+
+def _valid_sweep_scoring(cls, class_parameters: Dict[str, Any]) -> None:
+    """Submit-time 406 for an unknown sweep ``scoring`` metric."""
+    from learningorchestra_tpu_torch.models.sweep import GridSearch
+
+    if isinstance(cls, type) and issubclass(cls, GridSearch):
+        V.valid_scoring(class_parameters.get(V.SCORING_FIELD))
 
 
 def _refuse_unported_options(cls, parameters: Dict[str, Any]) -> None:
@@ -66,6 +76,7 @@ class ModelService:
         self._validator.not_duplicate(name)
         cls = self._validator.valid_class(module_path, class_name)
         self._validator.valid_class_parameters(cls, class_parameters)
+        _valid_sweep_scoring(cls, class_parameters)
         refuse_hash_expressions(class_parameters)
         _refuse_unported_options(cls, class_parameters)
         type_string = D.normalize_type(f"model/{tool}")
@@ -88,6 +99,7 @@ class ModelService:
         cls = self._validator.valid_class(
             meta[D.MODULE_PATH_FIELD], meta[D.CLASS_FIELD])
         self._validator.valid_class_parameters(cls, class_parameters)
+        _valid_sweep_scoring(cls, class_parameters)
         refuse_hash_expressions(class_parameters)
         _refuse_unported_options(cls, class_parameters)
         self._ctx.catalog.update_metadata(

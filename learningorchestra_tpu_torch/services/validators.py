@@ -178,14 +178,35 @@ PORT_MODULES = {
 }
 # keyword arguments the services supply themselves, never the request
 _SERVICE_KWARGS = ("device",)
-# classes of learningorchestra_tpu.models and public methods of its
-# models that the port does not have yet: a static copy, since the port
-# never imports the JAX package
-JAX_ONLY_CLASSES = ("NeuralModel", "GridSearch", "RandomSearch")
+# public methods of learningorchestra_tpu.models classes that the port
+# does not have yet: a static copy, since the port never imports the JAX
+# package
 JAX_ONLY_METHODS = {
     "LanguageModel": ("set_mesh",),
     "TextClassifier": ("set_mesh",),
+    "NeuralModel": ("set_mesh", "from_keras", "from_savedmodel",
+                    "from_legacy_h5", "to_keras", "save_keras",
+                    "fit_sweep_fused", "supports_sweep_fusion"),
 }
+
+SCORING_FIELD = "scoring"
+
+
+def valid_scoring(value: Any) -> Optional[str]:
+    """A sweep's ``scoring`` class parameter (GridSearch/RandomSearch):
+    ``"auto"``, ``"loss"`` or a metric name ``evaluate`` can report,
+    checked at submit rather than after every trial trained."""
+    if value is None:
+        return None
+    from learningorchestra_tpu_torch.models import neural as neural_lib
+
+    allowed = sorted({"auto", "loss"} | set(neural_lib._METRICS))
+    if not isinstance(value, str) or value not in allowed:
+        raise HttpError(
+            HTTP_NOT_ACCEPTABLE,
+            f"{MESSAGE_INVALID_FIELD}: scoring must be one of "
+            f"{allowed}, got {value!r}")
+    return value
 
 
 def resolve_module(module_path: str):
@@ -255,10 +276,6 @@ class RequestValidator:
     def valid_class(self, module_path: str, class_name: str):
         module = self.valid_module(module_path)
         cls = getattr(module, class_name, None)
-        if cls is None and class_name in JAX_ONLY_CLASSES:
-            raise HttpError(HTTP_NOT_ACCEPTABLE,
-                            f"{MESSAGE_INVALID_CLASS}: {class_name} "
-                            f"{NOT_PORTED}")
         if cls is None:
             raise HttpError(HTTP_NOT_ACCEPTABLE,
                             f"{MESSAGE_INVALID_CLASS}: {class_name}")

@@ -167,10 +167,10 @@ def test_unported_jax_classes_and_options_raise(tmp_path):
     d.mkdir(parents=True)
     (d / "meta.json").write_text(json.dumps({
         "name": "nm", "type": "model/tensorflow", "kind": "native",
-        "module": "learningorchestra_tpu.models.neural",
-        "class": "NeuralModel"}))
-    with pytest.raises(ValueError, match="NeuralModel of the JAX package is "
-                                         "not yet ported"):
+        "module": "learningorchestra_tpu.models.estimators",
+        "class": "LogisticRegressionJAX"}))
+    with pytest.raises(ValueError, match="LogisticRegressionJAX of the JAX "
+                                         "package is not yet ported"):
         store.load("nm")
     # a JAX LanguageModel whose config the port does not run
     ring = jax_tlm.LanguageModel(**dict(LM, attention="ring"))

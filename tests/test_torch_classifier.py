@@ -227,3 +227,20 @@ def test_tutorial_classifier_is_created_over_rest_as_jax(tmp_path):
     assert seen[1][0] == (201, {"result": PREFIX + "/model/tensorflow/clf"})
     assert isinstance(stored, TextClassifier)
     assert {k: getattr(stored, k) for k in TUTORIAL} == TUTORIAL
+
+
+def test_fit_takes_catalog_tables(float32):
+    """``$rows`` and ``$labels`` resolve to catalog ``Table``s over REST
+    (a tune's refit passes them as they are): the fit equals the one on
+    arrays."""
+    from learningorchestra_tpu_torch.catalog.store import Table
+
+    x, y = _rows(16, seed=4)
+    rows = Table({f"t{i}": x[:, i] for i in range(x.shape[1])}, len(x))
+    labels = Table({"label": y.astype(np.int64)}, len(y))
+    hists = []
+    for xs, ys in ((x, y), (rows, labels)):
+        _, clf, _ = _pair("dot")
+        hists.append(clf.fit(xs, ys, batch_size=8, epochs=1,
+                             shuffle=False).history["loss"])
+    assert hists[0] == hists[1]

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: importing every module of
 ``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer, the
-encoder, the fault injector and the mixture of experts among them) loads
+encoder, the fault injector, the mixture of experts, the keras-shaped
+layers and the sweeps among them) loads
 neither JAX, flax nor any module of the JAX package, nor pandas,
 pyarrow, dill or msgpack (the card's machine has none of them), and
 ``chip_smoke.py`` refuses to run without a card."""
@@ -53,8 +54,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 def test_new_modules_are_among_those_probed():
     """The msgpack codec, the checkpointer, the encoder, the fault
-    injector and the mixture of experts are imported by the probe above
-    (none of them may import msgpack, flax or the JAX package's copy of
+    injector, the mixture of experts, the keras-shaped layer stack,
+    ResNet-50 and the sweeps are imported by the probe above (none of
+    them may import msgpack, flax or the JAX package's copy of
     itself)."""
     names = {m.name for m in pkgutil.walk_packages(
         learningorchestra_tpu_torch.__path__,
@@ -64,7 +66,11 @@ def test_new_modules_are_among_those_probed():
             "learningorchestra_tpu_torch.models.encoder",
             "learningorchestra_tpu_torch.services.faults",
             "learningorchestra_tpu_torch.parallel",
-            "learningorchestra_tpu_torch.parallel.moe"} <= names
+            "learningorchestra_tpu_torch.parallel.moe",
+            "learningorchestra_tpu_torch.models.neural",
+            "learningorchestra_tpu_torch.models.sequential_module",
+            "learningorchestra_tpu_torch.models.resnet",
+            "learningorchestra_tpu_torch.models.sweep"} <= names
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -177,6 +177,10 @@ BAD_REQUESTS = {
         "datasetName": "d2", "datasetURI": "x.csv"}),
     "unknown service": ("GET", "/nosuch/tool", None),
     "unsupported verb": ("PUT", "/model/tensorflow", {}),
+    "unknown sweep scoring": ("POST", "/model/tensorflow", _model(
+        **{"class": "GridSearch"}, classParameters={
+            "estimator": "$lm", "param_grid": {"learning_rate": [1e-3]},
+            "scoring": "f1"})),
 }
 
 
@@ -214,12 +218,6 @@ def test_failed_job_is_recorded_as_jax(both):
 # what is not ported yet
 # ----------------------------------------------------------------------
 NOT_PORTED = {
-    "NeuralModel": ("POST", "/model/tensorflow", _model(
-        **{"class": "NeuralModel"}, classParameters={})),
-    "GridSearch": ("POST", "/model/tensorflow", _model(
-        **{"class": "GridSearch"}, classParameters={})),
-    "RandomSearch": ("POST", "/model/tensorflow", _model(
-        **{"class": "RandomSearch"}, classParameters={})),
     "a JAX method": ("POST", "/train/tensorflow", _run(
         method="set_mesh")),
     "timeout": ("POST", "/train/tensorflow", _run(timeout=5)),
@@ -260,6 +258,67 @@ def test_unported_requests_are_refused_at_submit(both, case):
     for name in ("lm2", "r", "d2"):
         assert _call(port, "GET", f"/train/tensorflow/{name}")[0] == 404
     assert port.ctx.catalog.get_metadata("lm")["finished"]
+
+
+# NeuralModel methods of the JAX package the port lacks (mesh placement,
+# the keras import and export, sweep fusion)
+NEURAL_JAX_ONLY = ("set_mesh", "from_keras", "from_savedmodel",
+                   "from_legacy_h5", "to_keras", "save_keras",
+                   "fit_sweep_fused", "supports_sweep_fusion")
+
+
+@pytest.fixture(scope="module")
+def port_neural(both):
+    """The port's Api with a finished NeuralModel ``nm_root``."""
+    port = both[1]
+    assert _call(port, "POST", "/model/tensorflow", {
+        "modelName": "nm_root", "modulePath": "learningorchestra_tpu.models",
+        "class": "NeuralModel", "classParameters": {
+            "layer_configs": [{"kind": "dense", "units": 2}]}})[0] == 201
+    _wait(port, "/model/tensorflow/nm_root")
+    return port
+
+
+@pytest.mark.parametrize("method", NEURAL_JAX_ONLY)
+def test_neural_methods_the_port_lacks_are_refused(port_neural, method):
+    status, answer = _call(port_neural, "POST", "/train/tensorflow",
+                           _run(name="nm_r", model="nm_root", method=method))
+    assert status == 406
+    assert answer["result"] == (f"invalid method name: {method} is not yet "
+                                f"ported to the PyTorch package")
+    assert _call(port_neural, "GET", "/train/tensorflow/nm_r")[0] == 404
+
+
+# the classes the port refused before it had NeuralModel and the sweeps:
+# the bodies NOT_PORTED held answer as in the JAX package (201, then a
+# job that fails on the missing constructor arguments)
+PORTED_CLASSES = {
+    "NeuralModel": _model(modelName="nm", **{"class": "NeuralModel"},
+                          classParameters={}),
+    "GridSearch": _model(modelName="gs", **{"class": "GridSearch"},
+                         classParameters={}),
+    "RandomSearch": _model(modelName="rs", **{"class": "RandomSearch"},
+                           classParameters={}),
+}
+
+
+@pytest.mark.parametrize("case", list(PORTED_CLASSES))
+def test_ported_classes_answer_as_jax(both, case):
+    body = PORTED_CLASSES[case]
+    name = body["modelName"]
+    seen = []
+    for api in both:
+        answer = _call(api, "POST", "/model/tensorflow", body)
+        api.ctx.jobs.wait(name, timeout=60)
+        status, doc = _call(api, "GET", f"/model/tensorflow/{name}")
+        assert status == 200
+        seen.append((answer, doc["metadata"]["finished"],
+                     doc["metadata"].get("status"),
+                     doc["result"][-1].get("exception")))
+    assert seen[1] == seen[0]
+    assert seen[0][0] == (201, {"result": PREFIX +
+                                f"/model/tensorflow/{name}"})
+    assert "missing" in seen[0][3]
 
 
 # the LM options ported since: each answers as in the JAX package
@@ -441,6 +500,159 @@ def test_rest_fit_of_a_jax_tree_matches_jax(tmp_path, corpus, float32):
             jax.tree_util.tree_leaves(jlm.params)):
         np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=1e-6,
                                    rtol=0)
+
+
+# the tutorial's MNIST CNN (docs/TUTORIAL.md workflow 2)
+TUTORIAL_CNN = [
+    {"kind": "reshape", "shape": [28, 28, 1]},
+    {"kind": "conv2d", "filters": 32, "kernel": [3, 3],
+     "activation": "relu"},
+    {"kind": "maxpool2d"},
+    {"kind": "flatten"},
+    {"kind": "dense", "units": 128, "activation": "relu"},
+    {"kind": "dense", "units": 10, "activation": "softmax"}]
+
+
+def _write_table(path, header, rows) -> str:
+    with open(path, "w") as f:
+        f.write(",".join(header) + "\n")
+        for row in rows:
+            f.write(",".join(f"{v:.4f}" if isinstance(v, float) else str(v)
+                             for v in row) + "\n")
+    return str(path)
+
+
+def test_tutorial_cnn_workflow_answers_as_jax(tmp_path, monkeypatch):
+    """Workflow 2 through both packages' ``Api``: pixels and labels as
+    two CSVs, ``POST /model`` of the tutorial's CNN, ``/train`` ``fit``
+    on ``$`` references with ``"checkpoint": true``, ``/evaluate``,
+    ``/predict``, then a ``GridSearch`` and a ``RandomSearch`` over
+    ``$cnn`` through ``/model`` and ``/tune``. Every POST answers alike; with the stored models
+    holding one JAX tree (and the port's trials drawing JAX's init),
+    epoch losses, evaluate, predict and the sweep's scores agree within
+    1e-5 (float32; the JAX sweep unfused)."""
+    from learningorchestra_tpu.models.neural import NeuralModel as JaxNM
+    from learningorchestra_tpu.services.server import Api as JaxApi
+    from learningorchestra_tpu_torch.models import NeuralModel
+
+    monkeypatch.setenv("LO_COMPUTE_DTYPE", "float32")
+    monkeypatch.setenv("LO_SWEEP_FUSION", "0")
+    monkeypatch.setattr(jax_native, "available", lambda: False)
+    rng = np.random.default_rng(0)
+    x = rng.random((48, 784)).astype(np.float32)
+    y = rng.integers(0, 10, 48)
+    pixels = _write_table(tmp_path / "pixels.csv",
+                          [f"p{i}" for i in range(784)],
+                          [[float(v) for v in row] for row in x])
+    labels = _write_table(tmp_path / "labels.csv", ["label"],
+                          [[int(v)] for v in y])
+    jm = JaxNM(TUTORIAL_CNN)
+    jm._build_params(np.zeros((1, 784), np.float32))
+    tree = jax.tree_util.tree_map(np.asarray, jm.params)
+
+    def jax_built(self, sample_x):
+        self.set_params(weights.params_from_flax(tree, sequential=True),
+                        input_shape=[784])
+
+    monkeypatch.setattr(NeuralModel, "_build_params", jax_built)
+    jax_config.set_config(jax_config.Config(home=str(tmp_path / "jax")))
+    apis = (JaxApi(), _port_api(tmp_path))
+    fit = {"x": "$pixels", "y": "$labels", "epochs": 2, "batch_size": 16,
+           "shuffle": False, "checkpoint": True}
+    steps = (
+        ("/model/tensorflow", {"modelName": "cnn", "modulePath":
+                               "learningorchestra_tpu.models",
+                               "class": "NeuralModel", "classParameters":
+                               {"layer_configs": TUTORIAL_CNN}}),
+        ("/train/tensorflow", _run(name="cnn_t", model="cnn", params=fit)),
+        ("/evaluate/tensorflow", _run(
+            name="cnn_e", model="cnn_t", method="evaluate",
+            params={"x": "$pixels", "y": "$labels", "batch_size": 16})),
+        ("/predict/tensorflow", _run(
+            name="cnn_p", model="cnn_t", method="predict",
+            params={"x": "$pixels", "batch_size": 16})),
+        ("/model/tensorflow", {"modelName": "sweep", "modulePath":
+                               "learningorchestra_tpu.models",
+                               "class": "GridSearch", "classParameters": {
+                                   "estimator": "$cnn", "param_grid": {
+                                       "learning_rate": [1e-3, 1e-2]}}}),
+        ("/tune/tensorflow", _run(
+            name="sweep_t", model="sweep",
+            params={"x": "$pixels", "y": "$labels", "epochs": 1,
+                    "batch_size": 16, "shuffle": False,
+                    "checkpoint": True})),
+        ("/model/tensorflow", {"modelName": "rsweep", "modulePath":
+                               "learningorchestra_tpu.models",
+                               "class": "RandomSearch", "classParameters": {
+                                   "estimator": "$cnn", "n_iter": 1,
+                                   "param_grid": {"batch_size": [8, 16]},
+                                   "refit": False}}),
+        ("/tune/tensorflow", _run(
+            name="rsweep_t", model="rsweep",
+            params={"x": "$pixels", "y": "$labels", "epochs": 1,
+                    "shuffle": False})))
+    seen = []
+    try:
+        for api in apis:
+            for name, path in (("pixels", pixels), ("labels", labels)):
+                assert _call(api, "POST", "/dataset/csv", {
+                    "datasetName": name, "datasetURI": path})[0] == 201
+                api.ctx.jobs.wait(name, timeout=300)
+            docs = {}
+            for path, body in steps:
+                answer = _call(api, "POST", path, body)
+                name = body.get("name", body.get("modelName"))
+                docs[name] = _wait(api, f"{path}/{name}")
+                docs[name + "_answer"] = answer
+                if name == "cnn":  # the JAX tree in both stores
+                    model = jm if api is apis[0] else NeuralModel(
+                        TUTORIAL_CNN, device="cpu")
+                    if model is not jm:
+                        jax_built(model, None)
+                    api.ctx.artifacts.save(model, "cnn", "model/tensorflow")
+            docs["sweep_art"] = api.ctx.artifacts.load("sweep_t")
+            docs["rsweep_art"] = api.ctx.artifacts.load("rsweep_t")
+            seen.append(docs)
+    finally:
+        for api in apis:
+            api.ctx.close()
+        jax_config.reset_config()
+    want, got = seen
+    for _, body in steps:
+        name = body.get("name", body.get("modelName"))
+        assert got[name + "_answer"] == want[name + "_answer"]
+        assert got[name]["metadata"]["finished"]
+    records = [[d["epochRecord"] for d in docs["cnn_t"]["result"]
+                if "epochRecord" in d] for docs in (got, want)]
+    for key in ("loss", "accuracy"):
+        np.testing.assert_allclose([r[key] for r in records[0]],
+                                   [r[key] for r in records[1]], rtol=1e-5,
+                                   atol=1e-5)
+    assert records[0][1]["loss"] < records[0][0]["loss"]
+    assert len(got["cnn_t"]["metadata"]["checkpointCommits"]) == 2
+    ev = [[d["result"] for d in docs["cnn_e"]["result"] if "result" in d][0]
+          for docs in (got, want)]
+    assert sorted(ev[0]) == sorted(ev[1])
+    for k in ev[1]:
+        np.testing.assert_allclose(ev[0][k], ev[1][k], rtol=1e-5, atol=1e-5)
+    preds = [np.asarray([d["result"] for d in docs["cnn_p"]["result"]
+                         if "result" in d][0]) for docs in (got, want)]
+    assert preds[0].shape == (48, 10)
+    np.testing.assert_allclose(preds[0], preds[1], atol=1e-5)
+    assert got["sweep_t"]["metadata"]["sweepFusion"] == \
+        want["sweep_t"]["metadata"]["sweepFusion"]
+    gs, ws = got["sweep_art"], want["sweep_art"]
+    assert gs.cv_results_["params"] == ws.cv_results_["params"]
+    assert gs.best_params_ == ws.best_params_
+    np.testing.assert_allclose(gs.cv_results_["mean_test_score"],
+                               ws.cv_results_["mean_test_score"], atol=1e-5)
+    assert gs.best_estimator_.num_params() == \
+        ws.best_estimator_.num_params()
+    gs, ws = got["rsweep_art"], want["rsweep_art"]
+    assert gs.cv_results_["params"] == ws.cv_results_["params"]
+    np.testing.assert_allclose(gs.cv_results_["mean_test_score"],
+                               ws.cv_results_["mean_test_score"], atol=1e-5)
+    assert gs.best_estimator_ is None is ws.best_estimator_
 
 
 _BLOCKED = """
