@@ -171,11 +171,41 @@
    (flash, bf16) on 1024 rows of 512 tokens: each sm90 kernel launched
    exactly 4 layers x the optimizer steps of the trials and the refit,
    the forward once more a layer for each evaluate batch, nothing else.
+10. The function route (the ``function`` line, last): the port's REST
+   server on the card driven over HTTP by the port's own
+   ``client.Context``, user code in the default ``subprocess`` sandbox.
+   A probe function reports what the jailed child can import (pandas,
+   sklearn) and that it sees no card (``torch.cuda.is_available()``
+   false). (a) Workflow 2 as written: a 1024-row, 785-column
+   MNIST-shaped CSV through ``dataset_csv.insert``, the tutorial's
+   ``mnist_arrays`` body (a numpy body over the ``Table`` where the child
+   has no pandas; the line says which ran), whose arrays must equal the
+   CSV's pixels / 255 exactly, then the CNN's ``/model``, ``/train``
+   (4 epochs, batch 256, ``"checkpoint": true``) and ``/evaluate``: the
+   epoch losses within 1e-5 relative of a direct ``NeuralModel.fit`` on
+   the function's arrays (bit equality recorded). (c) The jail: an
+   ``open('/etc/passwd')`` body is a 406 at submit with its findings and
+   leaves no collection; a dunder smuggled by a name built at run time
+   fails its job with the sandbox's ``AttributeError``. (b) Workflow 3
+   after (c): an ``imdb_tokens`` step writes 1024 rows of 200 ids below
+   20000 for the tutorial's LSTM (3 epochs, batch 128: finite losses),
+   then, PATCHed, 512 ids for the tutorial's ``TextClassifier`` (flash,
+   bf16), fitted over REST with ``"batch_size": "#2 ** 7"`` for 1 epoch
+   and evaluated at batch 128: exactly 4 layers x 8 steps of dq and dK/dV
+   and 4 x (8 + 8) of the forward, all sm90, nothing else; the epoch loss
+   within 1e-5 relative of a direct fit's, the evaluate loss below the
+   untrained model's. (d) Workflow 1 where the child can import sklearn
+   and pandas (else ``"sklearn": "absent"``): the Titanic-shaped CSV, the
+   tutorial's ``titanic_prep``, the LogisticRegression fit and a
+   ``score`` in (0.5, 1]. (e) Recorded with no limit: each function
+   job's POST-to-finished seconds and the share an empty job's (the
+   child's spawn) takes of it, ``ctx.wait``'s latency after ``finished``
+   flips, and the phase's seconds.
 
 The kernel launch counts are zeroed just before each path and read
-just after it. ``python3 chip_smoke.py --only neural`` builds the
-kernels and runs that phase alone (to iterate on it), printing its line
-and no result line.
+just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
+function``) builds the kernels and runs that phase alone (to iterate on
+it), printing its line and no result line.
 
 Earlier lines print the card (nvidia-smi name and power limit), the
 build time, ptxas's registers and spill bytes of every kernel variant
@@ -3604,6 +3634,375 @@ def neural_phase(torch, log, home, yard):
     return paths
 
 
+# ----------------------------------------------------------------------
+# the function route: the tutorial's workflows as written, through the
+# port's own client
+# ----------------------------------------------------------------------
+FN_MNIST_ROWS, FN_IMDB_ROWS, TITANIC_ROWS = 1024, 1024, 891
+# docs/TUTORIAL.md's function bodies, as written
+TITANIC_PREP = (
+    "import numpy as np\n"
+    "df = df.dropna(subset=['Age'])\n"
+    "x = df[['Pclass', 'Age', 'SibSp', 'Parch', 'Fare']]"
+    ".to_numpy('float32')\n"
+    "y = df['Survived'].to_numpy('int32')\n"
+    "response = {'x': x, 'y': y}\n")
+MNIST_ARRAYS = (
+    "import numpy as np\n"
+    "x = df.drop(columns=['label']).to_numpy('float32') / 255.0\n"
+    "y = df['label'].to_numpy('int32')\n"
+    "response = {'x': x, 'y': y}\n")
+# the same step over the port's Table, where the jailed child has no pandas
+MNIST_ARRAYS_NUMPY = (
+    "import numpy as np\n"
+    "x = np.stack([df[c] for c in df.columns if c != 'label'], axis=1)"
+    ".astype('float32') / 255.0\n"
+    "y = df['label'].astype('int32')\n"
+    "response = {'x': x, 'y': y}\n")
+# the step the tutorial reads as $imdb_tokens and does not show: ids in
+# [2, 20000), and in the rows labelled 1 an eighth of them the marker 1
+IMDB_TOKENS = (
+    "import numpy as np\n"
+    "rng = np.random.default_rng(seed)\n"
+    "x = rng.integers(2, 20000, size=(rows, seq)).astype('int32')\n"
+    "y = rng.integers(0, 2, size=rows).astype('int32')\n"
+    "marked = (rng.random((rows, seq)) < 0.125) & (y[:, None] == 1)\n"
+    "x[marked] = 1\n"
+    "response = {'x': x, 'y': y}\n")
+# what the jailed child can import
+SANDBOX_PROBE = (
+    "response = {'pandas': None, 'sklearn': None}\n"
+    "try:\n"
+    "    import pandas\n"
+    "    response['pandas'] = pandas.__version__\n"
+    "except Exception:\n"
+    "    pass\n"
+    "try:\n"
+    "    import sklearn\n"
+    "    response['sklearn'] = sklearn.__version__\n"
+    "except Exception:\n"
+    "    pass\n")
+# whether a jailed child that imports torch sees a card
+CARDLESS_PROBE = (
+    "import torch\n"
+    "response = {'cuda': torch.cuda.is_available(),"
+    " 'devices': torch.cuda.device_count(), 'torch': torch.__version__}\n")
+SMUGGLE = ("name = '__subcl' + 'asses__'\n"
+           "response = getattr((), name)\n")
+
+
+def _observe_wait(client, name: str, timeout: float = 600.0) -> dict:
+    """``ctx.wait`` through the client's ``/observe`` long-poll, except
+    that a job which dead-letters returns at once (``ctx.wait`` would
+    wait out its timeout): the metadata, with the job's last document
+    as ``failedDocument`` where it failed."""
+    deadline = time.monotonic() + timeout
+    seq = 0
+    while time.monotonic() < deadline:
+        result = client.observe(name, seq=seq, timeout=min(
+            25.0, max(0.1, deadline - time.monotonic())))
+        meta = result.get("metadata") or {}
+        if meta.get("finished"):
+            return meta
+        if meta.get("status") == "deadLettered":
+            return dict(meta, failedDocument=client.tool(
+                *meta["type"].split("/")).read(name)["result"][-1])
+        seq = result["seq"]
+    raise AssertionError(f"{name} did not finish in {timeout} s")
+
+
+def _fn_mnist(np, path):
+    """1024 rows of the label and 784 integer pixels (a class template
+    mixed with noise, as _mnist_like draws them), written as a CSV."""
+    x, y = _mnist_like(np, FN_MNIST_ROWS, seed=2)
+    pixels = np.floor(x * 255).astype(np.int64)
+    with open(path, "w") as f:
+        f.write("label," + ",".join(f"pixel{i}" for i in range(784)) + "\n")
+        for label, row in zip(y, pixels):
+            f.write(f"{label}," + ",".join(map(str, row)) + "\n")
+    return pixels, y
+
+
+def _fn_titanic(np, path) -> None:
+    """Titanic's published columns and row count, from a seed: Pclass,
+    Age with a fifth blank, SibSp, Parch, Fare, Survived."""
+    rng = np.random.default_rng(7)
+    with open(path, "w") as f:
+        f.write("Pclass,Age,SibSp,Parch,Fare,Survived\n")
+        for _ in range(TITANIC_ROWS):
+            pclass = int(rng.integers(1, 4))
+            age = "" if rng.random() < 0.2 else f"{rng.uniform(0.4, 80):.1f}"
+            fare = rng.gamma(2.0, 40.0 / pclass)
+            survived = int(rng.random() < 0.75 - 0.2 * pclass + fare / 400)
+            f.write(f"{pclass},{age},{int(rng.integers(0, 6))},"
+                    f"{int(rng.integers(0, 5))},{fare:.4f},{survived}\n")
+
+
+def function_phase(torch, log, home, yard):
+    """The function route on the card (the ``function`` line): the port's
+    REST server driven by the port's ``client.Context`` in the default
+    subprocess sandbox. (a) workflow 2 as written, its ``/train`` losses
+    against a direct fit; (c) the jail (a child without the card, a lint
+    406, a smuggled dunder that fails its job); (b) workflow 3's LSTM and
+    the tutorial TextClassifier fitted over REST on a function step's
+    tokens with a ``#`` batch size, whose sm90 launches must be exactly 4
+    layers x 8 steps (dq, dK/dV) and 4 x 16 (forward: the fit and the
+    evaluate), and whose loss equals a direct fit's; (d) workflow 1 where
+    the child has sklearn and pandas; (e) job seconds, the spawn share,
+    ``ctx.wait``'s latency. Returns the classifier path's launches."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch import client as lo_client
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import weights as weights_lib
+    from learningorchestra_tpu_torch.models.encoder import TextClassifier
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    phase_t0 = time.monotonic()
+    out: dict = {"jobSeconds": {}, "jobChildSeconds": {}}
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    if ctx.config.sandbox_mode != "subprocess":
+        raise AssertionError(f"sandbox mode {ctx.config.sandbox_mode}")
+    server = RestServer(port=0, context=ctx).start()
+    client = lo_client.Context(server.base_url)
+    models = "learningorchestra_tpu.models"
+
+    def finished(name, meta):
+        if not meta.get("finished"):
+            raise AssertionError(f"job {name} failed: "
+                                 f"{meta.get('failedDocument')}")
+        return meta
+
+    posted = {}
+
+    def function(name, body=None, params=None):
+        """POSTs function ``name`` (unless ``body`` is None: it was
+        posted before) and waits for it; its artifact."""
+        if body is not None:
+            posted[name] = time.monotonic()
+            client.function_python.run_function(name, body, params)
+        finished(name, _observe_wait(client, name))
+        out["jobSeconds"][name] = time.monotonic() - posted[name]
+        # the job flips finished, then appends its execution document
+        for _ in range(500):
+            last = client.function_python.read(name)["result"][-1]
+            if "elapsedSeconds" in last:
+                out["jobChildSeconds"][name] = last["elapsedSeconds"]
+                break
+            time.sleep(0.01)
+        return ctx.artifacts.load(name, "function/python")
+
+    def execution(tool, name, parent, method, params):
+        tool.run(name, parent, method, params)
+        return finished(name, _observe_wait(client, name))
+
+    def epoch_losses(tool, name):
+        return [d["epochRecord"]["loss"] for d in tool.read(name)["result"]
+                if "epochRecord" in d]
+
+    try:
+        # (c) starts first: the child that imports torch (seconds) runs
+        # on the host while (a) uses the card
+        posted["cardless"] = time.monotonic()
+        client.function_python.run_function("cardless", CARDLESS_PROBE, {})
+        # (a) workflow 2 as written
+        mnist_csv = os.path.join(home, "mnist.csv")
+        pixels, labels = _fn_mnist(np, mnist_csv)
+        t0 = time.monotonic()
+        client.dataset_csv.insert("mnist", mnist_csv)
+        finished("mnist", _observe_wait(client, "mnist"))
+        out["ingestSeconds"] = time.monotonic() - t0
+        probe = function("probe", SANDBOX_PROBE, {})
+        out["child"] = dict(probe)
+        body = MNIST_ARRAYS if probe["pandas"] else MNIST_ARRAYS_NUMPY
+        out["mnistBody"] = "tutorial (pandas)" if probe["pandas"] \
+            else "numpy over the Table"
+        arrays = function("mnist_arrays", body, {"df": "$mnist"})
+        x, y = arrays["x"], arrays["y"]
+        want_x = pixels.astype(np.float32) / 255.0
+        if not (x.dtype == np.float32 and np.array_equal(x, want_x)
+                and np.array_equal(y, labels)):
+            raise AssertionError(f"mnist_arrays: {x.dtype} {x.shape}, "
+                                 f"equal {np.array_equal(x, want_x)}")
+        client.model_tensorflow.create("cnn", models, "NeuralModel",
+                                       {"layer_configs": TUTORIAL_CNN})
+        finished("cnn", _observe_wait(client, "cnn"))
+        fit = {"x": "$mnist_arrays.x", "y": "$mnist_arrays.y", "epochs": 4,
+               "batch_size": 256, "checkpoint": True}
+        t0 = time.monotonic()
+        meta = execution(client.train_tensorflow, "cnn_t", "cnn", "fit", fit)
+        out["cnnTrainJobSeconds"] = time.monotonic() - t0
+        got = epoch_losses(client.train_tensorflow, "cnn_t")
+        execution(client.evaluate_tensorflow, "cnn_e", "cnn_t", "evaluate",
+                  {"x": "$mnist_arrays.x", "y": "$mnist_arrays.y"})
+        cnn_eval = next(d["result"] for d in client.evaluate_tensorflow.read(
+            "cnn_e")["result"] if "result" in d)
+        want = NeuralModel(TUTORIAL_CNN, device="cuda").fit(
+            x, y, batch_size=256, epochs=4).history["loss"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if len(got) != 4 or not rel <= 1e-5 or \
+                len(meta.get("checkpointCommits", [])) != 4:
+            raise AssertionError(f"the CNN's REST losses {got} against the "
+                                 f"direct fit's {want}; metadata {meta}")
+        out["cnn"] = {"losses": got, "directLosses": want,
+                      "maxRelToDirect": rel, "bitEqualToDirect": got == want,
+                      "evaluate": cnn_eval}
+
+        # (c) the jail on the card
+        cardless = function("cardless")
+        out["child"].update(cardless)
+        if cardless["cuda"] is not False or cardless["devices"] != 0:
+            raise AssertionError(f"the jailed child sees a card: "
+                                 f"{cardless}")
+        try:
+            client.function_python.run_function(
+                "passwd", "response = open('/etc/passwd').read()\n", {})
+            raise AssertionError("open('/etc/passwd') was accepted")
+        except lo_client.ApiError as err:
+            if err.status != 406 or ctx.catalog.exists("passwd"):
+                raise AssertionError(f"open('/etc/passwd'): {err}")
+            refused = err.message
+        client.function_python.run_function("smuggle", SMUGGLE, {})
+        smuggled = _observe_wait(client, "smuggle")
+        exception = (smuggled.get("failedDocument") or {}).get(
+            "exception") or ""
+        if smuggled.get("finished") or "AttributeError" not in exception \
+                or "blocked in sandboxed code" not in exception:
+            raise AssertionError(f"the smuggled dunder: {smuggled}")
+        out["jail"] = {"childCuda": cardless["cuda"],
+                       "passwdAt406": refused,
+                       "smuggleError": exception.split("\\n")[0]}
+
+        # (b) workflow 3, then the classifier's REST fit on the tokens
+        function("imdb_tokens", IMDB_TOKENS,
+                 {"rows": FN_IMDB_ROWS, "seq": 200, "seed": 0})
+        client.model_tensorflow.create("lstm", models, "NeuralModel",
+                                       {"layer_configs": TUTORIAL_LSTM})
+        finished("lstm", _observe_wait(client, "lstm"))
+        execution(client.train_tensorflow, "lstm_t", "lstm", "fit",
+                  {"x": "$imdb_tokens.x", "y": "$imdb_tokens.y",
+                   "epochs": 3, "batch_size": 128})
+        lstm_losses = epoch_losses(client.train_tensorflow, "lstm_t")
+        if len(lstm_losses) != 3 or not all(np.isfinite(lstm_losses)):
+            raise AssertionError(f"the LSTM's losses: {lstm_losses}")
+        out["lstmLosses"] = lstm_losses
+        # PATCH the step to the classifier's 512 ids; ctx.wait's own
+        # latency after the flag flips, read by a poller of the catalog
+        flipped = {}
+
+        def watch_flag():
+            while not (ctx.catalog.get_metadata("imdb_tokens") or {}).get(
+                    "finished"):
+                time.sleep(0.001)
+            flipped["t"] = time.monotonic()
+
+        client.function_python.update("imdb_tokens", {
+            "functionParameters": {"rows": FN_IMDB_ROWS, "seq": CLF_SEQ,
+                                   "seed": 1}})
+        poller = threading.Thread(target=watch_flag, daemon=True)
+        poller.start()
+        t0 = time.monotonic()
+        client.wait("imdb_tokens", timeout=600)
+        returned = time.monotonic()
+        poller.join(timeout=60)
+        out["jobSeconds"]["imdb_tokens(PATCH)"] = returned - t0
+        out["waitLatencyAfterFinishedMs"] = (returned - flipped["t"]) * 1e3
+        tokens = ctx.artifacts.load("imdb_tokens", "function/python")
+        tx, ty = tokens["x"], tokens["y"]
+        if tx.shape != (FN_IMDB_ROWS, CLF_SEQ) or not 0 < tx.min() \
+                or not tx.max() < 20000:
+            raise AssertionError(f"imdb_tokens: {tx.shape} "
+                                 f"[{tx.min()}, {tx.max()}]")
+        clf_body = dict(CLF_CONFIG, attention="flash")
+        fresh = TextClassifier(**clf_body, device="cuda")
+        fresh.set_params(weights_lib.params_from_flax(
+            weights_lib.init_params(CLF_CONFIG, fresh.seed)))
+        untrained = fresh.evaluate(tx, ty, batch_size=CLF_BATCH)["loss"]
+        del fresh
+        direct = TextClassifier(**clf_body, device="cuda").fit(
+            tx, ty, batch_size=CLF_BATCH, epochs=1).history["loss"]
+        client.model_tensorflow.create("clf", models, "TextClassifier",
+                                       clf_body)
+        finished("clf", _observe_wait(client, "clf"))
+        _reset_launches(attn)
+        t0 = time.monotonic()
+        execution(client.train_tensorflow, "clf_t", "clf", "fit",
+                  {"x": "$imdb_tokens.x", "y": "$imdb_tokens.y",
+                   "batch_size": "#2 ** 7", "epochs": 1})
+        clf_train_s = time.monotonic() - t0
+        execution(client.evaluate_tensorflow, "clf_e", "clf_t", "evaluate",
+                  {"x": "$imdb_tokens.x", "y": "$imdb_tokens.y",
+                   "batch_size": CLF_BATCH})
+        launches = _launches(attn)
+        steps = FN_IMDB_ROWS // CLF_BATCH
+        layers = CLF_CONFIG["n_layers"]
+        want_launches = dict.fromkeys(COUNTERS, 0)
+        want_launches.update(flash_fwd_sm90=layers * 2 * steps,
+                             flash_bwd_dq_sm90=layers * steps,
+                             flash_bwd_dkv_sm90=layers * steps)
+        if launches != want_launches:
+            raise AssertionError(f"the classifier's REST fit and evaluate "
+                                 f"launched {launches}, want "
+                                 f"{want_launches}")
+        clf_losses = epoch_losses(client.train_tensorflow, "clf_t")
+        clf_eval = next(d["result"] for d in client.evaluate_tensorflow.read(
+            "clf_e")["result"] if "result" in d)
+        clf_rel = max(abs(a - b) / abs(b)
+                      for a, b in zip(clf_losses, direct))
+        if len(clf_losses) != 1 or not clf_rel <= 1e-5 or \
+                not clf_eval["loss"] < untrained:
+            raise AssertionError(f"the classifier: REST losses {clf_losses},"
+                                 f" direct {direct}; evaluate {clf_eval}, "
+                                 f"untrained {untrained}")
+        out["classifier"] = {
+            "config": clf_body, "rows": FN_IMDB_ROWS, "seq": CLF_SEQ,
+            "batchSize": "#2 ** 7", "epochs": 1, "launches": launches,
+            "losses": clf_losses, "directLosses": direct,
+            "maxRelToDirect": clf_rel, "bitEqualToDirect": clf_losses == direct,
+            "evaluate": clf_eval, "untrainedEvaluateLoss": untrained,
+            "trainJobSeconds": clf_train_s}
+
+        # (d) workflow 1, where the jailed child has sklearn and pandas
+        if probe["sklearn"] and probe["pandas"]:
+            titanic_csv = os.path.join(home, "titanic.csv")
+            _fn_titanic(np, titanic_csv)
+            client.dataset_csv.insert("titanic", titanic_csv)
+            finished("titanic", _observe_wait(client, "titanic"))
+            prep = function("titanic_prep", TITANIC_PREP,
+                            {"df": "$titanic"})
+            client.model_scikitlearn.create(
+                "lr", "sklearn.linear_model", "LogisticRegression",
+                {"max_iter": 500})
+            finished("lr", _observe_wait(client, "lr"))
+            execution(client.train_scikitlearn, "lr_t", "lr", "fit",
+                      {"X": "$titanic_prep.x", "y": "$titanic_prep.y"})
+            execution(client.evaluate_scikitlearn, "lr_e", "lr_t", "score",
+                      {"X": "$titanic_prep.x", "y": "$titanic_prep.y"})
+            score = next(d["result"] for d in client.evaluate_scikitlearn.read(
+                "lr_e")["result"] if "result" in d)
+            if not 0.5 < score <= 1.0:
+                raise AssertionError(f"the LogisticRegression score {score}")
+            out["sklearn"] = {"rows": int(len(prep["x"])), "score": score}
+        else:
+            out["sklearn"] = "absent"
+
+        # (e) the child's spawn: an empty job's POST-to-finished
+        function("empty", "response = 1\n", {})
+        empty = out["jobSeconds"]["empty"]
+        out["spawnShare"] = {name: empty / seconds
+                             for name, seconds in out["jobSeconds"].items()}
+    finally:
+        server.stop()
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("function " + json.dumps(out))
+    return {"function": launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -3644,7 +4043,7 @@ def main() -> int:
     if "--only" in sys.argv:
         # iteration aid: the build, then the named self-contained phases
         # alone; no kernels line and no result line
-        phases = {"neural": neural_phase}
+        phases = {"neural": neural_phase, "function": function_phase}
         try:
             for name in sys.argv[sys.argv.index("--only") + 1].split(","):
                 with tempfile.TemporaryDirectory() as home:
@@ -3682,6 +4081,8 @@ def main() -> int:
         del yard
         with tempfile.TemporaryDirectory() as home:
             paths.update(neural_phase(torch, log, home, {}))
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(function_phase(torch, log, home, {}))
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
         # the split-TF32 backward

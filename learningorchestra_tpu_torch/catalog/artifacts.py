@@ -13,8 +13,8 @@ package's ``LanguageModel``, ``TextClassifier``, ``NeuralModel``,
 (:data:`JAX_NATIVE_CLASSES`); any other JAX class raises "not yet
 ported".
 
-Results of evaluate, predict and generate are stored without pickle
-(the JAX package's ``dill`` fallback is not ported):
+Results of evaluate, predict and generate, and a function's
+``response``, are stored without pickle where they can be:
 
 - a numpy array is ``value.npy`` (kind ``array``);
 - a dict, list or tuple of JSON scalars and arrays is ``value.json``
@@ -22,7 +22,14 @@ Results of evaluate, predict and generate are stored without pickle
   back as lists, numpy scalars as Python numbers);
 - a ``History`` is its lists (kind ``history``).
 
-Any other object raises ``TypeError``.
+Any other object (a fitted sklearn estimator, a DataFrame, a function's
+tuple of live objects: what the JAX package stores with ``dill``) is
+``object.pkl``, written by the standard ``pickle`` (kind ``pickle``); an
+object pickle cannot write raises ``TypeError``. A JAX ``dill`` artifact
+is read with the standard unpickler and dill's array reducer: what dill
+wrote as plain pickle and arrays (sklearn estimators, dicts of arrays)
+loads without dill, and anything else (a function dill pickled by
+value) raises, where dill is absent, an error that names dill.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import pickle
 import re
 import shutil
 from typing import Any, Dict, List, Optional
@@ -122,6 +130,54 @@ def _from_json(value: Any, d: str) -> Any:
     return value
 
 
+def _save_pickle(obj: Any, d: str) -> None:
+    """``obj`` as ``object.pkl``; what pickle cannot write (a lambda, a
+    lock) raises TypeError, as the other kinds do. The ``.npy`` leaves a
+    failed JSON attempt left behind go."""
+    for leaf in os.listdir(d):
+        os.remove(os.path.join(d, leaf))
+    try:
+        data = pickle.dumps(obj)
+    except (pickle.PicklingError, TypeError, AttributeError) as e:
+        raise TypeError(f"cannot store a {type(obj).__name__}: {e}") \
+            from None
+    with open(os.path.join(d, "object.pkl"), "wb") as f:
+        f.write(data)
+
+
+def _dill_create_array(f, args, state, npdict=None):
+    """dill's reducer of a numpy array (``dill._dill._create_array``):
+    the array numpy's own reducer builds, with its state set."""
+    array = f(*args)
+    array.__setstate__(state)
+    if npdict is not None:
+        array.__dict__.update(npdict)
+    return array
+
+
+class _DillUnpickler(pickle.Unpickler):
+    """The standard unpickler, plus dill's array reducer: dill writes
+    every numpy array through it, so the arrays of an sklearn estimator
+    or of a dict load without dill."""
+
+    def find_class(self, module: str, name: str):
+        if (module, name) == ("dill._dill", "_create_array"):
+            return _dill_create_array
+        return super().find_class(module, name)
+
+
+def _load_dill(path: str, label: str) -> Any:
+    """A JAX ``dill`` artifact, read with the standard pickle."""
+    try:
+        with open(path, "rb") as f:
+            return _DillUnpickler(f).load()
+    except Exception as e:  # noqa: BLE001 — say which format failed
+        raise ValueError(
+            f"artifact {label} was written by dill in a form the standard "
+            f"pickle cannot read ({type(e).__name__}: {e}); dill is not a "
+            f"dependency of the PyTorch package") from None
+
+
 def _is_history(obj: Any) -> bool:
     from learningorchestra_tpu_torch.models.neural import History
 
@@ -169,17 +225,24 @@ class ArtifactStore:
                 obj.__lo_save__(payload_dir)
                 meta.update(kind="native", module=type(obj).__module__,
                             **{"class": type(obj).__qualname__})
-            elif isinstance(obj, np.ndarray):
+            elif isinstance(obj, np.ndarray) and not obj.dtype.hasobject:
                 np.save(os.path.join(d, "value.npy"), _check_array(obj),
                         allow_pickle=False)
                 meta["kind"] = "array"
-            else:
-                kind = "history" if _is_history(obj) else "json"
-                value = _to_json(obj.history if kind == "history" else obj,
-                                 d, [])
+            elif _is_history(obj):
                 with open(os.path.join(d, "value.json"), "w") as f:
-                    json.dump(value, f)
-                meta["kind"] = kind
+                    json.dump(_to_json(obj.history, d, []), f)
+                meta["kind"] = "history"
+            else:
+                try:
+                    value = _to_json(obj, d, [])
+                except TypeError:
+                    _save_pickle(obj, d)
+                    meta["kind"] = "pickle"
+                else:
+                    with open(os.path.join(d, "value.json"), "w") as f:
+                        json.dump(value, f)
+                    meta["kind"] = "json"
         except BaseException:
             shutil.rmtree(d, ignore_errors=True)
             raise
@@ -248,6 +311,12 @@ class ArtifactStore:
             history = History([])
             history.history = value
             return history
+        if kind == "pickle":
+            with open(os.path.join(d, "object.pkl"), "rb") as f:
+                return pickle.load(f)
+        if kind == "dill":
+            return _load_dill(os.path.join(d, "object.dill"),
+                              f"{type_string}/{name}")
         raise ValueError(
             f"artifact {type_string}/{name} was not written by the PyTorch "
             f"package (kind {kind!r})")

@@ -31,6 +31,7 @@ import numpy as np
 
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.catalog.artifacts import validate_safe_name
+from learningorchestra_tpu_torch.runtime import locks
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS collections (
@@ -159,6 +160,8 @@ class Catalog:
         os.makedirs(datasets_dir, exist_ok=True)
         os.makedirs(os.path.dirname(db_path) or ".", exist_ok=True)
         self._local = threading.local()
+        # notified after each committed change: wakes watch()
+        self._change_cond = locks.make_condition("catalog.change")
         with self._conn() as conn:
             conn.executescript(_SCHEMA)
 
@@ -187,6 +190,10 @@ class Catalog:
             "INSERT INTO changes (collection, op, ts) VALUES (?, ?, ?)",
             (collection, op, time.time()))
 
+    def _notify(self) -> None:
+        with self._change_cond:
+            self._change_cond.notify_all()
+
     # ------------------------------------------------------------------
     # collections and metadata documents
     # ------------------------------------------------------------------
@@ -210,6 +217,7 @@ class Catalog:
                 self._record_change(conn, name, "create")
         except sqlite3.IntegrityError:
             raise CollectionExists(name) from None
+        self._notify()
         return meta
 
     def exists(self, name: str) -> bool:
@@ -245,6 +253,7 @@ class Catalog:
                 "UPDATE docs SET body = ? WHERE collection = ? AND id = 0",
                 (json.dumps(body), name))
             self._record_change(conn, name, "update")
+        self._notify()
 
     def mark_finished(self, name: str,
                       extra: Optional[Dict[str, Any]] = None) -> None:
@@ -274,6 +283,8 @@ class Catalog:
             if deleted:
                 self._record_change(conn, name, "delete")
         shutil.rmtree(self._dataset_dir(name), ignore_errors=True)
+        if deleted:
+            self._notify()
         return deleted
 
     # ------------------------------------------------------------------
@@ -299,6 +310,7 @@ class Catalog:
                 "UPDATE docs SET body = ? WHERE collection = ? AND id = ?",
                 (json.dumps(body), name, new_id))
             self._record_change(conn, name, "doc")
+        self._notify()
         return new_id
 
     def get_documents(self, name: str) -> List[Dict[str, Any]]:
@@ -483,6 +495,38 @@ class Catalog:
             "SELECT COALESCE(MAX(seq), 0) FROM changes "
             "WHERE collection = ?", (name,))
         return cur.fetchone()[0]
+
+    def changes_since(self, seq: int,
+                      collection: Optional[str] = None,
+                      ) -> List[Dict[str, Any]]:
+        """The changes after ``seq`` (of one collection, or of all), in
+        order: ``{"seq", "collection", "op", "ts"}``."""
+        sql = "SELECT seq, collection, op, ts FROM changes WHERE seq > ?"
+        args: Tuple = (seq,)
+        if collection is not None:
+            sql += " AND collection = ?"
+            args = (seq, collection)
+        cur = self._conn().execute(sql + " ORDER BY seq", args)
+        return [{"seq": s, "collection": c, "op": o, "ts": t}
+                for (s, c, o, t) in cur.fetchall()]
+
+    def watch(self, seq: int, collection: Optional[str] = None,
+              timeout: float = 30.0) -> List[Dict[str, Any]]:
+        """Long-polls for changes after ``seq``: returns them as soon as
+        there are any, or ``[]`` after ``timeout`` seconds. A commit on
+        any thread wakes it; it holds no lock and no open transaction
+        across its wait (the condition's wait is at most a second, in
+        case a commit slips in between the read and the wait)."""
+        deadline = time.monotonic() + timeout
+        while True:
+            changes = self.changes_since(seq, collection)
+            if changes:
+                return changes
+            remaining = deadline - time.monotonic()
+            if remaining <= 0:
+                return []
+            with self._change_cond:
+                self._change_cond.wait(min(remaining, 1.0))
 
 
 class DatasetWriter:

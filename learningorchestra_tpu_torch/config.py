@@ -10,7 +10,9 @@ quantized serving knobs ``LO_SERVE_KV``, ``LO_SERVE_PAGE_LEN``,
 ``LO_SERVE_WEIGHTS``, ``LO_SERVE_DRIFT_MAX``, ``LO_SERVE_DRIFT_EVERY``,
 the bucketed ``LO_SERVE_BUCKETS`` and ``LO_SERVE_MAX_WAIT_MS``, and the
 disaggregated and speculative ``LO_SERVE_DISAGG``, ``LO_SERVE_DRAFT`` and
-``LO_SERVE_SPEC_K``). The device is chosen in code only (``device=`` or ``--device``). A
+``LO_SERVE_SPEC_K``, and the sandbox's ``LO_SANDBOX``, ``LO_SANDBOX_MAX``,
+``LO_PREFLIGHT``, ``LO_SANDBOX_CPU_SECONDS``, ``LO_SANDBOX_MEMORY_BYTES``
+and ``LO_SANDBOX_FILE_BYTES``). The device is chosen in code only (``device=`` or ``--device``). A
 :class:`Config` is an object the caller creates and passes down; there
 is no process-wide singleton.
 """
@@ -19,8 +21,6 @@ from __future__ import annotations
 
 import dataclasses
 import os
-
-import torch
 
 API_PREFIX = "/api/learningOrchestra/v1"
 
@@ -116,6 +116,33 @@ class Config:
     serve_spec_k: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get(
             "LO_SERVE_SPEC_K", "4")))
+    # the jail of Function code and '#' expressions: "subprocess" (a
+    # child interpreter under rlimits and an audit hook that denies
+    # reads and writes outside its scratch dir, processes and sockets),
+    # "restricted" (in-process, safe builtins and an import whitelist)
+    # or "trusted" (plain exec)
+    sandbox_mode: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_SANDBOX", "subprocess"))
+    # the most trust a Function request's "sandboxMode" may ask for
+    # (subprocess < restricted < trusted); empty = sandbox_mode, so
+    # escalation is the operator's opt-in
+    sandbox_max_mode: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_SANDBOX_MAX", ""))
+    # the submit-time AST lint of user code (406 with its findings);
+    # LO_PREFLIGHT=0 turns it and the sandbox's own lint off
+    preflight: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_PREFLIGHT", "1") not in ("0", "false", "no"))
+    # the subprocess jail's rlimits: CPU seconds, address space, file size
+    sandbox_cpu_seconds: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_SANDBOX_CPU_SECONDS", "600")))
+    sandbox_memory_bytes: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_SANDBOX_MEMORY_BYTES", str(8 << 30))))
+    sandbox_file_bytes: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_SANDBOX_FILE_BYTES", str(1 << 30))))
 
     @property
     def artifacts_dir(self) -> str:
@@ -134,9 +161,12 @@ class Config:
         return os.path.join(self.home, "catalog.sqlite")
 
 
-def resolve_device(device) -> torch.device:
+def resolve_device(device):
     """The torch device for ``device``. A CUDA device with no card
     raises: entry points never carry on on the CPU unless asked to."""
+    import torch  # here, so that the client and the sandbox's child,
+    # which read this module, need no torch
+
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -1,4 +1,4 @@
-"""Named, ranked locks (the serving, job and fault-injection rows of the
+"""Named, ranked locks (the serving, job, catalog and fault-injection rows of the
 JAX package's ``runtime/locks.py`` hierarchy).
 
 :data:`HIERARCHY` ranks every named lock of the port: a thread acquires
@@ -29,6 +29,7 @@ HIERARCHY: Dict[str, int] = {
     "scheduler.fair": 80,          # the card lease's FIFO queue
     "serving.kvpool": 90,          # paged-KV free list / refcounts
     "serving.latency": 100,        # per-session latency ring
+    "catalog.change": 190,         # catalog change-feed condition
     "faults.spec": 360,            # fault-injection budget (leaf)
     "attention.launches": 370,     # the kernels' launch counters (leaf)
 }

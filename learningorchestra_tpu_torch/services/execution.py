@@ -25,9 +25,12 @@ commit's step, seconds and bytes), a resume's as ``checkpointRestores``
 failed, ``trialErrors`` on its metadata; ``"checkpoint": true`` is
 ignored there, as in the JAX package.
 
-Refused with 406 before any document exists, because the port does not
-run them yet: ``#`` expressions and the body fields ``timeout``,
-``sliceDevices`` and ``healthPolicy``.
+``#`` expressions among the ``methodParameters`` are linted at submit
+(406 with the findings, kept as ``analysis`` on the metadata otherwise)
+and evaluated in the sandbox by the job. A parent of another module
+(a fitted sklearn estimator) runs its own methods on the host. Refused
+with 406 before any document exists, because the port does not run them
+yet: the body fields ``timeout``, ``sliceDevices`` and ``healthPolicy``.
 """
 
 from __future__ import annotations
@@ -42,8 +45,6 @@ import numpy as np
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
 from learningorchestra_tpu_torch.services import validators as V
-from learningorchestra_tpu_torch.services.params import \
-    refuse_hash_expressions
 
 NAME_FIELD = "name"
 MODEL_NAME_FIELD = "modelName"
@@ -56,14 +57,6 @@ METHOD_PARAMETERS_FIELD = "methodParameters"
 _INSTANCE_RESULT_PREFIXES = ("train/", "tune/")
 # request fields of the JAX package's job lifecycle the port lacks
 _UNPORTED_FIELDS = ("timeout", "sliceDevices", "healthPolicy")
-
-
-def _refuse_unported(body: Dict[str, Any],
-                     method_parameters: Dict[str, Any]) -> None:
-    for field in _UNPORTED_FIELDS:
-        if body.get(field) is not None:
-            raise V.not_ported(f"the {field} field")
-    refuse_hash_expressions(method_parameters)
 
 
 class ExecutionService:
@@ -105,18 +98,22 @@ class ExecutionService:
         method = body[METHOD_FIELD]
         method_parameters = body[METHOD_PARAMETERS_FIELD] or {}
         description = body.get(DESCRIPTION_FIELD, "")
-        _refuse_unported(body, method_parameters)
+        V.refuse_unported_fields(body, _UNPORTED_FIELDS)
         self._validator.not_duplicate(name)
         self._validator.existing_finished(parent_name)
         root_meta = self.root_model_metadata(parent_name)
         self._validate_method(root_meta, method, method_parameters)
+        analysis = V.lint_parameters(self._ctx.config, method_parameters)
         type_string = D.normalize_type(f"{verb}/{tool}")
-        self._ctx.catalog.create_collection(name, type_string, {
+        extra = {
             D.PARENT_NAME_FIELD: parent_name,
             D.METHOD_FIELD: method,
             D.METHOD_PARAMETERS_FIELD: method_parameters,
             D.DESCRIPTION_FIELD: description,
-        })
+        }
+        if analysis:
+            extra[V.ANALYSIS_FIELD] = analysis
+        self._ctx.catalog.create_collection(name, type_string, extra)
         self._submit(name, type_string, parent_name, method,
                      method_parameters, description)
         return V.HTTP_CREATED, {
@@ -130,13 +127,16 @@ class ExecutionService:
             METHOD_PARAMETERS_FIELD, meta.get(D.METHOD_PARAMETERS_FIELD)) \
             or {}
         description = body.get(DESCRIPTION_FIELD, "")
-        _refuse_unported(body, method_parameters)
+        V.refuse_unported_fields(body, _UNPORTED_FIELDS)
         parent_name = meta[D.PARENT_NAME_FIELD]
         root_meta = self.root_model_metadata(parent_name)
         self._validate_method(root_meta, method, method_parameters)
-        self._ctx.catalog.update_metadata(
-            name, {D.METHOD_PARAMETERS_FIELD: method_parameters,
-                   D.FINISHED_FIELD: False})
+        analysis = V.lint_parameters(self._ctx.config, method_parameters)
+        updates = {D.METHOD_PARAMETERS_FIELD: method_parameters,
+                   D.FINISHED_FIELD: False}
+        if analysis:
+            updates[V.ANALYSIS_FIELD] = analysis
+        self._ctx.catalog.update_metadata(name, updates)
         self._submit(name, meta[D.TYPE_FIELD], parent_name, method,
                      method_parameters, description)
         return V.HTTP_SUCCESS, {

@@ -11,8 +11,12 @@ that takes a device, as the port's models do and the JAX ones do not).
 the JAX models take and the port does not run yet (ring and Ulysses
 attention) answer 406 "not yet ported" before any document exists, as
 does an unknown ``scoring`` of a ``GridSearch``/``RandomSearch`` (in
-the JAX package's words). The JAX package's preflight analysis is not
-ported, so the metadata carries no ``analysis`` field.
+the JAX package's words). ``modulePath`` may name any importable module
+(``sklearn.linear_model``, whose classes run their own methods on the
+host and hold no card), as in the JAX package. ``#`` expressions among
+the ``classParameters`` are linted at submit (406 with the findings,
+kept as ``analysis`` on the metadata otherwise) and evaluated in the
+sandbox by the job; the JAX package's shape preflight is not ported.
 """
 
 from __future__ import annotations
@@ -22,8 +26,6 @@ from typing import Any, Dict, Tuple
 
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.services import validators as V
-from learningorchestra_tpu_torch.services.params import \
-    refuse_hash_expressions
 
 MODEL_NAME_FIELD = "modelName"
 DESCRIPTION_FIELD = "description"
@@ -77,15 +79,18 @@ class ModelService:
         cls = self._validator.valid_class(module_path, class_name)
         self._validator.valid_class_parameters(cls, class_parameters)
         _valid_sweep_scoring(cls, class_parameters)
-        refuse_hash_expressions(class_parameters)
         _refuse_unported_options(cls, class_parameters)
+        analysis = V.lint_parameters(self._ctx.config, class_parameters)
         type_string = D.normalize_type(f"model/{tool}")
-        self._ctx.catalog.create_collection(name, type_string, {
+        extra = {
             D.MODULE_PATH_FIELD: module_path,
             D.CLASS_FIELD: class_name,
             D.CLASS_PARAMETERS_FIELD: class_parameters,
             D.DESCRIPTION_FIELD: description,
-        })
+        }
+        if analysis:
+            extra[V.ANALYSIS_FIELD] = analysis
+        self._ctx.catalog.create_collection(name, type_string, extra)
         self._submit(name, type_string, cls, class_parameters, description)
         return V.HTTP_CREATED, {
             "result": f"/api/learningOrchestra/v1/model/{tool}/{name}"}
@@ -100,11 +105,13 @@ class ModelService:
             meta[D.MODULE_PATH_FIELD], meta[D.CLASS_FIELD])
         self._validator.valid_class_parameters(cls, class_parameters)
         _valid_sweep_scoring(cls, class_parameters)
-        refuse_hash_expressions(class_parameters)
         _refuse_unported_options(cls, class_parameters)
-        self._ctx.catalog.update_metadata(
-            name, {D.CLASS_PARAMETERS_FIELD: class_parameters,
-                   D.FINISHED_FIELD: False})
+        analysis = V.lint_parameters(self._ctx.config, class_parameters)
+        updates = {D.CLASS_PARAMETERS_FIELD: class_parameters,
+                   D.FINISHED_FIELD: False}
+        if analysis:
+            updates[V.ANALYSIS_FIELD] = analysis
+        self._ctx.catalog.update_metadata(name, updates)
         self._submit(name, meta[D.TYPE_FIELD], cls, class_parameters,
                      description)
         return V.HTTP_SUCCESS, {

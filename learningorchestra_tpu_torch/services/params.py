@@ -1,22 +1,26 @@
-"""The ``$`` parameter DSL of the JAX package's ``services/params.py``.
+"""The ``$`` / ``#`` parameter DSL of the JAX package's
+``services/params.py``.
 
 - ``"$name"`` loads artifact ``name``: a tabular collection becomes a
   :class:`~learningorchestra_tpu_torch.catalog.store.Table` (the JAX
-  package gives a pandas DataFrame), an object type the stored object.
+  package gives a pandas DataFrame; the function route hands user code a
+  DataFrame where pandas is importable, ``services/function_service.py``),
+  an object type the stored object.
 - ``"$name.key"`` loads the object and indexes it: ``object["key"]``.
+- ``"#expr"`` evaluates a Python expression in the sandbox
+  (``Config.sandbox_mode``) and passes the value on; all of a request's
+  ``#`` expressions run in one sandbox pass.
 - Lists resolve element by element.
 
-As in the reference, any string that contains ``$`` is a reference.
-The ``#`` expressions need the sandbox, which is not ported: the model
-and execution services refuse them before a job is submitted
-(:func:`refuse_hash_expressions`).
+As in the reference, any string that contains ``$`` is a reference, and
+any other string that contains ``#`` is code: ``$`` takes precedence.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
-from learningorchestra_tpu_torch.services import validators as V
+from learningorchestra_tpu_torch.services import sandbox
 
 # types whose "$name" is the stored object rather than the rows
 _OBJECT_TYPE_PREFIXES = ("model/", "tune/", "train/", "evaluate/",
@@ -30,18 +34,9 @@ def is_object_type(type_string: str) -> bool:
             or type_string in _OBJECT_TYPES)
 
 
-def _is_hash(value: Any) -> bool:
+def is_hash(value: Any) -> bool:
     # '$' takes precedence over '#', as in resolve_value
     return isinstance(value, str) and "$" not in value and "#" in value
-
-
-def refuse_hash_expressions(parameters: Optional[Dict[str, Any]]) -> None:
-    """406 for a ``#`` expression among ``parameters`` (or in one of
-    their lists)."""
-    for name, value in (parameters or {}).items():
-        values = value if isinstance(value, list) else [value]
-        if any(_is_hash(v) for v in values):
-            raise V.not_ported(f"the '#' expression of {name!r}")
 
 
 class ParameterResolver:
@@ -50,21 +45,40 @@ class ParameterResolver:
 
     def treat(self, method_parameters: Optional[Dict[str, Any]],
               ) -> Dict[str, Any]:
-        """The parameters with every ``$`` reference resolved."""
+        """The parameters with every ``$`` reference and ``#``
+        expression resolved; the ``#`` expressions, in the order of the
+        parameters and their lists, go to the sandbox in one batch."""
         if not method_parameters:
             return {}
-        return {name: [self.resolve_value(v) for v in value]
-                if isinstance(value, list) else self.resolve_value(value)
+        exprs = []
+        for value in method_parameters.values():
+            values = value if isinstance(value, list) else [value]
+            exprs.extend(v for v in values if is_hash(v))
+        config = self._ctx.config
+        results = iter(sandbox.eval_hash_expressions(
+            exprs, mode=config.sandbox_mode, config=config))
+
+        def resolve(v):
+            return next(results) if is_hash(v) else self.resolve_value(v)
+
+        return {name: [resolve(v) for v in value]
+                if isinstance(value, list) else resolve(value)
                 for name, value in method_parameters.items()}
 
     def resolve_value(self, value: Any) -> Any:
-        if not isinstance(value, str) or "$" not in value:
+        if not isinstance(value, str):
             return value
-        ref = value.replace("$", "")
-        if "." in ref:
-            artifact_name, key = ref.split(".", 1)
-            return self.load_object(artifact_name)[key]
-        return self.load_artifact(ref)
+        if "$" in value:
+            ref = value.replace("$", "")
+            if "." in ref:
+                artifact_name, key = ref.split(".", 1)
+                return self.load_object(artifact_name)[key]
+            return self.load_artifact(ref)
+        if "#" in value:
+            config = self._ctx.config
+            return sandbox.eval_hash_expression(
+                value, mode=config.sandbox_mode, config=config)
+        return value
 
     def artifact_type(self, name: str) -> Optional[str]:
         """The type string of ``name`` in the catalog, else in the

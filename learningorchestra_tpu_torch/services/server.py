@@ -7,20 +7,24 @@ verb   path (under /api/learningOrchestra/v1)    handler
 POST   /dataset/csv                              ingest (201 + URI)
 POST   /model/{tool}                             build a model (201)
 POST   /{train,tune,evaluate,predict}/{tool}     run a method (201)
-PATCH  /{model,train,...}/{tool}/{name}          re-run (200)
+POST   /function/python                          run user code (201)
+PATCH  /{model,train,...,function}/{tool}/{name} re-run (200)
 DELETE /{service}/{tool}/{name}                  delete (200)
 GET    /{service}/{tool}                         list collections
 GET    /{service}/{tool}/{name}?skip&limit&query paged read
+GET    /observe                                  the newest change seq
+GET    /observe/{name}?seq&timeout               long-poll change feed
 POST   /serve/{model}                            create a session (201)
 POST   /serve/{model}/predict                    synchronous inference
 GET    /serve, /serve/{model}                    stats
 DELETE /serve/{model}                            teardown
 ====== ========================================= =======================
 
+A 406 of the submit-time lint carries its findings under ``analysis``.
 ``DELETE .../{name}/run`` (cancel) and ``POST .../{name}/migrate``
 answer 406 "not yet ported"; every other service (explore, transform,
-function, builder, observe, observability, profile, /health, /metrics)
-answers 404 until it is ported.
+builder, observability, profile, /health, /metrics) answers 404 until
+it is ported.
 """
 
 from __future__ import annotations
@@ -40,11 +44,16 @@ from learningorchestra_tpu_torch.services.dataset import (
     parse_query_param,
 )
 from learningorchestra_tpu_torch.services.execution import ExecutionService
+from learningorchestra_tpu_torch.services.function_service import \
+    FunctionService
 from learningorchestra_tpu_torch.services.model_service import ModelService
 
 _JSON = "application/json"
-SERVICES = ("dataset", "model", "tune", "train", "evaluate", "predict")
+SERVICES = ("dataset", "model", "tune", "train", "evaluate", "predict",
+            "function")
 EXECUTION_VERBS = ("train", "tune", "evaluate", "predict")
+# the longest long-poll of GET /observe/{name}, seconds
+OBSERVE_MAX_SECONDS = 120.0
 
 
 class Api:
@@ -56,6 +65,7 @@ class Api:
         self.dataset = DatasetService(self.ctx)
         self.model = ModelService(self.ctx)
         self.execution = ExecutionService(self.ctx)
+        self.function = FunctionService(self.ctx)
 
     def dispatch(self, method: str, path: str, params: Dict[str, Any],
                  body: Optional[Dict[str, Any]]) -> Tuple[int, Any, str]:
@@ -63,7 +73,10 @@ class Api:
         try:
             return self._route(method, path, params, body)
         except V.HttpError as e:
-            return e.status, {"result": e.message}, _JSON
+            payload = {"result": e.message}
+            if e.findings:
+                payload["analysis"] = e.findings
+            return e.status, payload, _JSON
         except Exception as e:  # noqa: BLE001 — the server must keep answering
             return 500, {"result": f"internal error: {e!r}"}, _JSON
 
@@ -74,6 +87,8 @@ class Api:
         parts = [p for p in path[len(API_PREFIX):].split("/") if p]
         if parts and parts[0] == "serve":
             return self._serve(method, parts, body or {})
+        if parts and parts[0] == "observe" and method == "GET":
+            return self._observe(parts, params)
         if len(parts) < 2 or parts[0] not in SERVICES:
             return 404, {"result": "unknown route"}, _JSON
         service, tool = parts[0], parts[1]
@@ -103,6 +118,8 @@ class Api:
             status, payload = self.dataset.create(body, tool)
         elif service == "model":
             status, payload = self.model.create(body, tool)
+        elif service == "function":
+            status, payload = self.function.create(body, tool)
         else:
             status, payload = self.execution.create(body, service, tool)
         return status, payload, _JSON
@@ -114,6 +131,8 @@ class Api:
         elif service in EXECUTION_VERBS:
             status, payload = self.execution.update(name, body, service,
                                                     tool)
+        elif service == "function":
+            status, payload = self.function.update(name, body, tool)
         else:
             raise V.HttpError(V.HTTP_NOT_ACCEPTABLE,
                               f"PATCH unsupported for {service}")
@@ -123,7 +142,7 @@ class Api:
                 name: str) -> Tuple[int, Any, str]:
         if name.endswith("/run") and len(name) > len("/run"):
             raise V.not_ported("DELETE .../run (job cancellation)")
-        if service == "dataset":
+        if service in ("dataset", "function"):
             status, payload = self.dataset.delete_file(name)
         elif service == "model":
             status, payload = self.model.delete(name, tool)
@@ -144,6 +163,31 @@ class Api:
             name, skip=skip, limit=limit,
             query=parse_query_param(params.get("query")))
         return status, payload, _JSON
+
+    def _observe(self, parts: list,
+                 params: Dict[str, Any]) -> Tuple[int, Any, str]:
+        """``GET /observe/{name}?seq=N&timeout=S``: waits until collection
+        ``name`` changes past sequence N (at most S seconds, default 25,
+        clamped to 120), then returns the changes, the newest seq and the
+        metadata. ``GET /observe`` returns the newest seq."""
+        catalog = self.ctx.catalog
+        if len(parts) < 2:
+            return 200, {"result": {"seq": catalog.latest_seq()}}, _JSON
+        name = parts[1]
+        seq = int(params.get("seq", 0) or 0)
+        timeout = min(float(params.get("timeout", 25) or 25),
+                      OBSERVE_MAX_SECONDS)
+        # inside a gateway deadline the poll ends just before it, with
+        # an empty answer the client polls again
+        gateway = self.ctx.config.request_timeout_seconds
+        if gateway > 0:
+            timeout = min(timeout, max(0.05, gateway - 0.1))
+        changes = catalog.watch(seq, collection=name, timeout=timeout)
+        return 200, {"result": {
+            "changes": changes,
+            "seq": catalog.latest_seq(),
+            "metadata": catalog.get_metadata(name),
+        }}, _JSON
 
     def _serve(self, method: str, parts: list,
                body: Dict[str, Any]) -> Tuple[int, Any, str]:

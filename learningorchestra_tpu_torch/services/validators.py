@@ -1,5 +1,5 @@
 """Synchronous request validation with the reference's status codes
-(the serving and pipeline parts of the JAX package's
+(the serving, pipeline and function parts of the JAX package's
 ``services/validators.py``; messages are kept word for word so 406
 bodies match)."""
 
@@ -11,6 +11,7 @@ from typing import Any, Dict, Optional, Sequence
 
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.catalog.artifacts import _NAME_RE
+from learningorchestra_tpu_torch.services import sandbox
 
 HTTP_SUCCESS = 200
 HTTP_CREATED = 201
@@ -34,13 +35,17 @@ MESSAGE_NONEXISTENT_FILE = "nonexistent file"
 MESSAGE_UNFINISHED_PARENT = "unfinished parent"
 MESSAGE_INVALID_FIELD = "invalid field"
 MESSAGE_MISSING_FIELD = "missing required field"
+MESSAGE_ANALYSIS_REJECTED = "analysis rejected the request"
 
 
 class HttpError(Exception):
-    def __init__(self, status: int, message: str):
+    def __init__(self, status: int, message: str, findings=None):
         super().__init__(message)
         self.status = status
         self.message = message
+        # the analysis findings (dicts) of a submit-time lint refusal,
+        # returned in the body as "analysis"
+        self.findings = list(findings) if findings else []
 
 
 TIMEOUT_FIELD = "timeout"
@@ -209,12 +214,58 @@ def valid_scoring(value: Any) -> Optional[str]:
     return value
 
 
+_JAX_PACKAGE = "learningorchestra_tpu"
+
+
+def run_preflight(findings) -> list:
+    """A 406 with every finding if any is an error; else all of them as
+    dicts, for the job's metadata."""
+    from learningorchestra_tpu_torch import analysis as A
+
+    if A.error_findings(findings):
+        summary = A.LintRejected(findings).summary
+        raise HttpError(HTTP_NOT_ACCEPTABLE,
+                        f"{MESSAGE_ANALYSIS_REJECTED}: {summary}",
+                        findings=A.findings_to_dicts(findings))
+    return A.findings_to_dicts(findings)
+
+
+# metadata key of the submit-time lint's findings
+ANALYSIS_FIELD = "analysis"
+
+
+def refuse_unported_fields(body: Dict[str, Any], fields) -> None:
+    """406 "not yet ported" for any of ``fields`` set in ``body``."""
+    for field in fields:
+        if body.get(field) is not None:
+            raise not_ported(f"the {field} field")
+
+
+def lint_parameters(config, parameters) -> list:
+    """The submit-time lint of the ``#`` expressions among a request's
+    parameters (406 on an error; off with ``LO_PREFLIGHT=0``)."""
+    if not config.preflight:
+        return []
+    from learningorchestra_tpu_torch import analysis as A
+
+    return run_preflight(A.lint_parameter_code(parameters,
+                                               config.sandbox_mode))
+
+
 def resolve_module(module_path: str):
-    """The port's module for ``module_path`` (a key of
-    :data:`PORT_MODULES`), or None."""
-    target = PORT_MODULES.get(module_path) \
-        if isinstance(module_path, str) else None
-    return None if target is None else importlib.import_module(target)
+    """The module a request's ``modulePath`` names. The JAX package's
+    paths map to the port's (:data:`PORT_MODULES`), and the rest of that
+    package and the tensorflow and keras paths raise ``ImportError``
+    "not yet ported"; any other path is imported, as in the JAX
+    package."""
+    if not isinstance(module_path, str):
+        raise ImportError(f"module path {module_path!r}")
+    target = PORT_MODULES.get(module_path)
+    if target is not None:
+        return importlib.import_module(target)
+    if module_path.split(".")[0] == _JAX_PACKAGE:
+        raise sandbox.ModuleNotPorted(f"{module_path!r} {NOT_PORTED}")
+    return sandbox.resolve_module(module_path)
 
 
 class RequestValidator:
@@ -265,13 +316,17 @@ class RequestValidator:
 
     # -- reflection targets --------------------------------------------
     def valid_module(self, module_path: str):
-        module = resolve_module(module_path)
-        if module is None:
+        try:
+            return resolve_module(module_path)
+        except sandbox.ModuleNotPorted:
             raise HttpError(
                 HTTP_NOT_ACCEPTABLE,
                 f"{MESSAGE_INVALID_MODULE_PATH}: {module_path!r} "
-                f"{NOT_PORTED} (module paths: {', '.join(PORT_MODULES)})")
-        return module
+                f"{NOT_PORTED}") from None
+        except Exception:
+            raise HttpError(
+                HTTP_NOT_ACCEPTABLE,
+                f"{MESSAGE_INVALID_MODULE_PATH}: {module_path}") from None
 
     def valid_class(self, module_path: str, class_name: str):
         module = self.valid_module(module_path)

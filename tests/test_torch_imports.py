@@ -1,9 +1,11 @@
 """The PyTorch port stands alone: importing every module of
 ``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer, the
 encoder, the fault injector, the mixture of experts, the keras-shaped
-layers and the sweeps among them) loads
+layers, the sweeps, the client, the sandbox, the function service and
+the lint among them) loads
 neither JAX, flax nor any module of the JAX package, nor pandas,
-pyarrow, dill or msgpack (the card's machine has none of them), and
+pyarrow, dill, msgpack or sklearn (the card's machine has none of the
+first four, and sklearn only where it happens to be installed), and
 ``chip_smoke.py`` refuses to run without a card."""
 
 import os
@@ -19,7 +21,7 @@ _PROBE = """
 import importlib, pkgutil, sys
 # the card's machine lacks these: any import of one fails here (torch's
 # own optional imports of them tolerate that)
-for absent in ("pandas", "pyarrow", "dill", "msgpack"):
+for absent in ("pandas", "pyarrow", "dill", "msgpack", "sklearn"):
     sys.modules[absent] = None
 import learningorchestra_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -28,7 +30,8 @@ for name in names:
 bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                      "learningorchestra_tpu", "pandas",
-                                     "pyarrow", "dill", "msgpack"))
+                                     "pyarrow", "dill", "msgpack",
+                                     "sklearn"))
 print(len(names), bad)
 """
 
@@ -70,7 +73,33 @@ def test_new_modules_are_among_those_probed():
             "learningorchestra_tpu_torch.models.neural",
             "learningorchestra_tpu_torch.models.sequential_module",
             "learningorchestra_tpu_torch.models.resnet",
-            "learningorchestra_tpu_torch.models.sweep"} <= names
+            "learningorchestra_tpu_torch.models.sweep",
+            "learningorchestra_tpu_torch.client",
+            "learningorchestra_tpu_torch.services.sandbox",
+            "learningorchestra_tpu_torch.services.function_service",
+            "learningorchestra_tpu_torch.analysis",
+            "learningorchestra_tpu_torch.analysis.findings",
+            "learningorchestra_tpu_torch.analysis.code_lint",
+            "learningorchestra_tpu_torch.analysis.preflight"} <= names
+
+
+_LIGHT = """
+import sys
+import learningorchestra_tpu_torch.client
+import learningorchestra_tpu_torch.services.sandbox
+print(sorted(m for m in ("torch", "pandas", "numpy") if m in sys.modules))
+"""
+
+
+def test_client_and_sandbox_import_without_torch():
+    """The client is standard library, and the sandbox's child boots on
+    the sandbox module alone: neither loads torch or pandas (a function
+    job pays for torch only when its code imports it)."""
+    out = subprocess.run([sys.executable, "-c", _LIGHT], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
 
 
 def test_chip_smoke_fails_without_a_card():

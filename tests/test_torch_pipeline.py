@@ -224,19 +224,10 @@ NOT_PORTED = {
     "sliceDevices": ("POST", "/train/tensorflow", _run(sliceDevices=2)),
     "healthPolicy": ("POST", "/train/tensorflow", _run(
         healthPolicy={"maxRollbacks": 1})),
-    "hash in a method parameter": ("POST", "/train/tensorflow", _run(
-        params={"x": "$corpus", "epochs": "#2"})),
-    "hash in a class parameter": ("POST", "/model/tensorflow", _model(
-        classParameters=dict(CFG, d_model="#32"))),
     "tensorflow.keras": ("POST", "/model/tensorflow", _model(
         modulePath="tensorflow.keras.models", **{"class": "Sequential"})),
-    "sklearn": ("POST", "/model/scikitlearn", _model(
-        modulePath="sklearn.linear_model",
-        **{"class": "LogisticRegression"}, classParameters={})),
     "a submodule of the mapped path": ("POST", "/model/tensorflow", _model(
         modulePath="learningorchestra_tpu.models.neural")),
-    "an importable module": ("POST", "/model/tensorflow", _model(
-        modulePath="numpy", **{"class": "ndarray"})),
     "http": ("POST", "/dataset/csv", {"datasetName": "d2",
                                       "datasetURI": "http://h/x.csv"}),
     "https": ("POST", "/dataset/csv", {"datasetName": "d2",
@@ -380,11 +371,46 @@ def test_lm_options_are_accepted_as_jax(both, case):
         assert np.asarray(seen[1][2]).shape == (1, 7)
 
 
+# what NOT_PORTED held until the function route, the '#' DSL and any
+# importable module path came: each answers as in the JAX package, and
+# its job ends alike
+PORTED_SINCE = {
+    "hash in a method parameter": ("/train/tensorflow", _run(
+        params={"x": "$corpus", "epochs": "#2", "batch_size": 16,
+                "shuffle": False})),
+    "hash in a class parameter": ("/model/tensorflow", _model(
+        classParameters=dict(CFG, d_model="#32"))),
+    "sklearn": ("/model/scikitlearn", _model(
+        modulePath="sklearn.linear_model",
+        **{"class": "LogisticRegression"}, classParameters={})),
+    "an importable module": ("/model/tensorflow", _model(
+        modulePath="numpy", **{"class": "ndarray"})),
+}
+
+
+@pytest.mark.parametrize("case", list(PORTED_SINCE))
+def test_requests_ported_since_answer_as_jax(both, case):
+    path, body = PORTED_SINCE[case]
+    name = body.get("name", body.get("modelName"))
+    seen = []
+    for api in both:
+        answer = _call(api, "POST", path, body)
+        api.ctx.jobs.wait(name, timeout=300)
+        status, doc = _call(api, "GET", f"{path}/{name}")
+        assert status == 200
+        last = doc["result"][-1]
+        seen.append((answer, doc["metadata"]["finished"],
+                     doc["metadata"].get("status"), last.get("exception")))
+        assert _call(api, "DELETE", f"{path}/{name}")[0] == 200
+    assert seen[1] == seen[0]
+    assert seen[1][0] == (201, {"result": PREFIX + f"{path}/{name}"})
+    assert seen[1][1] is (case != "an importable module")
+
+
 def test_other_services_stay_unrouted(both):
     port = both[1]
     for path in ("/explore/histogram", "/transform/projection",
-                 "/function/python", "/builder/sparkml", "/observe/lm",
-                 "/observability/trace", "/profile"):
+                 "/builder/sparkml", "/observability/trace", "/profile"):
         assert _call(port, "GET", path) == (404, {"result": "unknown route"})
     for path in ("/health", "/metrics"):
         assert port.dispatch("GET", path, {}, None)[0] == 404
