@@ -82,8 +82,8 @@
    the base bit-identical, every adapter moved, the loss falling),
    ``merge_lora`` (float32 evaluate within 1e-5 relative of the adapted
    model's) and the tutorial's sampled ``generate`` (equal to the merged
-   artifact's solo ``generate``). A ``timeout`` field must get 406 and
-   leave no collection; a fit on a missing ``$`` reference must end with
+   artifact's solo ``generate``). A ``sliceDevices`` field must get 406
+   and leave no collection; a fit on a missing ``$`` reference must end with
    ``finished`` false and an exception document. Clients poll every 0.25
    s, as the JAX package's client does.
 6. Classifier path: the tutorial's TextClassifier (vocab 20000, d_model
@@ -171,7 +171,7 @@
    (flash, bf16) on 1024 rows of 512 tokens: each sm90 kernel launched
    exactly 4 layers x the optimizer steps of the trials and the refit,
    the forward once more a layer for each evaluate batch, nothing else.
-10. The function route (the ``function`` line, last): the port's REST
+10. The function route (the ``function`` line): the port's REST
    server on the card driven over HTTP by the port's own
    ``client.Context``, user code in the default ``subprocess`` sandbox.
    A probe function reports what the jailed child can import (pandas,
@@ -201,11 +201,40 @@
    job's POST-to-finished seconds and the share an empty job's (the
    child's spawn) takes of it, ``ctx.wait``'s latency after ``finished``
    flips, and the phase's seconds.
+11. The explore and transform routes (the ``transform`` line; BASELINE
+   config 3, IMDb -> Transform -> LSTM): 4096 IMDb-shaped rows (200 ids
+   below 20000 and a label, from a seed) as a CSV whose id columns are
+   written as integral floats (``12.0``) beside a text column, over HTTP
+   through the port's client: ``transform/dataType`` to number (the ids
+   come back as the ints written), ``transform/projection`` to the ids
+   and to the label (equal to the CSV's), ``explore/histogram`` of the
+   label (the counts of ``numpy.unique``), the tutorial LSTM's ``/train``
+   on ``$ids``/``$lab`` (1 epoch, batch 128: losses within 1e-5 relative
+   of a direct fit, bit equality recorded) and ``/evaluate``; an explore
+   plot (a PNG, or where the machine lacks matplotlib an ``ImportError``
+   job; the line says which); the GET cache must hit.
+12. The job lifecycle (the ``lifecycle`` line, last): the tutorial LM's
+   bf16 fit over REST cancelled after its first step (ended
+   ``cancelled`` within 2 steps' time plus 0.5 s) and one with ``"timeout":
+   2`` (``timedOut``); the card memory at the start of the job queued
+   behind each within 1 MiB of before the fit, the sm90 counters still
+   after; the health sentinel on the tutorial CNN under
+   ``engine_step:1:nan`` (``skip``: finite losses, a counted step;
+   ``rollback`` with a checkpoint: within 1e-5 of a clean run; ``fail``:
+   ``NumericalDivergence``, then ``deadLettered``) and the step ms with
+   ``skip`` and without a policy; a server process killed with SIGKILL
+   after a checkpointed fit's first epoch and restarted: the fit resumes,
+   its epoch 2 bit-equal to an uninterrupted fit's, exactly 64 launches
+   of each sm90 kernel in the restarted process and nothing else, an
+   unfinished projection failed with ``InterruptedError``; the gateway's
+   504 at ``LO_REQUEST_TIMEOUT`` 0.5 on a slow read whose dispatch runs
+   on to its end.
 
 The kernel launch counts are zeroed just before each path and read
 just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
-function``) builds the kernels and runs that phase alone (to iterate on
-it), printing its line and no result line.
+function``, ``--only transform``, ``--only lifecycle``, or several,
+comma-separated) builds the kernels and runs that phase alone (to
+iterate on it), printing its line and no result line.
 
 Earlier lines print the card (nvidia-smi name and power limit), the
 build time, ptxas's registers and spill bytes of every kernel variant
@@ -1881,9 +1910,10 @@ def pipeline_phase(torch, log, home, yard):
                             launches)
 
         refused = post("/predict/tensorflow", {
-            "name": "lm_timeout", "modelName": "lm_t", "method": "generate",
-            "methodParameters": {"prompt": [[1, 2]]}, "timeout": 60}, 406)
-        if _http(base, "GET", "/predict/tensorflow/lm_timeout")[0] != 404:
+            "name": "lm_slice", "modelName": "lm_t", "method": "generate",
+            "methodParameters": {"prompt": [[1, 2]]}, "sliceDevices": 1},
+            406)
+        if _http(base, "GET", "/predict/tensorflow/lm_slice")[0] != 404:
             raise AssertionError("a refused request left a collection")
         post("/train/tensorflow", {"name": "lm_bad", "modelName": "lm",
                                    "method": "fit",
@@ -1913,7 +1943,8 @@ def pipeline_phase(torch, log, home, yard):
         "generateSeconds": gen_s, "generatePrompt": len(prompt),
         "generateTokensEqualSolo": True, "servedTokensEqual": True,
         "launches": launches, "checkpoints": checkpoints,
-        "resume": resume, "lora": lora, "refusedTimeout": refused["result"],
+        "resume": resume, "lora": lora,
+        "refusedSliceDevices": refused["result"],
         "failedJobException": bad["result"][-1]["exception"]}))
     shutil.rmtree(ctx.config.checkpoints_dir, ignore_errors=True)
     return launches
@@ -4003,6 +4034,596 @@ def function_phase(torch, log, home, yard):
     return {"function": launches}
 
 
+TRANSFORM_ROWS = 4096
+# the boot-recovery server: `python -m learningorchestra_tpu_torch` run
+# as by -m, which prints each kernel's launches when it exits
+RECOVERY_SERVER = (
+    "import atexit, json, runpy\n"
+    "from learningorchestra_tpu_torch.ops import attention as attn\n"
+    f"counters = {COUNTERS!r}\n"
+    "atexit.register(lambda: print('launches ' + json.dumps(\n"
+    "    {k: getattr(attn, v) for k, v in counters.items()}), flush=True))\n"
+    "runpy.run_module('learningorchestra_tpu_torch', run_name='__main__',\n"
+    "                 alter_sys=True)\n")
+
+
+def _card_bytes(torch) -> int:
+    """Card memory held by live tensors once the queued work ran, less
+    cuBLAS's workspaces (one a thread's handle, kept by PyTorch: a job
+    on a pool thread that never used cuBLAS would add one)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    return torch.cuda.memory_allocated()
+
+
+def _save_arrays(ctx, name: str, arrays: dict) -> None:
+    """Arrays as a finished function artifact: ``$name.key`` feeds them
+    to a job, as a Function step's ``response`` would."""
+    ctx.catalog.create_collection(name, "function/python", {})
+    ctx.artifacts.save(arrays, name, "function/python")
+    ctx.catalog.mark_finished(name)
+
+
+def transform_phase(torch, log, home, yard):
+    """BASELINE config 3 over HTTP through the port's client (the
+    ``transform`` line): IMDb-shaped rows as a CSV whose 200 id columns
+    are written as integral floats (``12.0``) beside a text column, then
+    ``transform/dataType`` to number (the ids must come back as the ints
+    written), ``transform/projection`` to the ids and to the label (rows
+    equal to the CSV's), ``explore/histogram`` of the label (counts equal
+    to numpy's), the tutorial LSTM's ``/train`` on ``$ids``/``$lab`` (1
+    epoch, batch 128; losses within 1e-5 relative of a direct fit on the
+    same arrays) and ``/evaluate``; an explore plot (a PNG, or an
+    ``ImportError`` job where the card's machine has no matplotlib); the
+    GET cache's hits on the polls. Returns the path's kernel launches
+    (none: the LSTM runs on cuDNN)."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch import client as lo_client
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    phase_t0 = time.monotonic()
+    ix, iy = _imdb_like(np, TRANSFORM_ROWS, seed=3)
+    ids = [f"t{i}" for i in range(IMDB_SEQ)]
+    csv_path = os.path.join(home, "imdb.csv")
+    with open(csv_path, "w") as f:
+        f.write(",".join(ids + ["review", "label"]) + "\n")
+        for i, (row, label) in enumerate(zip(ix.tolist(), iy.tolist())):
+            f.write(",".join(f"{t}.0" for t in row) + f",r{i},{label}\n")
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    client = lo_client.Context(server.base_url)
+    base = server.base_url
+    out: dict = {"rows": TRANSFORM_ROWS, "idColumns": IMDB_SEQ}
+    _reset_launches(attn)
+
+    def done(name):
+        meta = _observe_wait(client, name)
+        if not meta.get("finished"):
+            raise AssertionError(f"job {name}: {meta.get('failedDocument')}")
+        return meta
+
+    def columns(name):
+        cols = ctx.catalog.read_columns(name)
+        return {k: (kind, data) for k, (kind, data, _) in cols.items()}
+
+    try:
+        t0 = time.monotonic()
+        client.dataset_csv.insert("imdb", csv_path)
+        done("imdb")
+        out["ingestSeconds"] = time.monotonic() - t0
+        kinds = {kind for k, (kind, _) in columns("imdb").items()
+                 if k in ids}
+        if kinds != {"float64"}:
+            raise AssertionError(f"the id columns ingested as {kinds}")
+        t0 = time.monotonic()
+        client.transform_datatype.run_datatype(
+            "imdb", dict.fromkeys(ids, "number"))
+        _poll(base, "/dataset/csv/imdb")
+        out["dataTypeSeconds"] = time.monotonic() - t0
+        cast = columns("imdb")
+        if {cast[k][0] for k in ids} != {"int64"} or not np.array_equal(
+                np.stack([cast[k][1] for k in ids], 1), ix):
+            raise AssertionError("dataType did not give the ints written")
+        first = client.dataset_csv.read("imdb", skip=1, limit=1)["result"][0]
+        if [first[k] for k in ids] != ix[0].tolist() or \
+                not all(type(first[k]) is int for k in ids):
+            raise AssertionError(f"the first row reads {first}")
+
+        t0 = time.monotonic()
+        for name, names in (("ids", ids), ("lab", ["label"])):
+            client.transform_projection.run_projection("imdb", name, names)
+            _poll(base, f"/transform/projection/{name}")
+        out["projectionSeconds"] = time.monotonic() - t0
+        proj, lab = columns("ids"), columns("lab")
+        if list(proj) != ids or not np.array_equal(
+                np.stack([proj[k][1] for k in ids], 1), ix) or \
+                not np.array_equal(lab["label"][1], iy):
+            raise AssertionError("the projections differ from the CSV")
+
+        client.explore_histogram.run_histogram("imdb", "lab_hist",
+                                               ["label"])
+        done("lab_hist")
+        buckets = [d for d in client.explore_histogram.read("lab_hist")[
+            "result"] if "label" in d][0]["label"]
+        values, counts = np.unique(iy, return_counts=True)
+        if sorted((b["_id"], b["count"]) for b in buckets) != \
+                list(zip(values.tolist(), counts.tolist())):
+            raise AssertionError(f"histogram {buckets}")
+        out["histogram"] = buckets
+
+        # the tutorial LSTM over REST and directly on the same arrays
+        direct = NeuralModel(TUTORIAL_LSTM, device="cuda")
+        want = direct.fit(ix, iy, batch_size=IMDB_BATCH,
+                          epochs=1).history["loss"]
+        want_ev = direct.evaluate(ix, iy, batch_size=IMDB_BATCH)
+        del direct
+        client.model_tensorflow.create(
+            "lstm", "learningorchestra_tpu.models", "NeuralModel",
+            {"layer_configs": TUTORIAL_LSTM})
+        _poll(base, "/model/tensorflow/lstm")
+        t0 = time.monotonic()
+        client.train_tensorflow.run("lstm_t", "lstm", "fit", {
+            "x": "$ids", "y": "$lab", "epochs": 1,
+            "batch_size": IMDB_BATCH})
+        _poll(base, "/train/tensorflow/lstm_t")
+        out["trainJobSeconds"] = time.monotonic() - t0
+        got = [d["epochRecord"]["loss"] for d in client.train_tensorflow.read(
+            "lstm_t")["result"] if "epochRecord" in d]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if len(got) != 1 or not np.isfinite(got[0]) or rel > 1e-5:
+            raise AssertionError(f"REST LSTM losses {got}, direct {want}")
+        client.evaluate_tensorflow.run("lstm_ev", "lstm_t", "evaluate", {
+            "x": "$ids", "y": "$lab", "batch_size": IMDB_BATCH})
+        _poll(base, "/evaluate/tensorflow/lstm_ev")
+        ev = next(d["result"] for d in client.evaluate_tensorflow.read(
+            "lstm_ev")["result"] if "result" in d)
+        ev_rel = max(abs(ev[k] - want_ev[k]) / max(abs(want_ev[k]), 1e-12)
+                     for k in want_ev)
+        if ev_rel > 1e-5:
+            raise AssertionError(f"REST evaluate {ev}, direct {want_ev}")
+        out.update(losses=got, directLosses=want, bitEqualToDirect=got ==
+                   want, maxRelToDirect=rel, evaluate=ev,
+                   evaluateMaxRelToDirect=ev_rel)
+
+        # an explore plot: a PNG where matplotlib and seaborn import
+        client.explore_tensorflow.run_class(
+            "plot", "numpy", "arange", {"start": 0, "stop": 64})
+        meta = _observe_wait(client, "plot")
+        if meta.get("finished"):
+            png = client.explore_tensorflow.read_image("plot")
+            if png[:8] != b"\x89PNG\r\n\x1a\n":
+                raise AssertionError("the explore plot is not a PNG")
+            out["explorePlot"] = {"png": True, "bytes": len(png)}
+        else:
+            error = meta["failedDocument"]["exception"]
+            if not error.startswith("ImportError(") or \
+                    "an explore plot needs matplotlib and seaborn" \
+                    not in error:
+                raise AssertionError(f"the explore job failed: {error}")
+            out["explorePlot"] = {"png": False, "importError": error}
+        # a finished result read twice, as a client re-reads it
+        for _ in range(2):
+            client.explore_histogram.read("lab_hist", limit=1)
+        out["getCache"] = server.api.read_cache.stats()
+        if not out["getCache"]["hits"] > 0:
+            raise AssertionError(f"no GET cache hit: {out['getCache']}")
+    finally:
+        server.stop()
+    launches = _launches(attn)
+    if any(launches.values()):
+        raise AssertionError(f"the transform path launched {launches}")
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("transform " + json.dumps(out))
+    return {"transform": launches}
+
+
+def _lm_job(base, name, params, timeout=None):
+    body = {"name": name, "modelName": "lm", "method": "fit",
+            "methodParameters": params}
+    if timeout is not None:
+        body["timeout"] = timeout
+    status, answer = _http(base, "POST", "/train/tensorflow", body)
+    if status != 201:
+        raise AssertionError(f"POST {name}: {status} {answer}")
+
+
+def _job_docs(base, verb, name):
+    return _http(base, "GET", f"/{verb}/tensorflow/{name}")[1]
+
+
+def lifecycle_phase(torch, log, home, yard):
+    """The job lifecycle on the card (the ``lifecycle`` line). (a) The
+    tutorial LM's bf16 fit over REST (the pipeline's 64 windows, batch
+    16, grad_accum 2): a ``DELETE .../run`` after its first step ends it
+    ``cancelled`` within 2 steps' time, and ``"timeout": 2`` ends another
+    ``timedOut``; for each, the card memory at the start of the job
+    queued behind it is within 1 MiB of before the fit, and the sm90
+    counters stop. (b) The health sentinel on the tutorial CNN (1024
+    MNIST-shaped rows, batch 256, 3 epochs, no shuffle) under
+    ``engine_step:1:nan``: ``skip`` keeps the losses finite and counts
+    the step; ``rollback`` with ``"checkpoint": true`` ends within 1e-5
+    relative of a clean run's losses; ``fail`` (every epoch poisoned)
+    dead-letters after ``LO_HEALTH_RETRIES``; the CNN's step ms with
+    ``skip`` and without a policy. (c) Boot recovery: a server process
+    killed with SIGKILL after the first epoch of a checkpointed 2-epoch
+    LM fit; the restarted server requeues it, its epoch 2 equals the
+    uninterrupted fit's loss bit for bit with exactly 64 launches of each
+    sm90 kernel and nothing else, and an unfinished projection gets its
+    ``InterruptedError``. (d) The gateway: at ``LO_REQUEST_TIMEOUT`` 0.5 a
+    slow read answers 504 and its dispatch runs to its end. Returns the
+    launches of the cancelled, timed-out and resumed fits."""
+    import signal
+
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services import faults
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import Api, RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    phase_t0 = time.monotonic()
+    out: dict = {}
+    paths: dict = {}
+    x = _successor_windows(np, TRAIN_WINDOWS, TRAIN_SEQ, seed=0)
+    steps_per_epoch = TRAIN_WINDOWS // TRAIN_BATCH
+    step_launches = LM_CONFIG["n_layers"] * TRAIN_ACCUM
+    fit = {"x": "$corpus.tokens", "batch_size": TRAIN_BATCH,
+           "epochs": TRAIN_EPOCHS, "grad_accum": TRAIN_ACCUM}
+
+    # the uninterrupted fit: the resumed epoch's yardstick and the step
+    # time (it also warms what a fit keeps for the process)
+    lm = LanguageModel(**LM_CONFIG, device="cuda")
+    lm.set_params(weights.params_from_flax(
+        weights.init_params(LM_CONFIG, seed=0)))
+    hist = lm.fit(x, batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                  grad_accum=TRAIN_ACCUM).history
+    reference = hist["loss"]
+    step_s = hist["epochSeconds"][1] / steps_per_epoch
+    del lm, hist
+
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    try:
+        _save_arrays(ctx, "corpus", {"tokens": x})
+        status, answer = _http(base, "POST", "/model/tensorflow", {
+            "modelName": "lm", "modulePath": "learningorchestra_tpu.models",
+            "class": "LanguageModel", "classParameters": LM_CONFIG})
+        if status != 201:
+            raise AssertionError(f"POST /model lm: {status} {answer}")
+        _poll(base, "/model/tensorflow/lm")
+
+        # (a) cancel, then timeout, each with a probe job queued behind
+        def probe(name):
+            ctx.catalog.create_collection(name, "evaluate/tensorflow", {})
+
+            def run():
+                t = time.monotonic()
+                return {"t": t, "launches": _launches(attn),
+                        "bytes": _card_bytes(torch),
+                        "peak": torch.cuda.max_memory_allocated()}
+
+            ctx.jobs.submit(name, run, needs_card=True)
+
+        lifecycle = {}
+        for name, timeout in (("lm_cancel", None), ("lm_timeout", 2)):
+            before = _card_bytes(torch)
+            torch.cuda.reset_peak_memory_stats()
+            _reset_launches(attn)
+            t_post = time.monotonic()
+            _lm_job(base, name, fit, timeout)
+            probe(f"{name}_next")
+            if timeout is None:
+                # the first step is enqueued: cancel
+                while attn.FLASH_FWD_SM90_LAUNCHES < step_launches:
+                    if time.monotonic() - t_post > 120:
+                        raise AssertionError("the fit never stepped")
+                    time.sleep(0.002)
+                t_cancel = time.monotonic()
+                status, answer = _http(base, "DELETE",
+                                       f"/train/tensorflow/{name}/run")
+                if status != 200:
+                    raise AssertionError(f"cancel: {status} {answer}")
+            nxt = ctx.jobs.wait(f"{name}_next", timeout=600)
+            ended = _job_docs(base, "train", name)
+            want_status = "cancelled" if timeout is None else "timedOut"
+            last = ended["result"][-1]
+            if ended["metadata"].get("status") != want_status or \
+                    last.get("status") != want_status or \
+                    ended["metadata"]["finished"]:
+                raise AssertionError(f"{name} ended {ended['metadata']}, "
+                                     f"{last}")
+            launched = nxt["launches"]
+            time.sleep(0.5)
+            if _launches(attn) != launched:
+                raise AssertionError(f"{name}: launches went on after it "
+                                     f"ended")
+            stepped = launched["flash_fwd_sm90"] // step_launches
+            freed = nxt["bytes"] - before
+            record = {"status": want_status, "launches": launched,
+                      "stepsLaunched": stepped,
+                      "cardBytesBefore": before,
+                      "cardBytesAtNextJob": nxt["bytes"],
+                      "cardBytesLeft": freed,
+                      "peakBytesDuringFit": nxt["peak"],
+                      "elapsedSeconds": last.get("elapsedSeconds"),
+                      "exception": last.get("exception")}
+            if abs(freed) > 1 << 20:
+                raise AssertionError(f"{name} left {freed} bytes: {record}")
+            if any(n for k, n in launched.items()
+                   if not k.endswith("_sm90")) or \
+                    launched["flash_bwd_dkv_sm90"] > \
+                    launched["flash_fwd_sm90"]:
+                raise AssertionError(f"{name} launched {launched}")
+            if timeout is None:
+                record["cancelToNextJobSeconds"] = nxt["t"] - t_cancel
+                # two steps, and the collection and the handoff
+                limit = 2 * step_s + 0.5
+                record["limitSeconds"] = limit
+                if record["cancelToNextJobSeconds"] > limit:
+                    raise AssertionError(f"the cancel took {record}")
+            else:
+                record["postToNextJobSeconds"] = nxt["t"] - t_post
+            lifecycle[name] = record
+            paths["lifecycleCancel" if timeout is None
+                  else "lifecycleTimeout"] = launched
+        out["cancelAndTimeout"] = lifecycle
+        out["stepSeconds"] = step_s
+
+        # (b) the health sentinel on the tutorial CNN, over REST
+        rx, ry = _mnist_like(np, REST_ROWS, seed=1)
+        _save_arrays(ctx, "mnist", {"x": rx, "y": ry})
+        status, answer = _http(base, "POST", "/model/tensorflow", {
+            "modelName": "cnn", "modulePath": "learningorchestra_tpu.models",
+            "class": "NeuralModel",
+            "classParameters": {"layer_configs": TUTORIAL_CNN}})
+        if status != 201:
+            raise AssertionError(f"POST /model cnn: {status} {answer}")
+        _poll(base, "/model/tensorflow/cnn")
+        cnn_fit = {"x": "$mnist.x", "y": "$mnist.y", "epochs": 3,
+                   "batch_size": MNIST_BATCH, "shuffle": False}
+
+        def cnn_job(name, spec, policy, **extra):
+            ctx.config.fault_inject = spec
+            faults.reset()
+            status, answer = _http(base, "POST", "/train/tensorflow", {
+                "name": name, "modelName": "cnn", "method": "fit",
+                "methodParameters": dict(cnn_fit, **extra),
+                "healthPolicy": policy})
+            if status != 201:
+                raise AssertionError(f"POST {name}: {status} {answer}")
+            ctx.jobs.wait(name, timeout=600)
+            body = _job_docs(base, "train", name)
+            losses = [d["epochRecord"]["loss"] for d in body["result"]
+                      if "epochRecord" in d]
+            return body, losses
+
+        health = {}
+        _, clean = cnn_job("cnn_clean", "", "rollback")
+        body, skipped = cnn_job("cnn_skip", "engine_step:1:nan", "skip")
+        meta = body["metadata"]
+        if not (meta["finished"] and all(np.isfinite(skipped)) and
+                meta.get("nonfiniteSteps", 0) >= 1):
+            raise AssertionError(f"skip: {skipped}, {meta}")
+        health["skip"] = {"losses": skipped,
+                          "nonfiniteSteps": meta["nonfiniteSteps"],
+                          "healthEvents": meta["healthEvents"]}
+        body, rolled = cnn_job("cnn_rollback", "engine_step:1:nan",
+                               "rollback", checkpoint=True)
+        meta = body["metadata"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(rolled, clean))
+        if not (meta["finished"] and meta.get("rollbacks") == 1 and
+                len(rolled) == len(clean) == 3 and rel <= 1e-5):
+            raise AssertionError(f"rollback: {rolled} vs clean {clean}; "
+                                 f"{meta}")
+        health["rollback"] = {"losses": rolled, "cleanLosses": clean,
+                              "maxRelToClean": rel,
+                              "bitEqualToClean": rolled == clean,
+                              "rollbacks": meta["rollbacks"],
+                              "restoredStep": meta["healthEvents"][0].get(
+                                  "restoredStep")}
+        body, _ = cnn_job("cnn_fail", "engine_step:99:nan", "fail")
+        docs = [d for d in body["result"] if d.get("exception")]
+        retries = ctx.config.health_retries
+        if body["metadata"].get("status") != "deadLettered" or \
+                len(docs) != retries + 1 or \
+                not all("NumericalDivergence" in d["exception"] and
+                        d["errorKind"] == "numerical" for d in docs) or \
+                not docs[-1].get("deadLettered"):
+            raise AssertionError(f"fail: {body['metadata']}, {docs}")
+        health["fail"] = {"attempts": len(docs),
+                          "exception": docs[-1]["exception"],
+                          "retriesSkipped": docs[-1].get("retriesSkipped")}
+        ctx.config.fault_inject = ""
+        faults.reset()
+
+        # the sentinel's cost on a host-bound step: skip against no
+        # policy, in turns (none, skip, skip, none), 40 steps each
+        tx, ty = _mnist_like(np, MNIST_BATCH * 40, seed=2)
+        timing = {"none": [], "skip": []}
+        for policy in ("none", "skip", "skip", "none"):
+            model = NeuralModel(TUTORIAL_CNN, device="cuda")
+            model.fit(tx[:MNIST_BATCH], ty[:MNIST_BATCH],
+                      batch_size=MNIST_BATCH, epochs=1)  # first use
+            hist = model.fit(tx, ty, batch_size=MNIST_BATCH, epochs=1,
+                             health_policy=None if policy == "none"
+                             else policy).history
+            timing[policy].append(hist["epochSeconds"][0] / 40 * 1e3)
+            del model
+        health["stepMs"] = timing
+        health["skipOverNoneStepMs"] = (sum(timing["skip"]) -
+                                        sum(timing["none"])) / 2
+        out["health"] = health
+
+        # (d) the gateway: a slow read past the deadline
+        big = 10000
+        ctx.catalog.create_collection("big", "dataset/csv", {})
+        with ctx.catalog.dataset_writer("big") as writer:
+            writer.write_batch({f"c{i}": np.arange(big) + i
+                                for i in range(200)})
+        ctx.catalog.mark_finished("big")
+        ctx.config.request_timeout_seconds = 0.5
+        try:
+            t0 = time.monotonic()
+            status, answer = _http(base, "GET", "/dataset/csv/big")
+            answered = time.monotonic() - t0
+        finally:
+            ctx.config.request_timeout_seconds = 0.0
+        gateway = server.api.gateway
+        deadline = time.monotonic() + 120
+        while gateway["inflight"] or gateway["abandonedInflight"]:
+            if time.monotonic() > deadline:
+                raise AssertionError(f"the read never ended: {gateway}")
+            time.sleep(0.05)
+        ran = time.monotonic() - t0
+        if status != 504 or answered > 1.5 or \
+                gateway["abandonedTotal"] != 1:
+            raise AssertionError(f"gateway: {status} {answer} after "
+                                 f"{answered} s; {gateway}")
+        out["gateway"] = {"status": status, "answer": answer["result"],
+                          "answeredSeconds": answered,
+                          "dispatchSeconds": ran, "counters": dict(gateway)}
+        out["lifecycleCounters"] = ctx.jobs.lifecycle_counters()
+    finally:
+        ctx.config.fault_inject = ""
+        faults.reset()
+        server.stop()
+
+    # (c) boot recovery in a server process of its own
+    rhome = os.path.join(home, "recovery")
+    rctx = ServiceContext(Config(home=rhome), device="cuda")
+    try:
+        _save_arrays(rctx, "corpus", {"tokens": x})
+        Api(rctx).dispatch("POST", PREFIX + "/model/tensorflow", {}, {
+            "modelName": "lm", "modulePath": "learningorchestra_tpu.models",
+            "class": "LanguageModel", "classParameters": LM_CONFIG})
+        rctx.jobs.wait("lm", timeout=600)
+    finally:
+        rctx.close()
+    del rctx
+    gc.collect()
+    progress = os.path.join(rhome, "checkpoints", "lm_boot", "progress.json")
+
+    def start():
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        proc = subprocess.Popen(
+            [sys.executable, "-c", RECOVERY_SERVER, "--home", rhome,
+             "--port", "0", "--device", "cuda"], env=env,
+            stdout=subprocess.PIPE, text=True)
+        line = proc.stdout.readline()
+        if "REST on http://" not in line:
+            proc.kill()
+            raise AssertionError(f"the server did not start: {line!r}")
+        return (proc, line.split("REST on ")[1].split(PREFIX)[0].strip(),
+                proc.stdout.readline())
+
+    recovery = {}
+    t0 = time.monotonic()
+    proc, rbase, _ = start()
+    try:
+        recovery["firstStartSeconds"] = time.monotonic() - t0
+        _lm_job(rbase, "lm_boot", dict(fit, checkpoint=True))
+        # the kill comes after the first epoch's commit and after its
+        # record, which the fit appends just after the commit
+        while True:
+            if time.monotonic() - t0 > 600:
+                raise AssertionError("no first epoch commit and record")
+            try:
+                with open(progress) as f:
+                    committed = json.load(f).get("epochs_done") == 1
+            except (OSError, ValueError):
+                committed = False
+            if committed and any(
+                    d.get("epochRecord", {}).get("epoch") == 0
+                    for d in _job_docs(rbase, "train", "lm_boot")["result"]):
+                break
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGKILL)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    with open(progress) as f:
+        if json.load(f)["epochs_done"] != 1:
+            raise AssertionError("the server was killed after epoch 2")
+    from learningorchestra_tpu_torch.catalog.store import Catalog
+
+    cat = Catalog(os.path.join(rhome, "catalog.sqlite"),
+                  os.path.join(rhome, "datasets"))
+    cat.create_collection("proj", "transform/projection",
+                          {"parentName": "corpus", "fields": ["t0"]})
+    cat.close()
+    t1 = time.monotonic()
+    proc, rbase, recovered = start()
+    try:
+        recovery["restartSeconds"] = time.monotonic() - t1
+        recovery["recovered"] = recovered.strip()
+        if "'requeued': ['lm_boot']" not in recovered or \
+                "'failed': ['proj']" not in recovered:
+            raise AssertionError(f"recovered at start: {recovered}")
+        meta = _poll(rbase, "/train/tensorflow/lm_boot")
+        body = _job_docs(rbase, "train", "lm_boot")
+        proj = _job_docs(rbase, "transform", "proj")
+        recovery["resumeJobSeconds"] = time.monotonic() - t1
+    finally:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            tail, _ = proc.communicate(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            tail, _ = proc.communicate()
+    dumped = [line for line in tail.splitlines()
+              if line.startswith("launches ")]
+    if not dumped:
+        raise AssertionError(f"the restarted server printed {tail!r}")
+    resumed = json.loads(dumped[-1][len("launches "):])
+    need = steps_per_epoch * step_launches
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_fwd_sm90=need, flash_bwd_dq_sm90=need,
+                flash_bwd_dkv_sm90=need)
+    records = [d["epochRecord"] for d in body["result"]
+               if "epochRecord" in d]
+    if resumed != want or [r["epoch"] for r in records] != [0, 1] or \
+            records[1]["loss"] != reference[1] or \
+            not meta.get("checkpointRestores"):
+        raise AssertionError(f"the resumed fit: launches {resumed} (want "
+                             f"{want}), records {records}, reference "
+                             f"{reference}, metadata {meta}")
+    if not proj["result"][-1].get("exception", "").startswith(
+            "InterruptedError("):
+        raise AssertionError(f"the projection: {proj['result'][-1]}")
+    recovery.update(
+        resumedLaunches=resumed, losses=[r["loss"] for r in records],
+        referenceLosses=reference, epoch2BitEqual=True,
+        restoredStep=meta["checkpointRestores"][0]["step"],
+        restoreSeconds=meta["checkpointRestores"][0]["seconds"],
+        projection=proj["result"][-1]["exception"])
+    paths["lifecycleResumedEpoch"] = resumed
+    out["bootRecovery"] = recovery
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("lifecycle " + json.dumps(out))
+    return paths
+
+
 def main() -> int:
     try:
         import torch
@@ -4043,7 +4664,9 @@ def main() -> int:
     if "--only" in sys.argv:
         # iteration aid: the build, then the named self-contained phases
         # alone; no kernels line and no result line
-        phases = {"neural": neural_phase, "function": function_phase}
+        phases = {"neural": neural_phase, "function": function_phase,
+                  "transform": transform_phase,
+                  "lifecycle": lifecycle_phase}
         try:
             for name in sys.argv[sys.argv.index("--only") + 1].split(","):
                 with tempfile.TemporaryDirectory() as home:
@@ -4083,6 +4706,10 @@ def main() -> int:
             paths.update(neural_phase(torch, log, home, {}))
         with tempfile.TemporaryDirectory() as home:
             paths.update(function_phase(torch, log, home, {}))
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(transform_phase(torch, log, home, {}))
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(lifecycle_phase(torch, log, home, {}))
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
         # the split-TF32 backward

@@ -1,6 +1,9 @@
 """``python -m learningorchestra_tpu_torch [--host H] [--port P]
 [--home DIR] [--device cuda|cpu]`` starts the REST server (on the card
-unless ``--device cpu``)."""
+unless ``--device cpu``; ``--port 0`` takes a free port, which the first
+line prints). At start the server requeues the unfinished executions and
+functions found under the home and fails the other unfinished jobs with
+a typed document; the second line prints their names."""
 
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ def main(argv=None) -> None:
     host, port = server.address
     print(f"learningOrchestra (PyTorch) REST on http://{host}:{port}"
           f"{API_PREFIX}", flush=True)
+    print(f"recovered at start: {server.api.recovered}", flush=True)
 
     def _terminate(signum, frame):  # noqa: ARG001
         raise KeyboardInterrupt

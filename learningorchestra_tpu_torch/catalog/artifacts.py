@@ -22,6 +22,11 @@ Results of evaluate, predict and generate, and a function's
   back as lists, numpy scalars as Python numbers);
 - a ``History`` is its lists (kind ``history``).
 
+Raw bytes (an explore plot's PNG, a ``dataset/generic`` download) are
+kept as they came, with a file name and a content type
+(:meth:`ArtifactStore.save_bytes`, kind ``bytes``; ``load`` returns the
+bytes).
+
 Any other object (a fitted sklearn estimator, a DataFrame, a function's
 tuple of live objects: what the JAX package stores with ``dill``) is
 ``object.pkl``, written by the standard ``pickle`` (kind ``pickle``); an
@@ -40,7 +45,7 @@ import os
 import pickle
 import re
 import shutil
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -250,6 +255,31 @@ class ArtifactStore:
             json.dump(meta, f)
         return d
 
+    def save_bytes(self, data: bytes, name: str, type_string: str,
+                   filename: str = "payload.bin",
+                   content_type: str = "application/octet-stream") -> str:
+        """Stores raw bytes as ``filename``; the file's path."""
+        d = self._dir(name, type_string)
+        if os.path.isdir(d):
+            shutil.rmtree(d)
+        os.makedirs(d)
+        filename = os.path.basename(filename) or "payload.bin"
+        with open(os.path.join(d, filename), "wb") as f:
+            f.write(data)
+        with open(os.path.join(d, "meta.json"), "w") as f:
+            json.dump({"name": name, "type": type_string, "kind": "bytes",
+                       "filename": filename,
+                       "content_type": content_type}, f)
+        return os.path.join(d, filename)
+
+    def bytes_path(self, name: str, type_string: str) -> Tuple[str, str]:
+        """``(path, content type)`` of a bytes artifact."""
+        d, _, meta = self._meta(name, type_string)
+        if meta.get("kind") != "bytes":
+            raise ValueError(f"artifact {name} is not a bytes artifact")
+        return os.path.join(d, meta["filename"]), meta.get(
+            "content_type", "application/octet-stream")
+
     def _meta(self, name: str, type_string: Optional[str]):
         if type_string is None:
             type_string = self.find(name)
@@ -317,6 +347,9 @@ class ArtifactStore:
         if kind == "dill":
             return _load_dill(os.path.join(d, "object.dill"),
                               f"{type_string}/{name}")
+        if kind == "bytes":
+            with open(os.path.join(d, meta["filename"]), "rb") as f:
+                return f.read()
         raise ValueError(
             f"artifact {type_string}/{name} was not written by the PyTorch "
             f"package (kind {kind!r})")

@@ -334,6 +334,24 @@ class Catalog:
     def dataset_writer(self, name: str) -> "DatasetWriter":
         return DatasetWriter(self, name)
 
+    def dataset_fields(self, name: str) -> List[str]:
+        """The stored columns' names, in file order."""
+        schema = self._schema(name)
+        return [] if schema is None else [c["name"]
+                                          for c in schema["columns"]]
+
+    def dataset_version(self, name: str) -> Optional[Tuple[int, int, int]]:
+        """A stamp of the stored rows that changes with every write
+        (writes replace the dataset directory and bypass the change
+        feed): the schema file's inode, mtime and size; None without
+        rows."""
+        try:
+            st = os.stat(os.path.join(self._dataset_dir(name),
+                                      _SCHEMA_FILE))
+        except OSError:
+            return None
+        return (st.st_ino, st.st_mtime_ns, st.st_size)
+
     def count_rows(self, name: str) -> int:
         schema = self._schema(name)
         return 0 if schema is None else int(schema["rows"])
@@ -351,6 +369,19 @@ class Catalog:
                     if col["nulls"] else None)
             out.append((col["name"], col["kind"], data, mask))
         return out
+
+    def read_columns(self, name: str,
+                     fields: Optional[List[str]] = None,
+                     ) -> Dict[str, Tuple[str, np.ndarray,
+                                          Optional[np.ndarray]]]:
+        """``{field: (kind, data, null mask or None)}`` of the stored
+        columns (all, or ``fields`` in their order), read into memory."""
+        schema = self._schema(name)
+        if schema is None:
+            raise CollectionNotFound(f"{name} has no tabular data")
+        columns = {col: (kind, np.array(data), mask) for col, kind, data,
+                   mask in self._load_columns(name, schema)}
+        return {f: columns[f] for f in (fields or list(columns))}
 
     def read_table(self, name: str) -> Table:
         """The whole dataset as a :class:`Table`, each column in the

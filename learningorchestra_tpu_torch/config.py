@@ -12,7 +12,14 @@ the bucketed ``LO_SERVE_BUCKETS`` and ``LO_SERVE_MAX_WAIT_MS``, and the
 disaggregated and speculative ``LO_SERVE_DISAGG``, ``LO_SERVE_DRAFT`` and
 ``LO_SERVE_SPEC_K``, and the sandbox's ``LO_SANDBOX``, ``LO_SANDBOX_MAX``,
 ``LO_PREFLIGHT``, ``LO_SANDBOX_CPU_SECONDS``, ``LO_SANDBOX_MEMORY_BYTES``
-and ``LO_SANDBOX_FILE_BYTES``). The device is chosen in code only (``device=`` or ``--device``). A
+and ``LO_SANDBOX_FILE_BYTES``, the job lifecycle's ``LO_JOB_RETRIES``,
+``LO_JOB_TIMEOUT``, ``LO_STALL_SECONDS``, ``LO_STALL_ESCALATE``,
+``LO_RETRY_BACKOFF`` and ``LO_RETRY_BACKOFF_MAX``, the health sentinel's
+``LO_HEALTH_ACTION``, ``LO_HEALTH_SPIKE_FACTOR``, ``LO_HEALTH_EMA_ALPHA``,
+``LO_HEALTH_MAX_ROLLBACKS``, ``LO_HEALTH_COOLDOWN`` and
+``LO_HEALTH_RETRIES``, and the gateway's ``LO_GET_CACHE_TTL`` and
+``LO_GATEWAY_MAX_INFLIGHT``). The device is chosen in code only
+(``device=`` or ``--device``). A
 :class:`Config` is an object the caller creates and passes down; there
 is no process-wide singleton.
 """
@@ -46,10 +53,22 @@ class Config:
     # bounded request queue per serving session; full -> 429
     serve_queue_depth: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get("LO_SERVE_QUEUE", "64")))
-    # how long a predict waits for its tokens (0 = no limit) -> 503
+    # the gateway's deadline on a request (0 = none): past it the client
+    # gets 504 while the dispatch goes on; a predict also stops waiting
+    # for its tokens then (503)
     request_timeout_seconds: float = dataclasses.field(
         default_factory=lambda: float(os.environ.get(
             "LO_REQUEST_TIMEOUT", "0")))
+    # the most timed dispatches in flight (abandoned ones included)
+    # before a timed request gets an instant 503; 0 = no cap
+    gateway_max_inflight: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_GATEWAY_MAX_INFLIGHT", "64")))
+    # lifetime of a cached GET answer (entries are keyed on the
+    # collection's change seq, so this never makes one stale); 0 = off
+    get_cache_ttl_seconds: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_GET_CACHE_TTL", "300")))
     # how long a predict session waits for more rows before it serves
     # a partial bucket (milliseconds)
     serve_max_wait_ms: float = dataclasses.field(
@@ -143,6 +162,51 @@ class Config:
     sandbox_file_bytes: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get(
             "LO_SANDBOX_FILE_BYTES", str(1 << 30))))
+
+    # job lifecycle: re-runs of a job after a transient error, the
+    # default deadline of a job (0 = none; a request's "timeout"
+    # overrides), the stall watchdog (a job whose heartbeat went quiet
+    # this long is marked stalled, and cancelled when stall_escalate;
+    # 0 = no watchdog) and the backoff between retries (base * 2^attempt
+    # seconds, capped, times a jitter in [0.5, 1.5))
+    job_max_retries: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get("LO_JOB_RETRIES", "0")))
+    job_timeout_seconds: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get("LO_JOB_TIMEOUT", "0")))
+    stall_seconds: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_STALL_SECONDS", "300")))
+    stall_escalate: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_STALL_ESCALATE", "1") not in ("0", "false", "no"))
+    retry_backoff_seconds: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_RETRY_BACKOFF", "0.5")))
+    retry_backoff_max_seconds: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_RETRY_BACKOFF_MAX", "30")))
+    # the training health sentinel's defaults (a request's healthPolicy
+    # overrides): action ""/"off" (no sentinel), "skip", "rollback" or
+    # "fail"; a spike is an epoch loss above spike_factor x the loss's
+    # EMA; rollbacks a fit may take, epochs without the spike check
+    # after one; and the job-level re-runs of the "numerical" error class
+    health_action: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_HEALTH_ACTION", ""))
+    health_spike_factor: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_HEALTH_SPIKE_FACTOR", "4.0")))
+    health_ema_alpha: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_HEALTH_EMA_ALPHA", "0.3")))
+    health_max_rollbacks: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_HEALTH_MAX_ROLLBACKS", "2")))
+    health_cooldown_epochs: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_HEALTH_COOLDOWN", "1")))
+    health_retries: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_HEALTH_RETRIES", "1")))
 
     @property
     def artifacts_dir(self) -> str:

@@ -27,7 +27,9 @@ optimizer state.
 ``add``, ``compile`` (strings, spec dicts, objects with a ``spec``),
 ``fit`` with ``validation_data``, the tail ``validation_split``,
 keras's ``sample_weight`` and ``class_weight``, ``grad_accum``,
-``shuffle`` and a ``checkpointer``; ``evaluate``; ``predict`` (the
+``shuffle``, a ``checkpointer`` and a ``health_policy`` (the engine's
+training health sentinel; the language model and the classifier take
+none, as in the JAX package); ``evaluate``; ``predict`` (the
 output softmax or sigmoid applied on the host); ``summary``,
 ``num_params``, ``save_weights``/``load_weights`` (``.npz``); and the
 artifact protocol, ``config.json`` and ``weights.msgpack`` of
@@ -101,11 +103,19 @@ class Optimizer:
         """One step: ``params`` and ``state`` change in place."""
         lr = self.lr
         if self.kind in ("adam", "adamw"):
-            state["count"] += 1
-            # optax raises the float32 decay to the int32 count
-            count = np.float32(state["count"])
-            bc1 = float(1 - np.float32(self.b1) ** count)
-            bc2 = float(1 - np.float32(self.b2) ** count)
+            count = state["count"] + 1
+            state["count"] = count
+            if isinstance(count, torch.Tensor):
+                # a skip-guarded fit keeps the count on the card (the
+                # engine selects it with the rest of a bad step's state)
+                count = count.float()
+                bc1 = 1 - torch.pow(self.b1, count)
+                bc2 = 1 - torch.pow(self.b2, count)
+            else:
+                # optax raises the float32 decay to the int32 count
+                count = np.float32(count)
+                bc1 = float(1 - np.float32(self.b1) ** count)
+                bc2 = float(1 - np.float32(self.b2) ** count)
         for name, p in params.items():
             g = grads[name].float()
             if self.kind in ("adam", "adamw"):
@@ -417,7 +427,7 @@ class NeuralModel:
             validation_split: float = 0.0,
             shuffle: bool = True, checkpointer=None,
             log_fn=None, grad_accum: Optional[int] = None,
-            sample_weight=None, class_weight=None,
+            sample_weight=None, class_weight=None, health_policy=None,
             **_: Any) -> History:
         self._set_grad_accum(grad_accum)
         if class_weight is not None and y is None:
@@ -463,7 +473,7 @@ class NeuralModel:
         state = eng.init_state(self.params, self.model_state)
         state, history = eng.fit(state, batcher, epochs=epochs,
                                  seed=self.seed, checkpointer=checkpointer,
-                                 log_fn=log_fn)
+                                 log_fn=log_fn, health_policy=health_policy)
         if validation_data is not None:
             vx, vy = validation_data[0], validation_data[1]
             val = eng.evaluate(state.params, self._batcher(

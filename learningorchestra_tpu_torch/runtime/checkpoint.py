@@ -20,7 +20,11 @@ codec (:mod:`.serialization`):
   :class:`CheckpointCorrupted` instead. A step dir without a manifest
   (the layout before manifests) restores unverified;
 - ``progress.json`` (:meth:`Checkpointer.save_meta`) is written
-  atomically too, and a torn one reads as None.
+  atomically too, and a torn one reads as None;
+- the ``ckpt_write:*:corrupt[:n]`` fault (``services/faults.py``) flips
+  the last bytes of a payload after its sha256 was taken, so the next
+  restore exercises the quarantine; each quarantined step counts in
+  :func:`~learningorchestra_tpu_torch.runtime.health.health_stats`.
 
 Saves are synchronous, so :meth:`Checkpointer.wait_until_finished` and
 :meth:`Checkpointer.close` have nothing to wait for; the JAX package's
@@ -38,6 +42,7 @@ import time
 import warnings
 from typing import Any, Dict, List, Optional
 
+from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime import serialization
 
 _MSGPACK_NAME = "checkpoint.msgpack"
@@ -49,6 +54,25 @@ _PROGRESS_NAME = "progress.json"
 class CheckpointCorrupted(IOError):
     """A step dir failed manifest verification (missing payload, size
     or sha256 mismatch, unreadable manifest or payload)."""
+
+
+def _chaos_corrupt(path: str) -> None:
+    """The ``ckpt_write`` corrupt site: flips the last bytes of the
+    payload just written, after its checksum was taken (bit rot that
+    restore must catch)."""
+    from learningorchestra_tpu_torch.services import faults
+
+    nbytes = faults.corrupt_nbytes("ckpt_write")
+    if not nbytes:
+        return
+    size = os.path.getsize(path)
+    nbytes = min(nbytes, size)
+    with open(path, "r+b") as f:
+        f.seek(size - nbytes)
+        chunk = f.read(nbytes)
+        f.seek(size - nbytes)
+        f.write(bytes(b ^ 0xFF for b in chunk))
+        _fsync_file(f)
 
 
 def _quarantine_keep() -> int:
@@ -206,6 +230,7 @@ class Checkpointer:
             entries = []
         for name in entries[:max(0, len(entries) - keep)]:
             shutil.rmtree(os.path.join(qdir, name), ignore_errors=True)
+        health_lib.record("quarantined")
         warnings.warn(f"quarantined checkpoint step {step} -> {dst}: "
                       f"{reason}", RuntimeWarning, stacklevel=3)
 
@@ -226,6 +251,7 @@ class Checkpointer:
                 digest.update(part)
                 nbytes += len(part)
             _fsync_file(f)
+        _chaos_corrupt(os.path.join(tmp_dir, _MSGPACK_NAME))
         manifest = {"step": int(step), "wallTime": time.time(),
                     "files": {_MSGPACK_NAME: {
                         "sha256": digest.hexdigest(), "bytes": nbytes}}}

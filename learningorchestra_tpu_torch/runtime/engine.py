@@ -49,7 +49,11 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from learningorchestra_tpu_torch.runtime import health as health_lib
+from learningorchestra_tpu_torch.runtime import preempt
 from learningorchestra_tpu_torch.runtime.data import MASK_KEY, ArrayBatcher
+from learningorchestra_tpu_torch.runtime.health import (HealthPolicy,
+                                                        NumericalDivergence)
 
 Params = Dict[str, torch.Tensor]
 Metrics = Dict[str, Tuple[torch.Tensor, torch.Tensor]]  # name -> (sum, count)
@@ -195,6 +199,41 @@ def _nest(flat: Params, leaf: Callable) -> Dict[str, Any]:
     return tree
 
 
+# domain tags of a rollback's replay: its dropout stream is keyed by the
+# rollback count and its shuffle cursor jumps by a prime stride per
+# rollback (the JAX engine's _HEALTH_TAG and _ROLLBACK_STRIDE)
+_HEALTH_TAG = 0x4845_4C54
+_ROLLBACK_STRIDE = 100003
+
+
+def _nan_key(batch: Dict[str, torch.Tensor]) -> Optional[str]:
+    """Which array an armed ``engine_step:nan`` fault poisons: ``x`` if
+    floating, else the first floating non-mask array (none in a batch of
+    token ids)."""
+    keys = [k for k, v in batch.items()
+            if k != MASK_KEY and v.is_floating_point()]
+    if "x" in keys:
+        return "x"
+    return keys[0] if keys else None
+
+
+def _poison_batch(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The batch with its :func:`_nan_key` array turned to NaN."""
+    key = _nan_key(batch)
+    if key is None:
+        return batch
+    out = dict(batch)
+    out[key] = out[key] * float("nan")
+    return out
+
+
+def _armed_nan() -> bool:
+    """An armed ``engine_step:*:nan`` fault (``services/faults.py``)?"""
+    from learningorchestra_tpu_torch.services import faults
+
+    return faults.maybe_nan("engine_step")
+
+
 def _step_seed(seed: int, step: int, micro: int) -> int:
     """The random stream of one micro-batch of one step: the port's
     counterpart of ``fold_in(fold_in(PRNGKey(seed), step), micro)``."""
@@ -230,6 +269,10 @@ class Engine:
         self._grad_accum = max(1, int(grad_accum))
         self._layout = param_layout
         self._stateful = stateful
+        # the health sentinel of the running fit (fit(health_policy=...))
+        self._health_on = False
+        self._health_skip = False
+        self._skip_buffers: Optional[List[torch.Tensor]] = None
 
     def init_state(self, params: Params,
                    model_state: Optional[Params] = None) -> TrainState:
@@ -348,12 +391,197 @@ class Engine:
             grads, new_state, metrics = self._micro_step(
                 state.params, state.model_state, batch,
                 _step_seed(seed, state.step, 0))
+        bad = self._health_word(metrics, grads) if self._health_on else None
+        kept = self._keep(state) if bad is not None and self._health_skip \
+            else None
         self._optimizer.update(state.params, grads, state.opt_state)
         with torch.no_grad():
             for k, v in (new_state or {}).items():
                 state.model_state[k].copy_(v)
+        if bad is not None:
+            if kept is not None:
+                metrics = self._drop_update(state, kept, bad, metrics)
+            metrics["_health_bad"] = (bad.float(),
+                                      torch.ones((), device=bad.device))
         state.step += 1
         return metrics
+
+    # ------------------------------------------------------------------
+    # the health sentinel
+    # ------------------------------------------------------------------
+    @staticmethod
+    @torch.no_grad()
+    def _health_word(metrics: Metrics, grads: Params) -> torch.Tensor:
+        """True on the card when the step's mean loss or its global
+        gradient norm is not finite."""
+        loss_sum, loss_count = metrics["loss"]
+        mean = loss_sum.float() / loss_count.float().clamp_min(1e-9)
+        norms = torch._foreach_norm([g.float() for g in grads.values()])
+        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        return ~torch.isfinite(mean) | ~torch.isfinite(gnorm)
+
+    @staticmethod
+    def _skip_tensors(state: TrainState) -> List[torch.Tensor]:
+        """What a skipped step keeps: params, every optimizer slot and
+        the model state."""
+        tensors = list(state.params.values())
+        for value in state.opt_state.values():
+            if isinstance(value, dict):
+                tensors.extend(value.values())
+        tensors.extend(state.model_state.values())
+        return tensors
+
+    def _keep(self, state: TrainState) -> Dict[str, Any]:
+        """A copy of what the step may change, into the fit's buffers."""
+        tensors = self._skip_tensors(state)
+        buffers = self._skip_buffers
+        if buffers is None or len(buffers) != len(tensors):
+            buffers = self._skip_buffers = [torch.empty_like(t)
+                                            for t in tensors]
+        with torch.no_grad():
+            torch._foreach_copy_(buffers, tensors)
+        return {"tensors": buffers, "count": state.opt_state.get("count")}
+
+    @staticmethod
+    @torch.no_grad()
+    def _drop_update(state: TrainState, kept: Dict[str, Any],
+                     bad: torch.Tensor, metrics: Metrics) -> Metrics:
+        """Puts back what a bad step changed (``where``, since 0 * NaN is
+        NaN) and zeroes its metric contributions."""
+        for t, old in zip(Engine._skip_tensors(state), kept["tensors"]):
+            torch.where(bad, old, t, out=t)
+        if kept["count"] is not None:
+            state.opt_state["count"] = torch.where(
+                bad, kept["count"], state.opt_state["count"])
+        return {k: (torch.where(bad, 0.0, s.float()),
+                    torch.where(bad, 0.0, c.float()))
+                for k, (s, c) in metrics.items()}
+
+    def _set_health(self, policy: Optional[HealthPolicy],
+                    state: TrainState, device: torch.device) -> None:
+        """Arms the sentinel for a fit. Under ``skip`` the optimizer's
+        count moves onto the card, where a bad step can keep it."""
+        self._health_on = policy is not None
+        self._health_skip = policy is not None and policy.action == "skip"
+        self._skip_buffers = None
+        count = state.opt_state.get("count")
+        if self._health_skip and isinstance(count, int):
+            state.opt_state["count"] = torch.tensor(count, dtype=torch.int64,
+                                                    device=device)
+
+    @staticmethod
+    def _host_count(state: TrainState) -> None:
+        count = state.opt_state.get("count")
+        if isinstance(count, torch.Tensor):
+            state.opt_state["count"] = int(count)
+
+    @staticmethod
+    def _new_sentinel() -> Dict[str, Any]:
+        """The fit's host-side sentinel state: the EMA of the epoch loss,
+        the rollbacks taken, the spike check's cooldown left."""
+        return {"ema": None, "rollbacks": 0, "cooldown": 0}
+
+    @staticmethod
+    def _snapshot(state: TrainState) -> Dict[str, Any]:
+        """A host copy of the train state (rollback without a
+        checkpointer)."""
+        def host(value):
+            if isinstance(value, torch.Tensor):
+                return value.detach().to("cpu", copy=True)
+            if isinstance(value, dict):
+                return {k: host(v) for k, v in value.items()}
+            return value
+
+        return {"step": state.step, "params": host(state.params),
+                "opt_state": host(state.opt_state),
+                "model_state": host(state.model_state)}
+
+    @staticmethod
+    @torch.no_grad()
+    def _restore_snapshot(state: TrainState, snap: Dict[str, Any]) -> None:
+        def fill(live: Dict[str, Any], saved: Dict[str, Any]) -> None:
+            for k, v in saved.items():
+                if isinstance(v, dict):
+                    fill(live[k], v)
+                elif isinstance(v, torch.Tensor):
+                    live[k].copy_(v)
+                else:  # the optimizer's count
+                    live[k] = v
+
+        fill(state.params, snap["params"])
+        fill(state.opt_state, snap["opt_state"])
+        fill(state.model_state, snap["model_state"])
+        state.step = snap["step"]
+
+    def _health_epoch_end(self, policy: HealthPolicy, sent: Dict[str, Any],
+                          epoch: int, bad_steps: int, loss: float,
+                          state: Optional[TrainState], checkpointer,
+                          snapshot, log_fn) -> Tuple[bool, Optional[Dict]]:
+        """The epoch-boundary policy check, before the epoch's checkpoint
+        (a bad epoch never becomes the last good one). ``(proceed,
+        event)``: proceed False means re-run the same epoch from the
+        restored state; a verdict the policy cannot absorb raises
+        :class:`NumericalDivergence`."""
+        verdict = None
+        if bad_steps > 0 or not np.isfinite(loss):
+            verdict = "nonfinite"
+        elif sent["cooldown"] > 0:
+            # the EMA is stale against freshly restored params
+            sent["cooldown"] -= 1
+        elif sent["ema"] is not None and \
+                loss > policy.spike_factor * max(sent["ema"], 1e-9):
+            verdict = "spike"
+        if verdict is None:
+            sent["ema"] = (loss if sent["ema"] is None else
+                           policy.ema_alpha * loss +
+                           (1.0 - policy.ema_alpha) * sent["ema"])
+            return True, None
+        if verdict == "nonfinite":
+            health_lib.record("nonfiniteSteps", max(bad_steps, 1))
+        else:
+            health_lib.record("lossSpikes")
+        event = {"kind": verdict, "epoch": epoch, "action": policy.action,
+                 "badSteps": bad_steps,
+                 "loss": loss if np.isfinite(loss) else None,
+                 "ema": sent["ema"], "rollbacks": sent["rollbacks"]}
+        restored = None
+        if policy.action == "rollback" and \
+                sent["rollbacks"] < policy.max_rollbacks:
+            # a verified restore: a corrupt newest step is quarantined
+            # inside the checkpointer, which falls back to the one before
+            if checkpointer is not None and \
+                    self._maybe_restore(state, checkpointer):
+                restored = state.step
+            elif snapshot is not None:
+                self._restore_snapshot(state, snapshot)
+                restored = state.step
+            if restored is not None:
+                sent["rollbacks"] += 1
+                sent["cooldown"] = policy.cooldown_epochs
+                health_lib.record("rollbacks")
+                event["rollbacks"] = sent["rollbacks"]
+                event["restoredStep"] = int(restored)
+        if log_fn is not None:
+            try:
+                log_fn({"healthEvent": dict(event)})
+            except Exception:  # noqa: BLE001 — telemetry must not sink a fit
+                pass
+        if restored is not None:
+            return False, event
+        if policy.action == "skip":
+            # the updates were dropped on the card; a spike cannot be
+            # skipped after the fact, so it joins the EMA
+            if np.isfinite(loss):
+                sent["ema"] = (loss if sent["ema"] is None else
+                               policy.ema_alpha * loss +
+                               (1.0 - policy.ema_alpha) * sent["ema"])
+            return True, event
+        suffix = (f" after {sent['rollbacks']} rollbacks"
+                  if policy.action == "rollback" else "")
+        raise NumericalDivergence(
+            f"epoch {epoch}: {verdict} (badSteps={bad_steps}, "
+            f"loss={loss}) under healthPolicy action "
+            f"{policy.action!r}{suffix}")
 
     # ------------------------------------------------------------------
     # checkpoints
@@ -371,7 +599,7 @@ class Engine:
             if isinstance(value, dict):
                 opt[key] = self._tree(value, leaf)
             else:
-                opt[key] = np.int64(value)
+                opt[key] = np.int64(int(value))
         saved = {"step": np.int64(state.step),
                  "params": self._tree(state.params, leaf),
                  "opt_state": opt}
@@ -453,9 +681,13 @@ class Engine:
     def fit(self, state: TrainState, batcher: ArrayBatcher,
             epochs: int = 1, seed: int = 0, checkpointer=None,
             log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
+            health_policy=None,
             ) -> Tuple[TrainState, List[Dict[str, Any]]]:
         """Train ``epochs`` over ``batcher`` one step per batch (the
-        total budget on a resume from ``checkpointer``)."""
+        total budget on a resume from ``checkpointer``) under
+        ``health_policy`` (None, an action, a request dict or a
+        :class:`HealthPolicy`)."""
+        policy = health_lib.coerce_policy(health_policy)
         device = next(iter(state.params.values())).device
         history: List[Dict[str, Any]] = []
         start_epoch = 0
@@ -470,21 +702,72 @@ class Engine:
                     epochs, state.step // max(1, batcher.steps_per_epoch))
             if start_epoch >= epochs:
                 return state, []
-        for epoch in range(start_epoch, epochs):
+        self._set_health(policy, state, device)
+        try:
+            self._fit_epochs(state, batcher, start_epoch, epochs, seed,
+                             checkpointer, log_fn, policy, device, history)
+        finally:
+            self._health_on = self._health_skip = False
+            self._skip_buffers = None
+            self._host_count(state)
+        if checkpointer is not None and \
+                hasattr(checkpointer, "wait_until_finished"):
+            checkpointer.wait_until_finished()
+        return state, history
+
+    def _fit_epochs(self, state: TrainState, batcher: ArrayBatcher,
+                    start_epoch: int, epochs: int, seed: int,
+                    checkpointer, log_fn, policy: Optional[HealthPolicy],
+                    device: torch.device,
+                    history: List[Dict[str, Any]]) -> None:
+        sent = self._new_sentinel()
+        # a rollback without a checkpointer goes back to this copy,
+        # renewed after each good epoch
+        snapshot = (self._snapshot(state) if policy is not None
+                    and policy.action == "rollback" else None)
+        epoch = start_epoch
+        while epoch < epochs:
             t0 = time.perf_counter()
             sums: Dict[str, torch.Tensor] = {}
             counts: Dict[str, torch.Tensor] = {}
-            for batch in batcher.epoch(epoch):
-                metrics = self._train_step_body(
-                    state, self._to_device(batch, device), seed)
+            rb = sent["rollbacks"]
+            # a rollback's replay re-keys dropout and moves the shuffle
+            # cursor, so it does not replay the draws that diverged
+            step_seed = seed if rb == 0 else _step_seed(
+                seed, _HEALTH_TAG + rb, 0)
+            poison = _armed_nan()
+            for batch in batcher.epoch(epoch + rb * _ROLLBACK_STRIDE):
+                # a cancelled or expired job stops here, between steps
+                preempt.check_cancel()
+                preempt.heartbeat(epoch=epoch, step=state.step,
+                                  rollbacks=rb)
+                batch = self._to_device(batch, device)
+                if poison:
+                    batch = _poison_batch(batch)
+                    poison = False
+                metrics = self._train_step_body(state, batch, step_seed)
                 for k, (s, c) in metrics.items():
                     sums[k] = sums[k] + s if k in sums else s
                     counts[k] = counts[k] + c if k in counts else c
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
+            bad = sums.pop("_health_bad", None)
+            counts.pop("_health_bad", None)
+            bad_steps = int(float(bad)) if bad is not None else 0
             record = {k: float(sums[k]) / max(float(counts[k]), 1e-9)
                       for k in sums}
+            if policy is not None:
+                proceed, event = self._health_epoch_end(
+                    policy, sent, epoch, bad_steps,
+                    record.get("loss", float("nan")), state, checkpointer,
+                    snapshot, log_fn)
+                if not proceed:
+                    continue  # the same epoch again, from the restore
+                if event is not None and bad_steps:
+                    record["nonfiniteSteps"] = bad_steps
+                if checkpointer is None and policy.action == "rollback":
+                    snapshot = self._snapshot(state)
             record.update(epoch=epoch, epochSeconds=round(dt, 4),
                           samplesPerSecond=round(batcher.num_samples / dt,
                                                  2))
@@ -493,10 +776,9 @@ class Engine:
                 self._save_checkpoint(checkpointer, state, epoch)
             if log_fn is not None:
                 log_fn(record)
-        if checkpointer is not None and \
-                hasattr(checkpointer, "wait_until_finished"):
-            checkpointer.wait_until_finished()
-        return state, history
+            epoch += 1
+            if epoch < epochs:
+                preempt.maybe_yield()
 
     @torch.inference_mode()
     def evaluate(self, params: Params, batcher: ArrayBatcher,
@@ -505,7 +787,9 @@ class Engine:
         cast = self._cast(params)
         sums: Dict[str, Any] = {}
         counts: Dict[str, Any] = {}
-        for batch in batcher.epoch(0):
+        for step, batch in enumerate(batcher.epoch(0)):
+            preempt.check_cancel()
+            preempt.heartbeat(phase="evaluate", step=step)
             batch = self._to_device(batch, device)
             loss, outputs, extra, _ = self._loss(cast, batch, False, None,
                                                  model_state)
@@ -524,7 +808,9 @@ class Engine:
         device = next(iter(params.values())).device
         cast = self._cast(params)
         outs = []
-        for batch in batcher.epoch(0):
+        for step, batch in enumerate(batcher.epoch(0)):
+            preempt.check_cancel()
+            preempt.heartbeat(phase="predict", step=step)
             outputs, _ = self._apply(cast, model_state,
                                      self._to_device(batch, device), False,
                                      None)

@@ -1,5 +1,6 @@
-"""Named, ranked locks (the serving, job, catalog and fault-injection rows of the
-JAX package's ``runtime/locks.py`` hierarchy).
+"""Named, ranked locks (the serving, job, lifecycle, cache, gateway,
+catalog and fault-injection rows of the JAX package's
+``runtime/locks.py`` hierarchy).
 
 :data:`HIERARCHY` ranks every named lock of the port: a thread acquires
 a lock only while every lock it holds has a strictly lower rank. The
@@ -29,7 +30,12 @@ HIERARCHY: Dict[str, int] = {
     "scheduler.fair": 80,          # the card lease's FIFO queue
     "serving.kvpool": 90,          # paged-KV free list / refcounts
     "serving.latency": 100,        # per-session latency ring
+    "preempt.token": 130,          # per-job cancel token
+    "health.counters": 140,        # sentinel counters (listeners are
+                                   # called outside it)
+    "cache.lru": 180,              # the GET response cache
     "catalog.change": 190,         # catalog change-feed condition
+    "server.gateway": 350,         # timed-dispatch accounting
     "faults.spec": 360,            # fault-injection budget (leaf)
     "attention.launches": 370,     # the kernels' launch counters (leaf)
 }

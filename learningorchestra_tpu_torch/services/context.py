@@ -25,7 +25,7 @@ class ServiceContext:
         self.catalog = Catalog(config.catalog_path, config.datasets_dir)
         self.artifacts = ArtifactStore(config.artifacts_dir,
                                        device=self.device)
-        self.jobs = JobManager(self.catalog, max_workers=config.max_workers)
+        self.jobs = JobManager.from_config(self.catalog, config)
         self.params = ParameterResolver(self)
         self.serving = ServingManager(self)
 

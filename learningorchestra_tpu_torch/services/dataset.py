@@ -1,26 +1,31 @@
 """Dataset service: CSV ingest and the universal read API, as the JAX
 package's ``services/dataset.py`` serves them.
 
-- ``POST /dataset/csv`` with ``datasetName`` and ``datasetURI`` (a local
-  path or a ``file://`` URI) ingests on a job: the standard ``csv``
-  module parses, and each column's kind is inferred from its first
+- ``POST /dataset/csv`` with ``datasetName`` and ``datasetURI`` (an
+  ``http(s)://`` URL, a local path or a ``file://`` URI) ingests on a
+  job: the bytes stream in through ``urllib`` (never held whole), the
+  standard ``csv`` module parses, and each column's kind is inferred
+  from its first
   chunk of rows as pyarrow's CSV reader infers it for these kinds:
   int64, else float64, else bool (``1``/``0`` and ``true``/``false`` in
   three spellings), else string. An empty cell (or another of pyarrow's
   null spellings) is a null in a column of another kind and stays text
   in a string column; a column of nulls only is null throughout.
+- ``POST /dataset/generic`` stores the bytes behind ``datasetURI`` as
+  they are (an artifact named after the URI's last path segment; the
+  metadata gets ``sizeBytes``).
 - ``GET /{service}/{tool}/{name}?skip&limit&query`` reads any collection
   (metadata document, rows, execution documents), ``GET
   /{service}/{tool}`` lists, ``DELETE`` removes.
-
-``http(s)://`` URIs and ``dataset/generic`` are not ported.
 """
 
 from __future__ import annotations
 
 import csv
+import io
 import itertools
 import json
+import os
 import re
 from typing import Any, Dict, List, Optional, Tuple
 
@@ -96,8 +101,20 @@ def convert(kind: str, cells: List[str]):
     return np.ma.array(np.array(values, dtype=kind), mask=mask)
 
 
-def _local_path(uri: str) -> str:
-    return uri[len("file://"):] if uri.startswith("file://") else uri
+# bytes a generic download reads at a time
+_CHUNK = 1 << 20
+
+
+def _open_uri_stream(uri: str):
+    """A readable binary stream of an http(s) URL, a ``file://`` URI or a
+    local path."""
+    if uri.startswith(("http://", "https://")):
+        import urllib.request
+
+        return urllib.request.urlopen(uri, timeout=600)
+    if uri.startswith("file://"):
+        return open(uri[len("file://"):], "rb")
+    return open(uri, "rb")
 
 
 class DatasetService:
@@ -113,27 +130,24 @@ class DatasetService:
         name = self._validator.safe_name(body[DATASET_NAME_FIELD])
         uri = body[DATASET_URI_FIELD]
         self._validator.not_duplicate(name)
-        if tool == "generic":
-            raise V.not_ported("dataset/generic")
-        if tool != "csv":
+        if tool not in ("csv", "generic"):
             raise V.HttpError(V.HTTP_NOT_ACCEPTABLE,
                               f"unknown dataset tool: {tool}")
         if not isinstance(uri, str) or not uri:
             raise V.HttpError(V.HTTP_NOT_ACCEPTABLE, "invalid url")
-        if uri.startswith(("http://", "https://")):
-            raise V.not_ported("an http(s) datasetURI (local paths and "
-                               "file:// only)")
-        self._ctx.catalog.create_collection(name, D.DATASET_CSV_TYPE,
+        self._ctx.catalog.create_collection(name, f"dataset/{tool}",
                                             {"url": uri})
+        run = self._ingest_csv if tool == "csv" else self._ingest_generic
         self._ctx.jobs.submit(
-            name, lambda: self._ingest_csv(name, uri),
+            name, lambda: run(name, uri),
             description=f"ingest {uri}", parameters={"url": uri})
         return V.HTTP_CREATED, {
             "result": f"/api/learningOrchestra/v1/dataset/{tool}/{name}"}
 
     def _ingest_csv(self, name: str, uri: str) -> None:
         rows = 0
-        with open(_local_path(uri), newline="", encoding="utf-8") as f, \
+        with _open_uri_stream(uri) as raw, io.TextIOWrapper(
+                raw, encoding="utf-8", newline="") as f, \
                 self._ctx.catalog.dataset_writer(name) as writer:
             # blank lines are skipped, as pyarrow skips them
             reader = (r for r in csv.reader(f) if r)
@@ -161,6 +175,19 @@ class DatasetService:
             fields = writer.fields()
         self._ctx.catalog.update_metadata(
             name, {D.FIELDS_FIELD: fields, "rows": rows})
+
+    def _ingest_generic(self, name: str, uri: str) -> None:
+        buf = io.BytesIO()
+        with _open_uri_stream(uri) as stream:
+            while True:
+                chunk = stream.read(_CHUNK)
+                if not chunk:
+                    break
+                buf.write(chunk)
+        filename = os.path.basename(uri.split("?")[0]) or "payload.bin"
+        self._ctx.artifacts.save_bytes(
+            buf.getvalue(), name, D.DATASET_GENERIC_TYPE, filename=filename)
+        self._ctx.catalog.update_metadata(name, {"sizeBytes": buf.tell()})
 
     # -- universal GET/DELETE ------------------------------------------
     def list_files(self, type_string: Optional[str] = None,

@@ -28,9 +28,19 @@ ignored there, as in the JAX package.
 ``#`` expressions among the ``methodParameters`` are linted at submit
 (406 with the findings, kept as ``analysis`` on the metadata otherwise)
 and evaluated in the sandbox by the job. A parent of another module
-(a fitted sklearn estimator) runs its own methods on the host. Refused
-with 406 before any document exists, because the port does not run them
-yet: the body fields ``timeout``, ``sliceDevices`` and ``healthPolicy``.
+(a fitted sklearn estimator) runs its own methods on the host.
+
+``timeout`` (seconds) is the job's deadline and ``healthPolicy`` (an
+action or an object, :mod:`~learningorchestra_tpu_torch.runtime.health`)
+arms the training health sentinel of a method that takes
+``health_policy`` (``NeuralModel.fit``), merged over the ``LO_HEALTH_*``
+defaults. Both are stored on the metadata, so a PATCH and a requeue at
+boot replay them. Sentinel events reach the job's documents as
+``{"healthEvent": ...}`` and its metadata as ``rollbacks``,
+``nonfiniteSteps``, ``lossSpikes`` and the newest 32 ``healthEvents``.
+A transient failure re-runs up to ``LO_JOB_RETRIES`` times. The body
+field ``sliceDevices`` is refused with 406 before any document exists:
+one card has no slices.
 """
 
 from __future__ import annotations
@@ -43,6 +53,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 
 from learningorchestra_tpu_torch.catalog import documents as D
+from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
 from learningorchestra_tpu_torch.services import validators as V
 
@@ -56,7 +67,7 @@ METHOD_PARAMETERS_FIELD = "methodParameters"
 # verbs whose result is the mutated parent instance
 _INSTANCE_RESULT_PREFIXES = ("train/", "tune/")
 # request fields of the JAX package's job lifecycle the port lacks
-_UNPORTED_FIELDS = ("timeout", "sliceDevices", "healthPolicy")
+_UNPORTED_FIELDS = ("sliceDevices",)
 
 
 class ExecutionService:
@@ -98,7 +109,10 @@ class ExecutionService:
         method = body[METHOD_FIELD]
         method_parameters = body[METHOD_PARAMETERS_FIELD] or {}
         description = body.get(DESCRIPTION_FIELD, "")
+        timeout = V.valid_timeout(body.get(V.TIMEOUT_FIELD))
         V.refuse_unported_fields(body, _UNPORTED_FIELDS)
+        health_policy = V.valid_health_policy(
+            body.get(V.HEALTH_POLICY_FIELD))
         self._validator.not_duplicate(name)
         self._validator.existing_finished(parent_name)
         root_meta = self.root_model_metadata(parent_name)
@@ -111,11 +125,17 @@ class ExecutionService:
             D.METHOD_PARAMETERS_FIELD: method_parameters,
             D.DESCRIPTION_FIELD: description,
         }
+        if timeout is not None:
+            # replayed by a PATCH and by the requeue at boot
+            extra[V.TIMEOUT_FIELD] = timeout
+        if health_policy is not None:
+            extra[V.HEALTH_POLICY_FIELD] = health_policy
         if analysis:
             extra[V.ANALYSIS_FIELD] = analysis
         self._ctx.catalog.create_collection(name, type_string, extra)
         self._submit(name, type_string, parent_name, method,
-                     method_parameters, description)
+                     method_parameters, description, timeout=timeout,
+                     health_policy=health_policy)
         return V.HTTP_CREATED, {
             "result": f"/api/learningOrchestra/v1/{verb}/{tool}/{name}"}
 
@@ -127,18 +147,26 @@ class ExecutionService:
             METHOD_PARAMETERS_FIELD, meta.get(D.METHOD_PARAMETERS_FIELD)) \
             or {}
         description = body.get(DESCRIPTION_FIELD, "")
+        timeout = V.valid_timeout(
+            body.get(V.TIMEOUT_FIELD, meta.get(V.TIMEOUT_FIELD)))
         V.refuse_unported_fields(body, _UNPORTED_FIELDS)
+        health_policy = V.valid_health_policy(
+            body.get(V.HEALTH_POLICY_FIELD,
+                     meta.get(V.HEALTH_POLICY_FIELD)))
         parent_name = meta[D.PARENT_NAME_FIELD]
         root_meta = self.root_model_metadata(parent_name)
         self._validate_method(root_meta, method, method_parameters)
         analysis = V.lint_parameters(self._ctx.config, method_parameters)
         updates = {D.METHOD_PARAMETERS_FIELD: method_parameters,
+                   V.TIMEOUT_FIELD: timeout,
+                   V.HEALTH_POLICY_FIELD: health_policy,
                    D.FINISHED_FIELD: False}
         if analysis:
             updates[V.ANALYSIS_FIELD] = analysis
         self._ctx.catalog.update_metadata(name, updates)
         self._submit(name, meta[D.TYPE_FIELD], parent_name, method,
-                     method_parameters, description)
+                     method_parameters, description, timeout=timeout,
+                     health_policy=health_policy)
         return V.HTTP_SUCCESS, {
             "result": f"/api/learningOrchestra/v1/{verb}/{tool}/{name}"}
 
@@ -156,7 +184,8 @@ class ExecutionService:
     # ------------------------------------------------------------------
     def _submit(self, name: str, type_string: str, parent_name: str,
                 method: str, method_parameters: Dict[str, Any],
-                description: str) -> None:
+                description: str, timeout: Optional[float] = None,
+                health_policy: Optional[Any] = None) -> None:
         def run():
             parent_type = self._ctx.params.artifact_type(parent_name)
             instance = self._ctx.artifacts.load(parent_name, parent_type)
@@ -164,6 +193,8 @@ class ExecutionService:
             ckpt = _prepare_checkpointer(self._ctx, name, type_string,
                                          treated)
             _inject_epoch_log(self._ctx, name, instance, method, treated)
+            _inject_health_policy(self._ctx, instance, method, treated,
+                                  health_policy)
             try:
                 result = getattr(instance, method)(**treated)
             finally:
@@ -185,7 +216,9 @@ class ExecutionService:
             return result
 
         self._ctx.jobs.submit(name, run, description=description,
-                              parameters=method_parameters, needs_card=True)
+                              parameters=method_parameters, needs_card=True,
+                              max_retries=self._ctx.config.job_max_retries,
+                              timeout=timeout)
 
 
 def _record_sweep_fusion(ctx, name: str, result: Any) -> None:
@@ -226,7 +259,10 @@ def _inject_epoch_log(ctx, name: str, instance: Any, method: str,
     """Streams each epoch's record (loss, metrics, epoch, epochSeconds,
     samplesPerSecond) into the execution's documents as
     ``{"epochRecord": ...}`` when the method takes ``log_fn``: every
-    epoch up to 512, then every 16th."""
+    epoch up to 512, then every 16th. A health sentinel's event is
+    appended as ``{"healthEvent": ...}`` whatever its number, and sums
+    into the metadata's ``rollbacks``, ``nonfiniteSteps``,
+    ``lossSpikes`` and ``healthEvents`` (the newest 32)."""
     if "log_fn" in treated:
         return
     try:
@@ -236,8 +272,31 @@ def _inject_epoch_log(ctx, name: str, instance: Any, method: str,
     if "log_fn" not in params:
         return
     seen = {"n": 0}
+    health = {"rollbacks": 0, "nonfiniteSteps": 0, "lossSpikes": 0,
+              "events": []}
 
     def log_record(record: Dict[str, Any]) -> None:
+        event = record.get("healthEvent")
+        if event is not None:
+            health["events"].append(event)
+            del health["events"][:-32]
+            if "restoredStep" in event:
+                health["rollbacks"] += 1
+            if event.get("kind") == "spike":
+                health["lossSpikes"] += 1
+            else:
+                health["nonfiniteSteps"] += max(
+                    int(event.get("badSteps") or 0), 1)
+            try:
+                ctx.catalog.append_document(name, {"healthEvent": event})
+                ctx.catalog.update_metadata(name, {
+                    "rollbacks": health["rollbacks"],
+                    "nonfiniteSteps": health["nonfiniteSteps"],
+                    "lossSpikes": health["lossSpikes"],
+                    "healthEvents": list(health["events"])})
+            except Exception:  # noqa: BLE001 — must never sink a fit
+                pass
+            return
         i = seen["n"]
         seen["n"] = i + 1
         if i >= 512 and i % 16 != 0:
@@ -248,6 +307,26 @@ def _inject_epoch_log(ctx, name: str, instance: Any, method: str,
             pass
 
     treated["log_fn"] = log_record
+
+
+def _inject_health_policy(ctx, instance: Any, method: str,
+                          treated: Dict[str, Any],
+                          requested: Optional[Any]) -> None:
+    """Arms the health sentinel where the method takes ``health_policy``
+    (``NeuralModel.fit``; not the language model, the classifier or an
+    sklearn method): the request's ``healthPolicy`` merged over the
+    ``LO_HEALTH_*`` defaults. Nothing when both are off."""
+    if "health_policy" in treated:
+        return
+    try:
+        params = inspect.signature(getattr(instance, method)).parameters
+    except (TypeError, ValueError):
+        return
+    if "health_policy" not in params:
+        return
+    policy = health_lib.resolve_policy(requested, ctx.config)
+    if policy is not None:
+        treated["health_policy"] = policy
 
 
 def summarize_result(result: Any) -> Optional[Any]:

@@ -14,10 +14,12 @@ result's array shapes go on the metadata as ``resultShapes``.
 A request may raise its trust level with ``sandboxMode`` up to the
 operator's ceiling (``LO_SANDBOX_MAX``; 406 above it). Inline code and
 ``#`` parameters are linted at submit (406 with the findings, stored on
-the metadata as ``analysis`` otherwise). A ``timeout`` field answers 406
-"not yet ported", as on the execution routes. DELETE is the dataset
-service's, as in the JAX package's server. Function jobs do not hold the
-card. Boot replay of unfinished functions is not ported.
+the metadata as ``analysis`` otherwise). ``timeout`` (seconds) is the
+job's deadline: past it, or on a ``DELETE .../{name}/run``, the sandbox
+kills the jailed child and the job ends ``timedOut`` or ``cancelled``.
+The metadata keeps the request (mode and timeout too), so the server's
+boot requeues an unfinished function. DELETE is the dataset service's,
+as in the JAX package's server. Function jobs do not hold the card.
 """
 
 from __future__ import annotations
@@ -92,7 +94,7 @@ class FunctionService:
         function = body[FUNCTION_FIELD]
         parameters = body[FUNCTION_PARAMETERS_FIELD] or {}
         description = body.get(DESCRIPTION_FIELD, "")
-        V.refuse_unported_fields(body, (V.TIMEOUT_FIELD,))
+        timeout = V.valid_timeout(body.get(V.TIMEOUT_FIELD))
         mode = resolve_sandbox_mode(self._ctx.config,
                                     body.get(SANDBOX_MODE_FIELD))
         analysis = self._preflight(function, parameters, mode)
@@ -103,11 +105,13 @@ class FunctionService:
             D.DESCRIPTION_FIELD: description,
             SANDBOX_MODE_FIELD: mode,
         }
+        if timeout is not None:
+            extra[V.TIMEOUT_FIELD] = timeout  # requeues replay it too
         if analysis:
             extra[V.ANALYSIS_FIELD] = analysis
         self._ctx.catalog.create_collection(name, type_string, extra)
         self._submit(name, type_string, function, parameters, description,
-                     mode)
+                     mode, timeout=timeout)
         return V.HTTP_CREATED, {
             "result": f"{API_PREFIX}/function/{tool}/{name}"}
 
@@ -119,7 +123,8 @@ class FunctionService:
             FUNCTION_PARAMETERS_FIELD,
             meta.get(D.FUNCTION_PARAMETERS_FIELD)) or {}
         description = body.get(DESCRIPTION_FIELD, "")
-        V.refuse_unported_fields(body, (V.TIMEOUT_FIELD,))
+        timeout = V.valid_timeout(
+            body.get(V.TIMEOUT_FIELD, meta.get(V.TIMEOUT_FIELD)))
         mode = resolve_sandbox_mode(self._ctx.config,
                                     body.get(SANDBOX_MODE_FIELD))
         analysis = self._preflight(function, parameters, mode)
@@ -128,10 +133,10 @@ class FunctionService:
                    D.FUNCTION_PARAMETERS_FIELD: parameters,
                    SANDBOX_MODE_FIELD: mode,
                    V.ANALYSIS_FIELD: analysis,
-                   V.TIMEOUT_FIELD: None,
+                   V.TIMEOUT_FIELD: timeout,
                    D.FINISHED_FIELD: False})
         self._submit(name, meta[D.TYPE_FIELD], function, parameters,
-                     description, mode)
+                     description, mode, timeout=timeout)
         return V.HTTP_SUCCESS, {
             "result": f"{API_PREFIX}/function/{tool}/{name}"}
 
@@ -152,7 +157,7 @@ class FunctionService:
 
     def _submit(self, name: str, type_string: str, function: str,
                 parameters: Dict[str, Any], description: str,
-                mode: str) -> None:
+                mode: str, timeout: Optional[float] = None) -> None:
         def run():
             code = fetch_function_code(function)
             treated = self._ctx.params.treat(parameters)
@@ -175,5 +180,7 @@ class FunctionService:
             return result
 
         self._ctx.jobs.submit(name, run, description=description,
-                              parameters=parameters)
+                              parameters=parameters,
+                              max_retries=self._ctx.config.job_max_retries,
+                              timeout=timeout)
 

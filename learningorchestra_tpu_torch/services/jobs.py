@@ -6,18 +6,42 @@ On success the flag flips and an execution document is appended; on
 failure the flag stays False and the execution document records
 ``repr(exception)`` and the error class.
 
-This is the part of the JAX package's ``services/jobs.py`` that contract
-needs, for one card: a thread pool of ``max_workers``, the metadata
-``status`` queued -> running -> finished (or deadLettered), and one
-card lease, a FIFO lock that every job touching the card holds while
-it runs (the JAX ``mesh_lease`` at ``mesh_leases=1``). Cancellation,
-timeouts, retries, the stall watchdog, slices and migration are not
-ported.
+This is the JAX package's ``services/jobs.py`` for one card:
+
+- a thread pool of ``max_workers`` and one card lease, a FIFO lock that
+  every job touching the card holds while it runs (the JAX
+  ``mesh_lease`` at ``mesh_leases=1``). A job leaves the card only once
+  its tensors are gone and the launches it queued have run, so the next
+  holder starts on an idle card with the memory back;
+- each job's :class:`~learningorchestra_tpu_torch.runtime.preempt.
+  CancelToken`: a deadline (the request's ``timeout``, else
+  ``LO_JOB_TIMEOUT``), :meth:`JobManager.cancel` (``DELETE
+  .../{name}/run``, also for a job still waiting for the card) and the
+  stall watchdog (``LO_STALL_SECONDS``), which marks a job whose
+  heartbeat went quiet ``stalled`` and, with ``LO_STALL_ESCALATE``,
+  cancels it. A cancelled job ends ``timedOut``, ``cancelled`` or
+  ``stalled`` with a typed document;
+- classified retries: a transient error re-runs the job after an
+  exponential backoff with jitter, up to ``max_retries`` times; a
+  numerical one (``NumericalDivergence`` of the health sentinel) has its
+  own budget (``LO_HEALTH_RETRIES``): a checkpointed fit's re-run
+  resumes from its last good step; a permanent error, or a spent
+  budget, ends ``deadLettered``. Each attempt appends its document;
+- the metadata ``status``: queued -> running -> finished, timedOut,
+  cancelled, stalled, deadLettered or shutdownAborted, and monotonic
+  counters (:meth:`JobManager.lifecycle_counters`).
+
+Slices, migration, multi-host pod guards and the observability spans of
+the JAX package are not ported.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
+import random
+import sys
+import threading
 import time
 import traceback
 from concurrent.futures import Future, ThreadPoolExecutor
@@ -25,10 +49,16 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.catalog.store import Catalog
-from learningorchestra_tpu_torch.runtime import locks
+from learningorchestra_tpu_torch.runtime import locks, preempt
+from learningorchestra_tpu_torch.runtime.health import NumericalDivergence
+from learningorchestra_tpu_torch.services import faults
 
 TRANSIENT = "transient"
 PERMANENT = "permanent"
+# training diverged past its health policy: neither a plain re-run (the
+# same divergence replays) nor dead-lettering at once, but a bounded
+# number of re-runs, each resuming from the last good checkpoint
+NUMERICAL = "numerical"
 
 # message substrings that mark an otherwise unclassified exception as
 # worth a retry (device out of memory, unavailable services, errors that
@@ -39,8 +69,13 @@ _TRANSIENT_MARKERS = ("RESOURCE_EXHAUSTED", "OUT OF MEMORY",
 
 
 def classify_error(exception: BaseException) -> str:
-    """``transient`` (a re-run of the same code may succeed) or
-    ``permanent`` (validation and user-code errors a re-run repeats)."""
+    """``transient`` (a re-run of the same code may succeed),
+    ``numerical`` (training diverged: a re-run resumes from the last good
+    checkpoint, budgeted apart) or ``permanent`` (validation and
+    user-code errors a re-run repeats). :class:`faults.InjectedFault` is
+    an ``IOError``, so injected faults take the transient path."""
+    if isinstance(exception, NumericalDivergence):
+        return NUMERICAL
     if isinstance(exception, (OSError, MemoryError, InterruptedError,
                               TimeoutError, ConnectionError)):
         return TRANSIENT
@@ -52,40 +87,119 @@ def classify_error(exception: BaseException) -> str:
 
 class CardLease:
     """First come, first served access to the card: one holder at a
-    time, granted in the order of asking."""
+    time, granted in the order of asking. A waiter whose job is
+    cancelled gives up its turn."""
 
     def __init__(self):
         self._cv = locks.make_condition("scheduler.fair")
         self._next_ticket = 0
         self._now_serving = 0
+        self._abandoned: set = set()
 
     @contextlib.contextmanager
-    def hold(self) -> Iterator[float]:
+    def hold(self, cancel: Optional[preempt.CancelToken] = None,
+             ) -> Iterator[float]:
         """Holds the card for the ``with`` body; yields the seconds
-        spent waiting for it."""
+        spent waiting for it. Raises :class:`preempt.JobCancelled` when
+        ``cancel`` fires while waiting."""
         t0 = time.monotonic()
         with self._cv:
             ticket = self._next_ticket
             self._next_ticket += 1
             while ticket != self._now_serving:
-                self._cv.wait()
+                if cancel is not None and cancel.cancelled():
+                    self._abandoned.add(ticket)
+                    # the JAX package's words (its lease is the mesh's)
+                    raise preempt.JobCancelled(
+                        cancel.reason or "cancelled",
+                        "cancelled while waiting for the mesh lease")
+                # a token does not notify the condition: poll it
+                self._cv.wait(0.05 if cancel is not None else None)
         try:
             yield time.monotonic() - t0
         finally:
             with self._cv:
                 self._now_serving += 1
+                while self._now_serving in self._abandoned:
+                    self._abandoned.discard(self._now_serving)
+                    self._now_serving += 1
                 self._cv.notify_all()
 
 
+def _settle_card(collect: bool) -> None:
+    """Before the card lease goes back: with ``collect``, frees what a
+    failed job's frames kept alive (model objects hold reference
+    cycles), then waits for the launches the job queued."""
+    if collect:
+        gc.collect()
+    torch = sys.modules.get("torch")
+    if torch is not None and torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+
+
+def _drop_traceback(exception: BaseException) -> None:
+    """Clears the frames of ``exception``'s traceback (a fit's state,
+    gradients and batches on the card) and detaches it."""
+    tb = exception.__traceback__
+    if tb is not None:
+        traceback.clear_frames(tb)
+    exception.__traceback__ = None
+
+
 class JobManager:
-    def __init__(self, catalog: Catalog, max_workers: int = 8):
+    def __init__(self, catalog: Catalog, max_workers: int = 8,
+                 config=None, default_timeout: float = 0.0,
+                 stall_seconds: float = 0.0, stall_escalate: bool = True,
+                 retry_backoff: float = 0.5,
+                 retry_backoff_max: float = 30.0,
+                 numerical_retries: int = 1):
+        """``config`` is the fault spec of the job's sites (``job_run``
+        here; ``engine_step`` and ``ckpt_write`` through
+        :func:`faults.use_config`); None reads ``LO_FAULT_INJECT``."""
         self._catalog = catalog
+        self._config = config
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix="lo-job")
         self._lease = CardLease()
         self._futures: Dict[str, Future] = {}
+        # name -> {description, parameters, needs_card, token}
         self._info: Dict[str, Dict[str, Any]] = {}
         self._lock = locks.make_lock("jobs.manager")
+        self._default_timeout = max(0.0, float(default_timeout or 0.0))
+        self._stall_seconds = max(0.0, float(stall_seconds or 0.0))
+        self._stall_escalate = bool(stall_escalate)
+        self._retry_backoff = max(0.0, float(retry_backoff))
+        self._retry_backoff_max = max(self._retry_backoff,
+                                      float(retry_backoff_max))
+        self._numerical_retries = max(0, int(numerical_retries))
+        self._counters: Dict[str, int] = {"retries": 0, "cancelled": 0,
+                                          "timedOut": 0,
+                                          "numericalRetries": 0,
+                                          "deadLettered": 0}
+        self._stalled: set = set()
+        self._watchdog_stop = threading.Event()
+        if self._stall_seconds > 0:
+            threading.Thread(target=self._watch_stalls, daemon=True,
+                             name="lo-stall-watchdog").start()
+
+    @classmethod
+    def from_config(cls, catalog: Catalog, config) -> "JobManager":
+        return cls(catalog, max_workers=config.max_workers, config=config,
+                   default_timeout=config.job_timeout_seconds,
+                   stall_seconds=config.stall_seconds,
+                   stall_escalate=config.stall_escalate,
+                   retry_backoff=config.retry_backoff_seconds,
+                   retry_backoff_max=config.retry_backoff_max_seconds,
+                   numerical_retries=config.health_retries)
+
+    def lifecycle_counters(self) -> Dict[str, int]:
+        """Monotonic lifecycle counters and the jobs stalled now."""
+        with self._lock:
+            out = dict(self._counters)
+            out["stalled"] = sum(
+                1 for k in self._stalled
+                if k in self._futures and not self._futures[k].done())
+        return out
 
     def _set_status(self, name: str, status: str) -> None:
         # advisory state on the metadata document; a collection deleted
@@ -95,17 +209,53 @@ class JobManager:
         except Exception:  # noqa: BLE001
             pass
 
+    def _count(self, key: str, delta: int = 1) -> None:
+        with self._lock:
+            self._counters[key] = self._counters.get(key, 0) + delta
+
+    def _backoff_seconds(self, attempt: int) -> float:
+        """base * 2^attempt, capped, times a uniform [0.5, 1.5) jitter
+        (so jobs felled by one transient do not retry in step)."""
+        if self._retry_backoff <= 0:
+            return 0.0
+        base = min(self._retry_backoff * (2 ** attempt),
+                   self._retry_backoff_max)
+        return base * (0.5 + random.random())
+
+    # ------------------------------------------------------------------
     def submit(self, name: str, fn: Callable[[], Any], *,
                description: str = "",
                parameters: Optional[Dict[str, Any]] = None,
-               needs_card: bool = False) -> Future:
+               needs_card: bool = False, max_retries: int = 0,
+               timeout: Optional[float] = None) -> Future:
         """Runs ``fn`` on a worker thread for collection ``name``, which
         must exist with ``finished: False``. ``needs_card`` jobs hold the
-        card lease while ``fn`` runs."""
+        card lease while ``fn`` runs. ``timeout`` (seconds) is the job's
+        deadline; None takes the manager's default, 0 none."""
+        effective = (self._default_timeout if timeout is None
+                     else max(0.0, float(timeout)))
+        token = preempt.CancelToken(
+            deadline=time.monotonic() + effective if effective > 0
+            else None)
 
-        def run() -> Any:
-            submitted = time.monotonic()
-            lease = (self._lease.hold() if needs_card
+        def record_cancel(exc: preempt.JobCancelled, attempt: int,
+                          extra: Dict[str, Any]) -> None:
+            status = exc.reason or D.STATUS_CANCELLED
+            extra = dict(extra, **{D.STATUS_FIELD: status,
+                                   "cancelReason": status,
+                                   "attempt": attempt})
+            self._catalog.append_document(name, D.execution_document(
+                description, parameters,
+                exception=f"JobCancelled({status!r}: {exc})", extra=extra))
+            self._set_status(name, status)
+            self._count("timedOut" if status == D.STATUS_TIMED_OUT
+                        else "cancelled")
+
+        def attempt_once(attempt: int, submitted: float,
+                         failures: Dict[str, int]) -> tuple:
+            """One attempt under the lease: ``(done, result)``; done
+            False means retry after the backoff it recorded."""
+            lease = (self._lease.hold(token) if needs_card
                      else contextlib.nullcontext(0.0))
             with lease as lease_wait:
                 queue_wait = time.monotonic() - submitted
@@ -125,27 +275,70 @@ class JobManager:
                         extra["leaseWaitSeconds"] = round(lease_wait, 6)
                     return extra
 
+                failure = None
                 try:
+                    # with the lease held: "hang" is a wedged job holding
+                    # the card, "raise" a transient attempt failure
+                    faults.maybe_inject("job_run", self._config)
                     result = fn()
-                except Exception as exception:  # noqa: BLE001 — recorded
+                except preempt.JobCancelled as exc:
+                    # deadline, DELETE or stall escalation at a
+                    # cooperative check: terminal; a checkpointed fit
+                    # stays resumable by PATCH
+                    _drop_traceback(exc)
+                    failure = exc
+                except Exception as exc:  # noqa: BLE001 — recorded
                     traceback.print_exc()
-                    # no retries: every failure is terminal
-                    extra = timing({"attempt": 1,
-                                    "errorKind": classify_error(exception),
-                                    D.STATUS_FIELD: D.STATUS_DEAD_LETTERED,
-                                    "deadLettered": True})
-                    self._catalog.append_document(name, D.execution_document(
-                        description, parameters, exception=repr(exception),
-                        extra=extra))
-                    self._set_status(name, D.STATUS_DEAD_LETTERED)
-                    return None
+                    _drop_traceback(exc)
+                    failure = exc
+                if needs_card:
+                    _settle_card(collect=failure is not None)
+                if isinstance(failure, preempt.JobCancelled):
+                    record_cancel(failure, attempt, timing(
+                        {"queueWaitSeconds": round(queue_wait, 6)}))
+                    return True, None
+                if failure is not None:
+                    return self._record_failure(
+                        name, description, parameters, failure, attempt,
+                        max_retries, failures, timing), None
                 self._catalog.mark_finished(name)
                 self._set_status(name, D.STATUS_FINISHED)
                 self._catalog.append_document(name, D.execution_document(
                     description, parameters, extra=timing({
                         "queueWaitSeconds": round(queue_wait, 6),
-                        "attempt": 1})))
-                return result
+                        "attempt": attempt})))
+                return True, result
+
+        def run() -> Any:
+            submitted = time.monotonic()
+            token.started = submitted
+            failures = {"transient": 0, "numerical": 0}
+            attempt = 0
+            preempt.install_cancel(token)
+            try:
+                with faults.use_config(self._config):
+                    while True:
+                        attempt += 1
+                        try:
+                            # cancelled or expired while queued, or in
+                            # the backoff: terminal, no lease taken
+                            token.check()
+                            done, result = attempt_once(attempt, submitted,
+                                                        failures)
+                        except preempt.JobCancelled as exc:
+                            _drop_traceback(exc)
+                            record_cancel(exc, attempt, {
+                                "elapsedSeconds": round(
+                                    time.monotonic() - submitted, 6),
+                                "queuedOnly": True})
+                            return None
+                        if done:
+                            return result
+                        # cancel-aware: a DELETE or the deadline ends the
+                        # wait and the next token.check() records it
+                        token.wait(failures["backoff"])
+            finally:
+                preempt.clear_cancel()
 
         with self._lock:
             # queued before the pool can start run(), which sets running
@@ -156,11 +349,137 @@ class JobManager:
                       if f.done() and k != name]:
                 del self._futures[k]
                 self._info.pop(k, None)
+                self._stalled.discard(k)
             self._futures[name] = future
             self._info[name] = {"description": description,
-                                "parameters": parameters}
+                                "parameters": parameters,
+                                "needs_card": needs_card, "token": token}
         return future
 
+    def _record_failure(self, name: str, description: str, parameters,
+                        exception: Exception, attempt: int,
+                        max_retries: int, failures: Dict[str, Any],
+                        timing: Callable) -> bool:
+        """Documents a failed attempt; True when it is terminal, else
+        the retry's backoff goes to ``failures["backoff"]``."""
+        kind = classify_error(exception)
+        if kind == PERMANENT:
+            terminal = True
+        elif kind == NUMERICAL:
+            terminal = failures["numerical"] >= self._numerical_retries
+        else:
+            terminal = failures["transient"] + 1 >= max_retries + 1
+        extra = timing({"attempt": attempt, "errorKind": kind})
+        if kind == NUMERICAL:
+            extra["numericalRetriesUsed"] = failures["numerical"]
+        if terminal:
+            extra[D.STATUS_FIELD] = D.STATUS_DEAD_LETTERED
+            extra["deadLettered"] = True
+            self._count("deadLettered")
+            if kind == PERMANENT and max_retries > 0:
+                extra["retriesSkipped"] = "permanent error class"
+            elif kind == NUMERICAL:
+                extra["retriesSkipped"] = \
+                    "numerical rollback-retry budget exhausted"
+            self._catalog.append_document(name, D.execution_document(
+                description, parameters, exception=repr(exception),
+                extra=extra))
+            # finished stays False (reference parity)
+            self._set_status(name, D.STATUS_DEAD_LETTERED)
+            return True
+        backoff = self._backoff_seconds(attempt - 1)
+        extra["nextRetryInSeconds"] = round(backoff, 3)
+        self._catalog.append_document(name, D.execution_document(
+            description, parameters, exception=repr(exception),
+            extra=extra))
+        if kind == NUMERICAL:
+            failures["numerical"] += 1
+            self._count("numericalRetries")
+        else:
+            failures["transient"] += 1
+            self._count("retries")
+        failures["backoff"] = backoff
+        self._set_status(name, D.STATUS_QUEUED)
+        return False
+
+    # ------------------------------------------------------------------
+    def cancel(self, name: str, reason: str = D.STATUS_CANCELLED) -> bool:
+        """Cooperative cancellation of job ``name`` (the ``DELETE
+        .../{name}/run`` backend). A job the pool has not started is
+        cancelled outright, with its document written here; a running
+        job (or one waiting for the card) records its own at its next
+        check. False when no live job has that name."""
+        with self._lock:
+            future = self._futures.get(name)
+            info = self._info.get(name)
+        if future is None or info is None or future.done():
+            return False
+        token: preempt.CancelToken = info["token"]
+        if future.cancel():
+            token.cancel(reason)
+            try:
+                self._catalog.append_document(name, D.execution_document(
+                    info.get("description", ""), info.get("parameters"),
+                    exception=f"JobCancelled({reason!r}: cancelled "
+                              f"before the job started)",
+                    extra={D.STATUS_FIELD: reason, "cancelReason": reason,
+                           "attempt": 0, "queuedOnly": True}))
+            except Exception:  # noqa: BLE001 — the collection may be gone
+                pass
+            self._set_status(name, reason)
+            self._count("timedOut" if reason == D.STATUS_TIMED_OUT
+                        else "cancelled")
+            return True
+        token.cancel(reason)
+        return True
+
+    # ------------------------------------------------------------------
+    def _watch_stalls(self) -> None:
+        """The stall watchdog: a live job whose heartbeat
+        (:func:`preempt.heartbeat`) went quiet for more than
+        ``stall_seconds`` is marked ``stalled`` and, with escalation,
+        cancelled through its token. Jobs that never beat are exempt.
+        It also publishes each job's progress to its metadata
+        (``progress``, with ``heartbeatAgeSeconds``)."""
+        interval = min(max(self._stall_seconds / 4.0, 0.05), 5.0)
+        while not self._watchdog_stop.wait(interval):
+            with self._lock:
+                live = [(k, v["token"]) for k, v in self._info.items()
+                        if k in self._futures
+                        and not self._futures[k].done()]
+            for name, token in live:
+                age = token.heartbeat_age()
+                if age is None:
+                    continue
+                progress = token.progress_snapshot()
+                if progress:
+                    try:
+                        self._catalog.update_metadata(name, {
+                            D.PROGRESS_FIELD: dict(
+                                progress,
+                                heartbeatAgeSeconds=round(age, 3))})
+                    except Exception:  # noqa: BLE001
+                        pass
+                if token.cancelled():
+                    continue
+                if age > self._stall_seconds:
+                    with self._lock:
+                        newly = name not in self._stalled
+                        self._stalled.add(name)
+                    if newly:
+                        self._set_status(name, D.STATUS_STALLED)
+                        self._count("stalledSeen")
+                        if self._stall_escalate:
+                            token.cancel(D.STATUS_STALLED)
+                else:
+                    with self._lock:
+                        was = name in self._stalled
+                        self._stalled.discard(name)
+                    if was:
+                        # heartbeats resumed (a long first step): un-flag
+                        self._set_status(name, D.STATUS_RUNNING)
+
+    # ------------------------------------------------------------------
     def wait(self, name: str, timeout: Optional[float] = None) -> Any:
         """Blocks until job ``name`` ends (REST clients poll
         ``finished`` instead); the job's result, or None."""
@@ -183,7 +502,9 @@ class JobManager:
     def shutdown(self) -> None:
         """Stops taking jobs and drops the ones still queued, each with a
         terminal ``shutdownAborted`` document, so no client polls a flag
-        that never flips."""
+        that never flips (the next boot's ``recover_unfinished``
+        requeues the executions and functions among them)."""
+        self._watchdog_stop.set()
         self._pool.shutdown(wait=False, cancel_futures=True)
         with self._lock:
             aborted = [(k, self._info.get(k) or {})

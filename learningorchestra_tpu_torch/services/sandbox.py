@@ -510,8 +510,14 @@ def _run_in_subprocess(code: str, parameters: Optional[Dict[str, Any]],
         }
         wall = max(30.0, config.sandbox_cpu_seconds * 2.0)
         # Popen (fork then exec: safe beside the parent's CUDA context)
-        # and a wait loop against the wall deadline. stderr goes to a
-        # file, not a pipe nobody drains while the loop waits.
+        # and a wait loop against the wall deadline and the job's cancel
+        # token: a deadline, a DELETE .../run or the stall watchdog
+        # kills the child (user code has no cooperative check inside).
+        # stderr goes to a file, not a pipe nobody drains while the loop
+        # waits.
+        from learningorchestra_tpu_torch.runtime import preempt
+
+        token = preempt.current_cancel()
         stderr_path = os.path.join(scratch, "__lo_stderr__")
         with open(stderr_path, "wb") as stderr_f:
             proc = subprocess.Popen(
@@ -531,6 +537,10 @@ def _run_in_subprocess(code: str, parameters: Optional[Dict[str, Any]],
                         break
                     except subprocess.TimeoutExpired:
                         pass
+                    if token is not None and token.cancelled():
+                        raise preempt.JobCancelled(
+                            token.reason or "cancelled",
+                            "sandboxed code cancelled")
                     if time.monotonic() >= deadline:
                         raise TimeoutError(
                             f"sandboxed code exceeded {wall:.0f}s "

@@ -4,14 +4,23 @@ JAX package's server, with the same status codes and bodies.
 ====== ========================================= =======================
 verb   path (under /api/learningOrchestra/v1)    handler
 ====== ========================================= =======================
-POST   /dataset/csv                              ingest (201 + URI)
+POST   /dataset/{csv,generic}                    ingest (201 + URI)
 POST   /model/{tool}                             build a model (201)
 POST   /{train,tune,evaluate,predict}/{tool}     run a method (201)
+POST   /explore/histogram                        value counts (201)
+POST   /explore/{tool}                           reflection + PNG (201)
+POST   /transform/projection                     column select (201)
+POST   /transform/dataType                       in-place cast (200)
+POST   /transform/{tool}                         reflection (201)
 POST   /function/python                          run user code (201)
-PATCH  /{model,train,...,function}/{tool}/{name} re-run (200)
+PATCH  /{model,train,...,explore,transform,      re-run (200)
+        function}/{tool}/{name}
 DELETE /{service}/{tool}/{name}                  delete (200)
+DELETE /{service}/{tool}/{name}/run              cancel the job (200)
 GET    /{service}/{tool}                         list collections
-GET    /{service}/{tool}/{name}?skip&limit&query paged read
+GET    /{service}/{tool}/{name}?skip&limit&query paged read (an explore
+                                                 plot without paging:
+                                                 image/png)
 GET    /observe                                  the newest change seq
 GET    /observe/{name}?seq&timeout               long-poll change feed
 POST   /serve/{model}                            create a session (201)
@@ -21,36 +30,53 @@ DELETE /serve/{model}                            teardown
 ====== ========================================= =======================
 
 A 406 of the submit-time lint carries its findings under ``analysis``.
-``DELETE .../{name}/run`` (cancel) and ``POST .../{name}/migrate``
-answer 406 "not yet ported"; every other service (explore, transform,
-builder, observability, profile, /health, /metrics) answers 404 until
-it is ported.
+Listings and paged reads are cached (:class:`~learningorchestra_tpu_torch.
+services.cache.ReadCache`, ``LO_GET_CACHE_TTL``) against the catalog's
+change seq and the rows' file stamp, so a poller never sees a stale
+``finished``. With ``LO_REQUEST_TIMEOUT`` the gateway answers 504 to a
+request past its deadline while the dispatch goes on, and 503 at once
+when ``LO_GATEWAY_MAX_INFLIGHT`` timed dispatches are in flight. At
+start, :meth:`Api.recover_unfinished` requeues the unfinished executions
+and functions and gives every other unfinished job a typed failure.
+``DELETE .../{name}/run`` cancels (404 unknown, 406 nothing to cancel).
+``POST .../{name}/migrate`` answers 406 "not yet ported"; every other
+service (builder, observability, profile, /health, /metrics) answers 404
+until it is ported.
 """
 
 from __future__ import annotations
 
 import json
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
 from urllib.parse import parse_qs, urlparse
 
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.config import API_PREFIX
+from learningorchestra_tpu_torch.runtime import locks
+from learningorchestra_tpu_torch.services import function_service as fsvc
 from learningorchestra_tpu_torch.services import validators as V
+from learningorchestra_tpu_torch.services.cache import ReadCache
+from learningorchestra_tpu_torch.services.columnar import (
+    DataTypeService,
+    HistogramService,
+    ProjectionService,
+)
 from learningorchestra_tpu_torch.services.context import ServiceContext
+from learningorchestra_tpu_torch.services.database_executor import \
+    DatabaseExecutorService
 from learningorchestra_tpu_torch.services.dataset import (
     DatasetService,
     parse_query_param,
 )
 from learningorchestra_tpu_torch.services.execution import ExecutionService
-from learningorchestra_tpu_torch.services.function_service import \
-    FunctionService
 from learningorchestra_tpu_torch.services.model_service import ModelService
 
 _JSON = "application/json"
-SERVICES = ("dataset", "model", "tune", "train", "evaluate", "predict",
-            "function")
+SERVICES = ("dataset", "model", "transform", "explore", "tune", "train",
+            "evaluate", "predict", "function")
 EXECUTION_VERBS = ("train", "tune", "evaluate", "predict")
 # the longest long-poll of GET /observe/{name}, seconds
 OBSERVE_MAX_SECONDS = 120.0
@@ -65,7 +91,81 @@ class Api:
         self.dataset = DatasetService(self.ctx)
         self.model = ModelService(self.ctx)
         self.execution = ExecutionService(self.ctx)
-        self.function = FunctionService(self.ctx)
+        self.function = fsvc.FunctionService(self.ctx)
+        self.dbexec = DatabaseExecutorService(self.ctx)
+        self.histogram = HistogramService(self.ctx)
+        self.projection = ProjectionService(self.ctx)
+        self.datatype = DataTypeService(self.ctx)
+        self.read_cache = ReadCache(
+            ttl_seconds=self.ctx.config.get_cache_ttl_seconds)
+        # timed dispatches (the gateway in _Handler._respond): in flight,
+        # abandoned after their 504, refused at the cap
+        self.gateway_lock = locks.make_lock("server.gateway")
+        self.gateway = {"inflight": 0, "abandonedInflight": 0,
+                        "abandonedTotal": 0, "saturatedTotal": 0}
+        self.recovered = self.recover_unfinished()
+
+    # ------------------------------------------------------------------
+    def recover_unfinished(self) -> Dict[str, list]:
+        """Boot-time job durability: an unfinished execution or function
+        stored its whole request in its metadata and is requeued (a
+        checkpointed fit resumes from its newest step; its timeout and
+        healthPolicy come along); every other unfinished job (an ingest,
+        an explore or transform step, a model build) gets a typed
+        ``InterruptedError`` document, so no client polls a flag that
+        never flips. A job whose last document is an exception ended in
+        failure and stays as it is, unless a shutdown dropped it
+        (``shutdownAborted``): it never ran, so it is requeued."""
+        requeued, failed = [], []
+        catalog = self.ctx.catalog
+        for meta in catalog.list_collections():
+            if meta.get(D.FINISHED_FIELD):
+                continue
+            name = meta.get(D.NAME_FIELD)
+            type_string = str(meta.get(D.TYPE_FIELD, ""))
+            verb = type_string.split("/")[0]
+            is_execution = verb in EXECUTION_VERBS and \
+                meta.get(D.METHOD_FIELD) is not None
+            is_function = verb == "function" and \
+                meta.get(D.FUNCTION_FIELD) is not None
+            docs = catalog.get_documents(name)
+            if docs and docs[-1].get(D.EXCEPTION_FIELD) and not (
+                    docs[-1].get("shutdownAborted")
+                    and (is_execution or is_function)):
+                continue
+            try:
+                if is_execution:
+                    self.execution._submit(
+                        name, type_string, meta[D.PARENT_NAME_FIELD],
+                        meta[D.METHOD_FIELD],
+                        meta.get(D.METHOD_PARAMETERS_FIELD) or {},
+                        meta.get(D.DESCRIPTION_FIELD, ""),
+                        timeout=meta.get(V.TIMEOUT_FIELD),
+                        health_policy=meta.get(V.HEALTH_POLICY_FIELD))
+                    requeued.append(name)
+                elif is_function:
+                    # the granted mode, under the current ceiling
+                    mode = fsvc.resolve_sandbox_mode(
+                        self.ctx.config, meta.get(fsvc.SANDBOX_MODE_FIELD))
+                    self.function._submit(
+                        name, type_string, meta[D.FUNCTION_FIELD],
+                        meta.get(D.FUNCTION_PARAMETERS_FIELD) or {},
+                        meta.get(D.DESCRIPTION_FIELD, ""), mode,
+                        timeout=meta.get(V.TIMEOUT_FIELD))
+                    requeued.append(name)
+                else:
+                    catalog.append_document(name, D.execution_document(
+                        meta.get(D.DESCRIPTION_FIELD, ""), None,
+                        exception="InterruptedError('job was in flight "
+                                  "when the server stopped; resubmit "
+                                  "it')"))
+                    failed.append(name)
+            except Exception as exc:  # noqa: BLE001 — boot must finish
+                catalog.append_document(name, D.execution_document(
+                    meta.get(D.DESCRIPTION_FIELD, ""), None,
+                    exception=f"requeue-on-boot failed: {exc!r}"))
+                failed.append(name)
+        return {"requeued": requeued, "failed": failed}
 
     def dispatch(self, method: str, path: str, params: Dict[str, Any],
                  body: Optional[Dict[str, Any]]) -> Tuple[int, Any, str]:
@@ -120,6 +220,14 @@ class Api:
             status, payload = self.model.create(body, tool)
         elif service == "function":
             status, payload = self.function.create(body, tool)
+        elif service == "explore" and tool == "histogram":
+            status, payload = self.histogram.create(body, tool)
+        elif service == "transform" and tool == "projection":
+            status, payload = self.projection.create(body, tool)
+        elif service == "transform" and tool == "dataType":
+            status, payload = self.datatype.create(body, tool)
+        elif service in ("explore", "transform"):
+            status, payload = self.dbexec.create(body, service, tool)
         else:
             status, payload = self.execution.create(body, service, tool)
         return status, payload, _JSON
@@ -131,6 +239,8 @@ class Api:
         elif service in EXECUTION_VERBS:
             status, payload = self.execution.update(name, body, service,
                                                     tool)
+        elif service in ("explore", "transform"):
+            status, payload = self.dbexec.update(name, body, service, tool)
         elif service == "function":
             status, payload = self.function.update(name, body, tool)
         else:
@@ -140,9 +250,11 @@ class Api:
 
     def _delete(self, service: str, tool: str,
                 name: str) -> Tuple[int, Any, str]:
+        # cancels the running job and keeps the collection (a safe name
+        # has no "/", so no collection shadows the suffix)
         if name.endswith("/run") and len(name) > len("/run"):
-            raise V.not_ported("DELETE .../run (job cancellation)")
-        if service in ("dataset", "function"):
+            return self._cancel_run(name[:-len("/run")])
+        if service in ("dataset", "function", "explore", "transform"):
             status, payload = self.dataset.delete_file(name)
         elif service == "model":
             status, payload = self.model.delete(name, tool)
@@ -150,19 +262,62 @@ class Api:
             status, payload = self.execution.delete(name, service, tool)
         return status, payload, _JSON
 
+    def _cancel_run(self, name: str) -> Tuple[int, Any, str]:
+        if self.ctx.catalog.get_metadata(name) is None:
+            raise V.HttpError(V.HTTP_NOT_FOUND,
+                              f"{V.MESSAGE_NONEXISTENT_FILE}: {name}")
+        if not self.ctx.jobs.cancel(name):
+            raise V.HttpError(V.HTTP_NOT_ACCEPTABLE,
+                              f"no cancellable job for {name} (already "
+                              f"finished or never submitted here)")
+        return 200, {"result": f"cancellation requested for {name}"}, _JSON
+
+    def _cached(self, key: tuple, version: Any, now: float,
+                read) -> Tuple[int, Any, str]:
+        """``read()``'s ``(status, payload)`` through the GET cache."""
+        cache = self.read_cache
+        if cache.enabled:
+            hit = cache.get(key, version, now)
+            if hit is not None:
+                return hit[0], hit[1], _JSON
+        status, payload = read()
+        if cache.enabled:
+            cache.put(key, version, now, status, payload)
+        return status, payload, _JSON
+
     def _get(self, service: str, tool: str, name: Optional[str],
              params: Dict[str, Any]) -> Tuple[int, Any, str]:
+        now = time.monotonic()
+        catalog = self.ctx.catalog
         if name is None:
-            status, payload = self.dataset.list_files(
-                D.normalize_type(f"{service}/{tool}"))
-            return status, payload, _JSON
+            # any create, update or delete moves the global seq
+            return self._cached(
+                ("list", service, tool), catalog.latest_seq(), now,
+                lambda: self.dataset.list_files(
+                    D.normalize_type(f"{service}/{tool}")))
+        # an explore plot is a PNG; a paged or queried GET reads the
+        # documents, so polling finished works
+        has_paging = any(k in params for k in ("skip", "limit", "query"))
+        if service == "explore" and tool != "histogram" and not has_paging:
+            meta = catalog.get_metadata(name)
+            if meta is not None and str(
+                    meta.get(D.TYPE_FIELD, "")).startswith("explore/"):
+                try:
+                    png, content_type = self.dbexec.image_response(name)
+                    return 200, png, content_type
+                except Exception:  # noqa: BLE001 — no plot yet: the JSON
+                    pass
         skip = int(params.get("skip", 0) or 0)
         limit = params.get("limit")
         limit = int(limit) if limit not in (None, "") else None
-        status, payload = self.dataset.read_file(
-            name, skip=skip, limit=limit,
-            query=parse_query_param(params.get("query")))
-        return status, payload, _JSON
+        query = parse_query_param(params.get("query"))
+        # keyed on the collection's newest change (documents, metadata)
+        # and its rows' file stamp (row writes bypass the change feed)
+        return self._cached(
+            ("read", name, skip, limit, params.get("query")),
+            (catalog.collection_seq(name), catalog.dataset_version(name)),
+            now, lambda: self.dataset.read_file(
+                name, skip=skip, limit=limit, query=query))
 
     def _observe(self, parts: list,
                  params: Dict[str, Any]) -> Tuple[int, Any, str]:
@@ -231,9 +386,71 @@ class _Handler(BaseHTTPRequestHandler):
         parsed = urlparse(self.path)
         params = {k: v[0] for k, v in parse_qs(parsed.query).items()}
         body = self._read_body() if method in ("POST", "PATCH") else None
-        status, payload, content_type = self.api.dispatch(
-            method, parsed.path, params, body)
-        data = json.dumps(payload).encode()
+        timeout = self.api.ctx.config.request_timeout_seconds
+        if timeout > 0:
+            status, payload, content_type = self._timed_dispatch(
+                method, parsed.path, params, body, timeout)
+        else:
+            status, payload, content_type = self.api.dispatch(
+                method, parsed.path, params, body)
+        self._send(status, payload, content_type)
+
+    def _timed_dispatch(self, method: str, path: str,
+                        params: Dict[str, Any], body, timeout: float,
+                        ) -> Tuple[int, Any, str]:
+        """The gateway's deadline: the dispatch runs on a thread of its
+        own and the client gets 504 after ``timeout`` seconds while the
+        work goes on (the reference gateway's proxy timeout). Abandoned
+        dispatches count against ``gateway_max_inflight``: at the cap a
+        timed request gets 503 at once."""
+        api = self.api
+        cap = api.ctx.config.gateway_max_inflight
+        gateway = api.gateway
+        with api.gateway_lock:
+            saturated = cap > 0 and gateway["inflight"] >= cap
+            if saturated:
+                gateway["saturatedTotal"] += 1
+            else:
+                gateway["inflight"] += 1
+        if saturated:
+            return 503, {"result": f"gateway saturated ({cap} timed "
+                                   f"dispatches in flight) — retry with "
+                                   f"backoff"}, _JSON
+        result: list = []
+        done = threading.Event()
+        state = {"finished": False, "abandoned": False}
+
+        def run_dispatch() -> None:
+            try:
+                result.append(api.dispatch(method, path, params, body))
+                done.set()
+            finally:
+                with api.gateway_lock:
+                    gateway["inflight"] -= 1
+                    state["finished"] = True
+                    if state["abandoned"]:
+                        gateway["abandonedInflight"] -= 1
+
+        threading.Thread(target=run_dispatch, daemon=True,
+                         name="lo-gateway").start()
+        if done.wait(timeout):
+            return result[0]
+        with api.gateway_lock:
+            # a dispatch that lands between the wait and this lock is not
+            # abandoned
+            if not state["finished"]:
+                state["abandoned"] = True
+                gateway["abandonedTotal"] += 1
+                gateway["abandonedInflight"] += 1
+        return 504, {"result": f"request timed out after {timeout:g}s"}, \
+            _JSON
+
+    def _send(self, status: int, payload: Any, content_type: str) -> None:
+        if isinstance(payload, (bytes, bytearray)):
+            data = bytes(payload)
+        else:
+            data = json.dumps(payload).encode()
+            content_type = _JSON
         self.send_response(status)
         self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))

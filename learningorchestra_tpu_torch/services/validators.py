@@ -65,6 +65,40 @@ def valid_timeout(value: Any) -> Optional[float]:
     return float(value)
 
 
+HEALTH_POLICY_FIELD = "healthPolicy"
+
+
+def valid_health_policy(value: Any) -> Optional[Any]:
+    """Optional training-health request field: an action string
+    (``"skip"``, ``"rollback"``, ``"fail"``, ``"off"``) or an object
+    ``{"action", "spikeFactor", "emaAlpha", "maxRollbacks",
+    "cooldownEpochs"}``, checked as the engine coerces it. Returns the
+    value as given (stored on the metadata for a requeue), or None."""
+    if value is None:
+        return None
+    if not isinstance(value, (str, dict)):
+        raise HttpError(
+            HTTP_NOT_ACCEPTABLE,
+            f"{MESSAGE_INVALID_FIELD}: healthPolicy must be an action "
+            f"string or object, got {value!r}")
+    if isinstance(value, dict):
+        unknown = set(value) - {"action", "spikeFactor", "emaAlpha",
+                                "maxRollbacks", "cooldownEpochs"}
+        if unknown:
+            raise HttpError(
+                HTTP_NOT_ACCEPTABLE,
+                f"{MESSAGE_INVALID_FIELD}: healthPolicy has unknown "
+                f"key(s) {sorted(unknown)}")
+    from learningorchestra_tpu_torch.runtime import health as health_lib
+
+    try:
+        health_lib.coerce_policy(value)
+    except (ValueError, TypeError) as exc:
+        raise HttpError(HTTP_NOT_ACCEPTABLE,
+                        f"{MESSAGE_INVALID_FIELD}: {exc}") from None
+    return value
+
+
 def valid_positive_int(value: Any, field: str,
                        default: Optional[int] = None) -> Optional[int]:
     """Serving-session sizing field (maxSlots, maxNewTokens, cacheLen):
@@ -380,3 +414,15 @@ class RequestValidator:
                 raise HttpError(
                     HTTP_NOT_ACCEPTABLE,
                     f"{message}: {key} (accepted: {', '.join(names)})")
+
+    def valid_fields(self, dataset_name: str,
+                     fields: Sequence[str]) -> None:
+        """Projection and histogram fields against the dataset's
+        metadata ``fields`` (else its stored columns)."""
+        meta = self.existing(dataset_name)
+        known = meta.get(D.FIELDS_FIELD) or \
+            self._ctx.catalog.dataset_fields(dataset_name)
+        for f in fields:
+            if f not in known:
+                raise HttpError(HTTP_NOT_ACCEPTABLE,
+                                f"{MESSAGE_INVALID_FIELD}: {f}")

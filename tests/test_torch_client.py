@@ -18,7 +18,10 @@ Held:
   64, ``dot`` attention, float32, SGD: ``tests/test_torch_classifier.py``'s
   parity test) with weights carried across by ``params_from_flax``: its
   losses within 1e-5 relative;
-- a route the port lacks answers through the client as the server does.
+- a route the port lacks answers through the client as the server does,
+  and the histogram, cancel and function-timeout calls the port lacked
+  until its lifecycle and explore routes came answer as the JAX
+  package's through its client.
 """
 
 import time
@@ -335,11 +338,6 @@ def test_routes_the_port_lacks_answer_through_the_client_as_the_server(
     ctx = port_client.Context(servers[1].base_url)
     for call, status in ((lambda: ctx.health(), 404),
                          (lambda: ctx.trace("cnn_t"), 404),
-                         (lambda: ctx.explore_histogram.run_histogram(
-                             "titanic", "h", ["Age"]), 404),
-                         (lambda: ctx.train_tensorflow.cancel("cnn_t"), 406),
-                         (lambda: ctx.function_python.run_function(
-                             "t", "response = 1", timeout=5), 406),
                          (lambda: ctx.model_tensorflow.create(
                              "tf", "tensorflow.keras.models", "load_model",
                              {"path": "/m.keras"}), 406)):
@@ -350,3 +348,61 @@ def test_routes_the_port_lacks_answer_through_the_client_as_the_server(
     assert observed["metadata"]["finished"] and observed["changes"]
     assert {"seq"} == set(ctx._http.request(
         "GET", port_client.API_PREFIX + "/observe")[1]["result"])
+
+
+# the calls the port answered 404 or 406 to until its explore route and
+# its job lifecycle came: each package's client against its server
+def _histogram(ctx, lib):
+    uri = ctx.explore_histogram.run_histogram("titanic", "hist_pclass",
+                                              ["Pclass"])
+    ctx.wait("hist_pclass")
+    docs = ctx.explore_histogram.read("hist_pclass")["result"]
+    return uri, [d for d in docs if "Pclass" in d]
+
+
+def _cancel(ctx, lib):
+    outcomes = []
+    try:
+        ctx.train_tensorflow.cancel("cnn_t")  # finished: nothing to cancel
+    except lib.ApiError as err:
+        outcomes.append((err.status, err.args))
+    ctx.function_python.run_function(
+        "slow_cancel", "import time\n"
+                       "for _ in range(600):\n"
+                       "    time.sleep(0.1)\n"
+                       "response = 1\n")
+    deadline = time.monotonic() + 60
+    while ctx.function_python.metadata("slow_cancel").get(
+            "status") != "running":
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    outcomes.append(ctx.function_python.cancel("slow_cancel"))
+    while ctx.function_python.metadata("slow_cancel").get(
+            "status") == "running":
+        assert time.monotonic() < deadline
+        time.sleep(0.05)
+    meta = ctx.function_python.metadata("slow_cancel")
+    return outcomes + [meta["finished"], meta["status"]]
+
+
+def _function_timeout(ctx, lib):
+    # a deadline well past the JAX jail's start (it imports that package)
+    uri = ctx.function_python.run_function("t_timeout", "response = 1",
+                                           timeout=90)
+    ctx.wait("t_timeout")
+    meta = ctx.function_python.metadata("t_timeout")
+    return uri, meta["finished"], meta["status"], meta["timeout"]
+
+
+LIFTED_CLIENT_CALLS = {"histogram": _histogram, "cancel": _cancel,
+                       "function timeout": _function_timeout}
+
+
+@pytest.mark.parametrize("case", list(LIFTED_CLIENT_CALLS))
+def test_lifted_client_calls_answer_as_jax(runs, case):
+    from learningorchestra_tpu import client as jax_client
+
+    _, _, servers = runs
+    want, got = (LIFTED_CLIENT_CALLS[case](lib.Context(srv.base_url), lib)
+                 for srv, lib in zip(servers, (jax_client, port_client)))
+    assert got == want

@@ -11,8 +11,7 @@ store, in the default ``subprocess`` sandbox:
   server and a failed job without ``response`` answer alike;
 - a lint refusal (406 with its findings), a ``sandboxMode`` above the
   ceiling and a ``#`` expression the lint refuses answer with equal
-  status codes and bodies; ``timeout`` answers 406 "not yet ported" in
-  the port;
+  status codes and bodies; ``timeout`` is accepted and stored alike;
 - ``#`` expressions in class and method parameters (``"layer_configs":
   "#[...]"``, ``"batch_size": "#2 ** 3"``) run in one sandbox pass per
   request: with the stored models holding one JAX tree, the fits' losses
@@ -278,12 +277,19 @@ def test_refusals_answer_as_jax(both, case):
 
 
 def test_timeout_is_not_yet_ported(both):
-    status, body = _call(both[1], "POST", "/function/python",
-                         _fn("timed", "response = 1", timeout=5))
-    assert status == 406
-    assert body["result"] == ("invalid field: the timeout field is not yet "
-                              "ported to the PyTorch package")
-    assert not both[1].ctx.catalog.exists("timed")
+    """Named for the refusal it held until the job lifecycle came: the
+    ``timeout`` field now answers, is stored and ends its job as in the
+    JAX package (a deadline well past the JAX jail's start)."""
+    answers = _both(both, "POST", "/function/python",
+                    _fn("timed", "response = 1", timeout=90))
+    assert answers[1] == answers[0]
+    assert answers[1][0] == 201
+    outcomes = []
+    for api in both:
+        api.ctx.jobs.wait("timed", timeout=120)
+        meta = api.ctx.catalog.get_metadata("timed")
+        outcomes.append((meta["finished"], meta["status"], meta["timeout"]))
+    assert outcomes[1] == outcomes[0] == (True, "finished", 90.0)
 
 
 def test_hash_expressions_in_class_and_method_parameters(both, ran):

@@ -4,8 +4,10 @@ encoder, the fault injector, the mixture of experts, the keras-shaped
 layers, the sweeps, the client, the sandbox, the function service and
 the lint among them) loads
 neither JAX, flax nor any module of the JAX package, nor pandas,
-pyarrow, dill, msgpack or sklearn (the card's machine has none of the
-first four, and sklearn only where it happens to be installed), and
+pyarrow, dill, msgpack, sklearn, matplotlib or seaborn (the card's
+machine has none of the first four, and the others only where they
+happen to be installed: the explore route imports matplotlib and
+seaborn inside its job), and
 ``chip_smoke.py`` refuses to run without a card."""
 
 import os
@@ -21,7 +23,8 @@ _PROBE = """
 import importlib, pkgutil, sys
 # the card's machine lacks these: any import of one fails here (torch's
 # own optional imports of them tolerate that)
-for absent in ("pandas", "pyarrow", "dill", "msgpack", "sklearn"):
+for absent in ("pandas", "pyarrow", "dill", "msgpack", "sklearn",
+               "matplotlib", "seaborn"):
     sys.modules[absent] = None
 import learningorchestra_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -31,7 +34,8 @@ bad = sorted(m for m, mod in sys.modules.items() if mod is not None
              and m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
                                      "learningorchestra_tpu", "pandas",
                                      "pyarrow", "dill", "msgpack",
-                                     "sklearn"))
+                                     "sklearn", "matplotlib",
+                                     "seaborn"))
 print(len(names), bad)
 """
 
@@ -80,7 +84,13 @@ def test_new_modules_are_among_those_probed():
             "learningorchestra_tpu_torch.analysis",
             "learningorchestra_tpu_torch.analysis.findings",
             "learningorchestra_tpu_torch.analysis.code_lint",
-            "learningorchestra_tpu_torch.analysis.preflight"} <= names
+            "learningorchestra_tpu_torch.analysis.preflight",
+            "learningorchestra_tpu_torch.runtime.preempt",
+            "learningorchestra_tpu_torch.runtime.health",
+            "learningorchestra_tpu_torch.services.cache",
+            "learningorchestra_tpu_torch.services.columnar",
+            "learningorchestra_tpu_torch.services.database_executor"
+            } <= names
 
 
 _LIGHT = """

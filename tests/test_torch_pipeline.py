@@ -12,8 +12,10 @@ direct calls and against the JAX package.
   tolerance of ``tests/test_torch_training.py::test_fit_matches_jax``).
 - A failed job leaves ``finished`` false and an execution document with
   JAX's keys; what the port does not run yet answers 406 at submit and
-  leaves no collection; the pipeline runs with pandas, pyarrow and dill
-  unimportable.
+  leaves no collection, and what it runs since (``timeout``,
+  ``healthPolicy``, http(s) and generic ingest, cancel, the explore and
+  transform routes) answers and ends as in the JAX package; the pipeline
+  runs with pandas, pyarrow and dill unimportable.
 
 The model is small (vocab 64, d_model 32, 2 layers, windows of 32
 tokens of a cyclic-successor stream); both packages compute in float32.
@@ -220,21 +222,11 @@ def test_failed_job_is_recorded_as_jax(both):
 NOT_PORTED = {
     "a JAX method": ("POST", "/train/tensorflow", _run(
         method="set_mesh")),
-    "timeout": ("POST", "/train/tensorflow", _run(timeout=5)),
     "sliceDevices": ("POST", "/train/tensorflow", _run(sliceDevices=2)),
-    "healthPolicy": ("POST", "/train/tensorflow", _run(
-        healthPolicy={"maxRollbacks": 1})),
     "tensorflow.keras": ("POST", "/model/tensorflow", _model(
         modulePath="tensorflow.keras.models", **{"class": "Sequential"})),
     "a submodule of the mapped path": ("POST", "/model/tensorflow", _model(
         modulePath="learningorchestra_tpu.models.neural")),
-    "http": ("POST", "/dataset/csv", {"datasetName": "d2",
-                                      "datasetURI": "http://h/x.csv"}),
-    "https": ("POST", "/dataset/csv", {"datasetName": "d2",
-                                       "datasetURI": "https://h/x.csv"}),
-    "dataset/generic": ("POST", "/dataset/generic", {
-        "datasetName": "d2", "datasetURI": "x.bin"}),
-    "cancel": ("DELETE", "/model/tensorflow/lm/run", None),
     "migrate": ("POST", "/train/tensorflow/lm/migrate", {}),
 }
 
@@ -409,11 +401,144 @@ def test_requests_ported_since_answer_as_jax(both, case):
 
 def test_other_services_stay_unrouted(both):
     port = both[1]
-    for path in ("/explore/histogram", "/transform/projection",
-                 "/builder/sparkml", "/observability/trace", "/profile"):
+    for path in ("/builder/sparkml", "/observability/trace", "/profile"):
         assert _call(port, "GET", path) == (404, {"result": "unknown route"})
     for path in ("/health", "/metrics"):
         assert port.dispatch("GET", path, {}, None)[0] == 404
+
+
+# what NOT_PORTED and the unrouted services held until the lifecycle,
+# URL ingest and the explore and transform routes came: each answers as
+# in the JAX package, and its job ends alike
+@pytest.fixture(scope="module")
+def corpus_url(corpus):
+    """The corpus CSV behind a local ``http.server`` (no network)."""
+    import functools
+    import http.server
+    import threading
+
+    handler = functools.partial(http.server.SimpleHTTPRequestHandler,
+                                directory=os.path.dirname(corpus[1]))
+    server = http.server.ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    server.RequestHandlerClass.log_message = lambda *a: None
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    yield (f"127.0.0.1:{server.server_address[1]}/"
+           f"{os.path.basename(corpus[1])}")
+    server.shutdown()
+    server.server_close()
+
+
+def _job_end(api, path, name):
+    """The job's metadata and last document, without times."""
+    api.ctx.jobs.wait(name, timeout=300)
+    deadline = time.monotonic() + 30
+    while True:
+        status, body = _call(api, "GET", f"{path}/{name}")
+        last = body["result"][-1]
+        if "queueWaitSeconds" in last or last.get("exception") or \
+                time.monotonic() > deadline:
+            break
+        time.sleep(0.01)
+    meta = body["metadata"]
+    keep = ("finished", "status", "timeout", "healthPolicy", "fields",
+            "rows", "sizeBytes")
+    return ({k: meta.get(k) for k in keep},
+            {k: last.get(k) for k in ("status", "errorKind",
+                                      "deadLettered")},
+            bool(last.get("exception")))
+
+
+_FIT_ONE = {"x": "$corpus", "epochs": 1, "batch_size": 16,
+            "shuffle": False}
+
+
+def _lifted_timeout(api, url):
+    answer = _call(api, "POST", "/train/tensorflow", _run(
+        name="lifted_to", timeout=120, params=_FIT_ONE))
+    return answer, _job_end(api, "/train/tensorflow", "lifted_to")
+
+
+def _lifted_health_policy(api, url):
+    # the LM's fit takes no health_policy: stored, not armed (as in JAX)
+    answer = _call(api, "POST", "/train/tensorflow", _run(
+        name="lifted_hp", healthPolicy={"maxRollbacks": 1},
+        params=_FIT_ONE))
+    return answer, _job_end(api, "/train/tensorflow", "lifted_hp")
+
+
+def _lifted_ingest(scheme, tool, name):
+    def case(api, url):
+        answer = _call(api, "POST", f"/dataset/{tool}", {
+            "datasetName": name, "datasetURI": f"{scheme}://{url}"})
+        end = _job_end(api, f"/dataset/{tool}", name)
+        rows = _call(api, "GET", f"/dataset/{tool}/{name}",
+                     params={"skip": 1, "limit": 2})[1]["result"]
+        return answer, end, rows if tool == "csv" and end[0][
+            "finished"] else None
+    return case
+
+
+def _lifted_cancel(api, url):
+    return [_call(api, "DELETE", path) for path in (
+        "/model/tensorflow/lm/run", "/model/tensorflow/ghost/run")]
+
+
+def _lifted_explore(api, url):
+    answers = [_call(api, "GET", "/explore/histogram"),
+               _call(api, "POST", "/explore/histogram", {
+                   "inputDatasetName": "corpus",
+                   "outputDatasetName": "lifted_h", "names": ["t0", "t1"]})]
+    end = _job_end(api, "/explore/histogram", "lifted_h")
+    docs = _call(api, "GET", "/explore/histogram/lifted_h")[1]["result"]
+    return answers, end, docs[1:3]
+
+
+def _lifted_transform(api, url):
+    answers = [_call(api, "GET", "/transform/projection"),
+               _call(api, "POST", "/transform/projection", {
+                   "inputDatasetName": "corpus",
+                   "outputDatasetName": "lifted_p", "names": ["t3", "t0"]})]
+    end = _job_end(api, "/transform/projection", "lifted_p")
+    rows = _call(api, "GET", "/transform/projection/lifted_p",
+                 params={"skip": 1, "limit": 3})[1]["result"]
+    return answers, end, rows
+
+
+LIFTED = {
+    "timeout": _lifted_timeout,
+    "healthPolicy": _lifted_health_policy,
+    "http": _lifted_ingest("http", "csv", "lifted_http"),
+    "https": _lifted_ingest("https", "csv", "lifted_https"),
+    "dataset/generic": _lifted_ingest("http", "generic", "lifted_gen"),
+    "cancel": _lifted_cancel,
+    "explore": _lifted_explore,
+    "transform": _lifted_transform,
+}
+
+
+# what each case's outcome must show beyond equality with the JAX one
+LIFTED_HOLDS = {
+    "timeout": lambda o: o[0][0] == 201 and o[1][0]["timeout"] == 120.0
+    and o[1][0]["finished"],
+    "healthPolicy": lambda o: o[1][0]["healthPolicy"] == {
+        "maxRollbacks": 1} and o[1][0]["finished"],
+    "http": lambda o: o[1][0]["rows"] == 32 and len(o[2]) == 2,
+    "https": lambda o: o[0][0] == 201 and not o[1][0]["finished"]
+    and o[1][1]["status"] == "deadLettered",
+    "dataset/generic": lambda o: o[1][0]["sizeBytes"] > 0,
+    "cancel": lambda o: [a[0] for a in o] == [406, 404],
+    "explore": lambda o: o[0][1][0] == 201 and len(o[2]) == 2,
+    "transform": lambda o: o[0][1][0] == 201 and len(o[2]) == 3,
+}
+
+
+@pytest.mark.parametrize("case", list(LIFTED))
+def test_lifted_refusals_answer_as_jax(both, corpus_url, case):
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_native, "available", lambda: False)
+        want, got = (LIFTED[case](api, corpus_url) for api in both)
+    assert got == want
+    assert LIFTED_HOLDS[case](got), got
 
 
 # ----------------------------------------------------------------------
