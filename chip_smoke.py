@@ -213,7 +213,31 @@
    of a direct fit, bit equality recorded) and ``/evaluate``; an explore
    plot (a PNG, or where the machine lacks matplotlib an ``ImportError``
    job; the line says which); the GET cache must hit.
-12. The job lifecycle (the ``lifecycle`` line, last): the tutorial LM's
+12. The Builder (the ``builder`` line, before ``lifecycle``), over HTTP
+   through the port's client: (a) the tutorial's section 6, a
+   Titanic-shaped CSV (891 rows) and tests/test_server.py's modelingCode
+   through LR, NB, DT, RF and GB with ``meshParallel``: LR and NB
+   finish with ``engine: "torch"`` and accuracy above 0.6, fitted by
+   estimators on the card under the card lease (card memory rises in the
+   job and is back within 1 MiB after), and the sklearn families finish
+   or each fails naming its ``ImportError`` (the line says which); (b) LR
+   and NB on 1,000,000 rows of 16 float32 features and 4 classes written
+   through the catalog writer, fitted on the card with ``meshParallel``
+   and held to the port's CPU fit of the same rows: LR's ``w`` and ``b``
+   centred over the classes within 1e-2 of the largest ``|w|`` and
+   >= 99.5% of the predictions equal, NB's ``theta_`` and ``var_``
+   within 1e-5 relative and every prediction equal, each fit's seconds
+   on both; (c) BASELINE config 4: ``streaming`` GB over 10,000,000 rows
+   of 5 float features and a binary label (the sign of the CPU tests'
+   linear margin) with 100,000 test and 100,000 eval rows: every row
+   trained (``trainedRows``, ``trainedOnSample`` false) through the C++
+   booster built where the script runs (a fallback fails the run), accuracy
+   above 0.95, the job's ``tracemalloc`` peak under 1 GiB, ``fitTime``;
+   (d) the model preflight: a ``NeuralModel`` stack that cannot build on
+   its declared input is a 406 with ``shape-mismatch`` and leaves no
+   collection, a good one is a 201 whose ``/train`` document carries the
+   heuristic ``footprint``; (e) no flash kernel launches in the phase.
+13. The job lifecycle (the ``lifecycle`` line, last): the tutorial LM's
    bf16 fit over REST cancelled after its first step (ended
    ``cancelled`` within 2 steps' time plus 0.5 s) and one with ``"timeout":
    2`` (``timedOut``); the card memory at the start of the job queued
@@ -232,9 +256,10 @@
 
 The kernel launch counts are zeroed just before each path and read
 just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
-function``, ``--only transform``, ``--only lifecycle``, or several,
-comma-separated) builds the kernels and runs that phase alone (to
-iterate on it), printing its line and no result line.
+function``, ``--only transform``, ``--only builder``, ``--only
+lifecycle``, or several, comma-separated) builds the kernels and runs
+that phase alone (to iterate on it), printing its line and no result
+line.
 
 Earlier lines print the card (nvidia-smi name and power limit), the
 build time, ptxas's registers and spill bytes of every kernel variant
@@ -4227,6 +4252,368 @@ def transform_phase(torch, log, home, yard):
     return {"transform": launches}
 
 
+# the Builder's pipeline (the ``builder`` line)
+# (a) the tutorial's section 6: tests/test_server.py's modelingCode
+BUILDER_MODELING = (
+    "import numpy as np\n"
+    "def feats(df):\n"
+    "    return np.stack([df['pclass'].to_numpy(float),"
+    " (df['sex']=='female').to_numpy(float)], axis=1)\n"
+    "features_training = (feats(training_df),"
+    " training_df['survived'].to_numpy('int64'))\n"
+    "features_evaluation = features_training\n"
+    "features_testing = feats(testing_df)\n")
+# (b) LR and NB on the card at a million rows of 16 float32 features and
+# 4 classes; the modeling code works on a DataFrame and on a Table
+WIDE_ROWS, WIDE_TEST_ROWS, WIDE_FEATURES, WIDE_CLASSES = \
+    1_000_000, 100_000, 16, 4
+WIDE_MODELING = (
+    "import numpy as np\n"
+    f"feats = ['f%d' % i for i in range({WIDE_FEATURES})]\n"
+    "def xs(df):\n"
+    "    return np.stack([np.asarray(df[c], dtype=np.float32)"
+    " for c in feats], axis=1)\n"
+    "features_training = (xs(training_df),"
+    " np.asarray(training_df['label']))\n"
+    "features_testing = xs(testing_df)\n"
+    "features_evaluation = (features_testing,"
+    " np.asarray(testing_df['label']))\n")
+# the card's LR against the CPU's: w and b centred over the classes (a
+# constant added to every logit changes nothing, so no gradient fixes
+# that direction and bfloat16 rounding lets it drift), within this share
+# of the largest |w|; NB's statistics within this relative difference
+WIDE_LR_TOL, WIDE_NB_TOL = 1e-2, 1e-5
+# (c) BASELINE config 4: GB over 10M rows x 5 features, streamed; the
+# label is the sign of the CPU tests' linear margin (a fifth weight added)
+BASELINE4_ROWS, BASELINE4_SIDE_ROWS, BASELINE4_CHUNK = \
+    10_000_000, 100_000, 1_000_000
+BASELINE4_WEIGHTS = (1.0, -2.0, 0.5, 1.5, 0.7)
+BASELINE4_MIN_ACCURACY = 0.95
+BASELINE4_PEAK_BYTES = 1 << 30
+# (d) a NeuralModel stack whose declared input a conv2d cannot take
+PREFLIGHT_BAD = [{"kind": "input", "shape": [8]},
+                 {"kind": "conv2d", "filters": 4, "kernel": 3}]
+PREFLIGHT_GOOD = [{"kind": "input", "shape": [8]},
+                  {"kind": "dense", "units": 16, "activation": "relu"},
+                  {"kind": "dense", "units": 2, "activation": "softmax"}]
+PREFLIGHT_DATA = (
+    "import numpy as np\n"
+    "rng = np.random.default_rng(0)\n"
+    "x = rng.normal(size=(256, 8)).astype(np.float32)\n"
+    "y = (x[:, 0] > 0).astype(np.int32)\n"
+    "response = {'x': x, 'y': y}\n")
+
+
+def _builder_titanic(np, path) -> None:
+    """tests/test_server.py's Titanic-shaped generator at the published
+    891 rows: pid, survived, pclass, sex, age, fare."""
+    rng = np.random.default_rng(7)
+    with open(path, "w") as f:
+        f.write("pid,survived,pclass,sex,age,fare\n")
+        for i in range(TITANIC_ROWS):
+            pclass = int(rng.integers(1, 4))
+            sex = str(rng.choice(["male", "female"]))
+            age = round(float(rng.uniform(1, 70)), 1)
+            fare = round(float(rng.uniform(5, 200)), 2)
+            survived = int(rng.random() < (0.8 if sex == "female" else 0.2))
+            f.write(f"{i},{survived},{pclass},{sex},{age},{fare}\n")
+
+
+def _write_dataset(ctx, name: str, chunks) -> None:
+    """Column chunks (``{column: array}``) through the catalog writer, as
+    a finished dataset."""
+    ctx.catalog.create_collection(name, "dataset/csv", {})
+    with ctx.catalog.dataset_writer(name) as w:
+        for columns in chunks:
+            w.write_batch(columns)
+    ctx.catalog.mark_finished(name)
+
+
+def _wide_data(np, rows: int, seed: int):
+    rng = np.random.default_rng(seed)
+    w = np.random.default_rng(99).normal(
+        size=(WIDE_FEATURES, WIDE_CLASSES)).astype(np.float32)
+    x = rng.normal(size=(rows, WIDE_FEATURES)).astype(np.float32) + \
+        np.float32(0.5)
+    noise = rng.normal(size=(rows, WIDE_CLASSES)).astype(np.float32)
+    return x, np.argmax(x @ w + noise, axis=1).astype(np.int64)
+
+
+def _baseline4_chunks(np, rows: int, seed: int):
+    rng = np.random.default_rng(seed)
+    w = np.asarray(BASELINE4_WEIGHTS)
+    for start in range(0, rows, BASELINE4_CHUNK):
+        x = rng.normal(size=(min(BASELINE4_CHUNK, rows - start), len(w)))
+        columns = {f"f{i}": x[:, i] for i in range(len(w))}
+        columns["label"] = (x @ w > 0).astype(np.int64)
+        yield columns
+
+
+def _centred(params):
+    w, b = params["w"], params["b"]
+    return w - w.mean(axis=1, keepdims=True), b - b.mean()
+
+
+def builder_phase(torch, log, home, yard):
+    """The Builder over HTTP through the port's client (the ``builder``
+    line). (a) The tutorial's section 6: a Titanic-shaped CSV, the
+    modelingCode of tests/test_server.py, LR/NB/DT/RF/GB with
+    ``meshParallel``: LR and NB fitted on the card (torch estimators on
+    CUDA, the job under the card lease, card memory rising during the
+    fit and back within 1 MiB after), accuracy above 0.6; the sklearn
+    families finish, or each fails naming its ``ImportError``. (b) LR and
+    NB at 1M rows of 16 features and 4 classes on the card against the
+    port's CPU fit of the same rows. (c) BASELINE config 4: streaming GB
+    over 10M rows x 5 features through the built C++ booster, every row
+    trained, the job's ``tracemalloc`` peak under 1 GiB. (d) The model
+    preflight: a stack that cannot build on its declared input is a 406
+    with ``shape-mismatch``, a good one a 201 whose ``/train`` job
+    carries the heuristic ``footprint``. (e) No flash kernel launches.
+    Returns the path's kernel launches (none)."""
+    import tracemalloc
+
+    import numpy as np
+
+    from learningorchestra_tpu_torch import client as lo_client
+    from learningorchestra_tpu_torch import native
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models.estimators import (
+        GaussianNBJAX, LogisticRegressionJAX)
+    from learningorchestra_tpu_torch.native import hgb
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services import builder_service
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    phase_t0 = time.monotonic()
+    if native.get_lib() is None:
+        raise AssertionError(f"the booster core did not build: "
+                             f"{native.BUILD_ERROR}")
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    client = lo_client.Context(server.base_url)
+    base = server.base_url
+    out: dict = {}
+    # the estimators the jobs build, and whether each booster fit ran
+    # the C++ core
+    made, native_fits = [], []
+    make_torch = builder_service._make_torch_classifier
+    fit_binned = hgb.HistGB.fit_binned
+
+    def recorded_make(name, device):
+        made.append(make_torch(name, device))
+        return made[-1]
+
+    def recorded_fit(self, codes, y):
+        result = fit_binned(self, codes, y)
+        native_fits.append(self._model is not None)
+        return result
+
+    builder_service._make_torch_classifier = recorded_make
+    hgb.HistGB.fit_binned = recorded_fit
+    _reset_launches(attn)
+
+    def run(train, test, code, classifiers, **extra):
+        t0 = time.monotonic()
+        uris = client.builder_sparkml.run_builder(train, test, code,
+                                                  classifiers, **extra)
+        names = [u.rsplit("/", 1)[1] for u in uris]
+        ctx.jobs.wait(names[0], timeout=900)
+        seconds = time.monotonic() - t0
+        metas = {c: client.builder_sparkml.metadata(n)
+                 for c, n in zip(classifiers, names)}
+        return names, metas, seconds
+
+    def failure(name):
+        docs = client.builder_sparkml.read(name)["result"]
+        return next(d["exception"] for d in docs if d.get("exception"))
+
+    try:
+        # (a) the tutorial's section 6
+        csv_path = os.path.join(home, "titanic.csv")
+        _builder_titanic(np, csv_path)
+        client.dataset_csv.insert("titanic", csv_path)
+        _observe_wait(client, "titanic")
+        before = _card_bytes(torch)
+        torch.cuda.reset_peak_memory_stats()
+        families = ["LR", "NB", "DT", "RF", "GB"]
+        names, metas, seconds = run(
+            "titanic", "titanic", BUILDER_MODELING, families,
+            meshParallel=True, evaluationDatasetName="titanic")
+        peak = torch.cuda.max_memory_allocated()
+        after = _card_bytes(torch)
+        tutorial = {"jobSeconds": seconds, "cardBytesBefore": before,
+                    "cardBytesAfter": after, "cardPeakBytes": peak}
+        for c in ("LR", "NB"):
+            meta = metas[c]
+            if not meta.get("finished") or meta.get("engine") != "torch" \
+                    or meta.get("meshDevices") != 1 \
+                    or not meta.get("accuracy", 0) > 0.6:
+                raise AssertionError(f"tutorial {c}: {meta}")
+            tutorial[c] = {k: meta[k] for k in ("accuracy", "f1",
+                                                "fitTime")}
+        devices = sorted({clf.device.type for clf in made})
+        if len(made) != 2 or devices != ["cuda"]:
+            raise AssertionError(f"the torch families ran on {devices}")
+        if "leaseWaitSeconds" not in metas["LR"] or not peak > before:
+            raise AssertionError(f"no card lease or no card memory: "
+                                 f"{metas['LR']}, peak {peak}")
+        if abs(after - before) > (1 << 20):
+            raise AssertionError(f"card memory {before} -> {after}")
+        sklearn = {}
+        for c in ("DT", "RF", "GB"):
+            if metas[c].get("finished"):
+                sklearn[c] = {"accuracy": metas[c]["accuracy"]}
+                continue
+            error = failure(names[families.index(c)])
+            if not error.startswith(("ImportError(",
+                                     "ModuleNotFoundError(")) or \
+                    "sklearn" not in error:
+                raise AssertionError(f"tutorial {c} failed: {error}")
+            sklearn[c] = {"importError": error}
+        tutorial["sklearnFamilies"] = sklearn
+        rows = client.builder_sparkml.read(names[0], skip=1, limit=3)
+        if not all("prediction" in r for r in rows["result"]):
+            raise AssertionError(f"tutorial predictions {rows}")
+        out["tutorial"] = tutorial
+
+        # (b) LR and NB at a million rows, the card against the CPU
+        t0 = time.monotonic()
+        x, y = _wide_data(np, WIDE_ROWS, seed=11)
+        xt, yt = _wide_data(np, WIDE_TEST_ROWS, seed=12)
+        for name, (xs, ys) in (("wide", (x, y)), ("wideTest", (xt, yt))):
+            columns = {f"f{i}": xs[:, i] for i in range(WIDE_FEATURES)}
+            columns["label"] = ys
+            _write_dataset(ctx, name, [columns])
+        made.clear()
+        names, metas, seconds = run(
+            "wide", "wideTest", WIDE_MODELING, ["LR", "NB"],
+            meshParallel=True, evaluationDatasetName="wideTest")
+        if not all(m.get("finished") and m.get("engine") == "torch"
+                   for m in metas.values()):
+            raise AssertionError(f"wide fits {metas}")
+        card = {type(clf).__name__: clf for clf in made}
+        wide = {"rows": WIDE_ROWS, "writeAndJobSeconds":
+                time.monotonic() - t0, "jobSeconds": seconds}
+        predictions = {c: ctx.catalog.read_columns(n)["prediction"][1]
+                       for c, n in zip(("LR", "NB"), names)}
+        t1 = time.monotonic()
+        cpu_lr = LogisticRegressionJAX(device="cpu").fit(x, y)
+        lr_cpu_seconds = time.monotonic() - t1
+        (cw, cb), (gw, gb) = _centred(cpu_lr.params), \
+            _centred(card["LogisticRegressionJAX"].params)
+        scale = float(np.abs(cpu_lr.params["w"]).max())
+        lr_diff = max(float(np.abs(cw - gw).max()),
+                      float(np.abs(cb - gb).max())) / scale
+        lr_agree = float(np.mean(predictions["LR"] == cpu_lr.predict(xt)))
+        t1 = time.monotonic()
+        cpu_nb = GaussianNBJAX(device="cpu").fit(x, y)
+        nb_cpu_seconds = time.monotonic() - t1
+        card_nb = card["GaussianNBJAX"]
+        nb_diff = {k: float(np.abs(getattr(card_nb, k) - getattr(
+            cpu_nb, k)).max() / np.abs(getattr(cpu_nb, k)).max())
+            for k in ("theta_", "var_")}
+        nb_equal = bool(np.array_equal(predictions["NB"],
+                                       cpu_nb.predict(xt)))
+        wide.update(
+            lr={"cardFitSeconds": metas["LR"]["fitTime"],
+                "cpuFitSeconds": lr_cpu_seconds,
+                "centredMaxDiffOverMaxW": lr_diff,
+                "predictionsEqualShare": lr_agree,
+                "accuracy": metas["LR"]["accuracy"]},
+            nb={"cardFitSeconds": metas["NB"]["fitTime"],
+                "cpuFitSeconds": nb_cpu_seconds, "maxRelDiff": nb_diff,
+                "predictionsEqual": nb_equal,
+                "accuracy": metas["NB"]["accuracy"]})
+        out["wide"] = wide
+        if lr_diff > WIDE_LR_TOL or lr_agree < 0.995:
+            raise AssertionError(f"card LR vs CPU: {wide['lr']}")
+        if max(nb_diff.values()) > WIDE_NB_TOL or not nb_equal:
+            raise AssertionError(f"card NB vs CPU: {wide['nb']}")
+        del x, y, xt, yt, cpu_lr, cpu_nb, card, card_nb, predictions
+
+        # (c) BASELINE config 4: streaming GB over 10M rows
+        t0 = time.monotonic()
+        _write_dataset(ctx, "b4train",
+                       _baseline4_chunks(np, BASELINE4_ROWS, seed=21))
+        _write_dataset(ctx, "b4test",
+                       _baseline4_chunks(np, BASELINE4_SIDE_ROWS, seed=22))
+        _write_dataset(ctx, "b4eval",
+                       _baseline4_chunks(np, BASELINE4_SIDE_ROWS, seed=23))
+        write_seconds = time.monotonic() - t0
+        gc.collect()
+        tracemalloc.start()
+        names, metas, seconds = run("b4train", "b4test", "", ["GB"],
+                                    streaming=True,
+                                    evaluationDatasetName="b4eval")
+        traced_peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        meta = metas["GB"]
+        baseline4 = {
+            "rows": BASELINE4_ROWS, "writeSeconds": write_seconds,
+            "jobSeconds": seconds, "fitTime": meta.get("fitTime"),
+            "trainedRows": meta.get("trainedRows"),
+            "trainedOnSample": meta.get("trainedOnSample"),
+            "accuracy": meta.get("accuracy"), "f1": meta.get("f1"),
+            "booster": meta.get("booster"), "native": native_fits == [True],
+            "tracemallocPeakBytes": traced_peak,
+            "outputRows": ctx.catalog.count_rows(names[0])}
+        out["baseline4"] = baseline4
+        if not meta.get("finished") or \
+                meta.get("trainedRows") != BASELINE4_ROWS or \
+                meta.get("trainedOnSample") is not False or \
+                native_fits != [True] or \
+                not meta.get("accuracy", 0) > BASELINE4_MIN_ACCURACY or \
+                traced_peak >= BASELINE4_PEAK_BYTES or \
+                baseline4["outputRows"] != BASELINE4_SIDE_ROWS:
+            raise AssertionError(f"BASELINE config 4: {baseline4}")
+        for name in ("b4train", "b4test", "b4eval", names[0]):
+            ctx.catalog.delete_collection(name)
+
+        # (d) the model preflight over HTTP
+        bad = {"modelName": "pf_bad",
+               "modulePath": "learningorchestra_tpu.models",
+               "class": "NeuralModel",
+               "classParameters": {"layer_configs": PREFLIGHT_BAD}}
+        status, body = _http(base, "POST", "/model/tensorflow", bad)
+        rules = [f["rule"] for f in body.get("analysis", [])]
+        if status != 406 or "shape-mismatch" not in rules or \
+                _http(base, "GET", "/model/tensorflow/pf_bad")[0] != 404:
+            raise AssertionError(f"bad stack: {status} {body}")
+        status, body = _http(base, "POST", "/model/tensorflow", dict(
+            bad, modelName="pf_good",
+            classParameters={"layer_configs": PREFLIGHT_GOOD}))
+        if status != 201:
+            raise AssertionError(f"good stack: {status} {body}")
+        client.function_python.run_function("pf_data", PREFLIGHT_DATA)
+        _observe_wait(client, "pf_data")
+        _poll(base, "/model/tensorflow/pf_good")
+        client.train_tensorflow.run("pf_fit", "pf_good", "fit", {
+            "x": "$pf_data.x", "y": "$pf_data.y", "epochs": 1,
+            "batch_size": 32})
+        footprint = client.train_tensorflow.metadata("pf_fit").get(
+            "footprint") or {}
+        _poll(base, "/train/tensorflow/pf_fit")
+        # dense 8x16 + 16 and 16x2 + 2, float32
+        want_params = (8 * 16 + 16 + 16 * 2 + 2) * 4
+        if footprint.get("estimator") != "heuristic" or \
+                footprint.get("paramBytes") != want_params:
+            raise AssertionError(f"footprint {footprint}")
+        out["preflight"] = {"badStatus": 406, "rules": rules,
+                            "footprint": footprint}
+    finally:
+        builder_service._make_torch_classifier = make_torch
+        hgb.HistGB.fit_binned = fit_binned
+        server.stop()
+    # (e) nothing on this path launches a flash kernel
+    launches = _launches(attn)
+    if any(launches.values()):
+        raise AssertionError(f"the builder path launched {launches}")
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("builder " + json.dumps(out))
+    return {"builder": launches}
+
 def _lm_job(base, name, params, timeout=None):
     body = {"name": name, "modelName": "lm", "method": "fit",
             "methodParameters": params}
@@ -4665,7 +5052,7 @@ def main() -> int:
         # iteration aid: the build, then the named self-contained phases
         # alone; no kernels line and no result line
         phases = {"neural": neural_phase, "function": function_phase,
-                  "transform": transform_phase,
+                  "transform": transform_phase, "builder": builder_phase,
                   "lifecycle": lifecycle_phase}
         try:
             for name in sys.argv[sys.argv.index("--only") + 1].split(","):
@@ -4708,6 +5095,8 @@ def main() -> int:
             paths.update(function_phase(torch, log, home, {}))
         with tempfile.TemporaryDirectory() as home:
             paths.update(transform_phase(torch, log, home, {}))
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(builder_phase(torch, log, home, {}))
         with tempfile.TemporaryDirectory() as home:
             paths.update(lifecycle_phase(torch, log, home, {}))
         # each kernel's main path: serving (float32) for the split-TF32

@@ -1,8 +1,9 @@
-"""Submit-time analysis of user code: the AST lint the Function service
-runs at submit and the sandbox runs before it executes code, and the
-shape records (``resultShapes``) a function job leaves on its metadata.
-The JAX package's model preflight (``check_model``, the footprint
-estimate) is not ported."""
+"""Submit-time analysis, as the JAX package's ``analysis/`` runs it: the
+AST lint the Function service runs at submit and the sandbox runs before
+it executes code, the shape records (``resultShapes``) a function job
+leaves on its metadata, and the preflight of model, execution and
+builder specs (``check_model``, ``check_execution``, the footprint
+estimate and ``check_builder``, :mod:`.preflight`)."""
 
 from learningorchestra_tpu_torch.analysis.findings import (  # noqa: F401
     Finding,
@@ -19,7 +20,12 @@ from learningorchestra_tpu_torch.analysis.code_lint import (  # noqa: F401
     lint_code,
 )
 from learningorchestra_tpu_torch.analysis.preflight import (  # noqa: F401
+    FOOTPRINT_FIELD,
     RESULT_SHAPES_FIELD,
+    check_builder,
+    check_execution,
+    check_model,
+    estimate_footprint,
     lint_parameter_code,
     result_shapes,
 )

@@ -34,7 +34,10 @@ object pickle cannot write raises ``TypeError``. A JAX ``dill`` artifact
 is read with the standard unpickler and dill's array reducer: what dill
 wrote as plain pickle and arrays (sklearn estimators, dicts of arrays)
 loads without dill, and anything else (a function dill pickled by
-value) raises, where dill is absent, an error that names dill.
+value) raises, where dill is absent, an error that names dill. A JAX
+``LogisticRegressionJAX`` or ``GaussianNBJAX`` loads as the port's
+class of that name (:data:`JAX_PICKLED_CLASSES`), placed on the store's
+device.
 """
 
 from __future__ import annotations
@@ -64,6 +67,12 @@ JAX_NATIVE_CLASSES = {
     ("learningorchestra_tpu.models.sweep", "RandomSearch"):
         ("learningorchestra_tpu_torch.models.sweep", "RandomSearch"),
 }
+# the JAX package's pickled estimators (its store writes them with dill),
+# each read as the port's class of the same name
+JAX_PICKLED_CLASSES = {
+    ("learningorchestra_tpu.models.estimators", name):
+        ("learningorchestra_tpu_torch.models.estimators", name)
+    for name in ("LogisticRegressionJAX", "GaussianNBJAX")}
 _JAX_PACKAGE = "learningorchestra_tpu"
 _NAME_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._ -]*$")
 # the JSON stand-in for an array leaf of a stored result
@@ -163,11 +172,16 @@ def _dill_create_array(f, args, state, npdict=None):
 class _DillUnpickler(pickle.Unpickler):
     """The standard unpickler, plus dill's array reducer: dill writes
     every numpy array through it, so the arrays of an sklearn estimator
-    or of a dict load without dill."""
+    or of a dict load without dill. The JAX package's estimators map to
+    the port's classes (:data:`JAX_PICKLED_CLASSES`), which take the
+    JAX attributes in ``__setstate__``."""
 
     def find_class(self, module: str, name: str):
         if (module, name) == ("dill._dill", "_create_array"):
             return _dill_create_array
+        mapped = JAX_PICKLED_CLASSES.get((module, name))
+        if mapped is not None:
+            return getattr(importlib.import_module(mapped[0]), mapped[1])
         return super().find_class(module, name)
 
 
@@ -345,8 +359,12 @@ class ArtifactStore:
             with open(os.path.join(d, "object.pkl"), "rb") as f:
                 return pickle.load(f)
         if kind == "dill":
-            return _load_dill(os.path.join(d, "object.dill"),
-                              f"{type_string}/{name}")
+            value = _load_dill(os.path.join(d, "object.dill"),
+                               f"{type_string}/{name}")
+            if hasattr(value, "set_device") and \
+                    getattr(value, "device", 0) is None:
+                value.set_device(self.device)  # a JAX estimator
+            return value
         if kind == "bytes":
             with open(os.path.join(d, meta["filename"]), "rb") as f:
                 return f.read()

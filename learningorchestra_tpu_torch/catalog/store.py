@@ -15,6 +15,9 @@ null: a row document gives ``None`` for it, and :meth:`Catalog.read_table`
 gives each column the dtype ``pyarrow.Table.to_pandas`` would (an int
 column with nulls becomes float64 with NaN, a bool column with nulls
 and every string column an object array holding ``None``).
+:meth:`Catalog.iter_batches` reads the same values a batch of rows at a
+time from the memory-mapped files, for passes that must not hold a
+whole dataset.
 """
 
 from __future__ import annotations
@@ -145,6 +148,28 @@ def _column(values) -> Tuple[str, np.ndarray, np.ndarray]:
     else:
         raise TypeError(f"unsupported column dtype {data.dtype}")
     return kind, data, mask
+
+
+def _values(kind: str, data: np.ndarray,
+            mask: Optional[np.ndarray]) -> np.ndarray:
+    """Stored column data (a memory-mapped slice) in memory, in the dtype
+    pandas would give it: nulls as None in an object column (strings, or
+    bools with nulls), as NaN in a float64 one (ints with nulls)."""
+    data = np.array(data)
+    if kind == "string":
+        values = data.astype(object)
+        if mask is not None:
+            values[mask] = None
+        return values
+    if mask is None:
+        return data
+    if kind == "bool":
+        values = data.astype(object)
+        values[mask] = None
+        return values
+    values = data.astype(np.float64)
+    values[mask] = np.nan
+    return values
 
 
 def _typed(kind: str, data: np.ndarray) -> np.ndarray:
@@ -389,23 +414,34 @@ class Catalog:
         schema = self._schema(name)
         if schema is None:
             raise CollectionNotFound(f"{name} has no tabular data")
-        columns = {}
-        for col, kind, data, mask in self._load_columns(name, schema):
-            data = np.array(data)
-            if kind == "string":
-                values = data.astype(object)
-                if mask is not None:
-                    values[mask] = None
-            elif mask is None:
-                values = data
-            elif kind == "bool":
-                values = data.astype(object)
-                values[mask] = None
-            else:
-                values = data.astype(np.float64)
-                values[mask] = np.nan
-            columns[col] = values
+        columns = {col: _values(kind, data, mask) for col, kind, data, mask
+                   in self._load_columns(name, schema)}
         return Table(columns, schema["rows"])
+
+    def iter_batches(self, name: str, columns: Optional[List[str]] = None,
+                     batch_size: int = 65536,
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+        """The dataset's rows in order, ``batch_size`` at a time, as
+        ``{column: values}`` (all columns, or ``columns`` in their order;
+        values as :meth:`read_table` gives them). Each batch reads only
+        its rows of the memory-mapped columns, so a pass holds one batch
+        in memory, never a whole column."""
+        schema = self._schema(name)
+        if schema is None:
+            raise CollectionNotFound(f"{name} has no tabular data")
+        stored = {col: (kind, data, mask) for col, kind, data, mask
+                  in self._load_columns(name, schema)}
+        wanted = list(columns) if columns is not None else list(stored)
+        unknown = [c for c in wanted if c not in stored]
+        if unknown:
+            raise KeyError(f"{name} has no column(s) {unknown}")
+        n, step = int(schema["rows"]), max(1, int(batch_size))
+        for start in range(0, n, step):
+            stop = min(n, start + step)
+            yield {c: _values(stored[c][0], stored[c][1][start:stop],
+                              None if stored[c][2] is None
+                              else stored[c][2][start:stop])
+                   for c in wanted}
 
     @staticmethod
     def _row_documents(columns, start: int, stop: int,

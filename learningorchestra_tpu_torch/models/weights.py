@@ -21,6 +21,9 @@ module (:mod:`.sequential_module`) keeps flax's leaf names and layouts
 norm's ``scale``/``bias``), so ``dense_0/kernel`` is ``dense_0.kernel``
 as it is. The ``batch_stats`` collection maps the same way onto the
 module's buffers (``batchnorm_1/mean`` is ``batchnorm_1.mean``).
+
+The Builder's estimators carry their fitted numpy state across as it is
+(:func:`estimator_from_jax`).
 """
 
 from __future__ import annotations
@@ -96,6 +99,38 @@ def params_from_flax(tree, sequential: bool = False
             t = t.t()
         out[".".join(mods + [name])] = t.contiguous()
     return out
+
+
+def estimator_from_jax(est, device="cuda"):
+    """The port's estimator (:mod:`.estimators`) with the fitted state of
+    a JAX ``LogisticRegressionJAX`` (``w``, ``b`` and ``classes_``, the
+    hyperparameters and the history) or ``GaussianNBJAX`` (``theta_``,
+    ``var_``, ``class_prior_``, ``classes_`` and ``var_smoothing``).
+    ``est`` is the JAX object or its attribute dict (what its pickle
+    holds); either carries only numpy state, so nothing of JAX is read.
+    ``device`` places the next fit (None: not placed yet)."""
+    from learningorchestra_tpu_torch.models import estimators
+
+    state = est if isinstance(est, dict) else vars(est)
+    if "theta_" in state:
+        port = estimators.GaussianNBJAX(
+            var_smoothing=state.get("var_smoothing", 1e-9), device=device)
+        for key in ("theta_", "var_", "class_prior_"):
+            if state.get(key) is not None:
+                setattr(port, key, np.array(state[key], np.float64))
+    else:
+        port = estimators.LogisticRegressionJAX(
+            epochs=state.get("epochs", 12),
+            batch_size=state.get("batch_size", 4096),
+            learning_rate=state.get("learning_rate", 0.05),
+            seed=state.get("seed", 0), device=device)
+        if state.get("params") is not None:
+            port.params = {k: np.array(state["params"][k], np.float32)
+                           for k in ("w", "b")}
+        port.history = list(state.get("history") or [])
+    if state.get("classes_") is not None:
+        port.classes_ = np.array(state["classes_"])
+    return port
 
 
 def _host(tensor: torch.Tensor, transposed: bool) -> np.ndarray:

@@ -25,10 +25,18 @@ commit's step, seconds and bytes), a resume's as ``checkpointRestores``
 failed, ``trialErrors`` on its metadata; ``"checkpoint": true`` is
 ignored there, as in the JAX package.
 
-``#`` expressions among the ``methodParameters`` are linted at submit
-(406 with the findings, kept as ``analysis`` on the metadata otherwise)
-and evaluated in the sandbox by the job. A parent of another module
-(a fitted sklearn estimator) runs its own methods on the host.
+With ``LO_PREFLIGHT`` (on by default) create and PATCH run the
+preflight (:func:`~learningorchestra_tpu_torch.analysis.preflight.
+check_execution`) before any document exists: ``#`` expressions among
+the ``methodParameters`` are linted, and a ``NeuralModel`` root's layer
+stack is built on the meta device over the recorded shapes of its
+``$`` x and y; a provable failure is a 406 with the findings under
+``analysis``, and warnings are kept as ``analysis`` on the metadata.
+The job document also records the ``footprint`` estimate (``hbmBytes``,
+``paramBytes``, ``estimator: "heuristic"``) where the preflight can
+make one. The job evaluates ``#`` expressions in the sandbox. A parent
+of another module (a fitted sklearn estimator) runs its own methods on
+the host.
 
 ``timeout`` (seconds) is the job's deadline and ``healthPolicy`` (an
 action or an object, :mod:`~learningorchestra_tpu_torch.runtime.health`)
@@ -52,6 +60,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from learningorchestra_tpu_torch import analysis as A
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
@@ -117,7 +126,8 @@ class ExecutionService:
         self._validator.existing_finished(parent_name)
         root_meta = self.root_model_metadata(parent_name)
         self._validate_method(root_meta, method, method_parameters)
-        analysis = V.lint_parameters(self._ctx.config, method_parameters)
+        analysis = self._preflight(root_meta, method, method_parameters)
+        footprint = self._footprint(root_meta, method, method_parameters)
         type_string = D.normalize_type(f"{verb}/{tool}")
         extra = {
             D.PARENT_NAME_FIELD: parent_name,
@@ -132,6 +142,8 @@ class ExecutionService:
             extra[V.HEALTH_POLICY_FIELD] = health_policy
         if analysis:
             extra[V.ANALYSIS_FIELD] = analysis
+        if footprint:
+            extra[A.FOOTPRINT_FIELD] = footprint
         self._ctx.catalog.create_collection(name, type_string, extra)
         self._submit(name, type_string, parent_name, method,
                      method_parameters, description, timeout=timeout,
@@ -156,14 +168,15 @@ class ExecutionService:
         parent_name = meta[D.PARENT_NAME_FIELD]
         root_meta = self.root_model_metadata(parent_name)
         self._validate_method(root_meta, method, method_parameters)
-        analysis = V.lint_parameters(self._ctx.config, method_parameters)
-        updates = {D.METHOD_PARAMETERS_FIELD: method_parameters,
+        analysis = self._preflight(root_meta, method, method_parameters)
+        footprint = self._footprint(root_meta, method, method_parameters)
+        self._ctx.catalog.update_metadata(
+            name, {D.METHOD_PARAMETERS_FIELD: method_parameters,
+                   V.ANALYSIS_FIELD: analysis,
+                   A.FOOTPRINT_FIELD: footprint,
                    V.TIMEOUT_FIELD: timeout,
                    V.HEALTH_POLICY_FIELD: health_policy,
-                   D.FINISHED_FIELD: False}
-        if analysis:
-            updates[V.ANALYSIS_FIELD] = analysis
-        self._ctx.catalog.update_metadata(name, updates)
+                   D.FINISHED_FIELD: False})
         self._submit(name, meta[D.TYPE_FIELD], parent_name, method,
                      method_parameters, description, timeout=timeout,
                      health_policy=health_policy)
@@ -182,6 +195,27 @@ class ExecutionService:
         return V.HTTP_SUCCESS, {"result": f"deleted {name}"}
 
     # ------------------------------------------------------------------
+    def _preflight(self, root_meta: Dict[str, Any], method: str,
+                   method_parameters: Dict[str, Any]) -> list:
+        """The shape preflight and the ``#`` lint, before the job
+        document exists: a provably broken spec is a 406 and leaves no
+        ``finished: False`` document. Returns the advisory findings."""
+        if not self._ctx.config.preflight:
+            return []
+        findings = A.check_execution(
+            self._ctx.catalog, root_meta, method, method_parameters,
+            mode=self._ctx.config.sandbox_mode)
+        return V.run_preflight(findings)
+
+    def _footprint(self, root_meta: Dict[str, Any], method: str,
+                   method_parameters: Dict[str, Any],
+                   ) -> Optional[Dict[str, Any]]:
+        """The preflight's footprint estimate, or None (no claim)."""
+        if not self._ctx.config.preflight:
+            return None
+        return A.estimate_footprint(self._ctx.catalog, root_meta, method,
+                                    method_parameters)
+
     def _submit(self, name: str, type_string: str, parent_name: str,
                 method: str, method_parameters: Dict[str, Any],
                 description: str, timeout: Optional[float] = None,

@@ -227,16 +227,36 @@ class JobManager:
                description: str = "",
                parameters: Optional[Dict[str, Any]] = None,
                needs_card: bool = False, max_retries: int = 0,
-               timeout: Optional[float] = None) -> Future:
+               timeout: Optional[float] = None,
+               mark_finished: bool = True,
+               failure_names: Optional[list] = None) -> Future:
         """Runs ``fn`` on a worker thread for collection ``name``, which
         must exist with ``finished: False``. ``needs_card`` jobs hold the
         card lease while ``fn`` runs. ``timeout`` (seconds) is the job's
-        deadline; None takes the manager's default, 0 none."""
+        deadline; None takes the manager's default, 0 none.
+
+        A job with several outputs (the Builder: one collection per
+        classifier) passes them as ``failure_names``, so a terminal
+        failure documents every output that has not finished (and
+        ``name`` always), and ``mark_finished=False`` where ``fn`` marks
+        each output itself. The JAX manager's ``pool`` (its scheduler's
+        fair-share pools) has no meaning on one card and is not taken."""
         effective = (self._default_timeout if timeout is None
                      else max(0.0, float(timeout)))
         token = preempt.CancelToken(
             deadline=time.monotonic() + effective if effective > 0
             else None)
+        doc_names = list(failure_names) if failure_names else [name]
+
+        def fail_all(document: Dict[str, Any]) -> None:
+            for n in doc_names:
+                if n != name:
+                    # outputs that finished before a sibling's failure
+                    # sank the job keep their clean record
+                    meta = self._catalog.get_metadata(n)
+                    if meta is None or meta.get(D.FINISHED_FIELD):
+                        continue
+                self._catalog.append_document(n, dict(document))
 
         def record_cancel(exc: preempt.JobCancelled, attempt: int,
                           extra: Dict[str, Any]) -> None:
@@ -244,7 +264,7 @@ class JobManager:
             extra = dict(extra, **{D.STATUS_FIELD: status,
                                    "cancelReason": status,
                                    "attempt": attempt})
-            self._catalog.append_document(name, D.execution_document(
+            fail_all(D.execution_document(
                 description, parameters,
                 exception=f"JobCancelled({status!r}: {exc})", extra=extra))
             self._set_status(name, status)
@@ -300,8 +320,9 @@ class JobManager:
                 if failure is not None:
                     return self._record_failure(
                         name, description, parameters, failure, attempt,
-                        max_retries, failures, timing), None
-                self._catalog.mark_finished(name)
+                        max_retries, failures, timing, fail_all), None
+                if mark_finished:
+                    self._catalog.mark_finished(name)
                 self._set_status(name, D.STATUS_FINISHED)
                 self._catalog.append_document(name, D.execution_document(
                     description, parameters, extra=timing({
@@ -359,8 +380,9 @@ class JobManager:
     def _record_failure(self, name: str, description: str, parameters,
                         exception: Exception, attempt: int,
                         max_retries: int, failures: Dict[str, Any],
-                        timing: Callable) -> bool:
-        """Documents a failed attempt; True when it is terminal, else
+                        timing: Callable, fail_all: Callable) -> bool:
+        """Documents a failed attempt (a terminal one through
+        ``fail_all``, on every output); True when it is terminal, else
         the retry's backoff goes to ``failures["backoff"]``."""
         kind = classify_error(exception)
         if kind == PERMANENT:
@@ -381,7 +403,7 @@ class JobManager:
             elif kind == NUMERICAL:
                 extra["retriesSkipped"] = \
                     "numerical rollback-retry budget exhausted"
-            self._catalog.append_document(name, D.execution_document(
+            fail_all(D.execution_document(
                 description, parameters, exception=repr(exception),
                 extra=extra))
             # finished stays False (reference parity)

@@ -13,10 +13,15 @@ attention) answer 406 "not yet ported" before any document exists, as
 does an unknown ``scoring`` of a ``GridSearch``/``RandomSearch`` (in
 the JAX package's words). ``modulePath`` may name any importable module
 (``sklearn.linear_model``, whose classes run their own methods on the
-host and hold no card), as in the JAX package. ``#`` expressions among
-the ``classParameters`` are linted at submit (406 with the findings,
-kept as ``analysis`` on the metadata otherwise) and evaluated in the
-sandbox by the job; the JAX package's shape preflight is not ported.
+host and hold no card), as in the JAX package. With ``LO_PREFLIGHT``
+(on by default) create and PATCH run the preflight
+(:func:`~learningorchestra_tpu_torch.analysis.preflight.check_model`):
+``#`` expressions among the ``classParameters`` are linted, and a
+``NeuralModel`` whose ``input`` layer declares its shape is built on the
+meta device; a provable failure is a 406 with the findings under
+``analysis`` and leaves no document, and warnings are kept as
+``analysis`` on the metadata. The job evaluates ``#`` expressions in the
+sandbox.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import inspect
 from typing import Any, Dict, Tuple
 
+from learningorchestra_tpu_torch import analysis as A
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.services import validators as V
 
@@ -80,7 +86,8 @@ class ModelService:
         self._validator.valid_class_parameters(cls, class_parameters)
         _valid_sweep_scoring(cls, class_parameters)
         _refuse_unported_options(cls, class_parameters)
-        analysis = V.lint_parameters(self._ctx.config, class_parameters)
+        analysis = self._preflight(module_path, class_name,
+                                   class_parameters)
         type_string = D.normalize_type(f"model/{tool}")
         extra = {
             D.MODULE_PATH_FIELD: module_path,
@@ -106,12 +113,12 @@ class ModelService:
         self._validator.valid_class_parameters(cls, class_parameters)
         _valid_sweep_scoring(cls, class_parameters)
         _refuse_unported_options(cls, class_parameters)
-        analysis = V.lint_parameters(self._ctx.config, class_parameters)
-        updates = {D.CLASS_PARAMETERS_FIELD: class_parameters,
-                   D.FINISHED_FIELD: False}
-        if analysis:
-            updates[V.ANALYSIS_FIELD] = analysis
-        self._ctx.catalog.update_metadata(name, updates)
+        analysis = self._preflight(meta[D.MODULE_PATH_FIELD],
+                                   meta[D.CLASS_FIELD], class_parameters)
+        self._ctx.catalog.update_metadata(
+            name, {D.CLASS_PARAMETERS_FIELD: class_parameters,
+                   V.ANALYSIS_FIELD: analysis,
+                   D.FINISHED_FIELD: False})
         self._submit(name, meta[D.TYPE_FIELD], cls, class_parameters,
                      description)
         return V.HTTP_SUCCESS, {
@@ -122,6 +129,16 @@ class ModelService:
         self._ctx.catalog.delete_collection(name)
         self._ctx.artifacts.delete(name, meta.get(D.TYPE_FIELD))
         return V.HTTP_SUCCESS, {"result": f"deleted model {name}"}
+
+    def _preflight(self, module_path, class_name, class_parameters) -> list:
+        """The preflight of a spec (406 on a provable failure); returns
+        the advisory findings to store on the document."""
+        if not self._ctx.config.preflight:
+            return []
+        findings = A.check_model(module_path, class_name,
+                                 class_parameters,
+                                 mode=self._ctx.config.sandbox_mode)
+        return V.run_preflight(findings)
 
     def _submit(self, name: str, type_string: str, cls,
                 class_parameters: Dict[str, Any], description: str) -> None:

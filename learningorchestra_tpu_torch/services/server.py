@@ -13,6 +13,9 @@ POST   /transform/projection                     column select (201)
 POST   /transform/dataType                       in-place cast (200)
 POST   /transform/{tool}                         reflection (201)
 POST   /function/python                          run user code (201)
+POST   /builder/sparkml                          train, compare, predict
+                                                 (201 + one URI a
+                                                 classifier)
 PATCH  /{model,train,...,explore,transform,      re-run (200)
         function}/{tool}/{name}
 DELETE /{service}/{tool}/{name}                  delete (200)
@@ -39,9 +42,10 @@ when ``LO_GATEWAY_MAX_INFLIGHT`` timed dispatches are in flight. At
 start, :meth:`Api.recover_unfinished` requeues the unfinished executions
 and functions and gives every other unfinished job a typed failure.
 ``DELETE .../{name}/run`` cancels (404 unknown, 406 nothing to cancel).
+A builder's outputs are read, listed and deleted as datasets are.
 ``POST .../{name}/migrate`` answers 406 "not yet ported"; every other
-service (builder, observability, profile, /health, /metrics) answers 404
-until it is ported.
+service (observability, profile, /health, /metrics) answers 404 until it
+is ported.
 """
 
 from __future__ import annotations
@@ -58,6 +62,8 @@ from learningorchestra_tpu_torch.config import API_PREFIX
 from learningorchestra_tpu_torch.runtime import locks
 from learningorchestra_tpu_torch.services import function_service as fsvc
 from learningorchestra_tpu_torch.services import validators as V
+from learningorchestra_tpu_torch.services.builder_service import \
+    BuilderService
 from learningorchestra_tpu_torch.services.cache import ReadCache
 from learningorchestra_tpu_torch.services.columnar import (
     DataTypeService,
@@ -76,7 +82,7 @@ from learningorchestra_tpu_torch.services.model_service import ModelService
 
 _JSON = "application/json"
 SERVICES = ("dataset", "model", "transform", "explore", "tune", "train",
-            "evaluate", "predict", "function")
+            "evaluate", "predict", "function", "builder")
 EXECUTION_VERBS = ("train", "tune", "evaluate", "predict")
 # the longest long-poll of GET /observe/{name}, seconds
 OBSERVE_MAX_SECONDS = 120.0
@@ -92,6 +98,7 @@ class Api:
         self.model = ModelService(self.ctx)
         self.execution = ExecutionService(self.ctx)
         self.function = fsvc.FunctionService(self.ctx)
+        self.builder = BuilderService(self.ctx)
         self.dbexec = DatabaseExecutorService(self.ctx)
         self.histogram = HistogramService(self.ctx)
         self.projection = ProjectionService(self.ctx)
@@ -220,6 +227,8 @@ class Api:
             status, payload = self.model.create(body, tool)
         elif service == "function":
             status, payload = self.function.create(body, tool)
+        elif service == "builder":
+            status, payload = self.builder.create(body, tool)
         elif service == "explore" and tool == "histogram":
             status, payload = self.histogram.create(body, tool)
         elif service == "transform" and tool == "projection":
@@ -254,7 +263,8 @@ class Api:
         # has no "/", so no collection shadows the suffix)
         if name.endswith("/run") and len(name) > len("/run"):
             return self._cancel_run(name[:-len("/run")])
-        if service in ("dataset", "function", "explore", "transform"):
+        if service in ("dataset", "function", "explore", "transform",
+                       "builder"):
             status, payload = self.dataset.delete_file(name)
         elif service == "model":
             status, payload = self.model.delete(name, tool)

@@ -214,6 +214,8 @@ def not_ported(what: str) -> HttpError:
 PORT_MODULES = {
     "learningorchestra_tpu_torch.models": "learningorchestra_tpu_torch.models",
     "learningorchestra_tpu.models": "learningorchestra_tpu_torch.models",
+    "learningorchestra_tpu.models.estimators":
+        "learningorchestra_tpu_torch.models.estimators",
 }
 # keyword arguments the services supply themselves, never the request
 _SERVICE_KWARGS = ("device",)
@@ -273,17 +275,6 @@ def refuse_unported_fields(body: Dict[str, Any], fields) -> None:
     for field in fields:
         if body.get(field) is not None:
             raise not_ported(f"the {field} field")
-
-
-def lint_parameters(config, parameters) -> list:
-    """The submit-time lint of the ``#`` expressions among a request's
-    parameters (406 on an error; off with ``LO_PREFLIGHT=0``)."""
-    if not config.preflight:
-        return []
-    from learningorchestra_tpu_torch import analysis as A
-
-    return run_preflight(A.lint_parameter_code(parameters,
-                                               config.sandbox_mode))
 
 
 def resolve_module(module_path: str):

@@ -167,9 +167,10 @@ def test_unported_jax_classes_and_options_raise(tmp_path):
     d.mkdir(parents=True)
     (d / "meta.json").write_text(json.dumps({
         "name": "nm", "type": "model/tensorflow", "kind": "native",
-        "module": "learningorchestra_tpu.models.estimators",
-        "class": "LogisticRegressionJAX"}))
-    with pytest.raises(ValueError, match="LogisticRegressionJAX of the JAX "
+        # the tensorflow shim's layer, unported (ROADMAP Queue 1 item 6)
+        "module": "learningorchestra_tpu.models.tf_compat.keras.layers",
+        "class": "Dense"}))
+    with pytest.raises(ValueError, match="layers.Dense of the JAX "
                                          "package is not yet ported"):
         store.load("nm")
     # a JAX LanguageModel whose config the port does not run

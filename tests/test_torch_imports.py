@@ -1,8 +1,9 @@
 """The PyTorch port stands alone: importing every module of
 ``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer, the
 encoder, the fault injector, the mixture of experts, the keras-shaped
-layers, the sweeps, the client, the sandbox, the function service and
-the lint among them) loads
+layers, the sweeps, the client, the sandbox, the function service, the
+lint, the Builder, its estimators and the booster core's binding among
+them) loads
 neither JAX, flax nor any module of the JAX package, nor pandas,
 pyarrow, dill, msgpack, sklearn, matplotlib or seaborn (the card's
 machine has none of the first four, and the others only where they
@@ -89,7 +90,11 @@ def test_new_modules_are_among_those_probed():
             "learningorchestra_tpu_torch.runtime.health",
             "learningorchestra_tpu_torch.services.cache",
             "learningorchestra_tpu_torch.services.columnar",
-            "learningorchestra_tpu_torch.services.database_executor"
+            "learningorchestra_tpu_torch.services.database_executor",
+            "learningorchestra_tpu_torch.services.builder_service",
+            "learningorchestra_tpu_torch.models.estimators",
+            "learningorchestra_tpu_torch.native",
+            "learningorchestra_tpu_torch.native.hgb",
             } <= names
 
 

@@ -401,10 +401,24 @@ def test_requests_ported_since_answer_as_jax(both, case):
 
 def test_other_services_stay_unrouted(both):
     port = both[1]
-    for path in ("/builder/sparkml", "/observability/trace", "/profile"):
+    for path in ("/observability/trace", "/profile"):
         assert _call(port, "GET", path) == (404, {"result": "unknown route"})
     for path in ("/health", "/metrics"):
         assert port.dispatch("GET", path, {}, None)[0] == 404
+
+
+@pytest.mark.parametrize("method, body", [
+    ("GET", None), ("POST", {"trainDatasetName": "corpus"}),
+    ("POST", {"trainDatasetName": "corpus", "testDatasetName": "corpus",
+              "classifiersList": ["LR"], "modelingCode": "x = 1\n",
+              "streaming": True, "meshParallel": True})])
+def test_builder_route_answers_as_jax(both, method, body):
+    """``/builder/sparkml``, unrouted until the Builder came: a listing
+    and refused submits answer as in the JAX package."""
+    got, want = (_call(api, method, "/builder/sparkml", body)
+                 for api in both[::-1])
+    assert got == want
+    assert got[0] == (200 if method == "GET" else 406)
 
 
 # what NOT_PORTED and the unrouted services held until the lifecycle,
