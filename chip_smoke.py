@@ -171,7 +171,28 @@
    (flash, bf16) on 1024 rows of 512 tokens: each sm90 kernel launched
    exactly 4 layers x the optimizer steps of the trials and the refit,
    the forward once more a layer for each evaluate batch, nothing else.
-10. The function route (the ``function`` line): the port's REST
+10. The reference's tensorflow.keras contract (the ``keras`` line): (a)
+   the tutorial CNN at full width over HTTP as the reference writes it,
+   ``tensorflow.keras.models`` / ``Sequential`` with six
+   ``#tensorflow.keras.layers`` strings, ``compile`` with
+   ``#tensorflow.keras.optimizers.Adam(1e-3)``, ``fit`` (60000
+   MNIST-shaped rows, 2 epochs, batch 256) and ``evaluate``: the loss
+   falls, accuracy above 0.5, epoch losses within 1e-5 relative of a
+   direct ``NeuralModel`` fit from the same init and batches (bit
+   equality and the ``#`` passes' child seconds recorded); (b) each
+   committed SavedModel fixture (tests/fixtures/keras) through
+   ``load_model`` and ``/predict`` in float32 within 1e-4 of
+   TensorFlow's predictions; (c) whether h5py and keras import, then the
+   ``.keras`` and legacy ``.h5`` fixtures within the same bound and a
+   ``save_keras`` -> ``from_keras`` round trip within 1e-6, or each
+   call's ``ImportError`` naming the missing module; (d) BASELINE config
+   5 in the reference's form: ResNet-50 (1000 classes, 224x224x3) fitted
+   2 steps and exported with ``save_weights``, created through
+   ``tensorflow.keras.applications`` / ``ResNet50`` with that file
+   (predictions within 1e-6 of the exporter's) and swept by a
+   ``GridSearch`` of two learning rates on ``/tune``, card memory at each
+   trial's start within 1 MiB; (e) no flash kernel launches.
+11. The function route (the ``function`` line): the port's REST
    server on the card driven over HTTP by the port's own
    ``client.Context``, user code in the default ``subprocess`` sandbox.
    A probe function reports what the jailed child can import (pandas,
@@ -201,7 +222,7 @@
    job's POST-to-finished seconds and the share an empty job's (the
    child's spawn) takes of it, ``ctx.wait``'s latency after ``finished``
    flips, and the phase's seconds.
-11. The explore and transform routes (the ``transform`` line; BASELINE
+12. The explore and transform routes (the ``transform`` line; BASELINE
    config 3, IMDb -> Transform -> LSTM): 4096 IMDb-shaped rows (200 ids
    below 20000 and a label, from a seed) as a CSV whose id columns are
    written as integral floats (``12.0``) beside a text column, over HTTP
@@ -213,7 +234,7 @@
    of a direct fit, bit equality recorded) and ``/evaluate``; an explore
    plot (a PNG, or where the machine lacks matplotlib an ``ImportError``
    job; the line says which); the GET cache must hit.
-12. The Builder (the ``builder`` line, before ``lifecycle``), over HTTP
+13. The Builder (the ``builder`` line, before ``lifecycle``), over HTTP
    through the port's client: (a) the tutorial's section 6, a
    Titanic-shaped CSV (891 rows) and tests/test_server.py's modelingCode
    through LR, NB, DT, RF and GB with ``meshParallel``: LR and NB
@@ -237,7 +258,7 @@
    its declared input is a 406 with ``shape-mismatch`` and leaves no
    collection, a good one is a 201 whose ``/train`` document carries the
    heuristic ``footprint``; (e) no flash kernel launches in the phase.
-13. The job lifecycle (the ``lifecycle`` line, last): the tutorial LM's
+14. The job lifecycle (the ``lifecycle`` line, last): the tutorial LM's
    bf16 fit over REST cancelled after its first step (ended
    ``cancelled`` within 2 steps' time plus 0.5 s) and one with ``"timeout":
    2`` (``timedOut``); the card memory at the start of the job queued
@@ -256,10 +277,10 @@
 
 The kernel launch counts are zeroed just before each path and read
 just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
-function``, ``--only transform``, ``--only builder``, ``--only
-lifecycle``, or several, comma-separated) builds the kernels and runs
-that phase alone (to iterate on it), printing its line and no result
-line.
+keras``, ``--only function``, ``--only transform``, ``--only builder``,
+``--only lifecycle``, or several, comma-separated) builds the kernels
+and runs that phase alone (to iterate on it), printing its line and no
+result line.
 
 Earlier lines print the card (nvidia-smi name and power limit), the
 build time, ptxas's registers and spill bytes of every kernel variant
@@ -3691,6 +3712,330 @@ def neural_phase(torch, log, home, yard):
 
 
 # ----------------------------------------------------------------------
+# the reference's tensorflow.keras contract: the shim, '#tensorflow' in
+# the DSL, real keras artifacts, BASELINE config 5 in the reference's form
+# ----------------------------------------------------------------------
+# the tutorial CNN's layers as the reference's '#' DSL writes them
+# (keras's Conv2D pads "valid": 13x13x32 = 5408 features into dense 128)
+KERAS_CNN_LAYERS = [
+    "#tensorflow.keras.layers.Reshape((28, 28, 1))",
+    "#tensorflow.keras.layers.Conv2D(32, (3, 3), activation='relu')",
+    "#tensorflow.keras.layers.MaxPooling2D()",
+    "#tensorflow.keras.layers.Flatten()",
+    "#tensorflow.keras.layers.Dense(128, activation='relu')",
+    "#tensorflow.keras.layers.Dense(10, activation='softmax')"]
+KERAS_FIXTURES = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "tests", "fixtures", "keras")
+# the float32 bound of an imported model's predictions against
+# TensorFlow's own (tests/fixtures/keras/*/want.npy)
+KERAS_IMPORT_ATOL = 1e-4
+# BASELINE config 5: ResNet-50 fitted for 2 steps of 32 and exported,
+# then a GridSearch of two learning rates over 64 images (batch 32)
+RESNET_PRE_BATCH, RESNET_TUNE_IMAGES = 32, 64
+KERAS_LR_GRID = [1e-3, 1e-4]
+
+
+def _fixture(name: str):
+    """(meta, x, want) of one committed keras fixture."""
+    import numpy as np
+
+    folder = os.path.join(KERAS_FIXTURES, name)
+    with open(os.path.join(folder, "meta.json")) as f:
+        meta = json.load(f)
+    return (meta, np.load(os.path.join(folder, meta["x"])),
+            np.load(os.path.join(folder, meta["want"])))
+
+
+def _importable(module: str):
+    """The module's version where it imports, else the error's text."""
+    import importlib
+
+    try:
+        mod = importlib.import_module(module)
+    except ImportError as exc:
+        return False, f"{type(exc).__name__}: {exc}"
+    return True, getattr(mod, "__version__", "?")
+
+
+def keras_phase(torch, log, home, yard):
+    """The reference's tensorflow.keras contract on the card (the
+    ``keras`` line): (a) the tutorial CNN at full width over HTTP as the
+    reference writes it: ``POST /model/tensorflow`` with
+    ``tensorflow.keras.models`` / ``Sequential`` and six
+    ``#tensorflow.keras.layers`` strings, ``compile`` with
+    ``#tensorflow.keras.optimizers.Adam(1e-3)``, ``fit`` on 60000
+    MNIST-shaped rows (2 epochs, batch 256, bf16) and ``evaluate``: the
+    loss falls, accuracy above 0.5, the epoch losses within 1e-5 of a
+    direct ``NeuralModel`` fit from the same init and batches (bit
+    equality recorded) and the ``#`` passes' child seconds; (b) each
+    committed SavedModel fixture through ``load_model`` on ``/model`` and
+    ``/predict`` in float32, within 1e-4 of TensorFlow's predictions;
+    (c) whether h5py and keras import here, and then the ``.keras`` and
+    legacy ``.h5`` fixtures within the same bound and a ``save_keras`` ->
+    ``from_keras`` round trip within 1e-6, or else each call's
+    ``ImportError`` naming the module; (d) BASELINE config 5: a
+    ResNet-50 (1000 classes, 224x224x3) fitted 2 steps and exported with
+    ``save_weights``, created through ``tensorflow.keras.applications`` /
+    ``ResNet50`` with that file (predictions equal to the exporter's
+    within 1e-6) and swept by a GridSearch of two learning rates on
+    ``/tune`` (card memory at each trial's start within 1 MiB); (e) no
+    flash kernel launches in the phase."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import sweep as sweep_lib
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+    from learningorchestra_tpu_torch.models.tf_compat.keras import (
+        applications, layers as shim_layers, models as shim_models)
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services import sandbox
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    phase_t0 = time.monotonic()
+    out = {}
+    zero = dict.fromkeys(COUNTERS, 0)
+    _reset_launches(attn)
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    hash_passes = []
+    real_eval = sandbox.eval_hash_expressions
+
+    def timed_eval(exprs, *args, **kwargs):
+        t0 = time.monotonic()
+        values = real_eval(exprs, *args, **kwargs)
+        if exprs:
+            hash_passes.append({"expressions": len(exprs),
+                                "seconds": time.monotonic() - t0})
+        return values
+
+    def post(path, body, status=201):
+        got, answer = _http(base, "POST", path, body)
+        if got != status:
+            raise AssertionError(f"POST {path}: {got} {answer}")
+        return answer
+
+    def run(verb, name, parent, method, params):
+        post(f"/{verb}/tensorflow", {"name": name, "modelName": parent,
+                                     "method": method,
+                                     "methodParameters": params})
+        return _poll(base, f"/{verb}/tensorflow/{name}")
+
+    def model(name, module, cls, params):
+        post("/model/tensorflow", {"modelName": name, "modulePath": module,
+                                   "class": cls, "classParameters": params})
+        return _poll(base, f"/model/tensorflow/{name}")
+
+    def docs(verb, name):
+        return _http(base, "GET", f"/{verb}/tensorflow/{name}")[1]["result"]
+
+    sandbox.eval_hash_expressions = timed_eval
+    try:
+        # (a) the reference's lineage at the tutorial CNN's full width
+        x, y = _mnist_like(np, MNIST_ROWS, seed=0)
+        _save_arrays(ctx, "mnist", {"x": x, "y": y})
+        t0 = time.monotonic()
+        model("cnn", "tensorflow.keras.models", "Sequential",
+              {"layers": KERAS_CNN_LAYERS})
+        model_s = time.monotonic() - t0
+        run("train", "cnn_c", "cnn", "compile", {
+            "optimizer": "#tensorflow.keras.optimizers.Adam(1e-3)",
+            "loss": "sparse_categorical_crossentropy",
+            "metrics": ["accuracy"]})
+        t0 = time.monotonic()
+        run("train", "cnn_t", "cnn_c", "fit",
+            {"x": "$mnist.x", "y": "$mnist.y", "epochs": MNIST_EPOCHS,
+             "batch_size": MNIST_BATCH})
+        fit_s = time.monotonic() - t0
+        got = [d["epochRecord"]["loss"] for d in docs("train", "cnn_t")
+               if "epochRecord" in d]
+        run("evaluate", "cnn_e", "cnn_t", "evaluate",
+            {"x": "$mnist.x", "y": "$mnist.y", "batch_size": 1024})
+        evaluated = next(d["result"] for d in docs("evaluate", "cnn_e")
+                         if "result" in d)
+        stored = ctx.artifacts.load("cnn")
+        configs = [shim_layers.Reshape((28, 28, 1)).config,
+                   shim_layers.Conv2D(32, (3, 3), activation="relu").config,
+                   shim_layers.MaxPooling2D().config,
+                   shim_layers.Flatten().config,
+                   shim_layers.Dense(128, activation="relu").config,
+                   shim_layers.Dense(10, activation="softmax").config]
+        direct = NeuralModel(configs, device="cuda")
+        direct.compile({"kind": "adam", "learning_rate": 1e-3})
+        want = direct.fit(x, y, batch_size=MNIST_BATCH,
+                          epochs=MNIST_EPOCHS).history["loss"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        if type(stored).__name__ != "Sequential" or \
+                stored.layer_configs != configs or \
+                len(got) != MNIST_EPOCHS or not got[-1] < got[0] or \
+                not evaluated["accuracy"] > 0.5 or not rel <= 1e-5:
+            raise AssertionError(
+                f"the keras lineage: {type(stored).__name__} "
+                f"{stored.layer_configs}, losses {got} against the direct "
+                f"fit's {want}, evaluate {evaluated}")
+        out["lineage"] = {
+            "rows": MNIST_ROWS, "batch": MNIST_BATCH, "epochs": MNIST_EPOCHS,
+            "params": direct.num_params(), "losses": got,
+            "directLosses": want, "maxRelToDirect": rel,
+            "bitEqualToDirect": got == want, "evaluate": evaluated,
+            "modelJobSeconds": model_s, "fitJobSeconds": fit_s,
+            "hashPasses": list(hash_passes)}
+        del x, y, direct, stored
+        gc.collect()
+
+        # (b) SavedModel import on the card, float32
+        os.environ["LO_COMPUTE_DTYPE"] = "float32"
+        imports = {}
+        for name in ("cnn", "rnn"):
+            meta, fx, fwant = _fixture(name)
+            path = os.path.join(KERAS_FIXTURES, name,
+                                meta["formats"]["savedmodel"])
+            t0 = time.monotonic()
+            model(f"{name}_sm", "tensorflow.keras.models", "load_model",
+                  {"path": path})
+            load_s = time.monotonic() - t0
+            run("predict", f"{name}_sm_p", f"{name}_sm", "predict",
+                {"x": fx.tolist(), "batch_size": len(fx)})
+            pred = np.asarray(ctx.artifacts.load(f"{name}_sm_p"))
+            gap = float(np.abs(pred - fwant).max())
+            if pred.shape != fwant.shape or not gap <= KERAS_IMPORT_ATOL:
+                raise AssertionError(f"SavedModel {name}: shape "
+                                     f"{pred.shape}, max gap {gap}")
+            imports[f"{name}/savedmodel"] = {
+                "params": meta["params"], "layers": meta["layers"],
+                "maxAbsGap": gap, "loadJobSeconds": load_s}
+        out["savedModel"] = imports
+
+        # (c) .keras, legacy .h5 and save_keras
+        have = {m: _importable(m) for m in ("h5py", "keras")}
+        formats = {}
+        for name, fmt in (("cnn_narrow", "keras"), ("cnn_narrow", "h5"),
+                          ("rnn", "keras"), ("rnn", "h5")):
+            meta, fx, fwant = _fixture(name)
+            path = os.path.join(KERAS_FIXTURES, name, meta["formats"][fmt])
+            try:
+                loaded = shim_models.load_model(path, device="cuda")
+            except ImportError as exc:
+                if have["h5py"][0] or exc.name != "h5py":
+                    raise
+                formats[f"{name}/{fmt}"] = {"importError": str(exc)}
+                continue
+            gap = float(np.abs(loaded.predict(fx, batch_size=len(fx))
+                               - fwant).max())
+            if not gap <= KERAS_IMPORT_ATOL:
+                raise AssertionError(f"{name} {fmt}: max gap {gap}")
+            formats[f"{name}/{fmt}"] = {"maxAbsGap": gap}
+        full = ctx.artifacts.load("cnn_sm")
+        _, fx, _ = _fixture("cnn")
+        exported = os.path.join(home, "cnn.keras")
+        try:
+            full.save_keras(exported)
+            back = NeuralModel.from_keras(exported, device="cuda")
+            gap = float(np.abs(back.predict(fx, batch_size=len(fx))
+                               - full.predict(fx, batch_size=len(fx))).max())
+            if not gap <= 1e-6:
+                raise AssertionError(f"save_keras -> from_keras: {gap}")
+            formats["saveKerasRoundTrip"] = {"maxAbsGap": gap}
+        except ImportError as exc:
+            if exc.name not in ("keras", "h5py") or have[exc.name][0]:
+                raise
+            formats["saveKerasRoundTrip"] = {"importError": str(exc)}
+        out["kerasFormats"] = {"importable": {
+            m: {"imports": ok, "detail": detail}
+            for m, (ok, detail) in have.items()}, **formats}
+        del full
+        gc.collect()
+        os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+
+        # (d) BASELINE config 5: ResNet-50 exported, created by module
+        # path with its weights, then swept on /tune
+        rng = np.random.default_rng(5)
+        rx = rng.standard_normal((RESNET_TUNE_IMAGES, 224, 224, 3),
+                                 dtype=np.float32)
+        ry = rng.integers(0, 1000, RESNET_TUNE_IMAGES).astype(np.int32)
+        pre = applications.ResNet50(device="cuda")
+        t0 = time.monotonic()
+        pre_hist = pre.fit(rx[:2 * RESNET_PRE_BATCH],
+                           ry[:2 * RESNET_PRE_BATCH],
+                           batch_size=RESNET_PRE_BATCH, epochs=1,
+                           shuffle=False).history
+        pre_s = time.monotonic() - t0
+        npz = os.path.join(home, "resnet50_pretrained.npz")
+        pre.save_weights(npz)
+        model("rn", "tensorflow.keras.applications", "ResNet50",
+              {"weights": npz, "input_shape": [224, 224, 3]})
+        loaded = ctx.artifacts.load("rn")
+        probe = rx[:8]
+        rn_gap = float(np.abs(loaded.predict(probe, batch_size=8)
+                              - pre.predict(probe, batch_size=8)).max())
+        del loaded, pre
+        gc.collect()
+        if not rn_gap <= 1e-6:
+            raise AssertionError(f"ResNet50(weights=npz) predicts {rn_gap} "
+                                 f"off the exporter")
+        _save_arrays(ctx, "rn_data", {"x": rx, "y": ry})
+        model("rn_sweep", "learningorchestra_tpu.models", "GridSearch",
+              {"estimator": "$rn", "param_grid": {
+                  "learning_rate": KERAS_LR_GRID}})
+        trial_mem = []
+        real_trial = sweep_lib.GridSearch._run_trial
+
+        def measured_trial(self, combo, *args, **kwargs):
+            gc.collect()
+            torch.cuda.synchronize()
+            trial_mem.append({"params": combo,
+                              "beforeBytes": torch.cuda.memory_allocated()})
+            return real_trial(self, combo, *args, **kwargs)
+
+        sweep_lib.GridSearch._run_trial = measured_trial
+        try:
+            t0 = time.monotonic()
+            meta_t = run("tune", "rn_tune", "rn_sweep", "fit",
+                         {"x": "$rn_data.x", "y": "$rn_data.y",
+                          "epochs": 1, "batch_size": RESNET_PRE_BATCH})
+            tune_s = time.monotonic() - t0
+        finally:
+            sweep_lib.GridSearch._run_trial = real_trial
+        swept = ctx.artifacts.load("rn_tune")
+        befores = [m["beforeBytes"] for m in trial_mem]
+        leaked = max(befores) - min(befores)
+        if swept.best_params_ is None or \
+                len(swept.cv_results_["params"]) != len(KERAS_LR_GRID) or \
+                len(trial_mem) != len(KERAS_LR_GRID) or leaked > 1 << 20:
+            raise AssertionError(f"the ResNet-50 sweep: {swept.cv_results_},"
+                                 f" trial memory {trial_mem}")
+        out["baseline5"] = {
+            "classes": 1000, "input": [224, 224, 3],
+            "pretrainSteps": 2, "pretrainBatch": RESNET_PRE_BATCH,
+            "pretrainLosses": pre_hist["loss"], "pretrainSeconds": pre_s,
+            "weightsBytes": os.path.getsize(npz),
+            "loadedVsExporterMaxAbs": rn_gap, "grid": KERAS_LR_GRID,
+            "images": RESNET_TUNE_IMAGES, "tuneJobSeconds": tune_s,
+            "cvResults": swept.cv_results_,
+            "bestParams": swept.best_params_,
+            "sweepFusion": meta_t.get("sweepFusion"),
+            "trialStartBytes": befores, "leakedBytes": leaked}
+        del swept, rx
+        gc.collect()
+    finally:
+        sandbox.eval_hash_expressions = real_eval
+        os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+        server.stop()
+        ctx.close()
+    # (e) the phase launched no flash kernel
+    launched = _launches(attn)
+    if launched != zero:
+        raise AssertionError(f"the keras phase launched {launched}")
+    out["launches"] = launched
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("keras " + json.dumps(out))
+    return {"keras": launched}
+
+
+# ----------------------------------------------------------------------
 # the function route: the tutorial's workflows as written, through the
 # port's own client
 # ----------------------------------------------------------------------
@@ -5051,7 +5396,8 @@ def main() -> int:
     if "--only" in sys.argv:
         # iteration aid: the build, then the named self-contained phases
         # alone; no kernels line and no result line
-        phases = {"neural": neural_phase, "function": function_phase,
+        phases = {"neural": neural_phase, "keras": keras_phase,
+                  "function": function_phase,
                   "transform": transform_phase, "builder": builder_phase,
                   "lifecycle": lifecycle_phase}
         try:
@@ -5091,6 +5437,8 @@ def main() -> int:
         del yard
         with tempfile.TemporaryDirectory() as home:
             paths.update(neural_phase(torch, log, home, {}))
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(keras_phase(torch, log, home, {}))
         with tempfile.TemporaryDirectory() as home:
             paths.update(function_phase(torch, log, home, {}))
         with tempfile.TemporaryDirectory() as home:

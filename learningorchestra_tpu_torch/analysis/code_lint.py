@@ -6,10 +6,10 @@ Rules (the JAX package's ids):
 
 - ``syntax-error``: the code does not parse. An error in every mode.
 - ``forbidden-import``: an import outside the sandbox's module
-  whitelist, a module that is not yet ported (``tensorflow``,
-  ``keras``), or a relative import. An error under ``subprocess`` and
-  ``restricted``, where the runtime refuses it too; a warning under
-  ``trusted``.
+  whitelist (``tensorflow`` and ``keras`` are in it: the sandbox maps
+  them to the port's shim), or a relative import. An error under
+  ``subprocess`` and ``restricted``, where the runtime refuses it too; a
+  warning under ``trusted``.
 - ``forbidden-call``: a call of an exec-family builtin the sandbox
   withholds (``eval``, ``exec``, ``open``, ...). The same mode policy.
 - ``dunder-attribute``: attribute traversal through an escape-capable
@@ -39,7 +39,6 @@ from learningorchestra_tpu_torch.analysis.findings import (
 )
 from learningorchestra_tpu_torch.services.sandbox import (
     DANGEROUS_DUNDERS,
-    NOT_PORTED_MODULES,
     module_allowed,
 )
 
@@ -57,9 +56,6 @@ def _refusal(name: str, verb: str) -> Optional[str]:
     """Why importing ``name`` is refused, or None when it is allowed."""
     if module_allowed(name):
         return None
-    if name.split(".")[0] in NOT_PORTED_MODULES:
-        return (f"{verb} {name!r} is not yet ported to the PyTorch "
-                f"package")
     return f"{verb} {name!r} is outside the sandbox module whitelist"
 
 

@@ -8,10 +8,10 @@ sweeps write what the JAX package's write: ``config.json`` and
 ``weights.msgpack``, the flax tree as ``flax.serialization`` packs it
 (through the port's own codec; a sweep nests its estimators' dirs). So
 a native artifact of either package loads in the other: the JAX
-package's ``LanguageModel``, ``TextClassifier``, ``NeuralModel``,
-``GridSearch`` and ``RandomSearch`` map by name to the port's classes
-(:data:`JAX_NATIVE_CLASSES`); any other JAX class raises "not yet
-ported".
+package's ``LanguageModel``, ``TextClassifier``, ``NeuralModel``, the
+tensorflow shim's ``Sequential``, ``GridSearch`` and ``RandomSearch`` map
+by name to the port's classes (:data:`JAX_NATIVE_CLASSES`); any other
+JAX class raises "not yet ported".
 
 Results of evaluate, predict and generate, and a function's
 ``response``, are stored without pickle where they can be:
@@ -37,7 +37,9 @@ loads without dill, and anything else (a function dill pickled by
 value) raises, where dill is absent, an error that names dill. A JAX
 ``LogisticRegressionJAX`` or ``GaussianNBJAX`` loads as the port's
 class of that name (:data:`JAX_PICKLED_CLASSES`), placed on the store's
-device.
+device, and a spec of the JAX tensorflow shim (a layer, optimizer or
+loss, which its store writes with dill) as the port's shim class of the
+same name.
 """
 
 from __future__ import annotations
@@ -62,6 +64,9 @@ JAX_NATIVE_CLASSES = {
         ("learningorchestra_tpu_torch.models.encoder", "TextClassifier"),
     ("learningorchestra_tpu.models.neural", "NeuralModel"):
         ("learningorchestra_tpu_torch.models.neural", "NeuralModel"),
+    ("learningorchestra_tpu.models.tf_compat.keras.models", "Sequential"):
+        ("learningorchestra_tpu_torch.models.tf_compat.keras.models",
+         "Sequential"),
     ("learningorchestra_tpu.models.sweep", "GridSearch"):
         ("learningorchestra_tpu_torch.models.sweep", "GridSearch"),
     ("learningorchestra_tpu.models.sweep", "RandomSearch"):
@@ -74,6 +79,10 @@ JAX_PICKLED_CLASSES = {
         ("learningorchestra_tpu_torch.models.estimators", name)
     for name in ("LogisticRegressionJAX", "GaussianNBJAX")}
 _JAX_PACKAGE = "learningorchestra_tpu"
+# the JAX tensorflow shim's modules, each to the port's module of the
+# same path (a dill artifact names its spec classes there)
+_JAX_SHIM, _PORT_SHIM = ("learningorchestra_tpu.models.tf_compat",
+                         "learningorchestra_tpu_torch.models.tf_compat")
 _NAME_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._ -]*$")
 # the JSON stand-in for an array leaf of a stored result
 _LEAF_KEY = "__npy__"
@@ -182,6 +191,11 @@ class _DillUnpickler(pickle.Unpickler):
         mapped = JAX_PICKLED_CLASSES.get((module, name))
         if mapped is not None:
             return getattr(importlib.import_module(mapped[0]), mapped[1])
+        if module == _JAX_SHIM or module.startswith(_JAX_SHIM + "."):
+            cls = getattr(importlib.import_module(
+                _PORT_SHIM + module[len(_JAX_SHIM):]), name, None)
+            if isinstance(cls, type):
+                return cls
         return super().find_class(module, name)
 
 

@@ -22,6 +22,7 @@ whole dataset.
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import shutil
@@ -596,18 +597,81 @@ class Catalog:
                 self._change_cond.wait(min(remaining, 1.0))
 
 
+class _AppendedNpy:
+    """One column's ``.npy`` file written batch by batch: the header for
+    zero rows, each batch's rows appended as they come, and the header
+    rewritten for the final count at :meth:`finish`. numpy pads a header
+    so that its first dimension can grow to 21 digits at the same length,
+    so the file is byte for byte what ``np.save`` writes for the whole
+    column."""
+
+    def __init__(self, path: str, dtype):
+        self.path = path
+        self.dtype = np.dtype(dtype)
+        self.rows = 0
+        self._file = open(path, "wb")
+        self._file.write(self._header(0))
+
+    def _header(self, rows: int) -> bytes:
+        buf = io.BytesIO()
+        np.lib.format.write_array_header_1_0(buf, {
+            "descr": np.lib.format.dtype_to_descr(self.dtype),
+            "fortran_order": False, "shape": (rows,)})
+        return buf.getvalue()
+
+    def append(self, data: np.ndarray) -> None:
+        np.ascontiguousarray(data, self.dtype).tofile(self._file)
+        self.rows += len(data)
+
+    def finish(self) -> None:
+        header = self._header(self.rows)
+        if len(header) != len(self._header(0)):
+            raise ValueError(f"{self.path}: {self.rows} rows outgrow the "
+                             f".npy header written for the first batch")
+        self._file.seek(0)
+        self._file.write(header)
+        self._file.close()
+
+    def abandon(self) -> None:
+        self._file.close()
+
+
 class DatasetWriter:
     """Writes one dataset from column chunks: each :meth:`write_batch`
     takes ``{column: values}`` with the columns (names, order and kinds)
-    of the first batch; :meth:`close` writes the ``.npy`` files and
-    swaps them in whole, replacing rows stored before."""
+    of the first batch. A fixed-width column (bool, int64, float64) and
+    every null mask are appended to their ``.npy`` files in a staging
+    directory batch by batch, so the writer holds one batch at a time; a
+    text column's chunks stay in memory until :meth:`close` (their width
+    is the longest string's, known only then). :meth:`close` finishes
+    the files and swaps them in whole, replacing rows stored before; a
+    writer left by an exception removes its staging directory."""
 
     def __init__(self, catalog: Catalog, name: str):
         self._dir = catalog._dataset_dir(name)
+        self._staging = self._dir + ".staging"
         self._kinds: Optional[Dict[str, str]] = None
-        self._chunks: Dict[str, List[Tuple[np.ndarray, np.ndarray]]] = {}
+        self._files: Dict[str, Tuple[Optional[_AppendedNpy],
+                                     _AppendedNpy]] = {}
+        self._texts: Dict[str, List[np.ndarray]] = {}
+        self._nulls: Dict[str, bool] = {}
         self._rows = 0
         self._closed = False
+
+    def _open(self, kinds: Dict[str, str]) -> None:
+        shutil.rmtree(self._staging, ignore_errors=True)
+        os.makedirs(self._staging)
+        self._kinds = kinds
+        for i, (col, kind) in enumerate(kinds.items()):
+            data = None
+            if kind == "string":
+                self._texts[col] = []
+            else:
+                data = _AppendedNpy(os.path.join(
+                    self._staging, f"c{i}.npy"), _typed(kind, np.empty(
+                        0)).dtype)
+            self._files[col] = (data, _AppendedNpy(os.path.join(
+                self._staging, f"c{i}.null.npy"), bool))
 
     def write_batch(self, columns: Dict[str, Any]) -> None:
         parsed = {col: _column(values) for col, values in columns.items()}
@@ -616,13 +680,19 @@ class DatasetWriter:
             raise ValueError(f"columns of unequal length: {sorted(sizes)}")
         kinds = {col: kind for col, (kind, _, _) in parsed.items()}
         if self._kinds is None:
-            self._kinds = kinds
-            self._chunks = {col: [] for col in parsed}
+            self._open(kinds)
         elif list(kinds.items()) != list(self._kinds.items()):
             raise ValueError(f"batch columns {kinds} do not match the "
                              f"first batch's {self._kinds}")
         for col, (kind, data, mask) in parsed.items():
-            self._chunks[col].append((_typed(kind, data), mask))
+            file, nulls = self._files[col]
+            if file is None:
+                self._texts[col].append(_typed(kind, data))
+            else:
+                file.append(_typed(kind, data))
+            nulls.append(mask)
+            self._nulls[col] = self._nulls.get(col, False) or \
+                bool(mask.any())
         self._rows += sizes.pop() if sizes else 0
 
     def fields(self) -> List[str]:
@@ -632,22 +702,22 @@ class DatasetWriter:
         if self._kinds is None or self._closed:
             return
         self._closed = True
-        staging = self._dir + ".staging"
-        shutil.rmtree(staging, ignore_errors=True)
-        os.makedirs(staging)
         schema = {"columns": [], "rows": self._rows}
         for i, (col, kind) in enumerate(self._kinds.items()):
-            data = np.concatenate([c for c, _ in self._chunks[col]])
-            mask = np.concatenate([m for _, m in self._chunks[col]])
-            np.save(os.path.join(staging, f"c{i}.npy"), data,
-                    allow_pickle=False)
-            nulls = bool(mask.any())
-            if nulls:
-                np.save(os.path.join(staging, f"c{i}.null.npy"), mask,
+            file, nulls_file = self._files[col]
+            if file is None:
+                np.save(os.path.join(self._staging, f"c{i}.npy"),
+                        np.concatenate(self._texts.pop(col)),
                         allow_pickle=False)
+            else:
+                file.finish()
+            nulls_file.finish()
+            nulls = self._nulls.get(col, False)
+            if not nulls:
+                os.remove(nulls_file.path)
             schema["columns"].append({"name": col, "kind": kind,
                                       "nulls": nulls})
-        with open(os.path.join(staging, _SCHEMA_FILE), "w") as f:
+        with open(os.path.join(self._staging, _SCHEMA_FILE), "w") as f:
             json.dump(schema, f)
         # a reader sees the old rows or the new ones, never a
         # half-written set of files
@@ -655,9 +725,19 @@ class DatasetWriter:
         shutil.rmtree(old, ignore_errors=True)
         if os.path.isdir(self._dir):
             os.rename(self._dir, old)
-        os.rename(staging, self._dir)
+        os.rename(self._staging, self._dir)
         shutil.rmtree(old, ignore_errors=True)
-        self._chunks = {}
+        self._files = {}
+
+    def abandon(self) -> None:
+        """Drops what was written; the stored rows stay as they were."""
+        for file, nulls in self._files.values():
+            for f in (file, nulls):
+                if f is not None:
+                    f.abandon()
+        self._files, self._texts = {}, {}
+        self._closed = True
+        shutil.rmtree(self._staging, ignore_errors=True)
 
     def __enter__(self) -> "DatasetWriter":
         return self
@@ -666,3 +746,5 @@ class DatasetWriter:
         # a failed ingest leaves the stored rows as they were
         if exc_type is None:
             self.close()
+        else:
+            self.abandon()

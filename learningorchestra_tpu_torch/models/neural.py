@@ -31,15 +31,16 @@ keras's ``sample_weight`` and ``class_weight``, ``grad_accum``,
 training health sentinel; the language model and the classifier take
 none, as in the JAX package); ``evaluate``; ``predict`` (the
 output softmax or sigmoid applied on the host); ``summary``,
-``num_params``, ``save_weights``/``load_weights`` (``.npz``); and the
-artifact protocol, ``config.json`` and ``weights.msgpack`` of
-``{"params", "model_state"}`` in flax's bytes, so an artifact of either
-package loads in the other. An ``embedding`` first layer takes int64
-token ids, and ids outside ``[0, vocab)`` raise ``ValueError`` before
-anything reaches the card (the JAX package takes them). Batch norm's
-statistics are the engine's model state. Mesh placement, the keras
-import and export (``from_keras``, ``to_keras``, the ``.h5`` weights)
-and sweep fusion are not ported.
+``num_params``, ``save_weights``/``load_weights`` (``.npz``, and a
+keras ``.h5``/``.weights.h5``); the keras import and export
+(``from_keras``, ``from_savedmodel``, ``from_legacy_h5``, ``to_keras``,
+``save_keras``, through :mod:`.weights_io`); and the artifact protocol,
+``config.json`` and ``weights.msgpack`` of ``{"params", "model_state"}``
+in flax's bytes, so an artifact of either package loads in the other.
+An ``embedding`` first layer takes int64 token ids, and ids outside
+``[0, vocab)`` raise ``ValueError`` before anything reaches the card
+(the JAX package takes them). Batch norm's statistics are the engine's
+model state. Mesh placement and sweep fusion are not ported.
 """
 
 from __future__ import annotations
@@ -537,23 +538,41 @@ class NeuralModel:
                      for k, v in self.model_state.items()})
         np.savez(path, **flat)
 
+    def _set_trees(self, params: Dict[str, Any],
+                   state: Dict[str, Any]) -> None:
+        """Inverse of :meth:`_trees` (flax trees of numpy arrays)."""
+        self.set_params(
+            weights_lib.params_from_flax(params, sequential=True),
+            weights_lib.params_from_flax(state.get("batch_stats", {}),
+                                         sequential=True))
+
+    def _build_for(self, shape: Sequence[int]) -> None:
+        """Params from the seed for inputs of ``shape`` (without the
+        batch dim): int ids for an embedding-first stack."""
+        dtype = np.int64 if self._embedding_first() else np.float32
+        self._build_params(np.zeros((1, *shape), dtype))
+
     def load_weights(self, path: str,
                      input_shape: Optional[Sequence[int]] = None) -> None:
         """Weights from an ``.npz`` of :meth:`save_weights` (either
-        package's), shape-checked; builds the model first when needed
-        (``input_shape`` without the batch dim). Keras ``.h5`` files
-        are not ported."""
-        if not path.endswith(".npz"):
-            raise ValueError(
-                f"loading {path!r}: keras .h5 weights are not yet ported "
-                f"to the PyTorch package (use a .npz of save_weights)")
+        package's) or a real keras ``.h5`` / ``.weights.h5`` Sequential
+        weights file (layers matched kind by kind; needs h5py),
+        shape-checked; builds the model first when needed
+        (``input_shape`` without the batch dim)."""
         if self.module is None:
             shape = list(input_shape or self.input_shape or [])
             if not shape:
                 raise ValueError(
                     "model has no parameters yet; pass input_shape= so "
                     "they can be built")
-            self._build_params(np.zeros((1, *shape), np.float32))
+            self._build_for(shape)
+        if not path.endswith(".npz"):
+            from learningorchestra_tpu_torch.models import weights_io
+
+            params, state = self._trees()
+            self._set_trees(*weights_io.load_keras_h5_into_sequential(
+                self.layer_configs, params, state, path))
+            return
         with np.load(path) as z:
             flat = {k: z[k] for k in z.files}
         live = dict(self.params)
@@ -571,6 +590,103 @@ class NeuralModel:
             for name, t in live.items():
                 t.copy_(torch.from_numpy(
                     np.array(flat[name.replace(".", "/")], np.float32)))
+
+    @classmethod
+    def from_keras(cls, path: str, name: Optional[str] = None,
+                   input_shape: Optional[Sequence[int]] = None,
+                   device="cuda") -> "NeuralModel":
+        """A model from a keras-3 ``.keras`` archive: architecture
+        (``config.json``) and weights (``model.weights.h5``) in one call,
+        the reference's load-a-real-Keras-artifact flow
+        (binary_executor_image/utils.py:195-221). Sequential topologies
+        only; unmapped layer classes fail loudly. Needs h5py."""
+        import tempfile
+
+        from learningorchestra_tpu_torch.models import weights_io
+
+        configs, archive_shape, h5_bytes = \
+            weights_io.read_keras_archive(path)
+        input_shape = list(input_shape or archive_shape or []) or None
+        model = cls(configs, name=name or
+                    os.path.splitext(os.path.basename(path))[0],
+                    device=device)
+        if input_shape:
+            model.input_shape = list(input_shape)
+        fd, tmp = tempfile.mkstemp(suffix=".weights.h5")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                f.write(h5_bytes)
+            model.load_weights(tmp, input_shape=input_shape)
+        finally:
+            os.unlink(tmp)
+        return model
+
+    @classmethod
+    def from_savedmodel(cls, path: str, name: Optional[str] = None,
+                        input_shape: Optional[Sequence[int]] = None,
+                        device="cuda") -> "NeuralModel":
+        """A model from a TF SavedModel directory (stock
+        ``tf.keras.models.save_model`` output, the reference's primary
+        artifact format, binary_executor_image/utils.py:201-220) with
+        numpy alone: architecture from ``keras_metadata.pb``, weights
+        from the ``variables/`` bundle. Sequential topologies only."""
+        from learningorchestra_tpu_torch.models import weights_io
+
+        configs, sm_shape, layers = weights_io.read_savedmodel(path)
+        return cls._from_parsed_keras(
+            configs, layers, input_shape or sm_shape,
+            name or os.path.basename(os.path.normpath(path)), device)
+
+    @classmethod
+    def from_legacy_h5(cls, path: str, name: Optional[str] = None,
+                       input_shape: Optional[Sequence[int]] = None,
+                       device="cuda") -> "NeuralModel":
+        """A model from a legacy tf.keras whole-model ``.h5`` file
+        (``model_config`` attr + ``model_weights`` group). Needs h5py."""
+        from learningorchestra_tpu_torch.models import weights_io
+
+        configs, h5_shape, layers = weights_io.read_legacy_h5_model(path)
+        return cls._from_parsed_keras(
+            configs, layers, input_shape or h5_shape,
+            name or os.path.splitext(os.path.basename(path))[0], device)
+
+    @classmethod
+    def _from_parsed_keras(cls, configs, layers, input_shape, name,
+                           device="cuda") -> "NeuralModel":
+        from learningorchestra_tpu_torch.models import weights_io
+
+        model = cls(configs, name=name, device=device)
+        if not input_shape:
+            raise ValueError(
+                "the artifact records no input shape; pass "
+                "input_shape= so parameters can be built")
+        model._build_for(list(input_shape))
+        params, state = model._trees()
+        model._set_trees(*weights_io.load_keras_h5_into_sequential(
+            model.layer_configs, params, state, h5_layers=layers))
+        return model
+
+    def to_keras(self, input_shape: Optional[Sequence[int]] = None):
+        """A REAL keras model with this model's weights (inverse gate
+        packing); needs the ``keras`` package. The returned model
+        predicts identically and serializes with ``.save()``."""
+        from learningorchestra_tpu_torch.models import weights_io
+
+        self._require_built()
+        shape = list(input_shape or self.input_shape or [])
+        if not shape:
+            raise ValueError("pass input_shape= (the model never saw "
+                             "a sample to record it)")
+        params, state = self._trees()
+        return weights_io.build_keras_model(self.layer_configs, params,
+                                            state, shape)
+
+    def save_keras(self, path: str,
+                   input_shape: Optional[Sequence[int]] = None) -> None:
+        """A real ``.keras`` archive that stock keras loads: the reverse
+        of :meth:`from_keras` (the reference ships real Keras artifacts
+        between services, utils.py:195-221). Needs ``keras``."""
+        self.to_keras(input_shape=input_shape).save(path)
 
     def summary(self) -> str:
         lines = [f"NeuralModel '{self.name}'"]

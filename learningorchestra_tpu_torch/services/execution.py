@@ -6,7 +6,10 @@ One executor calls method ``method`` of a stored object with
 ``name``, ``modelName`` (or ``parentName``), ``method``,
 ``methodParameters`` and ``description``. Validation walks the
 ``parentName`` chain to the root ``model/*`` document, whose class
-defines the methods; train and tune store the mutated instance, evaluate
+defines the methods (for a root a factory made, such as the tensorflow
+shim's ``load_model`` or ``ResNet50``, the stored instance's class, read
+from the artifact's ``meta.json``); train and tune store the mutated
+instance, evaluate
 and predict the method's result, with a JSON view of it appended as a
 ``{"result": ...}`` document. A method that takes ``log_fn`` (``fit``)
 streams each epoch's record into the job's documents. PATCH re-runs a
@@ -103,6 +106,22 @@ class ExecutionService:
                          method_parameters: Dict[str, Any]) -> None:
         cls = self._validator.valid_class(
             root_meta[D.MODULE_PATH_FIELD], root_meta[D.CLASS_FIELD])
+        if not isinstance(cls, type):
+            # a root made by a factory (tensorflow.keras.models'
+            # load_model, tensorflow.keras.applications' ResNet50): the
+            # methods are the stored instance's class's, read from the
+            # artifact's meta.json (a pickled object is loaded)
+            try:
+                cls = self._ctx.artifacts.stored_class(
+                    root_meta[D.NAME_FIELD], root_meta[D.TYPE_FIELD])
+                if cls is None:
+                    cls = self._ctx.artifacts.load(
+                        root_meta[D.NAME_FIELD], root_meta[D.TYPE_FIELD])
+            except Exception as exc:  # noqa: BLE001 — a 406, not a 500
+                raise V.HttpError(
+                    V.HTTP_NOT_ACCEPTABLE,
+                    f"cannot resolve stored model "
+                    f"{root_meta[D.NAME_FIELD]!r}: {exc!r}") from exc
         self._validator.valid_method(cls, method)
         self._validator.valid_method_parameters(cls, method,
                                                 method_parameters)

@@ -13,7 +13,11 @@ attention) answer 406 "not yet ported" before any document exists, as
 does an unknown ``scoring`` of a ``GridSearch``/``RandomSearch`` (in
 the JAX package's words). ``modulePath`` may name any importable module
 (``sklearn.linear_model``, whose classes run their own methods on the
-host and hold no card), as in the JAX package. With ``LO_PREFLIGHT``
+host and hold no card), as in the JAX package, and the reference's
+``tensorflow.keras.*`` paths, which are the port's shim
+(``tensorflow.keras.models``' ``Sequential`` of ``#`` layer specs and
+``load_model`` of a real keras artifact,
+``tensorflow.keras.applications``' ``ResNet50``). With ``LO_PREFLIGHT``
 (on by default) create and PATCH run the preflight
 (:func:`~learningorchestra_tpu_torch.analysis.preflight.check_model`):
 ``#`` expressions among the ``classParameters`` are linted, and a

@@ -8,8 +8,10 @@
   an object type the stored object.
 - ``"$name.key"`` loads the object and indexes it: ``object["key"]``.
 - ``"#expr"`` evaluates a Python expression in the sandbox
-  (``Config.sandbox_mode``) and passes the value on; all of a request's
-  ``#`` expressions run in one sandbox pass.
+  (``Config.sandbox_mode``), where ``tensorflow`` is the port's shim
+  (``#tensorflow.keras.layers.Dense(16)``), and passes the value on; all
+  of a request's ``#`` expressions, those of lists included, run in one
+  sandbox pass.
 - Lists resolve element by element.
 
 As in the reference, any string that contains ``$`` is a reference, and

@@ -17,15 +17,20 @@ JAX package's ``services/sandbox.py`` runs them, in three trust levels
   guarded ``getattr``/``setattr``/``vars``. Faster, but escapable.
 - ``"trusted"``: plain ``exec``.
 
+In every mode ``tensorflow``, ``tensorflow.keras`` and ``keras`` resolve
+to the port's shim (:mod:`learningorchestra_tpu_torch.models.tf_compat`),
+as imports and as module paths, and ``tensorflow`` is a global of the
+code, so ``#tensorflow.keras.optimizers.Adam(0.001)`` evaluates as in the
+reference. A ``#`` spec object (a shim layer, optimizer or loss) crosses
+back from the child pickled, and the result unpickler resolves classes
+under the shim and nothing else, so a forged envelope reaches no
+callable. The shim's layers, optimizers and losses import no torch.
+
 Where the port differs from the JAX package:
 
 - the whitelist has ``torch`` and ``learningorchestra_tpu_torch`` where
   the JAX one has ``jax``, ``flax``, ``optax``, ``chex`` and
   ``learningorchestra_tpu``;
-- ``tensorflow``, ``tensorflow.keras`` and ``keras`` raise ``ImportError``
-  "not yet ported" (the JAX package maps them to its tensorflow shim);
-- the result unpickler admits the builtins containers and no class (the
-  JAX one admits the shim's spec classes);
 - the child's boot imports this module alone, which imports neither
   torch nor pandas at module level, so a function job pays no torch
   import unless its code asks for one; the child imports numpy (and with
@@ -56,8 +61,12 @@ _ALLOWED_MODULE_PREFIXES = (
     "pyarrow", "dataclasses", "typing",
 )
 
-# modules the JAX package maps to its tensorflow shim; the port has none
-NOT_PORTED_MODULES = ("tensorflow", "keras")
+# modules emulated by the port (import name -> real module path)
+_SHIMMED_MODULES = {
+    "tensorflow": "learningorchestra_tpu_torch.models.tf_compat",
+    "tensorflow.keras": "learningorchestra_tpu_torch.models.tf_compat.keras",
+    "keras": "learningorchestra_tpu_torch.models.tf_compat.keras",
+}
 
 # Dunders that reach interpreter internals from any object: the steps of
 # every namespace-jail escape (object -> __class__ -> __subclasses__ ->
@@ -90,24 +99,25 @@ _SAFE_BUILTIN_NAMES = [
 
 def module_allowed(name: str) -> bool:
     """Whether sandboxed code may import ``name``."""
-    return name.split(".")[0] in _ALLOWED_MODULE_PREFIXES
+    root = name.split(".")[0]
+    return root in _SHIMMED_MODULES or root in _ALLOWED_MODULE_PREFIXES
 
 
 class ModuleNotPorted(ImportError):
     """A module the port does not have yet."""
 
 
-def _not_ported(name: str) -> ModuleNotPorted:
-    return ModuleNotPorted(
-        f"module {name!r} is not yet ported to the PyTorch package (the "
-        f"JAX package maps it to its tensorflow shim)")
-
-
 def resolve_module(name: str):
-    """Imports ``name`` for a request's ``modulePath``; the tensorflow and
-    keras paths raise ``ImportError`` "not yet ported"."""
-    if name.split(".")[0] in NOT_PORTED_MODULES:
-        raise _not_ported(name)
+    """Imports ``name`` through the shim table (a request's
+    ``modulePath`` ``tensorflow.keras.layers`` is the port's shim)."""
+    target = _SHIMMED_MODULES.get(name)
+    if target is not None:
+        return importlib.import_module(target)
+    shim_roots = [k for k in _SHIMMED_MODULES if name.startswith(k + ".")]
+    if shim_roots:
+        root = max(shim_roots, key=len)
+        return importlib.import_module(_SHIMMED_MODULES[root]
+                                       + name[len(root):])
     return importlib.import_module(name)
 
 
@@ -115,12 +125,24 @@ def _restricted_import(name: str, globals=None, locals=None, fromlist=(),
                        level: int = 0):
     if level != 0:
         raise ImportError("relative imports are not allowed in sandbox")
-    if name.split(".")[0] in NOT_PORTED_MODULES:
-        raise _not_ported(name)
+    root = name.split(".")[0]
+    if root in _SHIMMED_MODULES:
+        module = resolve_module(root)
+        # "import a.b" binds a; "from a.b import c" takes c from a.b
+        full = resolve_module(name)
+        return full if fromlist else module
     if not module_allowed(name):
         raise ImportError(
             f"module {name!r} is not allowed in sandboxed code")
     return _builtins.__import__(name, globals, locals, fromlist, level)
+
+
+def _with_tensorflow(g: Dict[str, Any]) -> Dict[str, Any]:
+    """``tensorflow`` as a global of user code (the reference's ``#``
+    DSL names it without an import)."""
+    if "tensorflow" not in g:
+        g["tensorflow"] = resolve_module("tensorflow")
+    return g
 
 
 def _guarded_getattr(obj, name, *default):
@@ -230,7 +252,8 @@ def run_user_code(code: str,
     if dataframes:
         parameters = {k: to_dataframe(v)
                       for k, v in (parameters or {}).items()}
-    g = make_sandbox_globals(parameters, trusted=resolved == "trusted")
+    g = _with_tensorflow(make_sandbox_globals(
+        parameters, trusted=resolved == "trusted"))
     stdout = io.StringIO()
     with redirect_stdout(stdout):
         exec(compile(code, "<lo-user-code>", "exec"), g)  # noqa: S102
@@ -268,9 +291,11 @@ def eval_hash_expression(class_code: str, mode: Optional[str] = None,
 # Values cross as a typed encoding, never as free pickle: primitives as
 # they are, numpy arrays as (tag, dtype, shape, bytes), tables and
 # DataFrames as named columns. The envelope pickle therefore holds only
-# containers of primitives and bytes, and _RestrictedUnpickler resolves
-# no class at all, so a child that overwrites its result file cannot
-# reach a callable in the parent.
+# containers of primitives and bytes, except the '#' DSL's spec objects
+# (the shim's layers, optimizers and losses), pickled by class reference:
+# _RestrictedUnpickler resolves classes under the shim and nothing else,
+# so a child that overwrites its result file cannot reach a callable in
+# the parent.
 
 _ND_TAG = "__lo_nd.v1__"
 _TUPLE_TAG = "__lo_tuple.v1__"
@@ -278,6 +303,14 @@ _TABLE_TAG = "__lo_table.v1__"
 _DF_TAG = "__lo_df.v1__"
 _SERIES_TAG = "__lo_series.v1__"
 _TEXT_TAG = "__lo_text.v1__"
+_PICKLE_TAG = "__lo_obj.v1__"
+
+_PICKLE_CLASS_PREFIX = "learningorchestra_tpu_torch.models.tf_compat"
+
+
+def _is_shim_module(module: str) -> bool:
+    return module == _PICKLE_CLASS_PREFIX or \
+        module.startswith(_PICKLE_CLASS_PREFIX + ".")
 
 
 class _Unencodable(Exception):
@@ -298,8 +331,9 @@ def missing_variable_error(ctx_vars: Dict[str, Any], var: str,
         return TypeError(
             f"{what}: variable {var!r} was assigned but could not "
             f"cross the subprocess-sandbox boundary (only primitives, "
-            f"ndarrays and DataFrames do); set sandbox_mode='restricted' "
-            f"or 'trusted' to return live objects")
+            f"ndarrays, DataFrames and tf_compat specs do); set "
+            f"sandbox_mode='restricted' or 'trusted' to return live "
+            f"objects")
     hint = (f" (unrelated variable(s) {dropped} were dropped at the "
             f"sandbox boundary)" if dropped else "")
     return ValueError(f"{what}: variable {var!r} was never "
@@ -382,6 +416,8 @@ def _encode_value(v: Any, depth: int = 0) -> Any:
             name = None if v.name is None else _column_name(v.name)
             return [_SERIES_TAG, name, _encode_column(v.to_numpy()),
                     _encode_column(v.index.to_numpy())]
+    if _is_shim_module(cls.__module__ or ""):
+        return [_PICKLE_TAG, pickle.dumps(v)]
     raise _Unencodable(f"type {cls.__name__} does not cross the "
                        "sandbox boundary")
 
@@ -422,6 +458,8 @@ def _decode_value(v: Any, dataframes: bool = False) -> Any:
         if v[0] == _SERIES_TAG:
             return pd.Series(columns[0][1], index=index, name=v[1])
         return pd.DataFrame(dict(columns), index=index)
+    if isinstance(v, list) and v and v[0] == _PICKLE_TAG:
+        return _RestrictedUnpickler(io.BytesIO(v[1])).load()
     if isinstance(v, list):
         return [_decode_value(x, dataframes) for x in v]
     if isinstance(v, dict):
@@ -430,13 +468,24 @@ def _decode_value(v: Any, dataframes: bool = False) -> Any:
 
 
 class _RestrictedUnpickler(pickle.Unpickler):
-    """Resolves the builtins containers and nothing else: the envelope
-    holds only containers of primitives and bytes."""
+    """Resolves the builtins containers and classes under the tensorflow
+    shim (the only live objects the ``#`` DSL hands back: layer,
+    optimizer and loss specs), and nothing else: no function, not even
+    one of the shim."""
 
     def find_class(self, module: str, name: str):
+        import inspect
+
         if module == "builtins" and name in ("dict", "list", "tuple",
                                              "set", "frozenset"):
             return getattr(_builtins, name)
+        if _is_shim_module(module):
+            try:
+                obj = getattr(importlib.import_module(module), name, None)
+            except ImportError:
+                obj = None
+            if inspect.isclass(obj):
+                return obj
         raise pickle.UnpicklingError(
             f"sandbox result may not reference {module}.{name}")
 
@@ -715,7 +764,8 @@ def _child_main(payload: Dict[str, Any]) -> None:  # pragma: no cover
 
         parameters = {k: _decode_value(v, payload.get("dataframes", False))
                       for k, v in payload["parameters"].items()}
-        g = make_sandbox_globals(parameters, trusted=False)
+        g = _with_tensorflow(make_sandbox_globals(parameters,
+                                                  trusted=False))
         stdout = io.StringIO()
         with redirect_stdout(stdout):
             exec(compile(payload["code"], "<lo-user-code>", "exec"), g)  # noqa: S102,E501
@@ -723,7 +773,8 @@ def _child_main(payload: Dict[str, Any]) -> None:  # pragma: no cover
         out_vars: Dict[str, Any] = {}
         dropped: List[str] = []
         for k, v in g.items():
-            if k in ("__builtins__", "__name__") or k in parameters:
+            if k in ("__builtins__", "__name__", "tensorflow") or \
+                    k in parameters:
                 continue
             if type(v).__name__ == "module" or callable(v):
                 continue

@@ -216,18 +216,24 @@ PORT_MODULES = {
     "learningorchestra_tpu.models": "learningorchestra_tpu_torch.models",
     "learningorchestra_tpu.models.estimators":
         "learningorchestra_tpu_torch.models.estimators",
+    # the JAX package's tensorflow shim, to the port's
+    **{f"learningorchestra_tpu.models.tf_compat{sub}":
+       f"learningorchestra_tpu_torch.models.tf_compat{sub}"
+       for sub in ("", ".keras", ".keras.models", ".keras.layers",
+                   ".keras.optimizers", ".keras.losses",
+                   ".keras.applications")},
 }
 # keyword arguments the services supply themselves, never the request
 _SERVICE_KWARGS = ("device",)
 # public methods of learningorchestra_tpu.models classes that the port
 # does not have yet: a static copy, since the port never imports the JAX
-# package
+# package (the shim's Sequential is a NeuralModel)
+_NEURAL_JAX_ONLY = ("set_mesh", "fit_sweep_fused", "supports_sweep_fusion")
 JAX_ONLY_METHODS = {
     "LanguageModel": ("set_mesh",),
     "TextClassifier": ("set_mesh",),
-    "NeuralModel": ("set_mesh", "from_keras", "from_savedmodel",
-                    "from_legacy_h5", "to_keras", "save_keras",
-                    "fit_sweep_fused", "supports_sweep_fusion"),
+    "NeuralModel": _NEURAL_JAX_ONLY,
+    "Sequential": _NEURAL_JAX_ONLY,
 }
 
 SCORING_FIELD = "scoring"
@@ -280,9 +286,9 @@ def refuse_unported_fields(body: Dict[str, Any], fields) -> None:
 def resolve_module(module_path: str):
     """The module a request's ``modulePath`` names. The JAX package's
     paths map to the port's (:data:`PORT_MODULES`), and the rest of that
-    package and the tensorflow and keras paths raise ``ImportError``
-    "not yet ported"; any other path is imported, as in the JAX
-    package."""
+    package raises ``ImportError`` "not yet ported"; the tensorflow and
+    keras paths are the port's shim, and any other path is imported, as
+    in the JAX package."""
     if not isinstance(module_path, str):
         raise ImportError(f"module path {module_path!r}")
     target = PORT_MODULES.get(module_path)

@@ -162,16 +162,31 @@ def test_pre_msgpack_artifact_still_loads(tmp_path, float32):
 
 
 def test_unported_jax_classes_and_options_raise(tmp_path):
+    from learningorchestra_tpu.models.tf_compat.keras import (
+        layers as jax_layers, optimizers as jax_optimizers)
+    from learningorchestra_tpu_torch.models.tf_compat.keras import (
+        layers as port_layers, optimizers as port_optimizers)
+
     store = ArtifactStore(str(tmp_path), device="cpu")
+    # the JAX tensorflow shim's specs (its store writes them with dill)
+    # load as the port's shim classes of the same names
+    for name, spec, cls in (
+            ("dense", jax_layers.Dense(4, activation="relu"),
+             port_layers.Dense),
+            ("adam", jax_optimizers.Adam(0.05), port_optimizers.Adam)):
+        JaxArtifactStore(str(tmp_path)).save(spec, name, "model/tensorflow")
+        loaded = store.load(name)
+        assert type(loaded) is cls
+        assert vars(loaded) == vars(spec)
+    # a JAX class the port has no counterpart for
     d = tmp_path / "model" / "tensorflow" / "nm"
     d.mkdir(parents=True)
     (d / "meta.json").write_text(json.dumps({
         "name": "nm", "type": "model/tensorflow", "kind": "native",
-        # the tensorflow shim's layer, unported (ROADMAP Queue 1 item 6)
-        "module": "learningorchestra_tpu.models.tf_compat.keras.layers",
-        "class": "Dense"}))
-    with pytest.raises(ValueError, match="layers.Dense of the JAX "
-                                         "package is not yet ported"):
+        "module": "learningorchestra_tpu.models.transformer",
+        "class": "TransformerLM"}))
+    with pytest.raises(ValueError, match="transformer.TransformerLM of the "
+                                         "JAX package is not yet ported"):
         store.load("nm")
     # a JAX LanguageModel whose config the port does not run
     ring = jax_tlm.LanguageModel(**dict(LM, attention="ring"))

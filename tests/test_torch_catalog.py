@@ -142,6 +142,97 @@ def test_dataset_rows_and_table_match_pyarrow(tmp_path):
         jax.close()
 
 
+# ----------------------------------------------------------------------
+# DatasetWriter: one batch in memory at a time, the files of a whole-output
+# write
+# ----------------------------------------------------------------------
+def _whole_output_files(batches):
+    """{file name: bytes} as a writer that holds the whole output until
+    close writes it (concatenated columns, ``np.save``; a null mask only
+    where a column has nulls)."""
+    from learningorchestra_tpu_torch.catalog import store
+
+    chunks = {}
+    for batch in batches:
+        for col, values in batch.items():
+            kind, data, mask = store._column(values)
+            chunks.setdefault(col, (kind, [], []))
+            chunks[col][1].append(store._typed(kind, data))
+            chunks[col][2].append(mask)
+    out, schema = {}, {"columns": [], "rows": 0}
+    for i, (col, (kind, datas, masks)) in enumerate(chunks.items()):
+        buf = io.BytesIO()
+        np.save(buf, np.concatenate(datas), allow_pickle=False)
+        out[f"c{i}.npy"] = buf.getvalue()
+        mask = np.concatenate(masks)
+        if mask.any():
+            buf = io.BytesIO()
+            np.save(buf, mask, allow_pickle=False)
+            out[f"c{i}.null.npy"] = buf.getvalue()
+        schema["columns"].append({"name": col, "kind": kind,
+                                  "nulls": bool(mask.any())})
+        schema["rows"] = len(mask)
+    out["schema.json"] = json.dumps(schema).encode()
+    return out
+
+
+def test_dataset_writer_files_equal_a_whole_output_write(tmp_path):
+    rng = np.random.default_rng(11)
+    columns = _sample_columns()
+    batches = [{k: v[:3] for k, v in columns.items()},
+               {k: v[3:] for k, v in columns.items()}]
+    # numeric arrays, a masked one, ints, bools and text over 5 batches
+    wide = []
+    for n in (1000, 1, 0, 777, 4096):
+        floats = np.ma.masked_array(rng.normal(size=n).astype(np.float32),
+                                    mask=rng.random(n) < 0.1)
+        wide.append({"f32": floats, "i": rng.integers(-5, 5, n),
+                     "b": rng.random(n) < 0.5,
+                     "s": np.array([f"w{j % 13}" for j in range(n)],
+                                   dtype=str)})
+    cat = Catalog(str(tmp_path / "c.sqlite"), str(tmp_path / "ds"))
+    for name, chunks in (("sample", batches), ("wide", wide)):
+        with cat.dataset_writer(name) as w:
+            for batch in chunks:
+                w.write_batch(batch)
+        folder = tmp_path / "ds" / name
+        got = {f: (folder / f).read_bytes() for f in os.listdir(folder)}
+        assert got == _whole_output_files(chunks), name
+    assert cat.count_rows("wide") == 5874
+    # an exception inside the writer keeps the stored rows and leaves no
+    # staging directory
+    with pytest.raises(RuntimeError):
+        with cat.dataset_writer("wide") as w:
+            w.write_batch({"f32": np.ones(3, np.float32), "i": [1, 2, 3],
+                           "b": [True, False, True], "s": ["a", "b", "c"]})
+            raise RuntimeError("ingest failed")
+    assert cat.count_rows("wide") == 5874
+    assert sorted(os.listdir(tmp_path / "ds")) == ["sample", "wide"]
+
+
+def test_dataset_writer_holds_one_batch_at_a_time(tmp_path):
+    """64 batches of 100,000 float32 rows: the writer's peak traced
+    memory stays under 4 batches' bytes (a whole-output writer holds all
+    64, twice at close)."""
+    import tracemalloc
+
+    batch = np.random.default_rng(0).random(100_000, dtype=np.float32)
+    cat = Catalog(str(tmp_path / "c.sqlite"), str(tmp_path / "ds"))
+    np.ma.MaskedArray  # numpy.ma loads on first use; load it outside
+    tracemalloc.start()
+    try:
+        with cat.dataset_writer("big") as w:
+            for _ in range(64):
+                w.write_batch({"x": batch})
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < 4 * batch.nbytes, peak
+    stored = np.load(tmp_path / "ds" / "big" / "c0.npy", mmap_mode="r")
+    assert stored.shape == (6_400_000,) and stored.dtype == np.float64
+    np.testing.assert_array_equal(stored[-100_000:], batch)
+
+
 @pytest.mark.parametrize("cells", [
     ["1", "0", "-7", " 5"], ["+5", "6"], ["1e5", ".5", "-inf"],
     ["1", "0", "true"], ["True", "FALSE", "NA"], ["NA", "x", ""],

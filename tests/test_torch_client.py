@@ -337,13 +337,18 @@ def test_routes_the_port_lacks_answer_through_the_client_as_the_server(
     _, _, servers = runs
     ctx = port_client.Context(servers[1].base_url)
     for call, status in ((lambda: ctx.health(), 404),
-                         (lambda: ctx.trace("cnn_t"), 404),
-                         (lambda: ctx.model_tensorflow.create(
-                             "tf", "tensorflow.keras.models", "load_model",
-                             {"path": "/m.keras"}), 406)):
+                         (lambda: ctx.trace("cnn_t"), 404)):
         with pytest.raises(port_client.ApiError) as err:
             call()
         assert err.value.status == status
+    # the tensorflow shim's load_model is accepted as in the JAX package;
+    # its job fails on the missing file
+    assert ctx.model_tensorflow.create(
+        "tf", "tensorflow.keras.models", "load_model",
+        {"path": "/m.keras"}) == "/api/learningOrchestra/v1/model/tensorflow/tf"
+    servers[1].api.ctx.jobs.wait("tf", timeout=60)
+    tf_doc = ctx.model_tensorflow.read("tf")["result"][-1]
+    assert tf_doc["exception"].startswith("FileNotFoundError")
     observed = ctx.observe("titanic", seq=0, timeout=1)
     assert observed["metadata"]["finished"] and observed["changes"]
     assert {"seq"} == set(ctx._http.request(

@@ -5,10 +5,12 @@ layers, the sweeps, the client, the sandbox, the function service, the
 lint, the Builder, its estimators and the booster core's binding among
 them) loads
 neither JAX, flax nor any module of the JAX package, nor pandas,
-pyarrow, dill, msgpack, sklearn, matplotlib or seaborn (the card's
-machine has none of the first four, and the others only where they
-happen to be installed: the explore route imports matplotlib and
-seaborn inside its job), and
+pyarrow, dill, msgpack, sklearn, matplotlib, seaborn, h5py, keras,
+tensorflow or tf_keras (the card's machine has none of the first four,
+and the others only where they happen to be installed: the explore route
+imports matplotlib and seaborn inside its job, the keras readers and
+writers h5py and keras inside the calls that need them), the tensorflow
+shim's layers, optimizers and losses load no torch, and
 ``chip_smoke.py`` refuses to run without a card."""
 
 import os
@@ -25,7 +27,8 @@ import importlib, pkgutil, sys
 # the card's machine lacks these: any import of one fails here (torch's
 # own optional imports of them tolerate that)
 for absent in ("pandas", "pyarrow", "dill", "msgpack", "sklearn",
-               "matplotlib", "seaborn"):
+               "matplotlib", "seaborn", "h5py", "keras", "tensorflow",
+               "tf_keras"):
     sys.modules[absent] = None
 import learningorchestra_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
@@ -36,7 +39,8 @@ bad = sorted(m for m, mod in sys.modules.items() if mod is not None
                                      "learningorchestra_tpu", "pandas",
                                      "pyarrow", "dill", "msgpack",
                                      "sklearn", "matplotlib",
-                                     "seaborn"))
+                                     "seaborn", "h5py", "keras",
+                                     "tensorflow", "tf_keras"))
 print(len(names), bad)
 """
 
@@ -95,6 +99,15 @@ def test_new_modules_are_among_those_probed():
             "learningorchestra_tpu_torch.models.estimators",
             "learningorchestra_tpu_torch.native",
             "learningorchestra_tpu_torch.native.hgb",
+            "learningorchestra_tpu_torch.models.tf_bundle",
+            "learningorchestra_tpu_torch.models.weights_io",
+            "learningorchestra_tpu_torch.models.tf_compat",
+            "learningorchestra_tpu_torch.models.tf_compat.keras",
+            "learningorchestra_tpu_torch.models.tf_compat.keras.layers",
+            "learningorchestra_tpu_torch.models.tf_compat.keras.losses",
+            "learningorchestra_tpu_torch.models.tf_compat.keras.optimizers",
+            "learningorchestra_tpu_torch.models.tf_compat.keras.models",
+            "learningorchestra_tpu_torch.models.tf_compat.keras.applications",
             } <= names
 
 
@@ -115,6 +128,29 @@ def test_client_and_sandbox_import_without_torch():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]"
+
+
+_SHIM = """
+import sys
+import learningorchestra_tpu_torch.models.tf_compat as tensorflow
+from learningorchestra_tpu_torch.models.tf_compat.keras import (
+    layers, losses, optimizers)
+specs = [layers.Dense(16).config, optimizers.Adam(0.05).spec,
+         losses.SparseCategoricalCrossentropy.spec,
+         tensorflow.keras.layers.Conv2D(4).config["kind"]]
+print(sorted(m for m in ("torch", "numpy") if m in sys.modules), len(specs))
+"""
+
+
+def test_the_shim_specs_import_no_torch():
+    """``tensorflow``, ``tensorflow.keras`` and its layers, optimizers and
+    losses load neither torch nor numpy (a ``#`` expression builds them in
+    the sandbox's child, which pays no torch import for it)."""
+    out = subprocess.run([sys.executable, "-c", _SHIM], cwd=ROOT,
+                         env=_env(), capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[] 4"
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -1,13 +1,14 @@
 """The port's sandbox (``learningorchestra_tpu_torch/services/sandbox.py``)
 against the escapes ``tests/test_sandbox_jail.py`` holds the JAX jail to,
 each in the mode that test covers, plus what the port adds: ``import jax``
-and ``import tensorflow`` are refused with their messages, a child that
-imports torch sees no card, the store is unreadable from the jail, and the
-AST lint gives the JAX lint's findings for the code both packages take.
+is refused with its message and ``import tensorflow`` is the port's shim,
+a child that imports torch sees no card, the store is unreadable from the
+jail, and the AST lint gives the JAX lint's findings for the code both
+packages take.
 
-The cases that need the JAX package's tensorflow shim (``#`` expressions
-that build its optimizer specs) are left out: the port refuses
-``tensorflow`` until that shim is ported.
+The cases of the tensorflow shim's ``#`` spec objects (their crossing of
+the subprocess boundary, the result unpickler's class allowlist) are in
+``tests/test_torch_keras.py``.
 """
 
 import dataclasses
@@ -217,13 +218,20 @@ def test_jax_and_tensorflow_imports_are_refused_with_their_messages(
     with pytest.raises(ImportError,
                        match="'jax' is not allowed in sandboxed code"):
         _run("import jax\nresponse = 1", cfg, mode=mode, lint=False)
-    for stmt in ("import tensorflow", "from tensorflow import keras",
-                 "import keras"):
-        with pytest.raises(ImportError, match="not yet ported to the "
-                                              "PyTorch package"):
-            _run(f"{stmt}\nresponse = 1", cfg, mode=mode, lint=False)
-    with pytest.raises(code_lint.LintRejected, match="not yet ported"):
-        _run("import tensorflow\nresponse = 1", cfg, mode=mode)
+    # tensorflow and keras are the port's shim, as the JAX package maps
+    # them to its own
+    for stmt, name in (("import tensorflow", "tensorflow.__version__"),
+                       ("from tensorflow import keras",
+                        "keras.layers.Dense(3).config['units']"),
+                       ("import keras", "keras.losses.MeanSquaredError.spec"),
+                       ("import tensorflow.keras.layers",
+                        "tensorflow.keras.layers.Flatten().config['kind']")):
+        g, _ = _run(f"{stmt}\nresponse = {name}", cfg, mode=mode)
+        assert g["response"] == {
+            "import tensorflow": "2.0-learningorchestra-torch",
+            "from tensorflow import keras": 3,
+            "import keras": "mean_squared_error",
+            "import tensorflow.keras.layers": "flatten"}[stmt]
 
 
 def test_child_that_imports_torch_sees_no_card(cfg):
@@ -426,6 +434,8 @@ LINT_CASES = {
     "dynamic name": "getattr((), '__cl' + 'ass__')",
     "allowed imports": "import pandas, sklearn.linear_model, scipy\n"
                        "from collections import OrderedDict",
+    "shim imports": "import tensorflow\nimport keras.layers\n"
+                    "from tensorflow.keras import optimizers",
 }
 
 
@@ -439,13 +449,13 @@ def test_lint_findings_equal_the_jax_lint(case, mode):
 
 
 def test_lint_refuses_what_the_port_cannot_import():
-    """``torch`` passes where ``jax`` and ``tensorflow`` do not (the JAX
-    lint passes ``jax`` and the shim's ``tensorflow``)."""
+    """``torch`` and the shim's ``tensorflow`` pass where ``jax`` does
+    not (the JAX lint passes ``jax`` and its own shim's ``tensorflow``)."""
     rules = {n: [f.rule for f in code_lint.lint_code(f"import {n}")]
              for n in ("torch", "learningorchestra_tpu_torch.models",
                        "jax", "tensorflow", "learningorchestra_tpu")}
     assert rules == {"torch": [], "learningorchestra_tpu_torch.models": [],
                      "jax": ["forbidden-import"],
-                     "tensorflow": ["forbidden-import"],
+                     "tensorflow": [],
                      "learningorchestra_tpu": ["forbidden-import"]}
     assert [f.rule for f in jax_lint.lint_code("import jax")] == []
