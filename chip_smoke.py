@@ -258,7 +258,7 @@
    its declared input is a 406 with ``shape-mismatch`` and leaves no
    collection, a good one is a 201 whose ``/train`` document carries the
    heuristic ``footprint``; (e) no flash kernel launches in the phase.
-14. The job lifecycle (the ``lifecycle`` line, last): the tutorial LM's
+14. The job lifecycle (the ``lifecycle`` line, before ``observe``): the tutorial LM's
    bf16 fit over REST cancelled after its first step (ended
    ``cancelled`` within 2 steps' time plus 0.5 s) and one with ``"timeout":
    2`` (``timedOut``); the card memory at the start of the job queued
@@ -274,11 +274,37 @@
    unfinished projection failed with ``InterruptedError``; the gateway's
    504 at ``LO_REQUEST_TIMEOUT`` 0.5 on a slow read whose dispatch runs
    on to its end.
+15. The observability plane (the ``observe`` line, last), through the
+   REST routes: (a) a checkpointed REST ``/train`` of the tutorial LM in
+   bf16 (the training path's 8 steps): the span tree (``submit`` over
+   ``validate`` and ``preflight``; ``job`` over ``queueWait``,
+   ``leaseWait`` and ``attempt``, which holds ``dataLoad``, two
+   ``epoch``, two ``checkpointCommit`` and ``artifactSave``), two
+   timeline windows with the roofline fields, the perf report matched to
+   the H100 row (989.4 TFLOP/s), ``mfu`` in [0.02, 0.10], the FLOPs a
+   step the window implies at least the analytic floor, and exactly the
+   pipeline fit's 128 launches of each sm90 kernel; (c) during that fit,
+   with a float32 slot session resident, the memory report lists
+   ``train-state``, ``serving-params`` and ``kv-cache`` against the torch
+   allocator's bytes in use (the unattributed share recorded); (d) under
+   ``serving_step`` latency faults, ``servingP99`` (50 ms, windows 1 s
+   and 2 s) pages, ``/healthz`` answers 503, a bundle with every section
+   (a 1 s torch-profiler window among them) and no collector error
+   downloads as a tar, and once the fault clears the alert resolves and
+   ``/healthz`` answers 200; (e) ``POST /profile`` around two predicts:
+   the Chrome trace holds ``flash_fwd_tf32x3`` kernel events; (b)
+   ``/metrics`` as JSON and Prometheus text carries the roofline gauges,
+   the latency histograms and the gateway's series; (f) the bf16 fit's
+   median step with ``LO_TRACE``, ``LO_PERF``, ``LO_XRAY`` and
+   ``LO_MONITOR`` all on (a 1 s tick) within 3% of all off, in 8 job
+   windows of 2 epochs of 8 steps (on, off, off, on, ...) after a fit of
+   first use, and the tutorial CNN's ratio recorded.
 
 The kernel launch counts are zeroed just before each path and read
 just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
 keras``, ``--only function``, ``--only transform``, ``--only builder``,
-``--only lifecycle``, or several, comma-separated) builds the kernels
+``--only lifecycle``, ``--only observe``, or several, comma-separated)
+builds the kernels
 and runs that phase alone (to iterate on it), printing its line and no
 result line.
 
@@ -5356,6 +5382,467 @@ def lifecycle_phase(torch, log, home, yard):
     return paths
 
 
+# ----------------------------------------------------------------------
+# the observability plane (docs/OBSERVABILITY.md) on the card
+# the bf16 fit's plane-cost windows: alternating on/off, each a job of
+# COST_EPOCHS epochs of 8 steps (twice the training path's windows: an
+# epoch's mean over 8 steps, 8 epochs a side, keeps the medians' noise
+# well under the 3% gate)
+COST_WINDOWS, COST_EPOCHS, COST_LM_WINDOWS = 8, 2, 128
+# the tutorial CNN's cost windows (host-bound: recorded, not gated)
+COST_CNN_WINDOWS, COST_CNN_ROWS, COST_CNN_BATCH = 4, 8192, 256
+# the float32 slot session's prompts and decode length
+OBS_PROMPT, OBS_NEW = 256, 8
+# the plane's knobs of docs/OBSERVABILITY.md "CI gate"
+PLANE_ENV = ("LO_PERF", "LO_XRAY")
+
+
+def _raw(base, path, method="GET", body=None):
+    """``(status, bytes, content type)`` of ``path`` (no API prefix)."""
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data, method=method)
+    req.add_header("Content-Type", "application/json")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            return resp.status, resp.read(), resp.headers["Content-Type"]
+    except urllib.error.HTTPError as err:
+        return err.code, err.read(), err.headers["Content-Type"]
+
+
+def _span_index(tree) -> dict:
+    """name -> list of (span, parent span name) over a span tree."""
+    out: dict = {}
+
+    def walk(span, parent):
+        out.setdefault(span["name"], []).append((span, parent))
+        for child in span["children"]:
+            walk(child, span["name"])
+
+    for root in tree["spans"]:
+        walk(root, None)
+    return out
+
+
+def _plane(ctx, on: bool):
+    """Turns the plane's knobs (LO_TRACE, LO_PERF, LO_XRAY, LO_MONITOR)
+    all on or all off; returns the monitor started (at the production
+    tick of 1 s), or None."""
+    from learningorchestra_tpu_torch.services import context as context_mod
+
+    ctx.config.trace = on
+    for key in PLANE_ENV:
+        os.environ[key] = "1" if on else "0"
+    if not on:
+        return None
+    ctx.config.monitor_interval_ms = 1000.0
+    return context_mod._start_monitor(ctx)
+
+
+def _cost_windows(ctx, fit, windows: int, prefix: str) -> dict:
+    """Runs ``fit()`` (a list of step seconds, one an epoch) as jobs in
+    windows alternating on, off, off, on (so a drift over the run weighs
+    on both sides alike); the median step seconds of each side and their
+    ratio."""
+    steps = {True: [], False: []}
+    for i in range(windows):
+        on = i % 4 in (0, 3)
+        monitor = _plane(ctx, on)
+        name = f"{prefix}{i}"
+        ctx.catalog.create_collection(name, "train/tensorflow", {})
+        try:
+            records = ctx.jobs.submit(name, fit, needs_card=True).result()
+        finally:
+            if monitor is not None:
+                monitor.stop()
+        if not records:
+            raise AssertionError(f"cost window {name} failed: "
+                                 f"{ctx.catalog.get_documents(name)[-1]}")
+        steps[on] += records
+    _plane(ctx, True)
+    median = {k: sorted(v)[len(v) // 2] for k, v in steps.items()}
+    return {"stepSecondsOn": steps[True], "stepSecondsOff": steps[False],
+            "medianStepSecondsOn": median[True],
+            "medianStepSecondsOff": median[False],
+            "ratio": median[True] / median[False]}
+
+
+def observe_phase(torch, log, home, yard):
+    """The observability plane on the card, through the REST routes a
+    user reads: (a) a checkpointed REST ``/train`` of the tutorial LM at
+    full width in bf16 (the training path: 2 epochs of 4 steps of 2
+    micro-batches of 8 x 2048 tokens) — the span tree, two timeline
+    windows with the roofline fields, the perf report against the H100
+    row (989.4 TFLOP/s), ``mfu`` in [0.02, 0.10] and exactly the
+    pipeline fit's 128 launches of each sm90 kernel; (c) the X-ray
+    report during that fit, with a float32 slot session resident; (d) a
+    ``servingP99`` page under a ``serving_step`` latency fault: both
+    windows breach, ``/healthz`` 503, an incident bundle with every
+    section (a torch-profiler window among them) and no collector error,
+    downloadable as a tar, then resolved and 200; (e) ``POST /profile``
+    around two predicts: the Chrome trace's device events include the
+    ``flash_fwd_tf32x3`` kernel; (b) ``/metrics`` as JSON and
+    Prometheus; (f) the plane's cost on the bf16 fit's median step (all
+    knobs on against all off, alternating windows, under 3%) and on the
+    tutorial CNN's (recorded), each after one fit of first use. Returns
+    the launches of (a) to (e) (``observe``) and of the cost windows and
+    their first-use fit (``observeCost``)."""
+    import io
+    import tarfile
+
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services import faults
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    for key in PLANE_ENV:
+        os.environ[key] = "1"
+    phase_t0 = time.monotonic()
+    x = _successor_windows(np, TRAIN_WINDOWS, TRAIN_SEQ, seed=0)
+    events = os.path.join(home, "events.jsonl")
+    ctx = ServiceContext(Config(
+        home=os.path.join(home, "lo"), monitor_interval_ms=100.0,
+        slo_serving_p99_ms=50.0, slo_fast_window_s=1.0,
+        slo_slow_window_s=2.0, event_log=events, incident_profile_s=1.0),
+        device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    steps = TRAIN_EPOCHS * TRAIN_WINDOWS // TRAIN_BATCH
+    out: dict = {}
+    launches: dict = {}
+
+    def post(path, body, want=201):
+        status, answer = _http(base, "POST", path, body)
+        if status != want:
+            raise AssertionError(f"POST {path}: {status} {answer}")
+        return answer
+
+    def get(path, want=200):
+        status, answer = _http(base, "GET", path)
+        if status != want:
+            raise AssertionError(f"GET {path}: {status} {answer}")
+        return answer
+
+    def predict(n: int) -> list:
+        return [post("/serve/obs_srv/predict", {
+            "prompt": [int(t) for t in x[i % TRAIN_WINDOWS, :OBS_PROMPT]],
+            "maxNewTokens": OBS_NEW}, 200) for i in range(n)]
+
+    try:
+        ctx.artifacts.save({"tokens": x}, "corpus", "function/python")
+        ctx.catalog.create_collection("corpus", "function/python", {})
+        ctx.catalog.mark_finished("corpus")
+        post("/model/tensorflow", {
+            "modelName": "obs_lm",
+            "modulePath": "learningorchestra_tpu.models",
+            "class": "LanguageModel", "classParameters": LM_CONFIG})
+        _poll(base, "/model/tensorflow/obs_lm")
+        # a resident float32 slot session of the tutorial LM (seeded
+        # weights; the split-TF32 forward kernel on its prefills)
+        served = LanguageModel(**LM_CONFIG, device="cuda")
+        served.set_params(weights.params_from_flax(
+            weights.init_params(LM_CONFIG, seed=1)))
+        ctx.artifacts.save(served, "obs_srv", "train/tensorflow")
+        del served
+        post("/serve/obs_srv", {"type": "lm", "maxSlots": 4,
+                                "cacheLen": 2 * OBS_PROMPT,
+                                "temperature": 0.0})
+
+        # (a) + (c): the checkpointed REST fit, the memory report read
+        # while it runs
+        _reset_launches(attn)
+        post("/train/tensorflow", {
+            "name": "obs_t", "modelName": "obs_lm", "method": "fit",
+            "methodParameters": {"x": "$corpus.tokens",
+                                 "batch_size": TRAIN_BATCH,
+                                 "epochs": TRAIN_EPOCHS,
+                                 "grad_accum": TRAIN_ACCUM,
+                                 "checkpoint": True}})
+        memory = None
+        deadline = time.monotonic() + 600
+        while time.monotonic() < deadline:
+            report = get("/observability/memory")
+            if report["owners"].get("train-state"):
+                memory = report
+                break
+            if ctx.catalog.get_metadata("obs_t").get("finished"):
+                break
+            time.sleep(0.05)
+        meta = _poll(base, "/train/tensorflow/obs_t")
+        fit_launches = _launches(attn)
+        need = LM_CONFIG["n_layers"] * steps * TRAIN_ACCUM
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update(flash_fwd_sm90=need, flash_bwd_dq_sm90=need,
+                    flash_bwd_dkv_sm90=need)
+        if fit_launches != want:
+            raise AssertionError(f"the observed fit launched {fit_launches}"
+                                 f", want the pipeline fit's {want}")
+        tree = get("/observability/trace/obs_t")
+        spans = _span_index(tree)
+        parents = {"submit": None, "validate": "submit",
+                   "preflight": "submit", "job": None, "queueWait": "job",
+                   "leaseWait": "job", "attempt": "job",
+                   "dataLoad": "attempt", "epoch": "attempt",
+                   "checkpointCommit": "attempt",
+                   "artifactSave": "attempt"}
+        counts = {"epoch": TRAIN_EPOCHS, "checkpointCommit": TRAIN_EPOCHS}
+        for name, parent in parents.items():
+            found = spans.get(name, [])
+            if len(found) != counts.get(name, 1) or any(
+                    p != parent for _, p in found):
+                raise AssertionError(
+                    f"span {name}: {[(s['spanId'], p) for s, p in found]}"
+                    f" (want {counts.get(name, 1)} under {parent}); "
+                    f"tree {json.dumps(tree)[:2000]}")
+        timeline = get("/observability/timeline/obs_t")
+        windows = timeline["timeline"]
+        if len(windows) != TRAIN_EPOCHS or any(
+                "mfu" not in w or "tflopsPerSecPerChip" not in w
+                for w in windows):
+            raise AssertionError(f"timeline {timeline}")
+        perf = get("/observability/perf/obs_t")
+        platform = perf["platform"]
+        if "H100" not in platform.get("peakSource", "") or \
+                platform["peakTflopsPerChip"] != 989.4:
+            raise AssertionError(f"platform row {platform}")
+        mfu = perf["perf"]["mfu"]
+        if not 0.02 <= mfu <= 0.10:
+            raise AssertionError(f"mfu {mfu} outside [0.02, 0.10]: the "
+                                 f"count, the peak or the window is wrong")
+        # the FLOPs per step the report implies, against the JAX floor
+        # (6 x matmul params x tokens + 6 L s^2 d per window)
+        lm = ctx.artifacts.load("obs_t")
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        floor = 6.0 * (lm.num_params() - lm.vocab_size * lm.d_model) * \
+            tokens + 6.0 * lm.n_layers * TRAIN_BATCH * TRAIN_SEQ ** 2 * \
+            lm.d_model
+        epoch_s = windows[-1]["dtSeconds"]
+        implied = windows[-1]["tflopsPerSecPerChip"] * 1e12 * epoch_s / \
+            (steps // TRAIN_EPOCHS)
+        if implied < 0.99 * floor:
+            raise AssertionError(f"the window implies {implied:.4g} FLOPs "
+                                 f"a step, under the floor {floor:.4g}")
+        del lm
+        if memory is None:
+            raise AssertionError("the memory report never listed the "
+                                 "fit's train-state")
+        owners = memory["owners"]
+        if not all(owners.get(o) for o in ("train-state", "serving-params",
+                                           "kv-cache")) or \
+                memory["bytesSource"] != "torchAllocator" or \
+                not memory["bytesInUse"]:
+            raise AssertionError(f"memory report {memory}")
+        out["fit"] = {
+            "losses": [w.get("loss") for w in windows],
+            "epochSeconds": [w["dtSeconds"] for w in windows],
+            "mfu": [w["mfu"] for w in windows],
+            "tflopsPerSecPerChip": [w["tflopsPerSecPerChip"]
+                                    for w in windows],
+            "flopsPerStepFloor": floor, "flopsPerStepImplied": implied,
+            "impliedOverFloor": implied / floor,
+            "platform": platform, "perf": perf["perf"],
+            "spans": {k: len(v) for k, v in spans.items()},
+            "peakHbmBytes": meta.get("peakHbmBytes"),
+            "checkpointCommitSeconds": meta.get("checkpointCommitSeconds"),
+            "launches": fit_launches}
+        out["xray"] = {
+            "owners": owners, "bytesInUse": memory["bytesInUse"],
+            "bytesReserved": memory["bytesReserved"],
+            "attributedDeviceBytes": memory["attributedDeviceBytes"],
+            "unattributedBytes": memory["unattributedBytes"],
+            "unattributedShare": memory["unattributedBytes"] /
+            max(1, memory["bytesInUse"])}
+
+        # (d) the servingP99 page, its bundle, its resolution
+        predict(2)  # first use of the session's prefill shapes
+        ctx.config.fault_inject = "serving_step:100000:latency:0.25"
+        faults.reset()
+        # two clients keep requests landing while /healthz is polled (a
+        # page resolves once a fast window passes with no slow request)
+        stop = threading.Event()
+
+        def load():
+            while not stop.is_set():
+                predict(1)
+
+        clients = [threading.Thread(target=load, daemon=True)
+                   for _ in range(2)]
+        for client in clients:
+            client.start()
+        t0 = time.monotonic()
+        fired = None
+        try:
+            while time.monotonic() - t0 < 60:
+                status, body, _ = _raw(base, "/healthz")
+                if status == 503:
+                    fired = json.loads(body)
+                    break
+                time.sleep(0.05)
+        finally:
+            stop.set()
+            for client in clients:
+                client.join(timeout=60)
+        if fired is None or not any(a["name"] == "servingP99"
+                                    for a in fired.get("alerts", [])):
+            raise AssertionError(f"/healthz never paged: {fired}")
+        fire_s = time.monotonic() - t0
+        bundle = None
+        deadline = time.monotonic() + 60
+        while time.monotonic() < deadline and bundle is None:
+            listed = get("/observability/incidents")["result"]
+            bundle = next((b for b in listed
+                           if b["trigger"] == "slo:servingP99"), None)
+            time.sleep(0.2)
+        if bundle is None:
+            raise AssertionError("no slo:servingP99 bundle was captured")
+        manifest = get(f"/observability/incidents/{bundle['id']}")
+        sections = ("cluster.json", "alerts.json", "memory.json",
+                    "perf.json", "metrics.json", "eventlog.tail",
+                    "config.json", "versions.json", "profile/trace.json")
+        missing = [s for s in sections if s not in manifest["files"]]
+        if missing or manifest["errors"]:
+            raise AssertionError(f"bundle sections missing {missing}, "
+                                 f"errors {manifest['errors']}")
+        status, tar_bytes, ctype = _raw(
+            base, f"{PREFIX}/observability/incidents/{bundle['id']}"
+                  f"/download")
+        with tarfile.open(fileobj=io.BytesIO(tar_bytes)) as tar:
+            members = tar.getnames()
+        if status != 200 or ctype != "application/x-tar" or not all(
+                m.startswith(bundle["id"]) for m in members):
+            raise AssertionError(f"bundle download {status} {ctype}")
+        ctx.config.fault_inject = ""
+        t0 = time.monotonic()
+        while time.monotonic() - t0 < 30:
+            if _raw(base, "/healthz")[0] == 200:
+                break
+            time.sleep(0.1)
+        else:
+            raise AssertionError("/healthz stayed 503 after the fault")
+        resolve_s = time.monotonic() - t0
+        history = get("/observability/alerts")["history"]
+        transitions = [h["transition"] for h in history
+                       if h["name"] == "servingP99"]
+        if transitions[-2:] != ["firing", "resolved"]:
+            raise AssertionError(f"servingP99 transitions {transitions}")
+        out["slo"] = {"fireSeconds": fire_s, "resolveSeconds": resolve_s,
+                      "alert": fired["alerts"], "transitions": transitions,
+                      "bundle": {"id": bundle["id"],
+                                 "totalBytes": manifest["totalBytes"],
+                                 "files": len(manifest["files"]),
+                                 "tarMembers": len(members),
+                                 "profileBytes": manifest["notes"].get(
+                                     "profileBytes")}}
+
+        # (e) POST /profile around two predicts
+        started = post("/profile", {"action": "start"})
+        predict(2)
+        stopped = post("/profile", {"action": "stop"}, 200)
+        with open(os.path.join(stopped["result"], "trace.json")) as f:
+            chrome = json.load(f)
+        kernels = [e for e in chrome.get("traceEvents", [])
+                   if e.get("cat") == "kernel"]
+        flash = [e for e in kernels if "flash_fwd_tf32x3" in e["name"]]
+        if not flash:
+            raise AssertionError(
+                f"the profiler saw no flash_fwd_tf32x3 kernel among "
+                f"{sorted({e['name'][:60] for e in kernels})[:20]}")
+        out["profile"] = {"dir": started["result"],
+                          "files": stopped["files"],
+                          "kernelEvents": len(kernels),
+                          "flashFwdTf32x3Events": len(flash),
+                          "flashFwdTf32x3Us": sum(e.get("dur", 0)
+                                                  for e in flash)}
+
+        # (b) /metrics as JSON and as Prometheus text
+        status, body, _ = _raw(base, "/metrics")
+        metrics = json.loads(body)
+        hists = metrics["latencyHistograms"]
+        for key in ("lo_serving_request_seconds", "lo_dispatch_seconds",
+                    "lo_lease_wait_seconds", "lo_checkpoint_commit_seconds"):
+            if not hists.get(key, {}).get("count"):
+                raise AssertionError(f"/metrics histogram {key}: "
+                                     f"{hists.get(key)}")
+        if "obs_t" not in metrics["perf"]["jobs"] or \
+                "gateway" not in metrics:
+            raise AssertionError(f"/metrics perf {metrics['perf']}")
+        status, text, ctype = _raw(base, "/metrics?format=prometheus")
+        text = text.decode()
+        series = ('lo_mfu{job="obs_t"}', 'lo_tflops_per_chip{job="obs_t"}',
+                  "lo_serving_request_seconds_bucket",
+                  "lo_dispatch_seconds_bucket",
+                  "lo_lease_wait_seconds_bucket",
+                  "lo_checkpoint_commit_seconds_bucket",
+                  "lo_gateway_inflight ", "lo_gateway_saturated_total ",
+                  "lo_abandoned_dispatches ")
+        missing = [s for s in series if s not in text]
+        if missing or not ctype.startswith("text/plain"):
+            raise AssertionError(f"prometheus lacks {missing}")
+        out["metrics"] = {"jsonKeys": sorted(metrics),
+                          "prometheusLines": len(text.splitlines()),
+                          "histogramCounts": {k: v["count"]
+                                              for k, v in hists.items()}}
+        launches["observe"] = _launches(attn)
+        if launches["observe"]["flash_fwd_tf32x3"] < LM_CONFIG["n_layers"]:
+            raise AssertionError(f"the float32 session's prefills launched "
+                                 f"{launches['observe']}")
+        _http(base, "DELETE", "/serve/obs_srv")
+
+        # (f) the plane's cost
+        ctx.monitor.stop()
+        lm = ctx.artifacts.load("obs_t")
+        cost_x = _successor_windows(np, COST_LM_WINDOWS, TRAIN_SEQ, seed=1)
+        per_epoch = COST_LM_WINDOWS // TRAIN_BATCH
+
+        def lm_fit():
+            hist = lm.fit(cost_x, batch_size=TRAIN_BATCH,
+                          epochs=COST_EPOCHS,
+                          grad_accum=TRAIN_ACCUM).history
+            return [s / per_epoch for s in hist["epochSeconds"]]
+
+        _reset_launches(attn)
+        lm_fit()   # first use of the loaded model, outside the windows
+        cost = _cost_windows(ctx, lm_fit, COST_WINDOWS, "cost_lm")
+        launches["observeCost"] = _launches(attn)
+        if cost["ratio"] >= 1.03:
+            raise AssertionError(f"the plane costs the bf16 step "
+                                 f"{(cost['ratio'] - 1) * 100:.2f}%: {cost}")
+        del lm
+        cx, cy = _mnist_like(np, COST_CNN_ROWS, seed=5)
+        cnn = NeuralModel(TUTORIAL_CNN, device="cuda")
+        cnn_steps = COST_CNN_ROWS // COST_CNN_BATCH
+
+        def cnn_fit():
+            hist = cnn.fit(cx, cy, batch_size=COST_CNN_BATCH,
+                           epochs=COST_EPOCHS).history
+            return [s / cnn_steps for s in hist["epochSeconds"]]
+
+        cnn_fit()   # first use, outside the windows
+        cnn_cost = _cost_windows(ctx, cnn_fit, COST_CNN_WINDOWS, "cost_cnn")
+        out["cost"] = {"lmBf16": cost, "cnn": cnn_cost,
+                       "monitorIntervalSeconds": 1.0}
+    except BaseException:
+        # what the phase measured before the failed check
+        log.append("observe (failed) " + json.dumps(out, default=str))
+        raise
+    finally:
+        for key in PLANE_ENV:
+            os.environ[key] = "1"
+        ctx.config.fault_inject = ""
+        server.stop()
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    out["launches"] = launches
+    log.append("observe " + json.dumps(out))
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -5399,7 +5886,7 @@ def main() -> int:
         phases = {"neural": neural_phase, "keras": keras_phase,
                   "function": function_phase,
                   "transform": transform_phase, "builder": builder_phase,
-                  "lifecycle": lifecycle_phase}
+                  "lifecycle": lifecycle_phase, "observe": observe_phase}
         try:
             for name in sys.argv[sys.argv.index("--only") + 1].split(","):
                 with tempfile.TemporaryDirectory() as home:
@@ -5447,6 +5934,8 @@ def main() -> int:
             paths.update(builder_phase(torch, log, home, {}))
         with tempfile.TemporaryDirectory() as home:
             paths.update(lifecycle_phase(torch, log, home, {}))
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(observe_phase(torch, log, home, {}))
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
         # the split-TF32 backward

@@ -3,7 +3,7 @@ AST lint the Function service runs at submit and the sandbox runs before
 it executes code, the shape records (``resultShapes``) a function job
 leaves on its metadata, and the preflight of model, execution and
 builder specs (``check_model``, ``check_execution``, the footprint
-estimate and ``check_builder``, :mod:`.preflight`)."""
+estimate, its calibration and ``check_builder``, :mod:`.preflight`)."""
 
 from learningorchestra_tpu_torch.analysis.findings import (  # noqa: F401
     Finding,
@@ -22,6 +22,7 @@ from learningorchestra_tpu_torch.analysis.code_lint import (  # noqa: F401
 from learningorchestra_tpu_torch.analysis.preflight import (  # noqa: F401
     FOOTPRINT_FIELD,
     RESULT_SHAPES_FIELD,
+    calibrate_footprint,
     check_builder,
     check_execution,
     check_model,

@@ -27,8 +27,11 @@ Rules emitted here (the JAX package's ids):
 
 The footprint (:func:`estimate_footprint`) is the JAX heuristic: param
 bytes times the optimizer multiplier plus two staged batches; XLA's
-``memory_analysis`` has no counterpart here, so ``estimator`` is always
-``"heuristic"``. The JAX package's ``mesh-divisibility`` warning (a
+``memory_analysis`` has no counterpart here, so the static ``estimator``
+is always ``"heuristic"``. Under ``LO_FOOTPRINT_CALIBRATE``
+(:func:`calibrate_footprint`) a repeat execution prefers the peak device
+bytes an earlier one measured (``torch.cuda.max_memory_allocated``,
+``estimator: "measured-peak"``). The JAX package's ``mesh-divisibility`` warning (a
 ``batch_size`` that does not divide the mesh's data-parallel extent)
 has no counterpart: one card's extent is 1, which every batch divides.
 """
@@ -366,6 +369,35 @@ def estimate_footprint(catalog: Any,
         + 2 * batch * feature_bytes
     return {"hbmBytes": int(estimate), "paramBytes": int(param_bytes),
             "estimator": "heuristic"}
+
+
+def calibrate_footprint(footprint: Dict[str, Any],
+                        root_meta: Optional[Dict[str, Any]], method: Any,
+                        config: Any) -> None:
+    """Closed-loop footprint calibration (``LO_FOOTPRINT_CALIBRATE``, the
+    JAX package's ``ExecutionService._calibrate``): stamps the footprint's
+    ``calibrationKey`` (``{model}:{method}``, where the job records its
+    measured peak device bytes) and, when an earlier execution of the
+    same key measured one, prefers it — padded by
+    ``LO_FOOTPRINT_MARGIN``, clamped to one order of magnitude around
+    the static estimate — over the heuristic (``estimator:
+    "measured-peak"``, the estimate kept as ``estimatedHbmBytes``)."""
+    if not getattr(config, "footprint_calibrate", False) or \
+            not isinstance(root_meta, dict):
+        return
+    from learningorchestra_tpu_torch.observability import monitor
+
+    key = f"{root_meta.get(D.NAME_FIELD)}:{method}"
+    footprint["calibrationKey"] = key
+    estimate = footprint.get("hbmBytes")
+    measured = monitor.measured_peak(key)
+    if not measured or not estimate:
+        return
+    footprint["estimatedHbmBytes"] = int(estimate)
+    footprint["hbmBytes"] = monitor.calibrated_hbm_bytes(
+        measured, int(estimate),
+        float(getattr(config, "footprint_margin", 1.25)))
+    footprint["estimator"] = "measured-peak"
 
 
 def check_builder(modeling_code: Any,

@@ -18,10 +18,23 @@ and ``LO_SANDBOX_FILE_BYTES``, the job lifecycle's ``LO_JOB_RETRIES``,
 ``LO_HEALTH_ACTION``, ``LO_HEALTH_SPIKE_FACTOR``, ``LO_HEALTH_EMA_ALPHA``,
 ``LO_HEALTH_MAX_ROLLBACKS``, ``LO_HEALTH_COOLDOWN`` and
 ``LO_HEALTH_RETRIES``, and the gateway's ``LO_GET_CACHE_TTL`` and
-``LO_GATEWAY_MAX_INFLIGHT``). The device is chosen in code only
-(``device=`` or ``--device``). A
-:class:`Config` is an object the caller creates and passes down; there
-is no process-wide singleton.
+``LO_GATEWAY_MAX_INFLIGHT``, and the observability plane's knobs of
+``docs/OBSERVABILITY.md``: ``LO_TRACE``, ``LO_TRACE_RING``,
+``LO_TIMELINE_RING``, ``LO_EVENT_LOG``, ``LO_EVENT_LOG_MAX_BYTES``,
+``LO_TRANSFER_GUARD``, ``LO_MONITOR``, ``LO_MONITOR_INTERVAL_MS``,
+``LO_MONITOR_RING``, the ``LO_SLO_*`` objectives and windows,
+``LO_FOOTPRINT_CALIBRATE``, ``LO_FOOTPRINT_MARGIN``, ``LO_INCIDENTS``,
+``LO_INCIDENT_KEEP``, ``LO_INCIDENT_COOLDOWN_S``,
+``LO_INCIDENT_PROFILE_S``, ``LO_PROFILE_MAX_SECONDS`` and
+``LO_PROFILE_KEEP``; ``LO_PERF``, ``LO_XRAY`` and ``LO_PEAK_*`` are read
+at each call, as in the JAX package). The device is chosen in code only
+(``device=`` or ``--device``). A :class:`Config` is an object the caller
+creates and passes down. The one process-wide reader is the
+observability plane, whose registries are process-wide as the JAX
+package's are: it reads the config the newest
+:class:`~learningorchestra_tpu_torch.services.context.ServiceContext`
+installed (:func:`learningorchestra_tpu_torch.observability.get_config`),
+else one read from the environment.
 """
 
 from __future__ import annotations
@@ -207,6 +220,91 @@ class Config:
     health_retries: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get(
             "LO_HEALTH_RETRIES", "1")))
+
+    # the observability plane (observability/): spans and the step
+    # timeline (LO_TRACE=0 degrades every tracer call to a shared no-op),
+    # spans kept per trace, step windows kept per job
+    trace: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_TRACE", "1") not in ("0", "false", "no"))
+    trace_ring: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get("LO_TRACE_RING", "512")))
+    timeline_ring: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_TIMELINE_RING", "4096")))
+    # the JSONL lifecycle event log ("" = off) and its size bound: at the
+    # bound it rolls to <path>.1 (keep-1); 0 = no rotation
+    event_log: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_EVENT_LOG", ""))
+    event_log_max_bytes: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_EVENT_LOG_MAX_BYTES", str(64 << 20))))
+    # implicit-synchronization sentinel on the train step: "" (off) or
+    # "log" (torch.cuda.set_sync_debug_mode("warn"), each warning counted
+    # and logged); "fail" is refused at context creation (not ported)
+    transfer_guard: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_TRANSFER_GUARD", ""))
+    # the cluster sampler and the SLO watchdog (LO_MONITOR=0: neither)
+    monitor: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_MONITOR", "1") not in ("0", "false", "no"))
+    monitor_interval_ms: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_MONITOR_INTERVAL_MS", "1000")))
+    monitor_ring: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_MONITOR_RING", "600")))
+    # SLO objectives (0 = off) and their fast and slow burn-rate windows
+    slo_serving_p99_ms: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SLO_SERVING_P99_MS", "0")))
+    slo_queue_wait_s: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SLO_QUEUE_WAIT_S", "0")))
+    slo_hbm_headroom_frac: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SLO_HBM_HEADROOM_FRAC", "0")))
+    slo_deadletter_rate: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SLO_DEADLETTER_RATE", "0")))
+    slo_unattributed_growth_bytes: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SLO_UNATTRIBUTED_GROWTH_BYTES", "0")))
+    slo_fast_window_s: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SLO_FAST_WINDOW_S", "10")))
+    slo_slow_window_s: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SLO_SLOW_WINDOW_S", "60")))
+    # footprint calibration: the preflight prefers a job's measured peak
+    # device bytes (times the margin) over its static estimate
+    footprint_calibrate: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_FOOTPRINT_CALIBRATE", "0") not in ("0", "false", "no"))
+    footprint_margin: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_FOOTPRINT_MARGIN", "1.25")))
+    # the incident flight recorder: bundles kept, the per-trigger mute
+    # window, and the seconds of profiler window a serving-latency page
+    # records into its bundle (0 = none)
+    incidents: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_INCIDENTS", "1") not in ("0", "false", "no"))
+    incident_keep: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get("LO_INCIDENT_KEEP", "8")))
+    incident_cooldown_s: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_INCIDENT_COOLDOWN_S", "300")))
+    incident_profile_s: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_INCIDENT_PROFILE_S", "0")))
+    # POST /profile: the auto-stop of a forgotten session (0 = never) and
+    # the trace dirs kept under <home>/profiles
+    profile_max_seconds: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_PROFILE_MAX_SECONDS", "600")))
+    profile_keep: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get("LO_PROFILE_KEEP", "8")))
 
     @property
     def artifacts_dir(self) -> str:

@@ -1033,10 +1033,27 @@ class LanguageModel:
              "remat": self._resolved_remat() if train else "none",
              "return_aux": True})
 
+    def _flops_floor(self, batch) -> float:
+        """Analytic FLOPs of one train step, the JAX package's floor
+        unchanged: 6 per matmul param per token plus the causal
+        attention's quadratic term. The embedding table is excluded (its
+        lookup is a gather, not a matmul; the lm head is a matrix of its
+        own). The hand-written attention kernels are invisible to the
+        FLOP counter, so this floor is what the counted step is raised
+        to."""
+        b, s = batch["x"].shape[:2]
+        matmul_params = self.num_params() - self.vocab_size * self.d_model
+        attn = 6.0 * self.n_layers * b * s * s * self.d_model
+        return 6.0 * max(matmul_params, 0) * b * s + attn
+
     def _get_engine(self) -> engine_lib.Engine:
         if self._engine is None:
             dtype = torch.bfloat16 if Config().compute_dtype == "bfloat16" \
                 else torch.float32
+            flops_key = ("LanguageModel", str(dtype), self._accum,
+                         self._resolved_remat(), self._head_chunk(),
+                         self.num_params(),
+                         repr(sorted(self._config().items())))
             self._engine = engine_lib.Engine(
                 apply_fn=self._apply_fn,
                 loss_fn=next_token_loss(
@@ -1046,7 +1063,8 @@ class LanguageModel:
                 metrics={"accuracy": token_accuracy},
                 compute_dtype=dtype,
                 predict_transform=lambda outputs: outputs[0],
-                grad_accum=self._accum, param_layout=FLAX_LAYOUT)
+                grad_accum=self._accum, param_layout=FLAX_LAYOUT,
+                flops_floor_fn=self._flops_floor, flops_key=flops_key)
         return self._engine
 
     def _set_grad_accum(self, grad_accum: Optional[int]) -> None:

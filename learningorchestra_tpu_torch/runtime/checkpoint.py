@@ -42,6 +42,8 @@ import time
 import warnings
 from typing import Any, Dict, List, Optional
 
+from learningorchestra_tpu_torch.observability import hist as obs_hist
+from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime import serialization
 
@@ -236,8 +238,17 @@ class Checkpointer:
 
     # -- save ------------------------------------------------------------
     def save(self, step: int, tree: Any) -> None:
-        """Commits ``step`` atomically (see the module docstring)."""
+        """Commits ``step`` atomically (see the module docstring). The
+        commit wall clock — the training thread's checkpoint stall — is
+        recorded as a ``checkpointCommit`` span on the current job trace
+        and in the ``lo_checkpoint_commit_seconds`` histogram."""
         t0 = time.monotonic()
+        try:
+            self._save_impl(step, tree, t0)
+        finally:
+            _observe_commit(step, t0)
+
+    def _save_impl(self, step: int, tree: Any, t0: float) -> None:
         parts = _parts(tree)
         final_dir = os.path.join(self._dir, str(step))
         tmp_dir = final_dir + ".tmp"
@@ -357,6 +368,18 @@ class Checkpointer:
         del reraise
 
     def close(self) -> None:
+        pass
+
+
+def _observe_commit(step: int, t0: float) -> None:
+    try:
+        end = time.monotonic()
+        cur = obs_trace.current()
+        if cur is not None:
+            obs_trace.add("checkpointCommit", cur[0], t0, end,
+                          parent=cur[1], step=int(step))
+        obs_hist.observe("lo_checkpoint_commit_seconds", end - t0)
+    except Exception:  # noqa: BLE001 — observability is advisory
         pass
 
 

@@ -36,6 +36,20 @@ engine adds ``"model_state"`` as the JAX engine saves it (``{}``, or
 shuffle is ``default_rng(seed + epoch)``, dropout draws from ``(seed,
 step, micro)`` and the optimizer's count is saved, a resumed fit equals
 an uninterrupted one bit for bit.
+
+Inside a job (a trace open on the thread) each epoch feeds the
+observability plane, as the JAX engine's ``_observe_window`` does: an
+``epoch`` span under the thread's current span, one timeline window, and
+the roofline of the window (``tflopsPerSecPerChip``, and ``mfu`` against
+the card's peak), which also lands in the epoch's record. The FLOPs of a
+step are counted once per batch shape, by running that step under
+``torch.utils.flop_counter.FlopCounterMode``'s counting (as it stands,
+the counter would change the step: :func:`_counted`), and raised to the
+model's analytic floor (``flops_floor_fn``): the hand-written attention
+kernels are as opaque to the counter as ``pallas_call`` is to XLA's
+cost analysis. torch has no bytes-accessed count, so a train window's
+roofline carries no bandwidth fields. The train state is ledgered under
+the X-ray owner ``train-state`` for the fit.
 """
 
 from __future__ import annotations
@@ -49,6 +63,10 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from learningorchestra_tpu_torch.observability import perf as obs_perf
+from learningorchestra_tpu_torch.observability import timeline as obs_timeline
+from learningorchestra_tpu_torch.observability import trace as obs_trace
+from learningorchestra_tpu_torch.observability import xray as obs_xray
 from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime import preempt
 from learningorchestra_tpu_torch.runtime.data import MASK_KEY, ArrayBatcher
@@ -57,6 +75,11 @@ from learningorchestra_tpu_torch.runtime.health import (HealthPolicy,
 
 Params = Dict[str, torch.Tensor]
 Metrics = Dict[str, Tuple[torch.Tensor, torch.Tensor]]  # name -> (sum, count)
+
+# measured FLOPs per step, by (the model's flops_key, batch shapes): a
+# repeat fit of the same model and shapes (a new engine per REST job)
+# skips the counted step
+_FLOPS_CACHE: Dict[Any, float] = {}
 
 
 @dataclasses.dataclass
@@ -234,6 +257,62 @@ def _armed_nan() -> bool:
     return faults.maybe_nan("engine_step")
 
 
+_COUNT_MODE: list = []
+
+
+def _count_mode():
+    """``FlopCounterMode``'s dispatch mode, counting each op as it runs
+    and changing none. As it stands the counter would change the step:
+    its module tracker's gradient hooks reorder the backward's
+    accumulation (and trip ``autograd.grad`` on leaf inputs), and it runs
+    the decomposition of every op it has no formula for (``silu``'s
+    backward among them) in place of the op's kernel. So the tracker is
+    left out and nothing is decomposed: the counted step is bit-equal to
+    an uncounted one."""
+    if not _COUNT_MODE:
+        from torch.utils import flop_counter
+
+        class CountMode(flop_counter._FlopCounterMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                if isinstance(func, torch._ops.HigherOrderOperator):
+                    return super().__torch_dispatch__(func, types, args,
+                                                      kwargs)
+                kwargs = kwargs or {}
+                out = func(*args, **kwargs)
+                try:
+                    self.counter._count_flops(func._overloadpacket, out,
+                                              args, kwargs)
+                except Exception:  # noqa: BLE001 — a formula that cannot
+                    pass  # take this call (bmm's out_dtype) counts 0
+                return out
+
+        _COUNT_MODE.append(CountMode)
+    return _COUNT_MODE[0]
+
+
+def _counted(fn: Callable[[], Any]) -> Tuple[Any, float]:
+    """``(fn(), FLOPs it ran)`` (:func:`_count_mode`). A counter that
+    cannot start or finish counts 0; ``fn`` runs either way."""
+    try:
+        from torch.utils import flop_counter
+
+        counter = flop_counter.FlopCounterMode(display=False)
+        mode = _count_mode()(counter)
+        mode.__enter__()
+    except Exception:  # noqa: BLE001 — accounting never sinks a fit
+        return fn(), 0.0
+    flops = 0.0
+    try:
+        out = fn()
+    finally:
+        try:
+            mode.__exit__(None, None, None)
+            flops = float(counter.get_total_flops())
+        except Exception:  # noqa: BLE001
+            flops = 0.0
+    return out, flops
+
+
 def _step_seed(seed: int, step: int, micro: int) -> int:
     """The random stream of one micro-batch of one step: the port's
     counterpart of ``fold_in(fold_in(PRNGKey(seed), step), micro)``."""
@@ -254,12 +333,17 @@ class Engine:
                  predict_transform: Optional[Callable] = None,
                  grad_accum: int = 1,
                  param_layout: Optional[Tuple[Callable, Callable]] = None,
-                 stateful: bool = False):
+                 stateful: bool = False,
+                 flops_floor_fn: Optional[Callable] = None,
+                 flops_key: Any = None):
         """``param_layout`` is ``(to_tree(params, leaf), path(name))``:
         the saved layout of a dict of params (``leaf(tensor,
         transposed)`` makes each value) and the saved path of one
         param with whether it is stored transposed; by default the
-        params are saved by name as they are."""
+        params are saved by name as they are. ``flops_floor_fn(batch)``
+        is the model's analytic FLOPs of one train step, the floor of
+        the counted ones; ``flops_key`` (hashable) names the model's
+        configuration in the process-wide FLOPs cache."""
         self._apply_fn = apply_fn
         self._loss_fn = loss_fn
         self._optimizer = optimizer
@@ -273,6 +357,12 @@ class Engine:
         self._health_on = False
         self._health_skip = False
         self._skip_buffers: Optional[List[torch.Tensor]] = None
+        self._flops_floor_fn = flops_floor_fn
+        self._flops_id = flops_key
+        # FLOPs of one train step and the batch shapes they were
+        # measured at
+        self._step_flops: Optional[float] = None
+        self._flops_shape: Any = None
 
     def init_state(self, params: Params,
                    model_state: Optional[Params] = None) -> TrainState:
@@ -405,6 +495,107 @@ class Engine:
                                       torch.ones((), device=bad.device))
         state.step += 1
         return metrics
+
+    # ------------------------------------------------------------------
+    # the observability plane
+    @staticmethod
+    def _shape_key(batch) -> Any:
+        return tuple(sorted((k, tuple(v.shape)) for k, v in batch.items()))
+
+    def _needs_count(self, batch) -> bool:
+        """Whether the next step of ``batch``'s shapes has no FLOPs yet
+        (a process-wide cache hit fills them here)."""
+        key = self._shape_key(batch)
+        if self._step_flops is not None and key == self._flops_shape:
+            return False
+        cached = (_FLOPS_CACHE.get((self._flops_id, key))
+                  if self._flops_id is not None else None)
+        if cached is not None:
+            self._step_flops, self._flops_shape = cached, key
+            return False
+        return True
+
+    def _counted_step(self, state: TrainState, batch, seed: int) -> Metrics:
+        """:meth:`_train_step_body`, counted (:func:`_counted`): the
+        step's FLOPs (forward and backward, every micro-batch) raised to
+        the analytic floor."""
+        key = self._shape_key(batch)
+        metrics, counted = _counted(
+            lambda: self._train_step_body(state, batch, seed))
+        floor = 0.0
+        if self._flops_floor_fn is not None:
+            try:
+                floor = float(self._flops_floor_fn(batch))
+            except Exception:  # noqa: BLE001
+                floor = 0.0
+        self._step_flops = max(counted, floor)
+        self._flops_shape = key
+        if self._flops_id is not None:
+            _FLOPS_CACHE[(self._flops_id, key)] = self._step_flops
+        return metrics
+
+    def _observe_window(self, t0: float, dt: float, steps: int,
+                        record: Dict[str, Any], bad_steps: int, *,
+                        step: int, epoch: int) -> None:
+        """Feed the observability plane once per epoch: the roofline
+        block into ``record``, and inside a job an ``epoch`` span under
+        the thread's current span, one timeline window and the job's
+        perf report. Best-effort: it must never sink a fit."""
+        try:
+            if self._step_flops and steps > 0 and dt > 0:
+                record.update(obs_perf.roofline(
+                    self._step_flops, 0.0, steps, dt, 1))
+            cur = obs_trace.current()
+            if cur is None:
+                return
+            trace_id, parent = cur
+            attrs: Dict[str, Any] = {"epoch": epoch}
+            if record.get("loss") is not None:
+                attrs["loss"] = round(float(record["loss"]), 6)
+            obs_trace.add("epoch", trace_id, t0, t0 + dt, parent=parent,
+                          **attrs)
+            perf_block = {k: record[k] for k in (
+                "mfu", "tflopsPerSecPerChip", "gbPerSecPerChip",
+                "arithmeticIntensity", "hbmBwUtil", "boundBy")
+                if k in record}
+            obs_timeline.record(
+                trace_id, step=step, dt=dt,
+                examples_per_second=record.get("samplesPerSecond", 0.0),
+                loss=record.get("loss"),
+                bad_steps=bad_steps if bad_steps else None,
+                retrace=False, **perf_block)
+            if perf_block:
+                obs_perf.record_job(trace_id, dict(
+                    perf_block, kind="train", epoch=epoch))
+        except Exception:  # noqa: BLE001 — observability is advisory
+            pass
+
+    def _ledger_state(self, state: TrainState) -> None:
+        """Register the train state (params, optimizer slots, model
+        state) in the X-ray ledger under ``train-state``; ``fit``
+        releases it."""
+        try:
+            tensors = list(state.params.values()) + \
+                list(state.model_state.values())
+
+            def walk(value) -> None:
+                if isinstance(value, torch.Tensor):
+                    tensors.append(value)
+                elif isinstance(value, dict):
+                    for v in value.values():
+                        walk(v)
+                elif isinstance(value, (list, tuple)):
+                    for v in value:
+                        walk(v)
+
+            walk(state.opt_state)
+            cur = obs_trace.current()
+            obs_xray.register(
+                "train-state", id(self),
+                sum(t.numel() * t.element_size() for t in tensors),
+                name=cur[0] if cur else None)
+        except Exception:  # noqa: BLE001
+            pass
 
     # ------------------------------------------------------------------
     # the health sentinel
@@ -703,10 +894,12 @@ class Engine:
             if start_epoch >= epochs:
                 return state, []
         self._set_health(policy, state, device)
+        self._ledger_state(state)
         try:
             self._fit_epochs(state, batcher, start_epoch, epochs, seed,
                              checkpointer, log_fn, policy, device, history)
         finally:
+            obs_xray.release("train-state", id(self))
             self._health_on = self._health_skip = False
             self._skip_buffers = None
             self._host_count(state)
@@ -728,6 +921,9 @@ class Engine:
         epoch = start_epoch
         while epoch < epochs:
             t0 = time.perf_counter()
+            mono0 = time.monotonic()
+            steps = 0
+            guarded = obs_xray.transfer_guard_mode() == "log"
             sums: Dict[str, torch.Tensor] = {}
             counts: Dict[str, torch.Tensor] = {}
             rb = sent["rollbacks"]
@@ -745,7 +941,14 @@ class Engine:
                 if poison:
                     batch = _poison_batch(batch)
                     poison = False
-                metrics = self._train_step_body(state, batch, step_seed)
+                if steps == 0 and self._needs_count(batch):
+                    metrics = self._counted_step(state, batch, step_seed)
+                elif guarded:
+                    metrics = obs_xray.guarded_call(
+                        self._train_step_body, state, batch, step_seed)
+                else:
+                    metrics = self._train_step_body(state, batch, step_seed)
+                steps += 1
                 for k, (s, c) in metrics.items():
                     sums[k] = sums[k] + s if k in sums else s
                     counts[k] = counts[k] + c if k in counts else c
@@ -771,6 +974,8 @@ class Engine:
             record.update(epoch=epoch, epochSeconds=round(dt, 4),
                           samplesPerSecond=round(batcher.num_samples / dt,
                                                  2))
+            self._observe_window(mono0, dt, steps, record, bad_steps,
+                                 step=state.step, epoch=epoch)
             history.append(record)
             if checkpointer is not None:
                 self._save_checkpoint(checkpointer, state, epoch)

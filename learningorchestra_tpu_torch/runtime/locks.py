@@ -1,5 +1,5 @@
 """Named, ranked locks (the serving, job, lifecycle, cache, gateway,
-catalog and fault-injection rows of the JAX package's
+catalog, fault-injection and observability rows of the JAX package's
 ``runtime/locks.py`` hierarchy).
 
 :data:`HIERARCHY` ranks every named lock of the port: a thread acquires
@@ -19,6 +19,9 @@ __all__ = ["HIERARCHY", "make_lock", "make_condition"]
 # name -> rank; LOWER rank = acquired FIRST (outermost). Same ranks as
 # the JAX package.
 HIERARCHY: Dict[str, int] = {
+    # the incident capture worker freezes every other subsystem's state
+    # while holding the commit lock, so it ranks below them all
+    "incidents.commit": 10,
     "jobs.manager": 30,            # job registry
     "serving.manager": 50,         # session registry
     "serving.session": 60,         # per-session request cv
@@ -35,6 +38,25 @@ HIERARCHY: Dict[str, int] = {
                                    # called outside it)
     "cache.lru": 180,              # the GET response cache
     "catalog.change": 190,         # catalog change-feed condition
+    # observability
+    "monitor.rings": 200,
+    "monitor.calibration": 210,
+    "slo.alerts": 220,             # fires incident triggers under it
+    "incidents.queue": 230,        # trigger cooldown + counters
+    "incidents.profiler": 240,     # profiler singleton gate
+    "incidents.buildinfo": 250,
+    "incidents.registry": 260,     # process-wide recorder registry
+    "trace.registry": 270,
+    "timeline.registry": 280,
+    "hist.registry": 290,
+    "hist.buckets": 300,
+    "perf.registry": 310,
+    "xray.ledger": 320,
+    "export.log": 330,             # event-log file lock
+    "slo.gauges": 335,             # pushed-gauge registry (leaf: set
+                                   # from serving under its session
+                                   # lock, read by the watchdog)
+    "server.metrics": 340,         # REST request counters
     "server.gateway": 350,         # timed-dispatch accounting
     "faults.spec": 360,            # fault-injection budget (leaf)
     "attention.launches": 370,     # the kernels' launch counters (leaf)

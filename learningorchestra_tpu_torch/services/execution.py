@@ -37,7 +37,10 @@ stack is built on the meta device over the recorded shapes of its
 ``analysis``, and warnings are kept as ``analysis`` on the metadata.
 The job document also records the ``footprint`` estimate (``hbmBytes``,
 ``paramBytes``, ``estimator: "heuristic"``) where the preflight can
-make one. The job evaluates ``#`` expressions in the sandbox. A parent
+make one, calibrated against an earlier run's measured peak under
+``LO_FOOTPRINT_CALIBRATE``. A create opens the job's trace with the
+``submit``, ``validate`` and ``preflight`` spans; the job adds
+``dataLoad`` and ``artifactSave``. The job evaluates ``#`` expressions in the sandbox. A parent
 of another module (a fitted sklearn estimator) runs its own methods on
 the host.
 
@@ -65,6 +68,7 @@ import numpy as np
 
 from learningorchestra_tpu_torch import analysis as A
 from learningorchestra_tpu_torch.catalog import documents as D
+from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
 from learningorchestra_tpu_torch.services import validators as V
@@ -141,12 +145,20 @@ class ExecutionService:
         V.refuse_unported_fields(body, _UNPORTED_FIELDS)
         health_policy = V.valid_health_policy(
             body.get(V.HEALTH_POLICY_FIELD))
-        self._validator.not_duplicate(name)
-        self._validator.existing_finished(parent_name)
-        root_meta = self.root_model_metadata(parent_name)
-        self._validate_method(root_meta, method, method_parameters)
-        analysis = self._preflight(root_meta, method, method_parameters)
-        footprint = self._footprint(root_meta, method, method_parameters)
+        # the trace (id == collection name) starts HERE, on the HTTP
+        # thread: submit/validate/preflight spans precede the job root
+        # span the worker thread opens later
+        with obs_trace.span("submit", trace=name, verb=verb, tool=tool):
+            with obs_trace.span("validate"):
+                self._validator.not_duplicate(name)
+                self._validator.existing_finished(parent_name)
+                root_meta = self.root_model_metadata(parent_name)
+                self._validate_method(root_meta, method, method_parameters)
+            with obs_trace.span("preflight"):
+                analysis = self._preflight(root_meta, method,
+                                           method_parameters)
+                footprint = self._footprint(root_meta, method,
+                                            method_parameters)
         type_string = D.normalize_type(f"{verb}/{tool}")
         extra = {
             D.PARENT_NAME_FIELD: parent_name,
@@ -166,7 +178,7 @@ class ExecutionService:
         self._ctx.catalog.create_collection(name, type_string, extra)
         self._submit(name, type_string, parent_name, method,
                      method_parameters, description, timeout=timeout,
-                     health_policy=health_policy)
+                     health_policy=health_policy, footprint=footprint)
         return V.HTTP_CREATED, {
             "result": f"/api/learningOrchestra/v1/{verb}/{tool}/{name}"}
 
@@ -198,7 +210,7 @@ class ExecutionService:
                    D.FINISHED_FIELD: False})
         self._submit(name, meta[D.TYPE_FIELD], parent_name, method,
                      method_parameters, description, timeout=timeout,
-                     health_policy=health_policy)
+                     health_policy=health_policy, footprint=footprint)
         return V.HTTP_SUCCESS, {
             "result": f"/api/learningOrchestra/v1/{verb}/{tool}/{name}"}
 
@@ -229,20 +241,30 @@ class ExecutionService:
     def _footprint(self, root_meta: Dict[str, Any], method: str,
                    method_parameters: Dict[str, Any],
                    ) -> Optional[Dict[str, Any]]:
-        """The preflight's footprint estimate, or None (no claim)."""
-        if not self._ctx.config.preflight:
-            return None
-        return A.estimate_footprint(self._ctx.catalog, root_meta, method,
-                                    method_parameters)
+        """The preflight's footprint estimate, calibrated against a
+        measured peak under ``LO_FOOTPRINT_CALIBRATE``
+        (:func:`~learningorchestra_tpu_torch.analysis.preflight.
+        calibrate_footprint`), or None (no claim)."""
+        estimate = None
+        if self._ctx.config.preflight:
+            estimate = A.estimate_footprint(
+                self._ctx.catalog, root_meta, method, method_parameters)
+        footprint = dict(estimate) if estimate else {}
+        A.calibrate_footprint(footprint, root_meta, method,
+                              self._ctx.config)
+        return footprint or None
 
     def _submit(self, name: str, type_string: str, parent_name: str,
                 method: str, method_parameters: Dict[str, Any],
                 description: str, timeout: Optional[float] = None,
-                health_policy: Optional[Any] = None) -> None:
+                health_policy: Optional[Any] = None,
+                footprint: Optional[Dict[str, Any]] = None) -> None:
         def run():
-            parent_type = self._ctx.params.artifact_type(parent_name)
-            instance = self._ctx.artifacts.load(parent_name, parent_type)
-            treated = self._ctx.params.treat(method_parameters)
+            with obs_trace.span("dataLoad"):
+                parent_type = self._ctx.params.artifact_type(parent_name)
+                instance = self._ctx.artifacts.load(parent_name,
+                                                    parent_type)
+                treated = self._ctx.params.treat(method_parameters)
             ckpt = _prepare_checkpointer(self._ctx, name, type_string,
                                          treated)
             _inject_epoch_log(self._ctx, name, instance, method, treated)
@@ -261,7 +283,8 @@ class ExecutionService:
                     "checkpointRestores": ckpt.restores})
             if type_string.startswith(_INSTANCE_RESULT_PREFIXES):
                 result = instance  # the fitted object is the artifact
-            self._ctx.artifacts.save(result, name, type_string)
+            with obs_trace.span("artifactSave"):
+                self._ctx.artifacts.save(result, name, type_string)
             _record_sweep_fusion(self._ctx, name, result)
             summary = summarize_result(result)
             if summary is not None:
@@ -271,7 +294,7 @@ class ExecutionService:
         self._ctx.jobs.submit(name, run, description=description,
                               parameters=method_parameters, needs_card=True,
                               max_retries=self._ctx.config.job_max_retries,
-                              timeout=timeout)
+                              timeout=timeout, footprint=footprint)
 
 
 def _record_sweep_fusion(ctx, name: str, result: Any) -> None:

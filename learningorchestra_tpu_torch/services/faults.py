@@ -29,6 +29,12 @@ comma-separated:
 - ``"ckpt_write:1:corrupt:4"`` — the next checkpoint payload gets its
   last 4 bytes (default 8) flipped after its sha256 was taken, so the
   next restore quarantines it and falls back;
+- ``"trace_export:1"`` — the next append to the event log
+  (``LO_EVENT_LOG``) raises inside the best-effort writer, which
+  swallows it: the job it describes never notices;
+- ``"serving_step:1000:latency:0.25"`` — the next thousand serving
+  worker iterations that find queued work sleep 0.25 s first (the SLO
+  watchdog's servingP99 drill);
 - ``"kv_page_alloc:3:latency:0.5"`` — three allocations sleep 0.5 s
   (default 0.1) and then proceed.
 
@@ -36,8 +42,10 @@ The port fires ``kv_page_alloc`` (inside :meth:`PagedKVPool.alloc`),
 ``kv_quant`` (at admission into an int8-paged session),
 ``kv_page_handoff`` (at the publish of a handoff record),
 ``sweep_trial`` (at the start of each sweep trial), ``job_run`` (at the
-start of each job attempt), ``engine_step`` (at each train step) and
-``ckpt_write`` (after each payload's checksum). ``raise``, ``hang`` and
+start of each job attempt), ``engine_step`` (at each train step),
+``ckpt_write`` (after each payload's checksum), ``trace_export`` (at each
+event-log append) and ``serving_step`` (at each serving worker iteration
+with queued work). ``raise``, ``hang`` and
 ``latency`` fire in :func:`maybe_inject`; ``nan`` and ``corrupt`` are
 data faults whose budgets only :func:`maybe_nan` and
 :func:`corrupt_nbytes` spend. A site with no config at hand (the engine,

@@ -31,8 +31,17 @@ This is the JAX package's ``services/jobs.py`` for one card:
   cancelled, stalled, deadLettered or shutdownAborted, and monotonic
   counters (:meth:`JobManager.lifecycle_counters`).
 
-Slices, migration, multi-host pod guards and the observability spans of
-the JAX package are not ported.
+Each job is a trace keyed by its collection name (the JAX package's
+observability hooks): a ``job`` root span with retro ``queueWait`` and
+``leaseWait`` spans and an ``attempt`` span around the work, the
+``lo_lease_wait_seconds`` histogram, ``queued``/``start``/``finished``/
+``failed``/``cancelled`` events in the event log, flight-recorder
+triggers on ``timedOut``, ``deadLettered`` and ``stalled``, and on the
+terminal metadata the job's peak device bytes (``peakHbmBytes``, the
+card's ``max_memory_allocated`` since the job took it, also recorded
+under the footprint's ``calibrationKey``) and its last ``perf`` window.
+
+Slices, migration and multi-host pod guards are not ported.
 """
 
 from __future__ import annotations
@@ -49,6 +58,12 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.catalog.store import Catalog
+from learningorchestra_tpu_torch.observability import export as obs_export
+from learningorchestra_tpu_torch.observability import hist as obs_hist
+from learningorchestra_tpu_torch.observability import incidents as obs_incidents
+from learningorchestra_tpu_torch.observability import monitor as obs_monitor
+from learningorchestra_tpu_torch.observability import perf as obs_perf
+from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.runtime import locks, preempt
 from learningorchestra_tpu_torch.runtime.health import NumericalDivergence
 from learningorchestra_tpu_torch.services import faults
@@ -201,6 +216,46 @@ class JobManager:
                 if k in self._futures and not self._futures[k].done())
         return out
 
+    def queue_stats(self) -> Dict[str, int]:
+        """Live job-queue depth for the cluster monitor: submitted jobs
+        split into started-on-a-worker (``running``) and still waiting
+        for a thread (``queued``), plus the monotonic dead-letter
+        counter the SLO watchdog rates."""
+        with self._lock:
+            live = [k for k, f in self._futures.items() if not f.done()]
+            started = sum(1 for k in live if getattr(
+                (self._info.get(k) or {}).get("token"), "started", None))
+            dead = self._counters.get("deadLettered", 0)
+        return {"running": started, "queued": len(live) - started,
+                "deadLettered": dead}
+
+    def _record_attribution(self, name: str,
+                            footprint: Optional[Dict[str, Any]],
+                            measure_hbm: bool) -> None:
+        """The terminal metadata's ``peakHbmBytes`` (card jobs: the
+        card's peak allocation since the job took it, also recorded
+        under the footprint's ``calibrationKey``) and ``perf`` (the
+        job's last roofline window). Best-effort."""
+        try:
+            meta: Dict[str, Any] = {}
+            if measure_hbm:
+                peak = obs_monitor.peak_hbm_bytes()
+                if peak:
+                    meta["peakHbmBytes"] = int(peak)
+                    key = (footprint.get("calibrationKey")
+                           if isinstance(footprint, dict) else None)
+                    obs_monitor.record_peak(key or name, peak)
+            perf_report = obs_perf.job_report(name)
+            if perf_report:
+                meta["perf"] = {k: perf_report[k] for k in (
+                    "mfu", "tflopsPerSecPerChip", "gbPerSecPerChip",
+                    "arithmeticIntensity", "hbmBwUtil", "boundBy")
+                    if k in perf_report}
+            if meta:
+                self._catalog.update_metadata(name, meta)
+        except Exception:  # noqa: BLE001 — attribution is advisory
+            pass
+
     def _set_status(self, name: str, status: str) -> None:
         # advisory state on the metadata document; a collection deleted
         # while its job runs must not sink the job's thread
@@ -229,7 +284,8 @@ class JobManager:
                needs_card: bool = False, max_retries: int = 0,
                timeout: Optional[float] = None,
                mark_finished: bool = True,
-               failure_names: Optional[list] = None) -> Future:
+               failure_names: Optional[list] = None,
+               footprint: Optional[Dict[str, Any]] = None) -> Future:
         """Runs ``fn`` on a worker thread for collection ``name``, which
         must exist with ``finished: False``. ``needs_card`` jobs hold the
         card lease while ``fn`` runs. ``timeout`` (seconds) is the job's
@@ -239,8 +295,10 @@ class JobManager:
         classifier) passes them as ``failure_names``, so a terminal
         failure documents every output that has not finished (and
         ``name`` always), and ``mark_finished=False`` where ``fn`` marks
-        each output itself. The JAX manager's ``pool`` (its scheduler's
-        fair-share pools) has no meaning on one card and is not taken."""
+        each output itself. ``footprint`` (the preflight's) names the
+        ``calibrationKey`` the job's measured peak is recorded under.
+        The JAX manager's ``pool`` (its scheduler's fair-share pools) has
+        no meaning on one card and is not taken."""
         effective = (self._default_timeout if timeout is None
                      else max(0.0, float(timeout)))
         token = preempt.CancelToken(
@@ -270,15 +328,31 @@ class JobManager:
             self._set_status(name, status)
             self._count("timedOut" if status == D.STATUS_TIMED_OUT
                         else "cancelled")
+            obs_export.log_event("job", "cancelled", trace_id=name,
+                                 reason=status)
+            if status == D.STATUS_TIMED_OUT:
+                obs_incidents.trigger("job:timedOut", job=name)
 
         def attempt_once(attempt: int, submitted: float,
-                         failures: Dict[str, int]) -> tuple:
+                         failures: Dict[str, int], job_span) -> tuple:
             """One attempt under the lease: ``(done, result)``; done
             False means retry after the backoff it recorded."""
             lease = (self._lease.hold(token) if needs_card
                      else contextlib.nullcontext(0.0))
             with lease as lease_wait:
-                queue_wait = time.monotonic() - submitted
+                granted = time.monotonic()
+                queue_wait = granted - submitted
+                # retro spans: the worker-pool wait, then the card lease
+                # wait (the tail of it)
+                leased = granted - min(max(lease_wait, 0.0), queue_wait)
+                obs_trace.add("queueWait", name, submitted, leased,
+                              parent=job_span.span_id, attempt=attempt)
+                if needs_card:
+                    obs_trace.add("leaseWait", name, leased, granted,
+                                  parent=job_span.span_id)
+                    obs_hist.observe("lo_lease_wait_seconds", lease_wait)
+                    # the job's peak device bytes count from here
+                    obs_monitor.reset_peak_hbm()
                 self._set_status(name, D.STATUS_RUNNING)
                 if needs_card:
                     try:
@@ -300,7 +374,8 @@ class JobManager:
                     # with the lease held: "hang" is a wedged job holding
                     # the card, "raise" a transient attempt failure
                     faults.maybe_inject("job_run", self._config)
-                    result = fn()
+                    with obs_trace.span("attempt", attempt=attempt):
+                        result = fn()
                 except preempt.JobCancelled as exc:
                     # deadline, DELETE or stall escalation at a
                     # cooperative check: terminal; a checkpointed fit
@@ -318,9 +393,21 @@ class JobManager:
                         {"queueWaitSeconds": round(queue_wait, 6)}))
                     return True, None
                 if failure is not None:
-                    return self._record_failure(
+                    terminal = self._record_failure(
                         name, description, parameters, failure, attempt,
-                        max_retries, failures, timing, fail_all), None
+                        max_retries, failures, timing, fail_all)
+                    if terminal:
+                        self._record_attribution(name, footprint,
+                                                 needs_card)
+                        obs_export.log_event(
+                            "job", "failed", trace_id=name,
+                            errorKind=classify_error(failure),
+                            error=repr(failure))
+                        obs_incidents.trigger(
+                            "job:deadLettered", job=name,
+                            errorKind=classify_error(failure),
+                            error=repr(failure))
+                    return terminal, None
                 if mark_finished:
                     self._catalog.mark_finished(name)
                 self._set_status(name, D.STATUS_FINISHED)
@@ -328,6 +415,10 @@ class JobManager:
                     description, parameters, extra=timing({
                         "queueWaitSeconds": round(queue_wait, 6),
                         "attempt": attempt})))
+                self._record_attribution(name, footprint, needs_card)
+                obs_export.log_event("job", "finished", trace_id=name,
+                                     elapsedSeconds=round(
+                                         time.monotonic() - granted, 6))
                 return True, result
 
         def run() -> Any:
@@ -336,8 +427,15 @@ class JobManager:
             failures = {"transient": 0, "numerical": 0}
             attempt = 0
             preempt.install_cancel(token)
+            # root span of this job's trace (trace id == collection
+            # name); every nested span — lease, dataLoad, epochs,
+            # checkpoint commits — attaches under it through the
+            # thread-local stack
+            job_span = obs_trace.span("job", trace=name,
+                                      needsCard=needs_card)
+            obs_export.log_event("job", "start", trace_id=name)
             try:
-                with faults.use_config(self._config):
+                with job_span, faults.use_config(self._config):
                     while True:
                         attempt += 1
                         try:
@@ -345,7 +443,7 @@ class JobManager:
                             # the backoff: terminal, no lease taken
                             token.check()
                             done, result = attempt_once(attempt, submitted,
-                                                        failures)
+                                                        failures, job_span)
                         except preempt.JobCancelled as exc:
                             _drop_traceback(exc)
                             record_cancel(exc, attempt, {
@@ -375,6 +473,7 @@ class JobManager:
             self._info[name] = {"description": description,
                                 "parameters": parameters,
                                 "needs_card": needs_card, "token": token}
+        obs_export.log_event("job", "queued", trace_id=name)
         return future
 
     def _record_failure(self, name: str, description: str, parameters,
@@ -491,6 +590,9 @@ class JobManager:
                     if newly:
                         self._set_status(name, D.STATUS_STALLED)
                         self._count("stalledSeen")
+                        obs_incidents.trigger(
+                            "job:stalled", job=name,
+                            heartbeatAgeSeconds=round(age, 3))
                         if self._stall_escalate:
                             token.cancel(D.STATUS_STALLED)
                 else:

@@ -33,13 +33,24 @@ into the smallest bucket that holds them and serves each burst with one
 Admission control: a full queue or an unfunded request rejects with
 429, a closed session with 503. Not ported yet: the serving lease and
 ``sliceDevices`` (one card has no slice of a mesh to share, so the split
-disaggregated mode is not either), and the observability hooks (X-ray
-claims, histograms, per-tenant objectives, incident bundles).
+disaggregated mode is not either).
+
+Observability (the JAX package's hooks): each request is a trace
+``serve/{model}/{seq}`` (``request`` with ``queueWait``, the worker's
+stages — ``prefill``/``prefixHit`` and ``decodeIters``, or
+``batchForm`` and ``predict`` — and ``respond``), observed into
+``lo_serving_request_seconds`` and its ``_role_*`` and ``_tenant_*``
+series; an LM session's params and KV cache are X-ray owners
+``serving-params`` and ``kv-cache``; perf stats carry the goodput block
+and the decode roofline; the degrade ladder writes events, health
+counters and incident triggers; and the ``serving_step`` fault site
+fires at each worker iteration with queued work.
 """
 
 from __future__ import annotations
 
 import collections
+import re
 import threading
 import time
 from typing import Any, Deque, Dict, List, Optional, Tuple
@@ -47,7 +58,15 @@ from typing import Any, Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from learningorchestra_tpu_torch.observability import export as obs_export
+from learningorchestra_tpu_torch.observability import hist as obs_hist
+from learningorchestra_tpu_torch.observability import incidents as obs_incidents
+from learningorchestra_tpu_torch.observability import perf as obs_perf
+from learningorchestra_tpu_torch.observability import slo as obs_slo
+from learningorchestra_tpu_torch.observability import trace as obs_trace
+from learningorchestra_tpu_torch.observability import xray as obs_xray
 from learningorchestra_tpu_torch.ops import attention as attn_ops
+from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime import locks
 from learningorchestra_tpu_torch.services import faults
 from learningorchestra_tpu_torch.services import validators as V
@@ -82,7 +101,8 @@ class LatencyTracker:
 
 
 class _Request:
-    __slots__ = ("payload", "event", "result", "error", "queued_at")
+    __slots__ = ("payload", "event", "result", "error", "queued_at",
+                 "trace_id", "popped_at", "stages", "finished_at")
 
     def __init__(self, payload: Dict[str, Any]):
         self.payload = payload
@@ -90,14 +110,27 @@ class _Request:
         self.result: Optional[Dict[str, Any]] = None
         self.error: Optional[V.HttpError] = None
         self.queued_at = time.monotonic()
+        # observability marks: the worker thread appends completed
+        # (name, start, end, attrs) stage intervals; the client thread
+        # replays them into a span tree after the response arrives
+        self.trace_id = ""
+        self.popped_at = 0.0
+        self.stages: List[Any] = []
+        self.finished_at = 0.0
 
     def finish(self, result: Dict[str, Any]) -> None:
         self.result = result
+        self.finished_at = time.monotonic()
         self.event.set()
 
     def fail(self, error: V.HttpError) -> None:
         self.error = error
+        self.finished_at = time.monotonic()
         self.event.set()
+
+
+def _metric_tenant(tenant: str) -> str:
+    return re.sub(r"[^0-9A-Za-z_]", "_", tenant)
 
 
 class _SessionBase:
@@ -138,19 +171,55 @@ class _SessionBase:
                     f"serving queue full ({self._depth} requests "
                     f"queued) — retry with backoff")
             self.requests_total += 1
+            req.trace_id = f"serve/{self.name}/{self.requests_total}"
             self._queue.append(req)
             self._cv.notify_all()
         if timeout is None:
             # 0 = no deadline configured -> wait indefinitely
             timeout = self._ctx.config.request_timeout_seconds or None
         if not req.event.wait(timeout):
+            self._trace_request(req, time.monotonic(), error="timeout")
             raise V.HttpError(V.HTTP_UNAVAILABLE,
                               f"request timed out after {timeout}s "
                               f"(session overloaded or preempted)")
         if req.error is not None:
+            self._trace_request(req, time.monotonic(),
+                                error=type(req.error).__name__)
             raise req.error
-        self.latency.record(time.monotonic() - req.queued_at)
+        now = time.monotonic()
+        elapsed = now - req.queued_at
+        self.latency.record(elapsed)
+        obs_hist.observe("lo_serving_request_seconds", elapsed)
+        self._trace_request(req, now)
         return req.result
+
+    def _trace_request(self, req: _Request, end: float,
+                       error: Optional[str] = None) -> None:
+        """Retro-build the request's span tree (``request → queueWait →
+        stage… → respond``) under its own trace id. The worker thread
+        only knows stage boundaries after the fact, so it stashes (name,
+        start, end, attrs) marks on the request and the client thread
+        replays them here once the response lands."""
+        try:
+            attrs: Dict[str, Any] = {"model": self.name, "kind": self.kind}
+            if error is not None:
+                attrs["error"] = error
+            root = obs_trace.add("request", req.trace_id, req.queued_at,
+                                 end, **attrs)
+            if root is None:
+                return
+            picked = req.popped_at or min(
+                (st[1] for st in req.stages), default=end)
+            obs_trace.add("queueWait", req.trace_id, req.queued_at,
+                          min(picked, end), parent=root)
+            for name, start, stop, st_attrs in req.stages:
+                obs_trace.add(name, req.trace_id, start, stop,
+                              parent=root, **st_attrs)
+            if req.finished_at:
+                obs_trace.add("respond", req.trace_id, req.finished_at,
+                              end, parent=root)
+        except Exception:  # noqa: BLE001 — observability is advisory
+            pass
 
     def _run(self) -> None:
         while True:
@@ -162,6 +231,11 @@ class _SessionBase:
                     if self._closed:
                         break
             try:
+                if self._have_work():
+                    # chaos site (latency mode inflates request latency
+                    # for the SLO watchdog's servingP99 alert); gated on
+                    # queued work so idle ticks don't spend a budget
+                    faults.maybe_inject("serving_step", self._ctx.config)
                 self._serve_once()
             except Exception as exc:  # noqa: BLE001 — fail requests, not the thread
                 self._fail_all(V.HttpError(
@@ -255,6 +329,32 @@ class LMServingSession(_SessionBase):
         self._slot_out: List[List[int]] = [[] for _ in range(self.slots)]
         self._slot_left = np.zeros((self.slots,), np.int64)
         self._slot_t0 = [0.0] * self.slots
+        self._param_count = sum(
+            p.numel() for p in self._model.module.parameters())
+        # the session's standing device claims: its serving weights and
+        # its KV cache
+        self._ledger_params()
+        self._ledger_cache()
+
+    def _params_key(self) -> Tuple[Any, ...]:
+        # the dtype is part of the key: a quantized -> exact degrade
+        # ledgers a different resident set
+        return ("serving", self.name, id(self), self.weights_dtype)
+
+    def _ledger_params(self) -> None:
+        obs_xray.register("serving-params", self._params_key(),
+                          self._param_bytes, name=self.name,
+                          dtype=self.weights_dtype)
+
+    def _ledger_cache(self, **meta: Any) -> None:
+        obs_xray.register("kv-cache", ("kv", self.name, id(self)),
+                          self._cache_bytes, name=self.name,
+                          slots=self.slots, cacheLen=self.cache_len, **meta)
+
+    def close(self) -> None:
+        super().close()
+        obs_xray.release("serving-params", self._params_key())
+        obs_xray.release("kv-cache", ("kv", self.name, id(self)))
 
     def _init_decode_path(self) -> None:
         """The slot cache and the functions over it (the paged session
@@ -316,6 +416,8 @@ class LMServingSession(_SessionBase):
         self._cache = self._join(self._cache, pcache, slot)
         first = int(nxt[0])  # device sync: the first token is ready
         now = time.monotonic()
+        req.stages.append(("prefill", admit_t0, now,
+                           {"promptTokens": s, "slot": slot}))
         self._record_role("prefill", now - admit_t0)
         self._ttft.record(now - req.queued_at)
         self._slot_req[slot] = req
@@ -329,11 +431,21 @@ class LMServingSession(_SessionBase):
         if self._slot_left[slot] <= 0:
             self._retire(slot)
 
+    _ROLES = ("prefill", "decode", "draft")
+
     def _record_role(self, role: str, seconds: float) -> None:
+        """Per-role latency: a tracker for session stats and a
+        role-labelled histogram series
+        (``lo_serving_request_seconds_role_<role>``) for Prometheus and
+        the SLO plane, over the closed role set."""
+        if role not in self._ROLES:
+            return
         tracker = self._role_latency.get(role)
         if tracker is None:
             tracker = self._role_latency.setdefault(role, LatencyTracker())
         tracker.record(seconds)
+        obs_hist.observe("lo_serving_request_seconds_role_" + role,
+                         seconds)
 
     def _retire(self, slot: int) -> None:
         req = self._slot_req[slot]
@@ -342,6 +454,9 @@ class LMServingSession(_SessionBase):
             return
         elapsed = time.monotonic() - self._slot_t0[slot]
         self._record_role("decode", elapsed)
+        req.stages.append(("decodeIters", self._slot_t0[slot],
+                           time.monotonic(),
+                           {"tokens": len(self._slot_out[slot])}))
         req.finish({
             "tokens": [int(t) for t in self._slot_out[slot]],
             "decodeSeconds": round(elapsed, 6),
@@ -367,6 +482,7 @@ class LMServingSession(_SessionBase):
                 if not free or not self._queue:
                     break
                 req = self._pop_next()
+            req.popped_at = time.monotonic()
             try:
                 self._admit(free[0], req)
                 admitted = True
@@ -415,14 +531,28 @@ class LMServingSession(_SessionBase):
     def perf_stats(self) -> Dict[str, Any]:
         if not self.decode_steps or self._decode_seconds <= 0:
             return {}
-        return {
+        dt = self._decode_seconds
+        tps = self.decode_tokens_total / dt
+        out: Dict[str, Any] = {
             "decodeSteps": self.decode_steps,
-            "decodeTokensPerSec": round(
-                self.decode_tokens_total / self._decode_seconds, 2),
+            "decodeTokensPerSec": round(tps, 2),
+            # one card
+            "decodeTokensPerSecPerChip": round(tps, 3),
+            # batch-fill-weighted goodput: the fraction of slot-steps
+            # spent on real tokens against idle lanes
             "goodputFrac": round(
                 self.decode_tokens_total /
                 (self.decode_steps * self.slots), 4),
         }
+        # the analytic decode roofline: ~2 flops per param per emitted
+        # token, and every step streams the weights and the whole KV
+        # cache through HBM
+        flops_per_step = 2.0 * self._param_count * (
+            self.decode_tokens_total / self.decode_steps)
+        out.update(obs_perf.roofline(
+            flops_per_step, float(self._param_bytes + self._cache_bytes),
+            self.decode_steps, dt, 1))
+        return out
 
     def stats(self) -> Dict[str, Any]:
         out = super().stats()
@@ -770,6 +900,7 @@ class PagedLMServingSession(LMServingSession):
         self.quant_degrades = 0
         super().__init__(name, ctx, model, slots, cache_len, temperature,
                          top_k, top_p, weights_dtype=weights_dtype)
+        self._ledger_cache(pages=self.n_pages, dtype=self.kv_dtype)
         if self._draft is not None:
             self._init_spec_state()
         # a quantized session measures its drift before it serves: a bad
@@ -907,7 +1038,12 @@ class PagedLMServingSession(LMServingSession):
                 tracker = self._tenant_latency[series] = LatencyTracker()
             self._tenant_requests[series] = \
                 self._tenant_requests.get(series, 0) + 1
-        tracker.record(time.monotonic() - t0)
+        elapsed = time.monotonic() - t0
+        tracker.record(elapsed)
+        # a per-tenant histogram series feeds the watchdog's per-tenant
+        # servingP99 objective (observability/slo.py)
+        obs_hist.observe("lo_serving_request_seconds_tenant_"
+                         + _metric_tenant(series), elapsed)
         return result
 
     def _quota_check(self, tenant: str, need: int) -> None:
@@ -1126,6 +1262,7 @@ class PagedLMServingSession(LMServingSession):
                                     rec["fresh"][0])
                 first = int(self._sample_first(rec["donorLogits"],
                                                rec["seed"], rec["s"]))
+                stage = "prefixHit"
             else:
                 if rec["writePages"]:
                     self._pjoin(self._pool, rec["pcache"],
@@ -1134,6 +1271,7 @@ class PagedLMServingSession(LMServingSession):
                                              device=self._model.device),
                                 rec["nShared"] * self.page_len)
                 first = rec["first"]
+                stage = "prefill"
                 if rec["insert"] is not None:
                     # shareable only once its pages are written
                     self.prefix.insert(*rec["insert"])
@@ -1153,6 +1291,10 @@ class PagedLMServingSession(LMServingSession):
             # adopted: the stream's references own the pages now
             self.pool.decref(row)
         now = time.monotonic()
+        req.stages.append((stage, rec["admitT0"], now,
+                           {"promptTokens": rec["s"], "slot": slot,
+                            "sharedPages": rec["nShared"],
+                            "tenant": tenant}))
         self._record_role("prefill", now - rec["admitT0"])
         self._ttft.record(now - req.queued_at)
         self._slot_req[slot] = req
@@ -1285,6 +1427,11 @@ class PagedLMServingSession(LMServingSession):
                            "mid-stream (kv_page_alloc latched) — retry")
         self._pool = None  # free the pool before the slot cache
         LMServingSession._init_decode_path(self)
+        self._ledger_cache(degraded=True)
+        obs_export.log_event("serving", "kv-degrade", model=self.name,
+                             streak=self._alloc_fault_streak)
+        obs_incidents.trigger("serving:kv-degrade", model=self.name,
+                              streak=self._alloc_fault_streak)
 
     def _degrade_to_exact(self, reason: str) -> None:
         """Latched ``kv_quant`` fault or drift breach: rebuild the same
@@ -1293,16 +1440,27 @@ class PagedLMServingSession(LMServingSession):
         the pool, prefix cache and block tables start anew."""
         if self.kv_dtype == "bf16" and self.weights_dtype == "bf16":
             return
+        from_kv, from_w = self.kv_dtype, self.weights_dtype
         self._fail_streams(f"session degraded to exact serving "
                            f"mid-stream ({reason}) — retry")
         self.kv_dtype = "bf16"
         self._pool = None  # free the int8 pool before the exact one
         if self.weights_dtype != "bf16":
+            obs_xray.release("serving-params", self._params_key())
             self.weights_dtype = "bf16"
             self._serve_module = self._model.serving_module("bf16")
             self._param_bytes = _weight_bytes(self._serve_module)
+            self._ledger_params()
         PagedLMServingSession._init_decode_path(self)
+        self._ledger_cache(pages=self.n_pages, dtype=self.kv_dtype)
         self.quant_degrades += 1
+        health_lib.record("quantDegrades")
+        obs_export.log_event("serving", "quant-degrade", model=self.name,
+                             reason=reason, fromKv=from_kv,
+                             fromWeights=from_w)
+        obs_incidents.trigger("serving:quant-degrade", model=self.name,
+                              reason=reason, fromKv=from_kv,
+                              fromWeights=from_w)
 
     # -- quantization quality gate -------------------------------------
     def _maybe_probe_drift(self) -> None:
@@ -1316,8 +1474,10 @@ class PagedLMServingSession(LMServingSession):
         self._last_drift = drift
         self._drift_parts = parts
         self._drift_probes += 1
+        obs_slo.set_gauge("servingDrift", drift)
         limit = float(self._ctx.config.serve_drift_max or 0.0)
         if limit > 0 and drift > limit:
+            health_lib.record("driftBreaches")
             self._degrade_to_exact(f"probe drift {drift:.4f} > "
                                    f"LO_SERVE_DRIFT_MAX={limit:g}")
 
@@ -1647,6 +1807,11 @@ class DisaggLMServingSession(PagedLMServingSession):
         self._drain_ready(V.HttpError(
             V.HTTP_UNAVAILABLE, f"prefill worker degraded ({reason}) — "
             f"retry"))
+        obs_export.log_event("serving", "handoff-degrade", model=self.name,
+                             reason=reason,
+                             streak=self._handoff_fault_streak)
+        obs_incidents.trigger("serving:handoff-degrade", model=self.name,
+                              reason=reason)
 
     def _drain_ready(self, error: V.HttpError) -> None:
         while True:
@@ -1745,6 +1910,7 @@ class BucketServingSession(_SessionBase):
             while True:
                 while self._queue and rows < limit:
                     req = self._queue.popleft()
+                    req.popped_at = time.monotonic()
                     batch.append(req)
                     rows += len(req.payload["x"])
                 if not batch or rows >= limit:
@@ -1788,7 +1954,8 @@ class BucketServingSession(_SessionBase):
                 req.fail(V.HttpError(V.HTTP_UNAVAILABLE,
                                      f"predict failed: {exc}"))
             return True
-        self._predict_seconds += time.monotonic() - predict_t0
+        predict_t1 = time.monotonic()
+        self._predict_seconds += predict_t1 - predict_t0
         self.predicts_total += 1
         self.rows_total += n
         self._last_fill = round(n / bucket, 4)
@@ -1796,6 +1963,10 @@ class BucketServingSession(_SessionBase):
         offset = 0
         for req in batch:
             k = len(req.payload["x"])
+            req.stages.append(("batchForm", req.popped_at, predict_t0,
+                               {"rows": k}))
+            req.stages.append(("predict", predict_t0, predict_t1,
+                               {"bucket": bucket, "batchRows": n}))
             req.finish({"predictions": out[offset:offset + k].tolist(),
                         "bucket": bucket})
             offset += k
@@ -1807,9 +1978,12 @@ class BucketServingSession(_SessionBase):
     def perf_stats(self) -> Dict[str, Any]:
         if not self.predicts_total or self._predict_seconds <= 0:
             return {}
+        rps = self.rows_total / self._predict_seconds
         return {
             "predictsTotal": self.predicts_total,
-            "rowsPerSec": round(self.rows_total / self._predict_seconds, 2),
+            "rowsPerSec": round(rps, 2),
+            "rowsPerSecPerChip": round(rps, 3),  # one card
+            # fill-weighted goodput: useful rows over padded capacity
             "goodputFrac": round(
                 self.rows_total / max(1, self._fill_bucket_sum), 4),
         }
@@ -1864,6 +2038,8 @@ class ServingManager:
                     f"{V.MESSAGE_DUPLICATE_FILE}: serving session for "
                     f"{model_name} already exists")
             self._sessions[model_name] = session
+        obs_export.log_event("serving", "create", model=model_name,
+                             sessionKind=session.kind)
         return session.stats()
 
     def _build_session(self, model_name: str, instance: Any,
@@ -2054,8 +2230,83 @@ class ServingManager:
                 f"for {model_name}")
         final = session.stats()
         session.close()
+        obs_export.log_event("serving", "delete", model=model_name)
         final["deleted"] = True
         return final
+
+    def stats(self) -> Dict[str, Any]:
+        """The fleet view behind ``/metrics``'s ``serving`` block and the
+        cluster monitor: totals, each session's stats, the goodput
+        roll-up and the paged-KV roll-up. Sessions hold no lease on one
+        card, so ``leaseYields`` is 0."""
+        with self._lock:
+            sessions = list(self._sessions.values())
+        per = [s.stats() for s in sessions]
+        out = {
+            "sessions": len(per),
+            "requestsTotal": sum(p["requestsTotal"] for p in per),
+            "rejectedTotal": sum(p["rejectedTotal"] for p in per),
+            "tokensTotal": sum(p.get("tokensTotal", 0) for p in per),
+            "leaseYields": 0,
+            "bySession": per,
+        }
+        perf_blocks = [p.get("perf") or {} for p in per]
+        agg = {
+            "decodeTokensPerSec": round(sum(
+                b.get("decodeTokensPerSec", 0.0)
+                for b in perf_blocks), 2),
+            "decodeTokensPerSecPerChip": round(sum(
+                b.get("decodeTokensPerSecPerChip", 0.0)
+                for b in perf_blocks), 3),
+            "rowsPerSecPerChip": round(sum(
+                b.get("rowsPerSecPerChip", 0.0)
+                for b in perf_blocks), 3),
+        }
+        if any(v for v in agg.values()):
+            out["perf"] = agg
+        kv_blocks = [p["kv"] for p in per if p.get("kv")]
+        if kv_blocks:
+            out["kv"] = {
+                "pagesTotal": sum(b["pagesTotal"] for b in kv_blocks),
+                "pagesFree": sum(b["pagesFree"] for b in kv_blocks),
+                "pagesShared": sum(b["pagesShared"] for b in kv_blocks),
+                "allocFailures": sum(b["allocFailures"]
+                                     for b in kv_blocks),
+                "prefillsSkipped": sum(b["prefix"]["prefillsSkipped"]
+                                       for b in kv_blocks),
+            }
+        return out
+
+    def perf_report(self, model_name: str) -> Optional[Dict[str, Any]]:
+        """Goodput and roofline of one live session, served by ``GET
+        /observability/perf/{name}``; None if no session holds the name
+        (the route then falls back to train-job reports)."""
+        with self._lock:
+            session = self._sessions.get(model_name)
+        if session is None:
+            return None
+        out: Dict[str, Any] = {
+            "kind": "serving",
+            "model": model_name,
+            "sessionKind": session.kind,
+            "batchFill": session._batch_fill(),
+            "perf": session.perf_stats(),
+        }
+        dtypes = {}
+        if getattr(session, "weights_dtype", "bf16") != "bf16":
+            dtypes["weights"] = session.weights_dtype
+        if getattr(session, "kv_dtype", "bf16") != "bf16":
+            dtypes["kv"] = session.kv_dtype
+        if dtypes:
+            out["quantized"] = dtypes
+        drift = getattr(session, "_last_drift", None)
+        if drift is not None:
+            out["drift"] = {
+                "value": round(drift, 6),
+                "parts": {k: round(v, 6) for k, v in
+                          getattr(session, "_drift_parts", {}).items()},
+            }
+        return out
 
     def close(self) -> None:
         with self._lock:

@@ -47,6 +47,10 @@ CFG = dict(vocab_size=64, d_model=32, n_layers=2, n_heads=4, n_kv_heads=2,
            max_len=32, sliding_window=16)
 
 
+ROOFLINE = {"tflopsPerSecPerChip", "mfu", "gbPerSecPerChip",
+            "arithmeticIntensity", "hbmBwUtil", "boundBy"}
+
+
 def _tree(seed):
     rng = np.random.default_rng(seed)
     return {"w": rng.normal(size=(8, 4)).astype(np.float32),
@@ -489,7 +493,10 @@ def test_rest_checkpoint_patch_resume_and_delete_as_jax(tmp_path, float32,
     for part in ("first", "second"):
         assert [r["epoch"] for r in got[part]] == \
             [r["epoch"] for r in want[part]]
-        assert set(got[part][0]) == set(want[part][0])
+        # the roofline of a window (tflopsPerSecPerChip, ...): the JAX
+        # package's first window holds its compile and carries none; the
+        # port compiles nothing, so its first window carries one
+        assert set(got[part][0]) - ROOFLINE == set(want[part][0]) - ROOFLINE
         np.testing.assert_allclose([r["loss"] for r in got[part]],
                                    [r["loss"] for r in want[part]],
                                    rtol=1e-5)

@@ -61,13 +61,16 @@ def _call(api, method, path, body=None, params=None):
 
 def _done(api, path, timeout=300.0):
     """The GET body once the job ended (finished, or failed with a
-    document carrying its exception)."""
+    document carrying its exception) and its execution document is in:
+    both packages flip ``finished`` before they append that document
+    and set the final status."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         status, body = _call(api, "GET", path)
         assert status == 200, body
-        if body["metadata"]["finished"] or any(
-                d.get("exception") for d in body["result"][1:]):
+        ended = body["metadata"]["finished"] or any(
+            d.get("exception") for d in body["result"][1:])
+        if ended and "elapsedSeconds" in body["result"][-1]:
             return body
         time.sleep(0.05)
     raise AssertionError(f"timeout polling {path}")

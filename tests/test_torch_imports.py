@@ -111,6 +111,31 @@ def test_new_modules_are_among_those_probed():
             } <= names
 
 
+OBSERVABILITY = ("export", "hist", "incidents", "monitor", "perf", "slo",
+                 "timeline", "trace", "xray")
+
+
+def test_observability_modules_are_among_those_probed():
+    """The observability package (the counterparts of the JAX package's
+    nine ``observability/`` modules and its ``__init__``) and every
+    module hooked into it are imported by the probe above, so none of
+    them loads JAX or the JAX package."""
+    names = {m.name for m in pkgutil.walk_packages(
+        learningorchestra_tpu_torch.__path__,
+        learningorchestra_tpu_torch.__name__ + ".")}
+    port = "learningorchestra_tpu_torch."
+    assert {port + "observability." + m for m in OBSERVABILITY} | {
+        port + "observability",
+        port + "runtime.engine", port + "runtime.checkpoint",
+        port + "runtime.health", port + "services.jobs",
+        port + "services.execution", port + "services.context",
+        port + "services.serving", port + "services.server",
+    } <= names
+    jax_side = {m.name.rsplit(".", 1)[-1] for m in pkgutil.iter_modules(
+        [os.path.join(ROOT, "learningorchestra_tpu", "observability")])}
+    assert jax_side == set(OBSERVABILITY)
+
+
 _LIGHT = """
 import sys
 import learningorchestra_tpu_torch.client

@@ -431,11 +431,19 @@ def test_requests_ported_since_answer_as_jax(both, case):
 
 
 def test_other_services_stay_unrouted(both):
-    port = both[1]
+    """The observability routes, ``/profile``, ``/health`` and
+    ``/metrics``, unrouted until the observability plane came, answer as
+    the JAX server's; the autoscaler's route stays unrouted until the
+    autoscaler is ported."""
+    jax_api, port = both
     for path in ("/observability/trace", "/profile"):
-        assert _call(port, "GET", path) == (404, {"result": "unknown route"})
+        assert _call(port, "GET", path)[0] == \
+            _call(jax_api, "GET", path)[0] == 200
     for path in ("/health", "/metrics"):
-        assert port.dispatch("GET", path, {}, None)[0] == 404
+        assert port.dispatch("GET", path, {}, None)[0] == \
+            jax_api.dispatch("GET", path, {}, None)[0] == 200
+    assert _call(port, "GET", "/observability/autoscaler") == \
+        (404, {"result": "unknown route"})
 
 
 @pytest.mark.parametrize("method, body", [

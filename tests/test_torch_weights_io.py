@@ -168,9 +168,15 @@ def artifacts(tmp_path_factory, float32):
     predictions, configs); plus the two libraries."""
     os.environ.setdefault("TF_CPP_MIN_LOG_LEVEL", "2")
     tf = pytest.importorskip("tensorflow")
-    # two threads, as torch here: the other test workers share the cores
-    tf.config.threading.set_intra_op_parallelism_threads(2)
-    tf.config.threading.set_inter_op_parallelism_threads(2)
+    # two threads, as torch here: the other test workers share the cores.
+    # TensorFlow fixes its pools when its context starts, and another file
+    # of the same process (tests/test_weights_io.py under xdist's loadfile)
+    # may have started it already: then the pools stay as they are.
+    try:
+        tf.config.threading.set_intra_op_parallelism_threads(2)
+        tf.config.threading.set_inter_op_parallelism_threads(2)
+    except RuntimeError:
+        pass
     keras = pytest.importorskip("keras")
     tfk = pytest.importorskip("tf_keras")
     root = tmp_path_factory.mktemp("keras_artifacts")
