@@ -299,11 +299,26 @@
    ``LO_MONITOR`` all on (a 1 s tick) within 3% of all off, in 8 job
    windows of 2 epochs of 8 steps (on, off, off, on, ...) after a fit of
    first use, and the tutorial CNN's ratio recorded.
+16. Checkpoints off the training thread (the ``ckptAsync`` line, right
+   after the pipeline): the pipeline's checkpointed REST fit under
+   ``LO_CKPT_ASYNC=1`` equal to the synchronous one bit for bit (losses,
+   each step's payload sha256 and bytes, 128 launches of each sm90
+   kernel), the snapshot and commit seconds beside the synchronous
+   commit's, an async resume, the ``ckpt_async_commit`` fault failing its
+   job with ``AsyncCheckpointError``, a ``shards=4`` round trip and a
+   resume under another optimizer kind (params-only migration).
+17. Sweep fusion (the ``fusion`` line, after ``keras``): workflow 2's CNN
+   GridSearch over REST, BASELINE config 5's ResNet-50 sweep and the IMDb
+   LSTM's, each fused (``fallbackTrials`` 0, on the card) and unfused,
+   each point within 1e-4, the kernels an optimizer step fused and
+   unfused, an early stop, ``/metrics`` ``sweepFusion``, the card's
+   memory flat after each cohort.
 
 The kernel launch counts are zeroed just before each path and read
 just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
-keras``, ``--only function``, ``--only transform``, ``--only builder``,
-``--only lifecycle``, ``--only observe``, or several, comma-separated)
+keras``, ``--only fusion``, ``--only ckptAsync``, ``--only function``,
+``--only transform``, ``--only builder``, ``--only lifecycle``,
+``--only observe``, or several, comma-separated)
 builds the kernels
 and runs that phase alone (to iterate on it), printing its line and no
 result line.
@@ -1976,6 +1991,13 @@ def pipeline_phase(torch, log, home, yard):
                                  f"from the REST generate's {tokens}")
 
         checkpoints = _checkpoint_checks(ctx, "lm_t", steps)
+        # the ckptAsync phase's yardstick
+        yard["syncCheckpoint"] = {
+            "losses": losses, "fitWallSeconds": fit_s,
+            "commitSeconds": checkpoints["checkpointSaveSeconds"],
+            "manifests": _manifests(os.path.join(
+                ctx.config.checkpoints_dir, "lm_t")),
+            "source": "the pipeline phase"}
         resume = _resume_checks(ctx, job, base, fit_params, losses, trained,
                                 x, steps, launches)
         lora = _lora_checks(torch, ctx, job, post, base, home, trained,
@@ -3561,13 +3583,18 @@ def neural_phase(torch, log, home, yard):
             "resumedBitEqual": resumed[-1] == got[-1],
             "restoredStep": meta_r["checkpointRestores"][-1]["step"]}
 
-        # (e) the GridSearch over $cnn through /model and /tune
+        # (e) the GridSearch over $cnn through /model and /tune, every
+        # point a trial of its own (the fusion phase fuses this sweep)
         model("sweep", "GridSearch", {"estimator": "$cnn",
                                       "param_grid": SWEEP_GRID})
         _reset_launches(attn)
         t0 = time.monotonic()
-        meta_s = run("tune", "sweep_t", "sweep", "fit",
-                     {"x": "$pixels", "y": "$labels", "epochs": 1})
+        os.environ["LO_SWEEP_FUSION"] = "0"
+        try:
+            meta_s = run("tune", "sweep_t", "sweep", "fit",
+                         {"x": "$pixels", "y": "$labels", "epochs": 1})
+        finally:
+            os.environ["LO_SWEEP_FUSION"] = "1"
         sweep_s = time.monotonic() - t0
         paths["neuralGridSearch"] = _launches(attn)
         swept = ctx.artifacts.load("sweep_t")
@@ -4016,7 +4043,9 @@ def keras_phase(torch, log, home, yard):
                               "beforeBytes": torch.cuda.memory_allocated()})
             return real_trial(self, combo, *args, **kwargs)
 
+        # every point a trial of its own (the fusion phase fuses it)
         sweep_lib.GridSearch._run_trial = measured_trial
+        os.environ["LO_SWEEP_FUSION"] = "0"
         try:
             t0 = time.monotonic()
             meta_t = run("tune", "rn_tune", "rn_sweep", "fit",
@@ -4025,6 +4054,7 @@ def keras_phase(torch, log, home, yard):
             tune_s = time.monotonic() - t0
         finally:
             sweep_lib.GridSearch._run_trial = real_trial
+            os.environ["LO_SWEEP_FUSION"] = "1"
         swept = ctx.artifacts.load("rn_tune")
         befores = [m["beforeBytes"] for m in trial_mem]
         leaked = max(befores) - min(befores)
@@ -4059,6 +4089,728 @@ def keras_phase(torch, log, home, yard):
     out["phaseSeconds"] = time.monotonic() - phase_t0
     log.append("keras " + json.dumps(out))
     return {"keras": launched}
+
+
+# ----------------------------------------------------------------------
+# sweep fusion: the keras path's sweeps as fused cohorts
+# ----------------------------------------------------------------------
+FUSION_LSTM_ROWS = 2048
+FUSION_LSTM_GRID = {"learning_rate": [1e-3, 3e-3]}
+# a cohort whose second config cannot keep up: early stop freezes it
+EARLYSTOP_GRID = {"learning_rate": [3e-3, 1e-8]}
+EARLYSTOP_EPOCHS, EARLYSTOP_BATCH = 4, 64
+FUSION_TOL = 1e-4
+# fused and unfused sweeps run in the keras path's bf16 (seconds, launches)
+# and in float32 without TF32, also with cuDNN off (PyTorch's own
+# convolutions): mode -> (compute dtype, cuDNN on)
+FUSION_MODES = {"bfloat16": ("bfloat16", True), "float32": ("float32", True),
+                "float32CudnnOff": ("float32", False)}
+FUSION_KEYS = ("fusedTrials", "cohorts", "fallbackTrials", "earlyStopped")
+
+
+def _device_launches(torch, fn) -> tuple:
+    """``(fn(), kernels the card ran while it did)``, copies and fills
+    left out, from a CUDA-only profiler window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and not e.key.startswith(("Memcpy", "Memset")))
+    del prof
+    return out, n
+
+
+def _sweep_gaps(fused, unfused) -> dict:
+    """Each point's largest metric gap between a fused and an unfused
+    sweep of one grid, with the points and best params of both."""
+    gaps = [max(abs(f[k] - u[k]) for k in u) if sorted(f) == sorted(u)
+            else float("inf")
+            for f, u in zip(fused.cv_results_["metrics"],
+                            unfused.cv_results_["metrics"])]
+    return {"points": fused.cv_results_["params"],
+            "samePoints": fused.cv_results_["params"] ==
+            unfused.cv_results_["params"],
+            "maxGapPerPoint": gaps,
+            "bestParams": [fused.best_params_, unfused.best_params_],
+            "metricsFused": fused.cv_results_["metrics"],
+            "metricsUnfused": unfused.cv_results_["metrics"]}
+
+
+def _grad_gap(a, b, i=None) -> float:
+    """Relative L2 of gradient dict ``a`` (config ``i`` of a stacked one)
+    against ``b``, over every tensor."""
+    norm2 = sum(float(g.double().norm()) ** 2 for g in b.values())
+    return math.sqrt(sum(float(((a[k] if i is None else a[k][i]).double()
+                                - g.double()).norm()) ** 2
+                         for k, g in b.items()) / norm2)
+
+
+def _fused_first_step(torch, body, x, y, lrs) -> dict:
+    """One float32 step (TF32 off) of ``body`` from one init on one
+    batch, through the unfused engine and through the fused engine over
+    the learning rates ``lrs``, with cuDNN off (PyTorch's own
+    convolutions): each config's train and inference loss, its whole
+    gradient (relative L2 over every tensor) and each new batch
+    statistic against the unfused step's. With cuDNN on, the fused and
+    the unfused gradients' gap and the unfused gradient's own gap to the
+    cuDNN-off one. A step's gradients do not depend on the learning
+    rate, so every config must give them."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.models.neural import (
+        _LOSSES, _METRICS, NeuralModel, build_optimizer_factory)
+    from learningorchestra_tpu_torch.runtime import engine as engine_lib
+    from learningorchestra_tpu_torch.runtime.data import MASK_KEY
+
+    os.environ["LO_COMPUTE_DTYPE"] = "float32"
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        model = NeuralModel(body, device="cuda")
+        model._build_params(model._coerce_x(x))
+        eng = model._get_engine()
+        batch = eng._to_device(
+            {"x": model._coerce_x(x), "y": y.astype(np.int64),
+             MASK_KEY: np.ones(len(x), np.float32)}, model.device)
+        feng = engine_lib.FusedEngine(
+            apply_fn=model._fused_apply_fn, loss_fn=_LOSSES[model.loss_name],
+            optimizer_factory=build_optimizer_factory(model.optimizer_spec),
+            hyper={"learning_rate": lrs},
+            metrics={n: _METRICS[n] for n in model.metric_names},
+            compute_dtype=torch.float32)
+        state = feng.init_fused_state(model.params, model.model_state)
+        runs = {}
+        for cudnn in (False, True):
+            torch.backends.cudnn.enabled = cudnn
+            try:
+                grads, stats, metrics = eng._micro_step(
+                    model.params, model.model_state, batch, 0)
+                fgrads, fstats, fmetrics = feng._fused_micro(
+                    state.params, state.model_state, batch, 0)
+                with torch.inference_mode():
+                    loss = eng._loss(eng._cast(model.params), batch, False,
+                                     None, model.model_state)[0]
+                    floss = feng._vmapped(state.params, state.model_state,
+                                          batch, False, None)[0]
+            finally:
+                torch.backends.cudnn.enabled = True
+            runs[cudnn] = (grads, stats, metrics, fgrads, fstats, fmetrics,
+                           loss, floss)
+        grads, stats, metrics, fgrads, fstats, fmetrics, loss, floss = \
+            runs[False]
+        train = float(metrics["loss"][0] / metrics["loss"][1])
+        out = {"trainLoss": train, "evalLoss": float(loss), "configs": [],
+               "cudnn": {
+                   "fusedVsUnfused": [_grad_gap(runs[True][3], runs[True][0],
+                                                i) for i in range(len(lrs))],
+                   "unfusedVsCudnnOff": _grad_gap(runs[True][0], grads)}}
+        for i in range(len(lrs)):
+            srel = {k: _rel_l2(torch, fstats[k][i], v)
+                    for k, v in stats.items()}
+            ftrain = float(fmetrics["loss"][0][i] / fmetrics["loss"][1][i])
+            out["configs"].append({
+                "trainLossRel": abs(ftrain - train) / abs(train),
+                "evalLossRel": abs(float(floss[i]) - float(loss)) /
+                abs(float(loss)),
+                "gradRelL2": _grad_gap(fgrads, grads, i),
+                "statsRelL2Max": max(srel.values()) if srel else 0.0,
+                "gradients": len(grads), "statistics": len(srel)})
+        return out
+    finally:
+        os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def fusion_phase(torch, log, home, yard):
+    """Sweep fusion on the card (the ``fusion`` line): (a) workflow 2's
+    GridSearch (the tutorial CNN over 1024 MNIST-shaped rows,
+    ``learning_rate`` 1e-3/3e-4 x ``batch_size`` 128/256, 1 epoch)
+    through ``/model`` and ``/tune``, fused and with
+    ``LO_SWEEP_FUSION=0``, in bf16 and in float32 (TF32 off): 2 cohorts,
+    ``fusedTrials`` 4, ``fallbackTrials`` 0; in float32 each point's
+    metrics within 1e-4 of the unfused run's and the same
+    ``best_params_`` (bf16's gaps recorded); both sweeps' seconds, and the
+    kernels the card runs an optimizer step (bf16) fused (2 configs) and
+    unfused (1); (b) BASELINE
+    config 5's sweep: ResNet-50 (1000 classes, 224x224x3) made through
+    ``tensorflow.keras.applications`` and swept over two learning rates
+    on 64 images at batch 32, fused and unfused under the same checks
+    but the 1e-4 bound, in bf16 and in float32 with cuDNN off:
+    ResNet-50's gradient at init is ill-conditioned (cuDNN's algorithms
+    move it by percents) and Adam's first steps amplify the rest, so its
+    points' gaps are recorded and the fused first step is held instead,
+    in float32 with cuDNN off: each config's train and inference loss,
+    its whole gradient and every new batch statistic within 1e-4
+    (relative) of the unfused step's (with cuDNN on, the gaps are
+    recorded); every batch statistic of each
+    fused config moved; (c) the
+    IMDb-shaped LSTM (2048 rows of 200 ids, batch 128) over two learning
+    rates, fused and unfused under the same checks; (d) an early-stop
+    margin (0.05 from epoch 1) that freezes the trailing config of a CNN
+    cohort over 4 epochs, its stopped epoch; (e) ``/metrics``
+    ``sweepFusion`` moved by the sum of the phase's ``fusion_info_``.
+    Every fused cohort ran on CUDA tensors, the card's memory is back
+    within 1 MiB after each cohort (the probes' seconds are taken out of
+    the sweeps' seconds), and no flash kernel launches."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+    from learningorchestra_tpu_torch.models.sweep import GridSearch
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime import engine as engine_lib
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    phase_t0 = time.monotonic()
+    out, problems = {}, []
+    zero = dict.fromkeys(COUNTERS, 0)
+    cohort_mem, cohorts = [], []
+    real_cohort = GridSearch._run_fused_cohort
+    real_fit_fused = engine_lib.FusedEngine.fit_fused
+
+    probe_s = [0.0]  # the memory probes' own seconds, kept out of timings
+
+    def measured_cohort(self, *args, **kwargs):
+        t0 = time.monotonic()
+        before = _card_bytes(torch)
+        t1 = time.monotonic()
+        try:
+            return real_cohort(self, *args, **kwargs)
+        finally:
+            t2 = time.monotonic()
+            cohort_mem.append({"beforeBytes": before,
+                               "afterBytes": _card_bytes(torch),
+                               "cohortSeconds": t2 - t1})
+            probe_s[0] += (t1 - t0) + (time.monotonic() - t2)
+
+    def watched_fit_fused(self, state, *args, **kwargs):
+        init = {k: v.detach().clone() for k, v in state.model_state.items()}
+        on_card = all(p.is_cuda for p in state.params.values())
+        res = real_fit_fused(self, state, *args, **kwargs)
+        final = res[0].model_state
+        cohorts.append({
+            "configs": self.n_configs, "onCard": on_card,
+            "statistics": len(init), "stoppedEpochs": res[3],
+            "statisticsMovedPerConfig": [
+                sum(not torch.equal(final[k][i], init[k][i]) for k in init)
+                for i in range(self.n_configs)]})
+        del init, final
+        return res
+
+    _reset_launches(attn)
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    infos = []
+
+    def post(path, body):
+        got, answer = _http(base, "POST", path, body)
+        if got != 201:
+            raise AssertionError(f"POST {path}: {got} {answer}")
+
+    def model(name, module, cls, params):
+        post("/model/tensorflow", {"modelName": name, "modulePath": module,
+                                   "class": cls, "classParameters": params})
+        _poll(base, f"/model/tensorflow/{name}")
+
+    def tune(name, estimator, grid, data, params, fused):
+        """A GridSearch of ``grid`` over ``$estimator`` on ``/tune``:
+        (seconds, metadata, the fitted sweep)."""
+        os.environ["LO_SWEEP_FUSION"] = "1" if fused else "0"
+        model(name, "learningorchestra_tpu.models", "GridSearch",
+              {"estimator": f"${estimator}", "param_grid": grid})
+        t0, probes = time.monotonic(), probe_s[0]
+        post("/tune/tensorflow", {"name": f"{name}_t", "modelName": name,
+                                  "method": "fit", "methodParameters": dict(
+                                      params, x=f"${data}.x",
+                                      y=f"${data}.y")})
+        meta = _poll(base, f"/tune/tensorflow/{name}_t")
+        seconds = time.monotonic() - t0 - (probe_s[0] - probes)
+        infos.append(meta["sweepFusion"])
+        return seconds, meta, ctx.artifacts.load(f"{name}_t")
+
+    def hold(case, mode, fused_run, unfused_run, points, n_cohorts,
+             checked, bounded):
+        """The checks of one fused/unfused pair; in the ``checked`` mode
+        equal best params and, where ``bounded``, each point within
+        1e-4."""
+        (fs, fmeta, fused), (us, umeta, unfused) = fused_run, unfused_run
+        info = fmeta["sweepFusion"]
+        want = {"fusedTrials": points, "cohorts": n_cohorts,
+                "fallbackTrials": 0, "earlyStopped": 0}
+        gaps = _sweep_gaps(fused, unfused)
+        if info != want or umeta["sweepFusion"]["fusedTrials"] != 0 or \
+                not gaps["samePoints"]:
+            problems.append(f"{case} {mode}: sweepFusion {info}, unfused "
+                            f"{umeta['sweepFusion']}, want {want}")
+        if mode == checked and (
+                fused.best_params_ != unfused.best_params_ or bounded and
+                not max(gaps["maxGapPerPoint"]) <= FUSION_TOL):
+            problems.append(f"{case} {mode}: fused vs unfused {gaps}")
+        return dict(gaps, sweepFusion=info, fusedSeconds=fs,
+                    unfusedSeconds=us)
+
+    def all_modes(case, run_pair, points, n_cohorts,
+                  modes=("bfloat16", "float32"), bounded=True):
+        """``run_pair(mode)`` -> (fused run, unfused run), in each of
+        ``modes`` (FUSION_MODES; float32 without TF32), the last one
+        checked."""
+        result = {}
+        for mode in modes:
+            dtype, cudnn = FUSION_MODES[mode]
+            os.environ["LO_COMPUTE_DTYPE"] = dtype
+            torch.backends.cudnn.allow_tf32 = dtype != "float32"
+            torch.backends.cudnn.enabled = cudnn
+            try:
+                pair = run_pair(mode)
+            finally:
+                os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+                torch.backends.cudnn.allow_tf32 = tf32
+                torch.backends.cudnn.enabled = True
+            result[mode] = hold(case, mode, *pair, points=points,
+                                n_cohorts=n_cohorts, checked=modes[-1],
+                                bounded=bounded)
+            del pair
+            gc.collect()
+        return result
+
+    def per_step(fn, steps):
+        _, n = _device_launches(torch, fn)
+        return n / steps
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    GridSearch._run_fused_cohort = measured_cohort
+    engine_lib.FusedEngine.fit_fused = watched_fit_fused
+    try:
+        before = json.loads(_raw(base, "/metrics")[1])["sweepFusion"]
+
+        # (a) workflow 2's GridSearch over REST, fused and unfused
+        rx, ry = _mnist_like(np, REST_ROWS, seed=1)
+        # the card's kernels an optimizer step (one step trains both
+        # configs fused, one config unfused), after a first use of each
+        # path, timed apart from the sweeps
+        cnn = NeuralModel(TUTORIAL_CNN, device="cuda")
+        cnn._build_params(rx[:1])
+        batch = SWEEP_GRID["batch_size"][0]
+        steps = -(-REST_ROWS // batch)
+        hyper = [{"learning_rate": v} for v in SWEEP_GRID["learning_rate"]]
+        first_use = {}
+        for name, fn in (("fused", lambda: cnn.fit_sweep_fused(
+                rx, ry, hyper, batch_size=batch, epochs=1)),
+                ("unfused", lambda: cnn.fit(rx, ry, batch_size=batch,
+                                            epochs=1))):
+            t0 = time.monotonic()
+            fn()
+            torch.cuda.synchronize()
+            first_use[name] = time.monotonic() - t0
+        launches_per_step = {
+            "fused2Configs": per_step(lambda: cnn.fit_sweep_fused(
+                rx, ry, hyper, batch_size=batch, epochs=1), steps),
+            "unfused1Config": per_step(lambda: cnn.fit(
+                rx, ry, batch_size=batch, epochs=1), steps),
+            "batch": batch, "steps": steps,
+            "firstUseSeconds": first_use}
+        del cnn
+        _save_arrays(ctx, "mnist", {"x": rx, "y": ry})
+        model("cnn", "learningorchestra_tpu.models", "NeuralModel",
+              {"layer_configs": TUTORIAL_CNN})
+        out["cnn"] = all_modes("cnn", lambda mode: [
+            tune(f"cnn_{mode}_{int(f)}", "cnn", SWEEP_GRID, "mnist",
+                 {"epochs": 1}, f) for f in (True, False)], 4, 2)
+        out["cnn"]["launchesPerStep"] = launches_per_step
+
+        # (b) BASELINE config 5's sweep
+        rng = np.random.default_rng(5)
+        images = rng.standard_normal((RESNET_TUNE_IMAGES, 224, 224, 3),
+                                     dtype=np.float32)
+        labels = rng.integers(0, 1000, RESNET_TUNE_IMAGES).astype(np.int32)
+        _save_arrays(ctx, "rn_data", {"x": images, "y": labels})
+        model("rn", "tensorflow.keras.applications", "ResNet50",
+              {"input_shape": [224, 224, 3]})
+        n_before = len(cohorts)
+        # ResNet-50's gradient at init is ill-conditioned: cuDNN's
+        # algorithms move it by percents against PyTorch's own
+        # convolutions, and cuDNN's grouped ones (the fused path's)
+        # another way (the first step records both), and Adam's first
+        # steps amplify what is left; so its sweep's points are recorded
+        # (float32 with cuDNN off, where only the summation order
+        # differs) and its first step is held to 1e-4
+        modes = ("bfloat16", "float32CudnnOff")
+        out["baseline5"] = all_modes("baseline5", lambda mode: [
+            tune(f"rn_{mode}_{int(f)}", "rn", {
+                "learning_rate": KERAS_LR_GRID}, "rn_data",
+                {"epochs": 1, "batch_size": RESNET_PRE_BATCH}, f)
+            for f in (True, False)], 2, 1, modes=modes, bounded=False)
+        first = _fused_first_step(
+            torch, ctx.artifacts.load("rn").layer_configs,
+            images[:RESNET_PRE_BATCH], labels[:RESNET_PRE_BATCH],
+            KERAS_LR_GRID)
+        out["baseline5"]["firstStepFloat32"] = first
+        if not all(c["trainLossRel"] <= FUSION_TOL and
+                   c["evalLossRel"] <= FUSION_TOL and
+                   c["gradRelL2"] <= FUSION_TOL and
+                   c["statsRelL2Max"] <= FUSION_TOL and c["statistics"]
+                   for c in first["configs"]):
+            problems.append(f"baseline5: the fused first step {first}")
+        del images
+        rn_cohorts = cohorts[n_before:]
+        out["baseline5"]["fusedCohorts"] = rn_cohorts
+        if len(rn_cohorts) != len(modes) or any(
+                c["statistics"] == 0 or any(
+                    m != c["statistics"]
+                    for m in c["statisticsMovedPerConfig"])
+                for c in rn_cohorts):
+            problems.append(f"baseline5: batch statistics {rn_cohorts}")
+
+        # (c) the IMDb-shaped LSTM, direct
+        ix, iy = _imdb_like(np, FUSION_LSTM_ROWS, seed=3)
+
+        def lstm_pair(mode):
+            pair = []
+            for fused in (True, False):
+                os.environ["LO_SWEEP_FUSION"] = "1" if fused else "0"
+                est = NeuralModel(TUTORIAL_LSTM, device="cuda")
+                est.compile({"kind": "adam", "learning_rate": 1e-3})
+                t0, probes = time.monotonic(), probe_s[0]
+                sweep = GridSearch(est, FUSION_LSTM_GRID,
+                                   device="cuda").fit(
+                    ix, iy, epochs=1, batch_size=IMDB_BATCH)
+                seconds = time.monotonic() - t0 - (probe_s[0] - probes)
+                infos.append(sweep.fusion_info_)
+                pair.append((seconds, {"sweepFusion": sweep.fusion_info_},
+                             sweep))
+            return pair
+
+        out["lstm"] = all_modes("lstm", lstm_pair, 2, 1)
+        lstm = NeuralModel(TUTORIAL_LSTM, device="cuda")
+        lstm._build_params(lstm._coerce_x(ix[:1]))
+        steps = -(-FUSION_LSTM_ROWS // IMDB_BATCH)
+        hyper = [{"learning_rate": v}
+                 for v in FUSION_LSTM_GRID["learning_rate"]]
+        out["lstm"]["launchesPerStep"] = {
+            "fused2Configs": per_step(lambda: lstm.fit_sweep_fused(
+                ix, iy, hyper, batch_size=IMDB_BATCH, epochs=1), steps),
+            "unfused1Config": per_step(lambda: lstm.fit(
+                ix, iy, batch_size=IMDB_BATCH, epochs=1), steps),
+            "batch": IMDB_BATCH, "steps": steps,
+            "route": "folded: one cuDNN RNN call for every config, the "
+                     "config axis block-diagonal in the hidden axis"}
+        del lstm, ix
+
+        # (d) early stop freezes the trailing config
+        os.environ.update(LO_SWEEP_FUSION="1",
+                          LO_SWEEP_EARLYSTOP_MARGIN="0.05",
+                          LO_SWEEP_EARLYSTOP_MIN_EPOCHS="1")
+        try:
+            est = NeuralModel(TUTORIAL_CNN, device="cuda")
+            stopped = GridSearch(est, EARLYSTOP_GRID, refit=False,
+                                 device="cuda").fit(
+                rx, ry, epochs=EARLYSTOP_EPOCHS, batch_size=EARLYSTOP_BATCH)
+        finally:
+            for key in ("LO_SWEEP_EARLYSTOP_MARGIN",
+                        "LO_SWEEP_EARLYSTOP_MIN_EPOCHS"):
+                os.environ.pop(key, None)
+        infos.append(stopped.fusion_info_)
+        epochs_at = cohorts[-1]["stoppedEpochs"]
+        out["earlyStop"] = {
+            "grid": EARLYSTOP_GRID, "epochs": EARLYSTOP_EPOCHS,
+            "margin": 0.05, "sweepFusion": stopped.fusion_info_,
+            "stoppedEpochs": epochs_at,
+            "metrics": stopped.cv_results_["metrics"],
+            "bestParams": stopped.best_params_}
+        if stopped.fusion_info_["earlyStopped"] != 1 or epochs_at[0] is not \
+                None or not (epochs_at[1] or 0) >= 1 or \
+                stopped.best_params_ != {
+                    "learning_rate": EARLYSTOP_GRID["learning_rate"][0]}:
+            problems.append(f"early stop: {out['earlyStop']}")
+
+        # (e) /metrics moved by the phase's sweeps
+        after = json.loads(_raw(base, "/metrics")[1])["sweepFusion"]
+        moved = {k: after[k] - before[k] for k in FUSION_KEYS}
+        summed = {k: sum(i[k] for i in infos) for k in FUSION_KEYS}
+        out["metrics"] = {"moved": moved, "sumOfRuns": summed,
+                          "fusedEpochTraces": after["fusedEpochTraces"] -
+                          before["fusedEpochTraces"]}
+        if moved != summed:
+            problems.append(f"/metrics sweepFusion moved {moved}, the runs "
+                            f"sum to {summed}")
+    finally:
+        GridSearch._run_fused_cohort = real_cohort
+        engine_lib.FusedEngine.fit_fused = real_fit_fused
+        torch.backends.cudnn.allow_tf32 = tf32
+        os.environ["LO_SWEEP_FUSION"] = "1"
+        server.stop()
+        ctx.close()
+    out["cohorts"] = cohorts
+    out["cohortMemory"] = cohort_mem
+    out["memoryProbeSeconds"] = probe_s[0]
+    leaked = [m for m in cohort_mem
+              if abs(m["afterBytes"] - m["beforeBytes"]) > 1 << 20]
+    if leaked or not cohort_mem:
+        problems.append(f"card memory after a cohort: {cohort_mem}")
+    if not cohorts or not all(c["onCard"] for c in cohorts):
+        problems.append(f"fused cohorts off the card: {cohorts}")
+    launched = _launches(attn)
+    if launched != zero:
+        problems.append(f"the fusion phase launched {launched}")
+    out["launches"] = launched
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("fusion " + json.dumps(out))
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return {"fusion": launched}
+
+
+# ----------------------------------------------------------------------
+# checkpoints committed off the training thread
+# ----------------------------------------------------------------------
+CKPT_SHARDS = 4
+
+
+def _manifests(ck_dir: str) -> dict:
+    """Each committed step's manifest files (name -> sha256 and bytes)."""
+    out = {}
+    for name in sorted(os.listdir(ck_dir)):
+        if name.isdigit():
+            with open(os.path.join(ck_dir, name, "manifest.json")) as f:
+                out[int(name)] = json.load(f)["files"]
+    return out
+
+
+def _same_tree(np, a, b) -> bool:
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(
+            _same_tree(np, a[k], b[k]) for k in a)
+    return np.array_equal(np.asarray(a), np.asarray(b))
+
+
+def ckpt_async_phase(torch, log, home, yard):
+    """The checkpointed REST fit of the tutorial LM (bf16, 8 optimizer
+    steps, a 771 MB step) under ``LO_CKPT_ASYNC=1`` (the ``ckptAsync``
+    line): the losses of the synchronous fit bit for bit (the pipeline
+    phase's, else one run here), each step dir's payload files equal to
+    the synchronous run's (sha256 and bytes), exactly 128 launches of each
+    sm90 kernel; the train thread's stall a save (the snapshot) and the
+    commit's own seconds beside the synchronous commit's; a 1-epoch fit
+    PATCHed to 2 from the async steps equal to the uninterrupted fit;
+    ``ckpt_async_commit:1`` fails its job with an ``AsyncCheckpointError``
+    document and the next fit runs; a ``shards=4`` copy of a step dir
+    round-trips; an engine with another optimizer kind resumes the saved
+    params and step with a fresh optimizer state."""
+    import warnings
+
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
+    from learningorchestra_tpu_torch.services import faults
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    phase_t0 = time.monotonic()
+    x = yard.get("x")
+    if x is None:
+        x = _successor_windows(np, TRAIN_WINDOWS, TRAIN_SEQ, seed=0)
+    steps = TRAIN_EPOCHS * TRAIN_WINDOWS // TRAIN_BATCH
+    per_epoch = steps // TRAIN_EPOCHS
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo"),
+                                ckpt_async=True), device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    ck_root = ctx.config.checkpoints_dir
+    out, launches = {}, {}
+
+    def need(n_steps):
+        want = dict.fromkeys(COUNTERS, 0)
+        want.update(dict.fromkeys(
+            ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"),
+            LM_CONFIG["n_layers"] * n_steps * TRAIN_ACCUM))
+        return want
+
+    def job(name, params, patch=False):
+        """POST (or PATCH) a fit and wait for it: (seconds, metadata, its
+        epoch records, launches)."""
+        _reset_launches(attn)
+        n_docs = len(ctx.catalog.get_documents(name)) if patch else 0
+        t0 = time.monotonic()
+        if patch:
+            status, answer = _http(base, "PATCH", f"/train/tensorflow/{name}",
+                                   {"methodParameters": params})
+            if status != 200:
+                raise AssertionError(f"PATCH {name}: {status} {answer}")
+        else:
+            status, answer = _http(base, "POST", "/train/tensorflow", {
+                "name": name, "modelName": "lm", "method": "fit",
+                "methodParameters": params})
+            if status != 201:
+                raise AssertionError(f"POST {name}: {status} {answer}")
+        ctx.jobs.wait(name, timeout=600)
+        wall = time.monotonic() - t0
+        ran = _launches(attn)
+        docs = ctx.catalog.get_documents(name)[n_docs:]
+        records = [d["epochRecord"] for d in docs if "epochRecord" in d]
+        return wall, ctx.catalog.get_metadata(name), records, ran, docs
+
+    fit = {"x": "$corpus.tokens", "batch_size": TRAIN_BATCH,
+           "epochs": TRAIN_EPOCHS, "grad_accum": TRAIN_ACCUM,
+           "checkpoint": True}
+    try:
+        _save_arrays(ctx, "corpus", {"tokens": x})
+        status, answer = _http(base, "POST", "/model/tensorflow", {
+            "modelName": "lm", "modulePath": "learningorchestra_tpu.models",
+            "class": "LanguageModel", "classParameters": LM_CONFIG})
+        if status != 201:
+            raise AssertionError(f"POST /model: {status} {answer}")
+        _poll(base, "/model/tensorflow/lm")
+
+        sync = yard.get("syncCheckpoint")
+        if sync is None:
+            ctx.config.ckpt_async = False
+            wall, meta, records, ran, _ = job("lm_sync", fit)
+            ctx.config.ckpt_async = True
+            sync = {"losses": [r["loss"] for r in records],
+                    "manifests": _manifests(os.path.join(ck_root,
+                                                         "lm_sync")),
+                    "commitSeconds": [c["seconds"] for c in
+                                      meta["checkpointCommits"]],
+                    "fitWallSeconds": wall, "source": "this phase"}
+        out["sync"] = {k: v for k, v in sync.items() if k != "manifests"}
+
+        # the async fit
+        wall, meta, records, launches["ckptAsyncFit"], _ = job("lm_t", fit)
+        losses = [r["loss"] for r in records]
+        manifests = _manifests(os.path.join(ck_root, "lm_t"))
+        snaps = meta.get("checkpointSnapshots", [])
+        commits = meta.get("checkpointCommits", [])
+        if losses != sync["losses"]:
+            raise AssertionError(f"async fit losses {losses}, synchronous "
+                                 f"{sync['losses']}")
+        if {str(k): v for k, v in manifests.items()} != \
+                {str(k): v for k, v in sync["manifests"].items()}:
+            raise AssertionError(f"async step dirs {manifests} differ from "
+                                 f"the synchronous {sync['manifests']}")
+        if launches["ckptAsyncFit"] != need(steps):
+            raise AssertionError(f"async fit launched "
+                                 f"{launches['ckptAsyncFit']}")
+        if [s["step"] for s in snaps] != [per_epoch * (e + 1) for e in
+                                          range(TRAIN_EPOCHS)] or \
+                [c["step"] for c in commits] != [s["step"] for s in snaps]:
+            raise AssertionError(f"snapshots {snaps}, commits {commits}")
+        out["async"] = {
+            "losses": losses, "lossesEqualSync": True,
+            "payloadFilesEqualSync": True, "fitWallSeconds": wall,
+            "epochSeconds": [r["epochSeconds"] for r in records],
+            "snapshotSeconds": [s["seconds"] for s in snaps],
+            "snapshotBytes": [s["bytes"] for s in snaps],
+            "commitSeconds": [c["seconds"] for c in commits],
+            "commitBytes": [c["bytes"] for c in commits],
+            "checkpointSnapshotSeconds": meta["checkpointSnapshotSeconds"],
+            "checkpointCommitSeconds": meta["checkpointCommitSeconds"],
+            "launches": launches["ckptAsyncFit"]}
+
+        # a commit that fails on the worker fails its job
+        ctx.config.fault_inject = "ckpt_async_commit:1"
+        faults.reset()
+        try:
+            _, meta_f, _, launches["ckptAsyncFault"], docs = job(
+                "lm_fault", dict(fit, epochs=1))
+        finally:
+            ctx.config.fault_inject = ""
+            faults.reset()
+        failed = [d for d in docs if d.get("exception")]
+        if meta_f.get("finished") or not failed or \
+                "AsyncCheckpointError" not in failed[-1]["exception"]:
+            raise AssertionError(f"the faulted commit's job: {meta_f} "
+                                 f"{docs[-3:]}")
+        out["faultedCommit"] = {"status": meta_f.get("status"),
+                                "exception": failed[-1]["exception"][:300]}
+
+        # the next fit runs: 1 epoch, then PATCHed to 2 from its async
+        # step
+        _, _, first, launches["ckptAsyncResumeFirst"], _ = job(
+            "lm_rs", dict(fit, epochs=1))
+        wall_r, meta_r, second, launches["ckptAsyncResume"], _ = job(
+            "lm_rs", fit, patch=True)
+        resumed = ctx.artifacts.load("lm_rs")
+        trained = ctx.artifacts.load("lm_t")
+        same = all(torch.equal(resumed.params[k], trained.params[k])
+                   for k in trained.params)
+        if [r["loss"] for r in first] != losses[:1] or \
+                [r["loss"] for r in second] != losses[1:] or not same or \
+                launches["ckptAsyncResume"] != need(per_epoch) or \
+                not meta_r.get("checkpointRestores"):
+            raise AssertionError(f"async resume: {first} {second}, params "
+                                 f"equal {same}, "
+                                 f"{launches['ckptAsyncResume']}, {meta_r}")
+        out["resume"] = {"losses": [r["loss"] for r in first + second],
+                         "paramsEqualUninterrupted": same,
+                         "patchWallSeconds": wall_r,
+                         "restores": meta_r["checkpointRestores"]}
+        del resumed
+
+        # a shards=4 copy of the async run's newest step round-trips
+        tree = Checkpointer(os.path.join(ck_root, "lm_t")).saved_metadata(
+            steps)
+        sharded = Checkpointer(os.path.join(home, "sharded"),
+                               shards=CKPT_SHARDS)
+        t0 = time.monotonic()
+        sharded.save(steps, tree)
+        save_s = time.monotonic() - t0
+        files = _manifests(os.path.join(home, "sharded"))[steps]
+        t0 = time.monotonic()
+        back = Checkpointer(os.path.join(home, "sharded")).restore(tree)
+        restore_s = time.monotonic() - t0
+        if len(files) != CKPT_SHARDS or not _same_tree(np, back, tree):
+            raise AssertionError(f"shards={CKPT_SHARDS}: files {files}")
+        out["sharded"] = {"shards": CKPT_SHARDS, "saveSeconds": save_s,
+                          "restoreSeconds": restore_s,
+                          "bytesPerShard": [f["bytes"]
+                                            for f in files.values()]}
+        del tree, back
+
+        # another optimizer kind: the saved params, a fresh optimizer
+        trained.compile({"kind": "sgd", "learning_rate": 1e-3})
+        eng = trained._get_engine()
+        state = eng.init_state({k: torch.zeros_like(v).requires_grad_(
+            v.requires_grad) for k, v in trained.params.items()})
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            migrated = eng._maybe_restore(
+                state, Checkpointer(os.path.join(ck_root, "lm_t")))
+        said = [str(w.message) for w in caught]
+        grafted = all(torch.equal(state.params[k], trained.params[k])
+                      for k in trained.params)
+        fresh = set(state.opt_state) == {"trace"} and all(
+            not t.any() for t in state.opt_state["trace"].values())
+        if not (migrated and grafted and fresh and state.step == steps and
+                any("rebuilt optimizer state fresh" in m for m in said)):
+            raise AssertionError(f"params-only migration: {migrated} "
+                                 f"{grafted} {fresh} {state.step} {said}")
+        out["migration"] = {"from": "adamw", "to": "sgd", "step": state.step,
+                            "paramsEqualSaved": grafted,
+                            "optimizerStateFresh": fresh,
+                            "warning": [m for m in said
+                                        if "rebuilt" in m][0][:200]}
+        del state, eng, trained
+    finally:
+        server.stop()
+        ctx.close()
+        shutil.rmtree(ck_root, ignore_errors=True)
+    out["launches"] = launches
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("ckptAsync " + json.dumps(out))
+    gc.collect()
+    return launches
 
 
 # ----------------------------------------------------------------------
@@ -5884,6 +6636,7 @@ def main() -> int:
         # iteration aid: the build, then the named self-contained phases
         # alone; no kernels line and no result line
         phases = {"neural": neural_phase, "keras": keras_phase,
+                  "fusion": fusion_phase, "ckptAsync": ckpt_async_phase,
                   "function": function_phase,
                   "transform": transform_phase, "builder": builder_phase,
                   "lifecycle": lifecycle_phase, "observe": observe_phase}
@@ -5916,6 +6669,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory() as home:
             paths.update(pipeline_phase(torch, log, home, yard))
         with tempfile.TemporaryDirectory() as home:
+            paths.update(ckpt_async_phase(torch, log, home, yard))
+        with tempfile.TemporaryDirectory() as home:
             paths.update(lm_options_phase(torch, log, home, yard))
         with tempfile.TemporaryDirectory() as home:
             paths.update(classifier_phase(torch, log, home, yard))
@@ -5926,6 +6681,8 @@ def main() -> int:
             paths.update(neural_phase(torch, log, home, {}))
         with tempfile.TemporaryDirectory() as home:
             paths.update(keras_phase(torch, log, home, {}))
+        with tempfile.TemporaryDirectory() as home:
+            paths.update(fusion_phase(torch, log, home, {}))
         with tempfile.TemporaryDirectory() as home:
             paths.update(function_phase(torch, log, home, {}))
         with tempfile.TemporaryDirectory() as home:

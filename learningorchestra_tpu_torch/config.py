@@ -4,7 +4,11 @@ slices and its pipeline services read.
 Environment variables keep the JAX package's names and defaults
 (``LO_HOME``, ``LO_SERVE_MAX_BATCH``, ``LO_SERVE_QUEUE``,
 ``LO_REQUEST_TIMEOUT``, ``LO_COMPUTE_DTYPE``, ``LO_MAX_WORKERS``,
-``LO_CKPT_QUARANTINE_KEEP``, ``LO_FAULT_INJECT`` and the paged and
+``LO_CKPT_QUARANTINE_KEEP``, ``LO_CKPT_ASYNC``, ``LO_CKPT_INFLIGHT``,
+``LO_FAULT_INJECT``, the sweeps' ``LO_SWEEP_FUSION``,
+``LO_SWEEP_EARLYSTOP_MARGIN``, ``LO_SWEEP_EARLYSTOP_MIN_EPOCHS``,
+``LO_SWEEP_EARLYSTOP_ALPHA`` and ``LO_SCAN_FIT_MAX_BYTES`` (the fused
+sweep's staging budget only), and the paged and
 quantized serving knobs ``LO_SERVE_KV``, ``LO_SERVE_PAGE_LEN``,
 ``LO_SERVE_PAGES``, ``LO_SERVE_TENANT_WEIGHTS``, ``LO_SERVE_KV_DTYPE``,
 ``LO_SERVE_WEIGHTS``, ``LO_SERVE_DRIFT_MAX``, ``LO_SERVE_DRIFT_EVERY``,
@@ -95,11 +99,44 @@ class Config:
     compute_dtype: str = dataclasses.field(
         default_factory=lambda: os.environ.get("LO_COMPUTE_DTYPE",
                                                "bfloat16"))
+    # the fused sweep path stages a cohort's training arrays on the card
+    # once when they take at most this many bytes (else the cohort runs
+    # as independent trials); 0 disables fusion's staging
+    scan_fit_max_bytes: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_SCAN_FIT_MAX_BYTES", str(1 << 30))))
     # newest quarantined (corrupt) checkpoint step dirs kept as
     # evidence; older ones are deleted
     ckpt_quarantine_keep: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get(
             "LO_CKPT_QUARANTINE_KEEP", "4")))
+    # checkpoint commits on a background worker (runtime/async_ckpt.py):
+    # the train thread pays a host snapshot per save; off by default
+    ckpt_async: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_CKPT_ASYNC", "0") not in ("0", "false", "no", ""))
+    # host snapshots queued for commit before save() blocks
+    ckpt_inflight: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_CKPT_INFLIGHT", "2")))
+    # sweep fusion: GridSearch/RandomSearch train same-architecture
+    # points that differ only in optimizer scalars as one stacked
+    # program (models/sweep.py); off = every point its own trial
+    sweep_fusion: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_SWEEP_FUSION", "1") not in ("0", "false", "no"))
+    # a fused config whose EMA validation score trails the cohort's
+    # best by more than this stops updating (0 disables), once every
+    # config trained min_epochs; alpha smooths the score
+    sweep_earlystop_margin: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SWEEP_EARLYSTOP_MARGIN", "0")))
+    sweep_earlystop_min_epochs: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_SWEEP_EARLYSTOP_MIN_EPOCHS", "2")))
+    sweep_earlystop_alpha: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_SWEEP_EARLYSTOP_ALPHA", "0.5")))
     # fault injection, site[:count[:mode[:arg]]] (services/faults.py)
     fault_inject: str = dataclasses.field(
         default_factory=lambda: os.environ.get("LO_FAULT_INJECT", ""))

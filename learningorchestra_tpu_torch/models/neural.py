@@ -40,7 +40,13 @@ in flax's bytes, so an artifact of either package loads in the other.
 An ``embedding`` first layer takes int64 token ids, and ids outside
 ``[0, vocab)`` raise ``ValueError`` before anything reaches the card
 (the JAX package takes them). Batch norm's statistics are the engine's
-model state. Mesh placement and sweep fusion are not ported.
+model state. Mesh placement is not ported.
+
+Sweep fusion: :meth:`NeuralModel.fit_sweep_fused` trains a cohort of
+sweep points that differ only in the optimizer scalars of
+:data:`_FUSABLE_BY_KIND` as one program over a leading config axis
+(:class:`~learningorchestra_tpu_torch.runtime.engine.FusedEngine`);
+:class:`Optimizer` takes those scalars as one value per config.
 """
 
 from __future__ import annotations
@@ -67,23 +73,69 @@ _KINDS = ("adam", "adamw", "sgd", "rmsprop", "adagrad")
 class Optimizer:
     """One optax update rule over a dict of float32 tensors, which
     :meth:`update` changes in place (optax returns new arrays; updating
-    in place saves a copy of every parameter per step)."""
+    in place saves a copy of every parameter per step).
 
-    def __init__(self, spec: Dict[str, Any]):
+    With ``hyper`` (a fused sweep: the spec's fusable scalars as arrays
+    of one value per config) every tensor carries a leading config axis
+    and each of those scalars is a float32 tensor of shape (N,) broadcast
+    over its leaf, with the values the unstacked rule would use: the
+    Python float each config's own spec gives, cast to float32."""
+
+    def __init__(self, spec: Dict[str, Any],
+                 hyper: Optional[Dict[str, Any]] = None):
         self.kind = spec.get("kind", "adam").lower()
         if self.kind not in _KINDS:
             raise ValueError(f"unknown optimizer: {self.kind!r}")
         self.spec = dict(spec)
-        self.lr = float(spec.get("learning_rate", spec.get("lr", 1e-3)))
+        self.hyper = None if hyper is None else {
+            k: np.asarray(v, np.float64).reshape(-1) for k, v in hyper.items()}
+
+        def value(key: str, default):
+            if self.hyper is not None and key in self.hyper:
+                return self.hyper[key]
+            return float(spec.get(key, default))
+
+        self.lr = value("learning_rate",
+                        spec.get("lr", _FUSABLE_DEFAULTS["learning_rate"]))
         if self.kind == "adam":
-            self.b1 = float(spec.get("beta_1", 0.9))
-            self.b2 = float(spec.get("beta_2", 0.999))
+            self.b1 = value("beta_1", 0.9)
+            self.b2 = value("beta_2", 0.999)
         else:
             self.b1, self.b2 = 0.9, 0.999
-        self.weight_decay = float(spec.get("weight_decay", 1e-4))
-        self.momentum = float(spec.get("momentum", 0.0))
+        self.weight_decay = value("weight_decay", 1e-4)
+        self.momentum = value("momentum", 0.0)
         self.nesterov = bool(spec.get("nesterov", False))
-        self.rho = float(spec.get("rho", 0.9))
+        self.rho = value("rho", 0.9)
+        # the scalars of the update, each a float or one value per config
+        self._consts = {
+            "-lr": -self.lr, "b1": self.b1, "1-b1": 1 - self.b1,
+            "b2": self.b2, "1-b2": 1 - self.b2, "wd": self.weight_decay,
+            "momentum": self.momentum, "rho": self.rho, "1-rho": 1 - self.rho}
+        self._lead = 0 if self.hyper is None else 1
+        self._on_device: Dict[Any, torch.Tensor] = {}
+
+    def _c(self, name: str, p: torch.Tensor, value=None):
+        """Scalar ``name`` for leaf ``p``: a float, or a config-axis
+        float32 tensor shaped to broadcast over ``p``."""
+        value = self._consts[name] if value is None else value
+        if not isinstance(value, np.ndarray):
+            return value
+        key = (name, p.device, p.ndim)
+        t = self._on_device.get(key)
+        if t is None:
+            t = torch.tensor(value, dtype=torch.float32, device=p.device)
+            t = t.view((-1,) + (1,) * (p.ndim - 1))
+            if name not in ("bc1", "bc2"):  # these change every step
+                self._on_device[key] = t
+        return t
+
+    @staticmethod
+    def _bias_correction(beta, count):
+        # optax raises the float32 decay to the int32 count
+        if isinstance(beta, np.ndarray):
+            return np.asarray([float(1 - np.float32(b) ** count)
+                               for b in beta])
+        return float(1 - np.float32(beta) ** count)
 
     def init(self, params: Params) -> Dict[str, Any]:
         def zeros():
@@ -102,7 +154,7 @@ class Optimizer:
     def update(self, params: Params, grads: Params,
                state: Dict[str, Any]) -> None:
         """One step: ``params`` and ``state`` change in place."""
-        lr = self.lr
+        c = self._c
         if self.kind in ("adam", "adamw"):
             count = state["count"] + 1
             state["count"] = count
@@ -113,36 +165,36 @@ class Optimizer:
                 bc1 = 1 - torch.pow(self.b1, count)
                 bc2 = 1 - torch.pow(self.b2, count)
             else:
-                # optax raises the float32 decay to the int32 count
                 count = np.float32(count)
-                bc1 = float(1 - np.float32(self.b1) ** count)
-                bc2 = float(1 - np.float32(self.b2) ** count)
+                bc1 = self._bias_correction(self.b1, count)
+                bc2 = self._bias_correction(self.b2, count)
         for name, p in params.items():
             g = grads[name].float()
             if self.kind in ("adam", "adamw"):
                 mu, nu = state["mu"][name], state["nu"][name]
-                mu.copy_((1 - self.b1) * g + self.b1 * mu)
-                nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
-                u = (mu / bc1) / (torch.sqrt(nu / bc2) + 1e-8)
-                if self.kind == "adamw" and p.ndim >= 2:
-                    u = u + self.weight_decay * p
-                u = -lr * u
+                mu.copy_(c("1-b1", p) * g + c("b1", p) * mu)
+                nu.copy_(c("1-b2", p) * (g * g) + c("b2", p) * nu)
+                u = (mu / c("bc1", p, bc1)) / (
+                    torch.sqrt(nu / c("bc2", p, bc2)) + 1e-8)
+                if self.kind == "adamw" and p.ndim - self._lead >= 2:
+                    u = u + c("wd", p) * p
+                u = c("-lr", p) * u
             elif self.kind == "sgd":
                 trace = state["trace"][name]
-                trace.copy_(g + self.momentum * trace)
-                u = g + self.momentum * trace if self.nesterov else trace
-                u = -lr * u
+                trace.copy_(g + c("momentum", p) * trace)
+                u = g + c("momentum", p) * trace if self.nesterov else trace
+                u = c("-lr", p) * u
             elif self.kind == "rmsprop":
                 nu, trace = state["nu"][name], state["trace"][name]
-                nu.copy_((1 - self.rho) * (g * g) + self.rho * nu)
-                u = -lr * (torch.rsqrt(nu + 1e-8) * g)
-                trace.copy_(u + self.momentum * trace)
+                nu.copy_(c("1-rho", p) * (g * g) + c("rho", p) * nu)
+                u = c("-lr", p) * (torch.rsqrt(nu + 1e-8) * g)
+                trace.copy_(u + c("momentum", p) * trace)
                 u = trace
             else:
                 ss = state["sum_of_squares"][name]
                 ss.add_(g * g)
                 u = torch.where(ss > 0, torch.rsqrt(ss + 1e-7), 0.0) * g
-                u = -lr * u
+                u = c("-lr", p) * u
             p.add_(u.to(p.dtype))
 
 
@@ -176,6 +228,43 @@ def build_optimizer(spec: Dict[str, Any], frozen_base: bool = False):
     adapters only."""
     opt = Optimizer(spec)
     return FrozenBaseOptimizer(opt) if frozen_base else opt
+
+
+# Which hyperparameters of each optimizer kind are pure scalar inputs to
+# the update, so a fused sweep may vary them per config without changing
+# the optimizer state's structure. Everything else (the kind, nesterov,
+# batch_size, epochs) changes the program and keeps that sweep point an
+# independent trial.
+_FUSABLE_BY_KIND = {
+    "adam": ("learning_rate", "beta_1", "beta_2"),
+    "adamw": ("learning_rate", "weight_decay", "beta_1", "beta_2"),
+    "sgd": ("learning_rate", "momentum"),
+    "rmsprop": ("learning_rate", "rho", "momentum"),
+    "adagrad": ("learning_rate",),
+}
+
+# the defaults of the update rules, for grid points that vary a key some
+# sibling point omits
+_FUSABLE_DEFAULTS = {"learning_rate": 1e-3, "beta_1": 0.9,
+                     "beta_2": 0.999, "weight_decay": 1e-4,
+                     "momentum": 0.0, "rho": 0.9}
+
+
+def fusable_hyperparams(spec: Dict[str, Any]) -> Tuple[str, ...]:
+    """The optimizer-spec keys a fused sweep may vary for this kind."""
+    return _FUSABLE_BY_KIND.get(spec.get("kind", "adam").lower(), ())
+
+
+def build_optimizer_factory(spec: Dict[str, Any]):
+    """``factory(hyper)``: the update rule of ``spec`` over tensors with
+    a leading config axis, ``hyper`` (name -> one value per config)
+    layered over the spec's own scalars."""
+    base = dict(spec)
+
+    def factory(hyper: Dict[str, Any]) -> Optimizer:
+        return Optimizer(base, hyper=hyper)
+
+    return factory
 
 
 def validation_tail_count(n: int, split: float) -> int:
@@ -350,6 +439,16 @@ class NeuralModel:
                   rng: Optional[int]):
         """``(outputs, new_model_state)``: float inputs in the compute
         dtype; in training the batch statistics are the new state."""
+        return self._forward(params, model_state, batch, train, rng, False)
+
+    def _fused_apply_fn(self, params, model_state, batch, train: bool,
+                        rng: Optional[int]):
+        """:meth:`_apply_fn` of one config under the fused sweep's
+        ``vmap``: recurrent layers run every config in one call."""
+        return self._forward(params, model_state, batch, train, rng, True)
+
+    def _forward(self, params, model_state, batch, train: bool,
+                 rng: Optional[int], config_axis: bool):
         x = batch["x"]
         if x.is_floating_point():
             x = x.to(self._compute)
@@ -361,7 +460,8 @@ class NeuralModel:
         updates: Optional[Dict[str, torch.Tensor]] = {} if train else None
         out = torch.func.functional_call(
             self.module, {**params, **buffers}, (x,),
-            {"train": train, "generator": generator, "updates": updates})
+            {"train": train, "generator": generator, "updates": updates,
+             "config_axis": config_axis})
         if updates:
             new_state = dict(model_state)
             new_state.update({_STATS + k: v for k, v in updates.items()})
@@ -486,6 +586,80 @@ class NeuralModel:
                 history[-1][f"val_{k}"] = v
         self.history.extend(history)
         return History(history)
+
+    # ------------------------------------------------------------------
+    # sweep fusion (models/sweep.py's cohort planner calls these)
+    # ------------------------------------------------------------------
+    def supports_sweep_fusion(self) -> bool:
+        """True when this instance trains through the stock NeuralModel
+        path: a subclass overriding the forward, ``fit`` or the engine
+        opts out, and its sweep points run as independent trials."""
+        cls = type(self)
+        return (cls._apply_fn is NeuralModel._apply_fn
+                and cls.fit is NeuralModel.fit
+                and cls._get_engine is NeuralModel._get_engine)
+
+    def fit_sweep_fused(self, x, y, hyper_overrides, *,
+                        batch_size: Optional[int] = None, epochs: int = 1,
+                        validation_data: Optional[Tuple] = None,
+                        shuffle: bool = True, score_fn=None,
+                        earlystop: Optional[Dict[str, Any]] = None,
+                        grad_accum: Optional[int] = None,
+                        ) -> Tuple[List[Dict[str, float]],
+                                   List[Optional[int]]]:
+        """Trains ``len(hyper_overrides)`` optimizer variants of this
+        model as one stacked program (:class:`~learningorchestra_tpu_torch.
+        runtime.engine.FusedEngine`): every config starts from this
+        model's init and sees the batches and dropout draws its own trial
+        would, ``grad_accum`` as ``fit`` takes it. ``(per-config
+        metrics, stopped epochs)``: the metrics of ``validation_data``
+        when given, else of the last epoch."""
+        self._set_grad_accum(grad_accum)
+        overrides = [dict(o) for o in hyper_overrides]
+        names = sorted({k for o in overrides for k in o})
+        allowed = set(fusable_hyperparams(self.optimizer_spec))
+        bad = [k for k in names if k not in allowed]
+        if bad or not names:
+            raise engine_lib.FusedSweepUnsupported(
+                f"hyperparameters {bad or names} are not fusable for "
+                f"optimizer kind "
+                f"{self.optimizer_spec.get('kind', 'adam')!r}")
+        # float64, so each config's scalars are its own spec's floats
+        hyper = {k: np.asarray(
+            [float(o.get(k, self.optimizer_spec.get(
+                k, _FUSABLE_DEFAULTS[k]))) for o in overrides], np.float64)
+            for k in names}
+        x = self._coerce_x(x)
+        batcher = self._batcher(x, y, batch_size, shuffle=shuffle)
+        if self.module is None:
+            self._build_params(x)
+        self._get_engine()  # resolves the compute dtype
+        feng = engine_lib.FusedEngine(
+            apply_fn=self._fused_apply_fn,
+            loss_fn=_LOSSES[self.loss_name],
+            optimizer_factory=build_optimizer_factory(self.optimizer_spec),
+            hyper=hyper,
+            metrics={n: _METRICS[n] for n in self.metric_names},
+            compute_dtype=self._compute, grad_accum=self._accum)
+        eval_batcher = None
+        if validation_data is not None:
+            eval_batcher = self._batcher(
+                validation_data[0], validation_data[1], batch_size)
+        state = feng.init_fused_state(self.params, self.model_state)
+        state, history, _active, stopped = feng.fit_fused(
+            state, batcher, epochs=epochs, seed=self.seed,
+            eval_batcher=eval_batcher, score_fn=score_fn,
+            earlystop=earlystop)
+        if eval_batcher is not None:
+            final = feng.evaluate_fused(state, eval_batcher)
+            per_config = [{k: float(v[i]) for k, v in final.items()}
+                          for i in range(feng.n_configs)]
+        else:
+            last = history[-1] if history else {}
+            per_config = [{k: float(v[i]) for k, v in last.items()
+                           if isinstance(v, list)}
+                          for i in range(feng.n_configs)]
+        return per_config, stopped
 
     def evaluate(self, x=None, y=None, batch_size: Optional[int] = None,
                  sample_weight=None, **_: Any) -> Dict[str, float]:

@@ -54,13 +54,18 @@ bidirectional kinds concatenate forward ``[:, -1]`` with backward
 ``HoistedLSTM`` tree (keras's packed ``kernel``, ``recurrent_kernel``,
 ``bias``, named by the layer); it runs through the same RNN op, whose
 input projection is already one product over every time step.
-``LO_RNN_UNROLL`` is a knob of XLA's scan and is not read here.
+``LO_RNN_UNROLL`` is a knob of XLA's scan and is not read here. Under a
+fused sweep's ``vmap`` (``config_axis``) torch's RNN op, which ``vmap``
+cannot batch, runs as the custom op ``lo_torch::folded_rnn``
+(:data:`folded_rnn`): one call for every config, the config axis folded
+block-diagonally into the hidden axis.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import threading
 import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -297,14 +302,19 @@ class BatchNorm(nn.Module):
         # data the channels_last format), float32 statistics and affine
         xc = _ncw(x) if x.ndim > 2 else x
         scale, bias = self.scale.float(), self.bias.float()
+        # (the output in the input's dtype: batch norm under a fused
+        # sweep's vmap computes in float32 and returns float32, and with
+        # running statistics takes float32 input only)
         if not train:
-            y = torch.native_batch_norm(xc, scale, bias, self.mean.float(),
+            xs = xc.float() if getattr(_CONFIG_AXIS, "on", False) else xc
+            y = torch.native_batch_norm(xs, scale, bias, self.mean.float(),
                                         self.var.float(), False, 0.0,
-                                        self.epsilon)[0]
+                                        self.epsilon)[0].to(x.dtype)
             return _nwc(y) if x.ndim > 2 else y
         y, mean, invstd = torch.native_batch_norm(xc, scale, bias, None,
                                                   None, True, 0.0,
                                                   self.epsilon)
+        y = y.to(x.dtype)
         if updates is not None:
             # the biased batch variance, from 1 / sqrt(var + eps)
             var = (invstd.detach().pow(-2) - self.epsilon).clamp_min(0.0)
@@ -433,6 +443,77 @@ def _run_rnn(op_name: str, x: torch.Tensor, weights: List[torch.Tensor],
         return _RNN_OPS[op_name](x, hx, w, True, 1, 0.0,
                                  torch.is_grad_enabled(), bidirectional,
                                  True)[0]
+
+
+def _fold_configs(op_name: str, x: torch.Tensor, weights: List[torch.Tensor],
+                  units: int, bidirectional: bool) -> torch.Tensor:
+    """Every config of a fused sweep in ONE call of torch's RNN op: ``x``
+    ``(n, b, t, in)`` and each weight with a leading config axis ``n``.
+    The config axis folds into the feature axes: inputs side by side
+    ``(b, t, n·in)``, each gate's weights block-diagonal over the configs
+    (a product with the identity, so every block is exact and the rest
+    0) and the biases side by side, so hidden unit ``c·units + j`` of the
+    folded layer is unit ``j`` of config ``c``. Outputs ``(n, b, t,
+    units · directions)``."""
+    n, b, t, fan_in = x.shape
+    gates = weights[0].shape[1] // units
+    eye = torch.eye(n, dtype=weights[0].dtype, device=x.device)
+
+    def block(w: torch.Tensor) -> torch.Tensor:
+        cols = w.shape[-1]
+        w = w.reshape(n, gates, units, cols).permute(1, 0, 2, 3)
+        folded = w[:, :, :, None, :] * eye[None, :, None, :, None]
+        return folded.reshape(gates * n * units, n * cols)
+
+    def side(bias: torch.Tensor) -> torch.Tensor:
+        return bias.reshape(n, gates, units).permute(1, 0, 2).reshape(-1)
+
+    dirs = 2 if bidirectional else 1
+    folded = []
+    for d in range(dirs):
+        w_ih, w_hh, b_ih, b_hh = weights[4 * d:4 * d + 4]
+        folded += [block(w_ih), block(w_hh), side(b_ih), side(b_hh)]
+    xf = x.permute(1, 2, 0, 3).reshape(b, t, n * fan_in)
+    y = _run_rnn(op_name, xf, folded, n * units, bidirectional)
+    return y.reshape(b, t, dirs, n, units).permute(3, 0, 1, 2, 4).reshape(
+        n, b, t, dirs * units)
+
+
+# set on the thread while a forward runs under a fused sweep's vmap
+_CONFIG_AXIS = threading.local()
+
+
+def _folded_rnn_plain(x, weights, op_name, units, bidirectional):
+    return _run_rnn(op_name, x, list(weights), units, bidirectional)
+
+
+def _folded_rnn_rule(info, in_dims, x, weights, op_name, units,
+                     bidirectional):
+    n = info.batch_size
+
+    def lead(t, dim):
+        return t.movedim(dim, 0) if dim is not None else t.expand(n, *t.shape)
+
+    x = lead(x, in_dims[0])
+    weights = [lead(w, d) for w, d in zip(weights, in_dims[1])]
+    return _fold_configs(op_name, x, weights, units, bidirectional), 0
+
+
+# torch's RNN op of one config, whose vmap rule runs every config of the
+# vmapped axis in one call (_fold_configs). Only the fused sweep calls it,
+# under vmap; gradients flow through the ops the rule runs.
+folded_rnn = torch.library.custom_op(
+    "lo_torch::folded_rnn", _folded_rnn_plain, mutates_args=(),
+    schema="(Tensor x, Tensor[] weights, str op_name, int units, "
+           "bool bidirectional) -> Tensor")
+folded_rnn.register_vmap(_folded_rnn_rule)
+
+
+def _rnn(op_name: str, x: torch.Tensor, weights: List[torch.Tensor],
+         units: int, bidirectional: bool, config_axis: bool) -> torch.Tensor:
+    if config_axis:
+        return folded_rnn(x, weights, op_name, units, bidirectional)
+    return _run_rnn(op_name, x, weights, units, bidirectional)
 
 
 def _run_loop(cell: SimpleCell, x: torch.Tensor, act) -> torch.Tensor:
@@ -582,7 +663,19 @@ class SequentialModule(nn.Module):
 
     def forward(self, x, train: bool = False,
                 generator: Optional[torch.Generator] = None,
-                updates: Optional[Dict[str, torch.Tensor]] = None):
+                updates: Optional[Dict[str, torch.Tensor]] = None,
+                config_axis: bool = False):
+        """``config_axis``: the forward runs under a fused sweep's
+        ``vmap``, whose recurrent layers go through :data:`folded_rnn`."""
+        if config_axis:
+            _CONFIG_AXIS.on = True
+            try:
+                return self._layers(x, train, generator, updates, True)
+            finally:
+                _CONFIG_AXIS.on = False
+        return self._layers(x, train, generator, updates, False)
+
+    def _layers(self, x, train, generator, updates, config_axis):
         for kind, cfg, owner, info in self._plan:
             mod = getattr(self, owner) if owner is not None else None
             if kind in ("dense", "conv2d", "conv1d", "conv2d_transpose"):
@@ -622,7 +715,7 @@ class SequentialModule(nn.Module):
                 if op == "loop":
                     x = _run_loop(mod, x, fn)
                 else:
-                    x = _run_rnn(op, x, mod.packed(), units)
+                    x = _rnn(op, x, mod.packed(), units, False, config_axis)
                 if not cfg.get("return_sequences", False):
                     x = x[:, -1, :]
             elif kind in _BIDIRECTIONAL:
@@ -630,7 +723,7 @@ class SequentialModule(nn.Module):
                 units = int(cfg["units"])
                 both = getattr(self, fwd).packed() + \
                     getattr(self, bwd).packed()
-                x = _run_rnn(base, x, both, units, bidirectional=True)
+                x = _rnn(base, x, both, units, True, config_axis)
                 if not cfg.get("return_sequences", False):
                     x = torch.cat([x[:, -1, :units], x[:, 0, units:]],
                                   dim=-1)

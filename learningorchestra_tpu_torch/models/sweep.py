@@ -3,7 +3,27 @@
 the GridSearchCV-shaped surface the tune route exists for (``fit``,
 ``best_params_``, ``best_score_``, ``cv_results_``, ``best_estimator_``).
 
-On one card every point runs as its own trial, one after another on the
+Sweep fusion (``LO_SWEEP_FUSION``, on by default, as in the JAX
+package): before any trial runs, :meth:`GridSearch._plan_cohorts`
+partitions the points into cohorts that share everything that shapes the
+program (architecture, optimizer kind, ``batch_size``, ``epochs``, model
+attributes) and differ only in the optimizer scalars the estimator
+declares fusable (``NeuralModel``'s ``_FUSABLE_BY_KIND``). Each cohort of
+two or more points trains as one stacked program
+(``NeuralModel.fit_sweep_fused``) under a ``fusedCohort`` span, its wall
+clock shared evenly among its points' ``fit_time``; ``grad_accum``
+reaches the fused fit. A cohort whose fused run fails for any reason (the
+data above ``LO_SCAN_FIT_MAX_BYTES``, an unfusable spec, a fit keyword
+the fused path does not take: ``sample_weight``, ``class_weight``,
+``validation_split``, ``checkpointer``, ``health_policy``) runs as
+independent trials, counted as ``fallbackTrials``;
+``LO_SWEEP_EARLYSTOP_MARGIN`` (with ``_MIN_EPOCHS`` and ``_ALPHA``)
+freezes a config that trails the cohort's best.
+``fusion_info_`` counts the sweep's ``fusedTrials``, ``cohorts``,
+``fallbackTrials`` and ``earlyStopped``; :func:`fusion_stats` the
+process's, with ``trialErrors`` and ``fusedEpochTraces``.
+
+Every other point runs as its own trial, one after another on the
 calling thread, as the JAX package runs them when one trial fits at a
 time: a clone of the estimator through its artifact protocol
 (``__lo_save__``/``__lo_load__`` on the estimator's device, weights
@@ -12,14 +32,10 @@ keywords or the model's attributes, a fit on the head of the data and an
 ``evaluate`` on the tail ``validation_split``. A failed point is recorded
 with its ``error`` and a score of -inf (its traceback's frames are
 cleared, so a failed trial's model does not hold card memory); a sweep
-whose every point failed raises the first cause. Each trial's model is
-collected before the next trial starts. The best point is
+whose every point failed raises the first cause. Each trial's (and each
+cohort's) model is collected before the next starts. The best point is
 refitted on all the data into ``best_estimator_``. The ``sweep_trial``
 fault site (:mod:`..services.faults`) fires at the start of each trial.
-
-Sweep fusion (the JAX package's fused cohorts, ``LO_SWEEP_FUSION``) is
-not ported: ``fusion_info_`` reports what the JAX package reports with
-fusion off, every point a trial of its own.
 """
 
 from __future__ import annotations
@@ -32,11 +48,13 @@ import random as random_mod
 import tempfile
 import time
 import traceback
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from learningorchestra_tpu_torch.config import Config, resolve_device
+from learningorchestra_tpu_torch.observability import trace as obs_trace
+from learningorchestra_tpu_torch.runtime import locks, preempt
 from learningorchestra_tpu_torch.runtime.data import dataframe_to_arrays
 from learningorchestra_tpu_torch.services import faults
 
@@ -45,6 +63,31 @@ _OPTIMIZER_KEYS = {"kind", "learning_rate", "lr", "momentum",
                    "weight_decay", "beta_1", "beta_2", "rho", "nesterov"}
 # names routed into fit() kwargs
 _FIT_KEYS = {"batch_size", "epochs"}
+# fit() keywords that change a trial's training and that the fused path
+# does not take: a cohort given one runs as trials
+_TRIAL_ONLY_KWARGS = ("sample_weight", "class_weight", "validation_split",
+                      "checkpointer", "health_policy")
+
+# process-wide fusion counters, the /metrics sweepFusion block and the
+# lo_sweep_* series (services/server.py)
+_FUSION_LOCK = locks.make_lock("sweep.fusion")
+_FUSION_STATS = {"fusedTrials": 0, "cohorts": 0, "fallbackTrials": 0,
+                 "earlyStopped": 0, "trialErrors": 0}
+
+
+def _fusion_count(**deltas: int) -> None:
+    with _FUSION_LOCK:
+        for k, v in deltas.items():
+            _FUSION_STATS[k] = _FUSION_STATS.get(k, 0) + v
+
+
+def fusion_stats() -> Dict[str, int]:
+    with _FUSION_LOCK:
+        out = dict(_FUSION_STATS)
+    from learningorchestra_tpu_torch.runtime import engine as engine_lib
+
+    out["fusedEpochTraces"] = engine_lib.fused_epoch_traces()
+    return out
 
 
 def _clone(estimator):
@@ -86,7 +129,8 @@ class GridSearch:
     ``TextClassifier``, ``LanguageModel``), scored by ``scoring`` from
     ``evaluate`` (``"auto"``: accuracy if reported, else minus the loss;
     ``"loss"`` is minimized). ``max_parallel`` is kept for the JAX
-    package's signature; on one card trials run one at a time.
+    package's signature; on one card trials run one at a time, after
+    the fused cohorts.
     ``device`` is where the sweep's artifacts load; trials run on the
     estimator's device."""
 
@@ -172,29 +216,159 @@ class GridSearch:
             return {"params": combo, "metrics": metrics,
                     "score": self._score(metrics),
                     "fit_time": round(time.perf_counter() - t0, 4)}
+        except preempt.JobCancelled:
+            raise
         except Exception as exc:
             # trial fault isolation: record the point and keep searching;
             # the exception rides along for an all-failed sweep, its
             # frames cleared so the failed model's memory is freed
             model = None
             traceback.clear_frames(exc.__traceback__)
+            _fusion_count(trialErrors=1)
             return {"params": combo, "metrics": {}, "score": float("-inf"),
                     "fit_time": round(time.perf_counter() - t0, 4),
                     "error": f"{type(exc).__name__}: {exc}", "_exc": exc}
 
     # ------------------------------------------------------------------
+    # the fusion planner
+    # ------------------------------------------------------------------
+    def _plan_cohorts(self, combos: List[Dict[str, Any]]
+                      ) -> Tuple[List[Dict[str, Any]], List[int]]:
+        """``(cohorts, residual indices)``. A cohort's points share every
+        program-shaping entry and differ only in the optimizer scalars
+        the estimator declares fusable for their kind; groups of one
+        stay residual."""
+        from learningorchestra_tpu_torch.models import neural as neural_lib
+
+        est = self.estimator
+        supports = getattr(est, "supports_sweep_fusion", None)
+        if supports is None or not supports():
+            return [], list(range(len(combos)))
+        spec = getattr(est, "optimizer_spec", None) or {}
+        base_kind = str(spec.get("kind", "adam")).lower()
+        groups: Dict[Any, List[Tuple[int, Dict[str, float],
+                                     Dict[str, Any]]]] = {}
+        residual: List[int] = []
+        for i, combo in enumerate(combos):
+            kind = str(combo.get("optimizer",
+                                 combo.get("kind", base_kind))).lower()
+            allowed = set(neural_lib._FUSABLE_BY_KIND.get(kind, ()))
+            hyper: Dict[str, float] = {}
+            shared: Dict[str, Any] = {}
+            for k, v in combo.items():
+                nk = "learning_rate" if k == "lr" else k
+                if nk in allowed and isinstance(v, (int, float)) \
+                        and not isinstance(v, bool):
+                    hyper[nk] = float(v)
+                else:
+                    shared[k] = v
+            if not hyper:
+                residual.append(i)
+                continue
+            key = (tuple(sorted((k, repr(v)) for k, v in shared.items())),
+                   tuple(sorted(hyper)))
+            groups.setdefault(key, []).append((i, hyper, shared))
+        cohorts = []
+        for members in groups.values():
+            if len(members) < 2:
+                residual.extend(i for i, _, _ in members)
+                continue
+            cohorts.append({"indices": [i for i, _, _ in members],
+                            "hyper": [h for _, h, _ in members],
+                            "shared": dict(members[0][2])})
+        residual.sort()
+        return cohorts, residual
+
+    def _run_fused_cohort(self, cohort: Dict[str, Any],
+                          combos: List[Dict[str, Any]], tx, ty, vx, vy,
+                          fit_kwargs: Dict[str, Any]
+                          ) -> Tuple[List[Dict[str, Any]], List[Any]]:
+        from learningorchestra_tpu_torch.runtime import engine as engine_lib
+
+        trial_only = [k for k in _TRIAL_ONLY_KWARGS if fit_kwargs.get(k)]
+        if trial_only:
+            raise engine_lib.FusedSweepUnsupported(
+                f"fit keywords {trial_only} run as independent trials")
+        model = _clone(self.estimator)
+        trial_kwargs = dict(fit_kwargs)
+        trial_kwargs.update(_apply_overrides(model, dict(cohort["shared"])))
+        cfg = Config()
+        earlystop = None
+        if cfg.sweep_earlystop_margin > 0:
+            earlystop = {"margin": cfg.sweep_earlystop_margin,
+                         "min_epochs": cfg.sweep_earlystop_min_epochs,
+                         "alpha": cfg.sweep_earlystop_alpha}
+        t0 = time.perf_counter()
+        per_config, stopped = model.fit_sweep_fused(
+            tx, ty, cohort["hyper"],
+            batch_size=trial_kwargs.get("batch_size"),
+            epochs=trial_kwargs.get("epochs", 1),
+            validation_data=(vx, vy),
+            shuffle=trial_kwargs.get("shuffle", True),
+            score_fn=self._score, earlystop=earlystop,
+            grad_accum=trial_kwargs.get("grad_accum"))
+        # one program trained the whole cohort: its wall clock is shared
+        # evenly, so mean_fit_time stays comparable across paths
+        dt = (time.perf_counter() - t0) / max(1, len(per_config))
+        results = []
+        for idx, metrics in zip(cohort["indices"], per_config):
+            results.append({"params": combos[idx], "metrics": metrics,
+                            "score": self._score(metrics),
+                            "fit_time": round(dt, 4)})
+        return results, stopped
+
+    def _run_cohorts(self, combos, tx, ty, vx, vy, fit_kwargs,
+                     results: List[Optional[Dict[str, Any]]]) -> List[int]:
+        """Trains every fusable cohort, filling ``results``; returns the
+        indices left for independent trials."""
+        cohorts, residual = self._plan_cohorts(combos)
+        for cohort in cohorts:
+            n = len(cohort["indices"])
+            try:
+                with obs_trace.span("fusedCohort", points=n,
+                                    hyper=sorted(cohort["hyper"][0])):
+                    cohort_results, stopped = self._run_fused_cohort(
+                        cohort, combos, tx, ty, vx, vy, fit_kwargs)
+            except preempt.JobCancelled:
+                raise
+            except Exception as exc:  # noqa: BLE001
+                # any fused failure reverts the cohort to independent
+                # trials: fusion is an optimization, never a behaviour
+                # change
+                traceback.clear_frames(exc.__traceback__)
+                residual.extend(cohort["indices"])
+                _fusion_count(fallbackTrials=n)
+                self.fusion_info_["fallbackTrials"] += n
+                continue
+            finally:
+                # the cohort's stacked state is free before the next
+                gc.collect()
+            for idx, res in zip(cohort["indices"], cohort_results):
+                results[idx] = res
+            n_stopped = sum(1 for s in stopped if s is not None)
+            self.fusion_info_["fusedTrials"] += n
+            self.fusion_info_["cohorts"] += 1
+            self.fusion_info_["earlyStopped"] += n_stopped
+            _fusion_count(fusedTrials=n, cohorts=1, earlyStopped=n_stopped)
+        return sorted(residual)
+
+    # ------------------------------------------------------------------
     def fit(self, x=None, y=None, **fit_kwargs) -> "GridSearch":
         combos = self._combinations()
         tx, ty, vx, vy = self._split(x, y)
-        results = []
-        for combo in combos:
-            results.append(self._run_trial(combo, tx, ty, vx, vy,
-                                           fit_kwargs))
+        self.fusion_info_ = {"fusedTrials": 0, "cohorts": 0,
+                             "fallbackTrials": 0, "earlyStopped": 0}
+        results: List[Optional[Dict[str, Any]]] = [None] * len(combos)
+        residual = list(range(len(combos)))
+        if Config().sweep_fusion:
+            residual = self._run_cohorts(combos, tx, ty, vx, vy, fit_kwargs,
+                                         results)
+        for i in residual:
+            results[i] = self._run_trial(combos[i], tx, ty, vx, vy,
+                                         fit_kwargs)
             # a model and its engine hold each other: collect the trial's
             # model now, so its card memory is free for the next trial
             gc.collect()
-        self.fusion_info_ = {"fusedTrials": 0, "cohorts": 0,
-                             "fallbackTrials": 0, "earlyStopped": 0}
         failed = [r for r in results if "error" in r]
         ok = [r for r in results if "error" not in r]
         if not ok:

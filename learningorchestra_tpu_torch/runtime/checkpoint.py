@@ -26,10 +26,21 @@ codec (:mod:`.serialization`):
   restore exercises the quarantine; each quarantined step counts in
   :func:`~learningorchestra_tpu_torch.runtime.health.health_stats`.
 
-Saves are synchronous, so :meth:`Checkpointer.wait_until_finished` and
-:meth:`Checkpointer.close` have nothing to wait for; the JAX package's
-asynchronous commit (``runtime/async_ckpt.py``) and its ``shards > 1``
-layout are not ported.
+With ``shards > 1`` a step is N byte-balanced sub-files
+``shard-00000-of-0000N.msgpack`` under one manifest, as the JAX package
+writes them: the state dict flattened to ``{"a/b/c": leaf}`` (an empty
+dict stays a leaf) and dealt greedily, largest leaf first, to the least
+loaded shard; every sub-file verifies on its own and restore merges
+them. A step dir of either layout, written by either package, restores
+in both.
+
+:meth:`Checkpointer.restore_partial` reads only the named subtrees of
+the newest verified step (the engine's params-only migration), with the
+same quarantine and fallback. Saves are synchronous, so
+:meth:`Checkpointer.wait_until_finished` and :meth:`Checkpointer.close`
+have nothing to wait for; ``runtime/async_ckpt.py`` commits off the
+training thread through :meth:`Checkpointer._commit_host`, the commit of
+a tree already in host memory.
 """
 
 from __future__ import annotations
@@ -42,6 +53,9 @@ import time
 import warnings
 from typing import Any, Dict, List, Optional
 
+import numpy as np
+import torch
+
 from learningorchestra_tpu_torch.observability import hist as obs_hist
 from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.runtime import health as health_lib
@@ -51,6 +65,7 @@ _MSGPACK_NAME = "checkpoint.msgpack"
 _MANIFEST_NAME = "manifest.json"
 _QUARANTINE_DIR = ".quarantine"
 _PROGRESS_NAME = "progress.json"
+_SHARD_PREFIX = "shard-"
 
 
 class CheckpointCorrupted(IOError):
@@ -118,9 +133,9 @@ class Checkpointer:
 
     def __init__(self, directory: str, max_to_keep: int = 3,
                  shards: int = 1):
-        if int(shards) != 1:
-            raise ValueError(f"shards={shards} (the sharded step layout) is "
-                             f"not yet ported to the PyTorch package")
+        # sub-files per step (the JAX package's multi-host layout); 1 is
+        # the single checkpoint.msgpack
+        self._shards = max(1, int(shards))
         self._dir = os.path.abspath(directory)
         os.makedirs(self._dir, exist_ok=True)
         self._max_to_keep = max_to_keep
@@ -182,30 +197,53 @@ class Checkpointer:
                     f"step {step}: {name} is {size} bytes, manifest says "
                     f"{meta.get('bytes')} (torn write?)")
 
-    def _read_verified(self, step: int) -> Any:
-        """The step's saved tree, its payload re-hashed against the
-        manifest (unverified for a dir without one)."""
-        manifest = self._load_manifest(step)
+    def _read_file_verified(self, step: int, name: str,
+                            meta: Optional[dict]) -> bytes:
+        """One payload file's bytes, re-hashed against its manifest entry
+        (unverified where the dir has no manifest)."""
         try:
-            with open(self._path(step, _MSGPACK_NAME), "rb") as f:
+            with open(self._path(step, name), "rb") as f:
                 data = f.read()
         except OSError as exc:
             raise CheckpointCorrupted(
                 f"step {step}: unreadable payload: {exc}") from exc
-        if manifest is not None:
-            meta = manifest["files"].get(_MSGPACK_NAME, {})
+        if meta is not None:
             if len(data) != meta.get("bytes"):
                 raise CheckpointCorrupted(
-                    f"step {step}: {_MSGPACK_NAME} is {len(data)} bytes, "
-                    f"manifest says {meta.get('bytes')} (torn write?)")
+                    f"step {step}: {name} is {len(data)} bytes, manifest "
+                    f"says {meta.get('bytes')} (torn write?)")
             digest = hashlib.sha256(data).hexdigest()
             if digest != meta.get("sha256"):
                 raise CheckpointCorrupted(
-                    f"step {step}: {_MSGPACK_NAME} sha256 {digest[:12]}… "
-                    f"does not match manifest "
-                    f"{str(meta.get('sha256'))[:12]}… (bit rot?)")
+                    f"step {step}: {name} sha256 {digest[:12]}… does not "
+                    f"match manifest {str(meta.get('sha256'))[:12]}… "
+                    f"(bit rot?)")
+        return data
+
+    def _read_verified(self, step: int) -> Any:
+        """The step's saved tree, every payload re-hashed against the
+        manifest (unverified for a dir without one); a sharded step's
+        sub-files merged."""
+        manifest = self._load_manifest(step)
+        files = manifest["files"] if manifest is not None else None
+        shards = sorted(n for n in files or () if n.startswith(_SHARD_PREFIX))
         try:
-            return serialization.msgpack_restore(data)
+            if not shards:
+                data = self._read_file_verified(
+                    step, _MSGPACK_NAME,
+                    None if files is None else files.get(_MSGPACK_NAME, {}))
+                return serialization.msgpack_restore(data)
+            flat: Dict[str, Any] = {}
+            for name in shards:
+                part = serialization.msgpack_restore(
+                    self._read_file_verified(step, name, files[name]))
+                if not isinstance(part, dict):
+                    raise CheckpointCorrupted(
+                        f"step {step}: {name} is not a shard map")
+                flat.update(part)
+            return _unflatten_state(flat)
+        except CheckpointCorrupted:
+            raise
         except Exception as exc:  # noqa: BLE001 — undecodable bytes
             raise CheckpointCorrupted(
                 f"step {step}: undecodable payload: {exc}") from exc
@@ -244,28 +282,57 @@ class Checkpointer:
         and in the ``lo_checkpoint_commit_seconds`` histogram."""
         t0 = time.monotonic()
         try:
-            self._save_impl(step, tree, t0)
+            self._commit_host(step, tree, t0)
         finally:
             _observe_commit(step, t0)
 
-    def _save_impl(self, step: int, tree: Any, t0: float) -> None:
-        parts = _parts(tree)
+    def _payloads(self, tree: Any) -> Dict[str, List[Any]]:
+        """``{file name: its bytes as parts}`` of one commit: the whole
+        state dict, or its shard maps."""
+        state = serialization.to_state_dict(tree)
+        if self._shards <= 1 or not isinstance(state, dict) or not state:
+            return {_MSGPACK_NAME: serialization.encode_parts(state)}
+        flat = _flatten_state(state)
+        n = min(self._shards, len(flat))
+        bins: List[Dict[str, Any]] = [{} for _ in range(n)]
+        loads = [0] * n
+        for key in sorted(flat, key=lambda k: (-_leaf_nbytes(flat[k]), k)):
+            i = loads.index(min(loads))
+            bins[i][key] = flat[key]
+            loads[i] += _leaf_nbytes(flat[key])
+        # a shard map's keys sorted, as flax's encoder writes a dict
+        return {f"{_SHARD_PREFIX}{i:05d}-of-{n:05d}.msgpack":
+                serialization.encode_parts(
+                    {k: bins[i][k] for k in sorted(bins[i])})
+                for i in range(n)}
+
+    def _commit_host(self, step: int, tree: Any,
+                     t0: Optional[float] = None) -> None:
+        """Commits ``step`` atomically from ``tree`` (device tensors are
+        read as the encoder reaches them; the async manager passes a host
+        copy): every payload file and the manifest written and fsynced
+        into ``<step>.tmp/``, then one rename. Appends the commit to
+        :attr:`commits`."""
+        t0 = time.monotonic() if t0 is None else t0
+        payloads = self._payloads(tree)
         final_dir = os.path.join(self._dir, str(step))
         tmp_dir = final_dir + ".tmp"
         shutil.rmtree(tmp_dir, ignore_errors=True)
         os.makedirs(tmp_dir)
-        digest = hashlib.sha256()
-        nbytes = 0
-        with open(os.path.join(tmp_dir, _MSGPACK_NAME), "wb") as f:
-            for part in parts:
-                f.write(part)
-                digest.update(part)
-                nbytes += len(part)
-            _fsync_file(f)
-        _chaos_corrupt(os.path.join(tmp_dir, _MSGPACK_NAME))
+        files = {}
+        for name, parts in payloads.items():
+            digest = hashlib.sha256()
+            nbytes = 0
+            with open(os.path.join(tmp_dir, name), "wb") as f:
+                for part in parts:
+                    f.write(part)
+                    digest.update(part)
+                    nbytes += len(part)
+                _fsync_file(f)
+            files[name] = {"sha256": digest.hexdigest(), "bytes": nbytes}
+        _chaos_corrupt(os.path.join(tmp_dir, next(iter(payloads))))
         manifest = {"step": int(step), "wallTime": time.time(),
-                    "files": {_MSGPACK_NAME: {
-                        "sha256": digest.hexdigest(), "bytes": nbytes}}}
+                    "files": files}
         with open(os.path.join(tmp_dir, _MANIFEST_NAME), "w") as f:
             json.dump(manifest, f)
             _fsync_file(f)
@@ -276,7 +343,8 @@ class Checkpointer:
         for old in self._step_dirs()[:-self._max_to_keep]:
             shutil.rmtree(os.path.join(self._dir, str(old)),
                           ignore_errors=True)
-        self.commits.append({"step": int(step), "bytes": nbytes,
+        self.commits.append({"step": int(step),
+                             "bytes": sum(m["bytes"] for m in files.values()),
                              "seconds": time.monotonic() - t0})
 
     # -- restore ---------------------------------------------------------
@@ -336,10 +404,46 @@ class Checkpointer:
 
     def saved_metadata(self, step: Optional[int] = None) -> Any:
         """The saved tree of ``step`` (default: the latest), verified,
-        as the codec reads it."""
+        as the codec reads it: the structure and shapes the engine's
+        params-only migration compares with the live state."""
         if step is None:
             step = self.latest_step()
         return None if step is None else self._read_verified(step)
+
+    def restore_partial(self, target_subtree: Dict[str, Any],
+                        step: Optional[int] = None) -> Any:
+        """Only the top-level subtrees named in ``target_subtree`` (such
+        as ``params`` and ``step``, leaving a drifted ``opt_state``
+        unread), each in its target's structure; None when no step
+        verifies or the saved tree lacks one of them. Verified as
+        :meth:`restore` is: a corrupt step is quarantined, and with
+        ``step=None`` the next newest is read; an explicit ``step``
+        raises."""
+        t0 = time.monotonic()
+        while True:
+            explicit = step is not None
+            if not explicit:
+                step = self.latest_step()
+            if step is None:
+                return None
+            try:
+                raw = self._read_verified(step)
+            except CheckpointCorrupted as exc:
+                self._quarantine(step, str(exc))
+                if explicit:
+                    raise
+                step = None
+                continue
+            break
+        if not isinstance(raw, dict):
+            return None
+        out = {}
+        for key, sub_target in target_subtree.items():
+            if key not in raw:
+                return None
+            out[key] = serialization.from_state_dict(sub_target, raw[key])
+        self.restores.append({"step": step, "seconds": time.monotonic() - t0})
+        return out
 
     # -- progress sidecar --------------------------------------------------
     def save_meta(self, meta: dict) -> None:
@@ -381,6 +485,40 @@ def _observe_commit(step: int, t0: float) -> None:
         obs_hist.observe("lo_checkpoint_commit_seconds", end - t0)
     except Exception:  # noqa: BLE001 — observability is advisory
         pass
+
+
+def _flatten_state(tree: Any, prefix: str = "") -> Dict[str, Any]:
+    """A nested state dict as ``{"a/b/c": leaf}``; an empty dict stays a
+    leaf (restoring into a target needs its key)."""
+    if isinstance(tree, dict) and tree:
+        out: Dict[str, Any] = {}
+        for key in tree:
+            joined = f"{prefix}/{key}" if prefix else str(key)
+            out.update(_flatten_state(tree[key], joined))
+        return out
+    return {prefix: tree}
+
+
+def _unflatten_state(flat: Dict[str, Any]) -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for key, value in flat.items():
+        parts = key.split("/")
+        node = out
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = value
+    return out
+
+
+def _leaf_nbytes(leaf: Any) -> int:
+    """A leaf's weight in the shard packing: its array bytes, at least 1
+    (the JAX package's measure)."""
+    if isinstance(leaf, torch.Tensor):
+        return max(1, leaf.numel() * leaf.element_size())
+    try:
+        return max(1, int(np.asarray(leaf).nbytes))
+    except Exception:  # noqa: BLE001 — a non-array leaf ({} node)
+        return 1
 
 
 def _leaves(tree: Any):

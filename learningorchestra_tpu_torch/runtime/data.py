@@ -56,12 +56,44 @@ class ArrayBatcher:
     def steps_per_epoch(self) -> int:
         return max(1, -(-self.num_samples // self.batch_size))
 
-    def epoch(self, epoch_index: int = 0) -> Iterator[Dict[str, np.ndarray]]:
-        n = self.num_samples
-        order = np.arange(n)
+    def total_bytes(self) -> int:
+        return sum(a.nbytes for a in self._arrays.values())
+
+    @property
+    def shuffles(self) -> bool:
+        return self._shuffle
+
+    def epoch_order(self, epoch_index: int = 0) -> np.ndarray:
+        """The sample order of epoch ``epoch_index`` (what :meth:`epoch`
+        batches)."""
+        order = np.arange(self.num_samples)
         if self._shuffle:
             rng = np.random.default_rng(self._seed + epoch_index)
             rng.shuffle(order)
+        return order
+
+    def padded_arrays(self) -> Dict[str, np.ndarray]:
+        """Every sample, padded with zero rows to ``steps_per_epoch *
+        batch_size``, and the ``MASK_KEY`` column, in natural order: row
+        ``i`` of an epoch's batch ``j`` is row ``order[j * batch_size +
+        i]`` of these, padding rows past ``num_samples``."""
+        n_total = self.steps_per_epoch * self.batch_size
+        pad = n_total - self.num_samples
+        out: Dict[str, np.ndarray] = {}
+        for key, arr in self._arrays.items():
+            if pad:
+                arr = np.concatenate(
+                    [arr, np.zeros((pad,) + arr.shape[1:], arr.dtype)])
+            out[key] = arr
+        mask = np.zeros((n_total,), np.float32)
+        mask[:self.num_samples] = 1.0 if self._sample_weight is None \
+            else self._sample_weight
+        out[MASK_KEY] = mask
+        return out
+
+    def epoch(self, epoch_index: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        n = self.num_samples
+        order = self.epoch_order(epoch_index)
         bs = self.batch_size
         for start in range(0, n, bs):
             idx = order[start:start + bs]

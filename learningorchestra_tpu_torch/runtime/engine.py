@@ -23,8 +23,11 @@ place. ``rng`` is an integer seed for the step's random draws
 Only params with ``requires_grad`` get gradients (a LoRA fine-tune
 freezes its base weights).
 
-With a checkpointer, ``fit`` follows the JAX package's per-step path:
-it restores the newest verified step before training, treats
+With a checkpointer (a :class:`~.checkpoint.Checkpointer` or the
+asynchronous :class:`~.async_ckpt.AsyncCheckpointManager`), ``fit``
+follows the JAX package's per-step path: it restores the newest verified
+step before training (a step of another state layout resumes its params
+alone, with a fresh optimizer state, where they still match), treats
 ``epochs`` as the total budget on a real resume (the epochs done come
 from the checkpointer's ``progress.json`` when it describes the restored
 step, else from the step count), and saves the train state after every
@@ -220,6 +223,30 @@ def _nest(flat: Params, leaf: Callable) -> Dict[str, Any]:
             node = node.setdefault(mod, {})
         node[last] = leaf(t, False)
     return tree
+
+
+def _lead(t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``t`` of shape (N,) viewed to broadcast over a config-axis
+    ``like``; a 0-d ``t`` (one config) as it is."""
+    return t if t.ndim == 0 else t.view((-1,) + (1,) * (like.ndim - 1))
+
+
+def _meta_leaf(t: torch.Tensor, transposed: bool) -> torch.Tensor:
+    """A shape-only leaf of ``t`` in the saved layout."""
+    return torch.empty(tuple(t.shape[::-1]) if transposed
+                       else tuple(t.shape), device="meta")
+
+
+def _same_structure(live: Any, saved: Any) -> bool:
+    """Whether two nested dicts have the same keys throughout and their
+    leaves the same shapes."""
+    if isinstance(live, dict) or isinstance(saved, dict):
+        if not (isinstance(live, dict) and isinstance(saved, dict)) or \
+                set(map(str, live)) != set(map(str, saved)):
+            return False
+        return all(_same_structure(live[k], saved[str(k)]) for k in live)
+    return tuple(getattr(live, "shape", ())) == \
+        tuple(getattr(saved, "shape", ()))
 
 
 # domain tags of a rollback's replay: its dropout stream is keyed by the
@@ -441,13 +468,17 @@ class Engine:
         return grads, metrics
 
     def _accum_step(self, params: Params, model_state: Params, batch,
-                    seed: int, step: int) -> Tuple[Params, Params, Metrics]:
+                    seed: int, step: int, micro_step: Optional[Callable] = None,
+                    ) -> Tuple[Params, Params, Metrics]:
         """Sequential micro-batch gradient accumulation: each micro
         gradient is the gradient of that micro's weighted-mean loss, so
         it is weighted by the micro's weight total and the sum
         normalized by the grand total — the single-batch step for any
         mask (a micro of padding only adds nothing). The model state
-        passes from each micro to the next."""
+        passes from each micro to the next. ``micro_step`` (default
+        :meth:`_micro_step`) may give one weight total per config, each
+        weighting its config's gradients."""
+        micro_step = micro_step or self._micro_step
         accum = self._grad_accum
         b = batch["x"].shape[0]
         if b % accum:
@@ -458,18 +489,19 @@ class Engine:
         sums: Metrics = {}
         for i in range(accum):
             micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
-            grads, model_state, metrics = self._micro_step(
+            grads, model_state, metrics = micro_step(
                 params, model_state, micro, _step_seed(seed, step, i))
             w = metrics["loss"][1].float()
             for k, g in grads.items():
-                g = g.float() * w
+                g = g.float() * _lead(w, g)
                 g_sum[k] = g if k not in g_sum else g_sum[k] + g
             for k, (s, c) in metrics.items():
                 if k in sums:
                     s, c = sums[k][0] + s, sums[k][1] + c
                 sums[k] = (s, c)
         w_total = sums["loss"][1].float().clamp_min(1e-9)
-        return {k: g / w_total for k, g in g_sum.items()}, model_state, sums
+        return ({k: g / _lead(w_total, g) for k, g in g_sum.items()},
+                model_state, sums)
 
     def _train_step_body(self, state: TrainState, batch,
                          seed: int) -> Metrics:
@@ -810,63 +842,119 @@ class Engine:
             checkpointer.save_meta({"step": int(state.step),
                                     "epochs_done": epoch + 1})
 
+    def _fill(self, live: Params, tree: Any) -> None:
+        """Copies a saved tree in the model's layout into ``live``."""
+        for name, t in live.items():
+            if self._layout is None:
+                path, transposed = (name,), False
+            else:
+                path, transposed = self._layout[1](name)
+            node = tree
+            for part in path:
+                node = node[part]
+            value = node.T if transposed else node
+            with warnings.catch_warnings():
+                # the codec's arrays view the file's bytes (read-only)
+                warnings.simplefilter("ignore", UserWarning)
+                src = torch.as_tensor(value) if not isinstance(
+                    value, torch.Tensor) else value
+            with torch.no_grad():
+                t.copy_(src)
+
+    @staticmethod
+    def _fill_model_state(live: Params, tree: Any) -> None:
+        for name, t in live.items():
+            node = tree
+            for part in name.split("."):
+                node = node[part]
+            with torch.no_grad():
+                t.copy_(torch.as_tensor(np.array(node)))
+
     def _load_saved(self, state: TrainState, raw: Dict[str, Any]) -> None:
         """Copies a restored saved form into ``state`` in place."""
-
-        def fill(live: Params, tree: Any) -> None:
-            for name, t in live.items():
-                if self._layout is None:
-                    path, transposed = (name,), False
-                else:
-                    path, transposed = self._layout[1](name)
-                node = tree
-                for part in path:
-                    node = node[part]
-                value = node.T if transposed else node
-                with warnings.catch_warnings():
-                    # the codec's arrays view the file's bytes (read-only)
-                    warnings.simplefilter("ignore", UserWarning)
-                    src = torch.as_tensor(value) if not isinstance(
-                        value, torch.Tensor) else value
-                with torch.no_grad():
-                    t.copy_(src)
-
-        fill(state.params, raw["params"])
+        self._fill(state.params, raw["params"])
         if self._stateful:
-            for name, t in state.model_state.items():
-                node = raw["model_state"]
-                for part in name.split("."):
-                    node = node[part]
-                with torch.no_grad():
-                    t.copy_(torch.as_tensor(np.array(node)))
+            self._fill_model_state(state.model_state, raw["model_state"])
         for key, value in state.opt_state.items():
             if isinstance(value, dict):
-                fill(value, raw["opt_state"][key])
+                self._fill(value, raw["opt_state"][key])
             else:
                 state.opt_state[key] = int(raw["opt_state"][key])
         state.step = int(raw["step"])
 
     def _maybe_restore(self, state: TrainState, checkpointer) -> bool:
         """Restores the newest verified checkpoint into ``state``; True
-        on a real resume. A checkpoint of another layout raises: the
-        JAX package's params-only migration is not ported."""
+        on a real resume. A checkpoint of another state layout resumes
+        its params alone where they still match (the params-only
+        migration, :meth:`_restore_params_only`, warning "rebuilt
+        optimizer state fresh"); where they do not, the fit trains from
+        scratch with a warning; where the checkpoint cannot be read, the
+        restore's error is raised."""
         if checkpointer is None or checkpointer.latest_step() is None:
             return False
-        target = self._saved_form(state, lambda t, transposed: torch.empty(
-            tuple(t.shape[::-1]) if transposed else tuple(t.shape),
-            device="meta"))
+        target = self._saved_form(state, _meta_leaf)
         try:
             raw = checkpointer.restore(target)
         except (ValueError, KeyError, TypeError) as exc:
-            raise ValueError(
-                f"the checkpoint's state layout differs from the live "
-                f"train state ({type(exc).__name__}: {exc}); resuming its "
-                f"params alone (the params-only migration) is not yet "
-                f"ported to the PyTorch package") from exc
+            reason = self._restore_params_only(state, checkpointer)
+            if reason == "ok":
+                warnings.warn(
+                    f"checkpoint state layout changed "
+                    f"({type(exc).__name__}: {exc}); resumed params at "
+                    f"step {state.step} and rebuilt optimizer state fresh",
+                    stacklevel=2)
+                return True
+            if reason == "unreadable":
+                # corruption, not drift: training from scratch could
+                # overwrite the last good step at the next save
+                raise
+            warnings.warn(
+                f"checkpoint restore failed ({type(exc).__name__}: {exc}); "
+                f"state layout changed and params could not be migrated — "
+                f"training from scratch instead of resuming", stacklevel=2)
+            return False
         if raw is None:
             return False
         self._load_saved(state, raw)
         return True
+
+    def _restore_params_only(self, state: TrainState, checkpointer) -> str:
+        """The layout-drift migration: grafts the checkpoint's params,
+        its step and (where its structure still matches) its model
+        state onto ``state``, and builds the optimizer state fresh. Only
+        those subtrees are read (:meth:`Checkpointer.restore_partial`),
+        so a drifted optimizer state is never decoded. ``"ok"``;
+        ``"mismatch"`` (the params themselves drifted: training from
+        scratch is legitimate); ``"unreadable"`` (the checkpoint could
+        not be read: the caller re-raises); ``"unsupported"``."""
+        if not (hasattr(checkpointer, "saved_metadata") and
+                hasattr(checkpointer, "restore_partial")):
+            return "unsupported"
+        meta = checkpointer.saved_metadata()
+        if not isinstance(meta, dict) or "params" not in meta:
+            return "mismatch"
+        live = self._tree(state.params, _meta_leaf)
+        if not _same_structure(live, meta["params"]):
+            return "mismatch"
+        target: Dict[str, Any] = {"params": live}
+        if "step" in meta:
+            target["step"] = np.int64(0)
+        graft_state = False
+        if self._stateful and state.model_state and "model_state" in meta:
+            live_state = _nest(state.model_state, _meta_leaf)
+            graft_state = _same_structure(live_state, meta["model_state"])
+            if graft_state:
+                target["model_state"] = live_state
+        raw = checkpointer.restore_partial(target)
+        if raw is None:
+            return "unreadable"
+        self._fill(state.params, raw["params"])
+        if graft_state:
+            self._fill_model_state(state.model_state, raw["model_state"])
+        state.opt_state = self._optimizer.init(state.params)
+        if "step" in raw:
+            state.step = int(raw["step"])
+        return "ok"
 
     # ------------------------------------------------------------------
     def fit(self, state: TrainState, batcher: ArrayBatcher,
@@ -1023,3 +1111,273 @@ class Engine:
                 outputs = self._predict_transform(outputs)
             outs.append(to_host(outputs.float()))
         return np.concatenate(outs, axis=0)[:batcher.num_samples]
+
+
+# ----------------------------------------------------------------------
+# sweep fusion: N configs of one architecture that differ only in
+# optimizer scalars train as one program over a leading config axis
+# ----------------------------------------------------------------------
+_FUSED_STATS = {"epochTraces": 0}
+
+
+def fused_epoch_traces() -> int:
+    """How many fused train steps were built process-wide: one per
+    cohort (and batch layout). torch traces no program, so this counts
+    what the JAX package's counter counts, the fused program's builds."""
+    return _FUSED_STATS["epochTraces"]
+
+
+class FusedSweepUnsupported(RuntimeError):
+    """The fused sweep path cannot serve this cohort (the data exceeds
+    the staging budget, an unfusable hyperparameter): the sweep runs the
+    cohort's points as independent trials."""
+
+
+
+class FusedEngine(Engine):
+    """The engine's config-axis mode for a fused sweep cohort: params,
+    optimizer state and model state stacked on a leading axis of
+    ``n_configs``, one value per config of each scalar in ``hyper``
+    (``optimizer_factory(hyper)`` builds the stacked update rule).
+
+    A step runs the model of one config under ``torch.func.vmap`` over
+    the stacked params and model state (the batch is shared, so every
+    config sees the batches its own trial would), with
+    ``randomness="same"``: dropout draws from the step's generator once,
+    the draws each trial makes. Gradients come from ordinary autograd
+    through the vmapped forward, of the sum of the configs' losses (each
+    config's params reach only its own loss). ``apply_fn`` is the
+    model's forward of one config (recurrent layers run folded over the
+    configs). An ``active`` mask freezes early-stopped configs: after the
+    update their params, optimizer slots and model state are put back
+    with ``torch.where`` and their metric sums zeroed.
+
+    The cohort's padded training arrays are staged on the device once
+    (one copy for every config) when they take at most
+    ``LO_SCAN_FIT_MAX_BYTES`` and the epoch has more than one step, the
+    JAX package's scan-path rule; else :class:`FusedSweepUnsupported`.
+    Batches are gathered on the device in the order of
+    ``default_rng(seed + epoch)``, the port's own shuffle."""
+
+    def __init__(self, *, apply_fn: Callable, loss_fn: Callable,
+                 optimizer_factory: Callable[[Dict[str, Any]], Any],
+                 hyper: Dict[str, Any],
+                 metrics: Optional[Dict[str, Callable]] = None,
+                 compute_dtype: torch.dtype = torch.bfloat16,
+                 grad_accum: int = 1):
+        names = tuple(sorted(hyper))
+        if not names:
+            raise ValueError("fused engine needs hyperparameter arrays")
+        self._hyper = {k: np.asarray(hyper[k], np.float64).reshape(-1)
+                       for k in names}
+        sizes = {len(v) for v in self._hyper.values()}
+        if len(sizes) != 1:
+            raise ValueError(
+                f"hyperparameter arrays disagree on config count: "
+                f"{sorted(sizes)}")
+        self._n_configs = sizes.pop()
+        super().__init__(apply_fn=apply_fn, loss_fn=loss_fn,
+                         optimizer=optimizer_factory(self._hyper),
+                         metrics=metrics, compute_dtype=compute_dtype,
+                         grad_accum=grad_accum, stateful=True)
+        self._built: set = set()
+
+    @property
+    def n_configs(self) -> int:
+        return self._n_configs
+
+    def init_fused_state(self, params: Params,
+                         model_state: Optional[Params] = None) -> TrainState:
+        """One set of initial params (and model state) copied ``n``
+        ways: every config starts from the init its own trial would."""
+        n = self._n_configs
+
+        def tile(t: torch.Tensor) -> torch.Tensor:
+            return t.detach().unsqueeze(0).repeat(
+                (n,) + (1,) * t.ndim).contiguous()
+
+        stacked = {k: tile(p).requires_grad_(p.requires_grad)
+                   for k, p in params.items()}
+        return TrainState(step=0, params=stacked,
+                          opt_state=self._optimizer.init(stacked),
+                          model_state={k: tile(v) for k, v in
+                                       (model_state or {}).items()})
+
+    # ------------------------------------------------------------------
+    def _vmapped(self, params: Params, model_state: Params, batch,
+                 train: bool, rng: Optional[int]):
+        """``(loss (N,), {metric: (sum (N,), count (N,))}, new model
+        state)`` of every config on the shared ``batch``."""
+        def one(p, ms):
+            loss, outputs, extra, new_ms = self._loss(
+                self._cast(p), batch, train, rng, ms)
+            return loss, self._metric_sums(loss, outputs, extra, batch), \
+                new_ms
+
+        return torch.func.vmap(one, randomness="same")(params, model_state)
+
+    def _fused_micro(self, params: Params, model_state: Params, batch,
+                     rng: int) -> Tuple[Params, Params, Metrics]:
+        names = [k for k, p in params.items() if p.requires_grad]
+        with torch.enable_grad():
+            loss, metrics, new_state = self._vmapped(params, model_state,
+                                                     batch, True, rng)
+            grads = torch.autograd.grad(loss.sum(),
+                                        [params[k] for k in names])
+        return dict(zip(names, grads)), new_state, metrics
+
+    def _fused_step(self, state: TrainState, batch, seed: int,
+                    stop: Optional[torch.Tensor]) -> Metrics:
+        """One optimizer step of every config on ``batch``; ``state``
+        changes in place. ``stop`` (bool (N,), or None when every config
+        is active) freezes configs."""
+        if self._grad_accum > 1:
+            grads, new_state, metrics = self._accum_step(
+                state.params, state.model_state, batch, seed, state.step,
+                self._fused_micro)
+        else:
+            grads, new_state, metrics = self._fused_micro(
+                state.params, state.model_state, batch,
+                _step_seed(seed, state.step, 0))
+        kept = self._keep(state) if stop is not None else None
+        self._optimizer.update(state.params, grads, state.opt_state)
+        with torch.no_grad():
+            for k, v in (new_state or {}).items():
+                state.model_state[k].copy_(v)
+            if kept is not None:
+                for t, old in zip(self._skip_tensors(state),
+                                  kept["tensors"]):
+                    torch.where(_lead(stop, t), old, t, out=t)
+                metrics = {k: (torch.where(stop, 0.0, s.float()),
+                               torch.where(stop, 0.0, c.float()))
+                           for k, (s, c) in metrics.items()}
+        state.step += 1
+        return metrics
+
+    # ------------------------------------------------------------------
+    def _should_stage(self, batcher: ArrayBatcher) -> bool:
+        from learningorchestra_tpu_torch.config import Config
+
+        limit = Config().scan_fit_max_bytes
+        return limit > 0 and batcher.total_bytes() <= limit and \
+            batcher.steps_per_epoch > 1
+
+    def fit_fused(self, state: TrainState, batcher: ArrayBatcher,
+                  epochs: int = 1, seed: int = 0, eval_batcher=None,
+                  score_fn=None, earlystop: Optional[Dict[str, Any]] = None,
+                  log_fn: Optional[Callable] = None,
+                  ) -> Tuple[TrainState, List[Dict[str, Any]], np.ndarray,
+                             List[Optional[int]]]:
+        """``(state, history, active, stopped_epochs)``, the stacked
+        state ledgered as ``train-state`` for the fit. History records
+        hold one value per config of each metric. Early stop needs
+        ``eval_batcher`` and ``score_fn``: a config whose EMA validation
+        score trails the cohort's best by more than
+        ``earlystop["margin"]`` stops (``active[i]`` False,
+        ``stopped_epochs[i]`` the epoch its params froze at)."""
+        self._ledger_state(state)
+        try:
+            return self._fit_fused_impl(state, batcher, epochs, seed,
+                                        eval_batcher, score_fn, earlystop,
+                                        log_fn)
+        finally:
+            obs_xray.release("train-state", id(self))
+
+    def _fit_fused_impl(self, state, batcher, epochs, seed, eval_batcher,
+                        score_fn, earlystop, log_fn):
+        if not self._should_stage(batcher):
+            raise FusedSweepUnsupported(
+                "dataset exceeds the fused staging budget "
+                "(LO_SCAN_FIT_MAX_BYTES), or an epoch has one step")
+        n = self._n_configs
+        device = next(iter(state.params.values())).device
+        steps, bs = batcher.steps_per_epoch, batcher.batch_size
+        key = (steps, bs, batcher.shuffles)
+        if key not in self._built:
+            self._built.add(key)
+            _FUSED_STATS["epochTraces"] += 1
+        staged = self._to_device(batcher.padded_arrays(), device)
+        pads = np.arange(batcher.num_samples, steps * bs)
+        active = np.ones(n, bool)
+        stopped: List[Optional[int]] = [None] * n
+        ema: List[Optional[float]] = [None] * n
+        es = dict(earlystop or {})
+        es_margin = float(es.get("margin", 0.0) or 0.0)
+        es_armed = (es_margin > 0.0 and eval_batcher is not None
+                    and score_fn is not None)
+        es_min_epochs = max(1, int(es.get("min_epochs", 2)))
+        es_alpha = float(es.get("alpha", 0.5))
+        history: List[Dict[str, Any]] = []
+        for epoch in range(epochs):
+            preempt.check_cancel()
+            preempt.heartbeat(epoch=epoch, fusedConfigs=n)
+            t0 = time.perf_counter()
+            mono0 = time.monotonic()
+            order = torch.from_numpy(np.concatenate(
+                [batcher.epoch_order(epoch), pads])).to(device)
+            stop = None if active.all() else \
+                torch.from_numpy(~active).to(device)
+            sums: Dict[str, torch.Tensor] = {}
+            counts: Dict[str, torch.Tensor] = {}
+            for j in range(steps):
+                preempt.check_cancel()
+                preempt.heartbeat(epoch=epoch, step=state.step,
+                                  fusedConfigs=n)
+                idx = order[j * bs:(j + 1) * bs]
+                batch = {k: v.index_select(0, idx) for k, v in staged.items()}
+                metrics = self._fused_step(state, batch, seed, stop)
+                for k, (s, c) in metrics.items():
+                    sums[k] = sums[k] + s if k in sums else s
+                    counts[k] = counts[k] + c if k in counts else c
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            record: Dict[str, Any] = {
+                k: (to_host(sums[k]).astype(np.float64) / np.maximum(
+                    to_host(counts[k]).astype(np.float64), 1e-9)
+                    ).round(6).tolist() for k in sums}
+            record.update(epoch=epoch, epochSeconds=round(dt, 4))
+            self._observe_window(mono0, dt, steps, {"epoch": epoch}, 0,
+                                 step=state.step, epoch=epoch)
+            history.append(record)
+            if log_fn is not None:
+                log_fn(record)
+            if es_armed and epoch + 1 < epochs:
+                vals = self.evaluate_fused(state, eval_batcher)
+                for i in range(n):
+                    if not active[i]:
+                        continue
+                    score = score_fn({k: float(v[i])
+                                      for k, v in vals.items()})
+                    ema[i] = (score if ema[i] is None else
+                              es_alpha * score + (1.0 - es_alpha) * ema[i])
+                live = [ema[i] for i in range(n) if active[i]]
+                best = max(v for v in live if v is not None)
+                if epoch + 1 >= es_min_epochs:
+                    for i in range(n):
+                        if active[i] and ema[i] is not None and \
+                                best - ema[i] > es_margin:
+                            active[i] = False
+                            stopped[i] = epoch + 1
+            if epoch + 1 < epochs:
+                preempt.maybe_yield()
+        return state, history, active, stopped
+
+    @torch.inference_mode()
+    def evaluate_fused(self, state: TrainState,
+                       batcher: ArrayBatcher) -> Dict[str, np.ndarray]:
+        """Per-config metric means: name -> array (N,)."""
+        device = next(iter(state.params.values())).device
+        sums: Dict[str, Any] = {}
+        counts: Dict[str, Any] = {}
+        for step, batch in enumerate(batcher.epoch(0)):
+            preempt.check_cancel()
+            preempt.heartbeat(phase="evaluate_fused", step=step)
+            _, metrics, _ = self._vmapped(
+                state.params, state.model_state,
+                self._to_device(batch, device), False, None)
+            for k, (s, c) in metrics.items():
+                sums[k] = sums.get(k, 0) + s
+                counts[k] = counts.get(k, 0) + c
+        return {k: to_host(sums[k]).astype(np.float64) / np.maximum(
+            to_host(counts[k]).astype(np.float64), 1e-9) for k in sums}

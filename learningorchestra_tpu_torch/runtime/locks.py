@@ -1,5 +1,6 @@
 """Named, ranked locks (the serving, job, lifecycle, cache, gateway,
-catalog, fault-injection and observability rows of the JAX package's
+catalog, fault-injection, async checkpoint, sweep fusion and
+observability rows of the JAX package's
 ``runtime/locks.py`` hierarchy).
 
 :data:`HIERARCHY` ranks every named lock of the port: a thread acquires
@@ -33,6 +34,7 @@ HIERARCHY: Dict[str, int] = {
     "scheduler.fair": 80,          # the card lease's FIFO queue
     "serving.kvpool": 90,          # paged-KV free list / refcounts
     "serving.latency": 100,        # per-session latency ring
+    "async_ckpt.error": 120,       # latched commit-worker error
     "preempt.token": 130,          # per-job cancel token
     "health.counters": 140,        # sentinel counters (listeners are
                                    # called outside it)
@@ -60,6 +62,7 @@ HIERARCHY: Dict[str, int] = {
     "server.gateway": 350,         # timed-dispatch accounting
     "faults.spec": 360,            # fault-injection budget (leaf)
     "attention.launches": 370,     # the kernels' launch counters (leaf)
+    "sweep.fusion": 390,           # the sweeps' fusion counters (leaf)
 }
 
 

@@ -23,7 +23,12 @@ resumes from its newest verified step, and DELETE removes the directory.
 The commits' seconds go to the metadata as ``checkpointCommitSeconds``
 (their sum, the JAX package's key) and ``checkpointCommits`` (each
 commit's step, seconds and bytes), a resume's as ``checkpointRestores``
-(step and seconds). A tune of a ``GridSearch``/``RandomSearch`` records
+(step and seconds). With ``LO_CKPT_ASYNC=1`` the checkpointer is wrapped
+(:func:`~learningorchestra_tpu_torch.runtime.async_ckpt.wrap_checkpointer`):
+commits run on a background worker, the training thread's stall per
+save is recorded as ``checkpointSnapshots`` (and their sum
+``checkpointSnapshotSeconds``), and a failed commit fails the job with
+an ``AsyncCheckpointError``. A tune of a ``GridSearch``/``RandomSearch`` records
 ``sweepFusion`` (the sweep's ``fusion_info_``) and, where points
 failed, ``trialErrors`` on its metadata; ``"checkpoint": true`` is
 ignored there, as in the JAX package.
@@ -70,6 +75,7 @@ from learningorchestra_tpu_torch import analysis as A
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.runtime import health as health_lib
+from learningorchestra_tpu_torch.runtime.async_ckpt import wrap_checkpointer
 from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
 from learningorchestra_tpu_torch.services import validators as V
 
@@ -276,11 +282,17 @@ class ExecutionService:
                 if ckpt is not None:
                     ckpt.close()
             if ckpt is not None and (ckpt.commits or ckpt.restores):
-                self._ctx.catalog.update_metadata(name, {
+                updates = {
                     "checkpointCommitSeconds": sum(
                         c["seconds"] for c in ckpt.commits),
                     "checkpointCommits": ckpt.commits,
-                    "checkpointRestores": ckpt.restores})
+                    "checkpointRestores": ckpt.restores}
+                snapshots = getattr(ckpt, "snapshots", None)
+                if snapshots is not None:
+                    updates["checkpointSnapshotSeconds"] = sum(
+                        c["seconds"] for c in snapshots)
+                    updates["checkpointSnapshots"] = snapshots
+                self._ctx.catalog.update_metadata(name, updates)
             if type_string.startswith(_INSTANCE_RESULT_PREFIXES):
                 result = instance  # the fitted object is the artifact
             with obs_trace.span("artifactSave"):
@@ -325,7 +337,10 @@ def _prepare_checkpointer(ctx, name: str, type_string: str,
     enabled = treated.pop("checkpoint", False)
     if not type_string.startswith("train/") or not enabled:
         return None
-    ckpt = Checkpointer(checkpoint_dir_for(ctx, name))
+    # LO_CKPT_ASYNC=1 moves each commit (encode, hash, fsync) off the
+    # training thread, which pays a host snapshot instead
+    ckpt = wrap_checkpointer(Checkpointer(checkpoint_dir_for(ctx, name)),
+                             config=ctx.config)
     treated["checkpointer"] = ckpt
     return ckpt
 

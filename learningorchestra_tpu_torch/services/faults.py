@@ -29,6 +29,10 @@ comma-separated:
 - ``"ckpt_write:1:corrupt:4"`` — the next checkpoint payload gets its
   last 4 bytes (default 8) flipped after its sha256 was taken, so the
   next restore quarantines it and falls back;
+- ``"ckpt_async_commit:1"`` — the next queued commit of an
+  asynchronous checkpointer (``LO_CKPT_ASYNC=1``) raises on its worker:
+  the error is latched and the fit's next save or barrier raises
+  ``AsyncCheckpointError``, failing the job;
 - ``"trace_export:1"`` — the next append to the event log
   (``LO_EVENT_LOG``) raises inside the best-effort writer, which
   swallows it: the job it describes never notices;
@@ -43,7 +47,8 @@ The port fires ``kv_page_alloc`` (inside :meth:`PagedKVPool.alloc`),
 ``kv_page_handoff`` (at the publish of a handoff record),
 ``sweep_trial`` (at the start of each sweep trial), ``job_run`` (at the
 start of each job attempt), ``engine_step`` (at each train step),
-``ckpt_write`` (after each payload's checksum), ``trace_export`` (at each
+``ckpt_write`` (after each payload's checksum), ``ckpt_async_commit``
+(at each item of the asynchronous commit queue), ``trace_export`` (at each
 event-log append) and ``serving_step`` (at each serving worker iteration
 with queued work). ``raise``, ``hang`` and
 ``latency`` fire in :func:`maybe_inject`; ``nan`` and ``corrupt`` are

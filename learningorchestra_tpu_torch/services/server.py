@@ -64,8 +64,10 @@ A builder's outputs are read, listed and deleted as datasets are.
 ``/observability/autoscaler`` 404 until the autoscaler is ported.
 ``/metrics`` leaves out the blocks of modules not ported yet (the JAX
 server's ``meshScheduler``, ``meshSecondsByPool``, ``migrationStats``,
-``autoscaler``, ``featureCache``, ``arena``, ``executableCache`` and
-``sweepFusion``) rather than faking them.
+``autoscaler``, ``featureCache``, ``arena`` and ``executableCache``)
+rather than faking them; ``sweepFusion`` is the process's sweep fusion
+counters (:func:`~learningorchestra_tpu_torch.models.sweep.fusion_stats`,
+the ``lo_sweep_*`` series).
 """
 
 from __future__ import annotations
@@ -275,6 +277,8 @@ class Api:
         out["jobLifecycle"] = self.ctx.jobs.lifecycle_counters()
         out["trainingHealth"] = health_lib.health_stats()
         out["serving"] = self.ctx.serving.stats()
+        from learningorchestra_tpu_torch.models import sweep as sweep_lib
+        out["sweepFusion"] = sweep_lib.fusion_stats()
         out["latencyHistograms"] = obs_hist.snapshot_all()
         with self.gateway_lock:
             out["gateway"] = dict(
@@ -359,6 +363,23 @@ class Api:
             "# TYPE lo_serving_quant_degrades_total counter",
             f"lo_serving_quant_degrades_total "
             f"{health.get('quantDegrades', 0)}",
+        ]
+        sweep_fusion = m["sweepFusion"]
+        lines += [
+            "# TYPE lo_sweep_fused_trials_total counter",
+            f"lo_sweep_fused_trials_total "
+            f"{sweep_fusion.get('fusedTrials', 0)}",
+            "# TYPE lo_sweep_cohorts_total counter",
+            f"lo_sweep_cohorts_total {sweep_fusion.get('cohorts', 0)}",
+            "# TYPE lo_sweep_fallback_trials_total counter",
+            f"lo_sweep_fallback_trials_total "
+            f"{sweep_fusion.get('fallbackTrials', 0)}",
+            "# TYPE lo_sweep_early_stopped_total counter",
+            f"lo_sweep_early_stopped_total "
+            f"{sweep_fusion.get('earlyStopped', 0)}",
+            "# TYPE lo_sweep_trial_errors_total counter",
+            f"lo_sweep_trial_errors_total "
+            f"{sweep_fusion.get('trialErrors', 0)}",
         ]
         lines += _serving_lines(m["serving"], esc)
         gateway = m["gateway"]

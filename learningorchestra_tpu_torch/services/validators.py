@@ -228,7 +228,7 @@ _SERVICE_KWARGS = ("device",)
 # public methods of learningorchestra_tpu.models classes that the port
 # does not have yet: a static copy, since the port never imports the JAX
 # package (the shim's Sequential is a NeuralModel)
-_NEURAL_JAX_ONLY = ("set_mesh", "fit_sweep_fused", "supports_sweep_fusion")
+_NEURAL_JAX_ONLY = ("set_mesh",)
 JAX_ONLY_METHODS = {
     "LanguageModel": ("set_mesh",),
     "TextClassifier": ("set_mesh",),

@@ -248,9 +248,30 @@ def test_checkpointer_roundtrip_and_pytree_files(tmp_path):
     ck.close()
 
 
-def test_sharded_layout_is_refused():
-    with pytest.raises(ValueError, match="not yet ported"):
-        Checkpointer("unused", shards=2)
+def test_sharded_layout_is_refused(tmp_path):
+    """The sharded step layout, refused before it was ported, now writes
+    the JAX package's shard files byte for byte, and each package
+    restores the other's."""
+    tree = {"step": np.asarray(3, np.int64), "params": _tree(3),
+            "opt_state": {}}
+    port = Checkpointer(str(tmp_path / "port"), shards=2)
+    port.save(3, tree)
+    jax_side = jax_ckpt.Checkpointer(str(tmp_path / "jax"), shards=2)
+    jax_side.save(3, tree)
+    names = sorted(os.listdir(tmp_path / "port" / "3"))
+    assert names == sorted(os.listdir(tmp_path / "jax" / "3")) == [
+        "manifest.json", "shard-00000-of-00002.msgpack",
+        "shard-00001-of-00002.msgpack"]
+    for name in names[1:]:
+        assert open(tmp_path / "port" / "3" / name, "rb").read() == \
+            open(tmp_path / "jax" / "3" / name, "rb").read()
+    for ck in (port, Checkpointer(str(tmp_path / "jax"))):
+        got = ck.restore(tree)
+        np.testing.assert_array_equal(got["params"]["w"], tree["params"]["w"])
+        assert int(got["step"]) == 3 and got["opt_state"] == {}
+    got = jax_ckpt.Checkpointer(str(tmp_path / "port")).restore(tree)
+    np.testing.assert_array_equal(np.asarray(got["params"]["b"]),
+                                  tree["params"]["b"])
 
 
 # ----------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing every module of
-``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer, the
-encoder, the fault injector, the mixture of experts, the keras-shaped
+``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer and
+its asynchronous commit, the encoder, the fault injector, the mixture of experts, the keras-shaped
 layers, the sweeps, the client, the sandbox, the function service, the
 lint, the Builder, its estimators and the booster core's binding among
 them) loads
@@ -65,9 +65,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 
 
 def test_new_modules_are_among_those_probed():
-    """The msgpack codec, the checkpointer, the encoder, the fault
-    injector, the mixture of experts, the keras-shaped layer stack,
-    ResNet-50 and the sweeps are imported by the probe above (none of
+    """The msgpack codec, the checkpointer and its asynchronous commit,
+    the encoder, the fault injector, the mixture of experts, the
+    keras-shaped layer stack, ResNet-50, the sweeps and the fused engine
+    are imported by the probe above (none of
     them may import msgpack, flax or the JAX package's copy of
     itself)."""
     names = {m.name for m in pkgutil.walk_packages(
@@ -108,6 +109,9 @@ def test_new_modules_are_among_those_probed():
             "learningorchestra_tpu_torch.models.tf_compat.keras.optimizers",
             "learningorchestra_tpu_torch.models.tf_compat.keras.models",
             "learningorchestra_tpu_torch.models.tf_compat.keras.applications",
+            "learningorchestra_tpu_torch.runtime.async_ckpt",
+            "learningorchestra_tpu_torch.runtime.engine",
+            "learningorchestra_tpu_torch.runtime.locks",
             } <= names
 
 

@@ -443,7 +443,18 @@ def test_jax_only_methods_of_a_sequential_are_refused(fixture_api):
             {"kind": "dense", "units": 2}]}})
     assert status == 201, answer
     _wait(fixture_api, "seq", "/model/tensorflow/seq")
-    for method in ("fit_sweep_fused", "set_mesh"):
+    # sweep fusion runs now: a Sequential takes fit_sweep_fused, whose
+    # job fails on the missing arguments as the JAX package's does
+    status, answer = _call(fixture_api, "POST", "/train/tensorflow", {
+        "name": "seq_f", "modelName": "seq", "method": "fit_sweep_fused",
+        "methodParameters": {}})
+    assert status == 201, answer
+    fixture_api.ctx.jobs.wait("seq_f", timeout=60)
+    status, body = _call(fixture_api, "GET", "/train/tensorflow/seq_f")
+    assert body["metadata"]["finished"] is False
+    assert "missing 3 required positional arguments" in \
+        body["result"][-1]["exception"]
+    for method in ("set_mesh",):
         status, answer = _call(fixture_api, "POST", "/train/tensorflow", {
             "name": "seq_t", "modelName": "seq", "method": method,
             "methodParameters": {}})

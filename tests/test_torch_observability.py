@@ -53,11 +53,10 @@ DENSE = [{"kind": "dense", "units": 4, "activation": "relu"},
          {"kind": "dense", "units": 2, "activation": "softmax"}]
 # /metrics blocks of modules the port has not ported yet: the slice
 # scheduler (meshScheduler, its served seconds by pool), live migration,
-# the autoscaler, the feature cache, the HBM arena, the executable cache
-# and sweep fusion
+# the autoscaler, the feature cache, the HBM arena and the executable
+# cache (sweep fusion's block is ported)
 UNPORTED_KEYS = {"meshScheduler", "meshSecondsByPool", "migrationStats",
-                 "autoscaler", "featureCache", "arena", "executableCache",
-                 "sweepFusion"}
+                 "autoscaler", "featureCache", "arena", "executableCache"}
 # their Prometheus series, and three that the port cannot have: the
 # compile histogram (it compiles nothing), the bandwidth gauge (torch
 # has no bytes-accessed count of a train step) and the unattributed
@@ -71,9 +70,7 @@ UNPORTED_SERIES = {
     "lo_arena_bytes_in_use", "lo_arena_evictions_total",
     "lo_arena_hits_total", "lo_arena_misses_total",
     "lo_executable_cache_hits_total", "lo_executable_cache_misses_total",
-    "lo_sweep_fused_trials_total", "lo_sweep_cohorts_total",
-    "lo_sweep_fallback_trials_total", "lo_sweep_early_stopped_total",
-    "lo_sweep_trial_errors_total", "lo_autoscaler_resizes_total",
+    "lo_autoscaler_resizes_total",
     "lo_autoscaler_rollbacks_total", "lo_autoscaler_dead_lettered_total",
     "lo_compile_seconds", "lo_hbm_bw_util_frac",
     "lo_hbm_unattributed_bytes"}

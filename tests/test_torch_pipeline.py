@@ -260,12 +260,18 @@ def test_unported_requests_are_refused_at_submit(both, case):
 
 # NeuralModel methods of the JAX package the port lacked (mesh placement,
 # the keras import and export, sweep fusion); the keras import and export
-# run now
+# and sweep fusion run now, only set_mesh is refused
 NEURAL_JAX_ONLY = ("set_mesh", "from_keras", "from_savedmodel",
                    "from_legacy_h5", "to_keras", "save_keras",
                    "fit_sweep_fused", "supports_sweep_fusion")
 KERAS_METHODS = ("from_keras", "from_savedmodel", "from_legacy_h5",
                  "to_keras", "save_keras")
+# what the JAX package's job makes of each sweep fusion method called
+# with no parameters: None = finished, else the failure's text
+FUSION_METHODS = {
+    "fit_sweep_fused": "missing 3 required positional arguments: 'x', "
+                       "'y', and 'hyper_overrides'",
+    "supports_sweep_fusion": None}
 
 
 @pytest.fixture(scope="module")
@@ -294,6 +300,19 @@ def test_neural_methods_the_port_lacks_are_refused(port_neural, method):
         assert ("no parameters yet" if method == "to_keras" else
                 "missing 1 required positional argument: 'path'") \
             in body["result"][-1]["exception"]
+        return
+    if method in FUSION_METHODS:
+        # accepted, as in the JAX package
+        name = f"nm_{method}"
+        assert _call(port_neural, "POST", "/train/tensorflow", _run(
+            name=name, model="nm_root", method=method))[0] == 201
+        port_neural.ctx.jobs.wait(name, timeout=60)
+        status, body = _call(port_neural, "GET", f"/train/tensorflow/{name}")
+        want = FUSION_METHODS[method]
+        assert status == 200 and body["metadata"]["finished"] is (
+            want is None)
+        if want is not None:
+            assert want in body["result"][-1]["exception"]
         return
     status, answer = _call(port_neural, "POST", "/train/tensorflow",
                            _run(name="nm_r", model="nm_root", method=method))
