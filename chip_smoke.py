@@ -408,7 +408,9 @@ def _kernel_name(mangled: str) -> str:
     name (types, ints, and bools as 0 or 1)."""
     m = re.search(r"(?<=\d)(flash_\w*?_kernel)I(.+?)EEv", mangled)
     if not m:
-        return mangled
+        # a kernel that is no template: its name alone
+        m = re.search(r"(?<=\d)(flash_\w*?_kernel)E", mangled)
+        return m.group(1) if m else mangled
     args = [n or b or ("bf16" if bf else "float") for n, b, bf, _ in
             re.findall(r"Li(\d+)E|Lb(\d)|(13__nv_bfloat16)|(f)",
                        m.group(2))]
@@ -444,6 +446,83 @@ def _time_ms(torch, fn, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def _sm_clock_mhz() -> dict:
+    """The card's SM clock now and at most, in MHz, as nvidia-smi reads
+    them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60).stdout.split("\n")[0].split(",")
+    return {"smClockMhz": float(out[0]), "smClockMaxMhz": float(out[1])}
+
+
+# special-function-unit exponentials an SM issues a clock (16 on Hopper)
+# and the H100 SXM's SMs
+MUFU_PER_SM_CLOCK, SMS = 16, 132
+
+
+def _exp_bound_ms(pairs: int, clock_mhz: float) -> float:
+    """The least time for one exp2 a visible pair on the card's
+    special-function units at ``clock_mhz``."""
+    return pairs / (MUFU_PER_SM_CLOCK * SMS * clock_mhz * 1e6) * 1e3
+
+
+def _sdpa_times(torch, q, k, v, do, causal, window, offset, scale):
+    """SDPA on the same inputs under each backend that takes the call
+    (flash, efficient, cuDNN, math): with the boolean mask of the visible
+    pairs, and where every pair is visible also with ``attn_mask=None``.
+    Its forward, and with ``do`` its backward as forward + backward less
+    forward. Returns ``{"figures": {backend/mask: {forwardMs[,
+    backwardMs]} or {error}}, "forwardBackend", "forwardMs"[,
+    "backwardBackend", "backwardMs"]}``, the fastest of each."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    mask = _visible_mask(torch, q.shape[1], k.shape[1], causal, window,
+                         offset, q.device)
+    masks = {"mask": mask}
+    if bool(mask.all()):
+        masks["none"] = None
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(
+        do is not None) for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous() if do is not None else None
+    figures = {}
+    for name, backend in (("flash", SDPBackend.FLASH_ATTENTION),
+                          ("efficient", SDPBackend.EFFICIENT_ATTENTION),
+                          ("cudnn", SDPBackend.CUDNN_ATTENTION),
+                          ("math", SDPBackend.MATH)):
+        for mask_name, m in masks.items():
+            def fwd(m=m):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=m, scale=scale, enable_gqa=True)
+
+            def fwd_bwd():
+                torch.autograd.grad(fwd(), (qt, kt, vt), dot)
+
+            key = f"{name}/{mask_name}"
+            try:
+                with sdpa_kernel([backend]):
+                    with torch.no_grad():
+                        figures[key] = {"forwardMs": _time_ms(torch, fwd)}
+                    if do is not None:
+                        figures[key]["backwardMs"] = _time_ms(
+                            torch, fwd_bwd) - figures[key]["forwardMs"]
+            except RuntimeError as exc:
+                figures[key] = {"error": str(exc).splitlines()[0][:160]}
+    out = {"figures": figures}
+    for part in ("forward", "backward"):
+        ran = {k: f[f"{part}Ms"] for k, f in figures.items()
+               if f"{part}Ms" in f}
+        if part == "backward" and do is None:
+            break
+        if not ran:
+            raise AssertionError(f"no SDPA backend took the call: {figures}")
+        fastest = min(ran, key=ran.get)
+        out.update({f"{part}Backend": fastest, f"{part}Ms": ran[fastest]})
+    del qt, kt, vt, dot, mask
+    return out
 
 
 def _visible_mask(torch, sq, sk, causal, window, offset, device):
@@ -517,8 +596,6 @@ def kernel_phase(torch, log):
     kernels-line entries: flash_fwd_tf32x3 at the slice's shape (its main
     path, serving) with its training-shape and d-12 numbers nested,
     flash_fwd_sm90 at the training path's bf16 shape."""
-    import torch.nn.functional as F
-
     from learningorchestra_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -694,22 +771,26 @@ def kernel_phase(torch, log):
                         else (3 if dtype == f32 else 1.5) * flops
                         / PEAK_FLOPS["tf32"]) * 1e3
             byte_ms = nbytes / PEAK_BYTES * 1e3
-            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            # library yardstick: the fastest SDPA backend on the call
+            sdpa = _sdpa_times(torch, q, k, v, None, causal, window, offset,
+                               scale)
             line.update({
                 "ms": _time_ms(torch, lambda: kernel()),
                 "plain_ms": _time_ms(torch, plain, iters=5),
-                "library_ms": _time_ms(torch, lambda: F.scaled_dot_product_attention(
-                    qt, kt, vt, attn_mask=mask, scale=scale,
-                    enable_gqa=True)),
+                "library_ms": sdpa["forwardMs"],
+                "libraryBackend": sdpa["forwardBackend"],
+                "sdpaBackends": {k: f.get("forwardMs", f.get("error"))
+                                 for k, f in sdpa["figures"].items()},
                 "bound_ms": max(op_ms, byte_ms),
                 "bound_by": "operations" if op_ms >= byte_ms else "bytes",
                 "boundFloat32Ms": fp32_ms, "boundSplitMs": split_ms,
                 "flops": flops, "bytes": nbytes, "visiblePairs": pairs,
             })
-            del mask, qt, kt, vt
+            del mask
             picked = {k: line[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-                "boundFloat32Ms", "boundSplitMs", "splitEmulationUsed")}
+                "libraryBackend", "boundFloat32Ms", "boundSplitMs",
+                "splitEmulationUsed")}
             picked.update(max_abs_err=err, dtype=dt,
                           shape=[b, sq, sk, h, kvh, d])
             if "derivedBoundUsed" in line:
@@ -745,8 +826,6 @@ def bwd_kernel_phase(torch, log):
     float32 or bf16). Returns the kernels-line entries: each kernel at
     the training path's shape in its dtype, bf16 for the fit and float32
     for the float32 fit, with the tf32x3 kernels' d-12 figures nested."""
-    import torch.nn.functional as F
-
     from learningorchestra_tpu_torch.ops import attention as attn
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -765,6 +844,13 @@ def bwd_kernel_phase(torch, log):
         ("ragged-dlse-d13", 2, 75, 131, 4, 4, 13, False, 0, 0, True),
         # a multiple of 4 but not of 8, between the kernels' widths, GQA
         ("gqa-window-d36", 2, 160, 160, 8, 2, 36, True, 48, 0, False),
+        # the wgmma kernels' narrow instances (head_dim <= 32) in bf16:
+        # GQA under causal at d 16, a window, kv_offset (rows with no
+        # visible key) and dlse at d 32, ragged sq and sk at d 24
+        ("gqa-causal-d16", 2, 130, 130, 8, 2, 16, True, 0, 0, False),
+        ("window-offset-dlse-d32", 2, 200, 200, 4, 2, 32, True, 48, 24,
+         True),
+        ("ragged-d24", 2, 77, 201, 4, 2, 24, False, 0, 0, False),
         # the classifier's fit (b 128, 512 tokens, d 32, bidirectional);
         # measured in bf16, its dtype
         ("classifier", 128, 512, 512, 8, 4, 32, False, 0, 0, False),
@@ -810,11 +896,24 @@ def bwd_kernel_phase(torch, log):
             dq_name, dkv_name = (f"{n}_{route}" for n in (
                 "flash_bwd_dq", "flash_bwd_dkv"))
             args = (q, k, v, do, lse, delta, causal, scale, window, offset)
+            # the narrow wgmma instances run as the backward runs them
+            # (_flash_bwd_narrow): dQ computes delta from o and dlse and
+            # writes lse and delta by head, which dK/dV reads
+            narrow = route == "sm90" and d <= attn.NARROW_HEAD_DIM
+            by_head = tuple(torch.full((b, h, attn._head_rows(sq)),
+                                       float("nan"), device="cuda")
+                            for _ in range(2)) if narrow else None
 
             def dq_kernel():
+                if narrow:
+                    return dq(q, k, v, do, lse, None, causal, scale, window,
+                              offset, o=o, dlse=dlse, by_head=by_head)
                 return dq(*args)
 
             def dkv_kernel():
+                if narrow:
+                    return dkv(q, k, v, do, None, None, causal, scale,
+                               window, offset, by_head=by_head)
                 return dkv(*args)
 
             def plain(split=False):
@@ -860,6 +959,35 @@ def bwd_kernel_phase(torch, log):
                     (got[0][lse == attn.NEG_INF] == 0).all())):
                 raise AssertionError(f"{name}: no empty rows, or empty "
                                      f"rows with a non-zero dq")
+            launch_checks = {}
+            if route == "sm90":
+                # deterministic: a second launch of each kernel on the
+                # same inputs gives the same bits
+                again = (dq_kernel(), *dkv_kernel())
+                torch.cuda.synchronize()
+                launch_checks["bitEqual"] = all(torch.equal(a, g)
+                                         for a, g in zip(again, got))
+                del again
+                if not launch_checks["bitEqual"]:
+                    raise AssertionError(f"flash_bwd sm90 {name}: two "
+                                         f"launches differ")
+            if narrow:
+                # lse by head exactly, delta by head at float32 order,
+                # zero past sq
+                rows = attn._head_rows(sq)
+                want_t = (attn._by_head(lse, rows), attn._by_head(delta,
+                                                                  rows))
+                launch_checks["byHeadLseEqual"] = torch.equal(by_head[0],
+                                                       want_t[0])
+                launch_checks["byHeadDeltaUsed"] = (
+                    (by_head[1] - want_t[1]).abs()
+                    / (1e-5 * want_t[1].abs().max().item()
+                       + 1e-5 * want_t[1].abs())).max().item()
+                del want_t
+                if not (launch_checks["byHeadLseEqual"]
+                        and launch_checks["byHeadDeltaUsed"] <= 1.0):
+                    raise AssertionError(f"flash_bwd_dq_sm90 {name}: lse "
+                                         f"and delta by head {launch_checks}")
             dt = str(dtype).split(".")[-1]
             line = {"case": name, "dtype": dt, "route": route,
                     "dqKernel": dq_name, "dkvKernel": dkv_name,
@@ -868,7 +996,7 @@ def bwd_kernel_phase(torch, log):
                     "maxAbsErr": dict(zip(("dq", "dk", "dv"), errs)),
                     "relAtol": rel_atol, "rtol": rtol,
                     "tolUsed": dict(zip(("dq", "dk", "dv"), used)),
-                    "emptyRows": empty}
+                    "emptyRows": empty, "narrow": narrow, **launch_checks}
             if route == "sm90":
                 split = _split_bwd(torch, attn, q, k, v, o, lse, do, dlse,
                                    causal, scale, window, offset)
@@ -915,25 +1043,14 @@ def bwd_kernel_phase(torch, log):
                 ins = (2 * q.numel() + k.numel() + v.numel()) * elt \
                     + 2 * 4 * lse.numel()
                 plain_ms = _time_ms(torch, plain, iters=3)
-                # library yardstick: the backward of SDPA over the same
-                # mask, i.e. its forward+backward less its forward
-                mask = _visible_mask(torch, sq, sk, causal, window, offset,
-                                     q.device)
-                qt, kt, vt = (x.transpose(1, 2).contiguous()
-                              .requires_grad_() for x in (q, k, v))
-                dot = do.transpose(1, 2).contiguous()
-
-                def sdpa():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask, scale=scale,
-                        enable_gqa=True)
-
-                def sdpa_fwd_bwd():
-                    torch.autograd.grad(sdpa(), (qt, kt, vt), dot)
-
-                with torch.no_grad():
-                    sdpa_fwd_ms = _time_ms(torch, sdpa)
-                library_ms = _time_ms(torch, sdpa_fwd_bwd) - sdpa_fwd_ms
+                # library yardstick: the fastest SDPA backward on the
+                # same call, forward + backward less forward, under each
+                # backend that takes it
+                sdpa = _sdpa_times(torch, q, k, v, do, causal, window,
+                                   offset, scale)
+                library_ms = sdpa["backwardMs"]
+                clock = _sm_clock_mhz()
+                exp_ms = _exp_bound_ms(pairs * h * b, clock["smClockMaxMhz"])
                 # each kernel: its launch, the function's FLOP per visible
                 # pair and head-dim column, the same with bf16 inputs on
                 # the tensor cores (P and dS split hi + lo, each input
@@ -970,14 +1087,17 @@ def bwd_kernel_phase(torch, log):
                         "ms": ms, "bound_ms": max(op_ms, byte_ms),
                         "bound_by": "operations" if op_ms >= byte_ms
                         else "bytes", "flops": work, "bytes": nbytes,
-                        "boundFloat32Ms": fp32_ms, "boundSplitMs": split_ms}
+                        "boundFloat32Ms": fp32_ms, "boundSplitMs": split_ms,
+                        "boundExpMs": exp_ms}
                     figures = dict(
                         ms=ms, plain_ms=plain_ms, bound_ms=part["bound_ms"],
                         bound_by=part["bound_by"], library_ms=library_ms,
+                        libraryBackend=sdpa["backwardBackend"],
                         max_abs_err=max(e for e, p in zip(
                             errs, ("dq", "dk", "dv")) if p in parts),
                         dtype=dt, boundFloat32Ms=fp32_ms,
-                        boundSplitMs=split_ms,
+                        boundSplitMs=split_ms, boundExpMs=exp_ms,
+                        smClockMaxMhz=clock["smClockMaxMhz"],
                         shape=[b, sq, sk, h, kvh, d],
                         splitEmulationUsed={
                             p: line["splitEmulationUsed"][p]
@@ -991,8 +1111,29 @@ def bwd_kernel_phase(torch, log):
                         entries.setdefault(kernel, {}).update(figures)
                     line[kernel] = part
                 line.update(plain_ms=plain_ms, library_ms=library_ms,
-                            sdpaForwardMs=sdpa_fwd_ms, visiblePairs=pairs)
-                del mask, qt, kt, vt, dot
+                            libraryBackend=sdpa["backwardBackend"],
+                            sdpaBackends=sdpa["figures"],
+                            visiblePairs=pairs, **clock)
+                if name == "classifier":
+                    # the whole backward as the fit runs it (_flash_bwd:
+                    # the kernels, and on the narrow route nothing else
+                    # but the casts to bf16 the autograd function makes)
+                    def whole():
+                        return [g.to(dtype) for g in attn._flash_bwd(
+                            q, k, v, o, lse, do, dlse, causal, scale,
+                            window, offset)]
+
+                    whole_ms = _time_ms(torch, whole)
+                    kernels_ms = sum(line[n]["ms"] for n in (dq_name,
+                                                             dkv_name))
+                    line["wholeBackward"] = {
+                        "ms": whole_ms, "kernelsMs": kernels_ms,
+                        "glueMs": whole_ms - kernels_ms,
+                        "glueShare": (whole_ms - kernels_ms) / whole_ms,
+                        "sdpaBackwardMs": library_ms}
+                    for n in (dq_name, dkv_name):
+                        entries[n][nest]["wholeBackward"] = \
+                            line["wholeBackward"]
             log.append("kernel " + json.dumps(line))
             del q, k, v, do, o, lse, delta, got, want
     return entries
@@ -6595,6 +6736,15 @@ def observe_phase(torch, log, home, yard):
     return launches
 
 
+def _phase_home():
+    """A phase's temporary home. Its removal ignores errors: a service
+    context's shutdown does not wait for jobs still running (the job
+    pool's ``shutdown(wait=False)``), so one of them can still write a
+    file while the directory is removed, and nothing the script checks
+    depends on that removal."""
+    return tempfile.TemporaryDirectory(ignore_cleanup_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -6642,7 +6792,7 @@ def main() -> int:
                   "lifecycle": lifecycle_phase, "observe": observe_phase}
         try:
             for name in sys.argv[sys.argv.index("--only") + 1].split(","):
-                with tempfile.TemporaryDirectory() as home:
+                with _phase_home() as home:
                     launched = phases[name](torch, log, home, {})
                 print(f"{name} launches " + json.dumps(launched))
         except BaseException:
@@ -6657,41 +6807,41 @@ def main() -> int:
         entries = kernel_phase(torch, log)
         entries.update(bwd_kernel_phase(torch, log))
         serve_yard: dict = {}
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             served = slice_phase(torch, log, home, serve_yard)
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paged = paged_phase(torch, log, home, serve_yard)
         del serve_yard
         yard: dict = {}
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths = {"serve": served, **paged,
                      **train_phase(torch, log, home, yard)}
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(pipeline_phase(torch, log, home, yard))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(ckpt_async_phase(torch, log, home, yard))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(lm_options_phase(torch, log, home, yard))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(classifier_phase(torch, log, home, yard))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(serving_plane_phase(torch, log, home, yard))
         del yard
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(neural_phase(torch, log, home, {}))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(keras_phase(torch, log, home, {}))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(fusion_phase(torch, log, home, {}))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(function_phase(torch, log, home, {}))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(transform_phase(torch, log, home, {}))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(builder_phase(torch, log, home, {}))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(lifecycle_phase(torch, log, home, {}))
-        with tempfile.TemporaryDirectory() as home:
+        with _phase_home() as home:
             paths.update(observe_phase(torch, log, home, {}))
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for

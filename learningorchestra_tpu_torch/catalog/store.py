@@ -264,8 +264,13 @@ class Catalog:
         return json.loads(row[0]) if row else None
 
     def update_metadata(self, name: str, updates: Dict[str, Any]) -> None:
+        """Merge ``updates`` into the metadata document. The read and the
+        write share one write transaction, so a concurrent update (a job
+        writing its status, the stall watchdog its progress) is never
+        overwritten by a body read before it."""
         conn = self._conn()
         with conn:
+            conn.execute("BEGIN IMMEDIATE")
             cur = conn.execute(
                 "SELECT body FROM docs WHERE collection = ? AND id = 0",
                 (name,))

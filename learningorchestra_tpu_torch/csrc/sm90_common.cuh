@@ -11,13 +11,18 @@
 // head_dim it is K-major (Q.K^T and friends), read along the rows it is
 // MN-major with the transpose flag (P.V, dS.K, P^T.dO, dS^T.Q).
 //
-// Only m64n64k16 with f32 accumulators is used. Accumulator fragment of
-// a warpgroup thread t (warp w = t / 32, lane l = t % 32), for column
-// chunk j (0..7): d[4j + e] holds row 16w + l/4 + 8 * (e / 2), column
-// 8j + 2 * (l % 4) + e % 2. The bf16 A-from-registers fragment of k-step
-// kk is then four packed pairs of that layout: pack(d[8kk + 2i],
-// d[8kk + 2i + 1]) for i = 0..3, so a product's scores become the next
-// product's A operand without a shuffle.
+// The backward kernels' narrow instances (head_dim <= 32) take boxes of
+// 32 columns (64-byte rows) with 64-byte swizzle instead (desc_sw64):
+// half the shared memory of a tile, and no zero columns in the products.
+//
+// Accumulators are f32, m64n64k16 or (narrow gradients) m64n32k16.
+// Accumulator fragment of a warpgroup thread t (warp w = t / 32, lane
+// l = t % 32), for column chunk j (0..7 at n64, 0..3 at n32): d[4j + e]
+// holds row 16w + l/4 + 8 * (e / 2), column 8j + 2 * (l % 4) + e % 2.
+// The bf16 A-from-registers fragment of k-step kk is then four packed
+// pairs of that layout: pack(d[8kk + 2i], d[8kk + 2i + 1]) for i = 0..3,
+// so a product's scores become the next product's A operand without a
+// shuffle.
 
 #pragma once
 
@@ -31,6 +36,9 @@ namespace sm90 {
 
 constexpr int kBoxCols = 64;     // head-dim columns per TMA box (128 B)
 constexpr int kRowBytes = 128;   // bytes of one box row
+// the narrow instances' box: head_dim <= 32 in one 64-byte row
+constexpr int kNarrowCols = 32;
+constexpr int kNarrowRowBytes = 64;
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -135,6 +143,16 @@ __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
          (static_cast<uint64_t>(1) << 62);
 }
 
+// the same for a 64-byte-swizzled tile: eight 64-byte rows make one
+// 512-byte swizzle atom. K-major it steps 32 bytes (16 columns) along a
+// row; MN-major (n32: one atom wide) the leading byte offset is unused.
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) |
+         (static_cast<uint64_t>(2) << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -152,6 +170,11 @@ __device__ __forceinline__ void wgmma_wait() {
 __device__ __forceinline__ void fence_acc(float (&d)[32]) {
 #pragma unroll
   for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void fence_acc(float (&d)[16]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 #define LO_SM90_D32                                                          \
@@ -200,6 +223,31 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
         "n"(TRANS_B));
 }
 
+#define LO_SM90_D16                                                          \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),   \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+
+// d (64x32 f32) += A (64x16 bf16, registers a[0..3]) . B (16x32, shared):
+// the narrow instances' gradient products
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
+      "}\n"
+      : LO_SM90_D16
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1),
+        "n"(TRANS_B));
+}
+
+#undef LO_SM90_D16
 #undef LO_SM90_D32
 #undef LO_SM90_REGS32
 
@@ -230,6 +278,45 @@ __device__ __forceinline__ void split_fragment(const float (&d)[32], int kk,
     hi[i] = pack_bf16(h0, h1);
     lo[i] = pack_bf16(l0, l1);
   }
+}
+
+// 2^x on the special-function unit, subnormal results flushed to zero
+// (a weight below 2^-126 adds nothing a float32 gradient keeps)
+__device__ __forceinline__ float ex2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// split_bf16 of a pair with packed conversions: the A fragments (hi and
+// lo) of two neighbouring accumulator values, as split_fragment packs
+// them
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// the bf16 A fragments (k-steps 0 and 1) of a 64-row, 32-column tile in
+// a 64-byte-swizzled box at generic address `tile` (512-byte aligned),
+// for a warpgroup thread of warp `warp`, lane `lane`: the layout
+// split_fragment packs, read from the 16-byte chunk the swizzle moved
+// each pair to
+__device__ __forceinline__ void load_fragments_sw64(const uint8_t* tile,
+                                                    int warp, int lane,
+                                                    uint32_t (&a)[2][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 2; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 16 * warp + lane / 4 + 8 * (i % 2);
+      const int chunk = (2 * kk + i / 2) ^ ((r >> 1) & 3);
+      a[kk][i] = *reinterpret_cast<const uint32_t*>(
+          tile + r * kNarrowRowBytes + chunk * 16 + 4 * (lane % 4));
+    }
 }
 
 // keeps A fragments alive, unmoved, until the wgmma reading them is done
@@ -268,11 +355,15 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // 4-D map over a contiguous (batch, seq, heads, dim) bf16 tensor: dims
-// (dim, heads, seq, batch), box (64, 1, rows, 1), 128-byte swizzle, zero
-// fill past every edge. Needs dim % 8 == 0 (16-byte strides) and a
-// 16-byte aligned base. Returns cudaSuccess or an error.
-inline cudaError_t make_map(CUtensorMap* map, const void* base, int batch,
-                            int seq, int heads, int dim, int rows) {
+// (dim, heads, seq, batch), box (box_cols, 1, rows, 1), zero fill past
+// every edge; by default 64-column boxes with 128-byte swizzle, for the
+// narrow instances 32 columns with 64-byte swizzle. Needs dim % 8 == 0
+// (16-byte strides) and a 16-byte aligned base. Returns cudaSuccess or
+// an error.
+inline cudaError_t make_map(
+    CUtensorMap* map, const void* base, int batch, int seq, int heads,
+    int dim, int rows, int box_cols = kBoxCols,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   if (dim % 8 != 0 || reinterpret_cast<uintptr_t>(base) % 16 != 0)
@@ -282,12 +373,12 @@ inline cudaError_t make_map(CUtensorMap* map, const void* base, int batch,
   const cuuint64_t strides[3] = {
       (cuuint64_t)dim * 2, (cuuint64_t)heads * dim * 2,
       (cuuint64_t)seq * heads * dim * 2};
-  const cuuint32_t box[4] = {(cuuint32_t)kBoxCols, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult res =
       fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
          dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

@@ -60,6 +60,10 @@ def _count_launch(counter: str) -> None:
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the widest head_dim any flash kernel takes
 MAX_HEAD_DIM = 128
+# the widest head_dim the wgmma backward kernels' narrow instances take
+# (32-column tiles; they also compute delta and write lse and delta by
+# head themselves, see _flash_bwd_narrow)
+NARROW_HEAD_DIM = 32
 
 
 def _check_args(q, k, v, causal: bool, window: int) -> None:
@@ -333,37 +337,93 @@ def _flash_fwd_sm90(q, k, v, causal: bool, scale: float, window: int,
     return o, lse
 
 
-def _bwd_inputs(kernel: str, q, k, v, do, lse, delta) -> None:
+def _bwd_inputs(kernel: str, q, k, v, do, lse, delta, dlse=None) -> None:
+    """q, k, v and do as the kernel takes them; lse, delta and (where
+    given) dlse float32 (b, sq, h) on q's device. delta may be None where
+    the kernel computes it."""
     _check_cuda(kernel, (("q", q), ("k", k), ("v", v), ("do", do)))
-    _check_cuda(kernel, (("lse", lse), ("delta", delta)),
-                dtype=torch.float32)
+    rows = [(name, t) for name, t in (("lse", lse), ("delta", delta),
+                                      ("dlse", dlse)) if t is not None]
+    _check_cuda(kernel, rows, dtype=torch.float32)
     _check_shape(kernel, q, k)
-    if do.shape != q.shape or lse.shape != q.shape[:3] \
-            or delta.shape != q.shape[:3] or lse.device != q.device:
-        raise ValueError(f"{kernel}: do {tuple(do.shape)}, lse "
-                         f"{tuple(lse.shape)}, delta {tuple(delta.shape)} "
-                         f"do not match q {tuple(q.shape)} on {q.device}")
+    if do.shape != q.shape or lse.device != q.device or any(
+            t.shape != q.shape[:3] for _, t in rows):
+        shapes = ", ".join(f"{name} {tuple(t.shape)}" for name, t in rows)
+        raise ValueError(f"{kernel}: do {tuple(do.shape)}, {shapes} do "
+                         f"not match q {tuple(q.shape)} on {q.device}")
+
+
+def _head_rows(sq: int) -> int:
+    """Rows of a head in the tensor-core dK/dV kernel's lse and delta:
+    ``sq`` rounded up to its 64-row q tile."""
+    return -(-sq // 64) * 64
+
+
+def _check_by_head(kernel: str, q, by_head) -> None:
+    b, sq, h, _ = q.shape
+    want = (b, h, _head_rows(sq))
+    for name, t in zip(("lse_t", "delta_t"), by_head):
+        if tuple(t.shape) != want or t.dtype != torch.float32 \
+                or t.device != q.device or not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous float32 "
+                             f"{want} on {q.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def _flash_bwd_dq_sm90(q, k, v, do, lse, delta, causal: bool,
-                       scale: float, window: int,
-                       offset: int) -> torch.Tensor:
+                       scale: float, window: int, offset: int, *,
+                       o=None, dlse=None, by_head=None) -> torch.Tensor:
     """float32 dq (b, sq, h, d) from the tensor-core flash_bwd_dq_sm90
-    kernel."""
-    _bwd_inputs("flash_bwd_dq_sm90", q, k, v, do, lse, delta)
+    kernel, given ``delta`` (b, sq, h). A head_dim of at most
+    ``NARROW_HEAD_DIM`` takes the kernel's narrow instance, which can
+    also take ``o`` (the forward's output) and ``dlse`` in place of
+    ``delta`` (then None) and compute delta itself, and fill ``by_head``,
+    ``(lse_t, delta_t)`` of shape (b, h, :func:`_head_rows`), with lse
+    and delta by head, zero past sq: :func:`_by_head`'s layout, which
+    :func:`_flash_bwd_dkv_sm90` reads."""
+    d = q.shape[-1]
+    narrow = d <= NARROW_HEAD_DIM
+    if delta is None:
+        if o is None or not narrow:
+            raise ValueError(f"flash_bwd_dq_sm90 computes delta from o "
+                             f"only at head_dim <= {NARROW_HEAD_DIM}; got "
+                             f"head_dim {d}, o {o is not None}")
+        if o.shape != q.shape:
+            raise ValueError(f"flash_bwd_dq_sm90: o {tuple(o.shape)} does "
+                             f"not match q {tuple(q.shape)}")
+        _bwd_inputs("flash_bwd_dq_sm90", q, k, v, do, lse, None, dlse)
+        _check_cuda("flash_bwd_dq_sm90", (("q", q), ("o", o)))
+        _check_tma("flash_bwd_dq_sm90", (("o", o),))
+    else:
+        if o is not None or dlse is not None:
+            raise ValueError("flash_bwd_dq_sm90 takes delta, or o and "
+                             "dlse, not both")
+        _bwd_inputs("flash_bwd_dq_sm90", q, k, v, do, lse, delta)
+    if by_head is not None:
+        if not narrow:
+            raise ValueError(f"flash_bwd_dq_sm90 writes lse and delta by "
+                             f"head only at head_dim <= {NARROW_HEAD_DIM}, "
+                             f"got {d}")
+        _check_by_head("flash_bwd_dq_sm90", q, by_head)
     _check_tma("flash_bwd_dq_sm90",
                (("q", q), ("k", k), ("v", v), ("do", do)))
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    fn = _kernel("flash_bwd_dq_sm90", [ctypes.c_void_p] * 7
-                 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    fn = _kernel("flash_bwd_dq_sm90", [ctypes.c_void_p] * 11
+                 + [ctypes.c_int] * 7 + [ctypes.c_float]
                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     dq = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    lse_t, delta_t = by_head if by_head is not None else (None, None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, sq,
-                 sk, h, kvh, d, float(scale), int(bool(causal)),
+                 ptr(o), lse.data_ptr(), ptr(dlse), ptr(delta),
+                 dq.data_ptr(), ptr(lse_t), ptr(delta_t), b, sq, sk, h,
+                 kvh, d, _head_rows(sq), float(scale), int(bool(causal)),
                  int(window), int(offset), stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dq_sm90 launch failed: CUDA error "
@@ -383,17 +443,34 @@ def _by_head(x: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def _flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal: bool,
-                        scale: float, window: int, offset: int,
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        scale: float, window: int, offset: int, *,
+                        by_head=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """float32 (dk, dv), each (b, sk, kvh, d), from the tensor-core
-    flash_bwd_dkv_sm90 kernel."""
-    _bwd_inputs("flash_bwd_dkv_sm90", q, k, v, do, lse, delta)
+    flash_bwd_dkv_sm90 kernel, which reads lse and delta by head:
+    ``by_head`` (lse_t, delta_t) as the narrow dQ instance writes them
+    (``lse`` and ``delta`` then None), else :func:`_by_head` of ``lse``
+    and ``delta``."""
+    if by_head is None:
+        _bwd_inputs("flash_bwd_dkv_sm90", q, k, v, do, lse, delta)
+    else:
+        if lse is not None or delta is not None:
+            raise ValueError("flash_bwd_dkv_sm90 takes lse and delta, or "
+                             "them by head, not both")
+        _check_cuda("flash_bwd_dkv_sm90",
+                    (("q", q), ("k", k), ("v", v), ("do", do)))
+        _check_shape("flash_bwd_dkv_sm90", q, k)
+        if do.shape != q.shape:
+            raise ValueError(f"flash_bwd_dkv_sm90: do {tuple(do.shape)} "
+                             f"does not match q {tuple(q.shape)}")
+        _check_by_head("flash_bwd_dkv_sm90", q, by_head)
     _check_tma("flash_bwd_dkv_sm90",
                (("q", q), ("k", k), ("v", v), ("do", do)))
+    if by_head is None:
+        rows = _head_rows(q.shape[1])
+        by_head = _by_head(lse, rows), _by_head(delta, rows)
     b, sq, h, d = q.shape
     sk, kvh = k.shape[1], k.shape[2]
-    rows = -(-sq // 64) * 64  # the kernel's q tile
-    lse_t, delta_t = _by_head(lse, rows), _by_head(delta, rows)
+    lse_t, delta_t = by_head
     fn = _kernel("flash_bwd_dkv_sm90", [ctypes.c_void_p] * 8
                  + [ctypes.c_int] * 7 + [ctypes.c_float]
                  + [ctypes.c_int] * 3 + [ctypes.c_void_p])
@@ -403,13 +480,33 @@ def _flash_bwd_dkv_sm90(q, k, v, do, lse, delta, causal: bool,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                  lse_t.data_ptr(), delta_t.data_ptr(), dk.data_ptr(),
-                 dv.data_ptr(), b, sq, sk, h, kvh, d, rows, float(scale),
-                 int(bool(causal)), int(window), int(offset), stream)
+                 dv.data_ptr(), b, sq, sk, h, kvh, d, lse_t.shape[2],
+                 float(scale), int(bool(causal)), int(window), int(offset),
+                 stream)
     if err != 0:
         raise RuntimeError(f"flash_bwd_dkv_sm90 launch failed: CUDA error "
                            f"{err}")
     _count_launch("FLASH_BWD_DKV_SM90_LAUNCHES")
     return dk, dv
+
+
+def _flash_bwd_narrow(q, k, v, o, lse, do, dlse, causal: bool,
+                      scale: float, window: int, offset: int):
+    """float32 (dq, dk, dv) on the wgmma route at head_dim <=
+    ``NARROW_HEAD_DIM``: the dQ kernel computes delta from ``o`` and
+    ``dlse`` and writes lse and delta by head for the dK/dV kernel, so no
+    :func:`_bwd_delta` and no :func:`_by_head` run around the kernels."""
+    b, sq, h, _ = q.shape
+    by_head = tuple(torch.empty((b, h, _head_rows(sq)), dtype=torch.float32,
+                                device=q.device) for _ in range(2))
+    if dlse is not None:
+        dlse = dlse.float().contiguous()
+    dq = _flash_bwd_dq_sm90(q, k, v, do, lse, None, causal, scale, window,
+                            offset, o=o.contiguous(), dlse=dlse,
+                            by_head=by_head)
+    dk, dv = _flash_bwd_dkv_sm90(q, k, v, do, None, None, causal, scale,
+                                 window, offset, by_head=by_head)
+    return dq, dk, dv
 
 
 def _flash_fwd_tf32x3(q, k, v, causal: bool, scale: float, window: int,
@@ -520,10 +617,14 @@ def _flash_bwd(q, k, v, o, lse, do, dlse, causal: bool, scale: float,
         return flash_bwd_reference(q, k, v, o, lse, do, dlse,
                                    causal=causal, scale=scale,
                                    window=window, kv_offset=offset)
+    route = _route(q)
+    do = do.contiguous()
+    if route == "sm90" and q.shape[-1] <= NARROW_HEAD_DIM:
+        return _flash_bwd_narrow(q, k, v, o, lse, do, dlse, causal, scale,
+                                 window, offset)
     dq_fn, dkv_fn = {
         "sm90": (_flash_bwd_dq_sm90, _flash_bwd_dkv_sm90),
-        "tf32x3": (_flash_bwd_dq_tf32x3, _flash_bwd_dkv_tf32x3)}[_route(q)]
-    do = do.contiguous()
+        "tf32x3": (_flash_bwd_dq_tf32x3, _flash_bwd_dkv_tf32x3)}[route]
     delta = _bwd_delta(o, do, dlse)
     args = (q, k, v, do, lse, delta, causal, scale, window, offset)
     dq = dq_fn(*args)

@@ -56,7 +56,7 @@ def _build_variants(_build) -> dict:
             raise RuntimeError(f"{name}: nvcc exited {proc.returncode}\n{err}")
         fn = ctypes.CDLL(str(out_dir / f"dq_{name}.so")).lo_flash_bwd_dq_sm90
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 7 \
             + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fns[name] = fn
     return fns
@@ -108,10 +108,13 @@ def main() -> int:
         stream = torch.cuda.current_stream().cuda_stream
 
         def launch(fn, dq):
+            # the wide instance (d 64) reads delta; no o, dlse, or lse and
+            # delta by head
             return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                              do.data_ptr(), lse.data_ptr(),
-                              delta.data_ptr(), dq.data_ptr(), b, s, s, h,
-                              kvh, d, scale, int(causal), window, 0, stream)
+                              do.data_ptr(), None, lse.data_ptr(), None,
+                              delta.data_ptr(), dq.data_ptr(), None, None, b,
+                              s, s, h, kvh, d, attn._head_rows(s), scale,
+                              int(causal), window, 0, stream)
 
         result = {}
         for name, fn in fns.items():

@@ -88,19 +88,30 @@ def _upstream(seed, b, sq, h, d):
             rng.standard_normal((b, sq, h), dtype=np.float32))
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kvh,causal,window", [
-    (2, 32, 32, 4, 4, False, 0),     # MHA, full
-    (2, 32, 32, 4, 4, True, 0),      # MHA, causal
-    (2, 40, 56, 4, 2, False, 0),     # GQA 4/2, ragged sk
-    (1, 48, 48, 4, 1, True, 0),      # MQA 4/1
-    (2, 48, 48, 4, 2, True, 16),     # GQA + sliding window
+@pytest.mark.parametrize("b,sq,sk,h,kvh,causal,window,d", [
+    pytest.param(2, 32, 32, 4, 4, False, 0, 16,     # MHA, full
+                 id="2-32-32-4-4-False-0"),
+    pytest.param(2, 32, 32, 4, 4, True, 0, 16,      # MHA, causal
+                 id="2-32-32-4-4-True-0"),
+    pytest.param(2, 40, 56, 4, 2, False, 0, 16,     # GQA 4/2, ragged sk
+                 id="2-40-56-4-2-False-0"),
+    pytest.param(1, 48, 48, 4, 1, True, 0, 16,      # MQA 4/1
+                 id="1-48-48-4-1-True-0"),
+    pytest.param(2, 48, 48, 4, 2, True, 16, 16,     # GQA + sliding window
+                 id="2-48-48-4-2-True-16"),
+    # the head dims of the wgmma backward's narrow instances: the
+    # classifier's layout (8 heads over 4, non-causal) at d 32, ragged sk
+    # at d 24, GQA under a window at d 8
+    pytest.param(2, 32, 32, 8, 4, False, 0, 32, id="classifier-d32"),
+    pytest.param(2, 40, 56, 4, 2, False, 0, 24, id="ragged-sk-d24"),
+    pytest.param(2, 48, 48, 4, 2, True, 16, 8, id="gqa-window-d8"),
 ])
-def test_flash_gradients_match_jax(b, sq, sk, h, kvh, causal, window):
+def test_flash_gradients_match_jax(b, sq, sk, h, kvh, causal, window, d):
     """The port's backward (plain version on the CPU) against jax.grad
     through the Pallas VJP (_bwd_dq_kernel / _bwd_dkv_kernel in
     interpret mode, blocks 8/16)."""
-    q, k, v = _qkv(10, b, sq, sk, h, kvh, 16)
-    go, _ = _upstream(11, b, sq, h, 16)
+    q, k, v = _qkv(10, b, sq, sk, h, kvh, d)
+    go, _ = _upstream(11, b, sq, h, d)
 
     def jax_loss(q, k, v):
         o = jax_attn.flash_attention(q, k, v, causal=causal, window=window,
@@ -308,6 +319,138 @@ def test_backward_routes_dq_and_dkv_together(monkeypatch, dtype, d, route):
                                  True, 0.125, 0, 0)
     assert ran == [f"_flash_bwd_dq_{route}", f"_flash_bwd_dkv_{route}"]
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("d,with_dlse", [(32, False), (24, True),
+                                          (8, False)])
+def test_narrow_backward_passes_o_and_lse_by_head(monkeypatch, d,
+                                                  with_dlse):
+    """On a card, bf16 at head_dim <= 32 takes the wgmma backward's
+    narrow instances without _bwd_delta or _by_head around them: dQ
+    gets o, dlse (float32, contiguous) and two (b, h, sq rounded up to
+    64) float32 buffers for lse and delta by head, and dK/dV gets those
+    same buffers. The launches are stubbed, and the tensors claim a CUDA
+    device to the route predicate."""
+    real_route = attn._route
+    seen = {}
+
+    def dq(q, k, v, do, lse, delta, *args, o=None, dlse=None,
+           by_head=None):
+        seen["dq"] = dict(delta=delta, o=o, dlse=dlse, by_head=by_head,
+                          args=args)
+        return torch.zeros(q.shape)
+
+    def dkv(q, k, v, do, lse, delta, *args, by_head=None):
+        seen["dkv"] = dict(lse=lse, delta=delta, by_head=by_head)
+        return torch.zeros(k.shape), torch.zeros(v.shape)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the narrow route needs no glue")
+
+    monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
+    monkeypatch.setattr(attn, "_route", lambda q: real_route(
+        types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
+                              shape=q.shape)))
+    monkeypatch.setattr(attn, "_flash_bwd_dq_sm90", dq)
+    monkeypatch.setattr(attn, "_flash_bwd_dkv_sm90", dkv)
+    monkeypatch.setattr(attn, "_bwd_delta", refuse)
+    monkeypatch.setattr(attn, "_by_head", refuse)
+    b, sq, h = 2, 100, 4
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(20, b, sq, sq, h, 2,
+                                                       d)))
+    o = torch.zeros_like(q)
+    lse = torch.zeros(q.shape[:3])
+    dlse = torch.ones(b, h, sq).transpose(1, 2) if with_dlse else None
+    dq_, dk_, dv_ = attn._flash_bwd(q, k, v, o, lse, torch.ones_like(q),
+                                    dlse, False, 0.125, 0, 0)
+    assert dq_.shape == q.shape and dk_.shape == dv_.shape == k.shape
+    call = seen["dq"]
+    assert call["delta"] is None and call["o"] is o
+    assert call["args"] == (False, 0.125, 0, 0)
+    if with_dlse:
+        assert call["dlse"].dtype == torch.float32
+        assert call["dlse"].is_contiguous()
+        assert torch.equal(call["dlse"], dlse)
+    else:
+        assert call["dlse"] is None
+    assert attn._head_rows(sq) == 128
+    for t in call["by_head"]:
+        assert t.shape == (b, h, 128) and t.dtype == torch.float32
+        assert t.is_contiguous()
+    assert seen["dkv"]["lse"] is None and seen["dkv"]["delta"] is None
+    assert seen["dkv"]["by_head"] is call["by_head"]
+
+
+def test_wide_sm90_backward_keeps_delta_and_by_head(monkeypatch):
+    """Above head_dim 32 the wgmma backward runs as before: delta from
+    _bwd_delta in (b, sq, h), the same arguments to both kernels, which
+    make lse and delta by head themselves."""
+    real_route = attn._route
+    seen = []
+
+    def stub(name, outs):
+        def launch(q, k, v, do, lse, delta, *args, **kwargs):
+            seen.append((name, delta.shape, kwargs))
+            if outs == 1:
+                return torch.zeros(q.shape)
+            return torch.zeros(k.shape), torch.zeros(v.shape)
+        return launch
+
+    monkeypatch.setattr(attn, "_on_device", lambda kernel, q: True)
+    monkeypatch.setattr(attn, "_route", lambda q: real_route(
+        types.SimpleNamespace(device=torch.device("cuda"), dtype=q.dtype,
+                              shape=q.shape)))
+    monkeypatch.setattr(attn, "_flash_bwd_dq_sm90", stub("dq", 1))
+    monkeypatch.setattr(attn, "_flash_bwd_dkv_sm90", stub("dkv", 2))
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(21, 1, 16, 16, 4, 2,
+                                                       40)))
+    attn._flash_bwd(q, k, v, torch.zeros_like(q), torch.zeros(q.shape[:3]),
+                    torch.ones_like(q), None, True, 0.125, 0, 0)
+    assert seen == [("dq", (1, 16, 4), {}), ("dkv", (1, 16, 4), {})]
+
+
+def test_by_head_is_lse_and_delta_by_head_zero_past_sq():
+    """_by_head's layout, which the narrow dQ kernel writes and the dK/dV
+    kernel reads: (b, h, rows) with each head's rows side by side, zero
+    from sq to rows, rows the 64-row q tile count."""
+    x = torch.arange(2 * 70 * 3, dtype=torch.float32).reshape(2, 70, 3)
+    rows = attn._head_rows(70)
+    assert rows == 128 and attn._head_rows(64) == 64
+    t = attn._by_head(x, rows)
+    assert t.shape == (2, 3, 128) and t.is_contiguous()
+    assert torch.equal(t[:, :, :70], x.transpose(1, 2))
+    assert bool((t[:, :, 70:] == 0).all())
+
+
+@pytest.mark.parametrize("call", ["delta-at-d40", "by-head-at-d40",
+                                  "by-head-shape", "both"])
+def test_sm90_backward_wrappers_refuse_misuse(call):
+    """The wgmma backward wrappers raise before any build or launch:
+    delta from o, and lse and delta by head, only at head_dim <= 32; by
+    head only at (b, h, sq rounded up to 64) float32; delta or o, not
+    both."""
+    d = 40 if call.endswith("d40") else 32
+    q, k, v = (t.to(torch.bfloat16) for t in _t(*_qkv(22, 1, 70, 70, 2, 1,
+                                                       d)))
+    do, o = torch.ones_like(q), torch.zeros_like(q)
+    lse = torch.zeros(q.shape[:3])
+    rows = attn._head_rows(70)
+    good = tuple(torch.zeros((1, 2, rows)) for _ in range(2))
+    args = (True, 0.25, 0, 0)
+    before = attn.FLASH_BWD_DQ_SM90_LAUNCHES
+    with pytest.raises(ValueError):
+        if call == "delta-at-d40":
+            attn._flash_bwd_dq_sm90(q, k, v, do, lse, None, *args, o=o)
+        elif call == "by-head-at-d40":
+            attn._flash_bwd_dq_sm90(q, k, v, do, lse, lse, *args,
+                                    by_head=good)
+        elif call == "by-head-shape":
+            bad = tuple(torch.zeros((1, 2, 70)) for _ in range(2))
+            attn._flash_bwd_dkv_sm90(q, k, v, do, None, None, *args,
+                                     by_head=bad)
+        else:
+            attn._flash_bwd_dq_sm90(q, k, v, do, lse, lse, *args, o=o)
+    assert attn.FLASH_BWD_DQ_SM90_LAUNCHES == before
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.float32, 136),

@@ -479,3 +479,31 @@ def test_shutdown_records_the_queued_jobs_it_drops(tmp_path):
     finally:
         release.set()
         ctx.close()
+
+
+def test_concurrent_metadata_updates_lose_no_field(tmp_path):
+    """``update_metadata`` is a read-modify-write: two threads (a job
+    writing its terminal status, the stall watchdog its progress) must
+    not write back a body read before the other's update."""
+    import threading
+    cat = Catalog(str(tmp_path / "cat.db"), str(tmp_path / "ds"))
+    cat.create_collection("job", "train/tensorflow")
+    threads, rounds = 8, 200
+    start = threading.Barrier(threads)
+
+    def writer(t):
+        start.wait()
+        for i in range(rounds):
+            cat.update_metadata("job", {f"t{t}_{i}": i, "status": t})
+        cat.close()
+
+    workers = [threading.Thread(target=writer, args=(t,))
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    meta = cat.get_metadata("job")
+    missing = [f"t{t}_{i}" for t in range(threads) for i in range(rounds)
+               if f"t{t}_{i}" not in meta]
+    assert not missing, missing[:10]

@@ -170,13 +170,21 @@ def test_fit_on_card_runs_the_kernels(monkeypatch):
 # (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse) in bf16 on the
 # tensor-core route: non-causal, MQA, ragged sk at d 32, a kv_offset that
 # leaves rows with no visible key at d 128, and head dims that do not
-# fill the kernels' 64-column boxes (8, 72)
+# fill the kernels' 64-column boxes (8, 72); then the backward's narrow
+# instances (head_dim <= 32): the classifier's layout (8 heads over 4,
+# non-causal) at a small batch, d 32 under causal, a window, a kv_offset
+# and dlse, ragged sq and sk at d 24, GQA under causal at d 16
 _SM90_CASES = [(2, 96, 96, 4, 2, 64, False, 0, 0, False),
                (2, 130, 130, 8, 1, 64, True, 0, 0, False),
                (2, 77, 201, 4, 2, 32, False, 0, 0, False),
                (2, 64, 64, 4, 4, 128, True, 16, 40, True),
                (1, 150, 150, 4, 2, 8, True, 32, 0, False),
-               (1, 150, 150, 4, 4, 72, True, 0, 0, False)]
+               (1, 150, 150, 4, 4, 72, True, 0, 0, False),
+               (4, 128, 128, 8, 4, 32, False, 0, 0, False),
+               (2, 200, 200, 4, 2, 32, True, 48, 24, True),
+               (2, 77, 201, 4, 2, 24, False, 0, 0, False),
+               (2, 130, 130, 8, 2, 16, True, 0, 0, False)]
+_NARROW_CASES = [c for c in _SM90_CASES if c[5] <= attn.NARROW_HEAD_DIM]
 
 
 @pytest.mark.cuda
@@ -229,6 +237,89 @@ def test_tensor_core_route_on_card(case):
                                    atol=1e-4 * ref.abs().max().item())
     if offset:
         assert bool((dq[~seen] == 0).all())
+
+
+def _narrow_inputs(case, seed):
+    b, sq, sk, h, kvh, d, causal, window, offset, with_dlse = case
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(a).cuda().to(torch.bfloat16)
+               for a in _qkv(seed + 1, b, sq, sk, h, kvh, d))
+    do = torch.from_numpy(rng.standard_normal(
+        (b, sq, h, d), dtype=np.float32)).cuda().to(torch.bfloat16)
+    dlse = torch.from_numpy(rng.standard_normal(
+        (b, sq, h), dtype=np.float32)).cuda() if with_dlse else None
+    scale = 1.0 / d ** 0.5
+    o, lse = attn._flash_fwd(q, k, v, causal, scale, window, offset)
+    return q, k, v, do, dlse, o, lse, (causal, scale, window, offset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _NARROW_CASES)
+def test_narrow_backward_folds_delta_on_card(case):
+    """At head_dim <= 32 the wgmma backward runs as _flash_bwd_narrow runs
+    it: flash_bwd_dq_sm90 computes delta from o and dlse and writes lse
+    and delta by head (exactly _by_head's lse, _by_head's delta at
+    float32 order, zero past sq), flash_bwd_dkv_sm90 reads them, one
+    launch each, and the gradients meet the float32 summation-order
+    tolerance against flash_bwd_reference."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    q, k, v, do, dlse, o, lse, args = _narrow_inputs(case, 17)
+    b, sq, h = q.shape[0], q.shape[1], q.shape[2]
+    rows = attn._head_rows(sq)
+    by_head = tuple(torch.full((b, h, rows), float("nan"), device="cuda")
+                    for _ in range(2))
+    before = (_launched(DQ), _launched(DKV))
+    dq = attn._flash_bwd_dq_sm90(q, k, v, do, lse, None, *args, o=o,
+                                 dlse=dlse, by_head=by_head)
+    dk, dv = attn._flash_bwd_dkv_sm90(q, k, v, do, None, None, *args,
+                                      by_head=by_head)
+    torch.cuda.synchronize()
+    assert (_launched(DQ), _launched(DKV)) == (before[0] + 1, before[1] + 1)
+    delta = attn._bwd_delta(o, do, dlse)
+    assert torch.equal(by_head[0], attn._by_head(lse, rows))
+    torch.testing.assert_close(by_head[1], attn._by_head(delta, rows),
+                               rtol=1e-5, atol=1e-5 * delta.abs().max())
+    want = attn.flash_bwd_reference(q, k, v, o, lse, do, dlse,
+                                    causal=args[0], scale=args[1],
+                                    window=args[2], kv_offset=args[3])
+    for got, ref in zip((dq, dk, dv), want):
+        assert bool(torch.isfinite(got).all())
+        torch.testing.assert_close(got, ref, rtol=1e-4,
+                                   atol=1e-4 * ref.abs().max().item())
+    # the autograd path takes the same launches and gives the same bits
+    dq2, dk2, dv2 = attn._flash_bwd(q, k, v, o, lse, do, dlse, *args)
+    assert all(torch.equal(a, g) for a, g in zip((dq2, dk2, dv2),
+                                                  (dq, dk, dv)))
+    if args[3]:
+        empty = lse == attn.NEG_INF
+        assert bool(empty.any()) and bool((dq[empty] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_narrow_kernels_are_deterministic_on_card(kernel):
+    """Two launches of each narrow wgmma backward kernel on the same
+    inputs give the same bits: every output element is written once, no
+    atomics, on every narrow case."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    for case in _NARROW_CASES:
+        q, k, v, do, dlse, o, lse, args = _narrow_inputs(case, 19)
+        b, sq, h = q.shape[0], q.shape[1], q.shape[2]
+        by_head = tuple(torch.empty((b, h, attn._head_rows(sq)),
+                                    device="cuda") for _ in range(2))
+        runs = []
+        for _ in range(2):
+            dq = attn._flash_bwd_dq_sm90(q, k, v, do, lse, None, *args,
+                                         o=o, dlse=dlse, by_head=by_head)
+            if kernel == "dq":
+                runs.append((dq, *(t.clone() for t in by_head)))
+            else:
+                runs.append(attn._flash_bwd_dkv_sm90(
+                    q, k, v, do, None, None, *args, by_head=by_head))
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, g) for a, g in zip(*runs)), case
 
 
 @pytest.mark.cuda
