@@ -11,11 +11,12 @@
 // head_dim it is K-major (Q.K^T and friends), read along the rows it is
 // MN-major with the transpose flag (P.V, dS.K, P^T.dO, dS^T.Q).
 //
-// The backward kernels' narrow instances (head_dim <= 32) take boxes of
-// 32 columns (64-byte rows) with 64-byte swizzle instead (desc_sw64):
-// half the shared memory of a tile, and no zero columns in the products.
+// The narrow instances (head_dim <= 32) take boxes of 32 columns
+// (64-byte rows) with 64-byte swizzle instead (desc_sw64): half the
+// shared memory of a tile, and no zero columns in the products.
 //
-// Accumulators are f32, m64n64k16 or (narrow gradients) m64n32k16.
+// Accumulators are f32, m64n64k16 or (the narrow instances' O and
+// gradients) m64n32k16.
 // Accumulator fragment of a warpgroup thread t (warp w = t / 32, lane
 // l = t % 32), for column chunk j (0..7 at n64, 0..3 at n32): d[4j + e]
 // holds row 16w + l/4 + 8 * (e / 2), column 8j + 2 * (l % 4) + e % 2.
@@ -229,7 +230,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
       "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
 
 // d (64x32 f32) += A (64x16 bf16, registers a[0..3]) . B (16x32, shared):
-// the narrow instances' gradient products
+// the narrow instances' P.V and gradient products
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
                                              const uint32_t (&a)[4],

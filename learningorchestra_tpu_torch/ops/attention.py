@@ -60,9 +60,10 @@ def _count_launch(counter: str) -> None:
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the widest head_dim any flash kernel takes
 MAX_HEAD_DIM = 128
-# the widest head_dim the wgmma backward kernels' narrow instances take
-# (32-column tiles; they also compute delta and write lse and delta by
-# head themselves, see _flash_bwd_narrow)
+# the widest head_dim the wgmma kernels' narrow instances take (32-column
+# tiles; flash_fwd_sm90 picks its own, and the backward's also compute
+# delta and write lse and delta by head themselves, see
+# _flash_bwd_narrow)
 NARROW_HEAD_DIM = 32
 
 

@@ -46,7 +46,8 @@ casts to bf16), in turns: the old design's flow, the narrow kernels with
 the old flow around them, the package's ``_flash_bwd``, beside SDPA's
 backward under each backend. Prints the card's name and power limit
 first, one JSON line per section. Needs a card and nvcc; exits 2
-without a card, 1 if a variant fails to build or a check.
+without a card, 1 if a variant fails to build or a check. The builds and
+the timer are ``scripts/sm90_variants.py``'s.
 """
 
 from __future__ import annotations
@@ -55,11 +56,12 @@ import ctypes
 import json
 import os
 import re
-import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+
+import sm90_variants as sv  # noqa: E402  (beside this script)
 
 SOURCES = ("flash_bwd_dq_sm90", "flash_bwd_dkv_sm90")
 OLD = {"flash_bwd_dq_sm90": [("const bool narrow = d <= kNarrowCols;",
@@ -125,8 +127,6 @@ DIAGNOSTIC_CALLS = {"xss": {
                              ("acc_v", "p_lo", "b_do"),
                              ("acc_k", "ds_hi", "b_q"),
                              ("acc_k", "ds_lo", "b_q"))]}}
-INCLUDE = '#include "sm90_common.cuh"\n'
-
 
 def _substitutions(name: str) -> dict:
     if name == "old":
@@ -138,78 +138,16 @@ def _substitutions(name: str) -> dict:
     name, _, diag = name.partition("-")
     m = re.fullmatch(r"s(\d)g(\d)([np])(r?)", name)
     flags = {"kNStages": m.group(1), "kNWarpgroups": m.group(2),
-             "kNPersistent": m.group(3) == "p", "kNRegA": bool(m.group(4))}
-    subs = {src: [(re.compile(rf"constexpr (int|bool) {k} = \w+;"),
-                   rf"constexpr \g<1> {k} = "
-                   + (str(v).lower() if isinstance(v, bool) else v) + ";")
-                  for k, v in flags.items()
-                  # only dQ takes its resident operands as fragments
-                  if k != "kNRegA" or "dq" in src]
-            for src in SOURCES}
+             "kNPersistent": m.group(3) == "p"}
+    subs = sv.set_constants(flags, SOURCES)
+    # only dQ takes its resident operands as fragments
+    subs[SOURCES[0]] += sv.set_constants({"kNRegA": bool(m.group(4))},
+                                         SOURCES[:1])[SOURCES[0]]
     if diag:
         for src in SOURCES:
-            subs[src].append((INCLUDE, INCLUDE + "namespace sm90 {\n"
-                              + DIAGNOSTICS[diag] + "}\n"))
+            subs[src].append(sv.after_header(DIAGNOSTICS[diag]))
             subs[src] += DIAGNOSTIC_CALLS.get(diag, {}).get(src, [])
     return subs
-
-
-def _build_variants(_build_mod, names) -> tuple:
-    """Compile every variant's two sources in parallel. Returns the
-    loaded entry points ``{name: (dq, dkv)}`` and the failures."""
-    out_dir = _build_mod.BUILD_DIR.parent / "variants"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in names:
-        for src, subs in _substitutions(name).items():
-            text = (_build_mod.CSRC / f"{src}.cu").read_text()
-            for old, new in subs:
-                if isinstance(old, str):
-                    if old not in text:
-                        raise RuntimeError(f"{name}: {old!r} not in "
-                                           f"{src}.cu")
-                    text = text.replace(old, new)
-                else:
-                    text, n = old.subn(new, text)
-                    if n != 1:
-                        raise RuntimeError(f"{name}: {old.pattern} in "
-                                           f"{src}.cu {n} times")
-            cu = out_dir / f"{name}_{src}.cu"
-            cu.write_text(text)
-            cmd = [_build_mod._nvcc(), *_build_mod.NVCC_FLAGS,
-                   f"-I{_build_mod.CSRC}", "-o",
-                   str(out_dir / f"{name}_{src}.so"), str(cu)]
-            procs[(name, src)] = subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                text=True)
-    import chip_smoke as cs
-
-    fns, failed, report = {}, {}, {}
-    for (name, src), proc in procs.items():
-        out, err = proc.communicate()
-        report[f"{name}/{src}"] = {
-            "kernels": cs._ptxas_report(out + err),
-            "notes": [line.strip() for line in (out + err).splitlines()
-                      if re.search(r"wgmma|serializ|warning", line)]}
-        if proc.returncode != 0:
-            failed[name] = err[-2000:]
-            continue
-        if any(v.get("spillStores", 1) or v.get("spillLoads", 1)
-               for v in report[f"{name}/{src}"]["kernels"]):
-            failed[name] = f"{src} spills"
-    print("ptxas " + json.dumps(report), flush=True)
-    for name in names:
-        if name in failed:
-            continue
-        pair = []
-        for src, argtypes in zip(SOURCES, (DQ_ARGS, DKV_ARGS)):
-            fn = getattr(ctypes.CDLL(str(out_dir / f"{name}_{src}.so")),
-                         f"lo_{src}")
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
-            pair.append(fn)
-        fns[name] = tuple(pair)
-    return fns, failed
 
 
 class Case:
@@ -346,15 +284,14 @@ def main() -> int:
     from learningorchestra_tpu_torch.ops import _build
     from learningorchestra_tpu_torch.ops import attention as attn
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
-    print(f"device: {smi.stdout.strip()}", flush=True)
+    print(sv.device_line(), flush=True)
     names = sys.argv[1:] or ["old", *VARIANTS]
     for name in (n for n in ("old", PACKAGE) if n not in names):
         names.append(name)
     _build.build(["flash_fwd_sm90", *SOURCES])
-    fns, failed = _build_variants(_build, names)
+    fns, failed = sv.build(_build, {n: _substitutions(n) for n in names},
+                           dict(zip(SOURCES, (DQ_ARGS, DKV_ARGS))))
+    fns = {n: tuple(f[s] for s in SOURCES) for n, f in fns.items()}
     for name, why in failed.items():
         print(f"variant {name} failed to build: {why}", flush=True)
 
@@ -379,18 +316,15 @@ def main() -> int:
     pairs = int(cs._visible_mask(torch, case.sq, case.sk, case.causal,
                                  case.window, case.offset, "cuda").sum()) \
         * case.b * case.h
-    result = {n: {"dqMs": [], "dkvMs": []} for n in timed}
-    for name in timed + timed[::-1]:
-        dq_fn, dkv_fn = fns[name]
-        if name == "old":
-            result[name]["dqMs"].append(cs._time_ms(
-                torch, lambda: case.dq_delta(dq_fn), iters=50))
-            case.by_head_old()
-        else:
-            result[name]["dqMs"].append(cs._time_ms(
-                torch, lambda: case.dq_fold(dq_fn), iters=50))
-        result[name]["dkvMs"].append(cs._time_ms(
-            torch, lambda: case.dkv(dkv_fn), iters=50))
+    # lse and delta by head as the wrapper makes them for the wide
+    # instances; the narrow dQ writes the same into these buffers
+    case.by_head_old()
+    dq_launch = {n: case.dq_delta if n == "old" else case.dq_fold
+                 for n in timed}
+    result = sv.in_turns(
+        torch, cs, {n: {"dqMs": lambda n=n: dq_launch[n](fns[n][0]),
+                        "dkvMs": lambda n=n: case.dkv(fns[n][1])}
+                    for n in timed}, timed + timed[::-1])
     clock = cs._sm_clock_mhz()
     print("classifier " + json.dumps({
         "shape": list(CLASSIFIER), "visiblePairs": pairs, **clock,
@@ -428,9 +362,7 @@ def main() -> int:
         return dq.to(torch.bfloat16), dk.to(torch.bfloat16), \
             dv.to(torch.bfloat16)
     flows["package"] = package_flow
-    whole = {n: [] for n in flows}
-    for name in list(flows) + list(flows)[::-1]:
-        whole[name].append(cs._time_ms(torch, flows[name], iters=50))
+    whole = sv.in_turns(torch, cs, flows, list(flows) + list(flows)[::-1])
     sdpa = cs._sdpa_times(torch, case.q, case.k, case.v, case.do,
                           case.causal, case.window, case.offset, case.scale)
     print("wholeBackward " + json.dumps({
@@ -441,13 +373,11 @@ def main() -> int:
     if old and new:
         case = Case(torch, attn, TRAINING, seed=2)
         case.by_head_old()
-        train = {n: {"dqMs": [], "dkvMs": []} for n in ("old", PACKAGE)}
-        for name in ["old", PACKAGE, PACKAGE, "old"]:
-            dq_fn, dkv_fn = fns[name]
-            train[name]["dqMs"].append(cs._time_ms(
-                torch, lambda: case.dq_delta(dq_fn), iters=50))
-            train[name]["dkvMs"].append(cs._time_ms(
-                torch, lambda: case.dkv(dkv_fn), iters=50))
+        train = sv.in_turns(
+            torch, cs, {n: {"dqMs": lambda n=n: case.dq_delta(fns[n][0]),
+                            "dkvMs": lambda n=n: case.dkv(fns[n][1])}
+                        for n in ("old", PACKAGE)},
+            ["old", PACKAGE, PACKAGE, "old"])
         print("training " + json.dumps({"shape": list(TRAINING),
                                         "variants": train}), flush=True)
     if failed:

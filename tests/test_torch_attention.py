@@ -42,30 +42,49 @@ def _j(*arrays):
     return tuple(jnp.asarray(a) for a in arrays)
 
 
-@pytest.mark.parametrize("b,sq,sk,h,kvh,causal,window", [
-    (2, 32, 32, 4, 4, False, 0),     # MHA, full
-    (2, 32, 32, 4, 4, True, 0),      # MHA, causal
-    (2, 40, 56, 4, 2, False, 0),     # GQA 4/2, ragged
-    (1, 48, 48, 4, 2, True, 0),      # GQA causal, uneven tiles
-    (1, 48, 48, 4, 1, True, 0),      # MQA 4/1
-    (2, 48, 48, 4, 2, True, 16),     # GQA + sliding window
+@pytest.mark.parametrize("b,sq,sk,h,kvh,causal,window,d", [
+    pytest.param(2, 32, 32, 4, 4, False, 0, 16,     # MHA, full
+                 id="2-32-32-4-4-False-0"),
+    pytest.param(2, 32, 32, 4, 4, True, 0, 16,      # MHA, causal
+                 id="2-32-32-4-4-True-0"),
+    pytest.param(2, 40, 56, 4, 2, False, 0, 16,     # GQA 4/2, ragged
+                 id="2-40-56-4-2-False-0"),
+    pytest.param(1, 48, 48, 4, 2, True, 0, 16,      # GQA causal, uneven
+                 id="1-48-48-4-2-True-0"),
+    pytest.param(1, 48, 48, 4, 1, True, 0, 16,      # MQA 4/1
+                 id="1-48-48-4-1-True-0"),
+    pytest.param(2, 48, 48, 4, 2, True, 16, 16,     # GQA + sliding window
+                 id="2-48-48-4-2-True-16"),
+    # the head dims the wgmma forward's narrow instance takes (<= 32):
+    # GQA under a window at d 8, ragged sk at d 24, and the classifier's
+    # layout (8 heads over 4, bidirectional) at d 32
+    pytest.param(2, 40, 40, 4, 2, True, 16, 8, id="d8-gqa-window"),
+    pytest.param(2, 40, 56, 4, 4, False, 0, 24, id="d24-ragged"),
+    pytest.param(2, 64, 64, 8, 4, False, 0, 32, id="d32-classifier-layout"),
 ])
-def test_flash_matches_jax(b, sq, sk, h, kvh, causal, window):
-    q, k, v = _qkv(0, b, sq, sk, h, kvh, 16)
+def test_flash_matches_jax(b, sq, sk, h, kvh, causal, window, d):
+    q, k, v = _qkv(0, b, sq, sk, h, kvh, d)
     want = jax_attn.flash_attention(*_j(q, k, v), causal=causal,
                                     window=window, block_q=16, block_k=16)
     got = attn.flash_attention(*_t(q, k, v), causal=causal, window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
-@pytest.mark.parametrize("causal,window,kv_offset", [
-    (False, 0, 0),
-    (True, 0, 0),
-    (True, 8, 0),
-    (True, 4, 20),    # the window passes rows before the keys: lse -1e30
+@pytest.mark.parametrize("causal,window,kv_offset,d", [
+    pytest.param(False, 0, 0, 16, id="False-0-0"),
+    pytest.param(True, 0, 0, 16, id="True-0-0"),
+    pytest.param(True, 8, 0, 16, id="True-8-0"),
+    # the window passes rows before the keys: lse -1e30
+    pytest.param(True, 4, 20, 16, id="True-4-20"),
+    # the narrow instance's head dims: bidirectional at d 8, causal at
+    # d 24, and at d 32 a window and a kv_offset that leaves rows with no
+    # visible key
+    pytest.param(False, 0, 0, 8, id="d8"),
+    pytest.param(True, 0, 0, 24, id="d24-causal"),
+    pytest.param(True, 8, 12, 32, id="d32-window-offset"),
 ])
-def test_flash_with_lse_matches_jax(causal, window, kv_offset):
-    q, k, v = _qkv(1, 2, 32, 32, 2, 2, 16)
+def test_flash_with_lse_matches_jax(causal, window, kv_offset, d):
+    q, k, v = _qkv(1, 2, 32, 32, 2, 2, d)
     want_o, want_lse = jax_attn.flash_attention_with_lse(
         *_j(q, k, v), causal=causal, window=window, kv_offset=kv_offset,
         block_q=16, block_k=16)

@@ -170,10 +170,12 @@ def test_fit_on_card_runs_the_kernels(monkeypatch):
 # (b, sq, sk, h, kvh, d, causal, window, kv_offset, dlse) in bf16 on the
 # tensor-core route: non-causal, MQA, ragged sk at d 32, a kv_offset that
 # leaves rows with no visible key at d 128, and head dims that do not
-# fill the kernels' 64-column boxes (8, 72); then the backward's narrow
-# instances (head_dim <= 32): the classifier's layout (8 heads over 4,
+# fill the kernels' 64-column boxes (8, 72); then the narrow instances
+# (head_dim <= 32): the classifier's layout (8 heads over 4,
 # non-causal) at a small batch, d 32 under causal, a window, a kv_offset
-# and dlse, ragged sq and sk at d 24, GQA under causal at d 16
+# and dlse, ragged sq and sk at d 24, GQA under causal at d 16, and more
+# work items than the card has SMs (256 for the forward and for dQ), so
+# that a block of their persistent grids walks several
 _SM90_CASES = [(2, 96, 96, 4, 2, 64, False, 0, 0, False),
                (2, 130, 130, 8, 1, 64, True, 0, 0, False),
                (2, 77, 201, 4, 2, 32, False, 0, 0, False),
@@ -183,7 +185,8 @@ _SM90_CASES = [(2, 96, 96, 4, 2, 64, False, 0, 0, False),
                (4, 128, 128, 8, 4, 32, False, 0, 0, False),
                (2, 200, 200, 4, 2, 32, True, 48, 24, True),
                (2, 77, 201, 4, 2, 24, False, 0, 0, False),
-               (2, 130, 130, 8, 2, 16, True, 0, 0, False)]
+               (2, 130, 130, 8, 2, 16, True, 0, 0, False),
+               (16, 384, 384, 8, 2, 32, True, 128, 0, False)]
 _NARROW_CASES = [c for c in _SM90_CASES if c[5] <= attn.NARROW_HEAD_DIM]
 
 
@@ -297,11 +300,12 @@ def test_narrow_backward_folds_delta_on_card(case):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+@pytest.mark.parametrize("kernel", ["dq", "dkv", "fwd"])
 def test_narrow_kernels_are_deterministic_on_card(kernel):
-    """Two launches of each narrow wgmma backward kernel on the same
-    inputs give the same bits: every output element is written once, no
-    atomics, on every narrow case."""
+    """Two launches of each narrow wgmma kernel (the forward, dQ, dK/dV)
+    on the same inputs give the same bits: every output element is
+    written once, in one order of sums whichever block of a persistent
+    grid takes its item, no atomics, on every narrow case."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card")
     for case in _NARROW_CASES:
@@ -311,6 +315,9 @@ def test_narrow_kernels_are_deterministic_on_card(kernel):
                                     device="cuda") for _ in range(2))
         runs = []
         for _ in range(2):
+            if kernel == "fwd":
+                runs.append(attn._flash_fwd_sm90(q, k, v, *args))
+                continue
             dq = attn._flash_bwd_dq_sm90(q, k, v, do, lse, None, *args,
                                          o=o, dlse=dlse, by_head=by_head)
             if kernel == "dq":
