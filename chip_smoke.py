@@ -244,7 +244,9 @@
    through LR, NB, DT, RF and GB with ``meshParallel``: LR and NB
    finish with ``engine: "torch"`` and accuracy above 0.6, fitted by
    estimators on the card under the card lease (card memory rises in the
-   job and is back within 1 MiB after), and the sklearn families finish
+   job; after it, card memory less the device arena's resident bytes is
+   back within 1 MiB, and within 1 MiB once the arena is cleared), and
+   the sklearn families finish
    or each fails naming its ``ImportError`` (the line says which); (b) LR
    and NB on 1,000,000 rows of 16 float32 features and 4 classes written
    through the catalog writer, fitted on the card with ``meshParallel``
@@ -265,8 +267,9 @@
 14. The job lifecycle (the ``lifecycle`` line, before ``observe``): the tutorial LM's
    bf16 fit over REST cancelled after its first step (ended
    ``cancelled`` within 2 steps' time plus 0.5 s) and one with ``"timeout":
-   2`` (``timedOut``); the card memory at the start of the job queued
-   behind each within 1 MiB of before the fit, the sm90 counters still
+   2`` (``timedOut``); the card memory less the device arena's at the
+   start of the job queued behind each within 1 MiB of before the fit
+   (and within 1 MiB once the arena is cleared), the sm90 counters still
    after; the health sentinel on the tutorial CNN under
    ``engine_step:1:nan`` (``skip``: finite losses, a counted step;
    ``rollback`` with a checkpoint: within 1e-5 of a clean run; ``fail``:
@@ -278,7 +281,7 @@
    unfinished projection failed with ``InterruptedError``; the gateway's
    504 at ``LO_REQUEST_TIMEOUT`` 0.5 on a slow read whose dispatch runs
    on to its end.
-15. The observability plane (the ``observe`` line, last), through the
+15. The observability plane (the ``observe`` line), through the
    REST routes: (a) a checkpointed REST ``/train`` of the tutorial LM in
    bf16 (the training path's 8 steps): the span tree (``submit`` over
    ``validate`` and ``preflight``; ``job`` over ``queueWait``,
@@ -317,12 +320,37 @@
    each point within 1e-4, the kernels an optimizer step fused and
    unfused, an early stop, ``/metrics`` ``sweepFusion``, the card's
    memory flat after each cohort.
+18. The feature plane (the ``featurePlane`` line, last): (a) the train
+   phase's bf16 fit of the tutorial LM staged (its padded epoch on the
+   card once, each step's rows gathered there) and through the prefetch
+   feed (``LO_SCAN_FIT_MAX_BYTES=0``: pinned host buffers copied on a
+   side stream), losses equal bit for bit, and equal to the train
+   phase's, and 128 launches of each sm90 kernel each, nothing else; (b)
+   the tutorial CNN at MNIST's shapes through those two feeds and a copy
+   in each step (``LO_PREFETCH_BUFFER=0`` too), losses within 1e-5
+   relative (bit equality recorded), each with its step ms (samples/s)
+   and the idle share of a profiled epoch; ResNet-50 at batch 64 through
+   the three feeds, each twice, ms a step of each; (c)
+   Builder LR with ``meshParallel`` on 1,000,000 x 16 rows twice: the
+   second run hits the device arena and the feature cache for both
+   datasets, reads no table from the catalog and predicts the same; a
+   write to the training dataset, then a run that misses, stages again
+   and drops the old entry's bytes (cold and warm ``fitTime``); (d)
+   ``$corpus`` read twice through the resolver, the second a host-tier
+   hit (seconds of both); (f) a slot session's params pinned in the
+   arena under X-ray ``serving-params`` and not ``arena``, back out after
+   the delete; (h) ``/metrics``' ``featureCache`` and ``arena`` blocks
+   and their series, moved by exactly those counts; (e) a tokened staged
+   fit cancelled mid-epoch leaves no pin, and a second staged copy
+   evicts it; (g) a child process with ``LO_LOCK_WITNESS=1`` (count
+   mode) runs (a)'s REST fit (the same losses) and a serving round with
+   no lock-order violation (its edge count recorded).
 
 The kernel launch counts are zeroed just before each path and read
 just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
 keras``, ``--only fusion``, ``--only ckptAsync``, ``--only function``,
 ``--only transform``, ``--only builder``, ``--only lifecycle``,
-``--only observe``, or several, comma-separated)
+``--only observe``, ``--only featurePlane``, or several, comma-separated)
 builds the kernels
 and runs that phase alone (to iterate on it), printing its line and no
 result line.
@@ -5710,6 +5738,7 @@ def builder_phase(torch, log, home, yard):
         GaussianNBJAX, LogisticRegressionJAX)
     from learningorchestra_tpu_torch.native import hgb
     from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime import arena as arena_lib
     from learningorchestra_tpu_torch.services import builder_service
     from learningorchestra_tpu_torch.services.context import ServiceContext
     from learningorchestra_tpu_torch.services.server import RestServer
@@ -5771,9 +5800,17 @@ def builder_phase(torch, log, home, yard):
             "titanic", "titanic", BUILDER_MODELING, families,
             meshParallel=True, evaluationDatasetName="titanic")
         peak = torch.cuda.max_memory_allocated()
+        # the card families' staged tensors stay in the device arena for
+        # a repeat job: card bytes less the arena's, then after a clear
+        arena = arena_lib.get_default_arena()
+        resident = arena.stats()["bytesInUse"]
         after = _card_bytes(torch)
+        arena.clear()
+        cleared = _card_bytes(torch)
         tutorial = {"jobSeconds": seconds, "cardBytesBefore": before,
-                    "cardBytesAfter": after, "cardPeakBytes": peak}
+                    "cardBytesAfter": after, "arenaBytesInUse": resident,
+                    "cardBytesAfterArenaClear": cleared,
+                    "cardPeakBytes": peak}
         for c in ("LR", "NB"):
             meta = metas[c]
             if not meta.get("finished") or meta.get("engine") != "torch" \
@@ -5788,8 +5825,10 @@ def builder_phase(torch, log, home, yard):
         if "leaseWaitSeconds" not in metas["LR"] or not peak > before:
             raise AssertionError(f"no card lease or no card memory: "
                                  f"{metas['LR']}, peak {peak}")
-        if abs(after - before) > (1 << 20):
-            raise AssertionError(f"card memory {before} -> {after}")
+        if abs(after - resident - before) > (1 << 20) or \
+                abs(cleared - before) > (1 << 20):
+            raise AssertionError(f"card memory {before} -> {after} (arena "
+                                 f"{resident}), {cleared} after a clear")
         sklearn = {}
         for c in ("DT", "RF", "GB"):
             if metas[c].get("finished"):
@@ -5988,6 +6027,7 @@ def lifecycle_phase(torch, log, home, yard):
     from learningorchestra_tpu_torch.models.transformer import \
         LanguageModel
     from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime import arena as arena_lib
     from learningorchestra_tpu_torch.services import faults
     from learningorchestra_tpu_torch.services.context import ServiceContext
     from learningorchestra_tpu_torch.services.server import Api, RestServer
@@ -6034,6 +6074,8 @@ def lifecycle_phase(torch, log, home, yard):
                 t = time.monotonic()
                 return {"t": t, "launches": _launches(attn),
                         "bytes": _card_bytes(torch),
+                        "arenaBytes": arena_lib.get_default_arena()
+                        .stats()["bytesInUse"],
                         "peak": torch.cuda.max_memory_allocated()}
 
             ctx.jobs.submit(name, run, needs_card=True)
@@ -6041,6 +6083,8 @@ def lifecycle_phase(torch, log, home, yard):
         lifecycle = {}
         for name, timeout in (("lm_cancel", None), ("lm_timeout", 2)):
             before = _card_bytes(torch)
+            before_arena = arena_lib.get_default_arena().stats()[
+                "bytesInUse"]
             torch.cuda.reset_peak_memory_stats()
             _reset_launches(attn)
             t_post = time.monotonic()
@@ -6072,16 +6116,24 @@ def lifecycle_phase(torch, log, home, yard):
                 raise AssertionError(f"{name}: launches went on after it "
                                      f"ended")
             stepped = launched["flash_fwd_sm90"] // step_launches
-            freed = nxt["bytes"] - before
+            # card bytes less the device arena's (a staged fit's entry may
+            # stay for a repeat job), then after the arena is cleared
+            freed = (nxt["bytes"] - nxt["arenaBytes"]) - \
+                (before - before_arena)
+            arena_lib.get_default_arena().clear()
+            cleared = _card_bytes(torch) - (before - before_arena)
             record = {"status": want_status, "launches": launched,
                       "stepsLaunched": stepped,
                       "cardBytesBefore": before,
+                      "arenaBytesBefore": before_arena,
                       "cardBytesAtNextJob": nxt["bytes"],
+                      "arenaBytesAtNextJob": nxt["arenaBytes"],
                       "cardBytesLeft": freed,
+                      "cardBytesLeftAfterArenaClear": cleared,
                       "peakBytesDuringFit": nxt["peak"],
                       "elapsedSeconds": last.get("elapsedSeconds"),
                       "exception": last.get("exception")}
-            if abs(freed) > 1 << 20:
+            if abs(freed) > 1 << 20 or abs(cleared) > 1 << 20:
                 raise AssertionError(f"{name} left {freed} bytes: {record}")
             if any(n for k, n in launched.items()
                    if not k.endswith("_sm90")) or \
@@ -6803,6 +6855,674 @@ def observe_phase(torch, log, home, yard):
     return launches
 
 
+# the feature plane (the featurePlane line): (c)'s Builder on the
+# builder phase's wide shape, (e)'s and (f)'s arena budget, (g)'s child
+FP_WIDE_MODELING = WIDE_MODELING
+FP_CANCEL_AT_STEP = 5
+# optimizer steps in a profiled epoch: the LM's (2 steps, as the train
+# phase's window), the CNN's 8 times as many
+FP_PROFILE_STEPS = 2
+# (b): ResNet-50's steps an epoch in its feed comparison, and the order
+# of its runs
+FP_RESNET_STEPS = 8
+FP_RESNET_ORDER = ("perStep", "prefetch", "staged", "staged", "prefetch",
+                   "perStep")
+# (e): a budget that holds one staged copy of the wide dataset (72 MiB
+# with its labels and mask) and not two, so the second evicts the first
+FP_EVICT_BUDGET = 100 << 20
+# (g): a child with the lock witness armed (count mode) runs (a)'s REST
+# fit and one serving round, and prints its witness stats
+FP_WITNESS_CHILD = (
+    "import json, os, sys\n"
+    "import numpy as np\n"
+    "from learningorchestra_tpu_torch.runtime import locks\n"
+    "from learningorchestra_tpu_torch.config import Config\n"
+    "from learningorchestra_tpu_torch.ops import attention as attn\n"
+    "from learningorchestra_tpu_torch.services.context import "
+    "ServiceContext\n"
+    "from learningorchestra_tpu_torch.services.server import Api\n"
+    "home, windows = sys.argv[1], sys.argv[2]\n"
+    "spec = json.loads(sys.argv[3])\n"
+    "P = '/api/learningOrchestra/v1'\n"
+    "ctx = ServiceContext(Config(home=home), device='cuda')\n"
+    "api = Api(ctx)\n"
+    "def call(method, path, body=None):\n"
+    "    status, out = api.dispatch(method, P + path, {}, body)[:2]\n"
+    "    if status not in (200, 201):\n"
+    "        raise SystemExit(f'{method} {path}: {status} {out}')\n"
+    "    return out\n"
+    "x = np.load(windows)\n"
+    "ctx.catalog.create_collection('corpus', 'dataset/csv', {})\n"
+    "with ctx.catalog.dataset_writer('corpus') as w:\n"
+    "    w.write_batch({f't{i}': x[:, i] for i in range(x.shape[1])})\n"
+    "ctx.catalog.mark_finished('corpus')\n"
+    "call('POST', '/model/tensorflow', {'modelName': 'lm',\n"
+    "     'modulePath': 'learningorchestra_tpu.models',\n"
+    "     'class': 'LanguageModel', 'classParameters': spec['config']})\n"
+    "ctx.jobs.wait('lm', timeout=600)\n"
+    "call('POST', '/train/tensorflow', {'name': 'lm_t', 'modelName': 'lm',\n"
+    "     'method': 'fit', 'methodParameters': spec['fit']})\n"
+    "ctx.jobs.wait('lm_t', timeout=600)\n"
+    "losses = [d['epochRecord']['loss'] for d in\n"
+    "          ctx.catalog.get_documents('lm_t') if 'epochRecord' in d]\n"
+    "call('POST', '/serve/lm_t', {'type': 'lm', 'maxSlots': 2,\n"
+    "     'cacheLen': 512, 'temperature': 0.0})\n"
+    "served = call('POST', '/serve/lm_t/predict',\n"
+    "              {'prompt': spec['prompt'], 'maxNewTokens': 8})\n"
+    "call('DELETE', '/serve/lm_t')\n"
+    "ctx.close()\n"
+    "stats = locks.witness_stats()\n"
+    "print('witness ' + json.dumps({'enabled': stats['enabled'],\n"
+    "      'mode': stats['mode'], 'violations': stats['violations'],\n"
+    "      'samples': stats['samples'][:4],\n"
+    "      'edges': len(locks.witness_edges()), 'losses': losses,\n"
+    "      'tokens': served['tokens']}), flush=True)\n")
+
+
+def _epoch2_profile(torch, fit) -> dict:
+    """``fit(log_fn)``, a 2-epoch fit through the engine's feed, with a
+    profiler window over its second epoch alone (started and stopped by
+    the epoch records; the first epoch pays the staging and first use):
+    wall, device busy time, copies and idle share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    marks = {}
+
+    def log_fn(record):
+        if record["epoch"] == 0:
+            prof.start()
+            marks["t0"] = time.monotonic()
+        else:
+            torch.cuda.synchronize()
+            marks["ms"] = (time.monotonic() - marks["t0"]) * 1e3
+            prof.stop()
+
+    fit(log_fn)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    copies_ms = sum(e.self_device_time_total for e in kernels
+                    if "Memcpy" in e.key) / 1e3
+    del prof, kernels
+    gc.collect()
+    return {"windowMs": marks["ms"], "deviceBusyMs": busy_ms,
+            "memcpyMs": copies_ms, "idleShare": 1.0 - busy_ms / marks["ms"]}
+
+
+# the engine's feeds of a fit that the featurePlane line compares, each
+# (name, LO_SCAN_FIT_MAX_BYTES, LO_PREFETCH_BUFFER; None = the default):
+# the staged epoch (the default under the budget), the prefetch thread
+# (the default over it) and a copy in each step (the feed the staged
+# fit replaced, kept for a fit with the prefetch thread off)
+FEEDS = (("staged", None, None), ("prefetch", "0", None),
+         ("perStep", "0", "0"))
+
+
+def _set_feed(limit, buffer) -> None:
+    for key, value in (("LO_SCAN_FIT_MAX_BYTES", limit),
+                       ("LO_PREFETCH_BUFFER", buffer)):
+        if value is None:
+            os.environ.pop(key, None)
+        else:
+            os.environ[key] = value
+
+
+def _feed_runs(torch, attn, make, fit, profile_fit, feeds=FEEDS[:2]):
+    """``make()`` a model and its batcher from one init and ``fit(model,
+    log_fn)`` it through each of ``feeds`` in turn, every run through
+    ``Engine.fit``'s loop: each run's seconds, launches and history, then
+    ``profile_fit(model, log_fn)``, a further fit of the same model with
+    its second epoch profiled (a few steps: the profiler's CPU events
+    take seconds to collect)."""
+    runs = {}
+    try:
+        for mode, limit, buffer in feeds:
+            _set_feed(limit, buffer)
+            model, batcher = make()
+            if model._get_engine()._should_stage(batcher) != \
+                    (mode == "staged"):
+                raise AssertionError(f"{mode}: the staging rule disagrees")
+            torch.cuda.synchronize()
+            _reset_launches(attn)
+            t0 = time.monotonic()
+            hist = fit(model, None)
+            torch.cuda.synchronize()
+            runs[mode] = {"fitSeconds": time.monotonic() - t0,
+                          "launches": _launches(attn), "history": hist,
+                          "model": model}
+            runs[mode]["profileEpoch2"] = _epoch2_profile(
+                torch, lambda log_fn: profile_fit(model, log_fn))
+    finally:
+        _set_feed(None, None)
+    return runs
+
+
+def _resnet_feeds(torch, np, attn) -> dict:
+    """ResNet-50 (bf16, 224x224x3, batch 64) fitted 2 epochs of
+    ``FP_RESNET_STEPS`` steps through each feed, in the order
+    ``FP_RESNET_ORDER`` (each feed twice, first and last swapped, so a
+    drift of the card's clock weighs on all alike): ms a step of the
+    second epoch of each run and their mean, and the losses. The
+    prefetch and per-step runs are forced off the staged path
+    (``LO_SCAN_FIT_MAX_BYTES=0``); a batch is then fed as in a fit over
+    the budget."""
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+
+    rng = np.random.default_rng(0)
+    rows = RESNET_BATCH * FP_RESNET_STEPS
+    rx = rng.standard_normal((rows, 224, 224, 3), dtype=np.float32)
+    ry = rng.integers(0, 1000, rows).astype(np.int32)
+    body = [{"kind": "resnet50"}, {"kind": "activation", "fn": "softmax"}]
+    init = []
+    feeds = {name: (limit, buffer) for name, limit, buffer in FEEDS}
+    out = {"rows": rows, "batch": RESNET_BATCH,
+           "batchBytes": int(rx[:RESNET_BATCH].nbytes + ry[:RESNET_BATCH]
+                             .nbytes), "order": list(FP_RESNET_ORDER)}
+    zero = dict.fromkeys(COUNTERS, 0)
+    try:
+        for mode in FP_RESNET_ORDER:
+            _set_feed(*feeds[mode])
+            net = NeuralModel(body, device="cuda")
+            if not init:
+                net._build_params(rx[:1])
+                init.append(({k: v.detach().clone()
+                              for k, v in net.params.items()},
+                             {k: v.detach().clone()
+                              for k, v in net.model_state.items()}))
+            else:
+                net.set_params(*init[0], input_shape=rx.shape[1:])
+            torch.cuda.synchronize()
+            _reset_launches(attn)
+            hist = net.fit(rx, ry, batch_size=RESNET_BATCH, epochs=2).history
+            if _launches(attn) != zero:
+                raise AssertionError(f"ResNet-50 {mode}: {_launches(attn)}")
+            run = out.setdefault(mode, {"stepMsEpoch2": [], "losses": []})
+            run["stepMsEpoch2"].append(
+                hist["epochSeconds"][-1] / FP_RESNET_STEPS * 1e3)
+            run["losses"].append(hist["loss"])
+            del net
+            gc.collect()
+    finally:
+        _set_feed(None, None)
+    base = out["staged"]["losses"][0]
+    for mode, _, _ in FEEDS:
+        run = out[mode]
+        run["stepMsMean"] = sum(run["stepMsEpoch2"]) / len(
+            run["stepMsEpoch2"])
+        run["lossesBitEqualStaged"] = all(r == base for r in run["losses"])
+        run["lossesMaxRelStaged"] = max(
+            abs(a - b) / abs(b) for r in run["losses"]
+            for a, b in zip(r, base))
+        # cuDNN's convolution backward may sum in another order from run
+        # to run: the feeds give the same batches (the LM and CNN checks),
+        # here the bound is a sanity check of the rows each feed sends
+        if not all(np.isfinite(r).all() for r in run["losses"]) or \
+                run["lossesMaxRelStaged"] > 1e-2:
+            raise AssertionError(f"ResNet-50 {mode}: {run['losses']} vs "
+                                 f"staged {base}")
+    return out
+
+
+def feature_plane_phase(torch, log, home, yard):
+    """The feature plane on the card (the ``featurePlane`` line). (a) The
+    tutorial LM's bf16 fit on the train phase's windows, staged (the
+    padded epoch on the card once) and then through the prefetch feed
+    (``LO_SCAN_FIT_MAX_BYTES=0``): losses equal bit for bit, 128 launches
+    of each sm90 kernel each and nothing else, step time and the idle
+    share of a profiled epoch each; with the train phase's losses in
+    ``yard``, equal to them too. (b) The keras CNN at MNIST's shapes
+    through those feeds and a copy in each step: losses within 1e-5
+    relative (bit equality recorded), step time, samples/s and idle share
+    each; ResNet-50 through the three feeds, ms a step. (c) Builder LR with
+    ``meshParallel`` on 1M x 16 rows, twice on the same versions: the
+    second run hits the arena and the feature cache for both datasets,
+    reads no table from the catalog and predicts the same; a write to the
+    training dataset, and the next run misses, stages again and the old
+    entry's bytes leave the arena. (d) ``$corpus`` read twice through the
+    pipeline's resolver: the second read a host-tier hit. (f) A slot
+    session's params pinned in the arena under X-ray ``serving-params``
+    (not ``arena``), the pin gone after the delete. (h) ``/metrics``
+    carries the ``featureCache`` and ``arena`` blocks and their series,
+    moved by (c), (d) and (f). (e) A tokened staged fit cancelled
+    mid-epoch: its pin drops and a second staged copy evicts it. (g) A
+    child with the lock witness armed runs (a)'s REST fit and a serving
+    round with no violation. Returns each path's kernel launches."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch import client as lo_client
+    from learningorchestra_tpu_torch import observability as obs
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.models.estimators import \
+        LogisticRegressionJAX
+    from learningorchestra_tpu_torch.models.neural import NeuralModel
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.observability import xray
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime import arena as arena_lib
+    from learningorchestra_tpu_torch.runtime import engine as engine_lib
+    from learningorchestra_tpu_torch.runtime import preempt
+    from learningorchestra_tpu_torch.runtime.data import dataframe_to_arrays
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    phase_t0 = time.monotonic()
+    out, paths, part_s = {}, {}, {}
+    zero = dict.fromkeys(COUNTERS, 0)
+    # (a) the tutorial LM, staged and through the prefetch feed
+    t_part = time.monotonic()
+    x = _successor_windows(np, TRAIN_WINDOWS, TRAIN_SEQ, seed=0)
+    init = weights.params_from_flax(weights.init_params(LM_CONFIG, seed=0))
+    steps = TRAIN_EPOCHS * TRAIN_WINDOWS // TRAIN_BATCH
+    want = dict(zero, **dict.fromkeys(
+        ("flash_fwd_sm90", "flash_bwd_dq_sm90", "flash_bwd_dkv_sm90"),
+        LM_CONFIG["n_layers"] * steps * TRAIN_ACCUM))
+
+    def make_lm():
+        lm = LanguageModel(**LM_CONFIG, device="cuda")
+        lm.set_params(init)
+        return lm, lm._batcher(x, TRAIN_BATCH, shuffle=True)
+
+    def fit_lm(lm, log_fn, rows=TRAIN_WINDOWS):
+        return lm.fit(x[:rows], batch_size=TRAIN_BATCH, epochs=TRAIN_EPOCHS,
+                      grad_accum=TRAIN_ACCUM, log_fn=log_fn).history
+
+    def profile_lm(lm, log_fn):
+        return fit_lm(lm, log_fn, FP_PROFILE_STEPS * TRAIN_BATCH)
+
+    # the profiler's first window in a process runs slow (its buffers):
+    # one is taken and dropped before the measured ones
+    _epoch2_profile(torch, lambda log_fn: profile_lm(make_lm()[0], log_fn))
+    lm_runs = _feed_runs(torch, attn, make_lm, fit_lm, profile_lm)
+    lm_out = {}
+    for mode, run in lm_runs.items():
+        hist = run["history"]
+        paths[f"featurePlane{mode.capitalize()}"] = run["launches"]
+        if run["launches"] != want:
+            raise AssertionError(f"(a) {mode} fit launched "
+                                 f"{run['launches']}, want {want}")
+        lm_out[mode] = {
+            "losses": hist["loss"], "fitSeconds": run["fitSeconds"],
+            "epochSeconds": hist["epochSeconds"],
+            "stepMs": hist["epochSeconds"][1] / (steps // TRAIN_EPOCHS)
+            * 1e3, "profileEpoch2": run["profileEpoch2"]}
+    losses = lm_out["staged"]["losses"]
+    if lm_out["prefetch"]["losses"] != losses:
+        raise AssertionError(f"(a) staged losses {losses} differ from the "
+                             f"prefetch feed's "
+                             f"{lm_out['prefetch']['losses']}")
+    if not all(abs(a - b) <= 0.01 * b
+               for a, b in zip(losses, CUDA_CORE_LOSSES)):
+        raise AssertionError(f"(a) losses {losses} not within 1% of "
+                             f"{CUDA_CORE_LOSSES}")
+    lm_out["lossesBitEqual"] = True
+    if yard.get("losses") is not None:
+        lm_out["lossesEqualTrainPhase"] = losses == yard["losses"]
+        if losses != yard["losses"]:
+            raise AssertionError(f"(a) losses {losses} differ from the train "
+                                 f"phase's {yard['losses']}")
+    out["lm"] = lm_out
+    served_lm = lm_runs["staged"]["model"]
+    del lm_runs
+    gc.collect()
+    part_s["lm"] = time.monotonic() - t_part
+    t_part = time.monotonic()
+
+    # (b) the keras CNN at MNIST's shapes, both ways
+    xc, yc = _mnist_like(np, MNIST_ROWS, seed=0)
+    cnn_init = []
+
+    def make_cnn():
+        model = NeuralModel(TUTORIAL_CNN, device="cuda")
+        if not cnn_init:
+            model._build_params(model._coerce_x(xc))
+            cnn_init.append(({k: v.detach().clone()
+                              for k, v in model.params.items()},
+                             {k: v.detach().clone()
+                              for k, v in model.model_state.items()}))
+        else:
+            model.set_params(*cnn_init[0], input_shape=xc.shape[1:])
+        return model, model._batcher(xc, yc, MNIST_BATCH, shuffle=True)
+
+    def fit_cnn(m, log_fn, rows=MNIST_ROWS):
+        return m.fit(xc[:rows], yc[:rows], batch_size=MNIST_BATCH,
+                     epochs=MNIST_EPOCHS, log_fn=log_fn).history
+
+    cnn_runs = _feed_runs(
+        torch, attn, make_cnn, fit_cnn,
+        lambda m, log_fn: fit_cnn(m, log_fn, 8 * FP_PROFILE_STEPS *
+                                  MNIST_BATCH), FEEDS)
+    cnn_steps = -(-MNIST_ROWS // MNIST_BATCH)
+    cnn_out = {"rows": MNIST_ROWS, "batch": MNIST_BATCH,
+               "epochs": MNIST_EPOCHS}
+    for mode, run in cnn_runs.items():
+        hist = run["history"]
+        if run["launches"] != zero:
+            raise AssertionError(f"(b) {mode} launched {run['launches']}")
+        cnn_out[mode] = {
+            "losses": hist["loss"], "fitSeconds": run["fitSeconds"],
+            "stepMsEpoch2": hist["epochSeconds"][-1] / cnn_steps * 1e3,
+            "samplesPerSecEpoch2": hist["samplesPerSecond"][-1],
+            "profileEpoch2": run["profileEpoch2"]}
+    paths["featurePlaneCnn"] = cnn_runs["staged"]["launches"]
+    a_l = cnn_out["staged"]["losses"]
+    for mode in ("prefetch", "perStep"):
+        b_l = cnn_out[mode]["losses"]
+        cnn_out[mode]["lossesBitEqualStaged"] = a_l == b_l
+        cnn_out[mode]["lossesMaxRelStaged"] = max(
+            abs(p - q) / abs(q) for p, q in zip(b_l, a_l))
+        if cnn_out[mode]["lossesMaxRelStaged"] > 1e-5:
+            raise AssertionError(f"(b) staged {a_l} vs {mode} {b_l}")
+    out["cnn"] = cnn_out
+    del cnn_runs, xc, yc
+    gc.collect()
+    part_s["cnn"] = time.monotonic() - t_part
+    # (b) ResNet-50 through the three feeds: where a batch is large, the
+    # prefetch thread's copy under the step is what it is for
+    t_part = time.monotonic()
+    out["resnet50"] = _resnet_feeds(torch, np, attn)
+    part_s["resnet50"] = time.monotonic() - t_part
+    t_part = time.monotonic()
+
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    base = server.base_url
+    client = lo_client.Context(base)
+    arena = arena_lib.get_default_arena()
+    reads = []
+    read_table = ctx.catalog.read_table
+
+    def counted_read(name, *a, **k):
+        reads.append(name)
+        return read_table(name, *a, **k)
+
+    ctx.catalog.read_table = counted_read
+    m0 = (ctx.features.stats(), arena.stats())
+    try:
+        # (c) Builder LR on 1M x 16 rows: cold, warm, then a write
+        xw, yw = _wide_data(np, WIDE_ROWS, seed=11)
+        xt, yt = _wide_data(np, WIDE_TEST_ROWS, seed=12)
+        for name, (xs, ys) in (("fpWide", (xw, yw)),
+                               ("fpWideTest", (xt, yt))):
+            columns = {f"f{i}": xs[:, i] for i in range(WIDE_FEATURES)}
+            columns["label"] = ys
+            _write_dataset(ctx, name, [columns])
+        del xt, yt
+
+        def builder_run(tag):
+            _reset_launches(attn)
+            del reads[:]
+            fc0, ar0 = ctx.features.stats(), arena.stats()
+            t0 = time.monotonic()
+            uris = client.builder_sparkml.run_builder(
+                "fpWide", "fpWideTest", FP_WIDE_MODELING, ["LR"],
+                meshParallel=True, evaluationDatasetName="fpWideTest")
+            name = uris[0].rsplit("/", 1)[1]
+            ctx.jobs.wait(name, timeout=900)
+            seconds = time.monotonic() - t0
+            meta = client.builder_sparkml.metadata(name)
+            if not meta.get("finished") or meta.get("engine") != "torch":
+                raise AssertionError(f"(c) {tag} run: {meta}")
+            fc1, ar1 = ctx.features.stats(), arena.stats()
+            return {"jobSeconds": seconds, "fitTime": meta["fitTime"],
+                    "accuracy": meta["accuracy"], "tableReads": list(reads),
+                    "launches": _launches(attn),
+                    "featureCache": {k: fc1[k] - fc0[k] for k in (
+                        "hits", "misses", "invalidations")},
+                    "arena": {k: ar1[k] - ar0[k] for k in (
+                        "hits", "misses", "evictions", "invalidations")},
+                    "arenaBytesInUse": ar1["bytesInUse"],
+                    "arenaPins": ar1["pins"]}, \
+                ctx.catalog.read_columns(name)["prediction"][1]
+
+        cold, cold_pred = builder_run("cold")
+        warm, warm_pred = builder_run("warm")
+        if warm["tableReads"] or warm["featureCache"]["hits"] < 2 or \
+                warm["featureCache"]["misses"] or \
+                warm["arena"] != {"hits": 1, "misses": 0, "evictions": 0,
+                                  "invalidations": 0} or \
+                cold["arena"]["misses"] != 1 or warm["arenaPins"]:
+            raise AssertionError(f"(c) the warm run: {warm}, cold {cold}")
+        warm["predictionsEqual"] = bool(np.array_equal(cold_pred,
+                                                       warm_pred))
+        if not warm["predictionsEqual"]:
+            raise AssertionError("(c) warm predictions differ from cold")
+        # a write to the training dataset: the labels of its first rows
+        flipped = yw.copy()
+        flipped[:1000] = (flipped[:1000] + 1) % WIDE_CLASSES
+        with ctx.catalog.dataset_writer("fpWide") as w:
+            w.write_batch(dict({f"f{i}": xw[:, i]
+                                for i in range(WIDE_FEATURES)},
+                               label=flipped))
+        written, _ = builder_run("written")
+        if "fpWide" not in written["tableReads"] or \
+                written["arena"]["misses"] != 1 or \
+                written["arena"]["invalidations"] != 1 or \
+                written["arenaBytesInUse"] != cold["arenaBytesInUse"]:
+            raise AssertionError(f"(c) after the write: {written}")
+        paths["featurePlaneBuilder"] = {
+            k: cold["launches"][k] + warm["launches"][k] +
+            written["launches"][k] for k in COUNTERS}
+        if paths["featurePlaneBuilder"] != zero:
+            raise AssertionError(f"(c) launched "
+                                 f"{paths['featurePlaneBuilder']}")
+        out["builder"] = {"rows": WIDE_ROWS, "features": WIDE_FEATURES,
+                          "cold": cold, "warm": warm, "written": written}
+        part_s["builder"] = time.monotonic() - t_part
+        t_part = time.monotonic()
+
+        # (d) $corpus twice through the pipeline's resolver
+        _write_dataset(ctx, "corpus", [{f"t{i}": x[:, i]
+                                        for i in range(TRAIN_SEQ)}])
+        corpus = []
+        for _ in range(2):
+            fc0 = ctx.features.stats()
+            t0 = time.monotonic()
+            feed = dataframe_to_arrays(
+                ctx.params.resolve_value("$corpus"))["x"]
+            seconds = time.monotonic() - t0
+            fc1 = ctx.features.stats()
+            if not np.array_equal(feed, x):
+                raise AssertionError("(d) $corpus does not give the windows")
+            corpus.append({"hostSeconds": seconds,
+                           "hit": fc1["hits"] - fc0["hits"] == 1})
+        if corpus[0]["hit"] or not corpus[1]["hit"]:
+            raise AssertionError(f"(d) {corpus}")
+        out["corpus"] = corpus
+
+        # (f) a slot session pins its params in the arena
+        t_part = time.monotonic()
+        ctx.artifacts.save(served_lm, "fpLm", "train/tensorflow")
+        ar0, owners0 = arena.stats(), xray.by_owner()
+        status, body = _http(base, "POST", "/serve/fpLm", {
+            "type": "lm", "maxSlots": 2, "cacheLen": 512,
+            "temperature": 0.0})
+        if status != 201:
+            raise AssertionError(f"(f) create: {status} {body}")
+        ar1, owners1 = arena.stats(), xray.by_owner()
+        prompt = [int(t) for t in x[0, :256]]
+        _reset_launches(attn)
+        status, served = _http(base, "POST", "/serve/fpLm/predict",
+                               {"prompt": prompt, "maxNewTokens": 8})
+        paths["featurePlaneServe"] = _launches(attn)
+        if status != 200 or len(served["tokens"]) != 8:
+            raise AssertionError(f"(f) predict: {status} {served}")
+        _http(base, "DELETE", "/serve/fpLm")
+        ar2, owners2 = arena.stats(), xray.by_owner()
+        pinned = ar1["bytesInUse"] - ar0["bytesInUse"]
+        session = {
+            "pinnedBytes": pinned, "pins": ar1["pins"] - ar0["pins"],
+            "servingParamsBytes": owners1["serving-params"] -
+            owners0["serving-params"],
+            "arenaOwnerDelta": owners1["arena"] - owners0["arena"],
+            "bytesInUseAfterDelete": ar2["bytesInUse"],
+            "bytesInUseBefore": ar0["bytesInUse"],
+            "servingParamsAfterDelete": owners2["serving-params"] -
+            owners0["serving-params"]}
+        if not pinned > 0 or session["pins"] != 1 or \
+                session["servingParamsBytes"] != pinned or \
+                session["arenaOwnerDelta"] != 0 or \
+                ar2["bytesInUse"] != ar0["bytesInUse"] or \
+                session["servingParamsAfterDelete"] != 0:
+            raise AssertionError(f"(f) the session's pin: {session}")
+        out["session"] = session
+        part_s["session"] = time.monotonic() - t_part
+
+        # (h) /metrics carries both blocks, moved by (c), (d) and (f)
+        status, raw, _ = _raw(base, "/metrics")
+        metrics = json.loads(raw)
+        status_p, prom, _ = _raw(base, "/metrics?format=prometheus")
+        prom = prom.decode()
+        fc, ar = ctx.features.stats(), arena.stats()
+        moved = {"featureCache": {k: metrics["featureCache"][k] - m0[0][k]
+                                  for k in ("hits", "misses",
+                                            "invalidations")},
+                 "arena": {k: metrics["arena"][k] - m0[1][k]
+                           for k in ("hits", "misses", "invalidations")}}
+        want_moved = {
+            "featureCache": {
+                k: sum(r["featureCache"][k] for r in (cold, warm, written))
+                + (k == "misses") + (k == "hits")
+                for k in ("hits", "misses", "invalidations")},
+            # (f)'s pin is a miss of its own
+            "arena": {k: sum(r["arena"][k] for r in (cold, warm, written))
+                      + (k == "misses")
+                      for k in ("hits", "misses", "invalidations")}}
+        series = {name: float(value) for name, value in re.findall(
+            r"^(lo_(?:feature_cache|arena)_\w+) (\S+)$", prom, re.M)}
+        want_series = {
+            "lo_feature_cache_hits_total": fc["hits"],
+            "lo_feature_cache_misses_total": fc["misses"],
+            "lo_feature_cache_bytes_in_use": fc["bytesInUse"],
+            "lo_arena_bytes_in_use": ar["bytesInUse"],
+            "lo_arena_evictions_total": ar["evictions"],
+            "lo_arena_hits_total": ar["hits"],
+            "lo_arena_misses_total": ar["misses"]}
+        out["metrics"] = {"moved": moved, "series": series}
+        if status != 200 or status_p != 200 or moved != want_moved or \
+                metrics["featureCache"] != fc or metrics["arena"] != ar or \
+                series != want_series:
+            raise AssertionError(f"(h) /metrics: {out['metrics']}, want "
+                                 f"{want_moved}, {want_series}")
+    finally:
+        ctx.catalog.read_table = read_table
+        server.stop()
+        ctx.close()
+    del served_lm
+
+    # (e) a tokened staged fit cancelled mid-epoch, under a budget of one
+    # staged copy: its pin drops, and the next copy evicts it
+    t_part = time.monotonic()
+    obs.set_config(Config(home=os.path.join(home, "lo"),
+                          arena_bytes=FP_EVICT_BUDGET))
+    arena = arena_lib.get_default_arena()
+    token, stepped = preempt.CancelToken(), []
+    real_step = engine_lib.Engine._train_step_body
+
+    def cancelling_step(self, *a, **k):
+        stepped.append(1)
+        if len(stepped) == FP_CANCEL_AT_STEP:
+            token.cancel("cancelled")
+        return real_step(self, *a, **k)
+
+    lr = LogisticRegressionJAX(device="cuda")
+    lr.feature_token, lr.feature_tags = ("fpCancel",), ("fpWide",)
+    engine_lib.Engine._train_step_body = cancelling_step
+    preempt.install_cancel(token)
+    cancelled = False
+    try:
+        lr.fit(xw, yw)
+    except preempt.JobCancelled:
+        cancelled = True
+    finally:
+        engine_lib.Engine._train_step_body = real_step
+        preempt.clear_cancel()
+    after_cancel = arena.stats()
+    cancelled_at = len(stepped)
+    # the same through the prefetch feed, whose producer stops on the
+    # cancel: the fit raises, and no epoch record is made
+    del stepped[:]
+    token = preempt.CancelToken()
+    records = []
+    fed = LogisticRegressionJAX(device="cuda")
+    engine_lib.Engine._train_step_body = cancelling_step
+    os.environ["LO_SCAN_FIT_MAX_BYTES"] = "0"
+    preempt.install_cancel(token)
+    fed_cancelled = False
+    real_fit = engine_lib.Engine.fit
+    try:
+        engine_lib.Engine.fit = lambda self, *a, **k: real_fit(
+            self, *a, **dict(k, log_fn=records.append))
+        fed.fit(xw, yw)
+    except preempt.JobCancelled:
+        fed_cancelled = True
+    finally:
+        engine_lib.Engine._train_step_body = real_step
+        engine_lib.Engine.fit = real_fit
+        os.environ.pop("LO_SCAN_FIT_MAX_BYTES", None)
+        preempt.clear_cancel()
+    prefetch_cancel = {"cancelled": fed_cancelled,
+                       "steps": len(stepped), "records": len(records)}
+    again = LogisticRegressionJAX(device="cuda", epochs=1)
+    again.feature_token, again.feature_tags = ("fpAgain",), ("fpWide",)
+    again.fit(xw[:WIDE_ROWS // 2], yw[:WIDE_ROWS // 2])
+    after_evict = arena.stats()
+    cancel = {"cancelledAtStep": cancelled_at,
+              "stepsPerEpoch": -(-WIDE_ROWS // lr.batch_size),
+              "afterCancel": after_cancel, "afterNextFit": after_evict,
+              "prefetchFeed": prefetch_cancel}
+    out["cancel"] = cancel
+    obs.reset_config()
+    if not fed_cancelled or prefetch_cancel["records"] or \
+            prefetch_cancel["steps"] > FP_CANCEL_AT_STEP + 1:
+        raise AssertionError(f"(e) the prefetch feed's cancel: {cancel}")
+    if not cancelled or cancelled_at != FP_CANCEL_AT_STEP or \
+            after_cancel["pins"] != 0 or after_cancel["entries"] != 1 or \
+            after_evict["evictions"] != 1 or after_evict["entries"] != 1 \
+            or after_evict["pins"] != 0:
+        raise AssertionError(f"(e) the cancelled fit's pin: {cancel}")
+    del xw, yw, lr, again
+    arena_lib.reset_default_arena()
+    gc.collect()
+    part_s["cancel"] = time.monotonic() - t_part
+
+    # (g) the lock witness in a child: (a)'s REST fit and a serving round
+    windows = os.path.join(home, "windows.npy")
+    np.save(windows, x)
+    spec = {"config": LM_CONFIG, "prompt": [int(t) for t in x[1, :256]],
+            "fit": {"x": "$corpus", "batch_size": TRAIN_BATCH,
+                    "epochs": TRAIN_EPOCHS, "grad_accum": TRAIN_ACCUM}}
+    env = dict(os.environ, LO_LOCK_WITNESS="1", LO_LOCK_WITNESS_MODE="count",
+               LO_COMPUTE_DTYPE="bfloat16",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t0 = time.monotonic()
+    proc = subprocess.run(
+        [sys.executable, "-c", FP_WITNESS_CHILD, os.path.join(home, "wit"),
+         windows, json.dumps(spec)], env=env, capture_output=True,
+        text=True, timeout=600)
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("witness ")), None)
+    if proc.returncode != 0 or line is None:
+        raise AssertionError(f"(g) the witness child failed "
+                             f"({proc.returncode}): {proc.stderr[-3000:]}")
+    witness = json.loads(line[len("witness "):])
+    witness["childSeconds"] = part_s["witness"] = time.monotonic() - t0
+    witness["lossesEqualStaged"] = witness["losses"] == losses
+    out["witness"] = witness
+    if not witness["enabled"] or witness["violations"] != 0 or \
+            not witness["lossesEqualStaged"]:
+        raise AssertionError(f"(g) witness: {witness}")
+    out["seconds"] = part_s
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("featurePlane " + json.dumps(out))
+    return paths
+
+
 def _phase_home():
     """A phase's temporary home. Its removal ignores errors: a service
     context's shutdown does not wait for jobs still running (the job
@@ -6856,7 +7576,8 @@ def main() -> int:
                   "fusion": fusion_phase, "ckptAsync": ckpt_async_phase,
                   "function": function_phase,
                   "transform": transform_phase, "builder": builder_phase,
-                  "lifecycle": lifecycle_phase, "observe": observe_phase}
+                  "lifecycle": lifecycle_phase, "observe": observe_phase,
+                  "featurePlane": feature_plane_phase}
         try:
             for name in sys.argv[sys.argv.index("--only") + 1].split(","):
                 with _phase_home() as home:
@@ -6893,6 +7614,7 @@ def main() -> int:
             paths.update(classifier_phase(torch, log, home, yard))
         with _phase_home() as home:
             paths.update(serving_plane_phase(torch, log, home, yard))
+        train_losses = yard["losses"]
         del yard
         with _phase_home() as home:
             paths.update(neural_phase(torch, log, home, {}))
@@ -6910,6 +7632,9 @@ def main() -> int:
             paths.update(lifecycle_phase(torch, log, home, {}))
         with _phase_home() as home:
             paths.update(observe_phase(torch, log, home, {}))
+        with _phase_home() as home:
+            paths.update(feature_plane_phase(
+                torch, log, home, {"losses": train_losses}))
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
         # the split-TF32 backward

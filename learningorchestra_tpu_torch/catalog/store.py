@@ -387,19 +387,42 @@ class Catalog:
         schema = self._schema(name)
         return 0 if schema is None else int(schema["rows"])
 
-    def _load_columns(self, name: str, schema: Dict[str, Any],
-                      ) -> List[Tuple[str, str, np.ndarray,
-                                      Optional[np.ndarray]]]:
-        """(name, kind, data, null mask or None) per column; the data
-        files are memory-mapped."""
-        d = self._dataset_dir(name)
-        out = []
-        for i, col in enumerate(schema["columns"]):
-            data = np.load(os.path.join(d, f"c{i}.npy"), mmap_mode="r")
-            mask = (np.load(os.path.join(d, f"c{i}.null.npy"))
-                    if col["nulls"] else None)
-            out.append((col["name"], col["kind"], data, mask))
-        return out
+    def _generation(self, name: str) -> Optional[Tuple[
+            Dict[str, Any], List[Tuple[str, str, np.ndarray,
+                                       Optional[np.ndarray]]]]]:
+        """``(schema, [(name, kind, data, null mask or None)])`` of the
+        stored rows, the data files memory-mapped; None without rows.
+        Every file is opened through one handle on the dataset's
+        directory, so a read racing a writer's swap gets the old files or
+        fails (``OSError``) once they are removed: never a mix of two
+        writes."""
+        try:
+            dfd = os.open(self._dataset_dir(name),
+                          os.O_RDONLY | os.O_DIRECTORY)
+        except FileNotFoundError:
+            return None
+
+        def opener(path, flags):
+            return os.open(path, flags, dir_fd=dfd)
+
+        try:
+            try:
+                with open(_SCHEMA_FILE, opener=opener) as f:
+                    schema = json.load(f)
+            except FileNotFoundError:
+                return None
+            out = []
+            for i, col in enumerate(schema["columns"]):
+                with open(f"c{i}.npy", "rb", opener=opener) as f:
+                    data = _mapped(f)
+                mask = None
+                if col["nulls"]:
+                    with open(f"c{i}.null.npy", "rb", opener=opener) as f:
+                        mask = np.load(f)
+                out.append((col["name"], col["kind"], data, mask))
+            return schema, out
+        finally:
+            os.close(dfd)
 
     def read_columns(self, name: str,
                      fields: Optional[List[str]] = None,
@@ -407,21 +430,22 @@ class Catalog:
                                           Optional[np.ndarray]]]:
         """``{field: (kind, data, null mask or None)}`` of the stored
         columns (all, or ``fields`` in their order), read into memory."""
-        schema = self._schema(name)
-        if schema is None:
+        stored = self._generation(name)
+        if stored is None:
             raise CollectionNotFound(f"{name} has no tabular data")
         columns = {col: (kind, np.array(data), mask) for col, kind, data,
-                   mask in self._load_columns(name, schema)}
+                   mask in stored[1]}
         return {f: columns[f] for f in (fields or list(columns))}
 
     def read_table(self, name: str) -> Table:
         """The whole dataset as a :class:`Table`, each column in the
         dtype pandas would give it."""
-        schema = self._schema(name)
-        if schema is None:
+        stored = self._generation(name)
+        if stored is None:
             raise CollectionNotFound(f"{name} has no tabular data")
+        schema, loaded = stored
         columns = {col: _values(kind, data, mask) for col, kind, data, mask
-                   in self._load_columns(name, schema)}
+                   in loaded}
         return Table(columns, schema["rows"])
 
     def iter_batches(self, name: str, columns: Optional[List[str]] = None,
@@ -432,11 +456,12 @@ class Catalog:
         values as :meth:`read_table` gives them). Each batch reads only
         its rows of the memory-mapped columns, so a pass holds one batch
         in memory, never a whole column."""
-        schema = self._schema(name)
-        if schema is None:
+        generation = self._generation(name)
+        if generation is None:
             raise CollectionNotFound(f"{name} has no tabular data")
+        schema, loaded = generation
         stored = {col: (kind, data, mask) for col, kind, data, mask
-                  in self._load_columns(name, schema)}
+                  in loaded}
         wanted = list(columns) if columns is not None else list(stored)
         unknown = [c for c in wanted if c not in stored]
         if unknown:
@@ -482,11 +507,11 @@ class Catalog:
                       ) -> Tuple[List[Dict[str, Any]], int]:
         """read_rows and how much of ``skip`` matching rows used up
         (read_entries pages past the rows with the rest)."""
-        schema = self._schema(name)
-        if schema is None:
+        stored = self._generation(name)
+        if stored is None:
             return [], 0
+        schema, columns = stored
         n = int(schema["rows"])
-        columns = self._load_columns(name, schema)
         if query is None:
             start = min(skip, n)
             stop = n if not limit else min(n, start + limit)
@@ -600,6 +625,22 @@ class Catalog:
                 return []
             with self._change_cond:
                 self._change_cond.wait(min(remaining, 1.0))
+
+
+def _mapped(f) -> np.ndarray:
+    """The ``.npy`` array of open file ``f``, memory-mapped read-only (as
+    ``np.load(path, mmap_mode="r")`` maps it; an empty array, or a header
+    version the public readers do not take, is read whole)."""
+    fmt = np.lib.format
+    read_header = {(1, 0): fmt.read_array_header_1_0,
+                   (2, 0): fmt.read_array_header_2_0}.get(fmt.read_magic(f))
+    if read_header is not None:
+        shape, fortran, dtype = read_header(f)
+        if all(shape) and not dtype.hasobject:
+            return np.memmap(f, dtype=dtype, mode="r", shape=shape,
+                             offset=f.tell(), order="F" if fortran else "C")
+    f.seek(0)
+    return np.load(f)
 
 
 class _AppendedNpy:

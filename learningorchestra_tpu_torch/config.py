@@ -7,8 +7,10 @@ Environment variables keep the JAX package's names and defaults
 ``LO_CKPT_QUARANTINE_KEEP``, ``LO_CKPT_ASYNC``, ``LO_CKPT_INFLIGHT``,
 ``LO_FAULT_INJECT``, the sweeps' ``LO_SWEEP_FUSION``,
 ``LO_SWEEP_EARLYSTOP_MARGIN``, ``LO_SWEEP_EARLYSTOP_MIN_EPOCHS``,
-``LO_SWEEP_EARLYSTOP_ALPHA`` and ``LO_SCAN_FIT_MAX_BYTES`` (the fused
-sweep's staging budget only), and the paged and
+``LO_SWEEP_EARLYSTOP_ALPHA``, the feature plane's
+``LO_SCAN_FIT_MAX_BYTES`` (the staged fit's budget),
+``LO_PREFETCH_BUFFER``, ``LO_PARAM_CACHE`` and ``LO_ARENA_BYTES``, and
+the paged and
 quantized serving knobs ``LO_SERVE_KV``, ``LO_SERVE_PAGE_LEN``,
 ``LO_SERVE_PAGES``, ``LO_SERVE_TENANT_WEIGHTS``, ``LO_SERVE_KV_DTYPE``,
 ``LO_SERVE_WEIGHTS``, ``LO_SERVE_DRIFT_MAX``, ``LO_SERVE_DRIFT_EVERY``,
@@ -99,12 +101,31 @@ class Config:
     compute_dtype: str = dataclasses.field(
         default_factory=lambda: os.environ.get("LO_COMPUTE_DTYPE",
                                                "bfloat16"))
-    # the fused sweep path stages a cohort's training arrays on the card
-    # once when they take at most this many bytes (else the cohort runs
-    # as independent trials); 0 disables fusion's staging
+    # a fit (and a fused sweep cohort) whose training arrays take at
+    # most this many bytes, over more than one step an epoch, stages its
+    # padded epoch on the card once and gathers each step's rows there;
+    # a larger one is fed through the prefetch thread (a fused cohort
+    # runs as independent trials); 0 = never stage
     scan_fit_max_bytes: int = dataclasses.field(
         default_factory=lambda: int(os.environ.get(
             "LO_SCAN_FIT_MAX_BYTES", str(1 << 30))))
+    # host batches the prefetch feed (runtime/data.py
+    # prefetch_to_device) copies to the card ahead of the step, for a
+    # fit that is not staged and takes more than one step an epoch;
+    # 0 = no prefetch thread: each step copies its own batch
+    prefetch_buffer: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_PREFETCH_BUFFER", "2")))
+    # the feature cache's host tier: bytes of materialized dataset reads
+    # kept between jobs (0 disables)
+    param_cache_bytes: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get(
+            "LO_PARAM_CACHE", str(256 << 20))))
+    # the device arena (runtime/arena.py): bytes of staged tensors kept
+    # on the card between jobs; -1 = auto (a quarter of the card's
+    # memory), 0 disables
+    arena_bytes: int = dataclasses.field(
+        default_factory=lambda: int(os.environ.get("LO_ARENA_BYTES", "-1")))
     # newest quarantined (corrupt) checkpoint step dirs kept as
     # evidence; older ones are deleted
     ckpt_quarantine_keep: int = dataclasses.field(

@@ -59,6 +59,12 @@ class LogisticRegressionJAX:
         self.params: Optional[Dict[str, np.ndarray]] = None
         self.history: list = []
         self.device = _resolve(device)
+        # the content identity of the (x, y) the next fit gets (the
+        # Builder's token: dataset versions and the modeling code) and
+        # its collections: with it the staged fit keeps its tensors in
+        # the device arena between jobs
+        self.feature_token = None
+        self.feature_tags: tuple = ()
 
     def set_device(self, device) -> None:
         self.device = resolve_device(device)
@@ -101,7 +107,10 @@ class LogisticRegressionJAX:
                   for k, s in shape.items()}
         batcher = data_lib.ArrayBatcher(
             {"x": x, "y": y_idx.astype(np.int32)},
-            min(self.batch_size, len(x)), shuffle=True, seed=self.seed)
+            min(self.batch_size, len(x)), shuffle=True, seed=self.seed,
+            # getattr: an estimator pickled before the token existed
+            cache_token=getattr(self, "feature_token", None),
+            cache_tags=getattr(self, "feature_tags", ()))
         state, history = eng.fit(eng.init_state(params), batcher,
                                  epochs=self.epochs, seed=self.seed)
         self.params = {k: engine_lib.to_host(v)
@@ -143,6 +152,10 @@ class GaussianNBJAX:
         self.var_: Optional[np.ndarray] = None    # (C, d) variances
         self.class_prior_: Optional[np.ndarray] = None
         self.device = _resolve(device)
+        # as LogisticRegressionJAX.feature_token: the centred x and the
+        # one-hot labels stay in the device arena between jobs
+        self.feature_token = None
+        self.feature_tags: tuple = ()
 
     def set_device(self, device) -> None:
         self.device = resolve_device(device)
@@ -183,17 +196,37 @@ class GaussianNBJAX:
         # the float32 device sums: on centred data E[x^2] and mean^2 are
         # both of the order of the variance
         shift = np.mean(x, axis=0, dtype=np.float64).astype(np.float32)
-        x_c = x - shift[None, :]
         device = self.device or resolve_device("cuda")
-        xd = torch.from_numpy(x_c).to(device)
-        onehot = torch.nn.functional.one_hot(
-            torch.from_numpy(y_idx.astype(np.int64)).to(device),
-            len(self.classes_)).to(torch.float32)
-        with torch.no_grad():
-            counts, sums, sq_sums = (
-                t.cpu().numpy().astype(np.float64).sum(axis=0)
-                for t in self._sufficient_stats(xd, onehot))
-        del xd, onehot
+
+        def stage():
+            return {"x": torch.from_numpy(x - shift[None, :]).to(device),
+                    "onehot": torch.nn.functional.one_hot(
+                        torch.from_numpy(y_idx.astype(np.int64)).to(device),
+                        len(self.classes_)).to(torch.float32)}
+
+        token = getattr(self, "feature_token", None)
+        entry = None
+        if token is not None:
+            # the centred x and the one-hot are functions of the (x, y)
+            # the token identifies: a repeat fit reuses the resident ones
+            from learningorchestra_tpu_torch.runtime import arena
+
+            entry = arena.get_default_arena().get_or_put(
+                ("nb_stats", token, str(device)), stage,
+                tags=getattr(self, "feature_tags", ()))
+            staged = entry.arrays
+        else:
+            staged = stage()
+        try:
+            with torch.no_grad():
+                counts, sums, sq_sums = (
+                    t.cpu().numpy().astype(np.float64).sum(axis=0)
+                    for t in self._sufficient_stats(staged["x"],
+                                                    staged["onehot"]))
+        finally:
+            if entry is not None:
+                entry.release()
+        del staged
         n = np.maximum(counts, 1.0)[:, None]
         theta_c = sums / n          # class means of the centred data
         self.theta_ = theta_c + shift[None, :].astype(np.float64)

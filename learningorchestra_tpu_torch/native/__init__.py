@@ -18,16 +18,17 @@ import ctypes
 import hashlib
 import os
 import subprocess
-import threading
 from pathlib import Path
 from typing import Optional
+
+from learningorchestra_tpu_torch.runtime import locks
 
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "hgb_core.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 _ABI_VERSION = 1
 
-_lock = threading.Lock()
+_lock = locks.make_lock("native.registry")
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 # the compiler's output of a failed build, for the caller that must know

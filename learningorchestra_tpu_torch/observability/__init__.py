@@ -50,9 +50,13 @@ def get_config():
 
 def set_config(config) -> None:
     """Installs ``config`` process-wide (a service context does, at
-    creation)."""
+    creation). The default device arena is sized from it, so it starts
+    anew, as the JAX package's config swap resets it."""
     global _config
     _config = config
+    from learningorchestra_tpu_torch.runtime import arena
+
+    arena.reset_default_arena()
 
 
 def reset_config() -> None:

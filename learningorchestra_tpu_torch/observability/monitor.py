@@ -5,14 +5,15 @@ monitor").
 A single daemon thread samples, every ``LO_MONITOR_INTERVAL_MS``
 milliseconds, the resources the rest of the stack only reads at isolated
 points: per-card memory (``torch.cuda.memory_stats(i)`` and
-``torch.cuda.mem_get_info(i)``), serving queue depth and batch fill
+``torch.cuda.mem_get_info(i)``), the device arena's occupancy and
+evictions (:mod:`runtime.arena`), serving queue depth and batch fill
 (:mod:`services.serving`), job-queue depth, and host RSS. Each scalar
 lands in a bounded time-series ring (``LO_MONITOR_RING`` samples),
 readable as one JSON document through ``GET /observability/cluster``;
 the latest structured sample also backs the ``lo_hbm_bytes_in_use`` /
-``lo_host_rss_bytes`` Prometheus gauges. The HBM arena and the slice
-scheduler are not ported: their collectors are absent, and so are their
-series (absent, not zero).
+``lo_host_rss_bytes`` Prometheus gauges. The slice scheduler is not
+ported: its collector is absent, and so are its series (absent, not
+zero).
 
 The sampler is strictly best-effort — a failing collector is recorded
 as a ``sampleErrors`` count, never raised — and does not touch the card
@@ -37,11 +38,13 @@ from typing import Any, Callable, Dict, List, Optional
 from learningorchestra_tpu_torch.runtime import locks
 
 # scalar series kept as (ts, value) rings; everything else only in the
-# latest structured sample. The arena's and the slice scheduler's series
-# (arenaBytesInUse, arenaEvictions, sliceDevicesBusy, sliceFragmentation)
-# come with those modules' ports.
+# latest structured sample. The slice scheduler's series
+# (sliceDevicesBusy, sliceFragmentation) come with its port.
 _SCALAR_SERIES = (
     "hbmBytesInUse", "hbmPeakBytesInUse", "hbmHeadroomFrac",
+    # the device arena (runtime/arena.py): resident bytes and the LRU's
+    # evictions
+    "arenaBytesInUse", "arenaEvictions",
     "servingQueueDepth", "servingBatchFill",
     # paged-KV serving (services/serving.py PagedLMServingSession):
     # pool free-page headroom and cross-stream prefix sharing
@@ -143,15 +146,16 @@ def host_rss_bytes() -> Optional[int]:
 class ClusterMonitor:
     """Background sampler + ring store. Collectors are injected as
     zero-arg callables so the monitor has no import-time dependency on
-    the service layer (and tests can feed it fakes). The arena's and
-    the slice scheduler's collectors are not ported: their keys are
-    absent from every sample."""
+    the service layer (and tests can feed it fakes). The slice
+    scheduler's collector is not ported: its key is absent from every
+    sample."""
 
     def __init__(self,
                  interval_seconds: float = 1.0,
                  ring: int = 600,
                  serving_stats: Optional[Callable[[], dict]] = None,
                  job_stats: Optional[Callable[[], dict]] = None,
+                 arena_stats: Optional[Callable[[], dict]] = None,
                  device_stats: Callable[
                      [], List[Dict[str, Any]]] = device_memory_stats,
                  watchdog: Optional[Any] = None):
@@ -159,6 +163,7 @@ class ClusterMonitor:
         self._ring = max(8, int(ring))
         self._serving_stats = serving_stats
         self._job_stats = job_stats
+        self._arena_stats = arena_stats
         self._device_stats = device_stats
         self.watchdog = watchdog
         self._lock = locks.make_lock("monitor.rings")
@@ -223,6 +228,8 @@ class ClusterMonitor:
             "headroomFrac": (round(1.0 - in_use / limit, 6)
                              if limit else None)}
 
+        arena = self._call(self._arena_stats)
+        sample["arena"] = arena
         serving = self._call(self._serving_stats)
         sample["serving"] = serving
         jobs = self._call(self._job_stats)
@@ -235,6 +242,9 @@ class ClusterMonitor:
             "hbmHeadroomFrac": sample["hbm"]["headroomFrac"],
             "hostRssBytes": sample["hostRssBytes"],
         }
+        if arena:
+            scalars["arenaBytesInUse"] = arena.get("bytesInUse")
+            scalars["arenaEvictions"] = arena.get("evictions")
         if serving:
             scalars["servingQueueDepth"] = serving.get("queueDepth")
             scalars["servingBatchFill"] = serving.get("batchFill")

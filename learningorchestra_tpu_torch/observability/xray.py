@@ -8,7 +8,8 @@ advisory (nothing here may ever raise into or stall the job it
 observes):
 
 - a **live ledger**: every allocation site that pins device bytes — the
-  engine's train state, a serving session's params and its KV cache —
+  engine's train state, the device arena's staged tensors, a serving
+  session's params and its KV cache —
   registers owner-tagged byte counts and releases them on drop.
   ``unattributed = bytes_in_use − Σledger`` surfaces temporaries,
   the caching allocator's slack and leaks (the SLO watchdog pages on
@@ -43,8 +44,9 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 from learningorchestra_tpu_torch.runtime import locks
 
-# canonical owner tags; "arena" stays unregistered until the arena is
-# ported, but keeps its zero-filled column (the JAX label set)
+# canonical owner tags (the JAX label set): "arena" is the device
+# arena's resident entries (runtime/arena.py), less the serving sessions'
+# pins, which are re-tagged "serving-params"
 OWNERS = ("arena", "train-state", "serving-params", "kv-cache",
           "snapshot")
 

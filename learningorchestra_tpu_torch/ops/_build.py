@@ -19,9 +19,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from learningorchestra_tpu_torch.runtime import locks
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -31,7 +32,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 BUILD_LOG: Dict[str, str] = {}
-_lock = threading.Lock()
+_lock = locks.make_lock("kernels.build")
 _libs: Dict[str, ctypes.CDLL] = {}
 
 

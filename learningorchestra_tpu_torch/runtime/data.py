@@ -1,16 +1,22 @@
-"""Host-side batches of the training slice.
+"""Host-side batches of the training slice and their feed to the card.
 
 Counterpart of :mod:`learningorchestra_tpu.runtime.data` for one card:
 fixed-shape batches whose ragged tail is zero-padded and masked with a
 per-sample 0/1 weight column (``MASK_KEY``), so losses and metrics stay
-exact. The engine moves each batch to the card itself; there is no
-prefetch thread and no data-parallel padding (the port trains on one
-card). :func:`dataframe_to_arrays` is the catalog table feed.
+exact. A fit that fits ``LO_SCAN_FIT_MAX_BYTES`` stages
+:meth:`ArrayBatcher.padded_arrays` on the card once (``runtime/engine.py``);
+a larger one of more than one step an epoch is fed by
+:func:`prefetch_to_device`, which copies the next batches on a side
+stream while the current step runs. There is no
+data-parallel padding (the port trains on one card).
+:func:`dataframe_to_arrays` is the catalog table feed.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Sequence
+import queue as queue_mod
+import threading
+from typing import Any, Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
@@ -29,7 +35,8 @@ class ArrayBatcher:
 
     def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int, *,
                  shuffle: bool = False, seed: int = 0,
-                 sample_weight: Optional[np.ndarray] = None):
+                 sample_weight: Optional[np.ndarray] = None,
+                 cache_token=None, cache_tags: Sequence[str] = ()):
         if not arrays:
             raise ValueError("empty feed")
         sizes = {k: len(v) for k, v in arrays.items()}
@@ -51,6 +58,16 @@ class ArrayBatcher:
         self.batch_size = int(batch_size)
         self._shuffle = shuffle
         self._seed = seed
+        # hashable content identity of ``arrays`` (dataset versions,
+        # projection, dtype policy): with it the staged fit keeps its
+        # tensors in the device arena between fits, ``cache_tags``
+        # (collection names) driving their invalidation. A sample weight
+        # changes the staged mask without being part of the token, so it
+        # turns reuse off.
+        if sample_weight is not None:
+            cache_token = None
+        self.cache_token = cache_token
+        self.cache_tags = tuple(cache_tags)
 
     @property
     def steps_per_epoch(self) -> int:
@@ -110,6 +127,110 @@ class ArrayBatcher:
                 else self._sample_weight[idx]
             batch[MASK_KEY] = mask
             yield batch
+
+
+def _pinned_copy(value: np.ndarray, device, stream):
+    """``value`` on ``device``: copied into a pinned host buffer, then to
+    the card without blocking on ``stream``."""
+    import torch
+
+    host = torch.from_numpy(np.ascontiguousarray(value))
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    pinned.copy_(host)
+    with torch.cuda.stream(stream):
+        return pinned.to(device, non_blocking=True)
+
+
+def prefetch_to_device(iterator: Iterable[Dict[str, np.ndarray]], device,
+                       buffer_size: Optional[int] = None, cancel=None,
+                       ) -> Iterator[Dict[str, Any]]:
+    """The batches of ``iterator`` on ``device``, ``buffer_size`` ahead of
+    the consumer (``LO_PREFETCH_BUFFER`` when None).
+
+    A producer thread copies each host batch into pinned buffers and
+    issues non-blocking copies on a side stream, then records an event
+    there. The consumer's stream waits on that event before it uses the
+    batch, and each tensor is marked used on the consumer's stream
+    (``record_stream``), so the caching allocator never hands its memory
+    to another tensor while a step still reads it. ``cancel`` (by
+    default the calling thread's installed token) is checked before each
+    batch: a cancelled job's feed stops copying. Given a CPU device the
+    batches come back unchanged."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        yield from iterator
+        return
+    if buffer_size is None:
+        from learningorchestra_tpu_torch.config import Config
+
+        buffer_size = Config().prefetch_buffer
+    buffer_size = max(1, int(buffer_size))
+    if cancel is None:
+        # taken here, on the consumer's (the job's) thread: the producer
+        # has no thread-local token
+        from learningorchestra_tpu_torch.runtime import preempt
+
+        cancel = preempt.current_cancel()
+    q: "queue_mod.Queue" = queue_mod.Queue(maxsize=buffer_size)
+    end = object()
+    err: list = []
+    stop = threading.Event()  # set when the consumer leaves the feed
+    side = torch.cuda.Stream(device)
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.2)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def producer() -> None:
+        try:
+            with torch.cuda.device(device):
+                for batch in iterator:
+                    if cancel is not None and cancel.cancelled():
+                        return  # a cancelled job: stop filling the card
+                    staged = {k: _pinned_copy(v, device, side)
+                              for k, v in batch.items()}
+                    ready = torch.cuda.Event()
+                    ready.record(side)
+                    if not put((staged, ready)):
+                        return  # the consumer is gone
+        except Exception as e:  # noqa: BLE001 — raised in the consumer
+            err.append(e)
+        finally:
+            put(end)
+
+    thread = threading.Thread(target=producer, name="lo-prefetch",
+                              daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                if err:
+                    raise err[0]
+                return
+            staged, ready = item
+            current = torch.cuda.current_stream(device)
+            current.wait_event(ready)
+            for tensor in staged.values():
+                tensor.record_stream(current)
+            yield staged
+    finally:
+        # reached at the end and when the consumer drops the feed
+        # mid-epoch (a step raised): unblock the producer, free its queue
+        stop.set()
+        while True:
+            try:
+                q.get_nowait()
+            except queue_mod.Empty:
+                break
+        thread.join(timeout=5.0)
 
 
 def _factorize(values: np.ndarray) -> np.ndarray:

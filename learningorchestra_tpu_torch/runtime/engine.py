@@ -1,13 +1,28 @@
 """Training, evaluation and prediction engine of the port.
 
-Counterpart of :mod:`learningorchestra_tpu.runtime.engine` on one card,
-for the per-step path of ``Engine.fit``: float32 master params, a
-forward and backward in the compute dtype (bfloat16 by default), the
-gradients of ``grad_accum`` micro-batches weighted by their sample
-weight totals, one optimizer update per step, and epoch records with
+Counterpart of :mod:`learningorchestra_tpu.runtime.engine` on one card:
+float32 master params, a forward and backward in the compute dtype
+(bfloat16 by default), the gradients of ``grad_accum`` micro-batches
+weighted by their sample weight totals, one optimizer update per step,
+and epoch records with
 ``loss``, the metrics, ``epoch``, ``epochSeconds`` and
 ``samplesPerSecond``. Metric sums stay on the device until the epoch
 ends.
+
+How batches reach the card (the JAX package's ``_should_scan`` rule): a
+fit whose training arrays take at most ``LO_SCAN_FIT_MAX_BYTES`` over
+more than one step an epoch stages ``batcher.padded_arrays()`` on the
+card once, and each step gathers its rows there (``index_select`` on the
+epoch's order followed by the pad rows), so every batch equals the
+per-step feed's bit for bit. A batcher with a ``cache_token`` takes the
+staged tensors from the device arena (``runtime/arena.py``) under
+``("fit_arrays", token, steps, batch_size, shuffles, device)`` and holds
+the pin until the fit ends, however it ends. Any other fit of more
+than one step an epoch is fed by ``runtime/data.py``'s
+``prefetch_to_device``, which copies the next batches on a side stream
+while the current step runs (``LO_PREFETCH_BUFFER=0`` turns it off); a
+one-step epoch, and a fit with the prefetch feed off, copy each batch
+in the step.
 
 The model supplies ``apply_fn(params, batch, train, rng) -> outputs``
 and ``loss_fn(outputs, batch, weights) -> loss`` (or ``(loss,
@@ -57,6 +72,7 @@ the X-ray owner ``train-state`` for the fit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import time
@@ -70,9 +86,11 @@ from learningorchestra_tpu_torch.observability import perf as obs_perf
 from learningorchestra_tpu_torch.observability import timeline as obs_timeline
 from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.observability import xray as obs_xray
+from learningorchestra_tpu_torch.runtime import arena as arena_lib
 from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime import preempt
-from learningorchestra_tpu_torch.runtime.data import MASK_KEY, ArrayBatcher
+from learningorchestra_tpu_torch.runtime.data import (MASK_KEY, ArrayBatcher,
+                                                      prefetch_to_device)
 from learningorchestra_tpu_torch.runtime.health import (HealthPolicy,
                                                         NumericalDivergence)
 
@@ -404,10 +422,70 @@ class Engine:
                 for k, v in params.items()}
 
     @staticmethod
-    def _to_device(batch: Dict[str, np.ndarray],
+    def _to_device(batch: Dict[str, Any],
                    device: torch.device) -> Dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+        """The batch's host arrays as tensors on ``device`` (tensors the
+        prefetch feed already placed pass through)."""
+        return {k: v if isinstance(v, torch.Tensor) else
+                torch.from_numpy(np.ascontiguousarray(v)).to(device)
                 for k, v in batch.items()}
+
+    # ------------------------------------------------------------------
+    # the feed: staged whole epoch, the prefetch thread, or a copy a step
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _should_stage(batcher: ArrayBatcher) -> bool:
+        from learningorchestra_tpu_torch.config import Config
+
+        limit = Config().scan_fit_max_bytes
+        return limit > 0 and batcher.total_bytes() <= limit and \
+            batcher.steps_per_epoch > 1
+
+    @classmethod
+    def _stage(cls, batcher: ArrayBatcher, device: torch.device,
+               ) -> Tuple[Optional[arena_lib.ArenaEntry],
+                          Dict[str, torch.Tensor]]:
+        """``(pin or None, the padded epoch on device)``: from the device
+        arena when the batcher carries a content token."""
+        def build() -> Dict[str, torch.Tensor]:
+            return cls._to_device(batcher.padded_arrays(), device)
+
+        if batcher.cache_token is None:
+            return None, build()
+        entry = arena_lib.get_default_arena().get_or_put(
+            ("fit_arrays", batcher.cache_token, batcher.steps_per_epoch,
+             batcher.batch_size, batcher.shuffles, str(device)),
+            build, tags=batcher.cache_tags)
+        return entry, entry.arrays
+
+    @staticmethod
+    def _host_feed(batcher: ArrayBatcher, epoch_key: int,
+                   device: torch.device):
+        """The batches of an epoch that is not staged: through the
+        prefetch thread when the epoch takes more than one step and
+        ``LO_PREFETCH_BUFFER`` is above 0, else the host batches, which
+        the step copies (a thread and a side stream for one batch would
+        only add their start)."""
+        from learningorchestra_tpu_torch.config import Config
+
+        batches = batcher.epoch(epoch_key)
+        if batcher.steps_per_epoch > 1 and Config().prefetch_buffer > 0:
+            return prefetch_to_device(batches, device)
+        return batches
+
+    @staticmethod
+    def _staged_batches(batcher: ArrayBatcher,
+                        staged: Dict[str, torch.Tensor], epoch_key: int,
+                        device: torch.device):
+        """The batches of ``batcher.epoch(epoch_key)``, gathered from the
+        staged epoch: the epoch's order, then the pad rows."""
+        steps, bs = batcher.steps_per_epoch, batcher.batch_size
+        order = torch.from_numpy(np.concatenate([
+            batcher.epoch_order(epoch_key),
+            np.arange(batcher.num_samples, steps * bs)])).to(device)
+        for j in range(steps):
+            idx = order[j * bs:(j + 1) * bs]
+            yield {k: v.index_select(0, idx) for k, v in staged.items()}
 
     # ------------------------------------------------------------------
     def _apply(self, params: Params, model_state: Optional[Params], batch,
@@ -960,12 +1038,14 @@ class Engine:
     def fit(self, state: TrainState, batcher: ArrayBatcher,
             epochs: int = 1, seed: int = 0, checkpointer=None,
             log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
-            health_policy=None,
+            health_policy=None, scan_batches: Optional[bool] = None,
             ) -> Tuple[TrainState, List[Dict[str, Any]]]:
         """Train ``epochs`` over ``batcher`` one step per batch (the
         total budget on a resume from ``checkpointer``) under
         ``health_policy`` (None, an action, a request dict or a
-        :class:`HealthPolicy`)."""
+        :class:`HealthPolicy`). ``scan_batches`` forces the staged epoch
+        (True) or the host feed (False, :meth:`_host_feed`); None takes
+        :meth:`_should_stage`'s rule."""
         policy = health_lib.coerce_policy(health_policy)
         device = next(iter(state.params.values())).device
         history: List[Dict[str, Any]] = []
@@ -983,10 +1063,21 @@ class Engine:
                 return state, []
         self._set_health(policy, state, device)
         self._ledger_state(state)
+        stage = (self._should_stage(batcher) if scan_batches is None
+                 else bool(scan_batches))
+        entry = None
         try:
+            staged = None
+            if stage:
+                entry, staged = self._stage(batcher, device)
             self._fit_epochs(state, batcher, start_epoch, epochs, seed,
-                             checkpointer, log_fn, policy, device, history)
+                             checkpointer, log_fn, policy, device, history,
+                             staged)
         finally:
+            # the pin drops on every exit (a cancel, a timeout, a
+            # divergence), or the entry could never be evicted
+            if entry is not None:
+                entry.release()
             obs_xray.release("train-state", id(self))
             self._health_on = self._health_skip = False
             self._skip_buffers = None
@@ -1000,7 +1091,9 @@ class Engine:
                     start_epoch: int, epochs: int, seed: int,
                     checkpointer, log_fn, policy: Optional[HealthPolicy],
                     device: torch.device,
-                    history: List[Dict[str, Any]]) -> None:
+                    history: List[Dict[str, Any]],
+                    staged: Optional[Dict[str, torch.Tensor]] = None,
+                    ) -> None:
         sent = self._new_sentinel()
         # a rollback without a checkpointer goes back to this copy,
         # renewed after each good epoch
@@ -1020,26 +1113,38 @@ class Engine:
             step_seed = seed if rb == 0 else _step_seed(
                 seed, _HEALTH_TAG + rb, 0)
             poison = _armed_nan()
-            for batch in batcher.epoch(epoch + rb * _ROLLBACK_STRIDE):
-                # a cancelled or expired job stops here, between steps
-                preempt.check_cancel()
-                preempt.heartbeat(epoch=epoch, step=state.step,
-                                  rollbacks=rb)
-                batch = self._to_device(batch, device)
-                if poison:
-                    batch = _poison_batch(batch)
-                    poison = False
-                if steps == 0 and self._needs_count(batch):
-                    metrics = self._counted_step(state, batch, step_seed)
-                elif guarded:
-                    metrics = obs_xray.guarded_call(
-                        self._train_step_body, state, batch, step_seed)
-                else:
-                    metrics = self._train_step_body(state, batch, step_seed)
-                steps += 1
-                for k, (s, c) in metrics.items():
-                    sums[k] = sums[k] + s if k in sums else s
-                    counts[k] = counts[k] + c if k in counts else c
+            epoch_key = epoch + rb * _ROLLBACK_STRIDE
+            feed = (self._staged_batches(batcher, staged, epoch_key, device)
+                    if staged is not None else
+                    self._host_feed(batcher, epoch_key, device))
+            with contextlib.closing(feed):
+                for batch in feed:
+                    # a cancelled or expired job stops here, between
+                    # steps
+                    preempt.check_cancel()
+                    preempt.heartbeat(epoch=epoch, step=state.step,
+                                      rollbacks=rb)
+                    batch = self._to_device(batch, device)
+                    if poison:
+                        # a copy: the staged (arena) tensors stay clean
+                        batch = _poison_batch(batch)
+                        poison = False
+                    if steps == 0 and self._needs_count(batch):
+                        metrics = self._counted_step(state, batch,
+                                                     step_seed)
+                    elif guarded:
+                        metrics = obs_xray.guarded_call(
+                            self._train_step_body, state, batch, step_seed)
+                    else:
+                        metrics = self._train_step_body(state, batch,
+                                                        step_seed)
+                    steps += 1
+                    for k, (s, c) in metrics.items():
+                        sums[k] = sums[k] + s if k in sums else s
+                        counts[k] = counts[k] + c if k in counts else c
+            # the prefetch feed ends early for a cancelled or expired job:
+            # no record of a cut epoch
+            preempt.check_cancel()
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             dt = time.perf_counter() - t0
@@ -1255,13 +1360,6 @@ class FusedEngine(Engine):
         return metrics
 
     # ------------------------------------------------------------------
-    def _should_stage(self, batcher: ArrayBatcher) -> bool:
-        from learningorchestra_tpu_torch.config import Config
-
-        limit = Config().scan_fit_max_bytes
-        return limit > 0 and batcher.total_bytes() <= limit and \
-            batcher.steps_per_epoch > 1
-
     def fit_fused(self, state: TrainState, batcher: ArrayBatcher,
                   epochs: int = 1, seed: int = 0, eval_batcher=None,
                   score_fn=None, earlystop: Optional[Dict[str, Any]] = None,
@@ -1276,19 +1374,24 @@ class FusedEngine(Engine):
         ``earlystop["margin"]`` stops (``active[i]`` False,
         ``stopped_epochs[i]`` the epoch its params froze at)."""
         self._ledger_state(state)
+        entry = None
         try:
-            return self._fit_fused_impl(state, batcher, epochs, seed,
-                                        eval_batcher, score_fn, earlystop,
-                                        log_fn)
+            if not self._should_stage(batcher):
+                raise FusedSweepUnsupported(
+                    "dataset exceeds the fused staging budget "
+                    "(LO_SCAN_FIT_MAX_BYTES), or an epoch has one step")
+            device = next(iter(state.params.values())).device
+            entry, staged = self._stage(batcher, device)
+            return self._fit_fused_impl(state, batcher, staged, epochs,
+                                        seed, eval_batcher, score_fn,
+                                        earlystop, log_fn)
         finally:
+            if entry is not None:
+                entry.release()
             obs_xray.release("train-state", id(self))
 
-    def _fit_fused_impl(self, state, batcher, epochs, seed, eval_batcher,
-                        score_fn, earlystop, log_fn):
-        if not self._should_stage(batcher):
-            raise FusedSweepUnsupported(
-                "dataset exceeds the fused staging budget "
-                "(LO_SCAN_FIT_MAX_BYTES), or an epoch has one step")
+    def _fit_fused_impl(self, state, batcher, staged, epochs, seed,
+                        eval_batcher, score_fn, earlystop, log_fn):
         n = self._n_configs
         device = next(iter(state.params.values())).device
         steps, bs = batcher.steps_per_epoch, batcher.batch_size
@@ -1296,8 +1399,6 @@ class FusedEngine(Engine):
         if key not in self._built:
             self._built.add(key)
             _FUSED_STATS["epochTraces"] += 1
-        staged = self._to_device(batcher.padded_arrays(), device)
-        pads = np.arange(batcher.num_samples, steps * bs)
         active = np.ones(n, bool)
         stopped: List[Optional[int]] = [None] * n
         ema: List[Optional[float]] = [None] * n
@@ -1313,18 +1414,15 @@ class FusedEngine(Engine):
             preempt.heartbeat(epoch=epoch, fusedConfigs=n)
             t0 = time.perf_counter()
             mono0 = time.monotonic()
-            order = torch.from_numpy(np.concatenate(
-                [batcher.epoch_order(epoch), pads])).to(device)
             stop = None if active.all() else \
                 torch.from_numpy(~active).to(device)
             sums: Dict[str, torch.Tensor] = {}
             counts: Dict[str, torch.Tensor] = {}
-            for j in range(steps):
+            for batch in self._staged_batches(batcher, staged, epoch,
+                                              device):
                 preempt.check_cancel()
                 preempt.heartbeat(epoch=epoch, step=state.step,
                                   fusedConfigs=n)
-                idx = order[j * bs:(j + 1) * bs]
-                batch = {k: v.index_select(0, idx) for k, v in staged.items()}
                 metrics = self._fused_step(state, batch, seed, stop)
                 for k, (s, c) in metrics.items():
                     sums[k] = sums[k] + s if k in sums else s

@@ -35,9 +35,13 @@ fails documents its own output and the others still run.
   written batch by batch, through a writer that keeps them in memory
   until it closes.
 
-The JAX package's arena reuse of staged device arrays is not ported: the
-content identity of a job's features (``feature_token``) is kept on the
-estimator and read by nothing yet.
+Both datasets are read through the feature cache (``ctx.features``), so
+a repeated job on the same dataset versions reads no table from the
+catalog. The job's feature token (both datasets' versions and the sha256
+of the modeling code) and tags (both dataset names) go to the card's
+families: LR's staged fit and NB's statistics take their tensors from the
+device arena on a repeat, and a write to either dataset makes the next
+run miss and stage again.
 """
 
 from __future__ import annotations
@@ -311,17 +315,20 @@ class BuilderService:
     def _run(self, train_name: str, test_name: str, code: str,
              outputs: Dict[str, str], mesh_parallel: bool = False,
              ) -> None:
-        catalog = self._ctx.catalog
+        features = self._ctx.features
         config = self._ctx.config
-        training_df = catalog.read_table(train_name)
-        testing_df = catalog.read_table(test_name)
+        training_df = features.table(train_name)
+        testing_df = features.table(test_name)
         # the content identity of the derived (x, y): both datasets'
-        # versions and the code that derives them
+        # versions and the code that derives them; a repeat job with the
+        # same inputs reuses the arena's staged tensors, and a write to
+        # either dataset changes the token
         feature_token = ("builder",
-                         train_name, catalog.dataset_version(train_name),
-                         test_name, catalog.dataset_version(test_name),
+                         train_name, features.version(train_name),
+                         test_name, features.version(test_name),
                          hashlib.sha256(code.encode()).hexdigest())
         feature_tags = (train_name, test_name)
+        # the sandbox hands the code copies of the cached columns
         ctx_vars, _ = sandbox.run_user_code(
             code, {"training_df": training_df, "testing_df": testing_df},
             mode=config.sandbox_mode, config=config, dataframes=True)
@@ -571,8 +578,8 @@ class BuilderService:
         metrics: Dict[str, Any] = {"classifier": classifier_name}
         if device is not None and classifier_name in _TORCH_FAMILIES:
             clf = _make_torch_classifier(classifier_name, device)
-            # read by nothing yet: the port has no arena to reuse
-            # staged arrays across jobs
+            # the content identity of (x_train, y_train): a repeat job
+            # on the same versions reuses the arena's staged tensors
             clf.feature_token = feature_token
             clf.feature_tags = feature_tags
             metrics["engine"] = "torch"

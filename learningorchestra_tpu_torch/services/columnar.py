@@ -191,7 +191,10 @@ class DataTypeService:
             "result": f"{API_PREFIX}/transform/{tool}/{name}"}
 
     def _run(self, name: str, types: Dict[str, str]) -> None:
-        columns = self._ctx.catalog.read_columns(name)
+        # through the feature cache (the conversions below make new
+        # arrays, the cached ones stay as read); the write bumps the
+        # version, so the next reader reads again
+        columns = self._ctx.features.columns(name)
         out = {}
         for field, (kind, data, mask) in columns.items():
             target = types.get(field)

@@ -1,5 +1,6 @@
 """The services' shared state: config, catalog, artifact store, job
-manager, the ``$`` resolver, the serving plane and the observability
+manager, the feature cache (``ctx.features``, the host tier every dataset
+read goes through), the ``$`` resolver, the serving plane and the observability
 plane's live parts — the cluster sampler with its SLO watchdog
 (``LO_MONITOR``), the ``torch.profiler`` gate and the incident flight
 recorder (``LO_INCIDENTS``), wired as the JAX package's
@@ -19,7 +20,9 @@ from learningorchestra_tpu_torch.catalog.store import Catalog
 from learningorchestra_tpu_torch.config import Config, resolve_device
 from learningorchestra_tpu_torch.observability import incidents as obs_incidents
 from learningorchestra_tpu_torch.observability import xray as obs_xray
+from learningorchestra_tpu_torch.runtime import arena as arena_lib
 from learningorchestra_tpu_torch.runtime import health as health_lib
+from learningorchestra_tpu_torch.services.feature_cache import FeatureCache
 from learningorchestra_tpu_torch.services.jobs import JobManager
 from learningorchestra_tpu_torch.services.params import ParameterResolver
 from learningorchestra_tpu_torch.services.serving import ServingManager
@@ -45,6 +48,10 @@ class ServiceContext:
         self.artifacts = ArtifactStore(config.artifacts_dir,
                                        device=self.device)
         self.jobs = JobManager.from_config(self.catalog, config)
+        # the feature plane's host tier; its device tier is the default
+        # arena
+        self.features = FeatureCache(self.catalog,
+                                     host_bytes=config.param_cache_bytes)
         self.params = ParameterResolver(self)
         self.serving = ServingManager(self)
         # readiness: /healthz answers 503 while this is set (the server's
@@ -92,6 +99,9 @@ def _start_monitor(ctx: ServiceContext):
         ClusterMonitor
     from learningorchestra_tpu_torch.observability.slo import SloWatchdog
 
+    def arena_stats():
+        return arena_lib.get_default_arena().stats()
+
     def serving_stats():
         s = ctx.serving.stats()
         by = s.get("bySession") or []
@@ -125,6 +135,7 @@ def _start_monitor(ctx: ServiceContext):
         ring=ctx.config.monitor_ring,
         serving_stats=serving_stats,
         job_stats=ctx.jobs.queue_stats,
+        arena_stats=arena_stats,
         watchdog=SloWatchdog(active_trace=active_trace))
     return monitor.start()
 

@@ -90,13 +90,15 @@ class ParameterResolver:
 
     def load_artifact(self, name: str) -> Any:
         """``$name``: the stored object of an object type, else the
-        collection's rows as a Table."""
+        collection's rows as a Table, read through the feature cache's
+        host tier (so a pipeline's train, evaluate and predict steps and
+        the builder share one read); the caller gets its own Table."""
         t = self.artifact_type(name)
         if t is None:
             raise KeyError(f"unknown artifact: {name}")
         if is_object_type(t):
             return self._ctx.artifacts.load(name, t)
-        return self._ctx.catalog.read_table(name)
+        return self._ctx.features.table(name)
 
     def load_object(self, name: str) -> Any:
         """The stored object of ``name`` (``$name.key`` indexes it)."""

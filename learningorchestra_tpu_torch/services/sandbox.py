@@ -207,19 +207,33 @@ def _is_table(value: Any) -> bool:
         "Table", "learningorchestra_tpu_torch.catalog.store")
 
 
+def _own_table(value: Any) -> Any:
+    """A catalog ``Table`` over writable copies of its columns (the
+    feature cache shares its arrays, read-only, among readers); any
+    other value as it is."""
+    if not _is_table(value):
+        return value
+    import numpy as np
+
+    return type(value)({c: np.array(value[c]) for c in value.columns},
+                       len(value))
+
+
 def to_dataframe(value: Any) -> Any:
-    """A catalog ``Table`` as a pandas DataFrame of its columns where
-    pandas is importable, else the ``Table`` itself; any other value as
-    it is. The columns keep the Table's dtypes (int64, float64 with NaN
-    for blanks, object for text), the dtypes the JAX package's
-    DataFrame has."""
+    """A catalog ``Table`` as a pandas DataFrame of copies of its columns
+    where pandas is importable, else a ``Table`` of such copies; any
+    other value as it is. The columns keep the Table's dtypes (int64,
+    float64 with NaN for blanks, object for text), the dtypes the JAX
+    package's DataFrame has."""
     if not _is_table(value):
         return value
     try:
         import pandas as pd
     except ImportError:
-        return value
-    return pd.DataFrame({c: value[c] for c in value.columns},
+        return _own_table(value)
+    import numpy as np
+
+    return pd.DataFrame({c: np.array(value[c]) for c in value.columns},
                         index=pd.RangeIndex(len(value)))
 
 
@@ -249,9 +263,10 @@ def run_user_code(code: str,
                                    filename="<lo-user-code>")
     if resolved == "subprocess":
         return _run_in_subprocess(code, parameters, config, dataframes)
-    if dataframes:
-        parameters = {k: to_dataframe(v)
-                      for k, v in (parameters or {}).items()}
+    # in-process code gets copies of each table's columns it may write
+    # to (the jail's child decodes copies of its own)
+    parameters = {k: to_dataframe(v) if dataframes else _own_table(v)
+                  for k, v in (parameters or {}).items()}
     g = _with_tensorflow(make_sandbox_globals(
         parameters, trusted=resolved == "trusted"))
     stdout = io.StringIO()

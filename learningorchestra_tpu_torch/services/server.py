@@ -64,10 +64,12 @@ A builder's outputs are read, listed and deleted as datasets are.
 ``/observability/autoscaler`` 404 until the autoscaler is ported.
 ``/metrics`` leaves out the blocks of modules not ported yet (the JAX
 server's ``meshScheduler``, ``meshSecondsByPool``, ``migrationStats``,
-``autoscaler``, ``featureCache``, ``arena`` and ``executableCache``)
-rather than faking them; ``sweepFusion`` is the process's sweep fusion
-counters (:func:`~learningorchestra_tpu_torch.models.sweep.fusion_stats`,
-the ``lo_sweep_*`` series).
+``autoscaler`` and ``executableCache``) rather than faking them;
+``sweepFusion`` is the process's sweep fusion counters
+(:func:`~learningorchestra_tpu_torch.models.sweep.fusion_stats`, the
+``lo_sweep_*`` series), ``featureCache`` the context's feature cache and
+``arena`` the default device arena (the ``lo_feature_cache_*`` and
+``lo_arena_*`` series).
 """
 
 from __future__ import annotations
@@ -89,6 +91,7 @@ from learningorchestra_tpu_torch.observability import perf as obs_perf
 from learningorchestra_tpu_torch.observability import timeline as obs_timeline
 from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.observability import xray as obs_xray
+from learningorchestra_tpu_torch.runtime import arena as arena_lib
 from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime import locks
 from learningorchestra_tpu_torch.services import function_service as fsvc
@@ -277,6 +280,9 @@ class Api:
         out["jobLifecycle"] = self.ctx.jobs.lifecycle_counters()
         out["trainingHealth"] = health_lib.health_stats()
         out["serving"] = self.ctx.serving.stats()
+        # the feature plane's two tiers
+        out["featureCache"] = self.ctx.features.stats()
+        out["arena"] = arena_lib.get_default_arena().stats()
         from learningorchestra_tpu_torch.models import sweep as sweep_lib
         out["sweepFusion"] = sweep_lib.fusion_stats()
         out["latencyHistograms"] = obs_hist.snapshot_all()
@@ -363,6 +369,23 @@ class Api:
             "# TYPE lo_serving_quant_degrades_total counter",
             f"lo_serving_quant_degrades_total "
             f"{health.get('quantDegrades', 0)}",
+        ]
+        feature, arena = m["featureCache"], m["arena"]
+        lines += [
+            "# TYPE lo_feature_cache_hits_total counter",
+            f"lo_feature_cache_hits_total {feature['hits']}",
+            "# TYPE lo_feature_cache_misses_total counter",
+            f"lo_feature_cache_misses_total {feature['misses']}",
+            "# TYPE lo_feature_cache_bytes_in_use gauge",
+            f"lo_feature_cache_bytes_in_use {feature['bytesInUse']}",
+            "# TYPE lo_arena_bytes_in_use gauge",
+            f"lo_arena_bytes_in_use {arena['bytesInUse']}",
+            "# TYPE lo_arena_evictions_total counter",
+            f"lo_arena_evictions_total {arena['evictions']}",
+            "# TYPE lo_arena_hits_total counter",
+            f"lo_arena_hits_total {arena['hits']}",
+            "# TYPE lo_arena_misses_total counter",
+            f"lo_arena_misses_total {arena['misses']}",
         ]
         sweep_fusion = m["sweepFusion"]
         lines += [

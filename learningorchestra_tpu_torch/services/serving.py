@@ -40,9 +40,12 @@ Observability (the JAX package's hooks): each request is a trace
 stages — ``prefill``/``prefixHit`` and ``decodeIters``, or
 ``batchForm`` and ``predict`` — and ``respond``), observed into
 ``lo_serving_request_seconds`` and its ``_role_*`` and ``_tenant_*``
-series; an LM session's params and KV cache are X-ray owners
-``serving-params`` and ``kv-cache``; perf stats carry the goodput block
-and the decode roofline; the degrade ladder writes events, health
+series; an LM session pins its serving params in the device arena
+(``runtime/arena.py``) for its lifetime, keyed with its weights dtype so
+a degrade re-pins, and ledgers them under X-ray owner ``serving-params``
+(not ``arena``, so the bytes count once) beside its ``kv-cache``;
+deleting the session drops the pin and the entry; perf stats carry the
+goodput block and the decode roofline; the degrade ladder writes events, health
 counters and incident triggers; and the ``serving_step`` fault site
 fires at each worker iteration with queued work.
 """
@@ -342,9 +345,29 @@ class LMServingSession(_SessionBase):
         return ("serving", self.name, id(self), self.weights_dtype)
 
     def _ledger_params(self) -> None:
-        obs_xray.register("serving-params", self._params_key(),
-                          self._param_bytes, name=self.name,
+        """Pin the serving weights in the device arena and ledger the pin
+        as this session's ``serving-params`` (re-tagged from ``arena``:
+        the arena's own registration would count the bytes twice)."""
+        from learningorchestra_tpu_torch.runtime import arena as arena_lib
+
+        key = self._params_key()
+        weights = _weight_tensors(self._serve_module)
+        self._params_entry = arena_lib.get_default_arena().get_or_put(
+            key, lambda: weights, tags=(self.name,))
+        obs_xray.release("arena", key)
+        obs_xray.register("serving-params", key,
+                          self._params_entry.nbytes, name=self.name,
                           dtype=self.weights_dtype)
+
+    def _unpin_params(self) -> None:
+        """Drop the session's pin and its arena entry (nothing else keys
+        it) and the ledger row."""
+        from learningorchestra_tpu_torch.runtime import arena as arena_lib
+
+        key = self._params_key()
+        self._params_entry.release()
+        arena_lib.get_default_arena().discard(key)
+        obs_xray.release("serving-params", key)
 
     def _ledger_cache(self, **meta: Any) -> None:
         obs_xray.register("kv-cache", ("kv", self.name, id(self)),
@@ -353,7 +376,7 @@ class LMServingSession(_SessionBase):
 
     def close(self) -> None:
         super().close()
-        obs_xray.release("serving-params", self._params_key())
+        self._unpin_params()
         obs_xray.release("kv-cache", ("kv", self.name, id(self)))
 
     def _init_decode_path(self) -> None:
@@ -578,18 +601,25 @@ def _tensor_bytes(cache) -> int:
                    for layer in cache for t in layer))
 
 
-def _weight_bytes(module) -> int:
-    """Bytes of the weights a serving module keeps: its parameters, and
-    the values and scales of its quantized leaves."""
-    total = 0
+def _weight_tensors(module) -> Dict[str, torch.Tensor]:
+    """The weights a serving module keeps, by position (what a session
+    pins in the device arena): its parameters, and the values and scales
+    of its quantized leaves."""
+    out: Dict[str, torch.Tensor] = {}
     for mod in module.modules():
         leaf = getattr(mod, "leaf", None)
         if isinstance(leaf, dict):
-            total += sum(leaf[k].numel() * leaf[k].element_size()
-                         for k in ("qvalue", "qscale"))
-        total += sum(p.numel() * p.element_size()
-                     for p in mod.parameters(recurse=False))
-    return int(total)
+            for k in ("qvalue", "qscale"):
+                out[f"leaf{len(out)}"] = leaf[k]
+        for p in mod.parameters(recurse=False):
+            out[f"leaf{len(out)}"] = p.detach()
+    return out
+
+
+def _weight_bytes(module) -> int:
+    """Bytes of :func:`_weight_tensors`."""
+    return int(sum(t.numel() * t.element_size()
+                   for t in _weight_tensors(module).values()))
 
 
 class PoolExhausted(Exception):
@@ -1446,7 +1476,7 @@ class PagedLMServingSession(LMServingSession):
         self.kv_dtype = "bf16"
         self._pool = None  # free the int8 pool before the exact one
         if self.weights_dtype != "bf16":
-            obs_xray.release("serving-params", self._params_key())
+            self._unpin_params()
             self.weights_dtype = "bf16"
             self._serve_module = self._model.serving_module("bf16")
             self._param_bytes = _weight_bytes(self._serve_module)

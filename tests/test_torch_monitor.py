@@ -4,8 +4,8 @@ the JAX package's, on the CPU.
 
 The same fake collectors, histogram observations, pushed gauges and
 sampler series at the same timestamps go through both packages: the
-sampler's rings and latest sample are equal (less the arena's and the
-slice scheduler's, not ported: absent, not zero), and every objective's
+sampler's rings and latest sample are equal (less the slice
+scheduler's, not ported: absent, not zero), and every objective's
 firing and resolved transitions are equal, exactly. The footprint
 calibration's registry and clamp equal the JAX functions, and the
 port's preflight prefers a job's measured peak as the JAX execution
@@ -41,7 +41,7 @@ PORT, JAX = "port", "jax"
 LIBS = {PORT: (monitor, slo, hist), JAX: (jax_monitor, jax_slo, jax_hist)}
 # the JAX sampler's collectors (and their series) that the port has not
 # ported yet
-UNPORTED_SAMPLE = {"arena", "scheduler"}
+UNPORTED_SAMPLE = {"scheduler"}
 
 
 @pytest.fixture(autouse=True)
@@ -89,10 +89,15 @@ def test_sampler_rings_and_latest_match_jax(tmp_path):
     def jobs():
         return {"running": 1, "queued": depth["n"], "deadLettered": 2}
 
+    def arena():
+        return {"entries": depth["n"], "bytesInUse": depth["n"] << 20,
+                "evictions": depth["n"] * 3, "hits": 1, "misses": 2}
+
     made = {}
     for name, (mon, _, _) in LIBS.items():
         made[name] = mon.ClusterMonitor(
             ring=8, serving_stats=serving, job_stats=jobs,
+            arena_stats=arena,
             device_stats=_fake_devices(in_use=3 << 30, n=2))
     for t in range(12):
         depth["n"] = t % 3
@@ -110,8 +115,10 @@ def test_sampler_rings_and_latest_match_jax(tmp_path):
     assert ours["ring"] == theirs["ring"] == 8
     ol, tl = ours["latest"], theirs["latest"]
     assert set(ol) == set(tl) - UNPORTED_SAMPLE
-    for key in ("devices", "hbm", "serving", "jobs", "ts"):
+    for key in ("devices", "hbm", "arena", "serving", "jobs", "ts"):
         assert ol[key] == tl[key]
+    assert ours["series"]["arenaBytesInUse"] == \
+        theirs["series"]["arenaBytesInUse"]
     assert made[PORT].series_window("hbmBytesInUse", 1.5, now=111.0) == \
         made[JAX].series_window("hbmBytesInUse", 1.5, now=111.0)
 
@@ -338,9 +345,10 @@ def test_cluster_and_alert_routes(slo_api):
     assert st == 200
     assert set(doc) == {"intervalSeconds", "ring", "samples",
                         "sampleErrors", "latest", "series"}
-    assert set(doc["latest"]) == {"ts", "devices", "hbm", "serving",
-                                  "jobs", "hostRssBytes", "xray"}
+    assert set(doc["latest"]) == {"ts", "devices", "hbm", "arena",
+                                  "serving", "jobs", "hostRssBytes", "xray"}
     assert doc["latest"]["serving"]["sessions"] == 0
+    assert doc["latest"]["arena"]["entries"] == 0
     assert "hostRssBytes" in doc["series"]
     st, alerts, _ = slo_api.dispatch("GET", f"{PREFIX}/observability/alerts",
                                      {}, None)

@@ -53,10 +53,10 @@ DENSE = [{"kind": "dense", "units": 4, "activation": "relu"},
          {"kind": "dense", "units": 2, "activation": "softmax"}]
 # /metrics blocks of modules the port has not ported yet: the slice
 # scheduler (meshScheduler, its served seconds by pool), live migration,
-# the autoscaler, the feature cache, the HBM arena and the executable
-# cache (sweep fusion's block is ported)
+# the autoscaler and the executable cache (sweep fusion's, the feature
+# cache's and the device arena's blocks are ported)
 UNPORTED_KEYS = {"meshScheduler", "meshSecondsByPool", "migrationStats",
-                 "autoscaler", "featureCache", "arena", "executableCache"}
+                 "autoscaler", "executableCache"}
 # their Prometheus series, and three that the port cannot have: the
 # compile histogram (it compiles nothing), the bandwidth gauge (torch
 # has no bytes-accessed count of a train step) and the unattributed
@@ -65,10 +65,7 @@ UNPORTED_KEYS = {"meshScheduler", "meshSecondsByPool", "migrationStats",
 UNPORTED_SERIES = {
     "lo_mesh_seconds_total", "lo_lease_wait_seconds_max",
     "lo_mesh_devices_busy", "lo_slice_grants_total",
-    "lo_slice_fragmentation", "lo_feature_cache_hits_total",
-    "lo_feature_cache_misses_total", "lo_feature_cache_bytes_in_use",
-    "lo_arena_bytes_in_use", "lo_arena_evictions_total",
-    "lo_arena_hits_total", "lo_arena_misses_total",
+    "lo_slice_fragmentation",
     "lo_executable_cache_hits_total", "lo_executable_cache_misses_total",
     "lo_autoscaler_resizes_total",
     "lo_autoscaler_rollbacks_total", "lo_autoscaler_dead_lettered_total",
@@ -495,6 +492,8 @@ def test_metrics_keys_are_the_jax_servers_less_the_unported(rest):
     assert set(pm["gateway"]) == set(jm["gateway"])
     assert set(pm["xray"]) == set(jm["xray"])
     assert set(pm["serving"]) == set(jm["serving"])
+    assert set(pm["featureCache"]) == set(jm["featureCache"])
+    assert set(pm["arena"]) == set(jm["arena"])
     assert set(pm["latencyHistograms"]) == \
         set(jm["latencyHistograms"]) - UNPORTED_SERIES
 
