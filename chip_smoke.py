@@ -254,12 +254,7 @@
    centred over the classes within 1e-2 of the largest ``|w|`` and
    >= 99.5% of the predictions equal, NB's ``theta_`` and ``var_``
    within 1e-5 relative and every prediction equal, each fit's seconds
-   on both; (c) BASELINE config 4: ``streaming`` GB over 10,000,000 rows
-   of 5 float features and a binary label (the sign of the CPU tests'
-   linear margin) with 100,000 test and 100,000 eval rows: every row
-   trained (``trainedRows``, ``trainedOnSample`` false) through the C++
-   booster built where the script runs (a fallback fails the run), accuracy
-   above 0.95, the job's ``tracemalloc`` peak under 1 GiB, ``fitTime``;
+   on both; (c) BASELINE config 4 is the ``ingest`` line's (below);
    (d) the model preflight: a ``NeuralModel`` stack that cannot build on
    its declared input is a 406 with ``shape-mismatch`` and leaves no
    collection, a good one is a 201 whose ``/train`` document carries the
@@ -331,7 +326,7 @@
    relative (bit equality recorded), each with its step ms (samples/s)
    and the idle share of a profiled epoch; ResNet-50 at batch 64 through
    the three feeds, each twice, ms a step of each; (c)
-   Builder LR with ``meshParallel`` on 1,000,000 x 16 rows twice: the
+   Builder LR with ``meshParallel`` on 250,000 x 16 rows twice: the
    second run hits the device arena and the feature cache for both
    datasets, reads no table from the catalog and predicts the same; a
    write to the training dataset, then a run that misses, stages again
@@ -345,12 +340,32 @@
    evicts it; (g) a child process with ``LO_LOCK_WITNESS=1`` (count
    mode) runs (a)'s REST fit (the same losses) and a serving round with
    no lock-order violation (its edge count recorded).
+19. BASELINE config 4 as a CSV (the ``ingest`` line, after ``builder``):
+   (a) ``b4train`` (10,000,000 rows), ``b4test`` and ``b4eval`` (100,000
+   each) written as CSV files (five normal features from seeds 21/22/23
+   rounded to six decimals as fixed-point text, the label the sign of
+   the rounded margin) and ingested by ``POST /dataset/csv``: every row
+   through the port's C++ CSV core (no row on the Python path, no build
+   error), five float64 columns and an int64 label bit-equal to the
+   values written, ingest seconds, rows/s and MB/s, and the resident
+   set's growth over the ingest under 1 GiB; (b) ``streaming`` GB on
+   them: every row trained (``trainedRows``, ``trainedOnSample`` false)
+   through the built C++ booster, accuracy above 0.95, the job's
+   ``tracemalloc`` peak under 1 GiB, ``fitTime``; (c) the first 200,000
+   rows through the core and through the Python path (``LO_NATIVE=0``):
+   equal stored columns, µs a row each; a rare-match query GET over the
+   10M rows equal to numpy's page of the written values, with the
+   per-row loop's seconds on the head; (d) the label's histogram over
+   10M rows equal to ``numpy.unique``'s counts, both paths' seconds on
+   the head; (e) ``gather_rows`` bit-equal to fancy indexing on a
+   float32 matrix of ResNet-50's input width; no flash kernel launches.
 
 The kernel launch counts are zeroed just before each path and read
 just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
 keras``, ``--only fusion``, ``--only ckptAsync``, ``--only function``,
-``--only transform``, ``--only builder``, ``--only lifecycle``,
-``--only observe``, ``--only featurePlane``, or several, comma-separated)
+``--only transform``, ``--only builder``, ``--only ingest``, ``--only
+lifecycle``, ``--only observe``, ``--only featurePlane``, or several,
+comma-separated)
 builds the kernels
 and runs that phase alone (to iterate on it), printing its line and no
 result line.
@@ -5720,23 +5735,18 @@ def builder_phase(torch, log, home, yard):
     fit and back within 1 MiB after), accuracy above 0.6; the sklearn
     families finish, or each fails naming its ``ImportError``. (b) LR and
     NB at 1M rows of 16 features and 4 classes on the card against the
-    port's CPU fit of the same rows. (c) BASELINE config 4: streaming GB
-    over 10M rows x 5 features through the built C++ booster, every row
-    trained, the job's ``tracemalloc`` peak under 1 GiB. (d) The model
-    preflight: a stack that cannot build on its declared input is a 406
-    with ``shape-mismatch``, a good one a 201 whose ``/train`` job
-    carries the heuristic ``footprint``. (e) No flash kernel launches.
-    Returns the path's kernel launches (none)."""
-    import tracemalloc
-
+    port's CPU fit of the same rows. (BASELINE config 4, formerly (c),
+    is the ``ingest`` phase's.) (d) The model preflight: a stack that
+    cannot build on its declared input is a 406 with ``shape-mismatch``,
+    a good one a 201 whose ``/train`` job carries the heuristic
+    ``footprint``. (e) No flash kernel launches. Returns the path's
+    kernel launches (none)."""
     import numpy as np
 
     from learningorchestra_tpu_torch import client as lo_client
-    from learningorchestra_tpu_torch import native
     from learningorchestra_tpu_torch.config import Config
     from learningorchestra_tpu_torch.models.estimators import (
         GaussianNBJAX, LogisticRegressionJAX)
-    from learningorchestra_tpu_torch.native import hgb
     from learningorchestra_tpu_torch.ops import attention as attn
     from learningorchestra_tpu_torch.runtime import arena as arena_lib
     from learningorchestra_tpu_torch.services import builder_service
@@ -5744,32 +5754,21 @@ def builder_phase(torch, log, home, yard):
     from learningorchestra_tpu_torch.services.server import RestServer
 
     phase_t0 = time.monotonic()
-    if native.get_lib() is None:
-        raise AssertionError(f"the booster core did not build: "
-                             f"{native.BUILD_ERROR}")
     ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
                          device="cuda")
     server = RestServer(port=0, context=ctx).start()
     client = lo_client.Context(server.base_url)
     base = server.base_url
     out: dict = {}
-    # the estimators the jobs build, and whether each booster fit ran
-    # the C++ core
-    made, native_fits = [], []
+    # the estimators the jobs build
+    made = []
     make_torch = builder_service._make_torch_classifier
-    fit_binned = hgb.HistGB.fit_binned
 
     def recorded_make(name, device):
         made.append(make_torch(name, device))
         return made[-1]
 
-    def recorded_fit(self, codes, y):
-        result = fit_binned(self, codes, y)
-        native_fits.append(self._model is not None)
-        return result
-
     builder_service._make_torch_classifier = recorded_make
-    hgb.HistGB.fit_binned = recorded_fit
     _reset_launches(attn)
 
     def run(train, test, code, classifiers, **extra):
@@ -5901,44 +5900,6 @@ def builder_phase(torch, log, home, yard):
             raise AssertionError(f"card NB vs CPU: {wide['nb']}")
         del x, y, xt, yt, cpu_lr, cpu_nb, card, card_nb, predictions
 
-        # (c) BASELINE config 4: streaming GB over 10M rows
-        t0 = time.monotonic()
-        _write_dataset(ctx, "b4train",
-                       _baseline4_chunks(np, BASELINE4_ROWS, seed=21))
-        _write_dataset(ctx, "b4test",
-                       _baseline4_chunks(np, BASELINE4_SIDE_ROWS, seed=22))
-        _write_dataset(ctx, "b4eval",
-                       _baseline4_chunks(np, BASELINE4_SIDE_ROWS, seed=23))
-        write_seconds = time.monotonic() - t0
-        gc.collect()
-        tracemalloc.start()
-        names, metas, seconds = run("b4train", "b4test", "", ["GB"],
-                                    streaming=True,
-                                    evaluationDatasetName="b4eval")
-        traced_peak = tracemalloc.get_traced_memory()[1]
-        tracemalloc.stop()
-        meta = metas["GB"]
-        baseline4 = {
-            "rows": BASELINE4_ROWS, "writeSeconds": write_seconds,
-            "jobSeconds": seconds, "fitTime": meta.get("fitTime"),
-            "trainedRows": meta.get("trainedRows"),
-            "trainedOnSample": meta.get("trainedOnSample"),
-            "accuracy": meta.get("accuracy"), "f1": meta.get("f1"),
-            "booster": meta.get("booster"), "native": native_fits == [True],
-            "tracemallocPeakBytes": traced_peak,
-            "outputRows": ctx.catalog.count_rows(names[0])}
-        out["baseline4"] = baseline4
-        if not meta.get("finished") or \
-                meta.get("trainedRows") != BASELINE4_ROWS or \
-                meta.get("trainedOnSample") is not False or \
-                native_fits != [True] or \
-                not meta.get("accuracy", 0) > BASELINE4_MIN_ACCURACY or \
-                traced_peak >= BASELINE4_PEAK_BYTES or \
-                baseline4["outputRows"] != BASELINE4_SIDE_ROWS:
-            raise AssertionError(f"BASELINE config 4: {baseline4}")
-        for name in ("b4train", "b4test", "b4eval", names[0]):
-            ctx.catalog.delete_collection(name)
-
         # (d) the model preflight over HTTP
         bad = {"modelName": "pf_bad",
                "modulePath": "learningorchestra_tpu.models",
@@ -5972,7 +5933,6 @@ def builder_phase(torch, log, home, yard):
                             "footprint": footprint}
     finally:
         builder_service._make_torch_classifier = make_torch
-        hgb.HistGB.fit_binned = fit_binned
         server.stop()
     # (e) nothing on this path launches a flash kernel
     launches = _launches(attn)
@@ -5981,6 +5941,444 @@ def builder_phase(torch, log, home, yard):
     out["phaseSeconds"] = time.monotonic() - phase_t0
     log.append("builder " + json.dumps(out))
     return {"builder": launches}
+
+# BASELINE config 4 as CSV files (the ingest phase): the features of
+# _baseline4_chunks rounded to INGEST_DECIMALS and written as fixed-point
+# text, the label the sign of the margin of the rounded features
+INGEST_DECIMALS = 6
+INGEST_HEAD_ROWS = 200_000
+INGEST_QUERY = {"f0": {"$gt": 4.2}}
+INGEST_QUERY_SKIP, INGEST_QUERY_LIMIT = 5, 20
+INGEST_RSS_BYTES = 1 << 30
+# (e) a batch of 256 rows of ResNet-50's input width (224 x 224 x 3
+# float32) gathered from 1024
+GATHER_ROWS, GATHER_WIDTH, GATHER_BATCH = 1024, 224 * 224 * 3, 256
+
+
+def _fixed_point_rows(np, k, label) -> "np.ndarray":
+    """CSV text of rows ``k / 10**INGEST_DECIMALS`` (an int64 matrix,
+    each |value| < 10) as ``-d.dddddd`` fields and an int label: a
+    fixed-width byte matrix with a sign slot a field, filled digit by
+    digit, then the slots of the non-negative values dropped."""
+    n, m = k.shape
+    a = np.abs(k)
+    if a.max(initial=0) >= 10 ** (INGEST_DECIMALS + 1):
+        raise AssertionError("a feature of 10 or more")
+    a = np.ascontiguousarray(a.T, np.uint32)
+    # sign, units, point, the decimals, comma; filled a column at a time
+    # (rows of the transposed matrix), then laid out row by row
+    field = 4 + INGEST_DECIMALS
+    text = np.empty((field * m + 2, n), np.uint8)
+    keep = np.ones(text.shape, bool)
+    for j in range(m):
+        o = j * field
+        text[o] = ord("-")
+        keep[o] = k[:, j] < 0
+        rest = a[j]
+        for d in range(INGEST_DECIMALS, 0, -1):
+            rest, digit = np.divmod(rest, 10)
+            text[o + 2 + d] = digit
+        text[o + 1] = rest
+        text[o + 1:o + 3 + INGEST_DECIMALS] += ord("0")
+        text[o + 2] = ord(".")
+        text[o + 3 + INGEST_DECIMALS] = ord(",")
+    text[-2] = label + ord("0")
+    text[-1] = ord("\n")
+    return text.T[keep.T]
+
+
+def _baseline4_rounded(np, rows: int, seed: int):
+    """``_baseline4_chunks``' features rounded to INGEST_DECIMALS, as
+    ``(k, label)``: the int64 numerators and the label of the rounded
+    margin, a chunk at a time."""
+    w = np.asarray(BASELINE4_WEIGHTS)
+    for columns in _baseline4_chunks(np, rows, seed):
+        x = np.stack([columns[f"f{i}"] for i in range(len(w))], 1)
+        k = np.rint(x * 10 ** INGEST_DECIMALS).astype(np.int64)
+        yield k, (k / 10 ** INGEST_DECIMALS @ w > 0).astype(np.int64)
+
+
+def _write_baseline4_csv(np, path: str, rows: int, seed: int) -> dict:
+    """Config 4's rows as a CSV file: its bytes, the label counts, the
+    rows that match INGEST_QUERY (``{row: (k, label)}``) and the chunks
+    written (``[(k, label)]``)."""
+    labels = np.zeros(2, np.int64)
+    matches, start, written = {}, 0, []
+    column, bound = next(iter(INGEST_QUERY.items()))
+    with open(path, "wb") as f:
+        f.write(b"f0,f1,f2,f3,f4,label\n")
+        for k, label in _baseline4_rounded(np, rows, seed):
+            written.append((k, label))
+            _fixed_point_rows(np, k, label).tofile(f)
+            labels += np.bincount(label, minlength=2)
+            hit = np.flatnonzero(k[:, int(column[1:])] / 10 **
+                                 INGEST_DECIMALS > bound["$gt"])
+            matches.update({start + int(i): (k[i], int(label[i]))
+                            for i in hit})
+            start += len(k)
+    return {"bytes": os.path.getsize(path), "labels": labels,
+            "matches": matches, "written": written}
+
+
+class _RssPeak:
+    """The resident set's peak growth over a ``with`` block, from
+    ``/proc/self/statm`` sampled on a thread every 2 ms."""
+
+    def __enter__(self):
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self.start = self.peak = self._rss()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _sample(self) -> None:
+        while not self._stop.wait(0.002):
+            self.peak = max(self.peak, self._rss())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
+        self.growth = self.peak - self.start
+
+
+def _stored(ctx, name: str) -> dict:
+    """``{column: (kind, memory-mapped data, null mask)}`` of a dataset."""
+    return {col: (kind, data, mask) for col, kind, data, mask
+            in ctx.catalog._generation(name)[1]}
+
+
+def ingest_phase(torch, log, home, yard):
+    """BASELINE config 4 ingested as a real CSV over REST (the ``ingest``
+    line). (a) ``b4train`` (10,000,000 rows), ``b4test`` and ``b4eval``
+    (100,000 each) written as CSV files (``_baseline4_chunks``' features,
+    seeds 21/22/23, rounded to six decimals as fixed-point text; the label
+    the sign of the rounded margin) and ``POST /dataset/csv``: every row
+    through the port's C++ core (its build error None, no row on the
+    Python path), five float64 columns and an int64 label, every stored
+    value bit-equal to ``k / 1e6`` and the labels written; seconds, rows/s
+    and MB/s of the big one, and the peak growth of resident memory over
+    it under 1 GiB. (b) Streaming GB on them: every row trained through
+    the built C++ booster, accuracy above 0.95, the job's ``tracemalloc``
+    peak under 1 GiB. (c) The first 200,000 rows through the core and
+    through the Python path (``LO_NATIVE=0``): equal stored columns, µs a
+    row each; a rare-match query GET over ``b4train`` equal to numpy's
+    page of the written values, its seconds, and the per-row path's on
+    the head. (d) The histogram of ``label`` over 10M rows equal to
+    ``numpy.unique``'s counts; its seconds, and both paths' on the head.
+    (e) ``gather_rows`` bit-equal to fancy indexing on a float32 matrix
+    of ResNet-50's input width. Returns the path's kernel launches
+    (none)."""
+    import tracemalloc
+    import urllib.parse
+
+    import numpy as np
+
+    from learningorchestra_tpu_torch import client as lo_client
+    from learningorchestra_tpu_torch import native
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.native import hgb, ops
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    phase_t0 = time.monotonic()
+    for core in (native.HGB, native.CSV):
+        if native.get_lib(core) is None or native.build_error(core):
+            raise AssertionError(f"the {core} core did not build: "
+                                 f"{native.build_error(core)}")
+    ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
+                         device="cuda")
+    server = RestServer(port=0, context=ctx).start()
+    client = lo_client.Context(server.base_url)
+    base = server.base_url
+    out: dict = {}
+    native_fits = []
+    fit_binned = hgb.HistGB.fit_binned
+
+    def recorded_fit(self, codes, y):
+        result = fit_binned(self, codes, y)
+        native_fits.append(self._model is not None)
+        return result
+
+    hgb.HistGB.fit_binned = recorded_fit
+    _reset_launches(attn)
+
+    def ingest(name, path):
+        t0 = time.monotonic()
+        client.dataset_csv.insert(name, path)
+        ctx.jobs.wait(name, timeout=900)
+        seconds = time.monotonic() - t0
+        meta = client.dataset_csv.metadata(name)
+        if not meta.get("finished"):
+            raise AssertionError(f"ingest {name}: {meta}, "
+                                 f"{client.dataset_csv.read(name)}")
+        return meta, seconds
+
+    def check_stored(name, rows, written):
+        stored = _stored(ctx, name)
+        kinds = [stored[c][0] for c in stored]
+        if list(stored) != ["f0", "f1", "f2", "f3", "f4", "label"] or \
+                kinds != ["float64"] * 5 + ["int64"] or \
+                any(m is not None for _, _, m in stored.values()):
+            raise AssertionError(f"{name}: columns {list(stored)}, kinds "
+                                 f"{kinds}")
+        start = 0
+        for k, label in written:
+            stop = start + len(k)
+            want = k / 10 ** INGEST_DECIMALS
+            for j in range(5):
+                got = np.asarray(stored[f"f{j}"][1][start:stop])
+                if not np.array_equal(got.view(np.int64),
+                                      want[:, j].view(np.int64)):
+                    raise AssertionError(f"{name}.f{j} rows {start}.."
+                                         f"{stop} differ from k / 1e6")
+            if not np.array_equal(stored["label"][1][start:stop], label):
+                raise AssertionError(f"{name}.label rows {start}..{stop}")
+            start = stop
+        if start != rows:
+            raise AssertionError(f"{name}: {start} rows checked")
+
+    def page(name, query, skip, limit):
+        params = urllib.parse.urlencode({"query": json.dumps(query),
+                                         "skip": skip, "limit": limit})
+        t0 = time.monotonic()
+        status, body = _http(base, "GET", f"/dataset/csv/{name}?{params}")
+        return status, body, time.monotonic() - t0
+
+    try:
+        # (a) the CSVs through POST /dataset/csv, every row in the core
+        t0 = time.monotonic()
+        sizes = {("b4train", BASELINE4_ROWS, 21): None,
+                 ("b4test", BASELINE4_SIDE_ROWS, 22): None,
+                 ("b4eval", BASELINE4_SIDE_ROWS, 23): None}
+        for key in sizes:
+            sizes[key] = _write_baseline4_csv(
+                np, os.path.join(home, f"{key[0]}.csv"), key[1], key[2])
+        write_seconds = time.monotonic() - t0
+        train = sizes[("b4train", BASELINE4_ROWS, 21)]
+        train_path = os.path.join(home, "b4train.csv")
+        # the first INGEST_HEAD_ROWS rows, for (c)
+        head_path = os.path.join(home, "b4head.csv")
+        with open(train_path, "rb") as f, open(head_path, "wb") as g:
+            for _ in range(INGEST_HEAD_ROWS + 1):
+                g.write(f.readline())
+        ops.reset_counts()
+        gc.collect()
+        with _RssPeak() as rss:
+            meta, ingest_seconds = ingest("b4train", train_path)
+        for name in ("b4test", "b4eval"):
+            ingest(name, os.path.join(home, f"{name}.csv"))
+        counts = ops.counts()
+        total = BASELINE4_ROWS + 2 * BASELINE4_SIDE_ROWS
+        native_rows = counts.get("parse_csv", {}).get("native", {}).get(
+            "rows")
+        ingest_out = {
+            "rows": meta.get("rows"), "fields": meta.get("fields"),
+            "csvBytes": train["bytes"], "csvWriteSeconds": write_seconds,
+            "ingestSeconds": ingest_seconds,
+            "rowsPerSecond": BASELINE4_ROWS / ingest_seconds,
+            "megabytesPerSecond": train["bytes"] / 1e6 / ingest_seconds,
+            "rssGrowthBytes": rss.growth, "rssStartBytes": rss.start,
+            "coreCounts": counts}
+        out["ingest"] = ingest_out
+        if meta.get("rows") != BASELINE4_ROWS or native_rows != total or \
+                "python" in counts.get("parse_csv", {}) or \
+                "deferredCells" in counts or \
+                "ingestDelegated" in counts:
+            raise AssertionError(f"(a) not every row through the core: "
+                                 f"{ingest_out}")
+        if rss.growth >= INGEST_RSS_BYTES:
+            raise AssertionError(f"(a) resident memory grew "
+                                 f"{rss.growth} bytes over the ingest")
+        for (name, rows, _), info in sizes.items():
+            os.remove(os.path.join(home, f"{name}.csv"))
+            check_stored(name, rows, info.pop("written"))
+
+        # (b) BASELINE config 4's streaming GB on the ingested datasets
+        gc.collect()
+        tracemalloc.start()
+        t0 = time.monotonic()
+        uris = client.builder_sparkml.run_builder(
+            "b4train", "b4test", "", ["GB"], streaming=True,
+            evaluationDatasetName="b4eval")
+        gb_name = uris[0].rsplit("/", 1)[1]
+        ctx.jobs.wait(gb_name, timeout=900)
+        seconds = time.monotonic() - t0
+        traced_peak = tracemalloc.get_traced_memory()[1]
+        tracemalloc.stop()
+        meta = client.builder_sparkml.metadata(gb_name)
+        baseline4 = {
+            "rows": BASELINE4_ROWS, "jobSeconds": seconds,
+            "fitTime": meta.get("fitTime"),
+            "trainedRows": meta.get("trainedRows"),
+            "trainedOnSample": meta.get("trainedOnSample"),
+            "accuracy": meta.get("accuracy"), "f1": meta.get("f1"),
+            "booster": meta.get("booster"), "native": native_fits == [True],
+            "tracemallocPeakBytes": traced_peak,
+            "outputRows": ctx.catalog.count_rows(gb_name)}
+        out["baseline4"] = baseline4
+        if not meta.get("finished") or \
+                meta.get("trainedRows") != BASELINE4_ROWS or \
+                meta.get("trainedOnSample") is not False or \
+                native_fits != [True] or \
+                not meta.get("accuracy", 0) > BASELINE4_MIN_ACCURACY or \
+                traced_peak >= BASELINE4_PEAK_BYTES or \
+                baseline4["outputRows"] != BASELINE4_SIDE_ROWS:
+            raise AssertionError(f"BASELINE config 4: {baseline4}")
+        for name in ("b4test", "b4eval", gb_name):
+            ctx.catalog.delete_collection(name)
+
+        # (c) the head through both paths; the query over 10M rows
+        head = {}
+        for name, env in (("b4head", None), ("b4headPy", "0")):
+            if env is not None:
+                os.environ["LO_NATIVE"] = env
+            try:
+                ops.reset_counts()
+                _, seconds = ingest(name, head_path)
+            finally:
+                os.environ.pop("LO_NATIVE", None)
+            path = "python" if env else "native"
+            rows = ops.counts().get("parse_csv", {}).get(path, {}).get(
+                "rows")
+            if rows != INGEST_HEAD_ROWS:
+                raise AssertionError(f"(c) {name}: {ops.counts()}")
+            head[path] = {"seconds": seconds,
+                          "usPerRow": seconds / INGEST_HEAD_ROWS * 1e6}
+        core_cols, py_cols = _stored(ctx, "b4head"), _stored(ctx, "b4headPy")
+        head["storedEqual"] = list(core_cols) == list(py_cols) and all(
+            core_cols[c][0] == py_cols[c][0]
+            and core_cols[c][1].dtype == py_cols[c][1].dtype
+            and np.array_equal(np.asarray(core_cols[c][1]).view(np.uint8),
+                               np.asarray(py_cols[c][1]).view(np.uint8))
+            for c in core_cols)
+        head["coreSpeedup"] = head["python"]["seconds"] / \
+            head["native"]["seconds"]
+        out["head"] = head
+        if not head["storedEqual"]:
+            raise AssertionError("(c) the paths stored different columns")
+        ordered = sorted(train["matches"])
+        picked = ordered[INGEST_QUERY_SKIP:
+                         INGEST_QUERY_SKIP + INGEST_QUERY_LIMIT]
+        want = []
+        for row in picked:
+            k, label = train["matches"][row]
+            doc = {f"f{j}": float(k[j] / 10 ** INGEST_DECIMALS)
+                   for j in range(5)}
+            doc["label"] = label
+            doc["_id"] = row + 1
+            want.append(doc)
+        ops.reset_counts()
+        status, body, query_seconds = page(
+            "b4train", INGEST_QUERY, INGEST_QUERY_SKIP, INGEST_QUERY_LIMIT)
+        query_counts = ops.counts().get("filter_mask", {})
+        # the head through the mask and through the per-row loop
+        head_query = {}
+        for path in ("native", "perRow"):
+            real = ops.filter_mask
+            if path == "perRow":
+                ops.filter_mask = lambda *a, **k: None
+            try:
+                t0 = time.monotonic()
+                got = ctx.catalog.read_entries(
+                    "b4head", skip=INGEST_QUERY_SKIP,
+                    limit=INGEST_QUERY_LIMIT, query=INGEST_QUERY)
+                head_query[path] = {"seconds": time.monotonic() - t0,
+                                    "page": got}
+            finally:
+                ops.filter_mask = real
+        query = {"matches": len(ordered), "status": status,
+                 "seconds": query_seconds,
+                 "pageEqualsNumpy": body.get("result") == want,
+                 "maskRows": query_counts,
+                 "headMaskSeconds": head_query["native"]["seconds"],
+                 "headPerRowSeconds": head_query["perRow"]["seconds"],
+                 "headPagesEqual": head_query["native"]["page"] ==
+                 head_query["perRow"]["page"]}
+        out["query"] = query
+        if status != 200 or not query["pageEqualsNumpy"] or \
+                not query["headPagesEqual"] or \
+                query_counts.get("native", {}).get("rows", 0) < 1 or \
+                len(picked) != INGEST_QUERY_LIMIT:
+            raise AssertionError(f"(c) the query: {query}, "
+                                 f"{body.get('result')} != {want}")
+
+        # (d) the label histogram over 10M rows, and the head both ways
+        def histogram(name, out_name):
+            t0 = time.monotonic()
+            client.explore_histogram.run_histogram(name, out_name,
+                                                   ["label"])
+            ctx.jobs.wait(out_name, timeout=900)
+            seconds = time.monotonic() - t0
+            docs = client.explore_histogram.read(out_name)["result"]
+            buckets = [d for d in docs if "label" in d]
+            return (buckets[0]["label"] if buckets else docs), seconds
+
+        ops.reset_counts()
+        buckets, hist_seconds = histogram("b4train", "b4hist")
+        hist_counts = ops.counts().get("value_counts", {})
+        head_hist = {}
+        for name, env in (("b4head", None), ("b4headPy", "0")):
+            if env is not None:
+                os.environ["LO_NATIVE"] = env
+            try:
+                head_hist[env or "1"] = histogram(name, name + "Hist")
+            finally:
+                os.environ.pop("LO_NATIVE", None)
+        hist = {"buckets": buckets, "seconds": hist_seconds,
+                "coreRows": hist_counts,
+                "headCoreSeconds": head_hist["1"][1],
+                "headPythonSeconds": head_hist["0"][1],
+                "headEqual": head_hist["1"][0] == head_hist["0"][0]}
+        out["histogram"] = hist
+        want_buckets = sorted(zip([0, 1], train["labels"].tolist()))
+        if sorted((b["_id"], b["count"]) for b in buckets) != \
+                [(v, c) for v, c in want_buckets if c] or \
+                hist_counts.get("native", {}).get("rows") != \
+                BASELINE4_ROWS or not hist["headEqual"]:
+            raise AssertionError(f"(d) the histogram: {hist}")
+
+        # (e) the batch gather at ResNet-50's input width
+        rng = np.random.default_rng(5)
+        src = rng.random((GATHER_ROWS, GATHER_WIDTH), dtype=np.float32)
+        idx = rng.integers(0, GATHER_ROWS, GATHER_BATCH)
+        ops.reset_counts()
+        gathered = ops.gather_rows(src, idx)
+        core_calls = ops.counts().get("gather_rows", {}).get(
+            "native", {}).get("calls")
+        times = {"core": [], "numpy": []}
+        for _ in range(5):
+            for key, fn in (("core", lambda: ops.gather_rows(src, idx)),
+                            ("numpy", lambda: src[idx])):
+                t0 = time.perf_counter()
+                fn()
+                times[key].append((time.perf_counter() - t0) * 1e3)
+        gather = {"shape": [GATHER_BATCH, GATHER_WIDTH],
+                  "bitEqual": bool(np.array_equal(
+                      gathered.view(np.uint32), src[idx].view(np.uint32))),
+                  "coreCalls": core_calls, "coreMs": min(times["core"]),
+                  "numpyMs": min(times["numpy"])}
+        out["gather"] = gather
+        del src, gathered
+        if not gather["bitEqual"] or core_calls != 1:
+            raise AssertionError(f"(e) the gather: {gather}")
+    finally:
+        hgb.HistGB.fit_binned = fit_binned
+        server.stop()
+        ctx.close()
+    launches = _launches(attn)
+    if any(launches.values()):
+        raise AssertionError(f"the ingest path launched {launches}")
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("ingest " + json.dumps(out))
+    return {"ingest": launches}
+
 
 def _lm_job(base, name, params, timeout=None):
     body = {"name": name, "modelName": "lm", "method": "fit",
@@ -6858,6 +7256,9 @@ def observe_phase(torch, log, home, yard):
 # the feature plane (the featurePlane line): (c)'s Builder on the
 # builder phase's wide shape, (e)'s and (f)'s arena budget, (g)'s child
 FP_WIDE_MODELING = WIDE_MODELING
+# (c)'s rows: hits, misses and equal predictions do not depend on the
+# size, and the builder phase keeps the card's 1M-row LR/NB
+FP_BUILDER_ROWS = 250_000
 FP_CANCEL_AT_STEP = 5
 # optimizer steps in a profiled epoch: the LM's (2 steps, as the train
 # phase's window), the CNN's 8 times as many
@@ -7076,7 +7477,7 @@ def feature_plane_phase(torch, log, home, yard):
     through those feeds and a copy in each step: losses within 1e-5
     relative (bit equality recorded), step time, samples/s and idle share
     each; ResNet-50 through the three feeds, ms a step. (c) Builder LR with
-    ``meshParallel`` on 1M x 16 rows, twice on the same versions: the
+    ``meshParallel`` on 250,000 x 16 rows, twice on the same versions: the
     second run hits the arena and the feature cache for both datasets,
     reads no table from the catalog and predicts the same; a write to the
     training dataset, and the next run misses, stages again and the old
@@ -7244,10 +7645,11 @@ def feature_plane_phase(torch, log, home, yard):
     ctx.catalog.read_table = counted_read
     m0 = (ctx.features.stats(), arena.stats())
     try:
-        # (c) Builder LR on 1M x 16 rows: cold, warm, then a write
+        # (c) Builder LR on 250,000 x 16 rows: cold, warm, then a write
         xw, yw = _wide_data(np, WIDE_ROWS, seed=11)
         xt, yt = _wide_data(np, WIDE_TEST_ROWS, seed=12)
-        for name, (xs, ys) in (("fpWide", (xw, yw)),
+        xb, yb = xw[:FP_BUILDER_ROWS], yw[:FP_BUILDER_ROWS]
+        for name, (xs, ys) in (("fpWide", (xb, yb)),
                                ("fpWideTest", (xt, yt))):
             columns = {f"f{i}": xs[:, i] for i in range(WIDE_FEATURES)}
             columns["label"] = ys
@@ -7293,10 +7695,10 @@ def feature_plane_phase(torch, log, home, yard):
         if not warm["predictionsEqual"]:
             raise AssertionError("(c) warm predictions differ from cold")
         # a write to the training dataset: the labels of its first rows
-        flipped = yw.copy()
+        flipped = yb.copy()
         flipped[:1000] = (flipped[:1000] + 1) % WIDE_CLASSES
         with ctx.catalog.dataset_writer("fpWide") as w:
-            w.write_batch(dict({f"f{i}": xw[:, i]
+            w.write_batch(dict({f"f{i}": xb[:, i]
                                 for i in range(WIDE_FEATURES)},
                                label=flipped))
         written, _ = builder_run("written")
@@ -7311,7 +7713,8 @@ def feature_plane_phase(torch, log, home, yard):
         if paths["featurePlaneBuilder"] != zero:
             raise AssertionError(f"(c) launched "
                                  f"{paths['featurePlaneBuilder']}")
-        out["builder"] = {"rows": WIDE_ROWS, "features": WIDE_FEATURES,
+        out["builder"] = {"rows": FP_BUILDER_ROWS,
+                          "features": WIDE_FEATURES,
                           "cold": cold, "warm": warm, "written": written}
         part_s["builder"] = time.monotonic() - t_part
         t_part = time.monotonic()
@@ -7532,6 +7935,17 @@ def _phase_home():
     return tempfile.TemporaryDirectory(ignore_cleanup_errors=True)
 
 
+def _walled(walls: dict, fn):
+    """``fn``, adding its wall seconds to ``walls`` under its name."""
+    def run(*args):
+        t0 = time.monotonic()
+        try:
+            return fn(*args)
+        finally:
+            walls[fn.__name__] = time.monotonic() - t0
+    return run
+
+
 def main() -> int:
     try:
         import torch
@@ -7569,6 +7983,10 @@ def main() -> int:
         return 1
 
     log: list = []
+    # each phase's wall seconds (the ``walls`` line)
+    walls: dict = {}
+    for name in [n for n in globals() if n.endswith("_phase")]:
+        globals()[name] = _walled(walls, globals()[name])
     if "--only" in sys.argv:
         # iteration aid: the build, then the named self-contained phases
         # alone; no kernels line and no result line
@@ -7576,6 +7994,7 @@ def main() -> int:
                   "fusion": fusion_phase, "ckptAsync": ckpt_async_phase,
                   "function": function_phase,
                   "transform": transform_phase, "builder": builder_phase,
+                  "ingest": ingest_phase,
                   "lifecycle": lifecycle_phase, "observe": observe_phase,
                   "featurePlane": feature_plane_phase}
         try:
@@ -7629,6 +8048,8 @@ def main() -> int:
         with _phase_home() as home:
             paths.update(builder_phase(torch, log, home, {}))
         with _phase_home() as home:
+            paths.update(ingest_phase(torch, log, home, {}))
+        with _phase_home() as home:
             paths.update(lifecycle_phase(torch, log, home, {}))
         with _phase_home() as home:
             paths.update(observe_phase(torch, log, home, {}))
@@ -7675,6 +8096,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}))
     for line in log:
         print(line)
+    print("walls " + json.dumps(walls))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -35,6 +35,7 @@ import numpy as np
 
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.catalog.artifacts import validate_safe_name
+from learningorchestra_tpu_torch.native import ops
 from learningorchestra_tpu_torch.runtime import locks
 
 _SCHEMA = """
@@ -61,6 +62,8 @@ CREATE INDEX IF NOT EXISTS idx_collections_type ON collections(type);
 _SCHEMA_FILE = "schema.json"
 # rows turned into documents at a time by a queried read
 _READ_BLOCK = 4096
+# rows a queried read's keep-mask covers at a time
+_MASK_BLOCK = 1 << 20
 
 
 class CollectionExists(Exception):
@@ -475,23 +478,49 @@ class Catalog:
                    for c in wanted}
 
     @staticmethod
-    def _row_documents(columns, start: int, stop: int,
-                       ) -> List[Dict[str, Any]]:
-        """Rows ``start..stop`` as documents with ``_id`` (rows count
-        from 1, as the reference numbers them)."""
+    def _row_documents(columns, rows: np.ndarray) -> List[Dict[str, Any]]:
+        """The documents of ``rows`` (0-based, ascending) with ``_id``
+        (rows count from 1, as the reference numbers them)."""
         lists = []
         for col, _, data, mask in columns:
-            values = np.asarray(data[start:stop]).tolist()
+            values = np.asarray(data[rows]).tolist()
             if mask is not None:
-                for i in np.flatnonzero(mask[start:stop]).tolist():
+                for i in np.flatnonzero(mask[rows]).tolist():
                     values[i] = None
             lists.append((col, values))
-        rows = []
-        for i in range(stop - start):
-            row = {col: values[i] for col, values in lists}
-            row[D.ID] = start + i + 1
-            rows.append(row)
-        return rows
+        out = []
+        for i, row in enumerate(rows.tolist()):
+            doc = {col: values[i] for col, values in lists}
+            doc[D.ID] = row + 1
+            out.append(doc)
+        return out
+
+    @staticmethod
+    def _query_matches(columns, n: int, query: Dict[str, Any], skip: int,
+                       limit: Optional[int]) -> Optional[np.ndarray]:
+        """The 0-based rows that match ``query``, through the core's
+        keep-mask a block at a time, up to the first ``skip + limit``
+        (all when ``limit`` is 0 or None); None where the mask does not
+        take the query (the per-row loop does)."""
+        data = {col: values for col, _, values, _ in columns}
+        nulls = {col: mask for col, _, _, mask in columns}
+        want = skip + limit if limit else None
+        found: List[np.ndarray] = []
+        total = 0
+        for start in range(0, max(n, 1), _MASK_BLOCK):
+            stop = min(n, start + _MASK_BLOCK)
+            mask = ops.filter_mask(
+                {c: v[start:stop] for c, v in data.items() if c in query},
+                query, {c: None if m is None else m[start:stop]
+                        for c, m in nulls.items() if c in query})
+            if mask is None:
+                return None
+            rows = np.flatnonzero(mask) + start
+            found.append(rows)
+            total += len(rows)
+            if want is not None and total >= want:
+                break
+        return np.concatenate(found) if found else np.empty(0, np.int64)
 
     def read_rows(self, name: str, skip: int = 0,
                   limit: Optional[int] = None,
@@ -515,12 +544,18 @@ class Catalog:
         if query is None:
             start = min(skip, n)
             stop = n if not limit else min(n, start + limit)
-            return self._row_documents(columns, start, stop), start
+            return self._row_documents(columns,
+                                       np.arange(start, stop)), start
+        found = self._query_matches(columns, n, query, skip, limit)
+        if found is not None:
+            take = found[skip:] if not limit else found[skip:skip + limit]
+            return self._row_documents(columns, take), \
+                min(skip, len(found))
         out: List[Dict[str, Any]] = []
         skipped = 0
         for start in range(0, n, _READ_BLOCK):
             for row in self._row_documents(
-                    columns, start, min(n, start + _READ_BLOCK)):
+                    columns, np.arange(start, min(n, start + _READ_BLOCK))):
                 if not D.matches_query(row, query):
                     continue
                 if skipped < skip:

@@ -20,6 +20,8 @@ from typing import Any, Dict, Iterable, Iterator, Optional, Sequence
 
 import numpy as np
 
+from learningorchestra_tpu_torch.native import ops
+
 MASK_KEY = "__sample_weight__"
 
 
@@ -117,7 +119,7 @@ class ArrayBatcher:
             pad = bs - len(idx)
             batch = {}
             for key, arr in self._arrays.items():
-                take = arr[idx]
+                take = ops.gather_rows(arr, idx)
                 if pad:
                     take = np.concatenate(
                         [take, np.zeros((pad,) + arr.shape[1:], arr.dtype)])

@@ -31,6 +31,7 @@ import numpy as np
 
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.config import API_PREFIX
+from learningorchestra_tpu_torch.native import ops
 from learningorchestra_tpu_torch.services import validators as V
 
 INPUT_FIELD = "inputDatasetName"
@@ -46,22 +47,10 @@ NUMBER_TYPE = "number"
 _INT_TEXT = re.compile(r"^\s*[+-]?\d+\s*$")
 
 
-def value_counts(data: np.ndarray,
-                 mask: Optional[np.ndarray]) -> List[Tuple[Any, int]]:
-    """``(value, count)`` of a column in the order of each value's first
-    row; nulls count as one ``None`` value and NaNs as one NaN."""
-    rows = np.arange(len(data))
-    present = rows if mask is None else rows[~mask]
-    items = []
-    if len(present):
-        values, first, counts = np.unique(data[present], return_index=True,
-                                          return_counts=True)
-        items = list(zip(present[first].tolist(), values.tolist(),
-                         counts.tolist()))
-    if mask is not None and mask.any():
-        items.append((int(np.argmax(mask)), None, int(mask.sum())))
-    items.sort(key=lambda item: item[0])
-    return [(value, count) for _, value, count in items]
+# ``(value, count)`` of a column in the order of each value's first row;
+# nulls count as one ``None`` value and NaNs as one NaN (the C++ core's
+# hash counts, or np.unique where the core is off)
+value_counts = ops.value_counts
 
 
 def _is_null(value: Any) -> bool:

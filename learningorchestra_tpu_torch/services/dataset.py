@@ -3,14 +3,19 @@ package's ``services/dataset.py`` serves them.
 
 - ``POST /dataset/csv`` with ``datasetName`` and ``datasetURI`` (an
   ``http(s)://`` URL, a local path or a ``file://`` URI) ingests on a
-  job: the bytes stream in through ``urllib`` (never held whole), the
-  standard ``csv`` module parses, and each column's kind is inferred
-  from its first
-  chunk of rows as pyarrow's CSV reader infers it for these kinds:
-  int64, else float64, else bool (``1``/``0`` and ``true``/``false`` in
-  three spellings), else string. An empty cell (or another of pyarrow's
-  null spellings) is a null in a column of another kind and stays text
-  in a string column; a column of nulls only is null throughout.
+  job: the bytes stream in (never held whole), a chunk of
+  ``_CHUNK_ROWS`` records at a time, and each column's kind is inferred
+  from the first chunk as pyarrow's CSV reader infers it for these
+  kinds: int64, else bool (``1``/``0`` and ``true``/``false`` in three
+  spellings), else float64, else string. An empty cell (or another of
+  pyarrow's null spellings) is a null in a column of another kind and
+  stays text in a string column; a column of nulls only is null
+  throughout. The port's C++ core (:mod:`..native.ops`) parses each
+  chunk while a thread reads the next; the standard ``csv`` module is
+  the Python path (``LO_NATIVE=0``, no ``g++``), and the reference: the
+  core gives the same columns and errors, and hands a file it cannot
+  read as ``csv.reader`` does (invalid UTF-8, a field over the size
+  limit) to that path whole.
 - ``POST /dataset/generic`` stores the bytes behind ``datasetURI`` as
   they are (an artifact named after the URI's last path segment; the
   metadata gets ``sizeBytes``).
@@ -26,80 +31,25 @@ import io
 import itertools
 import json
 import os
-import re
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
-import numpy as np
-
+from learningorchestra_tpu_torch import native
 from learningorchestra_tpu_torch.catalog import documents as D
+from learningorchestra_tpu_torch.native import ops
+from learningorchestra_tpu_torch.native.ops import convert, infer_kind
 from learningorchestra_tpu_torch.services import validators as V
 
 DATASET_NAME_FIELD = "datasetName"
 DATASET_URI_FIELD = "datasetURI"
 
 # rows per parsed chunk; the first chunk fixes each column's kind
-_CHUNK_ROWS = 65536
-# pyarrow's default null spellings and boolean spellings
-_NULLS = frozenset(("", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN",
-                    "-NaN", "-nan", "1.#IND", "1.#QNAN", "N/A", "NA", "NULL",
-                    "NaN", "n/a", "nan", "null"))
-_TRUE = frozenset(("1", "True", "TRUE", "true"))
-_FALSE = frozenset(("0", "False", "FALSE", "false"))
-_INT_RE = re.compile(r"^\s*-?\d+\s*$")
-
-
-def _is_int(text: str) -> bool:
-    return bool(_INT_RE.match(text)) and -2 ** 63 <= int(text) < 2 ** 63
-
-
-def _is_float(text: str) -> bool:
-    if "_" in text:
-        return False
-    try:
-        float(text)
-    except ValueError:
-        return False
-    return True
-
-
-def infer_kind(cells: List[str]) -> str:
-    """The kind pyarrow's CSV reader infers for a column of these
-    cells: ``null`` when every cell is a null spelling."""
-    present = [c for c in cells if c not in _NULLS]
-    if not present:
-        return "null"
-    if all(_is_int(c) for c in present):
-        return "int64"
-    if all(c in _TRUE or c in _FALSE for c in present):
-        return "bool"
-    if all(_is_float(c) for c in present):
-        return "float64"
-    return "string"
-
-
-def convert(kind: str, cells: List[str]):
-    """One column of cells as the writer stores it: a masked array of
-    ``kind`` (masked where null), or a string array."""
-    if kind == "string":
-        return np.array(cells, dtype=str)
-    mask = np.array([c in _NULLS for c in cells], bool)
-    if kind == "null":  # text where a later chunk has values
-        return np.ma.array(np.array(cells, dtype=str), mask=mask)
-    parse = {"int64": int, "float64": float,
-             "bool": lambda c: c in _TRUE}[kind]
-    check = {"int64": _is_int, "float64": _is_float,
-             "bool": lambda c: c in _TRUE or c in _FALSE}[kind]
-    values = []
-    for c, null in zip(cells, mask.tolist()):
-        if null:
-            values.append(0)
-        elif not check(c):
-            raise ValueError(f"CSV conversion error to {kind}: invalid "
-                             f"value {c!r}")
-        else:
-            values.append(parse(c))
-    return np.ma.array(np.array(values, dtype=kind), mask=mask)
-
+_CHUNK_ROWS = ops.CHUNK_ROWS
+# bytes the core path reads from the stream at a time
+_READ_BLOCK = 4 << 20
+# bytes after a failing chunk that csv.reader's file may already have
+# decoded (it reads 8 KiB at a time): invalid UTF-8 there is its error
+_DECODE_AHEAD = 64 << 10
 
 # bytes a generic download reads at a time
 _CHUNK = 1 << 20
@@ -115,6 +65,47 @@ def _open_uri_stream(uri: str):
     if uri.startswith("file://"):
         return open(uri[len("file://"):], "rb")
     return open(uri, "rb")
+
+
+class _Records:
+    """A binary stream's complete CSV records, a chunk at a time: each
+    :meth:`next` reads until ``n`` records are complete (or the stream
+    ends) and returns their bytes and count. One caller at a time."""
+
+    def __init__(self, stream):
+        self._stream = stream
+        self._carry = b""
+        self._eof = False
+
+    def _read(self, size: int) -> None:
+        more = self._stream.read(size)
+        if more:
+            self._carry += more
+        else:
+            self._eof = True
+
+    def next(self, n: int) -> Tuple[bytes, int]:
+        while True:
+            cut, got = ops.split_records(self._carry, n, self._eof)
+            if got == n or self._eof:
+                chunk = self._carry[:max(cut, 0)]
+                self._carry = self._carry[max(cut, 0):] if got else b""
+                return chunk, got
+            # a record longer than the buffer doubles the read
+            self._read(max(_READ_BLOCK, len(self._carry)))
+
+    def refuse_if_undecodable(self, following: bytes) -> None:
+        """Raises :class:`ops.CoreRefused` when the bytes just after the
+        current chunk (``following``, then the stream) hold invalid UTF-8
+        within :data:`_DECODE_AHEAD`: ``csv.reader``'s file may have hit
+        it before the error at hand."""
+        ahead = following[:_DECODE_AHEAD]
+        while len(ahead) + len(self._carry) < _DECODE_AHEAD and \
+                not self._eof:
+            self._read(_READ_BLOCK)
+        ahead += self._carry[:_DECODE_AHEAD - len(ahead)]
+        if not ops.utf8_valid(ahead, truncated_ok=True):
+            raise ops.CoreRefused("invalid UTF-8 after the failing chunk")
 
 
 class DatasetService:
@@ -145,6 +136,61 @@ class DatasetService:
             "result": f"/api/learningOrchestra/v1/dataset/{tool}/{name}"}
 
     def _ingest_csv(self, name: str, uri: str) -> None:
+        fields, rows = None, 0
+        if ops.core() is not None:
+            try:
+                fields, rows = self._ingest_csv_core(name, uri)
+            except ops.CoreRefused:
+                # only csv.reader gives this file's error (or reads it)
+                native.count("ingestDelegated", "python", 1)
+        if fields is None:
+            fields, rows = self._ingest_csv_py(name, uri)
+        self._ctx.catalog.update_metadata(
+            name, {D.FIELDS_FIELD: fields, "rows": rows})
+
+    def _ingest_csv_core(self, name: str, uri: str) -> Tuple[List[str], int]:
+        """The ingest through the C++ core: a thread reads the stream and
+        cuts it into chunks of ``_CHUNK_ROWS`` records while the core
+        parses the chunk before (ctypes releases the GIL). Raises
+        :class:`ops.CoreRefused` where only the Python path reads the
+        file as ``csv.reader`` does, or gives its error."""
+        rows = 0
+        with _open_uri_stream(uri) as raw, \
+                self._ctx.catalog.dataset_writer(name) as writer, \
+                ThreadPoolExecutor(1, thread_name_prefix="lo-csv-read") \
+                as pool:
+            records = _Records(raw)
+            head, n = records.next(1)
+            try:
+                if n == 0:
+                    raise ValueError("Empty CSV file")
+                header = ops.csv_header(head, fallback=False)
+                if len(set(header)) != len(header):
+                    raise ValueError(f"duplicate column names in {header}")
+            except ValueError:
+                records.refuse_if_undecodable(b"")
+                raise
+            kinds = None
+            pending = pool.submit(records.next, _CHUNK_ROWS)
+            while True:
+                chunk, n = pending.result()
+                if n == 0:
+                    break
+                pending = pool.submit(records.next, _CHUNK_ROWS)
+                try:
+                    columns, kinds = ops.parse_csv(
+                        chunk, has_header=False, ncols=len(header),
+                        kinds=kinds, row_base=rows, fallback=False)
+                except ValueError:
+                    # a ragged record or a bad value: csv.reader's file
+                    # may have met invalid UTF-8 first
+                    records.refuse_if_undecodable(pending.result()[0])
+                    raise
+                writer.write_batch(dict(zip(header, columns)))
+                rows += n
+            return writer.fields(), rows
+
+    def _ingest_csv_py(self, name: str, uri: str) -> Tuple[List[str], int]:
         rows = 0
         with _open_uri_stream(uri) as raw, io.TextIOWrapper(
                 raw, encoding="utf-8", newline="") as f, \
@@ -163,18 +209,16 @@ class DatasetService:
                     break
                 for i, row in enumerate(chunk):
                     if len(row) != len(header):
-                        raise ValueError(
-                            f"CSV parse error: row {rows + i + 1}: expected "
-                            f"{len(header)} columns, got {len(row)}")
+                        raise ops.ragged_error(rows + i + 1, len(header),
+                                               len(row))
                 cells = [list(c) for c in zip(*chunk)]
                 if kinds is None:
                     kinds = [infer_kind(c) for c in cells]
                 writer.write_batch({h: convert(k, c) for h, k, c in
                                     zip(header, kinds, cells)})
+                native.count("parse_csv", "python", len(chunk))
                 rows += len(chunk)
-            fields = writer.fields()
-        self._ctx.catalog.update_metadata(
-            name, {D.FIELDS_FIELD: fields, "rows": rows})
+            return writer.fields(), rows
 
     def _ingest_generic(self, name: str, uri: str) -> None:
         buf = io.BytesIO()

@@ -16,7 +16,9 @@ require zero violations. The port's hierarchy is the JAX package's at
 equal ranks, less the rows of unported modules, plus its own leaves.
 """
 
+import os
 import pathlib
+import shutil
 import subprocess
 import sys
 import threading
@@ -26,6 +28,7 @@ import pytest
 
 from learningorchestra_tpu.analysis import concurrency as jax_concurrency
 from learningorchestra_tpu.runtime import locks as jax_locks
+from learningorchestra_tpu_torch import native
 from learningorchestra_tpu_torch.analysis import concurrency
 from learningorchestra_tpu_torch.analysis.findings import SEVERITY_ERROR
 from learningorchestra_tpu_torch.runtime import locks
@@ -318,6 +321,49 @@ def test_hierarchy_is_the_jax_one_at_equal_ranks():
         assert locks.HIERARCHY[name] == rank
     # no two of the port's rows share a rank, its own rows included
     assert len(set(locks.HIERARCHY.values())) == len(locks.HIERARCHY)
+
+
+# ----------------------------------------------------------------------
+# the C++ cores' one-time build
+# ----------------------------------------------------------------------
+
+@pytest.mark.skipif(shutil.which("g++") is None,
+                    reason="g++ is absent: the C++ CSV core cannot be built "
+                           "here")
+def test_two_threads_at_first_use_build_the_core_once(tmp_path,
+                                                      monkeypatch):
+    """Two threads call the CSV core first at the same instant: the
+    ``native.registry`` lock lets one run ``g++``, and both get the one
+    library."""
+    monkeypatch.delenv("LO_NATIVE", raising=False)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(native, "_lib", {})
+    monkeypatch.setattr(native, "_tried", {})
+    monkeypatch.setattr(native, "_errors", {})
+    runs = []
+    real_run = native.subprocess.run
+
+    def counted_run(*args, **kwargs):
+        runs.append(args[0])
+        return real_run(*args, **kwargs)
+
+    monkeypatch.setattr(native.subprocess, "run", counted_run)
+    barrier = threading.Barrier(2)
+    libs = [None, None]
+
+    def first_use(k):
+        barrier.wait()
+        libs[k] = native.get_lib(native.CSV)
+
+    threads = [threading.Thread(target=first_use, args=(k,))
+               for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert libs[0] is not None and libs[0] is libs[1]
+    assert len(runs) == 1 and runs[0][0] == "g++"
+    assert os.listdir(tmp_path) == [native.library_path(native.CSV).name]
 
 
 # ----------------------------------------------------------------------

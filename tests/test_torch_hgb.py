@@ -156,10 +156,13 @@ def test_two_processes_building_at_once_leave_one_good_library(tmp_path):
 
 
 def test_nothing_builds_at_import():
+    """Neither core (the booster's, the CSV core) is built or loaded by
+    importing their modules."""
     probe = ("import learningorchestra_tpu_torch.native.hgb as h, "
+             "learningorchestra_tpu_torch.native.ops as o, "
              "learningorchestra_tpu_torch.native as n; "
              "print(n._tried, n._lib)")
     out = subprocess.run([sys.executable, "-c", probe], cwd=ROOT,
                          env=dict(os.environ, PYTHONPATH=ROOT),
                          capture_output=True, text=True, timeout=120)
-    assert out.stdout.split() == ["False", "None"], out.stderr
+    assert out.stdout.split() == ["{}", "{}"], out.stderr

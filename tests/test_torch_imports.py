@@ -2,8 +2,8 @@
 ``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer and
 its asynchronous commit, the encoder, the fault injector, the mixture of experts, the keras-shaped
 layers, the sweeps, the client, the sandbox, the function service, the
-lint, the Builder, its estimators and the booster core's binding among
-them) loads
+lint, the Builder, its estimators, the booster core's binding and the
+CSV core's among them) loads
 neither JAX, flax nor any module of the JAX package, nor pandas,
 pyarrow, dill, msgpack, sklearn, matplotlib, seaborn, h5py, keras,
 tensorflow or tf_keras (the card's machine has none of the first four,
@@ -100,6 +100,7 @@ def test_new_modules_are_among_those_probed():
             "learningorchestra_tpu_torch.models.estimators",
             "learningorchestra_tpu_torch.native",
             "learningorchestra_tpu_torch.native.hgb",
+            "learningorchestra_tpu_torch.native.ops",
             "learningorchestra_tpu_torch.models.tf_bundle",
             "learningorchestra_tpu_torch.models.weights_io",
             "learningorchestra_tpu_torch.models.tf_compat",
