@@ -349,9 +349,10 @@
    error), five float64 columns and an int64 label bit-equal to the
    values written, ingest seconds, rows/s and MB/s, and the resident
    set's growth over the ingest under 1 GiB; (b) ``streaming`` GB on
-   them: every row trained (``trainedRows``, ``trainedOnSample`` false)
-   through the built C++ booster, accuracy above 0.95, the job's
-   ``tracemalloc`` peak under 1 GiB, ``fitTime``; (c) the first 200,000
+   the first 1,000,000 ingested rows, ``b4test`` and ``b4eval``: every
+   row trained (``trainedRows``, ``trainedOnSample`` false) through the
+   built C++ booster, accuracy above 0.95, the job's ``tracemalloc``
+   peak under 1 GiB, ``fitTime``; (c) the first 200,000
    rows through the core and through the Python path (``LO_NATIVE=0``):
    equal stored columns, µs a row each; a rare-match query GET over the
    10M rows equal to numpy's page of the written values, with the
@@ -359,12 +360,28 @@
    10M rows equal to ``numpy.unique``'s counts, both paths' seconds on
    the head; (e) ``gather_rows`` bit-equal to fancy indexing on a
    float32 matrix of ResNet-50's input width; no flash kernel launches.
+20. The card's fair lease (the ``scheduler`` line, after ``lifecycle``),
+   over REST: (a) a 3-epoch bf16 fit of the tutorial LM in pool
+   ``train`` yields at an epoch boundary to an ``evaluate`` posted after
+   its first epoch, which finishes first; the fit's ``leaseYields`` >=
+   1, ``preemptedSeconds`` > 0, its losses bit-equal to an unyielded fit
+   of the same seed and data; ``meshScheduler`` and
+   ``meshSecondsByPool`` name both pools; (b) the yielded fit's bytes
+   stay on the card while the evaluate runs (``memory_allocated`` at
+   the yield and in the evaluate); (c) a float32 slot session serving
+   ``PROMPT_LENS`` prompts yields to 1-epoch fits, mid-stream and idle,
+   every token equal to solo ``generate``, its yields equal to
+   ``lo_serving_lease_yields_total``, each round's TTFT; (d) under
+   ``LO_SERVE_LEASE_POLICY=hold`` a fit waits until the session is
+   deleted; (e) under ``LO_MESH_YIELD=0`` the fit never yields and the
+   evaluate waits for its end; exact launches of the path.
 
 The kernel launch counts are zeroed just before each path and read
 just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
 keras``, ``--only fusion``, ``--only ckptAsync``, ``--only function``,
 ``--only transform``, ``--only builder``, ``--only ingest``, ``--only
-lifecycle``, ``--only observe``, ``--only featurePlane``, or several,
+lifecycle``, ``--only scheduler``, ``--only observe``, ``--only
+featurePlane``, or several,
 comma-separated)
 builds the kernels
 and runs that phase alone (to iterate on it), printing its line and no
@@ -5950,6 +5967,9 @@ INGEST_HEAD_ROWS = 200_000
 INGEST_QUERY = {"f0": {"$gt": 4.2}}
 INGEST_QUERY_SKIP, INGEST_QUERY_LIMIT = 5, 20
 INGEST_RSS_BYTES = 1 << 30
+# (b)'s streaming GB trains on the first million ingested rows (the
+# whole script's time limit; the 10M rows stay for (a), (c) and (d))
+INGEST_GB_ROWS = 1_000_000
 # (e) a batch of 256 rows of ResNet-50's input width (224 x 224 x 3
 # float32) gathered from 1024
 GATHER_ROWS, GATHER_WIDTH, GATHER_BATCH = 1024, 224 * 224 * 3, 256
@@ -6063,9 +6083,10 @@ def ingest_phase(torch, log, home, yard):
     Python path), five float64 columns and an int64 label, every stored
     value bit-equal to ``k / 1e6`` and the labels written; seconds, rows/s
     and MB/s of the big one, and the peak growth of resident memory over
-    it under 1 GiB. (b) Streaming GB on them: every row trained through
-    the built C++ booster, accuracy above 0.95, the job's ``tracemalloc``
-    peak under 1 GiB. (c) The first 200,000 rows through the core and
+    it under 1 GiB. (b) Streaming GB on the first ``INGEST_GB_ROWS``
+    ingested rows (a dataset of them), ``b4test`` and ``b4eval``: every
+    row trained through the built C++ booster, accuracy above 0.95, the
+    job's ``tracemalloc`` peak under 1 GiB. (c) The first 200,000 rows through the core and
     through the Python path (``LO_NATIVE=0``): equal stored columns, µs a
     row each; a rare-match query GET over ``b4train`` equal to numpy's
     page of the written values, its seconds, and the per-row path's on
@@ -6200,12 +6221,16 @@ def ingest_phase(torch, log, home, yard):
             os.remove(os.path.join(home, f"{name}.csv"))
             check_stored(name, rows, info.pop("written"))
 
-        # (b) BASELINE config 4's streaming GB on the ingested datasets
+        # (b) BASELINE config 4's streaming GB on the ingested datasets,
+        # the first INGEST_GB_ROWS rows of b4train
+        _write_dataset(ctx, "b4gb", [
+            {col: np.array(data[:INGEST_GB_ROWS])
+             for col, (_, data, _) in _stored(ctx, "b4train").items()}])
         gc.collect()
         tracemalloc.start()
         t0 = time.monotonic()
         uris = client.builder_sparkml.run_builder(
-            "b4train", "b4test", "", ["GB"], streaming=True,
+            "b4gb", "b4test", "", ["GB"], streaming=True,
             evaluationDatasetName="b4eval")
         gb_name = uris[0].rsplit("/", 1)[1]
         ctx.jobs.wait(gb_name, timeout=900)
@@ -6214,7 +6239,7 @@ def ingest_phase(torch, log, home, yard):
         tracemalloc.stop()
         meta = client.builder_sparkml.metadata(gb_name)
         baseline4 = {
-            "rows": BASELINE4_ROWS, "jobSeconds": seconds,
+            "rows": INGEST_GB_ROWS, "jobSeconds": seconds,
             "fitTime": meta.get("fitTime"),
             "trainedRows": meta.get("trainedRows"),
             "trainedOnSample": meta.get("trainedOnSample"),
@@ -6224,14 +6249,14 @@ def ingest_phase(torch, log, home, yard):
             "outputRows": ctx.catalog.count_rows(gb_name)}
         out["baseline4"] = baseline4
         if not meta.get("finished") or \
-                meta.get("trainedRows") != BASELINE4_ROWS or \
+                meta.get("trainedRows") != INGEST_GB_ROWS or \
                 meta.get("trainedOnSample") is not False or \
                 native_fits != [True] or \
                 not meta.get("accuracy", 0) > BASELINE4_MIN_ACCURACY or \
                 traced_peak >= BASELINE4_PEAK_BYTES or \
                 baseline4["outputRows"] != BASELINE4_SIDE_ROWS:
             raise AssertionError(f"BASELINE config 4: {baseline4}")
-        for name in ("b4test", "b4eval", gb_name):
+        for name in ("b4gb", "b4test", "b4eval", gb_name):
             ctx.catalog.delete_collection(name)
 
         # (c) the head through both paths; the query over 10M rows
@@ -6476,7 +6501,10 @@ def lifecycle_phase(torch, log, home, yard):
                         .stats()["bytesInUse"],
                         "peak": torch.cuda.max_memory_allocated()}
 
-            ctx.jobs.submit(name, run, needs_card=True)
+            # the fit's own pool: a job of another pool would take the
+            # card at the fit's epoch boundary, with the fit's tensors
+            # still on it
+            ctx.jobs.submit(name, run, needs_card=True, pool="train")
 
         lifecycle = {}
         for name, timeout in (("lm_cancel", None), ("lm_timeout", 2)):
@@ -6804,6 +6832,332 @@ COST_CNN_WINDOWS, COST_CNN_ROWS, COST_CNN_BATCH = 4, 8192, 256
 # the float32 slot session's prompts and decode length
 OBS_PROMPT, OBS_NEW = 256, 8
 # the plane's knobs of docs/OBSERVABILITY.md "CI gate"
+# the scheduler phase: the yielding fit's epochs (4 steps each), and the
+# short fits' corpus: the first 16 windows, one step an epoch
+SCHED_EPOCHS = 3
+SCHED_SHORT_WINDOWS = 16
+# how long (d)'s fit must stay queued behind the hold session
+SCHED_HOLD_SECONDS = 1.0
+
+
+def _finish_order(events_path: str, names) -> list:
+    """The jobs among ``names`` in the order the server logged them
+    finished (its event log)."""
+    order = []
+    with open(events_path) as f:
+        for line in f:
+            event = json.loads(line)
+            if event.get("kind") == "job" and event.get("name") == \
+                    "finished" and event.get("traceId") in names:
+                order.append(event["traceId"])
+    return order
+
+
+def scheduler_phase(torch, log, home, yard):
+    """The card's fair lease over REST (the ``scheduler`` line), each
+    check on one server over one home, in bf16 (fits and evaluates) and
+    float32 (the session). (a) A fit of the tutorial LM in pool ``train``
+    (the pipeline's 64 windows, batch 16, grad_accum 2, 3 epochs); once
+    its first epoch's launches are in, an ``evaluate`` (pool
+    ``evaluate``) of an unyielded fit of the same seed and data run just
+    before: the evaluate finishes first, the fit's document has
+    ``leaseYields`` >= 1 and ``preemptedSeconds`` > 0, its losses equal
+    the unyielded fit's bit for bit, and ``meshScheduler.grantsByPool``
+    and ``meshSecondsByPool`` name both pools. (b) ``memory_allocated``
+    at the yield and while the evaluate runs: the yielded fit's bytes
+    stay resident. (c) A float32 slot session of the seeded tutorial LM
+    serving ``PROMPT_LENS`` prompts of ``NEW_TOKENS``: a warm round, a
+    round with a 1-epoch fit posted as it starts (the session yields
+    mid-stream), and a round sent while a fit holds the card; every
+    request's tokens equal solo ``generate``; the session's
+    ``lease.yields`` >= 1 and equal to ``lo_serving_lease_yields_total``;
+    the fits finish while the session lives; each round's TTFT. (d)
+    ``LO_SERVE_LEASE_POLICY=hold``: a fit queued behind a live session
+    does not start until the session is deleted, its
+    ``leaseWaitSeconds`` at least the time until the delete, the
+    session's yields 0. (e) ``LO_MESH_YIELD=0``: (a) again with 1-step
+    epochs; the fit never yields and the evaluate waits for its end.
+    Returns the launches of (a) to (e)."""
+    import contextlib
+
+    import numpy as np
+
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime import preempt
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import RestServer
+
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    phase_t0 = time.monotonic()
+    lo_home = os.path.join(home, "lo")
+    events = os.path.join(home, "events.jsonl")
+    x = _successor_windows(np, TRAIN_WINDOWS, TRAIN_SEQ, seed=0)
+    fit = {"x": "$corpus.tokens", "batch_size": TRAIN_BATCH,
+           "epochs": SCHED_EPOCHS, "grad_accum": TRAIN_ACCUM}
+    short = dict(fit, x="$short.tokens", epochs=1)
+    epoch_launches = LM_CONFIG["n_layers"] * TRAIN_ACCUM * (
+        TRAIN_WINDOWS // TRAIN_BATCH)
+    out: dict = {}
+
+    @contextlib.contextmanager
+    def server(**fields):
+        ctx = ServiceContext(Config(home=lo_home, event_log=events,
+                                    **fields), device="cuda")
+        srv = RestServer(port=0, context=ctx).start()
+        try:
+            yield ctx, srv.base_url
+        finally:
+            srv.stop()
+
+    def post(base, path, body, want=201):
+        status, answer = _http(base, "POST", path, body)
+        if status != want:
+            raise AssertionError(f"POST {path}: {status} {answer}")
+        return answer
+
+    def job(base, verb, name, model, method, params):
+        post(base, f"/{verb}/tensorflow", {
+            "name": name, "modelName": model, "method": method,
+            "methodParameters": params})
+
+    def finished(base, verb, name) -> dict:
+        _poll(base, f"/{verb}/tensorflow/{name}", interval=0.02)
+        return _job_docs(base, verb, name)
+
+    def losses(docs) -> list:
+        return [d["epochRecord"]["loss"] for d in docs["result"]
+                if "epochRecord" in d]
+
+    def until(what, predicate, timeout=120.0):
+        deadline = time.monotonic() + timeout
+        while not predicate():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"timed out waiting for {what}")
+            time.sleep(0.002)
+
+    # the session's seeded weights and their solo tokens, outside the
+    # counted path
+    rng = np.random.default_rng(0)
+    prompts = [[int(t) for t in rng.integers(1, LM_CONFIG["vocab_size"],
+                                             size=n)] for n in PROMPT_LENS]
+    served = LanguageModel(**LM_CONFIG, device="cuda")
+    served.set_params(weights.params_from_flax(
+        weights.init_params(LM_CONFIG, seed=0)))
+    solos = [served.generate([p], max_new_tokens=NEW_TOKENS)[0][len(p):]
+             for p in prompts]
+
+    with server() as (ctx, base):
+        _save_arrays(ctx, "corpus", {"tokens": x})
+        _save_arrays(ctx, "short", {"tokens": x[:SCHED_SHORT_WINDOWS]})
+        ctx.artifacts.save(served, "sch_srv", "train/tensorflow")
+        del served
+        post(base, "/model/tensorflow", {
+            "modelName": "lm", "modulePath": "learningorchestra_tpu.models",
+            "class": "LanguageModel", "classParameters": LM_CONFIG})
+        _poll(base, "/model/tensorflow/lm", interval=0.02)
+        _reset_launches(attn)
+
+        # (a) the unyielded fit, then the same fit with an evaluate of
+        # the first queued after its first epoch
+        job(base, "train", "sch_ref", "lm", "fit", fit)
+        ref = finished(base, "train", "sch_ref")
+        memory: dict = {}
+        real_yield = preempt.maybe_yield
+        real_evaluate = LanguageModel.evaluate
+
+        def recording_yield():
+            # the fit's thread: a yield is about to hand the card over
+            if preempt.contended() and "atYield" not in memory:
+                torch.cuda.synchronize()
+                memory["atYield"] = torch.cuda.memory_allocated()
+            real_yield()
+
+        def recording_evaluate(self, *args, **kwargs):
+            # the evaluate's thread, its model on the card
+            torch.cuda.synchronize()
+            memory["duringEvaluate"] = torch.cuda.memory_allocated()
+            return real_evaluate(self, *args, **kwargs)
+
+        preempt.maybe_yield = recording_yield
+        LanguageModel.evaluate = recording_evaluate
+        try:
+            torch.cuda.synchronize()
+            memory["beforeFit"] = torch.cuda.memory_allocated()
+            start = attn.FLASH_FWD_SM90_LAUNCHES
+            job(base, "train", "sch_fit", "lm", "fit", fit)
+            until("the fit's first epoch", lambda: (
+                attn.FLASH_FWD_SM90_LAUNCHES - start >= epoch_launches))
+            job(base, "evaluate", "sch_e", "sch_ref", "evaluate",
+                {"x": "$corpus.tokens", "batch_size": TRAIN_BATCH})
+            yielded = finished(base, "train", "sch_fit")
+            evaluated = finished(base, "evaluate", "sch_e")
+        finally:
+            preempt.maybe_yield = real_yield
+            LanguageModel.evaluate = real_evaluate
+        doc = yielded["result"][-1]
+        metrics = json.loads(_raw(base, "/metrics")[1])
+        grants = metrics["meshScheduler"]["grantsByPool"]
+        order = _finish_order(events, ("sch_fit", "sch_e"))
+        out["yieldToAnotherPool"] = {
+            "epochs": SCHED_EPOCHS, "finishOrder": order,
+            "leaseYields": doc.get("leaseYields"),
+            "preemptedSeconds": doc.get("preemptedSeconds"),
+            "elapsedSeconds": doc.get("elapsedSeconds"),
+            "leaseWaitSeconds": doc.get("leaseWaitSeconds"),
+            "losses": losses(yielded), "unyieldedLosses": losses(ref),
+            "evaluate": next((d["result"] for d in evaluated["result"]
+                              if "result" in d), None),
+            "evaluateLeaseWaitSeconds":
+                evaluated["result"][-1].get("leaseWaitSeconds"),
+            "grantsByPool": grants,
+            "meshSecondsByPool": metrics["meshSecondsByPool"]}
+        if order != ["sch_e", "sch_fit"] or \
+                not (doc.get("leaseYields") or 0) >= 1 or \
+                not (doc.get("preemptedSeconds") or 0) > 0 or \
+                losses(yielded) != losses(ref) or \
+                len(losses(ref)) != SCHED_EPOCHS or \
+                not {"train", "evaluate"} <= set(grants) or \
+                not {"train", "evaluate"} <= set(
+                    metrics["meshSecondsByPool"]):
+            raise AssertionError(f"(a) {out['yieldToAnotherPool']}")
+        # (b) the yielded fit's bytes stayed on the card under the
+        # evaluate
+        memory["fitBytesAtYield"] = memory["atYield"] - memory["beforeFit"]
+        out["memory"] = memory
+        if not memory["fitBytesAtYield"] > 0 or \
+                memory["duringEvaluate"] < memory["atYield"]:
+            raise AssertionError(f"(b) {memory}")
+
+        # (c) a session yields, mid-stream and while idle
+        post(base, "/serve/sch_srv", {"type": "lm", "maxSlots": 4,
+                                      "cacheLen": 2048, "temperature": 0.0})
+        rounds = {}
+        out_round, walls, _ = _predict_round(base, "sch_srv", prompts)
+        rounds["warm"] = (out_round, walls)
+        result: dict = {}
+
+        def background_round():
+            result["round"] = _predict_round(base, "sch_srv", prompts)
+
+        thread = threading.Thread(target=background_round)
+        thread.start()
+        job(base, "train", "sch_mid", "lm", "fit", short)
+        thread.join(timeout=600)
+        rounds["midStream"] = result["round"][:2]
+        finished(base, "train", "sch_mid")
+
+        def lease():
+            return _http(base, "GET", "/serve/sch_srv")[1]["lease"]
+
+        before = lease()["yields"]
+        job(base, "train", "sch_idle", "lm", "fit", short)
+        until("the session's yield", lambda: lease()["yields"] > before
+              or not lease()["held"])
+        rounds["behindFit"] = _predict_round(base, "sch_srv", prompts)[:2]
+        finished(base, "train", "sch_idle")
+        stats = _http(base, "GET", "/serve/sch_srv")[1]
+        prometheus = _raw(base, "/metrics?format=prometheus")[1].decode()
+        counted = re.search(r"^lo_serving_lease_yields_total (\d+)$",
+                            prometheus, re.M)
+        session = {"yields": stats["lease"]["yields"],
+                   "leaseWaitSeconds": stats["lease"]["waitSeconds"],
+                   "promYields": int(counted.group(1)) if counted else None,
+                   "fitsFinishedWhileLive": [
+                       _job_docs(base, "train", n)["metadata"]["finished"]
+                       for n in ("sch_mid", "sch_idle")]}
+        for name, (results, client_walls) in rounds.items():
+            _diverges(f"(c) {name}", _round_tokens(name, results), solos)
+            session[name] = _round_rates(results, client_walls)
+        session["addedTtftMsP50"] = {
+            name: session[name]["clientTtftMs"]["p50"]
+            - session["warm"]["clientTtftMs"]["p50"]
+            for name in ("midStream", "behindFit")}
+        status, _ = _http(base, "DELETE", "/serve/sch_srv")
+        out["session"] = session
+        if status != 200 or session["yields"] < 1 or \
+                session["promYields"] != session["yields"] or \
+                not all(session["fitsFinishedWhileLive"]):
+            raise AssertionError(f"(c) {session}")
+
+    # (d) a hold session keeps the card until it is deleted
+    with server(serve_lease_policy="hold") as (ctx, base):
+        post(base, "/serve/sch_srv", {"type": "lm", "maxSlots": 4,
+                                      "cacheLen": 2048, "temperature": 0.0})
+        fwd = attn.FLASH_FWD_SM90_LAUNCHES
+        job(base, "train", "sch_hold", "lm", "fit", short)
+        until("the fit to queue",
+              lambda: ctx.jobs.scheduler_stats()["waiters"] == 1)
+        t_queued = time.monotonic()
+        time.sleep(SCHED_HOLD_SECONDS)
+        status_while_held = ctx.catalog.get_metadata("sch_hold")["status"]
+        launched_while_held = attn.FLASH_FWD_SM90_LAUNCHES - fwd
+        t_delete = time.monotonic()
+        status, final = _http(base, "DELETE", "/serve/sch_srv")
+        meta = _poll(base, "/train/tensorflow/sch_hold", interval=0.02)
+        hold = {"statusWhileHeld": status_while_held,
+                "launchesWhileHeld": launched_while_held,
+                "secondsUntilDelete": t_delete - t_queued,
+                "leaseWaitSeconds": meta.get("leaseWaitSeconds"),
+                "sessionYields": final["lease"]["yields"],
+                "policy": final["lease"]["policy"]}
+        out["hold"] = hold
+        if status != 200 or status_while_held != "queued" or \
+                launched_while_held or hold["sessionYields"] != 0 or \
+                hold["policy"] != "hold" or \
+                not hold["leaseWaitSeconds"] >= hold["secondsUntilDelete"]:
+            raise AssertionError(f"(d) {hold}")
+
+    # (e) LO_MESH_YIELD=0: the evaluate waits for the whole fit
+    with server(mesh_yield=False) as (ctx, base):
+        start = attn.FLASH_FWD_SM90_LAUNCHES
+        job(base, "train", "sch_noyield", "lm", "fit",
+            dict(short, epochs=SCHED_EPOCHS))
+        until("the fit's first epoch", lambda: (
+            attn.FLASH_FWD_SM90_LAUNCHES - start >=
+            epoch_launches * SCHED_SHORT_WINDOWS // TRAIN_WINDOWS))
+        job(base, "evaluate", "sch_e2", "sch_ref", "evaluate",
+            {"x": "$short.tokens", "batch_size": TRAIN_BATCH})
+        doc = finished(base, "train", "sch_noyield")["result"][-1]
+        evaluated = finished(base, "evaluate", "sch_e2")["result"][-1]
+        order = _finish_order(events, ("sch_noyield", "sch_e2"))
+        noyield = {"finishOrder": order,
+                   "leaseYields": doc.get("leaseYields"),
+                   "preemptedSeconds": doc.get("preemptedSeconds"),
+                   "evaluateLeaseWaitSeconds":
+                       evaluated.get("leaseWaitSeconds")}
+        out["meshYieldOff"] = noyield
+        if order != ["sch_noyield", "sch_e2"] or \
+                "leaseYields" in doc or "preemptedSeconds" in doc or \
+                not noyield["evaluateLeaseWaitSeconds"] > 0:
+            raise AssertionError(f"(e) {noyield}")
+
+    launches = _launches(attn)
+    out["launches"] = launches
+    out["seconds"] = time.monotonic() - phase_t0
+    # (a) two fits and an evaluate of the corpus; (c) two 1-epoch fits of
+    # the short corpus and three rounds of float32 prefills; (d) one
+    # 1-epoch fit; (e) a 3-epoch fit and an evaluate of the short corpus
+    layers, accum = LM_CONFIG["n_layers"], TRAIN_ACCUM
+    steps = 2 * SCHED_EPOCHS * TRAIN_WINDOWS // TRAIN_BATCH + \
+        (3 + SCHED_EPOCHS) * SCHED_SHORT_WINDOWS // TRAIN_BATCH
+    batches = (TRAIN_WINDOWS + SCHED_SHORT_WINDOWS) // TRAIN_BATCH
+    want = dict.fromkeys(COUNTERS, 0)
+    want.update(flash_fwd_sm90=layers * (accum * steps + batches),
+                flash_bwd_dq_sm90=layers * accum * steps,
+                flash_bwd_dkv_sm90=layers * accum * steps,
+                flash_fwd_tf32x3=layers * len(PROMPT_LENS) * 3)
+    out["launchesWanted"] = want
+    if launches != want:
+        raise AssertionError(f"the scheduler path launched {launches}, "
+                             f"want {want}")
+    log.append("scheduler " + json.dumps(out))
+    return {"scheduler": launches}
+
+
 PLANE_ENV = ("LO_PERF", "LO_XRAY")
 
 
@@ -7995,7 +8349,8 @@ def main() -> int:
                   "function": function_phase,
                   "transform": transform_phase, "builder": builder_phase,
                   "ingest": ingest_phase,
-                  "lifecycle": lifecycle_phase, "observe": observe_phase,
+                  "lifecycle": lifecycle_phase,
+                  "scheduler": scheduler_phase, "observe": observe_phase,
                   "featurePlane": feature_plane_phase}
         try:
             for name in sys.argv[sys.argv.index("--only") + 1].split(","):
@@ -8051,6 +8406,8 @@ def main() -> int:
             paths.update(ingest_phase(torch, log, home, {}))
         with _phase_home() as home:
             paths.update(lifecycle_phase(torch, log, home, {}))
+        with _phase_home() as home:
+            paths.update(scheduler_phase(torch, log, home, {}))
         with _phase_home() as home:
             paths.update(observe_phase(torch, log, home, {}))
         with _phase_home() as home:

@@ -20,7 +20,9 @@ disaggregated and speculative ``LO_SERVE_DISAGG``, ``LO_SERVE_DRAFT`` and
 ``LO_PREFLIGHT``, ``LO_SANDBOX_CPU_SECONDS``, ``LO_SANDBOX_MEMORY_BYTES``
 and ``LO_SANDBOX_FILE_BYTES``, the job lifecycle's ``LO_JOB_RETRIES``,
 ``LO_JOB_TIMEOUT``, ``LO_STALL_SECONDS``, ``LO_STALL_ESCALATE``,
-``LO_RETRY_BACKOFF`` and ``LO_RETRY_BACKOFF_MAX``, the health sentinel's
+``LO_RETRY_BACKOFF`` and ``LO_RETRY_BACKOFF_MAX``, the card lease's
+``LO_POOL_WEIGHTS``, ``LO_FAIR_SERVED_HALF_LIFE``, ``LO_MESH_YIELD`` and
+``LO_SERVE_LEASE_POLICY``, the health sentinel's
 ``LO_HEALTH_ACTION``, ``LO_HEALTH_SPIKE_FACTOR``, ``LO_HEALTH_EMA_ALPHA``,
 ``LO_HEALTH_MAX_ROLLBACKS``, ``LO_HEALTH_COOLDOWN`` and
 ``LO_HEALTH_RETRIES``, and the gateway's ``LO_GET_CACHE_TTL`` and
@@ -256,6 +258,23 @@ class Config:
     retry_backoff_max_seconds: float = dataclasses.field(
         default_factory=lambda: float(os.environ.get(
             "LO_RETRY_BACKOFF_MAX", "30")))
+    # the card lease (services/scheduler.py): fair-share weights of the
+    # job pools ("train=2,tune=1"; unlisted pools weigh 1), the half-life
+    # of each pool's served seconds (0 = all-time totals), yielding to
+    # another pool's waiter at an epoch boundary, and whether a serving
+    # session yields to any waiter ("preempt") or keeps the card until
+    # it is deleted ("hold")
+    pool_weights: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_POOL_WEIGHTS", ""))
+    fair_served_half_life_seconds: float = dataclasses.field(
+        default_factory=lambda: float(os.environ.get(
+            "LO_FAIR_SERVED_HALF_LIFE", "600")))
+    mesh_yield: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_MESH_YIELD", "1") not in ("0", "false", "no"))
+    serve_lease_policy: str = dataclasses.field(
+        default_factory=lambda: os.environ.get(
+            "LO_SERVE_LEASE_POLICY", "preempt"))
     # the training health sentinel's defaults (a request's healthPolicy
     # overrides): action ""/"off" (no sentinel), "skip", "rollback" or
     # "fail"; a spike is an epoch loss above spike_factor x the loss's

@@ -6,14 +6,15 @@ A single daemon thread samples, every ``LO_MONITOR_INTERVAL_MS``
 milliseconds, the resources the rest of the stack only reads at isolated
 points: per-card memory (``torch.cuda.memory_stats(i)`` and
 ``torch.cuda.mem_get_info(i)``), the device arena's occupancy and
-evictions (:mod:`runtime.arena`), serving queue depth and batch fill
-(:mod:`services.serving`), job-queue depth, and host RSS. Each scalar
-lands in a bounded time-series ring (``LO_MONITOR_RING`` samples),
-readable as one JSON document through ``GET /observability/cluster``;
-the latest structured sample also backs the ``lo_hbm_bytes_in_use`` /
-``lo_host_rss_bytes`` Prometheus gauges. The slice scheduler is not
-ported: its collector is absent, and so are its series (absent, not
-zero).
+evictions (:mod:`runtime.arena`), the card lease's occupancy and
+fragmentation (:meth:`services.scheduler.SliceLease.stats`; on one card
+``devicesBusy`` counts the busy lease, 0 or 1, and fragmentation is 0),
+serving queue depth and batch fill (:mod:`services.serving`), job-queue
+depth, and host RSS. Each scalar lands in a bounded time-series ring
+(``LO_MONITOR_RING`` samples), readable as one JSON document through
+``GET /observability/cluster``; the latest structured sample also backs
+the ``lo_hbm_bytes_in_use`` / ``lo_slice_fragmentation`` /
+``lo_host_rss_bytes`` Prometheus gauges.
 
 The sampler is strictly best-effort — a failing collector is recorded
 as a ``sampleErrors`` count, never raised — and does not touch the card
@@ -38,13 +39,13 @@ from typing import Any, Callable, Dict, List, Optional
 from learningorchestra_tpu_torch.runtime import locks
 
 # scalar series kept as (ts, value) rings; everything else only in the
-# latest structured sample. The slice scheduler's series
-# (sliceDevicesBusy, sliceFragmentation) come with its port.
+# latest structured sample
 _SCALAR_SERIES = (
     "hbmBytesInUse", "hbmPeakBytesInUse", "hbmHeadroomFrac",
     # the device arena (runtime/arena.py): resident bytes and the LRU's
     # evictions
     "arenaBytesInUse", "arenaEvictions",
+    "sliceDevicesBusy", "sliceFragmentation",
     "servingQueueDepth", "servingBatchFill",
     # paged-KV serving (services/serving.py PagedLMServingSession):
     # pool free-page headroom and cross-stream prefix sharing
@@ -146,13 +147,12 @@ def host_rss_bytes() -> Optional[int]:
 class ClusterMonitor:
     """Background sampler + ring store. Collectors are injected as
     zero-arg callables so the monitor has no import-time dependency on
-    the service layer (and tests can feed it fakes). The slice
-    scheduler's collector is not ported: its key is absent from every
-    sample."""
+    the service layer (and tests can feed it fakes)."""
 
     def __init__(self,
                  interval_seconds: float = 1.0,
                  ring: int = 600,
+                 scheduler_stats: Optional[Callable[[], dict]] = None,
                  serving_stats: Optional[Callable[[], dict]] = None,
                  job_stats: Optional[Callable[[], dict]] = None,
                  arena_stats: Optional[Callable[[], dict]] = None,
@@ -161,6 +161,7 @@ class ClusterMonitor:
                  watchdog: Optional[Any] = None):
         self.interval_seconds = max(0.01, float(interval_seconds))
         self._ring = max(8, int(ring))
+        self._scheduler_stats = scheduler_stats
         self._serving_stats = serving_stats
         self._job_stats = job_stats
         self._arena_stats = arena_stats
@@ -230,6 +231,8 @@ class ClusterMonitor:
 
         arena = self._call(self._arena_stats)
         sample["arena"] = arena
+        sched = self._call(self._scheduler_stats)
+        sample["scheduler"] = sched
         serving = self._call(self._serving_stats)
         sample["serving"] = serving
         jobs = self._call(self._job_stats)
@@ -245,6 +248,9 @@ class ClusterMonitor:
         if arena:
             scalars["arenaBytesInUse"] = arena.get("bytesInUse")
             scalars["arenaEvictions"] = arena.get("evictions")
+        if sched:
+            scalars["sliceDevicesBusy"] = sched.get("devicesBusy")
+            scalars["sliceFragmentation"] = sched.get("fragmentation")
         if serving:
             scalars["servingQueueDepth"] = serving.get("queueDepth")
             scalars["servingBatchFill"] = serving.get("batchFill")

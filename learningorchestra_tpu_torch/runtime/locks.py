@@ -49,9 +49,11 @@ HIERARCHY: Dict[str, int] = {
     "serving.handoff": 65,         # disagg prefill -> decode ready
                                    # queue (popped under it, pages
                                    # released after)
+    "scheduler.servinglease": 70,  # releases into the fair queue while
+                                   # holding it (maybe_yield)
     "serving.prefix": 75,          # prefix-cache index; eviction
                                    # decrefs the pool under it
-    "scheduler.fair": 80,          # the card lease's FIFO queue
+    "scheduler.fair": 80,          # the SliceLease cv: the fair queue
     "serving.kvpool": 90,          # paged-KV free list / refcounts
     "serving.latency": 100,        # per-session latency ring
     "async_ckpt.error": 120,       # latched commit-worker error

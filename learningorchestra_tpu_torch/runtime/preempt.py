@@ -1,5 +1,6 @@
-"""Cooperative cancellation of long card jobs (the cancel half of the JAX
-package's ``runtime/preempt.py``).
+"""Cooperative cancellation of long card jobs and the epoch-boundary
+yield point (the JAX package's ``runtime/preempt.py`` less its migrate
+half).
 
 The job manager installs a :class:`CancelToken` in each job's thread;
 the engine's step loops, the sandbox's wait loop and the card lease's
@@ -7,18 +8,22 @@ queue call :func:`check_cancel` and :func:`heartbeat`. A deadline that
 expires, a ``DELETE .../{name}/run`` or the stall watchdog's escalation
 then surfaces as :class:`JobCancelled` at the next step boundary, the
 job records its terminal document and the card lease goes back, so no
-request can hold the card for good. With no token installed (direct
-library use, tests) every call here is a no-op.
+request can hold the card for good.
 
-The lease yield between epochs, live migration and elastic resizes of
-the JAX package need a mesh of several devices and are not ported.
+The card lease (:meth:`~learningorchestra_tpu_torch.services.scheduler.
+SliceLease.lease`) installs a yield point in the holder's thread
+(:func:`install`); the engine calls :func:`maybe_yield` between epochs,
+which honours a cancel and then hands the card to a waiting job of
+another pool. With nothing installed (direct library use, tests) every
+call here is a no-op. Live migration and elastic resizes of the JAX
+package need a mesh of several devices and are not ported.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 from learningorchestra_tpu_torch.runtime import locks
 
@@ -115,6 +120,47 @@ class CancelToken:
             return dict(self.progress)
 
 
+# ----------------------------------------------------------------------
+# thread-local install points: the lease owns the yield slot, the job
+# manager the cancel slot
+# ----------------------------------------------------------------------
+def install(fn: Callable[[], None],
+            contended_fn: Optional[Callable[[], bool]] = None) -> None:
+    """Registers ``fn`` as this thread's between-epochs yield point (the
+    card lease, when a job thread takes it). ``contended_fn`` lets a long
+    job ASK whether a yield is wanted without performing one."""
+    _tls.fn = fn
+    _tls.contended = contended_fn
+
+
+def clear() -> None:
+    _tls.fn = None
+    _tls.contended = None
+
+
+def current() -> Optional[Callable[[], None]]:
+    return getattr(_tls, "fn", None)
+
+
+def contended() -> bool:
+    """True when another job waits for this thread's lease (a yield at
+    the next safe point would hand it over); False outside the service
+    layer."""
+    fn = getattr(_tls, "contended", None)
+    return bool(fn()) if fn is not None else False
+
+
+def snapshot() -> Tuple[Optional[Callable[[], None]],
+                        Optional[Callable[[], bool]]]:
+    """``(yield_fn, contended_fn)``, for the lease to restore its
+    predecessor on exit."""
+    return getattr(_tls, "fn", None), getattr(_tls, "contended", None)
+
+
+def restore(snap) -> None:
+    _tls.fn, _tls.contended = snap
+
+
 def install_cancel(token: Optional[CancelToken]) -> None:
     """Binds ``token`` to this thread (the job manager, around a job)."""
     _tls.cancel = token
@@ -145,7 +191,10 @@ def heartbeat(**progress: Any) -> None:
 
 
 def maybe_yield() -> None:
-    """The engine's epoch boundary: honours a pending cancellation. (The
-    JAX package also hands its mesh lease to a waiting job here; one
-    card has no lease to share mid-fit.)"""
+    """The engine's epoch boundary: honours a pending cancellation, then
+    hands the card lease to a waiting job of another pool (if any) and
+    takes it back through the fair queue."""
     check_cancel()
+    fn = current()
+    if fn is not None:
+        fn()

@@ -299,6 +299,7 @@ class BuilderService:
             # lists must not hold it for host fits
             needs_card=mesh_parallel and any(
                 c in _TORCH_FAMILIES for c in classifiers),
+            pool="builder",
             # a terminal failure documents EVERY output, or pollers of
             # the other classifiers would wait forever
             failure_names=list(outputs.values()),

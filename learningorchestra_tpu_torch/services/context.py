@@ -1,6 +1,7 @@
 """The services' shared state: config, catalog, artifact store, job
-manager, the feature cache (``ctx.features``, the host tier every dataset
-read goes through), the ``$`` resolver, the serving plane and the observability
+manager (with the card's fair lease, which serving sessions share), the
+feature cache (``ctx.features``, the host tier every dataset read goes
+through), the ``$`` resolver, the serving plane and the observability
 plane's live parts — the cluster sampler with its SLO watchdog
 (``LO_MONITOR``), the ``torch.profiler`` gate and the incident flight
 recorder (``LO_INCIDENTS``), wired as the JAX package's
@@ -133,6 +134,7 @@ def _start_monitor(ctx: ServiceContext):
         interval_seconds=max(
             0.01, float(ctx.config.monitor_interval_ms) / 1000.0),
         ring=ctx.config.monitor_ring,
+        scheduler_stats=ctx.jobs.scheduler_stats,
         serving_stats=serving_stats,
         job_stats=ctx.jobs.queue_stats,
         arena_stats=arena_stats,
@@ -157,6 +159,7 @@ def _start_incidents(ctx: ServiceContext):
 
     def stats_snapshot():
         return {"jobLifecycle": ctx.jobs.lifecycle_counters(),
+                "meshScheduler": ctx.jobs.scheduler_stats(),
                 "jobQueue": ctx.jobs.queue_stats(),
                 "serving": ctx.serving.stats(),
                 "trainingHealth": health_lib.health_stats()}

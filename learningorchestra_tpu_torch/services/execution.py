@@ -306,7 +306,8 @@ class ExecutionService:
         self._ctx.jobs.submit(name, run, description=description,
                               parameters=method_parameters, needs_card=True,
                               max_retries=self._ctx.config.job_max_retries,
-                              timeout=timeout, footprint=footprint)
+                              timeout=timeout, footprint=footprint,
+                              pool=type_string.split("/", 1)[0])
 
 
 def _record_sweep_fusion(ctx, name: str, result: Any) -> None:

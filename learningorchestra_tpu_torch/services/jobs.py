@@ -8,11 +8,18 @@ failure the flag stays False and the execution document records
 
 This is the JAX package's ``services/jobs.py`` for one card:
 
-- a thread pool of ``max_workers`` and one card lease, a FIFO lock that
-  every job touching the card holds while it runs (the JAX
-  ``mesh_lease`` at ``mesh_leases=1``). A job leaves the card only once
-  its tensors are gone and the launches it queued have run, so the next
-  holder starts on an idle card with the memory back;
+- a thread pool of ``max_workers`` and one card lease, the weighted-fair
+  :class:`~learningorchestra_tpu_torch.services.scheduler.SliceLease`
+  that every job touching the card holds while it runs (the JAX
+  ``mesh_lease`` at ``mesh_leases=1``): each job names its ``pool``, the
+  card goes to the least served pool (``LO_POOL_WEIGHTS``,
+  ``LO_FAIR_SERVED_HALF_LIFE``), and a fit hands it to a waiting job of
+  another pool at an epoch boundary (``LO_MESH_YIELD``). Serving
+  sessions queue on the same lease (:attr:`JobManager.slice_lease`). A
+  job leaves the card only once its tensors are gone and the launches it
+  queued have run, so the next holder starts on an idle card with the
+  memory back; a job that yielded keeps its tensors on the card while
+  the other job runs;
 - each job's :class:`~learningorchestra_tpu_torch.runtime.preempt.
   CancelToken`: a deadline (the request's ``timeout``, else
   ``LO_JOB_TIMEOUT``), :meth:`JobManager.cancel` (``DELETE
@@ -41,7 +48,7 @@ terminal metadata the job's peak device bytes (``peakHbmBytes``, the
 card's ``max_memory_allocated`` since the job took it, also recorded
 under the footprint's ``calibrationKey``) and its last ``perf`` window.
 
-Slices, migration and multi-host pod guards are not ported.
+Device slices, migration and multi-host pod guards are not ported.
 """
 
 from __future__ import annotations
@@ -54,12 +61,11 @@ import threading
 import time
 import traceback
 from concurrent.futures import Future, ThreadPoolExecutor
-from typing import Any, Callable, Dict, Iterator, Optional
+from typing import Any, Callable, Dict, Optional
 
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.catalog.store import Catalog
 from learningorchestra_tpu_torch.observability import export as obs_export
-from learningorchestra_tpu_torch.observability import hist as obs_hist
 from learningorchestra_tpu_torch.observability import incidents as obs_incidents
 from learningorchestra_tpu_torch.observability import monitor as obs_monitor
 from learningorchestra_tpu_torch.observability import perf as obs_perf
@@ -67,6 +73,8 @@ from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.runtime import locks, preempt
 from learningorchestra_tpu_torch.runtime.health import NumericalDivergence
 from learningorchestra_tpu_torch.services import faults
+from learningorchestra_tpu_torch.services.scheduler import (
+    LeaseToken, SliceLease, parse_pool_weights)
 
 TRANSIENT = "transient"
 PERMANENT = "permanent"
@@ -100,47 +108,6 @@ def classify_error(exception: BaseException) -> str:
     return PERMANENT
 
 
-class CardLease:
-    """First come, first served access to the card: one holder at a
-    time, granted in the order of asking. A waiter whose job is
-    cancelled gives up its turn."""
-
-    def __init__(self):
-        self._cv = locks.make_condition("scheduler.fair")
-        self._next_ticket = 0
-        self._now_serving = 0
-        self._abandoned: set = set()
-
-    @contextlib.contextmanager
-    def hold(self, cancel: Optional[preempt.CancelToken] = None,
-             ) -> Iterator[float]:
-        """Holds the card for the ``with`` body; yields the seconds
-        spent waiting for it. Raises :class:`preempt.JobCancelled` when
-        ``cancel`` fires while waiting."""
-        t0 = time.monotonic()
-        with self._cv:
-            ticket = self._next_ticket
-            self._next_ticket += 1
-            while ticket != self._now_serving:
-                if cancel is not None and cancel.cancelled():
-                    self._abandoned.add(ticket)
-                    # the JAX package's words (its lease is the mesh's)
-                    raise preempt.JobCancelled(
-                        cancel.reason or "cancelled",
-                        "cancelled while waiting for the mesh lease")
-                # a token does not notify the condition: poll it
-                self._cv.wait(0.05 if cancel is not None else None)
-        try:
-            yield time.monotonic() - t0
-        finally:
-            with self._cv:
-                self._now_serving += 1
-                while self._now_serving in self._abandoned:
-                    self._abandoned.discard(self._now_serving)
-                    self._now_serving += 1
-                self._cv.notify_all()
-
-
 def _settle_card(collect: bool) -> None:
     """Before the card lease goes back: with ``collect``, frees what a
     failed job's frames kept alive (model objects hold reference
@@ -167,15 +134,23 @@ class JobManager:
                  stall_seconds: float = 0.0, stall_escalate: bool = True,
                  retry_backoff: float = 0.5,
                  retry_backoff_max: float = 30.0,
-                 numerical_retries: int = 1):
+                 numerical_retries: int = 1,
+                 pool_weights: Optional[Dict[str, float]] = None,
+                 served_half_life_seconds: float = 600.0,
+                 mesh_yield: bool = True):
         """``config`` is the fault spec of the job's sites (``job_run``
         here; ``engine_step`` and ``ckpt_write`` through
-        :func:`faults.use_config`); None reads ``LO_FAULT_INJECT``."""
+        :func:`faults.use_config`); None reads ``LO_FAULT_INJECT``.
+        ``pool_weights``, ``served_half_life_seconds`` and
+        ``mesh_yield`` configure the card lease."""
         self._catalog = catalog
         self._config = config
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
                                         thread_name_prefix="lo-job")
-        self._lease = CardLease()
+        self._lease = SliceLease(
+            weights=pool_weights,
+            served_half_life_seconds=served_half_life_seconds,
+            mesh_yield=mesh_yield)
         self._futures: Dict[str, Future] = {}
         # name -> {description, parameters, needs_card, token}
         self._info: Dict[str, Dict[str, Any]] = {}
@@ -205,7 +180,32 @@ class JobManager:
                    stall_escalate=config.stall_escalate,
                    retry_backoff=config.retry_backoff_seconds,
                    retry_backoff_max=config.retry_backoff_max_seconds,
-                   numerical_retries=config.health_retries)
+                   numerical_retries=config.health_retries,
+                   pool_weights=parse_pool_weights(config.pool_weights),
+                   served_half_life_seconds=(
+                       config.fair_served_half_life_seconds),
+                   mesh_yield=config.mesh_yield)
+
+    def mesh_lease(self, pool: str = "default", cancel=None):
+        """The card, through the fair queue (``with jobs.mesh_lease():``);
+        yields a :class:`LeaseToken`."""
+        return self._lease.lease(pool, cancel=cancel)
+
+    @property
+    def slice_lease(self) -> SliceLease:
+        """The shared lease: serving sessions wrap it in a
+        ``ServingLease``, so sessions and jobs contend through ONE fair
+        queue."""
+        return self._lease
+
+    def mesh_served(self) -> Dict[str, float]:
+        """Recent card seconds per pool (observability)."""
+        return self._lease.served()
+
+    def scheduler_stats(self) -> Dict[str, Any]:
+        """The lease's occupancy, grant and wait aggregates (the
+        ``meshScheduler`` block and the ``lo_mesh_*`` series)."""
+        return self._lease.stats()
 
     def lifecycle_counters(self) -> Dict[str, int]:
         """Monotonic lifecycle counters and the jobs stalled now."""
@@ -285,7 +285,8 @@ class JobManager:
                timeout: Optional[float] = None,
                mark_finished: bool = True,
                failure_names: Optional[list] = None,
-               footprint: Optional[Dict[str, Any]] = None) -> Future:
+               footprint: Optional[Dict[str, Any]] = None,
+               pool: str = "default") -> Future:
         """Runs ``fn`` on a worker thread for collection ``name``, which
         must exist with ``finished: False``. ``needs_card`` jobs hold the
         card lease while ``fn`` runs. ``timeout`` (seconds) is the job's
@@ -297,8 +298,9 @@ class JobManager:
         ``name`` always), and ``mark_finished=False`` where ``fn`` marks
         each output itself. ``footprint`` (the preflight's) names the
         ``calibrationKey`` the job's measured peak is recorded under.
-        The JAX manager's ``pool`` (its scheduler's fair-share pools) has
-        no meaning on one card and is not taken."""
+        ``pool`` is the job's fair-share pool on the card lease (the
+        callers pass the JAX callers' pools: the route's prefix,
+        ``builder``, else ``default``)."""
         effective = (self._default_timeout if timeout is None
                      else max(0.0, float(timeout)))
         token = preempt.CancelToken(
@@ -337,9 +339,10 @@ class JobManager:
                          failures: Dict[str, int], job_span) -> tuple:
             """One attempt under the lease: ``(done, result)``; done
             False means retry after the backoff it recorded."""
-            lease = (self._lease.hold(token) if needs_card
-                     else contextlib.nullcontext(0.0))
-            with lease as lease_wait:
+            lease = (self._lease.lease(pool, cancel=token) if needs_card
+                     else contextlib.nullcontext(LeaseToken()))
+            with lease as lease_token:
+                lease_wait = lease_token.wait_seconds
                 granted = time.monotonic()
                 queue_wait = granted - submitted
                 # retro spans: the worker-pool wait, then the card lease
@@ -348,9 +351,9 @@ class JobManager:
                 obs_trace.add("queueWait", name, submitted, leased,
                               parent=job_span.span_id, attempt=attempt)
                 if needs_card:
+                    # the lease-wait histogram is observed at the grant
                     obs_trace.add("leaseWait", name, leased, granted,
-                                  parent=job_span.span_id)
-                    obs_hist.observe("lo_lease_wait_seconds", lease_wait)
+                                  parent=job_span.span_id, pool=pool)
                     # the job's peak device bytes count from here
                     obs_monitor.reset_peak_hbm()
                 self._set_status(name, D.STATUS_RUNNING)
@@ -363,8 +366,14 @@ class JobManager:
                 start = time.monotonic()
 
                 def timing(extra: Dict[str, Any]) -> Dict[str, Any]:
+                    # the job's own run time: seconds spent yielded to
+                    # another pool are reported apart
+                    preempted = lease_token.preempted_seconds
                     extra = dict(extra, elapsedSeconds=round(
-                        time.monotonic() - start, 6))
+                        time.monotonic() - start - preempted, 6))
+                    if preempted > 0:
+                        extra["preemptedSeconds"] = round(preempted, 6)
+                        extra["leaseYields"] = lease_token.yields
                     if needs_card:
                         extra["leaseWaitSeconds"] = round(lease_wait, 6)
                     return extra
@@ -431,9 +440,9 @@ class JobManager:
             # name); every nested span — lease, dataLoad, epochs,
             # checkpoint commits — attaches under it through the
             # thread-local stack
-            job_span = obs_trace.span("job", trace=name,
+            job_span = obs_trace.span("job", trace=name, pool=pool,
                                       needsCard=needs_card)
-            obs_export.log_event("job", "start", trace_id=name)
+            obs_export.log_event("job", "start", trace_id=name, pool=pool)
             try:
                 with job_span, faults.use_config(self._config):
                     while True:
@@ -473,7 +482,7 @@ class JobManager:
             self._info[name] = {"description": description,
                                 "parameters": parameters,
                                 "needs_card": needs_card, "token": token}
-        obs_export.log_event("job", "queued", trace_id=name)
+        obs_export.log_event("job", "queued", trace_id=name, pool=pool)
         return future
 
     def _record_failure(self, name: str, description: str, parameters,

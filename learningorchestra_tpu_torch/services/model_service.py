@@ -161,4 +161,5 @@ class ModelService:
 
         self._ctx.jobs.submit(
             name, run, description=description, parameters=class_parameters,
-            needs_card=type_string.endswith(("/tensorflow", "/jax")))
+            needs_card=type_string.endswith(("/tensorflow", "/jax")),
+            pool=type_string.split("/", 1)[0])

@@ -63,8 +63,11 @@ A builder's outputs are read, listed and deleted as datasets are.
 ``POST .../{name}/migrate`` answers 406 "not yet ported", and
 ``/observability/autoscaler`` 404 until the autoscaler is ported.
 ``/metrics`` leaves out the blocks of modules not ported yet (the JAX
-server's ``meshScheduler``, ``meshSecondsByPool``, ``migrationStats``,
-``autoscaler`` and ``executableCache``) rather than faking them;
+server's ``migrationStats``, ``autoscaler`` and ``executableCache``)
+rather than faking them; ``meshScheduler`` and ``meshSecondsByPool`` are
+the card lease's (:meth:`~learningorchestra_tpu_torch.services.jobs.
+JobManager.scheduler_stats`, the ``lo_mesh_*`` and ``lo_slice_*``
+series);
 ``sweepFusion`` is the process's sweep fusion counters
 (:func:`~learningorchestra_tpu_torch.models.sweep.fusion_stats`, the
 ``lo_sweep_*`` series), ``featureCache`` the context's feature cache and
@@ -277,7 +280,11 @@ class Api:
         out["jobsRunning"] = self.ctx.jobs.running()
         out["collections"] = len(self.ctx.catalog.list_collections())
         out["getCache"] = self.read_cache.stats()
+        out["meshSecondsByPool"] = {
+            pool: round(seconds, 3) for pool, seconds in
+            sorted(self.ctx.jobs.mesh_served().items())}
         out["jobLifecycle"] = self.ctx.jobs.lifecycle_counters()
+        out["meshScheduler"] = self.ctx.jobs.scheduler_stats()
         out["trainingHealth"] = health_lib.health_stats()
         out["serving"] = self.ctx.serving.stats()
         # the feature plane's two tiers
@@ -337,6 +344,12 @@ class Api:
             f"lo_jobs_running {m['jobsRunning']}",
             "# TYPE lo_collections gauge",
             f"lo_collections {m['collections']}",
+            "# TYPE lo_mesh_seconds_total counter",
+        ]
+        for pool, seconds in m["meshSecondsByPool"].items():
+            lines.append(
+                f'lo_mesh_seconds_total{{pool="{esc(pool)}"}} {seconds}')
+        lines += [
             "# TYPE lo_get_cache_hits_total counter",
             f"lo_get_cache_hits_total {cache['hits']}",
             "# TYPE lo_get_cache_misses_total counter",
@@ -351,6 +364,21 @@ class Api:
             f"lo_jobs_timed_out_total {lifecycle.get('timedOut', 0)}",
             "# TYPE lo_jobs_stalled gauge",
             f"lo_jobs_stalled {lifecycle.get('stalled', 0)}",
+        ]
+        scheduler = m["meshScheduler"]
+        lines += [
+            "# TYPE lo_lease_wait_seconds_max gauge",
+            f"lo_lease_wait_seconds_max "
+            f"{scheduler.get('leaseWaitMax', 0.0)}",
+            "# TYPE lo_mesh_devices_busy gauge",
+            f"lo_mesh_devices_busy {scheduler.get('devicesBusy', 0)}",
+            "# TYPE lo_slice_grants_total counter",
+        ]
+        for pool, n in sorted(
+                (scheduler.get("grantsByPool") or {}).items()):
+            lines.append(
+                f'lo_slice_grants_total{{pool="{esc(pool)}"}} {n}')
+        lines += [
             "# TYPE lo_job_numerical_retries_total counter",
             f"lo_job_numerical_retries_total "
             f"{lifecycle.get('numericalRetries', 0)}",
@@ -445,12 +473,14 @@ class Api:
         cluster = m.get("cluster")
         if cluster:
             hbm = cluster.get("hbm") or {}
+            sched = cluster.get("scheduler") or {}
             serving_sample = cluster.get("serving") or {}
             xray_sample = cluster.get("xray") or {}
             for metric, value in (
                     ("lo_hbm_bytes_in_use", hbm.get("bytesInUse")),
                     ("lo_hbm_peak_bytes_in_use", hbm.get("peakBytesInUse")),
                     ("lo_hbm_headroom_frac", hbm.get("headroomFrac")),
+                    ("lo_slice_fragmentation", sched.get("fragmentation")),
                     ("lo_serving_queue_depth_total",
                      serving_sample.get("queueDepth")),
                     ("lo_host_rss_bytes", cluster.get("hostRssBytes")),

@@ -31,9 +31,18 @@ into the smallest bucket that holds them and serves each burst with one
 ``predict`` call.
 
 Admission control: a full queue or an unfunded request rejects with
-429, a closed session with 503. Not ported yet: the serving lease and
-``sliceDevices`` (one card has no slice of a mesh to share, so the split
-disaggregated mode is not either).
+429, a closed session with 503.
+
+The card lease: a session made by :class:`ServingManager` holds a
+:class:`~learningorchestra_tpu_torch.services.scheduler.ServingLease`
+(pool ``serving``) from create to delete, on the job manager's fair
+queue. Under ``LO_SERVE_LEASE_POLICY=preempt`` the worker offers the card
+to any waiter between iterations and on each idle tick, takes it back
+through the fair queue and re-pins its params (``_on_reacquired``);
+``hold`` keeps it until the session is deleted. ``stats()["lease"]`` is
+the lease's stats. Not ported: ``sliceDevices`` (one card has no slice
+of a mesh to share, so the split disaggregated mode, with its prefill
+lease, is not either).
 
 Observability (the JAX package's hooks): each request is a trace
 ``serve/{model}/{seq}`` (``request`` with ``queueWait``, the worker's
@@ -73,6 +82,7 @@ from learningorchestra_tpu_torch.runtime import health as health_lib
 from learningorchestra_tpu_torch.runtime import locks
 from learningorchestra_tpu_torch.services import faults
 from learningorchestra_tpu_torch.services import validators as V
+from learningorchestra_tpu_torch.services.scheduler import ServingLease
 
 _IDLE_TICK_SECONDS = 0.05
 
@@ -142,9 +152,12 @@ class _SessionBase:
 
     kind = "base"
 
-    def __init__(self, name: str, ctx):
+    def __init__(self, name: str, ctx, lease: Optional[ServingLease] = None):
         self.name = name
         self._ctx = ctx
+        # the card lease (None: a session built outside the manager,
+        # which nothing arbitrates)
+        self._lease = lease
         self._queue: Deque[_Request] = collections.deque()
         self._depth = int(ctx.config.serve_queue_depth)
         self._cv = locks.make_condition("serving.session")
@@ -234,6 +247,11 @@ class _SessionBase:
                     if self._closed:
                         break
             try:
+                # offer the card to any waiter between iterations and on
+                # each idle tick (preempt policy): a session never holds
+                # it across a contended boundary
+                if self._lease is not None and self._lease.maybe_yield():
+                    self._on_reacquired()
                 if self._have_work():
                     # chaos site (latency mode inflates request latency
                     # for the SLO watchdog's servingP99 alert); gated on
@@ -249,6 +267,9 @@ class _SessionBase:
 
     def _serve_once(self) -> bool:
         raise NotImplementedError
+
+    def _on_reacquired(self) -> None:
+        """After a yield and re-acquire of the lease (re-pin params)."""
 
     def _fail_all(self, error: V.HttpError) -> None:
         with self._cv:
@@ -267,6 +288,8 @@ class _SessionBase:
         self._fail_all(V.HttpError(
             V.HTTP_UNAVAILABLE,
             f"serving session {self.name} was deleted"))
+        if self._lease is not None:
+            self._lease.release()
 
     def _batch_fill(self) -> Optional[float]:
         return None
@@ -287,6 +310,8 @@ class _SessionBase:
             "rejectedTotal": self.rejected_total,
             "uptimeSeconds": round(time.monotonic() - self.created_at, 3),
             "latency": self.latency.snapshot(),
+            "lease": (self._lease.stats() if self._lease is not None
+                      else None),
             "perf": self.perf_stats(),
         }
 
@@ -298,8 +323,9 @@ class LMServingSession(_SessionBase):
 
     def __init__(self, name: str, ctx, model, slots: int, cache_len: int,
                  temperature: float, top_k: Optional[int],
-                 top_p: Optional[float], weights_dtype: str = "bf16"):
-        super().__init__(name, ctx)
+                 top_p: Optional[float], weights_dtype: str = "bf16",
+                 lease: Optional[ServingLease] = None):
+        super().__init__(name, ctx, lease)
         self._model = model
         self.slots = int(slots)
         self.cache_len = int(cache_len)
@@ -368,6 +394,13 @@ class LMServingSession(_SessionBase):
         self._params_entry.release()
         arena_lib.get_default_arena().discard(key)
         obs_xray.release("serving-params", key)
+
+    def _on_reacquired(self) -> None:
+        # the card changed hands while the session was yielded: pin the
+        # params again (an arena hit, since they stayed resident)
+        entry = self._params_entry
+        self._ledger_params()
+        entry.release()
 
     def _ledger_cache(self, **meta: Any) -> None:
         obs_xray.register("kv-cache", ("kv", self.name, id(self)),
@@ -907,7 +940,8 @@ class PagedLMServingSession(LMServingSession):
                  top_p: Optional[float], page_len: int, n_pages: int,
                  tenant_weights: Optional[Dict[str, float]] = None,
                  kv_dtype: str = "bf16", weights_dtype: str = "bf16",
-                 draft_model=None, draft_name: str = "", spec_k: int = 4):
+                 draft_model=None, draft_name: str = "", spec_k: int = 4,
+                 lease: Optional[ServingLease] = None):
         # read by _init_decode_path, which the base __init__ calls
         self._draft = draft_model
         self._draft_name = str(draft_name or "")
@@ -929,7 +963,8 @@ class PagedLMServingSession(LMServingSession):
         self._drift_probes = 0
         self.quant_degrades = 0
         super().__init__(name, ctx, model, slots, cache_len, temperature,
-                         top_k, top_p, weights_dtype=weights_dtype)
+                         top_k, top_p, weights_dtype=weights_dtype,
+                         lease=lease)
         self._ledger_cache(pages=self.n_pages, dtype=self.kv_dtype)
         if self._draft is not None:
             self._init_spec_state()
@@ -1659,7 +1694,8 @@ class DisaggLMServingSession(PagedLMServingSession):
                  top_p: Optional[float], page_len: int, n_pages: int,
                  tenant_weights: Optional[Dict[str, float]] = None,
                  kv_dtype: str = "bf16", weights_dtype: str = "bf16",
-                 draft_model=None, draft_name: str = "", spec_k: int = 4):
+                 draft_model=None, draft_name: str = "", spec_k: int = 4,
+                 lease: Optional[ServingLease] = None):
         self._ready: Deque[Dict[str, Any]] = collections.deque()
         self._handoff_cv = locks.make_condition("serving.handoff")
         self._degrade_pending: Optional[Tuple[str, str]] = None
@@ -1670,7 +1706,7 @@ class DisaggLMServingSession(PagedLMServingSession):
                          top_k, top_p, page_len, n_pages, tenant_weights,
                          kv_dtype=kv_dtype, weights_dtype=weights_dtype,
                          draft_model=draft_model, draft_name=draft_name,
-                         spec_k=spec_k)
+                         spec_k=spec_k, lease=lease)
         self._prefill_thread = threading.Thread(
             target=self._prefill_run, name=f"serving-{name}-prefill",
             daemon=True)
@@ -1882,6 +1918,8 @@ class DisaggLMServingSession(PagedLMServingSession):
             "handoffsTotal": self.handoffs_total,
             "handoffQueue": qlen,
             "handoffFaultStreak": self._handoff_fault_streak,
+            # colocated: the decode lease is the session's one lease
+            "leases": {"decode": out["lease"]},
         }
         return out
 
@@ -1899,8 +1937,9 @@ class BucketServingSession(_SessionBase):
 
     kind = "predict"
 
-    def __init__(self, name: str, ctx, instance):
-        super().__init__(name, ctx)
+    def __init__(self, name: str, ctx, instance,
+                 lease: Optional[ServingLease] = None):
+        super().__init__(name, ctx, lease)
         self._instance = instance
         buckets = sorted({int(b) for b in
                           str(ctx.config.serve_buckets).split(",") if b})
@@ -2058,7 +2097,16 @@ class ServingManager:
                               f"{V.MESSAGE_NONEXISTENT_FILE}: "
                               f"{model_name}")
         instance = self._ctx.artifacts.load(model_name, type_string)
-        session = self._build_session(model_name, instance, body)
+        # the card first: a running fit hands it over at its next epoch
+        # boundary, and a session that fails to build gives it back
+        lease = ServingLease(self._ctx.jobs.slice_lease, pool="serving",
+                             policy=self._ctx.config.serve_lease_policy)
+        lease.acquire()
+        try:
+            session = self._build_session(model_name, instance, body, lease)
+        except BaseException:
+            lease.release()
+            raise
         session.start()
         with self._lock:
             if model_name in self._sessions:  # lost a create race
@@ -2073,7 +2121,8 @@ class ServingManager:
         return session.stats()
 
     def _build_session(self, model_name: str, instance: Any,
-                       body: Dict[str, Any]) -> _SessionBase:
+                       body: Dict[str, Any],
+                       lease: ServingLease) -> _SessionBase:
         kind = body.get("type")
         if kind is None:
             kind = "lm" if hasattr(instance, "serve_fns") else "predict"
@@ -2090,7 +2139,8 @@ class ServingManager:
                     V.HTTP_NOT_ACCEPTABLE,
                     f"{V.MESSAGE_INVALID_FIELD}: {model_name} has no "
                     f"predict method")
-            return BucketServingSession(model_name, self._ctx, instance)
+            return BucketServingSession(model_name, self._ctx, instance,
+                                        lease=lease)
         if not hasattr(instance, "serve_fns"):
             raise V.HttpError(
                 V.HTTP_NOT_ACCEPTABLE,
@@ -2154,7 +2204,7 @@ class ServingManager:
                 parse_tenant_weights(cfg.serve_tenant_weights),
                 kv_dtype=kv_dtype, weights_dtype=weights,
                 draft_model=draft_model, draft_name=draft_name,
-                spec_k=spec_k)
+                spec_k=spec_k, lease=lease)
         if body.get("disagg") or body.get("draft"):
             raise V.HttpError(
                 V.HTTP_NOT_ACCEPTABLE,
@@ -2163,7 +2213,7 @@ class ServingManager:
                 f"handoff or verify step")
         return LMServingSession(model_name, self._ctx, instance, slots,
                                 cache_len, temperature, top_k, top_p,
-                                weights_dtype=weights)
+                                weights_dtype=weights, lease=lease)
 
     def _want_disagg(self, body: Dict[str, Any]) -> bool:
         """The request's ``disagg`` (a JSON bool), else
@@ -2267,8 +2317,8 @@ class ServingManager:
     def stats(self) -> Dict[str, Any]:
         """The fleet view behind ``/metrics``'s ``serving`` block and the
         cluster monitor: totals, each session's stats, the goodput
-        roll-up and the paged-KV roll-up. Sessions hold no lease on one
-        card, so ``leaseYields`` is 0."""
+        roll-up and the paged-KV roll-up. ``leaseYields`` sums the
+        sessions' lease yields."""
         with self._lock:
             sessions = list(self._sessions.values())
         per = [s.stats() for s in sessions]
@@ -2277,7 +2327,8 @@ class ServingManager:
             "requestsTotal": sum(p["requestsTotal"] for p in per),
             "rejectedTotal": sum(p["rejectedTotal"] for p in per),
             "tokensTotal": sum(p.get("tokensTotal", 0) for p in per),
-            "leaseYields": 0,
+            "leaseYields": sum((p.get("lease") or {}).get("yields", 0)
+                               for p in per),
             "bySession": per,
         }
         perf_blocks = [p.get("perf") or {} for p in per]

@@ -67,8 +67,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
 def test_new_modules_are_among_those_probed():
     """The msgpack codec, the checkpointer and its asynchronous commit,
     the encoder, the fault injector, the mixture of experts, the
-    keras-shaped layer stack, ResNet-50, the sweeps and the fused engine
-    are imported by the probe above (none of
+    keras-shaped layer stack, ResNet-50, the sweeps, the fused engine
+    and the card's fair lease are imported by the probe above (none of
     them may import msgpack, flax or the JAX package's copy of
     itself)."""
     names = {m.name for m in pkgutil.walk_packages(
@@ -113,6 +113,7 @@ def test_new_modules_are_among_those_probed():
             "learningorchestra_tpu_torch.runtime.async_ckpt",
             "learningorchestra_tpu_torch.runtime.engine",
             "learningorchestra_tpu_torch.runtime.locks",
+            "learningorchestra_tpu_torch.services.scheduler",
             } <= names
 
 

@@ -39,9 +39,6 @@ torch.set_num_threads(2)
 PREFIX = "/api/learningOrchestra/v1"
 PORT, JAX = "port", "jax"
 LIBS = {PORT: (monitor, slo, hist), JAX: (jax_monitor, jax_slo, jax_hist)}
-# the JAX sampler's collectors (and their series) that the port has not
-# ported yet
-UNPORTED_SAMPLE = {"scheduler"}
 
 
 @pytest.fixture(autouse=True)
@@ -93,11 +90,16 @@ def test_sampler_rings_and_latest_match_jax(tmp_path):
         return {"entries": depth["n"], "bytesInUse": depth["n"] << 20,
                 "evictions": depth["n"] * 3, "hits": 1, "misses": 2}
 
+    def scheduler():
+        # the card lease's counting mode: one lease, busy or not
+        return {"sliced": False, "devicesTotal": None,
+                "devicesBusy": depth["n"] % 2, "fragmentation": 0.0}
+
     made = {}
     for name, (mon, _, _) in LIBS.items():
         made[name] = mon.ClusterMonitor(
-            ring=8, serving_stats=serving, job_stats=jobs,
-            arena_stats=arena,
+            ring=8, scheduler_stats=scheduler, serving_stats=serving,
+            job_stats=jobs, arena_stats=arena,
             device_stats=_fake_devices(in_use=3 << 30, n=2))
     for t in range(12):
         depth["n"] = t % 3
@@ -114,8 +116,9 @@ def test_sampler_rings_and_latest_match_jax(tmp_path):
     assert ours["samples"] == theirs["samples"] == 12
     assert ours["ring"] == theirs["ring"] == 8
     ol, tl = ours["latest"], theirs["latest"]
-    assert set(ol) == set(tl) - UNPORTED_SAMPLE
-    for key in ("devices", "hbm", "arena", "serving", "jobs", "ts"):
+    assert set(ol) == set(tl)
+    for key in ("devices", "hbm", "arena", "scheduler", "serving", "jobs",
+                "ts"):
         assert ol[key] == tl[key]
     assert ours["series"]["arenaBytesInUse"] == \
         theirs["series"]["arenaBytesInUse"]
@@ -346,7 +349,10 @@ def test_cluster_and_alert_routes(slo_api):
     assert set(doc) == {"intervalSeconds", "ring", "samples",
                         "sampleErrors", "latest", "series"}
     assert set(doc["latest"]) == {"ts", "devices", "hbm", "arena",
-                                  "serving", "jobs", "hostRssBytes", "xray"}
+                                  "scheduler", "serving", "jobs",
+                                  "hostRssBytes", "xray"}
+    assert doc["latest"]["scheduler"]["devicesBusy"] == 0
+    assert doc["series"]["sliceDevicesBusy"][0][1] == 0
     assert doc["latest"]["serving"]["sessions"] == 0
     assert doc["latest"]["arena"]["entries"] == 0
     assert "hostRssBytes" in doc["series"]

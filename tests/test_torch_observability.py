@@ -51,21 +51,17 @@ LM_CFG = dict(vocab_size=97, d_model=32, n_layers=2, n_heads=4,
               n_kv_heads=2, max_len=64)
 DENSE = [{"kind": "dense", "units": 4, "activation": "relu"},
          {"kind": "dense", "units": 2, "activation": "softmax"}]
-# /metrics blocks of modules the port has not ported yet: the slice
-# scheduler (meshScheduler, its served seconds by pool), live migration,
-# the autoscaler and the executable cache (sweep fusion's, the feature
+# /metrics blocks of modules the port has not ported yet: live
+# migration, the autoscaler and the executable cache (the card lease's
+# meshScheduler and meshSecondsByPool, sweep fusion's, the feature
 # cache's and the device arena's blocks are ported)
-UNPORTED_KEYS = {"meshScheduler", "meshSecondsByPool", "migrationStats",
-                 "autoscaler", "executableCache"}
+UNPORTED_KEYS = {"migrationStats", "autoscaler", "executableCache"}
 # their Prometheus series, and three that the port cannot have: the
 # compile histogram (it compiles nothing), the bandwidth gauge (torch
 # has no bytes-accessed count of a train step) and the unattributed
 # bytes gauge on the CPU (no allocator count there; on a card it is
 # emitted)
 UNPORTED_SERIES = {
-    "lo_mesh_seconds_total", "lo_lease_wait_seconds_max",
-    "lo_mesh_devices_busy", "lo_slice_grants_total",
-    "lo_slice_fragmentation",
     "lo_executable_cache_hits_total", "lo_executable_cache_misses_total",
     "lo_autoscaler_resizes_total",
     "lo_autoscaler_rollbacks_total", "lo_autoscaler_dead_lettered_total",
@@ -494,6 +490,7 @@ def test_metrics_keys_are_the_jax_servers_less_the_unported(rest):
     assert set(pm["serving"]) == set(jm["serving"])
     assert set(pm["featureCache"]) == set(jm["featureCache"])
     assert set(pm["arena"]) == set(jm["arena"])
+    assert set(pm["meshScheduler"]) == set(jm["meshScheduler"])
     assert set(pm["latencyHistograms"]) == \
         set(jm["latencyHistograms"]) - UNPORTED_SERIES
 
