@@ -246,8 +246,13 @@
    estimators on the card under the card lease (card memory rises in the
    job; after it, card memory less the device arena's resident bytes is
    back within 1 MiB, and within 1 MiB once the arena is cleared), and
-   the sklearn families finish
-   or each fails naming its ``ImportError`` (the line says which); (b) LR
+   DT, RF and GB finish on the host (``engine: "host"``, the port's own
+   trees: no sklearn) with accuracy above 0.6; (a') the same body without
+   ``meshParallel`` (the reference's own): all five finish on the host,
+   each output with its ``prediction`` column, and the DT, RF and GB
+   predictions of both bodies equal the trees' plain Python versions' on
+   the same rows and seed (``LO_NATIVE=0``); the jobs ran the tree core's
+   native path only, and no ``sklearn`` module was loaded; (b) LR
    and NB on 1,000,000 rows of 16 float32 features and 4 classes written
    through the catalog writer, fitted on the card with ``meshParallel``
    and held to the port's CPU fit of the same rows: LR's ``w`` and ``b``
@@ -258,7 +263,12 @@
    (d) the model preflight: a ``NeuralModel`` stack that cannot build on
    its declared input is a 406 with ``shape-mismatch`` and leaves no
    collection, a good one is a 201 whose ``/train`` document carries the
-   heuristic ``footprint``; (e) no flash kernel launches in the phase.
+   heuristic ``footprint``; (e) no flash kernel launches in the phase;
+   (f) the streaming Builder (LR, NB, DT, RF) over the first 50,000 rows
+   of config 4's generator (100,000 test and evaluation rows): each
+   finishes with accuracy above 0.9 and its ``fitTime`` on the line, LR's
+   epoch in the SGD core's native path, its predictions equal to its
+   plain Python version's on the same batch.
 14. The job lifecycle (the ``lifecycle`` line, before ``observe``): the tutorial LM's
    bf16 fit over REST cancelled after its first step (ended
    ``cancelled`` within 2 steps' time plus 0.5 s) and one with ``"timeout":
@@ -326,7 +336,7 @@
    relative (bit equality recorded), each with its step ms (samples/s)
    and the idle share of a profiled epoch; ResNet-50 at batch 64 through
    the three feeds, each twice, ms a step of each; (c)
-   Builder LR with ``meshParallel`` on 250,000 x 16 rows twice: the
+   Builder LR with ``meshParallel`` on 100,000 x 16 rows twice: the
    second run hits the device arena and the feature cache for both
    datasets, reads no table from the catalog and predicts the same; a
    write to the training dataset, then a run that misses, stages again
@@ -5679,6 +5689,14 @@ BASELINE4_ROWS, BASELINE4_SIDE_ROWS, BASELINE4_CHUNK = \
 BASELINE4_WEIGHTS = (1.0, -2.0, 0.5, 1.5, 0.7)
 BASELINE4_MIN_ACCURACY = 0.95
 BASELINE4_PEAK_BYTES = 1 << 30
+# (f) the streaming families over the first rows of config 4's generator
+# (the seeds of the ingest phase's CSVs), the test and evaluation sets at
+# config 4's side size
+STREAM_FAMILIES = ["LR", "NB", "DT", "RF"]
+STREAM_ROWS, STREAM_MIN_ACCURACY = 50_000, 0.9
+# the tree and SGD cores' counters (native/trees.py, native/sgd.py)
+HOST_CORE_OPS = ("tree_fit", "tree_predict", "gb_residuals",
+                 "sgd_partial_fit")
 # (d) a NeuralModel stack whose declared input a conv2d cannot take
 PREFLIGHT_BAD = [{"kind": "input", "shape": [8]},
                  {"kind": "conv2d", "filters": 4, "kernel": 3}]
@@ -5738,6 +5756,32 @@ def _baseline4_chunks(np, rows: int, seed: int):
         yield columns
 
 
+def _titanic_features(np, path):
+    """The tutorial's modelingCode on the CSV at ``path``: (``pclass``,
+    ``sex == female``) and ``survived``."""
+    import csv
+
+    with open(path, newline="") as f:
+        rows = list(csv.DictReader(f))
+    x = np.array([[float(r["pclass"]), float(r["sex"] == "female")]
+                  for r in rows])
+    return x, np.array([int(r["survived"]) for r in rows])
+
+
+def _plain_path(fn):
+    """``fn()`` on the native cores' plain Python versions
+    (``LO_NATIVE=0``, read at every call)."""
+    saved = os.environ.get("LO_NATIVE")
+    os.environ["LO_NATIVE"] = "0"
+    try:
+        return fn()
+    finally:
+        if saved is None:
+            os.environ.pop("LO_NATIVE", None)
+        else:
+            os.environ["LO_NATIVE"] = saved
+
+
 def _centred(params):
     w, b = params["w"], params["b"]
     return w - w.mean(axis=1, keepdims=True), b - b.mean()
@@ -5749,18 +5793,24 @@ def builder_phase(torch, log, home, yard):
     modelingCode of tests/test_server.py, LR/NB/DT/RF/GB with
     ``meshParallel``: LR and NB fitted on the card (torch estimators on
     CUDA, the job under the card lease, card memory rising during the
-    fit and back within 1 MiB after), accuracy above 0.6; the sklearn
-    families finish, or each fails naming its ``ImportError``. (b) LR and
-    NB at 1M rows of 16 features and 4 classes on the card against the
-    port's CPU fit of the same rows. (BASELINE config 4, formerly (c),
-    is the ``ingest`` phase's.) (d) The model preflight: a stack that
-    cannot build on its declared input is a 406 with ``shape-mismatch``,
-    a good one a 201 whose ``/train`` job carries the heuristic
-    ``footprint``. (e) No flash kernel launches. Returns the path's
-    kernel launches (none)."""
+    fit and back within 1 MiB after), DT/RF/GB on the host, accuracy
+    above 0.6. (a') The same body without ``meshParallel``: all five on
+    the host; the trees' predictions in both bodies equal their plain
+    Python versions'. (b) LR and NB at 1M rows of 16 features and 4
+    classes on the card against the port's CPU fit of the same rows.
+    (BASELINE config 4, formerly (c), is the ``ingest`` phase's.) (d) The
+    model preflight: a stack that cannot build on its declared input is a
+    406 with ``shape-mismatch``, a good one a 201 whose ``/train`` job
+    carries the heuristic ``footprint``. (e) No flash kernel launches.
+    (f) The streaming LR, NB, DT and RF over config 4's first 50,000 rows.
+    The host families run the tree and SGD cores' native paths only, and
+    no sklearn module loads. Returns the path's kernel launches (none)."""
     import numpy as np
 
     from learningorchestra_tpu_torch import client as lo_client
+    from learningorchestra_tpu_torch import native
+    from learningorchestra_tpu_torch.models import linear as host_linear
+    from learningorchestra_tpu_torch.models import trees as host_trees
     from learningorchestra_tpu_torch.config import Config
     from learningorchestra_tpu_torch.models.estimators import (
         GaussianNBJAX, LogisticRegressionJAX)
@@ -5787,6 +5837,7 @@ def builder_phase(torch, log, home, yard):
 
     builder_service._make_torch_classifier = recorded_make
     _reset_launches(attn)
+    native.reset_counts()
 
     def run(train, test, code, classifiers, **extra):
         t0 = time.monotonic()
@@ -5845,22 +5896,46 @@ def builder_phase(torch, log, home, yard):
                 abs(cleared - before) > (1 << 20):
             raise AssertionError(f"card memory {before} -> {after} (arena "
                                  f"{resident}), {cleared} after a clear")
-        sklearn = {}
-        for c in ("DT", "RF", "GB"):
-            if metas[c].get("finished"):
-                sklearn[c] = {"accuracy": metas[c]["accuracy"]}
-                continue
-            error = failure(names[families.index(c)])
-            if not error.startswith(("ImportError(",
-                                     "ModuleNotFoundError(")) or \
-                    "sklearn" not in error:
-                raise AssertionError(f"tutorial {c} failed: {error}")
-            sklearn[c] = {"importError": error}
-        tutorial["sklearnFamilies"] = sklearn
+        def host_finished(metas, names, classifiers):
+            """Each host family finished (``engine: "host"``, accuracy
+            above 0.6) with a prediction for every row; its predictions
+            and metrics."""
+            got = {}
+            for c, name in zip(families, names):
+                meta = metas[c]
+                if c not in classifiers:
+                    continue
+                if not meta.get("finished"):
+                    raise AssertionError(f"{name}: {failure(name)}")
+                if meta.get("engine") != "host" or \
+                        not meta.get("accuracy", 0) > 0.6:
+                    raise AssertionError(f"{name}: {meta}")
+                predicted = ctx.catalog.read_columns(name)["prediction"][1]
+                if len(predicted) != TITANIC_ROWS:
+                    raise AssertionError(f"{name}: {len(predicted)} "
+                                         f"predictions")
+                got[c] = (np.asarray(predicted), {
+                    k: meta[k] for k in ("accuracy", "f1", "fitTime")})
+            return got
+
+        tree_families = ("DT", "RF", "GB")
+        mesh_trees = host_finished(metas, names, tree_families)
+        tutorial["hostFamilies"] = {c: m for c, (_, m) in
+                                    mesh_trees.items()}
         rows = client.builder_sparkml.read(names[0], skip=1, limit=3)
         if not all("prediction" in r for r in rows["result"]):
             raise AssertionError(f"tutorial predictions {rows}")
         out["tutorial"] = tutorial
+
+        # (a') the reference's own body: no meshParallel, all five host
+        client.dataset_csv.insert("titanicRef", csv_path)
+        _observe_wait(client, "titanicRef")
+        names, metas, seconds = run(
+            "titanic", "titanicRef", BUILDER_MODELING, families,
+            evaluationDatasetName="titanic")
+        reference = host_finished(metas, names, families)
+        out["referenceBody"] = {"jobSeconds": seconds, **{
+            c: m for c, (_, m) in reference.items()}}
 
         # (b) LR and NB at a million rows, the card against the CPU
         t0 = time.monotonic()
@@ -5948,6 +6023,77 @@ def builder_phase(torch, log, home, yard):
             raise AssertionError(f"footprint {footprint}")
         out["preflight"] = {"badStatus": 406, "rules": rules,
                             "footprint": footprint}
+
+        # (f) the streaming families over config 4's first rows
+        t0 = time.monotonic()
+        for name, rows, seed in (("b4sTrain", STREAM_ROWS, 21),
+                                 ("b4sTest", BASELINE4_SIDE_ROWS, 22),
+                                 ("b4sEval", BASELINE4_SIDE_ROWS, 23)):
+            _write_dataset(ctx, name, _baseline4_chunks(np, rows, seed))
+        write_seconds = time.monotonic() - t0
+        t0 = time.monotonic()
+        uris = client.builder_sparkml.run_builder(
+            "b4sTrain", "b4sTest", "", STREAM_FAMILIES, streaming=True,
+            evaluationDatasetName="b4sEval")
+        stream_names = [u.rsplit("/", 1)[1] for u in uris]
+        ctx.jobs.wait(stream_names[0], timeout=900)
+        streaming = {"rows": STREAM_ROWS, "writeSeconds": write_seconds,
+                     "jobSeconds": time.monotonic() - t0}
+        for c, name in zip(STREAM_FAMILIES, stream_names):
+            meta = client.builder_sparkml.metadata(name)
+            streaming[c] = {k: meta.get(k) for k in (
+                "fitTime", "accuracy", "f1", "trainedOnSample")}
+            if not meta.get("finished") or meta.get("streaming") is not \
+                    True or meta.get("trainedOnSample") is not False or \
+                    not meta.get("accuracy", 0) > STREAM_MIN_ACCURACY:
+                raise AssertionError(f"streaming {c}: {meta}")
+        out["streaming"] = streaming
+
+        # every host family above ran the cores' native paths only
+        counts = native.counts()
+        host_cores = {op: counts.get(op, {}) for op in HOST_CORE_OPS}
+        out["hostCores"] = host_cores
+        if any(not paths.get("native", {}).get("calls") or
+               "python" in paths for paths in host_cores.values()):
+            raise AssertionError(f"the host cores' paths: {host_cores}")
+
+        # the plain Python versions on the same rows and seeds
+        x, y = _titanic_features(np, csv_path)
+        t0 = time.monotonic()
+        plain = _plain_path(lambda: {
+            c: make().fit(x, y).predict(x) for c, make in (
+                ("DT", host_trees.DecisionTreeClassifier),
+                ("RF", host_trees.RandomForestClassifier),
+                ("GB", host_trees.GradientBoostingClassifier))})
+        plain_equal = {c: bool(np.array_equal(plain[c], reference[c][0])
+                               and np.array_equal(plain[c],
+                                                  mesh_trees[c][0]))
+                       for c in plain}
+        train = next(_baseline4_chunks(np, STREAM_ROWS, 21))
+        test = next(_baseline4_chunks(np, BASELINE4_SIDE_ROWS, 22))
+        feats = [f"f{i}" for i in range(len(BASELINE4_WEIGHTS))]
+
+        def plain_sgd():
+            clf = host_linear.SGDClassifier().partial_fit(
+                np.column_stack([train[f] for f in feats]), train["label"],
+                classes=np.array([0, 1]))
+            return clf.predict(np.column_stack([test[f] for f in feats]))
+
+        sgd_plain = _plain_path(plain_sgd)
+        lr_job = ctx.catalog.read_columns(
+            stream_names[STREAM_FAMILIES.index("LR")])["prediction"][1]
+        plain_equal["streamingLR"] = bool(np.array_equal(
+            sgd_plain, np.asarray(lr_job)))
+        out["plainEqual"] = plain_equal
+        out["plainSeconds"] = time.monotonic() - t0
+        if not all(plain_equal.values()):
+            raise AssertionError(f"the native cores against their plain "
+                                 f"versions: {plain_equal}")
+        sklearn_modules = sorted(m for m in sys.modules
+                                 if m.split(".")[0] == "sklearn")
+        out["sklearnModules"] = sklearn_modules
+        if sklearn_modules:
+            raise AssertionError(f"sklearn loaded: {sklearn_modules}")
     finally:
         builder_service._make_torch_classifier = make_torch
         server.stop()
@@ -7612,7 +7758,7 @@ def observe_phase(torch, log, home, yard):
 FP_WIDE_MODELING = WIDE_MODELING
 # (c)'s rows: hits, misses and equal predictions do not depend on the
 # size, and the builder phase keeps the card's 1M-row LR/NB
-FP_BUILDER_ROWS = 250_000
+FP_BUILDER_ROWS = 100_000
 FP_CANCEL_AT_STEP = 5
 # optimizer steps in a profiled epoch: the LM's (2 steps, as the train
 # phase's window), the CNN's 8 times as many
@@ -7831,7 +7977,7 @@ def feature_plane_phase(torch, log, home, yard):
     through those feeds and a copy in each step: losses within 1e-5
     relative (bit equality recorded), step time, samples/s and idle share
     each; ResNet-50 through the three feeds, ms a step. (c) Builder LR with
-    ``meshParallel`` on 250,000 x 16 rows, twice on the same versions: the
+    ``meshParallel`` on 100,000 x 16 rows, twice on the same versions: the
     second run hits the arena and the feature cache for both datasets,
     reads no table from the catalog and predicts the same; a write to the
     training dataset, and the next run misses, stages again and the old
@@ -7999,7 +8145,7 @@ def feature_plane_phase(torch, log, home, yard):
     ctx.catalog.read_table = counted_read
     m0 = (ctx.features.stats(), arena.stats())
     try:
-        # (c) Builder LR on 250,000 x 16 rows: cold, warm, then a write
+        # (c) Builder LR on 100,000 x 16 rows: cold, warm, then a write
         xw, yw = _wide_data(np, WIDE_ROWS, seed=11)
         xt, yt = _wide_data(np, WIDE_TEST_ROWS, seed=12)
         xb, yb = xw[:FP_BUILDER_ROWS], yw[:FP_BUILDER_ROWS]

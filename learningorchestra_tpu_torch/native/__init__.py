@@ -4,7 +4,12 @@
   (``csrc/locore.cpp`` ``lo_hgb_*``), bound by :mod:`.hgb`;
 - ``csv_core``: CSV ingest, query masks, value counts and the batch
   gather (the rest of ``locore.cpp``, typed by the port's kinds), bound
-  by :mod:`.ops`.
+  by :mod:`.ops`;
+- ``tree_core``: scikit-learn's exact best-split tree (the Builder's DT,
+  each tree of its RF and each stage of its GB) and GB's residuals, bound
+  by :mod:`.trees`;
+- ``sgd_core``: the per-row log-loss SGD epoch of the Builder's streaming
+  LR, bound by :mod:`.sgd`.
 
 Each source is compiled with ``g++ -O3`` at first use, never at import,
 into ``build/native/`` beside the package, under a name that carries a
@@ -38,6 +43,7 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 HGB, CSV = "hgb_core", "csv_core"
+TREE, SGD = "tree_core", "sgd_core"
 _NO_COMPILER = "no g++ on PATH"
 
 
@@ -93,10 +99,40 @@ def _bind_csv(lib: ctypes.CDLL) -> ctypes.CDLL:
     return lib
 
 
+def _bind_tree(lib: ctypes.CDLL) -> ctypes.CDLL:
+    c = ctypes
+    i64, ptr = c.c_int64, c.c_void_p
+    lib.lo_tree_fit.restype = ptr
+    lib.lo_tree_fit.argtypes = [ptr, i64, i64, ptr, ptr, ptr, c.c_int32,
+                                i64, i64, i64, c.c_uint32]
+    lib.lo_tree_node_count.restype = i64
+    lib.lo_tree_node_count.argtypes = [ptr]
+    lib.lo_tree_export.restype = None
+    lib.lo_tree_export.argtypes = [ptr] * 6
+    lib.lo_tree_free.restype = None
+    lib.lo_tree_free.argtypes = [ptr]
+    lib.lo_tree_predict.restype = None
+    lib.lo_tree_predict.argtypes = [ptr, ptr, ptr, ptr, ptr, i64, i64, ptr]
+    lib.lo_gb_residuals.restype = None
+    lib.lo_gb_residuals.argtypes = [ptr, i64, i64, ptr, ptr]
+    return lib
+
+
+def _bind_sgd(lib: ctypes.CDLL) -> ctypes.CDLL:
+    c = ctypes
+    lib.lo_sgd_partial_fit.restype = c.c_int32
+    lib.lo_sgd_partial_fit.argtypes = [
+        c.c_void_p, c.c_void_p, c.c_void_p, c.c_int64, c.c_int64,
+        c.c_void_p, c.c_void_p, c.c_double, c.c_double]
+    return lib
+
+
 # name -> (ABI version, its symbol, binder)
 _CORES: Dict[str, tuple] = {
     HGB: (1, "lo_hgb_abi_version", _bind_hgb),
     CSV: (1, "lo_csv_abi_version", _bind_csv),
+    TREE: (1, "lo_tree_abi_version", _bind_tree),
+    SGD: (1, "lo_sgd_abi_version", _bind_sgd),
 }
 
 _lock = locks.make_lock("native.registry")

@@ -15,19 +15,24 @@ predictions stored as the collection ``{testDatasetName}{classifier}``
 with ``classifier`` and ``fitTime`` on its metadata. A classifier that
 fails documents its own output and the others still run.
 
+- Without ``meshParallel`` every family is the port's host counterpart
+  of the sklearn estimator the JAX package builds, fitted on a host
+  thread (``engine: "host"``; the JAX package writes ``"sklearn"``): DT,
+  RF and GB over the port's C++ tree core
+  (:mod:`~learningorchestra_tpu_torch.models.trees`), LR and NB on numpy
+  and scipy (:mod:`~learningorchestra_tpu_torch.models.linear`). Nothing
+  imports sklearn.
 - ``meshParallel: true``: LR and NB are the port's torch estimators
   (:mod:`~learningorchestra_tpu_torch.models.estimators`) fitted on the
   context's device (the card) one after the other, under the card lease
-  (``engine: "torch"``, ``meshDevices: 1``); the other families are
-  sklearn estimators fitted on host threads. Without it every family is
-  sklearn's (``engine: "sklearn"``). sklearn is imported inside the job:
-  on a machine without it those classifiers fail with its
-  ``ImportError``.
+  (``engine: "torch"``, ``meshDevices: 1``); DT, RF and GB stay the host
+  counterparts, on host threads.
 - ``streaming: true`` (exclusive with ``meshParallel``; no
   ``modelingCode``): one pass per classifier over the catalog's
   ``iter_batches`` (``labelColumn``, ``featureColumns``, ``batchSize``).
-  LR and NB take every row through ``partial_fit``, DT and RF a bounded
-  reservoir sample; GB is the full-data histogram booster
+  LR (log-loss SGD in the port's C++ core) and NB take every row through
+  ``partial_fit``, DT and RF a bounded reservoir sample; GB is the
+  full-data histogram booster
   (:mod:`~learningorchestra_tpu_torch.native.hgb`, the port's C++ core):
   pass 1 samples rows for the bin edges, pass 2 bins every row to uint8
   codes, and every row contributes gradients to every iteration
@@ -55,6 +60,7 @@ import numpy as np
 
 from learningorchestra_tpu_torch import analysis as A
 from learningorchestra_tpu_torch.catalog import documents as D
+from learningorchestra_tpu_torch.models import linear, trees
 from learningorchestra_tpu_torch.services import sandbox
 from learningorchestra_tpu_torch.services import validators as V
 
@@ -73,7 +79,9 @@ LABEL_COLUMN = "label"
 CLASSIFIER_NAMES = ("LR", "DT", "RF", "GB", "NB")
 
 # families with a torch estimator on the card under meshParallel=true
-# (the linear-algebra ones; trees keep host sklearn)
+# (the linear-algebra ones; the trees stay on the host, as the JAX
+# package's do: data-dependent branching has no accelerator mapping worth
+# forcing)
 _TORCH_FAMILIES = ("LR", "NB")
 # streaming families that see every row through partial_fit; the others
 # train on the reservoir (GB on its own full-data pass)
@@ -84,18 +92,14 @@ _RESERVOIR_CAP = 500_000
 
 
 def _make_classifier(name: str):
-    from sklearn.ensemble import (GradientBoostingClassifier,
-                                  RandomForestClassifier)
-    from sklearn.linear_model import LogisticRegression
-    from sklearn.naive_bayes import GaussianNB
-    from sklearn.tree import DecisionTreeClassifier
-
+    """The host counterpart of the sklearn estimator the JAX package's
+    Builder builds for the family."""
     return {
-        "LR": lambda: LogisticRegression(max_iter=1000),
-        "DT": DecisionTreeClassifier,
-        "RF": RandomForestClassifier,
-        "GB": GradientBoostingClassifier,
-        "NB": GaussianNB,
+        "LR": linear.LogisticRegression,  # sklearn's at max_iter=1000
+        "DT": trees.DecisionTreeClassifier,
+        "RF": trees.RandomForestClassifier,
+        "GB": trees.GradientBoostingClassifier,
+        "NB": linear.GaussianNB,
     }[name]()
 
 
@@ -110,16 +114,11 @@ def _make_streaming_classifier(name: str):
     """The streaming estimator of a family other than GB (the full-data
     booster): incremental twins for ``_INCREMENTAL``, the tree families
     for the bounded reservoir."""
-    from sklearn.ensemble import RandomForestClassifier
-    from sklearn.linear_model import SGDClassifier
-    from sklearn.naive_bayes import GaussianNB
-    from sklearn.tree import DecisionTreeClassifier
-
     return {
-        "LR": lambda: SGDClassifier(loss="log_loss"),
-        "NB": GaussianNB,
-        "RF": lambda: RandomForestClassifier(n_jobs=1),
-        "DT": DecisionTreeClassifier,
+        "LR": linear.SGDClassifier,  # sklearn's at loss="log_loss"
+        "NB": linear.GaussianNB,
+        "RF": trees.RandomForestClassifier,
+        "DT": trees.DecisionTreeClassifier,
     }[name]()
 
 
@@ -587,7 +586,7 @@ class BuilderService:
             metrics["meshDevices"] = 1
         else:
             clf = _make_classifier(classifier_name)
-            metrics["engine"] = "sklearn"
+            metrics["engine"] = "host"
         t0 = time.perf_counter()
         clf.fit(x_train, y_train)
         fit_time = time.perf_counter() - t0

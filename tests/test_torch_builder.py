@@ -10,9 +10,14 @@ JAX package's ``Api`` and the port's on the same datasets and code.
   keys (``compileSeconds``, ``perf``, ``sliceHistory``) are not ported;
   ``engine`` is ``"torch"`` where JAX writes ``"jax"`` and
   ``meshDevices`` is 1 (one card).
-- Predictions: NB and GB equal, LR >= 99% equal (the JAX mesh fit
-  shuffles on the device in an order the port does not draw), the
-  sklearn families equal where they are deterministic.
+- Predictions: NB and GB equal, LR >= 99% equal on the card (the JAX
+  mesh fit shuffles on the device in an order the port does not draw)
+  and equal on the host. The port's host families are its own
+  counterparts of the JAX package's sklearn estimators (``engine:
+  "host"`` where JAX writes ``"sklearn"``): DT and GB predict as sklearn
+  does wherever sklearn does not depend on its unseeded feature order
+  (the tutorial's ``pclass``/``sex`` rows; GB on the continuous rows
+  here), RF, drawn from its own seed, within 0.05 accuracy.
 - ``accuracy`` and ``f1`` equal sklearn's ``accuracy_score`` and
   ``f1_score(average="weighted")`` of the port's predictions within
   1e-12 (the port counts a confusion matrix; sklearn's sums run in
@@ -21,8 +26,8 @@ JAX package's ``Api`` and the port's on the same datasets and code.
   ``read_columns`` raise), GB trains on every row and DT on a reservoir
   that holds them all.
 - A failed classifier documents its own output and the others finish;
-  with sklearn unimportable, DT fails naming the ``ImportError`` while
-  LR and NB finish on the port's torch estimators.
+  with sklearn unimportable, every family finishes, with and without
+  ``meshParallel`` and streaming.
 
 The JAX side runs user code in its ``restricted`` sandbox (its jailed
 child takes ~5 s to start); the port in its default ``subprocess`` one.
@@ -68,6 +73,34 @@ def _synth(n, seed):
     return columns
 
 
+# the tutorial's section 6: a Titanic-shaped table (tests/test_server.py's
+# generator) and its modelingCode on ``pclass`` and ``sex``
+TITANIC_ROWS = 891
+TITANIC_MODELING = (
+    "import numpy as np\n"
+    "def feats(df):\n"
+    "    return np.stack([df['pclass'].to_numpy(float),"
+    " (df['sex']=='female').to_numpy(float)], axis=1)\n"
+    "features_training = (feats(training_df),"
+    " training_df['survived'].to_numpy('int64'))\n"
+    "features_evaluation = features_training\n"
+    "features_testing = feats(testing_df)\n")
+
+
+def _titanic(n=TITANIC_ROWS, seed=7):
+    rng = np.random.default_rng(seed)
+    rows = []
+    for _ in range(n):
+        pclass = int(rng.integers(1, 4))
+        sex = str(rng.choice(["male", "female"]))
+        rng.uniform(1, 70), rng.uniform(5, 200)  # age, fare
+        survived = int(rng.random() < (0.8 if sex == "female" else 0.2))
+        rows.append((pclass, sex, survived))
+    pclass, sex, survived = zip(*rows)
+    return {"pclass": np.array(pclass, np.int64), "sex": np.array(sex),
+            "survived": np.array(survived, np.int64)}
+
+
 DATASETS = {"mp_train": (4096, 7), "mp_test": (1024, 8),
             "pl_test": (1024, 8),
             "st_train": (20000, 0), "st_test": (2000, 1),
@@ -100,6 +133,7 @@ def apis(tmp_path_factory):
         for arrow, api in zip((True, False), pair):
             for name, (n, seed) in DATASETS.items():
                 _write(api.ctx.catalog, name, _synth(n, seed), arrow)
+            _write(api.ctx.catalog, "titanic", _titanic(), arrow)
         yield pair
     finally:
         for api in pair:
@@ -163,12 +197,12 @@ def test_mesh_parallel_pipeline_answers_as_jax(apis):
     _compare(jax_out, port_out, ["LR", "NB", "DT"])
     y = _synth(*DATASETS["mp_test"])["label"]
     for c, engine, devices in (("LR", "torch", 1), ("NB", "torch", 1),
-                               ("DT", "sklearn", None)):
+                               ("DT", "host", None)):
         meta, rows, _ = port_out[c]
         assert meta["engine"] == engine and meta.get("meshDevices") == \
             devices
         assert jax_out[c][0]["engine"] == ("sklearn" if engine ==
-                                           "sklearn" else "jax")
+                                           "host" else "jax")
         assert meta["accuracy"] > 0.9
         _assert_metrics_are_sklearns(meta, y, _predictions(rows))
     # the job held the card lease: the first output records its wait
@@ -184,24 +218,62 @@ def test_mesh_parallel_pipeline_answers_as_jax(apis):
 
 
 def test_plain_pipeline_fits_sklearn_as_jax(apis):
+    """Without ``meshParallel`` the port fits its host counterparts of the
+    JAX package's sklearn estimators (``engine: "host"``): LR, NB and GB
+    predict as JAX does on every test row (GB's sklearn trees do not
+    depend on their unseeded feature order on these rows), with equal
+    accuracy and f1."""
     # a test set of its own: the JAX package attributes its traces by
     # collection name, so a reused output name would carry the mesh
     # job's lease wait into this job's metadata
+    families = ["LR", "NB", "GB"]
     body = {"trainDatasetName": "mp_train", "testDatasetName": "pl_test",
             "evaluationDatasetName": "pl_test", "modelingCode": MODELING,
-            "classifiersList": ["LR", "NB"]}
+            "classifiersList": families}
     answers = [_run(api, body) for api in apis]
     assert answers[1] == answers[0]
-    jax_out, port_out = (_outputs(api, "pl_test", ["LR", "NB"])
+    jax_out, port_out = (_outputs(api, "pl_test", families)
                          for api in apis)
-    _compare(jax_out, port_out, ["LR", "NB"])
-    for c in ("LR", "NB"):
-        assert port_out[c][0]["engine"] == "sklearn"
+    _compare(jax_out, port_out, families)
+    for c in families:
+        assert port_out[c][0]["engine"] == "host"
+        assert jax_out[c][0]["engine"] == "sklearn"
         assert np.array_equal(_predictions(port_out[c][1]),
                               _predictions(jax_out[c][1]))
         for key in ("accuracy", "f1"):
             assert port_out[c][0][key] == pytest.approx(
                 jax_out[c][0][key], rel=1e-12, abs=0)
+
+
+def test_the_reference_body_fits_five_families_as_jax(apis):
+    """The tutorial's section 6 without ``meshParallel`` (the reference's
+    own body): all five families finish on the host; DT and GB predict
+    every row as the JAX package's sklearn trees do (on ``pclass`` and
+    ``sex`` their splits never tie), LR and NB too, and RF, whose trees
+    the port draws from its own seed, within 0.05 accuracy."""
+    families = ["LR", "NB", "DT", "RF", "GB"]
+    body = {"trainDatasetName": "titanic", "testDatasetName": "titanic",
+            "evaluationDatasetName": "titanic",
+            "modelingCode": TITANIC_MODELING, "classifiersList": families}
+    answers = [_run(api, body) for api in apis]
+    assert answers[1] == answers[0]
+    jax_out, port_out = (_outputs(api, "titanic", families)
+                         for api in apis)
+    _compare(jax_out, port_out, families)
+    y = _titanic()["survived"]
+    for c in families:
+        meta, rows, _ = port_out[c]
+        assert meta["engine"] == "host" and meta["accuracy"] > 0.6
+        assert all("prediction" in r for r in rows)
+        _assert_metrics_are_sklearns(meta, y, _predictions(rows))
+        if c == "RF":
+            assert abs(meta["accuracy"] - jax_out[c][0]["accuracy"]) < 0.05
+            continue
+        assert np.array_equal(_predictions(rows),
+                              _predictions(jax_out[c][1])), c
+        for key in ("accuracy", "f1"):
+            assert meta[key] == pytest.approx(jax_out[c][0][key],
+                                              rel=1e-12, abs=0)
 
 
 def test_streaming_pipeline_never_reads_a_whole_dataset(apis, monkeypatch):
@@ -352,24 +424,41 @@ def test_a_failed_classifier_documents_its_own_output_as_jax(
 
 def test_without_sklearn_dt_fails_and_the_card_families_finish(
         apis, monkeypatch):
+    """With sklearn unimportable every family finishes (the name is kept
+    from when DT, RF and GB needed sklearn): the five with and without
+    ``meshParallel``, and the four streaming ones (LR, NB, DT, RF)."""
     port = apis[1]
     for name in [m for m in sys.modules if m.split(".")[0] == "sklearn"]:
         monkeypatch.setitem(sys.modules, name, None)
     monkeypatch.setitem(sys.modules, "sklearn", None)
-    _write(port.ctx.catalog, "nosk_test", _synth(256, 6), False)
-    body = {"trainDatasetName": "mp_train", "testDatasetName": "nosk_test",
-            "evaluationDatasetName": "nosk_test",
-            "modelingCode": MODELING, "classifiersList": ["LR", "NB", "DT"],
-            "meshParallel": True}
+    families = ["LR", "NB", "DT", "RF", "GB"]
+    for test, extra, engines in (
+            ("nosk_test", {"meshParallel": True},
+             {"LR": "torch", "NB": "torch"}),
+            ("nosk_plain", {}, {})):
+        _write(port.ctx.catalog, test, _synth(256, 6), False)
+        body = {"trainDatasetName": "mp_train", "testDatasetName": test,
+                "evaluationDatasetName": test, "modelingCode": MODELING,
+                "classifiersList": families, **extra}
+        assert _run(port, body)[0] == 201
+        out = _outputs(port, test, families)
+        for c in families:
+            meta = out[c][0]
+            assert meta["finished"], (test, c, out[c][2])
+            assert meta["engine"] == engines.get(c, "host")
+            assert meta["accuracy"] > 0.9  # metrics without sklearn
+    streaming = ["LR", "NB", "DT", "RF"]
+    body = {"trainDatasetName": "st_train", "testDatasetName": "st_nosk",
+            "evaluationDatasetName": "st_eval",
+            "classifiersList": streaming, "streaming": True,
+            "batchSize": 4096}
+    _write(port.ctx.catalog, "st_nosk", _synth(500, 9), False)
     assert _run(port, body)[0] == 201
-    out = _outputs(port, "nosk_test", ["LR", "NB", "DT"])
-    for c in ("LR", "NB"):
-        assert out[c][0]["finished"] and out[c][0]["engine"] == "torch"
-        assert out[c][0]["accuracy"] > 0.9  # metrics without sklearn
-    errors = [d["exception"] for d in out["DT"][2] if d.get("exception")]
-    assert not out["DT"][0]["finished"]
-    assert errors[0].startswith(("ImportError(", "ModuleNotFoundError("))
-    assert "sklearn" in errors[0]
+    out = _outputs(port, "st_nosk", streaming)
+    for c in streaming:
+        assert out[c][0]["finished"] and out[c][0]["streaming"] is True
+        assert out[c][0]["accuracy"] > 0.9, (c, out[c][0])
+        assert len(out[c][1]) == 500
 
 
 def test_client_runs_the_builder_over_http(apis, tmp_path):

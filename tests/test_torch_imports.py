@@ -2,8 +2,8 @@
 ``learningorchestra_tpu_torch`` (the msgpack codec, the checkpointer and
 its asynchronous commit, the encoder, the fault injector, the mixture of experts, the keras-shaped
 layers, the sweeps, the client, the sandbox, the function service, the
-lint, the Builder, its estimators, the booster core's binding and the
-CSV core's among them) loads
+lint, the Builder, its estimators, the booster core's binding, the
+CSV core's and the tree and SGD cores' among them) loads
 neither JAX, flax nor any module of the JAX package, nor pandas,
 pyarrow, dill, msgpack, sklearn, matplotlib, seaborn, h5py, keras,
 tensorflow or tf_keras (the card's machine has none of the first four,
@@ -11,10 +11,13 @@ and the others only where they happen to be installed: the explore route
 imports matplotlib and seaborn inside its job, the keras readers and
 writers h5py and keras inside the calls that need them), the tensorflow
 shim's layers, optimizers and losses load no torch, and
-``chip_smoke.py`` refuses to run without a card."""
+``chip_smoke.py`` refuses to run without a card; and no source of the
+port imports sklearn anywhere (the Builder's families are the port's
+own)."""
 
 import os
 import pkgutil
+import re
 import subprocess
 import sys
 
@@ -114,7 +117,43 @@ def test_new_modules_are_among_those_probed():
             "learningorchestra_tpu_torch.runtime.engine",
             "learningorchestra_tpu_torch.runtime.locks",
             "learningorchestra_tpu_torch.services.scheduler",
+            "learningorchestra_tpu_torch.native.trees",
+            "learningorchestra_tpu_torch.native.sgd",
+            "learningorchestra_tpu_torch.models.trees",
+            "learningorchestra_tpu_torch.models.linear",
             } <= names
+
+
+# an import of sklearn anywhere in a source line: a statement at any
+# depth (a job-time import inside a function too) or a dynamic import
+_SKLEARN_IMPORT = re.compile(
+    r"^\s*(import\s+sklearn\b|from\s+sklearn\b)|"
+    r"(import_module|__import__)\(\s*[\"']sklearn\b", re.M)
+
+
+def test_no_source_of_the_port_imports_sklearn():
+    """The card's machine has no sklearn: no module of the port imports
+    it, also not inside a function, where the probe above, which only
+    imports the modules, would not see it."""
+    package = os.path.join(ROOT, "learningorchestra_tpu_torch")
+    offenders, scanned = [], 0
+    for folder, _, files in os.walk(package):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(folder, name)
+            with open(path, encoding="utf-8") as f:
+                text = f.read()
+            scanned += 1
+            for match in _SKLEARN_IMPORT.finditer(text):
+                line = text.count("\n", 0, match.start()) + 1
+                offenders.append(f"{os.path.relpath(path, ROOT)}:{line}")
+    assert scanned >= 80
+    assert offenders == []
+    assert _SKLEARN_IMPORT.search("def f():\n    from sklearn.tree import "
+                                  "DecisionTreeClassifier\n")
+    assert _SKLEARN_IMPORT.search("importlib.import_module('sklearn.svm')")
+    assert not _SKLEARN_IMPORT.search("# sklearn's defaults\n")
 
 
 OBSERVABILITY = ("export", "hist", "incidents", "monitor", "perf", "slo",
