@@ -253,7 +253,7 @@
    predictions of both bodies equal the trees' plain Python versions' on
    the same rows and seed (``LO_NATIVE=0``); the jobs ran the tree core's
    native path only, and no ``sklearn`` module was loaded; (b) LR
-   and NB on 1,000,000 rows of 16 float32 features and 4 classes written
+   and NB on 250,000 rows of 16 float32 features and 4 classes written
    through the catalog writer, fitted on the card with ``meshParallel``
    and held to the port's CPU fit of the same rows: LR's ``w`` and ``b``
    centred over the classes within 1e-2 of the largest ``|w|`` and
@@ -336,7 +336,7 @@
    relative (bit equality recorded), each with its step ms (samples/s)
    and the idle share of a profiled epoch; ResNet-50 at batch 64 through
    the three feeds, each twice, ms a step of each; (c)
-   Builder LR with ``meshParallel`` on 100,000 x 16 rows twice: the
+   Builder LR with ``meshParallel`` on 50,000 x 16 rows twice: the
    second run hits the device arena and the feature cache for both
    datasets, reads no table from the catalog and predicts the same; a
    write to the training dataset, then a run that misses, stages again
@@ -385,13 +385,28 @@
    ``LO_SERVE_LEASE_POLICY=hold`` a fit waits until the session is
    deleted; (e) under ``LO_MESH_YIELD=0`` the fit never yields and the
    evaluate waits for its end; exact launches of the path.
+21. The process group (the ``distributed`` line, last): (a) a world of
+   one on NCCL (``all_reduce``, ``broadcast``, ``barrier`` on CUDA
+   tensors); (b) four gloo ranks sharing the card: ring and Ulysses
+   attention at the training shape against the whole-sequence kernel
+   (float32 within relative L2 1e-4; bf16 recorded), exact launches per
+   rank, the bytes staged through the host, and the tutorial LM's
+   sharded float32 first step at dp=2, sp=2 ring and sp=2 Ulysses
+   against the one-rank step (1e-4); (c) two pods of two entry points
+   under ``learningorchestra_tpu_torch.cluster``'s supervisor: REST fits
+   at ``LO_MESH_SHAPE=dp=2`` and, ring then Ulysses, at ``sp=2``, losses
+   within 1% of the one-rank fit, each rank's launches exact; (d) a
+   member SIGKILLed mid-fit: ``WorkerLost`` and ``podFailure`` within the
+   heartbeat bound, then the supervisor's restart. Launches of the
+   pods' fits (summed over ranks) are the ``distributed`` path; they
+   run in other processes, whose epoch records report them.
 
 The kernel launch counts are zeroed just before each path and read
 just after it. ``python3 chip_smoke.py --only neural`` (or ``--only
 keras``, ``--only fusion``, ``--only ckptAsync``, ``--only function``,
 ``--only transform``, ``--only builder``, ``--only ingest``, ``--only
 lifecycle``, ``--only scheduler``, ``--only observe``, ``--only
-featurePlane``, or several,
+featurePlane``, ``--only distributed``, or several,
 comma-separated)
 builds the kernels
 and runs that phase alone (to iterate on it), printing its line and no
@@ -5666,6 +5681,9 @@ BUILDER_MODELING = (
 # 4 classes; the modeling code works on a DataFrame and on a Table
 WIDE_ROWS, WIDE_TEST_ROWS, WIDE_FEATURES, WIDE_CLASSES = \
     1_000_000, 100_000, 16, 4
+# the builder phase's (b) card-against-CPU LR and NB: the first 250,000
+# of those rows (the checks compare two fits of the same rows)
+BUILDER_WIDE_ROWS = 250_000
 WIDE_MODELING = (
     "import numpy as np\n"
     f"feats = ['f%d' % i for i in range({WIDE_FEATURES})]\n"
@@ -5796,7 +5814,7 @@ def builder_phase(torch, log, home, yard):
     fit and back within 1 MiB after), DT/RF/GB on the host, accuracy
     above 0.6. (a') The same body without ``meshParallel``: all five on
     the host; the trees' predictions in both bodies equal their plain
-    Python versions'. (b) LR and NB at 1M rows of 16 features and 4
+    Python versions'. (b) LR and NB at 250,000 rows of 16 features and 4
     classes on the card against the port's CPU fit of the same rows.
     (BASELINE config 4, formerly (c), is the ``ingest`` phase's.) (d) The
     model preflight: a stack that cannot build on its declared input is a
@@ -5937,9 +5955,9 @@ def builder_phase(torch, log, home, yard):
         out["referenceBody"] = {"jobSeconds": seconds, **{
             c: m for c, (_, m) in reference.items()}}
 
-        # (b) LR and NB at a million rows, the card against the CPU
+        # (b) LR and NB on wide rows, the card against the CPU
         t0 = time.monotonic()
-        x, y = _wide_data(np, WIDE_ROWS, seed=11)
+        x, y = _wide_data(np, BUILDER_WIDE_ROWS, seed=11)
         xt, yt = _wide_data(np, WIDE_TEST_ROWS, seed=12)
         for name, (xs, ys) in (("wide", (x, y)), ("wideTest", (xt, yt))):
             columns = {f"f{i}": xs[:, i] for i in range(WIDE_FEATURES)}
@@ -5953,7 +5971,7 @@ def builder_phase(torch, log, home, yard):
                    for m in metas.values()):
             raise AssertionError(f"wide fits {metas}")
         card = {type(clf).__name__: clf for clf in made}
-        wide = {"rows": WIDE_ROWS, "writeAndJobSeconds":
+        wide = {"rows": BUILDER_WIDE_ROWS, "writeAndJobSeconds":
                 time.monotonic() - t0, "jobSeconds": seconds}
         predictions = {c: ctx.catalog.read_columns(n)["prediction"][1]
                        for c, n in zip(("LR", "NB"), names)}
@@ -7757,15 +7775,15 @@ def observe_phase(torch, log, home, yard):
 # builder phase's wide shape, (e)'s and (f)'s arena budget, (g)'s child
 FP_WIDE_MODELING = WIDE_MODELING
 # (c)'s rows: hits, misses and equal predictions do not depend on the
-# size, and the builder phase keeps the card's 1M-row LR/NB
-FP_BUILDER_ROWS = 100_000
+# size
+FP_BUILDER_ROWS = 50_000
 FP_CANCEL_AT_STEP = 5
 # optimizer steps in a profiled epoch: the LM's (2 steps, as the train
 # phase's window), the CNN's 8 times as many
 FP_PROFILE_STEPS = 2
 # (b): ResNet-50's steps an epoch in its feed comparison, and the order
 # of its runs
-FP_RESNET_STEPS = 8
+FP_RESNET_STEPS = 4
 FP_RESNET_ORDER = ("perStep", "prefetch", "staged", "staged", "prefetch",
                    "perStep")
 # (e): a budget that holds one staged copy of the wide dataset (72 MiB
@@ -8127,6 +8145,29 @@ def feature_plane_phase(torch, log, home, yard):
     t_part = time.monotonic()
     out["resnet50"] = _resnet_feeds(torch, np, attn)
     part_s["resnet50"] = time.monotonic() - t_part
+
+    # (g)'s child starts here and runs beside (c) to (f), which record
+    # seconds but gate none: (a)'s REST fit and a serving round under the
+    # lock witness
+    windows = os.path.join(home, "windows.npy")
+    np.save(windows, x)
+    spec = {"config": LM_CONFIG, "prompt": [int(t) for t in x[1, :256]],
+            "fit": {"x": "$corpus", "batch_size": TRAIN_BATCH,
+                    "epochs": TRAIN_EPOCHS, "grad_accum": TRAIN_ACCUM}}
+    env = dict(os.environ, LO_LOCK_WITNESS="1", LO_LOCK_WITNESS_MODE="count",
+               LO_COMPUTE_DTYPE="bfloat16",
+               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
+    t_witness = time.monotonic()
+    # its output goes to files: a pipe nobody reads until the end could
+    # fill and stop it
+    child_out = os.path.join(home, "witness.out")
+    with open(child_out, "w") as out_f, \
+            open(child_out + ".err", "w") as err_f:
+        child = subprocess.Popen(
+            [sys.executable, "-c", FP_WITNESS_CHILD,
+             os.path.join(home, "wit"), windows, json.dumps(spec)],
+            env=env, stdout=out_f, stderr=err_f)
+    _CHILDREN.append(child)
     t_part = time.monotonic()
 
     ctx = ServiceContext(Config(home=os.path.join(home, "lo")),
@@ -8145,7 +8186,8 @@ def feature_plane_phase(torch, log, home, yard):
     ctx.catalog.read_table = counted_read
     m0 = (ctx.features.stats(), arena.stats())
     try:
-        # (c) Builder LR on 100,000 x 16 rows: cold, warm, then a write
+        # (c) Builder LR on FP_BUILDER_ROWS x 16 rows: cold, warm, then a
+        # write
         xw, yw = _wide_data(np, WIDE_ROWS, seed=11)
         xt, yt = _wide_data(np, WIDE_TEST_ROWS, seed=12)
         xb, yb = xw[:FP_BUILDER_ROWS], yw[:FP_BUILDER_ROWS]
@@ -8394,27 +8436,23 @@ def feature_plane_phase(torch, log, home, yard):
     gc.collect()
     part_s["cancel"] = time.monotonic() - t_part
 
-    # (g) the lock witness in a child: (a)'s REST fit and a serving round
-    windows = os.path.join(home, "windows.npy")
-    np.save(windows, x)
-    spec = {"config": LM_CONFIG, "prompt": [int(t) for t in x[1, :256]],
-            "fit": {"x": "$corpus", "batch_size": TRAIN_BATCH,
-                    "epochs": TRAIN_EPOCHS, "grad_accum": TRAIN_ACCUM}}
-    env = dict(os.environ, LO_LOCK_WITNESS="1", LO_LOCK_WITNESS_MODE="count",
-               LO_COMPUTE_DTYPE="bfloat16",
-               PYTHONPATH=os.path.dirname(os.path.abspath(__file__)))
-    t0 = time.monotonic()
-    proc = subprocess.run(
-        [sys.executable, "-c", FP_WITNESS_CHILD, os.path.join(home, "wit"),
-         windows, json.dumps(spec)], env=env, capture_output=True,
-        text=True, timeout=600)
-    line = next((ln for ln in proc.stdout.splitlines()
+    # (g) the witness child's result
+    try:
+        child.wait(timeout=600)
+    finally:
+        _stop_children()
+    with open(child_out) as f:
+        stdout = f.read()
+    with open(child_out + ".err") as f:
+        stderr = f.read()
+    line = next((ln for ln in stdout.splitlines()
                  if ln.startswith("witness ")), None)
-    if proc.returncode != 0 or line is None:
+    if child.returncode != 0 or line is None:
         raise AssertionError(f"(g) the witness child failed "
-                             f"({proc.returncode}): {proc.stderr[-3000:]}")
+                             f"({child.returncode}): {stderr[-3000:]}")
     witness = json.loads(line[len("witness "):])
-    witness["childSeconds"] = part_s["witness"] = time.monotonic() - t0
+    witness["childSeconds"] = part_s["witness"] = \
+        time.monotonic() - t_witness
     witness["lossesEqualStaged"] = witness["losses"] == losses
     out["witness"] = witness
     if not witness["enabled"] or witness["violations"] != 0 or \
@@ -8424,6 +8462,622 @@ def feature_plane_phase(torch, log, home, yard):
     out["phaseSeconds"] = time.monotonic() - phase_t0
     log.append("featurePlane " + json.dumps(out))
     return paths
+
+
+# ----------------------------------------------------------------------
+# the process group: NCCL, ring and Ulysses, pods of entry points
+# ----------------------------------------------------------------------
+# (b)'s shape, the training path's: b 8, 2048 tokens, 8 heads over 4,
+# head_dim 64, causal with window 1024, split into DIST_RANKS blocks
+DIST_SHAPE = dict(b=8, s=2048, h=8, kvh=4, d=64, window=1024)
+DIST_RANKS = 4
+# (c)'s fits: one epoch of 16 windows, batch 8 (2 optimizer steps)
+DIST_FIT_WINDOWS, DIST_FIT_BATCH = 16, 8
+# (b)'s sharded first steps: 2 windows of 2048 tokens in float32
+DIST_GRAD_WINDOWS = 2
+DIST_HEARTBEAT = 0.25
+# (b)'s bf16 gate: each tensor's relative L2 to the float32 whole-sequence
+# kernel at most this multiple of the bf16 whole-sequence kernel's
+DIST_BF16_GAP_RATIO = 2.0
+# (b)'s cases: name -> (impl, dtype, causal)
+DIST_OP_CASES = {"ringCausalFloat32": ("ring", "float32", True),
+                 "ringCausalBfloat16": ("ring", "bfloat16", True),
+                 "ringFullBfloat16": ("ring", "bfloat16", False),
+                 "ulyssesCausalFloat32": ("ulysses", "float32", True),
+                 "ulyssesCausalBfloat16": ("ulysses", "bfloat16", True)}
+# (b)'s sharded LM steps: name -> (mesh over ranks 0 and 1, attention)
+DIST_GRAD_CASES = {"dp2": ("dp=2", "flash"), "sp2Ring": ("sp=2", "ring"),
+                   "sp2Ulysses": ("sp=2", "ulysses")}
+
+DIST_RANK = (
+    "import datetime, json, os, sys, time\n"
+    "import numpy as np\n"
+    "import torch\n"
+    "from learningorchestra_tpu_torch.models import weights\n"
+    "from learningorchestra_tpu_torch.models.transformer import "
+    "LanguageModel\n"
+    "from learningorchestra_tpu_torch.ops import attention as attn\n"
+    "from learningorchestra_tpu_torch.parallel import ring, ulysses\n"
+    "from learningorchestra_tpu_torch.runtime import data\n"
+    "from learningorchestra_tpu_torch.runtime import distributed as dist\n"
+    "from learningorchestra_tpu_torch.runtime import mesh as mesh_lib\n"
+    "rank, world, port = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]\n"
+    "spec = json.loads(sys.argv[4])\n"
+    "torch.backends.cuda.matmul.allow_tf32 = False\n"
+    "torch.backends.cudnn.allow_tf32 = False\n"
+    "t0 = time.monotonic()\n"
+    "assert dist.initialize('127.0.0.1:' + port, world, rank, "
+    "device='cuda', timeout=datetime.timedelta(seconds=120))\n"
+    "sh = spec['shape']\n"
+    "b, s, h, kvh, d, W = (sh[k] for k in ('b', 's', 'h', 'kvh', 'd', "
+    "'window'))\n"
+    "cols = slice(rank * s // world, (rank + 1) * s // world)\n"
+    "mesh = mesh_lib.build_mesh('sp=%d' % world)\n"
+    "def inputs(dtype):\n"
+    "    g = torch.Generator().manual_seed(11)\n"
+    "    q = torch.randn(b, s, h, d, generator=g)\n"
+    "    k = torch.randn(b, s, kvh, d, generator=g) * 0.5\n"
+    "    v = torch.randn(b, s, kvh, d, generator=g)\n"
+    "    do = torch.randn(b, s, h, d, generator=g)\n"
+    "    return [t.to('cuda', dtype) for t in (q, k, v, do)]\n"
+    "def whole(q, k, v, do, causal):\n"
+    "    q, k, v = (t.clone().requires_grad_() for t in (q, k, v))\n"
+    "    o = attn.flash_attention(q, k, v, causal=causal,\n"
+    "                             window=W if causal else 0)\n"
+    "    (o.float() * do.float()).sum().backward()\n"
+    "    return [o.detach(), q.grad, k.grad, v.grad]\n"
+    "def gaps(got, want):\n"
+    "    # per tensor relative L2 over the whole sequence: squared sums\n"
+    "    # of this rank's block, summed over the ranks\n"
+    "    sums = []\n"
+    "    for a, w in zip(got, want):\n"
+    "        w = w[:, cols].float()\n"
+    "        sums += [((a.float() - w) ** 2).sum(), (w ** 2).sum()]\n"
+    "    t = dist.all_reduce(torch.stack(sums).double().cpu())\n"
+    "    return [float((t[i] / t[i + 1]).sqrt())\n"
+    "            for i in range(0, len(t), 2)]\n"
+    "out = {'startSeconds': time.monotonic() - t0, 'ops': {}}\n"
+    "dist.reset_staged_bytes()\n"
+    "for name, (impl, dtype, causal) in spec['ops'].items():\n"
+    "    dt = getattr(torch, dtype)\n"
+    "    q, k, v, do = inputs(dt)\n"
+    "    ref32 = whole(*inputs(torch.float32), causal)\n"
+    "    ref = ref32 if dt == torch.float32 else whole(q, k, v, do, causal)\n"
+    "    torch.cuda.synchronize()\n"
+    "    staged0 = dist.staged_bytes()\n"
+    "    before = attn.launch_counts()\n"
+    "    ql, kl, vl = (t[:, cols].contiguous().requires_grad_()\n"
+    "                  for t in (q, k, v))\n"
+    "    win = W if causal else 0\n"
+    "    if impl == 'ring':\n"
+    "        kr = torch.repeat_interleave(kl, h // kvh, dim=2)\n"
+    "        vr = torch.repeat_interleave(vl, h // kvh, dim=2)\n"
+    "        o = ring.ring_attention_sharded(ql, kr, vr, mesh,\n"
+    "                                        causal=causal, window=win)\n"
+    "    else:\n"
+    "        o = ulysses.ulysses_attention_sharded(\n"
+    "            ql, kl, vl, mesh, causal=causal, window=win)\n"
+    "    (o.float() * do[:, cols].float()).sum().backward()\n"
+    "    torch.cuda.synchronize()\n"
+    "    after = attn.launch_counts()\n"
+    "    staged = dist.staged_bytes()\n"
+    "    got = [o.detach(), ql.grad, kl.grad, vl.grad]\n"
+    "    out['ops'][name] = {\n"
+    "        'launches': {k_: after[k_] - before[k_] for k_ in after},\n"
+    "        'relL2VsWhole': dict(zip(('o', 'dq', 'dk', 'dv'),\n"
+    "                                 gaps(got, ref))),\n"
+    "        'relL2VsWholeFloat32': dict(zip(('o', 'dq', 'dk', 'dv'),\n"
+    "                                        gaps(got, ref32))),\n"
+    "        'wholeRelL2VsFloat32': dict(zip(('o', 'dq', 'dk', 'dv'),\n"
+    "                                        gaps([t[:, cols] for t in ref],\n"
+    "                                             ref32))),\n"
+    "        'stagedBytes': {k_: staged[k_] - staged0[k_] for k_ in staged}}\n"
+    "# (b') the tutorial LM's first float32 step, sharded over ranks 0 and\n"
+    "# 1, against the one-rank step on rank 0\n"
+    "os.environ['LO_COMPUTE_DTYPE'] = 'float32'\n"
+    "out['grads'] = {}\n"
+    "x = np.asarray(spec['windows'], np.int32)\n"
+    "batch = {'x': x, data.MASK_KEY: np.ones(len(x), np.float32)}\n"
+    "tree = weights.params_from_flax(weights.init_params(spec['config'], "
+    "seed=0))\n"
+    "def model(attention):\n"
+    "    lm = LanguageModel(**spec['config'], attention=attention,\n"
+    "                       device='cuda')\n"
+    "    lm.set_params(tree)\n"
+    "    return lm, lm._get_engine()\n"
+    "reference = None\n"
+    "if rank == 0:\n"
+    "    lm, eng = model('flash')\n"
+    "    state = eng.init_state(lm._master_params())\n"
+    "    g, _, m = eng._step_grads(state, eng._to_device(batch, 'cuda'), 0)\n"
+    "    reference = {k_: t.detach().clone() for k_, t in g.items()}\n"
+    "    out['gradsLoss'] = float(m['loss'][0] / m['loss'][1])\n"
+    "    del lm, eng, state, g\n"
+    "for name, (mesh_spec, attention) in spec['grads'].items():\n"
+    "    gmesh = mesh_lib.build_mesh(mesh_spec)\n"
+    "    if gmesh.coords(rank) is None:\n"
+    "        continue\n"
+    "    lm, eng = model(attention)\n"
+    "    lm._mesh_override = gmesh\n"
+    "    state = eng.init_state(lm._master_params())\n"
+    "    shard, columns = lm._plan(x.shape[1])\n"
+    "    before = attn.launch_counts()\n"
+    "    staged0 = dist.staged_bytes()\n"
+    "    g, m = eng.sharded_grads(state, batch, 0, shard, columns)\n"
+    "    torch.cuda.synchronize()\n"
+    "    after = attn.launch_counts()\n"
+    "    staged = dist.staged_bytes()\n"
+    "    rec = {'launches': {k_: after[k_] - before[k_] for k_ in after},\n"
+    "           'loss': float(m['loss'][0] / m['loss'][1]),\n"
+    "           'seqParallel': shard.seq_size > 1,\n"
+    "           'gradBytes': sum(4 * t.numel() for t in g.values()),\n"
+    "           'stagedBytes': {k_: staged[k_] - staged0[k_]\n"
+    "                           for k_ in staged}}\n"
+    "    if reference is not None:\n"
+    "        rel = {k_: float(\n"
+    "            (t.float() - reference[k_].float()).norm()\n"
+    "            / reference[k_].float().norm().clamp_min(1e-30))\n"
+    "               for k_, t in g.items()}\n"
+    "        worst = max(rel, key=rel.get)\n"
+    "        rec['relL2VsOneRank'] = {'max': rel[worst], 'worst': worst}\n"
+    "    out['grads'][name] = rec\n"
+    "    del lm, eng, state, g\n"
+    "out['hostInfo'] = dist.host_info('cuda')\n"
+    "out['seconds'] = time.monotonic() - t0\n"
+    "dist.barrier()\n"
+    "dist.shutdown()\n"
+    "print('rank ' + json.dumps(out), flush=True)\n")
+
+
+def _rank_launches(counts: dict) -> dict:
+    """A launch record keyed as ``COUNTERS`` (the engine's and the
+    ranks' records name every source)."""
+    return {name: int(counts.get(name, 0)) for name in COUNTERS}
+
+
+def _sm90(n: int) -> dict:
+    return dict(dict.fromkeys(COUNTERS, 0), flash_fwd_sm90=n,
+                flash_bwd_dq_sm90=n, flash_bwd_dkv_sm90=n)
+
+
+def _tf32x3(n: int) -> dict:
+    return dict(dict.fromkeys(COUNTERS, 0), flash_fwd_tf32x3=n,
+                flash_bwd_dq_tf32x3=n, flash_bwd_dkv_tf32x3=n)
+
+
+def _ring_hops(ranks: int, local: int, window: int, causal: bool) -> list:
+    """The hops each rank of a ring attends: the distances d >= 0 with
+    ``d·local < window + local - 1`` (all of them without a window;
+    every hop when not causal)."""
+    if not causal:
+        return [ranks] * ranks
+    return [sum(1 for dist_ in range(r + 1)
+                if not window or dist_ * local < window + local - 1)
+            for r in range(ranks)]
+
+
+def _staged_rank0(base: str) -> dict:
+    """The pod coordinator's bytes staged through host memory so far."""
+    return _wait_health(base, lambda h: "stagedBytes" in h)["stagedBytes"]
+
+
+def _health_launches(base: str) -> dict:
+    """The pod coordinator's flash-kernel launches so far."""
+    return _rank_launches(_wait_health(
+        base, lambda h: "kernelLaunches" in h)["kernelLaunches"])
+
+
+def _wait_health(base: str, want, timeout: float = 300.0) -> dict:
+    """``/health`` once ``want(body)`` holds."""
+    deadline = time.monotonic() + timeout
+    last = None
+    while time.monotonic() < deadline:
+        try:
+            with urllib.request.urlopen(base + "/health", timeout=5) as r:
+                last = json.loads(r.read())
+            if want(last):
+                return last
+        except OSError:
+            pass
+        time.sleep(0.2)
+    raise AssertionError(f"{base}/health never matched: {last}")
+
+
+def distributed_phase(torch, log, home, yard):
+    """The process group on the card (the ``distributed`` line). (a) A
+    world of one on NCCL: ``all_reduce``, ``broadcast`` and ``barrier``
+    on CUDA tensors, ``host_info``. (b) Four gloo ranks sharing the card
+    (NCCL refuses two ranks on one device): the ring and Ulysses at the
+    training shape (b 8, 2048 tokens, 8 over 4 heads, d 64), causal with
+    window 1024 in float32 (split TF32) and bf16 (sm90), and the
+    non-causal ring in bf16; forward o and the q/k/v gradients against
+    the whole-sequence kernel on one rank (float32 per-tensor relative
+    L2 <= 1e-4; bf16 each tensor's gap to the float32 whole-sequence
+    kernel within ``DIST_BF16_GAP_RATIO`` times the bf16 whole kernel's),
+    exact launches per rank (the causal ring 1, 2, 3, 3: the hop at
+    distance 3 lies below the band), the bytes staged through the host;
+    and the tutorial LM's first float32 step at dp=2, sp=2 ring and sp=2
+    Ulysses on ranks 0 and 1, every gradient within per-tensor relative
+    L2 1e-4 of the one-rank step's, the gradient all-reduce's bytes
+    counted through the host. (c) Two pods of two ranks of the port's
+    entry point under ``cluster.py``'s supervisor: a bf16 REST fit (one
+    epoch of 16 windows, batch 8) at ``LO_MESH_SHAPE=dp=2``, then ring
+    and Ulysses fits at ``sp=2``: losses within 1% of the one-rank fit
+    of the same batches, each rank's launches (the epoch record's
+    ``launchesByRank``) exactly the path's, sm90 only, rank 0's staged
+    bytes at least each step's gradient all-reduce; then a REST evaluate
+    of the ring model, exactly one whole-sequence forward launch a layer
+    for each batch on rank 0 (``/health`` ``kernelLaunches``). (d) A
+    member SIGKILLed mid-fit: the job's typed ``WorkerLost`` document
+    and ``/health``'s ``podFailure`` within the heartbeat bound, then
+    the supervisor's restart. Returns the pods' fits' launches, summed
+    over ranks."""
+    import numpy as np
+
+    from learningorchestra_tpu_torch.cluster import PodSupervisor
+    from learningorchestra_tpu_torch.config import Config
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.ops import attention as attn
+    from learningorchestra_tpu_torch.runtime import distributed as dist
+    from learningorchestra_tpu_torch.services.context import ServiceContext
+    from learningorchestra_tpu_torch.services.server import Api
+
+    phase_t0 = time.monotonic()
+    os.environ["LO_COMPUTE_DTYPE"] = "bfloat16"
+    # the ranks and pods below share the card with this process
+    gc.collect()
+    torch.cuda.empty_cache()
+    root = os.path.dirname(os.path.abspath(__file__))
+    out: dict = {}
+    x = _successor_windows(np, DIST_FIT_WINDOWS, TRAIN_SEQ, seed=0)
+
+    def free_port():
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    # the pods' homes: the corpus and the three models, made here
+    pods = {"dp": ("dp=2", {"lm_dp": "flash"}),
+            "sp": ("sp=2", {"lm_ring": "ring", "lm_ulysses": "ulysses"})}
+    for key, (_, models) in pods.items():
+        ctx = ServiceContext(Config(home=os.path.join(home, key)),
+                             device="cuda")
+        try:
+            _save_arrays(ctx, "corpus", {"tokens": x})
+            api = Api(ctx)
+            for name, attention in models.items():
+                api.dispatch("POST", PREFIX + "/model/tensorflow", {}, {
+                    "modelName": name,
+                    "modulePath": "learningorchestra_tpu_torch.models",
+                    "class": "LanguageModel",
+                    "classParameters": dict(LM_CONFIG,
+                                            attention=attention)})
+                ctx.jobs.wait(name, timeout=600)
+        finally:
+            ctx.close()
+    gc.collect()
+    env = {"PYTHONPATH": root, "LO_COMPUTE_DTYPE": "bfloat16",
+           "LO_HEARTBEAT_INTERVAL": str(DIST_HEARTBEAT), "LO_MONITOR": "0"}
+    sups, threads, codes = {}, [], {}
+    t_pods = time.monotonic()
+    for key, (mesh_spec, _) in pods.items():
+        sup = PodSupervisor(
+            hosts=2, port=free_port(), home=os.path.join(home, key),
+            backoff=0.5, max_restarts=2, device="cuda",
+            extra_env=dict(env, LO_MESH_SHAPE=mesh_spec))
+        sup.start()
+        sups[key] = sup
+        thread = threading.Thread(
+            target=lambda k=key, s=sup: codes.__setitem__(k, s.supervise()),
+            daemon=True)
+        thread.start()
+        threads.append(thread)
+    try:
+        # (b)'s ranks start with the pods and end while they boot; their
+        # output goes to files (a full pipe would stop a rank)
+        spec = {"shape": DIST_SHAPE, "ops": DIST_OP_CASES,
+                "grads": DIST_GRAD_CASES, "config": LM_CONFIG,
+                "windows": x[:DIST_GRAD_WINDOWS].tolist()}
+        rank_port = str(free_port())
+        rank_logs = [os.path.join(home, f"rank{r}")
+                     for r in range(DIST_RANKS)]
+        for r, path in enumerate(rank_logs):
+            with open(path + ".out", "w") as out_f, \
+                    open(path + ".err", "w") as err_f:
+                _CHILDREN.append(subprocess.Popen(
+                    [sys.executable, "-c", DIST_RANK, str(r),
+                     str(DIST_RANKS), rank_port, json.dumps(spec)],
+                    env=dict(os.environ, **env), stdout=out_f,
+                    stderr=err_f))
+        ranks = list(_CHILDREN[-DIST_RANKS:])
+
+        # (a) a world of one on NCCL, in this process
+        t0 = time.monotonic()
+        if not dist.initialize(f"127.0.0.1:{free_port()}", 1, 0,
+                               device="cuda"):
+            raise AssertionError("(a) no group formed")
+        try:
+            t = torch.arange(1 << 20, dtype=torch.float32, device="cuda")
+            want = t.clone()
+            dist.all_reduce(t)
+            b = torch.full((8,), 7, device="cuda")
+            dist.broadcast(b, src=0)
+            dist.barrier()
+            torch.cuda.synchronize()
+            info = dist.host_info("cuda")
+            ok = bool(torch.equal(t, want)) and int(b.sum()) == 56
+        finally:
+            dist.shutdown()
+        if info["backend"] != "nccl" or not ok or dist.is_initialized():
+            raise AssertionError(f"(a) {info} {ok}")
+        out["nccl"] = {"hostInfo": info, "collectivesEqual": ok,
+                       "seconds": time.monotonic() - t0}
+
+        # (c)'s yardstick: the one-rank fit of the same batches
+        t0 = time.monotonic()
+        lm = LanguageModel(**LM_CONFIG, device="cuda")
+        reference = lm.fit(x, batch_size=DIST_FIT_BATCH, epochs=1).history
+        # the bytes of one gradient all-reduce: the float32 gradients
+        grad_bytes = sum(4 * t.numel() for t in lm._master_params().values())
+        del lm
+        gc.collect()
+        out["oneRank"] = {"losses": reference["loss"],
+                          "fitSeconds": time.monotonic() - t0}
+        pod_out = {}
+        for key, sup in sups.items():
+            health = _wait_health(f"http://127.0.0.1:{sup.port}",
+                                  lambda h: h.get("processCount") == 2)
+            pod_out[key] = {"bootSeconds": time.monotonic() - t_pods,
+                            "health": {k: health.get(k) for k in (
+                                "status", "processCount", "globalDevices",
+                                "localDevices", "backend", "platform")}}
+            if (health["backend"], health["globalDevices"]) != ("gloo", 2):
+                raise AssertionError(f"(c) {key} pod: {health}")
+
+        # (c) the pods' fits
+        steps = DIST_FIT_WINDOWS // DIST_FIT_BATCH
+        layers = LM_CONFIG["n_layers"]
+        sp_local = TRAIN_SEQ // 2
+        fits = {"dp": {"lm_dp": [_sm90(layers * steps)] * 2},
+                "sp": {"lm_ring": [_sm90(layers * steps * n) for n in
+                                   _ring_hops(2, sp_local,
+                                              LM_CONFIG["sliding_window"],
+                                              True)],
+                       "lm_ulysses": [_sm90(layers * steps)] * 2}}
+        paths = dict.fromkeys(COUNTERS, 0)
+        for key, sup in sups.items():
+            base = f"http://127.0.0.1:{sup.port}"
+            for model, want in fits[key].items():
+                name = "fit_" + model
+                tf = time.monotonic()
+                staged0 = _staged_rank0(base)
+                _http(base, "POST", "/train/tensorflow", {
+                    "name": name, "modelName": model, "method": "fit",
+                    "methodParameters": {"x": "$corpus.tokens",
+                                         "batch_size": DIST_FIT_BATCH,
+                                         "epochs": 1}})
+                _poll(base, f"/train/tensorflow/{name}")
+                staged = _staged_rank0(base)
+                records = [d["epochRecord"] for d in
+                           _job_docs(base, "train", name)["result"]
+                           if "epochRecord" in d]
+                losses = [r["loss"] for r in records]
+                launches = [_rank_launches(c)
+                            for c in records[0]["launchesByRank"]]
+                # the rank-0 bytes through the host: at least each step's
+                # gradient all-reduce, both ways (gloo sums on the host)
+                reduced = {k: staged[k] - staged0[k] for k in staged}
+                if launches != want or not all(
+                        abs(a - b_) <= 0.01 * b_
+                        for a, b_ in zip(losses, reference["loss"])) or \
+                        min(reduced.values()) < steps * grad_bytes:
+                    raise AssertionError(
+                        f"(c) {name}: launches {launches} (want {want}), "
+                        f"losses {losses} against {reference['loss']}, "
+                        f"staged {reduced} (gradients {steps} x "
+                        f"{grad_bytes} B)")
+                for launched in launches:
+                    for k, n in launched.items():
+                        paths[k] += n
+                pod_out[key][model] = {
+                    "losses": losses, "launchesByRank": launches,
+                    "stagedBytesRank0": reduced,
+                    "gradientBytes": grad_bytes,
+                    "epochSeconds": records[0]["epochSeconds"],
+                    "jobSeconds": time.monotonic() - tf}
+        out["pods"] = pod_out
+        # (c) a REST evaluate of the sp pod's ring model: no step shard
+        # splits the sequence, so each rank runs the whole-sequence
+        # forward kernel once a layer for each batch
+        base = f"http://127.0.0.1:{sups['sp'].port}"
+        tf = time.monotonic()
+        launched0 = _health_launches(base)
+        status, body = _http(base, "POST", "/evaluate/tensorflow", {
+            "name": "eval_lm_ring", "modelName": "fit_lm_ring",
+            "method": "evaluate",
+            "methodParameters": {"x": "$corpus.tokens",
+                                 "batch_size": DIST_FIT_BATCH}})
+        if status != 201:
+            raise AssertionError(f"(c) evaluate of lm_ring: {status} {body}")
+        _poll(base, "/evaluate/tensorflow/eval_lm_ring")
+        launched = _health_launches(base)
+        ran = {k: launched[k] - launched0[k] for k in launched}
+        evaluated = next(d["result"] for d in _job_docs(
+            base, "evaluate", "eval_lm_ring")["result"] if "result" in d)
+        want = dict(dict.fromkeys(COUNTERS, 0),
+                    flash_fwd_sm90=layers * -(-DIST_FIT_WINDOWS
+                                              // DIST_FIT_BATCH))
+        if ran != want or not all(np.isfinite(v) for v in
+                                  evaluated.values()):
+            raise AssertionError(f"(c) evaluate of lm_ring: launches {ran} "
+                                 f"(want {want}), {evaluated}")
+        for k, n in ran.items():
+            paths[k] += n
+        out["ringEvaluate"] = {"evaluate": evaluated,
+                               "launchesRank0": ran,
+                               "jobSeconds": time.monotonic() - tf}
+        sups["dp"]._stopping = True
+
+        # (d) a member SIGKILLed mid-fit on the sp pod
+        sup = sups["sp"]
+        base = f"http://127.0.0.1:{sup.port}"
+        _http(base, "POST", "/train/tensorflow", {
+            "name": "fit_long", "modelName": "lm_ring", "method": "fit",
+            "methodParameters": {"x": "$corpus.tokens",
+                                 "batch_size": DIST_FIT_BATCH,
+                                 "epochs": 200}})
+        deadline = time.monotonic() + 300
+        while not any("epochRecord" in d for d in _job_docs(
+                base, "train", "fit_long")["result"]):
+            if time.monotonic() > deadline:
+                raise AssertionError("(d) the long fit never ran an epoch")
+            time.sleep(0.1)
+        first = list(sup.procs)
+        first[1].kill()
+        killed = time.monotonic()
+        # the monitor's timeout, then a heartbeat and the guard's tick
+        bound = 10 * DIST_HEARTBEAT + 4 * DIST_HEARTBEAT
+        lost = None
+        while lost is None and time.monotonic() - killed < bound + 5:
+            docs = _job_docs(base, "train", "fit_long")["result"]
+            lost = next((d for d in docs if str(
+                d.get("exception", "")).startswith("WorkerLost(")), None)
+            time.sleep(0.05)
+        lost_s = time.monotonic() - killed
+        health = _wait_health(base, lambda h: "podFailure" in h, 5)
+        if lost is None or lost_s > bound or \
+                health.get("status") != "degraded":
+            raise AssertionError(f"(d) after {lost_s:.3f} s: {lost}, "
+                                 f"{health}")
+        while sup.procs[0] is first[0]:
+            if time.monotonic() - killed > 120:
+                raise AssertionError("(d) the pod never re-formed")
+            time.sleep(0.1)
+        again = _wait_health(base, lambda h: h.get("status") == "ok"
+                             and h.get("processCount") == 2)
+        out["memberLost"] = {
+            "workerLostSeconds": lost_s, "boundSeconds": bound,
+            "exception": lost["exception"][:200],
+            "workerLost": lost.get("workerLost"),
+            "podFailure": health["podFailure"],
+            "restartSeconds": time.monotonic() - killed,
+            "restarts": len(sup._restart_times),
+            "healthAfter": again["status"]}
+        sup._stopping = True
+        # (b) the ranks' results
+        t0 = time.monotonic()
+        results = []
+        for r, proc in enumerate(ranks):
+            proc.wait(timeout=600)
+            with open(rank_logs[r] + ".out") as f:
+                stdout = f.read()
+            with open(rank_logs[r] + ".err") as f:
+                stderr = f.read()
+            line = next((ln for ln in stdout.splitlines()
+                         if ln.startswith("rank ")), None)
+            if proc.returncode != 0 or line is None:
+                raise AssertionError(f"(b) rank {r} failed "
+                                     f"({proc.returncode}): "
+                                     f"{stderr[-3000:]}")
+            results.append(json.loads(line[len("rank "):]))
+        ops = {}
+        local = DIST_SHAPE["s"] // DIST_RANKS
+        for name, (impl, dtype, causal) in DIST_OP_CASES.items():
+            per_rank = [res["ops"][name] for res in results]
+            hops = ([1] * DIST_RANKS if impl == "ulysses" else
+                    _ring_hops(DIST_RANKS, local, DIST_SHAPE["window"],
+                               causal))
+            route = _sm90 if dtype == "bfloat16" else _tf32x3
+            launches = [_rank_launches(p["launches"]) for p in per_rank]
+            if launches != [route(n) for n in hops]:
+                raise AssertionError(f"(b) {name} launched {launches}, "
+                                     f"want hops {hops}")
+            gap = per_rank[0]["relL2VsWhole"]
+            if dtype == "float32" and max(gap.values()) > 1e-4:
+                raise AssertionError(f"(b) {name} against the whole "
+                                     f"sequence: {gap}")
+            # bf16: each tensor's gap to the float32 whole-sequence
+            # kernel within twice the bf16 whole-sequence kernel's own
+            # (a dropped or misplaced hop is off by 1e-1 and more)
+            ring32 = per_rank[0]["relL2VsWholeFloat32"]
+            whole32 = per_rank[0]["wholeRelL2VsFloat32"]
+            if dtype == "bfloat16" and any(
+                    ring32[t] > DIST_BF16_GAP_RATIO * whole32[t]
+                    for t in ring32):
+                raise AssertionError(
+                    f"(b) {name} against the float32 whole sequence: "
+                    f"{ring32}, the bf16 whole kernel's {whole32}")
+            fwd = "flash_fwd_" + ("sm90" if dtype == "bfloat16"
+                                  else "tf32x3")
+            ops[name] = {"forwardLaunchesByRank": [n[fwd] for n in launches],
+                         "relL2VsWhole": gap,
+                "relL2VsWholeFloat32": per_rank[0]["relL2VsWholeFloat32"],
+                "wholeRelL2VsFloat32": per_rank[0]["wholeRelL2VsFloat32"],
+                "stagedBytesByRank": [p["stagedBytes"] for p in per_rank]}
+            if dtype == "bfloat16":
+                ops[name]["relL2RatioToWholeBfloat16"] = {
+                    t: ring32[t] / whole32[t] for t in ring32}
+        out["ops"] = ops
+        grads = {}
+        for name, (mesh_spec, attention) in DIST_GRAD_CASES.items():
+            per_rank = [results[r]["grads"][name] for r in range(2)]
+            if attention == "ring":
+                want = [_tf32x3(layers * n) for n in _ring_hops(
+                    2, sp_local, LM_CONFIG["sliding_window"], True)]
+            else:
+                want = [_tf32x3(layers)] * 2
+            launches = [_rank_launches(p["launches"]) for p in per_rank]
+            rel = per_rank[0]["relL2VsOneRank"]
+            # the gradient all-reduce crossed the host both ways
+            staged = [p["stagedBytes"] for p in per_rank]
+            if launches != want or rel["max"] > 1e-4 or \
+                    per_rank[0]["loss"] != per_rank[1]["loss"] or any(
+                        min(st.values()) < p["gradBytes"]
+                        for st, p in zip(staged, per_rank)):
+                raise AssertionError(f"(b') {name}: launches {launches} "
+                                     f"(want {want}), {rel}, losses "
+                                     f"{[p['loss'] for p in per_rank]}, "
+                                     f"staged {staged}")
+            grads[name] = {"f32GradRelL2VsOneRank": rel,
+                           "loss": per_rank[0]["loss"],
+                           "oneRankLoss": results[0]["gradsLoss"],
+                           "seqParallel": per_rank[0]["seqParallel"],
+                           "launchesByRank": launches,
+                           "gradientBytes": per_rank[0]["gradBytes"],
+                           "stagedBytesByRank": staged}
+        out["grads"] = grads
+        out["ranks"] = {"hostInfo": results[0]["hostInfo"],
+                        "startSeconds": [r["startSeconds"] for r in results],
+                        "seconds": [r["seconds"] for r in results],
+                        "waitSeconds": time.monotonic() - t0}
+
+    finally:
+        _stop_children()
+        for sup in sups.values():
+            sup._stopping = True
+        for thread in threads:
+            thread.join(timeout=150)
+    if codes != {"dp": 0, "sp": 0}:
+        raise AssertionError(f"the supervisors ended {codes}")
+    out["phaseSeconds"] = time.monotonic() - phase_t0
+    log.append("distributed " + json.dumps(out))
+    return {"distributed": paths}
+
+
+# processes a phase runs beside its own work: stopped when it ends or
+# fails
+_CHILDREN: list = []
+
+
+def _stop_children() -> None:
+    while _CHILDREN:
+        proc = _CHILDREN.pop()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
 
 
 def _phase_home():
@@ -8497,13 +9151,15 @@ def main() -> int:
                   "ingest": ingest_phase,
                   "lifecycle": lifecycle_phase,
                   "scheduler": scheduler_phase, "observe": observe_phase,
-                  "featurePlane": feature_plane_phase}
+                  "featurePlane": feature_plane_phase,
+                  "distributed": distributed_phase}
         try:
             for name in sys.argv[sys.argv.index("--only") + 1].split(","):
                 with _phase_home() as home:
                     launched = phases[name](torch, log, home, {})
                 print(f"{name} launches " + json.dumps(launched))
         except BaseException:
+            _stop_children()
             for line in log:
                 print(line)
             traceback.print_exc()
@@ -8559,6 +9215,8 @@ def main() -> int:
         with _phase_home() as home:
             paths.update(feature_plane_phase(
                 torch, log, home, {"losses": train_losses}))
+        with _phase_home() as home:
+            paths.update(distributed_phase(torch, log, home, {}))
         # each kernel's main path: serving (float32) for the split-TF32
         # forward, the bf16 fit for the wgmma kernels, the float32 fit for
         # the split-TF32 backward
@@ -8574,6 +9232,7 @@ def main() -> int:
             raise AssertionError(f"kernels never measured or never launched "
                                  f"on their path: {missing}")
     except BaseException:
+        _stop_children()
         for line in log:
             print(line)
         traceback.print_exc()

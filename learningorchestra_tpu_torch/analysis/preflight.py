@@ -22,6 +22,13 @@ Rules emitted here (the JAX package's ids):
   sample counts disagree, or a layer config has no ``kind``.
 - ``unknown-layer``: error. ``layer_configs`` names a layer kind the
   runtime refuses (proved by the build, not by a list).
+- ``mesh-divisibility``: warning. A ``LanguageModel`` fit on the
+  process group's mesh whose ``batch_size`` does not divide the mesh's
+  data-parallel extent (the feed pads each step: wasted card work), or,
+  with ring or Ulysses attention, whose windows' length does not divide
+  ``sp`` (the fit then runs the whole sequence on every ``sp`` rank).
+  The JAX package checks the batch of a ``NeuralModel`` fit, which it
+  shards; the port shards the language model's fits alone.
 - every code-lint rule, applied to ``#`` expressions among class and
   method parameters.
 
@@ -31,9 +38,7 @@ bytes times the optimizer multiplier plus two staged batches; XLA's
 is always ``"heuristic"``. Under ``LO_FOOTPRINT_CALIBRATE``
 (:func:`calibrate_footprint`) a repeat execution prefers the peak device
 bytes an earlier one measured (``torch.cuda.max_memory_allocated``,
-``estimator: "measured-peak"``). The JAX package's ``mesh-divisibility`` warning (a
-``batch_size`` that does not divide the mesh's data-parallel extent)
-has no counterpart: one card's extent is 1, which every batch divides.
+``estimator: "measured-peak"``).
 """
 
 from __future__ import annotations
@@ -46,6 +51,7 @@ from learningorchestra_tpu_torch.analysis import code_lint
 from learningorchestra_tpu_torch.analysis.findings import (
     Finding,
     SEVERITY_ERROR,
+    SEVERITY_WARNING,
 )
 from learningorchestra_tpu_torch.catalog import documents as D
 
@@ -285,6 +291,8 @@ def check_execution(catalog: Any, root_meta: Optional[Dict[str, Any]],
     if not isinstance(method_parameters, dict) or \
             not isinstance(root_meta, dict) or method not in _DATA_METHODS:
         return findings
+    if method == "fit":
+        findings += _mesh_findings(catalog, root_meta, method_parameters)
     configs = _neural_spec(root_meta.get(D.MODULE_PATH_FIELD),
                            root_meta.get(D.CLASS_FIELD),
                            root_meta.get(D.CLASS_PARAMETERS_FIELD))
@@ -324,6 +332,42 @@ def check_execution(catalog: Any, root_meta: Optional[Dict[str, Any]],
                     f"layer stack cannot initialize on x of shape "
                     f"{tuple(x_struct.shape)}: {err}"))
     return findings
+
+
+def _mesh_findings(catalog: Any, root_meta: Dict[str, Any],
+                   method_parameters: Dict[str, Any]) -> List[Finding]:
+    """``mesh-divisibility`` of a ``LanguageModel`` fit on the default
+    mesh (a process of its own has a mesh of one rank: nothing fires)."""
+    if root_meta.get(D.CLASS_FIELD) != "LanguageModel":
+        return []
+    try:
+        from learningorchestra_tpu_torch.runtime import mesh as mesh_lib
+
+        mesh = mesh_lib.get_default_mesh()
+    except Exception:  # noqa: BLE001 — no mesh formed: bypass
+        return []
+    out = []
+    dp = mesh_lib.data_parallel_size(mesh)
+    batch = method_parameters.get("batch_size")
+    if isinstance(batch, int) and batch > 0 and batch % dp:
+        out.append(Finding(
+            SEVERITY_WARNING, "mesh-divisibility",
+            "methodParameters.batch_size",
+            f"batch_size={batch} is not a multiple of the mesh's "
+            f"data-parallel extent {dp}; the feed will zero-pad each "
+            f"step (wasted accelerator work)"))
+    sp = mesh.shape.get(mesh_lib.SP, 1)
+    params = root_meta.get(D.CLASS_PARAMETERS_FIELD) or {}
+    x_struct = _ref_struct(catalog, method_parameters.get("x"))
+    if sp > 1 and params.get("attention") in ("ring", "ulysses") and \
+            x_struct is not None and len(x_struct.shape) == 2 and \
+            x_struct.shape[1] % sp:
+        out.append(Finding(
+            SEVERITY_WARNING, "mesh-divisibility", "methodParameters.x",
+            f"windows of {x_struct.shape[1]} tokens do not divide into "
+            f"sp={sp} blocks; {params['attention']} attention falls back "
+            f"to the whole sequence on every sp rank"))
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -22,7 +22,8 @@ and ``LO_SANDBOX_FILE_BYTES``, the job lifecycle's ``LO_JOB_RETRIES``,
 ``LO_JOB_TIMEOUT``, ``LO_STALL_SECONDS``, ``LO_STALL_ESCALATE``,
 ``LO_RETRY_BACKOFF`` and ``LO_RETRY_BACKOFF_MAX``, the card lease's
 ``LO_POOL_WEIGHTS``, ``LO_FAIR_SERVED_HALF_LIFE``, ``LO_MESH_YIELD`` and
-``LO_SERVE_LEASE_POLICY``, the health sentinel's
+``LO_SERVE_LEASE_POLICY``, the process group's ``LO_MESH_SHAPE``, the
+health sentinel's
 ``LO_HEALTH_ACTION``, ``LO_HEALTH_SPIKE_FACTOR``, ``LO_HEALTH_EMA_ALPHA``,
 ``LO_HEALTH_MAX_ROLLBACKS``, ``LO_HEALTH_COOLDOWN`` and
 ``LO_HEALTH_RETRIES``, and the gateway's ``LO_GET_CACHE_TTL`` and
@@ -269,6 +270,10 @@ class Config:
     fair_served_half_life_seconds: float = dataclasses.field(
         default_factory=lambda: float(os.environ.get(
             "LO_FAIR_SERVED_HALF_LIFE", "600")))
+    # the process group's mesh: "auto" = data parallel over every rank
+    # (runtime/mesh.py)
+    mesh_shape: str = dataclasses.field(
+        default_factory=lambda: os.environ.get("LO_MESH_SHAPE", "auto"))
     mesh_yield: bool = dataclasses.field(
         default_factory=lambda: os.environ.get(
             "LO_MESH_YIELD", "1") not in ("0", "false", "no"))

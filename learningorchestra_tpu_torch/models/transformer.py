@@ -40,11 +40,15 @@ from learningorchestra_tpu_torch.models.neural import (
     History, build_optimizer, is_adapter, validation_tail_count)
 from learningorchestra_tpu_torch.ops import attention as attn_ops
 from learningorchestra_tpu_torch.parallel import moe as moe_lib
+from learningorchestra_tpu_torch.parallel import ring as ring_lib
+from learningorchestra_tpu_torch.parallel import ulysses as ulysses_lib
 from learningorchestra_tpu_torch.runtime import checkpoint as ckpt_lib
 from learningorchestra_tpu_torch.runtime import data as data_lib
+from learningorchestra_tpu_torch.runtime import distributed as dist
 from learningorchestra_tpu_torch.runtime import engine as engine_lib
+from learningorchestra_tpu_torch.runtime import mesh as mesh_lib
 
-ATTENTION_IMPLS = ("dot", "flash")
+ATTENTION_IMPLS = ("dot", "flash", "ring", "ulysses")
 NEG_INF = attn_ops.NEG_INF
 
 Cache = List[Tuple[torch.Tensor, torch.Tensor]]
@@ -115,12 +119,25 @@ def _dropout(x: torch.Tensor, rate: float,
     return torch.where(mask, x / keep, 0.0)
 
 
+def _seq_shard() -> Optional[mesh_lib.Shard]:
+    """The running step's shard when it splits the sequence."""
+    shard = mesh_lib.current_shard()
+    return shard if shard is not None and shard.seq_size > 1 else None
+
+
 def _dispatch_attention(q, k, v, *, impl: str, causal: bool,
                         window: int = 0, kv_valid=None):
     """q: (b, s, h, d); k/v may carry fewer (kv) heads under GQA. The
     flash kernel consumes them natively; the dense path repeats K/V up
     to h heads first. ``kv_valid`` (padded-batch prefill) always routes
-    to the dense path: the kernel takes no per-row mask."""
+    to the dense path: the kernel takes no per-row mask. Ring and
+    Ulysses run where the step's shard splits the sequence (a sharded
+    fit plans that split only where they can run it, as the JAX
+    dispatch's conditions say): the ring over K/V repeated to full
+    heads, Ulysses GQA-native where the kv heads divide ``sp``.
+    Everywhere else (an evaluate, a predict, a one-rank or data-parallel
+    fit) both run the flash kernel over the whole local sequence: the
+    function of the dense fallback the JAX package takes there."""
     group = q.shape[2] // k.shape[2]
 
     def repeated():
@@ -129,7 +146,16 @@ def _dispatch_attention(q, k, v, *, impl: str, causal: bool,
         return (torch.repeat_interleave(k, group, dim=2),
                 torch.repeat_interleave(v, group, dim=2))
 
-    if kv_valid is None and impl == "flash":
+    shard = _seq_shard() if impl in ("ring", "ulysses") else None
+    if kv_valid is None and shard is not None:
+        if impl == "ring":
+            kr, vr = repeated()
+            return ring_lib.ring_attention_sharded(
+                q, kr, vr, shard, causal=causal, window=window)
+        kr, vr = (k, v) if k.shape[2] % shard.seq_size == 0 else repeated()
+        return ulysses_lib.ulysses_attention_sharded(
+            q, kr, vr, shard, causal=causal, window=window)
+    if kv_valid is None and impl in ("flash", "ring", "ulysses"):
         return attn_ops.flash_attention(q, k, v, causal=causal,
                                         window=window)
     kr, vr = repeated()
@@ -290,8 +316,12 @@ class Attention(nn.Module):
         else:
             kv_valid = None
             if pad_offset is None:
+                # a sequence block starts at its index times its length
+                shard = _seq_shard() if self.impl in ("ring", "ulysses") \
+                    else None
+                start = shard.seq_index * s if shard is not None else 0
                 cos, sin = rope_tables(s, hd, base=self.rope_base,
-                                       device=x.device)
+                                       offset=start, device=x.device)
                 q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
             else:
                 # left-padded batch prefill: each row's rope position is
@@ -724,21 +754,14 @@ def _head_chunk_sums(h_c, kernel, t_c, m_c):
     return ((lse - correct) * m_c).sum(), (ok * m_c).sum()
 
 
-def _fused_head_loss(out: FusedHeadOut, batch, weights, chunk: int,
-                     aux_coef: float):
-    """Chunked vocab projection + softmax cross-entropy: ``chunk`` tokens
-    at a time under ``torch.utils.checkpoint``, so one (chunk, vocab)
-    float32 logits tile lives at once and the backward recomputes it.
-    Accuracy comes out of the same pass as a loss metric."""
-    tgt, tok_mask = _token_targets(batch, weights)
-    hs = out.hidden[:, :-1]
-    b, sm1, d = hs.shape
-    t_total = b * sm1
+def _chunked_head_sums(hs, kernel, tg, mk, chunk: int):
+    """``(loss sum, correct sum)`` of ``(t, d)`` hidden states over
+    ``kernel``'s vocab, ``chunk`` tokens at a time under
+    ``torch.utils.checkpoint``, so one (chunk, vocab) float32 logits tile
+    lives at once and the backward recomputes it."""
+    t_total = hs.shape[0]
     chunk = max(1, min(chunk, t_total))
-    hs = hs.reshape(t_total, d)
-    tg = tgt.reshape(t_total)
-    mk = tok_mask.reshape(t_total)
-    kernel = out.kernel.to(hs.dtype)
+    kernel = kernel.to(hs.dtype)
     loss_sum = torch.zeros((), dtype=torch.float32, device=hs.device)
     ok_sum = torch.zeros((), dtype=torch.float32, device=hs.device)
     for start in range(0, t_total, chunk):
@@ -748,9 +771,82 @@ def _fused_head_loss(out: FusedHeadOut, batch, weights, chunk: int,
             mk[start:end], use_reentrant=False)
         loss_sum = loss_sum + lsum
         ok_sum = ok_sum + osum.detach()
+    return loss_sum, ok_sum
+
+
+def _fused_head_loss(out: FusedHeadOut, batch, weights, chunk: int,
+                     aux_coef: float):
+    """Chunked vocab projection + softmax cross-entropy
+    (:func:`_chunked_head_sums`). Accuracy comes out of the same pass as
+    a loss metric."""
+    tgt, tok_mask = _token_targets(batch, weights)
+    hs = out.hidden[:, :-1]
+    b, sm1, d = hs.shape
+    t_total = b * sm1
+    mk = tok_mask.reshape(t_total)
+    loss_sum, ok_sum = _chunked_head_sums(
+        hs.reshape(t_total, d), out.kernel, tgt.reshape(t_total), mk, chunk)
     total = mk.sum().clamp_min(1e-9)
     loss = loss_sum / total + aux_coef * out.aux.float()
     return loss, {"accuracy": (ok_sum, total)}
+
+
+def _sharded_token_loss(outputs, batch, weights, chunk: int,
+                        aux_coef: float):
+    """The next-token loss of a sharded step's block (the JAX package's
+    ``_fused_head_loss_sharded`` with ``tp`` 1): the targets come
+    shifted on the global sequence (``batch["tgt"]``, the column after
+    the last real one 0, which masks itself), so each rank scores every
+    position of its block. Gradients cross ranks inside the step (the
+    ring's and Ulysses' backward), so every rank's loss divides by the
+    same global token count (one all-reduce of the counts) and the
+    engine sums the ranks' gradients (``_gradWeight``: the global count,
+    which also weighs micro-batches); the emitted ``loss`` metric is the
+    block's ``(sum, count)``."""
+    tgt = batch["tgt"].long()
+    mask = (tgt != 0).float()
+    if weights is not None:
+        mask = mask * weights.float()[:, None]
+    if isinstance(outputs, FusedHeadOut):
+        hs = outputs.hidden
+        t_total = hs.shape[0] * hs.shape[1]
+        loss_sum, ok_sum = _chunked_head_sums(
+            hs.reshape(t_total, hs.shape[-1]), outputs.kernel,
+            tgt.reshape(t_total), mask.reshape(t_total), chunk)
+        aux = outputs.aux
+    else:
+        logits, aux = outputs
+        lg = logits.float()
+        per_tok = F.cross_entropy(lg.reshape(-1, lg.shape[-1]),
+                                  tgt.reshape(-1), reduction="none")
+        loss_sum = (per_tok.reshape(tgt.shape) * mask).sum()
+        ok_sum = ((lg.detach().argmax(dim=-1) == tgt).float() * mask).sum()
+    shard = mesh_lib.current_shard()
+    total = mask.sum()
+    n_global = dist.all_reduce(total.detach().clone(), shard.group)
+    aux_term = aux_coef * aux.float()
+    loss = loss_sum / n_global.clamp_min(1e-9) + aux_term / shard.size
+    return loss, {"loss": (loss_sum.detach() + aux_term.detach() * total,
+                           total),
+                  "accuracy": (ok_sum, total),
+                  "_gradWeight": (n_global, n_global)}
+
+
+def shift_columns(shard: mesh_lib.Shard):
+    """A sharded fit's ``columns`` function: the next-token targets of
+    the whole windows (``"tgt"``, shifted before the cut), then the
+    rank's block of the sequence when the fit splits it."""
+    def columns(arrays: Dict[str, Any]) -> Dict[str, Any]:
+        x = arrays["x"]
+        tgt = np.concatenate(
+            [x[:, 1:], np.zeros((x.shape[0], 1), x.dtype)], axis=1)
+        out = dict(arrays, tgt=tgt)
+        if shard.seq_size > 1:
+            cols = shard.columns(x.shape[1])
+            out["x"], out["tgt"] = x[:, cols], tgt[:, cols]
+        return out
+
+    return columns
 
 
 def next_token_loss(aux_coef: float = 0.01, head_chunk: int = 1024):
@@ -762,6 +858,9 @@ def next_token_loss(aux_coef: float = 0.01, head_chunk: int = 1024):
     cross-entropy of the float32 logits."""
 
     def loss_fn(outputs, batch, weights):
+        if "tgt" in batch:
+            return _sharded_token_loss(outputs, batch, weights, head_chunk,
+                                       aux_coef)
         if isinstance(outputs, FusedHeadOut):
             return _fused_head_loss(outputs, batch, weights, head_chunk,
                                     aux_coef)
@@ -839,8 +938,11 @@ class LanguageModel:
     projections (``fused_proj``), per-block rematerialization under
     training (``remat`` ``"dots"``/``"full"``), beam search, and LoRA
     adapters on the attention projections (``lora_rank``; a model with
-    adapters trains them alone, its base frozen). Ring and Ulysses
-    attention raise at construction. ``LO_LM_HEAD_CHUNK``,
+    adapters trains them alone, its base frozen). ``fit`` shards over
+    the process group's mesh (``LO_MESH_SHAPE``):
+    each rank trains its block of rows, and with ``attention="ring"``
+    or ``"ulysses"`` and an ``sp`` axis its block of the sequence
+    (:meth:`_plan`). ``LO_LM_HEAD_CHUNK``,
     ``LO_TLM_REMAT`` and ``LO_TLM_FUSED_PROJ`` override ``head_chunk``,
     ``remat`` and ``fused_proj`` as in the JAX package. Weights come in
     through :meth:`set_params` (see :mod:`.weights`), or from
@@ -879,9 +981,7 @@ class LanguageModel:
         self.max_len = int(max_len)
         self.attention = attention
         if attention not in ("auto",) + ATTENTION_IMPLS:
-            raise ValueError(
-                f"attention={attention!r} is not ported to the PyTorch "
-                f"package yet (auto, dot or flash)")
+            raise ValueError(f"unknown attention impl: {attention!r}")
         self.n_experts = int(n_experts)
         self.moe_k = int(moe_k)
         self.dropout = float(dropout)
@@ -911,8 +1011,31 @@ class LanguageModel:
         self.seed = 0
         self._engine: Optional[engine_lib.Engine] = None
         self._accum = engine_lib.default_grad_accum()
+        self._mesh_override: Optional[mesh_lib.Mesh] = None
 
     # ------------------------------------------------------------------
+    def _mesh(self) -> mesh_lib.Mesh:
+        """The mesh of this model's fits: ``_mesh_override`` when set,
+        else the thread's (:func:`~..runtime.mesh.current_mesh`)."""
+        return self._mesh_override or mesh_lib.current_mesh()
+
+    def _plan(self, seq_len: int):
+        """``(shard, columns)`` of a fit on this rank, or ``(None, None)``
+        on a mesh of one rank. The sequence is split where the JAX
+        dispatch runs ring or Ulysses: ring or Ulysses attention, ``sp``
+        above 1 dividing the window, and for Ulysses the heads;
+        otherwise the ``sp`` ranks hold the same rows."""
+        mesh = self._mesh()
+        if mesh.size <= 1:
+            return None, None
+        sp = mesh.shape.get(mesh_lib.SP, 1)
+        impl = self._resolved_attention()
+        seq_parallel = (impl in ("ring", "ulysses") and sp > 1
+                        and seq_len % sp == 0
+                        and (impl == "ring" or self.n_heads % sp == 0))
+        shard = mesh_lib.Shard(mesh, dist.rank(), seq_parallel)
+        return shard, shift_columns(shard)
+
     def _resolved_attention(self) -> str:
         if self.attention != "auto":
             return self.attention
@@ -1102,11 +1225,12 @@ class LanguageModel:
         return x.astype(np.int32)
 
     def _batcher(self, x, batch_size: Optional[int],
-                 shuffle: bool = False) -> data_lib.ArrayBatcher:
+                 shuffle: bool = False,
+                 dp_multiple: int = 1) -> data_lib.ArrayBatcher:
         return data_lib.ArrayBatcher(
             {"x": self._coerce_tokens(x)},
             batch_size or Config().default_batch_size,
-            shuffle=shuffle, seed=self.seed)
+            shuffle=shuffle, seed=self.seed, dp_multiple=dp_multiple)
 
     def _master_params(self) -> Dict[str, torch.Tensor]:
         return dict(self.module.named_parameters())
@@ -1129,15 +1253,19 @@ class LanguageModel:
             n_val = validation_tail_count(len(x), validation_split)
             val_x = x[-n_val:]
             x = x[:-n_val]
-        batcher = self._batcher(x, batch_size, shuffle=shuffle)
+        batcher = self._batcher(
+            x, batch_size, shuffle=shuffle,
+            dp_multiple=mesh_lib.data_parallel_size(self._mesh()))
         if self.module is None:
             self.set_params(weights_lib.params_from_flax(
                 weights_lib.init_params(self._config(), self.seed)))
         eng = self._get_engine()
         state = eng.init_state(self._master_params())
+        shard, columns = self._plan(batcher.array("x").shape[1])
         state, history = eng.fit(state, batcher, epochs=epochs,
                                  seed=self.seed, checkpointer=checkpointer,
-                                 log_fn=log_fn)
+                                 log_fn=log_fn, shard=shard,
+                                 columns=columns)
         if val_x is not None:
             val = eng.evaluate(state.params, self._batcher(val_x,
                                                            batch_size))

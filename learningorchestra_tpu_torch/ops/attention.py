@@ -32,7 +32,7 @@ heads, ``kv | heads``.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -55,6 +55,15 @@ _LAUNCH_LOCK = locks.make_lock("attention.launches")
 def _count_launch(counter: str) -> None:
     with _LAUNCH_LOCK:
         globals()[counter] += 1
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel's launches so far, by source name
+    (``flash_fwd_sm90``, ...)."""
+    with _LAUNCH_LOCK:
+        return {name[:-len("_LAUNCHES")].lower(): value
+                for name, value in globals().items()
+                if name.startswith("FLASH_") and name.endswith("_LAUNCHES")}
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

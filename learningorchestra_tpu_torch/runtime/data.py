@@ -7,8 +7,9 @@ exact. A fit that fits ``LO_SCAN_FIT_MAX_BYTES`` stages
 :meth:`ArrayBatcher.padded_arrays` on the card once (``runtime/engine.py``);
 a larger one of more than one step an epoch is fed by
 :func:`prefetch_to_device`, which copies the next batches on a side
-stream while the current step runs. There is no
-data-parallel padding (the port trains on one card).
+stream while the current step runs. A sharded fit's batcher pads the batch
+size to a multiple of the data-parallel size (``dp_multiple``), as the
+JAX package's does.
 :func:`dataframe_to_arrays` is the catalog table feed.
 """
 
@@ -36,7 +37,7 @@ class ArrayBatcher:
     """
 
     def __init__(self, arrays: Dict[str, np.ndarray], batch_size: int, *,
-                 shuffle: bool = False, seed: int = 0,
+                 shuffle: bool = False, seed: int = 0, dp_multiple: int = 1,
                  sample_weight: Optional[np.ndarray] = None,
                  cache_token=None, cache_tags: Sequence[str] = ()):
         if not arrays:
@@ -58,6 +59,8 @@ class ArrayBatcher:
                     f"for {self.num_samples} samples")
             self._sample_weight = sample_weight
         self.batch_size = int(batch_size)
+        if self.batch_size % dp_multiple:
+            self.batch_size += dp_multiple - self.batch_size % dp_multiple
         self._shuffle = shuffle
         self._seed = seed
         # hashable content identity of ``arrays`` (dataset versions,
@@ -70,6 +73,10 @@ class ArrayBatcher:
             cache_token = None
         self.cache_token = cache_token
         self.cache_tags = tuple(cache_tags)
+
+    def array(self, key: str) -> np.ndarray:
+        """The full host array for ``key``."""
+        return self._arrays[key]
 
     @property
     def steps_per_epoch(self) -> int:

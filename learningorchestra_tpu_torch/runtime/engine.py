@@ -68,6 +68,28 @@ kernels are as opaque to the counter as ``pallas_call`` is to XLA's
 cost analysis. torch has no bytes-accessed count, so a train window's
 roofline carries no bandwidth fields. The train state is ledgered under
 the X-ray owner ``train-state`` for the fit.
+
+A sharded fit (``fit(..., shard=...)``, a :class:`~.mesh.Shard` of the
+process group's mesh) runs the same program on every rank of the mesh,
+as the JAX engine runs one program over its mesh: the batcher pads
+every global batch to a multiple of the data-parallel size, each rank
+takes its block of rows of every step (and, through the model's
+``columns`` function, its block of the sequence, which the staged
+epoch holds alone), and after the backward the weighted gradients and
+the metric sums are summed over the mesh in one all-reduce. Each rank's
+weight is its loss count, so the step is the gradient of the global
+mean; a loss normalized over the mesh already (the LM's, whose
+gradients cross ranks inside the step) emits ``_gradWeight`` and the
+ranks' gradients are summed as they are. Every rank steps the same
+optimizer on the same gradients. The
+health word is computed after the reduction, so every rank skips or
+rolls back together; each rank's random draws fold in its block index.
+Checkpoints commit on the mesh's first rank behind a barrier, and every
+rank restores. Evaluation and prediction run replicated (every rank the
+whole batch). Each epoch record of a sharded fit carries
+``launchesByRank``: every mesh rank's flash-kernel launches in the epoch
+(one small all-gather), so the coordinator's record shows what each
+rank ran.
 """
 
 from __future__ import annotations
@@ -86,8 +108,11 @@ from learningorchestra_tpu_torch.observability import perf as obs_perf
 from learningorchestra_tpu_torch.observability import timeline as obs_timeline
 from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.observability import xray as obs_xray
+from learningorchestra_tpu_torch.ops import attention as attn_ops
 from learningorchestra_tpu_torch.runtime import arena as arena_lib
+from learningorchestra_tpu_torch.runtime import distributed as dist
 from learningorchestra_tpu_torch.runtime import health as health_lib
+from learningorchestra_tpu_torch.runtime import mesh as mesh_lib
 from learningorchestra_tpu_torch.runtime import preempt
 from learningorchestra_tpu_torch.runtime.data import (MASK_KEY, ArrayBatcher,
                                                       prefetch_to_device)
@@ -358,11 +383,74 @@ def _counted(fn: Callable[[], Any]) -> Tuple[Any, float]:
     return out, flops
 
 
-def _step_seed(seed: int, step: int, micro: int) -> int:
+def _step_seed(seed: int, step: int, micro: int, block: int = 0) -> int:
     """The random stream of one micro-batch of one step: the port's
-    counterpart of ``fold_in(fold_in(PRNGKey(seed), step), micro)``."""
-    state = np.random.SeedSequence([seed, step, micro]).generate_state(1)
+    counterpart of ``fold_in(fold_in(PRNGKey(seed), step), micro)``. A
+    sharded step's rank folds in the index of its (data, sequence)
+    block, so blocks draw apart (block 0 draws the unsharded stream)."""
+    entropy = [seed, step, micro] + ([block] if block else [])
+    state = np.random.SeedSequence(entropy).generate_state(1)
     return int(state[0]) & (2 ** 63 - 1)
+
+
+def _rows(shard: mesh_lib.Shard, batch: Dict[str, torch.Tensor]
+          ) -> Dict[str, torch.Tensor]:
+    """``shard``'s block of the batch's rows."""
+    n = next(iter(batch.values())).shape[0]
+    if n % shard.data_size:
+        raise ValueError(f"batch of {n} rows does not divide into "
+                         f"{shard.data_size} data-parallel blocks")
+    rows = shard.rows(n)
+    return {k: v[rows] for k, v in batch.items()}
+
+
+def _grad_weight(metrics: Metrics) -> torch.Tensor:
+    """A (micro-)batch's gradient weight: its loss count, or the weight
+    the loss emitted (``_gradWeight``)."""
+    return metrics.get("_gradWeight", metrics["loss"])[1].float()
+
+
+def _launches_by_rank(shard: mesh_lib.Shard, since: Dict[str, int],
+                      device: torch.device) -> List[Dict[str, int]]:
+    """Every mesh rank's kernel launches since ``since`` (its own
+    counts), in mesh rank order."""
+    now = attn_ops.launch_counts()
+    names = sorted(now)
+    mine = torch.tensor([now[k] - since.get(k, 0) for k in names],
+                        dtype=torch.int64, device=device)
+    return [dict(zip(names, (int(v) for v in t.tolist())))
+            for t in dist.all_gather(mine, shard.group)]
+
+
+def _reduce_over(shard: mesh_lib.Shard, grads: Params, metrics: Metrics,
+                 ) -> Tuple[Params, Metrics]:
+    """The mesh's step from this rank's, in one all-reduce over
+    ``shard.group``: ``sum(w_r g_r) / sum(w_r)`` with ``w_r`` the
+    rank's loss count, or, for a loss normalized over the mesh already
+    (it emits ``_gradWeight``), the plain sum of the ranks' gradients;
+    and every metric's sum and count summed."""
+    summed = metrics.pop("_gradWeight", None) is not None
+    w = 1.0 if summed else metrics["loss"][1].float()
+    names = sorted(grads)
+    keys = sorted(metrics)
+    parts = [(grads[k].float() * w).reshape(-1) for k in names]
+    for k in keys:
+        s, c = metrics[k]
+        parts += [s.float().reshape(1), c.float().reshape(1)]
+    buf = dist.all_reduce(torch.cat(parts), shard.group)
+    at = 0
+    reduced: Dict[str, torch.Tensor] = {}
+    for k in names:
+        n = grads[k].numel()
+        reduced[k] = buf[at:at + n].view(grads[k].shape)
+        at += n
+    sums: Metrics = {}
+    for k in keys:
+        sums[k] = (buf[at], buf[at + 1])
+        at += 2
+    total = 1.0 if summed else sums["loss"][1].clamp_min(1e-9)
+    return ({k: (g / total).to(grads[k].dtype) for k, g in reduced.items()},
+            sums)
 
 
 class Engine:
@@ -408,6 +496,9 @@ class Engine:
         # measured at
         self._step_flops: Optional[float] = None
         self._flops_shape: Any = None
+        # the running fit's place in the mesh (fit(shard=...))
+        self._shard: Optional[mesh_lib.Shard] = None
+        self._columns: Optional[Callable] = None
 
     def init_state(self, params: Params,
                    model_state: Optional[Params] = None) -> TrainState:
@@ -443,14 +534,20 @@ class Engine:
 
     @classmethod
     def _stage(cls, batcher: ArrayBatcher, device: torch.device,
+               columns: Optional[Callable] = None,
                ) -> Tuple[Optional[arena_lib.ArenaEntry],
                           Dict[str, torch.Tensor]]:
         """``(pin or None, the padded epoch on device)``: from the device
-        arena when the batcher carries a content token."""
+        arena when the batcher carries a content token. ``columns`` (a
+        sharded fit's) cuts the epoch to the rank's block first, and
+        such an epoch stays out of the arena."""
         def build() -> Dict[str, torch.Tensor]:
-            return cls._to_device(batcher.padded_arrays(), device)
+            arrays = batcher.padded_arrays()
+            if columns is not None:
+                arrays = columns(arrays)
+            return cls._to_device(arrays, device)
 
-        if batcher.cache_token is None:
+        if batcher.cache_token is None or columns is not None:
             return None, build()
         entry = arena_lib.get_default_arena().get_or_put(
             ("fit_arrays", batcher.cache_token, batcher.steps_per_epoch,
@@ -460,7 +557,7 @@ class Engine:
 
     @staticmethod
     def _host_feed(batcher: ArrayBatcher, epoch_key: int,
-                   device: torch.device):
+                   device: torch.device, columns: Optional[Callable] = None):
         """The batches of an epoch that is not staged: through the
         prefetch thread when the epoch takes more than one step and
         ``LO_PREFETCH_BUFFER`` is above 0, else the host batches, which
@@ -469,6 +566,8 @@ class Engine:
         from learningorchestra_tpu_torch.config import Config
 
         batches = batcher.epoch(epoch_key)
+        if columns is not None:
+            batches = (columns(b) for b in batches)
         if batcher.steps_per_epoch > 1 and Config().prefetch_buffer > 0:
             return prefetch_to_device(batches, device)
         return batches
@@ -568,8 +667,8 @@ class Engine:
         for i in range(accum):
             micro = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
             grads, model_state, metrics = micro_step(
-                params, model_state, micro, _step_seed(seed, step, i))
-            w = metrics["loss"][1].float()
+                params, model_state, micro, self._seed(seed, step, i))
+            w = _grad_weight(metrics)
             for k, g in grads.items():
                 g = g.float() * _lead(w, g)
                 g_sum[k] = g if k not in g_sum else g_sum[k] + g
@@ -577,20 +676,52 @@ class Engine:
                 if k in sums:
                     s, c = sums[k][0] + s, sums[k][1] + c
                 sums[k] = (s, c)
-        w_total = sums["loss"][1].float().clamp_min(1e-9)
+        w_total = _grad_weight(sums).clamp_min(1e-9)
         return ({k: g / _lead(w_total, g) for k, g in g_sum.items()},
                 model_state, sums)
 
-    def _train_step_body(self, state: TrainState, batch,
-                         seed: int) -> Metrics:
-        """One optimizer step on ``batch``; ``state`` changes in place."""
+    def _seed(self, seed: int, step: int, micro: int) -> int:
+        block = self._shard.row_index if self._shard is not None else 0
+        return _step_seed(seed, step, micro, block)
+
+    def _step_grads(self, state: TrainState, batch, seed: int,
+                    ) -> Tuple[Params, Params, Metrics]:
+        """The step's gradients, new model state and metric sums: of the
+        whole batch, or under a shard of the global batch (this rank's
+        block, summed over the mesh)."""
         if self._grad_accum > 1:
             grads, new_state, metrics = self._accum_step(
                 state.params, state.model_state, batch, seed, state.step)
         else:
             grads, new_state, metrics = self._micro_step(
                 state.params, state.model_state, batch,
-                _step_seed(seed, state.step, 0))
+                self._seed(seed, state.step, 0))
+        if self._shard is not None:
+            grads, metrics = _reduce_over(self._shard, grads, metrics)
+        return grads, new_state, metrics
+
+    def sharded_grads(self, state: TrainState, batch, seed: int,
+                      shard: mesh_lib.Shard, columns: Optional[Callable]
+                      = None) -> Tuple[Params, Metrics]:
+        """Gradients and metric sums of one step on the global ``batch``
+        (host arrays) under ``shard``, the optimizer untouched: what a
+        sharded fit's first step computes."""
+        if columns is not None:
+            batch = columns(batch)
+        device = next(iter(state.params.values())).device
+        batch = _rows(shard, self._to_device(batch, device))
+        self._shard = shard
+        try:
+            with mesh_lib.sharded(shard):
+                grads, _, metrics = self._step_grads(state, batch, seed)
+        finally:
+            self._shard = None
+        return grads, metrics
+
+    def _train_step_body(self, state: TrainState, batch,
+                         seed: int) -> Metrics:
+        """One optimizer step on ``batch``; ``state`` changes in place."""
+        grads, new_state, metrics = self._step_grads(state, batch, seed)
         bad = self._health_word(metrics, grads) if self._health_on else None
         kept = self._keep(state) if bad is not None and self._health_skip \
             else None
@@ -910,6 +1041,16 @@ class Engine:
 
     def _save_checkpoint(self, checkpointer, state: TrainState,
                          epoch: int) -> None:
+        """Saves the train state; in a sharded fit the mesh's first rank
+        commits and every rank waits for it (each holds the same
+        state)."""
+        shard = self._shard
+        if shard is None or shard.rank == int(shard.mesh.ranks.flat[0]):
+            self._commit(checkpointer, state, epoch)
+        if shard is not None:
+            dist.barrier(shard.group)
+
+    def _commit(self, checkpointer, state: TrainState, epoch: int) -> None:
         saved = self._saved_form(
             state, lambda t, transposed: (t.detach().t() if transposed
                                           else t.detach()))
@@ -1039,13 +1180,17 @@ class Engine:
             epochs: int = 1, seed: int = 0, checkpointer=None,
             log_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
             health_policy=None, scan_batches: Optional[bool] = None,
+            shard: Optional[mesh_lib.Shard] = None,
+            columns: Optional[Callable] = None,
             ) -> Tuple[TrainState, List[Dict[str, Any]]]:
         """Train ``epochs`` over ``batcher`` one step per batch (the
         total budget on a resume from ``checkpointer``) under
         ``health_policy`` (None, an action, a request dict or a
         :class:`HealthPolicy`). ``scan_batches`` forces the staged epoch
         (True) or the host feed (False, :meth:`_host_feed`); None takes
-        :meth:`_should_stage`'s rule."""
+        :meth:`_should_stage`'s rule. ``shard`` makes the fit this
+        rank's part of a sharded fit over its mesh, ``columns`` (host
+        arrays to host arrays) the rank's block of the sequence."""
         policy = health_lib.coerce_policy(health_policy)
         device = next(iter(state.params.values())).device
         history: List[Dict[str, Any]] = []
@@ -1066,14 +1211,18 @@ class Engine:
         stage = (self._should_stage(batcher) if scan_batches is None
                  else bool(scan_batches))
         entry = None
+        self._shard = shard
+        self._columns = columns
         try:
             staged = None
             if stage:
-                entry, staged = self._stage(batcher, device)
-            self._fit_epochs(state, batcher, start_epoch, epochs, seed,
-                             checkpointer, log_fn, policy, device, history,
-                             staged)
+                entry, staged = self._stage(batcher, device, columns)
+            with mesh_lib.sharded(shard):
+                self._fit_epochs(state, batcher, start_epoch, epochs, seed,
+                                 checkpointer, log_fn, policy, device,
+                                 history, staged)
         finally:
+            self._shard = self._columns = None
             # the pin drops on every exit (a cancel, a timeout, a
             # divergence), or the entry could never be evicted
             if entry is not None:
@@ -1114,9 +1263,11 @@ class Engine:
                 seed, _HEALTH_TAG + rb, 0)
             poison = _armed_nan()
             epoch_key = epoch + rb * _ROLLBACK_STRIDE
+            launched = attn_ops.launch_counts()
             feed = (self._staged_batches(batcher, staged, epoch_key, device)
                     if staged is not None else
-                    self._host_feed(batcher, epoch_key, device))
+                    self._host_feed(batcher, epoch_key, device,
+                                    self._columns))
             with contextlib.closing(feed):
                 for batch in feed:
                     # a cancelled or expired job stops here, between
@@ -1125,6 +1276,8 @@ class Engine:
                     preempt.heartbeat(epoch=epoch, step=state.step,
                                       rollbacks=rb)
                     batch = self._to_device(batch, device)
+                    if self._shard is not None:
+                        batch = _rows(self._shard, batch)
                     if poison:
                         # a copy: the staged (arena) tensors stay clean
                         batch = _poison_batch(batch)
@@ -1167,6 +1320,9 @@ class Engine:
             record.update(epoch=epoch, epochSeconds=round(dt, 4),
                           samplesPerSecond=round(batcher.num_samples / dt,
                                                  2))
+            if self._shard is not None:
+                record["launchesByRank"] = _launches_by_rank(
+                    self._shard, launched, device)
             self._observe_window(mono0, dt, steps, record, bad_steps,
                                  step=state.step, epoch=epoch)
             history.append(record)

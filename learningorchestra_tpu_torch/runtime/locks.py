@@ -6,9 +6,10 @@ lock-order validator (the port's copy of the JAX package's
   acquires a lock only while every lock it holds has a **strictly
   lower** rank (re-entering the same :class:`WitnessRLock` object is
   exempt). Low ranks are outermost, high ranks are leaves. The ranks are
-  the JAX package's; ``attention.launches`` (the kernels' launch
-  counters) and ``kernels.build`` (their build) are the port's own
-  leaves.
+  the JAX package's (the process group's ``distributed.publish`` and
+  ``distributed.state`` too); ``attention.launches`` (the kernels'
+  launch counters, at 385 beside them) and ``kernels.build`` (their
+  build) are the port's own leaves.
 - :func:`make_lock` / :func:`make_rlock` / :func:`make_condition` are
   the only way the port creates a lock. They reject names that are not
   declared, and return plain ``threading`` primitives unless
@@ -87,7 +88,9 @@ HIERARCHY: Dict[str, int] = {
     "server.metrics": 340,         # REST request counters
     "server.gateway": 350,         # timed-dispatch accounting
     "faults.spec": 360,            # fault-injection budget (leaf)
-    "attention.launches": 370,     # the kernels' launch counters (leaf)
+    "distributed.publish": 370,    # the bridge's (length, payload) pair
+    "distributed.state": 380,      # heartbeats seen, bytes staged (leaf)
+    "attention.launches": 385,     # the kernels' launch counters (leaf)
     "sweep.fusion": 390,           # the sweeps' fusion counters (leaf)
     "native.registry": 400,        # the C++ core's one-time build
     "kernels.build": 405,          # the CUDA kernels' build and load

@@ -6,7 +6,10 @@ plane's live parts — the cluster sampler with its SLO watchdog
 (``LO_MONITOR``), the ``torch.profiler`` gate and the incident flight
 recorder (``LO_INCIDENTS``), wired as the JAX package's
 ``services/context.py`` wires them. A context installs its config as the
-plane's process-wide one."""
+plane's process-wide one. On the coordinator of a pod of several ranks
+it also runs the pod guard (:func:`start_pod_guard`). A mesh the port
+cannot run (``LO_MESH_SHAPE`` with ``tp``, ``fsdp``, ``ep`` or ``pp``
+above 1) is refused here, at boot."""
 
 from __future__ import annotations
 
@@ -22,7 +25,9 @@ from learningorchestra_tpu_torch.config import Config, resolve_device
 from learningorchestra_tpu_torch.observability import incidents as obs_incidents
 from learningorchestra_tpu_torch.observability import xray as obs_xray
 from learningorchestra_tpu_torch.runtime import arena as arena_lib
+from learningorchestra_tpu_torch.runtime import distributed as dist
 from learningorchestra_tpu_torch.runtime import health as health_lib
+from learningorchestra_tpu_torch.runtime import mesh as mesh_lib
 from learningorchestra_tpu_torch.services.feature_cache import FeatureCache
 from learningorchestra_tpu_torch.services.jobs import JobManager
 from learningorchestra_tpu_torch.services.params import ParameterResolver
@@ -35,6 +40,7 @@ class ServiceContext:
         config = config or Config()
         if device is not None:
             config = dataclasses.replace(config, device=device)
+        mesh_lib.check_spec(config.mesh_shape)
         obs_xray.check_transfer_guard(config)
         self.config = config
         self.device = resolve_device(config.device)
@@ -64,6 +70,7 @@ class ServiceContext:
         self.profiler_gate = obs_incidents.ProfilerGate()
         # after the monitor, so the recorder's collectors resolve
         self.incidents, self._health_listener = _start_incidents(self)
+        self._pod_guard = start_pod_guard(self)
 
     @property
     def draining(self) -> bool:
@@ -76,6 +83,8 @@ class ServiceContext:
 
     def close(self) -> None:
         self._draining = True
+        if self._pod_guard is not None:
+            self._pod_guard.set()
         if self.incidents is not None:
             if self._health_listener is not None:
                 health_lib.remove_listener(self._health_listener)
@@ -89,6 +98,36 @@ class ServiceContext:
         self.jobs.shutdown()
         self.serving.close()
         self.catalog.close()
+
+
+def start_pod_guard(ctx: ServiceContext):
+    """The coordinator's pod guard: every heartbeat interval it asks
+    :func:`.distributed.pod_failure`, and when a worker is lost it gives
+    every running card job a terminal ``WorkerLost`` document (their
+    threads wait in collectives that cannot complete). Returns the stop
+    event, or None where no guard runs (a single process, a follower)."""
+    if not (dist.is_initialized() and dist.world_size() > 1
+            and dist.is_coordinator()):
+        return None
+    stop = threading.Event()
+
+    def guard() -> None:
+        reported = False
+        while not stop.wait(dist.HEARTBEAT_INTERVAL):
+            failure = dist.pod_failure()
+            if failure and not reported:
+                reported = True
+                n = ctx.jobs.fail_running_card_jobs(failure)
+                print(f"pod guard: {failure} — marked {n} running card "
+                      f"job(s) failed", flush=True)
+            elif not failure and reported:
+                reported = False
+                print("pod guard: heartbeats resumed, pod healthy again",
+                      flush=True)
+
+    threading.Thread(target=guard, daemon=True,
+                     name="lo-pod-guard").start()
+    return stop
 
 
 def _start_monitor(ctx: ServiceContext):

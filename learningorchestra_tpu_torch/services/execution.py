@@ -74,7 +74,9 @@ import numpy as np
 from learningorchestra_tpu_torch import analysis as A
 from learningorchestra_tpu_torch.catalog import documents as D
 from learningorchestra_tpu_torch.observability import trace as obs_trace
+from learningorchestra_tpu_torch.runtime import distributed as dist
 from learningorchestra_tpu_torch.runtime import health as health_lib
+from learningorchestra_tpu_torch.runtime import mesh as mesh_lib
 from learningorchestra_tpu_torch.runtime.async_ckpt import wrap_checkpointer
 from learningorchestra_tpu_torch.runtime.checkpoint import Checkpointer
 from learningorchestra_tpu_torch.services import validators as V
@@ -266,6 +268,8 @@ class ExecutionService:
                 health_policy: Optional[Any] = None,
                 footprint: Optional[Dict[str, Any]] = None) -> None:
         def run():
+            _broadcast_to_workers(name, type_string, parent_name, method,
+                                  method_parameters, health_policy)
             with obs_trace.span("dataLoad"):
                 parent_type = self._ctx.params.artifact_type(parent_name)
                 instance = self._ctx.artifacts.load(parent_name,
@@ -419,6 +423,69 @@ def _inject_health_policy(ctx, instance: Any, method: str,
     policy = health_lib.resolve_policy(requested, ctx.config)
     if policy is not None:
         treated["health_policy"] = policy
+
+
+# ----------------------------------------------------------------------
+# the pod: one REST call, every rank
+# ----------------------------------------------------------------------
+def _broadcast_to_workers(name: str, type_string: str, parent_name: str,
+                          method: str,
+                          method_parameters: Dict[str, Any],
+                          health_policy: Optional[Any] = None) -> None:
+    """In a pod of several ranks the coordinator publishes every method
+    call before it runs it: a sharded fit's collectives need every rank
+    of the mesh in the same program. The followers replay it from the
+    shared artifact store (:func:`replay_method_call`); the health
+    policy rides along, since it changes what the step computes."""
+    if dist.world_size() <= 1:
+        return
+    dist.HostBridge().publish({
+        "op": "run",
+        "target": "learningorchestra_tpu_torch.services.execution:"
+                  "replay_method_call",
+        "kwargs": {"name": name, "type_string": type_string,
+                   "parent_name": parent_name, "method": method,
+                   "method_parameters": method_parameters,
+                   "health_policy": health_policy}})
+
+
+_worker_ctx = None
+
+
+def set_worker_context(ctx) -> None:
+    """The context a follower replays in (its entry point's)."""
+    global _worker_ctx
+    _worker_ctx = ctx
+
+
+def replay_method_call(name: str, type_string: str, parent_name: str,
+                       method: str, method_parameters: Dict[str, Any],
+                       health_policy: Optional[Any] = None) -> None:
+    """The follower's twin of the coordinator's job: the same artifact
+    from the shared store, the same parameters, the same method, so the
+    rank takes its part in every collective. Catalog and artifact writes
+    stay with the coordinator (the engine commits checkpoints on the
+    mesh's first rank); the follower's result is dropped. A rank outside
+    the default mesh has no part and returns."""
+    global _worker_ctx
+    if _worker_ctx is None:
+        from learningorchestra_tpu_torch.services.context import \
+            ServiceContext
+
+        _worker_ctx = ServiceContext()
+    ctx = _worker_ctx
+    if mesh_lib.get_default_mesh().coords(dist.rank()) is None:
+        return
+    instance = ctx.artifacts.load(parent_name,
+                                  ctx.params.artifact_type(parent_name))
+    treated = ctx.params.treat(method_parameters)
+    ckpt = _prepare_checkpointer(ctx, name, type_string, treated)
+    _inject_health_policy(ctx, instance, method, treated, health_policy)
+    try:
+        getattr(instance, method)(**treated)
+    finally:
+        if ckpt is not None:
+            ckpt.close()
 
 
 def summarize_result(result: Any) -> Optional[Any]:

@@ -70,6 +70,7 @@ from learningorchestra_tpu_torch.observability import incidents as obs_incidents
 from learningorchestra_tpu_torch.observability import monitor as obs_monitor
 from learningorchestra_tpu_torch.observability import perf as obs_perf
 from learningorchestra_tpu_torch.observability import trace as obs_trace
+from learningorchestra_tpu_torch.runtime import distributed as dist
 from learningorchestra_tpu_torch.runtime import locks, preempt
 from learningorchestra_tpu_torch.runtime.health import NumericalDivergence
 from learningorchestra_tpu_torch.services import faults
@@ -142,7 +143,10 @@ class JobManager:
         here; ``engine_step`` and ``ckpt_write`` through
         :func:`faults.use_config`); None reads ``LO_FAULT_INJECT``.
         ``pool_weights``, ``served_half_life_seconds`` and
-        ``mesh_yield`` configure the card lease."""
+        ``mesh_yield`` configure the card lease. While the process
+        group has lost a worker (:func:`.distributed.pod_failure`) card
+        jobs are refused with a typed ``WorkerLost`` document instead of
+        entering a collective that cannot complete."""
         self._catalog = catalog
         self._config = config
         self._pool = ThreadPoolExecutor(max_workers=max_workers,
@@ -174,17 +178,22 @@ class JobManager:
 
     @classmethod
     def from_config(cls, catalog: Catalog, config) -> "JobManager":
+        """The manager ``config`` describes. In a pod of several ranks
+        the lease never yields and a stall never escalates to a cancel:
+        the followers replay each card job whole and in order, so the
+        coordinator must run it the same way."""
+        single = dist.world_size() <= 1
         return cls(catalog, max_workers=config.max_workers, config=config,
                    default_timeout=config.job_timeout_seconds,
                    stall_seconds=config.stall_seconds,
-                   stall_escalate=config.stall_escalate,
+                   stall_escalate=config.stall_escalate and single,
                    retry_backoff=config.retry_backoff_seconds,
                    retry_backoff_max=config.retry_backoff_max_seconds,
                    numerical_retries=config.health_retries,
                    pool_weights=parse_pool_weights(config.pool_weights),
                    served_half_life_seconds=(
                        config.fair_served_half_life_seconds),
-                   mesh_yield=config.mesh_yield)
+                   mesh_yield=config.mesh_yield and single)
 
     def mesh_lease(self, pool: str = "default", cancel=None):
         """The card, through the fair queue (``with jobs.mesh_lease():``);
@@ -397,6 +406,10 @@ class JobManager:
                     failure = exc
                 if needs_card:
                     _settle_card(collect=failure is not None)
+                if failure is not None and needs_card and \
+                        dist.world_size() > 1 and \
+                        dist.is_collective_error(failure):
+                    self._await_pod_verdict()
                 if isinstance(failure, preempt.JobCancelled):
                     record_cancel(failure, attempt, timing(
                         {"queueWaitSeconds": round(queue_wait, 6)}))
@@ -404,7 +417,8 @@ class JobManager:
                 if failure is not None:
                     terminal = self._record_failure(
                         name, description, parameters, failure, attempt,
-                        max_retries, failures, timing, fail_all)
+                        max_retries, failures, timing, fail_all,
+                        needs_card)
                     if terminal:
                         self._record_attribution(name, footprint,
                                                  needs_card)
@@ -447,6 +461,18 @@ class JobManager:
                 with job_span, faults.use_config(self._config):
                     while True:
                         attempt += 1
+                        failure = dist.pod_failure() if needs_card \
+                            else None
+                        if failure:
+                            # a degraded pod cannot run a sharded step:
+                            # a terminal typed failure, not a collective
+                            # that waits out its timeout
+                            fail_all(D.execution_document(
+                                description, parameters,
+                                exception=f"WorkerLost({failure!r})",
+                                extra={"workerLost": True,
+                                       "attempt": attempt}))
+                            return None
                         try:
                             # cancelled or expired while queued, or in
                             # the backoff: terminal, no lease taken
@@ -488,10 +514,14 @@ class JobManager:
     def _record_failure(self, name: str, description: str, parameters,
                         exception: Exception, attempt: int,
                         max_retries: int, failures: Dict[str, Any],
-                        timing: Callable, fail_all: Callable) -> bool:
+                        timing: Callable, fail_all: Callable,
+                        needs_card: bool = False) -> bool:
         """Documents a failed attempt (a terminal one through
         ``fail_all``, on every output); True when it is terminal, else
-        the retry's backoff goes to ``failures["backoff"]``."""
+        the retry's backoff goes to ``failures["backoff"]``. A card job
+        failing while the pod has lost a worker is flagged
+        ``workerLost`` (a collective erred under it) and is never
+        dead-lettered: the pod failed, not the job."""
         kind = classify_error(exception)
         if kind == PERMANENT:
             terminal = True
@@ -502,7 +532,14 @@ class JobManager:
         extra = timing({"attempt": attempt, "errorKind": kind})
         if kind == NUMERICAL:
             extra["numericalRetriesUsed"] = failures["numerical"]
-        if terminal:
+        error = repr(exception)
+        lost = dist.pod_failure() if needs_card else None
+        if lost:
+            # typed as the loss, the collective's own error beside it
+            extra["workerLost"] = True
+            extra["collectiveError"] = error
+            error = f"WorkerLost({lost!r})"
+        if terminal and not lost:
             extra[D.STATUS_FIELD] = D.STATUS_DEAD_LETTERED
             extra["deadLettered"] = True
             self._count("deadLettered")
@@ -511,17 +548,16 @@ class JobManager:
             elif kind == NUMERICAL:
                 extra["retriesSkipped"] = \
                     "numerical rollback-retry budget exhausted"
+        if terminal:
             fail_all(D.execution_document(
-                description, parameters, exception=repr(exception),
-                extra=extra))
+                description, parameters, exception=error, extra=extra))
             # finished stays False (reference parity)
             self._set_status(name, D.STATUS_DEAD_LETTERED)
             return True
         backoff = self._backoff_seconds(attempt - 1)
         extra["nextRetryInSeconds"] = round(backoff, 3)
         self._catalog.append_document(name, D.execution_document(
-            description, parameters, exception=repr(exception),
-            extra=extra))
+            description, parameters, exception=error, extra=extra))
         if kind == NUMERICAL:
             failures["numerical"] += 1
             self._count("numericalRetries")
@@ -531,6 +567,34 @@ class JobManager:
         failures["backoff"] = backoff
         self._set_status(name, D.STATUS_QUEUED)
         return False
+
+    def _await_pod_verdict(self) -> None:
+        """In a pod a lost worker fails a collective at once (its socket
+        closes) but shows in the heartbeats only after their timeout:
+        a card job that a collective failed waits that long for the
+        verdict, so the loss is told apart from a peer's own error. Any
+        other failure is the job's and is recorded at once."""
+        deadline = time.monotonic() + dist.HEARTBEAT_TIMEOUT + \
+            2 * dist.HEARTBEAT_INTERVAL
+        while not dist.pod_failure() and \
+                time.monotonic() < deadline:
+            time.sleep(0.1)
+
+    def fail_running_card_jobs(self, reason: str) -> int:
+        """Appends a terminal ``WorkerLost`` execution document to every
+        running card job (their threads wait in collectives a dead
+        worker will never join); returns the count."""
+        with self._lock:
+            stuck = [(k, dict(v)) for k, v in self._info.items()
+                     if v.get("needs_card") and k in self._futures
+                     and not self._futures[k].done()]
+        for name, info in stuck:
+            self._catalog.append_document(
+                name, D.execution_document(
+                    info["description"], info["parameters"],
+                    exception=f"WorkerLost({reason!r})",
+                    extra={"workerLost": True}))
+        return len(stuck)
 
     # ------------------------------------------------------------------
     def cancel(self, name: str, reason: str = D.STATUS_CANCELLED) -> bool:

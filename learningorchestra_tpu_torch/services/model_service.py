@@ -7,11 +7,9 @@ JAX package's ``services/model_service.py`` does.
 thread; a job then resolves the ``$`` parameters and builds the
 instance on the context's device (``device=ctx.device`` for a class
 that takes a device, as the port's models do and the JAX ones do not).
-``PATCH`` rebuilds it with new ``classParameters``. Constructor options
-the JAX models take and the port does not run yet (ring and Ulysses
-attention) answer 406 "not yet ported" before any document exists, as
-does an unknown ``scoring`` of a ``GridSearch``/``RandomSearch`` (in
-the JAX package's words). ``modulePath`` may name any importable module
+``PATCH`` rebuilds it with new ``classParameters``. An unknown
+``scoring`` of a ``GridSearch``/``RandomSearch`` answers 406 before any
+document exists (in the JAX package's words). ``modulePath`` may name any importable module
 (``sklearn.linear_model``, whose classes run their own methods on the
 host and hold no card), as in the JAX package, and the reference's
 ``tensorflow.keras.*`` paths, which are the port's shim
@@ -43,31 +41,12 @@ MODULE_PATH_FIELD = "modulePath"
 CLASS_FIELD = "class"
 CLASS_PARAMETERS_FIELD = "classParameters"
 
-# constructor options of the JAX package's models that the port does not
-# run yet: class -> (keyword, refused value, what the 406 names)
-_UNPORTED_OPTIONS = {
-    "LanguageModel": (
-        ("attention", lambda v: v in ("ring", "ulysses"),
-         "ring and Ulysses attention"),),
-}
-
-
 def _valid_sweep_scoring(cls, class_parameters: Dict[str, Any]) -> None:
     """Submit-time 406 for an unknown sweep ``scoring`` metric."""
     from learningorchestra_tpu_torch.models.sweep import GridSearch
 
     if isinstance(cls, type) and issubclass(cls, GridSearch):
         V.valid_scoring(class_parameters.get(V.SCORING_FIELD))
-
-
-def _refuse_unported_options(cls, parameters: Dict[str, Any]) -> None:
-    for key, refused, what in _UNPORTED_OPTIONS.get(
-            getattr(cls, "__name__", ""), ()):
-        value = parameters.get(key)
-        if isinstance(value, str) and value.startswith("$"):
-            continue  # resolved in the job
-        if key in parameters and refused(value):
-            raise V.not_ported(what)
 
 
 class ModelService:
@@ -89,7 +68,6 @@ class ModelService:
         cls = self._validator.valid_class(module_path, class_name)
         self._validator.valid_class_parameters(cls, class_parameters)
         _valid_sweep_scoring(cls, class_parameters)
-        _refuse_unported_options(cls, class_parameters)
         analysis = self._preflight(module_path, class_name,
                                    class_parameters)
         type_string = D.normalize_type(f"model/{tool}")
@@ -116,7 +94,6 @@ class ModelService:
             meta[D.MODULE_PATH_FIELD], meta[D.CLASS_FIELD])
         self._validator.valid_class_parameters(cls, class_parameters)
         _valid_sweep_scoring(cls, class_parameters)
-        _refuse_unported_options(cls, class_parameters)
         analysis = self._preflight(meta[D.MODULE_PATH_FIELD],
                                    meta[D.CLASS_FIELD], class_parameters)
         self._ctx.catalog.update_metadata(

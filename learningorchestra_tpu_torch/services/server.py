@@ -813,12 +813,23 @@ class Api:
         return 404, {"result": "unknown route"}, _JSON
 
     def _health(self) -> Dict[str, Any]:
-        """Liveness and topology: the card count and platform from
-        torch. (The JAX server's ``podFailure`` comes with the port of
-        ``runtime/distributed.py``.)"""
+        """Liveness and topology: the pod's ranks (one a card), the card
+        count and platform from torch, and ``podFailure`` with status
+        ``degraded`` while the pod has lost a worker (asked first: a
+        broken group is when the topology is likeliest to raise), and
+        ``kernelLaunches``: this rank's launches of each flash kernel."""
+        from learningorchestra_tpu_torch.ops import attention as attn_ops
+        from learningorchestra_tpu_torch.runtime import distributed as dist
+
         info: Dict[str, Any] = {"status": "ok",
                                 "jobsRunning": self.ctx.jobs.running()}
+        failure = dist.pod_failure()
+        if failure:
+            info["status"] = "degraded"
+            info["podFailure"] = failure
         try:
+            info.update(dist.host_info(self.ctx.device.type))
+            info["kernelLaunches"] = attn_ops.launch_counts()
             import torch
 
             on_card = self.ctx.device.type == "cuda"

@@ -188,11 +188,10 @@ def test_unported_jax_classes_and_options_raise(tmp_path):
     with pytest.raises(ValueError, match="transformer.TransformerLM of the "
                                          "JAX package is not yet ported"):
         store.load("nm")
-    # a JAX LanguageModel whose config the port does not run
+    # a JAX LanguageModel with ring attention: ported, so it loads
     ring = jax_tlm.LanguageModel(**dict(LM, attention="ring"))
     JaxArtifactStore(str(tmp_path)).save(ring, "ring", "model/tensorflow")
-    with pytest.raises(ValueError, match="attention='ring' is not ported"):
-        store.load("ring")
+    assert store.load("ring").attention == "ring"
     # MoE and fused projections run: their JAX artifacts load
     for name, option in (("moe", {"n_experts": 4}),
                          ("fused", {"fused_proj": True})):

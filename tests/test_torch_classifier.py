@@ -176,8 +176,13 @@ def test_auto_follows_the_port_lm_rule():
     assert TextClassifier(**wide, attention="auto",
                           device="cpu")._resolved_attention() == "dot"
     assert TextClassifier(**CFG, device="cpu").attention == "dot"
+    # ring and Ulysses are implementations of the LM module the encoder
+    # shares, as in the JAX package (without an sp axis they attend
+    # densely); an unknown one raises
+    assert TextClassifier(**CFG, attention="ring",
+                          device="cpu").attention == "ring"
     with pytest.raises(ValueError, match="unknown attention"):
-        TextClassifier(**CFG, attention="ring", device="cpu")
+        TextClassifier(**CFG, attention="ring2", device="cpu")
     with pytest.raises(ValueError, match="n_kv_heads"):
         TextClassifier(**dict(CFG, n_kv_heads=3), device="cpu")
     with pytest.raises(ValueError, match="token ids"):

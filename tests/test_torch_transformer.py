@@ -71,7 +71,7 @@ def test_flax_round_trip_is_exact(tree):
         np.testing.assert_array_equal(a, b)
 
 
-@pytest.mark.parametrize("attention", ["dot", "flash"])
+@pytest.mark.parametrize("attention", ["dot", "flash", "ring", "ulysses"])
 def test_logits_match_jax(tree, jax_lm, attention):
     tokens = _tokens(1, (2, 40))
     want, _ = jax_lm.module.apply({"params": jax_lm.params},
@@ -80,6 +80,30 @@ def test_logits_match_jax(tree, jax_lm, attention):
     got = lm.module(torch.from_numpy(tokens).long())
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("attention", ["flash", "ring", "ulysses"])
+def test_unsharded_attention_runs_the_flash_kernel(tree, attention,
+                                                   monkeypatch):
+    """Where no step shard splits the sequence (an evaluate, a predict, a
+    one-rank or data-parallel fit), ring and Ulysses run the flash
+    kernel's wrapper over the whole sequence as flash does, never the
+    dense reference: on a CUDA tensor that wrapper launches the kernel."""
+    real = tlm.attn_ops.flash_attention
+    calls = []
+
+    def spy(*args, **kwargs):
+        calls.append(args[0].shape)
+        return real(*args, **kwargs)
+
+    def dense(*args, **kwargs):
+        raise AssertionError("the dense reference ran")
+
+    monkeypatch.setattr(tlm.attn_ops, "flash_attention", spy)
+    monkeypatch.setattr(tlm.attn_ops, "full_attention_reference", dense)
+    lm = _port(tree, attention)
+    lm.module(torch.from_numpy(_tokens(1, (2, 40))).long())
+    assert len(calls) == CFG["n_layers"]
 
 
 def test_rope_and_norm_match_jax():
@@ -182,9 +206,13 @@ def test_artifact_round_trip(tree, tmp_path):
 
 
 def test_unported_options_raise():
-    for kwargs in ({"attention": "ring"}, {"attention": "ulysses"}):
-        with pytest.raises(ValueError, match="not (yet )?ported"):
-            LanguageModel(**{**CFG, **kwargs}, device="cpu")
+    # ring and Ulysses are ported (parallel/ring.py, parallel/ulysses.py);
+    # an unknown implementation still raises
+    for impl in ("ring", "ulysses"):
+        assert LanguageModel(**CFG, attention=impl,
+                             device="cpu")._resolved_attention() == impl
+    with pytest.raises(ValueError, match="unknown attention"):
+        LanguageModel(**CFG, attention="ring2", device="cpu")
     # LoRA, MoE and fused projections are ported: their options are taken
     assert LanguageModel(**CFG, lora_rank=8, device="cpu").lora_rank == 8
     moe = LanguageModel(**CFG, n_experts=4, moe_k=1, device="cpu")
