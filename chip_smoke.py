@@ -253,7 +253,7 @@
    predictions of both bodies equal the trees' plain Python versions' on
    the same rows and seed (``LO_NATIVE=0``); the jobs ran the tree core's
    native path only, and no ``sklearn`` module was loaded; (b) LR
-   and NB on 250,000 rows of 16 float32 features and 4 classes written
+   and NB on 125,000 rows of 16 float32 features and 4 classes written
    through the catalog writer, fitted on the card with ``meshParallel``
    and held to the port's CPU fit of the same rows: LR's ``w`` and ``b``
    centred over the classes within 1e-2 of the largest ``|w|`` and
@@ -336,7 +336,7 @@
    relative (bit equality recorded), each with its step ms (samples/s)
    and the idle share of a profiled epoch; ResNet-50 at batch 64 through
    the three feeds, each twice, ms a step of each; (c)
-   Builder LR with ``meshParallel`` on 50,000 x 16 rows twice: the
+   Builder LR with ``meshParallel`` on 25,000 x 16 rows twice: the
    second run hits the device arena and the feature cache for both
    datasets, reads no table from the catalog and predicts the same; a
    write to the training dataset, then a run that misses, stages again
@@ -359,7 +359,7 @@
    error), five float64 columns and an int64 label bit-equal to the
    values written, ingest seconds, rows/s and MB/s, and the resident
    set's growth over the ingest under 1 GiB; (b) ``streaming`` GB on
-   the first 1,000,000 ingested rows, ``b4test`` and ``b4eval``: every
+   the first 500,000 ingested rows, ``b4test`` and ``b4eval``: every
    row trained (``trainedRows``, ``trainedOnSample`` false) through the
    built C++ booster, accuracy above 0.95, the job's ``tracemalloc``
    peak under 1 GiB, ``fitTime``; (c) the first 200,000
@@ -397,7 +397,17 @@
    at ``LO_MESH_SHAPE=dp=2`` and, ring then Ulysses, at ``sp=2``, losses
    within 1% of the one-rank fit, each rank's launches exact; (d) a
    member SIGKILLed mid-fit: ``WorkerLost`` and ``podFailure`` within the
-   heartbeat bound, then the supervisor's restart. Launches of the
+   heartbeat bound, then the supervisor's restart; (e) in (b)'s ranks,
+   the tutorial LM's float32 first step at ``tp=2``, ``fsdp=2,tp=2`` and
+   ``dp=2,tp=2``, and its MoE's at ``ep=2,tp=2`` and ``dp=2``: every
+   gradient within 1e-4 of the one-rank step, each rank's params and
+   AdamW moments exactly the shards its layout gives it, launches
+   exact; (f) in
+   the same ranks, the pipelined LM at full width, GPipe and 1F1B at
+   ``pp=2`` and ``pp=4``: loss and gradients within 1e-4 of the one-rank
+   sequential step, each stage's launches exact; (g) a third pod at
+   ``LO_MESH_SHAPE=tp=2``: a REST fit within 1% of the one-rank fit,
+   launches exact, its artifact the whole flax tree. Launches of the
    pods' fits (summed over ranks) are the ``distributed`` path; they
    run in other processes, whose epoch records report them.
 
@@ -5681,9 +5691,9 @@ BUILDER_MODELING = (
 # 4 classes; the modeling code works on a DataFrame and on a Table
 WIDE_ROWS, WIDE_TEST_ROWS, WIDE_FEATURES, WIDE_CLASSES = \
     1_000_000, 100_000, 16, 4
-# the builder phase's (b) card-against-CPU LR and NB: the first 250,000
+# the builder phase's (b) card-against-CPU LR and NB: the first 125,000
 # of those rows (the checks compare two fits of the same rows)
-BUILDER_WIDE_ROWS = 250_000
+BUILDER_WIDE_ROWS = 125_000
 WIDE_MODELING = (
     "import numpy as np\n"
     f"feats = ['f%d' % i for i in range({WIDE_FEATURES})]\n"
@@ -5814,7 +5824,7 @@ def builder_phase(torch, log, home, yard):
     fit and back within 1 MiB after), DT/RF/GB on the host, accuracy
     above 0.6. (a') The same body without ``meshParallel``: all five on
     the host; the trees' predictions in both bodies equal their plain
-    Python versions'. (b) LR and NB at 250,000 rows of 16 features and 4
+    Python versions'. (b) LR and NB at 125,000 rows of 16 features and 4
     classes on the card against the port's CPU fit of the same rows.
     (BASELINE config 4, formerly (c), is the ``ingest`` phase's.) (d) The
     model preflight: a stack that cannot build on its declared input is a
@@ -6131,9 +6141,9 @@ INGEST_HEAD_ROWS = 200_000
 INGEST_QUERY = {"f0": {"$gt": 4.2}}
 INGEST_QUERY_SKIP, INGEST_QUERY_LIMIT = 5, 20
 INGEST_RSS_BYTES = 1 << 30
-# (b)'s streaming GB trains on the first million ingested rows (the
+# (b)'s streaming GB trains on the first 500,000 ingested rows (the
 # whole script's time limit; the 10M rows stay for (a), (c) and (d))
-INGEST_GB_ROWS = 1_000_000
+INGEST_GB_ROWS = 500_000
 # (e) a batch of 256 rows of ResNet-50's input width (224 x 224 x 3
 # float32) gathered from 1024
 GATHER_ROWS, GATHER_WIDTH, GATHER_BATCH = 1024, 224 * 224 * 3, 256
@@ -7995,7 +8005,7 @@ def feature_plane_phase(torch, log, home, yard):
     through those feeds and a copy in each step: losses within 1e-5
     relative (bit equality recorded), step time, samples/s and idle share
     each; ResNet-50 through the three feeds, ms a step. (c) Builder LR with
-    ``meshParallel`` on 100,000 x 16 rows, twice on the same versions: the
+    ``meshParallel`` on 25,000 x 16 rows, twice on the same versions: the
     second run hits the arena and the feature cache for both datasets,
     reads no table from the catalog and predicts the same; a write to the
     training dataset, and the next run misses, stages again and the old
@@ -8488,14 +8498,27 @@ DIST_OP_CASES = {"ringCausalFloat32": ("ring", "float32", True),
 # (b)'s sharded LM steps: name -> (mesh over ranks 0 and 1, attention)
 DIST_GRAD_CASES = {"dp2": ("dp=2", "flash"), "sp2Ring": ("sp=2", "ring"),
                    "sp2Ulysses": ("sp=2", "ulysses")}
+# (e)'s model-parallel first steps: name -> (mesh, "lm" or "moe")
+DIST_MODEL_CASES = {"tp2": ("tp=2", "lm"), "fsdp2Tp2": ("fsdp=2,tp=2", "lm"),
+                    "dp2Tp2": ("dp=2,tp=2", "lm"),
+                    "moeEp2Tp2": ("ep=2,tp=2", "moe"),
+                    "moeDp2": ("dp=2", "moe")}
+# (f)'s pipelined LM at the tutorial's widths: 4 windows of 2048 tokens,
+# 4 microbatches, float32, flash attention with window 1024
+DIST_PP = dict(vocab=32000, d=512, layers=8, heads=8, d_ff=2048,
+               windows=4, seq=2048, window=1024, microbatches=4)
+DIST_PP_CASES = {"pp2Gpipe": ("pp=2", "gpipe"), "pp2OneFOneB": ("pp=2", "1f1b"),
+                 "pp4Gpipe": ("pp=4", "gpipe"), "pp4OneFOneB": ("pp=4", "1f1b")}
 
 DIST_RANK = (
     "import datetime, json, os, sys, time\n"
     "import numpy as np\n"
     "import torch\n"
     "from learningorchestra_tpu_torch.models import weights\n"
+    "from learningorchestra_tpu_torch.models import pp_transformer as pp\n"
     "from learningorchestra_tpu_torch.models.transformer import "
     "LanguageModel\n"
+    "from learningorchestra_tpu_torch.parallel import sharding\n"
     "from learningorchestra_tpu_torch.ops import attention as attn\n"
     "from learningorchestra_tpu_torch.parallel import ring, ulysses\n"
     "from learningorchestra_tpu_torch.runtime import data\n"
@@ -8596,6 +8619,7 @@ DIST_RANK = (
     "for name, (mesh_spec, attention) in spec['grads'].items():\n"
     "    gmesh = mesh_lib.build_mesh(mesh_spec)\n"
     "    if gmesh.coords(rank) is None:\n"
+    "        gmesh.form_groups()\n"
     "        continue\n"
     "    lm, eng = model(attention)\n"
     "    lm._mesh_override = gmesh\n"
@@ -8622,6 +8646,129 @@ DIST_RANK = (
     "        rec['relL2VsOneRank'] = {'max': rel[worst], 'worst': worst}\n"
     "    out['grads'][name] = rec\n"
     "    del lm, eng, state, g\n"
+    "def rel_l2(got, want):\n"
+    "    rel = {k_: float((got[k_].float() - want[k_].float()).norm()\n"
+    "                     / want[k_].float().norm().clamp_min(1e-30))\n"
+    "           for k_ in want}\n"
+    "    worst = max(rel, key=rel.get)\n"
+    "    return {'max': rel[worst], 'worst': worst}\n"
+    "# (e) tensor, fully-sharded and expert parallelism: the first float32\n"
+    "# step of the tutorial LM and its MoE, every rank its shards\n"
+    "out['model'] = {}\n"
+    "moe_tree = weights.params_from_flax(weights.init_params(\n"
+    "    spec['moeConfig'], seed=0))\n"
+    "moe_reference = None\n"
+    "if rank == 0:\n"
+    "    lm = LanguageModel(**spec['moeConfig'], attention='flash',\n"
+    "                       device='cuda')\n"
+    "    lm.set_params(moe_tree)\n"
+    "    eng = lm._get_engine()\n"
+    "    state = eng.init_state(lm._master_params())\n"
+    "    g, _, m = eng._step_grads(state, eng._to_device(batch, 'cuda'), 0)\n"
+    "    moe_reference = {k_: t.detach().clone() for k_, t in g.items()}\n"
+    "    out['moeLoss'] = float(m['loss'][0] / m['loss'][1])\n"
+    "    del lm, eng, state, g\n"
+    "for name, (mesh_spec, kind) in spec['model'].items():\n"
+    "    gmesh = mesh_lib.build_mesh(mesh_spec)\n"
+    "    if gmesh.coords(rank) is None:\n"
+    "        gmesh.form_groups()\n"
+    "        continue\n"
+    "    config = spec['moeConfig'] if kind == 'moe' else spec['config']\n"
+    "    lm = LanguageModel(**config, attention='flash', device='cuda')\n"
+    "    lm.set_params(moe_tree if kind == 'moe' else tree)\n"
+    "    lm._mesh_override = gmesh\n"
+    "    eng = lm._get_engine()\n"
+    "    shard, columns = lm._plan(x.shape[1])\n"
+    "    layout = lm._layout(shard)\n"
+    "    state = eng.init_state(lm._master_params(), layout=layout)\n"
+    "    # the bytes of this rank's shard of every leaf by the layout\n"
+    "    want_bytes = sum(4 * int(np.prod(sharding.local_shape(\n"
+    "        tuple(p.shape), layout.specs[k_], gmesh)))\n"
+    "        for k_, p in lm._master_params().items()) if layout else \\\n"
+    "        sum(4 * p.numel() for p in lm._master_params().values())\n"
+    "    param_bytes = sum(t.numel() * t.element_size()\n"
+    "                      for t in state.params.values())\n"
+    "    opt_bytes = sum(t.numel() * t.element_size()\n"
+    "                    for slot in ('mu', 'nu')\n"
+    "                    for t in state.opt_state[slot].values())\n"
+    "    torch.cuda.synchronize()\n"
+    "    before = attn.launch_counts()\n"
+    "    staged0 = dist.staged_bytes()\n"
+    "    g, m = eng.sharded_grads(state, batch, 0, shard, columns)\n"
+    "    torch.cuda.synchronize()\n"
+    "    after = attn.launch_counts()\n"
+    "    staged = dist.staged_bytes()\n"
+    "    whole = layout.gather(g) if layout is not None else g\n"
+    "    rec = {'launches': {k_: after[k_] - before[k_] for k_ in after},\n"
+    "           'loss': float(m['loss'][0] / m['loss'][1]),\n"
+    "           'paramBytes': param_bytes, 'specBytes': want_bytes,\n"
+    "           'adamBytes': opt_bytes,\n"
+    "           'stagedBytes': {k_: staged[k_] - staged0[k_]\n"
+    "                           for k_ in staged}}\n"
+    "    ref = moe_reference if kind == 'moe' else reference\n"
+    "    if ref is not None:\n"
+    "        rec['relL2VsOneRank'] = rel_l2(whole, ref)\n"
+    "    out['model'][name] = rec\n"
+    "    del lm, eng, state, g, whole\n"
+    "# (f) the pipelined LM at full width: GPipe and 1F1B at pp=2 and pp=4\n"
+    "P = spec['pp']\n"
+    "pp_tokens = np.random.default_rng(5).integers(\n"
+    "    1, P['vocab'], size=(P['windows'], P['seq'])).astype(np.int32)\n"
+    "params = pp.init_params(0, P['vocab'], P['d'], P['layers'],\n"
+    "                        P['d_ff'], device='cuda')\n"
+    "def leaves():\n"
+    "    return [params['embed']] + [params['blocks'][k_]\n"
+    "                               for k_ in pp.BLOCK_KEYS]\n"
+    "names = ['embed'] + ['blocks/' + k_ for k_ in pp.BLOCK_KEYS]\n"
+    "for t in leaves():\n"
+    "    t.requires_grad_(True)\n"
+    "out['pp'] = {}\n"
+    "pp_reference = None\n"
+    "if rank == 0:\n"
+    "    loss = pp.next_token_loss(params, pp_tokens, None, P['heads'],\n"
+    "                              attention='flash', window=P['window'])\n"
+    "    pp_reference = dict(zip(names, torch.autograd.grad(loss,\n"
+    "                                                       leaves())))\n"
+    "    out['ppLoss'] = float(loss)\n"
+    "for name, (mesh_spec, schedule) in spec['ppCases'].items():\n"
+    "    gmesh = mesh_lib.build_mesh(mesh_spec)\n"
+    "    if gmesh.coords(rank) is None:\n"
+    "        gmesh.form_groups()\n"
+    "        continue\n"
+    "    torch.cuda.synchronize()\n"
+    "    before = attn.launch_counts()\n"
+    "    staged0 = dist.staged_bytes()\n"
+    "    if schedule == 'gpipe':\n"
+    "        loss = pp.next_token_loss(\n"
+    "            params, pp_tokens, gmesh, P['heads'],\n"
+    "            num_microbatches=P['microbatches'], attention='flash',\n"
+    "            window=P['window'])\n"
+    "        got = torch.autograd.grad(loss, leaves())\n"
+    "    else:\n"
+    "        loss, grads = pp.value_and_grad_1f1b(\n"
+    "            params, pp_tokens, gmesh, P['heads'],\n"
+    "            num_microbatches=P['microbatches'], attention='flash',\n"
+    "            window=P['window'])\n"
+    "        got = [grads['embed']] + [grads['blocks'][k_]\n"
+    "                                  for k_ in pp.BLOCK_KEYS]\n"
+    "    torch.cuda.synchronize()\n"
+    "    after = attn.launch_counts()\n"
+    "    staged = dist.staged_bytes()\n"
+    "    if schedule == 'gpipe':\n"
+    "        # each stage's block gradients are its own rows: their sum\n"
+    "        # over pp is the whole gradient\n"
+    "        group = mesh_lib.Shard(gmesh, rank, False).pp_group\n"
+    "        got = [got[0]] + [dist.all_reduce(t.clone(), group)\n"
+    "                          for t in got[1:]]\n"
+    "    rec = {'launches': {k_: after[k_] - before[k_] for k_ in after},\n"
+    "           'loss': float(loss),\n"
+    "           'stagedBytes': {k_: staged[k_] - staged0[k_]\n"
+    "                           for k_ in staged}}\n"
+    "    if pp_reference is not None:\n"
+    "        rec['relL2VsOneRank'] = rel_l2(dict(zip(names, got)),\n"
+    "                                       pp_reference)\n"
+    "    out['pp'][name] = rec\n"
+    "    del got, loss\n"
     "out['hostInfo'] = dist.host_info('cuda')\n"
     "out['seconds'] = time.monotonic() - t0\n"
     "dist.barrier()\n"
@@ -8683,6 +8830,109 @@ def _wait_health(base: str, want, timeout: float = 300.0) -> dict:
     raise AssertionError(f"{base}/health never matched: {last}")
 
 
+def _whole_tree_check(np, home: str, name: str) -> dict:
+    """(g): the trained artifact ``name``'s ``weights.msgpack`` holds
+    every leaf of the tutorial LM's flax tree at its whole shape."""
+    import glob
+
+    from learningorchestra_tpu_torch.models import weights
+    from learningorchestra_tpu_torch.models.transformer import \
+        LanguageModel
+    from learningorchestra_tpu_torch.runtime import serialization
+
+    found = glob.glob(os.path.join(home, "artifacts", "**", name, "**",
+                                   "weights.msgpack"), recursive=True)
+    if len(found) != 1:
+        raise AssertionError(f"(g) the artifact {name}: {found}")
+    path = found[0]
+    with open(path, "rb") as f:
+        saved = serialization.msgpack_restore(f.read())["params"]
+
+    def shapes(tree, prefix=""):
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out.update(shapes(v, prefix + k + "/"))
+            else:
+                out[prefix + k] = tuple(np.shape(v))
+        return out
+
+    got = shapes(saved)
+    model = LanguageModel(**LM_CONFIG, device="cpu")
+    want = shapes(weights.params_to_flax(
+        model._new_module().state_dict(),
+        lambda t, transposed: t.t() if transposed else t))
+    if got != want:
+        raise AssertionError(f"(g) {path}: {got} against the whole tree "
+                             f"{want}")
+    return {"leaves": len(got), "embed": list(got["embed/embedding"]),
+            "lmHead": list(got["lm_head/kernel"])}
+
+
+def _model_parallel_checks(results, layers: int) -> dict:
+    """(e): every rank's loss the same, every gradient within per-tensor
+    relative L2 1e-4 of the one-rank step's, each rank's params and
+    AdamW moments exactly the shards its layout gives it (the engine
+    held to the layout; the layout's shapes are held to the JAX
+    ``NamedSharding``'s in tests/test_torch_model_parallel.py), one
+    launch a layer of each split-TF32 kernel on every rank (the flash
+    kernel on its local heads)."""
+    out = {}
+    for name, (mesh_spec, kind) in DIST_MODEL_CASES.items():
+        per_rank = [r["model"][name] for r in results
+                    if name in r["model"]]
+        launches = [_rank_launches(p["launches"]) for p in per_rank]
+        rel = per_rank[0]["relL2VsOneRank"]
+        if launches != [_tf32x3(layers)] * len(per_rank) or \
+                rel["max"] > 1e-4 or \
+                len({p["loss"] for p in per_rank}) != 1 or any(
+                    p["paramBytes"] != p["specBytes"] or
+                    p["adamBytes"] != 2 * p["specBytes"]
+                    for p in per_rank):
+            raise AssertionError(f"(e) {name}: launches {launches}, {rel}, "
+                                 f"{per_rank}")
+        out[name] = {"mesh": mesh_spec, "kind": kind,
+                     "f32GradRelL2VsOneRank": rel,
+                     "loss": per_rank[0]["loss"],
+                     "oneRankLoss": results[0]["moeLoss" if kind == "moe"
+                                               else "gradsLoss"],
+                     "paramBytesByRank": [p["paramBytes"] for p in per_rank],
+                     "adamBytesByRank": [p["adamBytes"] for p in per_rank],
+                     "launchesByRank": launches,
+                     "stagedBytesByRank": [p["stagedBytes"]
+                                           for p in per_rank]}
+    return out
+
+
+def _pipeline_checks(results) -> dict:
+    """(f): the pipelined LM's loss and every gradient within 1e-4 of the
+    one-rank sequential step on every stage, and each stage's launches
+    exactly its layers times the microbatches of each split-TF32
+    kernel."""
+    out = {}
+    per_stage = DIST_PP["layers"] * DIST_PP["microbatches"]
+    for name, (mesh_spec, schedule) in DIST_PP_CASES.items():
+        per_rank = [r["pp"][name] for r in results if name in r["pp"]]
+        n = len(per_rank)
+        launches = [_rank_launches(p["launches"]) for p in per_rank]
+        rel = per_rank[0]["relL2VsOneRank"]
+        loss0 = results[0]["ppLoss"]
+        if launches != [_tf32x3(per_stage // n)] * n or \
+                rel["max"] > 1e-4 or any(
+                    abs(p["loss"] - loss0) > 1e-4 * abs(loss0)
+                    for p in per_rank):
+            raise AssertionError(f"(f) {name}: launches {launches}, {rel}, "
+                                 f"losses {[p['loss'] for p in per_rank]} "
+                                 f"against {loss0}")
+        out[name] = {"mesh": mesh_spec, "schedule": schedule,
+                     "f32GradRelL2VsOneRank": rel,
+                     "lossByStage": [p["loss"] for p in per_rank],
+                     "oneRankLoss": loss0, "launchesByStage": launches,
+                     "stagedBytesByStage": [p["stagedBytes"]
+                                            for p in per_rank]}
+    return out
+
+
 def distributed_phase(torch, log, home, yard):
     """The process group on the card (the ``distributed`` line). (a) A
     world of one on NCCL: ``all_reduce``, ``broadcast`` and ``barrier``
@@ -8710,8 +8960,24 @@ def distributed_phase(torch, log, home, yard):
     for each batch on rank 0 (``/health`` ``kernelLaunches``). (d) A
     member SIGKILLed mid-fit: the job's typed ``WorkerLost`` document
     and ``/health``'s ``podFailure`` within the heartbeat bound, then
-    the supervisor's restart. Returns the pods' fits' launches, summed
-    over ranks."""
+    the supervisor's restart. (e) In (b)'s ranks, the tutorial LM's
+    float32 first step at tp=2, fsdp=2,tp=2 and dp=2,tp=2, and its MoE's
+    (8 experts, k 2) at ep=2,tp=2 and dp=2 (the mesh-wide routing):
+    every gradient within per-tensor relative L2 1e-4 of the one-rank
+    step, the same loss on every rank, each rank's params and AdamW bytes
+    exactly the shards its layout gives it, 8 launches of each split-TF32
+    kernel a rank (the kernel on its local heads), the staged bytes
+    recorded. (f) In the same ranks, the pipelined LM (``DIST_PP``:
+    vocab 32000, d 512, 8 layers, 8 heads, d_ff 2048, 4 windows of 2048
+    tokens, window 1024, flash, float32) by GPipe and 1F1B at pp=2 and
+    pp=4, 4 microbatches: loss and gradients within 1e-4 of the one-rank
+    sequential step, each stage's launches its layers times the
+    microbatches of each kernel, the bytes between stages recorded. (g)
+    A third pod at ``LO_MESH_SHAPE=tp=2``: the bf16 REST fit as (c)'s,
+    launches exact, the trained artifact's ``weights.msgpack`` every
+    leaf at its whole flax shape. The three pods fit at once, each
+    pod's fits one after the other. Returns the pods' fits' launches,
+    summed over ranks."""
     import numpy as np
 
     from learningorchestra_tpu_torch.cluster import PodSupervisor
@@ -8741,7 +9007,8 @@ def distributed_phase(torch, log, home, yard):
 
     # the pods' homes: the corpus and the three models, made here
     pods = {"dp": ("dp=2", {"lm_dp": "flash"}),
-            "sp": ("sp=2", {"lm_ring": "ring", "lm_ulysses": "ulysses"})}
+            "sp": ("sp=2", {"lm_ring": "ring", "lm_ulysses": "ulysses"}),
+            "tp": ("tp=2", {"lm_tp": "flash"})}
     for key, (_, models) in pods.items():
         ctx = ServiceContext(Config(home=os.path.join(home, key)),
                              device="cuda")
@@ -8780,7 +9047,9 @@ def distributed_phase(torch, log, home, yard):
         # output goes to files (a full pipe would stop a rank)
         spec = {"shape": DIST_SHAPE, "ops": DIST_OP_CASES,
                 "grads": DIST_GRAD_CASES, "config": LM_CONFIG,
-                "windows": x[:DIST_GRAD_WINDOWS].tolist()}
+                "windows": x[:DIST_GRAD_WINDOWS].tolist(),
+                "model": DIST_MODEL_CASES, "moeConfig": MOE_CONFIG,
+                "pp": DIST_PP, "ppCases": DIST_PP_CASES}
         rank_port = str(free_port())
         rank_logs = [os.path.join(home, f"rank{r}")
                      for r in range(DIST_RANKS)]
@@ -8841,15 +9110,22 @@ def distributed_phase(torch, log, home, yard):
         steps = DIST_FIT_WINDOWS // DIST_FIT_BATCH
         layers = LM_CONFIG["n_layers"]
         sp_local = TRAIN_SEQ // 2
+        # (g) at tp=2 each rank runs the kernels on its 4 of 8 heads,
+        # once a layer a step
         fits = {"dp": {"lm_dp": [_sm90(layers * steps)] * 2},
                 "sp": {"lm_ring": [_sm90(layers * steps * n) for n in
                                    _ring_hops(2, sp_local,
                                               LM_CONFIG["sliding_window"],
                                               True)],
-                       "lm_ulysses": [_sm90(layers * steps)] * 2}}
+                       "lm_ulysses": [_sm90(layers * steps)] * 2},
+                "tp": {"lm_tp": [_sm90(layers * steps)] * 2}}
         paths = dict.fromkeys(COUNTERS, 0)
-        for key, sup in sups.items():
-            base = f"http://127.0.0.1:{sup.port}"
+
+        def pod_fits(key):
+            """The pod's REST fits, one after the other: model -> its
+            record."""
+            base = f"http://127.0.0.1:{sups[key].port}"
+            done = {}
             for model, want in fits[key].items():
                 name = "fit_" + model
                 tf = time.monotonic()
@@ -8868,26 +9144,58 @@ def distributed_phase(torch, log, home, yard):
                 launches = [_rank_launches(c)
                             for c in records[0]["launchesByRank"]]
                 # the rank-0 bytes through the host: at least each step's
-                # gradient all-reduce, both ways (gloo sums on the host)
+                # gradient all-reduce, both ways (gloo sums on the host);
+                # at tp=2 no rank holds another's rows, so no gradient is
+                # summed: the bytes are the layers' tp collectives
                 reduced = {k: staged[k] - staged0[k] for k in staged}
+                floor = steps * grad_bytes if key != "tp" else 1
                 if launches != want or not all(
                         abs(a - b_) <= 0.01 * b_
                         for a, b_ in zip(losses, reference["loss"])) or \
-                        min(reduced.values()) < steps * grad_bytes:
+                        min(reduced.values()) < floor:
                     raise AssertionError(
                         f"(c) {name}: launches {launches} (want {want}), "
                         f"losses {losses} against {reference['loss']}, "
                         f"staged {reduced} (gradients {steps} x "
                         f"{grad_bytes} B)")
-                for launched in launches:
-                    for k, n in launched.items():
-                        paths[k] += n
-                pod_out[key][model] = {
+                done[model] = {
                     "losses": losses, "launchesByRank": launches,
                     "stagedBytesRank0": reduced,
                     "gradientBytes": grad_bytes,
                     "epochSeconds": records[0]["epochSeconds"],
                     "jobSeconds": time.monotonic() - tf}
+            return done
+
+        # the three pods fit at once (each pod's counts and bytes are its
+        # own ranks'); the first failure fails the phase
+        fitted, failures = {}, []
+
+        def fit_pod(key):
+            try:
+                fitted[key] = pod_fits(key)
+            except BaseException as exc:  # noqa: BLE001 — re-raised below
+                failures.append(exc)
+
+        tf = time.monotonic()
+        fitters = [threading.Thread(target=fit_pod, args=(key,))
+                   for key in sups]
+        for thread in fitters:
+            thread.start()
+        for thread in fitters:
+            thread.join()
+        if failures:
+            raise failures[0]
+        for key in sups:
+            for model, rec in fitted[key].items():
+                pod_out[key][model] = rec
+                for launched in rec["launchesByRank"]:
+                    for k, n in launched.items():
+                        paths[k] += n
+        out["podFitsSeconds"] = time.monotonic() - tf
+        # (g) the tp=2 fit's artifact is the whole flax tree
+        pod_out["tp"]["lm_tp"]["artifactShapes"] = _whole_tree_check(
+            np, os.path.join(home, "tp"), "fit_lm_tp")
+        sups["tp"]._stopping = True
         out["pods"] = pod_out
         # (c) a REST evaluate of the sp pod's ring model: no step shard
         # splits the sequence, so each rank runs the whole-sequence
@@ -9049,6 +9357,8 @@ def distributed_phase(torch, log, home, yard):
                            "gradientBytes": per_rank[0]["gradBytes"],
                            "stagedBytesByRank": staged}
         out["grads"] = grads
+        out["model"] = _model_parallel_checks(results, layers)
+        out["pipelined"] = _pipeline_checks(results)
         out["ranks"] = {"hostInfo": results[0]["hostInfo"],
                         "startSeconds": [r["startSeconds"] for r in results],
                         "seconds": [r["seconds"] for r in results],
@@ -9060,7 +9370,7 @@ def distributed_phase(torch, log, home, yard):
             sup._stopping = True
         for thread in threads:
             thread.join(timeout=150)
-    if codes != {"dp": 0, "sp": 0}:
+    if codes != {"dp": 0, "sp": 0, "tp": 0}:
         raise AssertionError(f"the supervisors ended {codes}")
     out["phaseSeconds"] = time.monotonic() - phase_t0
     log.append("distributed " + json.dumps(out))

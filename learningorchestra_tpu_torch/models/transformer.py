@@ -41,6 +41,7 @@ from learningorchestra_tpu_torch.models.neural import (
 from learningorchestra_tpu_torch.ops import attention as attn_ops
 from learningorchestra_tpu_torch.parallel import moe as moe_lib
 from learningorchestra_tpu_torch.parallel import ring as ring_lib
+from learningorchestra_tpu_torch.parallel import sharding as sharding_lib
 from learningorchestra_tpu_torch.parallel import ulysses as ulysses_lib
 from learningorchestra_tpu_torch.runtime import checkpoint as ckpt_lib
 from learningorchestra_tpu_torch.runtime import data as data_lib
@@ -123,6 +124,41 @@ def _seq_shard() -> Optional[mesh_lib.Shard]:
     """The running step's shard when it splits the sequence."""
     shard = mesh_lib.current_shard()
     return shard if shard is not None and shard.seq_size > 1 else None
+
+
+def _tp_group():
+    """The running step's ``tp`` group, or None (no shard, ``tp`` 1)."""
+    shard = mesh_lib.current_shard()
+    return shard.tp_group if shard is not None else None
+
+
+def _fsdp_gathered(module: nn.Module, prefix: str
+                   ) -> Dict[str, torch.Tensor]:
+    """FSDP's gather of ``module``'s params that the running step's
+    shard has sharded (``prefix`` their module path), just before the
+    module runs: name (within ``module``) -> whole tensor, its gradient
+    reduce-scattered back onto the shard."""
+    shard = mesh_lib.current_shard()
+    if shard is None or not shard.fsdp_dims:
+        return {}
+    dims = shard.fsdp_dims
+    return {n: dist.shard_gather(p, shard.fsdp_group, dims[prefix + n])
+            for n, p in module.named_parameters()
+            if prefix + n in dims}
+
+
+def _row_parallel(linear: nn.Linear, x: torch.Tensor, group
+                  ) -> torch.Tensor:
+    """``linear(x)`` where ``linear``'s weight may hold this rank's block
+    of its input dimension (row-parallel): a whole ``x`` is cut to the
+    same block first, and the partial products are summed over
+    ``tp``."""
+    width = linear.weight.shape[1]
+    if group is None or width == linear.in_features:
+        return linear(x)
+    if x.shape[-1] != width:
+        x = dist.scatter_to(x, group, dim=-1)
+    return dist.reduce_from(linear(x), group)
 
 
 def _dispatch_attention(q, k, v, *, impl: str, causal: bool,
@@ -249,16 +285,28 @@ class Attention(nn.Module):
                 block_tables=None, verify_limit=None):
         b, s, _ = x.shape
         hd = self.head_dim
+        # under tensor parallelism a projection whose weight holds this
+        # rank's block of heads is column-parallel: its input's gradient
+        # is summed over tp (one all-reduce for q, k and v)
+        tp = _tp_group() if decode_pos is None and cache is None else None
         if self.fused_qkv:
             q, k, v = self.qkv_proj(x).chunk(3, dim=-1)
             # column slices of one product; rope copies q and k, and the
             # kernels take v's rows contiguous
             v = v.contiguous()
-        else:
+        elif tp is None:
             q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
-        q = q.reshape(b, s, self.n_heads, hd)
-        k = k.reshape(b, s, self.kv_heads, hd)
-        v = v.reshape(b, s, self.kv_heads, hd)
+        else:
+            q_split = self.q_proj.weight.shape[0] < self.q_proj.out_features
+            kv_split = self.k_proj.weight.shape[0] < \
+                self.k_proj.out_features
+            xs = dist.copy_to([x], tp)[0] if q_split else x
+            q = self.q_proj(xs)
+            xk = xs if kv_split else x
+            k, v = self.k_proj(xk), self.v_proj(xk)
+        q = q.reshape(b, s, q.shape[-1] // hd, hd)
+        k = k.reshape(b, s, k.shape[-1] // hd, hd)
+        v = v.reshape(b, s, v.shape[-1] // hd, hd)
 
         if decode_pos is not None and s > 1:
             # the speculative verify step: s consecutive positions per
@@ -336,10 +384,22 @@ class Attention(nn.Module):
                 ck, cv = cache
                 ck[:, :s] = k
                 cv[:, :s] = v
+            if tp is not None and q.shape[2] < self.n_heads and \
+                    k.shape[2] == self.kv_heads:
+                # this rank's q heads over replicated k/v (kv heads that
+                # do not divide tp): their block of k/v repeated to full
+                # heads, the gradient gathered back
+                group = self.n_heads // self.kv_heads
+                k, v = (dist.scatter_to(
+                    torch.repeat_interleave(t, group, dim=2), tp, dim=2)
+                    for t in (k, v))
             o = _dispatch_attention(q, k, v, impl=self.impl,
                                     causal=self.causal, window=self.window,
                                     kv_valid=kv_valid)
-        return self.o_proj(o.reshape(b, s, self.n_heads * hd))
+        o = o.reshape(b, s, o.shape[2] * hd)
+        if tp is not None:
+            return _row_parallel(self.o_proj, o, tp)
+        return self.o_proj(o)
 
 
     def _paged_verify(self, q, k, v, pool, block_tables, col, pad_offset,
@@ -398,6 +458,7 @@ class MLP(nn.Module):
 
     def __init__(self, d_model: int, d_ff: int, fused_gate_up: bool = False):
         super().__init__()
+        self.d_ff = d_ff
         self.fused_gate_up = fused_gate_up
         if fused_gate_up:
             self.gate_up = nn.Linear(d_model, 2 * d_ff, bias=False)
@@ -407,10 +468,18 @@ class MLP(nn.Module):
         self.down_proj = nn.Linear(d_ff, d_model, bias=False)
 
     def forward(self, x):
+        # under tensor parallelism gate and up_proj are column-parallel
+        # and down_proj row-parallel (Megatron's MLP); a replicated
+        # gate_up computes whole and down_proj takes its block
+        tp = _tp_group()
         if self.fused_gate_up:
             gate, up = self.gate_up(x).chunk(2, dim=-1)
         else:
+            if tp is not None and self.gate.weight.shape[0] < self.d_ff:
+                x = dist.copy_to([x], tp)[0]
             gate, up = self.gate(x), self.up_proj(x)
+        if tp is not None:
+            return _row_parallel(self.down_proj, F.silu(gate) * up, tp)
         return self.down_proj(F.silu(gate) * up)
 
 
@@ -434,6 +503,7 @@ class MoE(nn.Module):
     def __init__(self, d_model: int, n_experts: int, d_ff: int, k: int):
         super().__init__()
         self.k = k
+        self.d_ff = d_ff
         self.gate = nn.Parameter(torch.empty(d_model, n_experts))
         self.experts = Experts(n_experts, d_model, d_ff)
         self.stats: Optional[Dict[str, int]] = None
@@ -442,7 +512,8 @@ class MoE(nn.Module):
         params = {"gate": self.gate,
                   "experts": {"wi": self.experts.wi,
                               "wo": self.experts.wo}}
-        return moe_lib.moe_layer(params, x, k=self.k, stats=self.stats)
+        return moe_lib.moe_layer(params, x, k=self.k, stats=self.stats,
+                                 d_ff=self.d_ff)
 
 
 class Block(nn.Module):
@@ -510,7 +581,8 @@ def _dots_contexts():
 
 
 def _remat_block(block: Block, x: torch.Tensor, policy: str,
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator],
+                 gathered: Optional[Dict[str, torch.Tensor]] = None):
     """``block(x, train=True)`` under ``torch.utils.checkpoint``: the
     backward recomputes what ``policy`` does not keep. The recompute
     runs on the weights this forward saw (the caller's compute-dtype
@@ -518,7 +590,7 @@ def _remat_block(block: Block, x: torch.Tensor, policy: str,
     replays the dropout masks: the explicit generator's state is
     restored to what it was when the block first ran (checkpoint
     replays only the global RNG)."""
-    weights = dict(block.named_parameters())
+    weights = dict(block.named_parameters(), **(gathered or {}))
     state = None if generator is None else generator.get_state()
 
     def run(h):
@@ -541,6 +613,9 @@ class FusedHeadOut(NamedTuple):
     hidden: torch.Tensor    # (b, s, d) final-norm output
     kernel: torch.Tensor    # (vocab, d) lm_head weight
     aux: torch.Tensor       # MoE load-balance scalar (zero: dense MLP)
+    # the tp group when ``kernel`` is this rank's block of the vocab
+    # (the Megatron vocab-parallel loss), else None
+    vocab_group: Any = None
 
 
 class TransformerLM(nn.Module):
@@ -559,6 +634,7 @@ class TransformerLM(nn.Module):
         d_ff = d_ff or 4 * d_model
         head_dim = d_model // n_heads
         self.n_layers = n_layers
+        self.vocab_size, self.d_model = vocab_size, d_model
         self.embed = nn.Embedding(vocab_size, d_model)
         for i in range(n_layers):
             self.add_module(f"layer_{i}", Block(
@@ -591,13 +667,26 @@ class TransformerLM(nn.Module):
                              f"(none|dots|full)")
         remat_on = remat != "none" and train and decode_pos is None and \
             cache is None and torch.is_grad_enabled()
-        x = self.embed(tokens)
+        # a sharded step's FSDP gathers each module's params just before
+        # it runs; tensor parallelism splits the embedding over d (the
+        # lookup gathered over tp) and the lm head over the vocab
+        tp = _tp_group() if train and decode_pos is None else None
+        table = _fsdp_gathered(self.embed, "embed.")
+        x = (torch.func.functional_call(self.embed, table, (tokens,))
+             if table else self.embed(tokens))
+        if tp is not None and x.shape[-1] < self.d_model:
+            x = dist.gather_from(x, tp, dim=-1)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device) \
             if train or return_aux else None
         for i in range(self.n_layers):
             block = getattr(self, f"layer_{i}")
+            gathered = _fsdp_gathered(block, f"layer_{i}.")
             if remat_on:
-                x, aux = _remat_block(block, x, remat, generator)
+                x, aux = _remat_block(block, x, remat, generator, gathered)
+            elif gathered:
+                x, aux = torch.func.functional_call(
+                    block, gathered, (x,),
+                    {"train": train, "generator": generator})
             else:
                 x, aux = block(
                     x, cache=None if cache is None else cache[i],
@@ -606,11 +695,20 @@ class TransformerLM(nn.Module):
                     block_tables=block_tables, verify_limit=verify_limit)
             if aux is not None and aux_total is not None:
                 aux_total = aux_total + aux
-        x = self.final_norm(x)
-        if train and fused_head:
-            return FusedHeadOut(hidden=x, kernel=self.lm_head.weight,
-                                aux=aux_total)
-        logits = self.lm_head(x)
+        norm = _fsdp_gathered(self.final_norm, "final_norm.")
+        x = (torch.func.functional_call(self.final_norm, norm, (x,))
+             if norm else self.final_norm(x))
+        head = _fsdp_gathered(self.lm_head, "lm_head.")
+        # (a serving copy's quantized head keeps no ``weight``; it never
+        # trains)
+        kernel = head.get("weight", getattr(self.lm_head, "weight", None))
+        vocab_group = tp if tp is not None and \
+            kernel.shape[0] < self.vocab_size else None
+        if (train and fused_head) or vocab_group is not None:
+            return FusedHeadOut(hidden=x, kernel=kernel, aux=aux_total,
+                                vocab_group=vocab_group)
+        logits = (torch.func.functional_call(self.lm_head, head, (x,))
+                  if head else self.lm_head(x))
         return (logits, aux_total) if return_aux else logits
 
 
@@ -774,6 +872,55 @@ def _chunked_head_sums(hs, kernel, tg, mk, chunk: int):
     return loss_sum, ok_sum
 
 
+def _vocab_chunk_sums(h_c, kernel, t_c, m_c, group, v_off: int):
+    """:func:`_head_chunk_sums` over this rank's block of the vocab
+    (``kernel`` its rows from ``v_off``): Megatron's vocab-parallel
+    cross-entropy, as the JAX package's ``_fused_head_loss_sharded``
+    computes it. The maximum over ``tp`` is a constant of the gradient;
+    the sums of exps and the correct logit are summed over ``tp`` (one
+    all-reduce), and the prediction is the argmax of the gathered local
+    maxima (one all-gather, with the maxima)."""
+    lg = h_c.float() @ kernel.float().t()
+    v_loc = lg.shape[1]
+    with torch.no_grad():
+        lmax, amax = lg.max(dim=-1)
+        parts = dist.all_gather(
+            torch.stack([lmax, (amax + v_off).float()]), group)
+        maxima = torch.stack([p[0] for p in parts])
+        indices = torch.stack([p[1] for p in parts])
+        gmax = maxima.max(dim=0).values
+        pred = indices.gather(0, maxima.argmax(dim=0)[None])[0].long()
+    loc = t_c - v_off
+    inside = (loc >= 0) & (loc < v_loc)
+    se = torch.exp(lg - gmax[:, None]).sum(dim=-1)
+    corr = lg.gather(1, loc.clamp(0, v_loc - 1)[:, None])[:, 0] * inside
+    se, corr = dist.reduce_from(torch.stack([se, corr]), group)
+    lse = gmax + torch.log(se)
+    ok = (pred == t_c).float()
+    return ((lse - corr) * m_c).sum(), (ok * m_c).sum()
+
+
+def _vocab_parallel_sums(hs, kernel, tg, mk, chunk: int, group):
+    """:func:`_chunked_head_sums` with the vocab split over ``tp``: the
+    hidden states' gradient, partial on each rank, is summed over
+    ``tp`` once."""
+    t_total = hs.shape[0]
+    chunk = max(1, min(chunk, t_total))
+    kernel = kernel.to(hs.dtype)
+    v_off = dist.group_rank(group) * kernel.shape[0]
+    hs = dist.copy_to([hs], group)[0]
+    loss_sum = torch.zeros((), dtype=torch.float32, device=hs.device)
+    ok_sum = torch.zeros((), dtype=torch.float32, device=hs.device)
+    for start in range(0, t_total, chunk):
+        end = start + chunk
+        lsum, osum = torch.utils.checkpoint.checkpoint(
+            _vocab_chunk_sums, hs[start:end], kernel, tg[start:end],
+            mk[start:end], group, v_off, use_reentrant=False)
+        loss_sum = loss_sum + lsum
+        ok_sum = ok_sum + osum.detach()
+    return loss_sum, ok_sum
+
+
 def _fused_head_loss(out: FusedHeadOut, batch, weights, chunk: int,
                      aux_coef: float):
     """Chunked vocab projection + softmax cross-entropy
@@ -794,15 +941,19 @@ def _fused_head_loss(out: FusedHeadOut, batch, weights, chunk: int,
 def _sharded_token_loss(outputs, batch, weights, chunk: int,
                         aux_coef: float):
     """The next-token loss of a sharded step's block (the JAX package's
-    ``_fused_head_loss_sharded`` with ``tp`` 1): the targets come
-    shifted on the global sequence (``batch["tgt"]``, the column after
-    the last real one 0, which masks itself), so each rank scores every
-    position of its block. Gradients cross ranks inside the step (the
-    ring's and Ulysses' backward), so every rank's loss divides by the
-    same global token count (one all-reduce of the counts) and the
-    engine sums the ranks' gradients (``_gradWeight``: the global count,
-    which also weighs micro-batches); the emitted ``loss`` metric is the
-    block's ``(sum, count)``."""
+    ``_fused_head_loss_sharded``): the targets come shifted on the
+    global sequence (``batch["tgt"]``, the column after the last real
+    one 0, which masks itself), so each rank scores every position of
+    its block; with the lm head split over ``tp`` the cross-entropy is
+    vocab-parallel (:func:`_vocab_parallel_sums`). Gradients cross ranks
+    inside the step (the ring's and Ulysses' backward, the model's
+    collectives), so every rank's loss divides by the same global token
+    count (one all-reduce of the counts over the row group) and the
+    engine sums the blocks' gradients (``_gradWeight``: the global
+    count, which also weighs micro-batches). The MoE term is the
+    mesh's own (the layer routes and balances over every block), added
+    once on every rank; the emitted ``loss`` metric is the block's
+    ``(sum, count)``."""
     tgt = batch["tgt"].long()
     mask = (tgt != 0).float()
     if weights is not None:
@@ -810,9 +961,13 @@ def _sharded_token_loss(outputs, batch, weights, chunk: int,
     if isinstance(outputs, FusedHeadOut):
         hs = outputs.hidden
         t_total = hs.shape[0] * hs.shape[1]
-        loss_sum, ok_sum = _chunked_head_sums(
-            hs.reshape(t_total, hs.shape[-1]), outputs.kernel,
-            tgt.reshape(t_total), mask.reshape(t_total), chunk)
+        flat = (hs.reshape(t_total, hs.shape[-1]), outputs.kernel,
+                tgt.reshape(t_total), mask.reshape(t_total), chunk)
+        if outputs.vocab_group is None:
+            loss_sum, ok_sum = _chunked_head_sums(*flat)
+        else:
+            loss_sum, ok_sum = _vocab_parallel_sums(*flat,
+                                                    outputs.vocab_group)
         aux = outputs.aux
     else:
         logits, aux = outputs
@@ -823,9 +978,11 @@ def _sharded_token_loss(outputs, batch, weights, chunk: int,
         ok_sum = ((lg.detach().argmax(dim=-1) == tgt).float() * mask).sum()
     shard = mesh_lib.current_shard()
     total = mask.sum()
-    n_global = dist.all_reduce(total.detach().clone(), shard.group)
+    n_global = total.detach().clone()
+    if shard.row_group is not None:
+        n_global = dist.all_reduce(n_global, shard.row_group)
     aux_term = aux_coef * aux.float()
-    loss = loss_sum / n_global.clamp_min(1e-9) + aux_term / shard.size
+    loss = loss_sum / n_global.clamp_min(1e-9) + aux_term
     return loss, {"loss": (loss_sum.detach() + aux_term.detach() * total,
                            total),
                   "accuracy": (ok_sum, total),
@@ -1029,12 +1186,53 @@ class LanguageModel:
         if mesh.size <= 1:
             return None, None
         sp = mesh.shape.get(mesh_lib.SP, 1)
+        tp = mesh.shape.get(mesh_lib.TP, 1)
+        if tp > 1 and self.lora_rank > 0:
+            raise ValueError(
+                "a LoRA fine-tune over a tp axis is not ported: fit the "
+                "adapters on a mesh without tp")
+        # Ulysses scatters this rank's heads: its block of them under tp
+        heads = self.n_heads // tp if self.n_heads % tp == 0 else \
+            self.n_heads
         impl = self._resolved_attention()
         seq_parallel = (impl in ("ring", "ulysses") and sp > 1
                         and seq_len % sp == 0
-                        and (impl == "ring" or self.n_heads % sp == 0))
+                        and (impl == "ring" or heads % sp == 0))
         shard = mesh_lib.Shard(mesh, dist.rank(), seq_parallel)
         return shard, shift_columns(shard)
+
+    def _param_rules(self, mesh: mesh_lib.Mesh):
+        """The tensor-parallel rules, head-granular as in the JAX
+        package: a projection whose head count does not divide ``tp``
+        is replicated (q and o by ``n_heads``, k and v by the kv heads),
+        and under ``tp`` the fused ``qkv_proj`` and ``gate_up`` are
+        replicated (a column block of them would cross the boundary of
+        q, k and v, or of gate and up)."""
+        rules = tuple(sharding_lib.TRANSFORMER_RULES)
+        P = sharding_lib.P
+        kv = self.n_kv_heads or self.n_heads
+        tp = mesh.shape.get(mesh_lib.TP, 1)
+        if tp > 1 and kv % tp:
+            rules = ((r".*(k_proj|v_proj)/kernel$", P()),) + rules
+        if tp > 1 and self.n_heads % tp:
+            rules = ((r".*(q_proj|o_proj)/kernel$", P()),) + rules
+        if tp > 1:
+            rules = ((r".*(qkv_proj|gate_up)/kernel$", P()),) + rules
+        return rules
+
+    def _layout(self, shard: Optional[mesh_lib.Shard]
+                ) -> Optional[sharding_lib.ParamLayout]:
+        """Where a fit on ``shard`` keeps each param: ``spec_for`` with
+        this model's rules (None on a mesh that shards no leaf)."""
+        if shard is None:
+            return None
+        mesh = shard.mesh
+        specs = sharding_lib.param_specs(
+            {k: tuple(p.shape) for k, p in self.module.named_parameters()},
+            mesh, weights_lib.flax_path, self._param_rules(mesh))
+        if not any(sharding_lib.is_sharded(p) for p in specs.values()):
+            return None
+        return sharding_lib.ParamLayout(specs, mesh, shard.rank)
 
     def _resolved_attention(self) -> str:
         if self.attention != "auto":
@@ -1260,12 +1458,20 @@ class LanguageModel:
             self.set_params(weights_lib.params_from_flax(
                 weights_lib.init_params(self._config(), self.seed)))
         eng = self._get_engine()
-        state = eng.init_state(self._master_params())
         shard, columns = self._plan(batcher.array("x").shape[1])
+        state = eng.init_state(self._master_params(),
+                               layout=self._layout(shard))
         state, history = eng.fit(state, batcher, epochs=epochs,
                                  seed=self.seed, checkpointer=checkpointer,
                                  log_fn=log_fn, shard=shard,
                                  columns=columns)
+        if state.layout is not None:
+            # every rank leaves the fit with the whole trained params:
+            # evaluate, predict and generate run whole on each
+            whole = eng.whole_params(state)
+            with torch.no_grad():
+                for k, p in self._master_params().items():
+                    p.copy_(whole[k])
         if val_x is not None:
             val = eng.evaluate(state.params, self._batcher(val_x,
                                                            batch_size))

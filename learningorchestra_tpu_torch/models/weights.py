@@ -24,6 +24,11 @@ module's buffers (``batchnorm_1/mean`` is ``batchnorm_1.mean``).
 
 The Builder's estimators carry their fitted numpy state across as it is
 (:func:`estimator_from_jax`).
+
+The pipelined LM (:mod:`.pp_transformer`) keeps a plain dict in the JAX
+layout, ``embed`` and ``blocks/{ln1, qkv, o, ln2, wi, wo}`` stacked on
+the layer dimension, kernels ``(in, out)``; :func:`pp_params_to_numpy`
+and :func:`pp_params_from_numpy` carry it across, numpy both ways.
 """
 
 from __future__ import annotations
@@ -273,3 +278,29 @@ def init_params(config: Dict[str, Any], seed: int) -> Dict[str, Any]:
                 node = node[mod]
             node[path[-1]] = value.numpy()
     return tree
+
+
+PP_BLOCK_KEYS = ("ln1", "qkv", "o", "ln2", "wi", "wo")
+
+
+def pp_params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The pipelined LM's params as float32 numpy arrays, the same tree
+    (the JAX package's ``pp_transformer`` layout)."""
+    def host(t):
+        if isinstance(t, torch.Tensor):
+            return t.detach().float().cpu().numpy().copy()
+        return np.asarray(t, np.float32).copy()
+
+    return {"embed": host(params["embed"]),
+            "blocks": {k: host(params["blocks"][k]) for k in PP_BLOCK_KEYS}}
+
+
+def pp_params_from_numpy(tree: Dict[str, Any],
+                         device="cpu") -> Dict[str, Any]:
+    """The pipelined LM's params from a numpy (or JAX) tree: float32
+    tensors on ``device``, the same layout."""
+    def tensor(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(device)
+
+    return {"embed": tensor(tree["embed"]),
+            "blocks": {k: tensor(tree["blocks"][k]) for k in PP_BLOCK_KEYS}}

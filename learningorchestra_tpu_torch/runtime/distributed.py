@@ -168,16 +168,17 @@ def is_coordinator() -> bool:
 
 
 def group_of(ranks: Sequence[int]):
-    """The process group over ``ranks``: the world itself when it is
-    all of it, else one formed at first use by the members alone (each
-    member must ask for it, in the same order as the others)."""
+    """The process group over ``ranks`` (two or more): the world itself
+    when it is all of it, else one formed at first use. torch names a
+    group by the count of groups formed before it, so every rank of the
+    world asks for every group, member or not, in one order
+    (:meth:`.mesh.Mesh.form_groups`); a rank outside ``ranks`` gets
+    torch's ``NON_GROUP_MEMBER``."""
     key = tuple(sorted(int(r) for r in ranks))
     if key == tuple(range(world_size())):
         return tdist.group.WORLD
     if key not in _groups:
-        _groups[key] = tdist.new_group(
-            list(key), timeout=_timeout,
-            use_local_synchronization=True)
+        _groups[key] = tdist.new_group(list(key), timeout=_timeout)
     return _groups[key]
 
 
@@ -424,6 +425,197 @@ def all_to_all(tensors, group) -> tuple:
     member ``i`` receives every member's slice ``i``, stacked in member
     order."""
     return _AllToAll.apply(group, *tensors)
+
+
+# ----------------------------------------------------------------------
+# tensor, fully-sharded and pipeline parallelism
+# ----------------------------------------------------------------------
+def _summed(t, group):
+    """``t`` summed over ``group``, out of place."""
+    return all_reduce(t.contiguous().clone(), group)
+
+
+def _cat_f32(tensors):
+    return torch.cat([t.float().reshape(-1) for t in tensors])
+
+
+def _split_like(buf, likes):
+    """``buf`` (float32) cut into tensors of ``likes``' shapes and
+    dtypes."""
+    out, at = [], 0
+    for shape, dtype, _ in likes:
+        n = int(np.prod(shape)) if len(shape) else 1
+        out.append(buf[at:at + n].view(shape).to(dtype))
+        at += n
+    return out
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's ``f``: the tensors unchanged, their gradients summed
+    over ``group`` in one all-reduce."""
+
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        ctx.likes = [(t.shape, t.dtype, t.device) for t in tensors]
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [torch.zeros(shape, dtype=dtype, device=device)
+                 if g is None else g
+                 for g, (shape, dtype, device) in zip(grads, ctx.likes)]
+        buf = _summed(_cat_f32(grads), ctx.group)
+        return (None,) + tuple(_split_like(buf, ctx.likes))
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's ``g``: the sum over ``group`` (one all-reduce), the
+    gradient passed through as it is (every member's is the same)."""
+
+    @staticmethod
+    def forward(ctx, group, t):
+        return _summed(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+class _GatherFrom(torch.autograd.Function):
+    """Every member's block of ``dim``, concatenated in member order;
+    the backward takes this member's block of the gradient, which is the
+    same on every member (the gathered tensor feeds replicated work)."""
+
+    @staticmethod
+    def forward(ctx, group, dim, t):
+        parts = all_gather(t, group)
+        ctx.dim, ctx.index, ctx.width = dim, group_rank(group), t.shape[dim]
+        return torch.cat(parts, dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.index * ctx.width
+        return None, None, grad.narrow(ctx.dim, start,
+                                       ctx.width).contiguous()
+
+
+class _ScatterTo(torch.autograd.Function):
+    """This member's block of ``dim`` of a replicated tensor; the
+    backward gathers the members' blocks of the gradient."""
+
+    @staticmethod
+    def forward(ctx, group, dim, t):
+        width = t.shape[dim] // tdist.get_world_size(group)
+        ctx.group, ctx.dim = group, dim
+        return t.narrow(dim, group_rank(group) * width, width).contiguous()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, torch.cat(all_gather(grad, ctx.group),
+                                     dim=ctx.dim)
+
+
+class _ShardGather(torch.autograd.Function):
+    """FSDP's gather: every member's shard of ``dim`` concatenated; the
+    backward is the reduce-scatter, each member keeping the sum over the
+    group of its own shard's gradient."""
+
+    @staticmethod
+    def forward(ctx, group, dim, t):
+        ctx.group, ctx.dim = group, dim
+        return torch.cat(all_gather(t, group), dim=dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, reduce_scatter(grad, ctx.group, ctx.dim)
+
+
+def group_rank(group) -> int:
+    """This process's index in ``group`` (its members in rank order)."""
+    return tdist.get_rank(group)
+
+
+def reduce_scatter(t, group, dim: int = 0):
+    """This member's block of ``dim`` of ``t`` summed over ``group``.
+    NCCL reduce-scatters; gloo, which has no reduce-scatter, sums the
+    whole tensor (staged through the host like any all-reduce) and keeps
+    the block."""
+    n = tdist.get_world_size(group)
+    width = t.shape[dim] // n
+    me = group_rank(group)
+    if _backend == "nccl":
+        src = t.movedim(dim, 0).contiguous()
+        out = torch.empty((width,) + tuple(src.shape[1:]), dtype=t.dtype,
+                          device=t.device)
+        with _collective():
+            tdist.reduce_scatter_tensor(out, src, group=group)
+        return out.movedim(0, dim).contiguous()
+    return _summed(t, group).narrow(dim, me * width, width).contiguous()
+
+
+def copy_to(tensors, group) -> tuple:
+    """The tensors as they are, their gradients summed over ``group``
+    (one message): the input of column-parallel work."""
+    return _CopyTo.apply(group, *tensors)
+
+
+def reduce_from(t, group):
+    """``t`` summed over ``group``, the gradient passed through: the
+    output of row-parallel work."""
+    return _ReduceFrom.apply(group, t)
+
+
+def gather_from(t, group, dim: int = -1):
+    """The members' blocks of ``dim`` concatenated; the backward keeps
+    this member's block."""
+    return _GatherFrom.apply(group, dim % t.dim(), t)
+
+
+def scatter_to(t, group, dim: int = -1):
+    """This member's block of ``dim``; the backward gathers."""
+    return _ScatterTo.apply(group, dim % t.dim(), t)
+
+
+def shard_gather(t, group, dim: int):
+    """FSDP's gather of a parameter shard, reduce-scattered backward."""
+    return _ShardGather.apply(group, dim, t)
+
+
+def pipeline_exchange(sends, recvs, group) -> list:
+    """One step of point-to-point traffic: ``sends`` is ``[(tensor,
+    global dst)]``, ``recvs`` ``[(like, global src)]``; returns the
+    received tensors, in ``recvs``' order. NCCL posts them as one group;
+    gloo posts the sends, then waits on each receive (a send never
+    waits for its receive), staging CUDA tensors through the host."""
+    if not sends and not recvs:
+        return []
+    outs, device = [], None
+    if _backend == "nccl":
+        ops = [tdist.P2POp(tdist.isend, t.contiguous(), dst, group)
+               for t, dst in sends]
+        for like, src in recvs:
+            out = torch.empty_like(like)
+            outs.append(out)
+            ops.append(tdist.P2POp(tdist.irecv, out, src, group))
+        with _collective():
+            for w in tdist.batch_isend_irecv(ops):
+                w.wait()
+        return outs
+    works, held = [], []
+    with _collective():
+        for t, dst in sends:
+            host, _ = _to_host(t.contiguous())
+            held.append(host)
+            works.append(tdist.isend(host, dst, group=group))
+        for like, src in recvs:
+            device = like.device if _gloo_stages(like) else None
+            out = torch.empty(like.shape, dtype=like.dtype)
+            tdist.recv(out, src, group=group)
+            outs.append(_back(out, device))
+        for w in works:
+            w.wait()
+    return outs
 
 
 # ----------------------------------------------------------------------

@@ -85,8 +85,16 @@ optimizer on the same gradients. The
 health word is computed after the reduction, so every rank skips or
 rolls back together; each rank's random draws fold in its block index.
 Checkpoints commit on the mesh's first rank behind a barrier, and every
-rank restores. Evaluation and prediction run replicated (every rank the
-whole batch). Each epoch record of a sharded fit carries
+rank restores. With a parameter layout (``init_state(layout=...)``, a
+:class:`~..parallel.sharding.ParamLayout` that shards leaves over
+``tp``, ``ep`` or ``fsdp``) each rank keeps only its shard of each
+param and of each optimizer slot; the gradients are summed over the
+rank's row group only (its (data, sequence) blocks), an fsdp-sharded
+leaf's after the reduce-scatter of its gather; the health word's
+gradient norm counts every shard once; a checkpoint is gathered whole
+on every rank (the saved tree never changes with the mesh) and a
+restore slices the whole tree again. Evaluation and prediction run
+replicated (every rank the whole batch). Each epoch record of a sharded fit carries
 ``launchesByRank``: every mesh rank's flash-kernel launches in the epoch
 (one small all-gather), so the coordinator's record shows what each
 rank ran.
@@ -109,6 +117,7 @@ from learningorchestra_tpu_torch.observability import timeline as obs_timeline
 from learningorchestra_tpu_torch.observability import trace as obs_trace
 from learningorchestra_tpu_torch.observability import xray as obs_xray
 from learningorchestra_tpu_torch.ops import attention as attn_ops
+from learningorchestra_tpu_torch.parallel import sharding as sharding_lib
 from learningorchestra_tpu_torch.runtime import arena as arena_lib
 from learningorchestra_tpu_torch.runtime import distributed as dist
 from learningorchestra_tpu_torch.runtime import health as health_lib
@@ -136,6 +145,9 @@ class TrainState:
     opt_state: Dict[str, Any]
     # a stateful model's mutable state (batch statistics), float32
     model_state: Params = dataclasses.field(default_factory=dict)
+    # a sharded fit's placement of the params (and of every optimizer
+    # slot keyed like them): None while every rank holds them whole
+    layout: Optional[sharding_lib.ParamLayout] = None
 
 
 def default_grad_accum() -> int:
@@ -423,21 +435,31 @@ def _launches_by_rank(shard: mesh_lib.Shard, since: Dict[str, int],
 
 
 def _reduce_over(shard: mesh_lib.Shard, grads: Params, metrics: Metrics,
+                 layout: Optional[sharding_lib.ParamLayout] = None,
                  ) -> Tuple[Params, Metrics]:
-    """The mesh's step from this rank's, in one all-reduce over
-    ``shard.group``: ``sum(w_r g_r) / sum(w_r)`` with ``w_r`` the
-    rank's loss count, or, for a loss normalized over the mesh already
-    (it emits ``_gradWeight``), the plain sum of the ranks' gradients;
-    and every metric's sum and count summed."""
+    """The mesh's step from this rank's: ``sum(w_r g_r) / sum(w_r)``
+    over the rank's row group (every (data, sequence) block, at this
+    rank's model coordinates) with ``w_r`` the rank's loss count, or,
+    for a loss normalized over the mesh already (it emits
+    ``_gradWeight``), the plain sum of the blocks' gradients; and every
+    metric's sum and count summed. One all-reduce over ``row_group``;
+    a leaf that fsdp shards had its fsdp sum in the backward's
+    reduce-scatter and takes a second one over the other data axes.
+    Ranks of one block along ``tp``, ``ep`` or ``pp`` are not summed:
+    they hold the same gradient, or each its own shard's."""
     summed = metrics.pop("_gradWeight", None) is not None
     w = 1.0 if summed else metrics["loss"][1].float()
-    names = sorted(grads)
+    fsdp = layout.fsdp_dims() if layout is not None else {}
+    names = sorted(k for k in grads if k not in fsdp)
+    rest = sorted(k for k in grads if k in fsdp)
     keys = sorted(metrics)
     parts = [(grads[k].float() * w).reshape(-1) for k in names]
     for k in keys:
         s, c = metrics[k]
         parts += [s.float().reshape(1), c.float().reshape(1)]
-    buf = dist.all_reduce(torch.cat(parts), shard.group)
+    buf = torch.cat(parts)
+    if shard.row_group is not None:
+        buf = dist.all_reduce(buf, shard.row_group)
     at = 0
     reduced: Dict[str, torch.Tensor] = {}
     for k in names:
@@ -448,6 +470,15 @@ def _reduce_over(shard: mesh_lib.Shard, grads: Params, metrics: Metrics,
     for k in keys:
         sums[k] = (buf[at], buf[at + 1])
         at += 2
+    if rest:
+        buf = torch.cat([(grads[k].float() * w).reshape(-1) for k in rest])
+        if shard.rest_group is not None:
+            buf = dist.all_reduce(buf, shard.rest_group)
+        at = 0
+        for k in rest:
+            n = grads[k].numel()
+            reduced[k] = buf[at:at + n].view(grads[k].shape)
+            at += n
     total = 1.0 if summed else sums["loss"][1].clamp_min(1e-9)
     return ({k: (g / total).to(grads[k].dtype) for k, g in reduced.items()},
             sums)
@@ -501,10 +532,59 @@ class Engine:
         self._columns: Optional[Callable] = None
 
     def init_state(self, params: Params,
-                   model_state: Optional[Params] = None) -> TrainState:
+                   model_state: Optional[Params] = None,
+                   layout: Optional[sharding_lib.ParamLayout] = None,
+                   ) -> TrainState:
+        """The train state of ``params``; with a ``layout`` that shards
+        any leaf, of this rank's shard of each (the whole params are
+        sliced, so a sharded fit starts where the one-rank fit starts),
+        and the optimizer's slots of the shards."""
+        if layout is not None and any(
+                sharding_lib.is_sharded(p) for p in layout.specs.values()):
+            params = {k: layout.local(k, p.detach()).clone()
+                      .requires_grad_(p.requires_grad)
+                      for k, p in params.items()}
+        else:
+            layout = None
         return TrainState(step=0, params=params,
                           opt_state=self._optimizer.init(params),
-                          model_state=dict(model_state or {}))
+                          model_state=dict(model_state or {}),
+                          layout=layout)
+
+    def whole_params(self, state: TrainState) -> Params:
+        """The whole params of ``state`` (a sharded state's gathered:
+        every rank of the mesh calls this together)."""
+        if state.layout is None:
+            return state.params
+        return state.layout.gather(state.params)
+
+    def _whole(self, state: TrainState) -> TrainState:
+        """``state`` with whole params and optimizer slots (gathered on
+        every rank of a sharded state)."""
+        if state.layout is None:
+            return state
+        opt = {k: state.layout.gather(v) if isinstance(v, dict) else v
+               for k, v in state.opt_state.items()}
+        return TrainState(step=state.step,
+                          params=state.layout.gather(state.params),
+                          opt_state=opt, model_state=state.model_state)
+
+    @staticmethod
+    def _whole_meta(state: TrainState) -> TrainState:
+        """``state``'s whole shapes, on the meta device."""
+        layout = state.layout
+        if layout is None:
+            return state
+
+        def meta(tensors):
+            return {k: torch.empty(layout.full_shape(k, tuple(t.shape)),
+                                   device="meta")
+                    for k, t in tensors.items()}
+
+        opt = {k: meta(v) if isinstance(v, dict) else v
+               for k, v in state.opt_state.items()}
+        return TrainState(step=state.step, params=meta(state.params),
+                          opt_state=opt, model_state=state.model_state)
 
     def _cast(self, params: Params) -> Params:
         """The compute-dtype copy of the master params. Autograd carries
@@ -697,7 +777,8 @@ class Engine:
                 state.params, state.model_state, batch,
                 self._seed(seed, state.step, 0))
         if self._shard is not None:
-            grads, metrics = _reduce_over(self._shard, grads, metrics)
+            grads, metrics = _reduce_over(self._shard, grads, metrics,
+                                          state.layout)
         return grads, new_state, metrics
 
     def sharded_grads(self, state: TrainState, batch, seed: int,
@@ -711,6 +792,7 @@ class Engine:
         device = next(iter(state.params.values())).device
         batch = _rows(shard, self._to_device(batch, device))
         self._shard = shard
+        self._publish_layout(shard, state)
         try:
             with mesh_lib.sharded(shard):
                 grads, _, metrics = self._step_grads(state, batch, seed)
@@ -718,11 +800,21 @@ class Engine:
             self._shard = None
         return grads, metrics
 
+    @staticmethod
+    def _publish_layout(shard: Optional[mesh_lib.Shard],
+                        state: TrainState) -> None:
+        """Tells the model, through the step's shard, which leaves fsdp
+        shards (it gathers them just before use)."""
+        if shard is not None:
+            shard.fsdp_dims = (state.layout.fsdp_dims()
+                               if state.layout is not None else {})
+
     def _train_step_body(self, state: TrainState, batch,
                          seed: int) -> Metrics:
         """One optimizer step on ``batch``; ``state`` changes in place."""
         grads, new_state, metrics = self._step_grads(state, batch, seed)
-        bad = self._health_word(metrics, grads) if self._health_on else None
+        bad = self._health_word(metrics, grads, state) \
+            if self._health_on else None
         kept = self._keep(state) if bad is not None and self._health_skip \
             else None
         self._optimizer.update(state.params, grads, state.opt_state)
@@ -841,15 +933,28 @@ class Engine:
     # ------------------------------------------------------------------
     # the health sentinel
     # ------------------------------------------------------------------
-    @staticmethod
     @torch.no_grad()
-    def _health_word(metrics: Metrics, grads: Params) -> torch.Tensor:
+    def _health_word(self, metrics: Metrics, grads: Params,
+                     state: TrainState) -> torch.Tensor:
         """True on the card when the step's mean loss or its global
-        gradient norm is not finite."""
+        gradient norm is not finite. A sharded state's norm is taken
+        over the shards, each replicated leaf counted once (one scalar
+        all-reduce over the mesh), so every rank skips the same step."""
         loss_sum, loss_count = metrics["loss"]
         mean = loss_sum.float() / loss_count.float().clamp_min(1e-9)
-        norms = torch._foreach_norm([g.float() for g in grads.values()])
-        gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        names = list(grads)
+        norms = torch._foreach_norm([grads[k].float() for k in names])
+        layout = state.layout
+        if layout is None:
+            gnorm = torch.linalg.vector_norm(torch.stack(norms))
+        else:
+            # a leaf of s shards is held by size/s ranks each: weigh
+            # its squared norm so the mesh's sum counts it once
+            size = float(layout.mesh.size)
+            square = sum(n.float() ** 2 * (layout.shards(k) / size)
+                         for k, n in zip(names, norms))
+            gnorm = dist.all_reduce(square.reshape(1),
+                                    self._shard.group)[0].sqrt()
         return ~torch.isfinite(mean) | ~torch.isfinite(gnorm)
 
     @staticmethod
@@ -1045,8 +1150,11 @@ class Engine:
         commits and every rank waits for it (each holds the same
         state)."""
         shard = self._shard
+        # a sharded state is gathered whole on every rank: the saved
+        # tree never changes with the mesh
+        whole = self._whole(state)
         if shard is None or shard.rank == int(shard.mesh.ranks.flat[0]):
-            self._commit(checkpointer, state, epoch)
+            self._commit(checkpointer, whole, epoch)
         if shard is not None:
             dist.barrier(shard.group)
 
@@ -1061,8 +1169,10 @@ class Engine:
             checkpointer.save_meta({"step": int(state.step),
                                     "epochs_done": epoch + 1})
 
-    def _fill(self, live: Params, tree: Any) -> None:
-        """Copies a saved tree in the model's layout into ``live``."""
+    def _fill(self, live: Params, tree: Any,
+              layout: Optional[sharding_lib.ParamLayout] = None) -> None:
+        """Copies a saved tree in the model's layout into ``live`` (with
+        a ``layout``, this rank's shard of each whole saved leaf)."""
         for name, t in live.items():
             if self._layout is None:
                 path, transposed = (name,), False
@@ -1077,6 +1187,8 @@ class Engine:
                 warnings.simplefilter("ignore", UserWarning)
                 src = torch.as_tensor(value) if not isinstance(
                     value, torch.Tensor) else value
+            if layout is not None:
+                src = layout.local(name, src)
             with torch.no_grad():
                 t.copy_(src)
 
@@ -1091,12 +1203,12 @@ class Engine:
 
     def _load_saved(self, state: TrainState, raw: Dict[str, Any]) -> None:
         """Copies a restored saved form into ``state`` in place."""
-        self._fill(state.params, raw["params"])
+        self._fill(state.params, raw["params"], state.layout)
         if self._stateful:
             self._fill_model_state(state.model_state, raw["model_state"])
         for key, value in state.opt_state.items():
             if isinstance(value, dict):
-                self._fill(value, raw["opt_state"][key])
+                self._fill(value, raw["opt_state"][key], state.layout)
             else:
                 state.opt_state[key] = int(raw["opt_state"][key])
         state.step = int(raw["step"])
@@ -1111,7 +1223,7 @@ class Engine:
         restore's error is raised."""
         if checkpointer is None or checkpointer.latest_step() is None:
             return False
-        target = self._saved_form(state, _meta_leaf)
+        target = self._saved_form(self._whole_meta(state), _meta_leaf)
         try:
             raw = checkpointer.restore(target)
         except (ValueError, KeyError, TypeError) as exc:
@@ -1152,7 +1264,7 @@ class Engine:
         meta = checkpointer.saved_metadata()
         if not isinstance(meta, dict) or "params" not in meta:
             return "mismatch"
-        live = self._tree(state.params, _meta_leaf)
+        live = self._tree(self._whole_meta(state).params, _meta_leaf)
         if not _same_structure(live, meta["params"]):
             return "mismatch"
         target: Dict[str, Any] = {"params": live}
@@ -1167,7 +1279,7 @@ class Engine:
         raw = checkpointer.restore_partial(target)
         if raw is None:
             return "unreadable"
-        self._fill(state.params, raw["params"])
+        self._fill(state.params, raw["params"], state.layout)
         if graft_state:
             self._fill_model_state(state.model_state, raw["model_state"])
         state.opt_state = self._optimizer.init(state.params)
@@ -1213,6 +1325,7 @@ class Engine:
         entry = None
         self._shard = shard
         self._columns = columns
+        self._publish_layout(shard, state)
         try:
             staged = None
             if stage:

@@ -18,20 +18,22 @@ axis        meaning
 ``ep``      expert parallel
 ==========  =====================================================
 
-The port computes over ``dcn``, ``dp`` and ``sp``; a mesh whose ``tp``,
-``fsdp``, ``ep`` or ``pp`` axis is above 1 is refused (ROADMAP Queue 1
-item 10.2) wherever a mesh is built.
+The batch rows lie over the data axes (``dcn``, ``dp``, ``fsdp``), the
+sequence over ``sp`` where the fit splits it; the batch is replicated
+over ``tp``, ``ep`` and ``pp``, as the JAX mesh leaves it.
 
 A train step of a sharded fit runs under :func:`sharded`: the engine
-publishes the rank's :class:`Shard` (its data block, its sequence block
-and the groups of both) on the step's thread, and the model reads it
-(:func:`current_shard`) to place its rope positions and to choose ring
-or Ulysses attention.
+publishes the rank's :class:`Shard` (its data block, its sequence block,
+its tensor, expert, fully-sharded and pipeline coordinates, and the
+groups of each) on the step's thread, and the model reads it
+(:func:`current_shard`) to place its rope positions, to choose ring or
+Ulysses attention and to run its sharded projections.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import re
 import threading
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
@@ -42,15 +44,6 @@ from learningorchestra_tpu_torch.runtime import distributed as dist
 
 DCN, DP, FSDP, TP, PP, SP, EP = \
     "dcn", "dp", "fsdp", "tp", "pp", "sp", "ep"
-# axes the port does not compute over yet (ROADMAP Queue 1 item 10.2)
-UNPORTED_AXES = (TP, FSDP, EP, PP)
-
-
-class UnportedMeshAxis(ValueError):
-    """A mesh asks for tensor, fully-sharded, expert or pipeline
-    parallelism, which the port does not run yet."""
-
-
 def parse_mesh_spec(spec: str) -> Dict[str, int]:
     """Parse ``"dp=2,tp=4"`` into an ordered axis->size dict."""
     out: Dict[str, int] = {}
@@ -67,38 +60,39 @@ def parse_mesh_spec(spec: str) -> Dict[str, int]:
     return out
 
 
-def check_supported(sizes: Dict[str, int]) -> None:
-    """Raise :class:`UnportedMeshAxis` for a ``tp``, ``fsdp``, ``ep`` or
-    ``pp`` axis above 1 (or left at ``-1``, to take the other ranks)."""
-    for axis in UNPORTED_AXES:
-        if sizes.get(axis, 1) > 1 or sizes.get(axis) == -1:
-            raise UnportedMeshAxis(
-                f"mesh axis {axis}={sizes[axis]} is not ported to the "
-                f"PyTorch package yet (tensor, fully-sharded, expert and "
-                f"pipeline parallelism are ROADMAP Queue 1 item 10.2); "
-                f"the port computes over dcn, dp and sp")
+def _check_sizes(spec: str, sizes: Dict[str, int]) -> None:
+    """The checks of a spec that need no ranks: ``dcn`` outermost, at
+    most one ``-1``."""
+    if DCN in sizes and next(iter(sizes)) != DCN:
+        raise ValueError(
+            f"dcn must be the OUTERMOST (first) mesh axis: {spec!r}")
+    if sum(1 for s in sizes.values() if s == -1) > 1:
+        raise ValueError("at most one -1 axis allowed")
 
 
 def check_spec(spec: str) -> None:
-    """Refuse, before any group exists, a spec the port cannot run
+    """Refuse, before any group exists, a spec no world can run: the
+    checks the JAX ``build_mesh`` makes before it counts devices
     (``"auto"`` always runs)."""
     if spec != "auto":
-        check_supported(parse_mesh_spec(spec))
+        _check_sizes(spec, parse_mesh_spec(spec))
 
 
 class Mesh:
     """Named axes over ranks: ``ranks`` is an array of global ranks
     shaped by the axis sizes (the JAX mesh's ``devices``). Two meshes
     over the same ranks with the same axes compare equal. The process
-    group of a rank's block along some axes is formed on first use by
-    :meth:`group`, which every member of the block calls."""
+    groups of the mesh's blocks are formed together, at the first
+    :meth:`group` of a member; every rank of the world forms them at the
+    same point of its program, a rank outside a smaller mesh through
+    :meth:`form_groups`."""
 
     def __init__(self, sizes: Dict[str, int], ranks: Sequence[int]):
         self.axis_names: Tuple[str, ...] = tuple(sizes)
         self.shape: Dict[str, int] = {a: int(s) for a, s in sizes.items()}
         self.ranks = np.asarray(list(ranks), dtype=np.int64).reshape(
             tuple(self.shape.values()))
-        self._groups: Dict[Tuple[str, ...], Any] = {}
+        self._groups: Optional[Dict[Tuple[str, ...], Any]] = None
 
     @property
     def size(self) -> int:
@@ -139,19 +133,37 @@ class Mesh:
                 return block
         raise ValueError(f"rank {rank} is not in {self!r}")
 
+    def form_groups(self) -> None:
+        """Form the process group of every block along every combination
+        of the axes above 1, in one fixed order. torch names a group by
+        the count of groups formed before it, so every rank of the world
+        calls this for the same meshes in the same order: a member
+        through its first :meth:`group`, a rank outside the mesh
+        itself."""
+        if self._groups is not None or not dist.is_initialized():
+            return
+        axes = [a for a in self.axis_names if self.shape[a] > 1]
+        me = dist.rank()
+        groups = {}
+        for n in range(1, len(axes) + 1):
+            for key in itertools.combinations(axes, n):
+                for block in self._blocks(key):
+                    group = dist.group_of(block)
+                    if me in block:
+                        groups[key] = group
+        self._groups = groups
+
     def group(self, axes=None):
         """The process group of this rank's block along ``axes`` (all
-        axes by default; None without a formed group). Formed at first
-        use by the block's members alone, all of whom must ask for it
-        (:func:`.distributed.group_of`)."""
+        axes by default); None without a process group or for a block
+        of one rank."""
         axes = self.axis_names if axes is None else (
             (axes,) if isinstance(axes, str) else tuple(axes))
-        if not dist.is_initialized():
+        key = tuple(a for a in self.axis_names
+                    if a in axes and self.shape[a] > 1)
+        if not dist.is_initialized() or not key:
             return None
-        key = tuple(a for a in self.axis_names if a in axes)
-        if key not in self._groups:
-            self._groups[key] = dist.group_of(
-                self.axis_ranks(key, dist.rank()))
+        self.form_groups()
         return self._groups[key]
 
 
@@ -169,12 +181,8 @@ def build_mesh(spec: str = "auto",
     if spec == "auto":
         return Mesh({DP: n}, ranks)
     sizes = parse_mesh_spec(spec)
-    if DCN in sizes and next(iter(sizes)) != DCN:
-        raise ValueError(
-            f"dcn must be the OUTERMOST (first) mesh axis: {spec!r}")
+    _check_sizes(spec, sizes)
     unknown = [a for a, s in sizes.items() if s == -1]
-    if len(unknown) > 1:
-        raise ValueError("at most one -1 axis allowed")
     known = int(np.prod([s for s in sizes.values() if s != -1]))
     if unknown:
         if n % known:
@@ -184,7 +192,6 @@ def build_mesh(spec: str = "auto",
     if total > n:
         raise ValueError(
             f"mesh {sizes} needs {total} devices, have {n}")
-    check_supported(sizes)
     return Mesh(sizes, ranks[:total])
 
 
@@ -298,10 +305,19 @@ def pad_to_multiple(n: int, multiple: int) -> int:
 class Shard:
     """One rank's place in a sharded step: ``data_index`` of
     ``data_size`` row blocks, ``seq_index`` of ``seq_size`` sequence
-    blocks (``seq_size`` 1 unless the fit shards the sequence), and the
-    groups the step reduces over: ``group`` every rank of the mesh (the
-    gradients and the metric sums), ``seq_group`` the rank's ``sp``
-    block (ring and Ulysses)."""
+    blocks (``seq_size`` 1 unless the fit shards the sequence), and its
+    coordinate, size, ranks and group along each model axis (``tp``,
+    ``ep``, ``fsdp``, ``pp``: ``tp_index``, ``tp_size``, ``tp_ranks``,
+    ``tp_group`` and so on; a group is None at size 1).
+
+    The groups a step reduces over: ``group`` every rank of the mesh
+    (launch counts, barriers), ``row_group`` the ranks that hold this
+    rank's model coordinates over every (data, sequence) block (the
+    gradient and metric sums, the MoE routing), ``seq_group`` the rank's
+    ``sp`` block (ring and Ulysses), ``model_group`` its ``ep`` by ``tp``
+    block (the expert layer's combine). The ranks of one row block that
+    differ along ``tp``, ``ep``, ``pp`` (or ``sp`` where the fit does
+    not split the sequence) hold the same rows."""
 
     def __init__(self, mesh: Mesh, rank: int, seq_parallel: bool):
         coords = mesh.coords(rank)
@@ -318,17 +334,58 @@ class Shard:
         sp = mesh.shape.get(SP, 1)
         self.seq_size = sp if seq_parallel else 1
         self.seq_index = coords.get(SP, 0) if seq_parallel else 0
+        # the groups (the mesh forms all of them at the first)
         self.group = mesh.group()
         self.seq_group = mesh.group(SP) if self.seq_size > 1 else None
         self.seq_ranks = (mesh.axis_ranks(SP, rank)
                           if self.seq_size > 1 else [self.rank])
+        self.row_axes = data + ((SP,) if self.seq_size > 1 else ())
+        self.row_ranks = mesh.axis_ranks(self.row_axes, rank)
+        self.row_group = (mesh.group(self.row_axes)
+                          if len(self.row_ranks) > 1 else None)
+        # the (data, sequence) block of each row rank, in rank order
+        self.row_blocks = [self._block_of(mesh.coords(r), data)
+                           for r in self.row_ranks]
+        for axis in (TP, EP, FSDP, PP):
+            size = mesh.shape.get(axis, 1)
+            setattr(self, axis + "_size", size)
+            setattr(self, axis + "_index", coords.get(axis, 0))
+            setattr(self, axis + "_ranks", mesh.axis_ranks(axis, rank)
+                    if axis in mesh.axis_names else [self.rank])
+            setattr(self, axis + "_group",
+                    mesh.group(axis) if size > 1 else None)
+        # the data axes but fsdp: what an fsdp-sharded leaf's gradient
+        # still sums over after its reduce-scatter
+        rest = tuple(a for a in self.row_axes if a != FSDP)
+        self.rest_ranks = mesh.axis_ranks(rest, rank) if rest else \
+            [self.rank]
+        self.rest_group = (mesh.group(rest)
+                           if len(self.rest_ranks) > 1 else None)
+        model = tuple(a for a in (EP, TP) if mesh.shape.get(a, 1) > 1)
+        self.model_size = int(np.prod([mesh.shape[a] for a in model]
+                                      or [1]))
+        self.model_group = mesh.group(model) if self.model_size > 1 \
+            else None
         # the index of this rank's (data, sequence) block: what its
-        # random draws fold in
+        # random draws fold in (the same on every rank of the block)
         self.row_index = self.data_index * self.seq_size + self.seq_index
+        # torch param name -> the dimension fsdp shards (set by the
+        # engine for a fit whose leaves it shards)
+        self.fsdp_dims: Dict[str, int] = {}
+
+    def _block_of(self, coords: Dict[str, int], data) -> Tuple[int, int]:
+        index = 0
+        for a in data:
+            index = index * self.mesh.shape[a] + coords[a]
+        return index, (coords.get(SP, 0) if self.seq_size > 1 else 0)
 
     @property
     def size(self) -> int:
         return self.mesh.size
+
+    @property
+    def row_size(self) -> int:
+        return len(self.row_ranks)
 
     def rows(self, n: int) -> slice:
         """This rank's block of ``n`` batch rows (``n`` a multiple of

@@ -436,7 +436,9 @@ def _broadcast_to_workers(name: str, type_string: str, parent_name: str,
     call before it runs it: a sharded fit's collectives need every rank
     of the mesh in the same program. The followers replay it from the
     shared artifact store (:func:`replay_method_call`); the health
-    policy rides along, since it changes what the step computes."""
+    policy rides along, since it changes what the step computes. Every
+    rank then forms the default mesh's groups, before any step of the
+    call can ask for one."""
     if dist.world_size() <= 1:
         return
     dist.HostBridge().publish({
@@ -447,6 +449,7 @@ def _broadcast_to_workers(name: str, type_string: str, parent_name: str,
                    "parent_name": parent_name, "method": method,
                    "method_parameters": method_parameters,
                    "health_policy": health_policy}})
+    mesh_lib.get_default_mesh().form_groups()
 
 
 _worker_ctx = None
@@ -474,7 +477,9 @@ def replay_method_call(name: str, type_string: str, parent_name: str,
 
         _worker_ctx = ServiceContext()
     ctx = _worker_ctx
-    if mesh_lib.get_default_mesh().coords(dist.rank()) is None:
+    mesh = mesh_lib.get_default_mesh()
+    mesh.form_groups()
+    if mesh.coords(dist.rank()) is None:
         return
     instance = ctx.artifacts.load(parent_name,
                                   ctx.params.artifact_type(parent_name))

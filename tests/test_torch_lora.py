@@ -264,16 +264,19 @@ def _call(api, method, path, body=None):
     return api.dispatch(method, PREFIX + path, {}, body)[:2]
 
 
-def _wait(api, path, timeout=300.0):
+def _wait(api, path, timeout=300.0, meta_keys=()):
     """The GET body once the job is finished and (both packages mark it
-    finished first) its execution document is written."""
+    finished first) its execution document is written, and its metadata
+    document holds ``meta_keys`` (the JAX package writes its timings
+    after)."""
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline:
         status, body = _call(api, "GET", path)
         assert status == 200, body
         executes = path.startswith(("/train/", "/predict/"))
         if body["metadata"]["finished"] and (
-                not executes or "queueWaitSeconds" in body["result"][-1]):
+                not executes or "queueWaitSeconds" in body["result"][-1]) \
+                and all(k in body["result"][0] for k in meta_keys):
             return body
         if any(d.get("exception") for d in body["result"]):
             raise AssertionError(f"job failed: {body['result'][-1]}")
@@ -429,7 +432,9 @@ def _tutorial(api, store_object):
         seen.append(_call(api, "POST", f"/{verb}/tensorflow", {
             "name": name, "modelName": parent, "method": method,
             "methodParameters": params}))
-        body = _wait(api, f"/{verb}/tensorflow/{name}")
+        body = _wait(api, f"/{verb}/tensorflow/{name}", meta_keys=(
+            ("checkpointCommitSeconds",) if params.get("checkpoint")
+            else ()))
         meta, *docs = body["result"]
         seen.append((name, [sorted(d) for d in docs]))
         # the metadata: JAX's core keys, and the port's checkpoint timings

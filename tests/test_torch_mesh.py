@@ -3,9 +3,10 @@
 ``runtime/mesh.py`` lays the JAX package's axes over process-group
 ranks and ``parallel/sharding.py`` keeps its rule table as pure
 functions; both are held here against the JAX functions on the
-8-device CPU test mesh (rank ``i`` standing for device ``i``). The port
-refuses a mesh with ``tp``, ``fsdp``, ``ep`` or ``pp`` above 1, naming
-ROADMAP Queue 1 item 10.2, when a mesh is built and at boot. The
+8-device CPU test mesh (rank ``i`` standing for device ``i``). A mesh
+with ``tp``, ``fsdp``, ``ep`` or ``pp`` above 1 is built as the JAX
+package builds it, and a service boots on it; each rank's parameter
+shards take the shapes of the JAX ``NamedSharding``'s shards. The
 preflight's ``mesh-divisibility`` warning of a ``LanguageModel`` fit
 (the port's own: the JAX package checks the ``NeuralModel`` fits it
 shards) is held on meshes set as the default.
@@ -67,20 +68,20 @@ def test_parse_mesh_spec_matches_jax(spec):
 
 @pytest.mark.parametrize("spec", ["tp=2", "dp=2,fsdp=2", "ep=4",
                                   "dp=2,pp=2", "fsdp=-1"])
-def test_unported_axes_are_refused(spec, tmp_path):
-    _jax(spec)  # the JAX package runs them
-    with pytest.raises(mesh_lib.UnportedMeshAxis, match="10.2"):
-        mesh_lib.build_mesh(spec, devices=range(8))
-    with pytest.raises(mesh_lib.UnportedMeshAxis, match="10.2"):
-        mesh_lib.check_spec(spec)
-    # at boot: a context with such an LO_MESH_SHAPE never starts
+def test_model_parallel_axes_are_accepted(spec, tmp_path):
+    """The axes the port once refused build as the JAX package builds
+    them, pass the boot check and boot a service."""
+    want = _jax(spec)
+    got = mesh_lib.build_mesh(spec, devices=range(8))
+    assert got.shape == dict(want.shape)
+    assert list(got.ranks.flat) == _ids(want)
+    mesh_lib.check_spec(spec)
     from learningorchestra_tpu_torch.services.context import ServiceContext
 
     config = dataclasses.replace(Config(home=str(tmp_path)),
                                  mesh_shape=spec)
-    with pytest.raises(mesh_lib.UnportedMeshAxis, match="10.2"):
-        ServiceContext(config, device="cpu")
-    # size 1 is no parallelism: such axes are taken
+    ServiceContext(config, device="cpu").close()
+    # size 1 is no parallelism, as before
     mesh_lib.build_mesh("dp=2,tp=1,fsdp=1", devices=range(8))
 
 
@@ -220,7 +221,9 @@ def test_new_modules_are_probed_for_imports():
             "learningorchestra_tpu_torch.cluster",
             "learningorchestra_tpu_torch.parallel.sharding",
             "learningorchestra_tpu_torch.parallel.ring",
-            "learningorchestra_tpu_torch.parallel.ulysses"} <= names
+            "learningorchestra_tpu_torch.parallel.ulysses",
+            "learningorchestra_tpu_torch.parallel.pipeline",
+            "learningorchestra_tpu_torch.models.pp_transformer"} <= names
 
 
 class _Catalog:
@@ -241,6 +244,9 @@ class _Catalog:
     ("dp=2,sp=2", "flash", 8, 63, []),
     ("dp=4", "dot", 6, 64, ["methodParameters.batch_size"]),
     ("sp=4", "ring", 5, 30, ["methodParameters.x"]),
+    # fsdp is a data axis; tp and pp hold the same rows
+    ("fsdp=2,tp=2", "flash", 7, 64, ["methodParameters.batch_size"]),
+    ("dp=2,pp=2", "dot", 6, 64, []),
 ])
 def test_mesh_divisibility_of_a_language_model_fit(monkeypatch, spec,
                                                    attention, batch, seq,

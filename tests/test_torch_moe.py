@@ -212,7 +212,9 @@ def test_moe_bf16_within_one_rounding_of_jax():
 def test_moe_refuses_a_mesh_and_an_unknown_route():
     params = moe.init_moe_params(0, 8, 16, 4)
     x = torch.zeros(4, 8)
-    with pytest.raises(ValueError, match="not yet ported"):
+    # a mesh is a Mesh or a rank's Shard of one; expert parallelism
+    # itself runs (tests/test_torch_model_parallel.py)
+    with pytest.raises(ValueError, match="a Mesh or a Shard"):
         moe.moe_layer(params, x, mesh=object())
     with pytest.raises(ValueError, match="unknown MoE route"):
         moe.moe_layer(params, x, route="ragged")

@@ -135,8 +135,9 @@ _RANK = textwrap.dedent("""
     x = inputs["tokens"]
     for name, (spec, attention, chunk) in inputs["lm"].items():
         mesh = mesh_lib.build_mesh(spec)
-        if mesh.coords(rank) is None:
-            continue  # a mesh smaller than the world
+        if mesh.coords(rank) is None:  # a mesh smaller than the world
+            mesh.form_groups()
+            continue
         lm = tlm.LanguageModel(**inputs["cfg"], attention=attention,
                                head_chunk=chunk, device="cpu")
         lm.set_params(weights.params_from_flax(tree))

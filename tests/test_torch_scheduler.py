@@ -451,6 +451,9 @@ def test_a_job_cancelled_while_queued_gives_up_its_turn(tmp_path):
                 hold.set()
                 assert mgr.wait("c", timeout=TIMEOUT) == "c"
                 mgr.wait("a", timeout=TIMEOUT)
+                # the waiter writes the document, the status, then the
+                # count
+                _poll(lambda: mgr.lifecycle_counters()["cancelled"] == 1)
                 doc = cat.get_documents("b")[-1]
                 got[which] = (doc["exception"], doc["status"],
                               cat.get_metadata("b")["status"],
@@ -475,6 +478,20 @@ def _wait_finished(api, name, timeout=120.0):
         if time.monotonic() > deadline:
             raise AssertionError(
                 f"{name}: {api.ctx.catalog.get_documents(name)[-1:]}")
+        threading.Event().wait(0.01)
+
+
+def _execution_doc(api, name, timeout=120.0):
+    """The job's last execution document, once its runner has written
+    it (after it marks the job finished)."""
+    deadline = time.monotonic() + timeout
+    while True:
+        docs = [d for d in api.ctx.catalog.get_documents(name)
+                if "elapsedSeconds" in d]
+        if docs:
+            return docs[-1]
+        if time.monotonic() > deadline:
+            raise AssertionError(f"{name}: no execution document")
         threading.Event().wait(0.01)
 
 
@@ -553,10 +570,10 @@ def rest(tmp_path_factory):
                 _wait_finished(api, "e")
             finally:
                 pre.maybe_yield = real_yield
+            doc = _execution_doc(api, "t")
+            _execution_doc(api, "e")
             if api.ctx.monitor is not None:
                 api.ctx.monitor.sample_once()
-            doc = [d for d in api.ctx.catalog.get_documents("t")
-                   if "elapsedSeconds" in d][-1]
             out[which] = {
                 "finished": finished,
                 "doc": doc,
